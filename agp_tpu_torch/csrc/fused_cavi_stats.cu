@@ -1,0 +1,254 @@
+// Fused single-latent CAVI statistics for Hopper (sm_90a): the RBF kernel
+// and the logistic (Polya-Gamma) likelihood.
+//
+// Replaces: agp_tpu/ops/pallas_kernels.py, fused_cavi_stats and its body
+// _cavi_fused_kernel (kind="rbf", lik="logistic").  It computes the same
+// function, one pass per tile of TB minibatch rows:
+//   gram     Knm[t, m]  = var * exp(-|x_t/ls - z_m/ls|^2 / 2)
+//   kappa    kappa[t,:] = Knm[t,:] K^-1
+//   Ktilde   kt[t]      = max(var + jitter - sum_m kappa[t,m] Knm[t,m], 1e-12)
+//   moments  mf[t]      = kappa[t,:] mu
+//            vf[t]      = max(kt[t] + kappa[t,:] Sigma kappa[t,:]^T, 1e-12)
+//   E-step   c = sqrt(mf^2 + vf), theta = tanh(c/2) / (2c)
+//   stats    s1 = kappa^T (rho y/2),  S2 = kappa^T diag(rho theta/2) kappa
+// The minibatch tile is read from device memory once; Knm, kappa and
+// kappa Sigma never leave shared memory.
+//
+// Design, against the TPU kernel:
+// * The TPU grid is a sequential loop that accumulates s1/S2 into one
+//   resident block.  CUDA blocks run in parallel, so each block writes its
+//   partial s1 [M] and S2 [M, M] to scratch and a second kernel sums the
+//   partials in block order: deterministic, no atomics.
+// * The ragged last tile is masked here, from B: rows past B load as zeros
+//   and get zero weight in s1/S2; their per-row outputs are not written.
+// * FP32 FMA throughout, no TF32 and no tensor cores.  The gram uses the
+//   direct form sum_d (x_d - z_d)^2, which does not cancel the way
+//   |x|^2 + |z|^2 - 2 x.z does; kappa = Knm K^-1 (which cancels by
+//   cond(Kmm)) is a full-FP32 dot.  The TPU's [M, TB] lane layout and its
+//   bf16-split dots exist for the MXU and are not carried over.
+// * K^-1 (formed once per call by the wrapper), Sigma, mu, Z and the
+//   [TB, M] gram and kappa tiles are resident in shared memory:
+//   4 (TB D + M (D|1) + 2 M^2 + M + 2 TB M + 4 TB) bytes, 75 KB at
+//   M=64, D=20 and 209 KB at M=128, D=20 (the wrapper refuses M > 128 and
+//   any shape above the card's opt-in limit).
+//
+// What bounds it on an H100: per row it does ~3 M^2 FMAs (kappa, kappa
+// Sigma, S2) against ~4 (D + 1) bytes read, so it is bound by FP32 issue
+// and shared-memory bandwidth, not by device memory.  One block per TB=64
+// rows gives B/64 blocks (64 at the flagship B=4096) on 132 SMs, so at
+// most about half the card is busy; the low occupancy is recorded and left
+// to later work.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int TB = 64;  // minibatch rows per block
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+
+// odd row stride for Z in shared memory: column reads across a warp hit
+// distinct banks
+__host__ __device__ inline int z_stride(int D) { return D | 1; }
+
+size_t smem_bytes(int D, int M) {
+  size_t f = (size_t)TB * D + (size_t)M * z_stride(D) + 2 * (size_t)M * M + M +
+             2 * (size_t)TB * M + 4 * TB;
+  return f * sizeof(float);
+}
+
+__device__ inline float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(THREADS)
+cavi_stats_rbf_logistic(const float* __restrict__ x, const float* __restrict__ y,
+                        const float* __restrict__ z, const float* __restrict__ kinv,
+                        const float* __restrict__ mu, const float* __restrict__ sigma,
+                        const float* __restrict__ params, float* __restrict__ c_out,
+                        float* __restrict__ theta_out, float* __restrict__ mf_out,
+                        float* __restrict__ vf_out, float* __restrict__ s1_part,
+                        float* __restrict__ s2_part, int B, int D, int M) {
+  extern __shared__ float sm[];
+  const int Dz = z_stride(D);
+  float* xs = sm;              // [TB, D]   x / ls
+  float* zs = xs + TB * D;     // [M, Dz]   z / ls
+  float* ki = zs + M * Dz;     // [M, M]    K^-1
+  float* sg = ki + M * M;      // [M, M]    Sigma
+  float* mus = sg + M * M;     // [M]       mu
+  float* G = mus + M;          // [TB, M]   gram, later kappa Sigma
+  float* Kp = G + TB * M;      // [TB, M]   kappa
+  float* kt = Kp + TB * M;     // [TB]      Ktilde
+  float* mfs = kt + TB;        // [TB]      mf
+  float* wg = mfs + TB;        // [TB]      rho y/2, 0 past B
+  float* ws = wg + TB;         // [TB]      rho theta/2, 0 past B
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = blockIdx.x * TB;
+  const int nrows = min(TB, B - row0);
+  const float ls = params[0], var = params[1], jitt = params[2], rho = params[3];
+
+  for (int i = tid; i < TB * D; i += THREADS) {
+    const int t = i / D;
+    xs[i] = t < nrows ? x[(size_t)row0 * D + i] / ls : 0.0f;
+  }
+  for (int i = tid; i < M * D; i += THREADS) zs[(i / D) * Dz + i % D] = z[i] / ls;
+  for (int i = tid; i < M * M; i += THREADS) {
+    ki[i] = kinv[i];
+    sg[i] = sigma[i];
+  }
+  for (int i = tid; i < M; i += THREADS) mus[i] = mu[i];
+  __syncthreads();
+
+  // gram, direct form
+  for (int i = tid; i < TB * M; i += THREADS) {
+    const float* xr = xs + (i / M) * D;
+    const float* zr = zs + (i % M) * Dz;
+    float r2 = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float df = xr[d] - zr[d];
+      r2 = fmaf(df, df, r2);
+    }
+    G[i] = var * expf(-0.5f * r2);
+  }
+  __syncthreads();
+
+  // kappa = Knm K^-1
+  for (int i = tid; i < TB * M; i += THREADS) {
+    const float* gr = G + (i / M) * M;
+    const int n = i % M;
+    float acc = 0.0f;
+    for (int m = 0; m < M; ++m) acc = fmaf(gr[m], ki[m * M + n], acc);
+    Kp[i] = acc;
+  }
+  __syncthreads();
+
+  // per row: Ktilde and mf, one warp per row
+  for (int t = warp; t < TB; t += WARPS) {
+    float q = 0.0f, m1 = 0.0f;
+    for (int n = lane; n < M; n += 32) {
+      const float k = Kp[t * M + n];
+      q = fmaf(k, G[t * M + n], q);
+      m1 = fmaf(k, mus[n], m1);
+    }
+    q = warp_sum(q);
+    m1 = warp_sum(m1);
+    if (lane == 0) {
+      kt[t] = fmaxf(var + jitt - q, 1e-12f);
+      mfs[t] = m1;
+    }
+  }
+  __syncthreads();
+
+  // kappa Sigma, over the gram tile (no longer needed)
+  for (int i = tid; i < TB * M; i += THREADS) {
+    const float* kr = Kp + (i / M) * M;
+    const int n = i % M;
+    float acc = 0.0f;
+    for (int m = 0; m < M; ++m) acc = fmaf(kr[m], sg[m * M + n], acc);
+    G[i] = acc;
+  }
+  __syncthreads();
+
+  // per row: vf and the Polya-Gamma E-step
+  for (int t = warp; t < TB; t += WARPS) {
+    float q = 0.0f;
+    for (int n = lane; n < M; n += 32) q = fmaf(G[t * M + n], Kp[t * M + n], q);
+    q = warp_sum(q);
+    if (lane == 0) {
+      const float mf = mfs[t];
+      const float vf = fmaxf(kt[t] + q, 1e-12f);
+      const float c = sqrtf(mf * mf + vf);
+      const float th = tanhf(c / 2.0f) / (2.0f * c);
+      if (t < nrows) {
+        const int r = row0 + t;
+        c_out[r] = c;
+        theta_out[r] = th;
+        mf_out[r] = mf;
+        vf_out[r] = vf;
+        wg[t] = rho * (y[r] / 2.0f);
+        ws[t] = rho * (th / 2.0f);
+      } else {
+        wg[t] = 0.0f;
+        ws[t] = 0.0f;
+      }
+    }
+  }
+  __syncthreads();
+
+  // this block's partial statistics
+  float* s1p = s1_part + (size_t)blockIdx.x * M;
+  float* s2p = s2_part + (size_t)blockIdx.x * M * M;
+  for (int m = tid; m < M; m += THREADS) {
+    float acc = 0.0f;
+    for (int t = 0; t < TB; ++t) acc = fmaf(Kp[t * M + m], wg[t], acc);
+    s1p[m] = acc;
+  }
+  for (int i = tid; i < M * M; i += THREADS) {
+    const int m = i / M, n = i % M;
+    float acc = 0.0f;
+    for (int t = 0; t < TB; ++t) acc = fmaf(Kp[t * M + m] * ws[t], Kp[t * M + n], acc);
+    s2p[i] = acc;
+  }
+}
+
+// s1 = sum_b s1_part[b], S2 = sum_b s2_part[b], in block order
+__global__ void sum_partials(const float* __restrict__ s1_part,
+                             const float* __restrict__ s2_part, float* __restrict__ s1,
+                             float* __restrict__ s2, int nb, int M) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < M) {
+    float acc = 0.0f;
+    for (int b = 0; b < nb; ++b) acc += s1_part[(size_t)b * M + i];
+    s1[i] = acc;
+  } else if (i < M + M * M) {
+    const int j = i - M;
+    float acc = 0.0f;
+    for (int b = 0; b < nb; ++b) acc += s2_part[(size_t)b * M * M + j];
+    s2[j] = acc;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int agp_fused_cavi_tile_rows(void) { return TB; }
+
+size_t agp_fused_cavi_smem_bytes(int D, int M) { return smem_bytes(D, M); }
+
+const char* agp_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// All pointers are device pointers to contiguous float32 arrays:
+// x [B, D], y [B], z [M, D], kinv [M, M], mu [M], sigma [M, M],
+// params [4] = (lengthscale, variance, jitter, rho); outputs c, theta, mf,
+// vf [B], s1 [M], s2 [M, M]; scratch s1_part [nb, M], s2_part [nb, M, M]
+// with nb = ceil(B / TB).  Returns the CUDA error of the launches.
+int agp_fused_cavi_stats_rbf_logistic(const float* x, const float* y, const float* z,
+                                      const float* kinv, const float* mu,
+                                      const float* sigma, const float* params, float* c,
+                                      float* theta, float* mf, float* vf, float* s1_part,
+                                      float* s2_part, float* s1, float* s2, int B, int D,
+                                      int M, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nb = (B + TB - 1) / TB;
+  const size_t smem = smem_bytes(D, M);
+  cudaError_t err = cudaFuncSetAttribute(
+      cavi_stats_rbf_logistic, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cavi_stats_rbf_logistic<<<nb, THREADS, smem, st>>>(x, y, z, kinv, mu, sigma, params, c,
+                                                     theta, mf, vf, s1_part, s2_part, B,
+                                                     D, M);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = M + M * M;
+  sum_partials<<<(total + 255) / 256, 256, 0, st>>>(s1_part, s2_part, s1, s2, nb, M);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

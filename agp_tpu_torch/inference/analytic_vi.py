@@ -1,0 +1,235 @@
+"""AnalyticVI / AnalyticSVI: blockwise CAVI with natural-gradient updates,
+the counterpart of ``agp_tpu/inference/analytic_vi.py``.
+
+One CAVI iteration:
+
+  kernel matrices -> (kappa, Ktilde) -> mean_f/var_f -> likelihood E-step ->
+  natural gradient -> eta -> (mu, Sigma)
+
+Update equations:
+  sparse: d_eta1 = kappa^T (rho gmu) + K^-1 mu0 - eta1
+          d_eta2 = -(rho kappa^T Diag(gs) kappa + K^-1/2) - eta2
+  stochastic: eta += RobbinsMonro-scaled d_eta; else eta += d_eta.
+
+Dispatch: a single-latent sparse model with the logistic likelihood and the
+squared-exponential kernel always takes the fused statistics pass
+(``ops/cuda_kernels.py::fused_cavi_stats``: the CUDA kernel on a CUDA
+tensor, its plain version on a CPU tensor).  Every other case, and any
+row-weighted batch, takes the unfused path built from ``latent_moments``,
+the likelihood's ``local_updates`` and ``apply_natural_gradient``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..config import jitter
+from ..kernels import SqExponentialKernel, batch_diag, batch_gram, batch_gram_zz, latent
+from ..likelihoods.classification import LogisticLikelihood
+from ..means import batch_call
+from ..ops import cuda_kernels, linalg
+from ..ops.kl import gaussian_kl
+from ..training.state import TrainState
+from ..utils.opt import ascent_update
+
+
+# --------------------------------------------------------------- kernel mats
+@linalg._highest_precision
+def compute_kmat(model, X=None) -> Dict[str, torch.Tensor]:
+    """Cholesky factor, inverse and triangular inverse of the prior
+    covariance over the inducing inputs Z [L, M, D]."""
+    K = batch_gram_zz(model.kernel, model.Z)
+    L_K = linalg.safe_cholesky(K, jitter(K.dtype))
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand(K.shape)
+    return {
+        "L_K": L_K,
+        "K_inv": linalg.chol_inv(L_K),
+        "L_inv": torch.linalg.solve_triangular(L_K, eye, upper=False),
+    }
+
+
+def kmat_l_inv(kmat):
+    """kmat["L_inv"], computed from L_K when absent."""
+    if "L_inv" in kmat:
+        return kmat["L_inv"]
+    L_K = kmat["L_K"]
+    eye = torch.eye(L_K.shape[-1], dtype=L_K.dtype, device=L_K.device).expand(L_K.shape)
+    return torch.linalg.solve_triangular(L_K, eye, upper=False)
+
+
+@linalg._highest_precision
+def compute_kappa(model, x, kmat):
+    """(Knm, kappa = Knm Kmm^-1, Ktilde) for a data batch; Ktilde is clamped
+    at a tiny positive floor."""
+    Knm = batch_gram(model.kernel, x, model.Z)  # [L, B, M]
+    kappa = Knm @ kmat["K_inv"]
+    kdiag = batch_diag(model.kernel, x)  # [L, B]
+    Ktilde = kdiag + jitter(Knm.dtype) - linalg.diag_ABt(kappa, Knm)
+    return Knm, kappa, torch.clamp(Ktilde, min=1e-12)
+
+
+@linalg._highest_precision
+def latent_moments(model, state: TrainState, x, kmat):
+    """mean_f/var_f [L, B] of the latent function at the batch, and kappa."""
+    if model.n_latent == 1:
+        kernel1 = latent(model.kernel, 0)
+        Knm = kernel1.gram(x, model.Z[0])  # [B, M]
+        kappa1 = Knm @ kmat["K_inv"][0]
+        Ktilde1 = kernel1.diag(x) + jitter(Knm.dtype) - torch.sum(kappa1 * Knm, dim=1)
+        Ktilde1 = torch.clamp(Ktilde1, min=1e-12)
+        mu_f = (kappa1 @ state.mu[0])[None]
+        vf = Ktilde1 + torch.sum((kappa1 @ state.Sigma[0]) * kappa1, dim=1)
+        return mu_f, vf[None], kappa1[None]
+    _, kappa, Ktilde = compute_kappa(model, x, kmat)
+    mu_f = torch.einsum("lbm,lm->lb", kappa, state.mu)
+    var_f = Ktilde + linalg.diag_ABt(kappa @ state.Sigma, kappa)
+    return mu_f, var_f, kappa
+
+
+def _fused_spec(model):
+    """(kind, lik, p0, p1, c_key) when the step takes the fused statistics
+    pass: single-latent sparse model, squared-exponential kernel, logistic
+    likelihood.  No shape gate: the reference's gates were measured on a
+    TPU."""
+    if model.n_latent != 1 or not model.is_sparse or model.is_online:
+        return None
+    if not isinstance(model.kernel, SqExponentialKernel):
+        return None
+    if isinstance(model.likelihood, LogisticLikelihood):
+        return "rbf", "logistic", 0.0, 0.0, "c"
+    return None
+
+
+def _fused_scaled_inputs(model, x):
+    """(x', Z', ls) for the fused pass.  An isotropic lengthscale passes
+    through; an ARD ([D]) lengthscale is folded into the coordinates
+    (x/ls, Z/ls, with ls = 1 in the kernel)."""
+    ls0 = model.kernel.lengthscale[0]  # strip the [L=1] latent axis
+    if ls0.ndim == 0:
+        return x, model.Z[0], ls0
+    return x / ls0, model.Z[0] / ls0, torch.ones((), dtype=x.dtype, device=x.device)
+
+
+# ----------------------------------------------------------------- CAVI step
+def variational_update(model, state: TrainState, x, y, w=None):
+    """One blockwise coordinate-ascent update (E-step + natural gradient +
+    global update); returns (model, state).
+
+    ``w`` ([B] of 0/1, optional) zero-weights rows out of every cross-batch
+    statistic; a weighted batch takes the unfused path."""
+    kmat = state.kmat
+    fused = _fused_spec(model) if w is None else None
+    if fused is not None:
+        kind, lik_name, p0, p1, c_key = fused
+        xs, zs, ls = _fused_scaled_inputs(model, x)
+        # the kernel takes dense row-major operands (a no-op when they are)
+        s1, S2, c, theta, _, _ = cuda_kernels.fused_cavi_stats(
+            xs.contiguous(),
+            y.contiguous(),
+            zs.contiguous(),
+            kmat_l_inv(kmat)[0].T,
+            state.mu[0].contiguous(),
+            state.Sigma[0].contiguous(),
+            ls,
+            model.kernel.variance[0],
+            jitter(x.dtype),
+            state.rho,
+            lik_p0=p0,
+            lik_p1=p1,
+            kind=kind,
+            lik=lik_name,
+        )
+        local = dict(state.local_vars)
+        local["theta"] = theta.to(x.dtype)
+        if c_key in local:
+            local[c_key] = c.to(x.dtype)
+        state = _nat_update_from_stats(
+            model, state.replace(local_vars=local), s1.to(x.dtype)[None], S2.to(x.dtype)[None], x
+        )
+        return model, state
+
+    mu_f, var_f, kappa = latent_moments(model, state, x, kmat)
+    lik, local = model.likelihood.local_updates(y, mu_f, var_f, state.local_vars, w=w)
+    model = model.replace(likelihood=lik)
+    gmu = lik.grad_e_mu(y, local)  # [L, B]
+    gs = lik.grad_e_sigma(y, local)  # [L, B]
+    if w is not None:
+        gmu = gmu * w
+        gs = gs * w
+    state = apply_natural_gradient(model, state.replace(local_vars=local), kappa, gmu, gs, x)
+    return model, state
+
+
+@linalg._highest_precision
+def apply_natural_gradient(model, state: TrainState, kappa, gmu, gs, x) -> TrainState:
+    """Sparse natural-gradient + global update from the gradient
+    expectations gmu/gs [L, B] and kappa [L, B, M]."""
+    if not model.is_sparse:
+        raise NotImplementedError("the dense (VGP) branch is not ported yet")
+    rho = state.rho
+    if model.n_latent == 1:
+        k1 = kappa[0]
+        s1 = (k1.T @ (rho * gmu[0]))[None]
+        stat2 = ((k1 * (rho * gs[0])[:, None]).T @ k1)[None]
+    else:
+        s1 = torch.einsum("lbm,lb->lm", kappa, rho * gmu)
+        stat2 = torch.einsum("lbm,lb,lbn->lmn", kappa, rho * gs, kappa)
+    return _nat_update_from_stats(model, state, s1, stat2, x)
+
+
+@linalg._highest_precision
+def _nat_update_from_stats(model, state: TrainState, s1, stat2, x) -> TrainState:
+    """Sparse natural-gradient global update given the two cross-data
+    statistics s1 = kappa^T (rho gmu) [L, M] and
+    stat2 = kappa^T diag(rho gs) kappa [L, M, M]."""
+    K_inv = state.kmat["K_inv"]
+    mu0 = prior_mean_stack(model, x)
+    Kinv_mu0 = (K_inv @ mu0.unsqueeze(-1)).squeeze(-1)
+    nat1_target = s1 + Kinv_mu0
+    nat2_target = -(stat2 + 0.5 * K_inv)
+    if model.inference.stochastic:
+        opt_state, (u1, u2) = ascent_update(
+            model.inference.optimiser,
+            state.opt_state,
+            (state.eta1, state.eta2),
+            (nat1_target - state.eta1, nat2_target - state.eta2),
+        )
+        eta1 = state.eta1 + u1
+        eta2 = linalg.symmetrize(state.eta2 + u2)
+        state = state.replace(opt_state=opt_state)
+    else:
+        eta1 = nat1_target
+        eta2 = linalg.symmetrize(nat2_target)
+    return state.replace(eta1=eta1, eta2=eta2, **_moments_kw(model, eta1, eta2))
+
+
+def _moments_kw(model, eta1, eta2):
+    """(mu, Sigma) by the exact Cholesky path, the one the reference runs
+    off-TPU.  ``linalg.nat_to_moments_warm`` is ported but not wired in:
+    whether the H100 wants it is a measurement still to be made."""
+    mu, Sigma = linalg.nat_to_moments(eta1, eta2)
+    return dict(mu=mu, Sigma=Sigma)
+
+
+def prior_mean_stack(model, x):
+    """[L, M] prior mean over the inducing inputs."""
+    return batch_call(model.mean, model.Z, model.n_latent)
+
+
+# ---------------------------------------------------------------------- ELBO
+@linalg._highest_precision
+def elbo(model, state: TrainState, x, y, kmat=None) -> torch.Tensor:
+    """ELBO = rho E[log p(y|f,omega)] - GaussianKL - rho AugmentedKL, on the
+    batch (x, y) whose local variables are in ``state``."""
+    kmat = state.kmat if kmat is None else kmat
+    mu_f, var_f, _ = latent_moments(model, state, x, kmat)
+    rho = state.rho
+    tot = rho * model.likelihood.expec_loglik(y, mu_f, var_f, state.local_vars)
+    mu0 = prior_mean_stack(model, x)
+    kl = torch.stack([
+        gaussian_kl(state.mu[l], mu0[l], state.Sigma[l], kmat["L_K"][l])
+        for l in range(model.n_latent)
+    ])
+    tot = tot - torch.sum(kl)
+    return tot - rho * model.likelihood.aug_kl(state.local_vars, y)

@@ -1,0 +1,62 @@
+"""Carry parameters and training state over from the JAX package.
+
+Both functions take numpy arrays (``np.asarray`` of the JAX model's and
+state's leaves), so this module needs no JAX.  Starting both packages from
+identical states is how the port is checked step for step against the
+reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .means import ConstantMean
+from .training.state import TrainState
+
+
+def model_from_numpy(params: dict, template):
+    """``template`` (a port model) with its parameters taken from ``params``:
+    "Z" [L, M, D] (or [M, D]), "lengthscale" and "variance" (latent-stacked,
+    as the reference replicates them) and, for a constant mean, "mean_c".
+    Tensors land on template.Z's device and dtype."""
+    dev, dt = template.Z.device, template.Z.dtype
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    Z = t(params["Z"])
+    if Z.ndim == 2:
+        Z = Z.expand((template.n_latent,) + Z.shape).clone()
+    kernel = template.kernel.replace(
+        lengthscale=t(params["lengthscale"]), variance=t(params["variance"])
+    )
+    mean = template.mean
+    if "mean_c" in params:
+        mean = ConstantMean(c=t(params["mean_c"]))
+    return template.replace(Z=Z, kernel=kernel, mean=mean)
+
+
+def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
+    """A TrainState from numpy arrays: "eta1", "eta2", "mu", "Sigma",
+    "local_vars" (a dict), "opt_state" (the Robbins-Monro step count, or
+    None), "rho", "step" and "kmat" ({"L_K", "K_inv"} and optionally
+    "L_inv")."""
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device)
+
+    opt = arrays.get("opt_state")
+    return TrainState(
+        eta1=f(arrays["eta1"]),
+        eta2=f(arrays["eta2"]),
+        mu=f(arrays["mu"]),
+        Sigma=f(arrays["Sigma"]),
+        local_vars={k: f(v) for k, v in arrays["local_vars"].items()},
+        opt_state=None if opt is None else i32(opt),
+        kmat={k: f(v) for k, v in arrays["kmat"].items()},
+        rho=f(arrays["rho"]),
+        step=i32(arrays["step"]),
+    )

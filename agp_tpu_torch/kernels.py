@@ -1,0 +1,108 @@
+"""Kernel (covariance-function) library of the port: the squared-exponential
+kernel of the flagship, the counterpart of the matching parts of
+``agp_tpu/kernels.py``.
+
+Kernels are frozen dataclasses whose tensor fields are the hyperparameters.
+A model holds one kernel whose fields carry a leading latent axis [L, ...]
+(``replicate``); ``batch_gram`` and friends loop over that axis.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .ops.linalg import _highest_precision
+from .utils.tensors import Params
+
+
+def _scalar(v):
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.as_tensor(v, dtype=torch.get_default_dtype())
+
+
+@_highest_precision
+def sq_dist(X: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared Euclidean distance by |x|^2 + |z|^2 - 2 x z^T, the
+    cross term at full FP32 (the sum cancels), clamped at 0."""
+    xx = torch.sum(X * X, dim=-1)
+    zz = torch.sum(Z * Z, dim=-1)
+    d2 = xx[:, None] + zz[None, :] - 2.0 * (X @ Z.T)
+    return torch.clamp(d2, min=0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel(Params):
+    """Base kernel.  Subclasses implement ``gram`` and ``diag``."""
+
+    def gram(self, X: torch.Tensor, Z: torch.Tensor | None = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def diag(self, X: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class StationaryKernel(Kernel):
+    """Stationary kernel with a scalar or ARD ([D]) lengthscale and an output
+    variance."""
+
+    lengthscale: torch.Tensor = 1.0
+    variance: torch.Tensor = 1.0
+
+    def __post_init__(self):
+        object.__setattr__(self, "lengthscale", _scalar(self.lengthscale))
+        object.__setattr__(self, "variance", _scalar(self.variance))
+
+    def _from_r2(self, r2: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def gram(self, X, Z=None):
+        Z = X if Z is None else Z
+        r2 = sq_dist(X / self.lengthscale, Z / self.lengthscale)
+        return self.variance * self._from_r2(r2)
+
+    def diag(self, X):
+        return torch.broadcast_to(self.variance, (X.shape[0],)).to(X.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class SqExponentialKernel(StationaryKernel):
+    """k(x, z) = v * exp(-|x - z|^2 / (2 l^2)) (a.k.a. RBF)."""
+
+    def _from_r2(self, r2):
+        return torch.exp(-0.5 * r2)
+
+
+RBFKernel = SqExponentialKernel
+
+
+def replicate(kernel: Kernel, n_latent: int) -> Kernel:
+    """Stack a kernel's fields with a leading latent axis [L, ...]."""
+    return kernel.map(lambda p: torch.broadcast_to(p, (n_latent,) + p.shape).clone())
+
+
+def latent(kernel: Kernel, l: int) -> Kernel:
+    """The kernel of latent ``l`` of a replicated kernel."""
+    return kernel.map(lambda p: p[l])
+
+
+def batch_gram(kernel: Kernel, X, Z=None) -> torch.Tensor:
+    """[L, N, M] Gram stack from a replicated kernel ([L]-leading fields)."""
+    L = kernel.variance.shape[0]
+    if Z is None:
+        return torch.stack([latent(kernel, l).gram(X, X) for l in range(L)])
+    if Z.ndim == 3:  # per-latent inducing sets
+        return torch.stack([latent(kernel, l).gram(X, Z[l]) for l in range(L)])
+    return torch.stack([latent(kernel, l).gram(X, Z) for l in range(L)])
+
+
+def batch_gram_zz(kernel: Kernel, Z) -> torch.Tensor:
+    """[L, M, M] Gram of per-latent inducing sets Z [L, M, D]."""
+    return torch.stack([latent(kernel, l).gram(Z[l], Z[l]) for l in range(Z.shape[0])])
+
+
+def batch_diag(kernel: Kernel, X) -> torch.Tensor:
+    L = kernel.variance.shape[0]
+    return torch.stack([latent(kernel, l).diag(X) for l in range(L)])

@@ -1,0 +1,98 @@
+"""Likelihood protocol: the counterpart of ``agp_tpu/likelihoods/base.py``.
+
+A likelihood is a frozen dataclass whose tensor fields are its parameters.
+Its methods are pure: ``local_updates`` returns a new (likelihood,
+local_vars) pair.  Latent values arrive stacked as mu/var of shape [L, B];
+local variables are a dict of [B]- or [L, B]-shaped tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from ..utils.tensors import Params
+
+LocalVars = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Likelihood(Params):
+    @property
+    def n_latent(self) -> int:
+        return 1
+
+    @classmethod
+    def implemented(cls) -> frozenset:
+        """Names of the compatible inference engines."""
+        return frozenset()
+
+    def treat_labels(self, y) -> Tuple[torch.Tensor, "Likelihood"]:
+        """Validate/transform raw labels (host side, before training)."""
+        return torch.as_tensor(y), self
+
+    def init_local_vars(self, batchsize: int, dtype=torch.float32, device=None) -> LocalVars:
+        raise NotImplementedError
+
+    def local_updates(self, y, mu, var, local: LocalVars, w=None):
+        """Closed-form E-step q(omega) update; mu/var: [L, B].  ``w`` ([B] of
+        0/1) marks padded rows for likelihoods whose E-step updates a
+        parameter from cross-batch sums."""
+        raise NotImplementedError
+
+    def grad_e_mu(self, y, local: LocalVars) -> torch.Tensor:
+        """[L, B] coefficient of mu in dE[log p]/dmu."""
+        raise NotImplementedError
+
+    def grad_e_sigma(self, y, local: LocalVars) -> torch.Tensor:
+        """[L, B] theta/2-style coefficient."""
+        raise NotImplementedError
+
+    def expec_loglik(self, y, mu, var, local: LocalVars) -> torch.Tensor:
+        """E_q[log p(y | f, omega)] summed over the batch."""
+        raise NotImplementedError
+
+    def aug_kl(self, local: LocalVars, y) -> torch.Tensor:
+        """KL(q(omega) || p(omega)) summed over the batch."""
+        raise NotImplementedError
+
+    def compute_proba(self, mu, var):
+        """Push the latent predictive N(mu, var) through the likelihood."""
+        raise NotImplementedError
+
+    def predict_y(self, mu):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class SingleLatentLikelihood(Likelihood):
+    """Adapter: subclasses implement the single-latent contract on [B]
+    vectors (methods prefixed with ``_``); this class lifts them to the
+    stacked [1, B] layout the inference engine uses.  The row mask ``w`` is
+    not passed down: no ported likelihood updates a parameter from
+    cross-batch sums."""
+
+    def _local_updates(self, y, mu, var, local):
+        raise NotImplementedError
+
+    def _grad_e_mu(self, y, local):
+        raise NotImplementedError
+
+    def _grad_e_sigma(self, y, local):
+        raise NotImplementedError
+
+    def _expec_loglik(self, y, mu, var, local):
+        raise NotImplementedError
+
+    def local_updates(self, y, mu, var, local, w=None):
+        return self._local_updates(y, mu[0], var[0], local)
+
+    def grad_e_mu(self, y, local):
+        return self._grad_e_mu(y, local)[None, :]
+
+    def grad_e_sigma(self, y, local):
+        return self._grad_e_sigma(y, local)[None, :]
+
+    def expec_loglik(self, y, mu, var, local):
+        return self._expec_loglik(y, mu[0], var[0], local)

@@ -1,0 +1,96 @@
+"""SVGP: sparse variational Gaussian process over an inducing set Z, the
+counterpart of ``SVGP`` in ``agp_tpu/models/svgp.py``.
+
+The latent GPs live on a stacked axis ([L, M, D] inducing points).  This
+slice of the port takes the squared-exponential kernel, the logistic
+likelihood and fixed hyperparameters (``optimiser=None``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from ..inference.config import InferenceConfig
+from ..kernels import SqExponentialKernel
+from ..likelihoods.base import Likelihood
+from ..likelihoods.classification import LogisticLikelihood
+from ..means import ConstantMean, PriorMean, ZeroMean
+from ..utils.tensors import Params
+from .base import as_2d, check_implemented, prepare_components
+
+_PORTED_KERNELS = (SqExponentialKernel,)
+_PORTED_LIKELIHOODS = (LogisticLikelihood,)
+_PORTED_MEANS = (ZeroMean, ConstantMean)
+
+
+@dataclasses.dataclass(frozen=True)
+class SVGP(Params):
+    kernel: Any
+    likelihood: Likelihood
+    mean: PriorMean
+    Z: torch.Tensor  # [L, M, D]
+    inference: InferenceConfig
+    n_latent: int
+    atfrequency: int = 1
+    optimiser: Optional[Any] = None
+
+    is_sparse = True
+    is_multioutput = False
+    is_online = False
+
+    @classmethod
+    def create(
+        cls,
+        kernel,
+        likelihood,
+        inference,
+        Z,
+        mean=None,
+        optimiser="default",
+        atfrequency: int = 1,
+    ):
+        """Data-free constructor; data is given to ``train``.  The kernel's
+        and the mean's parameters are placed on Z's device and dtype.
+
+        Only ``optimiser=None`` (fixed hyperparameters) is ported: the
+        hyperparameter step is not, so any optimiser, the reference's
+        default Adam included, raises ``NotImplementedError``."""
+        if optimiser is not None:
+            raise NotImplementedError(
+                "the hyperparameter step is not ported yet: pass optimiser=None"
+            )
+        for obj, ported, what in (
+            (kernel, _PORTED_KERNELS, "kernel"),
+            (likelihood, _PORTED_LIKELIHOODS, "likelihood"),
+            (mean if mean is not None else ZeroMean(), _PORTED_MEANS, "mean"),
+        ):
+            if not isinstance(obj, ported):
+                raise NotImplementedError(
+                    f"{type(obj).__name__} is not ported yet; the {what}s of "
+                    f"this port are {[c.__name__ for c in ported]}"
+                )
+        check_implemented(likelihood, inference)
+        n_latent = likelihood.n_latent
+        mean = ZeroMean() if mean is None else mean
+        Z = as_2d(Z)
+        kernel, mean = prepare_components(kernel, likelihood, mean, n_latent)
+        kernel = kernel.to(device=Z.device, dtype=Z.dtype)
+        mean = mean.to(device=Z.device, dtype=Z.dtype)
+        if Z.ndim == 2:
+            Z = Z.expand((n_latent,) + Z.shape).clone()
+        return cls(
+            kernel=kernel,
+            likelihood=likelihood,
+            mean=mean,
+            Z=Z,
+            inference=inference,
+            n_latent=n_latent,
+            atfrequency=atfrequency,
+            optimiser=None,
+        )
+
+    @property
+    def n_inducing(self):
+        return self.Z.shape[1]

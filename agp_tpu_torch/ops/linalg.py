@@ -1,0 +1,173 @@
+"""Dense linear-algebra primitives of the CAVI step: the counterpart of
+``agp_tpu/ops/linalg.py``.
+
+Everything here is [M, M]-scale work (factorizations, triangular solves,
+inverses, eta <-> moments) and runs at full FP32 (or FP64): TF32 keeps about
+three decimal digits, which ill-conditioned kernel matrices do not survive.
+
+The two jitter ladders, which the reference runs as ``lax.while_loop``s, are
+one batched ``torch.linalg.cholesky_ex`` over all rungs followed by a
+device-side selection of the first rung that factorized.  No value is read
+back to the host, so a training step holds no device sync.  Functions take
+optional leading batch dimensions ``[..., M, M]``.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..config import jitter
+
+
+def _highest_precision(fn):
+    """Run ``fn`` with TF32 matmuls disabled (the analogue of the reference's
+    ``jax.default_matmul_precision("highest")``); the previous setting is
+    restored on exit."""
+
+    @functools.wraps(fn)
+    def wrapped(*a, **kw):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    return wrapped
+
+
+def _eye_like(A: torch.Tensor) -> torch.Tensor:
+    return torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+
+
+def _ladder_cholesky(A: torch.Tensor, jitters: torch.Tensor) -> torch.Tensor:
+    """Cholesky of ``A + j I`` for the first rung ``j`` of ``jitters``
+    ([R, ...], one ladder per matrix of A) whose factorization succeeds.
+
+    All R factorizations run as one batch; the selection is a gather, so the
+    call stays on the device.  When no rung succeeds the result is NaN, as
+    the reference's factorization of the last rung is."""
+    R = jitters.shape[0]
+    Aj = A.unsqueeze(0) + jitters[..., None, None] * _eye_like(A)
+    L, info = torch.linalg.cholesky_ex(Aj)
+    ok = (info == 0) & torch.isfinite(L).all(-1).all(-1)  # [R, ...]
+    first = torch.where(
+        ok.any(0), ok.to(torch.int32).argmax(0), torch.full_like(info[0], R - 1)
+    )
+    idx = first.reshape((1,) + first.shape + (1, 1)).to(torch.int64)
+    L = torch.take_along_dim(L, idx, dim=0)[0]
+    return torch.where(ok.any(0)[..., None, None], L, torch.full_like(L, float("nan")))
+
+
+@_highest_precision
+def safe_cholesky(K: torch.Tensor, jitt: float | None = None) -> torch.Tensor:
+    """Lower Cholesky factor of ``K + jitt*I`` with an adaptive jitter ladder:
+    if the factorization fails, the jitter is multiplied by 10, up to 4
+    times (5 rungs, the first being the dtype-scaled jitter)."""
+    if jitt is None:
+        jitt = jitter(K.dtype)
+    j = torch.full(K.shape[:-2], jitt, dtype=K.dtype, device=K.device)
+    rungs = [j]
+    for _ in range(4):
+        rungs.append(rungs[-1] * 10.0)
+    return _ladder_cholesky(K, torch.stack(rungs))
+
+
+@_highest_precision
+def psd_safe_cholesky(A: torch.Tensor, base=None) -> torch.Tensor:
+    """Cholesky of a matrix that is PD by construction but can round slightly
+    indefinite.  The ladder starts at ZERO (exact whenever the plain
+    factorization succeeds) and escalates ``base * 10^k``, k = 0..4.  The
+    default base is norm-relative: max(jitter(dtype), 3e-7 * mean |diag|)."""
+    if base is None:
+        mean_diag = torch.diagonal(A, dim1=-2, dim2=-1).abs().mean(-1)
+        base = torch.clamp(3e-7 * mean_diag, min=jitter(A.dtype))
+    base = torch.as_tensor(base, dtype=A.dtype, device=A.device).expand(A.shape[:-2])
+    # rungs made on the device: a host-built table would cost a copy and a
+    # sync on every call
+    rungs = [base * 0.0, base] + [base * 10.0**k for k in range(1, 5)]
+    return _ladder_cholesky(A, torch.stack(rungs))
+
+
+@_highest_precision
+def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve ``A x = B`` given the lower Cholesky factor ``L`` of ``A``."""
+    vec = B.ndim == L.ndim - 1
+    if vec:
+        B = B.unsqueeze(-1)
+    y = torch.linalg.solve_triangular(L, B, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    return x.squeeze(-1) if vec else x
+
+
+@_highest_precision
+def chol_inv(L: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``A`` from its lower Cholesky factor, symmetrized."""
+    return symmetrize(chol_solve(L, _eye_like(L).expand(L.shape)))
+
+
+def chol_logdet(L: torch.Tensor) -> torch.Tensor:
+    """log|A| from the lower Cholesky factor of A."""
+    return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+
+
+@_highest_precision
+def invquad(L: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x^T A^-1 x given the lower Cholesky factor of A (a vector x, or the
+    sum over the columns of a matrix x)."""
+    vec = x.ndim == 1
+    v = torch.linalg.solve_triangular(L, x.unsqueeze(-1) if vec else x, upper=False)
+    return torch.sum(v * v)
+
+
+def symmetrize(A: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (A + A.mT)
+
+
+def diag_ABt(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """diag(A @ B^T) without forming the product."""
+    return torch.sum(A * B, dim=-1)
+
+
+@_highest_precision
+def nat_to_moments(eta1: torch.Tensor, eta2: torch.Tensor):
+    """(mu, Sigma) from the natural parameters: Sigma = -1/2 eta2^-1,
+    mu = Sigma eta1, with the zero-first jitter ladder on -eta2."""
+    L = psd_safe_cholesky(-symmetrize(eta2))
+    Sigma = symmetrize(0.5 * chol_solve(L, _eye_like(eta2).expand(eta2.shape)))
+    mu = (Sigma @ eta1.unsqueeze(-1)).squeeze(-1)
+    return mu, Sigma
+
+
+@_highest_precision
+def nat_to_moments_warm(
+    eta1: torch.Tensor,
+    eta2: torch.Tensor,
+    Sigma_prev: torch.Tensor,
+    schulz_iters: int = 4,
+    rho_max: float = 0.35,
+):
+    """Matmul-only variant of :func:`nat_to_moments`: Newton-Schulz
+    X <- X (2I - A X) on A = -2 eta2, warm-started at ``Sigma_prev``, with the
+    exact Cholesky path when the warm start is far (residual
+    ||I - A Sigma_prev||_F >= rho_max, or not finite).
+
+    The reference chooses the branch with ``lax.cond``; here both branches
+    run and ``torch.where`` selects on the device, so no value is read back
+    to the host."""
+    eye = _eye_like(eta2)
+    A = -2.0 * symmetrize(eta2)
+    R0 = eye - A @ Sigma_prev
+    rho0 = torch.sqrt(torch.sum(R0 * R0, dim=(-2, -1)))
+
+    X = Sigma_prev
+    for _ in range(schulz_iters):
+        X = X @ (2.0 * eye - A @ X)
+    schulz = symmetrize(X)
+    L = psd_safe_cholesky(0.5 * A)
+    chol = symmetrize(0.5 * chol_solve(L, eye.expand(A.shape)))
+
+    use_schulz = (rho0 < rho_max) & torch.isfinite(rho0)
+    Sigma = torch.where(use_schulz[..., None, None], schulz, chol)
+    return (Sigma @ eta1.unsqueeze(-1)).squeeze(-1), Sigma

@@ -1,0 +1,27 @@
+"""Gauss-Hermite quadrature for Gaussian expectations: the counterpart of
+``agp_tpu/ops/quadrature.py``.  The node table is computed once on the host
+with numpy; the expectation is one [..., n] broadcast and one reduction."""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+@lru_cache(maxsize=None)
+def gauss_hermite(n: int):
+    """Physicists' Gauss-Hermite nodes and weights rescaled so that
+    ``sum(w * g(x))`` approximates ``E[g(X)]`` for X ~ N(0, 1)."""
+    x, w = np.polynomial.hermite.hermgauss(n)
+    return np.sqrt(2.0) * x, w / np.sqrt(np.pi)
+
+
+def expectation(fn, mu: torch.Tensor, var: torch.Tensor, n: int = 100) -> torch.Tensor:
+    """E_{f ~ N(mu, var)}[fn(f)] elementwise over mu/var of any shape."""
+    x, w = gauss_hermite(n)
+    x = torch.as_tensor(x, dtype=mu.dtype, device=mu.device)
+    w = torch.as_tensor(w, dtype=mu.dtype, device=mu.device)
+    sd = torch.sqrt(torch.clamp(var, min=0.0))
+    nodes = mu[..., None] + sd[..., None] * x
+    return torch.sum(w * fn(nodes), dim=-1)

@@ -1,0 +1,46 @@
+"""The training state: the counterpart of ``TrainState`` and
+``init_var_posterior`` in ``agp_tpu/training/state.py``.
+
+Per-latent quantities are stacked on a leading latent axis L:
+  eta1 [L, M]      first natural parameter Sigma^-1 mu
+  eta2 [L, M, M]   second natural parameter -1/2 Sigma^-1 (init -1/2 I)
+  mu [L, M], Sigma [L, M, M]   moment parameters
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..utils.tensors import Params
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState(Params):
+    # variational posterior (natural + moment parameterizations)
+    eta1: Any = None
+    eta2: Any = None
+    mu: Any = None
+    Sigma: Any = None
+    # likelihood local variables (augmentation E-step state)
+    local_vars: Any = None
+    # optimiser state of the stochastic natural-gradient steps
+    opt_state: Any = None
+    # cached kernel matrices {"L_K", "K_inv", "L_inv"}, each [L, M, M]
+    kmat: Any = None
+    # minibatch scaling rho = N / batchsize
+    rho: Any = None
+    # iteration counter
+    step: Any = None
+
+
+def init_var_posterior(n_latent: int, M: int, dtype=torch.float32, device=None):
+    """eta2 = -1/2 I, Sigma = I, mu = eta1 = 0."""
+    eye = torch.eye(M, dtype=dtype, device=device).expand(n_latent, M, M).clone()
+    return dict(
+        eta1=torch.zeros((n_latent, M), dtype=dtype, device=device),
+        eta2=-0.5 * eye,
+        mu=torch.zeros((n_latent, M), dtype=dtype, device=device),
+        Sigma=eye,
+    )

@@ -1,0 +1,65 @@
+"""The port's kernels.py and means.py against agp_tpu.kernels / agp_tpu.means,
+float64.  Tolerance: rtol 1e-12 (atol 1e-14): the same formulas, differing
+only in the order of the D-axis sums."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import agp_tpu as agp
+from agp_tpu import kernels as jk
+from agp_tpu import means as jm
+from agp_tpu_torch import kernels as tk
+from agp_tpu_torch import means as tm
+
+RTOL, ATOL = 1e-12, 1e-14
+
+
+def data(seed=0, N=40, M=12, D=5):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(N, D)), rng.normal(size=(M, D))
+
+
+def close(port, ref):
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_sq_dist():
+    X, Z = data()
+    close(tk.sq_dist(torch.as_tensor(X), torch.as_tensor(Z)), jk.sq_dist(jnp.asarray(X), jnp.asarray(Z)))
+
+
+@pytest.mark.parametrize("ard", [False, True])
+def test_sqexponential_gram_and_diag(ard):
+    X, Z = data(1)
+    ls = np.array([0.7, 1.3, 2.0, 0.9, 1.1]) if ard else np.array(1.7)
+    kj = agp.SqExponentialKernel(lengthscale=jnp.asarray(ls), variance=jnp.asarray(2.5))
+    kt = tk.SqExponentialKernel(lengthscale=torch.as_tensor(ls), variance=torch.as_tensor(2.5))
+    Xj, Zj, Xt, Zt = jnp.asarray(X), jnp.asarray(Z), torch.as_tensor(X), torch.as_tensor(Z)
+    close(kt.gram(Xt, Zt), kj.gram(Xj, Zj))
+    close(kt.gram(Xt), kj.gram(Xj))
+    close(kt.diag(Xt), kj.diag(Xj))
+
+
+def test_batch_gram_zz_diag_over_latents():
+    X, Z = data(2)
+    Z3 = np.stack([Z, Z + 0.1])
+    kj = jk.replicate(agp.SqExponentialKernel(lengthscale=jnp.asarray(1.2)), 2)
+    kt = tk.replicate(tk.SqExponentialKernel(lengthscale=torch.as_tensor(1.2, dtype=torch.float64)), 2)
+    close(tk.batch_gram(kt, torch.as_tensor(X), torch.as_tensor(Z3)), jk.batch_gram(kj, jnp.asarray(X), jnp.asarray(Z3)))
+    close(tk.batch_gram(kt, torch.as_tensor(X), torch.as_tensor(Z)), jk.batch_gram(kj, jnp.asarray(X), jnp.asarray(Z)))
+    close(tk.batch_gram_zz(kt, torch.as_tensor(Z3)), jk.batch_gram_zz(kj, jnp.asarray(Z3)))
+    close(tk.batch_diag(kt, torch.as_tensor(X)), jk.batch_diag(kj, jnp.asarray(X)))
+
+
+@pytest.mark.parametrize("mean", ["zero", "constant"])
+def test_mean_batch_call(mean):
+    X, Z = data(3)
+    if mean == "zero":
+        mj, mt = jm.ZeroMean(), tm.ZeroMean()
+    else:
+        mj, mt = jm.ConstantMean(c=jnp.asarray(0.3)), tm.ConstantMean(c=torch.tensor(0.3, dtype=torch.float64))
+    mj, mt = jm.replicate(mj, 2), tm.replicate(mt, 2)
+    close(tm.batch_call(mt, torch.as_tensor(X), 2), jm.batch_call(mj, jnp.asarray(X), 2))
+    Z3 = np.stack([Z, Z])
+    close(tm.batch_call(mt, torch.as_tensor(Z3), 2), jm.batch_call(mj, jnp.asarray(Z3), 2))
