@@ -5,8 +5,9 @@ natural-gradient CAVI.  This package mirrors ``agp_tpu``'s module paths and
 public names; it runs on the CPU (plain PyTorch) and on an NVIDIA Hopper
 card, where the step's statistics pass is a hand-written CUDA kernel
 (``ops/cuda_kernels.py``).  Ported so far: ``SVGP`` with the
-squared-exponential kernel and the logistic likelihood, trained by
-stochastic CAVI with fixed hyperparameters.
+squared-exponential kernel and the logistic, logistic-softmax (multiclass)
+and heteroscedastic likelihoods, trained by stochastic CAVI with fixed
+hyperparameters.
 """
 
 from . import kernels
@@ -14,6 +15,8 @@ from .inference.config import AnalyticSVI, AnalyticVI
 from .kernels import RBFKernel, SqExponentialKernel
 from .likelihoods.base import Likelihood
 from .likelihoods.classification import LogisticLikelihood
+from .likelihoods.heteroscedastic import HeteroscedasticLikelihood
+from .likelihoods.multiclass import LogisticSoftMaxLikelihood
 from .means import ConstantMean, ZeroMean
 from .models.svgp import SVGP
 from .training.predictions import predict_f, predict_y, proba_y
@@ -37,6 +40,8 @@ __all__ = [
     "AnalyticSVI",
     "Likelihood",
     "LogisticLikelihood",
+    "LogisticSoftMaxLikelihood",
+    "HeteroscedasticLikelihood",
     "kernels",
     "SqExponentialKernel",
     "RBFKernel",

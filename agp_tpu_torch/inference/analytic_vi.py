@@ -11,12 +11,15 @@ Update equations:
           d_eta2 = -(rho kappa^T Diag(gs) kappa + K^-1/2) - eta2
   stochastic: eta += RobbinsMonro-scaled d_eta; else eta += d_eta.
 
-Dispatch: a single-latent sparse model with the logistic likelihood and the
-squared-exponential kernel always takes the fused statistics pass
-(``ops/cuda_kernels.py::fused_cavi_stats``: the CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor).  Every other case, and any
-row-weighted batch, takes the unfused path built from ``latent_moments``,
-the likelihood's ``local_updates`` and ``apply_natural_gradient``.
+Dispatch: a sparse, not online model with the squared-exponential kernel
+always takes a fused statistics pass of ``ops/cuda_kernels.py`` (the CUDA
+kernel on a CUDA tensor, its plain version on a CPU tensor):
+``fused_cavi_stats`` for the logistic likelihood,
+``fused_cavi_stats_multiclass`` for the logistic-softmax one and
+``fused_cavi_stats_het`` for the heteroscedastic one.  Every other case,
+and any row-weighted batch, takes the unfused path built from
+``latent_moments``, the likelihood's ``local_updates`` and
+``apply_natural_gradient``.
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ from typing import Dict
 import torch
 
 from ..config import jitter
-from ..kernels import SqExponentialKernel, batch_diag, batch_gram, batch_gram_zz, latent
+from ..kernels import SqExponentialKernel, batch_diag, batch_gram, batch_gram_zz, latent, lengthscale_2d
 from ..likelihoods.classification import LogisticLikelihood
+from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
+from ..likelihoods.multiclass import LogisticSoftMaxLikelihood
 from ..means import batch_call
 from ..ops import cuda_kernels, linalg
 from ..ops.kl import gaussian_kl
@@ -101,6 +106,50 @@ def _fused_spec(model):
     return None
 
 
+def _fused_multi_ok(model):
+    return (
+        model.is_sparse
+        and not model.is_online
+        and not model.is_multioutput
+        and isinstance(model.kernel, SqExponentialKernel)
+    )
+
+
+def _fused_mc_spec(model):
+    """Kernel kind when the step takes the fused multiclass pass: sparse,
+    not online, logistic-softmax likelihood, squared-exponential kernel.
+    No shape gate (the reference's was measured on a TPU)."""
+    if model.n_latent > 1 and _fused_multi_ok(model) and isinstance(model.likelihood, LogisticSoftMaxLikelihood):
+        return "rbf"
+    return None
+
+
+def _fused_het_spec(model):
+    """Kernel kind when the step takes the fused heteroscedastic pass: the
+    same rule, with the heteroscedastic likelihood and its 2 latents."""
+    if model.n_latent == 2 and _fused_multi_ok(model) and isinstance(model.likelihood, HeteroscedasticLikelihood):
+        return "rbf"
+    return None
+
+
+def _fused_multi_args(model, state, x, y):
+    """The arguments the multi-latent fused passes share, as they take
+    them: dense operands, [L, D] lengthscales, the [L] variances, the
+    jitter and rho."""
+    return (
+        x.contiguous(),
+        y.contiguous(),
+        model.Z.contiguous(),
+        kmat_l_inv(state.kmat).mT,
+        state.mu.contiguous(),
+        state.Sigma.contiguous(),
+        lengthscale_2d(model.kernel, x.shape[-1]),
+        model.kernel.variance,
+        jitter(x.dtype),
+        state.rho,
+    )
+
+
 def _fused_scaled_inputs(model, x):
     """(x', Z', ls) for the fused pass.  An isotropic lengthscale passes
     through; an ARD ([D]) lengthscale is folded into the coordinates
@@ -147,6 +196,41 @@ def variational_update(model, state: TrainState, x, y, w=None):
         state = _nat_update_from_stats(
             model, state.replace(local_vars=local), s1.to(x.dtype)[None], S2.to(x.dtype)[None], x
         )
+        return model, state
+
+    kind = _fused_mc_spec(model) if w is None else None
+    if kind is not None:
+        s1, S2, c, theta, gamma, alpha = cuda_kernels.fused_cavi_stats_multiclass(
+            *_fused_multi_args(model, state, x, y),
+            state.local_vars["alpha"].contiguous(),
+            state.local_vars["beta"].contiguous(),
+            kind=kind,
+        )
+        local = dict(state.local_vars)
+        local.update(c=c.to(x.dtype), theta=theta.to(x.dtype), gamma=gamma.to(x.dtype), alpha=alpha.to(x.dtype))
+        state = _nat_update_from_stats(
+            model, state.replace(local_vars=local), s1.to(x.dtype), S2.to(x.dtype), x
+        )
+        return model, state
+
+    kind = _fused_het_spec(model) if w is None else None
+    if kind is not None:
+        lik = model.likelihood
+        s1, S2, c, phi, gamma, theta, sigg = cuda_kernels.fused_cavi_stats_het(
+            *_fused_multi_args(model, state, x, y), lik.lam, kind=kind
+        )
+        phi, sigg = phi.to(x.dtype), sigg.to(x.dtype)
+        local = dict(state.local_vars)
+        local.update(c=c.to(x.dtype), phi=phi, gamma=gamma.to(x.dtype), theta=theta.to(x.dtype), sigg=sigg)
+        # lambda's closed-form update, on the device.  The kernel's E-step
+        # used the old lambda, as local_updates does; f's gradients take the
+        # new one, a batch-wide sum, as a scalar factor the kernel left out.
+        new_lam = torch.maximum(x.shape[0] / (2.0 * torch.sum(phi * (1.0 - sigg))), lik.lam)
+        model = model.replace(likelihood=lik.replace(lam=new_lam))
+        scale = torch.stack([new_lam.to(x.dtype), torch.ones((), dtype=x.dtype, device=x.device)])
+        s1 = s1.to(x.dtype) * scale[:, None]
+        S2 = S2.to(x.dtype) * scale[:, None, None]
+        state = _nat_update_from_stats(model, state.replace(local_vars=local), s1, S2, x)
         return model, state
 
     mu_f, var_f, kappa = latent_moments(model, state, x, kmat)

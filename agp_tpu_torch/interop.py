@@ -17,8 +17,10 @@ from .training.state import TrainState
 def model_from_numpy(params: dict, template):
     """``template`` (a port model) with its parameters taken from ``params``:
     "Z" [L, M, D] (or [M, D]), "lengthscale" and "variance" (latent-stacked,
-    as the reference replicates them) and, for a constant mean, "mean_c".
-    Tensors land on template.Z's device and dtype."""
+    as the reference replicates them), for a constant mean "mean_c", and
+    the likelihood's own: "lam" (heteroscedastic), "n_class" and
+    "class_mapping" (multiclass).  Tensors land on template.Z's device and
+    dtype."""
     dev, dt = template.Z.device, template.Z.dtype
 
     def t(a):
@@ -33,7 +35,14 @@ def model_from_numpy(params: dict, template):
     mean = template.mean
     if "mean_c" in params:
         mean = ConstantMean(c=t(params["mean_c"]))
-    return template.replace(Z=Z, kernel=kernel, mean=mean)
+    lik = template.likelihood
+    if "lam" in params:
+        lik = lik.replace(lam=t(params["lam"]))
+    if "n_class" in params:
+        lik = lik.replace(n_class=int(params["n_class"]))
+    if params.get("class_mapping") is not None:
+        lik = lik.replace(class_mapping=tuple(params["class_mapping"]))
+    return template.replace(Z=Z, kernel=kernel, mean=mean, likelihood=lik)
 
 
 def state_from_numpy(arrays: dict, device, dtype) -> TrainState:

@@ -106,3 +106,12 @@ def batch_gram_zz(kernel: Kernel, Z) -> torch.Tensor:
 def batch_diag(kernel: Kernel, X) -> torch.Tensor:
     L = kernel.variance.shape[0]
     return torch.stack([latent(kernel, l).diag(X) for l in range(L)])
+
+
+def lengthscale_2d(kernel: Kernel, D: int) -> torch.Tensor:
+    """[L, D] per-latent lengthscales of a replicated stationary kernel
+    (scalar [L] or ARD [L, D] fields), as the multi-latent fused kernels
+    take them."""
+    ls = kernel.lengthscale
+    L = ls.shape[0]
+    return torch.broadcast_to(ls.reshape(L, -1), (L, D))

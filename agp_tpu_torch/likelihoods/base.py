@@ -70,8 +70,9 @@ class SingleLatentLikelihood(Likelihood):
     """Adapter: subclasses implement the single-latent contract on [B]
     vectors (methods prefixed with ``_``); this class lifts them to the
     stacked [1, B] layout the inference engine uses.  The row mask ``w`` is
-    not passed down: no ported likelihood updates a parameter from
-    cross-batch sums."""
+    not passed down: no ported single-latent likelihood updates a parameter
+    from cross-batch sums.  A likelihood that does (the heteroscedastic
+    one's lambda) implements ``local_updates`` itself and honours ``w``."""
 
     def _local_updates(self, y, mu, var, local):
         raise NotImplementedError

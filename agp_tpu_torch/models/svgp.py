@@ -1,9 +1,10 @@
 """SVGP: sparse variational Gaussian process over an inducing set Z, the
 counterpart of ``SVGP`` in ``agp_tpu/models/svgp.py``.
 
-The latent GPs live on a stacked axis ([L, M, D] inducing points).  This
-slice of the port takes the squared-exponential kernel, the logistic
-likelihood and fixed hyperparameters (``optimiser=None``).
+The latent GPs live on a stacked axis ([L, M, D] inducing points).  The
+port so far takes the squared-exponential kernel, the logistic,
+logistic-softmax and heteroscedastic likelihoods and fixed hyperparameters
+(``optimiser=None``).
 """
 from __future__ import annotations
 
@@ -16,12 +17,14 @@ from ..inference.config import InferenceConfig
 from ..kernels import SqExponentialKernel
 from ..likelihoods.base import Likelihood
 from ..likelihoods.classification import LogisticLikelihood
+from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
+from ..likelihoods.multiclass import LogisticSoftMaxLikelihood
 from ..means import ConstantMean, PriorMean, ZeroMean
 from ..utils.tensors import Params
 from .base import as_2d, check_implemented, prepare_components
 
 _PORTED_KERNELS = (SqExponentialKernel,)
-_PORTED_LIKELIHOODS = (LogisticLikelihood,)
+_PORTED_LIKELIHOODS = (LogisticLikelihood, LogisticSoftMaxLikelihood, HeteroscedasticLikelihood)
 _PORTED_MEANS = (ZeroMean, ConstantMean)
 
 
@@ -51,8 +54,9 @@ class SVGP(Params):
         optimiser="default",
         atfrequency: int = 1,
     ):
-        """Data-free constructor; data is given to ``train``.  The kernel's
-        and the mean's parameters are placed on Z's device and dtype.
+        """Data-free constructor; data is given to ``train``.  The kernel's,
+        the likelihood's and the mean's parameters are placed on Z's device
+        and dtype.
 
         Only ``optimiser=None`` (fixed hyperparameters) is ported: the
         hyperparameter step is not, so any optimiser, the reference's
@@ -78,6 +82,7 @@ class SVGP(Params):
         kernel, mean = prepare_components(kernel, likelihood, mean, n_latent)
         kernel = kernel.to(device=Z.device, dtype=Z.dtype)
         mean = mean.to(device=Z.device, dtype=Z.dtype)
+        likelihood = likelihood.to(device=Z.device, dtype=Z.dtype)
         if Z.ndim == 2:
             Z = Z.expand((n_latent,) + Z.shape).clone()
         return cls(

@@ -1,14 +1,19 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-``fused_cavi_stats`` is the counterpart of
-``agp_tpu/ops/pallas_kernels.py::fused_cavi_stats``: the whole statistics
-pass of one single-latent CAVI step (gram -> kappa -> latent moments ->
-E-step -> s1, S2) in one kernel.  Its source is ``csrc/fused_cavi_stats.cu``.
+Each is the counterpart of the function of the same name in
+``agp_tpu/ops/pallas_kernels.py``: the whole statistics pass of one CAVI
+step (gram -> kappa -> latent moments -> E-step -> s1, S2).
 
-* On a CPU tensor the wrapper runs ``fused_cavi_stats_reference``, the same
-  function in plain PyTorch (any float dtype, the four stationary kinds).
-* On a CUDA tensor it launches the kernel (float32, ``kind="rbf"``,
-  ``lik="logistic"``) or raises; there is no fallback.
+* ``fused_cavi_stats``: one latent, the logistic likelihood;
+  ``csrc/fused_cavi_stats.cu``.
+* ``fused_cavi_stats_multiclass``: K latents, the logistic-softmax E-step;
+  ``fused_cavi_stats_het``: the two latents of the heteroscedastic
+  likelihood; both in ``csrc/fused_cavi_stats_multi.cu``.
+
+On a CPU tensor a wrapper runs its ``*_reference``, the same function in
+plain PyTorch (any float dtype, the four stationary kinds).  On a CUDA
+tensor it launches its kernel (float32, ``kind="rbf"``) or raises; there is
+no fallback.  Each wrapper counts its launches in ``<wrapper>.launches``.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  The build happens at the
@@ -30,16 +35,15 @@ from pathlib import Path
 import torch
 
 from .linalg import _highest_precision
+from .special import logcosh
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "fused_cavi_stats.cu",)
+_SOURCES = (_PKG / "csrc" / "fused_cavi_stats.cu", _PKG / "csrc" / "fused_cavi_stats_multi.cu")
 _BUILD_ROOT = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-# largest inducing set the CUDA kernel takes (shared-memory residency of
-# K^-1 and Sigma; see the note at the head of the .cu file)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# largest inducing set the CUDA kernels take (shared-memory residency of
+# K^-1 and Sigma; see the notes at the head of the .cu files)
 MAX_M = 128
 
 
@@ -63,25 +67,38 @@ def _source_hash() -> str:
 
 def build() -> dict:
     """Compile the kernels' shared library unless a build of the same
-    sources exists.  Returns {"path", "seconds", "log"}; ``log`` holds
-    ``nvcc``'s output (registers, shared memory, spills per kernel), empty
-    when the library was already built."""
+    sources exists: one ``nvcc -c`` per source, all started together, then
+    one link.  Returns {"path", "seconds", "log"}; ``log`` holds ``nvcc``'s
+    output (registers, shared memory, spills per kernel), empty when the
+    library was already built."""
     out_dir = _BUILD_ROOT / _source_hash()
     lib = out_dir / "libagp_tpu_torch_cuda.so"
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "log": ""}
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _SOURCES]
+        jobs = []
+        for src, obj in zip(_SOURCES, objs):
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for cmd, proc in jobs:  # wait for every compiler before reporting
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
         tmp_lib = Path(tmp) / lib.name
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp_lib), *map(str, _SOURCES)]
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp_lib), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp_lib, lib)  # atomic: a concurrent build never sees half a file
-    return {"path": str(lib), "seconds": time.perf_counter() - t0, "log": proc.stdout + proc.stderr}
+    return {"path": str(lib), "seconds": time.perf_counter() - t0, "log": log + proc.stdout + proc.stderr}
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,6 +114,14 @@ def _library() -> ctypes.CDLL:
     lib.agp_fused_cavi_tile_rows.restype = i
     lib.agp_cuda_error_string.argtypes = [i]
     lib.agp_cuda_error_string.restype = ctypes.c_char_p
+    lib.agp_fused_cavi_stats_multiclass_rbf.argtypes = [p] * 21 + [i, i, i, i, p]
+    lib.agp_fused_cavi_stats_multiclass_rbf.restype = i
+    lib.agp_fused_cavi_stats_het_rbf.argtypes = [p] * 20 + [i, i, i, p]
+    lib.agp_fused_cavi_stats_het_rbf.restype = i
+    lib.agp_multi_smem_bytes.argtypes = [i, i]
+    lib.agp_multi_smem_bytes.restype = ctypes.c_size_t
+    lib.agp_multi_tile_rows.argtypes = []
+    lib.agp_multi_tile_rows.restype = i
     return lib
 
 
@@ -123,6 +148,33 @@ def _gram_from_r2(r2, variance, kind):
 
 
 @_highest_precision
+def _latent_moments_reference(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind):
+    """(kappa [L, B, M], mf [L, B], vf [L, B]) of every latent, with
+    per-latent lengthscales ls ([L, D], or broadcastable to it) and
+    variances var [L]."""
+    L, _, D = Z.shape
+    ls2 = torch.broadcast_to(torch.as_tensor(ls, dtype=xb.dtype, device=xb.device).reshape(L, -1), (L, D))
+    var = torch.broadcast_to(torch.as_tensor(var, dtype=xb.dtype, device=xb.device).reshape(-1), (L,))
+    kinv = _kinv(L_invT)
+    x = xb[None] / ls2[:, None, :]  # [L, B, D]
+    z = Z / ls2[:, None, :]  # [L, M, D]
+    diff = x[:, :, None, :] - z[:, None, :, :]
+    knm = _gram_from_r2(torch.sum(diff * diff, dim=-1), var[:, None, None], kind)  # [L, B, M]
+    kappa = knm @ kinv
+    ktilde = torch.clamp(var[:, None] + jitt - torch.sum(kappa * knm, dim=-1), min=1e-12)
+    mf = (kappa @ mu[..., None])[..., 0]
+    vf = torch.clamp(ktilde + torch.sum((kappa @ Sigma) * kappa, dim=-1), min=1e-12)
+    return kappa, mf, vf
+
+
+@_highest_precision
+def _latent_stats_reference(kappa, wg, ws):
+    """s1 [L, M] = kappa^T wg and S2 [L, M, M] = kappa^T diag(ws) kappa."""
+    s1 = (kappa.mT @ wg[..., None])[..., 0]
+    S2 = (kappa * ws[..., None]).mT @ kappa
+    return s1, S2
+
+
 def fused_cavi_stats_reference(
     xb, yb, Z, L_invT, mu, Sigma, lengthscale, variance, jitt, rho,
     lik_p0=0.0, lik_p1=0.0, kind="rbf", lik="logistic",
@@ -132,22 +184,13 @@ def fused_cavi_stats_reference(
     likelihood: logistic."""
     if lik != "logistic":
         raise NotImplementedError(f"likelihood {lik!r} is not ported yet")
-    kinv = _kinv(L_invT)
-    x = xb / lengthscale
-    z = Z / lengthscale
-    diff = x[:, None, :] - z[None, :, :]
-    knm = _gram_from_r2(torch.sum(diff * diff, dim=-1), variance, kind)  # [B, M]
-    kappa = knm @ kinv
-    ktilde = torch.clamp(variance + jitt - torch.sum(kappa * knm, dim=1), min=1e-12)
-    mf = kappa @ mu
-    vf = torch.clamp(ktilde + torch.sum((kappa @ Sigma) * kappa, dim=1), min=1e-12)
-    c = torch.sqrt(mf * mf + vf)
+    kappa, mf, vf = _latent_moments_reference(
+        xb, Z[None], L_invT[None], mu[None], Sigma[None], lengthscale, variance, jitt, kind
+    )
+    c = torch.sqrt(mf[0] * mf[0] + vf[0])
     theta = torch.tanh(c / 2.0) / (2.0 * c)
-    gmu = rho * (yb / 2.0)
-    gs = rho * (theta / 2.0)
-    s1 = kappa.T @ gmu
-    S2 = (kappa * gs[:, None]).T @ kappa
-    return s1, S2, c, theta, mf, vf
+    s1, S2 = _latent_stats_reference(kappa, (rho * (yb / 2.0))[None], (rho * (theta / 2.0))[None])
+    return s1[0], S2[0], c, theta, mf[0], vf[0]
 
 
 def _device_scalar(v, device) -> torch.Tensor:
@@ -160,15 +203,10 @@ def _device_scalar(v, device) -> torch.Tensor:
     return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
-def _check_cuda_args(xb, yb, Z, mu, Sigma, kind, lik):
-    if (kind, lik) != ("rbf", "logistic"):
-        raise NotImplementedError(
-            f"the CUDA fused_cavi_stats takes kind='rbf', lik='logistic'; got {kind!r}, {lik!r}"
-        )
-    B, D = xb.shape
-    M = Z.shape[0]
-    shapes = {"yb": (yb, (B,)), "Z": (Z, (M, D)), "mu": (mu, (M,)), "Sigma": (Sigma, (M, M))}
-    for name, (t, shape) in {"xb": (xb, (B, D)), **shapes}.items():
+def _check_tensors(xb, tensors: dict):
+    """Device, float32, shape and contiguity of a CUDA kernel's tensor
+    arguments; ``tensors`` maps a name to (tensor, expected shape)."""
+    for name, (t, shape) in tensors.items():
         if t.device != xb.device:
             raise ValueError(f"{name} is on {t.device}, xb on {xb.device}")
         if t.dtype != torch.float32:
@@ -177,6 +215,17 @@ def _check_cuda_args(xb, yb, Z, mu, Sigma, kind, lik):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_cuda_args(xb, yb, Z, mu, Sigma, kind, lik):
+    if (kind, lik) != ("rbf", "logistic"):
+        raise NotImplementedError(
+            f"the CUDA fused_cavi_stats takes kind='rbf', lik='logistic'; got {kind!r}, {lik!r}"
+        )
+    B, D = xb.shape
+    M = Z.shape[0]
+    _check_tensors(xb, {"xb": (xb, (B, D)), "yb": (yb, (B,)), "Z": (Z, (M, D)), "mu": (mu, (M,)),
+                        "Sigma": (Sigma, (M, M))})
     if B < 1 or D < 1 or not 1 <= M <= MAX_M:
         raise ValueError(f"the CUDA fused_cavi_stats takes B, D >= 1 and 1 <= M <= {MAX_M}; got B={B}, D={D}, M={M}")
 
@@ -240,3 +289,174 @@ def fused_cavi_stats(
 
 
 fused_cavi_stats.launches = 0
+
+
+# ------------------------------------------------ multi-latent statistics
+def fused_cavi_stats_multiclass_reference(
+    xb, y_onehot, Z, L_invT, mu, Sigma, ls, var, jitt, rho, alpha0, beta0, kind="rbf",
+):
+    """Plain PyTorch version of :func:`fused_cavi_stats_multiclass`, in the
+    inputs' dtype, on their device.  Kinds: rbf, matern12, matern32,
+    matern52.  The digamma is ``torch.special.digamma``."""
+    kappa, mf, vf = _latent_moments_reference(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind)
+    yT = y_onehot.T
+    c = torch.sqrt(mf * mf + vf)
+    expcosh = torch.exp(-mf / 2.0 - logcosh(c / 2.0))
+    alpha = alpha0
+    for _ in range(2):
+        gamma = torch.exp(torch.special.digamma(alpha))[None, :] * expcosh / (2.0 * beta0[None, :])
+        alpha = 1.0 + torch.sum(gamma, dim=0)
+    theta = (yT + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
+    s1, S2 = _latent_stats_reference(kappa, rho * ((yT - gamma) / 2.0), rho * (theta / 2.0))
+    return s1, S2, c, theta, gamma, alpha
+
+
+def fused_cavi_stats_het_reference(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lam, kind="rbf"):
+    """Plain PyTorch version of :func:`fused_cavi_stats_het`, in the inputs'
+    dtype, on their device.  Kinds: rbf, matern12, matern32, matern52."""
+    kappa, m, v = _latent_moments_reference(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind)
+    phi = ((m[0] - yb) ** 2 + v[0]) / 2.0
+    c = torch.sqrt(m[1] * m[1] + v[1])
+    sigg = torch.exp(-m[1] / 2.0 - logcosh(c / 2.0)) / 2.0
+    gamma = lam * phi * sigg
+    theta = (0.5 + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
+    wg = torch.stack([yb * sigg / 2.0, (0.5 - gamma) / 2.0])
+    ws = torch.stack([sigg / 2.0, theta / 2.0])
+    s1, S2 = _latent_stats_reference(kappa, rho * wg, rho * ws)
+    return s1, S2, c, phi, gamma, theta, sigg
+
+
+def _check_multi_args(name, xb, Z, mu, Sigma, per_row: dict, kind):
+    """The CUDA multi-latent kernels' range: float32, kind="rbf",
+    1 <= M <= MAX_M, B, D >= 1, and a shared-memory footprint within the
+    card's opt-in limit (checked at launch)."""
+    if kind != "rbf":
+        raise NotImplementedError(f"the CUDA {name} takes kind='rbf'; got {kind!r}")
+    B, D = xb.shape
+    L, M = Z.shape[0], Z.shape[1]
+    _check_tensors(xb, {"xb": (xb, (B, D)), "Z": (Z, (L, M, D)), "mu": (mu, (L, M)),
+                        "Sigma": (Sigma, (L, M, M)), **per_row})
+    if B < 1 or D < 1 or L < 1 or not 1 <= M <= MAX_M:
+        raise ValueError(
+            f"the CUDA {name} takes B, D, L >= 1 and 1 <= M <= {MAX_M}; got B={B}, D={D}, L={L}, M={M}"
+        )
+
+
+def _multi_params(xb, L, jitt, rho, lam, ls, var):
+    """The kernels' float32 scalar buffer on the device: (jitter, rho, lam,
+    var [L], ls [L, D]), made there with no host read."""
+    dev, D = xb.device, xb.shape[1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    ls2 = torch.broadcast_to(torch.as_tensor(ls, **f32).reshape(L, -1), (L, D))
+    var = torch.broadcast_to(torch.as_tensor(var, **f32).reshape(-1), (L,))
+    head = torch.stack([_device_scalar(v, dev) for v in (jitt, rho, lam)])
+    return torch.cat([head, var, ls2.reshape(-1)])
+
+
+def _multi_launch(name, lib_fn, xb, Z, L_invT, mu, Sigma, params, inputs, outputs, ints):
+    """Shared-memory check, scratch allocation and the ctypes call of one
+    multi-latent kernel: ``inputs`` (the labels first) and ``outputs`` are
+    the tensors around params in the C signature, ``ints`` its sizes."""
+    dev = xb.device
+    B, D = xb.shape
+    L, M = Z.shape[0], Z.shape[1]
+    lib = _library()
+    smem = lib.agp_multi_smem_bytes(D, M)
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", 232448)
+    if smem > limit:
+        raise ValueError(
+            f"{name} at D={D}, M={M} needs {smem} bytes of shared memory; this card allows {limit} per block"
+        )
+    if L_invT.device != dev or tuple(L_invT.shape) != (L, M, M):
+        raise ValueError(f"L_invT must be [{L}, {M}, {M}] on {dev}")
+    kinv = _kinv(L_invT.to(torch.float32))
+    nb = -(-B // lib.agp_multi_tile_rows())
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = [torch.empty((L, B), **f32) for _ in range(4)]  # mf, vf, wg, ws
+    s1_part, s2_part = torch.empty((L, nb, M), **f32), torch.empty((L, nb, M, M), **f32)
+    s1, S2 = torch.empty((L, M), **f32), torch.empty((L, M, M), **f32)
+    with torch.cuda.device(dev):
+        err = lib_fn(
+            *(t.data_ptr() for t in (xb, inputs[0], Z, kinv, mu, Sigma, params, *inputs[1:], *outputs,
+                                     *scratch, s1_part, s2_part, s1, S2)),
+            *ints, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({lib.agp_cuda_error_string(err).decode()})")
+    return s1, S2
+
+
+def fused_cavi_stats_multiclass(
+    xb, y_onehot, Z, L_invT, mu, Sigma, ls, var, jitt, rho, alpha0, beta0, kind="rbf",
+):
+    """Fused statistics of one multiclass (logistic-softmax) CAVI step: all
+    K latents and the coupled E-step.
+
+    xb [B, D]; y_onehot [B, K]; Z [K, M, D]; L_invT [K, M, M]; mu [K, M];
+    Sigma [K, M, M]; ls [K, D] (per-latent ARD, or broadcastable); var [K];
+    jitt and rho numbers or 1-element tensors; alpha0, beta0 [B] the carried
+    Gamma local variables.  Returns (s1 [K, M], S2 [K, M, M], c [K, B],
+    theta [K, B], gamma [K, B], alpha [B]).
+
+    A CPU tensor runs :func:`fused_cavi_stats_multiclass_reference`.  A CUDA
+    tensor launches the kernel and adds one to
+    ``fused_cavi_stats_multiclass.launches``."""
+    if xb.device.type == "cpu":
+        return fused_cavi_stats_multiclass_reference(
+            xb, y_onehot, Z, L_invT, mu, Sigma, ls, var, jitt, rho, alpha0, beta0, kind=kind
+        )
+    if xb.device.type != "cuda":
+        raise ValueError(f"fused_cavi_stats_multiclass runs on CPU or CUDA tensors, got {xb.device}")
+    B = xb.shape[0]
+    K = Z.shape[0]
+    _check_multi_args("fused_cavi_stats_multiclass", xb, Z, mu, Sigma, {
+        "y_onehot": (y_onehot, (B, K)), "alpha0": (alpha0, (B,)), "beta0": (beta0, (B,))}, kind)
+    params = _multi_params(xb, K, jitt, rho, 0.0, ls, var)
+    f32 = dict(dtype=torch.float32, device=xb.device)
+    c, theta, gamma = (torch.empty((K, B), **f32) for _ in range(3))
+    alpha = torch.empty((B,), **f32)
+    s1, S2 = _multi_launch(
+        "fused_cavi_stats_multiclass", _library().agp_fused_cavi_stats_multiclass_rbf,
+        xb, Z, L_invT, mu, Sigma, params, (y_onehot, alpha0, beta0), (c, theta, gamma, alpha),
+        (B, xb.shape[1], Z.shape[1], K),
+    )
+    fused_cavi_stats_multiclass.launches += 1
+    return s1, S2, c, theta, gamma, alpha
+
+
+fused_cavi_stats_multiclass.launches = 0
+
+
+def fused_cavi_stats_het(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lam, kind="rbf"):
+    """Fused statistics of one heteroscedastic CAVI step: both latents (f
+    the mean, g the log-precision) and their coupled E-step with the old
+    ``lam``.
+
+    xb [B, D]; yb [B]; Z [2, M, D]; L_invT [2, M, M]; mu [2, M];
+    Sigma [2, M, M]; ls [2, D] (or broadcastable); var [2]; jitt, rho and
+    lam numbers or 1-element tensors.  Returns (s1 [2, M], S2 [2, M, M],
+    c, phi, gamma, theta, sigg [B]); f's statistics s1[0], S2[0] are
+    without the lambda factor, which the caller applies once the batch's
+    new lambda is known.
+
+    A CPU tensor runs :func:`fused_cavi_stats_het_reference`.  A CUDA tensor
+    launches the kernel and adds one to ``fused_cavi_stats_het.launches``."""
+    if xb.device.type == "cpu":
+        return fused_cavi_stats_het_reference(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lam, kind=kind)
+    if xb.device.type != "cuda":
+        raise ValueError(f"fused_cavi_stats_het runs on CPU or CUDA tensors, got {xb.device}")
+    B = xb.shape[0]
+    if Z.shape[0] != 2:
+        raise ValueError(f"fused_cavi_stats_het takes 2 latents, got Z of shape {tuple(Z.shape)}")
+    _check_multi_args("fused_cavi_stats_het", xb, Z, mu, Sigma, {"yb": (yb, (B,))}, kind)
+    params = _multi_params(xb, 2, jitt, rho, lam, ls, var)
+    outs = tuple(torch.empty((B,), dtype=torch.float32, device=xb.device) for _ in range(5))
+    s1, S2 = _multi_launch(
+        "fused_cavi_stats_het", _library().agp_fused_cavi_stats_het_rbf,
+        xb, Z, L_invT, mu, Sigma, params, (yb,), outs, (B, xb.shape[1], Z.shape[1]),
+    )
+    fused_cavi_stats_het.launches += 1
+    return (s1, S2) + outs
+
+
+fused_cavi_stats_het.launches = 0

@@ -14,6 +14,7 @@ import torch
 
 from ..config import jitter
 from ..kernels import batch_diag, batch_gram
+from ..likelihoods.multiclass import MultiClassLikelihood
 from ..models.base import as_2d
 from ..ops import linalg
 
@@ -49,14 +50,27 @@ def predict_f(model, state, X_test, cov: bool = False, diag: bool = True):
 
 
 def predict_y(model, state, X_test):
-    """Label-space point prediction (the sign of the latent mean for the
-    logistic likelihood)."""
+    """Label-space point prediction: the sign of the latent mean for the
+    logistic likelihood, the index of the largest latent mean for a
+    multiclass one, the mean of f for the heteroscedastic one."""
     mu_f, _ = _predict_f_var(model, state, as_2d(X_test), diag=False)
     return model.likelihood.predict_y(mu_f[0] if model.n_latent == 1 else mu_f)
 
 
-def proba_y(model, state, X_test):
-    """Predictive probability of y, the latent predictive pushed through the
-    likelihood by 100-node Gauss-Hermite quadrature."""
-    mu_f, var_f = _predict_f_var(model, state, as_2d(X_test), diag=True)
-    return model.likelihood.compute_proba(mu_f[0], var_f[0])
+def proba_y(model, state, X_test, generator=None, n_samples: int = 200):
+    """Predictive distribution of y.  Single latent: the latent predictive
+    pushed through the likelihood by 100-node Gauss-Hermite quadrature.
+    Multiclass: [n, K] probabilities, the mean over ``n_samples`` draws of
+    the latent predictive made with ``generator`` (on X_test's device; seed
+    42 when None), or the plug-in probabilities when ``n_samples`` is 0.
+    Heteroscedastic: (mean, variance) of y."""
+    X_test = as_2d(X_test)
+    mu_f, var_f = _predict_f_var(model, state, X_test, diag=True)
+    lik = model.likelihood
+    if lik.n_latent == 1:
+        return lik.compute_proba(mu_f[0], var_f[0])
+    if isinstance(lik, MultiClassLikelihood):
+        if generator is None:
+            generator = torch.Generator(device=X_test.device).manual_seed(42)
+        return lik.compute_proba(mu_f, var_f, n_samples=n_samples, generator=generator)
+    return lik.compute_proba(mu_f, var_f)

@@ -52,6 +52,29 @@ def test_batch_gram_zz_diag_over_latents():
     close(tk.batch_diag(kt, torch.as_tensor(X)), jk.batch_diag(kj, jnp.asarray(X)))
 
 
+@pytest.mark.parametrize("ard", [False, True])
+def test_per_latent_lengthscales(ard):
+    """A scalar or an ARD [D] lengthscale replicated to [L] or [L, D], then
+    made per-latent, through batch_gram, batch_gram_zz and batch_diag; and
+    the [L, D] table the multi-latent fused kernels take."""
+    X, Z = data(4)
+    L, D = 3, X.shape[1]
+    ls = np.array([0.7, 1.3, 2.0, 0.9, 1.1]) if ard else np.array(1.7)
+    per_latent = np.stack([ls * (1.0 + 0.2 * l) for l in range(L)])  # [L] or [L, D]
+    kj = jk.replicate(agp.SqExponentialKernel(lengthscale=jnp.asarray(ls), variance=jnp.asarray(1.5)), L)
+    kt = tk.replicate(tk.SqExponentialKernel(lengthscale=torch.as_tensor(ls), variance=torch.tensor(1.5, dtype=torch.float64)), L)
+    assert tuple(kt.lengthscale.shape) == kj.lengthscale.shape == per_latent.shape
+    kj = kj.replace(lengthscale=jnp.asarray(per_latent))
+    kt = kt.replace(lengthscale=torch.as_tensor(per_latent))
+    Z3 = np.stack([Z + 0.1 * l for l in range(L)])
+    Xj, Xt = jnp.asarray(X), torch.as_tensor(X)
+    close(tk.batch_gram(kt, Xt, torch.as_tensor(Z3)), jk.batch_gram(kj, Xj, jnp.asarray(Z3)))
+    close(tk.batch_gram_zz(kt, torch.as_tensor(Z3)), jk.batch_gram_zz(kj, jnp.asarray(Z3)))
+    close(tk.batch_diag(kt, Xt), jk.batch_diag(kj, Xj))
+    ls2d = jnp.broadcast_to(jnp.reshape(kj.lengthscale, (L, -1)), (L, D))  # analytic_vi.py:545-548
+    close(tk.lengthscale_2d(kt, D), ls2d)
+
+
 @pytest.mark.parametrize("mean", ["zero", "constant"])
 def test_mean_batch_call(mean):
     X, Z = data(3)

@@ -34,6 +34,16 @@ def test_special_functions():
           js.sqrt_expec_square(jnp.asarray(mu), jnp.asarray(var)))
 
 
+def test_digamma_gammaln_xlogx():
+    """The re-exports of the special-function library and xlogx (0 log 0 = 0)."""
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.uniform(1.0, 40.0, size=40), [1.0, 2.5, 1e3]])
+    close(ts.digamma(torch.as_tensor(x)), js.digamma(jnp.asarray(x)))
+    close(ts.gammaln(torch.as_tensor(x)), js.gammaln(jnp.asarray(x)))
+    z = np.concatenate([[0.0], x])
+    close(ts.xlogx(torch.as_tensor(z)), js.xlogx(jnp.asarray(z)))
+
+
 def test_quadrature_expectation():
     rng = np.random.default_rng(1)
     mu, var = rng.normal(size=30), rng.uniform(0.0, 3.0, size=30)
@@ -55,6 +65,19 @@ def test_kl_terms():
     b, c, th = np.ones(40), rng.uniform(0.1, 3.0, 40), rng.uniform(0.05, 0.25, 40)
     close(tkl.polya_gamma_kl(*(torch.as_tensor(a) for a in (b, c, th))),
           jkl.polya_gamma_kl(*(jnp.asarray(a) for a in (b, c, th))))
+
+
+def test_poisson_and_gamma_kl_terms():
+    """The two extra terms of the logistic-softmax ELBO: sums of O(100)
+    terms, absolute agreement to 1e-11."""
+    rng = np.random.default_rng(6)
+    lam = np.concatenate([[0.0], rng.uniform(0.01, 3.0, size=(39,))]).reshape(4, 10)
+    lam0, psi = rng.uniform(0.5, 2.0, size=(1, 10)), rng.normal(size=(1, 10))
+    close(tkl.poisson_kl_expected(*(torch.as_tensor(a) for a in (lam, lam0, psi))),
+          jkl.poisson_kl_expected(*(jnp.asarray(a) for a in (lam, lam0, psi))), atol=1e-11)
+    alpha, beta = rng.uniform(1.0, 8.0, size=30), rng.uniform(1.0, 8.0, size=30)
+    close(tkl.gamma_entropy_improper(torch.as_tensor(alpha), torch.as_tensor(beta)),
+          jkl.gamma_entropy_improper(jnp.asarray(alpha), jnp.asarray(beta)), atol=1e-11)
 
 
 def test_logistic_likelihood_contract():

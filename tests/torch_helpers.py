@@ -1,6 +1,6 @@
-"""Builds the same SVGP + logistic model in the JAX package and in the
-PyTorch port, and carries the JAX model's parameters and state over, so
-that a test can run both from identical states (the port's tests)."""
+"""Builds the same SVGP model in the JAX package and in the PyTorch port,
+and carries the JAX model's parameters and state over, so that a test can
+run both from identical states (the port's tests)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,13 +22,30 @@ def logistic_data(N, D, seed=0):
     return X, np.where(X @ w > 0, 1.0, -1.0)
 
 
-def jax_svgp(X, y, M, B, sampling="block", lengthscale=2.0):
-    """The flagship model in the JAX package (float64): (model, state,
-    X, y) with the labels treated."""
+def multiclass_data(N, D, K, seed=0):
+    """X [N, D] standard normal and labels 0..K-1, the argmax of X W with
+    W [D, K] standard normal (the multiclass bench configuration's rule)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, D))
+    return X, np.argmax(X @ rng.normal(size=(D, K)), axis=1)
+
+
+def het_data(N, D, seed=0):
+    """X [N, D] standard normal and y = sin(x_0) + 0.1 eps (the
+    heteroscedastic bench configuration's rule)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, D))
+    return X, np.sin(X[:, 0]) + 0.1 * rng.normal(size=N)
+
+
+def jax_svgp(X, y, M, B, sampling="block", lengthscale=2.0, likelihood=None):
+    """An SVGP in the JAX package (float64; the logistic likelihood unless
+    ``likelihood`` is given): (model, state, X, y) with the labels
+    treated."""
     Xj = jnp.asarray(X)
     model = agp.SVGP.create(
         agp.SqExponentialKernel(lengthscale=jnp.asarray(lengthscale), variance=jnp.asarray(1.0)),
-        agp.LogisticLikelihood.create(),
+        agp.LogisticLikelihood.create() if likelihood is None else likelihood,
         agp.AnalyticSVI(B, minibatch_sampling=sampling),
         Xj[:M],
         optimiser=None,
@@ -49,6 +66,19 @@ def state_arrays(s):
     return jax.tree_util.tree_map(lambda a: np.array(a), leaves)
 
 
+def port_likelihood(lik_j):
+    """The port's counterpart of a JAX likelihood, with its parameters as
+    ``model_from_numpy`` takes them."""
+    name = type(lik_j).__name__
+    if name == "LogisticSoftMaxLikelihood":
+        return agt.LogisticSoftMaxLikelihood.create(lik_j.n_class), dict(
+            n_class=lik_j.n_class, class_mapping=lik_j.class_mapping
+        )
+    if name == "HeteroscedasticLikelihood":
+        return agt.HeteroscedasticLikelihood.create(), dict(lam=np.array(lik_j.lam))
+    return agt.LogisticLikelihood.create(), {}
+
+
 def port_from_jax(mj, sj, Xj, yj, dtype=torch.float64, device="cpu", optimiser=None):
     """The port's (model, state, X, y) carrying the JAX model's parameters
     and state; ``optimiser`` replaces the port's Robbins-Monro rule."""
@@ -56,12 +86,11 @@ def port_from_jax(mj, sj, Xj, yj, dtype=torch.float64, device="cpu", optimiser=N
     inference = agt.AnalyticSVI(B, optimiser=optimiser, minibatch_sampling=mj.inference.minibatch_sampling)
     X = torch.as_tensor(np.array(Xj), dtype=dtype, device=device)
     M = mj.Z.shape[1]
-    mt = agt.SVGP.create(
-        agt.SqExponentialKernel(), agt.LogisticLikelihood.create(), inference, X[:M], optimiser=None
-    )
+    lik, lik_params = port_likelihood(mj.likelihood)
+    mt = agt.SVGP.create(agt.SqExponentialKernel(), lik, inference, X[:M], optimiser=None)
     mt = model_from_numpy(
         dict(Z=np.array(mj.Z), lengthscale=np.array(mj.kernel.lengthscale),
-             variance=np.array(mj.kernel.variance)),
+             variance=np.array(mj.kernel.variance), **lik_params),
         mt,
     )
     st = state_from_numpy(state_arrays(sj), device, dtype)
