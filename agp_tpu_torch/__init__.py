@@ -5,18 +5,22 @@ natural-gradient CAVI.  This package mirrors ``agp_tpu``'s module paths and
 public names; it runs on the CPU (plain PyTorch) and on an NVIDIA Hopper
 card, where the step's statistics pass is a hand-written CUDA kernel
 (``ops/cuda_kernels.py``).  Ported so far: ``SVGP`` with the
-squared-exponential kernel and the logistic, logistic-softmax (multiclass)
-and heteroscedastic likelihoods, trained by stochastic CAVI with fixed
+squared-exponential and Matern 1/2, 3/2, 5/2 kernels and the logistic,
+Gaussian (fixed noise), Student-t, Laplace, Matern-3/2 noise, Bayesian SVM,
+Poisson, negative binomial, logistic-softmax (multiclass) and
+heteroscedastic likelihoods, trained by stochastic CAVI with fixed
 hyperparameters.
 """
 
 from . import kernels
 from .inference.config import AnalyticSVI, AnalyticVI
-from .kernels import RBFKernel, SqExponentialKernel
+from .kernels import Matern12Kernel, Matern32Kernel, Matern52Kernel, RBFKernel, SqExponentialKernel
 from .likelihoods.base import Likelihood
-from .likelihoods.classification import LogisticLikelihood
+from .likelihoods.classification import BayesianSVM, LogisticLikelihood
+from .likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from .likelihoods.heteroscedastic import HeteroscedasticLikelihood
 from .likelihoods.multiclass import LogisticSoftMaxLikelihood
+from .likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
 from .means import ConstantMean, ZeroMean
 from .models.svgp import SVGP
 from .training.predictions import predict_f, predict_y, proba_y
@@ -40,11 +44,21 @@ __all__ = [
     "AnalyticSVI",
     "Likelihood",
     "LogisticLikelihood",
+    "GaussianLikelihood",
+    "StudentTLikelihood",
+    "LaplaceLikelihood",
+    "Matern32Likelihood",
+    "BayesianSVM",
+    "PoissonLikelihood",
+    "NegBinomialLikelihood",
     "LogisticSoftMaxLikelihood",
     "HeteroscedasticLikelihood",
     "kernels",
     "SqExponentialKernel",
     "RBFKernel",
+    "Matern12Kernel",
+    "Matern32Kernel",
+    "Matern52Kernel",
     "ZeroMean",
     "ConstantMean",
     "robbins_monro",

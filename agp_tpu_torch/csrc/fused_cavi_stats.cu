@@ -1,16 +1,16 @@
-// Fused single-latent CAVI statistics for Hopper (sm_90a): the RBF kernel
-// and the logistic (Polya-Gamma) likelihood.
+// Fused single-latent CAVI statistics for Hopper (sm_90a): the four
+// stationary gram kinds and the E-steps of eight likelihoods.
 //
 // Replaces: agp_tpu/ops/pallas_kernels.py, fused_cavi_stats and its body
-// _cavi_fused_kernel (kind="rbf", lik="logistic").  It computes the same
+// _cavi_fused_kernel (every kind and lik it takes).  It computes the same
 // function, one pass per tile of TB minibatch rows:
-//   gram     Knm[t, m]  = var * exp(-|x_t/ls - z_m/ls|^2 / 2)
+//   gram     Knm[t, m]  = k(|x_t/ls - z_m/ls|^2)  (gram.cuh: rbf, matern12/32/52)
 //   kappa    kappa[t,:] = Knm[t,:] K^-1
 //   Ktilde   kt[t]      = max(var + jitter - sum_m kappa[t,m] Knm[t,m], 1e-12)
 //   moments  mf[t]      = kappa[t,:] mu
 //            vf[t]      = max(kt[t] + kappa[t,:] Sigma kappa[t,:]^T, 1e-12)
-//   E-step   c = sqrt(mf^2 + vf), theta = tanh(c/2) / (2c)
-//   stats    s1 = kappa^T (rho y/2),  S2 = kappa^T diag(rho theta/2) kappa
+//   E-step   (c, theta, g_mu, g_s) of the row's likelihood (estep below)
+//   stats    s1 = kappa^T (rho g_mu),  S2 = kappa^T diag(rho g_s) kappa
 // The minibatch tile is read from device memory once; Knm, kappa and
 // kappa Sigma never leave shared memory.
 //
@@ -26,6 +26,12 @@
 //   |x|^2 + |z|^2 - 2 x.z does; kappa = Knm K^-1 (which cancels by
 //   cond(Kmm)) is a full-FP32 dot.  The TPU's [M, TB] lane layout and its
 //   bf16-split dots exist for the MXU and are not carried over.
+// * The gram kind is a template parameter (it sits in the TB x M loop);
+//   the likelihood is a runtime switch, taken once per row by one lane,
+//   the same for the whole grid.  The E-step lives in registers, so the
+//   shared memory does not depend on the likelihood.
+// * Scalars come in one device buffer (ls, var, jitter, rho, p0, p1); the
+//   host never reads them, so the Poisson rate p0 can change every step.
 // * K^-1 (formed once per call by the wrapper), Sigma, mu, Z and the
 //   [TB, M] gram and kappa tiles are resident in shared memory:
 //   4 (TB D + M (D|1) + 2 M^2 + M + 2 TB M + 4 TB) bytes, 75 KB at
@@ -34,19 +40,104 @@
 //
 // What bounds it on an H100: per row it does ~3 M^2 FMAs (kappa, kappa
 // Sigma, S2) against ~4 (D + 1) bytes read, so it is bound by FP32 issue
-// and shared-memory bandwidth, not by device memory.  One block per TB=64
-// rows gives B/64 blocks (64 at the flagship B=4096) on 132 SMs, so at
-// most about half the card is busy; the low occupancy is recorded and left
-// to later work.
+// and shared-memory bandwidth, not by device memory; the E-step is O(1)
+// transcendental work per row beside it, and a Matern kind adds one sqrtf
+// per gram entry.  One block per TB=64 rows gives B/64 blocks (64 at the
+// flagship B=4096) on 132 SMs, so at most about half the card is busy; the
+// low occupancy is recorded and left to later work.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "gram.cuh"
 
 namespace {
 
 constexpr int TB = 64;  // minibatch rows per block
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr float LOG2F = 0.6931471805599453f;
+constexpr float SQRT3F = 1.7320508075688772f;
+
+// codes of the likelihoods: the order of LIKS in ops/cuda_kernels.py
+enum Lik : int {
+  LIK_LOGISTIC = 0,
+  LIK_GAUSSIAN,
+  LIK_STUDENTT,
+  LIK_LAPLACE,
+  LIK_BAYESIANSVM,
+  LIK_MATERN32,
+  LIK_NEGBINOMIAL,
+  LIK_POISSON,
+  N_LIKS
+};
+
+struct RowStep {
+  float c, theta, gmu, gs;
+};
+
+// One row's E-step: the local variables (c, theta) and the natural-gradient
+// inputs (g_mu, g_s), as the reference's branches compute them, with its
+// 1e-30 floor under each sqrt.  p0, p1: the likelihood's parameters.
+__device__ inline RowStep estep(int lik, float mf, float vf, float y, float p0, float p1) {
+  RowStep r;
+  const float d = mf - y;
+  switch (lik) {
+    case LIK_LOGISTIC:
+      r.c = sqrtf(mf * mf + vf);
+      r.theta = tanhf(r.c / 2.0f) / (2.0f * r.c);
+      r.gmu = y / 2.0f;
+      r.gs = r.theta / 2.0f;
+      break;
+    case LIK_GAUSSIAN:  // p0 = sigma2
+      r.c = sqrtf(fmaxf(d * d + vf, 1e-30f));
+      r.theta = 1.0f / p0;
+      r.gmu = y / p0;
+      r.gs = r.theta / 2.0f;
+      break;
+    case LIK_STUDENTT:  // p0 = nu, p1 = sigma^2
+      r.c = (d * d + vf + p1 * p0) / 2.0f;
+      r.theta = ((p0 + 1.0f) / 2.0f) / r.c;
+      r.gmu = r.theta * y;
+      r.gs = r.theta / 2.0f;
+      break;
+    case LIK_LAPLACE:  // p0 = a = 1/beta^2; c is the local "b"
+      r.c = sqrtf(fmaxf(d * d + vf, 1e-30f));
+      r.theta = sqrtf(p0) / r.c;
+      r.gmu = r.theta * y;
+      r.gs = r.theta / 2.0f;
+      break;
+    case LIK_BAYESIANSVM: {
+      const float e = 1.0f - y * mf;
+      r.c = e * e + vf;
+      r.theta = 1.0f / sqrtf(fmaxf(r.c, 1e-30f));
+      r.gmu = y * (r.theta + 1.0f);
+      r.gs = r.theta / 2.0f;
+      break;
+    }
+    case LIK_MATERN32:  // p0 = rho, the likelihood's lengthscale
+      r.c = sqrtf(fmaxf(d * d + vf, 1e-30f));
+      r.theta = 3.0f / (2.0f * SQRT3F * r.c * p0 + 2.0f * p0 * p0);
+      r.gmu = 2.0f * r.theta * y;
+      r.gs = r.theta;
+      break;
+    case LIK_NEGBINOMIAL:  // p0 = r; omega ~ PG(y + r, f)
+      r.c = sqrtf(fmaxf(mf * mf + vf, 1e-30f));
+      r.theta = (y + p0) * tanhf(r.c / 2.0f) / (2.0f * r.c);
+      r.gmu = (y - p0) / 2.0f;
+      r.gs = r.theta / 2.0f;
+      break;
+    default: {  // LIK_POISSON, p0 = lambda; gamma = lam e^{-mf/2} / (2 cosh(c/2))
+      r.c = sqrtf(fmaxf(mf * mf + vf, 1e-30f));
+      const float logcosh_half = r.c / 2.0f + log1pf(expf(-r.c)) - LOG2F;
+      const float gamma = p0 * expf(-mf / 2.0f - logcosh_half) / 2.0f;
+      r.theta = (y + gamma) * tanhf(r.c / 2.0f) / (2.0f * r.c);
+      r.gmu = (y - gamma) / 2.0f;
+      r.gs = r.theta / 2.0f;
+    }
+  }
+  return r;
+}
 
 // odd row stride for Z in shared memory: column reads across a warp hit
 // distinct banks
@@ -63,14 +154,14 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
+template <int KIND>
 __global__ void __launch_bounds__(THREADS)
-cavi_stats_rbf_logistic(const float* __restrict__ x, const float* __restrict__ y,
-                        const float* __restrict__ z, const float* __restrict__ kinv,
-                        const float* __restrict__ mu, const float* __restrict__ sigma,
-                        const float* __restrict__ params, float* __restrict__ c_out,
-                        float* __restrict__ theta_out, float* __restrict__ mf_out,
-                        float* __restrict__ vf_out, float* __restrict__ s1_part,
-                        float* __restrict__ s2_part, int B, int D, int M) {
+cavi_stats(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
+           const float* __restrict__ kinv, const float* __restrict__ mu,
+           const float* __restrict__ sigma, const float* __restrict__ params,
+           float* __restrict__ c_out, float* __restrict__ theta_out, float* __restrict__ mf_out,
+           float* __restrict__ vf_out, float* __restrict__ s1_part, float* __restrict__ s2_part,
+           int B, int D, int M, int lik) {
   extern __shared__ float sm[];
   const int Dz = z_stride(D);
   float* xs = sm;              // [TB, D]   x / ls
@@ -82,14 +173,15 @@ cavi_stats_rbf_logistic(const float* __restrict__ x, const float* __restrict__ y
   float* Kp = G + TB * M;      // [TB, M]   kappa
   float* kt = Kp + TB * M;     // [TB]      Ktilde
   float* mfs = kt + TB;        // [TB]      mf
-  float* wg = mfs + TB;        // [TB]      rho y/2, 0 past B
-  float* ws = wg + TB;         // [TB]      rho theta/2, 0 past B
+  float* wg = mfs + TB;        // [TB]      rho g_mu, 0 past B
+  float* ws = wg + TB;         // [TB]      rho g_s, 0 past B
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int row0 = blockIdx.x * TB;
   const int nrows = min(TB, B - row0);
   const float ls = params[0], var = params[1], jitt = params[2], rho = params[3];
+  const float p0 = params[4], p1 = params[5];
 
   for (int i = tid; i < TB * D; i += THREADS) {
     const int t = i / D;
@@ -112,7 +204,7 @@ cavi_stats_rbf_logistic(const float* __restrict__ x, const float* __restrict__ y
       const float df = xr[d] - zr[d];
       r2 = fmaf(df, df, r2);
     }
-    G[i] = var * expf(-0.5f * r2);
+    G[i] = gram_from_r2<KIND>(r2, var);
   }
   __syncthreads();
 
@@ -153,28 +245,27 @@ cavi_stats_rbf_logistic(const float* __restrict__ x, const float* __restrict__ y
   }
   __syncthreads();
 
-  // per row: vf and the Polya-Gamma E-step
+  // per row: vf and the likelihood's E-step
   for (int t = warp; t < TB; t += WARPS) {
     float q = 0.0f;
     for (int n = lane; n < M; n += 32) q = fmaf(G[t * M + n], Kp[t * M + n], q);
     q = warp_sum(q);
     if (lane == 0) {
-      const float mf = mfs[t];
-      const float vf = fmaxf(kt[t] + q, 1e-12f);
-      const float c = sqrtf(mf * mf + vf);
-      const float th = tanhf(c / 2.0f) / (2.0f * c);
+      float wgt = 0.0f, wst = 0.0f;
       if (t < nrows) {
         const int r = row0 + t;
-        c_out[r] = c;
-        theta_out[r] = th;
+        const float mf = mfs[t];
+        const float vf = fmaxf(kt[t] + q, 1e-12f);
+        const RowStep e = estep(lik, mf, vf, y[r], p0, p1);
+        c_out[r] = e.c;
+        theta_out[r] = e.theta;
         mf_out[r] = mf;
         vf_out[r] = vf;
-        wg[t] = rho * (y[r] / 2.0f);
-        ws[t] = rho * (th / 2.0f);
-      } else {
-        wg[t] = 0.0f;
-        ws[t] = 0.0f;
+        wgt = rho * e.gmu;
+        wst = rho * e.gs;
       }
+      wg[t] = wgt;
+      ws[t] = wst;
     }
   }
   __syncthreads();
@@ -212,6 +303,25 @@ __global__ void sum_partials(const float* __restrict__ s1_part,
   }
 }
 
+template <int KIND>
+int launch(const float* x, const float* y, const float* z, const float* kinv, const float* mu,
+           const float* sigma, const float* params, float* c, float* theta, float* mf, float* vf,
+           float* s1_part, float* s2_part, float* s1, float* s2, int B, int D, int M, int lik,
+           cudaStream_t st) {
+  const int nb = (B + TB - 1) / TB;
+  const size_t smem = smem_bytes(D, M);
+  cudaError_t err = cudaFuncSetAttribute(cavi_stats<KIND>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cavi_stats<KIND><<<nb, THREADS, smem, st>>>(x, y, z, kinv, mu, sigma, params, c, theta, mf, vf,
+                                              s1_part, s2_part, B, D, M, lik);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = M + M * M;
+  sum_partials<<<(total + 255) / 256, 256, 0, st>>>(s1_part, s2_part, s1, s2, nb, M);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -226,29 +336,22 @@ const char* agp_cuda_error_string(int err) {
 
 // All pointers are device pointers to contiguous float32 arrays:
 // x [B, D], y [B], z [M, D], kinv [M, M], mu [M], sigma [M, M],
-// params [4] = (lengthscale, variance, jitter, rho); outputs c, theta, mf,
-// vf [B], s1 [M], s2 [M, M]; scratch s1_part [nb, M], s2_part [nb, M, M]
-// with nb = ceil(B / TB).  Returns the CUDA error of the launches.
-int agp_fused_cavi_stats_rbf_logistic(const float* x, const float* y, const float* z,
-                                      const float* kinv, const float* mu,
-                                      const float* sigma, const float* params, float* c,
-                                      float* theta, float* mf, float* vf, float* s1_part,
-                                      float* s2_part, float* s1, float* s2, int B, int D,
-                                      int M, void* stream) {
+// params [6] = (lengthscale, variance, jitter, rho, p0, p1); outputs c,
+// theta, mf, vf [B], s1 [M], s2 [M, M]; scratch s1_part [nb, M],
+// s2_part [nb, M, M] with nb = ceil(B / TB).  kind: a GramKind code, lik:
+// a Lik code.  Returns the CUDA error of the launches
+// (cudaErrorInvalidValue for an unknown kind or likelihood).
+int agp_fused_cavi_stats(const float* x, const float* y, const float* z, const float* kinv,
+                         const float* mu, const float* sigma, const float* params, float* c,
+                         float* theta, float* mf, float* vf, float* s1_part, float* s2_part,
+                         float* s1, float* s2, int B, int D, int M, int kind, int lik,
+                         void* stream) {
+  if (lik < 0 || lik >= N_LIKS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (B + TB - 1) / TB;
-  const size_t smem = smem_bytes(D, M);
-  cudaError_t err = cudaFuncSetAttribute(
-      cavi_stats_rbf_logistic, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cavi_stats_rbf_logistic<<<nb, THREADS, smem, st>>>(x, y, z, kinv, mu, sigma, params, c,
-                                                     theta, mf, vf, s1_part, s2_part, B,
-                                                     D, M);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int total = M + M * M;
-  sum_partials<<<(total + 255) / 256, 256, 0, st>>>(s1_part, s2_part, s1, s2, nb, M);
-  return (int)cudaGetLastError();
+  return with_kind(kind, [&](auto k) {
+    return launch<decltype(k)::value>(x, y, z, kinv, mu, sigma, params, c, theta, mf, vf, s1_part,
+                                      s2_part, s1, s2, B, D, M, lik, st);
+  });
 }
 
 }  // extern "C"

@@ -1,15 +1,15 @@
-// Fused multi-latent CAVI statistics for Hopper (sm_90a): the RBF kernel
-// with per-latent ARD lengthscales, and two E-steps:
+// Fused multi-latent CAVI statistics for Hopper (sm_90a): the four
+// stationary gram kinds (gram.cuh) with per-latent ARD lengthscales, and
+// two E-steps:
 //   * logistic-softmax multiclass (K latents), replacing
 //     agp_tpu/ops/pallas_kernels.py, fused_cavi_stats_multiclass and its
-//     body _cavi_fused_mc_kernel (kind="rbf"), with its digamma
-//     _digamma_psi;
+//     body _cavi_fused_mc_kernel, with its digamma _digamma_psi;
 //   * heteroscedastic regression (2 latents: f the mean, g the
 //     log-precision), replacing fused_cavi_stats_het and its body
-//     _cavi_fused_het_kernel (kind="rbf").
+//     _cavi_fused_het_kernel.
 //
 // They compute the same functions.  For latent l and minibatch row t:
-//   gram     Knm[t, m] = var_l exp(-|x_t/ls_l - z_lm/ls_l|^2 / 2)
+//   gram     Knm[t, m] = k_l(|x_t/ls_l - z_lm/ls_l|^2), rbf or matern12/32/52
 //   kappa    kappa[t,:] = Knm[t,:] K_l^-1
 //   moments  mf[l,t] = kappa[t,:] mu_l
 //            vf[l,t] = max(max(var_l + jitter - kappa.Knm, 1e-12) + kappa Sigma_l kappa^T, 1e-12)
@@ -42,6 +42,9 @@
 // * FP32 FMA throughout, no TF32.  The gram is the direct sum_d (x_d - z_d)^2;
 //   kappa = Knm K^-1 is a full-FP32 dot (K^-1 = L^-T L^-1 formed by the
 //   wrapper at full FP32).
+// * The gram kind is a template parameter of passes 1 and 3, which both
+//   form the gram through gram_kappa<KIND>: one instantiation per kind, the
+//   same in both passes.
 // * Scalars (jitter, rho, lambda, the L variances, the [L, D] lengthscales)
 //   come in one device buffer; the host never reads them.
 //
@@ -53,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "gram.cuh"
 
 namespace {
 
@@ -108,6 +113,7 @@ __device__ inline float digammaf_pos(float x) {
 // Stage row tile `row0` of x and latent k's Z, both divided by the latent's
 // lengthscales, then gram -> G and kappa = G K^-1 -> Kp.  Rows past B are
 // zeros.  Ends synchronised.
+template <int KIND>
 __device__ void gram_kappa(const float* __restrict__ x, const float* __restrict__ z,
                            const float* __restrict__ kinv, const float* __restrict__ ls,
                            float var, float* xs, float* zs, float* ki, float* G, float* Kp,
@@ -130,7 +136,7 @@ __device__ void gram_kappa(const float* __restrict__ x, const float* __restrict_
       const float df = xr[d] - zr[d];
       r2 = fmaf(df, df, r2);
     }
-    G[i] = var * expf(-0.5f * r2);
+    G[i] = gram_from_r2<KIND>(r2, var);
   }
   __syncthreads();
 
@@ -145,6 +151,7 @@ __device__ void gram_kappa(const float* __restrict__ x, const float* __restrict_
 }
 
 // pass 1: mf, vf [L, B]
+template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 latent_moments(const float* __restrict__ x, const float* __restrict__ z,
                const float* __restrict__ kinv, const float* __restrict__ mu,
@@ -174,8 +181,8 @@ latent_moments(const float* __restrict__ x, const float* __restrict__ z,
 
   for (int i = tid; i < M * M; i += THREADS) sg[i] = sigma[mm + i];
   for (int i = tid; i < M; i += THREADS) mus[i] = mu[(size_t)k * M + i];
-  gram_kappa(x, z + (size_t)k * M * D, kinv + mm, ls, var, xs, zs, ki, G, Kp, row0, nrows, D,
-             M);
+  gram_kappa<KIND>(x, z + (size_t)k * M * D, kinv + mm, ls, var, xs, zs, ki, G, Kp, row0, nrows,
+                   D, M);
 
   for (int t = warp; t < TB; t += WARPS) {
     float q = 0.0f, m1 = 0.0f;
@@ -295,6 +302,7 @@ estep_het(const float* __restrict__ mf, const float* __restrict__ vf,
 }
 
 // pass 3: this block's partial s1 [M] and S2 [M, M] of latent k
+template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 latent_stats(const float* __restrict__ x, const float* __restrict__ z,
              const float* __restrict__ kinv, const float* __restrict__ params,
@@ -319,8 +327,9 @@ latent_stats(const float* __restrict__ x, const float* __restrict__ z,
     wgs[t] = t < nrows ? wg[(size_t)k * B + row0 + t] : 0.0f;
     wss[t] = t < nrows ? ws[(size_t)k * B + row0 + t] : 0.0f;
   }
-  gram_kappa(x, z + (size_t)k * M * D, kinv + (size_t)k * M * M, params + P_VAR + L + (size_t)k * D,
-             params[P_VAR + k], xs, zs, ki, G, Kp, row0, nrows, D, M);
+  gram_kappa<KIND>(x, z + (size_t)k * M * D, kinv + (size_t)k * M * M,
+                   params + P_VAR + L + (size_t)k * D, params[P_VAR + k], xs, zs, ki, G, Kp, row0,
+                   nrows, D, M);
 
   float* s1p = s1_part + ((size_t)k * nb + blockIdx.x) * M;
   float* s2p = s2_part + ((size_t)k * nb + blockIdx.x) * M * M;
@@ -356,28 +365,30 @@ __global__ void sum_partials_latents(const float* __restrict__ s1_part,
   }
 }
 
+template <int KIND>
 int launch_moments(const float* x, const float* z, const float* kinv, const float* mu,
                    const float* sigma, const float* params, float* mf, float* vf, int B, int D,
                    int M, int L, cudaStream_t st) {
   const size_t smem = moments_smem(D, M);
-  cudaError_t err =
-      cudaFuncSetAttribute(latent_moments, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(latent_moments<KIND>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  latent_moments<<<dim3((B + TB - 1) / TB, L), THREADS, smem, st>>>(x, z, kinv, mu, sigma, params,
-                                                                     mf, vf, B, D, M, L);
+  latent_moments<KIND><<<dim3((B + TB - 1) / TB, L), THREADS, smem, st>>>(
+      x, z, kinv, mu, sigma, params, mf, vf, B, D, M, L);
   return (int)cudaGetLastError();
 }
 
+template <int KIND>
 int launch_stats(const float* x, const float* z, const float* kinv, const float* params,
                  const float* wg, const float* ws, float* s1_part, float* s2_part, float* s1,
                  float* s2, int B, int D, int M, int L, cudaStream_t st) {
   const int nb = (B + TB - 1) / TB;
   const size_t smem = stats_smem(D, M);
-  cudaError_t err =
-      cudaFuncSetAttribute(latent_stats, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(latent_stats<KIND>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  latent_stats<<<dim3(nb, L), THREADS, smem, st>>>(x, z, kinv, params, wg, ws, s1_part, s2_part, B,
-                                                   D, M, L);
+  latent_stats<KIND><<<dim3(nb, L), THREADS, smem, st>>>(x, z, kinv, params, wg, ws, s1_part,
+                                                         s2_part, B, D, M, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t total = (size_t)L * (M + (size_t)M * M);
@@ -402,42 +413,48 @@ size_t agp_multi_smem_bytes(int D, int M) {
 // sigma [K, M, M], params [3 + K + K D] = (jitter, rho, unused, var [K],
 // ls [K, D]), alpha0, beta0 [B]; outputs c, theta, gamma [K, B], alpha [B],
 // s1 [K, M], s2 [K, M, M]; scratch mf, vf, wg, ws [K, B],
-// s1_part [K, nb, M], s2_part [K, nb, M, M] with nb = ceil(B / TB).
-// Returns the CUDA error of the launches.
-int agp_fused_cavi_stats_multiclass_rbf(const float* x, const float* y, const float* z,
-                                        const float* kinv, const float* mu, const float* sigma,
-                                        const float* params, const float* alpha0,
-                                        const float* beta0, float* c, float* theta, float* gamma,
-                                        float* alpha, float* mf, float* vf, float* wg, float* ws,
-                                        float* s1_part, float* s2_part, float* s1, float* s2,
-                                        int B, int D, int M, int K, void* stream) {
+// s1_part [K, nb, M], s2_part [K, nb, M, M] with nb = ceil(B / TB).  kind:
+// a GramKind code.  Returns the CUDA error of the launches
+// (cudaErrorInvalidValue for an unknown kind).
+int agp_fused_cavi_stats_multiclass(const float* x, const float* y, const float* z,
+                                    const float* kinv, const float* mu, const float* sigma,
+                                    const float* params, const float* alpha0, const float* beta0,
+                                    float* c, float* theta, float* gamma, float* alpha, float* mf,
+                                    float* vf, float* wg, float* ws, float* s1_part,
+                                    float* s2_part, float* s1, float* s2, int B, int D, int M,
+                                    int K, int kind, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_moments(x, z, kinv, mu, sigma, params, mf, vf, B, D, M, K, st);
-  if (err) return err;
-  estep_multiclass<<<(B + ESTEP_THREADS - 1) / ESTEP_THREADS, ESTEP_THREADS, 0, st>>>(
-      mf, vf, y, alpha0, beta0, params, c, theta, gamma, alpha, wg, ws, B, K);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return launch_stats(x, z, kinv, params, wg, ws, s1_part, s2_part, s1, s2, B, D, M, K, st);
+  return with_kind(kind, [&](auto k) {
+    constexpr int KIND = decltype(k)::value;
+    int err = launch_moments<KIND>(x, z, kinv, mu, sigma, params, mf, vf, B, D, M, K, st);
+    if (err) return err;
+    estep_multiclass<<<(B + ESTEP_THREADS - 1) / ESTEP_THREADS, ESTEP_THREADS, 0, st>>>(
+        mf, vf, y, alpha0, beta0, params, c, theta, gamma, alpha, wg, ws, B, K);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    return launch_stats<KIND>(x, z, kinv, params, wg, ws, s1_part, s2_part, s1, s2, B, D, M, K, st);
+  });
 }
 
 // As above with 2 latents (f, g): y [B], params [3 + 2 + 2 D] = (jitter,
 // rho, lambda, var [2], ls [2, D]); outputs c, phi, gamma, theta, sigg [B],
 // s1 [2, M], s2 [2, M, M] with f's statistics WITHOUT the lambda factor.
-int agp_fused_cavi_stats_het_rbf(const float* x, const float* y, const float* z,
-                                 const float* kinv, const float* mu, const float* sigma,
-                                 const float* params, float* c, float* phi, float* gamma,
-                                 float* theta, float* sigg, float* mf, float* vf, float* wg,
-                                 float* ws, float* s1_part, float* s2_part, float* s1, float* s2,
-                                 int B, int D, int M, void* stream) {
+int agp_fused_cavi_stats_het(const float* x, const float* y, const float* z, const float* kinv,
+                             const float* mu, const float* sigma, const float* params, float* c,
+                             float* phi, float* gamma, float* theta, float* sigg, float* mf,
+                             float* vf, float* wg, float* ws, float* s1_part, float* s2_part,
+                             float* s1, float* s2, int B, int D, int M, int kind, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_moments(x, z, kinv, mu, sigma, params, mf, vf, B, D, M, 2, st);
-  if (err) return err;
-  estep_het<<<(B + ESTEP_THREADS - 1) / ESTEP_THREADS, ESTEP_THREADS, 0, st>>>(
-      mf, vf, y, params, c, phi, gamma, theta, sigg, wg, ws, B);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return launch_stats(x, z, kinv, params, wg, ws, s1_part, s2_part, s1, s2, B, D, M, 2, st);
+  return with_kind(kind, [&](auto k) {
+    constexpr int KIND = decltype(k)::value;
+    int err = launch_moments<KIND>(x, z, kinv, mu, sigma, params, mf, vf, B, D, M, 2, st);
+    if (err) return err;
+    estep_het<<<(B + ESTEP_THREADS - 1) / ESTEP_THREADS, ESTEP_THREADS, 0, st>>>(
+        mf, vf, y, params, c, phi, gamma, theta, sigg, wg, ws, B);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    return launch_stats<KIND>(x, z, kinv, params, wg, ws, s1_part, s2_part, s1, s2, B, D, M, 2, st);
+  });
 }
 
 }  // extern "C"

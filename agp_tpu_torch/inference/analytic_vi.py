@@ -11,10 +11,10 @@ Update equations:
           d_eta2 = -(rho kappa^T Diag(gs) kappa + K^-1/2) - eta2
   stochastic: eta += RobbinsMonro-scaled d_eta; else eta += d_eta.
 
-Dispatch: a sparse, not online model with the squared-exponential kernel
-always takes a fused statistics pass of ``ops/cuda_kernels.py`` (the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor):
-``fused_cavi_stats`` for the logistic likelihood,
+Dispatch: a sparse, not online model with a squared-exponential or Matern
+kernel always takes a fused statistics pass of ``ops/cuda_kernels.py`` (the
+CUDA kernel on a CUDA tensor, its plain version on a CPU tensor):
+``fused_cavi_stats`` for the eight single-latent likelihoods it covers,
 ``fused_cavi_stats_multiclass`` for the logistic-softmax one and
 ``fused_cavi_stats_het`` for the heteroscedastic one.  Every other case,
 and any row-weighted batch, takes the unfused path built from
@@ -28,13 +28,17 @@ from typing import Dict
 import torch
 
 from ..config import jitter
-from ..kernels import SqExponentialKernel, batch_diag, batch_gram, batch_gram_zz, latent, lengthscale_2d
-from ..likelihoods.classification import LogisticLikelihood
+from ..kernels import batch_diag, batch_gram, batch_gram_zz, fused_kind, latent, lengthscale_2d
+from ..likelihoods.classification import BayesianSVM, LogisticLikelihood
+from ..likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
 from ..likelihoods.multiclass import LogisticSoftMaxLikelihood
+from ..likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
 from ..means import batch_call
 from ..ops import cuda_kernels, linalg
 from ..ops.kl import gaussian_kl
+from ..ops.quadrature import expectation
+from ..ops.special import safe_expcosh
 from ..training.state import TrainState
 from ..utils.opt import ascent_update
 
@@ -92,44 +96,69 @@ def latent_moments(model, state: TrainState, x, kmat):
     return mu_f, var_f, kappa
 
 
-def _fused_spec(model):
-    """(kind, lik, p0, p1, c_key) when the step takes the fused statistics
-    pass: single-latent sparse model, squared-exponential kernel, logistic
-    likelihood.  No shape gate: the reference's gates were measured on a
-    TPU."""
-    if model.n_latent != 1 or not model.is_sparse or model.is_online:
-        return None
-    if not isinstance(model.kernel, SqExponentialKernel):
-        return None
-    if isinstance(model.likelihood, LogisticLikelihood):
-        return "rbf", "logistic", 0.0, 0.0, "c"
+def _fused_lik_spec(lik):
+    """(lik, p0, p1, c_key) of ``fused_cavi_stats`` for a single-latent
+    likelihood, or None; c_key names the local variable the kernel's c
+    fills (None: theta only)."""
+    if isinstance(lik, LogisticLikelihood):
+        return "logistic", 0.0, 0.0, "c"
+    if isinstance(lik, GaussianLikelihood):
+        return "gaussian", lik.sigma2, 0.0, None
+    if isinstance(lik, StudentTLikelihood):
+        return "studentt", lik.nu, lik.sigma**2, "c"
+    if isinstance(lik, LaplaceLikelihood):
+        return "laplace", lik.a, 0.0, "b"
+    if isinstance(lik, BayesianSVM):
+        return "bayesiansvm", 0.0, 0.0, "c"
+    if isinstance(lik, Matern32Likelihood):
+        return "matern32", lik.rho, 0.0, "c"
+    if isinstance(lik, NegBinomialLikelihood):
+        return "negbinomial", lik.r, 0.0, "c"
+    if isinstance(lik, PoissonLikelihood):
+        # lam is read by the kernel and rewritten by the step's epilogue
+        return "poisson", lik.lam, 0.0, "c"
     return None
 
 
-def _fused_multi_ok(model):
-    return (
-        model.is_sparse
+def _fused_spec(model):
+    """(kind, lik, p0, p1, c_key) when the step takes the fused statistics
+    pass: single-latent sparse model, a kernel of ``FUSED_KINDS`` and a
+    likelihood of ``_fused_lik_spec``.  No shape gate: the reference's
+    gates were measured on a TPU."""
+    if model.n_latent != 1 or not model.is_sparse or model.is_online:
+        return None
+    kind = fused_kind(model.kernel)
+    lik = _fused_lik_spec(model.likelihood)
+    if kind is None or lik is None:
+        return None
+    return (kind, *lik)
+
+
+def _fused_multi_kind(model, likelihood_type, n_latent_ok):
+    """Kernel kind when the step takes a fused multi-latent pass: sparse,
+    not online, not multi-output, a likelihood of ``likelihood_type``.  No
+    shape gate (the reference's were measured on a TPU)."""
+    if (
+        n_latent_ok(model.n_latent)
+        and model.is_sparse
         and not model.is_online
         and not model.is_multioutput
-        and isinstance(model.kernel, SqExponentialKernel)
-    )
+        and isinstance(model.likelihood, likelihood_type)
+    ):
+        return fused_kind(model.kernel)
+    return None
 
 
 def _fused_mc_spec(model):
-    """Kernel kind when the step takes the fused multiclass pass: sparse,
-    not online, logistic-softmax likelihood, squared-exponential kernel.
-    No shape gate (the reference's was measured on a TPU)."""
-    if model.n_latent > 1 and _fused_multi_ok(model) and isinstance(model.likelihood, LogisticSoftMaxLikelihood):
-        return "rbf"
-    return None
+    """Kernel kind when the step takes the fused multiclass
+    (logistic-softmax) pass."""
+    return _fused_multi_kind(model, LogisticSoftMaxLikelihood, lambda n: n > 1)
 
 
 def _fused_het_spec(model):
-    """Kernel kind when the step takes the fused heteroscedastic pass: the
-    same rule, with the heteroscedastic likelihood and its 2 latents."""
-    if model.n_latent == 2 and _fused_multi_ok(model) and isinstance(model.likelihood, HeteroscedasticLikelihood):
-        return "rbf"
-    return None
+    """Kernel kind when the step takes the fused heteroscedastic pass (2
+    latents)."""
+    return _fused_multi_kind(model, HeteroscedasticLikelihood, lambda n: n == 2)
 
 
 def _fused_multi_args(model, state, x, y):
@@ -173,7 +202,7 @@ def variational_update(model, state: TrainState, x, y, w=None):
         kind, lik_name, p0, p1, c_key = fused
         xs, zs, ls = _fused_scaled_inputs(model, x)
         # the kernel takes dense row-major operands (a no-op when they are)
-        s1, S2, c, theta, _, _ = cuda_kernels.fused_cavi_stats(
+        s1, S2, c, theta, mf, vf = cuda_kernels.fused_cavi_stats(
             xs.contiguous(),
             y.contiguous(),
             zs.contiguous(),
@@ -189,10 +218,20 @@ def variational_update(model, state: TrainState, x, y, w=None):
             kind=kind,
             lik=lik_name,
         )
+        c = c.to(x.dtype)
         local = dict(state.local_vars)
         local["theta"] = theta.to(x.dtype)
         if c_key in local:
-            local[c_key] = c.to(x.dtype)
+            local[c_key] = c
+        if lik_name == "poisson":
+            # the Poisson E-step's epilogue on the kernel's moments, on the
+            # device: gamma with the old lam (as the kernel used it), then
+            # the rate's closed form lam <- sum y / sum E[sigma(f)]
+            lik = model.likelihood
+            mf, vf = mf.to(x.dtype), vf.to(x.dtype)
+            local["gamma"] = lik.lam * safe_expcosh(-mf / 2.0, c / 2.0) / 2.0
+            new_lam = torch.sum(y) / torch.sum(expectation(torch.sigmoid, mf, vf))
+            model = model.replace(likelihood=lik.replace(lam=new_lam))
         state = _nat_update_from_stats(
             model, state.replace(local_vars=local), s1.to(x.dtype)[None], S2.to(x.dtype)[None], x
         )

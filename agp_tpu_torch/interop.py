@@ -14,11 +14,17 @@ from .means import ConstantMean
 from .training.state import TrainState
 
 
+# the likelihoods' tensor parameters, by field name
+LIKELIHOOD_PARAMS = ("sigma2", "nu", "sigma", "beta", "rho", "r", "lam")
+
+
 def model_from_numpy(params: dict, template):
     """``template`` (a port model) with its parameters taken from ``params``:
     "Z" [L, M, D] (or [M, D]), "lengthscale" and "variance" (latent-stacked,
     as the reference replicates them), for a constant mean "mean_c", and
-    the likelihood's own: "lam" (heteroscedastic), "n_class" and
+    the likelihood's own: "sigma2" (Gaussian), "nu" and "sigma"
+    (Student-t), "beta" (Laplace), "rho" (Matern-3/2 noise), "r"
+    (negative binomial), "lam" (Poisson, heteroscedastic), "n_class" and
     "class_mapping" (multiclass).  Tensors land on template.Z's device and
     dtype."""
     dev, dt = template.Z.device, template.Z.dtype
@@ -36,8 +42,7 @@ def model_from_numpy(params: dict, template):
     if "mean_c" in params:
         mean = ConstantMean(c=t(params["mean_c"]))
     lik = template.likelihood
-    if "lam" in params:
-        lik = lik.replace(lam=t(params["lam"]))
+    lik = lik.replace(**{k: t(params[k]) for k in LIKELIHOOD_PARAMS if k in params})
     if "n_class" in params:
         lik = lik.replace(n_class=int(params["n_class"]))
     if params.get("class_mapping") is not None:

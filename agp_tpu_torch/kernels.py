@@ -1,5 +1,5 @@
 """Kernel (covariance-function) library of the port: the squared-exponential
-kernel of the flagship, the counterpart of the matching parts of
+and Matern 1/2, 3/2, 5/2 kernels, the counterpart of the matching parts of
 ``agp_tpu/kernels.py``.
 
 Kernels are frozen dataclasses whose tensor fields are the hyperparameters.
@@ -76,6 +76,47 @@ class SqExponentialKernel(StationaryKernel):
 
 
 RBFKernel = SqExponentialKernel
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern12Kernel(StationaryKernel):
+    """k = v * exp(-r) (exponential / Ornstein-Uhlenbeck)."""
+
+    def _from_r2(self, r2):
+        return torch.exp(-torch.sqrt(torch.clamp(r2, min=1e-36)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern32Kernel(StationaryKernel):
+    """k = v * (1 + r) exp(-r), r = sqrt(3) |x - z| / l."""
+
+    def _from_r2(self, r2):
+        r = torch.sqrt(torch.clamp(3.0 * r2, min=1e-36))
+        return (1.0 + r) * torch.exp(-r)
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern52Kernel(StationaryKernel):
+    """k = v * (1 + r + r^2/3) exp(-r), r = sqrt(5) |x - z| / l."""
+
+    def _from_r2(self, r2):
+        r = torch.sqrt(torch.clamp(5.0 * r2, min=1e-36))
+        return (1.0 + r + r**2 / 3.0) * torch.exp(-r)
+
+
+# gram kind of the fused statistics kernels for each kernel class (the
+# counterpart of the reference's _PALLAS_KINDS, matched by exact type)
+FUSED_KINDS = {
+    SqExponentialKernel: "rbf",
+    Matern12Kernel: "matern12",
+    Matern32Kernel: "matern32",
+    Matern52Kernel: "matern52",
+}
+
+
+def fused_kind(kernel: Kernel):
+    """The fused kernels' gram kind of ``kernel``, or None."""
+    return FUSED_KINDS.get(type(kernel))
 
 
 def replicate(kernel: Kernel, n_latent: int) -> Kernel:

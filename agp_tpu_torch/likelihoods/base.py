@@ -17,6 +17,16 @@ from ..utils.tensors import Params
 LocalVars = Dict[str, torch.Tensor]
 
 
+def tensor_fields(obj, *names):
+    """Store each named field of a frozen dataclass that was given as a
+    number as a 0-d float64 tensor, as the reference takes it;
+    ``SVGP.create`` moves it to the model's device and dtype."""
+    for name in names:
+        v = getattr(obj, name)
+        if not isinstance(v, torch.Tensor):
+            object.__setattr__(obj, name, torch.as_tensor(float(v), dtype=torch.float64))
+
+
 @dataclasses.dataclass(frozen=True)
 class Likelihood(Params):
     @property
@@ -69,10 +79,14 @@ class Likelihood(Params):
 class SingleLatentLikelihood(Likelihood):
     """Adapter: subclasses implement the single-latent contract on [B]
     vectors (methods prefixed with ``_``); this class lifts them to the
-    stacked [1, B] layout the inference engine uses.  The row mask ``w`` is
-    not passed down: no ported single-latent likelihood updates a parameter
-    from cross-batch sums.  A likelihood that does (the heteroscedastic
-    one's lambda) implements ``local_updates`` itself and honours ``w``."""
+    stacked [1, B] layout the inference engine uses.  The row mask ``w``
+    goes down only to a likelihood whose E-step updates a parameter from
+    cross-batch sums (the Poisson rate): it sets ``_weighted_params`` and
+    takes ``w`` as a keyword.  For the others the mask does not matter
+    inside the E-step (per-row work); the engine zero-weights their
+    gradients downstream."""
+
+    _weighted_params = False
 
     def _local_updates(self, y, mu, var, local):
         raise NotImplementedError
@@ -87,6 +101,8 @@ class SingleLatentLikelihood(Likelihood):
         raise NotImplementedError
 
     def local_updates(self, y, mu, var, local, w=None):
+        if w is not None and self._weighted_params:
+            return self._local_updates(y, mu[0], var[0], local, w=w)
         return self._local_updates(y, mu[0], var[0], local)
 
     def grad_e_mu(self, y, local):

@@ -1,7 +1,7 @@
 """Binary classification: the logistic likelihood with its Polya-Gamma
-augmentation, the counterpart of ``LogisticLikelihood`` in
-``agp_tpu/likelihoods/classification.py``.  Labels are +-1 ({0, 1} maps to
-{-1, +1})."""
+augmentation and the Bayesian SVM, the counterparts of ``LogisticLikelihood``
+and ``BayesianSVM`` in ``agp_tpu/likelihoods/classification.py``.  Labels
+are +-1 ({0, 1} maps to {-1, +1})."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +11,7 @@ import torch
 
 from ..ops.kl import polya_gamma_kl
 from ..ops.quadrature import expectation
-from ..ops.special import sqrt_expec_square
+from ..ops.special import log_besselk_half, sqrt_expec_square
 from .base import SingleLatentLikelihood
 
 LOG2 = 0.6931471805599453
@@ -82,3 +82,71 @@ class LogisticLikelihood(SingleLatentLikelihood):
 
     def predict_y(self, mu):
         return torch.sign(mu)
+
+
+@dataclasses.dataclass(frozen=True)
+class BayesianSVM(SingleLatentLikelihood):
+    """Bayesian SVM: p(y | f) proportional to exp(-2 max(1 - yf, 0)),
+    augmented with an improper omega prior; q(omega) is a GIG.
+
+    Local updates: c = (1 - y mu)^2 + var, theta = 1/sqrt(c).
+    Natural-gradient inputs: grad_e_mu = y (theta + 1), grad_e_sigma =
+    theta/2."""
+
+    @classmethod
+    def create(cls):
+        return cls()
+
+    @classmethod
+    def implemented(cls):
+        return frozenset({"AnalyticVI"})
+
+    def treat_labels(self, y):
+        return _treat_binary(y), self
+
+    def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
+        return {
+            "c": torch.ones((batchsize,), dtype=dtype, device=device),
+            "theta": torch.ones((batchsize,), dtype=dtype, device=device),
+        }
+
+    def _local_updates(self, y, mu, var, local):
+        c = (1.0 - y * mu) ** 2 + var
+        return self, {**local, "c": c, "theta": 1.0 / torch.sqrt(c)}
+
+    def _grad_e_mu(self, y, local):
+        return y * (local["theta"] + 1.0)
+
+    def _grad_e_sigma(self, y, local):
+        return local["theta"] / 2.0
+
+    def _expec_loglik(self, y, mu, var, local):
+        n = y.shape[0]
+        theta = local["theta"]
+        tot = -n * LOG2 / 2.0 + torch.sum(mu * y)
+        return tot - (0.5 * torch.sum(theta * var) + 0.5 * torch.sum(theta * (1.0 - y * mu) ** 2))
+
+    def aug_kl(self, local, y):
+        # the GIG entropy at p = 1/2 in the reference's a -> 0 limit form,
+        # outside the gradient as the reference takes it
+        c = local["c"]
+        sc = torch.sqrt(c)
+        val = torch.sum(torch.log(c)) / 2.0 + torch.sum(LOG2 + log_besselk_half(0, sc)) - torch.sum(sc) / 2.0
+        return val.detach()
+
+    def compute_proba(self, mu, var):
+        def svmlik(f):
+            pos = torch.exp(-2.0 * torch.clamp(1.0 - f, min=0.0))
+            neg = torch.exp(-2.0 * torch.clamp(1.0 + f, min=0.0))
+            return pos / (pos + neg)
+
+        return expectation(svmlik, mu, var)
+
+    def predict_y(self, mu):
+        return torch.sign(mu)
+
+    def log_prob(self, y, f):
+        # pseudo-likelihood, normalized over y in {-1, +1}
+        pos = -2.0 * torch.clamp(1.0 - y * f, min=0.0)
+        neg = -2.0 * torch.clamp(1.0 + y * f, min=0.0)
+        return pos - torch.logaddexp(pos, neg)

@@ -2,9 +2,11 @@
 counterpart of ``SVGP`` in ``agp_tpu/models/svgp.py``.
 
 The latent GPs live on a stacked axis ([L, M, D] inducing points).  The
-port so far takes the squared-exponential kernel, the logistic,
-logistic-softmax and heteroscedastic likelihoods and fixed hyperparameters
-(``optimiser=None``).
+port so far takes the squared-exponential and Matern 1/2, 3/2, 5/2
+kernels, the single-latent likelihoods of ``fused_cavi_stats`` (logistic,
+Gaussian with fixed noise, Student-t, Laplace, Matern-3/2 noise, Bayesian
+SVM, Poisson, negative binomial), the logistic-softmax and heteroscedastic
+likelihoods, and fixed hyperparameters (``optimiser=None``).
 """
 from __future__ import annotations
 
@@ -14,17 +16,35 @@ from typing import Any, Optional
 import torch
 
 from ..inference.config import InferenceConfig
-from ..kernels import SqExponentialKernel
+from ..kernels import FUSED_KINDS
 from ..likelihoods.base import Likelihood
-from ..likelihoods.classification import LogisticLikelihood
+from ..likelihoods.classification import BayesianSVM, LogisticLikelihood
+from ..likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
 from ..likelihoods.multiclass import LogisticSoftMaxLikelihood
+from ..likelihoods.regression import (
+    GaussianLikelihood,
+    LaplaceLikelihood,
+    Matern32Likelihood,
+    StudentTLikelihood,
+)
 from ..means import ConstantMean, PriorMean, ZeroMean
 from ..utils.tensors import Params
 from .base import as_2d, check_implemented, prepare_components
 
-_PORTED_KERNELS = (SqExponentialKernel,)
-_PORTED_LIKELIHOODS = (LogisticLikelihood, LogisticSoftMaxLikelihood, HeteroscedasticLikelihood)
+_PORTED_KERNELS = tuple(FUSED_KINDS)
+_PORTED_LIKELIHOODS = (
+    LogisticLikelihood,
+    GaussianLikelihood,
+    StudentTLikelihood,
+    LaplaceLikelihood,
+    Matern32Likelihood,
+    BayesianSVM,
+    PoissonLikelihood,
+    NegBinomialLikelihood,
+    LogisticSoftMaxLikelihood,
+    HeteroscedasticLikelihood,
+)
 _PORTED_MEANS = (ZeroMean, ConstantMean)
 
 

@@ -4,16 +4,18 @@ Each is the counterpart of the function of the same name in
 ``agp_tpu/ops/pallas_kernels.py``: the whole statistics pass of one CAVI
 step (gram -> kappa -> latent moments -> E-step -> s1, S2).
 
-* ``fused_cavi_stats``: one latent, the logistic likelihood;
-  ``csrc/fused_cavi_stats.cu``.
+* ``fused_cavi_stats``: one latent, the E-steps of eight likelihoods
+  (``LIKS``); ``csrc/fused_cavi_stats.cu``.
 * ``fused_cavi_stats_multiclass``: K latents, the logistic-softmax E-step;
   ``fused_cavi_stats_het``: the two latents of the heteroscedastic
   likelihood; both in ``csrc/fused_cavi_stats_multi.cu``.
 
-On a CPU tensor a wrapper runs its ``*_reference``, the same function in
-plain PyTorch (any float dtype, the four stationary kinds).  On a CUDA
-tensor it launches its kernel (float32, ``kind="rbf"``) or raises; there is
-no fallback.  Each wrapper counts its launches in ``<wrapper>.launches``.
+All three take the four stationary gram kinds of ``KINDS``, whose formula
+the CUDA kernels share (``csrc/gram.cuh``).  On a CPU tensor a wrapper runs
+its ``*_reference``, the same function in plain PyTorch (any float dtype).
+On a CUDA tensor it launches its kernel (float32, 1 <= M <= ``MAX_M``) or
+raises; there is no fallback.  Each wrapper counts its launches in
+``<wrapper>.launches``.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  The build happens at the
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -35,16 +38,22 @@ from pathlib import Path
 import torch
 
 from .linalg import _highest_precision
-from .special import logcosh
+from .special import LOG2, logcosh
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = (_PKG / "csrc" / "fused_cavi_stats.cu", _PKG / "csrc" / "fused_cavi_stats_multi.cu")
+# headers the sources include: part of the build's hash
+_HEADERS = (_PKG / "csrc" / "gram.cuh",)
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # largest inducing set the CUDA kernels take (shared-memory residency of
 # K^-1 and Sigma; see the notes at the head of the .cu files)
 MAX_M = 128
+# gram kinds and single-latent likelihoods, in the order of their codes in
+# csrc/gram.cuh (GramKind) and csrc/fused_cavi_stats.cu (Lik)
+KINDS = ("rbf", "matern12", "matern32", "matern52")
+LIKS = ("logistic", "gaussian", "studentt", "laplace", "bayesiansvm", "matern32", "negbinomial", "poisson")
 
 
 def _nvcc() -> str:
@@ -60,7 +69,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
@@ -105,19 +114,18 @@ def build() -> dict:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.agp_fused_cavi_stats_rbf_logistic
-    fn.argtypes = [p] * 15 + [i, i, i, p]
-    fn.restype = i
+    lib.agp_fused_cavi_stats.argtypes = [p] * 15 + [i, i, i, i, i, p]
+    lib.agp_fused_cavi_stats.restype = i
     lib.agp_fused_cavi_smem_bytes.argtypes = [i, i]
     lib.agp_fused_cavi_smem_bytes.restype = ctypes.c_size_t
     lib.agp_fused_cavi_tile_rows.argtypes = []
     lib.agp_fused_cavi_tile_rows.restype = i
     lib.agp_cuda_error_string.argtypes = [i]
     lib.agp_cuda_error_string.restype = ctypes.c_char_p
-    lib.agp_fused_cavi_stats_multiclass_rbf.argtypes = [p] * 21 + [i, i, i, i, p]
-    lib.agp_fused_cavi_stats_multiclass_rbf.restype = i
-    lib.agp_fused_cavi_stats_het_rbf.argtypes = [p] * 20 + [i, i, i, p]
-    lib.agp_fused_cavi_stats_het_rbf.restype = i
+    lib.agp_fused_cavi_stats_multiclass.argtypes = [p] * 21 + [i, i, i, i, i, p]
+    lib.agp_fused_cavi_stats_multiclass.restype = i
+    lib.agp_fused_cavi_stats_het.argtypes = [p] * 20 + [i, i, i, i, p]
+    lib.agp_fused_cavi_stats_het.restype = i
     lib.agp_multi_smem_bytes.argtypes = [i, i]
     lib.agp_multi_smem_bytes.restype = ctypes.c_size_t
     lib.agp_multi_tile_rows.argtypes = []
@@ -144,7 +152,7 @@ def _gram_from_r2(r2, variance, kind):
     if kind == "matern12":
         r = torch.sqrt(torch.clamp(r2, min=1e-36))
         return variance * torch.exp(-r)
-    raise ValueError(f"unknown kernel kind {kind!r}")
+    raise ValueError(f"unknown kernel kind {kind!r}; the kinds are {KINDS}")
 
 
 @_highest_precision
@@ -175,21 +183,58 @@ def _latent_stats_reference(kappa, wg, ws):
     return s1, S2
 
 
+def _estep_reference(lik, mf, vf, yb, p0, p1):
+    """(c, theta, g_mu, g_s) of one row's E-step for likelihood ``lik``
+    (``LIKS``), with its parameters p0, p1: the kernel's formulas."""
+    if lik == "logistic":
+        c = torch.sqrt(mf * mf + vf)
+        theta = torch.tanh(c / 2.0) / (2.0 * c)
+        return c, theta, yb / 2.0, theta / 2.0
+    if lik in ("gaussian", "laplace", "matern32"):
+        c = torch.sqrt(torch.clamp((mf - yb) ** 2 + vf, min=1e-30))
+        if lik == "gaussian":  # p0 = sigma2
+            theta = torch.ones_like(mf) / p0
+            return c, theta, yb / p0, theta / 2.0
+        if lik == "laplace":  # p0 = a = 1/beta^2; c is the local "b"
+            theta = p0**0.5 / c
+            return c, theta, theta * yb, theta / 2.0
+        theta = 3.0 / (2.0 * math.sqrt(3.0) * c * p0 + 2.0 * p0 * p0)  # p0 = rho
+        return c, theta, 2.0 * theta * yb, theta
+    if lik == "studentt":  # p0 = nu, p1 = sigma^2
+        c = ((mf - yb) ** 2 + vf + p1 * p0) / 2.0
+        theta = ((p0 + 1.0) / 2.0) / c
+        return c, theta, theta * yb, theta / 2.0
+    if lik == "bayesiansvm":
+        c = (1.0 - yb * mf) ** 2 + vf
+        theta = 1.0 / torch.sqrt(torch.clamp(c, min=1e-30))
+        return c, theta, yb * (theta + 1.0), theta / 2.0
+    if lik in ("negbinomial", "poisson"):
+        c = torch.sqrt(torch.clamp(mf * mf + vf, min=1e-30))
+        if lik == "negbinomial":  # p0 = r
+            theta = (yb + p0) * torch.tanh(c / 2.0) / (2.0 * c)
+            return c, theta, (yb - p0) / 2.0, theta / 2.0
+        # p0 = lam; gamma = lam e^{-mf/2} / (2 cosh(c/2))
+        logcosh_half = c / 2.0 + torch.log1p(torch.exp(-c)) - LOG2
+        gamma = p0 * torch.exp(-mf / 2.0 - logcosh_half) / 2.0
+        theta = (yb + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
+        return c, theta, (yb - gamma) / 2.0, theta / 2.0
+    raise ValueError(f"unknown likelihood {lik!r}; the likelihoods are {LIKS}")
+
+
 def fused_cavi_stats_reference(
     xb, yb, Z, L_invT, mu, Sigma, lengthscale, variance, jitt, rho,
     lik_p0=0.0, lik_p1=0.0, kind="rbf", lik="logistic",
 ):
     """Plain PyTorch version of :func:`fused_cavi_stats`, in the inputs'
-    dtype, on their device.  Kinds: rbf, matern12, matern32, matern52;
-    likelihood: logistic."""
-    if lik != "logistic":
-        raise NotImplementedError(f"likelihood {lik!r} is not ported yet")
+    dtype, on their device: every kind of ``KINDS`` and likelihood of
+    ``LIKS``."""
+    if lik not in LIKS:
+        raise ValueError(f"unknown likelihood {lik!r}; the likelihoods are {LIKS}")
     kappa, mf, vf = _latent_moments_reference(
         xb, Z[None], L_invT[None], mu[None], Sigma[None], lengthscale, variance, jitt, kind
     )
-    c = torch.sqrt(mf[0] * mf[0] + vf[0])
-    theta = torch.tanh(c / 2.0) / (2.0 * c)
-    s1, S2 = _latent_stats_reference(kappa, (rho * (yb / 2.0))[None], (rho * (theta / 2.0))[None])
+    c, theta, gmu, gs = _estep_reference(lik, mf[0], vf[0], yb, lik_p0, lik_p1)
+    s1, S2 = _latent_stats_reference(kappa, (rho * gmu)[None], (rho * gs)[None])
     return s1[0], S2[0], c, theta, mf[0], vf[0]
 
 
@@ -217,11 +262,15 @@ def _check_tensors(xb, tensors: dict):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_kind(name, kind):
+    if kind not in KINDS:
+        raise ValueError(f"the CUDA {name} takes the kinds {KINDS}; got {kind!r}")
+
+
 def _check_cuda_args(xb, yb, Z, mu, Sigma, kind, lik):
-    if (kind, lik) != ("rbf", "logistic"):
-        raise NotImplementedError(
-            f"the CUDA fused_cavi_stats takes kind='rbf', lik='logistic'; got {kind!r}, {lik!r}"
-        )
+    _check_kind("fused_cavi_stats", kind)
+    if lik not in LIKS:
+        raise ValueError(f"the CUDA fused_cavi_stats takes the likelihoods {LIKS}; got {lik!r}")
     B, D = xb.shape
     M = Z.shape[0]
     _check_tensors(xb, {"xb": (xb, (B, D)), "yb": (yb, (B,)), "Z": (Z, (M, D)), "mu": (mu, (M,)),
@@ -236,11 +285,15 @@ def fused_cavi_stats(
 ):
     """Fused kappa-basis statistics of one CAVI step (single latent GP).
 
-    xb [B, D], yb [B] (+-1), Z [M, D], L_invT = (chol(Kmm)^-1)^T [M, M],
-    mu [M], Sigma [M, M]; lengthscale (scalar: ARD is folded into xb and Z
-    by the caller), variance, jitt, rho as numbers or 1-element tensors.
-    Returns (s1 [M], S2 [M, M], c [B], theta [B], mf [B], vf [B]) with
-    s1 = kappa^T (rho y/2) and S2 = kappa^T diag(rho theta/2) kappa.
+    xb [B, D], yb [B] (the treated labels), Z [M, D],
+    L_invT = (chol(Kmm)^-1)^T [M, M], mu [M], Sigma [M, M]; lengthscale
+    (scalar: ARD is folded into xb and Z by the caller), variance, jitt,
+    rho and the likelihood's parameters lik_p0, lik_p1 (see
+    ``analytic_vi._fused_lik_spec``) as numbers or 1-element tensors; kind
+    of ``KINDS``, lik of ``LIKS``.  Returns (s1 [M], S2 [M, M], c [B],
+    theta [B], mf [B], vf [B]) with s1 = kappa^T (rho g_mu) and
+    S2 = kappa^T diag(rho g_s) kappa, (g_mu, g_s) the likelihood's
+    natural-gradient inputs.
 
     A CPU tensor runs :func:`fused_cavi_stats_reference`.  A CUDA tensor
     launches the kernel and adds one to ``fused_cavi_stats.launches``."""
@@ -267,17 +320,19 @@ def fused_cavi_stats(
         if L_invT.device != dev or L_invT.shape != (M, M):
             raise ValueError(f"L_invT must be [{M}, {M}] on {dev}")
         kinv = _kinv(L_invT.to(torch.float32))
-        params = torch.stack([_device_scalar(v, dev) for v in (lengthscale, variance, jitt, rho)])
+        params = torch.stack(
+            [_device_scalar(v, dev) for v in (lengthscale, variance, jitt, rho, lik_p0, lik_p1)]
+        )
         nb = -(-B // lib.agp_fused_cavi_tile_rows())
         f32 = dict(dtype=torch.float32, device=dev)
         s1_part = torch.empty((nb, M), **f32)
         s2_part = torch.empty((nb, M, M), **f32)
         s1, S2 = torch.empty((M,), **f32), torch.empty((M, M), **f32)
         c, theta, mf, vf = (torch.empty((B,), **f32) for _ in range(4))
-        err = lib.agp_fused_cavi_stats_rbf_logistic(
+        err = lib.agp_fused_cavi_stats(
             *(t.data_ptr() for t in (xb, yb, Z, kinv, mu, Sigma, params, c, theta, mf, vf,
                                      s1_part, s2_part, s1, S2)),
-            B, D, M, torch.cuda.current_stream(dev).cuda_stream,
+            B, D, M, KINDS.index(kind), LIKS.index(lik), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -327,11 +382,10 @@ def fused_cavi_stats_het_reference(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, 
 
 
 def _check_multi_args(name, xb, Z, mu, Sigma, per_row: dict, kind):
-    """The CUDA multi-latent kernels' range: float32, kind="rbf",
+    """The CUDA multi-latent kernels' range: float32, a kind of ``KINDS``,
     1 <= M <= MAX_M, B, D >= 1, and a shared-memory footprint within the
     card's opt-in limit (checked at launch)."""
-    if kind != "rbf":
-        raise NotImplementedError(f"the CUDA {name} takes kind='rbf'; got {kind!r}")
+    _check_kind(name, kind)
     B, D = xb.shape
     L, M = Z.shape[0], Z.shape[1]
     _check_tensors(xb, {"xb": (xb, (B, D)), "Z": (Z, (L, M, D)), "mu": (mu, (L, M)),
@@ -416,9 +470,9 @@ def fused_cavi_stats_multiclass(
     c, theta, gamma = (torch.empty((K, B), **f32) for _ in range(3))
     alpha = torch.empty((B,), **f32)
     s1, S2 = _multi_launch(
-        "fused_cavi_stats_multiclass", _library().agp_fused_cavi_stats_multiclass_rbf,
+        "fused_cavi_stats_multiclass", _library().agp_fused_cavi_stats_multiclass,
         xb, Z, L_invT, mu, Sigma, params, (y_onehot, alpha0, beta0), (c, theta, gamma, alpha),
-        (B, xb.shape[1], Z.shape[1], K),
+        (B, xb.shape[1], Z.shape[1], K, KINDS.index(kind)),
     )
     fused_cavi_stats_multiclass.launches += 1
     return s1, S2, c, theta, gamma, alpha
@@ -452,8 +506,8 @@ def fused_cavi_stats_het(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lam, 
     params = _multi_params(xb, 2, jitt, rho, lam, ls, var)
     outs = tuple(torch.empty((B,), dtype=torch.float32, device=xb.device) for _ in range(5))
     s1, S2 = _multi_launch(
-        "fused_cavi_stats_het", _library().agp_fused_cavi_stats_het_rbf,
-        xb, Z, L_invT, mu, Sigma, params, (yb,), outs, (B, xb.shape[1], Z.shape[1]),
+        "fused_cavi_stats_het", _library().agp_fused_cavi_stats_het,
+        xb, Z, L_invT, mu, Sigma, params, (yb,), outs, (B, xb.shape[1], Z.shape[1], KINDS.index(kind)),
     )
     fused_cavi_stats_het.launches += 1
     return (s1, S2) + outs

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from .linalg import chol_logdet, chol_solve, invquad, symmetrize
-from .special import digamma, gammaln, logcosh, xlogx
+from .special import LOG2, digamma, gammaln, log_besselk_half, logcosh, xlogx
 
 
 def gaussian_kl(mu, mu0, Sigma, L_K):
@@ -17,6 +17,28 @@ def gaussian_kl(mu, mu0, Sigma, L_K):
     trace = torch.diagonal(chol_solve(L_K, Sigma), dim1=-2, dim2=-1).sum(-1)
     quad = invquad(L_K, mu - mu0)
     return 0.5 * (chol_logdet(L_K) - chol_logdet(L_S) + trace + quad - M)
+
+
+def gamma_kl(alpha, beta, alpha_p, beta_p):
+    """KL(Ga(alpha, beta) || Ga(alpha_p, beta_p)), summed; the inverse-Gamma
+    KL has the same form."""
+    return torch.sum(
+        (alpha - alpha_p) * digamma(alpha)
+        - gammaln(alpha)
+        + gammaln(alpha_p)
+        + alpha_p * (torch.log(beta) - torch.log(beta_p))
+        + alpha * (beta_p - beta) / beta
+    )
+
+
+inverse_gamma_kl = gamma_kl
+
+
+def poisson_kl(lam, lam0):
+    """KL(Po(lam) || Po(lam0)) with a scalar rate lam0, summed."""
+    lam = torch.ravel(lam)
+    n = lam.shape[0]
+    return lam0 * n - (1.0 + torch.log(lam0)) * torch.sum(lam) + torch.sum(xlogx(lam))
 
 
 def polya_gamma_kl(b, c, theta):
@@ -40,3 +62,18 @@ def gamma_entropy_improper(alpha, beta):
         - torch.sum(gammaln(alpha))
         - torch.sum((1.0 - alpha) * digamma(alpha))
     )
+
+
+def gig_entropy(a, b, p: float):
+    """Entropy of GIG(a, b, p) summed over elements, without the d/dp K_p
+    term, as the reference takes it; half-integer |p| only."""
+    n_half = int(round(abs(p) - 0.5))
+    sqrt_ab = torch.sqrt(a * b)
+    lk_p = log_besselk_half(n_half, sqrt_ab)
+    # K_{p+1} and K_{p-1} for p = n_half + 1/2: orders n_half+3/2 and n_half-1/2
+    k_plus = torch.exp(log_besselk_half(n_half + 1, sqrt_ab) - lk_p)
+    k_minus = torch.exp(log_besselk_half(abs(n_half - 1) if n_half >= 1 else 0, sqrt_ab) - lk_p)
+    term1 = (torch.sum(torch.log(a)) - torch.sum(torch.log(b))) / 2.0
+    term2 = torch.sum(LOG2 + lk_p)
+    term3 = torch.sum(sqrt_ab * (k_plus + k_minus)) / 2.0
+    return term1 + term2 + term3

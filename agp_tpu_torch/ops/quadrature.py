@@ -25,3 +25,15 @@ def expectation(fn, mu: torch.Tensor, var: torch.Tensor, n: int = 100) -> torch.
     sd = torch.sqrt(torch.clamp(var, min=0.0))
     nodes = mu[..., None] + sd[..., None] * x
     return torch.sum(w * fn(nodes), dim=-1)
+
+
+def mean_and_var(fn, mu: torch.Tensor, var: torch.Tensor, n: int = 100):
+    """(E[fn(f)], V[fn(f)]) under f ~ N(mu, var), on shared nodes."""
+    x, w = gauss_hermite(n)
+    x = torch.as_tensor(x, dtype=mu.dtype, device=mu.device)
+    w = torch.as_tensor(w, dtype=mu.dtype, device=mu.device)
+    sd = torch.sqrt(torch.clamp(var, min=0.0))
+    vals = fn(mu[..., None] + sd[..., None] * x)
+    m = torch.sum(w * vals, dim=-1)
+    m2 = torch.sum(w * vals**2, dim=-1)
+    return m, m2 - m**2

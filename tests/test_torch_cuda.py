@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import agp_tpu_torch as agt
+import chip_smoke as smoke
 from agp_tpu_torch.ops import cuda_kernels as ck
 from agp_tpu_torch.ops import linalg
 
@@ -20,26 +21,33 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def kernel_inputs(b, m, d, device, seed=0):
+KERNEL_OF = {kind: cls for cls, kind in agt.kernels.FUSED_KINDS.items()}
+def kernel_inputs(b, m, d, device, seed=0, kind="rbf", lik="logistic"):
     """Float32 inputs on ``device``: Z from the data as the main path takes
-    it, a random SPD Sigma."""
+    it, K^-1 from the gram of ``kind``, a random SPD Sigma, labels and
+    (p0, p1) of likelihood ``lik``."""
+    from agp_tpu_torch.inference.analytic_vi import _fused_lik_spec
+
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(b + m, d))
     A = rng.normal(size=(m, m))
     arrays = dict(
-        X=X[m:], Z=X[:m], y=np.where(rng.normal(size=b) > 0, 1.0, -1.0),
+        X=X[m:], Z=X[:m], y=smoke.single_latent_labels(lik, np.sin(X[m:, 0]), rng),
         mu=rng.normal(size=m), Sigma=A @ A.T / m + np.eye(m),
     )
     t = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in arrays.items()}
-    kern = agt.SqExponentialKernel(lengthscale=LS, variance=VAR)
+    kern = KERNEL_OF[kind](lengthscale=LS, variance=VAR)
     L = linalg.safe_cholesky(kern.gram(t["Z"].double()), JITT)
     eye = torch.eye(m, dtype=torch.float64, device=device)
     t["L_invT"] = torch.linalg.solve_triangular(L, eye, upper=False).T.float()
+    _, t["p0"], t["p1"], _ = _fused_lik_spec(smoke.single_latent_lik(agt, lik).to(device=device, dtype=torch.float32))
+    t["kind"], t["lik"] = kind, lik
     return t
 
 
 def call(fn, t):
-    return fn(t["X"], t["y"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], LS, VAR, JITT, RHO)
+    return fn(t["X"], t["y"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], LS, VAR, JITT, RHO,
+              lik_p0=t["p0"], lik_p1=t["p1"], kind=t["kind"], lik=t["lik"])
 
 
 @pytest.mark.cuda
@@ -62,6 +70,64 @@ def test_cuda_kernel_matches_plain(cuda_device, b, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [4096, 300])
+@pytest.mark.parametrize("lik", list(ck.LIKS))
+def test_cuda_kernel_branch_matches_plain(cuda_device, lik, b):
+    """Each likelihood branch (rbf, M=64, D=20) against the plain version
+    on the same card tensors, both float32: 1e-4 of each output's largest
+    entry, as above."""
+    assert_kernel_matches_plain(ck.fused_cavi_stats, ck.fused_cavi_stats_reference, call,
+                                kernel_inputs(b, 64, 20, cuda_device, lik=lik), ("s1", "S2", "c", "theta", "mf", "vf"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("kind", list(KERNEL_OF))
+def test_cuda_kernel_kind_matches_plain(cuda_device, kind, m):
+    """Each gram kind (Student-t, B=4096, D=20) against the plain version,
+    as above."""
+    assert_kernel_matches_plain(ck.fused_cavi_stats, ck.fused_cavi_stats_reference, call,
+                                kernel_inputs(4096, m, 20, cuda_device, kind=kind, lik="studentt"),
+                                ("s1", "S2", "c", "theta", "mf", "vf"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lik,kind", [(lik, "rbf") for lik in ck.LIKS] + [("studentt", k) for k in ck.KINDS[1:]])
+def test_cuda_kernel_oracle_shape_matches_plain(cuda_device, lik, kind):
+    """Each likelihood branch (rbf) and Matern kind (Student-t) at the
+    oracle paths' shape (B=8192, D=2, M=128, Z on the batch's rows,
+    lengthscale 1), where float32 fixes the outputs only to ~5e-3: each
+    output against the plain version in float64 on the same inputs, within
+    max(1e-4, FLOAT32_FACTOR times the float32 plain version's own error)."""
+    t = smoke.branch_inputs(agt, smoke.OB, smoke.OM, cuda_device, lik, kind, at="oracle")
+    before = ck.fused_cavi_stats.launches
+    out = smoke.call_branch(ck.fused_cavi_stats, t)
+    torch.cuda.synchronize()
+    assert ck.fused_cavi_stats.launches == before + 1
+    ref = smoke.call_branch(ck.fused_cavi_stats_reference, t)
+    ref64 = smoke.call_branch(ck.fused_cavi_stats_reference, smoke.to_float64(t))
+    smoke.check_outputs(f"{lik}/{kind}", ("s1", "S2", "c", "theta", "mf", "vf"), out, ref, ref64)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises(cuda_device):
+    """On a CUDA tensor the wrapper launches or raises: no fallback for a
+    likelihood, kind, dtype or shape the kernel does not take."""
+    t = kernel_inputs(64, 16, 4, cuda_device)
+    before = ck.fused_cavi_stats.launches
+    with pytest.raises(ValueError, match="likelihoods"):
+        call(ck.fused_cavi_stats, {**t, "lik": "softmax"})
+    with pytest.raises(ValueError, match="kinds"):
+        call(ck.fused_cavi_stats, {**t, "kind": "periodic"})
+    with pytest.raises(TypeError):
+        call(ck.fused_cavi_stats, {**t, "X": t["X"].double()})
+    big = kernel_inputs(64, ck.MAX_M + 1, 4, cuda_device)
+    with pytest.raises(ValueError, match="M <="):
+        call(ck.fused_cavi_stats, big)
+    assert ck.fused_cavi_stats.launches == before
+
+
+@pytest.mark.cuda
 def test_train_launches_once_per_step(cuda_device):
     rng = np.random.default_rng(1)
     X = torch.as_tensor(rng.normal(size=(4096, 8)), dtype=torch.float32, device=cuda_device)
@@ -77,10 +143,11 @@ def test_train_launches_once_per_step(cuda_device):
     assert torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all()
 
 
-def multi_inputs(b, m, n_latent, d, device, seed=0):
+def multi_inputs(b, m, n_latent, d, device, seed=0, kind="rbf"):
     """Float32 card tensors for the multi-latent kernels: per-latent ARD
-    lengthscales, Z from the data, random SPD Sigma, one-hot labels
-    (multiclass) and real targets (heteroscedastic)."""
+    lengthscales, Z from the data, K^-1 from the gram of ``kind``, random
+    SPD Sigma, one-hot labels (multiclass) and real targets
+    (heteroscedastic)."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(b + m, d))
     A = rng.normal(size=(n_latent, m, m))
@@ -92,21 +159,23 @@ def multi_inputs(b, m, n_latent, d, device, seed=0):
         alpha=rng.uniform(1.0, 2.0 * n_latent, size=b), beta=np.full(b, float(n_latent)),
     )
     t = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in arrays.items()}
-    kern = agt.SqExponentialKernel()
+    kern = KERNEL_OF[kind]()
     L = torch.stack([linalg.safe_cholesky(kern.gram(t["Z"][l].double() / t["ls"][l].double()) * float(arrays["var"][l]), JITT)
                      for l in range(n_latent)])
     eye = torch.eye(m, dtype=torch.float64, device=device)
     t["L_invT"] = torch.linalg.solve_triangular(L, eye, upper=False).mT.float().contiguous()
+    t["kind"] = kind
     return t
 
 
 def call_mc(fn, t):
     return fn(t["X"], t["onehot"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], t["ls"], t["var"], JITT, RHO,
-              t["alpha"], t["beta"])
+              t["alpha"], t["beta"], kind=t["kind"])
 
 
 def call_het(fn, t, lam=3.0):
-    return fn(t["X"], t["yr"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], t["ls"], t["var"], JITT, RHO, lam)
+    return fn(t["X"], t["yr"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], t["ls"], t["var"], JITT, RHO, lam,
+              kind=t["kind"])
 
 
 def assert_kernel_matches_plain(wrapper, plain, call, t, names):
@@ -143,13 +212,28 @@ def test_cuda_het_kernel_matches_plain(cuda_device, b, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["matern12", "matern32", "matern52"])
+@pytest.mark.parametrize("which", ["multiclass", "het"])
+def test_cuda_multi_kernels_matern_match_plain(cuda_device, which, kind):
+    """Kernels 2 (K=10) and 3 with each Matern kind at B=2048, M=64, D=10,
+    as above."""
+    n_latent = 10 if which == "multiclass" else 2
+    t = multi_inputs(2048, 64, n_latent, 10, cuda_device, kind=kind)
+    if which == "multiclass":
+        assert_kernel_matches_plain(ck.fused_cavi_stats_multiclass, ck.fused_cavi_stats_multiclass_reference, call_mc,
+                                    t, ("s1", "S2", "c", "theta", "gamma", "alpha"))
+    else:
+        assert_kernel_matches_plain(ck.fused_cavi_stats_het, ck.fused_cavi_stats_het_reference, call_het, t,
+                                    ("s1", "S2", "c", "phi", "gamma", "theta", "sigg"))
+
+
+@pytest.mark.cuda
 def test_cuda_multi_wrappers_raise(cuda_device):
     """On a CUDA tensor the wrappers launch or raise: no fallback for a
     kind, dtype or shape their kernels do not take."""
     t = multi_inputs(64, 16, 3, 4, cuda_device)
-    with pytest.raises(NotImplementedError):
-        ck.fused_cavi_stats_multiclass(t["X"], t["onehot"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], t["ls"],
-                                       t["var"], JITT, RHO, t["alpha"], t["beta"], kind="matern32")
+    with pytest.raises(ValueError, match="kinds"):
+        call_mc(ck.fused_cavi_stats_multiclass, {**t, "kind": "periodic"})
     with pytest.raises(TypeError):
         call_mc(ck.fused_cavi_stats_multiclass, {**t, "X": t["X"].double()})
     big = multi_inputs(64, ck.MAX_M + 1, 2, 4, cuda_device)
@@ -158,9 +242,8 @@ def test_cuda_multi_wrappers_raise(cuda_device):
     with pytest.raises(ValueError, match="2 latents"):
         call_het(ck.fused_cavi_stats_het, t)
     th = multi_inputs(64, 16, 2, 4, cuda_device)
-    with pytest.raises(NotImplementedError):
-        ck.fused_cavi_stats_het(th["X"], th["yr"], th["Z"], th["L_invT"], th["mu"], th["Sigma"], th["ls"],
-                                th["var"], JITT, RHO, 1.0, kind="matern52")
+    with pytest.raises(ValueError, match="kinds"):
+        call_het(ck.fused_cavi_stats_het, {**th, "kind": "periodic"})
 
 
 @pytest.mark.cuda
@@ -178,4 +261,24 @@ def test_train_multi_latent_launches_once_per_step(cuda_device, which):
     model, state = agt.train(model, X, y, iterations=20)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 20
+    assert torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["SqExponentialKernel", "Matern12Kernel"])
+def test_train_poisson_launches_once_per_step(cuda_device, kernel):
+    """The Poisson path: one launch per step, lambda rewritten on the device
+    every step (finite, moved from its start)."""
+    rng = np.random.default_rng(3)
+    X = torch.as_tensor(rng.uniform(-2, 2, size=(4096, 2)), dtype=torch.float32, device=cuda_device)
+    rate = 20.0 * torch.sigmoid(torch.sin(2 * X[:, 0]) + 0.5 * X[:, 1])
+    y = torch.poisson(rate, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    model = agt.SVGP.create(getattr(agt, kernel)(), agt.PoissonLikelihood.create(10.0),
+                            agt.AnalyticSVI(1024, minibatch_sampling="slice"), X[:64], optimiser=None)
+    before = ck.fused_cavi_stats.launches
+    model, state = agt.train(model, X, y, iterations=20)
+    torch.cuda.synchronize()
+    assert ck.fused_cavi_stats.launches == before + 20
+    lam = model.likelihood.lam
+    assert lam.device.type == "cuda" and bool(torch.isfinite(lam)) and abs(float(lam) - 10.0) > 1e-3
     assert torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all()

@@ -112,8 +112,13 @@ def test_cuda_argument_checks():
     t = {k: torch.as_tensor(a[k], dtype=torch.float32) for k in ("X", "y", "Z", "mu", "Sigma")}
     args = (t["X"], t["y"], t["Z"], t["mu"], t["Sigma"])
     ck._check_cuda_args(*args, "rbf", "logistic")
-    with pytest.raises(NotImplementedError):
-        ck._check_cuda_args(*args, "matern32", "logistic")
+    for kind in ck.KINDS:
+        for lik in ck.LIKS:
+            ck._check_cuda_args(*args, kind, lik)
+    with pytest.raises(ValueError, match="kinds"):
+        ck._check_cuda_args(*args, "periodic", "logistic")
+    with pytest.raises(ValueError, match="likelihoods"):
+        ck._check_cuda_args(*args, "rbf", "softmax")
     with pytest.raises(TypeError):
         ck._check_cuda_args(t["X"].double(), *args[1:], "rbf", "logistic")
     with pytest.raises(ValueError):

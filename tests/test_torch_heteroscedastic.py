@@ -173,8 +173,9 @@ def test_cuda_argument_checks():
     t = {k: torch.as_tensor(a[k], dtype=torch.float32) for k in ("X", "y", "Z", "mu", "Sigma")}
     args = ("fused_cavi_stats_het", t["X"], t["Z"], t["mu"], t["Sigma"])
     ck._check_multi_args(*args, {"yb": (t["y"], (300,))}, "rbf")
-    with pytest.raises(NotImplementedError):
-        ck._check_multi_args(*args, {"yb": (t["y"], (300,))}, "matern52")
+    ck._check_multi_args(*args, {"yb": (t["y"], (300,))}, "matern52")
+    with pytest.raises(ValueError, match="kinds"):
+        ck._check_multi_args(*args, {"yb": (t["y"], (300,))}, "periodic")
     with pytest.raises(ValueError):
         ck._check_multi_args(*args, {"yb": (t["y"][:10], (300,))}, "rbf")
     with pytest.raises(ValueError):

@@ -41,6 +41,34 @@ def test_sqexponential_gram_and_diag(ard):
     close(kt.diag(Xt), kj.diag(Xj))
 
 
+@pytest.mark.parametrize("ard", [False, True])
+@pytest.mark.parametrize("name", ["Matern12Kernel", "Matern32Kernel", "Matern52Kernel"])
+def test_matern_gram_and_diag(name, ard):
+    """The Matern kernels' gram (cross and self) and diag, and their kind
+    for the fused kernels.  The self-gram's diagonal sits at r = 0, where
+    r = sqrt of the expanded |x|^2 + |z|^2 - 2 x.z carries the square root
+    of that sum's rounding (~1e-8 in float64, summed in another order in
+    each package).  Matern-1/2 is linear in r there, so its diagonal
+    carries that square root and is held at atol 1e-6; Matern-3/2 and 5/2
+    are quadratic in r, so their diagonals carry the rounding of r^2
+    itself, times up to 1.5 v (a few 1e-14), and are held at atol 1e-12.
+    The rest is held at RTOL."""
+    X, Z = data(5)
+    ls = np.array([0.7, 1.3, 2.0, 0.9, 1.1]) if ard else np.array(1.7)
+    kj = getattr(agp, name)(lengthscale=jnp.asarray(ls), variance=jnp.asarray(2.5))
+    kt = getattr(tk, name)(lengthscale=torch.as_tensor(ls), variance=torch.as_tensor(2.5))
+    Xj, Zj, Xt, Zt = jnp.asarray(X), jnp.asarray(Z), torch.as_tensor(X), torch.as_tensor(Z)
+    close(kt.gram(Xt, Zt), kj.gram(Xj, Zj))
+    self_t, self_j = kt.gram(Xt), np.asarray(kj.gram(Xj))
+    off = ~np.eye(len(X), dtype=bool)
+    close(self_t[torch.as_tensor(off)], self_j[off])
+    np.testing.assert_allclose(np.diag(self_t.numpy()), np.diag(self_j), rtol=0,
+                               atol=1e-6 if name == "Matern12Kernel" else 1e-12)
+    close(kt.diag(Xt), kj.diag(Xj))
+    assert tk.fused_kind(kt) == {"Matern12Kernel": "matern12", "Matern32Kernel": "matern32",
+                                 "Matern52Kernel": "matern52"}[name]
+
+
 def test_batch_gram_zz_diag_over_latents():
     X, Z = data(2)
     Z3 = np.stack([Z, Z + 0.1])

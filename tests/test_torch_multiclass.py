@@ -202,8 +202,9 @@ def test_cuda_argument_checks():
     rows = {"y_onehot": (t["y"], (300, K)), "alpha0": (t["alpha"], (300,))}
     args = ("fused_cavi_stats_multiclass", t["X"], t["Z"], t["mu"], t["Sigma"])
     ck._check_multi_args(*args, rows, "rbf")
-    with pytest.raises(NotImplementedError):
-        ck._check_multi_args(*args, rows, "matern32")
+    ck._check_multi_args(*args, rows, "matern32")
+    with pytest.raises(ValueError, match="kinds"):
+        ck._check_multi_args(*args, rows, "periodic")
     with pytest.raises(TypeError):
         ck._check_multi_args(*args, {**rows, "alpha0": (t["alpha"].double(), (300,))}, "rbf")
     with pytest.raises(ValueError):

@@ -80,6 +80,38 @@ def test_poisson_and_gamma_kl_terms():
           jkl.gamma_entropy_improper(jnp.asarray(alpha), jnp.asarray(beta)), atol=1e-11)
 
 
+def test_slice_c_special_functions():
+    """log_besselk_half (the Bayesian SVM's ELBO and gig_entropy) at the
+    half-integer orders 1/2 ... 7/2 (closed-form polynomials: rtol 1e-12)."""
+    x = np.random.default_rng(7).uniform(0.05, 30.0, size=50)
+    for n_half in range(4):
+        close(ts.log_besselk_half(n_half, torch.as_tensor(x)), js.log_besselk_half(n_half, jnp.asarray(x)))
+
+
+def test_quadrature_mean_and_var():
+    rng = np.random.default_rng(8)
+    mu, var = rng.normal(size=30), rng.uniform(0.0, 3.0, size=30)
+    port = tq.mean_and_var(lambda f: 3.0 * torch.sigmoid(f), torch.as_tensor(mu), torch.as_tensor(var))
+    ref = jq.mean_and_var(lambda f: 3.0 * jax.nn.sigmoid(f), jnp.asarray(mu), jnp.asarray(var))
+    for p, r in zip(port, ref):
+        close(p, r)
+
+
+def test_slice_c_kl_terms():
+    """gamma_kl (= inverse_gamma_kl), poisson_kl and gig_entropy at
+    p = 1/2 and 3/2: sums of O(40) terms, absolute agreement to 1e-11."""
+    rng = np.random.default_rng(9)
+    a, b = rng.uniform(0.5, 6.0, size=40), rng.uniform(0.5, 6.0, size=40)
+    ap, bp = rng.uniform(0.5, 6.0, size=40), rng.uniform(0.5, 6.0, size=40)
+    T, J = (lambda *v: [torch.as_tensor(u) for u in v]), (lambda *v: [jnp.asarray(u) for u in v])
+    close(tkl.gamma_kl(*T(a, b, ap, bp)), jkl.gamma_kl(*J(a, b, ap, bp)), atol=1e-11)
+    close(tkl.inverse_gamma_kl(*T(a, b, ap, bp)), jkl.inverse_gamma_kl(*J(a, b, ap, bp)), atol=1e-11)
+    lam = np.concatenate([[0.0], rng.uniform(0.01, 5.0, size=39)])
+    close(tkl.poisson_kl(*T(lam, np.array(2.5))), jkl.poisson_kl(*J(lam, np.array(2.5))), atol=1e-11)
+    for p in (0.5, 1.5):
+        close(tkl.gig_entropy(*T(a, b), p), jkl.gig_entropy(*J(a, b), p), atol=1e-11)
+
+
 def test_logistic_likelihood_contract():
     rng = np.random.default_rng(3)
     B = 64

@@ -10,8 +10,9 @@ import agp_tpu as agp
 import agp_tpu_torch as agt
 from agp_tpu.training.train import init_state as jax_init_state
 from agp_tpu.utils.opt import robbins_monro as jax_robbins_monro
-from agp_tpu_torch.interop import model_from_numpy, state_from_numpy
+from agp_tpu_torch.interop import LIKELIHOOD_PARAMS, model_from_numpy, state_from_numpy
 from agp_tpu_torch.utils.opt import GradientTransformation
+from chip_smoke import single_latent_labels, single_latent_lik
 
 
 def logistic_data(N, D, seed=0):
@@ -38,13 +39,15 @@ def het_data(N, D, seed=0):
     return X, np.sin(X[:, 0]) + 0.1 * rng.normal(size=N)
 
 
-def jax_svgp(X, y, M, B, sampling="block", lengthscale=2.0, likelihood=None):
+def jax_svgp(X, y, M, B, sampling="block", lengthscale=2.0, likelihood=None, kernel=None):
     """An SVGP in the JAX package (float64; the logistic likelihood unless
-    ``likelihood`` is given): (model, state, X, y) with the labels
-    treated."""
+    ``likelihood`` is given, the squared-exponential kernel unless
+    ``kernel``, a JAX kernel class, is): (model, state, X, y) with the
+    labels treated."""
     Xj = jnp.asarray(X)
+    kernel = agp.SqExponentialKernel if kernel is None else kernel
     model = agp.SVGP.create(
-        agp.SqExponentialKernel(lengthscale=jnp.asarray(lengthscale), variance=jnp.asarray(1.0)),
+        kernel(lengthscale=jnp.asarray(lengthscale), variance=jnp.asarray(1.0)),
         agp.LogisticLikelihood.create() if likelihood is None else likelihood,
         agp.AnalyticSVI(B, minibatch_sampling=sampling),
         Xj[:M],
@@ -74,9 +77,16 @@ def port_likelihood(lik_j):
         return agt.LogisticSoftMaxLikelihood.create(lik_j.n_class), dict(
             n_class=lik_j.n_class, class_mapping=lik_j.class_mapping
         )
-    if name == "HeteroscedasticLikelihood":
-        return agt.HeteroscedasticLikelihood.create(), dict(lam=np.array(lik_j.lam))
-    return agt.LogisticLikelihood.create(), {}
+    params = {k: np.array(getattr(lik_j, k)) for k in LIKELIHOOD_PARAMS if k in type(lik_j).__dataclass_fields__}
+    return getattr(agt, name)(), params
+
+
+def port_lik_same_params(lik_j, dtype=torch.float64):
+    """The port's likelihood of the same type and parameters as ``lik_j``."""
+    lik, params = port_likelihood(lik_j)
+    if "n_class" in params:
+        return lik
+    return lik.replace(**{k: torch.as_tensor(v, dtype=dtype) for k, v in params.items()})
 
 
 def port_from_jax(mj, sj, Xj, yj, dtype=torch.float64, device="cpu", optimiser=None):
@@ -87,7 +97,8 @@ def port_from_jax(mj, sj, Xj, yj, dtype=torch.float64, device="cpu", optimiser=N
     X = torch.as_tensor(np.array(Xj), dtype=dtype, device=device)
     M = mj.Z.shape[1]
     lik, lik_params = port_likelihood(mj.likelihood)
-    mt = agt.SVGP.create(agt.SqExponentialKernel(), lik, inference, X[:M], optimiser=None)
+    kernel = getattr(agt, type(mj.kernel).__name__)()
+    mt = agt.SVGP.create(kernel, lik, inference, X[:M], optimiser=None)
     mt = model_from_numpy(
         dict(Z=np.array(mj.Z), lengthscale=np.array(mj.kernel.lengthscale),
              variance=np.array(mj.kernel.variance), **lik_params),
@@ -121,3 +132,134 @@ def replay_rule(scales):
         return tuple(-u * scale for u in updates), state + 1
 
     return GradientTransformation(init, update)
+
+
+# ------------------------------------------- the single-latent likelihoods
+def jax_single_latent(name):
+    """The JAX likelihood of ``fused_cavi_stats``'s branch ``name``: the
+    type and parameters of ``chip_smoke.single_latent_lik``, made by the
+    JAX class's ``create``, whose positional parameters come in the order
+    of ``LIKELIHOOD_PARAMS`` (the Gaussian's noise fixed)."""
+    lt = single_latent_lik(agt, name)
+    return getattr(agp, type(lt).__name__).create(*(float(getattr(lt, k)) for k in LIKELIHOOD_PARAMS if hasattr(lt, k)))
+
+
+def single_latent_data(name, N, D, seed=0):
+    """X [N, D] standard normal, f = sin(x_0) + 0.5 x_1 and its labels."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, D))
+    f = np.sin(X[:, 0]) + 0.5 * X[:, 1]
+    return X, f, single_latent_labels(name, f, rng)
+
+
+def close(port, ref, rtol=1e-8, atol=1e-12, msg=""):
+    port = port.detach().cpu().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    np.testing.assert_allclose(port, np.asarray(ref), rtol=rtol, atol=atol, err_msg=msg)
+
+
+def close_tree(port, ref, **kw):
+    """``close`` over a tensor or a tuple of them (compute_proba's output)."""
+    if isinstance(ref, tuple):
+        assert isinstance(port, tuple) and len(port) == len(ref)
+        for p, r in zip(port, ref):
+            close(p, r, **kw)
+    else:
+        close(port, ref, **kw)
+
+
+def lik_params_close(lt, lj, **kw):
+    for k in LIKELIHOOD_PARAMS:
+        if k in type(lj).__dataclass_fields__:
+            close(getattr(lt, k), getattr(lj, k), msg=k, **kw)
+
+
+def check_likelihood_methods(name, w=None, b=64, seed=0):
+    """The port's likelihood ``name`` against the JAX package's on the same
+    float64 inputs, rtol 1e-10 (sums also atol 1e-10): treat_labels,
+    local_updates (with the row mask ``w``), the parameters it updates,
+    grad_e_mu, grad_e_sigma, expec_loglik, aug_kl, compute_proba,
+    predict_y and log_prob."""
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=b)
+    y = single_latent_labels(name, f, rng)
+    mu = (f + 0.3 * rng.normal(size=b))[None]
+    var = rng.uniform(0.05, 0.5, size=(1, b))
+    lj = jax_single_latent(name)
+    yj, lj = lj.treat_labels(y)
+    yj = jnp.asarray(yj, jnp.float64)
+    lt = port_lik_same_params(lj)
+    yt, lt = lt.treat_labels(y)
+    close(yt, yj, rtol=0, msg="treat_labels")
+    yt = yt.double()
+    kw = dict(rtol=1e-10, atol=1e-10)
+    mj, vj, mt, vt = jnp.asarray(mu), jnp.asarray(var), torch.as_tensor(mu), torch.as_tensor(var)
+    wj = None if w is None else jnp.asarray(w)
+    wt = None if w is None else torch.as_tensor(w)
+    lj2, loc_j = lj.local_updates(yj, mj, vj, lj.init_local_vars(b, jnp.float64), w=wj)
+    lt2, loc_t = lt.local_updates(yt, mt, vt, lt.init_local_vars(b, torch.float64), w=wt)
+    assert set(loc_t) == set(loc_j), (set(loc_t), set(loc_j))
+    for k in loc_j:
+        close(loc_t[k], loc_j[k], msg=k, **kw)
+    lik_params_close(lt2, lj2, **kw)
+    close(lt2.grad_e_mu(yt, loc_t), lj2.grad_e_mu(yj, loc_j), msg="grad_e_mu", **kw)
+    close(lt2.grad_e_sigma(yt, loc_t), lj2.grad_e_sigma(yj, loc_j), msg="grad_e_sigma", **kw)
+    close(lt2.expec_loglik(yt, mt, vt, loc_t), lj2.expec_loglik(yj, mj, vj, loc_j), msg="expec_loglik", **kw)
+    close(lt2.aug_kl(loc_t, yt), lj2.aug_kl(loc_j, yj), msg="aug_kl", **kw)
+    close_tree(lt2.compute_proba(mt[0], vt[0]), lj2.compute_proba(mj[0], vj[0]), **kw)
+    close(lt2.predict_y(mt[0]), lj2.predict_y(mj[0]), msg="predict_y", **kw)
+    close(lt2.log_prob(yt, mt[0]), lj2.log_prob(yj, mj[0]), msg="log_prob", **kw)
+    return lt2, lj2
+
+
+def slice_runs(name, N, D, M, B, steps, kernel=None, seed=0):
+    """``steps`` slice-sampled CAVI steps of both packages from identical
+    states on the JAX package's own draws, with its Robbins-Monro scales
+    replayed: the states after each step and the final models."""
+    from agp_tpu.training.train import _precomputed_draws, _vi_steps
+    from agp_tpu_torch.training.train import vi_steps
+
+    X, _, y = single_latent_data(name, N, D, seed)
+    mj, sj, Xj, yj = jax_svgp(X, y, M, B, sampling="slice", likelihood=jax_single_latent(name), kernel=kernel)
+    _, idx = _precomputed_draws(mj, sj, Xj, steps)
+    mt, st, Xt, yt = port_from_jax(mj, sj, Xj, yj, optimiser=replay_rule(jax_rm_scales(steps)))
+    draws = torch.as_tensor(np.array(idx), dtype=torch.int64)
+    per_step = []
+    for i in range(steps):
+        mj, sj = _vi_steps(mj, sj, Xj, yj, 1)
+        mt, st = vi_steps(mt, st, Xt, yt, 1, draws=draws[i : i + 1])
+        per_step.append((mj, sj, mt, st))
+    return dict(per_step=per_step, jax=(mj, sj, Xj, yj, idx), port=(mt, st, Xt, yt), B=B)
+
+
+def check_steps(runs, rtol=1e-8):
+    """eta, mu, Sigma, every local variable and the likelihood's parameters
+    after each step, at rtol (atol 1e-12)."""
+    for step, (mj, sj, mt, st) in enumerate(runs["per_step"]):
+        for name in ("eta1", "eta2", "mu", "Sigma"):
+            close(getattr(st, name), getattr(sj, name), rtol=rtol, msg=f"step {step}: {name}")
+        assert set(st.local_vars) == set(sj.local_vars)
+        for name in sj.local_vars:
+            close(st.local_vars[name], sj.local_vars[name], rtol=rtol, msg=f"step {step}: {name}")
+        lik_params_close(mt.likelihood, mj.likelihood, rtol=rtol)
+        assert int(st.opt_state) == int(sj.opt_state) == step + 1
+        assert int(st.step) == int(sj.step) == step + 1
+
+
+def check_predictions_and_elbo(runs, D, rtol=1e-8):
+    """predict_f (mean and variance), predict_y and proba_y on 200 held-out
+    points, and the ELBO on the last step's minibatch, at rtol."""
+    mj, sj, Xj, yj, idx = runs["jax"]
+    mt, st, Xt, yt = runs["port"]
+    Xh = np.random.default_rng(1).normal(size=(200, D))
+    Xhj, Xht = jnp.asarray(Xh), torch.as_tensor(Xh)
+    mu_j, var_j = agp.predict_f(mj, sj, Xhj, cov=True)
+    mu_t, var_t = agt.predict_f(mt, st, Xht, cov=True)
+    close(mu_t, mu_j, rtol=rtol, msg="predict_f mean")
+    close(var_t, var_j, rtol=rtol, msg="predict_f var")
+    close(agt.predict_y(mt, st, Xht), agp.predict_y(mj, sj, Xhj), rtol=rtol, msg="predict_y")
+    close_tree(agt.proba_y(mt, st, Xht), agp.proba_y(mj, sj, Xhj), rtol=rtol)
+    start, B = int(idx[-1]), runs["B"]
+    xb, yb = np.array(Xj)[start : start + B], np.array(yj)[start : start + B]
+    e_j = float(agp.elbo(mj, sj, jnp.asarray(xb), jnp.asarray(yb)))
+    e_t = float(agt.elbo(mt, st, torch.as_tensor(xb), torch.as_tensor(yb)))
+    np.testing.assert_allclose(e_t, e_j, rtol=rtol)
