@@ -3,16 +3,19 @@
 Sparse variational GPs with augmented likelihoods, trained by closed-form
 natural-gradient CAVI.  This package mirrors ``agp_tpu``'s module paths and
 public names; it runs on the CPU (plain PyTorch) and on an NVIDIA Hopper
-card, where the step's statistics pass is a hand-written CUDA kernel
-(``ops/cuda_kernels.py``).  Ported so far: ``SVGP`` with the
-squared-exponential and Matern 1/2, 3/2, 5/2 kernels and the logistic,
-Gaussian (fixed noise), Student-t, Laplace, Matern-3/2 noise, Bayesian SVM,
-Poisson, negative binomial, logistic-softmax (multiclass) and
+card, where the step's statistics are hand-written CUDA kernels
+(``ops/cuda_kernels.py``): one fused pass while the model's inducing set
+fits a block's shared memory (M <= 128), else the batched pair of kernels
+around the likelihood's own E-step (M up to 1,680).  Ported so far:
+``SVGP`` with the squared-exponential and Matern 1/2, 3/2, 5/2 kernels and
+the logistic, Gaussian (fixed noise), Student-t, Laplace, Matern-3/2 noise,
+Bayesian SVM, Poisson, negative binomial, logistic-softmax (multiclass) and
 heteroscedastic likelihoods, trained by stochastic CAVI with fixed
-hyperparameters.
+hyperparameters.  Inputs without a device (numpy arrays, lists) go to the
+CUDA card unless ``config.set_default_device("cpu")`` was called.
 """
 
-from . import kernels
+from . import config, kernels
 from .inference.config import AnalyticSVI, AnalyticVI
 from .kernels import Matern12Kernel, Matern32Kernel, Matern52Kernel, RBFKernel, SqExponentialKernel
 from .likelihoods.base import Likelihood
@@ -53,6 +56,7 @@ __all__ = [
     "NegBinomialLikelihood",
     "LogisticSoftMaxLikelihood",
     "HeteroscedasticLikelihood",
+    "config",
     "kernels",
     "SqExponentialKernel",
     "RBFKernel",

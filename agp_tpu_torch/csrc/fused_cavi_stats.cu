@@ -143,6 +143,9 @@ __device__ inline RowStep estep(int lik, float mf, float vf, float y, float p0, 
 // distinct banks
 __host__ __device__ inline int z_stride(int D) { return D | 1; }
 
+// fused_fits in ops/cuda_kernels.py copies this footprint and TB, so that
+// the CPU and the card dispatch alike: change both together (chip_smoke.py's
+// check_fused_fits holds them against each other)
 size_t smem_bytes(int D, int M) {
   size_t f = (size_t)TB * D + (size_t)M * z_stride(D) + 2 * (size_t)M * M + M +
              2 * (size_t)TB * M + 4 * TB;

@@ -71,6 +71,9 @@ constexpr float LOG2F = 0.6931471805599453f;
 
 __host__ __device__ inline int z_stride(int D) { return D | 1; }
 
+// fused_fits in ops/cuda_kernels.py copies moments_smem (the larger of the
+// two) and TB, so that the CPU and the card dispatch alike: change both
+// together (chip_smoke.py's check_fused_fits holds them against each other)
 size_t moments_smem(int D, int M) {
   return sizeof(float) * ((size_t)TB * D + (size_t)M * z_stride(D) + 2 * (size_t)M * M + M +
                           2 * (size_t)TB * M + 2 * TB);

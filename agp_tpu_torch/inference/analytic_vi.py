@@ -11,15 +11,27 @@ Update equations:
           d_eta2 = -(rho kappa^T Diag(gs) kappa + K^-1/2) - eta2
   stochastic: eta += RobbinsMonro-scaled d_eta; else eta += d_eta.
 
-Dispatch: a sparse, not online model with a squared-exponential or Matern
-kernel always takes a fused statistics pass of ``ops/cuda_kernels.py`` (the
-CUDA kernel on a CUDA tensor, its plain version on a CPU tensor):
-``fused_cavi_stats`` for the eight single-latent likelihoods it covers,
-``fused_cavi_stats_multiclass`` for the logistic-softmax one and
-``fused_cavi_stats_het`` for the heteroscedastic one.  Every other case,
-and any row-weighted batch, takes the unfused path built from
-``latent_moments``, the likelihood's ``local_updates`` and
-``apply_natural_gradient``.
+Dispatch, for a sparse, not online model with a squared-exponential or
+Matern kernel (``kernels.FUSED_KINDS``); each function of
+``ops/cuda_kernels.py`` is its CUDA kernel on a CUDA tensor and its plain
+version on a CPU tensor:
+
+* fused when it fits: when ``cuda_kernels.fused_fits`` holds for the
+  model's (latents, D, M) (M <= 128, and at M=128 D <= 44 for one latent,
+  D <= 45 for several), an unweighted batch takes one fused statistics
+  pass: ``fused_cavi_stats`` for the eight single-latent likelihoods it
+  covers, ``fused_cavi_stats_multiclass`` for the logistic-softmax one,
+  ``fused_cavi_stats_het`` for the heteroscedastic one;
+* else the batched pair: ``latent_moments`` takes
+  ``fused_kappa_moments_batched`` (kappa, mf, vf, any number of latents,
+  one included), the likelihood runs its own ``local_updates`` and
+  gradients, and ``apply_natural_gradient`` takes ``cavi_stats_batched``.
+  So do every row-weighted batch and ``elbo``.
+
+The reference's TPU shape gates (``_pallas_kind_batched``: M >= 512,
+B >= 16,384) are not carried over.  The reference runs its single-latent
+fused kernel up to M=512 (its VMEM holds K^-1 and Sigma there); here one
+latent beyond the fused range takes the pair with L=1.
 """
 from __future__ import annotations
 
@@ -28,7 +40,7 @@ from typing import Dict
 import torch
 
 from ..config import jitter
-from ..kernels import batch_diag, batch_gram, batch_gram_zz, fused_kind, latent, lengthscale_2d
+from ..kernels import batch_gram_zz, fused_kind, lengthscale_2d
 from ..likelihoods.classification import BayesianSVM, LogisticLikelihood
 from ..likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
@@ -67,32 +79,33 @@ def kmat_l_inv(kmat):
     return torch.linalg.solve_triangular(L_K, eye, upper=False)
 
 
-@linalg._highest_precision
-def compute_kappa(model, x, kmat):
-    """(Knm, kappa = Knm Kmm^-1, Ktilde) for a data batch; Ktilde is clamped
-    at a tiny positive floor."""
-    Knm = batch_gram(model.kernel, x, model.Z)  # [L, B, M]
-    kappa = Knm @ kmat["K_inv"]
-    kdiag = batch_diag(model.kernel, x)  # [L, B]
-    Ktilde = kdiag + jitter(Knm.dtype) - linalg.diag_ABt(kappa, Knm)
-    return Knm, kappa, torch.clamp(Ktilde, min=1e-12)
+def _pair_kind(model):
+    """Gram kind when the step's moments and statistics take the batched
+    pair: a sparse, not online model with a kernel of ``FUSED_KINDS``."""
+    if not model.is_sparse or model.is_online:
+        return None
+    return fused_kind(model.kernel)
 
 
-@linalg._highest_precision
 def latent_moments(model, state: TrainState, x, kmat):
-    """mean_f/var_f [L, B] of the latent function at the batch, and kappa."""
-    if model.n_latent == 1:
-        kernel1 = latent(model.kernel, 0)
-        Knm = kernel1.gram(x, model.Z[0])  # [B, M]
-        kappa1 = Knm @ kmat["K_inv"][0]
-        Ktilde1 = kernel1.diag(x) + jitter(Knm.dtype) - torch.sum(kappa1 * Knm, dim=1)
-        Ktilde1 = torch.clamp(Ktilde1, min=1e-12)
-        mu_f = (kappa1 @ state.mu[0])[None]
-        vf = Ktilde1 + torch.sum((kappa1 @ state.Sigma[0]) * kappa1, dim=1)
-        return mu_f, vf[None], kappa1[None]
-    _, kappa, Ktilde = compute_kappa(model, x, kmat)
-    mu_f = torch.einsum("lbm,lm->lb", kappa, state.mu)
-    var_f = Ktilde + linalg.diag_ABt(kappa @ state.Sigma, kappa)
+    """mean_f/var_f [L, B] of the latent function at the batch, and kappa
+    [L, B, M], by ``cuda_kernels.fused_kappa_moments_batched``."""
+    kind = _pair_kind(model)
+    if kind is None:
+        raise NotImplementedError(
+            f"only the kernels of FUSED_KINDS are ported; got {type(model.kernel).__name__}"
+        )
+    kappa, mu_f, var_f = cuda_kernels.fused_kappa_moments_batched(
+        x.contiguous(),
+        model.Z.contiguous(),
+        kmat_l_inv(kmat).mT,
+        lengthscale_2d(model.kernel, x.shape[-1]),
+        model.kernel.variance,
+        state.mu.contiguous(),
+        state.Sigma.contiguous(),
+        jitter(x.dtype),
+        kind,
+    )
     return mu_f, var_f, kappa
 
 
@@ -122,10 +135,12 @@ def _fused_lik_spec(lik):
 
 def _fused_spec(model):
     """(kind, lik, p0, p1, c_key) when the step takes the fused statistics
-    pass: single-latent sparse model, a kernel of ``FUSED_KINDS`` and a
-    likelihood of ``_fused_lik_spec``.  No shape gate: the reference's
-    gates were measured on a TPU."""
+    pass: single-latent sparse model, a shape within ``fused_fits``, a
+    kernel of ``FUSED_KINDS`` and a likelihood of ``_fused_lik_spec``.  No
+    other shape gate: the reference's were measured on a TPU."""
     if model.n_latent != 1 or not model.is_sparse or model.is_online:
+        return None
+    if not cuda_kernels.fused_fits(1, model.Z.shape[-1], model.n_inducing):
         return None
     kind = fused_kind(model.kernel)
     lik = _fused_lik_spec(model.likelihood)
@@ -136,14 +151,16 @@ def _fused_spec(model):
 
 def _fused_multi_kind(model, likelihood_type, n_latent_ok):
     """Kernel kind when the step takes a fused multi-latent pass: sparse,
-    not online, not multi-output, a likelihood of ``likelihood_type``.  No
-    shape gate (the reference's were measured on a TPU)."""
+    not online, not multi-output, a likelihood of ``likelihood_type``, a
+    shape within ``fused_fits``.  No other shape gate (the reference's were
+    measured on a TPU)."""
     if (
         n_latent_ok(model.n_latent)
         and model.is_sparse
         and not model.is_online
         and not model.is_multioutput
         and isinstance(model.likelihood, likelihood_type)
+        and cuda_kernels.fused_fits(model.n_latent, model.Z.shape[-1], model.n_inducing)
     ):
         return fused_kind(model.kernel)
     return None
@@ -284,20 +301,14 @@ def variational_update(model, state: TrainState, x, y, w=None):
     return model, state
 
 
-@linalg._highest_precision
 def apply_natural_gradient(model, state: TrainState, kappa, gmu, gs, x) -> TrainState:
     """Sparse natural-gradient + global update from the gradient
-    expectations gmu/gs [L, B] and kappa [L, B, M]."""
+    expectations gmu/gs [L, B] and kappa [L, B, M]; the statistics by
+    ``cuda_kernels.cavi_stats_batched``."""
     if not model.is_sparse:
         raise NotImplementedError("the dense (VGP) branch is not ported yet")
     rho = state.rho
-    if model.n_latent == 1:
-        k1 = kappa[0]
-        s1 = (k1.T @ (rho * gmu[0]))[None]
-        stat2 = ((k1 * (rho * gs[0])[:, None]).T @ k1)[None]
-    else:
-        s1 = torch.einsum("lbm,lb->lm", kappa, rho * gmu)
-        stat2 = torch.einsum("lbm,lb,lbn->lmn", kappa, rho * gs, kappa)
+    s1, stat2 = cuda_kernels.cavi_stats_batched(kappa, (rho * gmu).contiguous(), (rho * gs).contiguous())
     return _nat_update_from_stats(model, state, s1, stat2, x)
 
 

@@ -5,6 +5,7 @@ import torch
 
 from .. import kernels as K
 from .. import means as Mn
+from ..config import default_device
 
 
 def check_implemented(likelihood, inference) -> None:
@@ -21,9 +22,23 @@ def prepare_components(kernel, likelihood, mean, n_latent):
     return K.replicate(kernel, n_latent), Mn.replicate(Mn.as_mean(mean), n_latent)
 
 
-def as_2d(X, obsdim: int = 1) -> torch.Tensor:
-    """Coerce inputs to [N, D].  obsdim=2: columns are observations."""
-    X = torch.as_tensor(X)
+def to_tensor(a, like: torch.Tensor | None = None) -> torch.Tensor:
+    """A tensor stays as it is.  An array without a device (numpy, a list)
+    goes to ``like``'s device, floating values in its dtype; without
+    ``like``, to ``config.default_device()``, floating values in torch's
+    default dtype (as the reference's arrays take JAX's default float)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    t = torch.as_tensor(a)
+    device = default_device() if like is None else like.device
+    dtype = (torch.get_default_dtype() if like is None else like.dtype) if t.is_floating_point() else t.dtype
+    return t.to(device=device, dtype=dtype)
+
+
+def as_2d(X, obsdim: int = 1, like: torch.Tensor | None = None) -> torch.Tensor:
+    """Coerce inputs to [N, D] (placed as ``to_tensor`` places them).
+    obsdim=2: columns are observations."""
+    X = to_tensor(X, like)
     if X.ndim == 1:
         X = X[:, None]
     elif obsdim == 2:

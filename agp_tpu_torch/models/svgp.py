@@ -76,7 +76,9 @@ class SVGP(Params):
     ):
         """Data-free constructor; data is given to ``train``.  The kernel's,
         the likelihood's and the mean's parameters are placed on Z's device
-        and dtype.
+        and dtype.  Z given without a device (numpy, a list) goes to
+        ``config.default_device()``: the CUDA card unless the CPU was
+        chosen.
 
         Only ``optimiser=None`` (fixed hyperparameters) is ported: the
         hyperparameter step is not, so any optimiser, the reference's

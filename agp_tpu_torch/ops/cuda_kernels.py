@@ -1,26 +1,35 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 Each is the counterpart of the function of the same name in
-``agp_tpu/ops/pallas_kernels.py``: the whole statistics pass of one CAVI
-step (gram -> kappa -> latent moments -> E-step -> s1, S2).
+``agp_tpu/ops/pallas_kernels.py``.  Two tiers compute a CAVI step's
+statistics:
 
-* ``fused_cavi_stats``: one latent, the E-steps of eight likelihoods
-  (``LIKS``); ``csrc/fused_cavi_stats.cu``.
-* ``fused_cavi_stats_multiclass``: K latents, the logistic-softmax E-step;
-  ``fused_cavi_stats_het``: the two latents of the heteroscedastic
-  likelihood; both in ``csrc/fused_cavi_stats_multi.cu``.
+* the fused statistics passes (gram -> kappa -> latent moments -> E-step
+  -> s1, S2 in one call), for shapes whose K^-1 and Sigma fit a block's
+  shared memory (``fused_fits``: 1 <= M <= ``MAX_M`` and a footprint
+  within 232,448 bytes, so at M=128 D <= 44 for one latent, D <= 45 for
+  several):
+  - ``fused_cavi_stats``: one latent, the E-steps of eight likelihoods
+    (``LIKS``); ``csrc/fused_cavi_stats.cu``;
+  - ``fused_cavi_stats_multiclass``: K latents, the logistic-softmax
+    E-step; ``fused_cavi_stats_het``: the two latents of the
+    heteroscedastic likelihood; both in ``csrc/fused_cavi_stats_multi.cu``;
+* the batched pair, for any number of latents and M up to 1,680, which
+  leaves the E-step to the caller: ``fused_kappa_moments_batched`` (kappa,
+  mf, vf; differentiable) and ``cavi_stats_batched`` (s1, S2 from kappa);
+  ``csrc/batched_pair.cu``.
 
-All three take the four stationary gram kinds of ``KINDS``, whose formula
-the CUDA kernels share (``csrc/gram.cuh``).  On a CPU tensor a wrapper runs
+All take the four stationary gram kinds of ``KINDS``, whose formula the
+CUDA kernels share (``csrc/gram.cuh``).  On a CPU tensor a wrapper runs
 its ``*_reference``, the same function in plain PyTorch (any float dtype).
-On a CUDA tensor it launches its kernel (float32, 1 <= M <= ``MAX_M``) or
-raises; there is no fallback.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+On a CUDA tensor it launches its kernel (float32) or raises; there is no
+fallback.  Each wrapper counts its launches in ``<wrapper>.launches``.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes``.  The build happens at the
-first CUDA call, into ``agp_tpu_torch/_build/<hash of the sources>/``;
-importing this module never calls ``nvcc``.
+The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build
+happens at the first CUDA call, into
+``agp_tpu_torch/_build/<hash of the sources>/``; importing this module
+never calls ``nvcc``.
 """
 from __future__ import annotations
 
@@ -41,15 +50,25 @@ from .linalg import _highest_precision
 from .special import LOG2, logcosh
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "fused_cavi_stats.cu", _PKG / "csrc" / "fused_cavi_stats_multi.cu")
+_SOURCES = tuple(_PKG / "csrc" / name for name in ("fused_cavi_stats.cu", "fused_cavi_stats_multi.cu", "batched_pair.cu"))
 # headers the sources include: part of the build's hash
 _HEADERS = (_PKG / "csrc" / "gram.cuh",)
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# largest inducing set the CUDA kernels take (shared-memory residency of
+# largest inducing set the fused kernels take (shared-memory residency of
 # K^-1 and Sigma; see the notes at the head of the .cu files)
 MAX_M = 128
+# shared memory a block may opt into on an H100 (bytes)
+SMEM_OPTIN = 232448
+# rows of the fused kernels' tiles (TB in csrc/fused_cavi_stats*.cu)
+_FUSED_TILE_ROWS = 64
+# features per chunk of the direct-difference gram (DC in
+# csrc/batched_pair.cu); the plain versions sum r2 over chunks of as many
+_FEATURE_CHUNK = 8
+# row tiles of fused_kappa_moments_batched, largest first (TB in
+# csrc/batched_pair.cu): the first whose shared memory fits is taken
+_BATCHED_TILE_ROWS = (32, 16)
 # gram kinds and single-latent likelihoods, in the order of their codes in
 # csrc/gram.cuh (GramKind) and csrc/fused_cavi_stats.cu (Lik)
 KINDS = ("rbf", "matern12", "matern32", "matern52")
@@ -130,7 +149,35 @@ def _library() -> ctypes.CDLL:
     lib.agp_multi_smem_bytes.restype = ctypes.c_size_t
     lib.agp_multi_tile_rows.argtypes = []
     lib.agp_multi_tile_rows.restype = i
+    lib.agp_kappa_moments_smem_bytes.argtypes = [i, i]
+    lib.agp_kappa_moments_smem_bytes.restype = ctypes.c_size_t
+    lib.agp_fused_kappa_moments_batched.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.agp_fused_kappa_moments_batched.restype = i
+    lib.agp_cavi_stats_tile.argtypes = []
+    lib.agp_cavi_stats_tile.restype = i
+    lib.agp_cavi_stats_blocks_per_sm.argtypes = []
+    lib.agp_cavi_stats_blocks_per_sm.restype = i
+    lib.agp_cavi_stats_batched.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.agp_cavi_stats_batched.restype = i
     return lib
+
+
+def fused_fits(n_latent: int, D: int, M: int) -> bool:
+    """Whether the fused statistics kernels take a model of ``n_latent``
+    latents, D features and M inducing points: 1 <= M <= MAX_M and the
+    kernel's shared memory (a Python mirror of
+    ``agp_fused_cavi_smem_bytes`` for one latent and
+    ``agp_multi_smem_bytes`` for several) within ``SMEM_OPTIN``.  The same
+    answer on the CPU and on the card.  A copy of the C formulas (each
+    names this function): change them together."""
+    if D < 1 or not 1 <= M <= MAX_M:
+        return False
+    tb, z = _FUSED_TILE_ROWS, M * (D | 1)
+    if n_latent == 1:
+        words = tb * D + z + 2 * M * M + M + 2 * tb * M + 4 * tb
+    else:  # the moments pass; the statistics pass needs less
+        words = tb * D + z + 2 * M * M + M + 2 * tb * M + 2 * tb
+    return 4 * words <= SMEM_OPTIN
 
 
 @_highest_precision
@@ -155,19 +202,32 @@ def _gram_from_r2(r2, variance, kind):
     raise ValueError(f"unknown kernel kind {kind!r}; the kinds are {KINDS}")
 
 
+def _sq_dist_chunked(x, z):
+    """r2 [L, B, M] = sum_d (x[l, b, d] - z[l, m, d])^2 by direct
+    differences, accumulated over feature chunks of ``_FEATURE_CHUNK`` as
+    the kernels do, so memory is [L, B, M, _FEATURE_CHUNK] whatever D."""
+    r2 = None
+    for lo in range(0, x.shape[-1], _FEATURE_CHUNK):
+        diff = x[:, :, None, lo:lo + _FEATURE_CHUNK] - z[:, None, :, lo:lo + _FEATURE_CHUNK]
+        part = torch.sum(diff * diff, dim=-1)
+        r2 = part if r2 is None else r2 + part
+    return r2
+
+
 @_highest_precision
-def _latent_moments_reference(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind):
-    """(kappa [L, B, M], mf [L, B], vf [L, B]) of every latent, with
-    per-latent lengthscales ls ([L, D], or broadcastable to it) and
-    variances var [L]."""
+def fused_kappa_moments_batched_reference(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rbf"):
+    """Plain PyTorch version of :func:`fused_kappa_moments_batched`, in the
+    inputs' dtype, on their device: (kappa [L, B, M], mf [L, B],
+    vf [L, B]) of every latent, with per-latent lengthscales ls ([L, D], or
+    broadcastable to it) and variances var [L].  The gram is formed by
+    direct differences over feature chunks (``_sq_dist_chunked``)."""
     L, _, D = Z.shape
-    ls2 = torch.broadcast_to(torch.as_tensor(ls, dtype=xb.dtype, device=xb.device).reshape(L, -1), (L, D))
-    var = torch.broadcast_to(torch.as_tensor(var, dtype=xb.dtype, device=xb.device).reshape(-1), (L,))
+    ls2 = torch.broadcast_to(torch.as_tensor(ls, dtype=X.dtype, device=X.device).reshape(L, -1), (L, D))
+    var = torch.broadcast_to(torch.as_tensor(var, dtype=X.dtype, device=X.device).reshape(-1), (L,))
     kinv = _kinv(L_invT)
-    x = xb[None] / ls2[:, None, :]  # [L, B, D]
+    x = X[None] / ls2[:, None, :]  # [L, B, D]
     z = Z / ls2[:, None, :]  # [L, M, D]
-    diff = x[:, :, None, :] - z[:, None, :, :]
-    knm = _gram_from_r2(torch.sum(diff * diff, dim=-1), var[:, None, None], kind)  # [L, B, M]
+    knm = _gram_from_r2(_sq_dist_chunked(x, z), var[:, None, None], kind)  # [L, B, M]
     kappa = knm @ kinv
     ktilde = torch.clamp(var[:, None] + jitt - torch.sum(kappa * knm, dim=-1), min=1e-12)
     mf = (kappa @ mu[..., None])[..., 0]
@@ -176,10 +236,11 @@ def _latent_moments_reference(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind):
 
 
 @_highest_precision
-def _latent_stats_reference(kappa, wg, ws):
-    """s1 [L, M] = kappa^T wg and S2 [L, M, M] = kappa^T diag(ws) kappa."""
-    s1 = (kappa.mT @ wg[..., None])[..., 0]
-    S2 = (kappa * ws[..., None]).mT @ kappa
+def cavi_stats_batched_reference(kappa, g, theta):
+    """Plain PyTorch version of :func:`cavi_stats_batched`:
+    s1 [L, M] = kappa^T g and S2 [L, M, M] = kappa^T diag(theta) kappa."""
+    s1 = (kappa.mT @ g[..., None])[..., 0]
+    S2 = (kappa * theta[..., None]).mT @ kappa
     return s1, S2
 
 
@@ -230,11 +291,11 @@ def fused_cavi_stats_reference(
     ``LIKS``."""
     if lik not in LIKS:
         raise ValueError(f"unknown likelihood {lik!r}; the likelihoods are {LIKS}")
-    kappa, mf, vf = _latent_moments_reference(
-        xb, Z[None], L_invT[None], mu[None], Sigma[None], lengthscale, variance, jitt, kind
+    kappa, mf, vf = fused_kappa_moments_batched_reference(
+        xb, Z[None], L_invT[None], lengthscale, variance, mu[None], Sigma[None], jitt, kind
     )
     c, theta, gmu, gs = _estep_reference(lik, mf[0], vf[0], yb, lik_p0, lik_p1)
-    s1, S2 = _latent_stats_reference(kappa, (rho * gmu)[None], (rho * gs)[None])
+    s1, S2 = cavi_stats_batched_reference(kappa, (rho * gmu)[None], (rho * gs)[None])
     return s1[0], S2[0], c, theta, mf[0], vf[0]
 
 
@@ -311,7 +372,7 @@ def fused_cavi_stats(
     lib = _library()
     with torch.cuda.device(dev):
         smem = lib.agp_fused_cavi_smem_bytes(D, M)
-        limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", 232448)
+        limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
         if smem > limit:
             raise ValueError(
                 f"fused_cavi_stats at D={D}, M={M} needs {smem} bytes of shared memory; "
@@ -353,7 +414,7 @@ def fused_cavi_stats_multiclass_reference(
     """Plain PyTorch version of :func:`fused_cavi_stats_multiclass`, in the
     inputs' dtype, on their device.  Kinds: rbf, matern12, matern32,
     matern52.  The digamma is ``torch.special.digamma``."""
-    kappa, mf, vf = _latent_moments_reference(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind)
+    kappa, mf, vf = fused_kappa_moments_batched_reference(xb, Z, L_invT, ls, var, mu, Sigma, jitt, kind)
     yT = y_onehot.T
     c = torch.sqrt(mf * mf + vf)
     expcosh = torch.exp(-mf / 2.0 - logcosh(c / 2.0))
@@ -362,14 +423,14 @@ def fused_cavi_stats_multiclass_reference(
         gamma = torch.exp(torch.special.digamma(alpha))[None, :] * expcosh / (2.0 * beta0[None, :])
         alpha = 1.0 + torch.sum(gamma, dim=0)
     theta = (yT + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
-    s1, S2 = _latent_stats_reference(kappa, rho * ((yT - gamma) / 2.0), rho * (theta / 2.0))
+    s1, S2 = cavi_stats_batched_reference(kappa, rho * ((yT - gamma) / 2.0), rho * (theta / 2.0))
     return s1, S2, c, theta, gamma, alpha
 
 
 def fused_cavi_stats_het_reference(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lam, kind="rbf"):
     """Plain PyTorch version of :func:`fused_cavi_stats_het`, in the inputs'
     dtype, on their device.  Kinds: rbf, matern12, matern32, matern52."""
-    kappa, m, v = _latent_moments_reference(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind)
+    kappa, m, v = fused_kappa_moments_batched_reference(xb, Z, L_invT, ls, var, mu, Sigma, jitt, kind)
     phi = ((m[0] - yb) ** 2 + v[0]) / 2.0
     c = torch.sqrt(m[1] * m[1] + v[1])
     sigg = torch.exp(-m[1] / 2.0 - logcosh(c / 2.0)) / 2.0
@@ -377,7 +438,7 @@ def fused_cavi_stats_het_reference(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, 
     theta = (0.5 + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
     wg = torch.stack([yb * sigg / 2.0, (0.5 - gamma) / 2.0])
     ws = torch.stack([sigg / 2.0, theta / 2.0])
-    s1, S2 = _latent_stats_reference(kappa, rho * wg, rho * ws)
+    s1, S2 = cavi_stats_batched_reference(kappa, rho * wg, rho * ws)
     return s1, S2, c, phi, gamma, theta, sigg
 
 
@@ -416,7 +477,7 @@ def _multi_launch(name, lib_fn, xb, Z, L_invT, mu, Sigma, params, inputs, output
     L, M = Z.shape[0], Z.shape[1]
     lib = _library()
     smem = lib.agp_multi_smem_bytes(D, M)
-    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", 232448)
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
     if smem > limit:
         raise ValueError(
             f"{name} at D={D}, M={M} needs {smem} bytes of shared memory; this card allows {limit} per block"
@@ -514,3 +575,142 @@ def fused_cavi_stats_het(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lam, 
 
 
 fused_cavi_stats_het.launches = 0
+
+
+# ------------------------------------------------------- the batched pair
+def _cuda_error(name, lib, err):
+    return RuntimeError(f"{name} launch failed: CUDA error {err} ({lib.agp_cuda_error_string(err).decode()})")
+
+
+def _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
+    """Checks and launches kernel 4 on CUDA tensors; ls2 [L, D] and var [L]
+    are tensors.  Returns (kappa, mf, vf)."""
+    name = "fused_kappa_moments_batched"
+    _check_kind(name, kind)
+    B, D = X.shape
+    L, M = Z.shape[0], Z.shape[1]
+    _check_tensors(X, {"X": (X, (B, D)), "Z": (Z, (L, M, D)), "mu": (mu, (L, M)), "Sigma": (Sigma, (L, M, M))})
+    if B < 1 or D < 1 or L < 1 or M < 1:
+        raise ValueError(f"the CUDA {name} takes B, D, L, M >= 1; got B={B}, D={D}, L={L}, M={M}")
+    if L_invT.device != X.device or tuple(L_invT.shape) != (L, M, M):
+        raise ValueError(f"L_invT must be [{L}, {M}, {M}] on {X.device}")
+    dev = X.device
+    lib = _library()
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
+    tb = next((t for t in _BATCHED_TILE_ROWS if lib.agp_kappa_moments_smem_bytes(M, t) <= limit), None)
+    if tb is None:
+        raise ValueError(
+            f"the CUDA {name} at M={M} needs {lib.agp_kappa_moments_smem_bytes(M, _BATCHED_TILE_ROWS[-1])} bytes "
+            f"of shared memory; this card allows {limit} per block (M <= 1680 on an H100)"
+        )
+    params = _multi_params(X, L, jitt, 0.0, 0.0, ls2, var)
+    kinv = _kinv(L_invT.to(torch.float32))
+    f32 = dict(dtype=torch.float32, device=dev)
+    kappa = torch.empty((L, B, M), **f32)
+    mf, vf = torch.empty((L, B), **f32), torch.empty((L, B), **f32)
+    with torch.cuda.device(dev):
+        err = lib.agp_fused_kappa_moments_batched(
+            *(t.data_ptr() for t in (X, Z, kinv, mu, Sigma, params, kappa, mf, vf)),
+            B, D, M, L, KINDS.index(kind), tb, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise _cuda_error(name, lib, err)
+    fused_kappa_moments_batched.launches += 1
+    return kappa, mf, vf
+
+
+class _KappaMomentsBatched(torch.autograd.Function):
+    """Kernel 4 forward; the backward is the vjp of the plain version, as
+    the reference's custom_vjp runs through its XLA twin."""
+
+    @staticmethod
+    def forward(ctx, X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
+        ctx.save_for_backward(X, Z, L_invT, ls2, var, mu, Sigma)
+        ctx.jitt, ctx.kind = jitt, kind
+        return _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            outs = fused_kappa_moments_batched_reference(*inputs, ctx.jitt, ctx.kind)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(outs, wanted, cts, allow_unused=True))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None, None)
+
+
+def fused_kappa_moments_batched(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rbf"):
+    """kappa = Knm K^-1 [L, B, M] and the latent moments mf, vf [L, B] of
+    every latent (kernel 4 of the batched pair).
+
+    X [B, D]; Z [L, M, D]; L_invT [L, M, M] = per-latent (chol(Kmm)^-1)^T;
+    ls [L, D] (per-latent ARD, or broadcastable to it); var [L]; mu [L, M];
+    Sigma [L, M, M]; jitt a number; kind of ``KINDS``.  Differentiable in
+    every tensor argument.
+
+    A CPU tensor runs :func:`fused_kappa_moments_batched_reference`.  A
+    CUDA tensor launches the kernel (float32, any L, B, D >= 1 and
+    1 <= M <= 1680 on an H100) and adds one to
+    ``fused_kappa_moments_batched.launches``; its backward runs the plain
+    version's vjp."""
+    if X.device.type == "cpu":
+        return fused_kappa_moments_batched_reference(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind)
+    if X.device.type != "cuda":
+        raise ValueError(f"fused_kappa_moments_batched runs on CPU or CUDA tensors, got {X.device}")
+    L, D = Z.shape[0], X.shape[1]
+    ls2 = torch.broadcast_to(torch.as_tensor(ls, dtype=X.dtype, device=X.device).reshape(L, -1), (L, D))
+    var = torch.broadcast_to(torch.as_tensor(var, dtype=X.dtype, device=X.device).reshape(-1), (L,))
+    args = (X, Z, L_invT, ls2, var, mu, Sigma)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _KappaMomentsBatched.apply(*args, jitt, kind)
+    return _kappa_moments_launch(*args, jitt, kind)
+
+
+fused_kappa_moments_batched.launches = 0
+
+
+def cavi_stats_batched(kappa, g, theta):
+    """s1[l] = kappa[l]^T g[l] [L, M] and S2[l] = kappa[l]^T diag(theta[l])
+    kappa[l] [L, M, M] of every latent (kernel 5 of the batched pair).
+    kappa [L, B, M], g and theta [L, B].
+
+    A CPU tensor runs :func:`cavi_stats_batched_reference`.  A CUDA tensor
+    launches the kernel (float32, any L, B, M >= 1) and adds one to
+    ``cavi_stats_batched.launches``.  S2 comes out exactly symmetric."""
+    if kappa.device.type == "cpu":
+        return cavi_stats_batched_reference(kappa, g, theta)
+    if kappa.device.type != "cuda":
+        raise ValueError(f"cavi_stats_batched runs on CPU or CUDA tensors, got {kappa.device}")
+    name = "cavi_stats_batched"
+    if kappa.ndim != 3:
+        raise ValueError(f"kappa must be [L, B, M], got shape {tuple(kappa.shape)}")
+    L, B, M = kappa.shape
+    _check_tensors(kappa, {"kappa": (kappa, (L, B, M)), "g": (g, (L, B)), "theta": (theta, (L, B))})
+    if L < 1 or B < 1 or M < 1:
+        raise ValueError(f"the CUDA {name} takes L, B, M >= 1; got L={L}, B={B}, M={M}")
+    dev = kappa.device
+    lib = _library()
+    nt = -(-M // lib.agp_cavi_stats_tile())
+    with torch.cuda.device(dev):
+        slots = lib.agp_cavi_stats_blocks_per_sm() * torch.cuda.get_device_properties(dev).multi_processor_count
+    # one wave of equal chunks of rows: as many chunks per (tile, latent) as
+    # the card holds blocks at once, never more than one per 8 rows; the
+    # count depends on the card and M, not on B beyond that
+    nchunks = max(1, min(-(-B // 8), slots // (nt * (nt + 1) // 2 * L)))
+    rows = -(-B // nchunks)
+    nchunks = -(-B // rows)
+    f32 = dict(dtype=torch.float32, device=dev)
+    s1_part, s2_part = torch.empty((L, nchunks, M), **f32), torch.empty((L, nchunks, M, M), **f32)
+    s1, S2 = torch.empty((L, M), **f32), torch.empty((L, M, M), **f32)
+    with torch.cuda.device(dev):
+        err = lib.agp_cavi_stats_batched(
+            *(t.data_ptr() for t in (kappa, g, theta, s1_part, s2_part, s1, S2)),
+            B, M, L, nchunks, rows, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise _cuda_error(name, lib, err)
+    cavi_stats_batched.launches += 1
+    return s1, S2
+
+
+cavi_stats_batched.launches = 0

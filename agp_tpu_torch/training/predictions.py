@@ -41,7 +41,7 @@ def predict_f(model, state, X_test, cov: bool = False, diag: bool = True):
     ported."""
     if cov and not diag:
         raise NotImplementedError("full-covariance prediction is not ported yet")
-    X_test = as_2d(X_test)
+    X_test = as_2d(X_test, like=model.Z)
     mu_f, var_f = _predict_f_var(model, state, X_test, diag=cov)
     if model.n_latent == 1:
         mu_f = mu_f[0]
@@ -53,7 +53,7 @@ def predict_y(model, state, X_test):
     """Label-space point prediction: the sign of the latent mean for the
     logistic likelihood, the index of the largest latent mean for a
     multiclass one, the mean of f for the heteroscedastic one."""
-    mu_f, _ = _predict_f_var(model, state, as_2d(X_test), diag=False)
+    mu_f, _ = _predict_f_var(model, state, as_2d(X_test, like=model.Z), diag=False)
     return model.likelihood.predict_y(mu_f[0] if model.n_latent == 1 else mu_f)
 
 
@@ -64,7 +64,7 @@ def proba_y(model, state, X_test, generator=None, n_samples: int = 200):
     the latent predictive made with ``generator`` (on X_test's device; seed
     42 when None), or the plug-in probabilities when ``n_samples`` is 0.
     Heteroscedastic: (mean, variance) of y."""
-    X_test = as_2d(X_test)
+    X_test = as_2d(X_test, like=model.Z)
     mu_f, var_f = _predict_f_var(model, state, X_test, diag=True)
     lik = model.likelihood
     if lik.n_latent == 1:

@@ -14,7 +14,7 @@ import warnings
 import torch
 
 from ..inference import analytic_vi
-from ..models.base import as_2d, match_dtype
+from ..models.base import as_2d, match_dtype, to_tensor
 from .state import TrainState, init_var_posterior
 
 # steps whose minibatch indices are drawn in one call
@@ -174,10 +174,15 @@ def train(model, X, y, iterations: int = 100, state: TrainState | None = None, g
     """Train ``model`` for ``iterations`` CAVI steps on (X, y); returns
     (model, state) with the kernel matrices refreshed for prediction.
 
-    X [N, D] and y [N] live on the device the run uses; ``generator`` (on
-    the same device) draws the minibatches, seed 0 when None."""
-    X = as_2d(X)
+    X [N, D] and y [N] live on the device the run uses: arrays without a
+    device (numpy, lists) go to the model's device (``model.Z``), floating
+    ones in its dtype.  ``generator`` (on that device) draws the
+    minibatches, seed 0 when None."""
+    X = as_2d(X, like=model.Z)
+    y_has_device = isinstance(y, torch.Tensor)
     y, lik = model.likelihood.treat_labels(y)
+    if not y_has_device:
+        y = y.to(X.device)
     y = match_dtype(y, X)
     if y.device != X.device:
         raise ValueError(f"y is on {y.device}, X on {X.device}")
@@ -202,5 +207,7 @@ def train(model, X, y, iterations: int = 100, state: TrainState | None = None, g
 
 def elbo(model, state: TrainState, X, y):
     """ELBO on (X, y) (labels as ``train`` treats them), the batch whose
-    local variables are in ``state``."""
-    return analytic_vi.elbo(model, state, as_2d(X), y)
+    local variables are in ``state``; arrays without a device go to the
+    model's device."""
+    X = as_2d(X, like=model.Z)
+    return analytic_vi.elbo(model, state, X, match_dtype(to_tensor(y, like=X), X))

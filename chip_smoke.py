@@ -50,10 +50,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    flagship's conditioning (1e-4; see MATERN12_PARITY_TOL) and at the
    oracle configuration, there against each path's own float32 noise and
    against the card with the plain version in the kernel's place (see
-   ORACLE_DEVICE_FACTOR).
+   ORACLE_DEVICE_FACTOR);
+12. the batched pair (kernels 4-5, M > 128) against its plain versions at
+   the M=512 paths' shapes (float64 at the ill-conditioned ones), ragged
+   B=300, M=129 with 1-3 latents and each Matern kind, timed beside the
+   plain versions and torch.bmm; kernel 4's autograd;
+13. logistic_m512_b65536 (bench.py: N=500,000, D=20, M=512, B=65,536),
+   the reference's M=512 multiclass (K=3) and heteroscedastic oracles and
+   its seven single-latent oracles at M=512, each with one launch of
+   kernel 4 and of kernel 5 a step and its floor;
+14. the pair's parity: 20 steps of each path of phase 13, at B=2048, on
+   the card against the CPU, each against its own float32 noise.
 
 Each path's launch counts are set to 0 just before it and read just after.
-Prints the kernels' JSON line, then the device JSON line last.
+Each phase's wall time is logged, then all of them and the total.  Prints
+the kernels' JSON line, then the device JSON line last.
+
+Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``
+or ``profile multiclass`` (torch.profiler over 20 steps of an M=512
+path), ``moved-paths [ROOT]`` (a row-weighted step and elbo at fused-range
+shapes, with agp_tpu_torch from ROOT when given).
 """
 from __future__ import annotations
 
@@ -134,6 +150,13 @@ ORACLE_FLOORS = {
     "studentt/Matern52Kernel": ("rmse", 0.045),
 }
 MATERN_KERNELS = ("Matern12Kernel", "Matern32Kernel", "Matern52Kernel")
+# the batched pair's paths, M=512 (beyond the fused kernels' range):
+# bench.py's logistic_m512_b65536 (N, D, B) and the reference's batched
+# multiclass (K=3, B=8192, 200 steps) and heteroscedastic (B=16384, 100
+# steps) oracles, tpu_acceptance.py:370-412
+LN, LD, PM, LB = 500_000, 20, 512, 65_536
+L_TRAIN_STEPS, L_TIMED_STEPS = 50, 300
+PAIR_MC_B, PAIR_MC_STEPS, PAIR_HET_B, PAIR_HET_STEPS = 8192, 200, 16384, 100
 # the Student-t steady state at the flagship shape
 T_TIMED_STEPS = 1000
 # single-latent parity at the flagship's conditioning (N rows)
@@ -186,9 +209,12 @@ def phase_build(ck):
     info = ck.build()
     ck._library()
     log(f"build: {info['seconds']:.2f} s -> {os.path.relpath(info['path'])}")
+    name = ""
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line or "error" in line:
+            log(f"  ptxas: {name[:90]}: {line.split(':', 1)[-1].strip()}")
 
 
 def kernel_inputs(b, m, device, seed=0):
@@ -626,12 +652,12 @@ def to_float64(t):
     return {k: v.double() if isinstance(v, torch.Tensor) else v for k, v in t.items()}
 
 
-def timed_pair(kern_fn, plain_fn):
+def timed_pair(kern_fn, plain_fn, reps=200):
     """(kernel ms, plain ms) per call, in the order plain, kernel, kernel,
     plain, each the mean of its two runs."""
-    plain = [cuda_ms(plain_fn)]
-    kern = [cuda_ms(kern_fn) for _ in range(2)]
-    plain.append(cuda_ms(plain_fn))
+    plain = [cuda_ms(plain_fn, reps)]
+    kern = [cuda_ms(kern_fn, reps) for _ in range(2)]
+    plain.append(cuda_ms(plain_fn, reps))
     return sum(kern) / 2, sum(plain) / 2
 
 
@@ -762,9 +788,11 @@ def oracle_data(lik, device, seed=0):
     return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in (X, y, truth))
 
 
-def oracle_model(agt, X, lik, kernel="SqExponentialKernel"):
-    """The reference's oracle model (tpu_acceptance.py _fused_svgp) at
-    M=128: default kernel hyperparameters, slice sampling, B=8192."""
+def oracle_model(agt, X, lik, kernel="SqExponentialKernel", m=OM, b=OB):
+    """The reference's oracle model (tpu_acceptance.py _fused_svgp) with m
+    inducing points (M=128 for the fused pass, the reference's 512 for the
+    batched pair): default kernel hyperparameters, slice sampling, B=b
+    (the reference's 8192 unless a parity check cuts it)."""
     liks = {
         "studentt": lambda: agt.StudentTLikelihood.create(4.0),
         "laplace": lambda: agt.LaplaceLikelihood.create(0.1),
@@ -774,8 +802,8 @@ def oracle_model(agt, X, lik, kernel="SqExponentialKernel"):
         "poisson": lambda: agt.PoissonLikelihood.create(10.0),
         "negbinomial": lambda: agt.NegBinomialLikelihood.create(5.0),
     }
-    return agt.SVGP.create(getattr(agt, kernel)(), liks[lik](), agt.AnalyticSVI(OB, minibatch_sampling="slice"),
-                           X[:OM], optimiser=None)
+    return agt.SVGP.create(getattr(agt, kernel)(), liks[lik](), agt.AnalyticSVI(b, minibatch_sampling="slice"),
+                           X[:m], optimiser=None)
 
 
 def oracle_metric(agt, model, state, X, truth, metric):
@@ -790,37 +818,53 @@ def oracle_metric(agt, model, state, X, truth, metric):
     return float(torch.corrcoef(torch.stack([pred, te]))[0, 1])
 
 
-def phase_oracles(agt, ck, device):
-    """Each oracle path through agp_tpu_torch.train: OSTEPS steps, one
-    kernel launch each, finite posterior (and lambda), its floor.  Returns
-    (total launches, {path: metric})."""
+def phase_oracles(agt, ck, device, m=OM, floors=None, paths=None):
+    """Each oracle path through agp_tpu_torch.train with m inducing points:
+    OSTEPS steps, finite posterior (and lambda), its floor.  At m <= 128
+    each step launches kernel 1 once; beyond, kernels 4 and 5 once each and
+    no fused kernel.  Returns (total launches of the path's kernels,
+    {path: metric})."""
+    floors = ORACLE_FLOORS if floors is None else floors
     results, total = {}, 0
-    for lik, kernel in single_paths():
+    for lik, kernel in single_paths() if paths is None else paths:
         X, y, truth = oracle_data(lik, device)
-        model = oracle_model(agt, X, lik, kernel)
+        model = oracle_model(agt, X, lik, kernel, m=m)
         reset_launches(ck)
         t0 = time.perf_counter()
         model, state = agt.train(model, X, y, iterations=OSTEPS, generator=torch.Generator(device=device).manual_seed(0))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = ck.fused_cavi_stats.launches
-        total += launches
         name = f"{lik}/{kernel}"
-        if launches != OSTEPS:
-            raise AssertionError(f"oracle {name}: {OSTEPS} steps launched the kernel {launches} times")
+        launches = expect_launches(ck, OSTEPS, pair=m > ck.MAX_M, fused="fused_cavi_stats", label=f"oracle {name} M={m}")
+        total += launches
         tensors = [state.mu, state.Sigma] + ([model.likelihood.lam] if lik == "poisson" else [])
         if not all(bool(torch.isfinite(t).all()) for t in tensors):
             raise AssertionError(f"oracle {name}: non-finite posterior or lambda")
-        metric, floor = ORACLE_FLOORS[name]
+        metric, floor = floors[name]
         value = oracle_metric(agt, model, state, X, truth, metric)
         ok = value < floor if metric == "rmse" else value > floor
         if not ok:
-            raise AssertionError(f"oracle {name}: {metric} {value:.4f} misses its floor {floor}")
+            raise AssertionError(f"oracle {name} M={m}: {metric} {value:.4f} misses its floor {floor}")
         extra = f", lambda {float(model.likelihood.lam):.4f}" if lik == "poisson" else ""
-        log(f"oracle {name} (N={ON}, D=2, M={OM}, B={OB}, {OSTEPS} steps): {metric} {value:.4f} "
+        log(f"oracle {name} (N={ON}, D=2, M={m}, B={OB}, {OSTEPS} steps): {metric} {value:.4f} "
             f"(floor {floor}){extra}, {launches} launches, {train_s:.3f} s")
         results[name] = value
     return total, results
+
+
+def expect_launches(ck, steps, pair, fused, label):
+    """Fails unless the run just made launched, per step, kernel 1, 2 or 3
+    (``fused``) once, or (``pair``) kernels 4 and 5 once each, and nothing
+    else.  Returns the path's launches (both kernels of the pair)."""
+    counts = {name: getattr(ck, name).launches for name in LAUNCH_COUNTERS}
+    want = {name: 0 for name in LAUNCH_COUNTERS}
+    if pair:
+        want["fused_kappa_moments_batched"] = want["cavi_stats_batched"] = steps
+    else:
+        want[fused] = steps
+    if counts != want:
+        raise AssertionError(f"{label}: {steps} steps launched {counts}, expected {want}")
+    return sum(counts.values())
 
 
 def single_paths():
@@ -870,7 +914,7 @@ def phase_single_parity(agt, ck, device):
         Xd, yd = Xc.to(device), yc.to(device)
         cpu = after_20(agt, oracle_model(agt, Xc, lik, kernel), Xc, yc, draws)
         card = after_20(agt, oracle_model(agt, Xd, lik, kernel), Xd, yd, draws)
-        with plain_kernel1(ck):
+        with plain_kernels(ck):
             card_plain = after_20(agt, oracle_model(agt, Xd, lik, kernel), Xd, yd, draws)
         m = oracle_model(agt, Xc, lik, kernel)
         mu_p, lam_p = after_20(agt, m.replace(Z=m.Z[:, perm].contiguous()), Xc, yc, draws)
@@ -887,49 +931,548 @@ def phase_single_parity(agt, ck, device):
             f"CPU with Z reordered vs CPU {noise:.3e}")
 
 
+# ------------------------------------------- the batched pair (M > 128)
+def big_logistic_data(device, n=LN, seed=0):
+    """bench.py's logistic_m512_b65536 data: X standard normal in LD=20
+    dimensions, labels the sign of X w."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, LD)).astype(np.float32)
+    y = np.where(X @ rng.normal(size=LD).astype(np.float32) > 0, 1.0, -1.0).astype(np.float32)
+    return torch.as_tensor(X, device=device), torch.as_tensor(y, device=device)
+
+
+def big_logistic_model(agt, X, b=LB):
+    return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(),
+                           agt.AnalyticSVI(b, minibatch_sampling="slice"), X[:PM], optimiser=None)
+
+
+def pair_mc_data(device, seed=0):
+    """tpu_acceptance.py's batched multiclass oracle data: X standard
+    normal in 2-D (N=30,000), the label of the nearest of three centres."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(ON, 2))
+    centres = np.array([[1.5, 0.0], [-1.5, 1.0], [0.0, -1.5]])
+    y = np.argmin(((X[:, None, :] - centres[None]) ** 2).sum(-1), axis=1)
+    return torch.as_tensor(X, dtype=torch.float32, device=device), torch.as_tensor(y, device=device)
+
+
+def pair_het_data(device, seed=0):
+    """tpu_acceptance.py's batched heteroscedastic oracle data: x uniform
+    on [-2, 2] (N=30,000), f = sin(2x), g = -1.5 + 1.2 tanh(x),
+    y = f + eps / sqrt(8 sigma(g)).  Returns (X, y, f)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2, 2, size=(ON, 1))
+    f = np.sin(2 * X[:, 0])
+    g = -1.5 + 1.2 * np.tanh(X[:, 0])
+    y = f + np.sqrt(1.0 / (8.0 / (1.0 + np.exp(-g)))) * rng.normal(size=ON)
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in (X, y, f))
+
+
+def pair_multi_model(agt, X, which, b=None):
+    """The reference's batched-tier oracle models at M=512: logistic-softmax
+    K=3 with B=8192, or heteroscedastic (lambda 8) with B=16384 (or B=b);
+    the default kernel, slice sampling."""
+    if which == "multiclass":
+        lik, b = agt.LogisticSoftMaxLikelihood.create(3), b or PAIR_MC_B
+    else:
+        lik, b = agt.HeteroscedasticLikelihood.create(lam=8.0), b or PAIR_HET_B
+    return agt.SVGP.create(agt.SqExponentialKernel(), lik, agt.AnalyticSVI(b, minibatch_sampling="slice"),
+                           X[:PM], optimiser=None)
+
+
 @contextlib.contextmanager
-def plain_kernel1(ck):
-    """The step takes kernel 1's plain version in the kernel's place."""
-    wrapper = ck.fused_cavi_stats
-    ck.fused_cavi_stats = ck.fused_cavi_stats_reference
+def plain_kernels(ck, names=("fused_cavi_stats",)):
+    """The step takes the plain versions in the named kernels' place."""
+    wrappers = {name: getattr(ck, name) for name in names}
+    for name in names:
+        setattr(ck, name, getattr(ck, name + "_reference"))
     try:
         yield
     finally:
-        ck.fused_cavi_stats = wrapper
+        for name, fn in wrappers.items():
+            setattr(ck, name, fn)
+
+
+LAUNCH_COUNTERS = ("fused_cavi_stats", "fused_cavi_stats_multiclass", "fused_cavi_stats_het",
+                   "fused_kappa_moments_batched", "cavi_stats_batched")
 
 
 def reset_launches(ck):
-    ck.fused_cavi_stats.launches = ck.fused_cavi_stats_multiclass.launches = ck.fused_cavi_stats_het.launches = 0
+    for name in LAUNCH_COUNTERS:
+        getattr(ck, name).launches = 0
+
+
+# -------------------------------------------- the batched pair's phases
+def check_fused_fits(ck):
+    """fused_fits (Python, the same on the CPU) against the library's own
+    shared-memory functions of kernels 1-3 on a grid of (latents, D, M)."""
+    lib, n = ck._library(), 0
+    for d in (1, 2, 10, 20, 44, 45, 46, 64):
+        for m in (1, 16, 64, 127, 128, 129, 512):
+            for n_latent in (1, 2, 10):
+                smem = lib.agp_fused_cavi_smem_bytes(d, m) if n_latent == 1 else lib.agp_multi_smem_bytes(d, m)
+                if ck.fused_fits(n_latent, d, m) != (m <= ck.MAX_M and smem <= ck.SMEM_OPTIN):
+                    raise AssertionError(f"fused_fits({n_latent}, {d}, {m}) disagrees with {smem} bytes")
+                n += 1
+    log(f"fused_fits agrees with the library's shared-memory functions at {n} (latents, D, M)")
+
+
+def pair_inputs(X_all, b, m, n_latent, device, kind="rbf", ls=2.0, seed=0):
+    """Float32 card tensors as a path hands them to kernel 4: the batch
+    X_all[:b], Z = X_all[:m] (on the batch's rows, as a path's first slice)
+    for each latent, lengthscale ls, variance 1, L^-T from the float32
+    Cholesky of that kind's Kmm with jitter 1e-3, a random mu and SPD
+    Sigma; and kernel 5's g (normal) and theta (uniform on [0, 0.5])."""
+    import agp_tpu_torch as agt
+    from agp_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(seed)
+    X = X_all[:b].to(device=device, dtype=torch.float32).contiguous()
+    Z = X_all[:m].to(device=device, dtype=torch.float32)
+    A = rng.normal(size=(n_latent, m, m))
+    f32 = dict(dtype=torch.float32, device=device)
+    t = {"X": X, "Z": Z.expand(n_latent, m, X.shape[1]).contiguous(),
+         "ls": torch.full((n_latent, X.shape[1]), ls, **f32), "var": torch.ones(n_latent, **f32),
+         "mu": torch.as_tensor(rng.normal(size=(n_latent, m)), **f32),
+         "Sigma": torch.as_tensor(A @ A.transpose(0, 2, 1) / m + np.eye(m), **f32),
+         "g": torch.as_tensor(rng.normal(size=(n_latent, b)), **f32),
+         "theta": torch.as_tensor(rng.uniform(0, 0.5, size=(n_latent, b)), **f32), "kind": kind}
+    kern = {v: k for k, v in agt.kernels.FUSED_KINDS.items()}[kind](lengthscale=ls)
+    L = linalg.safe_cholesky(kern.gram(Z), 1e-3)
+    t["L_invT"] = torch.linalg.solve_triangular(L, torch.eye(m, **f32), upper=False).T.expand(n_latent, m, m).contiguous()
+    return t
+
+
+def call_k4(fn, t):
+    return fn(t["X"], t["Z"], t["L_invT"], t["ls"], t["var"], t["mu"], t["Sigma"], 1e-3, t["kind"])
+
+
+def pair_cases(device):
+    """(label, inputs, float64 check, timed) of each shape the pair is held
+    at: the paths' own shapes (timed), ragged B=300, M=129 with 1-3
+    latents, and each Matern kind.  The oracle, multiclass and heteroscedastic shapes (Z on
+    the batch's rows, lengthscale 1, low dimension) are ill-conditioned
+    (cond(Kmm) up to ~5e5), so there each output is held against the plain
+    version in float64."""
+    Xl, _ = big_logistic_data("cpu", n=LB)
+    Xo = oracle_data("studentt", "cpu")[0]
+    cases = [("logistic_m512_b65536", pair_inputs(Xl, LB, PM, 1, device), False, True),
+             ("oracle_m512_b8192", pair_inputs(Xo, OB, PM, 1, device, ls=1.0), True, True),
+             ("multiclass_m512_b8192", pair_inputs(pair_mc_data("cpu")[0], PAIR_MC_B, PM, 3, device, ls=1.0), True, True),
+             ("het_m512_b16384", pair_inputs(pair_het_data("cpu")[0], PAIR_HET_B, PM, 2, device, ls=1.0), True, True)]
+    cases += [(f"ragged_L{n}", pair_inputs(Xl, 300, 129, n, device, seed=n), False, False) for n in (1, 2, 3)]
+    cases += [(f"{k}_ragged_L2", pair_inputs(Xl, 300, 129, 2, device, kind=k), False, False) for k in MATERN_KINDS]
+    cases += [(f"{k}_oracle_m512", pair_inputs(Xo, OB, PM, 1, device, kind=k, ls=1.0), True, False)
+              for k in MATERN_KINDS]
+    return cases
+
+
+MATERN_KINDS = ("matern12", "matern32", "matern52")
+# the H100's published peaks (SXM, NVIDIA's data sheet): FP32 outside the
+# tensor cores and HBM3 bandwidth
+PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+
+
+def bound(fmas, nbytes):
+    """(ms, "operations" or "bytes"): the larger of 2 fmas over the FP32
+    peak and nbytes over the memory rate."""
+    ops_ms, bytes_ms = 2.0 * fmas / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+# FMAs a row needs for a symmetric product: the quadratic form kappa Sigma
+# kappa^T (Sigma symmetric) or one row's share of S2 = kappa^T diag(theta)
+# kappa (S2 symmetric), each counted on the upper triangle
+def sym_fmas(m):
+    return m * (m + 1) // 2
+
+
+def fused_bound(b, d, m, n_latent, label_words):
+    """Kernels 1-3: per row and latent the gram (M D), kappa (M^2), vf's
+    quadratic form and S2 (each ``sym_fmas``) and ~5 M more FMAs; the
+    inputs read and the outputs written once (label_words: the per-row
+    inputs and outputs beyond x)."""
+    fmas = n_latent * b * (m * m + 2 * sym_fmas(m) + m * d + 5 * m)
+    words = b * d + b * label_words + n_latent * (m * d + 2 * m * m + 2 * m + m * m)
+    return bound(fmas, 4 * words)
+
+
+def pair_bounds(b, d, m, n_latent):
+    """Kernel 4: per row and latent the gram (M D), kappa (M^2), vf's
+    quadratic form (``sym_fmas``) and 3 M FMAs (Ktilde, mf, vf); reads X,
+    Z, L^-T, ls, var, mu, Sigma, writes kappa, mf, vf.  Kernel 5: S2
+    (``sym_fmas``), theta kappa and s1 (2 M); reads kappa, g, theta,
+    writes s1, S2."""
+    k4 = bound(n_latent * b * (m * m + sym_fmas(m) + m * d + 3 * m),
+               4 * (b * d + n_latent * (m * d + 2 * m * m + d + 1 + m + b * m + 2 * b)))
+    k5 = bound(n_latent * b * (sym_fmas(m) + 2 * m), 4 * n_latent * (b * m + 2 * b + m + m * m))
+    return k4, k5
+
+
+def phase_pair_kernels_vs_plain(ck, device):
+    """Kernels 4 and 5 against their plain versions at every case of
+    pair_cases, then timed at the paths' shapes beside their plain
+    versions (and kernel 5 beside torch.bmm, which the port never calls).
+    Returns {kernel: (largest abs error, {shape: (ms, plain ms)}, {shape:
+    library ms})}."""
+    worst = {"fused_kappa_moments_batched": 0.0, "cavi_stats_batched": 0.0}
+    times = {"fused_kappa_moments_batched": {}, "cavi_stats_batched": {}}
+    library = {}
+    for label, t, f64, timed in pair_cases(device):
+        got = call_k4(ck.fused_kappa_moments_batched, t)
+        torch.cuda.synchronize()
+        ref = call_k4(ck.fused_kappa_moments_batched_reference, t)
+        ref64 = call_k4(ck.fused_kappa_moments_batched_reference, to_float64(t)) if f64 else None
+        row = check_outputs(f"fused_kappa_moments_batched {label}", ("kappa", "mf", "vf"), got, ref, ref64)
+        worst["fused_kappa_moments_batched"] = max(worst["fused_kappa_moments_batched"], *row.values())
+        kappa = ref[0].contiguous()
+        s_got = ck.cavi_stats_batched(kappa, t["g"], t["theta"])
+        torch.cuda.synchronize()
+        s_ref = ck.cavi_stats_batched_reference(kappa, t["g"], t["theta"])
+        s64 = ck.cavi_stats_batched_reference(kappa.double(), t["g"].double(), t["theta"].double()) if f64 else None
+        row5 = check_outputs(f"cavi_stats_batched {label}", ("s1", "S2"), s_got, s_ref, s64)
+        worst["cavi_stats_batched"] = max(worst["cavi_stats_batched"], *row5.values())
+        L_, B_, M_ = kappa.shape
+        log(f"pair vs plain {label} (B={B_}, D={t['X'].shape[1]}, M={M_}, L={L_}, {t['kind']}): max abs err "
+            + " ".join(f"{k}={v:.2e}" for k, v in {**row, **row5}.items()))
+        if timed:
+            reps = 10 if B_ > 20000 else 30
+            times["fused_kappa_moments_batched"][label] = timed_pair(
+                lambda: call_k4(ck.fused_kappa_moments_batched, t),
+                lambda: call_k4(ck.fused_kappa_moments_batched_reference, t), reps)
+            g, th = t["g"], t["theta"]
+            times["cavi_stats_batched"][label] = timed_pair(
+                lambda: ck.cavi_stats_batched(kappa, g, th), lambda: ck.cavi_stats_batched_reference(kappa, g, th), reps)
+            library[label] = cuda_ms(lambda: (torch.bmm((kappa * th[..., None]).mT, kappa), torch.bmm(kappa.mT, g[..., None])),
+                                     reps)
+            k4, k5 = times["fused_kappa_moments_batched"][label], times["cavi_stats_batched"][label]
+            log(f"  {label}: kernel 4 {k4[0]:.4f} ms (plain {k4[1]:.4f}); kernel 5 {k5[0]:.4f} ms "
+                f"(plain {k5[1]:.4f}, torch.bmm {library[label]:.4f})")
+        del got, ref, ref64, s_got, s_ref, s64
+    return {name: (worst[name], times[name], library) for name in worst}
+
+
+def phase_pair_autograd(ck, device):
+    """Kernel 4's gradients (its backward is the plain version's vjp)
+    against the plain version's, w.r.t. every tensor argument, at B=300,
+    M=129, two latents."""
+    Xl, _ = big_logistic_data("cpu", n=300)
+    t = pair_inputs(Xl, 300, 129, 2, device)
+    names = ("X", "Z", "L_invT", "ls", "var", "mu", "Sigma")
+    gen = torch.Generator(device=device).manual_seed(0)
+    w = [torch.randn(s, generator=gen, device=device) for s in ((2, 300, 129), (2, 300), (2, 300))]
+    grads = []
+    for fn in (ck.fused_kappa_moments_batched, ck.fused_kappa_moments_batched_reference):
+        inputs = [t[k].clone().requires_grad_(True) for k in names]
+        out = fn(*inputs, 1e-3, "rbf")
+        grads.append(torch.autograd.grad(sum(torch.sum(o * wi) for o, wi in zip(out, w)), inputs))
+    errs = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1.0) for n, a, b in zip(names, *grads)}
+    if not all(e <= KERNEL_TOL for e in errs.values()):
+        raise AssertionError(f"kernel 4's gradients differ from the plain version's: {errs}")
+    log("kernel 4 autograd vs plain (B=300, M=129, L=2): " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+
+
+# floor of logistic_m512_b65536's training accuracy after L_TRAIN_STEPS
+# steps: the labels are a linear rule in 20-D, which 512 RBF inducing
+# points fit to 0.9769 on an H100 (float32), where the flagship's 64 reach
+# 0.8965 (the plain version on a CPU); chance is 0.5
+MIN_BIG_ACC = 0.9
+# floors of the M=512 oracles, as ORACLE_FLOORS was worked out: about three
+# times the plain version's error on a CPU (float32, the same data, CPU
+# draws: RMSE 0.0050 Gaussian, 0.0083 Student-t, 0.0052 Laplace, 0.0056
+# Matern-3/2 noise; accuracy 0.9868; corr 0.9993 Poisson, 0.9995 negative
+# binomial, held at 0.99), inside the reference's own floors (RMSE 0.25,
+# 0.25, 0.3; accuracy 0.9; corr 0.8; none for the Gaussian)
+PAIR_ORACLE_FLOORS = {
+    "gaussian/SqExponentialKernel": ("rmse", 0.015),
+    "studentt/SqExponentialKernel": ("rmse", 0.025),
+    "laplace/SqExponentialKernel": ("rmse", 0.016),
+    "matern32/SqExponentialKernel": ("rmse", 0.017),
+    "bayesiansvm/SqExponentialKernel": ("acc", 0.96),
+    "poisson/SqExponentialKernel": ("corr", 0.99),
+    "negbinomial/SqExponentialKernel": ("corr", 0.99),
+}
+# the reference's floors of the batched multiclass and heteroscedastic
+# oracles (tpu_acceptance.py:387, :411); the plain version on a CPU
+# reaches accuracy 0.9966 and RMSE 0.3290 there (float32, CPU draws)
+MIN_PAIR_MC_ACC, MAX_PAIR_HET_RMSE = 0.85, 0.4
+
+
+def phase_big_logistic(agt, ck, device):
+    """bench.py's logistic_m512_b65536 through agp_tpu_torch.train:
+    L_TRAIN_STEPS steps with one launch of each kernel of the pair, the
+    training accuracy, then steady-state iterations/s over L_TIMED_STEPS
+    steps.  Returns (launches, accuracy, it/s)."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    X, y = big_logistic_data(device)
+    model = big_logistic_model(agt, X)
+    gen = torch.Generator(device=device).manual_seed(0)
+    reset_launches(ck)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=L_TRAIN_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = expect_launches(ck, L_TRAIN_STEPS, pair=True, fused=None, label="logistic_m512_b65536")
+    if not (bool(torch.isfinite(state.mu).all()) and bool(torch.isfinite(state.Sigma).all())):
+        raise AssertionError("logistic_m512_b65536: non-finite posterior")
+    acc = float((agt.predict_y(model, state, X) == y).float().mean())
+    if not acc >= MIN_BIG_ACC:
+        raise AssertionError(f"logistic_m512_b65536 training accuracy {acc:.4f} < {MIN_BIG_ACC}")
+    t0 = time.perf_counter()
+    model, state = vi_steps(model, state, X, y, L_TIMED_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    ips = L_TIMED_STEPS / (time.perf_counter() - t0)
+    log(f"logistic_m512_b65536 (N={LN}, D={LD}, M={PM}, B={LB}, slice): {L_TRAIN_STEPS} steps through "
+        f"agp_tpu_torch.train in {train_s:.3f} s, {launches} launches, training accuracy {acc:.4f}; "
+        f"steady state {ips:.2f} CAVI iterations/s over {L_TIMED_STEPS} steps")
+    return launches, acc, ips
+
+
+def phase_pair_multi(agt, ck, device, which):
+    """The reference's batched multiclass or heteroscedastic oracle at
+    M=512 through agp_tpu_torch.train, with one launch of each kernel of
+    the pair a step, and its floor.  Returns (launches, metric)."""
+    if which == "multiclass":
+        X, y = pair_mc_data(device)
+        steps = PAIR_MC_STEPS
+    else:
+        X, y, f = pair_het_data(device)
+        steps = PAIR_HET_STEPS
+    model = pair_multi_model(agt, X, which)
+    reset_launches(ck)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=steps, generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = expect_launches(ck, steps, pair=True, fused=None, label=f"{which} M={PM}")
+    if which == "multiclass":
+        value = float((agt.predict_y(model, state, X[:4096]) == y[:4096]).float().mean())
+        ok, what = value > MIN_PAIR_MC_ACC, f"accuracy {value:.4f} (floor {MIN_PAIR_MC_ACC})"
+    else:
+        value = float(torch.sqrt(torch.mean((agt.predict_f(model, state, X[:4096])[0] - f[:4096]) ** 2)))
+        ok, what = value < MAX_PAIR_HET_RMSE, f"RMSE of f {value:.4f} (floor {MAX_PAIR_HET_RMSE})"
+        what += f", lambda {float(model.likelihood.lam):.4f}"
+    if not ok or not bool(torch.isfinite(state.mu).all()):
+        raise AssertionError(f"{which} M={PM}: {what}")
+    log(f"{which} M={PM} (N={ON}, B={model.inference.batchsize}, {steps} steps): {what}, {launches} launches, "
+        f"{train_s:.3f} s")
+    return launches, value
+
+
+# batch of the pair's parity runs: each path's 20 steps run twice on the
+# CPU, whose float32 [L, B, 512, 512] products took 54 s of a 120 s script
+# at the paths' own B (8192-65,536) on an H100 host's 8 cores; at
+# B=2048 the conditioning (Z, lengthscale, data) is the path's own and the
+# kernels' own shapes are held in phase 12
+PAIR_PARITY_B = 2048
+
+
+def pair_parity_paths(agt, device):
+    """(name, CPU data, model builder, slice batch) of each path of the
+    pair, for card-vs-CPU parity, at B=PAIR_PARITY_B; logistic_m512_b65536
+    on N=20,000 rows."""
+    b = PAIR_PARITY_B
+    Xl, yl = big_logistic_data("cpu", n=PN, seed=1)
+    Xm, ym = pair_mc_data("cpu", seed=1)
+    Xh, yh, _ = pair_het_data("cpu", seed=1)
+    paths = [("logistic_m512", Xl, yl, lambda X: big_logistic_model(agt, X, b=b)),
+             ("multiclass M=512", Xm, ym, lambda X: pair_multi_model(agt, X, "multiclass", b=b)),
+             ("het M=512", Xh, yh, lambda X: pair_multi_model(agt, X, "het", b=b))]
+    for lik in ORACLE_LIKS:
+        Xo, yo, _ = oracle_data(lik, "cpu", seed=1)
+        paths.append((f"oracle {lik} M=512", Xo, yo, lambda X, lik=lik: oracle_model(agt, X, lik, m=PM, b=b)))
+    return [(name, X, y, build, b) for name, X, y, build in paths]
+
+
+def phase_pair_parity(agt, ck, device):
+    """20 steps of each path of the pair at B=PAIR_PARITY_B on the card
+    (float32) against the same steps on the CPU (float32, the plain
+    versions), same draws, each against its own float32 noise (the CPU run
+    again with the inducing points in another order), as the oracle
+    parity of kernel 1: the card
+    within ORACLE_DEVICE_FACTOR times it of the CPU, and within it of the
+    card with the plain versions in the kernels' place."""
+    perm = torch.randperm(PM, generator=torch.Generator().manual_seed(2))
+    for name, Xc, yc, build, b in pair_parity_paths(agt, device):
+        t0 = time.perf_counter()
+        draws = torch.randint(0, Xc.shape[0] - b + 1, (20,), generator=torch.Generator().manual_seed(1))
+        Xd, yd = Xc.to(device), yc.to(device)
+        cpu = after_20(agt, build(Xc), Xc, yc, draws)
+        card = after_20(agt, build(Xd), Xd, yd, draws)
+        with plain_kernels(ck, ("fused_kappa_moments_batched", "cavi_stats_batched")):
+            card_plain = after_20(agt, build(Xd), Xd, yd, draws)
+        m = build(Xc)
+        mu_p, lam_p = after_20(agt, m.replace(Z=m.Z[:, perm].contiguous()), Xc, yc, draws)
+        noise = rel_err((mu_p[:, torch.argsort(perm)], lam_p), cpu)
+        err, err_kernel = rel_err(card, cpu), rel_err(card, card_plain)
+        tol, tol_kernel = max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL), max(noise, MULTI_PARITY_TOL)
+        if not (err <= tol and err_kernel <= tol_kernel):
+            raise AssertionError(f"{name}: card vs CPU {err:.3e} (bound {tol:.3e}), card vs card with the plain "
+                                 f"versions {err_kernel:.3e} (bound {tol_kernel:.3e})")
+        log(f"{name} parity: 20 steps card (float32) vs CPU (float32) {err:.3e} (bound {tol:.3e}), vs the card "
+            f"with the plain versions {err_kernel:.3e} (bound {tol_kernel:.3e}); CPU with Z reordered vs CPU {noise:.3e}; "
+            f"{time.perf_counter() - t0:.2f} s")
+
+
+def profile_pair_path(agt, device, which):
+    """torch.profiler over 20 steady-state steps (after 30) of
+    logistic_m512_b65536 or the M=512 multiclass path
+    (``python3 chip_smoke.py profile logistic|multiclass``): wall and
+    device-busy time per step, the device's idle share, kernel launches
+    per step and the device time of the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agp_tpu_torch.training.train import vi_steps
+
+    if which == "logistic":
+        X, y = big_logistic_data(device)
+        model = big_logistic_model(agt, X)
+    else:
+        X, y = pair_mc_data(device)
+        model = pair_multi_model(agt, X, "multiclass")
+    y_t, lik = model.likelihood.treat_labels(y)
+    model = model.replace(likelihood=lik)
+    y_t = y_t.to(X.dtype)
+    state = agt.init_state(model, X, y_t)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model, state = vi_steps(model, state, X, y_t, 30, generator=gen)
+    torch.cuda.synchronize()
+    n = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, state = vi_steps(model, state, X, y_t, n, generator=gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / n * 1e6
+    events = prof.key_averages()
+    # device kernels only: the ATen ops that launch them carry the same time
+    rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in events
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / n
+    log(f"profile {which}: wall {wall_us:.1f} us/step, device busy {busy:.1f} us/step, idle share "
+        f"{1 - busy / wall_us:.4f}, {launches:.1f} kernel launches/step, {sum(r[1] for r in rows):.1f} device ops/step")
+    for us, count, key in rows[:12]:
+        log(f"  {us:10.1f} us/step  x{count:.1f}  {key[:100]}")
+
+
+MOVED_CALLS = 200
+
+
+def time_moved_paths(agt, device):
+    """Wall time per call, on the host clock around MOVED_CALLS calls after
+    20 and a torch.cuda.synchronize(), of the two calls that take the
+    batched pair at shapes within fused_fits: a row-weighted CAVI step
+    (``variational_update`` with w of ones, never fused) and ``elbo`` on
+    its batch, at the flagship (L=1) and at the bench.py multiclass (L=10)
+    and heteroscedastic (L=2) shapes.
+
+    ``python3 chip_smoke.py moved-paths [ROOT]`` imports agp_tpu_torch
+    from ROOT when given (an unpacked earlier commit, to compare it with
+    this one in the same call)."""
+    from agp_tpu_torch.inference import analytic_vi
+
+    log(f"moved paths: agp_tpu_torch from {os.path.relpath(os.path.dirname(agt.__file__))}")
+    X, y = flagship_data(device)
+    cases = [("flagship", flagship_model(agt, X), X, y, B)]
+    for which, data in (("multiclass", mc_data), ("het", het_data)):
+        Xm, ym = data(device)
+        cases.append((which, multi_model(agt, Xm, which), Xm, ym, MB))
+    for name, model, X, y, b in cases:
+        y_t, lik = model.likelihood.treat_labels(y)
+        model = model.replace(likelihood=lik)
+        y_t = y_t.to(X.dtype)
+        state = agt.init_state(model, X, y_t)
+        xb, yb = X[:b].contiguous(), y_t[:b].contiguous()
+        w = torch.ones(b, dtype=X.dtype, device=device)
+        step_us = elbo_us = 0.0
+        for n in (20, MOVED_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                model, state = analytic_vi.variational_update(model, state, xb, yb, w=w)
+            torch.cuda.synchronize()
+            step_us = (time.perf_counter() - t0) / n * 1e6
+            t0 = time.perf_counter()
+            for _ in range(n):
+                value = agt.elbo(model, state, xb, yb)
+            torch.cuda.synchronize()
+            elbo_us = (time.perf_counter() - t0) / n * 1e6
+        if not (bool(torch.isfinite(state.mu).all()) and bool(torch.isfinite(value))):
+            raise AssertionError(f"moved paths {name}: non-finite state or ELBO")
+        log(f"moved paths {name} (B={b}, M={model.n_inducing}, L={model.n_latent}): row-weighted step "
+            f"{step_us:.1f} us, elbo {elbo_us:.1f} us per call over {MOVED_CALLS} calls (ELBO {float(value):.6g})")
 
 
 def ms_table(pairs):
     return {k: {"ms": kern, "plain_ms": plain} for k, (kern, plain) in pairs.items()}
 
 
+PHASE_SECONDS = {}
+
+
+def timed_phase(name, fn, *args, **kw):
+    """Runs one phase of main, logs and keeps its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 2)
+    log(f"phase {name}: {PHASE_SECONDS[name]:.2f} s")
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     device = phase_device()
+    if sys.argv[1:2] == ["moved-paths"] and len(sys.argv) > 2:
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
     import agp_tpu_torch as agt
     from agp_tpu_torch.ops import cuda_kernels as ck
 
-    phase_build(ck)
+    if sys.argv[1:2] == ["moved-paths"]:
+        time_moved_paths(agt, device)
+        return
+    timed_phase("build", phase_build, ck)
+    timed_phase("fused_fits", check_fused_fits, ck)
     if sys.argv[1:] == ["studentt-rate"]:
         launches, ips = phase_studentt_rate(agt, ck, device)
         print(json.dumps({"launches": launches, "ips": ips}))
         return
-    errs, kern_ms, plain_ms = phase_kernel_vs_plain(ck, device)
-    branch_err, per_lik, per_kind, oracle_ms = phase_branches_vs_plain(agt, ck, device)
-    multi = phase_multi_kernels_vs_plain(ck, device)
-    launches = phase_main_path(agt, ck, device)
-    launches += studentt_rate_first_in_process()
-    phase_oracle_and_parity(agt, device)
+    if sys.argv[1:2] == ["profile"]:
+        profile_pair_path(agt, device, sys.argv[2])
+        return
+    errs, kern_ms, plain_ms = timed_phase("kernel 1 vs plain", phase_kernel_vs_plain, ck, device)
+    branch_err, per_lik, per_kind, oracle_ms = timed_phase("kernel 1 branches", phase_branches_vs_plain,
+                                                           agt, ck, device)
+    multi = timed_phase("kernels 2-3 vs plain", phase_multi_kernels_vs_plain, ck, device)
+    launches = timed_phase("flagship path", phase_main_path, agt, ck, device)
+    launches += timed_phase("Student-t rate (child)", studentt_rate_first_in_process)
+    timed_phase("oracle and flagship parity", phase_oracle_and_parity, agt, device)
     multi_launches = {
-        "fused_cavi_stats_multiclass": phase_multi_path(agt, ck, device, "multiclass")[0],
-        "fused_cavi_stats_het": phase_multi_path(agt, ck, device, "het")[0],
+        "fused_cavi_stats_multiclass": timed_phase("multiclass path", phase_multi_path, agt, ck, device,
+                                                   "multiclass")[0],
+        "fused_cavi_stats_het": timed_phase("het path", phase_multi_path, agt, ck, device, "het")[0],
     }
-    phase_multi_parity(agt, device)
-    launches += phase_oracles(agt, ck, device)[0]
-    phase_single_parity(agt, ck, device)
+    timed_phase("multi-latent parity", phase_multi_parity, agt, device)
+    launches += timed_phase("oracles M=128", phase_oracles, agt, ck, device)[0]
+    timed_phase("single-latent parity", phase_single_parity, agt, ck, device)
 
+    pair = timed_phase("kernels 4-5 vs plain", phase_pair_kernels_vs_plain, ck, device)
+    timed_phase("kernel 4 autograd", phase_pair_autograd, ck, device)
+    pair_launches = timed_phase("logistic_m512_b65536", phase_big_logistic, agt, ck, device)[0]
+    pair_launches += sum(timed_phase(f"{which} M=512", phase_pair_multi, agt, ck, device, which)[0]
+                         for which in ("multiclass", "het"))
+    pair_launches += timed_phase("oracles M=512", phase_oracles, agt, ck, device, m=PM, floors=PAIR_ORACLE_FLOORS,
+                                 paths=[(lik, "SqExponentialKernel") for lik in ORACLE_LIKS])[0]
+    timed_phase("pair parity", phase_pair_parity, agt, ck, device)
+    log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
+
+    bounds = {
+        "fused_cavi_stats": fused_bound(B, D, M, 1, 5),
+        "fused_cavi_stats_multiclass": fused_bound(MB, MD, MM, MK, 3 + 4 * MK),
+        "fused_cavi_stats_het": fused_bound(MB, MD, MM, 2, 6),
+    }
+    bounds["fused_kappa_moments_batched"], bounds["cavi_stats_batched"] = pair_bounds(LB, LD, PM, 1)
+    main_shape = "logistic_m512_b65536"
     kernels = {"kernels": [{
         "name": "fused_cavi_stats",
         "route": "cuda",
@@ -952,7 +1495,23 @@ def main():
         "ms": multi[name][1],
         "plain_ms": multi[name][2],
         "per_kind_ms": ms_table(multi[name][3]),
-    } for name, line in (("fused_cavi_stats_multiclass", 953), ("fused_cavi_stats_het", 1133))]}
+    } for name, line in (("fused_cavi_stats_multiclass", 953), ("fused_cavi_stats_het", 1133))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "agp_tpu_torch/csrc/batched_pair.cu",
+        "replaces": f"agp_tpu/ops/pallas_kernels.py:{line}",
+        # each step of the pair's paths launches both kernels once
+        "launches": pair_launches // 2,
+        "max_abs_err": pair[name][0],
+        "ms": pair[name][1][main_shape][0],
+        "plain_ms": pair[name][1][main_shape][1],
+        "per_shape_ms": ms_table(pair[name][1]),
+        "library_ms": pair[name][2][main_shape] if name == "cavi_stats_batched" else None,
+        "per_shape_library_ms": pair[name][2] if name == "cavi_stats_batched" else None,
+    } for name, line in (("fused_kappa_moments_batched", 361), ("cavi_stats_batched", 486))]}
+    for k in kernels["kernels"]:
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        k.setdefault("library_ms", None)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -282,3 +282,104 @@ def test_train_poisson_launches_once_per_step(cuda_device, kernel):
     lam = model.likelihood.lam
     assert lam.device.type == "cuda" and bool(torch.isfinite(lam)) and abs(float(lam) - 10.0) > 1e-3
     assert torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all()
+
+
+# ------------------------------------------------------- the batched pair
+def pair_case(b, m, n_latent, d, device, kind="rbf"):
+    """Card tensors of kernels 4 and 5, made as chip_smoke.pair_inputs makes
+    them from standard normal data (lengthscale 2: well conditioned)."""
+    X = torch.as_tensor(np.random.default_rng(4).normal(size=(max(b, m), d)), dtype=torch.float32)
+    return smoke.pair_inputs(X, b, m, n_latent, device, kind=kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n_latent,d,kind", [
+    (300, 129, 1, 20, "rbf"), (300, 129, 2, 20, "matern12"), (300, 129, 3, 5, "matern32"), (333, 64, 3, 37, "matern52"),
+    (4096, 512, 1, 20, "rbf"), (1000, 1024, 2, 20, "rbf"), (700, 1680, 1, 20, "rbf"),
+])
+def test_cuda_pair_matches_plain(cuda_device, b, m, n_latent, d, kind):
+    """Kernels 4 and 5 against their plain versions on the same card
+    tensors, both float32: 1e-4 of each output's largest entry (at most
+    M=1,680, where kernel 4 takes 16-row tiles); S2 exactly symmetric."""
+    t = pair_case(b, m, n_latent, d, cuda_device, kind)
+    before = (ck.fused_kappa_moments_batched.launches, ck.cavi_stats_batched.launches)
+    got = smoke.call_k4(ck.fused_kappa_moments_batched, t)
+    s_got = ck.cavi_stats_batched(got[0], t["g"], t["theta"])
+    torch.cuda.synchronize()
+    assert (ck.fused_kappa_moments_batched.launches, ck.cavi_stats_batched.launches) == (before[0] + 1, before[1] + 1)
+    ref = smoke.call_k4(ck.fused_kappa_moments_batched_reference, t)
+    s_ref = ck.cavi_stats_batched_reference(got[0], t["g"], t["theta"])
+    for name, o, r in zip(("kappa", "mf", "vf", "s1", "S2"), (*got, *s_got), (*ref, *s_ref)):
+        assert torch.isfinite(o).all(), name
+        err = float((o - r).abs().max()) / max(float(r.abs().max()), 1.0)
+        assert err <= 1e-4, (name, err)
+    assert torch.equal(s_got[1], s_got[1].mT)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_autograd_matches_plain(cuda_device):
+    smoke.phase_pair_autograd(ck, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_wrappers_raise(cuda_device):
+    """On a CUDA tensor the pair launches or raises: an unknown kind,
+    float64, a wrong shape, or M beyond kernel 4's shared memory."""
+    t = pair_case(64, 16, 2, 4, cuda_device)
+    before = (ck.fused_kappa_moments_batched.launches, ck.cavi_stats_batched.launches)
+    with pytest.raises(ValueError, match="kinds"):
+        smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "kind": "periodic"})
+    with pytest.raises(TypeError):
+        smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "X": t["X"].double()})
+    with pytest.raises(ValueError):
+        smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "mu": t["mu"][:1]})
+    big = pair_case(8, 1681, 1, 2, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        smoke.call_k4(ck.fused_kappa_moments_batched, big)
+    kappa = torch.zeros((2, 64, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ck.cavi_stats_batched(kappa, t["g"].double(), t["theta"])
+    with pytest.raises(ValueError):
+        ck.cavi_stats_batched(kappa, t["g"][:, :10], t["theta"])
+    assert (ck.fused_kappa_moments_batched.launches, ck.cavi_stats_batched.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["logistic", "poisson", "multiclass", "het"])
+def test_train_beyond_the_fused_range_launches_the_pair(cuda_device, which):
+    """M=130 (and M=128 at D=46 for one latent), beyond the fused kernels'
+    shared memory: each step launches kernels 4 and 5 once, no fused
+    kernel, and the posterior stays finite."""
+    rng = np.random.default_rng(5)
+    d = 46 if which == "logistic" else 3
+    m = 128 if which == "logistic" else 130
+    X = torch.as_tensor(rng.normal(size=(2048, d)), dtype=torch.float32, device=cuda_device)
+    lik, y = {
+        "logistic": (agt.LogisticLikelihood.create(), torch.sign(X[:, 0])),
+        "poisson": (agt.PoissonLikelihood.create(5.0), torch.poisson(5.0 * torch.sigmoid(X[:, 0]))),
+        "multiclass": (agt.LogisticSoftMaxLikelihood.create(3), torch.argmax(X, dim=1)),
+        "het": (agt.HeteroscedasticLikelihood.create(), torch.sin(X[:, 0])),
+    }[which]
+    model = agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), lik,
+                            agt.AnalyticSVI(512, minibatch_sampling="slice"), X[:m], optimiser=None)
+    smoke.reset_launches(ck)
+    model, state = agt.train(model, X, y, iterations=20)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, 20, pair=True, fused=None, label=which)
+    assert torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all()
+
+
+@pytest.mark.cuda
+def test_numpy_inputs_land_on_the_card(cuda_device):
+    """Arrays without a device go to the card by default, floating ones in
+    torch's default float32, and train there through the kernels."""
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(1024, 4))
+    y = np.where(X[:, 0] > 0, 1.0, -1.0)
+    model = agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(),
+                            agt.AnalyticSVI(256), X[:32], optimiser=None)
+    assert model.Z.device.type == "cuda" and model.Z.dtype == torch.float32
+    before = ck.fused_cavi_stats.launches
+    model, state = agt.train(model, X, y, iterations=10)
+    assert ck.fused_cavi_stats.launches == before + 10
+    assert agt.predict_y(model, state, X).device.type == "cuda"

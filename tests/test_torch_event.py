@@ -153,7 +153,7 @@ def test_train_through_public_api():
     rng = np.random.default_rng(8)
     X = rng.uniform(-2, 2, size=(N, 2))
     rate = 20.0 / (1.0 + np.exp(-(np.sin(2 * X[:, 0]) + 0.5 * X[:, 1])))
-    X, y = torch.as_tensor(X), rng.poisson(rate)
+    X, y = torch.as_tensor(X), torch.as_tensor(rng.poisson(rate))
     model = agt.SVGP.create(agt.SqExponentialKernel(), agt.PoissonLikelihood.create(10.0),
                             agt.AnalyticSVI(B, minibatch_sampling="slice"), X[:32], optimiser=None)
     model, state = agt.train(model, X, y, iterations=150, generator=torch.Generator().manual_seed(0))

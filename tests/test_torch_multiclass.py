@@ -333,8 +333,9 @@ def test_steps_match_fused_pallas_interpret(monkeypatch):
 
 
 def test_unfused_path_matches_fused():
-    """A row-weighted batch takes the unfused path (latent_moments' [L]
-    branch + local_updates + apply_natural_gradient's einsums); with all
+    """A row-weighted batch takes the batched pair (latent_moments'
+    fused_kappa_moments_batched + local_updates + apply_natural_gradient's
+    cavi_stats_batched, their plain versions here); with all
     weights 1 it gives the fused pass's step.  rtol 1e-10: float64, K^-1
     formed two ways."""
     mj, sj, Xj, yj = jax_multiclass(seed=4)

@@ -122,8 +122,9 @@ def test_steps_match_fused_pallas_interpret(monkeypatch):
 
 
 def test_unfused_path_matches_fused():
-    """A row-weighted batch takes the unfused path (latent_moments +
-    local_updates + apply_natural_gradient); with all weights 1 it must give
+    """A row-weighted batch takes the unfused path (the batched pair:
+    latent_moments + local_updates + apply_natural_gradient); with all
+    weights 1 it must give
     the fused pass's step.  rtol 1e-10: float64, K^-1 formed two ways."""
     X, y = logistic_data(N, D, seed=4)
     mj, sj, Xj, yj = jax_svgp(X, y, M, B)

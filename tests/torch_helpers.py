@@ -213,13 +213,21 @@ def check_likelihood_methods(name, w=None, b=64, seed=0):
 
 def slice_runs(name, N, D, M, B, steps, kernel=None, seed=0):
     """``steps`` slice-sampled CAVI steps of both packages from identical
-    states on the JAX package's own draws, with its Robbins-Monro scales
+    states on the JAX package's own draws (``replay_steps``) for the
+    single-latent likelihood ``name`` on ``single_latent_data``."""
+    X, _, y = single_latent_data(name, N, D, seed)
+    return replay_steps(*jax_svgp(X, y, M, B, sampling="slice", likelihood=jax_single_latent(name), kernel=kernel),
+                        steps)
+
+
+def replay_steps(mj, sj, Xj, yj, steps):
+    """``steps`` CAVI steps of the JAX model (mj, sj) and of the port's copy
+    of it, on the JAX package's own draws, with its Robbins-Monro scales
     replayed: the states after each step and the final models."""
     from agp_tpu.training.train import _precomputed_draws, _vi_steps
     from agp_tpu_torch.training.train import vi_steps
 
-    X, _, y = single_latent_data(name, N, D, seed)
-    mj, sj, Xj, yj = jax_svgp(X, y, M, B, sampling="slice", likelihood=jax_single_latent(name), kernel=kernel)
+    B = mj.inference.batchsize
     _, idx = _precomputed_draws(mj, sj, Xj, steps)
     mt, st, Xt, yt = port_from_jax(mj, sj, Xj, yj, optimiser=replay_rule(jax_rm_scales(steps)))
     draws = torch.as_tensor(np.array(idx), dtype=torch.int64)
