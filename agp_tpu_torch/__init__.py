@@ -5,14 +5,17 @@ natural-gradient CAVI.  This package mirrors ``agp_tpu``'s module paths and
 public names; it runs on the CPU (plain PyTorch) and on an NVIDIA Hopper
 card, where the step's statistics are hand-written CUDA kernels
 (``ops/cuda_kernels.py``): one fused pass while the model's inducing set
-fits a block's shared memory (M <= 128), else the batched pair of kernels
-around the likelihood's own E-step (M up to 1,680).  Ported so far:
-``SVGP`` with the squared-exponential and Matern 1/2, 3/2, 5/2 kernels and
-the logistic, Gaussian (fixed noise), Student-t, Laplace, Matern-3/2 noise,
-Bayesian SVM, Poisson, negative binomial, logistic-softmax (multiclass) and
-heteroscedastic likelihoods, trained by stochastic CAVI with fixed
-hyperparameters.  Inputs without a device (numpy arrays, lists) go to the
-CUDA card unless ``config.set_default_device("cpu")`` was called.
+fits a block's shared memory (M <= 128), else a split pair of kernels
+around the likelihood's own E-step (M up to 1,680): the single-latent one
+or the batched one.  Ported so far: ``SVGP`` with the squared-exponential
+and Matern 1/2, 3/2, 5/2 kernels and the logistic, Gaussian (fixed noise),
+Student-t, Laplace, Matern-3/2 noise, Bayesian SVM, Poisson, negative
+binomial, logistic-softmax (multiclass) and heteroscedastic likelihoods,
+trained by stochastic CAVI, with the hyperparameter step interleaved
+(Adam(0.01) on the kernel and the mean by default, optionally on the
+inducing points) or with fixed hyperparameters.  Inputs without a device
+(numpy arrays, lists) go to the CUDA card unless
+``config.set_default_device("cpu")`` was called.
 """
 
 from . import config, kernels
@@ -27,9 +30,10 @@ from .likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Mater
 from .means import ConstantMean, ZeroMean
 from .models.svgp import SVGP
 from .training.predictions import predict_f, predict_y, proba_y
+from .training.autotuning import hyper_step
 from .training.state import TrainState
 from .training.train import elbo, init_state, train
-from .utils.opt import robbins_monro
+from .utils.opt import adam, robbins_monro
 
 ELBO = elbo
 
@@ -66,4 +70,6 @@ __all__ = [
     "ZeroMean",
     "ConstantMean",
     "robbins_monro",
+    "adam",
+    "hyper_step",
 ]

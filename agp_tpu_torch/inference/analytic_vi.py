@@ -22,16 +22,22 @@ version on a CPU tensor:
   pass: ``fused_cavi_stats`` for the eight single-latent likelihoods it
   covers, ``fused_cavi_stats_multiclass`` for the logistic-softmax one,
   ``fused_cavi_stats_het`` for the heteroscedastic one;
-* else the batched pair: ``latent_moments`` takes
-  ``fused_kappa_moments_batched`` (kappa, mf, vf, any number of latents,
-  one included), the likelihood runs its own ``local_updates`` and
-  gradients, and ``apply_natural_gradient`` takes ``cavi_stats_batched``.
-  So do every row-weighted batch and ``elbo``.
+* else a split pair around the likelihood's own ``local_updates`` and
+  gradients, as the reference lays it out:
+  - one latent: ``latent_moments`` takes ``fused_kappa`` (kappa, Ktilde),
+    then mf = kappa mu and vf = Ktilde + rowsum((kappa Sigma) o kappa) by
+    plain products, and ``apply_natural_gradient`` takes ``cavi_stats``;
+  - several latents: ``latent_moments`` takes
+    ``fused_kappa_moments_batched`` (kappa, mf, vf) and
+    ``apply_natural_gradient`` ``cavi_stats_batched``.
+  So do every row-weighted batch, ``elbo`` and the hyperparameter step,
+  whose gradient runs through the kappa kernel's ``autograd.Function``.
 
 The reference's TPU shape gates (``_pallas_kind_batched``: M >= 512,
-B >= 16,384) are not carried over.  The reference runs its single-latent
-fused kernel up to M=512 (its VMEM holds K^-1 and Sigma there); here one
-latent beyond the fused range takes the pair with L=1.
+B >= 16,384; ``_pallas_kind_kappa_only``: forced only) are not carried
+over.  The reference runs its single-latent fused kernel up to M=512 (its
+VMEM holds K^-1 and Sigma there); here one latent beyond the fused range
+takes the single-latent split pair.
 """
 from __future__ import annotations
 
@@ -89,12 +95,26 @@ def _pair_kind(model):
 
 def latent_moments(model, state: TrainState, x, kmat):
     """mean_f/var_f [L, B] of the latent function at the batch, and kappa
-    [L, B, M], by ``cuda_kernels.fused_kappa_moments_batched``."""
+    [L, B, M]: by ``cuda_kernels.fused_kappa`` and plain products for one
+    latent, by ``cuda_kernels.fused_kappa_moments_batched`` for several.
+    Differentiable in the kernel's parameters, Z and the kmat."""
     kind = _pair_kind(model)
     if kind is None:
         raise NotImplementedError(
             f"only the kernels of FUSED_KINDS are ported; got {type(model.kernel).__name__}"
         )
+    if model.n_latent == 1:
+        kappa, ktilde = cuda_kernels.fused_kappa(
+            x.contiguous(),
+            model.Z[0].contiguous(),
+            kmat_l_inv(kmat)[0].mT,
+            model.kernel.lengthscale[0],
+            model.kernel.variance[0],
+            jitter(x.dtype),
+            kind,
+        )
+        mu_f, var_f = _single_moments(kappa, ktilde, state.mu[0], state.Sigma[0])
+        return mu_f[None], var_f[None], kappa[None]
     kappa, mu_f, var_f = cuda_kernels.fused_kappa_moments_batched(
         x.contiguous(),
         model.Z.contiguous(),
@@ -107,6 +127,14 @@ def latent_moments(model, state: TrainState, x, kmat):
         kind,
     )
     return mu_f, var_f, kappa
+
+
+@linalg._highest_precision
+def _single_moments(kappa, ktilde, mu, Sigma):
+    """mf = kappa mu and vf = max(Ktilde + rowsum((kappa Sigma) o kappa),
+    1e-12) [B] at full FP32, outside the kernel, as the reference forms
+    them after its fused_kappa."""
+    return kappa @ mu, torch.clamp(ktilde + torch.sum((kappa @ Sigma) * kappa, dim=-1), min=1e-12)
 
 
 def _fused_lik_spec(lik):
@@ -304,11 +332,16 @@ def variational_update(model, state: TrainState, x, y, w=None):
 def apply_natural_gradient(model, state: TrainState, kappa, gmu, gs, x) -> TrainState:
     """Sparse natural-gradient + global update from the gradient
     expectations gmu/gs [L, B] and kappa [L, B, M]; the statistics by
-    ``cuda_kernels.cavi_stats_batched``."""
+    ``cuda_kernels.cavi_stats`` for one latent, ``cavi_stats_batched`` for
+    several."""
     if not model.is_sparse:
         raise NotImplementedError("the dense (VGP) branch is not ported yet")
     rho = state.rho
-    s1, stat2 = cuda_kernels.cavi_stats_batched(kappa, (rho * gmu).contiguous(), (rho * gs).contiguous())
+    g, theta = (rho * gmu).contiguous(), (rho * gs).contiguous()
+    if model.n_latent == 1:
+        s1, stat2 = cuda_kernels.cavi_stats(kappa[0].contiguous(), g[0], theta[0])
+        return _nat_update_from_stats(model, state, s1[None], stat2[None], x)
+    s1, stat2 = cuda_kernels.cavi_stats_batched(kappa, g, theta)
     return _nat_update_from_stats(model, state, s1, stat2, x)
 
 
@@ -355,7 +388,10 @@ def prior_mean_stack(model, x):
 @linalg._highest_precision
 def elbo(model, state: TrainState, x, y, kmat=None) -> torch.Tensor:
     """ELBO = rho E[log p(y|f,omega)] - GaussianKL - rho AugmentedKL, on the
-    batch (x, y) whose local variables are in ``state``."""
+    batch (x, y) whose local variables are in ``state``; ``kmat`` (default
+    ``state.kmat``) gives the prior's matrices, so that the hyperparameter
+    step differentiates through kernel matrices made from its parameters.
+    The augmented KL is left out of the gradient, as the reference does."""
     kmat = state.kmat if kmat is None else kmat
     mu_f, var_f, _ = latent_moments(model, state, x, kmat)
     rho = state.rho
@@ -366,4 +402,4 @@ def elbo(model, state: TrainState, x, y, kmat=None) -> torch.Tensor:
         for l in range(model.n_latent)
     ])
     tot = tot - torch.sum(kl)
-    return tot - rho * model.likelihood.aug_kl(state.local_vars, y)
+    return tot - (rho * model.likelihood.aug_kl(state.local_vars, y)).detach()

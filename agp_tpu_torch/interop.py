@@ -53,8 +53,11 @@ def model_from_numpy(params: dict, template):
 def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     """A TrainState from numpy arrays: "eta1", "eta2", "mu", "Sigma",
     "local_vars" (a dict), "opt_state" (the Robbins-Monro step count, or
-    None), "rho", "step" and "kmat" ({"L_K", "K_inv"} and optionally
-    "L_inv")."""
+    None), "rho", "step", "kmat" ({"L_K", "K_inv"} and optionally "L_inv")
+    and optionally "hyper_state": for each group ("kernel", "mean", "Z")
+    optax's Adam state as {"count", "mu", "nu"}, the moments a dict of the
+    group's leaves by field name (an array for "Z"), as
+    ``utils.opt.adam`` keeps it."""
 
     def f(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -62,7 +65,16 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     def i32(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device)
 
+    def moments(m):
+        return {k: f(v) for k, v in m.items()} if isinstance(m, dict) else f(m)
+
     opt = arrays.get("opt_state")
+    hyper = arrays.get("hyper_state")
+    if hyper is not None:
+        hyper = {
+            group: {"count": i32(s["count"]), "mu": moments(s["mu"]), "nu": moments(s["nu"])}
+            for group, s in hyper.items()
+        }
     return TrainState(
         eta1=f(arrays["eta1"]),
         eta2=f(arrays["eta2"]),
@@ -70,6 +82,7 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
         Sigma=f(arrays["Sigma"]),
         local_vars={k: f(v) for k, v in arrays["local_vars"].items()},
         opt_state=None if opt is None else i32(opt),
+        hyper_state=hyper,
         kmat={k: f(v) for k, v in arrays["kmat"].items()},
         rho=f(arrays["rho"]),
         step=i32(arrays["step"]),

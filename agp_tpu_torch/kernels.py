@@ -119,6 +119,17 @@ def fused_kind(kernel: Kernel):
     return FUSED_KINDS.get(type(kernel))
 
 
+def to_unconstrained(kernel: Kernel) -> Kernel:
+    """The kernel in the space the hyperparameter optimiser works in: the
+    log of every (positive) leaf, lengthscales and variance alike.  Inverse
+    of :func:`from_unconstrained`."""
+    return kernel.map(torch.log)
+
+
+def from_unconstrained(kernel: Kernel) -> Kernel:
+    return kernel.map(torch.exp)
+
+
 def replicate(kernel: Kernel, n_latent: int) -> Kernel:
     """Stack a kernel's fields with a leading latent axis [L, ...]."""
     return kernel.map(lambda p: torch.broadcast_to(p, (n_latent,) + p.shape).clone())

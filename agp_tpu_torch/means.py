@@ -1,5 +1,9 @@
 """Prior mean functions: the counterpart of ``ZeroMean``, ``ConstantMean``
-and ``batch_call`` in ``agp_tpu/means.py``."""
+and ``batch_call`` in ``agp_tpu/means.py``.
+
+A mean's tensor fields (``leaves()``) are what the hyperparameter step
+updates, unconstrained: ``ConstantMean.c`` ([L] once replicated over the
+latents); ``ZeroMean`` has none."""
 from __future__ import annotations
 
 import dataclasses

@@ -6,7 +6,10 @@ port so far takes the squared-exponential and Matern 1/2, 3/2, 5/2
 kernels, the single-latent likelihoods of ``fused_cavi_stats`` (logistic,
 Gaussian with fixed noise, Student-t, Laplace, Matern-3/2 noise, Bayesian
 SVM, Poisson, negative binomial), the logistic-softmax and heteroscedastic
-likelihoods, and fixed hyperparameters (``optimiser=None``).
+likelihoods, and the reference's hyperparameter learning: by default Adam(0.01)
+on the log kernel parameters and the prior mean's parameters, optionally a
+``Zoptimiser`` on the inducing points (``training/autotuning.py``), or
+fixed hyperparameters (``optimiser=None``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..likelihoods.regression import (
     StudentTLikelihood,
 )
 from ..means import ConstantMean, PriorMean, ZeroMean
+from ..utils.opt import GradientTransformation, adam
 from ..utils.tensors import Params
 from .base import as_2d, check_implemented, prepare_components
 
@@ -58,6 +62,7 @@ class SVGP(Params):
     n_latent: int
     atfrequency: int = 1
     optimiser: Optional[Any] = None
+    Zoptimiser: Optional[Any] = None
 
     is_sparse = True
     is_multioutput = False
@@ -72,6 +77,7 @@ class SVGP(Params):
         Z,
         mean=None,
         optimiser="default",
+        Zoptimiser=None,
         atfrequency: int = 1,
     ):
         """Data-free constructor; data is given to ``train``.  The kernel's,
@@ -80,13 +86,20 @@ class SVGP(Params):
         ``config.default_device()``: the CUDA card unless the CPU was
         chosen.
 
-        Only ``optimiser=None`` (fixed hyperparameters) is ported: the
-        hyperparameter step is not, so any optimiser, the reference's
-        default Adam included, raises ``NotImplementedError``."""
-        if optimiser is not None:
-            raise NotImplementedError(
-                "the hyperparameter step is not ported yet: pass optimiser=None"
-            )
+        ``optimiser`` learns the kernel's (log) and the mean's parameters
+        every ``atfrequency`` CAVI steps: "default" is the reference's
+        ``adam(0.01)``, None keeps them fixed, or a
+        ``utils.opt.GradientTransformation``.  ``Zoptimiser`` (None, or a
+        ``GradientTransformation``) learns the inducing points too.  Any
+        other optimiser (an optax one, say) raises ``NotImplementedError``."""
+        if optimiser == "default":
+            optimiser = adam(0.01)
+        for opt, what in ((optimiser, "optimiser"), (Zoptimiser, "Zoptimiser")):
+            if opt is not None and not isinstance(opt, GradientTransformation):
+                raise NotImplementedError(
+                    f"{what} {opt!r} is not ported: pass None, 'default' (optimiser only) or a "
+                    "GradientTransformation of agp_tpu_torch.utils.opt (adam)"
+                )
         for obj, ported, what in (
             (kernel, _PORTED_KERNELS, "kernel"),
             (likelihood, _PORTED_LIKELIHOODS, "likelihood"),
@@ -115,7 +128,8 @@ class SVGP(Params):
             inference=inference,
             n_latent=n_latent,
             atfrequency=atfrequency,
-            optimiser=None,
+            optimiser=optimiser,
+            Zoptimiser=Zoptimiser,
         )
 
     @property

@@ -14,10 +14,14 @@ statistics:
   - ``fused_cavi_stats_multiclass``: K latents, the logistic-softmax
     E-step; ``fused_cavi_stats_het``: the two latents of the
     heteroscedastic likelihood; both in ``csrc/fused_cavi_stats_multi.cu``;
-* the batched pair, for any number of latents and M up to 1,680, which
-  leaves the E-step to the caller: ``fused_kappa_moments_batched`` (kappa,
-  mf, vf; differentiable) and ``cavi_stats_batched`` (s1, S2 from kappa);
-  ``csrc/batched_pair.cu``.
+* the split pairs, which leave the E-step to the caller:
+  - the batched pair, for several latents and M up to 1,680:
+    ``fused_kappa_moments_batched`` (kappa, mf, vf; differentiable) and
+    ``cavi_stats_batched`` (s1, S2 from kappa); ``csrc/batched_pair.cu``;
+  - the single-latent split pair: ``fused_kappa`` (kappa, Ktilde;
+    differentiable; the caller forms mf and vf) and ``cavi_stats``;
+    ``csrc/kappa_single.cu``.
+  Both share their device code (``csrc/pair_core.cuh``).
 
 All take the four stationary gram kinds of ``KINDS``, whose formula the
 CUDA kernels share (``csrc/gram.cuh``).  On a CPU tensor a wrapper runs
@@ -50,9 +54,12 @@ from .linalg import _highest_precision
 from .special import LOG2, logcosh
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = tuple(_PKG / "csrc" / name for name in ("fused_cavi_stats.cu", "fused_cavi_stats_multi.cu", "batched_pair.cu"))
+_SOURCES = tuple(
+    _PKG / "csrc" / name
+    for name in ("fused_cavi_stats.cu", "fused_cavi_stats_multi.cu", "batched_pair.cu", "kappa_single.cu")
+)
 # headers the sources include: part of the build's hash
-_HEADERS = (_PKG / "csrc" / "gram.cuh",)
+_HEADERS = tuple(_PKG / "csrc" / name for name in ("gram.cuh", "pair_core.cuh"))
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -159,6 +166,12 @@ def _library() -> ctypes.CDLL:
     lib.agp_cavi_stats_blocks_per_sm.restype = i
     lib.agp_cavi_stats_batched.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.agp_cavi_stats_batched.restype = i
+    lib.agp_fused_kappa_smem_bytes.argtypes = [i, i]
+    lib.agp_fused_kappa_smem_bytes.restype = ctypes.c_size_t
+    lib.agp_fused_kappa.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.agp_fused_kappa.restype = i
+    lib.agp_cavi_stats.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.agp_cavi_stats.restype = i
     return lib
 
 
@@ -202,16 +215,46 @@ def _gram_from_r2(r2, variance, kind):
     raise ValueError(f"unknown kernel kind {kind!r}; the kinds are {KINDS}")
 
 
-def _sq_dist_chunked(x, z):
+class _SqDistChunked(torch.autograd.Function):
     """r2 [L, B, M] = sum_d (x[l, b, d] - z[l, m, d])^2 by direct
     differences, accumulated over feature chunks of ``_FEATURE_CHUNK`` as
-    the kernels do, so memory is [L, B, M, _FEATURE_CHUNK] whatever D."""
-    r2 = None
-    for lo in range(0, x.shape[-1], _FEATURE_CHUNK):
-        diff = x[:, :, None, lo:lo + _FEATURE_CHUNK] - z[:, None, :, lo:lo + _FEATURE_CHUNK]
-        part = torch.sum(diff * diff, dim=-1)
-        r2 = part if r2 is None else r2 + part
-    return r2
+    the kernels do, so the forward holds [L, B, M, _FEATURE_CHUNK] whatever
+    D.  Its gradient is the closed form of r2's, with G the cotangent:
+    dx = 2 (rowsum(G) x - G z), dz = 2 (colsum(G) z - G^T x), so the
+    backward holds [L, B, M] and keeps no difference."""
+
+    @staticmethod
+    def forward(ctx, x, z):
+        ctx.save_for_backward(x, z)
+        r2 = None
+        for lo in range(0, x.shape[-1], _FEATURE_CHUNK):
+            diff = x[:, :, None, lo:lo + _FEATURE_CHUNK] - z[:, None, :, lo:lo + _FEATURE_CHUNK]
+            part = torch.sum(diff * diff, dim=-1)
+            r2 = part if r2 is None else r2 + part
+        return r2
+
+    @staticmethod
+    @_highest_precision
+    def backward(ctx, G):
+        x, z = ctx.saved_tensors
+        dx = 2.0 * (G.sum(-1, keepdim=True) * x - G @ z) if ctx.needs_input_grad[0] else None
+        dz = 2.0 * (G.sum(-2)[..., None] * z - G.mT @ x) if ctx.needs_input_grad[1] else None
+        return dx, dz
+
+
+def _sq_dist_chunked(x, z):
+    """r2 [L, B, M] of x [L, B, D] against z [L, M, D]: ``_SqDistChunked``."""
+    return _SqDistChunked.apply(x, z)
+
+
+def _kappa_ktilde(x, z, kinv, var, jitt, kind):
+    """(kappa [L, B, M], Ktilde [L, B], Knm [L, B, M]) from the scaled inputs
+    x [L, B, D], z [L, M, D], K^-1 [L, M, M] and the variances var [L]: the
+    plain math of kernels 4 and 6."""
+    knm = _gram_from_r2(_sq_dist_chunked(x, z), var[:, None, None], kind)
+    kappa = knm @ kinv
+    ktilde = torch.clamp(var[:, None] + jitt - torch.sum(kappa * knm, dim=-1), min=1e-12)
+    return kappa, ktilde, knm
 
 
 @_highest_precision
@@ -224,12 +267,9 @@ def fused_kappa_moments_batched_reference(X, Z, L_invT, ls, var, mu, Sigma, jitt
     L, _, D = Z.shape
     ls2 = torch.broadcast_to(torch.as_tensor(ls, dtype=X.dtype, device=X.device).reshape(L, -1), (L, D))
     var = torch.broadcast_to(torch.as_tensor(var, dtype=X.dtype, device=X.device).reshape(-1), (L,))
-    kinv = _kinv(L_invT)
     x = X[None] / ls2[:, None, :]  # [L, B, D]
     z = Z / ls2[:, None, :]  # [L, M, D]
-    knm = _gram_from_r2(_sq_dist_chunked(x, z), var[:, None, None], kind)  # [L, B, M]
-    kappa = knm @ kinv
-    ktilde = torch.clamp(var[:, None] + jitt - torch.sum(kappa * knm, dim=-1), min=1e-12)
+    kappa, ktilde, _ = _kappa_ktilde(x, z, _kinv(L_invT), var, jitt, kind)
     mf = (kappa @ mu[..., None])[..., 0]
     vf = torch.clamp(ktilde + torch.sum((kappa @ Sigma) * kappa, dim=-1), min=1e-12)
     return kappa, mf, vf
@@ -619,24 +659,31 @@ def _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
     return kappa, mf, vf
 
 
+def _plain_vjp(ctx, plain, cts, n_static):
+    """The backward of a kernel's ``torch.autograd.Function``: the vjp of its
+    plain version ``plain`` at the saved inputs, as the reference's
+    custom_vjp runs through its XLA twin; ``n_static`` trailing arguments
+    (the jitter, the kind) get no gradient."""
+    inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        outs = plain(*inputs, *ctx.static)
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(torch.autograd.grad(outs, wanted, cts, allow_unused=True))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * n_static
+
+
 class _KappaMomentsBatched(torch.autograd.Function):
-    """Kernel 4 forward; the backward is the vjp of the plain version, as
-    the reference's custom_vjp runs through its XLA twin."""
+    """Kernel 4 forward; the backward is the vjp of the plain version."""
 
     @staticmethod
     def forward(ctx, X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
         ctx.save_for_backward(X, Z, L_invT, ls2, var, mu, Sigma)
-        ctx.jitt, ctx.kind = jitt, kind
+        ctx.static = (jitt, kind)
         return _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind)
 
     @staticmethod
     def backward(ctx, *cts):
-        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            outs = fused_kappa_moments_batched_reference(*inputs, ctx.jitt, ctx.kind)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(outs, wanted, cts, allow_unused=True))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None, None)
+        return _plain_vjp(ctx, fused_kappa_moments_batched_reference, cts, 2)
 
 
 def fused_kappa_moments_batched(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rbf"):
@@ -669,24 +716,15 @@ def fused_kappa_moments_batched(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rb
 fused_kappa_moments_batched.launches = 0
 
 
-def cavi_stats_batched(kappa, g, theta):
-    """s1[l] = kappa[l]^T g[l] [L, M] and S2[l] = kappa[l]^T diag(theta[l])
-    kappa[l] [L, M, M] of every latent (kernel 5 of the batched pair).
-    kappa [L, B, M], g and theta [L, B].
-
-    A CPU tensor runs :func:`cavi_stats_batched_reference`.  A CUDA tensor
-    launches the kernel (float32, any L, B, M >= 1) and adds one to
-    ``cavi_stats_batched.launches``.  S2 comes out exactly symmetric."""
-    if kappa.device.type == "cpu":
-        return cavi_stats_batched_reference(kappa, g, theta)
-    if kappa.device.type != "cuda":
-        raise ValueError(f"cavi_stats_batched runs on CPU or CUDA tensors, got {kappa.device}")
-    name = "cavi_stats_batched"
-    if kappa.ndim != 3:
-        raise ValueError(f"kappa must be [L, B, M], got shape {tuple(kappa.shape)}")
-    L, B, M = kappa.shape
-    _check_tensors(kappa, {"kappa": (kappa, (L, B, M)), "g": (g, (L, B)), "theta": (theta, (L, B))})
-    if L < 1 or B < 1 or M < 1:
+def _stats_launch(name, lib_fn, kappa, g, theta, L):
+    """Kernel 5's statistics of kappa [L, B, M] (``lib_fn`` the batched C
+    entry point, L latents) or of kappa [B, M] (kernel 7's, one latent), g
+    and theta of kappa's leading shape: checks, one wave of row chunks, the
+    scratch, the launch.  Returns (s1, S2) of the leading shape."""
+    lead = tuple(kappa.shape[:-1])
+    B, M = lead[-1], kappa.shape[-1]
+    _check_tensors(kappa, {"kappa": (kappa, lead + (M,)), "g": (g, lead), "theta": (theta, lead)})
+    if B < 1 or M < 1 or L < 1:
         raise ValueError(f"the CUDA {name} takes L, B, M >= 1; got L={L}, B={B}, M={M}")
     dev = kappa.device
     lib = _library()
@@ -701,16 +739,161 @@ def cavi_stats_batched(kappa, g, theta):
     nchunks = -(-B // rows)
     f32 = dict(dtype=torch.float32, device=dev)
     s1_part, s2_part = torch.empty((L, nchunks, M), **f32), torch.empty((L, nchunks, M, M), **f32)
-    s1, S2 = torch.empty((L, M), **f32), torch.empty((L, M, M), **f32)
+    s1, S2 = torch.empty(lead[:-1] + (M,), **f32), torch.empty(lead[:-1] + (M, M), **f32)
+    ints = (B, M, L) if len(lead) == 2 else (B, M)
     with torch.cuda.device(dev):
-        err = lib.agp_cavi_stats_batched(
-            *(t.data_ptr() for t in (kappa, g, theta, s1_part, s2_part, s1, S2)),
-            B, M, L, nchunks, rows, torch.cuda.current_stream(dev).cuda_stream,
-        )
+        err = lib_fn(*(t.data_ptr() for t in (kappa, g, theta, s1_part, s2_part, s1, S2)), *ints, nchunks, rows,
+                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise _cuda_error(name, lib, err)
-    cavi_stats_batched.launches += 1
     return s1, S2
 
 
+def cavi_stats_batched(kappa, g, theta):
+    """s1[l] = kappa[l]^T g[l] [L, M] and S2[l] = kappa[l]^T diag(theta[l])
+    kappa[l] [L, M, M] of every latent (kernel 5 of the batched pair).
+    kappa [L, B, M], g and theta [L, B].
+
+    A CPU tensor runs :func:`cavi_stats_batched_reference`.  A CUDA tensor
+    launches the kernel (float32, any L, B, M >= 1) and adds one to
+    ``cavi_stats_batched.launches``.  S2 comes out exactly symmetric."""
+    if kappa.device.type == "cpu":
+        return cavi_stats_batched_reference(kappa, g, theta)
+    if kappa.device.type != "cuda":
+        raise ValueError(f"cavi_stats_batched runs on CPU or CUDA tensors, got {kappa.device}")
+    if kappa.ndim != 3:
+        raise ValueError(f"kappa must be [L, B, M], got shape {tuple(kappa.shape)}")
+    out = _stats_launch("cavi_stats_batched", _library().agp_cavi_stats_batched, kappa, g, theta, kappa.shape[0])
+    cavi_stats_batched.launches += 1
+    return out
+
+
 cavi_stats_batched.launches = 0
+
+
+# ------------------------------------------------ the single-latent split pair
+@_highest_precision
+def _fused_kappa_from_kinv(X, Z, kinv, ls, var, jitt, kind):
+    """(kappa [B, M], Ktilde [B]) from K^-1 [M, M]: the plain math of
+    kernel 6, with ls a number, [] or [D] and var a number or []."""
+    ls = torch.as_tensor(ls, dtype=X.dtype, device=X.device)
+    var = torch.as_tensor(var, dtype=X.dtype, device=X.device).reshape(1)
+    kappa, ktilde, _ = _kappa_ktilde((X / ls)[None], (Z / ls)[None], kinv[None], var, jitt, kind)
+    return kappa[0], ktilde[0]
+
+
+def fused_kappa_reference(X, Z, L_invT, lengthscale, variance, jitt, kind="rbf"):
+    """Plain PyTorch version of :func:`fused_kappa`, in the inputs' dtype, on
+    their device: the reference's ``_kappa_xla_twin`` with the gram by
+    direct differences over feature chunks (``_sq_dist_chunked``)."""
+    return _fused_kappa_from_kinv(X, Z, _kinv(L_invT), lengthscale, variance, jitt, kind)
+
+
+def _fused_kappa_launch(X, Z, kinv, ls, var, jitt, kind):
+    """Checks and launches kernel 6 on CUDA tensors; ls [D] and var [] are
+    tensors.  Returns (kappa, Ktilde)."""
+    name = "fused_kappa"
+    _check_kind(name, kind)
+    B, D = X.shape
+    M = Z.shape[0]
+    _check_tensors(X, {"X": (X, (B, D)), "Z": (Z, (M, D)), "K^-1": (kinv, (M, M))})
+    if B < 1 or D < 1 or M < 1:
+        raise ValueError(f"the CUDA {name} takes B, D, M >= 1; got B={B}, D={D}, M={M}")
+    dev = X.device
+    lib = _library()
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
+    tb = next((t for t in _BATCHED_TILE_ROWS if lib.agp_fused_kappa_smem_bytes(M, t) <= limit), None)
+    if tb is None:
+        raise ValueError(
+            f"the CUDA {name} at M={M} needs {lib.agp_fused_kappa_smem_bytes(M, _BATCHED_TILE_ROWS[-1])} bytes "
+            f"of shared memory; this card allows {limit} per block"
+        )
+    params = _multi_params(X, 1, jitt, 0.0, 0.0, ls, var)
+    f32 = dict(dtype=torch.float32, device=dev)
+    kappa, ktilde = torch.empty((B, M), **f32), torch.empty((B,), **f32)
+    with torch.cuda.device(dev):
+        err = lib.agp_fused_kappa(
+            *(t.data_ptr() for t in (X, Z, kinv, params, kappa, ktilde)),
+            B, D, M, KINDS.index(kind), tb, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise _cuda_error(name, lib, err)
+    fused_kappa.launches += 1
+    return kappa, ktilde
+
+
+class _FusedKappa(torch.autograd.Function):
+    """Kernel 6 forward from K^-1 (so that autograd carries K^-1's gradient
+    on to L^-T through ``_kinv``); the backward is the plain version's vjp."""
+
+    @staticmethod
+    def forward(ctx, X, Z, kinv, ls, var, jitt, kind):
+        ctx.save_for_backward(X, Z, kinv, ls, var)
+        ctx.static = (jitt, kind)
+        return _fused_kappa_launch(X, Z, kinv, ls, var, jitt, kind)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return _plain_vjp(ctx, _fused_kappa_from_kinv, cts, 2)
+
+
+def fused_kappa(X, Z, L_invT, lengthscale, variance, jitt, kind="rbf"):
+    """kappa = Knm K^-1 [B, M] and Ktilde = max(var + jitt - rowsum(kappa o
+    Knm), 1e-12) [B] of one latent (kernel 6, the first of the
+    single-latent split pair).
+
+    X [B, D]; Z [M, D]; L_invT [M, M] = (chol(Kmm)^-1)^T; lengthscale a
+    number, [] or [D] (ARD); variance a number or []; jitt a number; kind of
+    ``KINDS``.  Differentiable in every tensor argument.
+
+    A CPU tensor runs :func:`fused_kappa_reference`.  A CUDA tensor launches
+    the kernel (float32, any B, D >= 1, M up to what a block's shared memory
+    holds: at least 1,680 on an H100) and adds one to
+    ``fused_kappa.launches``; ls, var and the jitter reach it in a device
+    buffer, so a changing lengthscale costs no host read.  Its backward runs
+    the plain version's vjp."""
+    if X.device.type == "cpu":
+        return fused_kappa_reference(X, Z, L_invT, lengthscale, variance, jitt, kind)
+    if X.device.type != "cuda":
+        raise ValueError(f"fused_kappa runs on CPU or CUDA tensors, got {X.device}")
+    if L_invT.device != X.device or L_invT.ndim != 2:
+        raise ValueError(f"L_invT must be [M, M] on {X.device}")
+    ls = torch.broadcast_to(torch.as_tensor(lengthscale, dtype=X.dtype, device=X.device).reshape(-1), X.shape[1:])
+    var = torch.as_tensor(variance, dtype=X.dtype, device=X.device).reshape(())
+    args = (X, Z, _kinv(L_invT), ls, var)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedKappa.apply(*args, jitt, kind)
+    return _fused_kappa_launch(*args, jitt, kind)
+
+
+fused_kappa.launches = 0
+
+
+@_highest_precision
+def cavi_stats_reference(kappa, g, theta):
+    """Plain PyTorch version of :func:`cavi_stats`: s1 [M] = kappa^T g and
+    S2 [M, M] = kappa^T diag(theta) kappa."""
+    return kappa.T @ g, (kappa * theta[:, None]).T @ kappa
+
+
+def cavi_stats(kappa, g, theta):
+    """s1 = kappa^T g [M] and S2 = kappa^T diag(theta) kappa [M, M] of one
+    latent (kernel 7, the second of the single-latent split pair).
+    kappa [B, M], g and theta [B].
+
+    A CPU tensor runs :func:`cavi_stats_reference`.  A CUDA tensor launches
+    the kernel (float32, any B, M >= 1: kernel 5's device code with one
+    latent, its partial sums added in a fixed order, no atomics) and adds
+    one to ``cavi_stats.launches``.  S2 comes out exactly symmetric."""
+    if kappa.device.type == "cpu":
+        return cavi_stats_reference(kappa, g, theta)
+    if kappa.device.type != "cuda":
+        raise ValueError(f"cavi_stats runs on CPU or CUDA tensors, got {kappa.device}")
+    if kappa.ndim != 2:
+        raise ValueError(f"kappa must be [B, M], got shape {tuple(kappa.shape)}")
+    out = _stats_launch("cavi_stats", _library().agp_cavi_stats, kappa, g, theta, 1)
+    cavi_stats.launches += 1
+    return out
+
+
+cavi_stats.launches = 0

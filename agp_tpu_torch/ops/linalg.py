@@ -47,16 +47,29 @@ def _ladder_cholesky(A: torch.Tensor, jitters: torch.Tensor) -> torch.Tensor:
 
     All R factorizations run as one batch; the selection is a gather, so the
     call stays on the device.  When no rung succeeds the result is NaN, as
-    the reference's factorization of the last rung is."""
+    the reference's factorization of the last rung is.
+
+    Under autograd (A requires grad) the ladder runs on a detached copy and
+    only the chosen rung is factored again, differentiably, as the
+    reference differentiates only its chosen rung: a failed rung's factor
+    holds NaN, and its backward would put NaN into A's gradient even with a
+    zero cotangent.  The jitter itself is a constant.  No host read either
+    way."""
     R = jitters.shape[0]
-    Aj = A.unsqueeze(0) + jitters[..., None, None] * _eye_like(A)
-    L, info = torch.linalg.cholesky_ex(Aj)
-    ok = (info == 0) & torch.isfinite(L).all(-1).all(-1)  # [R, ...]
-    first = torch.where(
-        ok.any(0), ok.to(torch.int32).argmax(0), torch.full_like(info[0], R - 1)
-    )
-    idx = first.reshape((1,) + first.shape + (1, 1)).to(torch.int64)
-    L = torch.take_along_dim(L, idx, dim=0)[0]
+    differentiable = torch.is_grad_enabled() and A.requires_grad
+    eye = _eye_like(A)
+    with torch.no_grad():
+        Aj = A.detach().unsqueeze(0) + jitters.detach()[..., None, None] * eye
+        L, info = torch.linalg.cholesky_ex(Aj)
+        ok = (info == 0) & torch.isfinite(L).all(-1).all(-1)  # [R, ...]
+        first = torch.where(
+            ok.any(0), ok.to(torch.int32).argmax(0), torch.full_like(info[0], R - 1)
+        ).to(torch.int64)
+    if differentiable:
+        j = torch.take_along_dim(jitters.detach(), first[None], dim=0)[0]
+        L = torch.linalg.cholesky_ex(A + j[..., None, None] * eye).L
+    else:
+        L = torch.take_along_dim(L, first.reshape((1,) + first.shape + (1, 1)), dim=0)[0]
     return torch.where(ok.any(0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 

@@ -27,6 +27,9 @@ class TrainState(Params):
     local_vars: Any = None
     # optimiser state of the stochastic natural-gradient steps
     opt_state: Any = None
+    # optimiser states of the hyperparameter groups {"kernel", "mean"[, "Z"]}
+    # (training/autotuning.py), None for fixed hyperparameters
+    hyper_state: Any = None
     # cached kernel matrices {"L_K", "K_inv", "L_inv"}, each [L, M, M]
     kmat: Any = None
     # minibatch scaling rho = N / batchsize

@@ -1,11 +1,14 @@
-"""Training loop: the counterpart of the stochastic-CAVI fast path of
-``agp_tpu/training/train.py``.
+"""Training loop: the counterpart of ``train`` in
+``agp_tpu/training/train.py``: its fast path and its hyperparameter branch.
 
 A step is: draw a minibatch, run ``variational_update``, count the step.
 Minibatch indices come from an explicit ``torch.Generator`` on the data's
 device, drawn for a whole chunk of steps at once; the steps then run as a
-plain Python loop with no host sync.  ``vi_steps`` also takes the indices
-from the caller (``draws``), so that a run can replay another's minibatches.
+plain Python loop with no host sync.  ``vi_steps`` and ``train`` also take
+the indices from the caller (``draws``), so that a run can replay
+another's minibatches.  A model with an optimiser interleaves a
+hyperparameter step (``training/autotuning.py``) on the same minibatch
+after every ``atfrequency``-th CAVI step, as the reference does.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from ..inference import analytic_vi
 from ..models.base import as_2d, match_dtype, to_tensor
+from . import autotuning
 from .state import TrainState, init_var_posterior
 
 # steps whose minibatch indices are drawn in one call
@@ -35,6 +39,7 @@ def init_state(model, X, y=None) -> TrainState:
         **post,
         local_vars=model.likelihood.init_local_vars(batch, dtype, device),
         opt_state=opt_state,
+        hyper_state=autotuning.init_hyper_state(model),
         kmat=analytic_vi.compute_kmat(model, X),
         rho=torch.full((), N / batch if inf.stochastic else 1.0, dtype=dtype, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device),
@@ -137,47 +142,53 @@ def _default_generator(device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(0)
 
 
-def vi_steps(model, state: TrainState, X, y, n: int, draws=None, generator=None):
-    """n CAVI iterations; returns (model, state).
-
-    ``draws`` gives the minibatches explicitly, one row per step, on X's
-    device: [n, B/tile] tile indices for "block" sampling, [n, B] row
-    indices for "gather", [n] start rows for "slice".  Without it the
-    indices are drawn with ``generator`` (a generator on X's device; seed 0
-    when None)."""
-    tiled = None
-    mode = None
-    if model.inference.stochastic:
-        mode, shape = _sampling(model, X.shape[0])
-        if mode == "block":
-            b = model.inference.batchsize
-            tiled = _tile_views(X, y, b // shape[0])
-        if draws is None:
-            gen = _default_generator(X.device) if generator is None else generator
-            mode, draws = _precomputed_draws(model, X, n, gen)
-        elif tuple(draws.shape) != (n,) + shape or draws.device != X.device:
-            raise ValueError(
-                f"draws for {mode!r} sampling must have shape {(n,) + shape} "
-                f"on {X.device}; got {tuple(draws.shape)} on {draws.device}"
-            )
+def _minibatches(model, X, y, n: int, draws=None, generator=None):
+    """The minibatches (x_b, y_b) of n steps, in order: from ``draws``, one
+    row per step on X's device ([n, B/tile] tile indices for "block"
+    sampling, [n, B] row indices for "gather", [n] start rows for
+    "slice"), or drawn with ``generator`` (a generator on X's device; seed
+    0 when None) in one call; (X, y) itself for a non-stochastic model."""
+    if not model.inference.stochastic:
+        for _ in range(n):
+            yield X, y
+        return
+    mode, shape = _sampling(model, X.shape[0])
+    tiled = _tile_views(X, y, model.inference.batchsize // shape[0]) if mode == "block" else None
+    if draws is None:
+        gen = _default_generator(X.device) if generator is None else generator
+        mode, draws = _precomputed_draws(model, X, n, gen)
+    elif tuple(draws.shape) != (n,) + shape or draws.device != X.device:
+        raise ValueError(
+            f"draws for {mode!r} sampling must have shape {(n,) + shape} "
+            f"on {X.device}; got {tuple(draws.shape)} on {draws.device}"
+        )
     for i in range(n):
-        if mode is None:
-            x_b, y_b = X, y
-        else:
-            x_b, y_b = _draw_from_idx(model, X, y, tiled, mode, draws[i])
+        yield _draw_from_idx(model, X, y, tiled, mode, draws[i])
+
+
+def vi_steps(model, state: TrainState, X, y, n: int, draws=None, generator=None):
+    """n CAVI iterations; returns (model, state).  ``draws`` and
+    ``generator`` give the minibatches as ``_minibatches`` takes them."""
+    for x_b, y_b in _minibatches(model, X, y, n, draws, generator):
         model, state = analytic_vi.variational_update(model, state, x_b, y_b)
         state = state.replace(step=state.step + 1)
     return model, state
 
 
-def train(model, X, y, iterations: int = 100, state: TrainState | None = None, generator=None):
+def train(model, X, y, iterations: int = 100, state: TrainState | None = None, generator=None, draws=None):
     """Train ``model`` for ``iterations`` CAVI steps on (X, y); returns
     (model, state) with the kernel matrices refreshed for prediction.
 
     X [N, D] and y [N] live on the device the run uses: arrays without a
     device (numpy, lists) go to the model's device (``model.Z``), floating
     ones in its dtype.  ``generator`` (on that device) draws the
-    minibatches, seed 0 when None."""
+    minibatches, seed 0 when None; ``draws`` ([iterations, ...], as
+    ``vi_steps`` takes them) gives them instead.
+
+    With ``model.optimiser`` set, iteration i (from 1) is followed by a
+    hyperparameter step on its own minibatch when i is a multiple of
+    ``model.atfrequency``, i >= 3 and i is not the last, as the reference's
+    loop does; without one, the steps run back to back."""
     X = as_2d(X, like=model.Z)
     y_has_device = isinstance(y, torch.Tensor)
     y, lik = model.likelihood.treat_labels(y)
@@ -198,7 +209,12 @@ def train(model, X, y, iterations: int = 100, state: TrainState | None = None, g
         done = 0
         while done < iterations:
             n = min(_CHUNK, iterations - done)
-            model, state = vi_steps(model, state, X, y, n, generator=generator)
+            chunk = None if draws is None else draws[done:done + n]
+            for i, (x_b, y_b) in enumerate(_minibatches(model, X, y, n, chunk, generator), start=done + 1):
+                model, state = analytic_vi.variational_update(model, state, x_b, y_b)
+                state = state.replace(step=state.step + 1)
+                if model.optimiser is not None and i % model.atfrequency == 0 and i >= 3 and i != iterations:
+                    model, state = autotuning.hyper_step(model, state, x_b, y_b)
             done += n
     except KeyboardInterrupt:
         warnings.warn("training interrupted by user; returning current state")

@@ -1,11 +1,13 @@
-"""Step-size rules for the stochastic natural-gradient update: the
-counterpart of ``ascent_update`` and ``robbins_monro`` in
-``agp_tpu/utils/opt.py``.
+"""Step-size rules and optimisers: the counterpart of ``ascent_update`` and
+``robbins_monro`` in ``agp_tpu/utils/opt.py`` and of ``optax.adam``, the
+reference's default hyperparameter optimiser.
 
 optax is JAX-only, so the port carries a minimal rule protocol of its own:
 a rule is an (init, update) pair, ``init(params) -> state`` and
 ``update(updates, state) -> (scaled_updates, new_state)``, in optax's
 descent convention (the returned updates are added to the parameters).
+``robbins_monro`` takes a tuple of tensors, ``adam`` a tensor or a dict of
+them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,14 @@ import torch
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf to a tensor or a dict of tensors, and to
+    the trees of the same structure in ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def ascent_update(opt: GradientTransformation, opt_state, params, grads):
@@ -42,3 +52,39 @@ def robbins_monro(kappa: float = 0.51, tau: float = 1.0) -> GradientTransformati
         return tuple(-u * scale for u in updates), state + 1
 
     return GradientTransformation(init_fn, update_fn)
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    """Adam with optax's semantics (``optax.adam(lr, b1, b2, eps)``):
+    mu <- b1 mu + (1 - b1) g, nu <- b2 nu + (1 - b2) g^2, the count n + 1,
+    and the update -lr mu_hat / (sqrt(nu_hat) + eps) with the bias
+    corrections mu_hat = mu / (1 - b1^n), nu_hat = nu / (1 - b2^n).  The
+    state is {"count": int32, "mu": ..., "nu": ...}, all on the parameters'
+    device; the corrections are computed there, in the moments' dtype (as
+    optax under x64 computes them in float64), so a step reads nothing back
+    to the host."""
+
+    def init_fn(params):
+        leaves = list(params.values()) if isinstance(params, dict) else [params]
+        device = leaves[0].device if leaves else None  # no leaf (ZeroMean): the count stays on the CPU
+        return {
+            "count": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params),
+        }
+
+    def update_fn(updates, state):
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, updates, state["mu"])
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, updates, state["nu"])
+        count = state["count"] + 1
+
+        def step(m, v):
+            n = count.to(m.dtype)
+            m_hat = m / (1 - torch.pow(b1, n))
+            v_hat = v / (1 - torch.pow(b2, n))
+            return -lr * (m_hat / (torch.sqrt(v_hat) + eps))
+
+        return tree_map(step, mu, nu), {"count": count, "mu": mu, "nu": nu}
+
+    return GradientTransformation(init_fn, update_fn)
+

@@ -30,6 +30,15 @@ class Params:
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
+    def leaves(self) -> dict:
+        """{field name: tensor} of the tensor fields (what an optimiser
+        updates); ``replace(**leaves)`` puts them back."""
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if f.init and isinstance(getattr(self, f.name), torch.Tensor)
+        }
+
     def map(self, fn):
         """A copy with ``fn`` applied to every tensor leaf."""
         return dataclasses.replace(

@@ -51,24 +51,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    oracle configuration, there against each path's own float32 noise and
    against the card with the plain version in the kernel's place (see
    ORACLE_DEVICE_FACTOR);
-12. the batched pair (kernels 4-5, M > 128) against its plain versions at
-   the M=512 paths' shapes (float64 at the ill-conditioned ones), ragged
-   B=300, M=129 with 1-3 latents and each Matern kind, timed beside the
-   plain versions and torch.bmm; kernel 4's autograd;
-13. logistic_m512_b65536 (bench.py: N=500,000, D=20, M=512, B=65,536),
-   the reference's M=512 multiclass (K=3) and heteroscedastic oracles and
-   its seven single-latent oracles at M=512, each with one launch of
-   kernel 4 and of kernel 5 a step and its floor;
-14. the pair's parity: 20 steps of each path of phase 13, at B=2048, on
-   the card against the CPU, each against its own float32 noise.
+12. the batched pair (kernels 4-5, several latents) and the single-latent
+   split pair (kernels 6-7, one latent beyond the fused range) against
+   their plain versions at the M=512 paths' shapes (float64 at the
+   ill-conditioned ones), ragged B=300, M=129 (kernels 4-5 with 1-3
+   latents) and each Matern kind, timed beside the plain versions and
+   torch.bmm / torch.matmul; kernel 4's and kernel 6's autograd;
+13. logistic_m512_b65536 (bench.py: N=500,000, D=20, M=512, B=65,536) and
+   the reference's seven single-latent oracles at M=512, each with one
+   launch of kernel 6 and of kernel 7 a step, and the reference's M=512
+   multiclass (K=3) and heteroscedastic oracles, each with one launch of
+   kernel 4 and of kernel 5 a step, each with its floor;
+14. the pairs' parity: 20 steps of each path of phase 13, at B=2048, on
+   the card against the CPU, each against its own float32 noise;
+15. the hyperparameter step (the reference's default Adam(0.01) on the
+   kernel, every iteration): path A, the flagship (one launch of kernel 1
+   a step and of kernel 6 a hyperparameter step), and path B,
+   logistic_m512_b65536 (kernel 6 twice and kernel 7 once an iteration),
+   each with its floor, moved and finite log-hyperparameters and its
+   steady rate; then 20 iterations of each on the card against the CPU,
+   against each path's own float32 noise.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
 the kernels' JSON line, then the device JSON line last.
 
-Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``
-or ``profile multiclass`` (torch.profiler over 20 steps of an M=512
-path), ``moved-paths [ROOT]`` (a row-weighted step and elbo at fused-range
+Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``,
+``profile multiclass`` or ``profile hyper A|B`` (torch.profiler over 20
+steps of an M=512 path, or 20 iterations of path A or B with a
+hyperparameter step each), ``moved-paths [ROOT]`` (a row-weighted step and elbo at fused-range
 shapes, with agp_tpu_torch from ROOT when given).
 """
 from __future__ import annotations
@@ -159,6 +170,12 @@ L_TRAIN_STEPS, L_TIMED_STEPS = 50, 300
 PAIR_MC_B, PAIR_MC_STEPS, PAIR_HET_B, PAIR_HET_STEPS = 8192, 200, 16384, 100
 # the Student-t steady state at the flagship shape
 T_TIMED_STEPS = 1000
+# iterations (each with a hyperparameter step) of the steady rates of the
+# hyperparameter paths A (the flagship) and B (logistic_m512_b65536)
+A_TIMED_STEPS, B_TIMED_STEPS = 300, 60
+# the log-hyperparameters of paths A and B must move by more than this
+# (Adam(0.01) moves each by up to 0.01 a step)
+MIN_HYPER_MOVE = 1e-2
 # single-latent parity at the flagship's conditioning (N rows)
 PN = 20_000
 # card vs CPU (float32) after 20 steps for Student-t with the Matern-1/2
@@ -351,13 +368,13 @@ def flagship_data(device, n=N, seed=0):
     return torch.as_tensor(X, device=device), torch.as_tensor(y, device=device)
 
 
-def flagship_model(agt, X, b=B):
+def flagship_model(agt, X, b=B, optimiser=None):
     return agt.SVGP.create(
         agt.SqExponentialKernel(lengthscale=2.0, variance=1.0),
         agt.LogisticLikelihood.create(),
         agt.AnalyticSVI(b, minibatch_sampling="block"),
         X[:M],
-        optimiser=None,
+        optimiser=optimiser,
     )
 
 
@@ -372,9 +389,7 @@ def phase_main_path(agt, ck, device):
     model, state = agt.train(model, X, y, iterations=MAIN_STEPS, generator=gen)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = ck.fused_cavi_stats.launches
-    if launches != MAIN_STEPS:
-        raise AssertionError(f"{MAIN_STEPS} steps launched the kernel {launches} times")
+    launches = expect_launches(ck, "flagship", route_launches(MAIN_STEPS, "fused"))
     if not (bool(torch.isfinite(state.mu).all()) and bool(torch.isfinite(state.Sigma).all())):
         raise AssertionError("non-finite posterior after the main path")
     acc = float((agt.predict_y(model, state, X) == y).float().mean())
@@ -481,9 +496,7 @@ def phase_multi_path(agt, ck, device, which):
     model, state = agt.train(model, X, y, iterations=MAIN_STEPS, generator=gen)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = wrapper.launches
-    if launches != MAIN_STEPS:
-        raise AssertionError(f"{which}: {MAIN_STEPS} steps launched its kernel {launches} times")
+    launches = expect_launches(ck, which, route_launches(MAIN_STEPS, "fused", fused=wrapper.__name__))
     tensors = [state.mu, state.Sigma] + ([model.likelihood.lam] if which == "het" else [])
     if not all(bool(torch.isfinite(t).all()) for t in tensors):
         raise AssertionError(f"{which}: non-finite posterior or lambda after the main path")
@@ -821,7 +834,7 @@ def oracle_metric(agt, model, state, X, truth, metric):
 def phase_oracles(agt, ck, device, m=OM, floors=None, paths=None):
     """Each oracle path through agp_tpu_torch.train with m inducing points:
     OSTEPS steps, finite posterior (and lambda), its floor.  At m <= 128
-    each step launches kernel 1 once; beyond, kernels 4 and 5 once each and
+    each step launches kernel 1 once; beyond, kernels 6 and 7 once each and
     no fused kernel.  Returns (total launches of the path's kernels,
     {path: metric})."""
     floors = ORACLE_FLOORS if floors is None else floors
@@ -835,7 +848,8 @@ def phase_oracles(agt, ck, device, m=OM, floors=None, paths=None):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         name = f"{lik}/{kernel}"
-        launches = expect_launches(ck, OSTEPS, pair=m > ck.MAX_M, fused="fused_cavi_stats", label=f"oracle {name} M={m}")
+        launches = expect_launches(ck, f"oracle {name} M={m}",
+                                   route_launches(OSTEPS, "single" if m > ck.MAX_M else "fused"))
         total += launches
         tensors = [state.mu, state.Sigma] + ([model.likelihood.lam] if lik == "poisson" else [])
         if not all(bool(torch.isfinite(t).all()) for t in tensors):
@@ -852,18 +866,33 @@ def phase_oracles(agt, ck, device, m=OM, floors=None, paths=None):
     return total, results
 
 
-def expect_launches(ck, steps, pair, fused, label):
-    """Fails unless the run just made launched, per step, kernel 1, 2 or 3
-    (``fused``) once, or (``pair``) kernels 4 and 5 once each, and nothing
-    else.  Returns the path's launches (both kernels of the pair)."""
+def route_launches(steps, route, fused="fused_cavi_stats", hyper_steps=0):
+    """Each kernel's launches in ``steps`` CAVI steps on ``route`` ("fused":
+    kernel ``fused`` once a step; "single": kernels 6 and 7; "batched":
+    kernels 4 and 5) and ``hyper_steps`` hyperparameter steps of one latent
+    (kernel 6's forward once each; the backward launches nothing)."""
+    want = {"fused": {fused: steps}, "single": {"fused_kappa": steps, "cavi_stats": steps},
+            "batched": {"fused_kappa_moments_batched": steps, "cavi_stats_batched": steps}}[route]
+    if hyper_steps:
+        want["fused_kappa"] = want.get("fused_kappa", 0) + hyper_steps
+    return want
+
+
+# each kernel's launches over every main-path run of this process (the
+# kernels line's "launches")
+LAUNCHES = dict()
+
+
+def expect_launches(ck, label, want):
+    """Fails unless the run just made launched each kernel as many times as
+    ``want`` names (route_launches) and nothing else; adds them to
+    LAUNCHES and returns their sum."""
     counts = {name: getattr(ck, name).launches for name in LAUNCH_COUNTERS}
-    want = {name: 0 for name in LAUNCH_COUNTERS}
-    if pair:
-        want["fused_kappa_moments_batched"] = want["cavi_stats_batched"] = steps
-    else:
-        want[fused] = steps
-    if counts != want:
-        raise AssertionError(f"{label}: {steps} steps launched {counts}, expected {want}")
+    expected = {name: want.get(name, 0) for name in LAUNCH_COUNTERS}
+    if counts != expected:
+        raise AssertionError(f"{label}: launched {counts}, expected {expected}")
+    for name, n in counts.items():
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
     return sum(counts.values())
 
 
@@ -941,9 +970,9 @@ def big_logistic_data(device, n=LN, seed=0):
     return torch.as_tensor(X, device=device), torch.as_tensor(y, device=device)
 
 
-def big_logistic_model(agt, X, b=LB):
+def big_logistic_model(agt, X, b=LB, optimiser=None):
     return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(),
-                           agt.AnalyticSVI(b, minibatch_sampling="slice"), X[:PM], optimiser=None)
+                           agt.AnalyticSVI(b, minibatch_sampling="slice"), X[:PM], optimiser=optimiser)
 
 
 def pair_mc_data(device, seed=0):
@@ -993,8 +1022,10 @@ def plain_kernels(ck, names=("fused_cavi_stats",)):
             setattr(ck, name, fn)
 
 
+# the kernels of the split pairs: batched (4-5) and single-latent (6-7)
+SPLIT_PAIRS = ("fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats")
 LAUNCH_COUNTERS = ("fused_cavi_stats", "fused_cavi_stats_multiclass", "fused_cavi_stats_het",
-                   "fused_kappa_moments_batched", "cavi_stats_batched")
+                   "fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats")
 
 
 def reset_launches(ck):
@@ -1109,6 +1140,15 @@ def pair_bounds(b, d, m, n_latent):
     return k4, k5
 
 
+def single_bounds(b, d, m):
+    """Kernel 6: per row the gram (M D), kappa (M^2) and Ktilde's row sum
+    (M); reads X, Z, K^-1, ls, var, writes kappa and Ktilde.  Kernel 7: S2
+    (``sym_fmas``) and s1 (M); reads kappa, g, theta, writes s1, S2."""
+    k6 = bound(b * (m * d + m * m + m), 4 * (b * d + m * d + m * m + d + 1 + b * m + b))
+    k7 = bound(b * (sym_fmas(m) + m), 4 * (b * m + 2 * b + m + m * m))
+    return k6, k7
+
+
 def phase_pair_kernels_vs_plain(ck, device):
     """Kernels 4 and 5 against their plain versions at every case of
     pair_cases, then timed at the paths' shapes beside their plain
@@ -1117,7 +1157,7 @@ def phase_pair_kernels_vs_plain(ck, device):
     library ms})}."""
     worst = {"fused_kappa_moments_batched": 0.0, "cavi_stats_batched": 0.0}
     times = {"fused_kappa_moments_batched": {}, "cavi_stats_batched": {}}
-    library = {}
+    library = {"fused_kappa_moments_batched": {}, "cavi_stats_batched": {}}
     for label, t, f64, timed in pair_cases(device):
         got = call_k4(ck.fused_kappa_moments_batched, t)
         torch.cuda.synchronize()
@@ -1143,13 +1183,13 @@ def phase_pair_kernels_vs_plain(ck, device):
             g, th = t["g"], t["theta"]
             times["cavi_stats_batched"][label] = timed_pair(
                 lambda: ck.cavi_stats_batched(kappa, g, th), lambda: ck.cavi_stats_batched_reference(kappa, g, th), reps)
-            library[label] = cuda_ms(lambda: (torch.bmm((kappa * th[..., None]).mT, kappa), torch.bmm(kappa.mT, g[..., None])),
-                                     reps)
+            library["cavi_stats_batched"][label] = cuda_ms(
+                lambda: (torch.bmm((kappa * th[..., None]).mT, kappa), torch.bmm(kappa.mT, g[..., None])), reps)
             k4, k5 = times["fused_kappa_moments_batched"][label], times["cavi_stats_batched"][label]
             log(f"  {label}: kernel 4 {k4[0]:.4f} ms (plain {k4[1]:.4f}); kernel 5 {k5[0]:.4f} ms "
-                f"(plain {k5[1]:.4f}, torch.bmm {library[label]:.4f})")
+                f"(plain {k5[1]:.4f}, torch.bmm {library['cavi_stats_batched'][label]:.4f})")
         del got, ref, ref64, s_got, s_ref, s64
-    return {name: (worst[name], times[name], library) for name in worst}
+    return {name: (worst[name], times[name], library[name]) for name in worst}
 
 
 def phase_pair_autograd(ck, device):
@@ -1200,9 +1240,10 @@ MIN_PAIR_MC_ACC, MAX_PAIR_HET_RMSE = 0.85, 0.4
 
 def phase_big_logistic(agt, ck, device):
     """bench.py's logistic_m512_b65536 through agp_tpu_torch.train:
-    L_TRAIN_STEPS steps with one launch of each kernel of the pair, the
-    training accuracy, then steady-state iterations/s over L_TIMED_STEPS
-    steps.  Returns (launches, accuracy, it/s)."""
+    L_TRAIN_STEPS steps with one launch of each kernel of the single-latent
+    split pair (kernels 6-7), the training accuracy, then steady-state
+    iterations/s over L_TIMED_STEPS steps.  Returns (launches, accuracy,
+    it/s)."""
     from agp_tpu_torch.training.train import vi_steps
 
     X, y = big_logistic_data(device)
@@ -1213,7 +1254,7 @@ def phase_big_logistic(agt, ck, device):
     model, state = agt.train(model, X, y, iterations=L_TRAIN_STEPS, generator=gen)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = expect_launches(ck, L_TRAIN_STEPS, pair=True, fused=None, label="logistic_m512_b65536")
+    launches = expect_launches(ck, "logistic_m512_b65536", route_launches(L_TRAIN_STEPS, "single"))
     if not (bool(torch.isfinite(state.mu).all()) and bool(torch.isfinite(state.Sigma).all())):
         raise AssertionError("logistic_m512_b65536: non-finite posterior")
     acc = float((agt.predict_y(model, state, X) == y).float().mean())
@@ -1245,7 +1286,7 @@ def phase_pair_multi(agt, ck, device, which):
     model, state = agt.train(model, X, y, iterations=steps, generator=torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = expect_launches(ck, steps, pair=True, fused=None, label=f"{which} M={PM}")
+    launches = expect_launches(ck, f"{which} M={PM}", route_launches(steps, "batched"))
     if which == "multiclass":
         value = float((agt.predict_y(model, state, X[:4096]) == y[:4096]).float().mean())
         ok, what = value > MIN_PAIR_MC_ACC, f"accuracy {value:.4f} (floor {MIN_PAIR_MC_ACC})"
@@ -1300,7 +1341,7 @@ def phase_pair_parity(agt, ck, device):
         Xd, yd = Xc.to(device), yc.to(device)
         cpu = after_20(agt, build(Xc), Xc, yc, draws)
         card = after_20(agt, build(Xd), Xd, yd, draws)
-        with plain_kernels(ck, ("fused_kappa_moments_batched", "cavi_stats_batched")):
+        with plain_kernels(ck, SPLIT_PAIRS):
             card_plain = after_20(agt, build(Xd), Xd, yd, draws)
         m = build(Xc)
         mu_p, lam_p = after_20(agt, m.replace(Z=m.Z[:, perm].contiguous()), Xc, yc, draws)
@@ -1313,6 +1354,255 @@ def phase_pair_parity(agt, ck, device):
         log(f"{name} parity: 20 steps card (float32) vs CPU (float32) {err:.3e} (bound {tol:.3e}), vs the card "
             f"with the plain versions {err_kernel:.3e} (bound {tol_kernel:.3e}); CPU with Z reordered vs CPU {noise:.3e}; "
             f"{time.perf_counter() - t0:.2f} s")
+
+
+# ------------------------------------- the single-latent split pair (6-7)
+def single_args(t):
+    """Kernel 6's and 7's arguments from pair_inputs' one-latent tensors: X,
+    Z [M, D], L^-T [M, M], ls [D], var [], g and theta [B]."""
+    return {"X": t["X"], "Z": t["Z"][0].contiguous(), "L_invT": t["L_invT"][0].contiguous(), "ls": t["ls"][0],
+            "var": t["var"][0], "g": t["g"][0].contiguous(), "theta": t["theta"][0].contiguous(), "kind": t["kind"]}
+
+
+def call_k6(fn, s):
+    return fn(s["X"], s["Z"], s["L_invT"], s["ls"], s["var"], 1e-3, s["kind"])
+
+
+def single_cases(device):
+    """(label, kernel 6's and 7's inputs, float64 check, timed) of each shape
+    the single-latent split pair is held at: logistic_m512_b65536 (timed),
+    path A's hyperparameter step at the flagship shape (B=4096, D=20,
+    M=64, timed), the ill-conditioned M=512 oracle shape (timed, against
+    the float64 plain version), ragged B=300, M=129, and each Matern kind
+    at the ragged and the oracle shapes."""
+    Xl, _ = big_logistic_data("cpu", n=LB)
+    Xf, _ = flagship_data("cpu", n=B)
+    Xo = oracle_data("studentt", "cpu")[0]
+    cases = [("logistic_m512_b65536", pair_inputs(Xl, LB, PM, 1, device), False, True),
+             ("flagship_m64_b4096", pair_inputs(Xf, B, M, 1, device), False, True),
+             ("oracle_m512_b8192", pair_inputs(Xo, OB, PM, 1, device, ls=1.0), True, True),
+             ("ragged_m129", pair_inputs(Xl, 300, 129, 1, device, seed=1), False, False)]
+    cases += [(f"{k}_ragged_m129", pair_inputs(Xl, 300, 129, 1, device, kind=k), False, False) for k in MATERN_KINDS]
+    cases += [(f"{k}_oracle_m512", pair_inputs(Xo, OB, PM, 1, device, kind=k, ls=1.0), True, False)
+              for k in MATERN_KINDS]
+    return [(label, single_args(t), f64, timed) for label, t, f64, timed in cases]
+
+
+def phase_single_kernels_vs_plain(ck, device):
+    """Kernels 6 and 7 against their plain versions at every case of
+    single_cases (S2 exactly symmetric), then timed at the timed shapes
+    beside their plain versions, and kernel 7 beside torch.matmul for the
+    same two sums (which the port never calls).  Returns {kernel: (largest
+    abs error, {shape: (ms, plain ms)}, {shape: library ms})}."""
+    worst = {"fused_kappa": 0.0, "cavi_stats": 0.0}
+    times = {"fused_kappa": {}, "cavi_stats": {}}
+    library = {"fused_kappa": {}, "cavi_stats": {}}
+    for label, t, f64, timed in single_cases(device):
+        got = call_k6(ck.fused_kappa, t)
+        torch.cuda.synchronize()
+        ref = call_k6(ck.fused_kappa_reference, t)
+        ref64 = call_k6(ck.fused_kappa_reference, to_float64(t)) if f64 else None
+        row = check_outputs(f"fused_kappa {label}", ("kappa", "Ktilde"), got, ref, ref64)
+        worst["fused_kappa"] = max(worst["fused_kappa"], *row.values())
+        kappa, g, th = ref[0].contiguous(), t["g"], t["theta"]
+        s_got = ck.cavi_stats(kappa, g, th)
+        torch.cuda.synchronize()
+        if not torch.equal(s_got[1], s_got[1].T):
+            raise AssertionError(f"cavi_stats {label}: S2 is not exactly symmetric")
+        s_ref = ck.cavi_stats_reference(kappa, g, th)
+        s64 = ck.cavi_stats_reference(kappa.double(), g.double(), th.double()) if f64 else None
+        row7 = check_outputs(f"cavi_stats {label}", ("s1", "S2"), s_got, s_ref, s64)
+        worst["cavi_stats"] = max(worst["cavi_stats"], *row7.values())
+        B_, M_ = kappa.shape
+        log(f"single pair vs plain {label} (B={B_}, D={t['X'].shape[1]}, M={M_}, {t['kind']}): max abs err "
+            + " ".join(f"{k}={v:.2e}" for k, v in {**row, **row7}.items()))
+        if timed:
+            reps = 10 if B_ > 20000 else 30
+            times["fused_kappa"][label] = timed_pair(lambda: call_k6(ck.fused_kappa, t),
+                                                     lambda: call_k6(ck.fused_kappa_reference, t), reps)
+            times["cavi_stats"][label] = timed_pair(lambda: ck.cavi_stats(kappa, g, th),
+                                                    lambda: ck.cavi_stats_reference(kappa, g, th), reps)
+            library["cavi_stats"][label] = cuda_ms(lambda: ((kappa * th[:, None]).T @ kappa, kappa.T @ g), reps)
+            k6, k7 = times["fused_kappa"][label], times["cavi_stats"][label]
+            log(f"  {label}: kernel 6 {k6[0]:.4f} ms (plain {k6[1]:.4f}); kernel 7 {k7[0]:.4f} ms "
+                f"(plain {k7[1]:.4f}, torch.matmul {library['cavi_stats'][label]:.4f})")
+        del got, ref, ref64, s_got, s_ref, s64
+    return {name: (worst[name], times[name], library[name]) for name in worst}
+
+
+def phase_kappa_autograd(ck, device):
+    """Kernel 6's gradients (its backward is the plain version's vjp)
+    against the plain version's, w.r.t. X, Z, L^-T, the [D] lengthscales
+    and the variance, at B=300, M=129."""
+    Xl, _ = big_logistic_data("cpu", n=300)
+    t = single_args(pair_inputs(Xl, 300, 129, 1, device))
+    names = ("X", "Z", "L_invT", "ls", "var")
+    gen = torch.Generator(device=device).manual_seed(0)
+    w = [torch.randn(s, generator=gen, device=device) for s in ((300, 129), (300,))]
+    grads = []
+    for fn in (ck.fused_kappa, ck.fused_kappa_reference):
+        inputs = [t[k].clone().requires_grad_(True) for k in names]
+        out = fn(*inputs, 1e-3, "rbf")
+        grads.append(torch.autograd.grad(sum(torch.sum(o * wi) for o, wi in zip(out, w)), inputs))
+    errs = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1.0) for n, a, b in zip(names, *grads)}
+    if not all(e <= KERNEL_TOL for e in errs.values()):
+        raise AssertionError(f"kernel 6's gradients differ from the plain version's: {errs}")
+    log("kernel 6 autograd vs plain (B=300, M=129): " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+
+
+# --------------------------------------------------- the hyperparameter step
+def hyper_path(agt, X, which, b=None):
+    """Path A (the flagship) or B (logistic_m512_b65536) with the
+    reference's default optimiser, Adam(0.01) on the log kernel parameters
+    every iteration (atfrequency 1); b cuts the batch (parity)."""
+    if which == "A":
+        return flagship_model(agt, X, b=b or B, optimiser="default")
+    return big_logistic_model(agt, X, b=b or LB, optimiser="default")
+
+
+def log_hypers(model):
+    """The kernel's log lengthscale and log variance as float64 on the CPU."""
+    k = model.kernel
+    return torch.cat([torch.log(k.lengthscale).reshape(-1), torch.log(k.variance).reshape(-1)]).double().cpu()
+
+
+def phase_hyper_path(agt, ck, device, which):
+    """Path A or B through agp_tpu_torch.train: its first steps with the
+    exact launches (path A: kernel 1 once a step and kernel 6 once a
+    hyperparameter step; path B: kernels 6 and 7 once a step and kernel 6
+    once more a hyperparameter step; no other kernel), the training
+    accuracy floor, a finite posterior, log-hyperparameters finite and
+    moved by more than MIN_HYPER_MOVE; then its steady rate, iterations
+    (each with a hyperparameter step but the run's first three and its
+    last) per second.  Returns (launches, accuracy, it/s)."""
+    if which == "A":
+        X, y = flagship_data(device)
+        steps, timed, floor, route, name = MAIN_STEPS, A_TIMED_STEPS, MIN_FLAGSHIP_ACC, "fused", "path A (flagship)"
+    else:
+        X, y = big_logistic_data(device)
+        steps, timed, floor, route, name = L_TRAIN_STEPS, B_TIMED_STEPS, MIN_BIG_ACC, "single", "path B (logistic_m512_b65536)"
+    model = hyper_path(agt, X, which)
+    log0 = log_hypers(model)
+    gen = torch.Generator(device=device).manual_seed(0)
+    reset_launches(ck)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=steps, generator=gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = expect_launches(ck, name, route_launches(steps, route, hyper_steps=steps - 3))
+    logs = log_hypers(model)
+    if not (bool(torch.isfinite(state.mu).all()) and bool(torch.isfinite(state.Sigma).all())
+            and bool(torch.isfinite(logs).all())):
+        raise AssertionError(f"{name}: non-finite posterior or hyperparameters")
+    moved = float((logs - log0).abs().max())
+    if not moved > MIN_HYPER_MOVE:
+        raise AssertionError(f"{name}: the log-hyperparameters moved by {moved:.3e} <= {MIN_HYPER_MOVE}")
+    acc = float((agt.predict_y(model, state, X) == y).float().mean())
+    if not acc >= floor:
+        raise AssertionError(f"{name}: training accuracy {acc:.4f} < {floor}")
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=timed, state=state, generator=gen)
+    torch.cuda.synchronize()
+    ips = timed / (time.perf_counter() - t0)
+    k = model.kernel
+    log(f"{name}: {steps} iterations through agp_tpu_torch.train in {train_s:.3f} s, {launches} launches, "
+        f"training accuracy {acc:.4f}, log-hyperparameters moved by {moved:.4f} (lengthscale "
+        f"{float(k.lengthscale.reshape(-1)[0]):.4f}, variance {float(k.variance.reshape(-1)[0]):.4f}); steady state "
+        f"{ips:.2f} iterations/s over {timed} iterations ({timed - 3} hyperparameter steps)")
+    return launches, acc, ips
+
+
+def phase_hyper_parity(agt, ck, device):
+    """20 iterations of paths A and B (B at B=PAIR_PARITY_B on N=20,000
+    rows) on the card (float32) against the same iterations on the CPU
+    (float32, the plain versions), same draws, as max |d mu| / max |mu|
+    and max |d log-hyperparameter|, each against its own float32 noise
+    (the CPU run again with the inducing points in another order): the
+    card within ORACLE_DEVICE_FACTOR times it of the CPU, and within it of
+    the card with the plain versions in the kernels' place."""
+    def after(model, X, y, draws):
+        model, state = agt.train(model, X, y, iterations=20, draws=draws.to(X.device))
+        return state.mu.double().cpu(), log_hypers(model)
+
+    def err(a, b, perm=None):
+        mu = a[0] if perm is None else a[0][:, torch.argsort(perm)]
+        return max(float((mu - b[0]).abs().max() / b[0].abs().max()), float((a[1] - b[1]).abs().max()))
+
+    for which in ("A", "B"):
+        t0 = time.perf_counter()
+        if which == "A":
+            Xc, yc = flagship_data("cpu", n=PN, seed=1)
+            draws = torch.randint(0, PN // 64, (20, B // 64), generator=torch.Generator().manual_seed(1))
+            b, m = B, M
+        else:
+            Xc, yc = big_logistic_data("cpu", n=PN, seed=1)
+            b, m = PAIR_PARITY_B, PM
+            draws = torch.randint(0, PN - b + 1, (20,), generator=torch.Generator().manual_seed(1))
+        perm = torch.randperm(m, generator=torch.Generator().manual_seed(2))
+        Xd, yd = Xc.to(device), yc.to(device)
+        cpu = after(hyper_path(agt, Xc, which, b), Xc, yc, draws)
+        card = after(hyper_path(agt, Xd, which, b), Xd, yd, draws)
+        with plain_kernels(ck, ("fused_cavi_stats",) + SPLIT_PAIRS):
+            card_plain = after(hyper_path(agt, Xd, which, b), Xd, yd, draws)
+        mp = hyper_path(agt, Xc, which, b)
+        noise = err(after(mp.replace(Z=mp.Z[:, perm].contiguous()), Xc, yc, draws), cpu, perm)
+        e, e_kernel = err(card, cpu), err(card, card_plain)
+        tol, tol_kernel = max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL), max(noise, MULTI_PARITY_TOL)
+        if not (e <= tol and e_kernel <= tol_kernel):
+            raise AssertionError(f"path {which}: card vs CPU {e:.3e} (bound {tol:.3e}), card vs card with the plain "
+                                 f"versions {e_kernel:.3e} (bound {tol_kernel:.3e})")
+        log(f"path {which} parity (B={b}, M={m}, 20 iterations, 17 hyperparameter steps): card (float32) vs CPU "
+            f"(float32) {e:.3e} (bound {tol:.3e}), vs the card with the plain versions {e_kernel:.3e} "
+            f"(bound {tol_kernel:.3e}); CPU with Z reordered vs CPU {noise:.3e}; {time.perf_counter() - t0:.2f} s")
+
+
+def profile_hyper_path(agt, device, which):
+    """torch.profiler over 20 iterations of path A or B (after 30), each a
+    CAVI step and a hyperparameter step on its minibatch
+    (``python3 chip_smoke.py profile hyper A|B``): wall and device-busy
+    time an iteration, the idle share, launches an iteration, the peak
+    device memory, the largest kernels and the host operations that take
+    the most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agp_tpu_torch.inference import analytic_vi
+    from agp_tpu_torch.training import autotuning
+    from agp_tpu_torch.training.train import _minibatches
+
+    X, y = flagship_data(device) if which == "A" else big_logistic_data(device)
+    model = hyper_path(agt, X, which)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model, state = agt.train(model, X, y, iterations=30, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 20
+
+    def iterations(model, state):
+        for x_b, y_b in _minibatches(model, X, y, n, generator=gen):
+            model, state = analytic_vi.variational_update(model, state, x_b, y_b)
+            model, state = autotuning.hyper_step(model, state, x_b, y_b)
+        return model, state
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, state = iterations(model, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / n * 1e6
+    events = prof.key_averages()
+    rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in events
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / n
+    log(f"profile hyper (path {which}, CAVI + hyperparameter step): wall {wall_us:.1f} us/iteration, device busy "
+        f"{busy:.1f} us/iteration, idle share {1 - busy / wall_us:.4f}, {launches:.1f} kernel launches/iteration, "
+        f"{sum(r[1] for r in rows):.1f} device ops/iteration, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for us, count, key in rows[:10]:
+        log(f"  device {us:10.1f} us/iteration  x{count:.1f}  {key[:90]}")
+    host = sorted(((e.self_cpu_time_total / n, e.count / n, e.key) for e in events
+                   if not str(e.device_type).endswith("CUDA")), reverse=True)
+    for us, count, key in host[:12]:
+        log(f"  host {us:10.1f} us/iteration  x{count:.1f}  {key[:90]}")
 
 
 def profile_pair_path(agt, device, which):
@@ -1352,7 +1642,7 @@ def profile_pair_path(agt, device, which):
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / n
     log(f"profile {which}: wall {wall_us:.1f} us/step, device busy {busy:.1f} us/step, idle share "
         f"{1 - busy / wall_us:.4f}, {launches:.1f} kernel launches/step, {sum(r[1] for r in rows):.1f} device ops/step")
-    for us, count, key in rows[:12]:
+    for us, count, key in rows[:20]:
         log(f"  {us:10.1f} us/step  x{count:.1f}  {key[:100]}")
 
 
@@ -1437,6 +1727,9 @@ def main():
         launches, ips = phase_studentt_rate(agt, ck, device)
         print(json.dumps({"launches": launches, "ips": ips}))
         return
+    if sys.argv[1:3] == ["profile", "hyper"]:
+        profile_hyper_path(agt, device, sys.argv[3] if len(sys.argv) > 3 else "A")
+        return
     if sys.argv[1:2] == ["profile"]:
         profile_pair_path(agt, device, sys.argv[2])
         return
@@ -1444,26 +1737,28 @@ def main():
     branch_err, per_lik, per_kind, oracle_ms = timed_phase("kernel 1 branches", phase_branches_vs_plain,
                                                            agt, ck, device)
     multi = timed_phase("kernels 2-3 vs plain", phase_multi_kernels_vs_plain, ck, device)
-    launches = timed_phase("flagship path", phase_main_path, agt, ck, device)
-    launches += timed_phase("Student-t rate (child)", studentt_rate_first_in_process)
+    timed_phase("flagship path", phase_main_path, agt, ck, device)
+    LAUNCHES["fused_cavi_stats"] += timed_phase("Student-t rate (child)", studentt_rate_first_in_process)
     timed_phase("oracle and flagship parity", phase_oracle_and_parity, agt, device)
-    multi_launches = {
-        "fused_cavi_stats_multiclass": timed_phase("multiclass path", phase_multi_path, agt, ck, device,
-                                                   "multiclass")[0],
-        "fused_cavi_stats_het": timed_phase("het path", phase_multi_path, agt, ck, device, "het")[0],
-    }
+    for which in ("multiclass", "het"):
+        timed_phase(f"{which} path", phase_multi_path, agt, ck, device, which)
     timed_phase("multi-latent parity", phase_multi_parity, agt, device)
-    launches += timed_phase("oracles M=128", phase_oracles, agt, ck, device)[0]
+    timed_phase("oracles M=128", phase_oracles, agt, ck, device)
     timed_phase("single-latent parity", phase_single_parity, agt, ck, device)
 
     pair = timed_phase("kernels 4-5 vs plain", phase_pair_kernels_vs_plain, ck, device)
     timed_phase("kernel 4 autograd", phase_pair_autograd, ck, device)
-    pair_launches = timed_phase("logistic_m512_b65536", phase_big_logistic, agt, ck, device)[0]
-    pair_launches += sum(timed_phase(f"{which} M=512", phase_pair_multi, agt, ck, device, which)[0]
-                         for which in ("multiclass", "het"))
-    pair_launches += timed_phase("oracles M=512", phase_oracles, agt, ck, device, m=PM, floors=PAIR_ORACLE_FLOORS,
-                                 paths=[(lik, "SqExponentialKernel") for lik in ORACLE_LIKS])[0]
+    single = timed_phase("kernels 6-7 vs plain", phase_single_kernels_vs_plain, ck, device)
+    timed_phase("kernel 6 autograd", phase_kappa_autograd, ck, device)
+    timed_phase("logistic_m512_b65536", phase_big_logistic, agt, ck, device)
+    for which in ("multiclass", "het"):
+        timed_phase(f"{which} M=512", phase_pair_multi, agt, ck, device, which)
+    timed_phase("oracles M=512", phase_oracles, agt, ck, device, m=PM, floors=PAIR_ORACLE_FLOORS,
+                paths=[(lik, "SqExponentialKernel") for lik in ORACLE_LIKS])
     timed_phase("pair parity", phase_pair_parity, agt, ck, device)
+    for which in ("A", "B"):
+        timed_phase(f"hyper path {which}", phase_hyper_path, agt, ck, device, which)
+    timed_phase("hyper parity", phase_hyper_parity, agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {
@@ -1472,13 +1767,13 @@ def main():
         "fused_cavi_stats_het": fused_bound(MB, MD, MM, 2, 6),
     }
     bounds["fused_kappa_moments_batched"], bounds["cavi_stats_batched"] = pair_bounds(LB, LD, PM, 1)
+    bounds["fused_kappa"], bounds["cavi_stats"] = single_bounds(LB, LD, PM)
     main_shape = "logistic_m512_b65536"
     kernels = {"kernels": [{
         "name": "fused_cavi_stats",
         "route": "cuda",
         "source": "agp_tpu_torch/csrc/fused_cavi_stats.cu",
         "replaces": "agp_tpu/ops/pallas_kernels.py:750",
-        "launches": launches,
         "max_abs_err": max(branch_err, *(v for row in errs.values() for v in row.values())),
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -1490,7 +1785,6 @@ def main():
         "route": "cuda",
         "source": "agp_tpu_torch/csrc/fused_cavi_stats_multi.cu",
         "replaces": f"agp_tpu/ops/pallas_kernels.py:{line}",
-        "launches": multi_launches[name],
         "max_abs_err": multi[name][0],
         "ms": multi[name][1],
         "plain_ms": multi[name][2],
@@ -1498,18 +1792,22 @@ def main():
     } for name, line in (("fused_cavi_stats_multiclass", 953), ("fused_cavi_stats_het", 1133))] + [{
         "name": name,
         "route": "cuda",
-        "source": "agp_tpu_torch/csrc/batched_pair.cu",
+        "source": f"agp_tpu_torch/csrc/{source}",
         "replaces": f"agp_tpu/ops/pallas_kernels.py:{line}",
-        # each step of the pair's paths launches both kernels once
-        "launches": pair_launches // 2,
-        "max_abs_err": pair[name][0],
-        "ms": pair[name][1][main_shape][0],
-        "plain_ms": pair[name][1][main_shape][1],
-        "per_shape_ms": ms_table(pair[name][1]),
-        "library_ms": pair[name][2][main_shape] if name == "cavi_stats_batched" else None,
-        "per_shape_library_ms": pair[name][2] if name == "cavi_stats_batched" else None,
-    } for name, line in (("fused_kappa_moments_batched", 361), ("cavi_stats_batched", 486))]}
+        "max_abs_err": table[name][0],
+        "ms": table[name][1][main_shape][0],
+        "plain_ms": table[name][1][main_shape][1],
+        "per_shape_ms": ms_table(table[name][1]),
+        "library_ms": table[name][2].get(main_shape),
+        "per_shape_library_ms": table[name][2] or None,
+    } for name, line, source, table in (
+        ("fused_kappa_moments_batched", 361, "batched_pair.cu", pair),
+        ("cavi_stats_batched", 486, "batched_pair.cu", pair),
+        ("fused_kappa", 213, "kappa_single.cu", single),
+        ("cavi_stats", 545, "kappa_single.cu", single),
+    )]}
     for k in kernels["kernels"]:
+        k["launches"] = LAUNCHES.get(k["name"], 0)
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k.setdefault("library_ms", None)
     print(json.dumps(kernels))

@@ -236,18 +236,22 @@ FUSED_OF = {"logistic": "fused_cavi_stats", "multiclass": "fused_cavi_stats_mult
 @pytest.mark.parametrize("m", [64, 130])
 def test_dispatch_picks_the_pair_exactly_beyond_the_fused_range(monkeypatch, which, m):
     """3 steps through agt.train: at M=64 one fused pass a step and no pair;
-    at M=130 (fused_fits false) one launch of each kernel of the pair a
-    step and no fused pass."""
+    at M=130 (fused_fits false) one launch of each kernel of a split pair a
+    step and no fused pass: the batched pair for several latents, the
+    single-latent pair (fused_kappa, cavi_stats) for one."""
     import agp_tpu_torch as agt
 
     model, X, y = dispatch_model(which, m)
     assert ck.fused_fits(model.n_latent, 3, m) is (m == 64)
-    calls = _spy(monkeypatch, list(FUSED_OF.values()) + ["fused_kappa_moments_batched", "cavi_stats_batched"])
+    pairs = {"batched": ("fused_kappa_moments_batched", "cavi_stats_batched"), "single": ("fused_kappa", "cavi_stats")}
+    calls = _spy(monkeypatch, list(FUSED_OF.values()) + [n for names in pairs.values() for n in names])
     agt.train(model, X, y, iterations=3)
     fused = FUSED_OF[which]
     pair = m > ck.MAX_M
+    route = "single" if which == "logistic" else "batched"
     assert calls[fused] == (0 if pair else 3)
-    assert calls["fused_kappa_moments_batched"] == calls["cavi_stats_batched"] == (3 if pair else 0)
+    for kind, names in pairs.items():
+        assert [calls[n] for n in names] == [3 if pair and kind == route else 0] * 2, (kind, calls)
     assert sum(calls[name] for name in FUSED_OF.values() if name != fused) == 0
 
 

@@ -348,8 +348,9 @@ def test_cuda_pair_wrappers_raise(cuda_device):
 @pytest.mark.parametrize("which", ["logistic", "poisson", "multiclass", "het"])
 def test_train_beyond_the_fused_range_launches_the_pair(cuda_device, which):
     """M=130 (and M=128 at D=46 for one latent), beyond the fused kernels'
-    shared memory: each step launches kernels 4 and 5 once, no fused
-    kernel, and the posterior stays finite."""
+    shared memory: each step launches one kernel of the single-latent
+    split pair (6-7, one latent) or of the batched pair (4-5, several)
+    each, no fused kernel, and the posterior stays finite."""
     rng = np.random.default_rng(5)
     d = 46 if which == "logistic" else 3
     m = 128 if which == "logistic" else 130
@@ -365,7 +366,7 @@ def test_train_beyond_the_fused_range_launches_the_pair(cuda_device, which):
     smoke.reset_launches(ck)
     model, state = agt.train(model, X, y, iterations=20)
     torch.cuda.synchronize()
-    smoke.expect_launches(ck, 20, pair=True, fused=None, label=which)
+    smoke.expect_launches(ck, which, smoke.route_launches(20, "single" if which in ("logistic", "poisson") else "batched"))
     assert torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all()
 
 
@@ -383,3 +384,89 @@ def test_numpy_inputs_land_on_the_card(cuda_device):
     model, state = agt.train(model, X, y, iterations=10)
     assert ck.fused_cavi_stats.launches == before + 10
     assert agt.predict_y(model, state, X).device.type == "cuda"
+
+
+# ------------------------------------------ the single-latent split pair
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,d,kind,f64", [
+    (300, 129, 20, "rbf", False), (300, 129, 5, "matern12", False), (333, 64, 37, "matern32", False),
+    (300, 130, 8, "matern52", False), (4096, 512, 20, "rbf", False), (1000, 1024, 20, "rbf", False),
+    (700, 1680, 20, "rbf", False), (64, 1681, 20, "rbf", False),
+    (300, 130, 3, "matern52", True), (64, 1681, 2, "rbf", True),
+])
+def test_cuda_single_pair_matches_plain(cuda_device, b, m, d, kind, f64):
+    """Kernels 6 and 7 against their plain versions on the same card
+    tensors, both float32: 1e-4 of each output's largest entry (up to
+    M=1,681, past kernel 4's range: kernel 6 keeps no kappa tile in shared
+    memory); one launch each; S2 exactly symmetric.  Where M inducing
+    points crowd a low-D space (f64), float32 fixes kappa and Ktilde only
+    coarsely (on an H100 kernel and plain version differ there by 2.2e-3
+    in kappa at M=1,681, D=2, and 2.3e-4 in Ktilde at M=130, D=3), so
+    each output is held against the plain version in float64 on the same
+    inputs, within FLOAT32_FACTOR times the float32 plain version's own
+    error, as chip_smoke.py holds the ill-conditioned oracle shape."""
+    t = smoke.single_args(pair_case(b, m, 1, d, cuda_device, kind))
+    before = (ck.fused_kappa.launches, ck.cavi_stats.launches)
+    got = smoke.call_k6(ck.fused_kappa, t)
+    s_got = ck.cavi_stats(got[0], t["g"], t["theta"])
+    torch.cuda.synchronize()
+    assert (ck.fused_kappa.launches, ck.cavi_stats.launches) == (before[0] + 1, before[1] + 1)
+    label = f"{b}-{m}-{d}-{kind}"
+    ref = smoke.call_k6(ck.fused_kappa_reference, t)
+    ref64 = smoke.call_k6(ck.fused_kappa_reference, smoke.to_float64(t)) if f64 else None
+    smoke.check_outputs(f"fused_kappa {label}", ("kappa", "Ktilde"), got, ref, ref64)
+    s_ref = ck.cavi_stats_reference(got[0], t["g"], t["theta"])
+    s64 = ck.cavi_stats_reference(got[0].double(), t["g"].double(), t["theta"].double()) if f64 else None
+    smoke.check_outputs(f"cavi_stats {label}", ("s1", "S2"), s_got, s_ref, s64)
+    assert torch.equal(s_got[1], s_got[1].T)
+
+
+@pytest.mark.cuda
+def test_cuda_kappa_autograd_matches_plain(cuda_device):
+    smoke.phase_kappa_autograd(ck, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_single_pair_wrappers_raise(cuda_device):
+    """On a CUDA tensor the single-latent pair launches or raises: an
+    unknown kind, float64, a wrong shape, or M beyond kernel 6's shared
+    memory."""
+    t = smoke.single_args(pair_case(64, 16, 1, 4, cuda_device))
+    before = (ck.fused_kappa.launches, ck.cavi_stats.launches)
+    with pytest.raises(ValueError, match="kinds"):
+        smoke.call_k6(ck.fused_kappa, {**t, "kind": "periodic"})
+    with pytest.raises(TypeError):
+        smoke.call_k6(ck.fused_kappa, {**t, "X": t["X"].double()})
+    with pytest.raises(ValueError):
+        smoke.call_k6(ck.fused_kappa, {**t, "Z": t["Z"][:, :2].contiguous()})
+    big = smoke.single_args(pair_case(8, 2400, 1, 2, cuda_device))
+    with pytest.raises(ValueError, match="shared memory"):
+        smoke.call_k6(ck.fused_kappa, big)
+    kappa = torch.zeros((64, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ck.cavi_stats(kappa, t["g"].double(), t["theta"])
+    with pytest.raises(ValueError):
+        ck.cavi_stats(kappa, t["g"][:10], t["theta"])
+    assert (ck.fused_kappa.launches, ck.cavi_stats.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 130])
+def test_train_with_the_default_adam_launches_kernel_6(cuda_device, m):
+    """The reference's default optimiser on the card: 10 iterations with a
+    hyperparameter step after iterations 3..9 launch kernel 6 once a
+    hyperparameter step (its backward runs the plain version), beside the
+    CAVI step's kernel 1 (M=64) or kernels 6-7 (M=130); the
+    log-hyperparameters move and stay finite."""
+    rng = np.random.default_rng(7)
+    X = torch.as_tensor(rng.normal(size=(4096, 8)), dtype=torch.float32, device=cuda_device)
+    y = torch.sign(X[:, 0] + 0.5 * X[:, 1])
+    model = agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(),
+                            agt.AnalyticSVI(1024, minibatch_sampling="slice"), X[:m])
+    smoke.reset_launches(ck)
+    model, state = agt.train(model, X, y, iterations=10)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, f"M={m}", smoke.route_launches(10, "fused" if m == 64 else "single", hyper_steps=7))
+    logs = smoke.log_hypers(model)
+    assert torch.isfinite(logs).all() and float((logs - torch.tensor([np.log(2.0), 0.0])).abs().max()) > 1e-2
+    assert torch.isfinite(state.mu).all()

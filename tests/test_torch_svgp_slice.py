@@ -15,6 +15,7 @@ from agp_tpu.inference.analytic_vi import variational_update as jax_variational_
 from agp_tpu.training.train import _precomputed_draws, _tile_views, _vi_steps
 from agp_tpu_torch.inference import analytic_vi as tav
 from agp_tpu_torch.training.train import vi_steps
+from agp_tpu_torch.utils.opt import GradientTransformation
 from torch_helpers import jax_rm_scales, jax_svgp, logistic_data, port_from_jax, replay_rule
 
 N, D, M, B, STEPS = 2048, 8, 32, 256, 10
@@ -122,9 +123,9 @@ def test_steps_match_fused_pallas_interpret(monkeypatch):
 
 
 def test_unfused_path_matches_fused():
-    """A row-weighted batch takes the unfused path (the batched pair:
-    latent_moments + local_updates + apply_natural_gradient); with all
-    weights 1 it must give
+    """A row-weighted batch takes the unfused path (the single-latent split
+    pair: latent_moments' fused_kappa + local_updates +
+    apply_natural_gradient's cavi_stats); with all weights 1 it must give
     the fused pass's step.  rtol 1e-10: float64, K^-1 formed two ways."""
     X, y = logistic_data(N, D, seed=4)
     mj, sj, Xj, yj = jax_svgp(X, y, M, B)
@@ -171,10 +172,14 @@ def test_draws_are_checked():
 
 
 def test_create_refuses_what_is_not_ported():
+    """The reference's default optimiser (Adam) is ported; an optimiser that
+    is not one of the port's GradientTransformations, or a kernel that is
+    not ported, raises."""
     Z = torch.zeros((4, 2), dtype=torch.float64)
     kern, lik, inf = agt.SqExponentialKernel(), agt.LogisticLikelihood.create(), agt.AnalyticSVI(8)
-    with pytest.raises(NotImplementedError, match="optimiser=None"):
-        agt.SVGP.create(kern, lik, inf, Z)
+    assert isinstance(agt.SVGP.create(kern, lik, inf, Z).optimiser, GradientTransformation)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        agt.SVGP.create(kern, lik, inf, Z, optimiser=object())
     with pytest.raises(NotImplementedError, match="not ported"):
         agt.SVGP.create(object(), lik, inf, Z, optimiser=None)
 

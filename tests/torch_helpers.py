@@ -1,6 +1,8 @@
 """Builds the same SVGP model in the JAX package and in the PyTorch port,
 and carries the JAX model's parameters and state over, so that a test can
 run both from identical states (the port's tests)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,11 +41,12 @@ def het_data(N, D, seed=0):
     return X, np.sin(X[:, 0]) + 0.1 * rng.normal(size=N)
 
 
-def jax_svgp(X, y, M, B, sampling="block", lengthscale=2.0, likelihood=None, kernel=None):
+def jax_svgp(X, y, M, B, sampling="block", lengthscale=2.0, likelihood=None, kernel=None, **create):
     """An SVGP in the JAX package (float64; the logistic likelihood unless
     ``likelihood`` is given, the squared-exponential kernel unless
-    ``kernel``, a JAX kernel class, is): (model, state, X, y) with the
-    labels treated."""
+    ``kernel``, a JAX kernel class, is; fixed hyperparameters unless
+    ``create`` names an optimiser, a Zoptimiser or a mean): (model, state,
+    X, y) with the labels treated."""
     Xj = jnp.asarray(X)
     kernel = agp.SqExponentialKernel if kernel is None else kernel
     model = agp.SVGP.create(
@@ -51,12 +54,27 @@ def jax_svgp(X, y, M, B, sampling="block", lengthscale=2.0, likelihood=None, ker
         agp.LogisticLikelihood.create() if likelihood is None else likelihood,
         agp.AnalyticSVI(B, minibatch_sampling=sampling),
         Xj[:M],
-        optimiser=None,
+        **{"optimiser": None, **create},
     )
     y2, lik = model.likelihood.treat_labels(y)
     model = model.replace(likelihood=lik)
     yj = jnp.asarray(y2, Xj.dtype)
     return model, jax_init_state(model, Xj, yj), Xj, yj
+
+
+def adam_state_arrays(hyper_state):
+    """The JAX package's hyperparameter state (optax's Adam state per group)
+    as ``interop.state_from_numpy`` takes it: {"count", "mu", "nu"} per
+    group, each moment a dict of leaves by field name (an array for Z)."""
+
+    def tree(t):
+        if isinstance(t, jax.Array):
+            return np.array(t)
+        return {f.name: np.array(getattr(t, f.name)) for f in dataclasses.fields(t)
+                if isinstance(getattr(t, f.name), jax.Array)}
+
+    return {group: {"count": np.array(s[0].count), "mu": tree(s[0].mu), "nu": tree(s[0].nu)}
+            for group, s in hyper_state.items()}
 
 
 def state_arrays(s):
@@ -66,7 +84,10 @@ def state_arrays(s):
         local_vars=dict(s.local_vars), opt_state=s.opt_state, rho=s.rho,
         step=s.step, kmat=dict(s.kmat),
     )
-    return jax.tree_util.tree_map(lambda a: np.array(a), leaves)
+    out = jax.tree_util.tree_map(lambda a: np.array(a), leaves)
+    if s.hyper_state is not None:
+        out["hyper_state"] = adam_state_arrays(s.hyper_state)
+    return out
 
 
 def port_likelihood(lik_j):
@@ -99,6 +120,8 @@ def port_from_jax(mj, sj, Xj, yj, dtype=torch.float64, device="cpu", optimiser=N
     lik, lik_params = port_likelihood(mj.likelihood)
     kernel = getattr(agt, type(mj.kernel).__name__)()
     mt = agt.SVGP.create(kernel, lik, inference, X[:M], optimiser=None)
+    if type(mj.mean).__name__ == "ConstantMean":
+        lik_params["mean_c"] = np.array(mj.mean.c)
     mt = model_from_numpy(
         dict(Z=np.array(mj.Z), lengthscale=np.array(mj.kernel.lengthscale),
              variance=np.array(mj.kernel.variance), **lik_params),
