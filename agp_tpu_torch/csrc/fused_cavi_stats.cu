@@ -18,7 +18,7 @@
 // * The TPU grid is a sequential loop that accumulates s1/S2 into one
 //   resident block.  CUDA blocks run in parallel, so each block writes its
 //   partial s1 [M] and S2 [M, M] to scratch and a second kernel sums the
-//   partials in block order: deterministic, no atomics.
+//   partials in block order: deterministic, no atomics (block_sums.cuh).
 // * The ragged last tile is masked here, from B: rows past B load as zeros
 //   and get zero weight in s1/S2; their per-row outputs are not written.
 // * FP32 FMA throughout, no TF32 and no tensor cores.  The gram uses the
@@ -49,6 +49,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "block_sums.cuh"
 #include "gram.cuh"
 
 namespace {
@@ -150,11 +151,6 @@ size_t smem_bytes(int D, int M) {
   size_t f = (size_t)TB * D + (size_t)M * z_stride(D) + 2 * (size_t)M * M + M +
              2 * (size_t)TB * M + 4 * TB;
   return f * sizeof(float);
-}
-
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 template <int KIND>
@@ -289,23 +285,6 @@ cavi_stats(const float* __restrict__ x, const float* __restrict__ y, const float
   }
 }
 
-// s1 = sum_b s1_part[b], S2 = sum_b s2_part[b], in block order
-__global__ void sum_partials(const float* __restrict__ s1_part,
-                             const float* __restrict__ s2_part, float* __restrict__ s1,
-                             float* __restrict__ s2, int nb, int M) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < M) {
-    float acc = 0.0f;
-    for (int b = 0; b < nb; ++b) acc += s1_part[(size_t)b * M + i];
-    s1[i] = acc;
-  } else if (i < M + M * M) {
-    const int j = i - M;
-    float acc = 0.0f;
-    for (int b = 0; b < nb; ++b) acc += s2_part[(size_t)b * M * M + j];
-    s2[j] = acc;
-  }
-}
-
 template <int KIND>
 int launch(const float* x, const float* y, const float* z, const float* kinv, const float* mu,
            const float* sigma, const float* params, float* c, float* theta, float* mf, float* vf,
@@ -320,9 +299,7 @@ int launch(const float* x, const float* y, const float* z, const float* kinv, co
                                               s1_part, s2_part, B, D, M, lik);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int total = M + M * M;
-  sum_partials<<<(total + 255) / 256, 256, 0, st>>>(s1_part, s2_part, s1, s2, nb, M);
-  return (int)cudaGetLastError();
+  return launch_sum_partials(s1_part, s2_part, s1, s2, nb, M, st);
 }
 
 }  // namespace

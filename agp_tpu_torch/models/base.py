@@ -17,6 +17,19 @@ def check_implemented(likelihood, inference) -> None:
         )
 
 
+def check_card_dtype(device, dtype, what: str = "model") -> None:
+    """Refuse, when it is built, a model or data that no CUDA kernel of the
+    port takes: the kernels are float32-only (as the reference's Pallas
+    kernels are), so anything else on a CUDA device would raise at its
+    first step.  Raises ``TypeError`` naming the two ways out."""
+    if torch.device(device).type == "cuda" and dtype != torch.float32:
+        raise TypeError(
+            f"the {what} is {dtype} on {device}, and the port's CUDA kernels take float32 only: "
+            "use float32 on the card, or run on the CPU "
+            '(CPU tensors, or agp_tpu_torch.config.set_default_device("cpu") for arrays without a device)'
+        )
+
+
 def prepare_components(kernel, likelihood, mean, n_latent):
     """Replicate the kernel's and the mean's fields over the latent axis."""
     return K.replicate(kernel, n_latent), Mn.replicate(Mn.as_mean(mean), n_latent)

@@ -34,7 +34,7 @@ from ..likelihoods.regression import (
 from ..means import ConstantMean, PriorMean, ZeroMean
 from ..utils.opt import GradientTransformation, adam
 from ..utils.tensors import Params
-from .base import as_2d, check_implemented, prepare_components
+from .base import as_2d, check_card_dtype, check_implemented, prepare_components
 
 _PORTED_KERNELS = tuple(FUSED_KINDS)
 _PORTED_LIKELIHOODS = (
@@ -84,7 +84,8 @@ class SVGP(Params):
         the likelihood's and the mean's parameters are placed on Z's device
         and dtype.  Z given without a device (numpy, a list) goes to
         ``config.default_device()``: the CUDA card unless the CPU was
-        chosen.
+        chosen.  A Z that is not float32 on a CUDA device raises
+        ``TypeError``: the CUDA kernels take float32 only.
 
         ``optimiser`` learns the kernel's (log) and the mean's parameters
         every ``atfrequency`` CAVI steps: "default" is the reference's
@@ -114,6 +115,7 @@ class SVGP(Params):
         n_latent = likelihood.n_latent
         mean = ZeroMean() if mean is None else mean
         Z = as_2d(Z)
+        check_card_dtype(Z.device, Z.dtype)
         kernel, mean = prepare_components(kernel, likelihood, mean, n_latent)
         kernel = kernel.to(device=Z.device, dtype=Z.dtype)
         mean = mean.to(device=Z.device, dtype=Z.dtype)

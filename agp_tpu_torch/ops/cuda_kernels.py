@@ -24,14 +24,23 @@ statistics:
   Both share their device code (``csrc/pair_core.cuh``).
 
 All take the four stationary gram kinds of ``KINDS``, whose formula the
-CUDA kernels share (``csrc/gram.cuh``).  On a CPU tensor a wrapper runs
-its ``*_reference``, the same function in plain PyTorch (any float dtype).
-On a CUDA tensor it launches its kernel (float32) or raises; there is no
-fallback.  Each wrapper counts its launches in ``<wrapper>.launches``.
+CUDA kernels share (``csrc/gram.cuh``).  The same library holds the
+kernels of the port's benchmark path, whose wrappers live in
+``agp_tpu_torch/benchmarks/``: the design-sweep variants of the fused
+pass (``direct_stats``, ``two_factor_nt``; ``csrc/fused_variants.cu``,
+which shares kernel 1's cross-block sums, ``csrc/block_sums.cuh``) and
+the tile gather (``gather_row_tiles``; ``csrc/gather_tiles.cu``).  On a
+CPU tensor a wrapper runs its ``*_reference``, the same function in plain
+PyTorch (any float dtype).  On a CUDA tensor it launches its kernel
+(float32) or raises; there is no fallback.  Each wrapper counts its
+launches in ``<wrapper>.launches``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build
-happens at the first CUDA call, into
+library with a plain C interface, loaded with ``ctypes``: one
+``nvcc -c`` per source of ``_SOURCES`` (``fused_cavi_stats.cu``,
+``fused_cavi_stats_multi.cu``, ``batched_pair.cu``, ``kappa_single.cu``,
+``fused_variants.cu``, ``gather_tiles.cu``), all started together.  The
+build happens at the first CUDA call, into
 ``agp_tpu_torch/_build/<hash of the sources>/``; importing this module
 never calls ``nvcc``.
 """
@@ -56,10 +65,11 @@ from .special import LOG2, logcosh
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("fused_cavi_stats.cu", "fused_cavi_stats_multi.cu", "batched_pair.cu", "kappa_single.cu")
+    for name in ("fused_cavi_stats.cu", "fused_cavi_stats_multi.cu", "batched_pair.cu", "kappa_single.cu",
+                 "fused_variants.cu", "gather_tiles.cu")
 )
 # headers the sources include: part of the build's hash
-_HEADERS = tuple(_PKG / "csrc" / name for name in ("gram.cuh", "pair_core.cuh"))
+_HEADERS = tuple(_PKG / "csrc" / name for name in ("gram.cuh", "pair_core.cuh", "block_sums.cuh"))
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -172,6 +182,17 @@ def _library() -> ctypes.CDLL:
     lib.agp_fused_kappa.restype = i
     lib.agp_cavi_stats.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.agp_cavi_stats.restype = i
+    lib.agp_fused_variant_tile_rows.argtypes = []
+    lib.agp_fused_variant_tile_rows.restype = i
+    lib.agp_fused_variant_smem_bytes.argtypes = [i, i]
+    lib.agp_fused_variant_smem_bytes.restype = ctypes.c_size_t
+    lib.agp_fused_variant_blocks_per_sm.argtypes = [i, i, i]
+    lib.agp_fused_variant_blocks_per_sm.restype = i
+    lib.agp_fused_variant_stats.argtypes = [p] * 15 + [i] * 5 + [p]
+    lib.agp_fused_variant_stats.restype = i
+    ll = ctypes.c_longlong
+    lib.agp_gather_row_tiles.argtypes = [p, p, i, p, ll, ll, p]
+    lib.agp_gather_row_tiles.restype = i
     return lib
 
 

@@ -17,7 +17,7 @@ import warnings
 import torch
 
 from ..inference import analytic_vi
-from ..models.base import as_2d, match_dtype, to_tensor
+from ..models.base import as_2d, check_card_dtype, match_dtype, to_tensor
 from . import autotuning
 from .state import TrainState, init_var_posterior
 
@@ -26,7 +26,12 @@ _CHUNK = 2000
 
 
 def init_state(model, X, y=None) -> TrainState:
-    """The initial TrainState, on X's device and in X's dtype."""
+    """The initial TrainState, on X's device and in X's dtype.  Raises
+    ``TypeError`` for a model or X that is not float32 on a CUDA device
+    (``models.base.check_card_dtype``), as ``SVGP.create`` does for a
+    model built there: this catches one moved to the card later."""
+    check_card_dtype(model.Z.device, model.Z.dtype)
+    check_card_dtype(X.device, X.dtype, "data")
     dtype, device = X.dtype, X.device
     N = X.shape[0]
     inf = model.inference

@@ -70,7 +70,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    logistic_m512_b65536 (kernel 6 twice and kernel 7 once an iteration),
    each with its floor, moved and finite log-hyperparameters and its
    steady rate; then 20 iterations of each on the card against the CPU,
-   against each path's own float32 noise.
+   against each path's own float32 noise;
+16. kernels 8-9 (the bench's fused variants): each variant against its
+   plain version at the flagship's B=4096, D=20, M=64, a ragged B=300 with
+   M=128 and the sweep's B=262,144, D=8, M=128; with kernel 1 at the
+   ill-conditioned oracle shape against the float64 plain version
+   (Ktilde's and S2's errors logged); timed beside kernel 1, the sweep's
+   bar and the plain versions; then the bench's variants mode, their main
+   path, with its exact launches;
+17. kernel 10 (the bench's tile gather) bit-equal to index_select on the
+   tile view (tiles of 32 and 64 rows, a ragged T, the scalar paths),
+   timed beside it; then the bench's gather mode with its exact launches;
+18. the bench's entry point, ``python3 -m agp_tpu_torch.bench`` at a cut
+   step count in a child process: its JSON line parses and its rate is
+   finite and positive.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -79,7 +92,9 @@ the kernels' JSON line, then the device JSON line last.
 Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``,
 ``profile multiclass`` or ``profile hyper A|B`` (torch.profiler over 20
 steps of an M=512 path, or 20 iterations of path A or B with a
-hyperparameter step each), ``moved-paths [ROOT]`` (a row-weighted step and elbo at fused-range
+hyperparameter step each), ``profile kernels`` (device time of the bench's
+candidates: kernels 1, 8, 9, the sweep's bar, kernel 10 and index_select),
+``moved-paths [ROOT]`` (a row-weighted step and elbo at fused-range
 shapes, with agp_tpu_torch from ROOT when given).
 """
 from __future__ import annotations
@@ -887,7 +902,7 @@ def expect_launches(ck, label, want):
     """Fails unless the run just made launched each kernel as many times as
     ``want`` names (route_launches) and nothing else; adds them to
     LAUNCHES and returns their sum."""
-    counts = {name: getattr(ck, name).launches for name in LAUNCH_COUNTERS}
+    counts = {name: wrapper(ck, name).launches for name in LAUNCH_COUNTERS}
     expected = {name: want.get(name, 0) for name in LAUNCH_COUNTERS}
     if counts != expected:
         raise AssertionError(f"{label}: launched {counts}, expected {expected}")
@@ -1025,12 +1040,24 @@ def plain_kernels(ck, names=("fused_cavi_stats",)):
 # the kernels of the split pairs: batched (4-5) and single-latent (6-7)
 SPLIT_PAIRS = ("fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats")
 LAUNCH_COUNTERS = ("fused_cavi_stats", "fused_cavi_stats_multiclass", "fused_cavi_stats_het",
-                   "fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats")
+                   "fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats",
+                   "direct_stats", "two_factor_nt", "gather_row_tiles")
+
+
+def wrapper(ck, name):
+    """The wrapper of kernel ``name``: one of ops/cuda_kernels.py, or one of
+    the bench's kernels (agp_tpu_torch/benchmarks/)."""
+    from agp_tpu_torch.benchmarks import fused_variants, gather_modes
+
+    for module in (ck, fused_variants, gather_modes):
+        if hasattr(module, name):
+            return getattr(module, name)
+    raise KeyError(name)
 
 
 def reset_launches(ck):
     for name in LAUNCH_COUNTERS:
-        getattr(ck, name).launches = 0
+        wrapper(ck, name).launches = 0
 
 
 # -------------------------------------------- the batched pair's phases
@@ -1646,6 +1673,41 @@ def profile_pair_path(agt, device, which):
         log(f"  {us:10.1f} us/step  x{count:.1f}  {key[:100]}")
 
 
+def profile_bench_kernels(device, n=20):
+    """torch.profiler over n calls of each candidate of the bench's variants
+    mode at each of its shapes, and of kernel 10 and index_select at the
+    flagship's draw (``python3 chip_smoke.py profile kernels``): device us
+    a call, in all and by the kernels each call launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.benchmarks import gather_modes as gm
+
+    cases = []
+    for b, d, m in bench.VARIANT_SHAPES:
+        calls = bench.variant_calls(bench.sweep_inputs(b, d, m, device))
+        cases += [(f"{name} B={b} D={d} M={m}", fn) for name, fn in calls.items()]
+    X, _ = flagship_data(device)
+    for tr in (32, 64):
+        tidx = torch.randint(0, N // tr, (B // tr,), device=device,
+                             generator=torch.Generator(device=device).manual_seed(0))
+        view = X[: N // tr * tr].reshape(N // tr, tr, D)
+        cases.append((f"gather_row_tiles B={B} D={D} tr={tr}",
+                       lambda tidx=tidx, tr=tr: gm.gather_row_tiles(X, tidx, tile_rows=tr)))
+        cases.append((f"index_select B={B} D={D} tr={tr}", lambda view=view, tidx=tidx: view.index_select(0, tidx)))
+    for label, fn in cases:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in prof.key_averages()
+                       if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
+        log(f"profile {label}: device {sum(r[0] for r in rows):.2f} us a call; "
+            + "; ".join(f"{key[:70]} {us:.2f} us x{count:.0f}" for us, count, key in rows[:5]))
+
+
 MOVED_CALLS = 200
 
 
@@ -1694,6 +1756,238 @@ def time_moved_paths(agt, device):
             f"{step_us:.1f} us, elbo {elbo_us:.1f} us per call over {MOVED_CALLS} calls (ELBO {float(value):.6g})")
 
 
+# ------------------------------------------ the bench's kernels (8-10)
+# shapes (B, D, M) at which kernels 8-9 are held against their plain
+# versions: the flagship's statistics, a ragged B with M=128, and the
+# sweep's in-range row (benchmarks/fused_variants.py:281)
+VARIANT_CASES = ((B, D, M), (300, D, 128), (262_144, 8, 128))
+# the bench's variants and gather modes as phases 16-17 drive them: timed
+# calls of each candidate (a tenth at B=262,144) and draws of each arm
+VARIANT_REPS, GATHER_DRAWS = 20, 500
+# the sweep's in-range row is timed with fewer calls
+BIG_VARIANT_REPS = 10
+# the bench's primary line at a cut step count (phase 18)
+BENCH_ITERS, BENCH_CHUNK = 1000, 500
+STATS_NAMES = ("s1", "S2", "c", "theta", "mf", "vf")
+
+
+def variant_kernels(fv):
+    """{label: (kernel, plain version, keywords)} of kernel 8 (each variant)
+    and kernel 9."""
+    out = {f"direct_stats/{v}": (fv.direct_stats, fv.direct_stats_reference, {"variant": v}) for v in fv.VARIANTS}
+    out["two_factor_nt"] = (fv.two_factor_nt, fv.two_factor_nt_reference, {})
+    return out
+
+
+def sweep_call(fn, t, **kw):
+    """fn on the sweep's inputs t (agp_tpu_torch.bench.sweep_inputs)."""
+    from agp_tpu_torch import bench
+
+    return fn(*bench.sweep_args(t), **kw)
+
+
+def ill_conditioned_inputs(agt, device, seed=0):
+    """Card tensors of kernels 1, 8 and 9 at the oracle paths' shape
+    (B=8192, D=2, M=128, lengthscale 1, Z on the batch's rows, L^-T from
+    the float32 Cholesky with jitter 1e-3, as phase 3 takes it), with a
+    random mu and Sigma = 0, so that vf is Ktilde itself."""
+    from agp_tpu_torch.ops import linalg
+
+    X, y, _ = oracle_data("logistic", "cpu")
+    rng = np.random.default_rng(seed)
+    t = {"X": X[:OB], "y": y[:OB], "Z": X[:OM], "mu": torch.as_tensor(rng.normal(size=OM), dtype=torch.float32),
+         "Sigma": torch.zeros((OM, OM))}
+    t = {k: v.to(device).contiguous() for k, v in t.items()}
+    L = linalg.safe_cholesky(agt.SqExponentialKernel().gram(t["Z"]), 1e-3)
+    t["L_invT"] = torch.linalg.solve_triangular(L, torch.eye(OM, device=device), upper=False).T.contiguous()
+    return t
+
+
+def ill_call(fn, t, **kw):
+    return fn(t["X"], t["y"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], 1.0, 1.0, 1e-3, ON / OB, **kw)
+
+
+def phase_variant_kernels_vs_plain(agt, ck, device):
+    """Kernels 8 (every variant) and 9 against their plain versions on the
+    same card tensors at VARIANT_CASES, within KERNEL_TOL; then, with kernel
+    1, at the ill-conditioned oracle shape against the float64 plain
+    version (FLOAT32_FACTOR), where Ktilde's and S2's errors are logged for
+    each (kernel / float32 plain version); then each timed at the flagship
+    shape (plain, kernel, kernel, plain) beside kernel 1 and the sweep's bar
+    xla_stats_reference (library_ms), and at the sweep's row.  Returns
+    ({kernel: largest abs error}, {label: {output: (kernel, plain) error
+    against float64}}, {label: (ms, plain ms)}, kernel 1 ms, bar ms,
+    {label: (ms, plain ms)} at the sweep's row, (kernel 1, bar) ms there)."""
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.benchmarks import fused_variants as fv
+
+    worst = {"direct_stats": 0.0, "two_factor_nt": 0.0}
+    kernels = variant_kernels(fv)
+    for b, d, m in VARIANT_CASES:
+        t = bench.sweep_inputs(b, d, m, device)
+        for label, (kern, plain, kw) in kernels.items():
+            got = sweep_call(kern, t, **kw)
+            torch.cuda.synchronize()
+            ref = sweep_call(plain, t, **kw)
+            torch.cuda.synchronize()
+            row = check_outputs(f"{label} B={b} D={d} M={m}", STATS_NAMES, got, ref)
+            worst[kern.__name__] = max(worst[kern.__name__], *row.values())
+            log(f"{label} vs plain B={b} D={d} M={m}: max abs err " + " ".join(f"{k}={v:.2e}" for k, v in row.items()))
+        del t, got, ref
+
+    t = ill_conditioned_inputs(agt, device)
+    t64 = to_float64(t)
+    ill = {}
+    for label, fn, plain, kw in (
+        ("fused_cavi_stats", ck.fused_cavi_stats, ck.fused_cavi_stats_reference, {"kind": "rbf", "lik": "logistic"}),
+        ("direct_stats/nt", fv.direct_stats, fv.direct_stats_reference, {"variant": "nt"}),
+        ("two_factor_nt", fv.two_factor_nt, fv.two_factor_nt_reference, {}),
+    ):
+        got = ill_call(fn, t, **kw)
+        torch.cuda.synchronize()
+        ref, ref64 = ill_call(plain, t, **kw), ill_call(plain, t64, **kw)
+        check_outputs(f"{label} at B={OB}, D=2, M={OM}, Sigma = 0", STATS_NAMES, got, ref, ref64)
+
+        def against64(i):
+            scale = max(float(ref64[i].abs().max()), 1.0)
+            return tuple(float((o[i].double() - ref64[i]).abs().max()) / scale for o in (got, ref))
+
+        ill[label] = {"Ktilde": against64(5), "S2": against64(1), "mf": against64(4)}
+        log(f"ill-conditioned {label} (B={OB}, D=2, M={OM}, ls 1, Sigma = 0, vf = Ktilde) against float64, "
+            "kernel / float32 plain: " + " ".join(f"{k}={a:.3e}/{p:.3e}" for k, (a, p) in ill[label].items()))
+
+    times, big = {}, {}
+    t = bench.sweep_inputs(B, D, M, device)
+    for label, (kern, plain, kw) in kernels.items():
+        times[label] = timed_pair(lambda: sweep_call(kern, t, **kw), lambda: sweep_call(plain, t, **kw))
+    calls = bench.variant_calls(t)
+    k1_ms, bar_ms = cuda_ms(calls["fused_cavi_stats"]), cuda_ms(calls["xla_stats_reference"])
+    log(f"kernels 8-9 at B={B} D={D} M={M}, ms (plain): " + " ".join(
+        f"{k} {a:.4f} ({p:.4f})" for k, (a, p) in times.items()) + f"; kernel 1 {k1_ms:.4f}, xla_stats_reference {bar_ms:.4f}")
+    b, d, m = VARIANT_CASES[-1]
+    t = bench.sweep_inputs(b, d, m, device)
+    for label, (kern, plain, kw) in kernels.items():
+        if label != "direct_stats/transpose":  # the same instance as nt
+            big[label] = timed_pair(lambda: sweep_call(kern, t, **kw), lambda: sweep_call(plain, t, **kw),
+                                    BIG_VARIANT_REPS)
+    calls = bench.variant_calls(t)
+    big_k1 = (cuda_ms(calls["fused_cavi_stats"], BIG_VARIANT_REPS), cuda_ms(calls["xla_stats_reference"], BIG_VARIANT_REPS))
+    log(f"kernels 8-9 at B={b} D={d} M={m}, ms (plain): " + " ".join(
+        f"{k} {a:.4f} ({p:.4f})" for k, (a, p) in big.items()) + f"; kernel 1 {big_k1[0]:.4f}, "
+        f"xla_stats_reference {big_k1[1]:.4f}")
+    return worst, ill, times, k1_ms, bar_ms, big, big_k1
+
+
+def phase_bench_variants(ck):
+    """The bench's variants mode (agp_tpu_torch.bench.variants), the main
+    path of kernels 8-9: counts reset before it and read after it, each
+    candidate launched once for its error and 1 + variant_reps times for
+    its time at each shape; every candidate's s1/S2 within 1e-3 of the
+    float64 plain version."""
+    from agp_tpu_torch import bench
+
+    reset_launches(ck)
+    rows = bench.variants(reps=VARIANT_REPS)
+    torch.cuda.synchronize()
+    calls = sum(2 + bench.variant_reps(b, VARIANT_REPS) for b, _, _ in bench.VARIANT_SHAPES)
+    launches = expect_launches(ck, "bench variants",
+                               {"fused_cavi_stats": calls, "direct_stats": 2 * calls, "two_factor_nt": calls})
+    for row in rows:
+        errs = {k: v for k, v in row.items() if k.endswith("_err")}
+        if not all(e <= 1e-3 for e in errs.values()):
+            raise AssertionError(f"bench variants at B={row['B']}, M={row['M']}: {errs}")
+        log(f"bench variants: {json.dumps(row)}")
+    log(f"bench variants: {launches} launches")
+    return rows
+
+
+def phase_gather_vs_plain(device):
+    """Kernel 10 bit-equal to its plain version (index_select on the tile
+    view: a copy) at the flagship's draw with tiles of 32 and 64 rows, at a
+    ragged T with int32 indices, with 99-float tiles (D=33, tr=3) and with
+    16-byte tiles from an unaligned view (the scalar paths); then timed at
+    the flagship's draw beside its plain version (plain, kernel, kernel,
+    plain) and index_select on the view alone (library_ms).  Returns
+    ({tr: (ms, plain ms)}, {tr: library ms})."""
+    from agp_tpu_torch.benchmarks import gather_modes as gm
+
+    X, _ = flagship_data(device)
+    rng = np.random.default_rng(1)
+    X33 = torch.as_tensor(rng.normal(size=(1000, 33)).astype(np.float32), device=device)
+    X6 = torch.as_tensor(rng.normal(size=(1001, 6)).astype(np.float32), device=device)[1:]
+    gen = torch.Generator(device=device).manual_seed(0)
+    cases = [(X, 32, B // 32, torch.int64), (X, 64, B // 64, torch.int64), (X, 32, 77, torch.int32),
+             (X33, 3, 50, torch.int64), (X6, 2, 40, torch.int64)]
+    for Xc, tr, T, dt in cases:
+        tidx = torch.randint(0, Xc.shape[0] // tr, (T,), generator=gen, device=device).to(dt)
+        got = gm.gather_row_tiles(Xc, tidx, tile_rows=tr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, gm.gather_row_tiles_reference(Xc, tidx, tile_rows=tr)):
+            raise AssertionError(f"gather_row_tiles differs from index_select at D={Xc.shape[1]}, tr={tr}, T={T}")
+        log(f"gather_row_tiles bit-equal to its plain version: D={Xc.shape[1]}, tr={tr}, T={T}, {dt}")
+    times, library = {}, {}
+    for tr in (32, 64):
+        tidx = torch.randint(0, N // tr, (B // tr,), generator=gen, device=device)
+        view = X[: N // tr * tr].reshape(N // tr, tr, D)
+        times[tr] = timed_pair(lambda: gm.gather_row_tiles(X, tidx, tile_rows=tr),
+                               lambda: gm.gather_row_tiles_reference(X, tidx, tile_rows=tr))
+        library[tr] = cuda_ms(lambda: view.index_select(0, tidx))
+        log(f"gather_row_tiles B={B} D={D} tr={tr}: kernel {times[tr][0]:.4f} ms, plain {times[tr][1]:.4f} ms, "
+            f"index_select {library[tr]:.4f} ms")
+    return times, library
+
+
+def phase_bench_gather(ck):
+    """The bench's gather mode (agp_tpu_torch.bench.gather), the main path
+    of kernel 10: counts reset before it and read after it, one launch for
+    its check and 2 (1 + draws) for its times at each tile height."""
+    from agp_tpu_torch import bench
+
+    reset_launches(ck)
+    rows = bench.gather(draws=GATHER_DRAWS)
+    torch.cuda.synchronize()
+    launches = expect_launches(ck, "bench gather",
+                               {"gather_row_tiles": len(bench.GATHER_TILES) * (1 + 4 * GATHER_DRAWS)})
+    log(f"bench gather: {json.dumps(rows)}; {launches} launches")
+    return rows
+
+
+def phase_bench_entry():
+    """The bench's primary line (``python3 -m agp_tpu_torch.bench``) in a
+    child process, at BENCH_ITERS timed steps: its last line must parse,
+    name the port's metric and give a finite positive rate."""
+    proc = subprocess.run([sys.executable, "-m", "agp_tpu_torch.bench", "--iters", str(BENCH_ITERS),
+                           "--chunk", str(BENCH_CHUNK)], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the bench exited {proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    for line in lines[:-1]:
+        log(f"  [bench] {line}")
+    result = json.loads(lines[-1])
+    value = result.get("value")
+    if result.get("metric") != "torch_cavi_iters_per_sec_svgp_m64_logistic_b4096" or not (
+            isinstance(value, float) and value > 0 and value < float("inf")):
+        raise AssertionError(f"the bench's line is wrong: {lines[-1]}")
+    log(f"bench entry point ({BENCH_ITERS} timed steps): {lines[-1]}")
+    return result
+
+
+def variant_bound(b, d, m, two_factor):
+    """Kernels 8-9 as fused_bound for one latent (logistic: 5 words a row
+    beyond x), with kappa in the two-factor form as two triangular products
+    (W = Knm L^-T, kappa = W L^-1: ``sym_fmas`` each) instead of one M^2."""
+    kappa = 2 * sym_fmas(m) if two_factor else m * m
+    fmas = b * (kappa + 2 * sym_fmas(m) + m * d + 5 * m)
+    return bound(fmas, 4 * (b * d + 5 * b + m * d + 3 * m * m + 2 * m))
+
+
+def gather_bound(t, tr, d):
+    """Kernel 10: no arithmetic; reads T tiles of tr D floats and T int64
+    indices, writes the T tiles."""
+    return bound(0, 2 * 4 * t * tr * d + 8 * t)
+
+
 def ms_table(pairs):
     return {k: {"ms": kern, "plain_ms": plain} for k, (kern, plain) in pairs.items()}
 
@@ -1727,6 +2021,9 @@ def main():
         launches, ips = phase_studentt_rate(agt, ck, device)
         print(json.dumps({"launches": launches, "ips": ips}))
         return
+    if sys.argv[1:3] == ["profile", "kernels"]:
+        profile_bench_kernels(device)
+        return
     if sys.argv[1:3] == ["profile", "hyper"]:
         profile_hyper_path(agt, device, sys.argv[3] if len(sys.argv) > 3 else "A")
         return
@@ -1759,6 +2056,13 @@ def main():
     for which in ("A", "B"):
         timed_phase(f"hyper path {which}", phase_hyper_path, agt, ck, device, which)
     timed_phase("hyper parity", phase_hyper_parity, agt, ck, device)
+
+    variant_err, ill, variant_ms, k1_sweep_ms, bar_ms, big_ms, big_k1 = timed_phase(
+        "kernels 8-9 vs plain", phase_variant_kernels_vs_plain, agt, ck, device)
+    timed_phase("bench variants", phase_bench_variants, ck)
+    gather_ms, gather_library = timed_phase("kernel 10 vs plain", phase_gather_vs_plain, device)
+    timed_phase("bench gather", phase_bench_gather, ck)
+    timed_phase("bench entry point (child)", phase_bench_entry)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {
@@ -1768,6 +2072,9 @@ def main():
     }
     bounds["fused_kappa_moments_batched"], bounds["cavi_stats_batched"] = pair_bounds(LB, LD, PM, 1)
     bounds["fused_kappa"], bounds["cavi_stats"] = single_bounds(LB, LD, PM)
+    bounds["direct_stats"] = variant_bound(B, D, M, False)
+    bounds["two_factor_nt"] = variant_bound(B, D, M, True)
+    bounds["gather_row_tiles"] = gather_bound(B // 32, 32, D)
     main_shape = "logistic_m512_b65536"
     kernels = {"kernels": [{
         "name": "fused_cavi_stats",
@@ -1780,6 +2087,8 @@ def main():
         "per_lik_ms": ms_table(per_lik),
         "per_kind_ms": ms_table(per_kind),
         "oracle_shape_ms": ms_table({"studentt/rbf": oracle_ms}),
+        "library_ms": bar_ms,
+        "library": "xla_stats_reference at the flagship shape (phase 16)",
     }] + [{
         "name": name,
         "route": "cuda",
@@ -1805,7 +2114,33 @@ def main():
         ("cavi_stats_batched", 486, "batched_pair.cu", pair),
         ("fused_kappa", 213, "kappa_single.cu", single),
         ("cavi_stats", 545, "kappa_single.cu", single),
-    )]}
+    )] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "agp_tpu_torch/csrc/fused_variants.cu",
+        "replaces": f"benchmarks/fused_variants.py:{line}",
+        "max_abs_err": variant_err[name],
+        "ms": variant_ms[label][0],
+        "plain_ms": variant_ms[label][1],
+        "per_variant_ms": ms_table({k: v for k, v in variant_ms.items() if k.startswith(name)}),
+        "sweep_row_ms": ms_table({k: v for k, v in big_ms.items() if k.startswith(name)}),
+        "library_ms": bar_ms,
+        "library": "xla_stats_reference",
+        "kernel_1_ms": {"flagship": k1_sweep_ms, "sweep_row": big_k1[0]},
+        "sweep_row_library_ms": big_k1[1],
+        "ill_conditioned_vs_float64": {k: v for k, v in ill.items() if k.startswith(name) or k == "fused_cavi_stats"},
+    } for name, line, label in (("direct_stats", 132, "direct_stats/nt"), ("two_factor_nt", 214, "two_factor_nt"))] + [{
+        "name": "gather_row_tiles",
+        "route": "cuda",
+        "source": "agp_tpu_torch/csrc/gather_tiles.cu",
+        "replaces": "benchmarks/gather_modes.py:218",
+        "max_abs_err": 0.0,
+        "ms": gather_ms[32][0],
+        "plain_ms": gather_ms[32][1],
+        "per_tile_ms": ms_table({f"tile{tr}": v for tr, v in gather_ms.items()}),
+        "library_ms": gather_library[32],
+        "per_tile_library_ms": {f"tile{tr}": v for tr, v in gather_library.items()},
+    }]}
     for k in kernels["kernels"]:
         k["launches"] = LAUNCHES.get(k["name"], 0)
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]

@@ -470,3 +470,127 @@ def test_train_with_the_default_adam_launches_kernel_6(cuda_device, m):
     logs = smoke.log_hypers(model)
     assert torch.isfinite(logs).all() and float((logs - torch.tensor([np.log(2.0), 0.0])).abs().max()) > 1e-2
     assert torch.isfinite(state.mu).all()
+
+
+# ---------------------------------------------- the bench's kernels (8-10)
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,m", list(smoke.VARIANT_CASES) + [(1, 3, 1), (65, 44, 128)])
+def test_cuda_fused_variants_match_plain(cuda_device, b, d, m):
+    """Kernels 8 (every variant) and 9 against their plain versions on the
+    same card tensors (the sweep's inputs), both float32: 1e-4 of each
+    output's largest entry; one launch each.  B=300 and B=65 leave a ragged
+    last tile, whose rows the plain versions do not have; D=44 at M=128 is
+    the largest fused_fits shape."""
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.benchmarks import fused_variants as fv
+
+    t = bench.sweep_inputs(b, d, m, cuda_device)
+    for label, (kern, plain, kw) in smoke.variant_kernels(fv).items():
+        before = kern.launches
+        got = smoke.sweep_call(kern, t, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        smoke.check_outputs(f"{label} B={b} D={d} M={m}", smoke.STATS_NAMES, got, smoke.sweep_call(plain, t, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_variants_ill_conditioned(cuda_device):
+    """Kernels 1, 8 and 9 at the oracle shape (B=8192, D=2, M=128,
+    lengthscale 1), Sigma = 0: each output against its plain version in
+    float64 within FLOAT32_FACTOR times the float32 plain version's own
+    error (chip_smoke.check_outputs)."""
+    from agp_tpu_torch.benchmarks import fused_variants as fv
+
+    t = smoke.ill_conditioned_inputs(agt, cuda_device)
+    for fn, plain, kw in ((ck.fused_cavi_stats, ck.fused_cavi_stats_reference, {"kind": "rbf", "lik": "logistic"}),
+                          (fv.direct_stats, fv.direct_stats_reference, {"variant": "packed"}),
+                          (fv.two_factor_nt, fv.two_factor_nt_reference, {})):
+        got = smoke.ill_call(fn, t, **kw)
+        torch.cuda.synchronize()
+        smoke.check_outputs(fn.__name__, smoke.STATS_NAMES, got, smoke.ill_call(plain, t, **kw),
+                            smoke.ill_call(plain, smoke.to_float64(t), **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_variants_raise(cuda_device):
+    """On a CUDA tensor kernels 8-9 launch or raise: float64, M beyond
+    fused_fits, a wrong shape, an unknown variant."""
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.benchmarks import fused_variants as fv
+
+    t = bench.sweep_inputs(64, 4, 16, cuda_device)
+    before = (fv.direct_stats.launches, fv.two_factor_nt.launches)
+    with pytest.raises(TypeError):
+        smoke.sweep_call(fv.direct_stats, {**t, "X": t["X"].double()})
+    with pytest.raises(ValueError, match="fused_fits"):
+        smoke.sweep_call(fv.two_factor_nt, bench.sweep_inputs(64, 4, ck.MAX_M + 1, cuda_device))
+    with pytest.raises(ValueError, match="fused_fits"):
+        smoke.sweep_call(fv.direct_stats, bench.sweep_inputs(64, 45, 128, cuda_device))
+    with pytest.raises(ValueError):
+        smoke.sweep_call(fv.two_factor_nt, {**t, "y": t["y"][:10]})
+    with pytest.raises(ValueError, match="variants"):
+        smoke.sweep_call(fv.direct_stats, t, variant="tn")
+    assert (fv.direct_stats.launches, fv.two_factor_nt.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,tr,T,dtype,offset", [
+    (200_000, 20, 32, 128, torch.int64, 0), (200_000, 20, 64, 64, torch.int64, 0), (200_000, 20, 32, 77, torch.int32, 0),
+    (1000, 33, None, 9, torch.int64, 0), (1000, 33, 3, 50, torch.int64, 0), (1001, 6, 2, 40, torch.int32, 1),
+])
+def test_cuda_gather_equals_plain(cuda_device, n, d, tr, T, dtype, offset):
+    """Kernel 10 bit-equal to index_select on the tile view (it is a copy),
+    on 16-byte vectors and on the scalar paths (99-float tiles; a view that
+    starts 24 bytes into its storage); one launch."""
+    from agp_tpu_torch.benchmarks import gather_modes as gm
+
+    X = torch.as_tensor(np.random.default_rng(8).normal(size=(n + offset, d)).astype(np.float32), device=cuda_device)
+    X = X[offset:]
+    rows = gm.gather_tile_rows(d) if tr is None else tr
+    tidx = torch.randint(0, n // rows, (T,), device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    tidx = tidx.to(dtype)
+    before = gm.gather_row_tiles.launches
+    got = gm.gather_row_tiles(X, tidx, tile_rows=tr)
+    torch.cuda.synchronize()
+    assert gm.gather_row_tiles.launches == before + 1
+    assert torch.equal(got, gm.gather_row_tiles_reference(X, tidx, tile_rows=tr))
+
+
+@pytest.mark.cuda
+def test_cuda_gather_raises(cuda_device):
+    """On a CUDA tensor kernel 10 launches or raises: float64 X, float
+    indices, indices on the CPU, an empty draw."""
+    from agp_tpu_torch.benchmarks import gather_modes as gm
+
+    X = torch.zeros((640, 20), device=cuda_device)
+    tidx = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    before = gm.gather_row_tiles.launches
+    with pytest.raises(TypeError):
+        gm.gather_row_tiles(X.double(), tidx)
+    with pytest.raises(TypeError):
+        gm.gather_row_tiles(X, tidx.float())
+    with pytest.raises(ValueError):
+        gm.gather_row_tiles(X, tidx.cpu())
+    with pytest.raises(ValueError):
+        gm.gather_row_tiles(X, tidx[:0])
+    assert gm.gather_row_tiles.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_refuses_a_float64_model(cuda_device):
+    """A float64 model on the card is refused when it is built, and one
+    moved there later when its state is made: TypeError naming float32 and
+    set_default_device("cpu"), before any kernel runs."""
+    X = torch.as_tensor(np.random.default_rng(9).normal(size=(512, 3)), device=cuda_device)
+    y = torch.sign(X[:, 0])
+    make = lambda Z: agt.SVGP.create(agt.SqExponentialKernel(), agt.LogisticLikelihood.create(),  # noqa: E731
+                                     agt.AnalyticSVI(128), Z, optimiser=None)
+    with pytest.raises(TypeError, match=r'float32.*set_default_device\("cpu"\)'):
+        make(X[:16])
+    moved = make(X[:16].float()).to(dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        agt.init_state(moved, X, y)
+    with pytest.raises(TypeError, match="float32"):
+        agt.train(moved, X, y, iterations=2)
+    model, state = agt.train(make(X[:16].float()), X.float(), y.float(), iterations=2)
+    assert torch.isfinite(state.mu).all()

@@ -9,6 +9,7 @@ import torch
 
 import agp_tpu_torch as agt
 from agp_tpu_torch import config
+from agp_tpu_torch.models.base import check_card_dtype
 
 
 @pytest.fixture
@@ -69,3 +70,29 @@ def test_set_default_device_takes_cuda_or_cpu():
         assert config.default_device() == torch.device("cpu")
     finally:
         config.set_default_device(previous)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_card_refuses_what_its_kernels_do_not_take(dtype):
+    """The rule that SVGP.create and init_state apply, checked without a
+    card: a model or data that is not float32 on a CUDA device raises
+    TypeError, whose message names float32 and set_default_device("cpu");
+    float32 on the card and any dtype on the CPU pass."""
+    with pytest.raises(TypeError, match=r'float32 only.*set_default_device\("cpu"\)'):
+        check_card_dtype(torch.device("cuda"), dtype)
+    with pytest.raises(TypeError, match="data"):
+        check_card_dtype("cuda:0", dtype, "data")
+    check_card_dtype(torch.device("cuda:0"), torch.float32)
+    check_card_dtype(torch.device("cpu"), dtype)
+
+
+def test_float64_model_on_the_cpu_is_not_refused():
+    """A model cast to float64 after it was built passes init_state's
+    check on the CPU and trains."""
+    X, y = data()
+    model = create(torch.as_tensor(X[:32], dtype=torch.float32)).to(dtype=torch.float64)
+    X64 = torch.as_tensor(X)
+    state = agt.init_state(model, X64, torch.as_tensor(y))
+    assert state.mu.dtype == torch.float64
+    model, state = agt.train(model, X64, y, iterations=5, state=state)
+    assert torch.isfinite(state.mu).all()
