@@ -13,46 +13,38 @@
 //     and writes kappa [L, B, M] row-major (the layout the JAX function
 //     returns), mf and vf [L, B].
 //   * cavi_stats_batched (:486, pallas_call at :503, body
-//     _stats_batched_kernel): stats_batched below.  s1[l] = kappa[l]^T g[l],
-//     S2[l] = kappa[l]^T diag(theta[l]) kappa[l].
+//     _stats_batched_kernel): s1[l] = kappa[l]^T g[l], S2[l] =
+//     kappa[l]^T diag(theta[l]) kappa[l], by the 3xTF32 tensor-core tiles
+//     of stats_tc.cuh (stats_tc, then sum_tiles), which kernel 7 runs with
+//     one latent; that file says what bounds them and why S2 may take the
+//     tensor cores.
 // Between the two the caller runs the likelihood's E-step, which may couple
 // the latents (logistic-softmax, heteroscedastic); that is why kappa goes
-// through device memory.  The gram tile, the panel product and kernel 5's
-// device code live in pair_core.cuh, which the single-latent split pair
-// (kappa_single.cu) shares.
+// through device memory.  The gram tile and the panel product live in
+// pair_core.cuh, which the single-latent split pair (kappa_single.cu)
+// shares.
 //
-// What bounds them on an H100: FMAs.  Per row and latent kernel 4 does
-// 2 M^2 FMAs (kappa = Knm K^-1 and kappa Sigma) and kernel 5 M (M+1)/2 (the
-// upper triangle of S2), against 4 M bytes of kappa written and read back;
-// 34 G + 8.6 G FMAs at B=65,536, M=512, about 1.3 ms at the card's FP32
-// peak, against 0.08 ms for the kappa round trip at 3.35 TB/s.  The
-// operands K^-1 and Sigma (1 MB each per latent at M=512) and kappa come
-// from L2, not from device memory, so the design is about feeding the FMA
-// units from shared memory:
-// * The TPU kernels keep K^-1 and Sigma resident in VMEM.  A Hopper block
+// What bounds kernel 4 on an H100: FMAs.  Per row and latent it does
+// 2 M^2 FMAs (kappa = Knm K^-1 and kappa Sigma) against 4 M bytes of kappa
+// written: 34 G FMAs at B=65,536, M=512, about 1 ms at the card's FP32
+// peak, against 0.04 ms for writing kappa at 3.35 TB/s.  The operands K^-1
+// and Sigma (1 MB each per latent at M=512) come from L2, not from device
+// memory, so the design is about feeding the FMA units from shared memory:
+// * The TPU kernel keeps K^-1 and Sigma resident in VMEM.  A Hopper block
 //   has 227 KB of shared memory, so kernel 4 streams them through a
 //   [16, 256] panel (16 KB) instead, prefetched into registers one panel
 //   ahead of the one in use, and keeps resident only its row tile's gram
 //   and kappa ([TB, M] each, TB = 32 rows, or 16 when M is too large for
 //   32: up to M = 1,680 on an H100).
-// * Both kernels are register-tiled products: in kernel 4 each thread holds
-//   an 8 x 4 block of the output, so one 16-byte shared load feeds 32 FMAs;
-//   in kernel 5 an 8 x 8 block of a 128 x 128 output tile of S2 (16 FMAs a
-//   load), with two shared stages so that a step takes one barrier.
-// * Kernel 4's row reductions (Ktilde, mf, vf) ride in the products'
-//   epilogues and are summed by warp shuffles in a fixed order.
-// * The TPU grid accumulates S2 in one resident block over the batch.
-//   CUDA blocks run in parallel, so kernel 5 gives each block one output
-//   tile (upper triangle only: S2 is symmetric) and one chunk of rows; the
-//   chunk partials, a few per latent, are added in chunk order by a second
-//   launch: deterministic, no atomics.  The caller sizes the chunks so
-//   that every block of the grid is resident at once (one wave of equal
-//   blocks, from the occupancy API); their number does not grow with B.
+// * A register-tiled product: each thread holds an 8 x 4 block of the
+//   output, so one 16-byte shared load feeds 32 FMAs.
+// * The row reductions (Ktilde, mf, vf) ride in the products' epilogues
+//   and are summed by warp shuffles in a fixed order.
 // * The ragged edges are masked here, from B and M; nothing is padded on
 //   the host.  The gram is the direct sum_d (x_d - z_d)^2 over feature
 //   chunks of 8 (any D), the kind a template parameter.
-// * FP32 FMA throughout, no TF32 and no tensor cores: kappa = Knm K^-1
-//   cancels by cond(Kmm).
+// * Kernel 4 is FP32 FMA throughout, no TF32 and no tensor cores:
+//   kappa = Knm K^-1 cancels by cond(Kmm).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -174,15 +166,12 @@ extern "C" {
 
 size_t agp_kappa_moments_smem_bytes(int M, int tile_rows) { return km_smem(M, tile_rows); }
 
-int agp_cavi_stats_tile(void) { return ST; }
+// edge of kernels 5 and 7's output tiles
+int agp_cavi_stats_tile(void) { return TILE; }
 
-// resident blocks of kernel 5 on one SM of the current device (0 on error)
-int agp_cavi_stats_blocks_per_sm(void) {
-  int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stats_batched, S_THREADS, 0) != cudaSuccess)
-    return 0;
-  return n;
-}
+// resident blocks of kernels 5 and 7 on one SM of the current device (0 on
+// error)
+int agp_cavi_stats_blocks_per_sm(void) { return stats_blocks_per_sm(); }
 
 // All pointers are device pointers to contiguous float32 arrays:
 // x [B, D], z [L, M, D], kinv [L, M, M], mu [L, M], sigma [L, M, M],
@@ -208,10 +197,10 @@ int agp_fused_kappa_moments_batched(const float* x, const float* z, const float*
   });
 }
 
-// kappa [L, B, M], g and theta [L, B]; outputs s1 [L, M], s2 [L, M, M];
-// scratch s1_part [L, nchunks, M], s2_part [L, nchunks, M, M], with
-// nchunks = ceil(B / rows_per_chunk).  Returns the CUDA error of the
-// launches.
+// kappa [L, B, M], g and theta [L, B]; outputs s1 [L, M], s2 [L, M, M]
+// (exactly symmetric); scratch s1_part [L, nchunks, M], s2_part
+// [L, nchunks, M, M], with nchunks = ceil(B / rows_per_chunk).  Returns the
+// CUDA error of the launches.
 int agp_cavi_stats_batched(const float* kappa, const float* g, const float* theta, float* s1_part,
                            float* s2_part, float* s1, float* s2, int B, int M, int L, int nchunks,
                            int rows_per_chunk, void* stream) {

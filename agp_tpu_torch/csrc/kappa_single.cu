@@ -14,8 +14,9 @@
 //     reference's latent_moments does (agp_tpu/inference/analytic_vi.py:
 //     413-416), and differentiates through the plain version's vjp.
 //   * cavi_stats (:545, pallas_call at :553, body _stats_kernel):
-//     s1 = kappa^T g, S2 = kappa^T diag(theta) kappa, by kernel 5's device
-//     code (pair_core.cuh) with one latent: agp_cavi_stats below.
+//     s1 = kappa^T g, S2 = kappa^T diag(theta) kappa, by kernel 5's
+//     3xTF32 tensor-core tiles (stats_tc.cuh) with one latent:
+//     agp_cavi_stats below.
 //
 // What bounds kernel 6 on an H100: FMAs.  Per row B M^2 for kappa and M D
 // for the gram, against 4 M bytes of kappa written: at B=65,536, M=512,
@@ -29,7 +30,8 @@
 // the tile needs no second [TB, M] buffer: at M=512 a block takes 101 KB
 // and two fit an SM (see the launch bounds).  Ktilde's row sums ride in
 // the product's epilogue and are summed by warp shuffles in a fixed order.
-// FP32 FMA throughout, no TF32: kappa = Knm K^-1 cancels by cond(Kmm).
+// Kernel 6 is FP32 FMA throughout, no TF32: kappa = Knm K^-1 cancels by
+// cond(Kmm).
 // The ragged edges are masked from B and M; nothing is padded on the host.
 #include <cuda_runtime.h>
 #include <math.h>

@@ -4,12 +4,13 @@
 //     (gram_tile), and the register-tiled product of that tile with an
 //     [M, M] matrix streamed from device memory (L2) through a [KC, NP]
 //     panel (panel_product): kappa = Knm K^-1 in kernels 4 and 6, kappa Sigma
-//     in kernel 4;
-//   * kernel 5's statistics s1 = kappa^T g, S2 = kappa^T diag(theta) kappa
-//     (stats_batched, then sum_chunks), which kernel 7 runs with one latent.
-// See batched_pair.cu for what bounds these on an H100 and why they are
-// built so.  Everything is in an anonymous namespace: each source that
-// includes this header compiles its own copy.
+//     in kernel 4 (full FP32 FMA: kappa = Knm K^-1 cancels by cond(Kmm));
+//   * through stats_tc.cuh, the statistics s1 = kappa^T g and
+//     S2 = kappa^T diag(theta) kappa of kernels 5 and 7 (3xTF32 tensor-core
+//     tiles; that file says why they may use the tensor cores).
+// See batched_pair.cu for what bounds kernels 4 and 6 on an H100 and why
+// they are built so.  Everything is in an anonymous namespace: each source
+// that includes this header compiles its own copy.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,6 +18,7 @@
 #include <stddef.h>
 
 #include "gram.cuh"
+#include "stats_tc.cuh"
 
 namespace {
 
@@ -144,160 +146,6 @@ __device__ __forceinline__ void row_sums(const float (&v)[RM], float* out) {
     const float s = warp_sum(v[r]);
     if (lane == 0) out[half * TB + ty * RM + r] = s;
   }
-}
-
-// ---------------------------------------------------------- the statistics
-constexpr int ST = 128;  // edge of an output tile of S2
-constexpr int SKB = 8;   // rows staged per step
-constexpr int S_THREADS = 256;
-constexpr int S_PER = SKB * ST / S_THREADS;  // entries of each operand a thread stages
-
-// the t-th tile (ti <= tj) of the upper triangle of an nt x nt grid, row by row
-__device__ __forceinline__ void upper_tile(int t, int nt, int& ti, int& tj) {
-  ti = 0;
-  while (t >= nt - ti) {
-    t -= nt - ti;
-    ++ti;
-  }
-  tj = ti + t;
-}
-
-// Loads SKB rows from row b (zeros past b1 and M): theta kappa of tile ti's
-// columns into pa, kappa of tile tj's into pb, and g into pg; consecutive
-// threads on consecutive columns.
-__device__ __forceinline__ void load_rows(const float* __restrict__ kl, const float* __restrict__ gl,
-                                          const float* __restrict__ thl, int b, int b1, int M,
-                                          int m0, int n0, float (&pa)[S_PER], float (&pb)[S_PER],
-                                          float& pg) {
-#pragma unroll
-  for (int i = 0; i < S_PER; ++i) {
-    const int e = threadIdx.x + i * S_THREADS;
-    const int row = b + e / ST, c = e % ST;
-    const bool ok = row < b1;
-    const float th = ok ? __ldg(thl + row) : 0.0f;
-    pa[i] = (ok && m0 + c < M) ? __ldg(kl + (size_t)row * M + m0 + c) * th : 0.0f;
-    pb[i] = (ok && n0 + c < M) ? __ldg(kl + (size_t)row * M + n0 + c) : 0.0f;
-  }
-  if (threadIdx.x < SKB) pg = b + threadIdx.x < b1 ? __ldg(gl + b + threadIdx.x) : 0.0f;
-}
-
-__device__ __forceinline__ void fma4x4(float (&acc)[8][8], int r0, int c0, float4 a, float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r0 + r][c0 + j] = fmaf(av[r], bv[j], acc[r0 + r][c0 + j]);
-}
-
-// grid (upper tiles, chunks, L): the partial S2 tile (and, on a diagonal
-// tile, the partial s1 of its columns) of one chunk of rows.  Thread
-// (tx, ty) = (tid % 16, tid / 16) holds rows 4 ty + {0..3} and 64 + 4 ty +
-// {0..3}, columns 4 tx + {0..3} and 64 + 4 tx + {0..3} of the tile, so
-// each 16-byte shared load feeds 16 FMAs; two shared stages, so one
-// barrier a step.
-__global__ void __launch_bounds__(S_THREADS, 2)
-stats_batched(const float* __restrict__ kappa, const float* __restrict__ g,
-              const float* __restrict__ theta, float* __restrict__ s1_part,
-              float* __restrict__ s2_part, int B, int M, int rows_per_chunk) {
-  __shared__ __align__(16) float As[2][SKB][ST];  // theta kappa, tile ti's columns
-  __shared__ __align__(16) float Bs[2][SKB][ST];  // kappa, tile tj's columns
-  __shared__ float gs[2][SKB];
-  const int nt = (M + ST - 1) / ST;
-  int ti, tj;
-  upper_tile(blockIdx.x, nt, ti, tj);
-  const int chunk = blockIdx.y, nchunks = gridDim.y, l = blockIdx.z;
-  const int m0 = ti * ST, n0 = tj * ST;
-  const int b0 = chunk * rows_per_chunk, b1 = min(B, b0 + rows_per_chunk);
-  const float* kl = kappa + (size_t)l * B * M;
-  const float* gl = g + (size_t)l * B;
-  const float* thl = theta + (size_t)l * B;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool diag = ti == tj;
-
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
-  float s1acc = 0.0f;
-  float pa[S_PER], pb[S_PER], pg = 0.0f;
-  load_rows(kl, gl, thl, b0, b1, M, m0, n0, pa, pb, pg);
-  int stage = 0;
-  for (int b = b0; b < b1; b += SKB, stage ^= 1) {
-    // stage `stage` was last read two steps ago, before the last barrier
-#pragma unroll
-    for (int i = 0; i < S_PER; ++i) {
-      const int e = tid + i * S_THREADS;
-      As[stage][e / ST][e % ST] = pa[i];
-      Bs[stage][e / ST][e % ST] = pb[i];
-    }
-    if (tid < SKB) gs[stage][tid] = pg;
-    __syncthreads();
-    if (b + SKB < b1) load_rows(kl, gl, thl, b + SKB, b1, M, m0, n0, pa, pb, pg);
-#pragma unroll
-    for (int k = 0; k < SKB; ++k) {
-      const float4* a4 = reinterpret_cast<const float4*>(As[stage][k]);
-      const float4* b4 = reinterpret_cast<const float4*>(Bs[stage][k]);
-      const float4 a0 = a4[ty], a1 = a4[16 + ty], c0 = b4[tx], c1 = b4[16 + tx];
-      fma4x4(acc, 0, 0, a0, c0);
-      fma4x4(acc, 0, 4, a0, c1);
-      fma4x4(acc, 4, 0, a1, c0);
-      fma4x4(acc, 4, 4, a1, c1);
-    }
-    if (diag && tid < ST)
-      for (int k = 0; k < SKB; ++k) s1acc = fmaf(Bs[stage][k][tid], gs[stage][k], s1acc);
-  }
-
-  const size_t part = (size_t)l * nchunks + chunk;
-  float* out = s2_part + part * M * M;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int m = m0 + (r < 4 ? 4 * ty + r : 64 + 4 * ty + r - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (n < M) out[(size_t)m * M + n] = acc[r][j];
-    }
-  }
-  if (diag && tid < ST && m0 + tid < M) s1_part[part * M + m0 + tid] = s1acc;
-}
-
-// s1 and S2 of every latent: the chunk partials added in chunk order;
-// S2[m, n] and S2[n, m] both from the upper-triangle entry
-__global__ void sum_chunks(const float* __restrict__ s1_part, const float* __restrict__ s2_part,
-                           float* __restrict__ s1, float* __restrict__ s2, int M, int L,
-                           int nchunks) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t n1 = (size_t)L * M, mm = (size_t)M * M;
-  if (i < n1) {
-    const size_t l = i / M, m = i % M;
-    float acc = 0.0f;
-    for (int c = 0; c < nchunks; ++c) acc += s1_part[(l * nchunks + c) * M + m];
-    s1[i] = acc;
-  } else if (i < n1 + L * mm) {
-    const size_t j = i - n1, l = j / mm, e = j % mm;
-    const size_t m = e / M, n = e % M;
-    const size_t lo = m < n ? m : n, hi = m < n ? n : m;
-    float acc = 0.0f;
-    for (int c = 0; c < nchunks; ++c) acc += s2_part[(l * nchunks + c) * mm + lo * M + hi];
-    s2[j] = acc;
-  }
-}
-
-// Both launches of the statistics of L latents; returns the CUDA error.
-int launch_stats(const float* kappa, const float* g, const float* theta, float* s1_part,
-                 float* s2_part, float* s1, float* s2, int B, int M, int L, int nchunks,
-                 int rows_per_chunk, cudaStream_t st) {
-  const int nt = (M + ST - 1) / ST;
-  stats_batched<<<dim3(nt * (nt + 1) / 2, nchunks, L), S_THREADS, 0, st>>>(
-      kappa, g, theta, s1_part, s2_part, B, M, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)L * (M + (size_t)M * M);
-  sum_chunks<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(s1_part, s2_part, s1, s2, M, L,
-                                                              nchunks);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -69,7 +69,7 @@ _SOURCES = tuple(
                  "fused_variants.cu", "gather_tiles.cu")
 )
 # headers the sources include: part of the build's hash
-_HEADERS = tuple(_PKG / "csrc" / name for name in ("gram.cuh", "pair_core.cuh", "block_sums.cuh"))
+_HEADERS = tuple(_PKG / "csrc" / name for name in ("gram.cuh", "pair_core.cuh", "stats_tc.cuh", "block_sums.cuh"))
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -86,6 +86,11 @@ _FEATURE_CHUNK = 8
 # row tiles of fused_kappa_moments_batched, largest first (TB in
 # csrc/batched_pair.cu): the first whose shared memory fits is taken
 _BATCHED_TILE_ROWS = (32, 16)
+# rows of a stage of kernels 5 and 7 (KB in csrc/stats_tc.cuh): a chunk of
+# rows is a whole number of stages and, where B allows, _STATS_MIN_ROWS rows
+# or more, so that few rows do not spread over more partials than their
+# reduction repays
+_STATS_STAGE_ROWS, _STATS_MIN_ROWS = 32, 128
 # gram kinds and single-latent likelihoods, in the order of their codes in
 # csrc/gram.cuh (GramKind) and csrc/fused_cavi_stats.cu (Lik)
 KINDS = ("rbf", "matern12", "matern32", "matern52")
@@ -737,11 +742,38 @@ def fused_kappa_moments_batched(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rb
 fused_kappa_moments_batched.launches = 0
 
 
+def _stats_plan(B: int, M: int, L: int, slots: int, tile: int) -> tuple[int, int]:
+    """(nchunks, rows) of kernels 5 and 7: chunks of ``rows`` rows (a whole
+    number of ``_STATS_STAGE_ROWS``-row stages, ``_STATS_MIN_ROWS`` or
+    more where B allows; the last chunk may be shorter, never empty) such
+    that the grid of upper tiles x chunks x L latents is one wave of the
+    ``slots`` blocks the card holds at once, or one chunk where the tiles
+    alone fill more.  Depends on the card and M, not on B beyond that."""
+    nt = -(-M // tile)
+    blocks = nt * (nt + 1) // 2 * L
+    nchunks = max(1, min(-(-B // _STATS_MIN_ROWS), slots // blocks))
+    rows = -(-B // nchunks)
+    rows = -(-rows // _STATS_STAGE_ROWS) * _STATS_STAGE_ROWS
+    return -(-B // rows), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _stats_slots(device_index: int) -> int:
+    """Blocks of kernels 5 and 7 that the card holds at once (occupancy
+    API x SMs)."""
+    with torch.cuda.device(device_index):
+        per_sm = _library().agp_cavi_stats_blocks_per_sm()
+        if per_sm < 1:
+            raise RuntimeError("the CUDA statistics kernel fits no SM of this card")
+        return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _stats_launch(name, lib_fn, kappa, g, theta, L):
-    """Kernel 5's statistics of kappa [L, B, M] (``lib_fn`` the batched C
-    entry point, L latents) or of kappa [B, M] (kernel 7's, one latent), g
-    and theta of kappa's leading shape: checks, one wave of row chunks, the
-    scratch, the launch.  Returns (s1, S2) of the leading shape."""
+    """Kernels 5 and 7's statistics of kappa [L, B, M] (``lib_fn`` the
+    batched C entry point, L latents) or of kappa [B, M] (kernel 7's, one
+    latent), g and theta of kappa's leading shape: checks, the chunk plan
+    (``_stats_plan``), the scratch, the launch.  Returns (s1, S2) of the
+    leading shape."""
     lead = tuple(kappa.shape[:-1])
     B, M = lead[-1], kappa.shape[-1]
     _check_tensors(kappa, {"kappa": (kappa, lead + (M,)), "g": (g, lead), "theta": (theta, lead)})
@@ -749,21 +781,13 @@ def _stats_launch(name, lib_fn, kappa, g, theta, L):
         raise ValueError(f"the CUDA {name} takes L, B, M >= 1; got L={L}, B={B}, M={M}")
     dev = kappa.device
     lib = _library()
-    nt = -(-M // lib.agp_cavi_stats_tile())
-    with torch.cuda.device(dev):
-        slots = lib.agp_cavi_stats_blocks_per_sm() * torch.cuda.get_device_properties(dev).multi_processor_count
-    # one wave of equal chunks of rows: as many chunks per (tile, latent) as
-    # the card holds blocks at once, never more than one per 8 rows; the
-    # count depends on the card and M, not on B beyond that
-    nchunks = max(1, min(-(-B // 8), slots // (nt * (nt + 1) // 2 * L)))
-    rows = -(-B // nchunks)
-    nchunks = -(-B // rows)
+    nchunks, rows = _stats_plan(B, M, L, _stats_slots(dev.index), lib.agp_cavi_stats_tile())
     f32 = dict(dtype=torch.float32, device=dev)
     s1_part, s2_part = torch.empty((L, nchunks, M), **f32), torch.empty((L, nchunks, M, M), **f32)
     s1, S2 = torch.empty(lead[:-1] + (M,), **f32), torch.empty(lead[:-1] + (M, M), **f32)
-    ints = (B, M, L) if len(lead) == 2 else (B, M)
+    ints = ((B, M, L) if len(lead) == 2 else (B, M)) + (nchunks, rows)
     with torch.cuda.device(dev):
-        err = lib_fn(*(t.data_ptr() for t in (kappa, g, theta, s1_part, s2_part, s1, S2)), *ints, nchunks, rows,
+        err = lib_fn(*(t.data_ptr() for t in (kappa, g, theta, s1_part, s2_part, s1, S2)), *ints,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise _cuda_error(name, lib, err)
@@ -776,7 +800,8 @@ def cavi_stats_batched(kappa, g, theta):
     kappa [L, B, M], g and theta [L, B].
 
     A CPU tensor runs :func:`cavi_stats_batched_reference`.  A CUDA tensor
-    launches the kernel (float32, any L, B, M >= 1) and adds one to
+    launches the kernel (float32, any L, B, M >= 1; 3xTF32 tensor-core
+    tiles over S2's upper triangle, ``csrc/stats_tc.cuh``) and adds one to
     ``cavi_stats_batched.launches``.  S2 comes out exactly symmetric."""
     if kappa.device.type == "cpu":
         return cavi_stats_batched_reference(kappa, g, theta)
@@ -903,9 +928,10 @@ def cavi_stats(kappa, g, theta):
     kappa [B, M], g and theta [B].
 
     A CPU tensor runs :func:`cavi_stats_reference`.  A CUDA tensor launches
-    the kernel (float32, any B, M >= 1: kernel 5's device code with one
-    latent, its partial sums added in a fixed order, no atomics) and adds
-    one to ``cavi_stats.launches``.  S2 comes out exactly symmetric."""
+    the kernel (float32, any B, M >= 1: kernel 5's 3xTF32 tensor-core
+    tiles with one latent, its partial sums added in a fixed order, no
+    atomics) and adds one to ``cavi_stats.launches``.  S2 comes out exactly
+    symmetric."""
     if kappa.device.type == "cpu":
         return cavi_stats_reference(kappa, g, theta)
     if kappa.device.type != "cuda":

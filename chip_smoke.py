@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA, turn TF32 off, print the card's name and power
    limit (nvidia-smi);
 2. build: compile the CUDA kernels from the repo's sources with nvcc for
-   sm_90a, one nvcc per source, all at once;
+   sm_90a, one nvcc per source, all at once; then the TF32 tensor-core
+   instructions that ``cuobjdump -sass`` finds in each instance of kernels
+   5 and 7's stats_tc (none fails the run);
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
    the same card tensors, at its main path's shape, a ragged B=300 and
    M=128, then both timed at the main path's shape (CUDA events, in the
@@ -94,8 +96,12 @@ Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``,
 steps of an M=512 path, or 20 iterations of path A or B with a
 hyperparameter step each), ``profile kernels`` (device time of the bench's
 candidates: kernels 1, 8, 9, the sweep's bar, kernel 10 and index_select),
-``moved-paths [ROOT]`` (a row-weighted step and elbo at fused-range
-shapes, with agp_tpu_torch from ROOT when given).
+``moved-paths`` (a row-weighted step and elbo at fused-range shapes),
+``stats`` (kernels 5 and 7 at phase 12's timed shapes by CUDA events and
+device us, logistic_m512_b65536's steady it/s and ``profile logistic``).
+``ab ROOT MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
+earlier commit unpacked under _chip/), to compare two trees in one call:
+``ab ROOT stats`` and ``stats`` in the order parent, this, this, parent.
 """
 from __future__ import annotations
 
@@ -247,6 +253,32 @@ def phase_build(ck):
             name = line.split("'")[1] if "'" in line else line
         elif "registers" in line or "spill" in line or "error" in line:
             log(f"  ptxas: {name[:90]}: {line.split(':', 1)[-1].strip()}")
+    return info["path"]
+
+
+def check_stats_sass(lib_path):
+    """Kernels 5 and 7 run on the tensor cores: every instance of the
+    statistics kernel (stats_tc<vec>) in the built library holds TF32
+    HMMA (or HGMMA) instructions, as ``cuobjdump -sass`` shows them."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if "stats_tc" in name:
+                counts[name] = 0
+        elif name in counts and ("HMMA" in line and "TF32" in line or "HGMMA" in line):
+            counts[name] += 1
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"the statistics kernel holds no TF32 tensor-core instruction in its SASS: {counts}")
+    for fn, n in sorted(counts.items()):
+        m = re.search(r"stats_tcILb(\d)", fn)
+        label = f"stats_tc<{'16-byte' if m[1] == '1' else '4-byte'} copies>" if m else fn[:90]
+        log(f"  SASS: {label} ({fn[:40]}...): {n} TF32 HMMA/HGMMA")
 
 
 def kernel_inputs(b, m, device, seed=0):
@@ -649,13 +681,15 @@ def call_branch(fn, t):
               lik_p0=t["p0"], lik_p1=t["p1"], kind=t["kind"], lik=t["lik"])
 
 
-def check_outputs(label, names, got, ref, ref64=None):
+def check_outputs(label, names, got, ref, ref64=None, floor=KERNEL_TOL):
     """Every output finite and within KERNEL_TOL of the plain version's, as
     |d| over the output's largest entry (at least 1).  With ``ref64``, the
     plain version in float64 on the same inputs, each output's error is
-    taken against it instead, within max(KERNEL_TOL, FLOAT32_FACTOR times
-    the float32 plain version's own error against it).  Returns the
-    largest absolute error against the plain version of each output."""
+    taken against it instead, within max(floor, FLOAT32_FACTOR times the
+    float32 plain version's own error against it); kernels 5 and 7 pass
+    floor=0, so that their tensor-core arithmetic is held to float32's own
+    error however small.  Returns the largest absolute error against the
+    plain version of each output."""
     row, against64 = {}, []
     for i, (name, o, r) in enumerate(zip(names, got, ref)):
         if not bool(torch.isfinite(o).all()):
@@ -666,7 +700,7 @@ def check_outputs(label, names, got, ref, ref64=None):
             scale = max(float(ref64[i].abs().max()), 1.0)
             rel = float((o.double() - ref64[i]).abs().max()) / scale
             plain = float((r.double() - ref64[i]).abs().max()) / scale
-            tol = max(KERNEL_TOL, FLOAT32_FACTOR * plain)
+            tol = max(floor, FLOAT32_FACTOR * plain)
             against64.append(f"{name}={rel:.2e}/{plain:.2e}")
         if rel > tol:
             raise AssertionError(f"{label}: {name} error {rel:.3e} > {tol:.3e}")
@@ -1126,9 +1160,9 @@ def pair_cases(device):
 
 
 MATERN_KINDS = ("matern12", "matern32", "matern52")
-# the H100's published peaks (SXM, NVIDIA's data sheet): FP32 outside the
-# tensor cores and HBM3 bandwidth
-PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+# the H100's published peaks (SXM, NVIDIA's data sheet, dense): FP32 outside
+# the tensor cores, TF32 on them, and HBM3 bandwidth
+PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_S = 67e12, 495e12, 3.35e12
 
 
 def bound(fmas, nbytes):
@@ -1158,31 +1192,106 @@ def fused_bound(b, d, m, n_latent, label_words):
 def pair_bounds(b, d, m, n_latent):
     """Kernel 4: per row and latent the gram (M D), kappa (M^2), vf's
     quadratic form (``sym_fmas``) and 3 M FMAs (Ktilde, mf, vf); reads X,
-    Z, L^-T, ls, var, mu, Sigma, writes kappa, mf, vf.  Kernel 5: S2
-    (``sym_fmas``), theta kappa and s1 (2 M); reads kappa, g, theta,
-    writes s1, S2."""
+    Z, L^-T, ls, var, mu, Sigma, writes kappa, mf, vf.  Kernel 5:
+    ``stats_bounds``."""
     k4 = bound(n_latent * b * (m * m + sym_fmas(m) + m * d + 3 * m),
                4 * (b * d + n_latent * (m * d + 2 * m * m + d + 1 + m + b * m + 2 * b)))
-    k5 = bound(n_latent * b * (sym_fmas(m) + 2 * m), 4 * n_latent * (b * m + 2 * b + m + m * m))
+    k5 = stats_bounds(b, m, n_latent)
     return k4, k5
 
 
 def single_bounds(b, d, m):
     """Kernel 6: per row the gram (M D), kappa (M^2) and Ktilde's row sum
-    (M); reads X, Z, K^-1, ls, var, writes kappa and Ktilde.  Kernel 7: S2
-    (``sym_fmas``) and s1 (M); reads kappa, g, theta, writes s1, S2."""
+    (M); reads X, Z, K^-1, ls, var, writes kappa and Ktilde.  Kernel 7:
+    ``stats_bounds`` with one latent."""
     k6 = bound(b * (m * d + m * m + m), 4 * (b * d + m * d + m * m + d + 1 + b * m + b))
-    k7 = bound(b * (sym_fmas(m) + m), 4 * (b * m + 2 * b + m + m * m))
-    return k6, k7
+    return k6, stats_bounds(b, m, 1)
+
+
+def stats_bounds(b, m, n_latent):
+    """Kernels 5 and 7 (L latents): S2 (``sym_fmas`` a row) and s1 (M);
+    reads kappa, g, theta, writes s1, S2.  Returns three bounds, each (ms,
+    by), all with the bytes over the memory rate: the function's, S2's
+    FMAs once on the tensor cores (TF32 peak) and s1's on the FP32 pipes;
+    the design's, with S2's three TF32 passes (3xTF32); and the FP32 SIMT
+    one of kernels 1-4 and 6 (``bound``)."""
+    s2_fmas, s1_fmas = n_latent * b * sym_fmas(m), n_latent * b * m
+    nbytes = 4 * n_latent * (b * m + 2 * b + m + m * m)
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+
+    def tc(passes):
+        ops_ms = max(passes * 2.0 * s2_fmas / PEAK_TF32_FLOPS * 1e3, 2.0 * s1_fmas / PEAK_FP32_FLOPS * 1e3)
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    return tc(1), tc(3), bound(s2_fmas + s1_fmas, nbytes)
+
+
+def kernel_name(key):
+    """A profiler event's kernel name without its return type, anonymous
+    namespace and arguments, at most 60 characters."""
+    return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0].strip()[:60]
+
+
+def device_us(fn, n=10):
+    """(device us a call, {kernel: us a call}) of fn by torch.profiler over
+    n calls after one, each kernel by ``kernel_name``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
+            key = kernel_name(e.key)
+            by[key] = by.get(key, 0.0) + e.self_device_time_total / n
+    return sum(by.values()), by
+
+
+def check_stats_repeat(label, fn, args, got):
+    """Kernels 5 and 7: S2 exactly symmetric, and a second call bit-equal to
+    the first."""
+    again = fn(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], got[1].mT):
+        raise AssertionError(f"{label}: S2 is not exactly symmetric")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: a second call differs from the first")
+
+
+def stats_timing(ck, name, kappa, g, th, reps, library_fn):
+    """Kernel ``name`` (cavi_stats_batched or cavi_stats) at one shape: its
+    ms by CUDA events beside its plain version (plain, kernel, kernel,
+    plain) and ``library_fn`` (one PyTorch call of the same sums, which the
+    port never calls), and the device us of the kernel and the library call
+    (profiler)."""
+    fn, plain = getattr(ck, name), getattr(ck, name + "_reference")
+    ms, plain_ms = timed_pair(lambda: fn(kappa, g, th), lambda: plain(kappa, g, th), reps)
+    lib_ms = cuda_ms(library_fn, reps)
+    dev, dev_by = device_us(lambda: fn(kappa, g, th))
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "device_us": dev, "device_us_by_kernel": dev_by,
+            "library_device_us": device_us(library_fn)[0]}
+
+
+def stats_line(label, name, r):
+    return (f"  {label}: {name} {r['ms']:.4f} ms, device {r['device_us']:.1f} us "
+            + "(" + ", ".join(f"{k} {v:.1f}" for k, v in r["device_us_by_kernel"].items()) + f"); plain "
+            f"{r['plain_ms']:.4f}; library {r['library_ms']:.4f} ms, device {r['library_device_us']:.1f} us")
 
 
 def phase_pair_kernels_vs_plain(ck, device):
     """Kernels 4 and 5 against their plain versions at every case of
     pair_cases, then timed at the paths' shapes beside their plain
     versions (and kernel 5 beside torch.bmm, which the port never calls).
-    Returns {kernel: (largest abs error, {shape: (ms, plain ms)}, {shape:
-    library ms})}."""
+    Kernel 5's S2 exactly symmetric and a second call bit-equal at every
+    case; at the timed shapes its device us and torch.bmm's
+    (stats_timing).  Returns {kernel: (largest abs error, {shape: (ms,
+    plain ms)}, {shape: library ms}, {shape: stats_timing's dict})}."""
     worst = {"fused_kappa_moments_batched": 0.0, "cavi_stats_batched": 0.0}
+    extra = {"fused_kappa_moments_batched": {}, "cavi_stats_batched": {}}
     times = {"fused_kappa_moments_batched": {}, "cavi_stats_batched": {}}
     library = {"fused_kappa_moments_batched": {}, "cavi_stats_batched": {}}
     for label, t, f64, timed in pair_cases(device):
@@ -1197,7 +1306,8 @@ def phase_pair_kernels_vs_plain(ck, device):
         torch.cuda.synchronize()
         s_ref = ck.cavi_stats_batched_reference(kappa, t["g"], t["theta"])
         s64 = ck.cavi_stats_batched_reference(kappa.double(), t["g"].double(), t["theta"].double()) if f64 else None
-        row5 = check_outputs(f"cavi_stats_batched {label}", ("s1", "S2"), s_got, s_ref, s64)
+        row5 = check_outputs(f"cavi_stats_batched {label}", ("s1", "S2"), s_got, s_ref, s64, floor=0.0)
+        check_stats_repeat(f"cavi_stats_batched {label}", ck.cavi_stats_batched, (kappa, t["g"], t["theta"]), s_got)
         worst["cavi_stats_batched"] = max(worst["cavi_stats_batched"], *row5.values())
         L_, B_, M_ = kappa.shape
         log(f"pair vs plain {label} (B={B_}, D={t['X'].shape[1]}, M={M_}, L={L_}, {t['kind']}): max abs err "
@@ -1208,15 +1318,16 @@ def phase_pair_kernels_vs_plain(ck, device):
                 lambda: call_k4(ck.fused_kappa_moments_batched, t),
                 lambda: call_k4(ck.fused_kappa_moments_batched_reference, t), reps)
             g, th = t["g"], t["theta"]
-            times["cavi_stats_batched"][label] = timed_pair(
-                lambda: ck.cavi_stats_batched(kappa, g, th), lambda: ck.cavi_stats_batched_reference(kappa, g, th), reps)
-            library["cavi_stats_batched"][label] = cuda_ms(
-                lambda: (torch.bmm((kappa * th[..., None]).mT, kappa), torch.bmm(kappa.mT, g[..., None])), reps)
-            k4, k5 = times["fused_kappa_moments_batched"][label], times["cavi_stats_batched"][label]
-            log(f"  {label}: kernel 4 {k4[0]:.4f} ms (plain {k4[1]:.4f}); kernel 5 {k5[0]:.4f} ms "
-                f"(plain {k5[1]:.4f}, torch.bmm {library['cavi_stats_batched'][label]:.4f})")
+            r = stats_timing(ck, "cavi_stats_batched", kappa, g, th, reps, lambda: (
+                torch.bmm((kappa * th[..., None]).mT, kappa), torch.bmm(kappa.mT, g[..., None])))
+            extra["cavi_stats_batched"][label] = r
+            times["cavi_stats_batched"][label] = (r["ms"], r["plain_ms"])
+            library["cavi_stats_batched"][label] = r["library_ms"]
+            k4 = times["fused_kappa_moments_batched"][label]
+            log(f"  {label}: kernel 4 {k4[0]:.4f} ms (plain {k4[1]:.4f})")
+            log(stats_line(label, "kernel 5", r) + " (library: torch.bmm x2)")
         del got, ref, ref64, s_got, s_ref, s64
-    return {name: (worst[name], times[name], library[name]) for name in worst}
+    return {name: (worst[name], times[name], library[name], extra[name]) for name in worst}
 
 
 def phase_pair_autograd(ck, device):
@@ -1419,9 +1530,13 @@ def phase_single_kernels_vs_plain(ck, device):
     """Kernels 6 and 7 against their plain versions at every case of
     single_cases (S2 exactly symmetric), then timed at the timed shapes
     beside their plain versions, and kernel 7 beside torch.matmul for the
-    same two sums (which the port never calls).  Returns {kernel: (largest
-    abs error, {shape: (ms, plain ms)}, {shape: library ms})}."""
+    same two sums (which the port never calls); kernel 7's second call
+    bit-equal at every case, and at the timed shapes its device us and
+    torch.matmul's (stats_timing).  Returns {kernel:
+    (largest abs error, {shape: (ms, plain ms)}, {shape: library ms},
+    {shape: stats_timing's dict})}."""
     worst = {"fused_kappa": 0.0, "cavi_stats": 0.0}
+    extra = {"fused_kappa": {}, "cavi_stats": {}}
     times = {"fused_kappa": {}, "cavi_stats": {}}
     library = {"fused_kappa": {}, "cavi_stats": {}}
     for label, t, f64, timed in single_cases(device):
@@ -1434,11 +1549,10 @@ def phase_single_kernels_vs_plain(ck, device):
         kappa, g, th = ref[0].contiguous(), t["g"], t["theta"]
         s_got = ck.cavi_stats(kappa, g, th)
         torch.cuda.synchronize()
-        if not torch.equal(s_got[1], s_got[1].T):
-            raise AssertionError(f"cavi_stats {label}: S2 is not exactly symmetric")
+        check_stats_repeat(f"cavi_stats {label}", ck.cavi_stats, (kappa, g, th), s_got)
         s_ref = ck.cavi_stats_reference(kappa, g, th)
         s64 = ck.cavi_stats_reference(kappa.double(), g.double(), th.double()) if f64 else None
-        row7 = check_outputs(f"cavi_stats {label}", ("s1", "S2"), s_got, s_ref, s64)
+        row7 = check_outputs(f"cavi_stats {label}", ("s1", "S2"), s_got, s_ref, s64, floor=0.0)
         worst["cavi_stats"] = max(worst["cavi_stats"], *row7.values())
         B_, M_ = kappa.shape
         log(f"single pair vs plain {label} (B={B_}, D={t['X'].shape[1]}, M={M_}, {t['kind']}): max abs err "
@@ -1447,14 +1561,16 @@ def phase_single_kernels_vs_plain(ck, device):
             reps = 10 if B_ > 20000 else 30
             times["fused_kappa"][label] = timed_pair(lambda: call_k6(ck.fused_kappa, t),
                                                      lambda: call_k6(ck.fused_kappa_reference, t), reps)
-            times["cavi_stats"][label] = timed_pair(lambda: ck.cavi_stats(kappa, g, th),
-                                                    lambda: ck.cavi_stats_reference(kappa, g, th), reps)
-            library["cavi_stats"][label] = cuda_ms(lambda: ((kappa * th[:, None]).T @ kappa, kappa.T @ g), reps)
-            k6, k7 = times["fused_kappa"][label], times["cavi_stats"][label]
-            log(f"  {label}: kernel 6 {k6[0]:.4f} ms (plain {k6[1]:.4f}); kernel 7 {k7[0]:.4f} ms "
-                f"(plain {k7[1]:.4f}, torch.matmul {library['cavi_stats'][label]:.4f})")
+            r = stats_timing(ck, "cavi_stats", kappa, g, th, reps,
+                             lambda: ((kappa * th[:, None]).T @ kappa, kappa.T @ g))
+            extra["cavi_stats"][label] = r
+            times["cavi_stats"][label] = (r["ms"], r["plain_ms"])
+            library["cavi_stats"][label] = r["library_ms"]
+            k6 = times["fused_kappa"][label]
+            log(f"  {label}: kernel 6 {k6[0]:.4f} ms (plain {k6[1]:.4f})")
+            log(stats_line(label, "kernel 7", r) + " (library: torch.matmul x2)")
         del got, ref, ref64, s_got, s_ref, s64
-    return {name: (worst[name], times[name], library[name]) for name in worst}
+    return {name: (worst[name], times[name], library[name], extra[name]) for name in worst}
 
 
 def phase_kappa_autograd(ck, device):
@@ -1671,6 +1787,7 @@ def profile_pair_path(agt, device, which):
         f"{1 - busy / wall_us:.4f}, {launches:.1f} kernel launches/step, {sum(r[1] for r in rows):.1f} device ops/step")
     for us, count, key in rows[:20]:
         log(f"  {us:10.1f} us/step  x{count:.1f}  {key[:100]}")
+    return {"wall_us": wall_us, "busy_us": busy, "idle_share": 1 - busy / wall_us, "launches": launches}
 
 
 def profile_bench_kernels(device, n=20):
@@ -1708,6 +1825,37 @@ def profile_bench_kernels(device, n=20):
             + "; ".join(f"{key[:70]} {us:.2f} us x{count:.0f}" for us, count, key in rows[:5]))
 
 
+def stats_mode(agt, ck, device):
+    """``python3 chip_smoke.py stats`` (``ab ROOT stats`` for an earlier
+    tree): kernels 5 and 7 at phase 12's timed shapes by CUDA events and
+    device us beside torch.bmm / torch.matmul (stats_timing),
+    logistic_m512_b65536's steady it/s (phase 13's run) and ``profile
+    logistic``; last a JSON line of them."""
+    tree = os.path.relpath(os.path.dirname(agt.__file__))
+    log(f"stats: agp_tpu_torch from {tree}")
+    out = {"tree": tree, "cavi_stats_batched": {}, "cavi_stats": {}}
+    for label, t, _, timed in pair_cases(device):
+        if timed:
+            kappa = call_k4(ck.fused_kappa_moments_batched_reference, t)[0].contiguous()
+            g, th = t["g"], t["theta"]
+            r = stats_timing(ck, "cavi_stats_batched", kappa, g, th, 10 if kappa.shape[1] > 20000 else 30, lambda: (
+                torch.bmm((kappa * th[..., None]).mT, kappa), torch.bmm(kappa.mT, g[..., None])))
+            out["cavi_stats_batched"][label] = r
+            log(stats_line(label, "kernel 5", r))
+    for label, t, _, timed in single_cases(device):
+        if timed:
+            kappa, g, th = call_k6(ck.fused_kappa_reference, t)[0].contiguous(), t["g"], t["theta"]
+            r = stats_timing(ck, "cavi_stats", kappa, g, th, 10 if kappa.shape[0] > 20000 else 30,
+                             lambda: ((kappa * th[:, None]).T @ kappa, kappa.T @ g))
+            out["cavi_stats"][label] = r
+            log(stats_line(label, "kernel 7", r))
+    del kappa, g, th, t
+    torch.cuda.empty_cache()
+    out["logistic_m512_b65536_ips"] = phase_big_logistic(agt, ck, device)[2]
+    out["profile_logistic"] = profile_pair_path(agt, device, "logistic")
+    print(json.dumps(out))
+
+
 MOVED_CALLS = 200
 
 
@@ -1717,11 +1865,8 @@ def time_moved_paths(agt, device):
     batched pair at shapes within fused_fits: a row-weighted CAVI step
     (``variational_update`` with w of ones, never fused) and ``elbo`` on
     its batch, at the flagship (L=1) and at the bench.py multiclass (L=10)
-    and heteroscedastic (L=2) shapes.
-
-    ``python3 chip_smoke.py moved-paths [ROOT]`` imports agp_tpu_torch
-    from ROOT when given (an unpacked earlier commit, to compare it with
-    this one in the same call)."""
+    and heteroscedastic (L=2) shapes (``python3 chip_smoke.py
+    moved-paths``; ``ab ROOT moved-paths`` for an earlier tree)."""
     from agp_tpu_torch.inference import analytic_vi
 
     log(f"moved paths: agp_tpu_torch from {os.path.relpath(os.path.dirname(agt.__file__))}")
@@ -1988,6 +2133,24 @@ def gather_bound(t, tr, d):
     return bound(0, 2 * 4 * t * tr * d + 8 * t)
 
 
+def stats_fields(extra, main_shape):
+    """Kernels 5 and 7's further keys of the kernels line from
+    stats_timing's dicts by shape: device us and the library call's device
+    us, at the main shape and at each timed shape; none for the other
+    kernels."""
+    if not extra:
+        return {}
+    return {
+        "device_us": extra[main_shape]["device_us"],
+        "library_device_us": extra[main_shape]["library_device_us"],
+        "per_shape_device_us": {k: v["device_us_by_kernel"] for k, v in extra.items()},
+        "per_shape_library_device_us": {k: v["library_device_us"] for k, v in extra.items()},
+        "bound": "S2's upper-triangle FMAs once at 495 TFLOP/s TF32, s1 at 67 FP32, bytes at 3.35 TB/s",
+        "bound_3xtf32": "the design's three TF32 passes of S2, s1 at FP32, bytes",
+        "bound_fp32": "S2 and s1 at 67 TFLOP/s FP32, bytes",
+    }
+
+
 def ms_table(pairs):
     return {k: {"ms": kern, "plain_ms": plain} for k, (kern, plain) in pairs.items()}
 
@@ -2007,29 +2170,35 @@ def timed_phase(name, fn, *args, **kw):
 def main():
     t_start = time.perf_counter()
     device = phase_device()
-    if sys.argv[1:2] == ["moved-paths"] and len(sys.argv) > 2:
-        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+    args = sys.argv[1:]
+    if args[:1] == ["ab"]:  # ab ROOT MODE...: MODE with agp_tpu_torch from ROOT
+        sys.path.insert(0, os.path.abspath(args[1]))
+        args = args[2:]
     import agp_tpu_torch as agt
     from agp_tpu_torch.ops import cuda_kernels as ck
 
-    if sys.argv[1:2] == ["moved-paths"]:
+    if args == ["moved-paths"]:
         time_moved_paths(agt, device)
         return
-    timed_phase("build", phase_build, ck)
+    lib_path = timed_phase("build", phase_build, ck)
     timed_phase("fused_fits", check_fused_fits, ck)
-    if sys.argv[1:] == ["studentt-rate"]:
+    if args == ["studentt-rate"]:
         launches, ips = phase_studentt_rate(agt, ck, device)
         print(json.dumps({"launches": launches, "ips": ips}))
         return
-    if sys.argv[1:3] == ["profile", "kernels"]:
+    if args == ["stats"]:
+        stats_mode(agt, ck, device)
+        return
+    if args[:2] == ["profile", "kernels"]:
         profile_bench_kernels(device)
         return
-    if sys.argv[1:3] == ["profile", "hyper"]:
-        profile_hyper_path(agt, device, sys.argv[3] if len(sys.argv) > 3 else "A")
+    if args[:2] == ["profile", "hyper"]:
+        profile_hyper_path(agt, device, args[2] if len(args) > 2 else "A")
         return
-    if sys.argv[1:2] == ["profile"]:
-        profile_pair_path(agt, device, sys.argv[2])
+    if args[:1] == ["profile"]:
+        profile_pair_path(agt, device, args[1])
         return
+    timed_phase("stats SASS", check_stats_sass, lib_path)
     errs, kern_ms, plain_ms = timed_phase("kernel 1 vs plain", phase_kernel_vs_plain, ck, device)
     branch_err, per_lik, per_kind, oracle_ms = timed_phase("kernel 1 branches", phase_branches_vs_plain,
                                                            agt, ck, device)
@@ -2109,6 +2278,7 @@ def main():
         "per_shape_ms": ms_table(table[name][1]),
         "library_ms": table[name][2].get(main_shape),
         "per_shape_library_ms": table[name][2] or None,
+        **stats_fields(table[name][3], main_shape),
     } for name, line, source, table in (
         ("fused_kappa_moments_batched", 361, "batched_pair.cu", pair),
         ("cavi_stats_batched", 486, "batched_pair.cu", pair),
@@ -2141,6 +2311,10 @@ def main():
         "library_ms": gather_library[32],
         "per_tile_library_ms": {f"tile{tr}": v for tr, v in gather_library.items()},
     }]}
+    for name in ("cavi_stats_batched", "cavi_stats"):  # (function's, 3xTF32 design's, FP32) bounds
+        bounds[name], design, fp32 = bounds[name]
+        row = next(k for k in kernels["kernels"] if k["name"] == name)
+        row["bound_3xtf32_ms"], row["bound_fp32_ms"] = design[0], fp32[0]
     for k in kernels["kernels"]:
         k["launches"] = LAUNCHES.get(k["name"], 0)
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]

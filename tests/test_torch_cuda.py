@@ -421,6 +421,79 @@ def test_cuda_single_pair_matches_plain(cuda_device, b, m, d, kind, f64):
     assert torch.equal(s_got[1], s_got[1].T)
 
 
+# ------------------------------------- kernels 5 and 7 on the tensor cores
+def stats_case(b, m, n_latent, device, seed):
+    """kappa [L, B, M] standard normal, g normal and theta uniform on
+    [0, 0.5] with about a quarter of it zero, float32 on the card."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0.0, 0.5, size=(n_latent, b))
+    theta[rng.uniform(size=(n_latent, b)) < 0.25] = 0.0
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.as_tensor(rng.normal(size=(n_latent, b, m)), **f32),
+            torch.as_tensor(rng.normal(size=(n_latent, b)), **f32), torch.as_tensor(theta, **f32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 64, 129, 512, 1681])
+@pytest.mark.parametrize("b", [1, 7, 300, 8192])
+def test_cuda_stats_tc_match_plain(cuda_device, b, m):
+    """Kernel 5 with L = 1, 2, 3 latents and kernel 7 (L = 1) against their
+    plain versions on the same card tensors (stats_case): within 1e-4 of
+    each output's largest entry, one launch a call, S2 exactly symmetric
+    and a second call bit-equal to the first."""
+    for n_latent in (1, 2, 3):
+        kappa, g, theta = stats_case(b, m, n_latent, cuda_device, seed=m * 7919 + b + n_latent)
+        calls = [(ck.cavi_stats_batched, ck.cavi_stats_batched_reference, (kappa, g, theta))]
+        if n_latent == 1:
+            calls.append((ck.cavi_stats, ck.cavi_stats_reference, (kappa[0], g[0], theta[0])))
+        for fn, plain, args in calls:
+            label = f"{fn.__name__} B={b} M={m} L={n_latent}"
+            before = fn.launches
+            got = fn(*args)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1, label
+            smoke.check_outputs(label, ("s1", "S2"), got, plain(*args))
+            smoke.check_stats_repeat(label, fn, args, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 512])
+def test_cuda_stats_tc_unaligned_kappa(cuda_device, m):
+    """kappa at an address that is not 16-byte aligned (a view one float
+    into its storage) takes the 4-byte copies, as M % 4 != 0 does, and
+    agrees with the plain version as above."""
+    kappa, g, theta = stats_case(300, m, 1, cuda_device, seed=m)
+    shifted = torch.empty(300 * m + 1, device=cuda_device)[1:].view(300, m)
+    shifted.copy_(kappa[0])
+    assert shifted.data_ptr() % 16 != 0
+    got = ck.cavi_stats(shifted, g[0], theta[0])
+    torch.cuda.synchronize()
+    smoke.check_outputs(f"cavi_stats unaligned M={m}", ("s1", "S2"), got, ck.cavi_stats_reference(kappa[0], g[0], theta[0]))
+    smoke.check_stats_repeat(f"cavi_stats unaligned M={m}", ck.cavi_stats, (shifted, g[0], theta[0]), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rbf", *smoke.MATERN_KINDS])
+def test_cuda_stats_tc_oracle_precision(cuda_device, kind):
+    """At the M=512 oracle shape (B=8192, D=2, lengthscale 1, Z on the
+    batch's rows; kappa from kernel 4's plain version, as phase 12 makes
+    it) kernels 5 and 7 against the plain version in float64, within
+    FLOAT32_FACTOR times the float32 plain version's own error with no
+    KERNEL_TOL floor: one TF32 pass, or the tensor cores' truncating sum
+    carried over a whole chunk, falls outside it."""
+    X = smoke.oracle_data("studentt", "cpu")[0]
+    t = smoke.pair_inputs(X, smoke.OB, smoke.PM, 1, cuda_device, kind=kind, ls=1.0)
+    kappa = smoke.call_k4(ck.fused_kappa_moments_batched_reference, t)[0].contiguous()
+    g, theta = t["g"], t["theta"]
+    for fn, plain, args in ((ck.cavi_stats_batched, ck.cavi_stats_batched_reference, (kappa, g, theta)),
+                            (ck.cavi_stats, ck.cavi_stats_reference, (kappa[0], g[0], theta[0]))):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        s64 = plain(*(a.double() for a in args))
+        smoke.check_outputs(f"{fn.__name__} {kind} oracle M={smoke.PM}", ("s1", "S2"), got, plain(*args), s64,
+                            floor=0.0)
+
+
 @pytest.mark.cuda
 def test_cuda_kappa_autograd_matches_plain(cuda_device):
     smoke.phase_kappa_autograd(ck, cuda_device)

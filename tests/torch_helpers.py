@@ -294,3 +294,32 @@ def check_predictions_and_elbo(runs, D, rtol=1e-8):
     e_j = float(agp.elbo(mj, sj, jnp.asarray(xb), jnp.asarray(yb)))
     e_t = float(agt.elbo(mt, st, torch.as_tensor(xb), torch.as_tensor(yb)))
     np.testing.assert_allclose(e_t, e_j, rtol=rtol)
+
+
+# ------------------------------- kernels 5 and 7's tensor-core arithmetic
+def tf32_round(x):
+    """Float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    10 explicit mantissa bits, the nearest value, ties away from zero, by
+    bit operations on the float32 pattern (finite x)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def stats_tf32(kappa, g, theta, passes=3):
+    """s1 = kappa^T g and S2 = kappa^T diag(theta) kappa of float32 [B, M]
+    kappa with kernels 5 and 7's split of the operands (on no path of the
+    package): A = theta kappa in float32; each operand x split into
+    hi = tf32(x) and lo = tf32(x - hi); S2 = (A_lo^T K_hi + A_hi^T K_lo)
+    + A_hi^T K_hi with passes=3, A_hi^T K_hi alone with passes=1.  A
+    product of two TF32 values is exact in float32.  Each pass is one
+    float32 matmul over all of B, rounded to nearest: this models the
+    split, not the order in which the kernels add, nor the tensor cores'
+    truncating alignment.  s1 is float32, as the kernel's FMA sum."""
+    kappa, g, theta = (t.to(torch.float32) for t in (kappa, g, theta))
+    A = kappa * theta[:, None]
+    a_hi, k_hi = tf32_round(A), tf32_round(kappa)
+    S2 = a_hi.T @ k_hi
+    if passes == 3:
+        a_lo, k_lo = tf32_round(A - a_hi), tf32_round(kappa - k_hi)
+        S2 = (a_lo.T @ k_hi + a_hi.T @ k_lo) + S2
+    return kappa.T @ g, S2
