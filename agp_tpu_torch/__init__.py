@@ -6,7 +6,7 @@ public names; it runs on the CPU (plain PyTorch) and on an NVIDIA Hopper
 card, where the step's statistics are hand-written CUDA kernels
 (``ops/cuda_kernels.py``): one fused pass while the model's inducing set
 fits a block's shared memory (M <= 128), else a split pair of kernels
-around the likelihood's own E-step (M up to 1,680): the single-latent one
+around the likelihood's own E-step (M up to 2,392): the single-latent one
 or the batched one.  Ported so far: ``SVGP`` with the squared-exponential
 and Matern 1/2, 3/2, 5/2 kernels and the logistic, Gaussian (fixed noise),
 Student-t, Laplace, Matern-3/2 noise, Bayesian SVM, Poisson, negative

@@ -1,13 +1,15 @@
-// The stationary gram formula of the fused statistics kernels, shared by
-// fused_cavi_stats.cu and fused_cavi_stats_multi.cu: the counterpart of the
-// kinds of the reference's gram (agp_tpu/ops/pallas_kernels.py,
-// _cavi_fused_kernel, kind = rbf, matern12, matern32, matern52).
+// The stationary gram formula that every kernel of the port with a gram
+// shares (kernels 1-4, 6, 8-9): the counterpart of the kinds of the
+// reference's gram (agp_tpu/ops/pallas_kernels.py, _cavi_fused_kernel,
+// kind = rbf, matern12, matern32, matern52).
 //
 // r2 = |x/ls - z/ls|^2 comes in the direct form sum_d (x_d - z_d)^2, which
 // does not cancel; each Matern sqrt takes max(., 1e-36) as the reference
-// does.  The kind sits in the innermost TB x M loop of every kernel, so it
-// is a compile-time parameter: one instantiation per kind, chosen on the
-// host by with_kind.
+// does.  In kernels 1-3 and 8-9 the kind sits in the innermost TB x M
+// loop, so it is a compile-time parameter there: one instantiation per
+// kind, chosen on the host by with_kind.  Kernels 4 and 6 apply the formula
+// once an entry, after its r2 sum, so they take the kind at run time
+// (gram_from_r2_of, a branch uniform across the block).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +34,21 @@ __device__ __forceinline__ float gram_from_r2(float r2, float var) {
   } else {
     const float r = sqrtf(fmaxf(5.0f * r2, 1e-36f));
     return var * (1.0f + r + r * r / 3.0f) * expf(-r);
+  }
+}
+
+// gram_from_r2 of the runtime code `kind` (rbf for an unknown code: the
+// callers check the code on the host)
+__device__ __forceinline__ float gram_from_r2_of(int kind, float r2, float var) {
+  switch (kind) {
+    case KIND_MATERN12:
+      return gram_from_r2<KIND_MATERN12>(r2, var);
+    case KIND_MATERN32:
+      return gram_from_r2<KIND_MATERN32>(r2, var);
+    case KIND_MATERN52:
+      return gram_from_r2<KIND_MATERN52>(r2, var);
+    default:
+      return gram_from_r2<KIND_RBF>(r2, var);
   }
 }
 

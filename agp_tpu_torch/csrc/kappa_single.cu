@@ -3,9 +3,9 @@
 // ELBO and the hyperparameter step's forward.
 //
 // Replaces, in agp_tpu/ops/pallas_kernels.py:
-//   * fused_kappa (:213, impl :243, pallas_call at :257, body _kappa_kernel;
-//     its custom VJP :224-239 runs the XLA twin _kappa_xla_twin :199):
-//     kappa_single below.  For minibatch row t:
+//   * fused_kappa (:213, impl :243, pallas_call at :257, body _kappa_kernel
+//     :185 through _kappa_tile :172; its custom VJP :224-239 runs the XLA
+//     twin _kappa_xla_twin :197): kappa_single below.  For minibatch row t:
 //       gram    Knm[t, m]  = k(|x_t/ls - z_m/ls|^2)   (gram.cuh)
 //       kappa   kappa[t,:] = Knm[t,:] K^-1
 //       Ktilde  kt[t]      = max(var + jitter - sum_m kappa[t,m] Knm[t,m], 1e-12)
@@ -18,105 +18,117 @@
 //     3xTF32 tensor-core tiles (stats_tc.cuh) with one latent:
 //     agp_cavi_stats below.
 //
-// What bounds kernel 6 on an H100: FMAs.  Per row B M^2 for kappa and M D
-// for the gram, against 4 M bytes of kappa written: at B=65,536, M=512,
-// D=20, 17.9 G FMAs, 0.53 ms at the card's FP32 peak, against 0.04 ms for
-// writing kappa at 3.35 TB/s.  K^-1 (1 MB at M=512) does not fit a block's
-// 227 KB, so, as kernel 4 does, the block keeps only its row tile's gram
-// ([TB, M], TB = 32 rows, 16 when M is too large for 32) in shared memory
-// and streams K^-1 from L2 through a [16, 256] panel a panel ahead, each
-// thread holding an 8 x 4 block of kappa in registers.  kappa goes from
-// those registers to device memory (16 bytes a store where M allows), so
-// the tile needs no second [TB, M] buffer: at M=512 a block takes 101 KB
-// and two fit an SM (see the launch bounds).  Ktilde's row sums ride in
-// the product's epilogue and are summed by warp shuffles in a fixed order.
-// Kernel 6 is FP32 FMA throughout, no TF32: kappa = Knm K^-1 cancels by
-// cond(Kmm).
-// The ragged edges are masked from B and M; nothing is padded on the host.
+// What bounds kernel 6 on an H100: operations.  Per row M^2 FMAs for kappa,
+// M D for the gram and M for Ktilde, against 4 M bytes of kappa written:
+// at B=65,536, M=512, D=20, 17.2 G FMAs for kappa and 0.7 G for the gram
+// against 140 MB (0.042 ms at 3.35 TB/s).  Three bounds
+// (chip_smoke.py::kappa_bounds):
+//   * the function's: kappa once at the TF32 tensor-core peak (495 TFLOP/s
+//     dense), the gram at the FP32 one (67): 0.069 ms;
+//   * this design's: kappa in three TF32 passes: 0.208 ms;
+//   * the FP32 pipes': everything at 67 TFLOP/s: 0.534 ms, which no FP32
+//     kernel can pass (cuBLAS took 0.716 ms for kappa's product alone).
+// So kappa = G K^-1 runs on the tensor cores in 3xTF32 (tf32_mma.cuh: each
+// operand split into hi and lo, three mma.sync.m16n8k8 passes, each 8-deep
+// step from a zero accumulator and added in FP32).  The reference itself
+// forms kappa in three bf16 passes (_dot3 in _kappa_tile :179 and the twin
+// :207, Precision.HIGH), which keep ~16 bits of each operand where
+// 3xTF32 keeps ~21; one TF32 pass would not do (over 500x float32's error
+// at the M=512 oracle shape, tests/test_torch_kappa_tc.py), and the
+// kernel is held against float64
+// within 2x the float32 plain version's own error (chip_smoke.py phase 12,
+// tests/test_torch_cuda.py).  The gram and Ktilde's row sums stay FP32.
+// The parent design (FP32 FMA, [16, 256] panels) paid three costs, and
+// this one answers each:
+//   1. The gram ran alone, two scalar shared loads an FMA.  gram_slab
+//      (pair_core.cuh) sums 8 rows of a column in registers over all of
+//      D at once where it fits (x / ls and z / ls staged by a reciprocal):
+//      16 FP32 operations for three shared loads.  It is still a phase of
+//      its own (one block an SM): 0.17 ms of kernel 6's 1.1 at B=65,536,
+//      M=512 on an H100 (probes/kappa_tc.cu).
+//   2. K^-1's panel went through registers with two barriers every 16
+//      rows.  Here 16-byte cp.async feed a ring of three stages of 16 rows
+//      (zero-filled past M) straight to shared memory, one barrier a stage.
+//   3. Every block read all of K^-1 from L2 for 32 rows.  Row tiles of 64
+//      (M <= 696) halve that: at B=65,536, M=512, 1,024 blocks x 1 MB.
+//      32-row tiles take M <= 1,408, 16-row ones (8-row stages) M <= 2,406.
+//      Kernel 4 keeps one slab too (batched_pair.cu).
+// On an H100 what bounds this design is the instruction issue around the
+// mma, not the tensor cores: mma.sync alone ran at 1.2 SM-cycles an
+// m16n8k8 (450 TFLOP/s), with 3xTF32's splits and FP32 adds at 2.5-3.4,
+// and cvt.rna's splits 10-23 % slower than tf32_mma.cuh's integer ones
+// (probes/kappa_tc.cu, `python3 chip_smoke.py probe`; PERF.md).
+// The block keeps its gram in a [TB, M] slab (A operand, read in place)
+// and loops over column tiles of 256: 8 warps side by side, each 64 x 32
+// (TB = 64), 32 x 32 (32) or 16 x 16 (16, column tiles of 128).  kappa is
+// stored from the fragments (8 bytes a thread, whole 32-byte sectors);
+// Ktilde's row sums ride in the same epilogue against the slab and are
+// summed by shuffles and one slot per warp column in a fixed order: two
+// calls are bit-equal.  The ragged edges are masked from B and M; nothing
+// is padded on the host.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "pair_core.cuh"
 
 namespace {
 
-// G [tb, mk], the panel [KC, NP], the row sums [2, tb], z / ls chunks [M, DC + 1]
-size_t ks_smem(int M, int tb) {
-  const size_t mk = round_up(M, KC);
-  return sizeof(float) *
-         ((size_t)tb * mk + (size_t)KC * NP + 2 * (size_t)tb + (size_t)M * (DC + 1));
+// the slab [TB, S], the scratch, Ktilde's row sums [WARPS_N, TB]
+template <class C>
+__host__ __device__ constexpr size_t ks_smem(int M) {
+  return sizeof(float) * ((size_t)C::TB * slab_stride(M) + slab_scratch<C>(M) + (size_t)C::WARPS_N * C::TB);
 }
 
-// Two blocks an SM at TB = 32: the register cap of 128 this asks for costs a
-// few spills and measured faster than one block an SM at B=65,536, M=512 on
-// an H100 (PERF.md, section 6).
-template <int KIND, int TB>
-__global__ void __launch_bounds__(TB / RM * (NP / 4), TB == 32 ? 2 : 1)
-kappa_single(const float* __restrict__ x, const float* __restrict__ z,
-             const float* __restrict__ kinv, const float* __restrict__ params,
-             float* __restrict__ kappa, float* __restrict__ ktilde, int B, int D, int M) {
-  constexpr int T = km_threads(TB);
+// One block an SM (at M=512 the slab and the ring take 185 KB), so the
+// registers are not capped at 128: the passes' partial sums of the warp's
+// tiles sit beside its accumulators without spills.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+kappa_single(const float* __restrict__ x, const float* __restrict__ z, const float* __restrict__ kinv,
+             const float* __restrict__ params, float* __restrict__ kappa, float* __restrict__ ktilde, int B,
+             int D, int M, int kind, bool vec) {
+  constexpr int TB = C::TB;
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
-  const int mk = round_up(M, KC);
-  float* G = sm;             // [TB, mk]  gram (first |x - z|^2), zero past M
-  float* P = G + TB * mk;    // [KC, NP]  panel; x / ls chunks while the gram forms
-  float* red = P + KC * NP;  // [2, TB]   Ktilde's row sums, two slots each
-  float* zs = red + 2 * TB;  // [M, DC + 1]  z / ls chunks while the gram forms
-
-  const int tid = threadIdx.x, tx = tid % 64, ty = tid / 64;
+  const int S = slab_stride(M);
+  float* G = sm;                           // [TB, S]  gram (first |x - z|^2), zero past M
+  float* U = G + TB * S;                   // the ring; x / ls, then z / ls, while the gram forms
+  float* red = U + slab_scratch<C>(M);    // [WARPS_N, TB]  Ktilde's row sums
   const int row0 = blockIdx.x * TB;
   const int nrows = min(TB, B - row0);
   const float jitt = params[P_JITT], var = params[P_VAR];
   const float* ls = params + P_VAR + 1;
 
-  gram_tile<KIND, TB>(x, z, ls, var, G, P, zs, row0, nrows, D, M, mk);
-  // (panel_product begins with a barrier)
+  gram_into_slab<C>(kind, x, z, ls, var, G, S, U, row0, nrows, D, M);
 
-  // kappa = G K^-1, panel by panel, stored from registers; Ktilde's row sums
-  // in the epilogue
-  const bool vec = (M & 3) == 0;
-  float kq[RM];
-#pragma unroll
-  for (int r = 0; r < RM; ++r) kq[r] = 0.0f;
-  for (int c0 = 0; c0 < M; c0 += NP) {
-    float acc[RM][4];
-    panel_product<TB>(G, mk, kinv, M, c0, P, acc);
-    const int cb = c0 + 4 * tx;
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      const int row = ty * RM + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (cb + j < M) kq[r] = fmaf(acc[r][j], G[row * mk + cb + j], kq[r]);
-      if (row < nrows && cb < M) {
-        float* out = kappa + (size_t)(row0 + row) * M + cb;
-        if (vec) {
-          *reinterpret_cast<float4*>(out) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (cb + j < M) out[j] = acc[r][j];
-        }
-      }
-    }
-  }
-  row_sums<TB>(kq, red);
+  // kappa = G K^-1, column tile by column tile, stored from the fragments;
+  // Ktilde's row sums in the same epilogue
+  float kq[C::MI][2] = {};
+  float* out = kappa + (size_t)row0 * M;
+  tc_product<C>(G, S, kinv, M, U, vec, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
+    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
+      if (col < M) kq[mi][h] = fmaf(v0, G[row * S + col], kq[mi][h]);
+      if (col + 1 < M) kq[mi][h] = fmaf(v1, G[row * S + col + 1], kq[mi][h]);
+      store_pair(out, M, nrows, row, col, v0, v1);
+    });
+  });
+  row_partials<C>(kq, red);
   __syncthreads();
-  for (int t = tid; t < nrows; t += T)
-    ktilde[row0 + t] = fmaxf(var + jitt - (red[t] + red[TB + t]), 1e-12f);
+  for (int t = threadIdx.x; t < nrows; t += C::THREADS)
+    ktilde[row0 + t] = fmaxf(var + jitt - row_total<C>(red, t), 1e-12f);
 }
 
-template <int KIND, int TB>
-int launch_kappa_single(const float* x, const float* z, const float* kinv, const float* params,
-                        float* kappa, float* ktilde, int B, int D, int M, cudaStream_t st) {
-  const size_t smem = ks_smem(M, TB);
-  cudaError_t err = cudaFuncSetAttribute(kappa_single<KIND, TB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <class C>
+int launch_kappa_single(const float* x, const float* z, const float* kinv, const float* params, float* kappa,
+                        float* ktilde, int B, int D, int M, int kind, cudaStream_t st) {
+  const size_t smem = ks_smem<C>(M);
+  cudaError_t err = cudaFuncSetAttribute(kappa_single<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kappa_single<KIND, TB><<<(B + TB - 1) / TB, km_threads(TB), smem, st>>>(x, z, kinv, params, kappa,
-                                                                         ktilde, B, D, M);
+  const bool vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(kinv) % 16 == 0;
+  kappa_single<C><<<(B + C::TB - 1) / C::TB, C::THREADS, smem, st>>>(x, z, kinv, params, kappa, ktilde, B, D,
+                                                                     M, kind, vec);
   return (int)cudaGetLastError();
 }
 
@@ -124,25 +136,25 @@ int launch_kappa_single(const float* x, const float* z, const float* kinv, const
 
 extern "C" {
 
-size_t agp_fused_kappa_smem_bytes(int M, int tile_rows) { return ks_smem(M, tile_rows); }
+// The shared memory of kernel 6 at M with row tiles of tile_rows (64, 32
+// or 16; SIZE_MAX for another).  ops/cuda_kernels.py::kappa_smem_bytes is
+// its copy in Python: change them together.
+size_t agp_fused_kappa_smem_bytes(int M, int tile_rows) {
+  return with_tile(tile_rows, SIZE_MAX, [&](auto t) { return ks_smem<decltype(t)>(M); });
+}
 
 // All pointers are device pointers to contiguous float32 arrays:
 // x [B, D], z [M, D], kinv [M, M], params [4 + D] = (jitter, unused, unused,
 // var, ls [D]); outputs kappa [B, M], ktilde [B].  kind: a GramKind code;
-// tile_rows: 32 or 16 (agp_fused_kappa_smem_bytes must fit the card).
+// tile_rows: 64, 32 or 16 (agp_fused_kappa_smem_bytes must fit the card).
 // Returns the CUDA error of the launch (cudaErrorInvalidValue for an
 // unknown kind or tile).
-int agp_fused_kappa(const float* x, const float* z, const float* kinv, const float* params,
-                    float* kappa, float* ktilde, int B, int D, int M, int kind, int tile_rows,
-                    void* stream) {
+int agp_fused_kappa(const float* x, const float* z, const float* kinv, const float* params, float* kappa,
+                    float* ktilde, int B, int D, int M, int kind, int tile_rows, void* stream) {
+  if (kind < KIND_RBF || kind > KIND_MATERN52) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_kind(kind, [&](auto k) {
-    constexpr int KIND = decltype(k)::value;
-    if (tile_rows == 32)
-      return launch_kappa_single<KIND, 32>(x, z, kinv, params, kappa, ktilde, B, D, M, st);
-    if (tile_rows == 16)
-      return launch_kappa_single<KIND, 16>(x, z, kinv, params, kappa, ktilde, B, D, M, st);
-    return (int)cudaErrorInvalidValue;
+  return with_tile(tile_rows, (int)cudaErrorInvalidValue, [&](auto t) {
+    return launch_kappa_single<decltype(t)>(x, z, kinv, params, kappa, ktilde, B, D, M, kind, st);
   });
 }
 

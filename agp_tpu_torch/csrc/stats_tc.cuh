@@ -12,15 +12,13 @@
 // M=512, 8.6 G FMAs and 134 MB, 0.26 ms at the FP32 SIMT peak (67 TFLOP/s)
 // against 0.04 ms of memory.  The FP32 pipes cannot get near the memory
 // time; the TF32 tensor cores (495 TFLOP/s dense) can, so:
-// * 3xTF32 on the tensor cores.  Each operand x is split into
-//   hi = tf32(x) (cvt.rna) and lo = tf32(x - hi) as its fragment is loaded,
-//   and a product takes three mma.sync.m16n8k8.tf32 passes, lo.hi + hi.lo
-//   first, then hi.hi: 2 x 11 significant bits, so each product is exact
-//   in FP32 but for the lo.lo term (~2^-22 of it).  The three passes over
-//   8 rows start from a zero accumulator and are then added to the running
-//   sums by FP32 adds (round to nearest): a mma aligns its addends to the
-//   largest and truncates, a bias that grows with a long accumulation in
-//   the tensor cores (on an H100, 9x the FP32 plain version's error at the
+// * 3xTF32 on the tensor cores (tf32_mma.cuh: the split, the mma and the
+//   copies that kernels 4-7 share).  Each operand is split into hi and lo
+//   as its fragment is loaded, and a product takes three
+//   mma.sync.m16n8k8.tf32 passes; the three passes over 8 rows start from
+//   a zero accumulator and are then added to the running sums in FP32: a
+//   mma truncates, a bias that grows with a long accumulation in the
+//   tensor cores (on an H100, 9x the FP32 plain version's error at the
 //   M=512 oracle shape when they carried a whole chunk; PERF.md).
 //   The A operand is theta kappa, theta applied in FP32 before the split,
 //   as the plain version forms it.  mma.sync rather than wgmma: each thread
@@ -29,10 +27,7 @@
 //   takes TF32 only K-major, i.e. kappa's tile transposed while staging.
 //   Three passes, not one: a single TF32 pass is 100-400x farther from
 //   float64 than FP32 is (tests/test_torch_stats_tc.py), three are as close.
-//   That is allowed here and not for kappa: S2 is a weighted Gram matrix
-//   in kappa's basis and does not cancel, where kappa = Knm K^-1 and the
-//   gram's cross term cancel by cond(Kmm) and stay full FP32 (kernels 1-4,
-//   6).  The reference itself forms S2 in one bf16 pass on the TPU.
+//   The reference itself forms S2 in one bf16 pass on the TPU.
 // * s1 is an FP32 FMA sum of the untouched kappa and g (M FMAs a row), in
 //   the diagonal tiles.
 // * A ring of STAGES shared-memory stages of KB rows of both operands'
@@ -56,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -83,53 +80,6 @@ __device__ __forceinline__ void upper_tile(int t, int nt, int& ti, int& tj) {
     ++ti;
   }
   tj = ti + t;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of `bytes` (4 or 16) with the source's first `src_bytes` copied
-// and the rest of the destination zero-filled
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, int src_bytes) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-                 "r"(src_bytes) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-                 "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = hi + lo, both TF32 (round to nearest, ties away, as cvt.rna)
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// c += a b over one m16n8k8 TF32 tile
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a b over one m16n8k8 TF32 tile, from a zero accumulator
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
 }
 
 // Copies rows [b, b + KB) of kappa's columns m0.. (into As) and n0.. (into
@@ -185,14 +135,7 @@ __device__ __forceinline__ void mma_stage(const float* As, const float* Bs, cons
       split_tf32(a0[4 * SP + mi * 16] * t1, ah[2], al[2]);
       split_tf32(a0[4 * SP + mi * 16 + 8] * t1, ah[3], al[3]);
 #pragma unroll
-      for (int nj = 0; nj < NJ; ++nj) {
-        float d[4];
-        mma_tf32_first(d, al, bh[nj]);
-        mma_tf32(d, ah, bl[nj]);
-        mma_tf32(d, ah, bh[nj]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][nj][e] += d[e];
-      }
+      for (int nj = 0; nj < NJ; ++nj) mma_3xtf32(acc[mi][nj], ah, al, bh[nj], bl[nj]);
     }
   }
 }

@@ -15,7 +15,7 @@ statistics:
     E-step; ``fused_cavi_stats_het``: the two latents of the
     heteroscedastic likelihood; both in ``csrc/fused_cavi_stats_multi.cu``;
 * the split pairs, which leave the E-step to the caller:
-  - the batched pair, for several latents and M up to 1,680:
+  - the batched pair, for several latents and M up to 2,392:
     ``fused_kappa_moments_batched`` (kappa, mf, vf; differentiable) and
     ``cavi_stats_batched`` (s1, S2 from kappa); ``csrc/batched_pair.cu``;
   - the single-latent split pair: ``fused_kappa`` (kappa, Ktilde;
@@ -69,7 +69,8 @@ _SOURCES = tuple(
                  "fused_variants.cu", "gather_tiles.cu")
 )
 # headers the sources include: part of the build's hash
-_HEADERS = tuple(_PKG / "csrc" / name for name in ("gram.cuh", "pair_core.cuh", "stats_tc.cuh", "block_sums.cuh"))
+_HEADERS = tuple(_PKG / "csrc" / name
+                 for name in ("gram.cuh", "pair_core.cuh", "stats_tc.cuh", "tf32_mma.cuh", "block_sums.cuh"))
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -80,12 +81,15 @@ MAX_M = 128
 SMEM_OPTIN = 232448
 # rows of the fused kernels' tiles (TB in csrc/fused_cavi_stats*.cu)
 _FUSED_TILE_ROWS = 64
-# features per chunk of the direct-difference gram (DC in
-# csrc/batched_pair.cu); the plain versions sum r2 over chunks of as many
+# features per chunk of the plain versions' direct-difference r2, and the
+# fewest a gram pass of kernels 4 and 6 stages (DC in csrc/pair_core.cuh)
 _FEATURE_CHUNK = 8
-# row tiles of fused_kappa_moments_batched, largest first (TB in
-# csrc/batched_pair.cu): the first whose shared memory fits is taken
-_BATCHED_TILE_ROWS = (32, 16)
+# row tiles of kernels 4 and 6, largest first (KTile<TB> in
+# csrc/pair_core.cuh), each with the rows of a stage of its ring (KB), its
+# warp columns (WARPS_N) and the columns of its output tiles (NT); the ring
+# holds _KAPPA_STAGES stages of KB rows of NT + 8 floats
+_KAPPA_TILES = {64: (16, 8, 256), 32: (16, 8, 256), 16: (8, 8, 128)}
+_KAPPA_STAGES = 3
 # rows of a stage of kernels 5 and 7 (KB in csrc/stats_tc.cuh): a chunk of
 # rows is a whole number of stages and, where B allows, _STATS_MIN_ROWS rows
 # or more, so that few rows do not spread over more partials than their
@@ -217,6 +221,41 @@ def fused_fits(n_latent: int, D: int, M: int) -> bool:
     else:  # the moments pass; the statistics pass needs less
         words = tb * D + z + 2 * M * M + M + 2 * tb * M + 2 * tb
     return 4 * words <= SMEM_OPTIN
+
+
+def kappa_smem_bytes(which: str, M: int, tile_rows: int) -> int:
+    """Shared memory of kernel 4 (``which="moments"``) or kernel 6
+    (``"single"``) at M with row tiles of ``tile_rows`` (64, 32 or 16):
+    the [TB, M] slab (the gram; in kernel 4 kappa's rows after it), the
+    ring or the gram's staging of 8 features or more, whichever is larger,
+    and the row sums (kernel 4: three).  A Python copy of
+    ``agp_kappa_moments_smem_bytes`` and ``agp_fused_kappa_smem_bytes``
+    (each names this function): change them together."""
+    if which not in ("moments", "single"):
+        raise ValueError(f"which is 'moments' (kernel 4) or 'single' (kernel 6), got {which!r}")
+    stage_rows, warps_n, cols = _KAPPA_TILES[tile_rows]
+    ring = _KAPPA_STAGES * stage_rows * (cols + 8)
+    staging = _FEATURE_CHUNK * (tile_rows + M + 2)
+    sums = (3 if which == "moments" else 1) * warps_n * tile_rows
+    return 4 * (tile_rows * (-(-M // 8) * 8 + 4) + max(ring, staging) + sums)
+
+
+def kappa_tile_rows(which: str, M: int, limit: int = SMEM_OPTIN) -> int | None:
+    """The row tile kernel 4 (``"moments"``) or 6 (``"single"``) takes at M:
+    the largest of 64, 32 and 16 whose ``kappa_smem_bytes`` fits ``limit``
+    bytes (by default what a block may opt into on an H100), or None beyond
+    the kernel's range.  The same answer on the CPU and on the card."""
+    return next((t for t in _KAPPA_TILES if kappa_smem_bytes(which, M, t) <= limit), None)
+
+
+def kappa_max_m(which: str, limit: int = SMEM_OPTIN) -> int:
+    """The largest M kernel 4 (``"moments"``) or 6 (``"single"``) takes
+    within ``limit`` bytes of shared memory a block."""
+    lo, hi = 0, 1 << 16  # kappa_smem_bytes grows with M
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if kappa_tile_rows(which, mid, limit) else (lo, mid)
+    return lo
 
 
 @_highest_precision
@@ -648,6 +687,19 @@ def _cuda_error(name, lib, err):
     return RuntimeError(f"{name} launch failed: CUDA error {err} ({lib.agp_cuda_error_string(err).decode()})")
 
 
+def _kappa_tile(which, name, M, dev):
+    """Kernel 4's or 6's row tile at M on the card (``kappa_tile_rows``
+    with its opt-in limit), or ValueError beyond its shared memory."""
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
+    tb = kappa_tile_rows(which, M, limit)
+    if tb is None:
+        raise ValueError(
+            f"the CUDA {name} at M={M} needs {kappa_smem_bytes(which, M, 16)} bytes of shared memory; this card "
+            f"allows {limit} per block (M <= {kappa_max_m(which, limit)})"
+        )
+    return tb
+
+
 def _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
     """Checks and launches kernel 4 on CUDA tensors; ls2 [L, D] and var [L]
     are tensors.  Returns (kappa, mf, vf)."""
@@ -662,13 +714,7 @@ def _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
         raise ValueError(f"L_invT must be [{L}, {M}, {M}] on {X.device}")
     dev = X.device
     lib = _library()
-    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
-    tb = next((t for t in _BATCHED_TILE_ROWS if lib.agp_kappa_moments_smem_bytes(M, t) <= limit), None)
-    if tb is None:
-        raise ValueError(
-            f"the CUDA {name} at M={M} needs {lib.agp_kappa_moments_smem_bytes(M, _BATCHED_TILE_ROWS[-1])} bytes "
-            f"of shared memory; this card allows {limit} per block (M <= 1680 on an H100)"
-        )
+    tb = _kappa_tile("moments", name, M, dev)
     params = _multi_params(X, L, jitt, 0.0, 0.0, ls2, var)
     kinv = _kinv(L_invT.to(torch.float32))
     f32 = dict(dtype=torch.float32, device=dev)
@@ -722,8 +768,9 @@ def fused_kappa_moments_batched(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rb
     every tensor argument.
 
     A CPU tensor runs :func:`fused_kappa_moments_batched_reference`.  A
-    CUDA tensor launches the kernel (float32, any L, B, D >= 1 and
-    1 <= M <= 1680 on an H100) and adds one to
+    CUDA tensor launches the kernel (float32, any L, B, D >= 1 and M up to
+    ``kappa_max_m("moments")``, 2,392 on an H100; kappa and kappa Sigma in
+    3xTF32 on the tensor cores, ``csrc/batched_pair.cu``) and adds one to
     ``fused_kappa_moments_batched.launches``; its backward runs the plain
     version's vjp."""
     if X.device.type == "cpu":
@@ -847,13 +894,7 @@ def _fused_kappa_launch(X, Z, kinv, ls, var, jitt, kind):
         raise ValueError(f"the CUDA {name} takes B, D, M >= 1; got B={B}, D={D}, M={M}")
     dev = X.device
     lib = _library()
-    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
-    tb = next((t for t in _BATCHED_TILE_ROWS if lib.agp_fused_kappa_smem_bytes(M, t) <= limit), None)
-    if tb is None:
-        raise ValueError(
-            f"the CUDA {name} at M={M} needs {lib.agp_fused_kappa_smem_bytes(M, _BATCHED_TILE_ROWS[-1])} bytes "
-            f"of shared memory; this card allows {limit} per block"
-        )
+    tb = _kappa_tile("single", name, M, dev)
     params = _multi_params(X, 1, jitt, 0.0, 0.0, ls, var)
     f32 = dict(dtype=torch.float32, device=dev)
     kappa, ktilde = torch.empty((B, M), **f32), torch.empty((B,), **f32)
@@ -893,8 +934,9 @@ def fused_kappa(X, Z, L_invT, lengthscale, variance, jitt, kind="rbf"):
     ``KINDS``.  Differentiable in every tensor argument.
 
     A CPU tensor runs :func:`fused_kappa_reference`.  A CUDA tensor launches
-    the kernel (float32, any B, D >= 1, M up to what a block's shared memory
-    holds: at least 1,680 on an H100) and adds one to
+    the kernel (float32, any B, D >= 1, M up to ``kappa_max_m("single")``,
+    2,406 on an H100; kappa in 3xTF32 on the tensor cores,
+    ``csrc/kappa_single.cu``) and adds one to
     ``fused_kappa.launches``; ls, var and the jitter reach it in a device
     buffer, so a changing lengthscale costs no host read.  Its backward runs
     the plain version's vjp."""

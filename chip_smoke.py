@@ -9,7 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels from the repo's sources with nvcc for
    sm_90a, one nvcc per source, all at once; then the TF32 tensor-core
    instructions that ``cuobjdump -sass`` finds in each instance of kernels
-   5 and 7's stats_tc (none fails the run);
+   4-7 (kappa_moments_batched, kappa_single, stats_tc; none fails the run),
+   and kernels 4 and 6's shared memory against the wrapper's Python copy
+   of it, which chooses their row tiles;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
    the same card tensors, at its main path's shape, a ragged B=300 and
    M=128, then both timed at the main path's shape (CUDA events, in the
@@ -55,10 +57,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ORACLE_DEVICE_FACTOR);
 12. the batched pair (kernels 4-5, several latents) and the single-latent
    split pair (kernels 6-7, one latent beyond the fused range) against
-   their plain versions at the M=512 paths' shapes (float64 at the
-   ill-conditioned ones), ragged B=300, M=129 (kernels 4-5 with 1-3
-   latents) and each Matern kind, timed beside the plain versions and
-   torch.bmm / torch.matmul; kernel 4's and kernel 6's autograd;
+   their plain versions at the M=512 paths' shapes (at the ill-conditioned
+   ones against float64, within FLOAT32_FACTOR times the float32 plain
+   version's own error), the flagship's, ragged B=300, M=129 (kernels 4-5
+   with 1-3 latents) and each Matern kind, a second call of each kernel
+   bit-equal, timed beside the plain versions and torch.bmm / torch.matmul
+   (for kernels 4 and 6 their tensor products alone); kernel 4's and
+   kernel 6's autograd;
 13. logistic_m512_b65536 (bench.py: N=500,000, D=20, M=512, B=65,536) and
    the reference's seven single-latent oracles at M=512, each with one
    launch of kernel 6 and of kernel 7 a step, and the reference's M=512
@@ -98,10 +103,17 @@ hyperparameter step each), ``profile kernels`` (device time of the bench's
 candidates: kernels 1, 8, 9, the sweep's bar, kernel 10 and index_select),
 ``moved-paths`` (a row-weighted step and elbo at fused-range shapes),
 ``stats`` (kernels 5 and 7 at phase 12's timed shapes by CUDA events and
-device us, logistic_m512_b65536's steady it/s and ``profile logistic``).
-``ab ROOT MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
-earlier commit unpacked under _chip/), to compare two trees in one call:
-``ab ROOT stats`` and ``stats`` in the order parent, this, this, parent.
+device us, logistic_m512_b65536's steady it/s and ``profile logistic``),
+``kappa`` (kernels 6 and 4 at phase 12's timed shapes by CUDA events and
+device us beside their tensor products alone, the steady it/s of
+logistic_m512_b65536 and of path B, ``profile logistic`` and ``profile
+multiclass``), ``probe`` (builds and runs
+agp_tpu_torch/csrc/probes/kappa_tc.cu: kernel 6's parts, kernels 4 and 6
+at other tile shapes, the mma.sync rate with and without 3xTF32's
+splits).  ``ab ROOT MODE...`` runs any mode with agp_tpu_torch
+imported from ROOT (an earlier commit unpacked under _chip/), to compare
+two trees in one call: ``ab ROOT kappa`` and ``kappa`` in the order parent,
+this, this, parent.
 """
 from __future__ import annotations
 
@@ -256,29 +268,47 @@ def phase_build(ck):
     return info["path"]
 
 
-def check_stats_sass(lib_path):
-    """Kernels 5 and 7 run on the tensor cores: every instance of the
-    statistics kernel (stats_tc<vec>) in the built library holds TF32
-    HMMA (or HGMMA) instructions, as ``cuobjdump -sass`` shows them."""
+# the kernels that run on the tensor cores, by the name of their CUDA
+# function: every instance must hold TF32 mma instructions
+TC_KERNELS = {"kappa_moments_batched": "kernel 4", "stats_tc": "kernels 5 and 7", "kappa_single": "kernel 6"}
+
+
+def check_tc_sass(lib_path):
+    """Kernels 4-7 run on the tensor cores: every instance of
+    kappa_moments_batched (kernel 4), kappa_single (6) and stats_tc (5 and
+    7) in the built library holds TF32 HMMA (or HGMMA) instructions, as
+    ``cuobjdump -sass`` shows them, and each of the three has one."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    # the function's own name in the mangled one (the anonymous namespace's
+    # name holds the source file's, e.g. kappa_single_cu)
+    own = re.compile(r"\d(" + "|".join(TC_KERNELS) + r")I")
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            if "stats_tc" in name:
+            if own.search(name):
                 counts[name] = 0
         elif name in counts and ("HMMA" in line and "TF32" in line or "HGMMA" in line):
             counts[name] += 1
-    if not counts or not all(counts.values()):
-        raise AssertionError(f"the statistics kernel holds no TF32 tensor-core instruction in its SASS: {counts}")
+    missing = [k for k in TC_KERNELS if not any(own.search(n)[1] == k for n in counts)]
+    if missing or not all(counts.values()):
+        raise AssertionError(f"a tensor-core kernel holds no TF32 tensor-core instruction in its SASS: {counts}, "
+                             f"no instance of {missing}")
     for fn, n in sorted(counts.items()):
-        m = re.search(r"stats_tcILb(\d)", fn)
-        label = f"stats_tc<{'16-byte' if m[1] == '1' else '4-byte'} copies>" if m else fn[:90]
-        log(f"  SASS: {label} ({fn[:40]}...): {n} TF32 HMMA/HGMMA")
+        stats = re.search(r"stats_tcILb(\d)", fn)
+        tile = re.search(r"(kappa_single|kappa_moments_batched)INS_9TileShapeILi(\d+)E", fn)
+        if stats:
+            label = f"stats_tc<{'16-byte' if stats[1] == '1' else '4-byte'} copies>"
+        elif tile:
+            label = f"{tile[1]}<{tile[2]}-row tiles>"
+        else:
+            label = fn[:90]
+        kernel = TC_KERNELS[own.search(fn)[1]]
+        log(f"  SASS: {label} ({kernel}; {fn[:40]}...): {n} TF32 HMMA/HGMMA")
 
 
 def kernel_inputs(b, m, device, seed=0):
@@ -1109,6 +1139,24 @@ def check_fused_fits(ck):
     log(f"fused_fits agrees with the library's shared-memory functions at {n} (latents, D, M)")
 
 
+def check_kappa_tiles(ck):
+    """kappa_smem_bytes (Python, the same on the CPU) against the library's
+    own shared-memory functions of kernels 4 and 6 at every row tile, and
+    so the wrapper's tile choice (kappa_tile_rows), on a grid of M."""
+    lib, n = ck._library(), 0
+    grid = (1, 8, 64, 128, 129, 512, 680, 681, 696, 697, 700, 1392, 1393, 1408, 1409, 1680, 2158, 2392, 2393, 2406, 2407)
+    for which, fn in (("moments", lib.agp_kappa_moments_smem_bytes), ("single", lib.agp_fused_kappa_smem_bytes)):
+        for m in grid:
+            for tb in (64, 32, 16):
+                if fn(m, tb) != ck.kappa_smem_bytes(which, m, tb):
+                    raise AssertionError(f"kappa_smem_bytes({which!r}, {m}, {tb}) disagrees with {fn(m, tb)} bytes")
+                n += 1
+    tiles = {which: {m: ck.kappa_tile_rows(which, m) for m in (64, 512, 1680, 2158)} for which in ("moments", "single")}
+    log(f"kappa_smem_bytes agrees with the library's shared-memory functions at {n} (kernel, M, tile); row tiles "
+        f"(kernel 4, moments / kernel 6, single): {tiles}; largest M {ck.kappa_max_m('moments')} / "
+        f"{ck.kappa_max_m('single')}")
+
+
 def pair_inputs(X_all, b, m, n_latent, device, kind="rbf", ls=2.0, seed=0):
     """Float32 card tensors as a path hands them to kernel 4: the batch
     X_all[:b], Z = X_all[:m] (on the batch's rows, as a path's first slice)
@@ -1141,14 +1189,17 @@ def call_k4(fn, t):
 
 def pair_cases(device):
     """(label, inputs, float64 check, timed) of each shape the pair is held
-    at: the paths' own shapes (timed), ragged B=300, M=129 with 1-3
-    latents, and each Matern kind.  The oracle, multiclass and heteroscedastic shapes (Z on
-    the batch's rows, lengthscale 1, low dimension) are ill-conditioned
-    (cond(Kmm) up to ~5e5), so there each output is held against the plain
-    version in float64."""
+    at: the paths' own shapes and the flagship's (B=4096, D=20, M=64; all
+    timed), ragged B=300, M=129 with 1-3 latents, and each Matern kind.
+    The oracle, multiclass and heteroscedastic shapes (Z on the batch's
+    rows, lengthscale 1, low dimension) are ill-conditioned (cond(Kmm) up
+    to ~5e5), so there each output is held against the plain version in
+    float64."""
     Xl, _ = big_logistic_data("cpu", n=LB)
+    Xf, _ = flagship_data("cpu", n=B)
     Xo = oracle_data("studentt", "cpu")[0]
     cases = [("logistic_m512_b65536", pair_inputs(Xl, LB, PM, 1, device), False, True),
+             ("flagship_m64_b4096", pair_inputs(Xf, B, M, 1, device), False, True),
              ("oracle_m512_b8192", pair_inputs(Xo, OB, PM, 1, device, ls=1.0), True, True),
              ("multiclass_m512_b8192", pair_inputs(pair_mc_data("cpu")[0], PAIR_MC_B, PM, 3, device, ls=1.0), True, True),
              ("het_m512_b16384", pair_inputs(pair_het_data("cpu")[0], PAIR_HET_B, PM, 2, device, ls=1.0), True, True)]
@@ -1189,41 +1240,56 @@ def fused_bound(b, d, m, n_latent, label_words):
     return bound(fmas, 4 * words)
 
 
+def tc_bound(tc_fmas, simt_fmas, nbytes):
+    """(ms, "operations" or "bytes"): the larger of tc_fmas at the TF32
+    tensor-core peak, simt_fmas at the FP32 one (another pipe, so the two
+    overlap) and nbytes over the memory rate."""
+    ops_ms = max(2.0 * tc_fmas / PEAK_TF32_FLOPS, 2.0 * simt_fmas / PEAK_FP32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def kappa_bounds(b, d, m, n_latent, moments):
+    """Kernel 4 (moments: kappa, mf, vf; L latents) or 6 (kappa, Ktilde):
+    per row and latent kappa's M^2 FMAs, for kernel 4 the quadratic form
+    kappa Sigma kappa^T (``sym_fmas``; the design forms kappa Sigma in
+    full, M^2), and on the FP32 pipes the gram's M D and the row sums' M
+    (kernel 4: 3 M); reads X, Z, L^-T, ls, var (and mu, Sigma), writes
+    kappa and Ktilde (mf, vf).  Returns three bounds, each (ms, by): the
+    function's (its products once at the TF32 peak, ``tc_bound``), the
+    design's (each full product in three TF32 passes) and the FP32 SIMT one
+    (``bound``)."""
+    tc = n_latent * b * (m * m + (sym_fmas(m) if moments else 0))
+    design = 3 * n_latent * b * m * m * (2 if moments else 1)
+    simt = n_latent * b * (m * d + (3 if moments else 1) * m)
+    if moments:
+        nbytes = 4 * (b * d + n_latent * (m * d + 2 * m * m + d + 1 + m + b * m + 2 * b))
+    else:
+        nbytes = 4 * (b * d + m * d + m * m + d + 1 + b * m + b)
+    return tc_bound(tc, simt, nbytes), tc_bound(design, simt, nbytes), bound(tc + simt, nbytes)
+
+
 def pair_bounds(b, d, m, n_latent):
-    """Kernel 4: per row and latent the gram (M D), kappa (M^2), vf's
-    quadratic form (``sym_fmas``) and 3 M FMAs (Ktilde, mf, vf); reads X,
-    Z, L^-T, ls, var, mu, Sigma, writes kappa, mf, vf.  Kernel 5:
-    ``stats_bounds``."""
-    k4 = bound(n_latent * b * (m * m + sym_fmas(m) + m * d + 3 * m),
-               4 * (b * d + n_latent * (m * d + 2 * m * m + d + 1 + m + b * m + 2 * b)))
-    k5 = stats_bounds(b, m, n_latent)
-    return k4, k5
+    """Kernels 4 and 5: ``kappa_bounds`` and ``stats_bounds``."""
+    return kappa_bounds(b, d, m, n_latent, True), stats_bounds(b, m, n_latent)
 
 
 def single_bounds(b, d, m):
-    """Kernel 6: per row the gram (M D), kappa (M^2) and Ktilde's row sum
-    (M); reads X, Z, K^-1, ls, var, writes kappa and Ktilde.  Kernel 7:
-    ``stats_bounds`` with one latent."""
-    k6 = bound(b * (m * d + m * m + m), 4 * (b * d + m * d + m * m + d + 1 + b * m + b))
-    return k6, stats_bounds(b, m, 1)
+    """Kernels 6 and 7: ``kappa_bounds`` and ``stats_bounds`` with one
+    latent."""
+    return kappa_bounds(b, d, m, 1, False), stats_bounds(b, m, 1)
 
 
 def stats_bounds(b, m, n_latent):
     """Kernels 5 and 7 (L latents): S2 (``sym_fmas`` a row) and s1 (M);
     reads kappa, g, theta, writes s1, S2.  Returns three bounds, each (ms,
-    by), all with the bytes over the memory rate: the function's, S2's
-    FMAs once on the tensor cores (TF32 peak) and s1's on the FP32 pipes;
-    the design's, with S2's three TF32 passes (3xTF32); and the FP32 SIMT
-    one of kernels 1-4 and 6 (``bound``)."""
+    by): the function's, S2's FMAs once on the tensor cores and s1's on the
+    FP32 pipes (``tc_bound``); the design's, with S2's three TF32 passes
+    (3xTF32); and the FP32 SIMT one (``bound``)."""
     s2_fmas, s1_fmas = n_latent * b * sym_fmas(m), n_latent * b * m
     nbytes = 4 * n_latent * (b * m + 2 * b + m + m * m)
-    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-
-    def tc(passes):
-        ops_ms = max(passes * 2.0 * s2_fmas / PEAK_TF32_FLOPS * 1e3, 2.0 * s1_fmas / PEAK_FP32_FLOPS * 1e3)
-        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-    return tc(1), tc(3), bound(s2_fmas + s1_fmas, nbytes)
+    return (tc_bound(s2_fmas, s1_fmas, nbytes), tc_bound(3 * s2_fmas, s1_fmas, nbytes),
+            bound(s2_fmas + s1_fmas, nbytes))
 
 
 def kernel_name(key):
@@ -1251,15 +1317,60 @@ def device_us(fn, n=10):
     return sum(by.values()), by
 
 
+def check_repeat(label, fn, got):
+    """Kernels 4-7: a second call, fn(), bit-equal to the first's outputs
+    ``got`` (no atomics; every sum in a fixed order)."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: a second call differs from the first")
+
+
 def check_stats_repeat(label, fn, args, got):
     """Kernels 5 and 7: S2 exactly symmetric, and a second call bit-equal to
     the first."""
-    again = fn(*args)
-    torch.cuda.synchronize()
     if not torch.equal(got[1], got[1].mT):
         raise AssertionError(f"{label}: S2 is not exactly symmetric")
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"{label}: a second call differs from the first")
+    check_repeat(label, lambda: fn(*args), got)
+
+
+def kappa_products(ck, t, single):
+    """One PyTorch call of kernel 6's product alone, torch.matmul(Knm,
+    K^-1) ("kappa's product alone"), or of kernel 4's two, torch.bmm(Knm,
+    K^-1) and torch.bmm(kappa, Sigma), on float32 operands the plain
+    version forms from the case's inputs: a yardstick of the tensor
+    products, not the whole function, which the port never calls."""
+    kinv = ck._kinv(t["L_invT"])
+    if single:
+        ls = t["ls"]
+        knm = ck._kappa_ktilde((t["X"] / ls)[None], (t["Z"] / ls)[None], kinv[None], t["var"].reshape(1), 1e-3,
+                               t["kind"])[2][0]
+        return lambda: torch.matmul(knm, kinv)
+    ls = t["ls"][:, None, :]
+    kappa, _, knm = ck._kappa_ktilde(t["X"][None] / ls, t["Z"] / ls, kinv, t["var"], 1e-3, t["kind"])
+    return lambda: (torch.bmm(knm, kinv), torch.bmm(kappa, t["Sigma"]))
+
+
+def kappa_timing(ck, name, t, reps):
+    """Kernel ``name`` (fused_kappa_moments_batched or fused_kappa) at one
+    shape: its ms by CUDA events beside its plain version (plain, kernel,
+    kernel, plain) and its device us (profiler), and the same of its
+    products alone (``kappa_products``)."""
+    single = name == "fused_kappa"
+    caller = call_k6 if single else call_k4
+    fn, plain = getattr(ck, name), getattr(ck, name + "_reference")
+    ms, plain_ms = timed_pair(lambda: caller(fn, t), lambda: caller(plain, t), reps)
+    dev, dev_by = device_us(lambda: caller(fn, t))
+    products = kappa_products(ck, t, single)
+    return {"ms": ms, "plain_ms": plain_ms, "device_us": dev, "device_us_by_kernel": dev_by,
+            "products_ms": cuda_ms(products, reps), "products_device_us": device_us(products)[0]}
+
+
+def kappa_line(label, name, r):
+    what = "kappa's product alone, torch.matmul" if name == "kernel 6" else "the products alone, torch.bmm x2"
+    return (f"  {label}: {name} {r['ms']:.4f} ms, device {r['device_us']:.1f} us ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in r["device_us_by_kernel"].items()) + f"); plain "
+            f"{r['plain_ms']:.4f}; {what} {r['products_ms']:.4f} ms, device {r['products_device_us']:.1f} us")
 
 
 def stats_timing(ck, name, kappa, g, th, reps, library_fn):
@@ -1284,12 +1395,14 @@ def stats_line(label, name, r):
 
 def phase_pair_kernels_vs_plain(ck, device):
     """Kernels 4 and 5 against their plain versions at every case of
-    pair_cases, then timed at the paths' shapes beside their plain
-    versions (and kernel 5 beside torch.bmm, which the port never calls).
-    Kernel 5's S2 exactly symmetric and a second call bit-equal at every
-    case; at the timed shapes its device us and torch.bmm's
-    (stats_timing).  Returns {kernel: (largest abs error, {shape: (ms,
-    plain ms)}, {shape: library ms}, {shape: stats_timing's dict})}."""
+    pair_cases (at the float64 cases with no KERNEL_TOL floor: within
+    FLOAT32_FACTOR times the float32 plain version's own error), then timed
+    at the paths' shapes beside their plain versions (kernel 4 beside its
+    products alone, kappa_timing; kernel 5 beside torch.bmm, stats_timing;
+    neither of which the port calls), with their device us.  Kernel 5's S2
+    exactly symmetric, and a second call of each bit-equal, at every case.
+    Returns {kernel: (largest abs error, {shape: (ms, plain ms)}, {shape:
+    library ms}, {shape: kappa_timing's or stats_timing's dict})}."""
     worst = {"fused_kappa_moments_batched": 0.0, "cavi_stats_batched": 0.0}
     extra = {"fused_kappa_moments_batched": {}, "cavi_stats_batched": {}}
     times = {"fused_kappa_moments_batched": {}, "cavi_stats_batched": {}}
@@ -1299,7 +1412,8 @@ def phase_pair_kernels_vs_plain(ck, device):
         torch.cuda.synchronize()
         ref = call_k4(ck.fused_kappa_moments_batched_reference, t)
         ref64 = call_k4(ck.fused_kappa_moments_batched_reference, to_float64(t)) if f64 else None
-        row = check_outputs(f"fused_kappa_moments_batched {label}", ("kappa", "mf", "vf"), got, ref, ref64)
+        row = check_outputs(f"fused_kappa_moments_batched {label}", ("kappa", "mf", "vf"), got, ref, ref64, floor=0.0)
+        check_repeat(f"fused_kappa_moments_batched {label}", lambda: call_k4(ck.fused_kappa_moments_batched, t), got)
         worst["fused_kappa_moments_batched"] = max(worst["fused_kappa_moments_batched"], *row.values())
         kappa = ref[0].contiguous()
         s_got = ck.cavi_stats_batched(kappa, t["g"], t["theta"])
@@ -1314,17 +1428,16 @@ def phase_pair_kernels_vs_plain(ck, device):
             + " ".join(f"{k}={v:.2e}" for k, v in {**row, **row5}.items()))
         if timed:
             reps = 10 if B_ > 20000 else 30
-            times["fused_kappa_moments_batched"][label] = timed_pair(
-                lambda: call_k4(ck.fused_kappa_moments_batched, t),
-                lambda: call_k4(ck.fused_kappa_moments_batched_reference, t), reps)
+            r4 = kappa_timing(ck, "fused_kappa_moments_batched", t, reps)
+            extra["fused_kappa_moments_batched"][label] = r4
+            times["fused_kappa_moments_batched"][label] = (r4["ms"], r4["plain_ms"])
             g, th = t["g"], t["theta"]
             r = stats_timing(ck, "cavi_stats_batched", kappa, g, th, reps, lambda: (
                 torch.bmm((kappa * th[..., None]).mT, kappa), torch.bmm(kappa.mT, g[..., None])))
             extra["cavi_stats_batched"][label] = r
             times["cavi_stats_batched"][label] = (r["ms"], r["plain_ms"])
             library["cavi_stats_batched"][label] = r["library_ms"]
-            k4 = times["fused_kappa_moments_batched"][label]
-            log(f"  {label}: kernel 4 {k4[0]:.4f} ms (plain {k4[1]:.4f})")
+            log(kappa_line(label, "kernel 4", r4))
             log(stats_line(label, "kernel 5", r) + " (library: torch.bmm x2)")
         del got, ref, ref64, s_got, s_ref, s64
     return {name: (worst[name], times[name], library[name], extra[name]) for name in worst}
@@ -1528,13 +1641,14 @@ def single_cases(device):
 
 def phase_single_kernels_vs_plain(ck, device):
     """Kernels 6 and 7 against their plain versions at every case of
-    single_cases (S2 exactly symmetric), then timed at the timed shapes
-    beside their plain versions, and kernel 7 beside torch.matmul for the
-    same two sums (which the port never calls); kernel 7's second call
-    bit-equal at every case, and at the timed shapes its device us and
-    torch.matmul's (stats_timing).  Returns {kernel:
+    single_cases (at the float64 cases with no KERNEL_TOL floor; S2
+    exactly symmetric), then timed at the timed shapes beside their plain
+    versions, kernel 6 beside kappa's product alone (torch.matmul,
+    kappa_timing) and kernel 7 beside torch.matmul for the same two sums
+    (stats_timing), none of which the port calls, with their device us; a
+    second call of each bit-equal at every case.  Returns {kernel:
     (largest abs error, {shape: (ms, plain ms)}, {shape: library ms},
-    {shape: stats_timing's dict})}."""
+    {shape: kappa_timing's or stats_timing's dict})}."""
     worst = {"fused_kappa": 0.0, "cavi_stats": 0.0}
     extra = {"fused_kappa": {}, "cavi_stats": {}}
     times = {"fused_kappa": {}, "cavi_stats": {}}
@@ -1544,7 +1658,8 @@ def phase_single_kernels_vs_plain(ck, device):
         torch.cuda.synchronize()
         ref = call_k6(ck.fused_kappa_reference, t)
         ref64 = call_k6(ck.fused_kappa_reference, to_float64(t)) if f64 else None
-        row = check_outputs(f"fused_kappa {label}", ("kappa", "Ktilde"), got, ref, ref64)
+        row = check_outputs(f"fused_kappa {label}", ("kappa", "Ktilde"), got, ref, ref64, floor=0.0)
+        check_repeat(f"fused_kappa {label}", lambda: call_k6(ck.fused_kappa, t), got)
         worst["fused_kappa"] = max(worst["fused_kappa"], *row.values())
         kappa, g, th = ref[0].contiguous(), t["g"], t["theta"]
         s_got = ck.cavi_stats(kappa, g, th)
@@ -1559,15 +1674,15 @@ def phase_single_kernels_vs_plain(ck, device):
             + " ".join(f"{k}={v:.2e}" for k, v in {**row, **row7}.items()))
         if timed:
             reps = 10 if B_ > 20000 else 30
-            times["fused_kappa"][label] = timed_pair(lambda: call_k6(ck.fused_kappa, t),
-                                                     lambda: call_k6(ck.fused_kappa_reference, t), reps)
+            r6 = kappa_timing(ck, "fused_kappa", t, reps)
+            extra["fused_kappa"][label] = r6
+            times["fused_kappa"][label] = (r6["ms"], r6["plain_ms"])
             r = stats_timing(ck, "cavi_stats", kappa, g, th, reps,
                              lambda: ((kappa * th[:, None]).T @ kappa, kappa.T @ g))
             extra["cavi_stats"][label] = r
             times["cavi_stats"][label] = (r["ms"], r["plain_ms"])
             library["cavi_stats"][label] = r["library_ms"]
-            k6 = times["fused_kappa"][label]
-            log(f"  {label}: kernel 6 {k6[0]:.4f} ms (plain {k6[1]:.4f})")
+            log(kappa_line(label, "kernel 6", r6))
             log(stats_line(label, "kernel 7", r) + " (library: torch.matmul x2)")
         del got, ref, ref64, s_got, s_ref, s64
     return {name: (worst[name], times[name], library[name], extra[name]) for name in worst}
@@ -1856,6 +1971,46 @@ def stats_mode(agt, ck, device):
     print(json.dumps(out))
 
 
+def kappa_mode(agt, ck, device):
+    """``python3 chip_smoke.py kappa`` (``ab ROOT kappa`` for an earlier
+    tree): kernels 6 and 4 at phase 12's timed shapes by CUDA events and
+    device us beside their products alone (kappa_timing), the steady it/s
+    of logistic_m512_b65536 (phase 13's run) and of path B (phase 15's),
+    ``profile logistic`` and ``profile multiclass``; last a JSON line of
+    them."""
+    tree = os.path.relpath(os.path.dirname(agt.__file__))
+    log(f"kappa: agp_tpu_torch from {tree}")
+    out = {"tree": tree, "fused_kappa": {}, "fused_kappa_moments_batched": {}}
+    for name, label_of, cases in (("fused_kappa", "kernel 6", single_cases), ("fused_kappa_moments_batched",
+                                                                             "kernel 4", pair_cases)):
+        for label, t, _, timed in cases(device):
+            if timed:
+                reps = 10 if t["X"].shape[0] > 20000 else 30
+                out[name][label] = kappa_timing(ck, name, t, reps)
+                log(kappa_line(label, label_of, out[name][label]))
+        del t
+        torch.cuda.empty_cache()
+    out["logistic_m512_b65536_ips"] = phase_big_logistic(agt, ck, device)[2]
+    out["path_b_ips"] = phase_hyper_path(agt, ck, device, "B")[2]
+    out["profile_logistic"] = profile_pair_path(agt, device, "logistic")
+    out["profile_multiclass"] = profile_pair_path(agt, device, "multiclass")
+    print(json.dumps(out))
+
+
+def probe_mode(ck):
+    """``python3 chip_smoke.py probe``: builds the measurement program
+    agp_tpu_torch/csrc/probes/kappa_tc.cu with nvcc for sm_90a into the
+    build directory and runs it on the card: kernel 6's gram and product
+    apart at logistic_m512_b65536's shape, kernels 4 and 6 at other tile
+    shapes, and the mma.sync rate with and without 3xTF32's splits."""
+    src = ck._PKG / "csrc" / "probes" / "kappa_tc.cu"
+    out_dir = ck._BUILD_ROOT / "probes"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    exe = out_dir / "kappa_tc"
+    subprocess.run([ck._nvcc(), *ck._ARCH, "-std=c++17", "-O3", "-o", str(exe), str(src)], check=True)
+    log(subprocess.run([str(exe)], capture_output=True, text=True, check=True, timeout=600).stdout)
+
+
 MOVED_CALLS = 200
 
 
@@ -2133,22 +2288,31 @@ def gather_bound(t, tr, d):
     return bound(0, 2 * 4 * t * tr * d + 8 * t)
 
 
-def stats_fields(extra, main_shape):
-    """Kernels 5 and 7's further keys of the kernels line from
-    stats_timing's dicts by shape: device us and the library call's device
-    us, at the main shape and at each timed shape; none for the other
-    kernels."""
+def timing_fields(extra, main_shape):
+    """Kernels 4-7's further keys of the kernels line from kappa_timing's
+    (4, 6) or stats_timing's (5, 7) dicts by shape: device us, and the
+    device us of the products alone (4, 6) or of the library call (5, 7),
+    at the main shape and at each timed shape, and what each bound counts;
+    none for the other kernels."""
     if not extra:
         return {}
-    return {
-        "device_us": extra[main_shape]["device_us"],
-        "library_device_us": extra[main_shape]["library_device_us"],
-        "per_shape_device_us": {k: v["device_us_by_kernel"] for k, v in extra.items()},
-        "per_shape_library_device_us": {k: v["library_device_us"] for k, v in extra.items()},
-        "bound": "S2's upper-triangle FMAs once at 495 TFLOP/s TF32, s1 at 67 FP32, bytes at 3.35 TB/s",
-        "bound_3xtf32": "the design's three TF32 passes of S2, s1 at FP32, bytes",
-        "bound_fp32": "S2 and s1 at 67 TFLOP/s FP32, bytes",
-    }
+    rows = {"device_us": extra[main_shape]["device_us"],
+            "per_shape_device_us": {k: v["device_us_by_kernel"] for k, v in extra.items()}}
+    if "products_ms" in extra[main_shape]:
+        return {**rows, "products_ms": {k: v["products_ms"] for k, v in extra.items()},
+                "products_device_us": {k: v["products_device_us"] for k, v in extra.items()},
+                "products": "kappa's product alone (torch.matmul; kernel 4: torch.bmm for kappa and for kappa "
+                            "Sigma): a yardstick, not the whole function",
+                "bound": "kappa's M^2 FMAs (kernel 4: and the quadratic form's upper triangle) once at 495 TFLOP/s "
+                         "TF32, the gram and row sums at 67 FP32, bytes at 3.35 TB/s",
+                "bound_3xtf32": "the design's three TF32 passes of kappa (kernel 4: and of kappa Sigma in full), the "
+                                "rest at FP32, bytes",
+                "bound_fp32": "everything at 67 TFLOP/s FP32, bytes"}
+    return {**rows, "library_device_us": extra[main_shape]["library_device_us"],
+            "per_shape_library_device_us": {k: v["library_device_us"] for k, v in extra.items()},
+            "bound": "S2's upper-triangle FMAs once at 495 TFLOP/s TF32, s1 at 67 FP32, bytes at 3.35 TB/s",
+            "bound_3xtf32": "the design's three TF32 passes of S2, s1 at FP32, bytes",
+            "bound_fp32": "S2 and s1 at 67 TFLOP/s FP32, bytes"}
 
 
 def ms_table(pairs):
@@ -2180,6 +2344,9 @@ def main():
     if args == ["moved-paths"]:
         time_moved_paths(agt, device)
         return
+    if args == ["probe"]:
+        probe_mode(ck)
+        return
     lib_path = timed_phase("build", phase_build, ck)
     timed_phase("fused_fits", check_fused_fits, ck)
     if args == ["studentt-rate"]:
@@ -2188,6 +2355,9 @@ def main():
         return
     if args == ["stats"]:
         stats_mode(agt, ck, device)
+        return
+    if args == ["kappa"]:
+        kappa_mode(agt, ck, device)
         return
     if args[:2] == ["profile", "kernels"]:
         profile_bench_kernels(device)
@@ -2198,7 +2368,8 @@ def main():
     if args[:1] == ["profile"]:
         profile_pair_path(agt, device, args[1])
         return
-    timed_phase("stats SASS", check_stats_sass, lib_path)
+    timed_phase("tensor-core SASS", check_tc_sass, lib_path)
+    timed_phase("kappa tiles", check_kappa_tiles, ck)
     errs, kern_ms, plain_ms = timed_phase("kernel 1 vs plain", phase_kernel_vs_plain, ck, device)
     branch_err, per_lik, per_kind, oracle_ms = timed_phase("kernel 1 branches", phase_branches_vs_plain,
                                                            agt, ck, device)
@@ -2278,7 +2449,7 @@ def main():
         "per_shape_ms": ms_table(table[name][1]),
         "library_ms": table[name][2].get(main_shape),
         "per_shape_library_ms": table[name][2] or None,
-        **stats_fields(table[name][3], main_shape),
+        **timing_fields(table[name][3], main_shape),
     } for name, line, source, table in (
         ("fused_kappa_moments_batched", 361, "batched_pair.cu", pair),
         ("cavi_stats_batched", 486, "batched_pair.cu", pair),
@@ -2311,7 +2482,8 @@ def main():
         "library_ms": gather_library[32],
         "per_tile_library_ms": {f"tile{tr}": v for tr, v in gather_library.items()},
     }]}
-    for name in ("cavi_stats_batched", "cavi_stats"):  # (function's, 3xTF32 design's, FP32) bounds
+    for name in ("fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats"):
+        # (function's, 3xTF32 design's, FP32) bounds
         bounds[name], design, fp32 = bounds[name]
         row = next(k for k in kernels["kernels"] if k["name"] == name)
         row["bound_3xtf32_ms"], row["bound_fp32_ms"] = design[0], fp32[0]

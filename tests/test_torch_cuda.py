@@ -324,7 +324,8 @@ def test_cuda_pair_autograd_matches_plain(cuda_device):
 @pytest.mark.cuda
 def test_cuda_pair_wrappers_raise(cuda_device):
     """On a CUDA tensor the pair launches or raises: an unknown kind,
-    float64, a wrong shape, or M beyond kernel 4's shared memory."""
+    float64, a wrong shape, or M beyond kernel 4's shared memory (past
+    kappa_max_m("moments"), 2,392 on an H100)."""
     t = pair_case(64, 16, 2, 4, cuda_device)
     before = (ck.fused_kappa_moments_batched.launches, ck.cavi_stats_batched.launches)
     with pytest.raises(ValueError, match="kinds"):
@@ -333,7 +334,7 @@ def test_cuda_pair_wrappers_raise(cuda_device):
         smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "X": t["X"].double()})
     with pytest.raises(ValueError):
         smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "mu": t["mu"][:1]})
-    big = pair_case(8, 1681, 1, 2, cuda_device)
+    big = pair_case(8, ck.kappa_max_m("moments") + 1, 1, 2, cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         smoke.call_k4(ck.fused_kappa_moments_batched, big)
     kappa = torch.zeros((2, 64, 16), device=cuda_device)
@@ -397,8 +398,8 @@ def test_numpy_inputs_land_on_the_card(cuda_device):
 def test_cuda_single_pair_matches_plain(cuda_device, b, m, d, kind, f64):
     """Kernels 6 and 7 against their plain versions on the same card
     tensors, both float32: 1e-4 of each output's largest entry (up to
-    M=1,681, past kernel 4's range: kernel 6 keeps no kappa tile in shared
-    memory); one launch each; S2 exactly symmetric.  Where M inducing
+    M=1,681, kernel 6's 16-row tiles); one launch each; S2 exactly
+    symmetric.  Where M inducing
     points crowd a low-D space (f64), float32 fixes kappa and Ktilde only
     coarsely (on an H100 kernel and plain version differ there by 2.2e-3
     in kappa at M=1,681, D=2, and 2.3e-4 in Ktilde at M=130, D=3), so
@@ -494,6 +495,61 @@ def test_cuda_stats_tc_oracle_precision(cuda_device, kind):
                             floor=0.0)
 
 
+# ------------------------------------- kernels 4 and 6 on the tensor cores
+def kappa_calls(t):
+    """(label, wrapper, plain version, call, output names) of kernels 4 and
+    6 on pair_inputs' tensors (kernel 6 on the first latent)."""
+    return (("fused_kappa_moments_batched", ck.fused_kappa_moments_batched, ck.fused_kappa_moments_batched_reference,
+             smoke.call_k4, t, ("kappa", "mf", "vf")),
+            ("fused_kappa", ck.fused_kappa, ck.fused_kappa_reference, smoke.call_k6, smoke.single_args(t),
+             ("kappa", "Ktilde")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rbf", *smoke.MATERN_KINDS])
+def test_cuda_kappa_tc_oracle_precision(cuda_device, kind):
+    """At the M=512 oracle shape (B=8192, D=2, lengthscale 1, Z on the
+    batch's rows, cond(Kmm) ~1e5, as phase 12 makes it) kernels 4 and 6
+    against their plain versions in float64, within FLOAT32_FACTOR times
+    the float32 plain version's own error with no KERNEL_TOL floor: one
+    TF32 pass, or the tensor cores' truncating sum carried over a long
+    accumulation, falls outside it; a second call bit-equal."""
+    X = smoke.oracle_data("studentt", "cpu")[0]
+    t = smoke.pair_inputs(X, smoke.OB, smoke.PM, 1, cuda_device, kind=kind, ls=1.0)
+    for name, fn, plain, call, args, names in kappa_calls(t):
+        got = call(fn, args)
+        torch.cuda.synchronize()
+        label = f"{name} {kind} oracle M={smoke.PM}"
+        smoke.check_outputs(label, names, got, call(plain, args), call(plain, smoke.to_float64(args)), floor=0.0)
+        smoke.check_repeat(label, lambda: call(fn, args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,d,n_latent,kernels", [
+    (300, 129, 20, 1, "both"), (300, 129, 20, 3, "moments"), (700, 1680, 20, 1, "both"), (64, 2392, 2, 2, "moments"),
+    (300, 2158, 20, 1, "both"), (65, 2406, 3, 1, "single"), (333, 697, 5, 1, "both"), (7, 681, 37, 2, "moments"),
+])
+def test_cuda_kappa_tc_keep_the_range(cuda_device, b, m, d, n_latent, kernels):
+    """Every shape the FP32 kernels took, and the tile edges (64-row tiles
+    to M=680 for kernel 4 and M=696 for kernel 6, 32 to 1,392 and 1,408,
+    16 to 2,392 and 2,406): ragged B and M, 1-3 latents; against the plain
+    version in float64, within FLOAT32_FACTOR times the float32 plain
+    version's own error or 1e-4 of each output's largest entry, whichever
+    is larger (M points crowd a low-D space: float32 fixes kappa there
+    only coarsely); one launch a call, and a second call bit-equal."""
+    t = pair_case(b, m, n_latent, d, cuda_device)
+    for name, fn, plain, call, args, names in kappa_calls(t):
+        if kernels != "both" and (name == "fused_kappa") != (kernels == "single"):
+            continue
+        before = fn.launches
+        got = call(fn, args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        label = f"{name} B={b} M={m} D={d} L={n_latent}"
+        smoke.check_outputs(label, names, got, call(plain, args), call(plain, smoke.to_float64(args)))
+        smoke.check_repeat(label, lambda: call(fn, args), got)
+
+
 @pytest.mark.cuda
 def test_cuda_kappa_autograd_matches_plain(cuda_device):
     smoke.phase_kappa_autograd(ck, cuda_device)
@@ -503,7 +559,7 @@ def test_cuda_kappa_autograd_matches_plain(cuda_device):
 def test_cuda_single_pair_wrappers_raise(cuda_device):
     """On a CUDA tensor the single-latent pair launches or raises: an
     unknown kind, float64, a wrong shape, or M beyond kernel 6's shared
-    memory."""
+    memory (past kappa_max_m("single"), 2,406 on an H100)."""
     t = smoke.single_args(pair_case(64, 16, 1, 4, cuda_device))
     before = (ck.fused_kappa.launches, ck.cavi_stats.launches)
     with pytest.raises(ValueError, match="kinds"):
@@ -512,7 +568,7 @@ def test_cuda_single_pair_wrappers_raise(cuda_device):
         smoke.call_k6(ck.fused_kappa, {**t, "X": t["X"].double()})
     with pytest.raises(ValueError):
         smoke.call_k6(ck.fused_kappa, {**t, "Z": t["Z"][:, :2].contiguous()})
-    big = smoke.single_args(pair_case(8, 2400, 1, 2, cuda_device))
+    big = smoke.single_args(pair_case(8, ck.kappa_max_m("single") + 1, 1, 2, cuda_device))
     with pytest.raises(ValueError, match="shared memory"):
         smoke.call_k6(ck.fused_kappa, big)
     kappa = torch.zeros((64, 16), device=cuda_device)

@@ -3,8 +3,9 @@ cores, checked on the CPU: their 3xTF32 split of each operand
 (``torch_helpers.stats_tf32``) against the float64 plain version, and the
 chunk plan of their wrapper (``cuda_kernels._stats_plan``).
 
-The emulation checks the split only: each pass is a float32 matmul, which
-rounds to nearest.  A tensor-core mma aligns its addends to the largest and
+The emulation checks the split only (hi rounded to nearest, lo truncated
+as the mma reads it): each pass is a float32 matmul, which rounds to
+nearest.  A tensor-core mma aligns its addends to the largest and
 truncates, which the kernels bound by starting each 8 rows' passes from a
 zero accumulator; that, and the kernels themselves, are checked only on a
 card, against float64 with no floor below float32's own error
@@ -18,7 +19,7 @@ import torch
 
 import chip_smoke as smoke
 from agp_tpu_torch.ops import cuda_kernels as ck
-from torch_helpers import stats_tf32, tf32_round
+from torch_helpers import stats_tf32, tf32_round, tf32_truncate
 
 M512 = 512
 
@@ -62,6 +63,19 @@ def errors(shape):
     return {"float32": err(ck.cavi_stats_reference(kappa, g, theta)[1]),
             "3xtf32": err(stats_tf32(kappa, g, theta, passes=3)[1]),
             "1xtf32": err(stats_tf32(kappa, g, theta, passes=1)[1])}
+
+
+def test_tf32_truncate_drops_the_low_bits():
+    """The lo part as the mma reads it: the low 13 bits cleared, toward
+    zero; hi + tf32_truncate(x - hi) keeps ~21 bits of x."""
+    u = 2.0**-10
+    x = torch.tensor([1.0, 1 + u / 2, 1 + 3 * u / 2, -(1 + u / 2), 1 + u - 2.0**-23])
+    got = tf32_truncate(x)
+    assert torch.equal(got, torch.tensor([1.0, 1.0, 1 + u, -1.0, 1.0]))
+    y = torch.as_tensor(np.random.default_rng(0).normal(size=1000), dtype=torch.float32)
+    hi = tf32_round(y)
+    lo = tf32_truncate(y - hi)
+    assert float(((hi.double() + lo.double() - y.double()).abs() / y.double().abs()).max()) <= 2.0**-20
 
 
 def test_tf32_round_is_cvt_rna():

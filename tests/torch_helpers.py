@@ -296,7 +296,7 @@ def check_predictions_and_elbo(runs, D, rtol=1e-8):
     np.testing.assert_allclose(e_t, e_j, rtol=rtol)
 
 
-# ------------------------------- kernels 5 and 7's tensor-core arithmetic
+# -------------------------- kernels 4-7's tensor-core arithmetic (3xTF32)
 def tf32_round(x):
     """Float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
     10 explicit mantissa bits, the nearest value, ties away from zero, by
@@ -305,21 +305,42 @@ def tf32_round(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def tf32_truncate(x):
+    """Float32 ``x`` with its low 13 bits dropped: the TF32 value a
+    tensor-core mma reads from an FP32 register."""
+    return (x.to(torch.float32).contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_product(a, b, passes=3):
+    """a @ b of float32 matrices with the kernels' split of both operands
+    (on no path of the package, ``csrc/tf32_mma.cuh::split_tf32``): each x
+    split into hi = tf32(x) (to nearest, ``tf32_round``) and lo = x - hi,
+    which the mma reads truncated (``tf32_truncate``);
+    (a_lo b_hi + a_hi b_lo) + a_hi b_hi with passes=3, a_hi b_hi alone with
+    passes=1.  A product of two TF32 values is exact in float32.  Each pass
+    is one float32 matmul rounded to nearest: this models the split, not
+    the order in which the kernels add, nor the tensor cores' truncating
+    alignment."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    out = a_hi @ b_hi
+    if passes == 3:
+        a_lo, b_lo = tf32_truncate(a - a_hi), tf32_truncate(b - b_hi)
+        out = (a_lo @ b_hi + a_hi @ b_lo) + out
+    return out
+
+
 def stats_tf32(kappa, g, theta, passes=3):
     """s1 = kappa^T g and S2 = kappa^T diag(theta) kappa of float32 [B, M]
-    kappa with kernels 5 and 7's split of the operands (on no path of the
-    package): A = theta kappa in float32; each operand x split into
-    hi = tf32(x) and lo = tf32(x - hi); S2 = (A_lo^T K_hi + A_hi^T K_lo)
-    + A_hi^T K_hi with passes=3, A_hi^T K_hi alone with passes=1.  A
-    product of two TF32 values is exact in float32.  Each pass is one
-    float32 matmul over all of B, rounded to nearest: this models the
-    split, not the order in which the kernels add, nor the tensor cores'
-    truncating alignment.  s1 is float32, as the kernel's FMA sum."""
+    kappa as kernels 5 and 7 form them on the tensor cores: A = theta kappa
+    in float32, S2 = A^T kappa by ``tf32_product`` over all of B.  s1 is
+    float32, as the kernel's FMA sum."""
     kappa, g, theta = (t.to(torch.float32) for t in (kappa, g, theta))
-    A = kappa * theta[:, None]
-    a_hi, k_hi = tf32_round(A), tf32_round(kappa)
-    S2 = a_hi.T @ k_hi
-    if passes == 3:
-        a_lo, k_lo = tf32_round(A - a_hi), tf32_round(kappa - k_hi)
-        S2 = (a_lo.T @ k_hi + a_hi.T @ k_lo) + S2
-    return kappa.T @ g, S2
+    return kappa.T @ g, tf32_product((kappa * theta[:, None]).T, kappa, passes)
+
+
+def kappa_tf32(knm, kinv, passes=3):
+    """kappa = Knm K^-1 of float32 Knm [B, M] and K^-1 [M, M] as kernels 4
+    and 6 form it on the tensor cores (``tf32_product``); kernel 4 forms
+    kappa Sigma the same way, its A operand the float32 kappa."""
+    return tf32_product(knm, kinv, passes)
