@@ -22,9 +22,9 @@ JAX package's ``bench.py`` and of its two kernel sweeps
   ``_chip/bench_torch_extra.json``.
 * ``variants``: kernel 1, kernel 8 ("nt", "packed") and kernel 9 beside the
   sweep's bar (``xla_stats_reference``), CUDA events, at the flagship's
-  statistics shape and at the sweep's in-range row; each one's s1/S2 error
-  against the float64 plain version.  The sweep's M > 128 rows are printed
-  as out of range.
+  statistics shape and at the sweep's four rows; each one's s1/S2 error
+  against the float64 plain version.  Kernel 1 takes M <= 128: at the
+  sweep's M=256 and M=512 rows its column says out of range.
 * ``gather``: the raw "block" draw at the flagship shape, ``index_select``
   on the tile view against kernel 10, for tiles of 32 and 64 rows, in us a
   draw.
@@ -58,10 +58,9 @@ N, D, M, B = 200_000, 20, 64, 4096
 ITERS, CHUNK = 8000, 2000
 # where the extra rows go: gitignored, beside the package
 _OUT = Path(__file__).resolve().parent.parent / "_chip"
-# the sweep's shapes (B, D, M): the flagship's statistics, the sweep's row
-# in range (M <= 128), and its rows beyond the fused range
-VARIANT_SHAPES = ((B, D, M), (262_144, 8, 128))
-OUT_OF_RANGE_SHAPES = ((8192, 8, 512), (65_536, 8, 256), (65_536, 8, 512))
+# the sweep's shapes (B, D, M): the flagship's statistics, then the sweep's
+# four rows (benchmarks/fused_variants.py:286)
+VARIANT_SHAPES = ((B, D, M), (8192, 8, 512), (65_536, 8, 256), (65_536, 8, 512), (262_144, 8, 128))
 # the sweep's hyperparameters (fused_variants.py:286-289)
 SWEEP_LS, SWEEP_VAR, SWEEP_RHO, SWEEP_JITT = 1.3, 1.1, 4.0, 1e-4
 # the gather's tile heights: gather_tile_rows(20) and the "block" default
@@ -280,12 +279,15 @@ def sweep_args(t):
 
 
 def variant_calls(t):
-    """The sweep's candidates on inputs ``t``: kernel 1, kernel 8 ("nt",
-    "packed"), kernel 9 and the bar, each a function of no argument
-    returning (s1, S2, ...)."""
+    """The sweep's candidates on inputs ``t``: kernel 1 (where it takes
+    the shape: ``fused_fits(1, D, M)``), kernel 8 ("nt", "packed"), kernel 9
+    and the bar, each a function of no argument returning (s1, S2, ...)."""
     a = sweep_args(t)
+    calls = {}
+    if ck.fused_fits(1, t["X"].shape[1], t["Z"].shape[0]):
+        calls["fused_cavi_stats"] = lambda: ck.fused_cavi_stats(*a, kind="rbf", lik="logistic")
     return {
-        "fused_cavi_stats": lambda: ck.fused_cavi_stats(*a, kind="rbf", lik="logistic"),
+        **calls,
         "direct_stats_nt": lambda: direct_stats(*a, variant="nt"),
         "direct_stats_packed": lambda: direct_stats(*a, variant="packed"),
         "two_factor_nt": lambda: two_factor_nt(*a),
@@ -318,24 +320,25 @@ def variants(reps=100):
     """Each candidate of ``variant_calls`` at each shape of
     ``VARIANT_SHAPES``: one call for the error of s1 and S2 against the
     float64 plain version (max |d| over the largest entry, as the sweep
-    reports it), then ``event_ms`` over ``variant_reps`` calls.  Returns the
-    rows, the out-of-range shapes last."""
+    reports it), then ``event_ms`` over ``variant_reps`` calls; kernel 1's
+    column says why it is out of range where it is.  Returns the rows."""
     device = require_card()
     rows = []
     for b, d, m in VARIANT_SHAPES:
         t = sweep_inputs(b, d, m, device)
         ref = direct_stats_reference(*sweep_args({k: v.double() for k, v in t.items()}))[:2]
         row = {"B": b, "D": d, "M": m}
-        for name, fn in variant_calls(t).items():
+        calls = variant_calls(t)
+        if "fused_cavi_stats" not in calls:
+            row["fused_cavi_stats_out_of_range"] = (
+                f"M={m} > {ck.MAX_M}: kernel 1 holds K^-1 and Sigma ({8 * m * m} bytes) in a block's shared memory "
+                f"({ck.SMEM_OPTIN} bytes)")
+        for name, fn in calls.items():
             out = fn()[:2]
             row[name + "_err"] = max(float((o.double() - r).abs().max() / r.abs().max()) for o, r in zip(out, ref))
             row[name + "_ms"] = event_ms(fn, variant_reps(b, reps))
         rows.append(row)
         del t, ref
-    for b, d, m in OUT_OF_RANGE_SHAPES:
-        rows.append({"B": b, "D": d, "M": m, "out_of_range": (
-            f"M={m} > {ck.MAX_M}: K^-1 and Sigma ({8 * m * m} bytes) exceed a block's shared memory "
-            f"({ck.SMEM_OPTIN} bytes); fused variants that stream them from L2 are not built")})
     return rows
 
 

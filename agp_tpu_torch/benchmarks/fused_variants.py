@@ -27,9 +27,11 @@ theta reaches S2; here the B rows given are the rows summed.)
 
 On a CPU tensor a wrapper runs its ``*_reference``, the same function in
 plain PyTorch (any float dtype).  On a CUDA tensor it launches its kernel
-(``csrc/fused_variants.cu``; float32, the shapes of
-``cuda_kernels.fused_fits(1, D, M)``, so M <= 128) or raises; there is no
-fallback.  Each wrapper counts its launches in ``<wrapper>.launches``.
+(``csrc/fused_variants.cu``: float32, any B, D >= 1 and M up to
+``variant_max_m``, 2,392 on an H100; kappa and kappa Sigma in 3xTF32 on
+the tensor cores, kernel 9's W in four TF32 passes, then kernels 5 and
+7's statistics tiles) or raises; there is no fallback.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,58 @@ VARIANTS = ("transpose", "nt", "packed")
 # the kernel's forms, in the order of their codes in csrc/fused_variants.cu
 # (Form): "transpose" and "nt" are the direct form
 _FORMS = ("direct", "packed", "two_factor")
+# the kernels' row tiles, in the order of csrc/fused_variants.cu::
+# with_variant_tile: (rows, columns of an output tile, rows of a stage of
+# the ring, warp columns).  The first, the narrow tile, is taken where
+# kappa's M columns fit its output tile (on an H100 at the sweep's M=128
+# it beat the next by 27 % in "nt", 18 % in "packed", whose 136-column
+# operand takes two of its output tiles, and 37 % in the two-factor form;
+# PERF.md); the others are kernel 4's (ops/cuda_kernels.py::
+# _KAPPA_TILES), the largest that fits.
+_VARIANT_TILES = ((64, 128, 16, 4), (64, 256, 16, 8), (32, 256, 16, 8), (16, 128, 8, 8))
+
+
+def variant_cols(form: str, M: int) -> int:
+    """Columns of the Sigma operand form ``form`` (of ``_FORMS``) streams
+    at M: M, or for "packed" [Sigma | mu ...] (mu repeated in the padding),
+    M + 1 rounded up to whole 8-column steps."""
+    return -(-(M + 1) // 8) * 8 if form == "packed" else M
+
+
+def variant_smem_bytes(M: int, tile: tuple) -> int:
+    """Shared memory of kernels 8-9 at M with a row tile of
+    ``_VARIANT_TILES``: the [TB, M] slab (row stride M rounded up to 8,
+    + 4), the ring (3 stages of KB rows of NT + 8 floats) or the gram's
+    staging of 8 features (8 (TB + M + 2) floats), whichever is larger, and
+    three row sums of WARPS_N x TB.  A Python copy of
+    ``agp_fused_variant_smem_bytes`` (which names this function): change
+    them together."""
+    rows, cols, stage_rows, warps_n = tile
+    ring = 3 * stage_rows * (cols + 8)
+    staging = 8 * (rows + M + 2)
+    return 4 * (rows * (-(-M // 8) * 8 + 4) + max(ring, staging) + 3 * warps_n * rows)
+
+
+@functools.lru_cache(maxsize=None)
+def variant_tile(M: int, limit: int = ck.SMEM_OPTIN):
+    """The row tile (of ``_VARIANT_TILES``) kernels 8-9 take at M, every
+    form alike: the narrow tile where M fits its output tile, else the
+    first of the others whose ``variant_smem_bytes`` fits ``limit`` bytes
+    (by default what a block may opt into on an H100); None beyond the
+    range.  The same answer on the CPU and on the card."""
+    narrow, *others = _VARIANT_TILES
+    tiles = _VARIANT_TILES if M <= narrow[1] else others
+    return next((t for t in tiles if M >= 1 and variant_smem_bytes(M, t) <= limit), None)
+
+
+def variant_max_m(limit: int = ck.SMEM_OPTIN) -> int:
+    """The largest M kernels 8-9 take within ``limit`` bytes of shared
+    memory a block."""
+    lo, hi = 0, 1 << 16  # variant_smem_bytes grows with M
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if variant_tile(mid, limit) else (lo, mid)
+    return lo
 
 
 def _check_variant(variant):
@@ -102,48 +156,64 @@ def xla_stats_reference(X, y, Z, Kinv, mu, Sigma, ls, var, rho):
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index: int, D: int, M: int, form: str) -> int:
-    """Blocks of the form's kernel the card holds at once at (D, M): the
-    bound of its grid."""
-    with torch.cuda.device(device_index):
-        per_sm = ck._library().agp_fused_variant_blocks_per_sm(D, M, _FORMS.index(form))
-        sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    if per_sm < 1:
-        raise RuntimeError(f"the fused variants' {form} kernel fits no block on an SM at D={D}, M={M}")
-    return per_sm * sms
+def _smem_limit(device_index: int) -> int:
+    """Shared memory a block may opt into on the card (bytes)."""
+    props = torch.cuda.get_device_properties(device_index)
+    return getattr(props, "shared_memory_per_block_optin", ck.SMEM_OPTIN)
 
 
-def _variant_launch(name, form, xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho):
-    """Checks, scratch and the launch of kernel 8 ("direct", "packed") or 9
-    ("two_factor") on CUDA tensors.  Returns (s1, S2, c, theta, mf, vf)."""
+def _params(dev, D, jitt, rho, var, ls):
+    """The kernels' float32 scalar buffer on the card, (jitter, rho, 0,
+    var, ls [D]) (``ops/cuda_kernels.py::_multi_params``' layout, one
+    latent): one host-to-device copy where all are numbers, else made
+    there from the 1-element tensors, with no host read either way."""
+    vals = (jitt, rho, 0.0, var, ls)
+    if not any(isinstance(v, torch.Tensor) for v in vals):
+        host = torch.tensor([float(v) for v in vals[:4]] + [float(ls)] * D, dtype=torch.float32)
+        return host.to(dev, non_blocking=True)
+    scalars = [ck._device_scalar(v, dev) for v in vals]
+    return torch.stack(scalars[:4] + scalars[4:] * D)
+
+
+def _variant_launch(name, form, xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, tile=None):
+    """Checks, operands, scratch and the launches of kernel 8 ("direct",
+    "packed") or 9 ("two_factor") on CUDA tensors, with the row tile
+    ``variant_tile`` picks, or ``tile`` (of ``_VARIANT_TILES``: a
+    measurement's choice).  Returns (s1, S2, c, theta, mf, vf)."""
     B, D = xb.shape
     M = Z.shape[0]
     ck._check_tensors(xb, {"xb": (xb, (B, D)), "yb": (yb, (B,)), "Z": (Z, (M, D)), "mu": (mu, (M,)),
                            "Sigma": (Sigma, (M, M))})
-    if B < 1 or D < 1 or not ck.fused_fits(1, D, M):
-        raise ValueError(f"the CUDA {name} takes B, D >= 1 and the shapes of fused_fits(1, D, M) "
-                         f"(1 <= M <= {ck.MAX_M}); got B={B}, D={D}, M={M}")
     dev = xb.device
+    limit = _smem_limit(dev.index or 0) if dev.type == "cuda" else ck.SMEM_OPTIN
+    tile = tile or variant_tile(M, limit)
+    if B < 1 or D < 1 or tile is None:
+        raise ValueError(f"the CUDA {name} takes B, D >= 1 and 1 <= M <= {variant_max_m(limit)} (one [TB, M] slab "
+                         f"a block within {limit} bytes of shared memory); got B={B}, D={D}, M={M}")
     if L_invT.device != dev or tuple(L_invT.shape) != (M, M):
         raise ValueError(f"L_invT must be [{M}, {M}] on {dev}")
     lib = ck._library()
     L_invT = L_invT.to(torch.float32)
-    a = L_invT.contiguous() if form == "two_factor" else ck._kinv(L_invT)
+    if form == "two_factor":  # W = Knm L^-T, then kappa = W L^-1 from L^-1's rows
+        a, linv = L_invT.contiguous(), L_invT.T.contiguous()
+    else:
+        a = linv = ck._kinv(L_invT)
+    sig, ns = Sigma, variant_cols(form, M)
+    if form == "packed":  # [Sigma | mu ...]: kappa Sigma's column M is mf; no column past it is read
+        sig = torch.cat([Sigma, mu[:, None].expand(M, ns - M)], 1)
+    f32 = dict(dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", ck.SMEM_OPTIN)
-        smem = lib.agp_fused_variant_smem_bytes(D, M)
-        if smem > limit:
-            raise ValueError(f"{name} at D={D}, M={M} needs {smem} bytes of shared memory; "
-                             f"this card allows {limit} per block")
-        params = torch.stack([ck._device_scalar(v, dev) for v in (ls, var, jitt, rho)])
-        nb = min(-(-B // lib.agp_fused_variant_tile_rows()), _resident_blocks(dev.index or 0, D, M, form))
-        f32 = dict(dtype=torch.float32, device=dev)
-        s1_part, s2_part = torch.empty((nb, M), **f32), torch.empty((nb, M, M), **f32)
+        params = _params(dev, D, jitt, rho, var, ls)
+        nchunks, rows = ck._stats_plan(B, M, 1, ck._stats_slots(dev.index or 0), lib.agp_cavi_stats_tile())
+        kappa = torch.empty((B, M), **f32)
+        c, theta, mf, vf, wg, ws = torch.empty((6, B), **f32).unbind(0)
+        s1_part, s2_part = torch.empty((nchunks, M), **f32), torch.empty((nchunks, M, M), **f32)
         s1, S2 = torch.empty((M,), **f32), torch.empty((M, M), **f32)
-        c, theta, mf, vf = (torch.empty((B,), **f32) for _ in range(4))
         err = lib.agp_fused_variant_stats(
-            *(t.data_ptr() for t in (xb, yb, Z, a, mu, Sigma, params, c, theta, mf, vf, s1_part, s2_part, s1, S2)),
-            B, D, M, _FORMS.index(form), nb, torch.cuda.current_stream(dev).cuda_stream,
+            *(t.data_ptr() for t in (xb, yb, Z, a, linv, mu, sig, params, c, theta, mf, vf, kappa, wg, ws, s1_part,
+                                     s2_part, s1, S2)),
+            B, D, M, ns, _FORMS.index(form), tile[0], tile[1], nchunks, rows,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise ck._cuda_error(name, lib, err)
@@ -156,8 +226,8 @@ def direct_stats(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, variant="nt",
     and returns as the module says.
 
     A CPU tensor runs :func:`direct_stats_reference`.  A CUDA tensor
-    launches the kernel ("transpose" and "nt" the same instance, "packed"
-    with [Sigma | mu] in shared memory) and adds one to
+    launches the kernel ("transpose" and "nt" the same form, "packed"
+    streaming [Sigma | mu ...]) and adds one to
     ``direct_stats.launches``."""
     _check_variant(variant)
     if xb.device.type == "cpu":

@@ -1,5 +1,5 @@
-// The cross-block sums of the single-latent statistics passes, shared by
-// fused_cavi_stats.cu (kernel 1) and fused_variants.cu (kernels 8-9).
+// The cross-block sums of kernel 1's single-latent statistics pass
+// (fused_cavi_stats.cu).
 //
 // CUDA blocks run in parallel and in no order, so each block writes its
 // partial s1 [M] and S2 [M, M] to scratch, and sum_partials adds the

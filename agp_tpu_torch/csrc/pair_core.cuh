@@ -1,17 +1,19 @@
 // Device code that the batched pair (batched_pair.cu: kernels 4-5) and the
 // single-latent split pair (kappa_single.cu: kernels 6-7) share:
 //   * the row tile's gram, FP32, into a [TB, M] slab of shared memory
-//     (gram_slab), and the product of a [TB, M] slab with an [M, M] matrix
+//     (gram_slab), and the product of a [TB, M] slab with an [M, N] matrix
 //     streamed from device memory (L2) on the tensor cores in 3xTF32
-//     (tc_product): kappa = Knm K^-1 in kernels 4 and 6, kappa Sigma in
-//     kernel 4 (its kappa copied back into the slab, load_rows); each
-//     calls back an epilogue once a column tile of the output is
-//     complete, in registers (mma fragments);
+//     (tc_product): kappa = Knm K^-1 in kernels 4, 6 and 8, kappa Sigma in
+//     kernels 4 and 8 (kappa copied back into the slab, load_rows), and
+//     kernel 9's W = Knm L^-T and kappa = W L^-1; each calls back an
+//     epilogue once a column tile of the output is complete, in registers
+//     (mma fragments);
 //   * through stats_tc.cuh, the statistics s1 = kappa^T g and
 //     S2 = kappa^T diag(theta) kappa of kernels 5 and 7.
 // The split, the mma and the copies are tf32_mma.cuh's.  See
 // kappa_single.cu for what bounds kernels 4 and 6 on an H100 and why they
-// may use the tensor cores.  Everything is in an anonymous namespace: each
+// may use the tensor cores; fused_variants.cu (kernels 8-9) runs the same
+// parts.  Everything is in an anonymous namespace: each
 // source that includes this header compiles its own copy.
 #pragma once
 
@@ -190,51 +192,54 @@ __device__ __forceinline__ void load_rows(float* A, int S, const float* __restri
   __syncthreads();
 }
 
-// Copies rows [k0, k0 + KB) and columns [n0, n0 + NT) of Bm [M, M]
-// (row-major, as given: no symmetry is assumed) into the stage Bs
-// [KB, SP], zero past M: 16-byte copies where vec (M % 4 == 0 and Bm
-// 16-byte aligned), else 4-byte ones.
+// Copies rows [k0, k0 + KB) and columns [n0, n0 + NT) of Bm [K, N]
+// (row-major, row stride ldb, as given: no symmetry is assumed) into the
+// stage Bs [KB, SP], zero past K and N: 16-byte copies where vec (N and
+// ldb multiples of 4, Bm 16-byte aligned), else 4-byte ones.
 template <class C>
-__device__ __forceinline__ void load_b_stage(float* Bs, const float* __restrict__ Bm, int M, int k0, int n0,
-                                             bool vec) {
+__device__ __forceinline__ void load_b_stage(float* Bs, const float* __restrict__ Bm, int K, int N, int ldb, int k0,
+                                             int n0, bool vec) {
   if (vec) {
     for (int i = threadIdx.x; i < C::KB * (C::NT / 4); i += C::THREADS) {
       const int r = i / (C::NT / 4), c = (i % (C::NT / 4)) * 4;
-      const bool ok = k0 + r < M && n0 + c < M;
-      cp_async<16>(Bs + r * C::SP + c, ok ? Bm + (size_t)(k0 + r) * M + n0 + c : Bm, ok ? 16 : 0);
+      const bool ok = k0 + r < K && n0 + c < N;
+      cp_async<16>(Bs + r * C::SP + c, ok ? Bm + (size_t)(k0 + r) * ldb + n0 + c : Bm, ok ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < C::KB * C::NT; i += C::THREADS) {
       const int r = i / C::NT, c = i % C::NT;
-      const bool ok = k0 + r < M && n0 + c < M;
-      cp_async<4>(Bs + r * C::SP + c, ok ? Bm + (size_t)(k0 + r) * M + n0 + c : Bm, ok ? 4 : 0);
+      const bool ok = k0 + r < K && n0 + c < N;
+      cp_async<4>(Bs + r * C::SP + c, ok ? Bm + (size_t)(k0 + r) * ldb + n0 + c : Bm, ok ? 4 : 0);
     }
   }
 }
 
-// A [TB, mk] (shared memory, row stride S, zero in columns [M, mk)) times
-// Bm [M, M] (device memory), one [TB, NT] column tile of the output at a
-// time.  Bm's rows stream through a ring of KT_STAGES stages of 16-byte
-// cp.async (ring: C::RING floats, 16-byte aligned), one barrier a
-// stage, two stages in flight while the third is read.  Each warp's
+// A [TB, mk] (shared memory, row stride S, zero in columns [K, mk),
+// mk = slab_cols(K)) times Bm [K, N] (device memory, row stride ldb), one
+// [TB, NT] column tile of the output at a time.  Bm's rows stream through
+// a ring of KT_STAGES stages of 16-byte cp.async (ring: C::RING floats,
+// 16-byte aligned), one barrier a stage, two stages in flight while the
+// third is read.  Each warp's
 // WM x WN sub-tile runs in 3xTF32 mma.sync: the fragments of A and of the
 // stage split into hi and lo as they are loaded, each 8-deep step's three
 // passes from a zero accumulator, then added in FP32, the warp's MI x NJ
-// tiles pass by pass (mma_3xtf32_grid).  When a
+// tiles pass by pass (mma_3xtf32_grid; with PASSES = 4 the stage's
+// fragments split in three, split3_tf32, and mma_4xtf32_grid).  When a
 // column tile n0 is complete, epi(n0, acc) takes its fragments (element e
 // of acc[mi][nj] at row m_w + mi*16 + gid + 8 (e / 2), column
 // n0 + n_w + nj*8 + 2 tig + e % 2) and acc is cleared.  The ring must be
 // free at the start; it is free again after the closing barrier.
-template <class C, class Epi>
-__device__ __forceinline__ void tc_product(const float* A, int S, const float* __restrict__ Bm, int M,
-                                           float* ring, bool vec, Epi epi) {
-  const int mk = slab_cols(M);
-  const int nk = (mk + C::KB - 1) / C::KB, nsteps = nk * ((M + C::NT - 1) / C::NT);
+template <class C, int PASSES = 3, class Epi>
+__device__ __forceinline__ void tc_product(const float* A, int S, const float* __restrict__ Bm, int K, int N,
+                                           int ldb, float* ring, bool vec, Epi epi) {
+  static_assert(PASSES == 3 || PASSES == 4, "3xTF32, or the streamed operand split in three");
+  const int mk = slab_cols(K);
+  const int nk = (mk + C::KB - 1) / C::KB, nsteps = nk * ((N + C::NT - 1) / C::NT);
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   const int m_w = (warp / C::WARPS_N) * C::WM, n_w = (warp % C::WARPS_N) * C::WN;
   auto issue = [&](int s) {
     if (s < nsteps)
-      load_b_stage<C>(ring + (s % KT_STAGES) * C::STAGE, Bm, M, (s % nk) * C::KB, (s / nk) * C::NT, vec);
+      load_b_stage<C>(ring + (s % KT_STAGES) * C::STAGE, Bm, K, N, ldb, (s % nk) * C::KB, (s / nk) * C::NT, vec);
     cp_async_commit();
   };
 #pragma unroll
@@ -253,17 +258,22 @@ __device__ __forceinline__ void tc_product(const float* A, int S, const float* _
     __syncthreads();                 // ... and everyone's; the stage read last step is free
     issue(s + KT_STAGES - 1);
     const int k0 = (s % nk) * C::KB, n0 = (s / nk) * C::NT;
-    if (n0 + n_w < M) {  // else the warp's columns lie past M
+    if (n0 + n_w < N) {  // else the warp's columns lie past N
       const float* Bs = ring + (s % KT_STAGES) * C::STAGE;
 #pragma unroll
       for (int kk = 0; kk < C::KB; kk += 8) {
         if (k0 + kk < mk) {
           const float* b0 = Bs + (kk + tig) * C::SP + n_w + gid;  // rows kk + tig and kk + tig + 4
-          unsigned bh[C::NJ][2], bl[C::NJ][2];
+          unsigned bh[C::NJ][2], bl[C::NJ][2], bm[PASSES == 4 ? C::NJ : 1][2];
 #pragma unroll
           for (int nj = 0; nj < C::NJ; ++nj) {
-            split_tf32(b0[nj * 8], bh[nj][0], bl[nj][0]);
-            split_tf32(b0[4 * C::SP + nj * 8], bh[nj][1], bl[nj][1]);
+            if constexpr (PASSES == 4) {
+              split3_tf32(b0[nj * 8], bh[nj][0], bm[nj][0], bl[nj][0]);
+              split3_tf32(b0[4 * C::SP + nj * 8], bh[nj][1], bm[nj][1], bl[nj][1]);
+            } else {
+              split_tf32(b0[nj * 8], bh[nj][0], bl[nj][0]);
+              split_tf32(b0[4 * C::SP + nj * 8], bh[nj][1], bl[nj][1]);
+            }
           }
           const float* a0 = A + (size_t)(m_w + gid) * S + k0 + kk + tig;  // rows gid, gid + 8; columns tig, tig + 4
           unsigned ah[C::MI][4], al[C::MI][4];
@@ -275,7 +285,10 @@ __device__ __forceinline__ void tc_product(const float* A, int S, const float* _
             split_tf32(a[4], ah[mi][2], al[mi][2]);
             split_tf32(a[8 * S + 4], ah[mi][3], al[mi][3]);
           }
-          mma_3xtf32_grid(acc, ah, al, bh, bl);
+          if constexpr (PASSES == 4)
+            mma_4xtf32_grid(acc, ah, al, bh, bm, bl);
+          else
+            mma_3xtf32_grid(acc, ah, al, bh, bl);
         }
       }
     }
@@ -291,6 +304,13 @@ __device__ __forceinline__ void tc_product(const float* A, int S, const float* _
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// tc_product with a square Bm [M, M] of row stride M
+template <class C, class Epi>
+__device__ __forceinline__ void tc_product(const float* A, int S, const float* __restrict__ Bm, int M, float* ring,
+                                           bool vec, Epi epi) {
+  tc_product<C>(A, S, Bm, M, M, M, ring, vec, epi);
 }
 
 // Calls f(row, col, v) for each element of an epilogue's fragments, rows

@@ -5,7 +5,9 @@
 // Replaces, in agp_tpu/ops/pallas_kernels.py, cavi_stats_batched (:486,
 // body _stats_batched_kernel) and cavi_stats (:545, body _stats_kernel):
 // both C entry points (batched_pair.cu, kappa_single.cu) launch the same
-// two kernels below, stats_tc and sum_tiles.
+// two kernels below, stats_tc and sum_tiles; kernels 8-9
+// (fused_variants.cu) launch them after their kappa pass, with one
+// latent.
 //
 // What bounds it on an H100: operations.  S2 needs B M (M+1)/2 FMAs (its
 // upper triangle) against 4 B M bytes of kappa read once: at B=65,536,
@@ -238,20 +240,24 @@ stats_tc(const float* __restrict__ kappa, const float* __restrict__ g, const flo
   }
 }
 
-// grid (upper 32 x 32 blocks of S2 + 1, L), 256 threads: the chunk partials
-// of each upper block added in chunk order, written to S2 and, transposed
-// through shared memory, to its mirror; on a diagonal block the entries
-// above the diagonal are mirrored below it.  The last block of each latent
-// adds s1's partials.
-constexpr int RB = 32;
+// grid (4 strips of 8 rows x upper 32 x 32 blocks of S2 + 1, L), 256
+// threads, one an entry of the strip: the chunk partials of each upper
+// entry added in chunk order, written to S2 and, transposed through
+// shared memory, to its mirror (8 consecutive floats a row); on a
+// diagonal block the entries above the diagonal are mirrored below it.
+// The last block of each latent adds s1's partials.  Strips rather than
+// whole blocks: at M=128 (4 x 4 blocks of 32) a block a 32 x 32 block
+// left 11 blocks to read 256 chunks' 16.8 MB (72 us on an H100, PERF.md).
+constexpr int RB = 32, RS = 8;
 __global__ void __launch_bounds__(256)
 sum_tiles(const float* __restrict__ s1_part, const float* __restrict__ s2_part, float* __restrict__ s1,
           float* __restrict__ s2, int M, int nchunks) {
-  __shared__ float tile[RB][RB + 1];
+  static_assert(RB * RS == 256, "one thread an entry of a strip");
+  __shared__ float tile[RS][RB + 1];
   const int l = blockIdx.y, tx = threadIdx.x % RB, ty = threadIdx.x / RB;
   const int nb = (M + RB - 1) / RB;
   const size_t mm = (size_t)M * M;
-  if ((int)blockIdx.x == nb * (nb + 1) / 2) {
+  if ((int)blockIdx.x == nb * (nb + 1) / 2 * (RB / RS)) {
     for (int m = threadIdx.x; m < M; m += blockDim.x) {
       float acc = 0.0f;
 #pragma unroll 8
@@ -261,45 +267,58 @@ sum_tiles(const float* __restrict__ s1_part, const float* __restrict__ s2_part, 
     return;
   }
   int bi, bj;
-  upper_tile(blockIdx.x, nb, bi, bj);
+  upper_tile(blockIdx.x / (RB / RS), nb, bi, bj);
+  const int r0 = (blockIdx.x % (RB / RS)) * RS;  // the strip's first row in the block
   const bool dblock = bi == bj;
-  const int n = bj * RB + tx;
+  const int r = r0 + ty, m = bi * RB + r, n = bj * RB + tx;
   float* out = s2 + (size_t)l * mm;
-  for (int r = ty; r < RB; r += 256 / RB) {
-    const int m = bi * RB + r;
-    float acc = 0.0f;
-    if (m < M && n < M && (!dblock || r <= tx)) {
-      const float* p = s2_part + (size_t)l * nchunks * mm + (size_t)m * M + n;
+  float acc = 0.0f;
+  if (m < M && n < M && (!dblock || r <= tx)) {
+    const float* p = s2_part + (size_t)l * nchunks * mm + (size_t)m * M + n;
 #pragma unroll 8
-      for (int c = 0; c < nchunks; ++c) acc += p[(size_t)c * mm];
-      out[(size_t)m * M + n] = acc;
-    }
-    tile[r][tx] = acc;
+    for (int c = 0; c < nchunks; ++c) acc += p[(size_t)c * mm];
+    out[(size_t)m * M + n] = acc;
   }
+  tile[ty][tx] = acc;
   __syncthreads();
-  // the mirror: S2[bj*RB + r, bi*RB + tx] = tile[tx][r]
-  for (int r = ty; r < RB; r += 256 / RB) {
-    const int m = bj * RB + r, n2 = bi * RB + tx;
-    if (m < M && n2 < M && (!dblock || r > tx)) out[(size_t)m * M + n2] = tile[tx][r];
-  }
+  // the mirror: S2[bj*RB + c2, bi*RB + r0 + r2] = tile[r2][c2]
+  const int c2 = threadIdx.x / RS, r2 = threadIdx.x % RS;
+  const int m2 = bj * RB + c2, n2 = bi * RB + r0 + r2;
+  if (m2 < M && n2 < M && (!dblock || r0 + r2 < c2)) out[(size_t)m2 * M + n2] = tile[r2][c2];
+}
+
+// Lets kernel FN take `smem` bytes of dynamic shared memory, with the SM's
+// shared memory preferred over L1, once per device and size: the
+// attributes persist in the context, and setting them before every launch
+// cost host time on every call (on an H100 the most when other kernels
+// ran in between; PERF.md).
+template <auto FN>
+cudaError_t prepare_smem(size_t smem) {
+  constexpr int DEVICES = 64;
+  static size_t done[DEVICES] = {};  // by device: the largest size set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < DEVICES && done[dev] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(FN, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(FN, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < DEVICES) done[dev] = smem;
+  return err;
 }
 
 using StatsFn = void (*)(const float*, const float*, const float*, float*, float*, int, int, int);
 
-// the dynamic shared memory a stage ring takes, with the SM's shared memory
-// preferred over L1 (two blocks an SM)
-cudaError_t prepare_stats(StatsFn fn) {
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
+// the dynamic shared memory a stage ring takes (two blocks an SM)
+cudaError_t prepare_stats(bool vec) {
+  return vec ? prepare_smem<&stats_tc<true>>(SMEM) : prepare_smem<&stats_tc<false>>(SMEM);
 }
 
 // resident blocks of stats_tc on one SM of the current device (0 on error)
 int stats_blocks_per_sm() {
-  const StatsFn fn = &stats_tc<true>;
   int n = 0;
-  if (prepare_stats(fn) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, THREADS, SMEM) != cudaSuccess)
+  if (prepare_stats(true) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, &stats_tc<true>, THREADS, SMEM) != cudaSuccess)
     return 0;
   return n;
 }
@@ -309,7 +328,7 @@ int launch_stats(const float* kappa, const float* g, const float* theta, float* 
                  float* s1, float* s2, int B, int M, int L, int nchunks, int rows_per_chunk, cudaStream_t st) {
   const bool vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(kappa) % 16 == 0;
   const StatsFn fn = vec ? &stats_tc<true> : &stats_tc<false>;
-  cudaError_t err = prepare_stats(fn);
+  cudaError_t err = prepare_stats(vec);
   if (err != cudaSuccess) return (int)err;
   const int nt = (M + TILE - 1) / TILE;
   fn<<<dim3(nt * (nt + 1) / 2, nchunks, L), THREADS, SMEM, st>>>(kappa, g, theta, s1_part, s2_part, B, M,
@@ -317,7 +336,7 @@ int launch_stats(const float* kappa, const float* g, const float* theta, float* 
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nb = (M + RB - 1) / RB;
-  sum_tiles<<<dim3(nb * (nb + 1) / 2 + 1, L), 256, 0, st>>>(s1_part, s2_part, s1, s2, M, nchunks);
+  sum_tiles<<<dim3(nb * (nb + 1) / 2 * (RB / RS) + 1, L), 256, 0, st>>>(s1_part, s2_part, s1, s2, M, nchunks);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// The tensor-core and copy primitives that kernels 4-7 share on Hopper
-// (sm_90a): the 3xTF32 split of an FP32 operand, the m16n8k8 TF32
-// mma.sync, and 16- or 4-byte cp.async into shared memory with zero fill.
+// The tensor-core and copy primitives that kernels 4-9 share on Hopper
+// (sm_90a): the 3xTF32 split of an FP32 operand (and kernel 9's
+// three-way split of one operand), the m16n8k8 TF32 mma.sync, and 16- or
+// 4-byte cp.async into shared memory with zero fill.
 //
 // 3xTF32: x = hi + lo with hi = tf32(x) (to nearest) and lo = x - hi, which
 // the mma reads truncated to TF32, so that hi and lo keep 2 x 11
@@ -53,6 +54,18 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// x = hi + mid + lo exactly, for an operand whose products cancel so much
+// that 3xTF32's ~2^-22 of each term shows (kernel 9's L^-T): hi as
+// split_tf32; mid the bits of r = x - hi, which the mma reads truncated
+// to TF32; lo = r - tf32(r), which the mma reads truncated: 3 x 11
+// significant bits of x.  Two instructions more than split_tf32.
+__device__ __forceinline__ void split3_tf32(float x, unsigned& hi, unsigned& mid, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  const float r = x - __uint_as_float(hi);
+  mid = __float_as_uint(r);
+  lo = __float_as_uint(r - __uint_as_float(mid & 0xffffe000u));
+}
+
 // c += a b over one m16n8k8 TF32 tile
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
   asm volatile(
@@ -100,6 +113,40 @@ __device__ __forceinline__ void mma_3xtf32_grid(float (&acc)[MI][NJ][4], const u
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int nj = 0; nj < NJ; ++nj) mma_tf32(d[mi][nj], ah[mi], bl[nj]);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) mma_tf32(d[mi][nj], ah[mi], bh[nj]);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] += d[mi][nj][e];
+}
+
+// acc[mi][nj] += a[mi] b[nj] with b split in three (split3_tf32): the
+// passes hi.lo, lo.hi, hi.mid, then hi.hi, each tile's from a zero
+// accumulator, then the FP32 adds; misses a's lo times b's mid and lo
+// (~2^-22 of a's part only), so that the product's error is a's split's,
+// not b's
+template <int MI, int NJ>
+__device__ __forceinline__ void mma_4xtf32_grid(float (&acc)[MI][NJ][4], const unsigned (&ah)[MI][4],
+                                                const unsigned (&al)[MI][4], const unsigned (&bh)[NJ][2],
+                                                const unsigned (&bm)[NJ][2], const unsigned (&bl)[NJ][2]) {
+  float d[MI][NJ][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) mma_tf32_first(d[mi][nj], ah[mi], bl[nj]);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) mma_tf32(d[mi][nj], al[mi], bh[nj]);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) mma_tf32(d[mi][nj], ah[mi], bm[nj]);
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll

@@ -28,12 +28,12 @@ CUDA kernels share (``csrc/gram.cuh``).  The same library holds the
 kernels of the port's benchmark path, whose wrappers live in
 ``agp_tpu_torch/benchmarks/``: the design-sweep variants of the fused
 pass (``direct_stats``, ``two_factor_nt``; ``csrc/fused_variants.cu``,
-which shares kernel 1's cross-block sums, ``csrc/block_sums.cuh``) and
-the tile gather (``gather_row_tiles``; ``csrc/gather_tiles.cu``).  On a
-CPU tensor a wrapper runs its ``*_reference``, the same function in plain
-PyTorch (any float dtype).  On a CUDA tensor it launches its kernel
-(float32) or raises; there is no fallback.  Each wrapper counts its
-launches in ``<wrapper>.launches``.
+which runs the split pairs' device code) and the tile gather
+(``gather_row_tiles``; ``csrc/gather_tiles.cu``).  On a CPU tensor a
+wrapper runs its ``*_reference``, the same function in plain PyTorch (any
+float dtype).  On a CUDA tensor it launches its kernel (float32) or
+raises; there is no fallback.  Each wrapper counts its launches in
+``<wrapper>.launches``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``: one
@@ -191,13 +191,9 @@ def _library() -> ctypes.CDLL:
     lib.agp_fused_kappa.restype = i
     lib.agp_cavi_stats.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.agp_cavi_stats.restype = i
-    lib.agp_fused_variant_tile_rows.argtypes = []
-    lib.agp_fused_variant_tile_rows.restype = i
-    lib.agp_fused_variant_smem_bytes.argtypes = [i, i]
+    lib.agp_fused_variant_smem_bytes.argtypes = [i, i, i]
     lib.agp_fused_variant_smem_bytes.restype = ctypes.c_size_t
-    lib.agp_fused_variant_blocks_per_sm.argtypes = [i, i, i]
-    lib.agp_fused_variant_blocks_per_sm.restype = i
-    lib.agp_fused_variant_stats.argtypes = [p] * 15 + [i] * 5 + [p]
+    lib.agp_fused_variant_stats.argtypes = [p] * 19 + [i] * 9 + [p]
     lib.agp_fused_variant_stats.restype = i
     ll = ctypes.c_longlong
     lib.agp_gather_row_tiles.argtypes = [p, p, i, p, ll, ll, p]

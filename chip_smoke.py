@@ -9,9 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels from the repo's sources with nvcc for
    sm_90a, one nvcc per source, all at once; then the TF32 tensor-core
    instructions that ``cuobjdump -sass`` finds in each instance of kernels
-   4-7 (kappa_moments_batched, kappa_single, stats_tc; none fails the run),
-   and kernels 4 and 6's shared memory against the wrapper's Python copy
-   of it, which chooses their row tiles;
+   4-9 (kappa_moments_batched, kappa_single, stats_tc, variant_rows; none
+   fails the run), and kernels 4, 6 and 8-9's shared memory against the
+   wrappers' Python copies of it, which choose their row tiles;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
    the same card tensors, at its main path's shape, a ragged B=300 and
    M=128, then both timed at the main path's shape (CUDA events, in the
@@ -80,11 +80,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    against each path's own float32 noise;
 16. kernels 8-9 (the bench's fused variants): each variant against its
    plain version at the flagship's B=4096, D=20, M=64, a ragged B=300 with
-   M=128 and the sweep's B=262,144, D=8, M=128; with kernel 1 at the
-   ill-conditioned oracle shape against the float64 plain version
-   (Ktilde's and S2's errors logged); timed beside kernel 1, the sweep's
-   bar and the plain versions; then the bench's variants mode, their main
-   path, with its exact launches;
+   M=128, the sweep's four rows (B=262,144, M=128; B=8192, M=512;
+   B=65,536, M=256 and 512; D=8) and a ragged B=300 at M=129 and M=520,
+   a second call bit-equal; at the ill-conditioned oracle shapes (M=128,
+   with kernel 1, and M=512) against the float64 plain version with no
+   floor (Ktilde's, S2's and mf's errors logged); timed at the flagship
+   shape and the sweep's rows beside kernel 1 (M <= 128), the sweep's bar
+   and the plain versions, with device us at B=262,144, M=128; then the
+   bench's variants mode, their main path, with its exact launches;
 17. kernel 10 (the bench's tile gather) bit-equal to index_select on the
    tile view (tiles of 32 and 64 rows, a ragged T, the scalar paths),
    timed beside it; then the bench's gather mode with its exact launches;
@@ -100,7 +103,8 @@ Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``,
 ``profile multiclass`` or ``profile hyper A|B`` (torch.profiler over 20
 steps of an M=512 path, or 20 iterations of path A or B with a
 hyperparameter step each), ``profile kernels`` (device time of the bench's
-candidates: kernels 1, 8, 9, the sweep's bar, kernel 10 and index_select),
+candidates at each of its shapes: kernels 1 (M <= 128), 8, 9, the sweep's
+bar; kernel 10 and index_select),
 ``moved-paths`` (a row-weighted step and elbo at fused-range shapes),
 ``stats`` (kernels 5 and 7 at phase 12's timed shapes by CUDA events and
 device us, logistic_m512_b65536's steady it/s and ``profile logistic``),
@@ -110,10 +114,13 @@ logistic_m512_b65536 and of path B, ``profile logistic`` and ``profile
 multiclass``), ``probe`` (builds and runs
 agp_tpu_torch/csrc/probes/kappa_tc.cu: kernel 6's parts, kernels 4 and 6
 at other tile shapes, the mma.sync rate with and without 3xTF32's
-splits).  ``ab ROOT MODE...`` runs any mode with agp_tpu_torch
-imported from ROOT (an earlier commit unpacked under _chip/), to compare
-two trees in one call: ``ab ROOT kappa`` and ``kappa`` in the order parent,
-this, this, parent.
+splits), ``variants`` (kernels 8-9 at the flagship shape and the sweep's
+rows by CUDA events and device us beside the bar, and each form with
+each row tile at the sweep's M=128 and M=512 rows).  ``ab ROOT MODE...``
+runs any mode with agp_tpu_torch imported from ROOT (an earlier commit
+unpacked under _chip/), to compare two trees in one call: ``ab ROOT
+kappa`` and ``kappa`` (or ``variants``) in the order parent, this, this,
+parent.
 """
 from __future__ import annotations
 
@@ -270,14 +277,16 @@ def phase_build(ck):
 
 # the kernels that run on the tensor cores, by the name of their CUDA
 # function: every instance must hold TF32 mma instructions
-TC_KERNELS = {"kappa_moments_batched": "kernel 4", "stats_tc": "kernels 5 and 7", "kappa_single": "kernel 6"}
+TC_KERNELS = {"kappa_moments_batched": "kernel 4", "stats_tc": "kernels 5 and 7", "kappa_single": "kernel 6",
+              "variant_rows": "kernels 8-9"}
 
 
 def check_tc_sass(lib_path):
-    """Kernels 4-7 run on the tensor cores: every instance of
-    kappa_moments_batched (kernel 4), kappa_single (6) and stats_tc (5 and
-    7) in the built library holds TF32 HMMA (or HGMMA) instructions, as
-    ``cuobjdump -sass`` shows them, and each of the three has one."""
+    """Kernels 4-9 run on the tensor cores: every instance of
+    kappa_moments_batched (kernel 4), kappa_single (6), stats_tc (5 and
+    7, and the statistics of 8-9) and variant_rows (8-9, every form) in the
+    built library holds TF32 HMMA (or HGMMA) instructions, as ``cuobjdump
+    -sass`` shows them, and each of the four has one."""
     import re
     import shutil
 
@@ -300,11 +309,12 @@ def check_tc_sass(lib_path):
                              f"no instance of {missing}")
     for fn, n in sorted(counts.items()):
         stats = re.search(r"stats_tcILb(\d)", fn)
-        tile = re.search(r"(kappa_single|kappa_moments_batched)INS_9TileShapeILi(\d+)E", fn)
+        tile = re.search(r"(kappa_single|kappa_moments_batched|variant_rows)INS_9TileShapeILi(\d+)ELi(\d+)ELi(\d+)E",
+                         fn)
         if stats:
             label = f"stats_tc<{'16-byte' if stats[1] == '1' else '4-byte'} copies>"
         elif tile:
-            label = f"{tile[1]}<{tile[2]}-row tiles>"
+            label = f"{tile[1]}<{tile[2]}-row tiles, {tile[3]} x {tile[4]} warps>"
         else:
             label = fn[:90]
         kernel = TC_KERNELS[own.search(fn)[1]]
@@ -1157,6 +1167,29 @@ def check_kappa_tiles(ck):
         f"{ck.kappa_max_m('single')}")
 
 
+def check_variant_tiles(ck):
+    """variant_smem_bytes (Python, the same on the CPU) against the
+    library's own shared-memory function of kernels 8-9 at every row tile
+    on a grid of M, and so the wrappers' tile choice (variant_tile); an
+    unknown tile gets SIZE_MAX."""
+    import ctypes
+
+    from agp_tpu_torch.benchmarks import fused_variants as fv
+
+    lib, n = ck._library(), 0
+    for m in (1, 8, 64, 127, 128, 129, 512, 520, 680, 681, 1392, 1393, 2392, 2393):
+        for tile in fv._VARIANT_TILES:
+            if lib.agp_fused_variant_smem_bytes(m, tile[0], tile[1]) != fv.variant_smem_bytes(m, tile):
+                raise AssertionError(f"variant_smem_bytes({m}, {tile}) disagrees with the library's "
+                                     f"{lib.agp_fused_variant_smem_bytes(m, tile[0], tile[1])} bytes")
+            n += 1
+    if lib.agp_fused_variant_smem_bytes(64, 64, 64) != ctypes.c_size_t(-1).value:
+        raise AssertionError("agp_fused_variant_smem_bytes takes an unknown tile")
+    tiles = {m: fv.variant_tile(m)[:2] for m in (64, 128, 129, 512, 681, 1393, 2392)}
+    log(f"variant_smem_bytes agrees with the library at {n} (M, tile); row tiles (rows, columns) by M: {tiles}; "
+        f"largest M {fv.variant_max_m()}")
+
+
 def pair_inputs(X_all, b, m, n_latent, device, kind="rbf", ls=2.0, seed=0):
     """Float32 card tensors as a path hands them to kernel 4: the batch
     X_all[:b], Z = X_all[:m] (on the batch's rows, as a path's first slice)
@@ -1231,13 +1264,19 @@ def sym_fmas(m):
 
 
 def fused_bound(b, d, m, n_latent, label_words):
-    """Kernels 1-3: per row and latent the gram (M D), kappa (M^2), vf's
-    quadratic form and S2 (each ``sym_fmas``) and ~5 M more FMAs; the
-    inputs read and the outputs written once (label_words: the per-row
-    inputs and outputs beyond x)."""
-    fmas = n_latent * b * (m * m + 2 * sym_fmas(m) + m * d + 5 * m)
-    words = b * d + b * label_words + n_latent * (m * d + 2 * m * m + 2 * m + m * m)
-    return bound(fmas, 4 * words)
+    """Kernels 1-3: per row and latent kappa (M^2), vf's quadratic form and
+    S2 (each ``sym_fmas``), the gram (M D) and ~5 M more FMAs; the inputs
+    read and the outputs written once (label_words: the per-row inputs and
+    outputs beyond x).  Returns three bounds, each (ms, by), as
+    kappa_bounds: the function's (its products once at the TF32 peak,
+    ``tc_bound``), a 3xTF32 design's (kappa and kappa Sigma in full and S2's
+    upper triangle in three TF32 passes) and the FP32 one (``bound``), which
+    kernels 1-3, FP32 designs, answer to."""
+    tc = n_latent * b * (m * m + 2 * sym_fmas(m))
+    design = 3 * n_latent * b * (2 * m * m + sym_fmas(m))
+    simt = n_latent * b * (m * d + 5 * m)
+    nbytes = 4 * (b * d + b * label_words + n_latent * (m * d + 2 * m * m + 2 * m + m * m))
+    return tc_bound(tc, simt, nbytes), tc_bound(design, simt, nbytes), bound(tc + simt, nbytes)
 
 
 def tc_bound(tc_fmas, simt_fmas, nbytes):
@@ -1997,6 +2036,81 @@ def kappa_mode(agt, ck, device):
     print(json.dumps(out))
 
 
+def variants_mode(agt, device):
+    """``python3 chip_smoke.py variants`` (``ab ROOT variants`` for an
+    earlier tree): kernels 8 ("nt", "packed") and 9 at each shape of
+    VARIANT_TIMED by CUDA events beside the sweep's bar (at the flagship's
+    host-bound shape the median of three turns round the kernels, and the
+    host us a call over 1000 calls), then (the profiler after every
+    timing) their device us; a shape the tree's kernels refuse reads "out
+    of range".  Where the tree has kernels 8-9's row tiles
+    (fused_variants._VARIANT_TILES), each form at the sweep's M=128 and
+    M=512 rows with every tile whose shared memory fits, through the
+    wrapper's launch with that tile (no launch counted).  Last a JSON line
+    of them."""
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.benchmarks import fused_variants as fv
+
+    tree = os.path.relpath(os.path.dirname(agt.__file__))
+    log(f"variants: agp_tpu_torch from {tree}")
+    out = {"tree": tree, "ms": {}, "device_us": {}, "bar_ms": {}, "host_us": {}}
+    kernels = timed_variant_kernels(fv)
+    for profile in (False, True):
+        for b, d, m in VARIANT_TIMED:
+            key, reps = shape_key(b, d, m), 200 if b <= B else BIG_VARIANT_REPS
+            t = bench.sweep_inputs(b, d, m, device)
+            if not profile:
+                out["bar_ms"][key] = cuda_ms(bench.variant_calls(t)["xla_stats_reference"], reps)
+            fns = {f"{key} {label}": lambda kern=kern, kw=kw: sweep_call(kern, t, **kw)
+                   for label, (kern, _, kw) in kernels.items()}
+            for name, fn in fns.items():
+                if profile and not isinstance(out["ms"][name], str):
+                    out["device_us"][name] = device_us(fn)[0]
+                elif not profile:
+                    try:
+                        fn()
+                        out["ms"][name] = cuda_ms(fn, reps)
+                    except ValueError as e:
+                        out["ms"][name] = f"out of range: {e}"
+            if not profile and b <= B:  # host-bound: two more turns round the kernels, the median
+                ok = [n for n in fns if not isinstance(out["ms"][n], str)]
+                turns = {n: [out["ms"][n]] for n in ok}
+                for _ in range(2):
+                    for n in ok:
+                        turns[n].append(cuda_ms(fns[n], reps))
+                for n in ok:
+                    out["ms"][n] = sorted(turns[n])[1]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(1000):
+                        fns[n]()
+                    out["host_us"][n] = (time.perf_counter() - t0) * 1e3
+                    torch.cuda.synchronize()
+            if not profile:
+                log(f"variants at {key}: bar {out['bar_ms'][key]:.4f} ms; " + "; ".join(
+                    f"{k.split(' ')[1]} {v if isinstance(v, str) else f'{v:.4f} ms'}" for k, v in out["ms"].items()
+                    if k.startswith(key + " ")))
+            del t
+    log("variants, device us: " + "; ".join(f"{k} {v:.1f}" for k, v in out["device_us"].items()))
+    log("variants, host us a call: " + "; ".join(f"{k} {v:.1f}" for k, v in out["host_us"].items()))
+    if hasattr(fv, "_VARIANT_TILES"):
+        out["tiles"] = {}
+        names = {"direct": "direct_stats", "packed": "direct_stats", "two_factor": "two_factor_nt"}
+        for b, d, m in ((262_144, 8, 128), (65_536, 8, 512)):
+            t = bench.sweep_inputs(b, d, m, device)
+            for form in fv._FORMS:
+                for tile in fv._VARIANT_TILES:
+                    if fv.variant_smem_bytes(m, tile) > fv._smem_limit(0):
+                        continue
+                    key = f"{shape_key(b, d, m)} {form} {tile[0]}x{tile[1]}"
+                    out["tiles"][key] = cuda_ms(lambda: fv._variant_launch(names[form], form, *bench.sweep_args(t),
+                                                                           tile=tile), BIG_VARIANT_REPS)
+                    log(f"  tile {key}: {out['tiles'][key]:.4f} ms"
+                        + (" (variant_tile's choice)" if tile == fv.variant_tile(m) else ""))
+            del t
+    print(json.dumps(out))
+
+
 def probe_mode(ck):
     """``python3 chip_smoke.py probe``: builds the measurement program
     agp_tpu_torch/csrc/probes/kappa_tc.cu with nvcc for sm_90a into the
@@ -2058,17 +2172,29 @@ def time_moved_paths(agt, device):
 
 # ------------------------------------------ the bench's kernels (8-10)
 # shapes (B, D, M) at which kernels 8-9 are held against their plain
-# versions: the flagship's statistics, a ragged B with M=128, and the
-# sweep's in-range row (benchmarks/fused_variants.py:281)
-VARIANT_CASES = ((B, D, M), (300, D, 128), (262_144, 8, 128))
+# versions: the flagship's statistics, a ragged B with M=128, the sweep's
+# four rows (benchmarks/fused_variants.py:286: the 64-row tile, two output
+# tiles at M=512), and a ragged B at M=129 (past the narrow tile, M % 4 = 1:
+# 4-byte copies) and M=520 (two output tiles, the last ragged)
+VARIANT_CASES = ((B, D, M), (300, D, 128), (262_144, 8, 128), (8192, 8, 512), (65_536, 8, 256), (65_536, 8, 512),
+                 (300, 8, 129), (300, 8, 520))
+# the shapes at which kernels 8-9 are timed: the flagship's statistics and
+# the sweep's four rows; the kernels line's main shape is the sweep's
+# B=262,144 row, where the bar is timed at its largest
+VARIANT_TIMED = ((B, D, M), (8192, 8, 512), (65_536, 8, 256), (65_536, 8, 512), (262_144, 8, 128))
+VARIANT_MAIN = (262_144, 8, 128)
 # the bench's variants and gather modes as phases 16-17 drive them: timed
 # calls of each candidate (a tenth at B=262,144) and draws of each arm
 VARIANT_REPS, GATHER_DRAWS = 20, 500
-# the sweep's in-range row is timed with fewer calls
+# calls timed at the sweep's rows (B >= 8192)
 BIG_VARIANT_REPS = 10
 # the bench's primary line at a cut step count (phase 18)
 BENCH_ITERS, BENCH_CHUNK = 1000, 500
 STATS_NAMES = ("s1", "S2", "c", "theta", "mf", "vf")
+
+
+def shape_key(b, d, m):
+    return f"B{b}_D{d}_M{m}"
 
 
 def variant_kernels(fv):
@@ -2079,6 +2205,11 @@ def variant_kernels(fv):
     return out
 
 
+def timed_variant_kernels(fv):
+    """variant_kernels without "transpose", the same form as "nt"."""
+    return {k: v for k, v in variant_kernels(fv).items() if k != "direct_stats/transpose"}
+
+
 def sweep_call(fn, t, **kw):
     """fn on the sweep's inputs t (agp_tpu_torch.bench.sweep_inputs)."""
     from agp_tpu_torch import bench
@@ -2086,20 +2217,22 @@ def sweep_call(fn, t, **kw):
     return fn(*bench.sweep_args(t), **kw)
 
 
-def ill_conditioned_inputs(agt, device, seed=0):
+def ill_conditioned_inputs(agt, device, m=OM, seed=0):
     """Card tensors of kernels 1, 8 and 9 at the oracle paths' shape
-    (B=8192, D=2, M=128, lengthscale 1, Z on the batch's rows, L^-T from
-    the float32 Cholesky with jitter 1e-3, as phase 3 takes it), with a
-    random mu and Sigma = 0, so that vf is Ktilde itself."""
+    (B=8192, D=2, M=m: 128, or the M=512 paths', lengthscale 1, Z on the
+    batch's rows, L^-T from the float32 Cholesky with jitter 1e-3, as phase
+    3 takes it), with a random mu and Sigma = 0, so that vf is Ktilde
+    itself."""
     from agp_tpu_torch.ops import linalg
 
     X, y, _ = oracle_data("logistic", "cpu")
     rng = np.random.default_rng(seed)
-    t = {"X": X[:OB], "y": y[:OB], "Z": X[:OM], "mu": torch.as_tensor(rng.normal(size=OM), dtype=torch.float32),
-         "Sigma": torch.zeros((OM, OM))}
+    t = {"X": X[:OB], "y": y[:OB], "Z": X[:m], "mu": torch.as_tensor(rng.normal(size=m), dtype=torch.float32),
+         "Sigma": torch.zeros((m, m))}
     t = {k: v.to(device).contiguous() for k, v in t.items()}
     L = linalg.safe_cholesky(agt.SqExponentialKernel().gram(t["Z"]), 1e-3)
-    t["L_invT"] = torch.linalg.solve_triangular(L, torch.eye(OM, device=device), upper=False).T.contiguous()
+    eye = torch.eye(m, device=device, dtype=L.dtype)
+    t["L_invT"] = torch.linalg.solve_triangular(L, eye, upper=False).T.contiguous()
     return t
 
 
@@ -2107,17 +2240,82 @@ def ill_call(fn, t, **kw):
     return fn(t["X"], t["y"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], 1.0, 1.0, 1e-3, ON / OB, **kw)
 
 
+def ill_conditioned_variants(agt, ck, device):
+    """Kernels 8 (each variant) and 9 at the ill-conditioned oracle shapes
+    (M=128 and M=512) against the float64 plain version, within
+    FLOAT32_FACTOR times the float32 plain version's own error with no
+    floor, and kernel 1 at M=128 (its KERNEL_TOL floor: an FP32 design);
+    each a second call bit-equal.  Returns {label M=m: {output:
+    (kernel, float32 plain) error against float64}} for Ktilde (vf, with
+    Sigma = 0), S2 and mf, each logged."""
+    from agp_tpu_torch.benchmarks import fused_variants as fv
+
+    ill = {}
+    for m in (OM, PM):
+        t = ill_conditioned_inputs(agt, device, m)
+        t64 = to_float64(t)
+        cases = [(label, fn, plain, kw, 0.0) for label, (fn, plain, kw) in variant_kernels(fv).items()]
+        if m == OM:
+            cases.insert(0, ("fused_cavi_stats", ck.fused_cavi_stats, ck.fused_cavi_stats_reference,
+                             {"kind": "rbf", "lik": "logistic"}, KERNEL_TOL))
+        for label, fn, plain, kw, floor in cases:
+            got = ill_call(fn, t, **kw)
+            torch.cuda.synchronize()
+            ref, ref64 = ill_call(plain, t, **kw), ill_call(plain, t64, **kw)
+            check_outputs(f"{label} at B={OB}, D=2, M={m}, Sigma = 0", STATS_NAMES, got, ref, ref64, floor=floor)
+            if label != "fused_cavi_stats":
+                check_repeat(f"{label} at B={OB}, D=2, M={m}", lambda: ill_call(fn, t, **kw), got)
+
+            def against64(i):
+                scale = max(float(ref64[i].abs().max()), 1.0)
+                return tuple(float((o[i].double() - ref64[i]).abs().max()) / scale for o in (got, ref))
+
+            key = f"{label} M={m}"
+            ill[key] = {"Ktilde": against64(5), "S2": against64(1), "mf": against64(4)}
+            log(f"ill-conditioned {label} (B={OB}, D=2, M={m}, ls 1, Sigma = 0, vf = Ktilde) against float64, "
+                "kernel / float32 plain: " + " ".join(f"{k}={a:.3e}/{p:.3e}" for k, (a, p) in ill[key].items()))
+        del t, t64
+    return ill
+
+
+def variant_timing(fv, bench, device):
+    """Kernels 8 ("nt", "packed") and 9 at each shape of VARIANT_TIMED by
+    CUDA events beside their plain versions (plain, kernel, kernel, plain),
+    kernel 1 where it takes the shape and the sweep's bar
+    (xla_stats_reference, library_ms); at VARIANT_MAIN each kernel's
+    device us (profiler).  Returns ({shape: {label: (ms, plain ms)}},
+    {shape: bar ms}, {shape: kernel 1 ms}, {label: (device us, {kernel:
+    us})})."""
+    times, bar, k1, dev = {}, {}, {}, {}
+    for b, d, m in VARIANT_TIMED:
+        key, reps = shape_key(b, d, m), 200 if b <= B else BIG_VARIANT_REPS
+        t = bench.sweep_inputs(b, d, m, device)
+        times[key] = {label: timed_pair(lambda: sweep_call(kern, t, **kw), lambda: sweep_call(plain, t, **kw), reps)
+                      for label, (kern, plain, kw) in timed_variant_kernels(fv).items()}
+        calls = bench.variant_calls(t)
+        bar[key] = cuda_ms(calls["xla_stats_reference"], reps)
+        if "fused_cavi_stats" in calls:
+            k1[key] = cuda_ms(calls["fused_cavi_stats"], reps)
+        if (b, d, m) == VARIANT_MAIN:
+            dev = {label: device_us(lambda: sweep_call(kern, t, **kw))
+                   for label, (kern, _, kw) in timed_variant_kernels(fv).items()}
+        log(f"kernels 8-9 at B={b} D={d} M={m}, ms (plain): " + " ".join(
+            f"{k} {a:.4f} ({p:.4f})" for k, (a, p) in times[key].items()) + f"; xla_stats_reference {bar[key]:.4f}"
+            + (f", kernel 1 {k1[key]:.4f}" if key in k1 else ""))
+        del t
+    for label, (us, by) in dev.items():
+        log(f"  device at {shape_key(*VARIANT_MAIN)}: {label} {us:.1f} us (" + ", ".join(
+            f"{k} {v:.1f}" for k, v in by.items()) + ")")
+    return times, bar, k1, dev
+
+
 def phase_variant_kernels_vs_plain(agt, ck, device):
     """Kernels 8 (every variant) and 9 against their plain versions on the
-    same card tensors at VARIANT_CASES, within KERNEL_TOL; then, with kernel
-    1, at the ill-conditioned oracle shape against the float64 plain
-    version (FLOAT32_FACTOR), where Ktilde's and S2's errors are logged for
-    each (kernel / float32 plain version); then each timed at the flagship
-    shape (plain, kernel, kernel, plain) beside kernel 1 and the sweep's bar
-    xla_stats_reference (library_ms), and at the sweep's row.  Returns
-    ({kernel: largest abs error}, {label: {output: (kernel, plain) error
-    against float64}}, {label: (ms, plain ms)}, kernel 1 ms, bar ms,
-    {label: (ms, plain ms)} at the sweep's row, (kernel 1, bar) ms there)."""
+    same card tensors at VARIANT_CASES, within KERNEL_TOL, each a second
+    call bit-equal; then at the ill-conditioned oracle shapes against the
+    float64 plain version (ill_conditioned_variants); then timed
+    (variant_timing).  Returns ({kernel: largest abs error}, the
+    ill-conditioned errors, and variant_timing's four tables)."""
     from agp_tpu_torch import bench
     from agp_tpu_torch.benchmarks import fused_variants as fv
 
@@ -2131,71 +2329,37 @@ def phase_variant_kernels_vs_plain(agt, ck, device):
             ref = sweep_call(plain, t, **kw)
             torch.cuda.synchronize()
             row = check_outputs(f"{label} B={b} D={d} M={m}", STATS_NAMES, got, ref)
+            check_repeat(f"{label} B={b} D={d} M={m}", lambda: sweep_call(kern, t, **kw), got)
             worst[kern.__name__] = max(worst[kern.__name__], *row.values())
-            log(f"{label} vs plain B={b} D={d} M={m}: max abs err " + " ".join(f"{k}={v:.2e}" for k, v in row.items()))
+            log(f"{label} vs plain B={b} D={d} M={m} (row tile {fv.variant_tile(m)[:2]}): "
+                "max abs err " + " ".join(f"{k}={v:.2e}" for k, v in row.items()))
         del t, got, ref
-
-    t = ill_conditioned_inputs(agt, device)
-    t64 = to_float64(t)
-    ill = {}
-    for label, fn, plain, kw in (
-        ("fused_cavi_stats", ck.fused_cavi_stats, ck.fused_cavi_stats_reference, {"kind": "rbf", "lik": "logistic"}),
-        ("direct_stats/nt", fv.direct_stats, fv.direct_stats_reference, {"variant": "nt"}),
-        ("two_factor_nt", fv.two_factor_nt, fv.two_factor_nt_reference, {}),
-    ):
-        got = ill_call(fn, t, **kw)
-        torch.cuda.synchronize()
-        ref, ref64 = ill_call(plain, t, **kw), ill_call(plain, t64, **kw)
-        check_outputs(f"{label} at B={OB}, D=2, M={OM}, Sigma = 0", STATS_NAMES, got, ref, ref64)
-
-        def against64(i):
-            scale = max(float(ref64[i].abs().max()), 1.0)
-            return tuple(float((o[i].double() - ref64[i]).abs().max()) / scale for o in (got, ref))
-
-        ill[label] = {"Ktilde": against64(5), "S2": against64(1), "mf": against64(4)}
-        log(f"ill-conditioned {label} (B={OB}, D=2, M={OM}, ls 1, Sigma = 0, vf = Ktilde) against float64, "
-            "kernel / float32 plain: " + " ".join(f"{k}={a:.3e}/{p:.3e}" for k, (a, p) in ill[label].items()))
-
-    times, big = {}, {}
-    t = bench.sweep_inputs(B, D, M, device)
-    for label, (kern, plain, kw) in kernels.items():
-        times[label] = timed_pair(lambda: sweep_call(kern, t, **kw), lambda: sweep_call(plain, t, **kw))
-    calls = bench.variant_calls(t)
-    k1_ms, bar_ms = cuda_ms(calls["fused_cavi_stats"]), cuda_ms(calls["xla_stats_reference"])
-    log(f"kernels 8-9 at B={B} D={D} M={M}, ms (plain): " + " ".join(
-        f"{k} {a:.4f} ({p:.4f})" for k, (a, p) in times.items()) + f"; kernel 1 {k1_ms:.4f}, xla_stats_reference {bar_ms:.4f}")
-    b, d, m = VARIANT_CASES[-1]
-    t = bench.sweep_inputs(b, d, m, device)
-    for label, (kern, plain, kw) in kernels.items():
-        if label != "direct_stats/transpose":  # the same instance as nt
-            big[label] = timed_pair(lambda: sweep_call(kern, t, **kw), lambda: sweep_call(plain, t, **kw),
-                                    BIG_VARIANT_REPS)
-    calls = bench.variant_calls(t)
-    big_k1 = (cuda_ms(calls["fused_cavi_stats"], BIG_VARIANT_REPS), cuda_ms(calls["xla_stats_reference"], BIG_VARIANT_REPS))
-    log(f"kernels 8-9 at B={b} D={d} M={m}, ms (plain): " + " ".join(
-        f"{k} {a:.4f} ({p:.4f})" for k, (a, p) in big.items()) + f"; kernel 1 {big_k1[0]:.4f}, "
-        f"xla_stats_reference {big_k1[1]:.4f}")
-    return worst, ill, times, k1_ms, bar_ms, big, big_k1
+    ill = ill_conditioned_variants(agt, ck, device)
+    return (worst, ill, *variant_timing(fv, bench, device))
 
 
 def phase_bench_variants(ck):
     """The bench's variants mode (agp_tpu_torch.bench.variants), the main
     path of kernels 8-9: counts reset before it and read after it, each
     candidate launched once for its error and 1 + variant_reps times for
-    its time at each shape; every candidate's s1/S2 within 1e-3 of the
-    float64 plain version."""
+    its time at each shape (kernel 1 where it takes the shape); every
+    candidate's s1/S2 within 1e-3 of the float64 plain version, kernel 1's
+    column out of range exactly at M > 128."""
     from agp_tpu_torch import bench
 
     reset_launches(ck)
     rows = bench.variants(reps=VARIANT_REPS)
     torch.cuda.synchronize()
-    calls = sum(2 + bench.variant_reps(b, VARIANT_REPS) for b, _, _ in bench.VARIANT_SHAPES)
-    launches = expect_launches(ck, "bench variants",
-                               {"fused_cavi_stats": calls, "direct_stats": 2 * calls, "two_factor_nt": calls})
+    calls = {(b, d, m): 2 + bench.variant_reps(b, VARIANT_REPS) for b, d, m in bench.VARIANT_SHAPES}
+    launches = expect_launches(ck, "bench variants", {
+        "fused_cavi_stats": sum(n for (b, d, m), n in calls.items() if ck.fused_fits(1, d, m)),
+        "direct_stats": 2 * sum(calls.values()), "two_factor_nt": sum(calls.values())})
     for row in rows:
         errs = {k: v for k, v in row.items() if k.endswith("_err")}
-        if not all(e <= 1e-3 for e in errs.values()):
+        if not all(e <= 1e-3 for e in errs.values()) or len(errs) != 4 + ck.fused_fits(1, row["D"], row["M"]):
             raise AssertionError(f"bench variants at B={row['B']}, M={row['M']}: {errs}")
+        if ("fused_cavi_stats_out_of_range" in row) != (row["M"] > ck.MAX_M):
+            raise AssertionError(f"bench variants at M={row['M']}: kernel 1's range is misreported: {row}")
         log(f"bench variants: {json.dumps(row)}")
     log(f"bench variants: {launches} launches")
     return rows
@@ -2276,10 +2440,15 @@ def phase_bench_entry():
 def variant_bound(b, d, m, two_factor):
     """Kernels 8-9 as fused_bound for one latent (logistic: 5 words a row
     beyond x), with kappa in the two-factor form as two triangular products
-    (W = Knm L^-T, kappa = W L^-1: ``sym_fmas`` each) instead of one M^2."""
-    kappa = 2 * sym_fmas(m) if two_factor else m * m
-    fmas = b * (kappa + 2 * sym_fmas(m) + m * d + 5 * m)
-    return bound(fmas, 4 * (b * d + 5 * b + m * d + 3 * m * m + 2 * m))
+    (W = Knm L^-T, kappa = W L^-1: ``sym_fmas`` each) instead of one M^2;
+    the design's bound counts kappa and kappa Sigma in full in three TF32
+    passes, kernel 9's W in four (L^-T split in three) and S2's upper
+    triangle in three."""
+    tc = b * ((2 * sym_fmas(m) if two_factor else m * m) + 2 * sym_fmas(m))
+    design = b * ((4 + 3) * m * m if two_factor else 3 * m * m) + 3 * b * (m * m + sym_fmas(m))
+    simt = b * (m * d + 5 * m)
+    nbytes = 4 * (b * d + 5 * b + m * d + 3 * m * m + 2 * m)
+    return tc_bound(tc, simt, nbytes), tc_bound(design, simt, nbytes), bound(tc + simt, nbytes)
 
 
 def gather_bound(t, tr, d):
@@ -2359,6 +2528,9 @@ def main():
     if args == ["kappa"]:
         kappa_mode(agt, ck, device)
         return
+    if args == ["variants"]:
+        variants_mode(agt, device)
+        return
     if args[:2] == ["profile", "kernels"]:
         profile_bench_kernels(device)
         return
@@ -2370,6 +2542,7 @@ def main():
         return
     timed_phase("tensor-core SASS", check_tc_sass, lib_path)
     timed_phase("kappa tiles", check_kappa_tiles, ck)
+    timed_phase("variant tiles", check_variant_tiles, ck)
     errs, kern_ms, plain_ms = timed_phase("kernel 1 vs plain", phase_kernel_vs_plain, ck, device)
     branch_err, per_lik, per_kind, oracle_ms = timed_phase("kernel 1 branches", phase_branches_vs_plain,
                                                            agt, ck, device)
@@ -2397,7 +2570,7 @@ def main():
         timed_phase(f"hyper path {which}", phase_hyper_path, agt, ck, device, which)
     timed_phase("hyper parity", phase_hyper_parity, agt, ck, device)
 
-    variant_err, ill, variant_ms, k1_sweep_ms, bar_ms, big_ms, big_k1 = timed_phase(
+    variant_err, ill, variant_ms, bar_ms, k1_ms, variant_dev = timed_phase(
         "kernels 8-9 vs plain", phase_variant_kernels_vs_plain, agt, ck, device)
     timed_phase("bench variants", phase_bench_variants, ck)
     gather_ms, gather_library = timed_phase("kernel 10 vs plain", phase_gather_vs_plain, device)
@@ -2412,9 +2585,10 @@ def main():
     }
     bounds["fused_kappa_moments_batched"], bounds["cavi_stats_batched"] = pair_bounds(LB, LD, PM, 1)
     bounds["fused_kappa"], bounds["cavi_stats"] = single_bounds(LB, LD, PM)
-    bounds["direct_stats"] = variant_bound(B, D, M, False)
-    bounds["two_factor_nt"] = variant_bound(B, D, M, True)
+    bounds["direct_stats"] = variant_bound(*VARIANT_MAIN, False)
+    bounds["two_factor_nt"] = variant_bound(*VARIANT_MAIN, True)
     bounds["gather_row_tiles"] = gather_bound(B // 32, 32, D)
+    main_variant = shape_key(*VARIANT_MAIN)
     main_shape = "logistic_m512_b65536"
     kernels = {"kernels": [{
         "name": "fused_cavi_stats",
@@ -2427,7 +2601,7 @@ def main():
         "per_lik_ms": ms_table(per_lik),
         "per_kind_ms": ms_table(per_kind),
         "oracle_shape_ms": ms_table({"studentt/rbf": oracle_ms}),
-        "library_ms": bar_ms,
+        "library_ms": bar_ms[shape_key(B, D, M)],
         "library": "xla_stats_reference at the flagship shape (phase 16)",
     }] + [{
         "name": name,
@@ -2461,15 +2635,25 @@ def main():
         "source": "agp_tpu_torch/csrc/fused_variants.cu",
         "replaces": f"benchmarks/fused_variants.py:{line}",
         "max_abs_err": variant_err[name],
-        "ms": variant_ms[label][0],
-        "plain_ms": variant_ms[label][1],
-        "per_variant_ms": ms_table({k: v for k, v in variant_ms.items() if k.startswith(name)}),
-        "sweep_row_ms": ms_table({k: v for k, v in big_ms.items() if k.startswith(name)}),
-        "library_ms": bar_ms,
-        "library": "xla_stats_reference",
-        "kernel_1_ms": {"flagship": k1_sweep_ms, "sweep_row": big_k1[0]},
-        "sweep_row_library_ms": big_k1[1],
-        "ill_conditioned_vs_float64": {k: v for k, v in ill.items() if k.startswith(name) or k == "fused_cavi_stats"},
+        "ms": variant_ms[main_variant][label][0],
+        "plain_ms": variant_ms[main_variant][label][1],
+        "main_shape": main_variant,
+        "per_shape_ms": ms_table({f"{shape} {k}": v for shape, row in variant_ms.items() for k, v in row.items()
+                                  if k.startswith(name)}),
+        "library_ms": bar_ms[main_variant],
+        "per_shape_library_ms": bar_ms,
+        "library": "xla_stats_reference (the sweep's bar, a chain of FP32 cuBLAS calls)",
+        "device_us": variant_dev[label][0],
+        "device_us_by_kernel": variant_dev[label][1],
+        "per_variant_device_us": {k: v[0] for k, v in variant_dev.items() if k.startswith(name)},
+        "kernel_1_ms": k1_ms,
+        "ill_conditioned_vs_float64": {k: v for k, v in ill.items() if k.startswith(name) or
+                                       k.startswith("fused_cavi_stats")},
+        "bound": "the function's products (kappa; the quadratic form's and S2's upper triangles) once at 495 TFLOP/s "
+                 "TF32, the gram and row sums at 67 FP32, bytes at 3.35 TB/s",
+        "bound_3xtf32": "kappa and kappa Sigma in full (kernel 9: and W in four passes) and S2's upper triangle in "
+                        "three TF32 passes, the rest at FP32, bytes",
+        "bound_fp32": "everything at 67 TFLOP/s FP32, bytes",
     } for name, line, label in (("direct_stats", 132, "direct_stats/nt"), ("two_factor_nt", 214, "two_factor_nt"))] + [{
         "name": "gather_row_tiles",
         "route": "cuda",
@@ -2482,7 +2666,7 @@ def main():
         "library_ms": gather_library[32],
         "per_tile_library_ms": {f"tile{tr}": v for tr, v in gather_library.items()},
     }]}
-    for name in ("fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats"):
+    for name in [n for n, v in bounds.items() if len(v) == 3]:
         # (function's, 3xTF32 design's, FP32) bounds
         bounds[name], design, fp32 = bounds[name]
         row = next(k for k in kernels["kernels"] if k["name"] == name)

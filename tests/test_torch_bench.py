@@ -59,6 +59,30 @@ def test_sweep_candidates_agree_on_the_cpu():
             assert float((o.double() - r).abs().max() / r.abs().max()) < 1e-4, name
 
 
+def test_variant_shapes_hold_the_reference_sweep():
+    """The variants mode runs the flagship's statistics shape and the
+    reference sweep's four (B, M) rows at D=8 (benchmarks/fused_variants.py:
+    286), none of them out of range for kernels 8-9."""
+    assert bench.VARIANT_SHAPES[0] == (bench.B, bench.D, bench.M)
+    rows = [(8192, 512), (65536, 256), (65536, 512), (262144, 128)]
+    assert [(b, m) for b, _, m in bench.VARIANT_SHAPES[1:]] == rows
+    assert all(d == 8 for _, d, _ in bench.VARIANT_SHAPES[1:])
+    assert not hasattr(bench, "OUT_OF_RANGE_SHAPES")
+
+
+def test_kernel_1_leaves_the_candidates_past_m128():
+    """At M=130 the candidates are kernels 8 and 9 and the bar (kernel 1
+    holds K^-1 and Sigma in shared memory, M <= 128), and they agree with
+    the float64 plain version on the CPU as at M=32."""
+    t = bench.sweep_inputs(256, 8, 130, "cpu")
+    calls = bench.variant_calls(t)
+    assert set(calls) == {"direct_stats_nt", "direct_stats_packed", "two_factor_nt", "xla_stats_reference"}
+    ref = bench.direct_stats_reference(*bench.sweep_args({k: v.double() for k, v in t.items()}))[:2]
+    for name, fn in calls.items():
+        for o, r in zip(fn()[:2], ref):
+            assert float((o.double() - r).abs().max() / r.abs().max()) < 1e-4, name
+
+
 def test_numpy_baseline_runs():
     assert bench.bench_numpy_baseline(iters=2) > 0
 

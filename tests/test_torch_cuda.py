@@ -602,48 +602,67 @@ def test_train_with_the_default_adam_launches_kernel_6(cuda_device, m):
 
 
 # ---------------------------------------------- the bench's kernels (8-10)
+# the edges of kernels 8-9's row tiles beside phase 16's cases: one row and
+# one inducing point, M=127 and 128 (the narrow tile's last; packed leaves
+# it at 128), M=128 at D=44 and D=45 (past the fused kernels' range: any D
+# since the tensor-core design), the largest M of 64-row (680) and 32-row
+# (1,392) tiles and of the kernels (2,392, 16-row tiles) and one past each
+VARIANT_EDGES = [(1, 3, 1), (65, 8, 127), (65, 44, 128), (65, 45, 128), (70, 8, 680), (70, 8, 681), (40, 8, 1392),
+                 (40, 8, 1393), (20, 8, 2392)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,m", list(smoke.VARIANT_CASES) + [(1, 3, 1), (65, 44, 128)])
+@pytest.mark.parametrize("b,d,m", list(smoke.VARIANT_CASES) + VARIANT_EDGES)
 def test_cuda_fused_variants_match_plain(cuda_device, b, d, m):
     """Kernels 8 (every variant) and 9 against their plain versions on the
-    same card tensors (the sweep's inputs), both float32: 1e-4 of each
-    output's largest entry; one launch each.  B=300 and B=65 leave a ragged
-    last tile, whose rows the plain versions do not have; D=44 at M=128 is
-    the largest fused_fits shape."""
+    same card tensors (the sweep's inputs), against the plain version in
+    float64 within FLOAT32_FACTOR times the float32 plain version's own
+    error or 1e-4 of each output's largest entry, whichever is larger (at
+    these 8-D shapes the float32 plain version is within ~1e-6); one
+    launch each; a second call bit-equal.  B=300, 65, 70 and others leave
+    a ragged last tile, whose rows the plain versions do not have."""
     from agp_tpu_torch import bench
     from agp_tpu_torch.benchmarks import fused_variants as fv
 
     t = bench.sweep_inputs(b, d, m, cuda_device)
+    t64 = smoke.to_float64(t)
     for label, (kern, plain, kw) in smoke.variant_kernels(fv).items():
         before = kern.launches
         got = smoke.sweep_call(kern, t, **kw)
         torch.cuda.synchronize()
         assert kern.launches == before + 1
-        smoke.check_outputs(f"{label} B={b} D={d} M={m}", smoke.STATS_NAMES, got, smoke.sweep_call(plain, t, **kw))
+        smoke.check_outputs(f"{label} B={b} D={d} M={m}", smoke.STATS_NAMES, got, smoke.sweep_call(plain, t, **kw),
+                            smoke.sweep_call(plain, t64, **kw))
+        smoke.check_repeat(label, lambda: smoke.sweep_call(kern, t, **kw), got)
 
 
 @pytest.mark.cuda
-def test_cuda_fused_variants_ill_conditioned(cuda_device):
-    """Kernels 1, 8 and 9 at the oracle shape (B=8192, D=2, M=128,
-    lengthscale 1), Sigma = 0: each output against its plain version in
-    float64 within FLOAT32_FACTOR times the float32 plain version's own
-    error (chip_smoke.check_outputs)."""
+@pytest.mark.parametrize("m", [smoke.OM, smoke.PM])
+def test_cuda_fused_variants_ill_conditioned(cuda_device, m):
+    """Kernels 8 (every variant) and 9 (and kernel 1 at M=128) at the
+    oracle shapes (B=8192, D=2, M=128 or 512, lengthscale 1), Sigma = 0:
+    each output against its plain version in float64 within FLOAT32_FACTOR
+    times the float32 plain version's own error, with no floor for kernels
+    8-9 (chip_smoke.check_outputs)."""
     from agp_tpu_torch.benchmarks import fused_variants as fv
 
-    t = smoke.ill_conditioned_inputs(agt, cuda_device)
-    for fn, plain, kw in ((ck.fused_cavi_stats, ck.fused_cavi_stats_reference, {"kind": "rbf", "lik": "logistic"}),
-                          (fv.direct_stats, fv.direct_stats_reference, {"variant": "packed"}),
-                          (fv.two_factor_nt, fv.two_factor_nt_reference, {})):
+    t = smoke.ill_conditioned_inputs(agt, cuda_device, m)
+    cases = [(fn, plain, kw, 0.0) for fn, plain, kw in smoke.variant_kernels(fv).values()]
+    if m == smoke.OM:
+        cases.append((ck.fused_cavi_stats, ck.fused_cavi_stats_reference, {"kind": "rbf", "lik": "logistic"},
+                      smoke.KERNEL_TOL))
+    for fn, plain, kw, floor in cases:
         got = smoke.ill_call(fn, t, **kw)
         torch.cuda.synchronize()
-        smoke.check_outputs(fn.__name__, smoke.STATS_NAMES, got, smoke.ill_call(plain, t, **kw),
-                            smoke.ill_call(plain, smoke.to_float64(t), **kw))
+        smoke.check_outputs(f"{fn.__name__} {kw} M={m}", smoke.STATS_NAMES, got, smoke.ill_call(plain, t, **kw),
+                            smoke.ill_call(plain, smoke.to_float64(t), **kw), floor=floor)
 
 
 @pytest.mark.cuda
 def test_cuda_fused_variants_raise(cuda_device):
-    """On a CUDA tensor kernels 8-9 launch or raise: float64, M beyond
-    fused_fits, a wrong shape, an unknown variant."""
+    """On a CUDA tensor kernels 8-9 launch or raise: float64, M one past
+    the largest their row tiles take (variant_max_m, 2,392 on an H100), a
+    wrong shape, an unknown variant."""
     from agp_tpu_torch import bench
     from agp_tpu_torch.benchmarks import fused_variants as fv
 
@@ -651,10 +670,12 @@ def test_cuda_fused_variants_raise(cuda_device):
     before = (fv.direct_stats.launches, fv.two_factor_nt.launches)
     with pytest.raises(TypeError):
         smoke.sweep_call(fv.direct_stats, {**t, "X": t["X"].double()})
-    with pytest.raises(ValueError, match="fused_fits"):
-        smoke.sweep_call(fv.two_factor_nt, bench.sweep_inputs(64, 4, ck.MAX_M + 1, cuda_device))
-    with pytest.raises(ValueError, match="fused_fits"):
-        smoke.sweep_call(fv.direct_stats, bench.sweep_inputs(64, 45, 128, cuda_device))
+    edge = fv.variant_max_m(fv._smem_limit(cuda_device.index or 0))
+    assert edge == 2392
+    big = bench.sweep_inputs(8, 2, edge + 1, cuda_device)
+    for kern, kw in ((fv.two_factor_nt, {}), (fv.direct_stats, {"variant": "packed"})):
+        with pytest.raises(ValueError, match=f"M <= {edge}"):
+            smoke.sweep_call(kern, big, **kw)
     with pytest.raises(ValueError):
         smoke.sweep_call(fv.two_factor_nt, {**t, "y": t["y"][:10]})
     with pytest.raises(ValueError, match="variants"):

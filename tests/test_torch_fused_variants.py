@@ -34,18 +34,18 @@ def reference_module():
 REF = reference_module()
 
 
-def inputs(b=B, seed=0):
+def inputs(b=B, seed=0, m=M, d=D):
     """Float32 numpy inputs as the sweep makes them (X, Z standard normal, y
     +-1, mu normal) with a random SPD Sigma and L^-T of the RBF Kmm + 1e-3 I
     (well conditioned), made in float64."""
     rng = np.random.default_rng(seed)
-    X, Z = rng.normal(size=(b, D)), rng.normal(size=(M, D))
-    A = rng.normal(size=(M, M))
+    X, Z = rng.normal(size=(b, d)), rng.normal(size=(m, d))
+    A = rng.normal(size=(m, m))
     zs = Z / LS
-    Kzz = VAR * np.exp(-0.5 * ((zs[:, None, :] - zs[None, :, :]) ** 2).sum(-1)) + 1e-3 * np.eye(M)
+    Kzz = VAR * np.exp(-0.5 * ((zs[:, None, :] - zs[None, :, :]) ** 2).sum(-1)) + 1e-3 * np.eye(m)
     Linv = np.linalg.inv(np.linalg.cholesky(Kzz))
-    a = dict(X=X, y=np.where(rng.normal(size=b) > 0, 1.0, -1.0), Z=Z, L_invT=Linv.T, mu=rng.normal(size=M),
-             Sigma=A @ A.T / M + np.eye(M))
+    a = dict(X=X, y=np.where(rng.normal(size=b) > 0, 1.0, -1.0), Z=Z, L_invT=Linv.T, mu=rng.normal(size=m),
+             Sigma=A @ A.T / m + np.eye(m))
     return {k: v.astype(np.float32) for k, v in a.items()}
 
 
@@ -90,6 +90,17 @@ def test_two_factor_plain_matches_pallas_interpret():
     a = inputs(seed=1)
     ref = pallas(REF.two_factor_nt, a, tile_b=TILE_B)
     assert_close(port(fv.two_factor_nt, a, tile_b=TILE_B), ref, INTERPRET_TOL)
+
+
+@pytest.mark.parametrize("fn,kw", [(fv.direct_stats, {"variant": v}) for v in fv.VARIANTS] + [(fv.two_factor_nt, {})])
+def test_plain_matches_pallas_interpret_past_m128(fn, kw):
+    """The plain versions at M=256, the range the CUDA kernels reach since
+    they stream K^-1 (L^-T) and Sigma from L2 (the reference sweep's M=256
+    row, D=8), against the reference's Pallas kernel in TPU interpret mode
+    at B=128 with tile_b=64 (no padding)."""
+    a = inputs(b=128, seed=7, m=256, d=8)
+    ref = pallas(getattr(REF, fn.__name__), a, tile_b=64, **kw)
+    assert_close(port(fn, a, tile_b=64, **kw), ref, INTERPRET_TOL)
 
 
 def numpy_xla_stats(X, y, Z, Kinv, mu, Sigma, ls, var, rho, jitt=1e-4):
@@ -180,7 +191,9 @@ def test_unknown_variant_raises():
 
 def test_cuda_argument_checks():
     """What the CUDA kernels do not take is refused before the library is
-    loaded: float64, a wrong shape, M beyond fused_fits."""
+    loaded: float64, a wrong shape, M one past the largest the kernels'
+    row tiles take (variant_max_m: 2,392 within an H100's 232,448 bytes a
+    block, every form alike; before, fused_fits' M <= 128)."""
     def launch(a, form="direct", dtype=torch.float32, **over):
         t = {k: torch.as_tensor(a[k], dtype=dtype) for k in KEYS}
         t.update(over)
@@ -193,10 +206,13 @@ def test_cuda_argument_checks():
         launch(a, y=torch.zeros(10))
     with pytest.raises(ValueError):
         launch(a, form="two_factor", Sigma=torch.zeros((M, M)).T)
+    edge = fv.variant_max_m()
+    assert edge == 2392
     rng = np.random.default_rng(6)
     big = {k: rng.normal(size=s).astype(np.float32) for k, s in (
-        ("X", (8, D)), ("y", (8,)), ("Z", (ck.MAX_M + 1, D)), ("L_invT", (ck.MAX_M + 1,) * 2), ("mu", (ck.MAX_M + 1,)),
-        ("Sigma", (ck.MAX_M + 1,) * 2))}
-    with pytest.raises(ValueError, match="fused_fits"):
-        launch(big)
+        ("X", (8, D)), ("y", (8,)), ("Z", (edge + 1, D)), ("L_invT", (edge + 1,) * 2), ("mu", (edge + 1,)),
+        ("Sigma", (edge + 1,) * 2))}
+    for form in ("direct", "packed", "two_factor"):
+        with pytest.raises(ValueError, match=f"M <= {edge}"):
+            launch(big, form=form)
     assert not ck.fused_fits(1, 45, 128) and ck.fused_fits(1, 8, 128)

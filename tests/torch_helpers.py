@@ -317,16 +317,24 @@ def tf32_product(a, b, passes=3):
     split into hi = tf32(x) (to nearest, ``tf32_round``) and lo = x - hi,
     which the mma reads truncated (``tf32_truncate``);
     (a_lo b_hi + a_hi b_lo) + a_hi b_hi with passes=3, a_hi b_hi alone with
-    passes=1.  A product of two TF32 values is exact in float32.  Each pass
-    is one float32 matmul rounded to nearest: this models the split, not
-    the order in which the kernels add, nor the tensor cores' truncating
-    alignment."""
+    passes=1.  With passes=4 b splits in three as kernel 9's W product
+    splits L^-T (``split3_tf32``): r = b - b_hi, b_mid = tf32_truncate(r),
+    b_lo = tf32_truncate(r - b_mid), and ((a_hi b_lo + a_lo b_hi) +
+    a_hi b_mid) + a_hi b_hi.  A product of two TF32 values is exact in
+    float32.  Each pass is one float32 matmul rounded to nearest: this
+    models the split, not the order in which the kernels add, nor the
+    tensor cores' truncating alignment."""
     a, b = a.to(torch.float32), b.to(torch.float32)
     a_hi, b_hi = tf32_round(a), tf32_round(b)
     out = a_hi @ b_hi
     if passes == 3:
         a_lo, b_lo = tf32_truncate(a - a_hi), tf32_truncate(b - b_hi)
         out = (a_lo @ b_hi + a_hi @ b_lo) + out
+    elif passes == 4:
+        a_lo, r = tf32_truncate(a - a_hi), b - b_hi
+        b_mid = tf32_truncate(r)
+        b_lo = tf32_truncate(r - b_mid)
+        out = ((a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_mid) + out
     return out
 
 
@@ -344,3 +352,27 @@ def kappa_tf32(knm, kinv, passes=3):
     and 6 form it on the tensor cores (``tf32_product``); kernel 4 forms
     kappa Sigma the same way, its A operand the float32 kappa."""
     return tf32_product(knm, kinv, passes)
+
+
+def two_factor_tf32(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, w_passes=4, passes=3):
+    """Kernel 9's function (``two_factor_nt_reference``) on float32 inputs
+    with its products as the kernel forms them on the tensor cores
+    (``tf32_product``): W = Knm L^-T in ``w_passes`` passes (the kernel's
+    4: L^-T split in three), kappa = W L^-1 and kappa Sigma in ``passes``,
+    S2 by ``stats_tf32``; the gram, Ktilde's and vf's row sums, mf = kappa
+    mu and the E-step in float32, as the kernel's FP32 epilogues.  Returns
+    (s1, S2, c, theta, mf, vf)."""
+    from agp_tpu_torch.ops import cuda_kernels as ck
+
+    xb, Z, L_invT, mu, Sigma = (t.to(torch.float32) for t in (xb, Z, L_invT, mu, Sigma))
+    var_t = torch.full((1,), float(var))
+    knm = ck._gram_from_r2(ck._sq_dist_chunked((xb / ls)[None], (Z / ls)[None]), var_t[:, None, None], "rbf")[0]
+    W = tf32_product(knm, L_invT, w_passes)
+    ktilde = torch.clamp(var + jitt - torch.sum(W * W, dim=-1), min=1e-12)
+    kappa = tf32_product(W, L_invT.T.contiguous(), passes)
+    mf = kappa @ mu
+    vf = torch.clamp(ktilde + torch.sum(tf32_product(kappa, Sigma, passes) * kappa, dim=-1), min=1e-12)
+    c = torch.sqrt(mf * mf + vf)
+    theta = torch.tanh(c / 2.0) / (2.0 * c)
+    s1, S2 = stats_tf32(kappa, rho * yb.to(torch.float32) / 2.0, rho * theta / 2.0, passes)
+    return s1, S2, c, theta, mf, vf
