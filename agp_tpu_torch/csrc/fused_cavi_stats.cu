@@ -1,9 +1,10 @@
-// Fused single-latent CAVI statistics for Hopper (sm_90a): the four
-// stationary gram kinds and the E-steps of eight likelihoods.
+// Fused single-latent CAVI statistics for Hopper (sm_90a), kernel 1 of the
+// port: the four stationary gram kinds and the E-steps of eight likelihoods.
 //
-// Replaces: agp_tpu/ops/pallas_kernels.py, fused_cavi_stats and its body
-// _cavi_fused_kernel (every kind and lik it takes).  It computes the same
-// function, one pass per tile of TB minibatch rows:
+// Replaces: agp_tpu/ops/pallas_kernels.py, fused_cavi_stats (:750,
+// pallas_call at :784) and its body _cavi_fused_kernel (:578), every kind
+// and lik it takes.  It computes the same function, for each minibatch
+// row t:
 //   gram     Knm[t, m]  = k(|x_t/ls - z_m/ls|^2)  (gram.cuh: rbf, matern12/32/52)
 //   kappa    kappa[t,:] = Knm[t,:] K^-1
 //   Ktilde   kt[t]      = max(var + jitter - sum_m kappa[t,m] Knm[t,m], 1e-12)
@@ -11,52 +12,64 @@
 //            vf[t]      = max(kt[t] + kappa[t,:] Sigma kappa[t,:]^T, 1e-12)
 //   E-step   (c, theta, g_mu, g_s) of the row's likelihood (estep below)
 //   stats    s1 = kappa^T (rho g_mu),  S2 = kappa^T diag(rho g_s) kappa
-// The minibatch tile is read from device memory once; Knm, kappa and
-// kappa Sigma never leave shared memory.
 //
-// Design, against the TPU kernel:
-// * The TPU grid is a sequential loop that accumulates s1/S2 into one
-//   resident block.  CUDA blocks run in parallel, so each block writes its
-//   partial s1 [M] and S2 [M, M] to scratch and a second kernel sums the
-//   partials in block order: deterministic, no atomics (block_sums.cuh).
-// * The ragged last tile is masked here, from B: rows past B load as zeros
-//   and get zero weight in s1/S2; their per-row outputs are not written.
-// * FP32 FMA throughout, no TF32 and no tensor cores.  The gram uses the
-//   direct form sum_d (x_d - z_d)^2, which does not cancel the way
-//   |x|^2 + |z|^2 - 2 x.z does; kappa = Knm K^-1 (which cancels by
-//   cond(Kmm)) is a full-FP32 dot.  The TPU's [M, TB] lane layout and its
-//   bf16-split dots exist for the MXU and are not carried over.
-// * The gram kind is a template parameter (it sits in the TB x M loop);
-//   the likelihood is a runtime switch, taken once per row by one lane,
-//   the same for the whole grid.  The E-step lives in registers, so the
-//   shared memory does not depend on the likelihood.
-// * Scalars come in one device buffer (ls, var, jitter, rho, p0, p1); the
-//   host never reads them, so the Poisson rate p0 can change every step.
-// * K^-1 (formed once per call by the wrapper), Sigma, mu, Z and the
-//   [TB, M] gram and kappa tiles are resident in shared memory:
-//   4 (TB D + M (D|1) + 2 M^2 + M + 2 TB M + 4 TB) bytes, 75 KB at
-//   M=64, D=20 and 209 KB at M=128, D=20 (the wrapper refuses M > 128 and
-//   any shape above the card's opt-in limit).
+// What bounds it on an H100: operations.  Per row M^2 FMAs for kappa, the
+// quadratic form's and S2's M (M+1)/2 each and M D for the gram, against
+// ~4 (D + 5) bytes a row.  At the sweep's row B=262,144, D=8, M=128
+// (chip_smoke.py::fused_bound): the function's bound, its products once at
+// the TF32 tensor-core peak (495 TFLOP/s) and the gram and row sums at the
+// FP32 one (67), 0.035 ms; this design's, kappa and kappa Sigma in full and
+// S2's upper triangle in three TF32 passes, 0.130 ms; the FP32 pipes',
+// 0.270 ms.  The FP32 pipes cannot get near the function's bound; the
+// TF32 tensor cores can, in three passes as close to float64 as FP32.
 //
-// What bounds it on an H100: per row it does ~3 M^2 FMAs (kappa, kappa
-// Sigma, S2) against ~4 (D + 1) bytes read, so it is bound by FP32 issue
-// and shared-memory bandwidth, not by device memory; the E-step is O(1)
-// transcendental work per row beside it, and a Matern kind adds one sqrtf
-// per gram entry.  One block per TB=64 rows gives B/64 blocks (64 at the
-// flagship B=4096) on 132 SMs, so at most about half the card is busy; the
-// low occupancy is recorded and left to later work.
+// Design: kernel 8's (fused_variants.cu, direct form) with the kinds and
+// the likelihoods, from the parts of kernels 4-9 (pair_core.cuh,
+// stats_tc.cuh, tf32_mma.cuh):
+// * cavi_rows, one block a tile of 64 rows, 2 x 4 warps of 32 x 32 over one
+//   128-column output tile, so that every M kernel 1 takes (M <= MAX_M =
+//   128) is one output tile and two blocks share an SM:
+//   - gram_into_slab: the kind's FP32 gram by direct differences into a
+//     [64, M] slab, features staged in chunks, so D bounds no shared
+//     memory; x / ls and z / ls as products with 1 / ls (ls [D]: the
+//     wrapper repeats the scalar lengthscale);
+//   - tc_product: kappa = G K^-1 (K^-1 = L^-T L^-1 formed by the wrapper, as
+//     the reference's _kinv) in 3xTF32 mma.sync (each operand split into hi
+//     and lo, each 8-deep step's three passes from a zero accumulator, then
+//     added in FP32), K^-1 streamed from L2 through a cp.async ring; the
+//     epilogue takes Ktilde's row sums against the gram slab and
+//     mf = kappa mu in FP32 and stores kappa to a [B, M] scratch;
+//   - kappa back into the slab (load_rows), then kappa Sigma the same way,
+//     contracted with the slab in the epilogue for vf's quadratic form;
+//   - the row sums by shuffles and one slot a warp column, in a fixed
+//     order; then one thread a row runs the likelihood's E-step (a switch
+//     taken the same way by the whole grid) and writes c, theta, mf, vf
+//     and the statistics' weights rho g_mu and rho g_s.
+// * stats_tc + sum_tiles (kernels 5 and 7's device code, one latent): S2's
+//   upper triangle in 3xTF32 and s1 in FP32 from the kappa scratch and the
+//   weights, chunk partials added in a fixed order: no atomics, S2 exactly
+//   symmetric, two calls bit-equal.  The scratch's round trip is
+//   2 x 4 B M bytes, 0.08 ms at the sweep's row.
+// * The ragged last tile is masked here, from B: rows past B load as zeros,
+//   get no weight in s1/S2 and are not written.
+// * Scalars come in one device buffer (layout at agp_fused_cavi_stats); the
+//   host never reads them, so the Poisson rate p0 and an Adam-updated
+//   lengthscale can change every step.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
-#include "block_sums.cuh"
-#include "gram.cuh"
+#include "pair_core.cuh"
 
 namespace {
 
-constexpr int TB = 64;  // minibatch rows per block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+// 64 rows by one output tile of 128 columns: 2 x 4 warps of 32 x 32
+using Tile = TileShape<64, 2, 4, 2, 4, 16>;
+constexpr int MAX_M = Tile::NT;  // MAX_M in ops/cuda_kernels.py
+// params layout: jitter, rho, p0, var, p1, ls [D] (P_JITT and P_VAR as
+// pair_core.cuh's)
+constexpr int P_RHO = 1, P_P0 = 2, P_P1 = 4, P_LS = 5;
 constexpr float LOG2F = 0.6931471805599453f;
 constexpr float SQRT3F = 1.7320508075688772f;
 
@@ -140,198 +153,129 @@ __device__ inline RowStep estep(int lik, float mf, float vf, float y, float p0, 
   return r;
 }
 
-// odd row stride for Z in shared memory: column reads across a warp hit
-// distinct banks
-__host__ __device__ inline int z_stride(int D) { return D | 1; }
-
-// fused_fits in ops/cuda_kernels.py copies this footprint and TB, so that
-// the CPU and the card dispatch alike: change both together (chip_smoke.py's
-// check_fused_fits holds them against each other)
-size_t smem_bytes(int D, int M) {
-  size_t f = (size_t)TB * D + (size_t)M * z_stride(D) + 2 * (size_t)M * M + M +
-             2 * (size_t)TB * M + 4 * TB;
-  return f * sizeof(float);
+// The slab [TB, S] (the gram, then kappa), the scratch (the ring, or the
+// gram's staging) and the row sums [3, WARPS_N, TB]; D does not enter.
+// ops/cuda_kernels.py::fused_fits copies it: change both together
+// (chip_smoke.py's check_fused_fits holds them against each other).
+__host__ __device__ constexpr size_t rows_smem(int M) {
+  return sizeof(float) *
+         ((size_t)Tile::TB * slab_stride(M) + slab_scratch<Tile>(M) + 3 * (size_t)Tile::WARPS_N * Tile::TB);
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-cavi_stats(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
-           const float* __restrict__ kinv, const float* __restrict__ mu,
-           const float* __restrict__ sigma, const float* __restrict__ params,
-           float* __restrict__ c_out, float* __restrict__ theta_out, float* __restrict__ mf_out,
-           float* __restrict__ vf_out, float* __restrict__ s1_part, float* __restrict__ s2_part,
-           int B, int D, int M, int lik) {
-  extern __shared__ float sm[];
-  const int Dz = z_stride(D);
-  float* xs = sm;              // [TB, D]   x / ls
-  float* zs = xs + TB * D;     // [M, Dz]   z / ls
-  float* ki = zs + M * Dz;     // [M, M]    K^-1
-  float* sg = ki + M * M;      // [M, M]    Sigma
-  float* mus = sg + M * M;     // [M]       mu
-  float* G = mus + M;          // [TB, M]   gram, later kappa Sigma
-  float* Kp = G + TB * M;      // [TB, M]   kappa
-  float* kt = Kp + TB * M;     // [TB]      Ktilde
-  float* mfs = kt + TB;        // [TB]      mf
-  float* wg = mfs + TB;        // [TB]      rho g_mu, 0 past B
-  float* ws = wg + TB;         // [TB]      rho g_s, 0 past B
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+// One block a tile of TB rows: the gram, kappa, the moments and the
+// likelihood's E-step, then the statistics' weights.  vec: 16-byte copies
+// of K^-1 and kappa's rows; vec_s: of Sigma.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 2)
+cavi_rows(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
+          const float* __restrict__ kinv, const float* __restrict__ mu, const float* __restrict__ sigma,
+          const float* __restrict__ params, float* __restrict__ kappa, float* __restrict__ c_out,
+          float* __restrict__ theta_out, float* __restrict__ mf_out, float* __restrict__ vf_out,
+          float* __restrict__ wg, float* __restrict__ ws, int B, int D, int M, int kind, int lik, bool vec,
+          bool vec_s) {
+  constexpr int TB = C::TB;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int S = slab_stride(M);
+  float* G = sm;                           // [TB, S]  the gram, then kappa; zero past M
+  float* ring = G + TB * S;                // the ring; x / ls and z / ls while the gram forms
+  float* red = ring + slab_scratch<C>(M);  // [3, WARPS_N, TB]  row sums: Ktilde, mf, vf
   const int row0 = blockIdx.x * TB;
   const int nrows = min(TB, B - row0);
-  const float ls = params[0], var = params[1], jitt = params[2], rho = params[3];
-  const float p0 = params[4], p1 = params[5];
+  const float var = params[P_VAR];
 
-  for (int i = tid; i < TB * D; i += THREADS) {
-    const int t = i / D;
-    xs[i] = t < nrows ? x[(size_t)row0 * D + i] / ls : 0.0f;
-  }
-  for (int i = tid; i < M * D; i += THREADS) zs[(i / D) * Dz + i % D] = z[i] / ls;
-  for (int i = tid; i < M * M; i += THREADS) {
-    ki[i] = kinv[i];
-    sg[i] = sigma[i];
-  }
-  for (int i = tid; i < M; i += THREADS) mus[i] = mu[i];
-  __syncthreads();
+  gram_into_slab<C>(kind, x, z, params + P_LS, var, G, S, ring, row0, nrows, D, M);
 
-  // gram, direct form
-  for (int i = tid; i < TB * M; i += THREADS) {
-    const float* xr = xs + (i / M) * D;
-    const float* zr = zs + (i % M) * Dz;
-    float r2 = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float df = xr[d] - zr[d];
-      r2 = fmaf(df, df, r2);
-    }
-    G[i] = gram_from_r2<KIND>(r2, var);
-  }
-  __syncthreads();
-
-  // kappa = Knm K^-1
-  for (int i = tid; i < TB * M; i += THREADS) {
-    const float* gr = G + (i / M) * M;
-    const int n = i % M;
-    float acc = 0.0f;
-    for (int m = 0; m < M; ++m) acc = fmaf(gr[m], ki[m * M + n], acc);
-    Kp[i] = acc;
-  }
-  __syncthreads();
-
-  // per row: Ktilde and mf, one warp per row
-  for (int t = warp; t < TB; t += WARPS) {
-    float q = 0.0f, m1 = 0.0f;
-    for (int n = lane; n < M; n += 32) {
-      const float k = Kp[t * M + n];
-      q = fmaf(k, G[t * M + n], q);
-      m1 = fmaf(k, mus[n], m1);
-    }
-    q = warp_sum(q);
-    m1 = warp_sum(m1);
-    if (lane == 0) {
-      kt[t] = fmaxf(var + jitt - q, 1e-12f);
-      mfs[t] = m1;
-    }
-  }
-  __syncthreads();
-
-  // kappa Sigma, over the gram tile (no longer needed)
-  for (int i = tid; i < TB * M; i += THREADS) {
-    const float* kr = Kp + (i / M) * M;
-    const int n = i % M;
-    float acc = 0.0f;
-    for (int m = 0; m < M; ++m) acc = fmaf(kr[m], sg[m * M + n], acc);
-    G[i] = acc;
-  }
-  __syncthreads();
-
-  // per row: vf and the likelihood's E-step
-  for (int t = warp; t < TB; t += WARPS) {
-    float q = 0.0f;
-    for (int n = lane; n < M; n += 32) q = fmaf(G[t * M + n], Kp[t * M + n], q);
-    q = warp_sum(q);
-    if (lane == 0) {
-      float wgt = 0.0f, wst = 0.0f;
-      if (t < nrows) {
-        const int r = row0 + t;
-        const float mf = mfs[t];
-        const float vf = fmaxf(kt[t] + q, 1e-12f);
-        const RowStep e = estep(lik, mf, vf, y[r], p0, p1);
-        c_out[r] = e.c;
-        theta_out[r] = e.theta;
-        mf_out[r] = mf;
-        vf_out[r] = vf;
-        wgt = rho * e.gmu;
-        wst = rho * e.gs;
+  float kq[C::MI][2] = {}, mq[C::MI][2] = {}, vq[C::MI][2] = {};
+  float* out = kappa + (size_t)row0 * M;
+  // kappa = G K^-1; Ktilde's row sums and mf in the epilogue, kappa stored
+  tc_product<C>(G, S, kinv, M, ring, vec, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
+    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
+      if (col < M) {
+        kq[mi][h] = fmaf(v0, G[row * S + col], kq[mi][h]);
+        mq[mi][h] = fmaf(v0, __ldg(mu + col), mq[mi][h]);
       }
-      wg[t] = wgt;
-      ws[t] = wst;
-    }
-  }
+      if (col + 1 < M) {
+        kq[mi][h] = fmaf(v1, G[row * S + col + 1], kq[mi][h]);
+        mq[mi][h] = fmaf(v1, __ldg(mu + col + 1), mq[mi][h]);
+      }
+      store_pair(out, M, nrows, row, col, v0, v1);
+    });
+  });
+  // The gram is spent: the rows just written (tc_product ends with a
+  // barrier), still in L2, come back into the slab in its place (its
+  // columns [M, mk) stay zero).
+  load_rows<C>(G, S, out, M, nrows, vec);
+  // kappa Sigma, contracted with the kappa slab in the epilogue
+  tc_product<C>(G, S, sigma, M, ring, vec_s, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
+    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
+      if (col < M) vq[mi][h] = fmaf(v0, G[row * S + col], vq[mi][h]);
+      if (col + 1 < M) vq[mi][h] = fmaf(v1, G[row * S + col + 1], vq[mi][h]);
+    });
+  });
+  constexpr int R = C::WARPS_N * TB;
+  row_partials<C>(kq, red);
+  row_partials<C>(mq, red + R);
+  row_partials<C>(vq, red + 2 * R);
   __syncthreads();
-
-  // this block's partial statistics
-  float* s1p = s1_part + (size_t)blockIdx.x * M;
-  float* s2p = s2_part + (size_t)blockIdx.x * M * M;
-  for (int m = tid; m < M; m += THREADS) {
-    float acc = 0.0f;
-    for (int t = 0; t < TB; ++t) acc = fmaf(Kp[t * M + m], wg[t], acc);
-    s1p[m] = acc;
+  const float jitt = params[P_JITT], rho = params[P_RHO], p0 = params[P_P0], p1 = params[P_P1];
+  for (int t = threadIdx.x; t < nrows; t += C::THREADS) {
+    const int r = row0 + t;
+    const float kt = fmaxf(var + jitt - row_total<C>(red, t), 1e-12f);
+    const float mf = row_total<C>(red + R, t);
+    const float vf = fmaxf(kt + row_total<C>(red + 2 * R, t), 1e-12f);
+    const RowStep e = estep(lik, mf, vf, y[r], p0, p1);
+    c_out[r] = e.c;
+    theta_out[r] = e.theta;
+    mf_out[r] = mf;
+    vf_out[r] = vf;
+    wg[r] = rho * e.gmu;
+    ws[r] = rho * e.gs;
   }
-  for (int i = tid; i < M * M; i += THREADS) {
-    const int m = i / M, n = i % M;
-    float acc = 0.0f;
-    for (int t = 0; t < TB; ++t) acc = fmaf(Kp[t * M + m] * ws[t], Kp[t * M + n], acc);
-    s2p[i] = acc;
-  }
-}
-
-template <int KIND>
-int launch(const float* x, const float* y, const float* z, const float* kinv, const float* mu,
-           const float* sigma, const float* params, float* c, float* theta, float* mf, float* vf,
-           float* s1_part, float* s2_part, float* s1, float* s2, int B, int D, int M, int lik,
-           cudaStream_t st) {
-  const int nb = (B + TB - 1) / TB;
-  const size_t smem = smem_bytes(D, M);
-  cudaError_t err = cudaFuncSetAttribute(cavi_stats<KIND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cavi_stats<KIND><<<nb, THREADS, smem, st>>>(x, y, z, kinv, mu, sigma, params, c, theta, mf, vf,
-                                              s1_part, s2_part, B, D, M, lik);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_sum_partials(s1_part, s2_part, s1, s2, nb, M, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-int agp_fused_cavi_tile_rows(void) { return TB; }
-
-size_t agp_fused_cavi_smem_bytes(int D, int M) { return smem_bytes(D, M); }
+// The shared memory of kernel 1's row kernel at M (1 <= M <= MAX_M; any
+// D).  ops/cuda_kernels.py::fused_fits is its copy in Python.
+size_t agp_fused_cavi_smem_bytes(int M) { return rows_smem(M); }
 
 const char* agp_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // All pointers are device pointers to contiguous float32 arrays:
-// x [B, D], y [B], z [M, D], kinv [M, M], mu [M], sigma [M, M],
-// params [6] = (lengthscale, variance, jitter, rho, p0, p1); outputs c,
-// theta, mf, vf [B], s1 [M], s2 [M, M]; scratch s1_part [nb, M],
-// s2_part [nb, M, M] with nb = ceil(B / TB).  kind: a GramKind code, lik:
-// a Lik code.  Returns the CUDA error of the launches
-// (cudaErrorInvalidValue for an unknown kind or likelihood).
-int agp_fused_cavi_stats(const float* x, const float* y, const float* z, const float* kinv,
-                         const float* mu, const float* sigma, const float* params, float* c,
-                         float* theta, float* mf, float* vf, float* s1_part, float* s2_part,
-                         float* s1, float* s2, int B, int D, int M, int kind, int lik,
-                         void* stream) {
-  if (lik < 0 || lik >= N_LIKS) return (int)cudaErrorInvalidValue;
+// x [B, D], y [B], z [M, D], kinv [M, M] (K^-1), mu [M], sigma [M, M],
+// params [5 + D] = (jitter, rho, p0, var, p1, ls [D]) with (p0, p1) the
+// likelihood's parameters; outputs c, theta, mf, vf [B], s1 [M], s2 [M, M];
+// scratch kappa [B, M] (16-byte aligned for 16-byte copies), wg, ws [B],
+// s1_part [nchunks, M], s2_part [nchunks, M, M] with nchunks =
+// ceil(B / rows_per_chunk), rows_per_chunk a multiple of stats_tc.cuh's KB
+// (ops/cuda_kernels.py::_stats_plan).  kind: a GramKind code, lik: a Lik
+// code, 1 <= M <= MAX_M.  Three launches on `stream` (cavi_rows,
+// stats_tc, sum_tiles); returns the CUDA error of the launches
+// (cudaErrorInvalidValue for an unknown kind or likelihood, or M out of
+// range).
+int agp_fused_cavi_stats(const float* x, const float* y, const float* z, const float* kinv, const float* mu,
+                         const float* sigma, const float* params, float* c, float* theta, float* mf, float* vf,
+                         float* kappa, float* wg, float* ws, float* s1_part, float* s2_part, float* s1, float* s2,
+                         int B, int D, int M, int kind, int lik, int nchunks, int rows_per_chunk, void* stream) {
+  if (lik < 0 || lik >= N_LIKS || kind < KIND_RBF || kind > KIND_MATERN52 || M < 1 || M > MAX_M)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_kind(kind, [&](auto k) {
-    return launch<decltype(k)::value>(x, y, z, kinv, mu, sigma, params, c, theta, mf, vf, s1_part,
-                                      s2_part, s1, s2, B, D, M, lik, st);
-  });
+  const size_t smem = rows_smem(M);
+  cudaError_t err = prepare_smem<&cavi_rows<Tile>>(smem);  // two blocks an SM
+  if (err != cudaSuccess) return (int)err;
+  auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = M % 4 == 0 && aligned(kinv) && aligned(kappa);
+  const bool vec_s = M % 4 == 0 && aligned(sigma);
+  cavi_rows<Tile><<<(B + Tile::TB - 1) / Tile::TB, Tile::THREADS, smem, st>>>(
+      x, y, z, kinv, mu, sigma, params, kappa, c, theta, mf, vf, wg, ws, B, D, M, kind, lik, vec, vec_s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_stats(kappa, wg, ws, s1_part, s2_part, s1, s2, B, M, 1, nchunks, rows_per_chunk, st);
 }
 
 }  // extern "C"

@@ -5,10 +5,10 @@
 //
 // r2 = |x/ls - z/ls|^2 comes in the direct form sum_d (x_d - z_d)^2, which
 // does not cancel; each Matern sqrt takes max(., 1e-36) as the reference
-// does.  In kernels 1-3 the kind sits in the innermost TB x M loop, so it
+// does.  In kernels 2-3 the kind sits in the innermost TB x M loop, so it
 // is a compile-time parameter there: one instantiation per kind, chosen on
-// the host by with_kind.  Kernels 4, 6, 8 and 9 apply the formula once an
-// entry, after its r2 sum (pair_core.cuh::gram_slab), so they take the
+// the host by with_kind.  Kernels 1, 4, 6, 8 and 9 apply the formula once
+// an entry, after its r2 sum (pair_core.cuh::gram_slab), so they take the
 // kind at run time (gram_from_r2_of, a branch uniform across the block;
 // kernels 8-9 take the RBF gram only).
 #pragma once

@@ -3,8 +3,8 @@
 //   * the row tile's gram, FP32, into a [TB, M] slab of shared memory
 //     (gram_slab), and the product of a [TB, M] slab with an [M, N] matrix
 //     streamed from device memory (L2) on the tensor cores in 3xTF32
-//     (tc_product): kappa = Knm K^-1 in kernels 4, 6 and 8, kappa Sigma in
-//     kernels 4 and 8 (kappa copied back into the slab, load_rows), and
+//     (tc_product): kappa = Knm K^-1 in kernels 1, 4, 6 and 8, kappa Sigma
+//     in kernels 1, 4 and 8 (kappa copied back into the slab, load_rows), and
 //     kernel 9's W = Knm L^-T and kappa = W L^-1; each calls back an
 //     epilogue once a column tile of the output is complete, in registers
 //     (mma fragments);
@@ -12,9 +12,10 @@
 //     S2 = kappa^T diag(theta) kappa of kernels 5 and 7.
 // The split, the mma and the copies are tf32_mma.cuh's.  See
 // kappa_single.cu for what bounds kernels 4 and 6 on an H100 and why they
-// may use the tensor cores; fused_variants.cu (kernels 8-9) runs the same
-// parts.  Everything is in an anonymous namespace: each
-// source that includes this header compiles its own copy.
+// may use the tensor cores; fused_variants.cu (kernels 8-9) and
+// fused_cavi_stats.cu (kernel 1) run the same parts.  Everything is in an
+// anonymous namespace: each source that includes this header compiles its
+// own copy.
 #pragma once
 
 #include <cuda_runtime.h>

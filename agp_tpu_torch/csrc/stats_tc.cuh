@@ -6,8 +6,8 @@
 // body _stats_batched_kernel) and cavi_stats (:545, body _stats_kernel):
 // both C entry points (batched_pair.cu, kappa_single.cu) launch the same
 // two kernels below, stats_tc and sum_tiles; kernels 8-9
-// (fused_variants.cu) launch them after their kappa pass, with one
-// latent.
+// (fused_variants.cu) and kernel 1 (fused_cavi_stats.cu) launch them after
+// their kappa pass, with one latent.
 //
 // What bounds it on an H100: operations.  S2 needs B M (M+1)/2 FMAs (its
 // upper triangle) against 4 B M bytes of kappa read once: at B=65,536,

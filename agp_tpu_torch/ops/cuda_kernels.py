@@ -5,15 +5,15 @@ Each is the counterpart of the function of the same name in
 statistics:
 
 * the fused statistics passes (gram -> kappa -> latent moments -> E-step
-  -> s1, S2 in one call), for shapes whose K^-1 and Sigma fit a block's
-  shared memory (``fused_fits``: 1 <= M <= ``MAX_M`` and a footprint
-  within 232,448 bytes, so at M=128 D <= 44 for one latent, D <= 45 for
-  several):
+  -> s1, S2 in one call), for 1 <= M <= ``MAX_M`` (``fused_fits``):
   - ``fused_cavi_stats``: one latent, the E-steps of eight likelihoods
-    (``LIKS``); ``csrc/fused_cavi_stats.cu``;
+    (``LIKS``), any D; ``csrc/fused_cavi_stats.cu`` (3xTF32 tensor-core
+    tiles on the split pairs' device code);
   - ``fused_cavi_stats_multiclass``: K latents, the logistic-softmax
     E-step; ``fused_cavi_stats_het``: the two latents of the
-    heteroscedastic likelihood; both in ``csrc/fused_cavi_stats_multi.cu``;
+    heteroscedastic likelihood; both in ``csrc/fused_cavi_stats_multi.cu``,
+    with K^-1 and Sigma whole in a block's shared memory (a footprint
+    within 232,448 bytes: D <= 45 at M=128);
 * the split pairs, which leave the E-step to the caller:
   - the batched pair, for several latents and M up to 2,392:
     ``fused_kappa_moments_batched`` (kappa, mf, vf; differentiable) and
@@ -70,17 +70,22 @@ _SOURCES = tuple(
 )
 # headers the sources include: part of the build's hash
 _HEADERS = tuple(_PKG / "csrc" / name
-                 for name in ("gram.cuh", "pair_core.cuh", "stats_tc.cuh", "tf32_mma.cuh", "block_sums.cuh"))
+                 for name in ("gram.cuh", "pair_core.cuh", "stats_tc.cuh", "tf32_mma.cuh"))
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# largest inducing set the fused kernels take (shared-memory residency of
-# K^-1 and Sigma; see the notes at the head of the .cu files)
+# largest inducing set the fused kernels take: kernel 1's row tile has one
+# output tile of 128 columns (csrc/fused_cavi_stats.cu); kernels 2-3 hold
+# K^-1 and Sigma whole in a block's shared memory
 MAX_M = 128
 # shared memory a block may opt into on an H100 (bytes)
 SMEM_OPTIN = 232448
 # rows of the fused kernels' tiles (TB in csrc/fused_cavi_stats*.cu)
 _FUSED_TILE_ROWS = 64
+# kernel 1's row tile beyond its rows (Tile in csrc/fused_cavi_stats.cu):
+# rows of a stage of its ring (KB) and its warp columns (WARPS_N), over
+# one output tile of MAX_M columns
+_FUSED_STAGE_ROWS, _FUSED_WARPS_N = 16, 4
 # features per chunk of the plain versions' direct-difference r2, and the
 # fewest a gram pass of kernels 4 and 6 stages (DC in csrc/pair_core.cuh)
 _FEATURE_CHUNK = 8
@@ -159,12 +164,10 @@ def build() -> dict:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.agp_fused_cavi_stats.argtypes = [p] * 15 + [i, i, i, i, i, p]
+    lib.agp_fused_cavi_stats.argtypes = [p] * 18 + [i] * 7 + [p]
     lib.agp_fused_cavi_stats.restype = i
-    lib.agp_fused_cavi_smem_bytes.argtypes = [i, i]
+    lib.agp_fused_cavi_smem_bytes.argtypes = [i]
     lib.agp_fused_cavi_smem_bytes.restype = ctypes.c_size_t
-    lib.agp_fused_cavi_tile_rows.argtypes = []
-    lib.agp_fused_cavi_tile_rows.restype = i
     lib.agp_cuda_error_string.argtypes = [i]
     lib.agp_cuda_error_string.restype = ctypes.c_char_p
     lib.agp_fused_cavi_stats_multiclass.argtypes = [p] * 21 + [i, i, i, i, i, p]
@@ -205,17 +208,18 @@ def fused_fits(n_latent: int, D: int, M: int) -> bool:
     """Whether the fused statistics kernels take a model of ``n_latent``
     latents, D features and M inducing points: 1 <= M <= MAX_M and the
     kernel's shared memory (a Python mirror of
-    ``agp_fused_cavi_smem_bytes`` for one latent and
-    ``agp_multi_smem_bytes`` for several) within ``SMEM_OPTIN``.  The same
-    answer on the CPU and on the card.  A copy of the C formulas (each
-    names this function): change them together."""
+    ``agp_fused_cavi_smem_bytes`` for one latent, which D does not enter,
+    and ``agp_multi_smem_bytes`` for several) within ``SMEM_OPTIN``.  The
+    same answer on the CPU and on the card.  A copy of the C formulas
+    (each names this function): change them together."""
     if D < 1 or not 1 <= M <= MAX_M:
         return False
-    tb, z = _FUSED_TILE_ROWS, M * (D | 1)
-    if n_latent == 1:
-        words = tb * D + z + 2 * M * M + M + 2 * tb * M + 4 * tb
+    tb = _FUSED_TILE_ROWS
+    if n_latent == 1:  # the slab, the ring or the gram's staging, three row sums
+        ring = _KAPPA_STAGES * _FUSED_STAGE_ROWS * (MAX_M + 8)
+        words = tb * (-(-M // 8) * 8 + 4) + max(ring, _FEATURE_CHUNK * (tb + M + 2)) + 3 * _FUSED_WARPS_N * tb
     else:  # the moments pass; the statistics pass needs less
-        words = tb * D + z + 2 * M * M + M + 2 * tb * M + 2 * tb
+        words = tb * D + M * (D | 1) + 2 * M * M + M + 2 * tb * M + 2 * tb
     return 4 * words <= SMEM_OPTIN
 
 
@@ -401,13 +405,22 @@ def fused_cavi_stats_reference(
 
 
 def _device_scalar(v, device) -> torch.Tensor:
-    """A 0-d float32 tensor on ``device``, made there (no host-to-device
-    copy, no sync) when ``v`` is a Python number."""
+    """A 0-d float32 tensor on ``device``: a 1-element tensor there as it
+    is, a Python number as ``_device_number``'s (no host-to-device copy, no
+    sync).  Every caller only reads it."""
     if isinstance(v, torch.Tensor):
         if v.device != device or v.numel() != 1:
             raise ValueError(f"scalar argument must be a 1-element tensor on {device}")
         return v.reshape(()).to(torch.float32)
-    return torch.full((), float(v), dtype=torch.float32, device=device)
+    return _device_number(float(v), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_number(v: float, device: torch.device) -> torch.Tensor:
+    """The 0-d float32 tensor v on ``device``, made there once per value and
+    device: a constant argument (the jitter, an unused likelihood
+    parameter) then costs a step no launch."""
+    return torch.full((), v, dtype=torch.float32, device=device)
 
 
 def _check_tensors(xb, tensors: dict):
@@ -458,7 +471,13 @@ def fused_cavi_stats(
     natural-gradient inputs.
 
     A CPU tensor runs :func:`fused_cavi_stats_reference`.  A CUDA tensor
-    launches the kernel and adds one to ``fused_cavi_stats.launches``."""
+    launches the kernel (float32, any B, D >= 1, 1 <= M <= ``MAX_M``: the
+    gram, kappa and the moments in 3xTF32 tensor-core tiles of 64 rows,
+    one thread a row for the E-step, then kernel 7's statistics tiles;
+    ``csrc/fused_cavi_stats.cu``) and adds one to
+    ``fused_cavi_stats.launches``; its scalars reach it in a device buffer,
+    so a parameter that changes every step costs no host read.  S2 comes
+    out exactly symmetric."""
     if xb.device.type == "cpu":
         return fused_cavi_stats_reference(
             xb, yb, Z, L_invT, mu, Sigma, lengthscale, variance, jitt, rho,
@@ -470,37 +489,32 @@ def fused_cavi_stats(
     dev = xb.device
     B, D = xb.shape
     M = Z.shape[0]
+    if L_invT.device != dev or L_invT.shape != (M, M):
+        raise ValueError(f"L_invT must be [{M}, {M}] on {dev}")
     lib = _library()
     with torch.cuda.device(dev):
-        smem = lib.agp_fused_cavi_smem_bytes(D, M)
-        limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
-        if smem > limit:
-            raise ValueError(
-                f"fused_cavi_stats at D={D}, M={M} needs {smem} bytes of shared memory; "
-                f"this card allows {limit} per block"
-            )
-        if L_invT.device != dev or L_invT.shape != (M, M):
-            raise ValueError(f"L_invT must be [{M}, {M}] on {dev}")
         kinv = _kinv(L_invT.to(torch.float32))
-        params = torch.stack(
-            [_device_scalar(v, dev) for v in (lengthscale, variance, jitt, rho, lik_p0, lik_p1)]
-        )
-        nb = -(-B // lib.agp_fused_cavi_tile_rows())
+        # the kernel's scalars (jitter, rho, p0, var, p1, ls [D]), made on the
+        # card with no host read
+        scalars = [_device_scalar(v, dev).reshape(1) for v in (jitt, rho, lik_p0, variance, lik_p1, lengthscale)]
+        params = torch.cat(scalars[:5] + [scalars[5].expand(D)])
+        nchunks, rows = _stats_plan(B, M, 1, _stats_slots(dev.index), lib.agp_cavi_stats_tile())
         f32 = dict(dtype=torch.float32, device=dev)
-        s1_part = torch.empty((nb, M), **f32)
-        s2_part = torch.empty((nb, M, M), **f32)
+        c, theta, mf, vf, wg, ws = torch.empty((6, B), **f32).unbind(0)
         s1, S2 = torch.empty((M,), **f32), torch.empty((M, M), **f32)
-        c, theta, mf, vf = (torch.empty((B,), **f32) for _ in range(4))
+        # one scratch: kappa [B, M] first (16-byte aligned), then the chunk
+        # partials of s1 [nchunks, M] and S2 [nchunks, M, M]
+        scratch = torch.empty((B * M + nchunks * M * (M + 1),), **f32)
+        kappa = scratch.data_ptr()
+        s1_part = kappa + 4 * B * M
+        s2_part = s1_part + 4 * nchunks * M
         err = lib.agp_fused_cavi_stats(
-            *(t.data_ptr() for t in (xb, yb, Z, kinv, mu, Sigma, params, c, theta, mf, vf,
-                                     s1_part, s2_part, s1, S2)),
-            B, D, M, KINDS.index(kind), LIKS.index(lik), torch.cuda.current_stream(dev).cuda_stream,
+            *(t.data_ptr() for t in (xb, yb, Z, kinv, mu, Sigma, params, c, theta, mf, vf)),
+            kappa, wg.data_ptr(), ws.data_ptr(), s1_part, s2_part, s1.data_ptr(), S2.data_ptr(),
+            B, D, M, KINDS.index(kind), LIKS.index(lik), nchunks, rows, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(
-            f"fused_cavi_stats launch failed: CUDA error {err} "
-            f"({lib.agp_cuda_error_string(err).decode()})"
-        )
+        raise _cuda_error("fused_cavi_stats", lib, err)
     fused_cavi_stats.launches += 1
     return s1, S2, c, theta, mf, vf
 

@@ -7,11 +7,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA, turn TF32 off, print the card's name and power
    limit (nvidia-smi);
 2. build: compile the CUDA kernels from the repo's sources with nvcc for
-   sm_90a, one nvcc per source, all at once; then the TF32 tensor-core
-   instructions that ``cuobjdump -sass`` finds in each instance of kernels
-   4-9 (kappa_moments_batched, kappa_single, stats_tc, variant_rows; none
-   fails the run), and kernels 4, 6 and 8-9's shared memory against the
-   wrappers' Python copies of it, which choose their row tiles;
+   sm_90a, one nvcc per source, all at once (each kernel's registers and
+   spills from ptxas); then the TF32 tensor-core instructions that
+   ``cuobjdump -sass`` finds in each instance of kernels 1 and 4-9
+   (cavi_rows, kappa_moments_batched, kappa_single, stats_tc,
+   variant_rows; none fails the run), and kernels 1, 4, 6 and 8-9's shared
+   memory against the wrappers' Python copies of it, which choose their
+   row tiles and the fused dispatch;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
    the same card tensors, at its main path's shape, a ragged B=300 and
    M=128, then both timed at the main path's shape (CUDA events, in the
@@ -19,9 +21,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    - fused_cavi_stats at B=4096, M=64, D=20 (the flagship), then each of
      its 8 likelihood branches (rbf) at that shape and at B=300, and each
      of its 4 gram kinds (Student-t) at M=64 and M=128, each timed at the
-     flagship shape; then at the oracle paths' shape (B=8192, D=2, M=128)
-     each branch (rbf) and each Matern kind (Student-t), held against the
-     plain version in float64 (see FLOAT32_FACTOR);
+     flagship shape, a second call of each bit-equal; then at the oracle
+     paths' shape (B=8192, D=2, M=128) each branch (rbf) and each Matern
+     kind (Student-t), held against the plain version in float64 with no
+     floor (see FLOAT32_FACTOR);
    - fused_cavi_stats_multiclass at B=2048, M=64, D=10, K=10, and
      fused_cavi_stats_het at B=2048, M=64, D=10, each with every kind;
 4. flagship path: SVGP + RBF + logistic, N=200,000, D=20, M=64, B=4096,
@@ -86,8 +89,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    with kernel 1, and M=512) against the float64 plain version with no
    floor (Ktilde's, S2's and mf's errors logged); timed at the flagship
    shape and the sweep's rows beside kernel 1 (M <= 128), the sweep's bar
-   and the plain versions, with device us at B=262,144, M=128; then the
-   bench's variants mode, their main path, with its exact launches;
+   and the plain versions, with device us (kernels 1, 8, 9 and the bar) at
+   B=262,144, M=128; then the bench's variants mode, their main path, with
+   its exact launches;
 17. kernel 10 (the bench's tile gather) bit-equal to index_select on the
    tile view (tiles of 32 and 64 rows, a ragged T, the scalar paths),
    timed beside it; then the bench's gather mode with its exact launches;
@@ -116,11 +120,14 @@ agp_tpu_torch/csrc/probes/kappa_tc.cu: kernel 6's parts, kernels 4 and 6
 at other tile shapes, the mma.sync rate with and without 3xTF32's
 splits), ``variants`` (kernels 8-9 at the flagship shape and the sweep's
 rows by CUDA events and device us beside the bar, and each form with
-each row tile at the sweep's M=128 and M=512 rows).  ``ab ROOT MODE...``
+each row tile at the sweep's M=128 and M=512 rows), ``fused`` (kernel 1
+by CUDA events and device us at the flagship, the oracle shape and the
+sweep's row, beside the sweep's bar), ``paths`` (the rates of the
+host-bound paths that take kernel 1).  ``ab ROOT MODE...``
 runs any mode with agp_tpu_torch imported from ROOT (an earlier commit
 unpacked under _chip/), to compare two trees in one call: ``ab ROOT
-kappa`` and ``kappa`` (or ``variants``) in the order parent, this, this,
-parent.
+kappa`` and ``kappa`` (or ``variants``, ``fused``, ``paths``) in the
+order parent, this, this, parent.
 """
 from __future__ import annotations
 
@@ -277,16 +284,17 @@ def phase_build(ck):
 
 # the kernels that run on the tensor cores, by the name of their CUDA
 # function: every instance must hold TF32 mma instructions
-TC_KERNELS = {"kappa_moments_batched": "kernel 4", "stats_tc": "kernels 5 and 7", "kappa_single": "kernel 6",
-              "variant_rows": "kernels 8-9"}
+TC_KERNELS = {"cavi_rows": "kernel 1", "kappa_moments_batched": "kernel 4", "stats_tc": "kernels 1, 5, 7 and 8-9",
+              "kappa_single": "kernel 6", "variant_rows": "kernels 8-9"}
 
 
 def check_tc_sass(lib_path):
-    """Kernels 4-9 run on the tensor cores: every instance of
-    kappa_moments_batched (kernel 4), kappa_single (6), stats_tc (5 and
-    7, and the statistics of 8-9) and variant_rows (8-9, every form) in the
-    built library holds TF32 HMMA (or HGMMA) instructions, as ``cuobjdump
-    -sass`` shows them, and each of the four has one."""
+    """Kernels 1 and 4-9 run on the tensor cores: every instance of
+    cavi_rows (kernel 1), kappa_moments_batched (4), kappa_single (6),
+    stats_tc (5 and 7, and the statistics of 1 and 8-9) and variant_rows
+    (8-9, every form) in the built library holds TF32 HMMA (or HGMMA)
+    instructions, as ``cuobjdump -sass`` shows them, and each of the five
+    has one."""
     import re
     import shutil
 
@@ -309,8 +317,8 @@ def check_tc_sass(lib_path):
                              f"no instance of {missing}")
     for fn, n in sorted(counts.items()):
         stats = re.search(r"stats_tcILb(\d)", fn)
-        tile = re.search(r"(kappa_single|kappa_moments_batched|variant_rows)INS_9TileShapeILi(\d+)ELi(\d+)ELi(\d+)E",
-                         fn)
+        tile = re.search(r"(cavi_rows|kappa_single|kappa_moments_batched|variant_rows)INS_9TileShapeILi(\d+)ELi(\d+)"
+                         r"ELi(\d+)E", fn)
         if stats:
             label = f"stats_tc<{'16-byte' if stats[1] == '1' else '4-byte'} copies>"
         elif tile:
@@ -368,6 +376,7 @@ def phase_kernel_vs_plain(ck, device):
         ref = call(ck.fused_cavi_stats_reference, t)
         torch.cuda.synchronize()
         row = check_outputs(f"kernel vs plain at B={b}, M={m}", names, out, ref)
+        check_stats_repeat(f"kernel 1 at B={b}, M={m}", lambda: call(ck.fused_cavi_stats, t), (), out)
         errs[f"B{b}_M{m}"] = row
         log(f"kernel vs plain B={b} M={m}: max abs err " + " ".join(f"{k}={v:.2e}" for k, v in row.items()))
     t = kernel_inputs(B, M, device)
@@ -726,9 +735,9 @@ def check_outputs(label, names, got, ref, ref64=None, floor=KERNEL_TOL):
     |d| over the output's largest entry (at least 1).  With ``ref64``, the
     plain version in float64 on the same inputs, each output's error is
     taken against it instead, within max(floor, FLOAT32_FACTOR times the
-    float32 plain version's own error against it); kernels 5 and 7 pass
-    floor=0, so that their tensor-core arithmetic is held to float32's own
-    error however small.  Returns the largest absolute error against the
+    float32 plain version's own error against it); the tensor-core kernels
+    (1, 4-9) pass floor=0, so that their arithmetic is held to float32's
+    own error however small.  Returns the largest absolute error against the
     plain version of each output."""
     row, against64 = {}, []
     for i, (name, o, r) in enumerate(zip(names, got, ref)):
@@ -767,8 +776,10 @@ def phase_branches_vs_plain(agt, ck, device):
     """Kernel 1 against its plain version on each likelihood branch (rbf)
     at the flagship shape and B=300, on each gram kind (Student-t) at M=64
     and M=128, and at the oracle paths' shape (B=8192, D=2, M=128) on each
-    likelihood branch (rbf) and each Matern kind (Student-t); each branch
-    and kind timed at the flagship shape, Student-t at the oracle shape.
+    likelihood branch (rbf) and each Matern kind (Student-t), there against
+    the float64 plain version with no floor; a second call of each
+    bit-equal; each branch and kind timed at the flagship shape, Student-t
+    at the oracle shape.
     Returns (largest abs error, {lik: (kernel ms, plain ms)}, {kind:
     (kernel ms, plain ms)}, (kernel ms, plain ms) at the oracle shape)."""
     names = ("s1", "S2", "c", "theta", "mf", "vf")
@@ -785,7 +796,9 @@ def phase_branches_vs_plain(agt, ck, device):
         ref64 = call_branch(ck.fused_cavi_stats_reference, to_float64(t)) if at == "oracle" else None
         torch.cuda.synchronize()
         d = t["X"].shape[1]
-        row = check_outputs(f"fused_cavi_stats {lik}/{kind} B={b} D={d} M={m}", names, got, ref, ref64)
+        label = f"fused_cavi_stats {lik}/{kind} B={b} D={d} M={m}"
+        row = check_outputs(label, names, got, ref, ref64, floor=0.0)
+        check_repeat(label, lambda: call_branch(ck.fused_cavi_stats, t), got)
         worst = max(worst, *row.values())
         log(f"kernel vs plain {lik}/{kind} B={b} D={d} M={m}: max abs err "
             + " ".join(f"{k}={v:.2e}" for k, v in row.items()))
@@ -1137,12 +1150,13 @@ def reset_launches(ck):
 # -------------------------------------------- the batched pair's phases
 def check_fused_fits(ck):
     """fused_fits (Python, the same on the CPU) against the library's own
-    shared-memory functions of kernels 1-3 on a grid of (latents, D, M)."""
+    shared-memory functions of kernels 1-3 on a grid of (latents, D, M)
+    (kernel 1's does not depend on D)."""
     lib, n = ck._library(), 0
-    for d in (1, 2, 10, 20, 44, 45, 46, 64):
-        for m in (1, 16, 64, 127, 128, 129, 512):
+    for d in (1, 2, 10, 20, 44, 45, 46, 64, 4096):
+        for m in (1, 16, 63, 64, 127, 128, 129, 512):
             for n_latent in (1, 2, 10):
-                smem = lib.agp_fused_cavi_smem_bytes(d, m) if n_latent == 1 else lib.agp_multi_smem_bytes(d, m)
+                smem = lib.agp_fused_cavi_smem_bytes(m) if n_latent == 1 else lib.agp_multi_smem_bytes(d, m)
                 if ck.fused_fits(n_latent, d, m) != (m <= ck.MAX_M and smem <= ck.SMEM_OPTIN):
                     raise AssertionError(f"fused_fits({n_latent}, {d}, {m}) disagrees with {smem} bytes")
                 n += 1
@@ -1270,8 +1284,8 @@ def fused_bound(b, d, m, n_latent, label_words):
     outputs beyond x).  Returns three bounds, each (ms, by), as
     kappa_bounds: the function's (its products once at the TF32 peak,
     ``tc_bound``), a 3xTF32 design's (kappa and kappa Sigma in full and S2's
-    upper triangle in three TF32 passes) and the FP32 one (``bound``), which
-    kernels 1-3, FP32 designs, answer to."""
+    upper triangle in three TF32 passes: kernel 1's design) and the FP32
+    one (``bound``), which kernels 2-3, FP32 designs, answer to."""
     tc = n_latent * b * (m * m + 2 * sym_fmas(m))
     design = 3 * n_latent * b * (2 * m * m + sym_fmas(m))
     simt = n_latent * b * (m * d + 5 * m)
@@ -2111,6 +2125,70 @@ def variants_mode(agt, device):
     print(json.dumps(out))
 
 
+def fused_mode(agt, ck, device):
+    """``python3 chip_smoke.py fused`` (``ab ROOT fused`` for an earlier
+    tree): kernel 1 at the flagship, the oracle paths' shape (Student-t, as
+    phase 3 times it) and the sweep's row, on the sweep's inputs there
+    (agp_tpu_torch.bench.sweep_inputs), by CUDA events (the median of three
+    runs of 200 calls, 10 at the sweep's row) beside the sweep's bar
+    (xla_stats_reference) at the flagship and the sweep's row, with the host
+    us a call at the host-bound flagship and oracle shapes (the median of
+    three runs of 1000 calls); then (the profiler after every timing) the
+    device us of each, by kernel.  Last a JSON line of them."""
+    from agp_tpu_torch import bench
+
+    tree = os.path.relpath(os.path.dirname(agt.__file__))
+    log(f"fused: agp_tpu_torch from {tree}")
+    out = {"tree": tree, "ms": {}, "host_us": {}, "bar_ms": {}, "device_us": {}, "device_us_by_kernel": {},
+           "bar_device_us": {}}
+    cases = {}
+    for name, (b, d, m) in {"flagship": (B, D, M), "oracle": (OB, 2, OM), "sweep": VARIANT_MAIN}.items():
+        if name == "oracle":
+            t = branch_inputs(agt, b, m, device, "studentt", "rbf", at="oracle")
+            calls = {"fused_cavi_stats": lambda t=t: call_branch(ck.fused_cavi_stats, t)}
+        else:
+            calls = bench.variant_calls(bench.sweep_inputs(b, d, m, device))
+        fn, reps = calls["fused_cavi_stats"], 200 if b <= OB else BIG_VARIANT_REPS
+        cases[name] = (fn, calls.get("xla_stats_reference"))
+        out["ms"][name] = sorted(cuda_ms(fn, reps) for _ in range(3))[1]
+        if b <= OB:
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            out["host_us"][name] = sorted(runs)[1]
+        if cases[name][1] is not None:
+            out["bar_ms"][name] = cuda_ms(cases[name][1], reps)
+        log(f"fused {name} B={b} D={d} M={m}: kernel 1 {out['ms'][name]:.4f} ms"
+            + (f", host {out['host_us'][name]:.1f} us a call" if name in out["host_us"] else "")
+            + (f"; bar {out['bar_ms'][name]:.4f} ms" if name in out["bar_ms"] else ""))
+    for name, (fn, bar) in cases.items():
+        out["device_us"][name], out["device_us_by_kernel"][name] = device_us(fn)
+        if bar is not None:
+            out["bar_device_us"][name] = device_us(bar)[0]
+        log(f"fused {name}, device us: kernel 1 {out['device_us'][name]:.2f} (" + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["device_us_by_kernel"][name].items()) + ")"
+            + (f"; bar {out['bar_device_us'][name]:.2f}" if bar is not None else ""))
+    print(json.dumps(out))
+
+
+def paths_mode(agt, ck, device):
+    """``python3 chip_smoke.py paths`` (``ab ROOT paths`` for an earlier
+    tree): the host-bound paths that take kernel 1, as phases 4, 5, 10 and
+    15 run them, in one process: the flagship's steady rate, Student-t's
+    (here not first in its process), the ten oracle paths at M=128 (150
+    steps of train each, set-up included) and path A's steady rate."""
+    log(f"paths: agp_tpu_torch from {os.path.relpath(os.path.dirname(agt.__file__))}")
+    phase_main_path(agt, ck, device)
+    phase_studentt_rate(agt, ck, device)
+    phase_oracles(agt, ck, device)
+    phase_hyper_path(agt, ck, device, "A")
+
+
 def probe_mode(ck):
     """``python3 chip_smoke.py probe``: builds the measurement program
     agp_tpu_torch/csrc/probes/kappa_tc.cu with nvcc for sm_90a into the
@@ -2242,29 +2320,27 @@ def ill_call(fn, t, **kw):
 
 def ill_conditioned_variants(agt, ck, device):
     """Kernels 8 (each variant) and 9 at the ill-conditioned oracle shapes
-    (M=128 and M=512) against the float64 plain version, within
-    FLOAT32_FACTOR times the float32 plain version's own error with no
-    floor, and kernel 1 at M=128 (its KERNEL_TOL floor: an FP32 design);
-    each a second call bit-equal.  Returns {label M=m: {output:
-    (kernel, float32 plain) error against float64}} for Ktilde (vf, with
-    Sigma = 0), S2 and mf, each logged."""
+    (M=128 and M=512), and kernel 1 at M=128, against the float64 plain
+    version, within FLOAT32_FACTOR times the float32 plain version's own
+    error with no floor; each a second call bit-equal.  Returns {label
+    M=m: {output: (kernel, float32 plain) error against float64}} for
+    Ktilde (vf, with Sigma = 0), S2 and mf, each logged."""
     from agp_tpu_torch.benchmarks import fused_variants as fv
 
     ill = {}
     for m in (OM, PM):
         t = ill_conditioned_inputs(agt, device, m)
         t64 = to_float64(t)
-        cases = [(label, fn, plain, kw, 0.0) for label, (fn, plain, kw) in variant_kernels(fv).items()]
+        cases = [(label, fn, plain, kw) for label, (fn, plain, kw) in variant_kernels(fv).items()]
         if m == OM:
             cases.insert(0, ("fused_cavi_stats", ck.fused_cavi_stats, ck.fused_cavi_stats_reference,
-                             {"kind": "rbf", "lik": "logistic"}, KERNEL_TOL))
-        for label, fn, plain, kw, floor in cases:
+                             {"kind": "rbf", "lik": "logistic"}))
+        for label, fn, plain, kw in cases:
             got = ill_call(fn, t, **kw)
             torch.cuda.synchronize()
             ref, ref64 = ill_call(plain, t, **kw), ill_call(plain, t64, **kw)
-            check_outputs(f"{label} at B={OB}, D=2, M={m}, Sigma = 0", STATS_NAMES, got, ref, ref64, floor=floor)
-            if label != "fused_cavi_stats":
-                check_repeat(f"{label} at B={OB}, D=2, M={m}", lambda: ill_call(fn, t, **kw), got)
+            check_outputs(f"{label} at B={OB}, D=2, M={m}, Sigma = 0", STATS_NAMES, got, ref, ref64, floor=0.0)
+            check_repeat(f"{label} at B={OB}, D=2, M={m}", lambda: ill_call(fn, t, **kw), got)
 
             def against64(i):
                 scale = max(float(ref64[i].abs().max()), 1.0)
@@ -2283,9 +2359,9 @@ def variant_timing(fv, bench, device):
     CUDA events beside their plain versions (plain, kernel, kernel, plain),
     kernel 1 where it takes the shape and the sweep's bar
     (xla_stats_reference, library_ms); at VARIANT_MAIN each kernel's
-    device us (profiler).  Returns ({shape: {label: (ms, plain ms)}},
-    {shape: bar ms}, {shape: kernel 1 ms}, {label: (device us, {kernel:
-    us})})."""
+    device us, kernel 1's and the bar's (profiler).  Returns ({shape:
+    {label: (ms, plain ms)}}, {shape: bar ms}, {shape: kernel 1 ms},
+    {label: (device us, {kernel: us})})."""
     times, bar, k1, dev = {}, {}, {}, {}
     for b, d, m in VARIANT_TIMED:
         key, reps = shape_key(b, d, m), 200 if b <= B else BIG_VARIANT_REPS
@@ -2299,6 +2375,8 @@ def variant_timing(fv, bench, device):
         if (b, d, m) == VARIANT_MAIN:
             dev = {label: device_us(lambda: sweep_call(kern, t, **kw))
                    for label, (kern, _, kw) in timed_variant_kernels(fv).items()}
+            dev["fused_cavi_stats"] = device_us(calls["fused_cavi_stats"])
+            dev["xla_stats_reference"] = device_us(calls["xla_stats_reference"])
         log(f"kernels 8-9 at B={b} D={d} M={m}, ms (plain): " + " ".join(
             f"{k} {a:.4f} ({p:.4f})" for k, (a, p) in times[key].items()) + f"; xla_stats_reference {bar[key]:.4f}"
             + (f", kernel 1 {k1[key]:.4f}" if key in k1 else ""))
@@ -2504,7 +2582,8 @@ def main():
     t_start = time.perf_counter()
     device = phase_device()
     args = sys.argv[1:]
-    if args[:1] == ["ab"]:  # ab ROOT MODE...: MODE with agp_tpu_torch from ROOT
+    ab = args[:1] == ["ab"]
+    if ab:  # ab ROOT MODE...: MODE with agp_tpu_torch from ROOT
         sys.path.insert(0, os.path.abspath(args[1]))
         args = args[2:]
     import agp_tpu_torch as agt
@@ -2517,7 +2596,8 @@ def main():
         probe_mode(ck)
         return
     lib_path = timed_phase("build", phase_build, ck)
-    timed_phase("fused_fits", check_fused_fits, ck)
+    if not ab:  # this tree's fused_fits against its own library
+        timed_phase("fused_fits", check_fused_fits, ck)
     if args == ["studentt-rate"]:
         launches, ips = phase_studentt_rate(agt, ck, device)
         print(json.dumps({"launches": launches, "ips": ips}))
@@ -2530,6 +2610,12 @@ def main():
         return
     if args == ["variants"]:
         variants_mode(agt, device)
+        return
+    if args == ["fused"]:
+        fused_mode(agt, ck, device)
+        return
+    if args == ["paths"]:
+        paths_mode(agt, ck, device)
         return
     if args[:2] == ["profile", "kernels"]:
         profile_bench_kernels(device)
@@ -2603,6 +2689,13 @@ def main():
         "oracle_shape_ms": ms_table({"studentt/rbf": oracle_ms}),
         "library_ms": bar_ms[shape_key(B, D, M)],
         "library": "xla_stats_reference at the flagship shape (phase 16)",
+        "sweep_row": main_variant,
+        "sweep_row_ms": k1_ms[main_variant],
+        "sweep_row_device_us": variant_dev["fused_cavi_stats"][0],
+        "sweep_row_device_us_by_kernel": variant_dev["fused_cavi_stats"][1],
+        "sweep_row_library_ms": bar_ms[main_variant],
+        "sweep_row_library_device_us": variant_dev["xla_stats_reference"][0],
+        "sweep_row_bound_ms": fused_bound(*VARIANT_MAIN, 1, 5)[0][0],
     }] + [{
         "name": name,
         "route": "cuda",

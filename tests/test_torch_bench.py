@@ -71,8 +71,8 @@ def test_variant_shapes_hold_the_reference_sweep():
 
 
 def test_kernel_1_leaves_the_candidates_past_m128():
-    """At M=130 the candidates are kernels 8 and 9 and the bar (kernel 1
-    holds K^-1 and Sigma in shared memory, M <= 128), and they agree with
+    """At M=130 the candidates are kernels 8 and 9 and the bar (kernel 1's
+    row tile has one output tile of 128 columns, M <= 128), and they agree with
     the float64 plain version on the CPU as at M=32."""
     t = bench.sweep_inputs(256, 8, 130, "cpu")
     calls = bench.variant_calls(t)

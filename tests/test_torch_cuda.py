@@ -92,13 +92,36 @@ def test_cuda_kernel_kind_matches_plain(cuda_device, kind, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lik,kind", [(lik, kind) for lik in ck.LIKS for kind in ck.KINDS])
+def test_cuda_kernel_tile_edges_match_plain(cuda_device, lik, kind):
+    """Every likelihood branch with every gram kind at a ragged B=300 and
+    D=45 (fused since the tensor-core design: the gram is staged in chunks
+    of features), at M = 1, 63, 64, 127 and 128 (odd M take the ring's
+    4-byte copies; M=128 fills the row tile's one output tile): against
+    the plain version on the same card tensors within 1e-4 of each
+    output's largest entry, one launch a call, S2 exactly symmetric and a
+    second call bit-equal."""
+    for m in (1, 63, 64, 127, 128):
+        t = kernel_inputs(300, m, 45, cuda_device, kind=kind, lik=lik)
+        label = f"{lik}/{kind} B=300 D=45 M={m}"
+        before = ck.fused_cavi_stats.launches
+        got = call(ck.fused_cavi_stats, t)
+        torch.cuda.synchronize()
+        assert ck.fused_cavi_stats.launches == before + 1
+        smoke.check_outputs(label, smoke.STATS_NAMES, got, call(ck.fused_cavi_stats_reference, t))
+        smoke.check_stats_repeat(label, lambda: call(ck.fused_cavi_stats, t), (), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lik,kind", [(lik, "rbf") for lik in ck.LIKS] + [("studentt", k) for k in ck.KINDS[1:]])
 def test_cuda_kernel_oracle_shape_matches_plain(cuda_device, lik, kind):
     """Each likelihood branch (rbf) and Matern kind (Student-t) at the
     oracle paths' shape (B=8192, D=2, M=128, Z on the batch's rows,
     lengthscale 1), where float32 fixes the outputs only to ~5e-3: each
     output against the plain version in float64 on the same inputs, within
-    max(1e-4, FLOAT32_FACTOR times the float32 plain version's own error)."""
+    FLOAT32_FACTOR times the float32 plain version's own error with no
+    floor (the tensor-core design's 3xTF32 products); a second call
+    bit-equal."""
     t = smoke.branch_inputs(agt, smoke.OB, smoke.OM, cuda_device, lik, kind, at="oracle")
     before = ck.fused_cavi_stats.launches
     out = smoke.call_branch(ck.fused_cavi_stats, t)
@@ -106,7 +129,8 @@ def test_cuda_kernel_oracle_shape_matches_plain(cuda_device, lik, kind):
     assert ck.fused_cavi_stats.launches == before + 1
     ref = smoke.call_branch(ck.fused_cavi_stats_reference, t)
     ref64 = smoke.call_branch(ck.fused_cavi_stats_reference, smoke.to_float64(t))
-    smoke.check_outputs(f"{lik}/{kind}", ("s1", "S2", "c", "theta", "mf", "vf"), out, ref, ref64)
+    smoke.check_outputs(f"{lik}/{kind}", smoke.STATS_NAMES, out, ref, ref64, floor=0.0)
+    smoke.check_repeat(f"{lik}/{kind}", lambda: smoke.call_branch(ck.fused_cavi_stats, t), out)
 
 
 @pytest.mark.cuda
@@ -348,13 +372,14 @@ def test_cuda_pair_wrappers_raise(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["logistic", "poisson", "multiclass", "het"])
 def test_train_beyond_the_fused_range_launches_the_pair(cuda_device, which):
-    """M=130 (and M=128 at D=46 for one latent), beyond the fused kernels'
-    shared memory: each step launches one kernel of the single-latent
-    split pair (6-7, one latent) or of the batched pair (4-5, several)
-    each, no fused kernel, and the posterior stays finite."""
+    """M=130 (at D=46 for the logistic model), beyond the fused kernels'
+    range (kernel 1's one 128-column output tile, kernels 2-3's shared
+    memory): each step launches one kernel of the single-latent split pair
+    (6-7, one latent) or of the batched pair (4-5, several) each, no fused
+    kernel, and the posterior stays finite."""
     rng = np.random.default_rng(5)
     d = 46 if which == "logistic" else 3
-    m = 128 if which == "logistic" else 130
+    m = 130
     X = torch.as_tensor(rng.normal(size=(2048, d)), dtype=torch.float32, device=cuda_device)
     lik, y = {
         "logistic": (agt.LogisticLikelihood.create(), torch.sign(X[:, 0])),
@@ -604,7 +629,7 @@ def test_train_with_the_default_adam_launches_kernel_6(cuda_device, m):
 # ---------------------------------------------- the bench's kernels (8-10)
 # the edges of kernels 8-9's row tiles beside phase 16's cases: one row and
 # one inducing point, M=127 and 128 (the narrow tile's last; packed leaves
-# it at 128), M=128 at D=44 and D=45 (past the fused kernels' range: any D
+# it at 128), M=128 at D=44 and D=45 (past the FP32 kernel 1's range: any D
 # since the tensor-core design), the largest M of 64-row (680) and 32-row
 # (1,392) tiles and of the kernels (2,392, 16-row tiles) and one past each
 VARIANT_EDGES = [(1, 3, 1), (65, 8, 127), (65, 44, 128), (65, 45, 128), (70, 8, 680), (70, 8, 681), (40, 8, 1392),
@@ -642,20 +667,19 @@ def test_cuda_fused_variants_ill_conditioned(cuda_device, m):
     """Kernels 8 (every variant) and 9 (and kernel 1 at M=128) at the
     oracle shapes (B=8192, D=2, M=128 or 512, lengthscale 1), Sigma = 0:
     each output against its plain version in float64 within FLOAT32_FACTOR
-    times the float32 plain version's own error, with no floor for kernels
-    8-9 (chip_smoke.check_outputs)."""
+    times the float32 plain version's own error, with no floor
+    (chip_smoke.check_outputs)."""
     from agp_tpu_torch.benchmarks import fused_variants as fv
 
     t = smoke.ill_conditioned_inputs(agt, cuda_device, m)
-    cases = [(fn, plain, kw, 0.0) for fn, plain, kw in smoke.variant_kernels(fv).values()]
+    cases = list(smoke.variant_kernels(fv).values())
     if m == smoke.OM:
-        cases.append((ck.fused_cavi_stats, ck.fused_cavi_stats_reference, {"kind": "rbf", "lik": "logistic"},
-                      smoke.KERNEL_TOL))
-    for fn, plain, kw, floor in cases:
+        cases.append((ck.fused_cavi_stats, ck.fused_cavi_stats_reference, {"kind": "rbf", "lik": "logistic"}))
+    for fn, plain, kw in cases:
         got = smoke.ill_call(fn, t, **kw)
         torch.cuda.synchronize()
         smoke.check_outputs(f"{fn.__name__} {kw} M={m}", smoke.STATS_NAMES, got, smoke.ill_call(plain, t, **kw),
-                            smoke.ill_call(plain, smoke.to_float64(t), **kw), floor=floor)
+                            smoke.ill_call(plain, smoke.to_float64(t), **kw), floor=0.0)
 
 
 @pytest.mark.cuda

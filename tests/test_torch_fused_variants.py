@@ -215,4 +215,4 @@ def test_cuda_argument_checks():
     for form in ("direct", "packed", "two_factor"):
         with pytest.raises(ValueError, match=f"M <= {edge}"):
             launch(big, form=form)
-    assert not ck.fused_fits(1, 45, 128) and ck.fused_fits(1, 8, 128)
+    assert ck.fused_fits(1, 45, 128) and not ck.fused_fits(1, 8, 129)

@@ -376,3 +376,30 @@ def two_factor_tf32(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, w_passes=4
     theta = torch.tanh(c / 2.0) / (2.0 * c)
     s1, S2 = stats_tf32(kappa, rho * yb.to(torch.float32) / 2.0, rho * theta / 2.0, passes)
     return s1, S2, c, theta, mf, vf
+
+
+def fused_tf32(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lik_p0=0.0, lik_p1=0.0, kind="rbf",
+               lik="logistic", passes=3):
+    """Kernel 1's function (``fused_cavi_stats_reference``) on float32
+    inputs with its products as the kernel forms them on the tensor cores:
+    the gram of ``kind`` with x / ls and z / ls as products with 1 / ls (as
+    ``pair_core.cuh::gram_slab``), kappa = Knm K^-1 and kappa Sigma by
+    ``tf32_product`` in ``passes`` passes, S2 by ``stats_tf32``; the gram,
+    Ktilde's and vf's row sums, mf = kappa mu and the E-step of ``lik``
+    (``_estep_reference``) in float32, as the kernel's FP32 epilogues.
+    Returns (s1, S2, c, theta, mf, vf)."""
+    from agp_tpu_torch.ops import cuda_kernels as ck
+
+    xb, yb, Z, L_invT, mu, Sigma = (t.to(torch.float32) for t in (xb, yb, Z, L_invT, mu, Sigma))
+    p0, p1 = (torch.as_tensor(p, dtype=torch.float32) for p in (lik_p0, lik_p1))
+    inv_ls = 1.0 / torch.as_tensor(ls, dtype=torch.float32)
+    var_t = torch.full((1,), float(var))
+    knm = ck._gram_from_r2(ck._sq_dist_chunked((xb * inv_ls)[None], (Z * inv_ls)[None]), var_t[:, None, None],
+                           kind)[0]
+    kappa = kappa_tf32(knm, ck._kinv(L_invT), passes)
+    ktilde = torch.clamp(var_t + jitt - torch.sum(kappa * knm, dim=-1), min=1e-12)
+    mf = kappa @ mu
+    vf = torch.clamp(ktilde + torch.sum(tf32_product(kappa, Sigma, passes) * kappa, dim=-1), min=1e-12)
+    c, theta, gmu, gs = ck._estep_reference(lik, mf, vf, yb, p0, p1)
+    s1, S2 = stats_tf32(kappa, rho * gmu, rho * gs, passes)
+    return s1, S2, c, theta, mf, vf
