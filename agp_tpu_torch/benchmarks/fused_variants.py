@@ -155,13 +155,6 @@ def xla_stats_reference(X, y, Z, Kinv, mu, Sigma, ls, var, rho):
     return s1, S2
 
 
-@functools.lru_cache(maxsize=None)
-def _smem_limit(device_index: int) -> int:
-    """Shared memory a block may opt into on the card (bytes)."""
-    props = torch.cuda.get_device_properties(device_index)
-    return getattr(props, "shared_memory_per_block_optin", ck.SMEM_OPTIN)
-
-
 def _params(dev, D, jitt, rho, var, ls):
     """The kernels' float32 scalar buffer on the card, (jitter, rho, 0,
     var, ls [D]) (``ops/cuda_kernels.py::_multi_params``' layout, one
@@ -185,7 +178,7 @@ def _variant_launch(name, form, xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho
     ck._check_tensors(xb, {"xb": (xb, (B, D)), "yb": (yb, (B,)), "Z": (Z, (M, D)), "mu": (mu, (M,)),
                            "Sigma": (Sigma, (M, M))})
     dev = xb.device
-    limit = _smem_limit(dev.index or 0) if dev.type == "cuda" else ck.SMEM_OPTIN
+    limit = ck._smem_limit(dev.index) if dev.type == "cuda" else ck.SMEM_OPTIN
     tile = tile or variant_tile(M, limit)
     if B < 1 or D < 1 or tile is None:
         raise ValueError(f"the CUDA {name} takes B, D >= 1 and 1 <= M <= {variant_max_m(limit)} (one [TB, M] slab "

@@ -62,84 +62,34 @@
 namespace {
 
 // ---------------------------------------------------------------- kernel 4
-// the slab [TB, S] (the gram, then kappa), the scratch, the row sums
-// [3, WARPS_N, TB]
-template <class C>
-__host__ __device__ constexpr size_t km_smem(int M) {
-  return sizeof(float) * ((size_t)C::TB * slab_stride(M) + slab_scratch<C>(M) + 3 * (size_t)C::WARPS_N * C::TB);
-}
-
+// One block a tile of TB rows of latent blockIdx.y: the moments pass
+// (pair_core.cuh's moment_rows), kappa stored to [L, B, M], mf and vf to
+// [L, B].  Its shared memory is rows_smem<C>(M).
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 1)
 kappa_moments_batched(const float* __restrict__ x, const float* __restrict__ z, const float* __restrict__ kinv,
                       const float* __restrict__ mu, const float* __restrict__ sigma,
                       const float* __restrict__ params, float* __restrict__ kappa, float* __restrict__ mf_out,
                       float* __restrict__ vf_out, int B, int D, int M, int L, int kind, bool vec) {
-  constexpr int TB = C::TB;
   extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  const int S = slab_stride(M);
-  float* G = sm;                         // [TB, S]  the gram, then kappa; zero past M
-  float* ring = G + TB * S;              // the ring; x / ls and z / ls while the gram forms
-  float* red = ring + slab_scratch<C>(M);  // [3, WARPS_N, TB]  row sums: Ktilde, mf, vf
-
   const int l = blockIdx.y;
-  const int row0 = blockIdx.x * TB;
-  const int nrows = min(TB, B - row0);
-  const float jitt = params[P_JITT], var = params[P_VAR + l];
-  const float* ls = params + P_VAR + L + (size_t)l * D;
+  const int row0 = blockIdx.x * C::TB;
   const size_t mm = (size_t)l * M * M;
-  const float* mul = mu + (size_t)l * M;
-
-  gram_into_slab<C>(kind, x, z + (size_t)l * M * D, ls, var, G, S, ring, row0, nrows, D, M);
-
-  // kappa = G K^-1, stored from the fragments; Ktilde's and mf's row sums
-  // in the epilogue
-  float kq[C::MI][2] = {}, mq[C::MI][2] = {}, vq[C::MI][2] = {};
-  float* out = kappa + ((size_t)l * B + row0) * M;
-  tc_product<C>(G, S, kinv + mm, M, ring, vec, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
-    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
-      if (col < M) {
-        kq[mi][h] = fmaf(v0, G[row * S + col], kq[mi][h]);
-        mq[mi][h] = fmaf(v0, __ldg(mul + col), mq[mi][h]);
-      }
-      if (col + 1 < M) {
-        kq[mi][h] = fmaf(v1, G[row * S + col + 1], kq[mi][h]);
-        mq[mi][h] = fmaf(v1, __ldg(mul + col + 1), mq[mi][h]);
-      }
-      store_pair(out, M, nrows, row, col, v0, v1);
-    });
-  });
-  // The gram is spent: kappa's rows, just written (tc_product ends with a
-  // barrier) and still in L2, come back into the slab in its place (its
-  // columns [M, mk) stay zero), so that one slab serves both products.
-  load_rows<C>(G, S, out, M, nrows, vec);
-
-  // kappa Sigma, contracted with the kappa slab in the epilogue
-  tc_product<C>(G, S, sigma + mm, M, ring, vec, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
-    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
-      if (col < M) vq[mi][h] = fmaf(v0, G[row * S + col], vq[mi][h]);
-      if (col + 1 < M) vq[mi][h] = fmaf(v1, G[row * S + col + 1], vq[mi][h]);
-    });
-  });
-  constexpr int R = C::WARPS_N * TB;
-  row_partials<C>(kq, red);
-  row_partials<C>(mq, red + R);
-  row_partials<C>(vq, red + 2 * R);
-  __syncthreads();
-  for (int t = threadIdx.x; t < nrows; t += C::THREADS) {
-    const float kt = fmaxf(var + jitt - row_total<C>(red, t), 1e-12f);
-    const size_t r = (size_t)l * B + row0 + t;
-    mf_out[r] = row_total<C>(red + R, t);
-    vf_out[r] = fmaxf(kt + row_total<C>(red + 2 * R, t), 1e-12f);
-  }
+  moment_rows<C>(reinterpret_cast<float*>(sm4), kind, x, z + (size_t)l * M * D, params + P_VAR + L + (size_t)l * D,
+                 params[P_VAR + l], params[P_JITT], kinv + mm, mu + (size_t)l * M, sigma + mm,
+                 kappa + ((size_t)l * B + row0) * M, row0, min(C::TB, B - row0), D, M, vec, vec,
+                 [&](int t, float mf, float vf) {
+                   const size_t r = (size_t)l * B + row0 + t;
+                   mf_out[r] = mf;
+                   vf_out[r] = vf;
+                 });
 }
 
 template <class C>
 int launch_kappa_moments(const float* x, const float* z, const float* kinv, const float* mu, const float* sigma,
                          const float* params, float* kappa, float* mf, float* vf, int B, int D, int M, int L,
                          int kind, cudaStream_t st) {
-  const size_t smem = km_smem<C>(M);
+  const size_t smem = rows_smem<C>(M);
   cudaError_t err = cudaFuncSetAttribute(kappa_moments_batched<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -158,7 +108,7 @@ extern "C" {
 // or 16; SIZE_MAX for another).  ops/cuda_kernels.py::kappa_smem_bytes is
 // its copy in Python: change them together.
 size_t agp_kappa_moments_smem_bytes(int M, int tile_rows) {
-  return with_tile(tile_rows, SIZE_MAX, [&](auto t) { return km_smem<decltype(t)>(M); });
+  return with_tile(tile_rows, SIZE_MAX, [&](auto t) { return rows_smem<decltype(t)>(M); });
 }
 
 // edge of kernels 5 and 7's output tiles

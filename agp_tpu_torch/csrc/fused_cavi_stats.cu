@@ -28,7 +28,8 @@
 // stats_tc.cuh, tf32_mma.cuh):
 // * cavi_rows, one block a tile of 64 rows, 2 x 4 warps of 32 x 32 over one
 //   128-column output tile, so that every M kernel 1 takes (M <= MAX_M =
-//   128) is one output tile and two blocks share an SM:
+//   128) is one output tile and two blocks share an SM; its moments pass
+//   is pair_core.cuh's moment_rows, which kernels 2-4 run too:
 //   - gram_into_slab: the kind's FP32 gram by direct differences into a
 //     [64, M] slab, features staged in chunks, so D bounds no shared
 //     memory; x / ls and z / ls as products with 1 / ls (ls [D]: the
@@ -153,18 +154,10 @@ __device__ inline RowStep estep(int lik, float mf, float vf, float y, float p0, 
   return r;
 }
 
-// The slab [TB, S] (the gram, then kappa), the scratch (the ring, or the
-// gram's staging) and the row sums [3, WARPS_N, TB]; D does not enter.
-// ops/cuda_kernels.py::fused_fits copies it: change both together
-// (chip_smoke.py's check_fused_fits holds them against each other).
-__host__ __device__ constexpr size_t rows_smem(int M) {
-  return sizeof(float) *
-         ((size_t)Tile::TB * slab_stride(M) + slab_scratch<Tile>(M) + 3 * (size_t)Tile::WARPS_N * Tile::TB);
-}
-
-// One block a tile of TB rows: the gram, kappa, the moments and the
-// likelihood's E-step, then the statistics' weights.  vec: 16-byte copies
-// of K^-1 and kappa's rows; vec_s: of Sigma.
+// One block a tile of TB rows: the moments pass (pair_core.cuh's
+// moment_rows: the gram, kappa, Ktilde, mf and vf), then the likelihood's
+// E-step, one thread a row, and the statistics' weights.  vec: 16-byte
+// copies of K^-1 and kappa's rows; vec_s: of Sigma.
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 2)
 cavi_rows(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
@@ -173,65 +166,21 @@ cavi_rows(const float* __restrict__ x, const float* __restrict__ y, const float*
           float* __restrict__ theta_out, float* __restrict__ mf_out, float* __restrict__ vf_out,
           float* __restrict__ wg, float* __restrict__ ws, int B, int D, int M, int kind, int lik, bool vec,
           bool vec_s) {
-  constexpr int TB = C::TB;
   extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  const int S = slab_stride(M);
-  float* G = sm;                           // [TB, S]  the gram, then kappa; zero past M
-  float* ring = G + TB * S;                // the ring; x / ls and z / ls while the gram forms
-  float* red = ring + slab_scratch<C>(M);  // [3, WARPS_N, TB]  row sums: Ktilde, mf, vf
-  const int row0 = blockIdx.x * TB;
-  const int nrows = min(TB, B - row0);
-  const float var = params[P_VAR];
-
-  gram_into_slab<C>(kind, x, z, params + P_LS, var, G, S, ring, row0, nrows, D, M);
-
-  float kq[C::MI][2] = {}, mq[C::MI][2] = {}, vq[C::MI][2] = {};
-  float* out = kappa + (size_t)row0 * M;
-  // kappa = G K^-1; Ktilde's row sums and mf in the epilogue, kappa stored
-  tc_product<C>(G, S, kinv, M, ring, vec, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
-    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
-      if (col < M) {
-        kq[mi][h] = fmaf(v0, G[row * S + col], kq[mi][h]);
-        mq[mi][h] = fmaf(v0, __ldg(mu + col), mq[mi][h]);
-      }
-      if (col + 1 < M) {
-        kq[mi][h] = fmaf(v1, G[row * S + col + 1], kq[mi][h]);
-        mq[mi][h] = fmaf(v1, __ldg(mu + col + 1), mq[mi][h]);
-      }
-      store_pair(out, M, nrows, row, col, v0, v1);
-    });
-  });
-  // The gram is spent: the rows just written (tc_product ends with a
-  // barrier), still in L2, come back into the slab in its place (its
-  // columns [M, mk) stay zero).
-  load_rows<C>(G, S, out, M, nrows, vec);
-  // kappa Sigma, contracted with the kappa slab in the epilogue
-  tc_product<C>(G, S, sigma, M, ring, vec_s, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
-    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
-      if (col < M) vq[mi][h] = fmaf(v0, G[row * S + col], vq[mi][h]);
-      if (col + 1 < M) vq[mi][h] = fmaf(v1, G[row * S + col + 1], vq[mi][h]);
-    });
-  });
-  constexpr int R = C::WARPS_N * TB;
-  row_partials<C>(kq, red);
-  row_partials<C>(mq, red + R);
-  row_partials<C>(vq, red + 2 * R);
-  __syncthreads();
-  const float jitt = params[P_JITT], rho = params[P_RHO], p0 = params[P_P0], p1 = params[P_P1];
-  for (int t = threadIdx.x; t < nrows; t += C::THREADS) {
-    const int r = row0 + t;
-    const float kt = fmaxf(var + jitt - row_total<C>(red, t), 1e-12f);
-    const float mf = row_total<C>(red + R, t);
-    const float vf = fmaxf(kt + row_total<C>(red + 2 * R, t), 1e-12f);
-    const RowStep e = estep(lik, mf, vf, y[r], p0, p1);
-    c_out[r] = e.c;
-    theta_out[r] = e.theta;
-    mf_out[r] = mf;
-    vf_out[r] = vf;
-    wg[r] = rho * e.gmu;
-    ws[r] = rho * e.gs;
-  }
+  const int row0 = blockIdx.x * C::TB;
+  const float rho = params[P_RHO], p0 = params[P_P0], p1 = params[P_P1];
+  moment_rows<C>(reinterpret_cast<float*>(sm4), kind, x, z, params + P_LS, params[P_VAR], params[P_JITT], kinv, mu,
+                 sigma, kappa + (size_t)row0 * M, row0, min(C::TB, B - row0), D, M, vec, vec_s,
+                 [&](int t, float mf, float vf) {
+                   const int r = row0 + t;
+                   const RowStep e = estep(lik, mf, vf, y[r], p0, p1);
+                   c_out[r] = e.c;
+                   theta_out[r] = e.theta;
+                   mf_out[r] = mf;
+                   vf_out[r] = vf;
+                   wg[r] = rho * e.gmu;
+                   ws[r] = rho * e.gs;
+                 });
 }
 
 }  // namespace
@@ -240,7 +189,7 @@ extern "C" {
 
 // The shared memory of kernel 1's row kernel at M (1 <= M <= MAX_M; any
 // D).  ops/cuda_kernels.py::fused_fits is its copy in Python.
-size_t agp_fused_cavi_smem_bytes(int M) { return rows_smem(M); }
+size_t agp_fused_cavi_smem_bytes(int M) { return rows_smem<Tile>(M); }
 
 const char* agp_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -265,7 +214,7 @@ int agp_fused_cavi_stats(const float* x, const float* y, const float* z, const f
   if (lik < 0 || lik >= N_LIKS || kind < KIND_RBF || kind > KIND_MATERN52 || M < 1 || M > MAX_M)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = rows_smem(M);
+  const size_t smem = rows_smem<Tile>(M);
   cudaError_t err = prepare_smem<&cavi_rows<Tile>>(smem);  // two blocks an SM
   if (err != cudaSuccess) return (int)err;
   auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };

@@ -1,12 +1,13 @@
-// Fused multi-latent CAVI statistics for Hopper (sm_90a): the four
-// stationary gram kinds (gram.cuh) with per-latent ARD lengthscales, and
-// two E-steps:
+// Fused multi-latent CAVI statistics for Hopper (sm_90a), kernels 2 and 3
+// of the port: the four stationary gram kinds (gram.cuh) with per-latent
+// ARD lengthscales, and two E-steps:
 //   * logistic-softmax multiclass (K latents), replacing
-//     agp_tpu/ops/pallas_kernels.py, fused_cavi_stats_multiclass and its
-//     body _cavi_fused_mc_kernel, with its digamma _digamma_psi;
+//     agp_tpu/ops/pallas_kernels.py, fused_cavi_stats_multiclass (:953,
+//     pallas_call at :981) and its body _cavi_fused_mc_kernel (:846), with
+//     its digamma _digamma_psi;
 //   * heteroscedastic regression (2 latents: f the mean, g the
-//     log-precision), replacing fused_cavi_stats_het and its body
-//     _cavi_fused_het_kernel.
+//     log-precision), replacing fused_cavi_stats_het (:1133, pallas_call at
+//     :1159) and its body _cavi_fused_het_kernel (:1034).
 //
 // They compute the same functions.  For latent l and minibatch row t:
 //   gram     Knm[t, m] = k_l(|x_t/ls_l - z_lm/ls_l|^2), rbf or matern12/32/52
@@ -15,79 +16,61 @@
 //            vf[l,t] = max(max(var_l + jitter - kappa.Knm, 1e-12) + kappa Sigma_l kappa^T, 1e-12)
 //   E-step   per row, coupling the latents (see estep_* below)
 //   stats    s1_l = kappa^T (rho gmu_l),  S2_l = kappa^T diag(rho gs_l) kappa
-// kappa never leaves shared memory.
 //
-// Design, against the TPU kernels.  The TPU kernel keeps ALL latents'
-// K^-1 and Sigma resident (16 MB of VMEM); at K=10, M=64 that is 2 x 160 KB,
-// more than a Hopper block's 227 KB of shared memory.  So the work is split
-// by latent, into four launches on the caller's stream:
-//   1. latent_moments  grid (B/TB, L): one (row tile, latent) per block,
-//      with Z_l, K_l^-1, Sigma_l, mu_l and the [TB, M] gram and kappa tiles
-//      in shared memory; writes mf, vf [L, B] (8 L B bytes of traffic);
-//   2. estep_*         one thread per row: the coupled E-step from mf, vf;
-//      writes the local variables and the statistic weights rho gmu,
-//      rho gs [L, B];
-//   3. latent_stats    grid (B/TB, L): recomputes the gram and kappa of
-//      its (row tile, latent), and writes that block's partial s1 [M] and
-//      S2 [M, M];
-//   4. sum_partials    adds the partials in block order: deterministic, no
-//      atomics.
-// Splitting by latent also fills the card: L B/TB blocks (320 at K=10,
-// B=2048) where one block per row tile would give B/TB = 32 on 132 SMs.
-// Shared memory does not depend on L.  The price is recomputing the gram
-// and kappa once (pass 3) and the [L, B] round trips, small beside the
-// partial sums.
+// What bounds them on an H100: operations.  Per row and latent M^2 FMAs
+// for kappa, the quadratic form's and S2's M (M+1)/2 each and M D for the
+// gram, against 4 (D + 3 + 4 K) bytes a row (multiclass).  At the bench's
+// multiclass shape (K=10, B=2048, D=10, M=64; chip_smoke.py::fused_bound): the
+// function's bound, its products once at the TF32 tensor-core peak
+// (495 TFLOP/s) and the rest at the FP32 one (67), 0.68 us; this design's,
+// kappa and kappa Sigma in full and S2's upper triangle in three TF32
+// passes, 2.55 us; the FP32 pipes', 5.63 us.  The parent design (FP32
+// FMA, K^-1 and Sigma whole in shared memory, the gram and kappa formed
+// twice, one [M, M] partial a block) took 158.7 us there.
+//
+// Design: kernel 1's (fused_cavi_stats.cu) over a (row tile, latent) grid.
+// The TPU kernel keeps every latent's K^-1 and Sigma resident in VMEM;
+// here they stream from L2 and the latents split across blocks, since the
+// E-step couples a row's latents.  Four launches on the caller's stream:
+//   1. latent_rows, grid (ceil(B / 64), L), kernel 1's 64 x 128 tile (2 x 4
+//      warps of 32 x 32, two blocks an SM): pair_core.cuh's moment_rows on
+//      latent l with its variance and lengthscale row from the params
+//      buffer (the gram by direct differences, features staged in chunks,
+//      so D enters no shared memory; kappa = G K_l^-1 and kappa Sigma_l in
+//      3xTF32 mma.sync, K_l^-1 and Sigma_l through a cp.async ring; the
+//      row sums in a fixed order); stores kappa to an [L, B, M] scratch
+//      and mf, vf to [L, B];
+//   2. estep_multiclass or estep_het, one thread a row: the coupled E-step
+//      from every latent's mf and vf; writes the local variables and the
+//      statistics' weights rho g_mu, rho g_s [L, B];
+//   3-4. stats_tc + sum_tiles (stats_tc.cuh, kernel 5's device code with L
+//      latents): S2's upper triangle in 3xTF32 and s1 in FP32 from the
+//      kappa scratch and the weights, chunk partials added in a fixed order:
+//      no atomics, S2 exactly symmetric, two calls bit-equal.
 // * The ragged last tile is masked here, from B: rows past B load as zeros,
-//   get zero weight and write nothing.  Nothing is padded on the host.
-// * FP32 FMA throughout, no TF32.  The gram is the direct sum_d (x_d - z_d)^2;
-//   kappa = Knm K^-1 is a full-FP32 dot (K^-1 = L^-T L^-1 formed by the
-//   wrapper at full FP32).
-// * The gram kind is a template parameter of passes 1 and 3, which both
-//   form the gram through gram_kappa<KIND>: one instantiation per kind, the
-//   same in both passes.
+//   get no weight in s1/S2 and are not written.  Nothing is padded on the
+//   host.
 // * Scalars (jitter, rho, lambda, the L variances, the [L, D] lengthscales)
 //   come in one device buffer; the host never reads them.
-//
-// What bounds it on an H100: per row and latent ~4 M^2 FMAs from shared
-// memory (kappa and kappa Sigma in pass 1, kappa and S2 in pass 3) against
-// ~4 (D + 2) bytes read: FP32 issue and shared-memory bandwidth, not device
-// memory.  Shared memory per block: 4 (TB D + M (D|1) + 2 M^2 + M + 2 TB M
-// + 2 TB) bytes in pass 1 (70 KB at M=64, D=10; 214 KB at M=128, D=20).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
-#include "gram.cuh"
+#include "pair_core.cuh"
 
 namespace {
 
-constexpr int TB = 64;  // minibatch rows per block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ESTEP_THREADS = 256;
-// params layout
-constexpr int P_JITT = 0, P_RHO = 1, P_LAM = 2, P_VAR = 3;  // then var [L], ls [L, D]
+// kernel 1's tile: 64 rows by one output tile of 128 columns
+using Tile = TileShape<64, 2, 4, 2, 4, 16>;
+constexpr int MAX_M = Tile::NT;  // MAX_M in ops/cuda_kernels.py
+// rows of an E-step block: few, so that a minibatch's rows spread over
+// many SMs (B=2048: 32 blocks)
+constexpr int ESTEP_THREADS = 64;
+// params layout (P_JITT and P_VAR as pair_core.cuh's): jitter, rho,
+// lambda, var [L], ls [L, D]
+constexpr int P_RHO = 1, P_LAM = 2;
 constexpr float LOG2F = 0.6931471805599453f;
-
-__host__ __device__ inline int z_stride(int D) { return D | 1; }
-
-// fused_fits in ops/cuda_kernels.py copies moments_smem (the larger of the
-// two) and TB, so that the CPU and the card dispatch alike: change both
-// together (chip_smoke.py's check_fused_fits holds them against each other)
-size_t moments_smem(int D, int M) {
-  return sizeof(float) * ((size_t)TB * D + (size_t)M * z_stride(D) + 2 * (size_t)M * M + M +
-                          2 * (size_t)TB * M + 2 * TB);
-}
-
-size_t stats_smem(int D, int M) {
-  return sizeof(float) * ((size_t)TB * D + (size_t)M * z_stride(D) + (size_t)M * M +
-                          2 * (size_t)TB * M + 2 * TB);
-}
-
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // log(cosh(c)) without overflow
 __device__ inline float logcoshf(float c) {
@@ -113,115 +96,27 @@ __device__ inline float digammaf_pos(float x) {
          inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 / 252.0f));
 }
 
-// Stage row tile `row0` of x and latent k's Z, both divided by the latent's
-// lengthscales, then gram -> G and kappa = G K^-1 -> Kp.  Rows past B are
-// zeros.  Ends synchronised.
-template <int KIND>
-__device__ void gram_kappa(const float* __restrict__ x, const float* __restrict__ z,
-                           const float* __restrict__ kinv, const float* __restrict__ ls,
-                           float var, float* xs, float* zs, float* ki, float* G, float* Kp,
-                           int row0, int nrows, int D, int M) {
-  const int tid = threadIdx.x;
-  const int Dz = z_stride(D);
-  for (int i = tid; i < TB * D; i += THREADS) {
-    const int t = i / D;
-    xs[i] = t < nrows ? x[(size_t)row0 * D + i] / ls[i % D] : 0.0f;
-  }
-  for (int i = tid; i < M * D; i += THREADS) zs[(i / D) * Dz + i % D] = z[i] / ls[i % D];
-  for (int i = tid; i < M * M; i += THREADS) ki[i] = kinv[i];
-  __syncthreads();
-
-  for (int i = tid; i < TB * M; i += THREADS) {
-    const float* xr = xs + (i / M) * D;
-    const float* zr = zs + (i % M) * Dz;
-    float r2 = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float df = xr[d] - zr[d];
-      r2 = fmaf(df, df, r2);
-    }
-    G[i] = gram_from_r2<KIND>(r2, var);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < TB * M; i += THREADS) {
-    const float* gr = G + (i / M) * M;
-    const int n = i % M;
-    float acc = 0.0f;
-    for (int m = 0; m < M; ++m) acc = fmaf(gr[m], ki[m * M + n], acc);
-    Kp[i] = acc;
-  }
-  __syncthreads();
-}
-
-// pass 1: mf, vf [L, B]
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-latent_moments(const float* __restrict__ x, const float* __restrict__ z,
-               const float* __restrict__ kinv, const float* __restrict__ mu,
-               const float* __restrict__ sigma, const float* __restrict__ params,
-               float* __restrict__ mf_out, float* __restrict__ vf_out, int B, int D, int M,
-               int L) {
-  extern __shared__ float sm[];
-  const int k = blockIdx.y;
-  float* xs = sm;                    // [TB, D]
-  float* zs = xs + TB * D;           // [M, Dz]
-  float* ki = zs + M * z_stride(D);  // [M, M]  K^-1
-  float* sg = ki + M * M;            // [M, M]  Sigma
-  float* mus = sg + M * M;           // [M]
-  float* G = mus + M;                // [TB, M] gram, later kappa Sigma
-  float* Kp = G + TB * M;            // [TB, M] kappa
-  float* kt = Kp + TB * M;           // [TB]    Ktilde
-  float* mfs = kt + TB;              // [TB]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int row0 = blockIdx.x * TB;
-  const int nrows = min(TB, B - row0);
-  const float jitt = params[P_JITT];
-  const float var = params[P_VAR + k];
-  const float* ls = params + P_VAR + L + (size_t)k * D;
-  const size_t mm = (size_t)k * M * M;
-
-  for (int i = tid; i < M * M; i += THREADS) sg[i] = sigma[mm + i];
-  for (int i = tid; i < M; i += THREADS) mus[i] = mu[(size_t)k * M + i];
-  gram_kappa<KIND>(x, z + (size_t)k * M * D, kinv + mm, ls, var, xs, zs, ki, G, Kp, row0, nrows,
-                   D, M);
-
-  for (int t = warp; t < TB; t += WARPS) {
-    float q = 0.0f, m1 = 0.0f;
-    for (int n = lane; n < M; n += 32) {
-      const float kp = Kp[t * M + n];
-      q = fmaf(kp, G[t * M + n], q);
-      m1 = fmaf(kp, mus[n], m1);
-    }
-    q = warp_sum(q);
-    m1 = warp_sum(m1);
-    if (lane == 0) {
-      kt[t] = fmaxf(var + jitt - q, 1e-12f);
-      mfs[t] = m1;
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < TB * M; i += THREADS) {
-    const float* kr = Kp + (i / M) * M;
-    const int n = i % M;
-    float acc = 0.0f;
-    for (int m = 0; m < M; ++m) acc = fmaf(kr[m], sg[m * M + n], acc);
-    G[i] = acc;
-  }
-  __syncthreads();
-
-  for (int t = warp; t < nrows; t += WARPS) {
-    float q = 0.0f;
-    for (int n = lane; n < M; n += 32) q = fmaf(G[t * M + n], Kp[t * M + n], q);
-    q = warp_sum(q);
-    if (lane == 0) {
-      const size_t r = (size_t)k * B + row0 + t;
-      mf_out[r] = mfs[t];
-      vf_out[r] = fmaxf(kt[t] + q, 1e-12f);
-    }
-  }
+// pass 1: one block a tile of TB rows of latent blockIdx.y; kappa [L, B, M],
+// mf, vf [L, B].  vec: 16-byte copies of K^-1 and kappa's rows; vec_s: of
+// Sigma.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 2)
+latent_rows(const float* __restrict__ x, const float* __restrict__ z, const float* __restrict__ kinv,
+            const float* __restrict__ mu, const float* __restrict__ sigma, const float* __restrict__ params,
+            float* __restrict__ kappa, float* __restrict__ mf_out, float* __restrict__ vf_out, int B, int D, int M,
+            int L, int kind, bool vec, bool vec_s) {
+  extern __shared__ float4 sm4[];
+  const int l = blockIdx.y;
+  const int row0 = blockIdx.x * C::TB;
+  const size_t mm = (size_t)l * M * M;
+  moment_rows<C>(reinterpret_cast<float*>(sm4), kind, x, z + (size_t)l * M * D, params + P_VAR + L + (size_t)l * D,
+                 params[P_VAR + l], params[P_JITT], kinv + mm, mu + (size_t)l * M, sigma + mm,
+                 kappa + ((size_t)l * B + row0) * M, row0, min(C::TB, B - row0), D, M, vec, vec_s,
+                 [&](int t, float mf, float vf) {
+                   const size_t r = (size_t)l * B + row0 + t;
+                   mf_out[r] = mf;
+                   vf_out[r] = vf;
+                 });
 }
 
 // pass 2, logistic-softmax, one thread per row; y one-hot [B, K]:
@@ -231,7 +126,9 @@ latent_moments(const float* __restrict__ x, const float* __restrict__ z,
 //   theta_k = (y_k + gamma_k) tanh(c_k/2) / (2 c_k)
 //   weights rho (y_k - gamma_k)/2 and rho theta_k/2
 // gamma_k is e_round * expcosh_k, so the first round needs only the sum
-// of expcosh over the classes and the classes are read twice, not held.
+// of expcosh over the classes and the classes are read twice, not held;
+// each loop is unrolled by 4, so that a thread has several classes' loads
+// in flight (the sums keep their class order).
 __global__ void __launch_bounds__(ESTEP_THREADS)
 estep_multiclass(const float* __restrict__ mf, const float* __restrict__ vf,
                  const float* __restrict__ y, const float* __restrict__ alpha0,
@@ -243,6 +140,7 @@ estep_multiclass(const float* __restrict__ mf, const float* __restrict__ vf,
   if (r >= B) return;
   const float rho = params[P_RHO];
   float s = 0.0f;
+#pragma unroll 4
   for (int k = 0; k < K; ++k) {
     const float m = mf[(size_t)k * B + r];
     const float c = sqrtf(m * m + vf[(size_t)k * B + r]);
@@ -252,6 +150,7 @@ estep_multiclass(const float* __restrict__ mf, const float* __restrict__ vf,
   const float alpha1 = 1.0f + expf(digammaf_pos(alpha0[r])) / two_beta * s;
   const float e2 = expf(digammaf_pos(alpha1));
   float gsum = 0.0f;
+#pragma unroll 4
   for (int k = 0; k < K; ++k) {
     const size_t i = (size_t)k * B + r;
     const float m = mf[i];
@@ -304,99 +203,20 @@ estep_het(const float* __restrict__ mf, const float* __restrict__ vf,
   ws[B + r] = rho * (theta / 2.0f);
 }
 
-// pass 3: this block's partial s1 [M] and S2 [M, M] of latent k
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-latent_stats(const float* __restrict__ x, const float* __restrict__ z,
-             const float* __restrict__ kinv, const float* __restrict__ params,
-             const float* __restrict__ wg, const float* __restrict__ ws,
-             float* __restrict__ s1_part, float* __restrict__ s2_part, int B, int D, int M,
-             int L) {
-  extern __shared__ float sm[];
-  const int k = blockIdx.y;
-  const int nb = gridDim.x;
-  float* xs = sm;                    // [TB, D]
-  float* zs = xs + TB * D;           // [M, Dz]
-  float* ki = zs + M * z_stride(D);  // [M, M]
-  float* G = ki + M * M;             // [TB, M]
-  float* Kp = G + TB * M;            // [TB, M]
-  float* wgs = Kp + TB * M;          // [TB]
-  float* wss = wgs + TB;             // [TB]
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TB;
-  const int nrows = min(TB, B - row0);
-  for (int t = tid; t < TB; t += THREADS) {
-    wgs[t] = t < nrows ? wg[(size_t)k * B + row0 + t] : 0.0f;
-    wss[t] = t < nrows ? ws[(size_t)k * B + row0 + t] : 0.0f;
-  }
-  gram_kappa<KIND>(x, z + (size_t)k * M * D, kinv + (size_t)k * M * M,
-                   params + P_VAR + L + (size_t)k * D, params[P_VAR + k], xs, zs, ki, G, Kp, row0,
-                   nrows, D, M);
-
-  float* s1p = s1_part + ((size_t)k * nb + blockIdx.x) * M;
-  float* s2p = s2_part + ((size_t)k * nb + blockIdx.x) * M * M;
-  for (int m = tid; m < M; m += THREADS) {
-    float acc = 0.0f;
-    for (int t = 0; t < nrows; ++t) acc = fmaf(Kp[t * M + m], wgs[t], acc);
-    s1p[m] = acc;
-  }
-  for (int i = tid; i < M * M; i += THREADS) {
-    const int m = i / M, n = i % M;
-    float acc = 0.0f;
-    for (int t = 0; t < nrows; ++t) acc = fmaf(Kp[t * M + m] * wss[t], Kp[t * M + n], acc);
-    s2p[i] = acc;
-  }
-}
-
-// s1[k] = sum_b s1_part[k, b], S2[k] = sum_b s2_part[k, b], in block order
-__global__ void sum_partials_latents(const float* __restrict__ s1_part,
-                                     const float* __restrict__ s2_part, float* __restrict__ s1,
-                                     float* __restrict__ s2, int nb, int M, int L) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t n1 = (size_t)L * M, mm = (size_t)M * M;
-  if (i < n1) {
-    const size_t k = i / M, m = i % M;
-    float acc = 0.0f;
-    for (int b = 0; b < nb; ++b) acc += s1_part[(k * nb + b) * M + m];
-    s1[i] = acc;
-  } else if (i < n1 + L * mm) {
-    const size_t j = i - n1, k = j / mm, e = j % mm;
-    float acc = 0.0f;
-    for (int b = 0; b < nb; ++b) acc += s2_part[(k * nb + b) * mm + e];
-    s2[j] = acc;
-  }
-}
-
-template <int KIND>
-int launch_moments(const float* x, const float* z, const float* kinv, const float* mu,
-                   const float* sigma, const float* params, float* mf, float* vf, int B, int D,
-                   int M, int L, cudaStream_t st) {
-  const size_t smem = moments_smem(D, M);
-  cudaError_t err = cudaFuncSetAttribute(latent_moments<KIND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Pass 1 on `st`; the CUDA error of the launch (cudaErrorInvalidValue for
+// an unknown kind or M out of range).
+int launch_rows(const float* x, const float* z, const float* kinv, const float* mu, const float* sigma,
+                const float* params, float* kappa, float* mf, float* vf, int B, int D, int M, int L, int kind,
+                cudaStream_t st) {
+  if (kind < KIND_RBF || kind > KIND_MATERN52 || M < 1 || M > MAX_M) return (int)cudaErrorInvalidValue;
+  const size_t smem = rows_smem<Tile>(M);
+  cudaError_t err = prepare_smem<&latent_rows<Tile>>(smem);  // two blocks an SM
   if (err != cudaSuccess) return (int)err;
-  latent_moments<KIND><<<dim3((B + TB - 1) / TB, L), THREADS, smem, st>>>(
-      x, z, kinv, mu, sigma, params, mf, vf, B, D, M, L);
-  return (int)cudaGetLastError();
-}
-
-template <int KIND>
-int launch_stats(const float* x, const float* z, const float* kinv, const float* params,
-                 const float* wg, const float* ws, float* s1_part, float* s2_part, float* s1,
-                 float* s2, int B, int D, int M, int L, cudaStream_t st) {
-  const int nb = (B + TB - 1) / TB;
-  const size_t smem = stats_smem(D, M);
-  cudaError_t err = cudaFuncSetAttribute(latent_stats<KIND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  latent_stats<KIND><<<dim3(nb, L), THREADS, smem, st>>>(x, z, kinv, params, wg, ws, s1_part,
-                                                         s2_part, B, D, M, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)L * (M + (size_t)M * M);
-  sum_partials_latents<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(s1_part, s2_part, s1, s2,
-                                                                         nb, M, L);
+  auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = M % 4 == 0 && aligned(kinv) && aligned(kappa);
+  const bool vec_s = M % 4 == 0 && aligned(sigma);
+  latent_rows<Tile><<<dim3((B + Tile::TB - 1) / Tile::TB, L), Tile::THREADS, smem, st>>>(
+      x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, L, kind, vec, vec_s);
   return (int)cudaGetLastError();
 }
 
@@ -404,60 +224,54 @@ int launch_stats(const float* x, const float* z, const float* kinv, const float*
 
 extern "C" {
 
-int agp_multi_tile_rows(void) { return TB; }
-
-size_t agp_multi_smem_bytes(int D, int M) {
-  const size_t a = moments_smem(D, M), b = stats_smem(D, M);
-  return a > b ? a : b;
-}
+// The shared memory of kernels 2-3's rows pass at M (1 <= M <= MAX_M; any
+// D).  ops/cuda_kernels.py::fused_fits is its copy in Python.
+size_t agp_multi_smem_bytes(int M) { return rows_smem<Tile>(M); }
 
 // All pointers are device pointers to contiguous float32 arrays:
-// x [B, D], y one-hot [B, K], z [K, M, D], kinv [K, M, M], mu [K, M],
+// x [B, D], y one-hot [B, K], z [K, M, D], kinv [K, M, M] (K^-1), mu [K, M],
 // sigma [K, M, M], params [3 + K + K D] = (jitter, rho, unused, var [K],
 // ls [K, D]), alpha0, beta0 [B]; outputs c, theta, gamma [K, B], alpha [B],
-// s1 [K, M], s2 [K, M, M]; scratch mf, vf, wg, ws [K, B],
-// s1_part [K, nb, M], s2_part [K, nb, M, M] with nb = ceil(B / TB).  kind:
-// a GramKind code.  Returns the CUDA error of the launches
-// (cudaErrorInvalidValue for an unknown kind).
-int agp_fused_cavi_stats_multiclass(const float* x, const float* y, const float* z,
-                                    const float* kinv, const float* mu, const float* sigma,
-                                    const float* params, const float* alpha0, const float* beta0,
-                                    float* c, float* theta, float* gamma, float* alpha, float* mf,
-                                    float* vf, float* wg, float* ws, float* s1_part,
-                                    float* s2_part, float* s1, float* s2, int B, int D, int M,
-                                    int K, int kind, void* stream) {
+// s1 [K, M], s2 [K, M, M]; scratch kappa [K, B, M] (16-byte aligned for
+// 16-byte copies), mf, vf, wg, ws [K, B], s1_part [K, nchunks, M] and
+// s2_part [K, nchunks, M, M] with nchunks = ceil(B / rows_per_chunk),
+// rows_per_chunk a multiple of stats_tc.cuh's KB
+// (ops/cuda_kernels.py::_stats_plan).  kind: a GramKind code,
+// 1 <= M <= MAX_M.  Four launches on `stream` (latent_rows,
+// estep_multiclass, stats_tc, sum_tiles); returns the CUDA error of the
+// launches (cudaErrorInvalidValue for an unknown kind or M out of range).
+int agp_fused_cavi_stats_multiclass(const float* x, const float* y, const float* z, const float* kinv,
+                                    const float* mu, const float* sigma, const float* params, const float* alpha0,
+                                    const float* beta0, float* c, float* theta, float* gamma, float* alpha,
+                                    float* kappa, float* mf, float* vf, float* wg, float* ws, float* s1_part,
+                                    float* s2_part, float* s1, float* s2, int B, int D, int M, int K, int kind,
+                                    int nchunks, int rows_per_chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_kind(kind, [&](auto k) {
-    constexpr int KIND = decltype(k)::value;
-    int err = launch_moments<KIND>(x, z, kinv, mu, sigma, params, mf, vf, B, D, M, K, st);
-    if (err) return err;
-    estep_multiclass<<<(B + ESTEP_THREADS - 1) / ESTEP_THREADS, ESTEP_THREADS, 0, st>>>(
-        mf, vf, y, alpha0, beta0, params, c, theta, gamma, alpha, wg, ws, B, K);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    return launch_stats<KIND>(x, z, kinv, params, wg, ws, s1_part, s2_part, s1, s2, B, D, M, K, st);
-  });
+  int err = launch_rows(x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, K, kind, st);
+  if (err) return err;
+  estep_multiclass<<<(B + ESTEP_THREADS - 1) / ESTEP_THREADS, ESTEP_THREADS, 0, st>>>(
+      mf, vf, y, alpha0, beta0, params, c, theta, gamma, alpha, wg, ws, B, K);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_stats(kappa, wg, ws, s1_part, s2_part, s1, s2, B, M, K, nchunks, rows_per_chunk, st);
 }
 
 // As above with 2 latents (f, g): y [B], params [3 + 2 + 2 D] = (jitter,
 // rho, lambda, var [2], ls [2, D]); outputs c, phi, gamma, theta, sigg [B],
 // s1 [2, M], s2 [2, M, M] with f's statistics WITHOUT the lambda factor.
-int agp_fused_cavi_stats_het(const float* x, const float* y, const float* z, const float* kinv,
-                             const float* mu, const float* sigma, const float* params, float* c,
-                             float* phi, float* gamma, float* theta, float* sigg, float* mf,
-                             float* vf, float* wg, float* ws, float* s1_part, float* s2_part,
-                             float* s1, float* s2, int B, int D, int M, int kind, void* stream) {
+int agp_fused_cavi_stats_het(const float* x, const float* y, const float* z, const float* kinv, const float* mu,
+                             const float* sigma, const float* params, float* c, float* phi, float* gamma,
+                             float* theta, float* sigg, float* kappa, float* mf, float* vf, float* wg, float* ws,
+                             float* s1_part, float* s2_part, float* s1, float* s2, int B, int D, int M, int kind,
+                             int nchunks, int rows_per_chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_kind(kind, [&](auto k) {
-    constexpr int KIND = decltype(k)::value;
-    int err = launch_moments<KIND>(x, z, kinv, mu, sigma, params, mf, vf, B, D, M, 2, st);
-    if (err) return err;
-    estep_het<<<(B + ESTEP_THREADS - 1) / ESTEP_THREADS, ESTEP_THREADS, 0, st>>>(
-        mf, vf, y, params, c, phi, gamma, theta, sigg, wg, ws, B);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    return launch_stats<KIND>(x, z, kinv, params, wg, ws, s1_part, s2_part, s1, s2, B, D, M, 2, st);
-  });
+  int err = launch_rows(x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, 2, kind, st);
+  if (err) return err;
+  estep_het<<<(B + ESTEP_THREADS - 1) / ESTEP_THREADS, ESTEP_THREADS, 0, st>>>(mf, vf, y, params, c, phi, gamma,
+                                                                               theta, sigg, wg, ws, B);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_stats(kappa, wg, ws, s1_part, s2_part, s1, s2, B, M, 2, nchunks, rows_per_chunk, st);
 }
 
 }  // extern "C"

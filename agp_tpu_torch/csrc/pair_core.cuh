@@ -3,11 +3,13 @@
 //   * the row tile's gram, FP32, into a [TB, M] slab of shared memory
 //     (gram_slab), and the product of a [TB, M] slab with an [M, N] matrix
 //     streamed from device memory (L2) on the tensor cores in 3xTF32
-//     (tc_product): kappa = Knm K^-1 in kernels 1, 4, 6 and 8, kappa Sigma
-//     in kernels 1, 4 and 8 (kappa copied back into the slab, load_rows), and
+//     (tc_product): kappa = Knm K^-1 in kernels 1-4, 6 and 8, kappa Sigma
+//     in kernels 1-4 and 8 (kappa copied back into the slab, load_rows), and
 //     kernel 9's W = Knm L^-T and kappa = W L^-1; each calls back an
 //     epilogue once a column tile of the output is complete, in registers
 //     (mma fragments);
+//   * the moments pass of kernels 1-4 built from them (moment_rows: kappa,
+//     Ktilde, mf and vf of one row tile and latent);
 //   * through stats_tc.cuh, the statistics s1 = kappa^T g and
 //     S2 = kappa^T diag(theta) kappa of kernels 5 and 7.
 // The split, the mma and the copies are tf32_mma.cuh's.  See
@@ -368,6 +370,80 @@ __device__ __forceinline__ float row_total(const float* red, int t) {
 #pragma unroll
   for (int w = 1; w < C::WARPS_N; ++w) s += red[w * C::TB + t];
   return s;
+}
+
+// Shared memory of a moments pass (moment_rows): the slab [TB, S] (the
+// gram, then kappa), the scratch (the ring, or the gram's staging) and the
+// row sums [3, WARPS_N, TB]; D does not enter.  ops/cuda_kernels.py's
+// fused_fits (kernels 1-3) and kappa_smem_bytes (kernel 4) copy it: change
+// them together (chip_smoke.py's check_fused_fits and check_kappa_tiles
+// hold them against each other).
+template <class C>
+__host__ __device__ constexpr size_t rows_smem(int M) {
+  return sizeof(float) * ((size_t)C::TB * slab_stride(M) + slab_scratch<C>(M) + 3 * (size_t)C::WARPS_N * C::TB);
+}
+
+// The moments pass of kernels 1-4 over one row tile of one latent, in the
+// block's rows_smem(M) bytes at sm: the gram of x[row0 : row0 + nrows] / ls
+// against zl / ls into the slab (gram_into_slab); kappa = G K^-1
+// (tc_product), stored from the fragments to rows [0, nrows) of out [*, M],
+// with Ktilde's row sums against the gram slab and mf = kappa mu (mu from
+// L1) in its epilogue; kappa back into the slab in the gram's place (the
+// rows just written, still in L2: load_rows); kappa Sigma, contracted with
+// the slab in its epilogue for vf's quadratic form.  The row sums go by
+// shuffles and one slot a warp column, added in a fixed order; then for
+// each row t < nrows, fin(t, mf, vf) with
+//   Ktilde = max(var + jitt - rowsum(kappa o Knm), 1e-12),
+//   vf     = max(Ktilde + rowsum((kappa Sigma) o kappa), 1e-12),
+// one thread a row.  vec: 16-byte copies of K^-1 and of kappa's rows;
+// vec_s: of Sigma.
+template <class C, class Fin>
+__device__ __forceinline__ void moment_rows(float* sm, int kind, const float* __restrict__ x,
+                                            const float* __restrict__ zl, const float* __restrict__ ls, float var,
+                                            float jitt, const float* __restrict__ kinv, const float* __restrict__ mu,
+                                            const float* __restrict__ sigma, float* __restrict__ out, int row0,
+                                            int nrows, int D, int M, bool vec, bool vec_s, Fin fin) {
+  constexpr int TB = C::TB;
+  const int S = slab_stride(M);
+  float* G = sm;                           // [TB, S]  the gram, then kappa; zero past M
+  float* ring = G + TB * S;                // the ring; x / ls and z / ls while the gram forms
+  float* red = ring + slab_scratch<C>(M);  // [3, WARPS_N, TB]  row sums: Ktilde, mf, vf
+
+  gram_into_slab<C>(kind, x, zl, ls, var, G, S, ring, row0, nrows, D, M);
+
+  float kq[C::MI][2] = {}, mq[C::MI][2] = {}, vq[C::MI][2] = {};
+  tc_product<C>(G, S, kinv, M, ring, vec, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
+    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
+      if (col < M) {
+        kq[mi][h] = fmaf(v0, G[row * S + col], kq[mi][h]);
+        mq[mi][h] = fmaf(v0, __ldg(mu + col), mq[mi][h]);
+      }
+      if (col + 1 < M) {
+        kq[mi][h] = fmaf(v1, G[row * S + col + 1], kq[mi][h]);
+        mq[mi][h] = fmaf(v1, __ldg(mu + col + 1), mq[mi][h]);
+      }
+      store_pair(out, M, nrows, row, col, v0, v1);
+    });
+  });
+  // The gram is spent: the rows just written (tc_product ends with a
+  // barrier) come back into the slab in its place (its columns [M, mk)
+  // stay zero), so that one slab serves both products.
+  load_rows<C>(G, S, out, M, nrows, vec);
+  tc_product<C>(G, S, sigma, M, ring, vec_s, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
+    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
+      if (col < M) vq[mi][h] = fmaf(v0, G[row * S + col], vq[mi][h]);
+      if (col + 1 < M) vq[mi][h] = fmaf(v1, G[row * S + col + 1], vq[mi][h]);
+    });
+  });
+  constexpr int R = C::WARPS_N * TB;
+  row_partials<C>(kq, red);
+  row_partials<C>(mq, red + R);
+  row_partials<C>(vq, red + 2 * R);
+  __syncthreads();
+  for (int t = threadIdx.x; t < nrows; t += C::THREADS) {
+    const float kt = fmaxf(var + jitt - row_total<C>(red, t), 1e-12f);
+    fin(t, row_total<C>(red + R, t), fmaxf(kt + row_total<C>(red + 2 * R, t), 1e-12f));
+  }
 }
 
 // fn(KTile<tile_rows>()) for the runtime row tile `tile_rows` (64, 32 or 16);

@@ -17,11 +17,11 @@ Matern kernel (``kernels.FUSED_KINDS``); each function of
 version on a CPU tensor:
 
 * fused when it fits: when ``cuda_kernels.fused_fits`` holds for the
-  model's (latents, D, M) (M <= 128, and at M=128 D <= 44 for one latent,
-  D <= 45 for several), an unweighted batch takes one fused statistics
-  pass: ``fused_cavi_stats`` for the eight single-latent likelihoods it
-  covers, ``fused_cavi_stats_multiclass`` for the logistic-softmax one,
-  ``fused_cavi_stats_het`` for the heteroscedastic one;
+  model's (latents, D, M) (M <= 128, any D), an unweighted batch takes
+  one fused statistics pass: ``fused_cavi_stats`` for the eight
+  single-latent likelihoods it covers, ``fused_cavi_stats_multiclass``
+  for the logistic-softmax one, ``fused_cavi_stats_het`` for the
+  heteroscedastic one;
 * else a split pair around the likelihood's own ``local_updates`` and
   gradients, as the reference lays it out:
   - one latent: ``latent_moments`` takes ``fused_kappa`` (kappa, Ktilde),

@@ -11,9 +11,9 @@ statistics:
     tiles on the split pairs' device code);
   - ``fused_cavi_stats_multiclass``: K latents, the logistic-softmax
     E-step; ``fused_cavi_stats_het``: the two latents of the
-    heteroscedastic likelihood; both in ``csrc/fused_cavi_stats_multi.cu``,
-    with K^-1 and Sigma whole in a block's shared memory (a footprint
-    within 232,448 bytes: D <= 45 at M=128);
+    heteroscedastic likelihood; both in ``csrc/fused_cavi_stats_multi.cu``
+    (kernel 1's moments pass over a (row tile, latent) grid, then the
+    coupled E-step and kernel 5's statistics tiles), any D;
 * the split pairs, which leave the E-step to the caller:
   - the batched pair, for several latents and M up to 2,392:
     ``fused_kappa_moments_batched`` (kappa, mf, vf; differentiable) and
@@ -74,18 +74,15 @@ _HEADERS = tuple(_PKG / "csrc" / name
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# largest inducing set the fused kernels take: kernel 1's row tile has one
-# output tile of 128 columns (csrc/fused_cavi_stats.cu); kernels 2-3 hold
-# K^-1 and Sigma whole in a block's shared memory
+# largest inducing set the fused kernels take: their row tile has one
+# output tile of 128 columns (csrc/fused_cavi_stats.cu, kernels 2-3 alike)
 MAX_M = 128
 # shared memory a block may opt into on an H100 (bytes)
 SMEM_OPTIN = 232448
-# rows of the fused kernels' tiles (TB in csrc/fused_cavi_stats*.cu)
-_FUSED_TILE_ROWS = 64
-# kernel 1's row tile beyond its rows (Tile in csrc/fused_cavi_stats.cu):
-# rows of a stage of its ring (KB) and its warp columns (WARPS_N), over
-# one output tile of MAX_M columns
-_FUSED_STAGE_ROWS, _FUSED_WARPS_N = 16, 4
+# the fused kernels' row tile (Tile in csrc/fused_cavi_stats*.cu): its
+# rows (TB), the rows of a stage of its ring (KB) and its warp columns
+# (WARPS_N), over one output tile of MAX_M columns
+_FUSED_TILE_ROWS, _FUSED_STAGE_ROWS, _FUSED_WARPS_N = 64, 16, 4
 # features per chunk of the plain versions' direct-difference r2, and the
 # fewest a gram pass of kernels 4 and 6 stages (DC in csrc/pair_core.cuh)
 _FEATURE_CHUNK = 8
@@ -170,14 +167,12 @@ def _library() -> ctypes.CDLL:
     lib.agp_fused_cavi_smem_bytes.restype = ctypes.c_size_t
     lib.agp_cuda_error_string.argtypes = [i]
     lib.agp_cuda_error_string.restype = ctypes.c_char_p
-    lib.agp_fused_cavi_stats_multiclass.argtypes = [p] * 21 + [i, i, i, i, i, p]
+    lib.agp_fused_cavi_stats_multiclass.argtypes = [p] * 22 + [i] * 7 + [p]
     lib.agp_fused_cavi_stats_multiclass.restype = i
-    lib.agp_fused_cavi_stats_het.argtypes = [p] * 20 + [i, i, i, i, p]
+    lib.agp_fused_cavi_stats_het.argtypes = [p] * 21 + [i] * 6 + [p]
     lib.agp_fused_cavi_stats_het.restype = i
-    lib.agp_multi_smem_bytes.argtypes = [i, i]
+    lib.agp_multi_smem_bytes.argtypes = [i]
     lib.agp_multi_smem_bytes.restype = ctypes.c_size_t
-    lib.agp_multi_tile_rows.argtypes = []
-    lib.agp_multi_tile_rows.restype = i
     lib.agp_kappa_moments_smem_bytes.argtypes = [i, i]
     lib.agp_kappa_moments_smem_bytes.restype = ctypes.c_size_t
     lib.agp_fused_kappa_moments_batched.argtypes = [p] * 9 + [i] * 6 + [p]
@@ -207,19 +202,17 @@ def _library() -> ctypes.CDLL:
 def fused_fits(n_latent: int, D: int, M: int) -> bool:
     """Whether the fused statistics kernels take a model of ``n_latent``
     latents, D features and M inducing points: 1 <= M <= MAX_M and the
-    kernel's shared memory (a Python mirror of
-    ``agp_fused_cavi_smem_bytes`` for one latent, which D does not enter,
-    and ``agp_multi_smem_bytes`` for several) within ``SMEM_OPTIN``.  The
-    same answer on the CPU and on the card.  A copy of the C formulas
-    (each names this function): change them together."""
+    rows pass's shared memory within ``SMEM_OPTIN``.  Kernels 1-3 share
+    one row tile and its footprint, which neither D nor the latents enter:
+    the slab, the ring or the gram's staging, three row sums (a Python
+    mirror of ``agp_fused_cavi_smem_bytes`` and ``agp_multi_smem_bytes``,
+    ``pair_core.cuh::rows_smem``, which name this function: change them
+    together).  The same answer on the CPU and on the card."""
     if D < 1 or not 1 <= M <= MAX_M:
         return False
     tb = _FUSED_TILE_ROWS
-    if n_latent == 1:  # the slab, the ring or the gram's staging, three row sums
-        ring = _KAPPA_STAGES * _FUSED_STAGE_ROWS * (MAX_M + 8)
-        words = tb * (-(-M // 8) * 8 + 4) + max(ring, _FEATURE_CHUNK * (tb + M + 2)) + 3 * _FUSED_WARPS_N * tb
-    else:  # the moments pass; the statistics pass needs less
-        words = tb * D + M * (D | 1) + 2 * M * M + M + 2 * tb * M + 2 * tb
+    ring = _KAPPA_STAGES * _FUSED_STAGE_ROWS * (MAX_M + 8)
+    words = tb * (-(-M // 8) * 8 + 4) + max(ring, _FEATURE_CHUNK * (tb + M + 2)) + 3 * _FUSED_WARPS_N * tb
     return 4 * words <= SMEM_OPTIN
 
 
@@ -523,13 +516,11 @@ fused_cavi_stats.launches = 0
 
 
 # ------------------------------------------------ multi-latent statistics
-def fused_cavi_stats_multiclass_reference(
-    xb, y_onehot, Z, L_invT, mu, Sigma, ls, var, jitt, rho, alpha0, beta0, kind="rbf",
-):
-    """Plain PyTorch version of :func:`fused_cavi_stats_multiclass`, in the
-    inputs' dtype, on their device.  Kinds: rbf, matern12, matern32,
-    matern52.  The digamma is ``torch.special.digamma``."""
-    kappa, mf, vf = fused_kappa_moments_batched_reference(xb, Z, L_invT, ls, var, mu, Sigma, jitt, kind)
+def _multiclass_estep(mf, vf, y_onehot, alpha0, beta0):
+    """Kernel 2's logistic-softmax E-step in plain PyTorch, from the
+    latents' moments mf, vf [K, B]: (c, theta, gamma [K, B], alpha [B],
+    g_mu, g_s [K, B]), gamma and alpha in two rounds with
+    ``torch.special.digamma``."""
     yT = y_onehot.T
     c = torch.sqrt(mf * mf + vf)
     expcosh = torch.exp(-mf / 2.0 - logcosh(c / 2.0))
@@ -538,7 +529,32 @@ def fused_cavi_stats_multiclass_reference(
         gamma = torch.exp(torch.special.digamma(alpha))[None, :] * expcosh / (2.0 * beta0[None, :])
         alpha = 1.0 + torch.sum(gamma, dim=0)
     theta = (yT + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
-    s1, S2 = cavi_stats_batched_reference(kappa, rho * ((yT - gamma) / 2.0), rho * (theta / 2.0))
+    return c, theta, gamma, alpha, (yT - gamma) / 2.0, theta / 2.0
+
+
+def _het_estep(m, v, yb, lam):
+    """Kernel 3's heteroscedastic E-step in plain PyTorch, with the old
+    ``lam``, from the moments m, v [2, B] of f and g: (c, phi, gamma,
+    theta, sigg [B], g_mu, g_s [2, B]), f's without the lambda factor."""
+    phi = ((m[0] - yb) ** 2 + v[0]) / 2.0
+    c = torch.sqrt(m[1] * m[1] + v[1])
+    sigg = torch.exp(-m[1] / 2.0 - logcosh(c / 2.0)) / 2.0
+    gamma = lam * phi * sigg
+    theta = (0.5 + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
+    gmu = torch.stack([yb * sigg / 2.0, (0.5 - gamma) / 2.0])
+    gs = torch.stack([sigg / 2.0, theta / 2.0])
+    return c, phi, gamma, theta, sigg, gmu, gs
+
+
+def fused_cavi_stats_multiclass_reference(
+    xb, y_onehot, Z, L_invT, mu, Sigma, ls, var, jitt, rho, alpha0, beta0, kind="rbf",
+):
+    """Plain PyTorch version of :func:`fused_cavi_stats_multiclass`, in the
+    inputs' dtype, on their device.  Kinds: rbf, matern12, matern32,
+    matern52.  The digamma is ``torch.special.digamma``."""
+    kappa, mf, vf = fused_kappa_moments_batched_reference(xb, Z, L_invT, ls, var, mu, Sigma, jitt, kind)
+    c, theta, gamma, alpha, gmu, gs = _multiclass_estep(mf, vf, y_onehot, alpha0, beta0)
+    s1, S2 = cavi_stats_batched_reference(kappa, rho * gmu, rho * gs)
     return s1, S2, c, theta, gamma, alpha
 
 
@@ -546,21 +562,14 @@ def fused_cavi_stats_het_reference(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, 
     """Plain PyTorch version of :func:`fused_cavi_stats_het`, in the inputs'
     dtype, on their device.  Kinds: rbf, matern12, matern32, matern52."""
     kappa, m, v = fused_kappa_moments_batched_reference(xb, Z, L_invT, ls, var, mu, Sigma, jitt, kind)
-    phi = ((m[0] - yb) ** 2 + v[0]) / 2.0
-    c = torch.sqrt(m[1] * m[1] + v[1])
-    sigg = torch.exp(-m[1] / 2.0 - logcosh(c / 2.0)) / 2.0
-    gamma = lam * phi * sigg
-    theta = (0.5 + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
-    wg = torch.stack([yb * sigg / 2.0, (0.5 - gamma) / 2.0])
-    ws = torch.stack([sigg / 2.0, theta / 2.0])
-    s1, S2 = cavi_stats_batched_reference(kappa, rho * wg, rho * ws)
+    c, phi, gamma, theta, sigg, gmu, gs = _het_estep(m, v, yb, lam)
+    s1, S2 = cavi_stats_batched_reference(kappa, rho * gmu, rho * gs)
     return s1, S2, c, phi, gamma, theta, sigg
 
 
 def _check_multi_args(name, xb, Z, mu, Sigma, per_row: dict, kind):
     """The CUDA multi-latent kernels' range: float32, a kind of ``KINDS``,
-    1 <= M <= MAX_M, B, D >= 1, and a shared-memory footprint within the
-    card's opt-in limit (checked at launch)."""
+    1 <= M <= MAX_M, B, D >= 1."""
     _check_kind(name, kind)
     B, D = xb.shape
     L, M = Z.shape[0], Z.shape[1]
@@ -584,35 +593,35 @@ def _multi_params(xb, L, jitt, rho, lam, ls, var):
 
 
 def _multi_launch(name, lib_fn, xb, Z, L_invT, mu, Sigma, params, inputs, outputs, ints):
-    """Shared-memory check, scratch allocation and the ctypes call of one
-    multi-latent kernel: ``inputs`` (the labels first) and ``outputs`` are
-    the tensors around params in the C signature, ``ints`` its sizes."""
+    """Scratch and the ctypes call of one multi-latent kernel: ``inputs``
+    (the labels first) and ``outputs`` are the tensors around params in the
+    C signature, ``ints`` its sizes before the chunk plan of the statistics
+    (``_stats_plan``).  Returns (s1, S2)."""
     dev = xb.device
-    B, D = xb.shape
+    B = xb.shape[0]
     L, M = Z.shape[0], Z.shape[1]
     lib = _library()
-    smem = lib.agp_multi_smem_bytes(D, M)
-    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
-    if smem > limit:
-        raise ValueError(
-            f"{name} at D={D}, M={M} needs {smem} bytes of shared memory; this card allows {limit} per block"
-        )
     if L_invT.device != dev or tuple(L_invT.shape) != (L, M, M):
         raise ValueError(f"L_invT must be [{L}, {M}, {M}] on {dev}")
-    kinv = _kinv(L_invT.to(torch.float32))
-    nb = -(-B // lib.agp_multi_tile_rows())
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = [torch.empty((L, B), **f32) for _ in range(4)]  # mf, vf, wg, ws
-    s1_part, s2_part = torch.empty((L, nb, M), **f32), torch.empty((L, nb, M, M), **f32)
-    s1, S2 = torch.empty((L, M), **f32), torch.empty((L, M, M), **f32)
     with torch.cuda.device(dev):
+        kinv = _kinv(L_invT.to(torch.float32))
+        nchunks, rows = _stats_plan(B, M, L, _stats_slots(dev.index), lib.agp_cavi_stats_tile())
+        mf, vf, wg, ws = torch.empty((4, L, B), **f32).unbind(0)
+        s1, S2 = torch.empty((L, M), **f32), torch.empty((L, M, M), **f32)
+        # one scratch: kappa [L, B, M] first (16-byte aligned), then the chunk
+        # partials of s1 [L, nchunks, M] and S2 [L, nchunks, M, M]
+        scratch = torch.empty((L * (B * M + nchunks * M * (M + 1)),), **f32)
+        kappa = scratch.data_ptr()
+        s1_part = kappa + 4 * L * B * M
+        s2_part = s1_part + 4 * L * nchunks * M
         err = lib_fn(
-            *(t.data_ptr() for t in (xb, inputs[0], Z, kinv, mu, Sigma, params, *inputs[1:], *outputs,
-                                     *scratch, s1_part, s2_part, s1, S2)),
-            *ints, torch.cuda.current_stream(dev).cuda_stream,
+            *(t.data_ptr() for t in (xb, inputs[0], Z, kinv, mu, Sigma, params, *inputs[1:], *outputs)),
+            kappa, *(t.data_ptr() for t in (mf, vf, wg, ws)), s1_part, s2_part, s1.data_ptr(), S2.data_ptr(),
+            *ints, nchunks, rows, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({lib.agp_cuda_error_string(err).decode()})")
+        raise _cuda_error(name, lib, err)
     return s1, S2
 
 
@@ -629,8 +638,12 @@ def fused_cavi_stats_multiclass(
     theta [K, B], gamma [K, B], alpha [B]).
 
     A CPU tensor runs :func:`fused_cavi_stats_multiclass_reference`.  A CUDA
-    tensor launches the kernel and adds one to
-    ``fused_cavi_stats_multiclass.launches``."""
+    tensor launches the kernel (float32, any B, D >= 1, 1 <= M <=
+    ``MAX_M``: kernel 1's 3xTF32 moments pass for each (row tile, latent),
+    one thread a row for the coupled E-step, then kernel 5's statistics
+    tiles; ``csrc/fused_cavi_stats_multi.cu``) and adds one to
+    ``fused_cavi_stats_multiclass.launches``.  S2 comes out exactly
+    symmetric."""
     if xb.device.type == "cpu":
         return fused_cavi_stats_multiclass_reference(
             xb, y_onehot, Z, L_invT, mu, Sigma, ls, var, jitt, rho, alpha0, beta0, kind=kind
@@ -670,7 +683,9 @@ def fused_cavi_stats_het(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lam, 
     new lambda is known.
 
     A CPU tensor runs :func:`fused_cavi_stats_het_reference`.  A CUDA tensor
-    launches the kernel and adds one to ``fused_cavi_stats_het.launches``."""
+    launches the kernel (as :func:`fused_cavi_stats_multiclass`'s, with the
+    heteroscedastic E-step) and adds one to
+    ``fused_cavi_stats_het.launches``."""
     if xb.device.type == "cpu":
         return fused_cavi_stats_het_reference(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lam, kind=kind)
     if xb.device.type != "cuda":
@@ -697,10 +712,18 @@ def _cuda_error(name, lib, err):
     return RuntimeError(f"{name} launch failed: CUDA error {err} ({lib.agp_cuda_error_string(err).decode()})")
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_limit(device_index: int) -> int:
+    """Shared memory a block may opt into on the card (bytes), read once a
+    device."""
+    props = torch.cuda.get_device_properties(device_index)
+    return getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
+
+
 def _kappa_tile(which, name, M, dev):
     """Kernel 4's or 6's row tile at M on the card (``kappa_tile_rows``
     with its opt-in limit), or ValueError beyond its shared memory."""
-    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
+    limit = _smem_limit(dev.index)
     tb = kappa_tile_rows(which, M, limit)
     if tb is None:
         raise ValueError(

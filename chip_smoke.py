@@ -9,9 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels from the repo's sources with nvcc for
    sm_90a, one nvcc per source, all at once (each kernel's registers and
    spills from ptxas); then the TF32 tensor-core instructions that
-   ``cuobjdump -sass`` finds in each instance of kernels 1 and 4-9
-   (cavi_rows, kappa_moments_batched, kappa_single, stats_tc,
-   variant_rows; none fails the run), and kernels 1, 4, 6 and 8-9's shared
+   ``cuobjdump -sass`` finds in each instance of kernels 1-9 (cavi_rows,
+   latent_rows, kappa_moments_batched, kappa_single, stats_tc,
+   variant_rows; none fails the run), and kernels 1-4, 6 and 8-9's shared
    memory against the wrappers' Python copies of it, which choose their
    row tiles and the fused dispatch;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
@@ -26,7 +26,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      kind (Student-t), held against the plain version in float64 with no
      floor (see FLOAT32_FACTOR);
    - fused_cavi_stats_multiclass at B=2048, M=64, D=10, K=10, and
-     fused_cavi_stats_het at B=2048, M=64, D=10, each with every kind;
+     fused_cavi_stats_het at B=2048, M=64, D=10, each with every kind, at
+     B=300, M=128 and D=64 (M=128), a second call of each bit-equal and S2
+     exactly symmetric; at the reference's multi-latent oracle shapes cut
+     to M=128 (multiclass K=3, B=8192, D=2; heteroscedastic B=16,384,
+     D=1) with every kind against the float64 plain version with no
+     floor; the device us of each launch and the products alone
+     (torch.bmm) at the paths' shape;
 4. flagship path: SVGP + RBF + logistic, N=200,000, D=20, M=64, B=4096,
    block sampling, float32, trained through agp_tpu_torch.train with one
    kernel launch per step; training accuracy and steady-state CAVI
@@ -104,9 +110,10 @@ Each phase's wall time is logged, then all of them and the total.  Prints
 the kernels' JSON line, then the device JSON line last.
 
 Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``,
-``profile multiclass`` or ``profile hyper A|B`` (torch.profiler over 20
-steps of an M=512 path, or 20 iterations of path A or B with a
-hyperparameter step each), ``profile kernels`` (device time of the bench's
+``profile multiclass``, ``profile multiclass_k10|het`` or ``profile hyper
+A|B`` (torch.profiler over 20 steps of an M=512 path or of path 7 or 8,
+or 20 iterations of path A or B with a hyperparameter step each),
+``profile kernels`` (device time of the bench's
 candidates at each of its shapes: kernels 1 (M <= 128), 8, 9, the sweep's
 bar; kernel 10 and index_select),
 ``moved-paths`` (a row-weighted step and elbo at fused-range shapes),
@@ -123,11 +130,17 @@ rows by CUDA events and device us beside the bar, and each form with
 each row tile at the sweep's M=128 and M=512 rows), ``fused`` (kernel 1
 by CUDA events and device us at the flagship, the oracle shape and the
 sweep's row, beside the sweep's bar), ``paths`` (the rates of the
-host-bound paths that take kernel 1).  ``ab ROOT MODE...``
-runs any mode with agp_tpu_torch imported from ROOT (an earlier commit
-unpacked under _chip/), to compare two trees in one call: ``ab ROOT
-kappa`` and ``kappa`` (or ``variants``, ``fused``, ``paths``) in the
-order parent, this, this, parent.
+host-bound paths that take kernel 1), ``multi`` (kernels 2-3 by CUDA
+events and device us at the paths' shapes and the oracle shapes beside
+their products alone, the multiclass and heteroscedastic paths' rates
+and profiles), ``bits FILE`` (digests of kernels 1 and 4-9's outputs on
+seeded inputs, written to FILE or held bit-equal to it).  ``ab ROOT
+MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
+earlier commit unpacked under _chip/), to compare two trees in one call:
+``ab ROOT kappa`` and ``kappa`` (or ``variants``, ``fused``, ``paths``,
+``multi``) in the order parent, this, this, parent; ``ab ROOT bits
+FILE`` then ``bits FILE`` holds this tree's kernels 1 and 4-9 bit-equal
+to ROOT's.
 """
 from __future__ import annotations
 
@@ -284,17 +297,17 @@ def phase_build(ck):
 
 # the kernels that run on the tensor cores, by the name of their CUDA
 # function: every instance must hold TF32 mma instructions
-TC_KERNELS = {"cavi_rows": "kernel 1", "kappa_moments_batched": "kernel 4", "stats_tc": "kernels 1, 5, 7 and 8-9",
-              "kappa_single": "kernel 6", "variant_rows": "kernels 8-9"}
+TC_KERNELS = {"cavi_rows": "kernel 1", "latent_rows": "kernels 2-3", "kappa_moments_batched": "kernel 4",
+              "stats_tc": "kernels 1-3, 5, 7 and 8-9", "kappa_single": "kernel 6", "variant_rows": "kernels 8-9"}
 
 
 def check_tc_sass(lib_path):
-    """Kernels 1 and 4-9 run on the tensor cores: every instance of
-    cavi_rows (kernel 1), kappa_moments_batched (4), kappa_single (6),
-    stats_tc (5 and 7, and the statistics of 1 and 8-9) and variant_rows
-    (8-9, every form) in the built library holds TF32 HMMA (or HGMMA)
-    instructions, as ``cuobjdump -sass`` shows them, and each of the five
-    has one."""
+    """Kernels 1-9 run on the tensor cores: every instance of cavi_rows
+    (kernel 1), latent_rows (2-3), kappa_moments_batched (4), kappa_single
+    (6), stats_tc (5 and 7, and the statistics of 1-3 and 8-9) and
+    variant_rows (8-9, every form) in the built library holds TF32 HMMA (or
+    HGMMA) instructions, as ``cuobjdump -sass`` shows them, and each of the
+    six has one."""
     import re
     import shutil
 
@@ -317,8 +330,8 @@ def check_tc_sass(lib_path):
                              f"no instance of {missing}")
     for fn, n in sorted(counts.items()):
         stats = re.search(r"stats_tcILb(\d)", fn)
-        tile = re.search(r"(cavi_rows|kappa_single|kappa_moments_batched|variant_rows)INS_9TileShapeILi(\d+)ELi(\d+)"
-                         r"ELi(\d+)E", fn)
+        tile = re.search(r"(cavi_rows|latent_rows|kappa_single|kappa_moments_batched|variant_rows)"
+                         r"INS_9TileShapeILi(\d+)ELi(\d+)ELi(\d+)E", fn)
         if stats:
             label = f"stats_tc<{'16-byte' if stats[1] == '1' else '4-byte'} copies>"
         elif tile:
@@ -385,74 +398,161 @@ def phase_kernel_vs_plain(ck, device):
     return errs, kern_ms, plain_ms
 
 
-def multi_inputs(b, m, n_latent, device, seed=0, kind="rbf"):
+def multi_inputs(b, m, n_latent, device, seed=0, kind="rbf", d=MD):
     """Float32 card tensors as the multi-latent paths hand them to their
-    kernels: Z from the data, per-latent lengthscale 2 and variance 1,
-    K^-1 from the gram of ``kind``, random SPD Sigma, one-hot labels
-    (multiclass), y = sin(x_0) (heteroscedastic), alpha = beta = K as at
-    the first step."""
+    kernels: Z from the data, per-latent lengthscale 2 sqrt(d / 10) (the
+    paths' 2 at their D=10) and variance 1, K^-1 from the gram of
+    ``kind``, random SPD Sigma, one-hot labels (multiclass), y = sin(x_0)
+    (heteroscedastic), alpha = beta = K as at the first step, rho = N/B of
+    the paths and lambda 1."""
     import agp_tpu_torch as agt
     from agp_tpu_torch.ops import linalg
 
     rng = np.random.default_rng(seed)
-    X = rng.normal(size=(b + m, MD))
+    X = rng.normal(size=(b + m, d))
     A = rng.normal(size=(n_latent, m, m))
+    ls = 2.0 * (d / MD) ** 0.5
     t = {
-        "X": X[m:], "Z": np.stack([X[:m]] * n_latent), "ls": np.full((n_latent, MD), 2.0),
+        "X": X[m:], "Z": np.stack([X[:m]] * n_latent), "ls": np.full((n_latent, d), ls),
         "var": np.ones(n_latent), "mu": rng.normal(size=(n_latent, m)),
         "Sigma": A @ A.transpose(0, 2, 1) / m + np.eye(m),
         "onehot": np.eye(n_latent)[rng.integers(0, n_latent, size=b)], "y": np.sin(X[m:, 0]),
         "alpha": np.full(b, float(n_latent)), "beta": np.full(b, float(n_latent)),
     }
     t = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in t.items()}
-    kern = {v: k for k, v in agt.kernels.FUSED_KINDS.items()}[kind](lengthscale=2.0)
+    kern = {v: k for k, v in agt.kernels.FUSED_KINDS.items()}[kind](lengthscale=ls)
     L = linalg.safe_cholesky(kern.gram(t["Z"][0]), 1e-3)
     eye = torch.eye(m, dtype=torch.float32, device=device)
     t["L_invT"] = torch.linalg.solve_triangular(L, eye, upper=False).T.expand(n_latent, m, m).contiguous()
-    t["kind"] = kind
+    t.update(kind=kind, rho=MN / MB, lam=1.0)
+    return t
+
+
+def multi_oracle_inputs(which, device, kind="rbf"):
+    """Card tensors of kernels 2-3 at the reference's multi-latent oracles
+    (tpu_acceptance.py:370-412) cut to M=128, as phase 12 takes them at
+    M=512 (pair_inputs: Z on the batch's rows, lengthscale 1, K^-1 from
+    the float32 Cholesky of the kind's Kmm, cond up to ~1e5): multiclass
+    K=3, B=8192, D=2 (pair_mc_data; one-hot labels, alpha = beta = K as at
+    the first step) or heteroscedastic B=16,384, D=1 (pair_het_data;
+    lambda 8); rho = N/B."""
+    if which == "multiclass":
+        X, y = pair_mc_data("cpu")
+        b = PAIR_MC_B
+        t = pair_inputs(X, b, OM, 3, device, kind=kind, ls=1.0)
+        f32 = dict(dtype=torch.float32, device=device)
+        t.update(onehot=torch.eye(3, **f32)[y[:b].to(device)], alpha=torch.full((b,), 3.0, **f32),
+                 beta=torch.full((b,), 3.0, **f32))
+    else:
+        X, y, _ = pair_het_data("cpu")
+        b = PAIR_HET_B
+        t = pair_inputs(X, b, OM, 2, device, kind=kind, ls=1.0)
+        t["y"] = y[:b].to(device).contiguous()
+    t.update(rho=ON / b, lam=8.0)
     return t
 
 
 def call_mc(fn, t):
-    return fn(t["X"], t["onehot"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], t["ls"], t["var"], 1e-3, MN / MB,
+    return fn(t["X"], t["onehot"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], t["ls"], t["var"], 1e-3, t["rho"],
               t["alpha"], t["beta"], kind=t["kind"])
 
 
 def call_het(fn, t):
-    return fn(t["X"], t["y"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], t["ls"], t["var"], 1e-3, MN / MB, 1.0,
+    return fn(t["X"], t["y"], t["Z"], t["L_invT"], t["mu"], t["Sigma"], t["ls"], t["var"], 1e-3, t["rho"], t["lam"],
               kind=t["kind"])
+
+
+# kernels 2 and 3: (path, latents at the bench's shape, caller, output names)
+MULTI_KERNELS = {
+    "fused_cavi_stats_multiclass": ("multiclass", MK, call_mc, ("s1", "S2", "c", "theta", "gamma", "alpha")),
+    "fused_cavi_stats_het": ("het", 2, call_het, ("s1", "S2", "c", "phi", "gamma", "theta", "sigg")),
+}
+
+
+def multi_products(ck, t):
+    """One PyTorch call each of kernels 2-3's three tensor products alone,
+    torch.bmm(Knm, K^-1), torch.bmm(kappa, Sigma) and
+    torch.bmm((theta kappa)^T, kappa), on float32 operands the plain
+    version forms from the case's inputs: a yardstick of the products, not
+    the whole function, which the port never calls."""
+    kinv = ck._kinv(t["L_invT"])
+    ls = t["ls"][:, None, :]
+    kappa, _, knm = ck._kappa_ktilde(t["X"][None] / ls, t["Z"] / ls, kinv, t["var"], 1e-3, t["kind"])
+    th = torch.rand(kappa.shape[:2], device=kappa.device, generator=torch.Generator(kappa.device).manual_seed(0))
+    return lambda: (torch.bmm(knm, kinv), torch.bmm(kappa, t["Sigma"]), torch.bmm((kappa * th[..., None]).mT, kappa))
+
+
+def multi_oracle_check(ck, name, kind, device):
+    """Kernel ``name`` at its oracle shape (multi_oracle_inputs) against
+    the float64 plain version with no floor: every output within
+    FLOAT32_FACTOR times the float32 plain version's own error; S2 exactly
+    symmetric and a second call bit-equal.  Returns {output: (kernel,
+    float32 plain) error against float64}."""
+    which, _, call_fn, names = MULTI_KERNELS[name]
+    t = multi_oracle_inputs(which, device, kind)
+    kern, plain = getattr(ck, name), getattr(ck, name + "_reference")
+    got = call_fn(kern, t)
+    torch.cuda.synchronize()
+    ref, ref64 = call_fn(plain, t), call_fn(plain, to_float64(t))
+    label = f"{name} {kind} oracle B={t['X'].shape[0]} D={t['X'].shape[1]} M={OM}"
+    check_outputs(label, names, got, ref, ref64, floor=0.0)
+    check_stats_repeat(label, lambda: call_fn(kern, t), (), got)
+    out = {}
+    for i, n in enumerate(names):
+        scale = max(float(ref64[i].abs().max()), 1.0)
+        out[n] = tuple(float((o[i].double() - ref64[i]).abs().max()) / scale for o in (got, ref))
+    return out
 
 
 def phase_multi_kernels_vs_plain(ck, device):
     """Both multi-latent kernels against their plain versions: rbf at the
-    path's shape, B=300 and M=128, each Matern kind at the path's shape;
-    each kind timed at the path's shape.  Returns {name: (largest abs error
-    over every check, kernel ms, plain ms, {kind: (kernel ms, plain ms)})},
-    the first two at rbf."""
-    cases = {
-        "fused_cavi_stats_multiclass": (MK, call_mc, ("s1", "S2", "c", "theta", "gamma", "alpha")),
-        "fused_cavi_stats_het": (2, call_het, ("s1", "S2", "c", "phi", "gamma", "theta", "sigg")),
-    }
+    path's shape, B=300, M=128 and D=64 at M=128 (B=2048 and 300), each
+    Matern kind at the path's shape, a second call of each bit-equal and S2
+    exactly symmetric; at the oracle shapes (multi_oracle_inputs) with
+    every kind against the float64 plain version with no floor
+    (multi_oracle_check); then each kind timed at the path's shape beside
+    the plain version, and at rbf the device us of each launch (profiler)
+    and the products alone (multi_products).  Returns {name: {"worst":
+    largest abs error against the float32 plain version, "ms", "plain_ms"
+    (rbf), "per_kind": {kind: (ms, plain ms)}, "device_us",
+    "device_us_by_kernel", "products_ms", "products_device_us", "oracle":
+    {kind: multi_oracle_check's}}}."""
     out = {}
-    for name, (n_latent, call_fn, names) in cases.items():
+    for name, (_, n_latent, call_fn, names) in MULTI_KERNELS.items():
         kern, plain = getattr(ck, name), getattr(ck, name + "_reference")
-        worst, per_kind = 0.0, {}
-        checks = [("rbf", MB, MM), ("rbf", 300, MM), ("rbf", MB, 128)] + [(k, MB, MM) for k in ck.KINDS[1:]]
-        for kind, b, m in checks:
-            t = multi_inputs(b, m, n_latent, device, kind=kind)
+        worst, per_kind, oracle = 0.0, {}, {}
+        checks = [("rbf", MB, MM, MD), ("rbf", 300, MM, MD), ("rbf", MB, 128, MD), ("rbf", MB, 128, 64),
+                  ("rbf", 300, 128, 64)] + [(k, MB, MM, MD) for k in ck.KINDS[1:]]
+        for kind, b, m, d in checks:
+            t = multi_inputs(b, m, n_latent, device, kind=kind, d=d)
             got = call_fn(kern, t)
             torch.cuda.synchronize()
             ref = call_fn(plain, t)
             torch.cuda.synchronize()
-            row = check_outputs(f"{name} {kind} B={b} M={m}", names, got, ref)
+            label = f"{name} {kind} B={b} D={d} M={m}"
+            row = check_outputs(label, names, got, ref)
+            check_stats_repeat(label, lambda: call_fn(kern, t), (), got)
             worst = max(worst, *row.values())
-            log(f"{name} vs plain {kind} B={b} M={m}: max abs err " + " ".join(f"{k}={v:.2e}" for k, v in row.items()))
+            log(f"{name} vs plain {kind} B={b} D={d} M={m}: max abs err "
+                + " ".join(f"{k}={v:.2e}" for k, v in row.items()))
+        for kind in ck.KINDS:
+            oracle[kind] = multi_oracle_check(ck, name, kind, device)
+            log(f"{name} {kind} at the oracle shape against float64, kernel / float32 plain: "
+                + " ".join(f"{k}={a:.3e}/{p:.3e}" for k, (a, p) in oracle[kind].items()))
         for kind in ck.KINDS:
             t = multi_inputs(MB, MM, n_latent, device, kind=kind)
             per_kind[kind] = timed_pair(lambda: call_fn(kern, t), lambda: call_fn(plain, t))
             log(f"{name} {kind} B={MB} D={MD} M={MM} L={n_latent}: kernel {per_kind[kind][0]:.4f} ms, "
                 f"plain {per_kind[kind][1]:.4f} ms per call")
-        out[name] = (worst, *per_kind["rbf"], per_kind)
+        t = multi_inputs(MB, MM, n_latent, device)
+        dev, dev_by = device_us(lambda: call_fn(kern, t))
+        products = multi_products(ck, t)
+        out[name] = {"worst": worst, "ms": per_kind["rbf"][0], "plain_ms": per_kind["rbf"][1], "per_kind": per_kind,
+                     "device_us": dev, "device_us_by_kernel": dev_by, "products_ms": cuda_ms(products),
+                     "products_device_us": device_us(products)[0], "oracle": oracle}
+        log(f"{name} rbf B={MB} D={MD} M={MM}: device {dev:.1f} us ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in dev_by.items()) + f"); the products alone (torch.bmm x3) "
+            f"{out[name]['products_ms']:.4f} ms, device {out[name]['products_device_us']:.1f} us")
     return out
 
 
@@ -1151,12 +1251,12 @@ def reset_launches(ck):
 def check_fused_fits(ck):
     """fused_fits (Python, the same on the CPU) against the library's own
     shared-memory functions of kernels 1-3 on a grid of (latents, D, M)
-    (kernel 1's does not depend on D)."""
+    (neither depends on D)."""
     lib, n = ck._library(), 0
     for d in (1, 2, 10, 20, 44, 45, 46, 64, 4096):
         for m in (1, 16, 63, 64, 127, 128, 129, 512):
             for n_latent in (1, 2, 10):
-                smem = lib.agp_fused_cavi_smem_bytes(m) if n_latent == 1 else lib.agp_multi_smem_bytes(d, m)
+                smem = lib.agp_fused_cavi_smem_bytes(m) if n_latent == 1 else lib.agp_multi_smem_bytes(m)
                 if ck.fused_fits(n_latent, d, m) != (m <= ck.MAX_M and smem <= ck.SMEM_OPTIN):
                     raise AssertionError(f"fused_fits({n_latent}, {d}, {m}) disagrees with {smem} bytes")
                 n += 1
@@ -1284,8 +1384,8 @@ def fused_bound(b, d, m, n_latent, label_words):
     outputs beyond x).  Returns three bounds, each (ms, by), as
     kappa_bounds: the function's (its products once at the TF32 peak,
     ``tc_bound``), a 3xTF32 design's (kappa and kappa Sigma in full and S2's
-    upper triangle in three TF32 passes: kernel 1's design) and the FP32
-    one (``bound``), which kernels 2-3, FP32 designs, answer to."""
+    upper triangle in three TF32 passes: kernels 1-3's design) and the
+    FP32 one (``bound``)."""
     tc = n_latent * b * (m * m + 2 * sym_fmas(m))
     design = 3 * n_latent * b * (2 * m * m + sym_fmas(m))
     simt = n_latent * b * (m * d + 5 * m)
@@ -1918,10 +2018,11 @@ def profile_hyper_path(agt, device, which):
 
 def profile_pair_path(agt, device, which):
     """torch.profiler over 20 steady-state steps (after 30) of
-    logistic_m512_b65536 or the M=512 multiclass path
-    (``python3 chip_smoke.py profile logistic|multiclass``): wall and
-    device-busy time per step, the device's idle share, kernel launches
-    per step and the device time of the largest kernels."""
+    logistic_m512_b65536, the M=512 multiclass path or the bench's
+    multiclass (K=10) and heteroscedastic paths at M=64 (``python3
+    chip_smoke.py profile logistic|multiclass|multiclass_k10|het``): wall
+    and device-busy time per step, the device's idle share, kernel
+    launches per step and the device time of the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from agp_tpu_torch.training.train import vi_steps
@@ -1929,9 +2030,13 @@ def profile_pair_path(agt, device, which):
     if which == "logistic":
         X, y = big_logistic_data(device)
         model = big_logistic_model(agt, X)
-    else:
+    elif which == "multiclass":
         X, y = pair_mc_data(device)
         model = pair_multi_model(agt, X, "multiclass")
+    else:  # the bench's multi-latent paths (phases 7-8)
+        path = "multiclass" if which == "multiclass_k10" else "het"
+        X, y = (mc_data if path == "multiclass" else het_data)(device)
+        model = multi_model(agt, X, path)
     y_t, lik = model.likelihood.treat_labels(y)
     model = model.replace(likelihood=lik)
     y_t = y_t.to(X.dtype)
@@ -2110,11 +2215,12 @@ def variants_mode(agt, device):
     if hasattr(fv, "_VARIANT_TILES"):
         out["tiles"] = {}
         names = {"direct": "direct_stats", "packed": "direct_stats", "two_factor": "two_factor_nt"}
+        limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
         for b, d, m in ((262_144, 8, 128), (65_536, 8, 512)):
             t = bench.sweep_inputs(b, d, m, device)
             for form in fv._FORMS:
                 for tile in fv._VARIANT_TILES:
-                    if fv.variant_smem_bytes(m, tile) > fv._smem_limit(0):
+                    if fv.variant_smem_bytes(m, tile) > limit:
                         continue
                     key = f"{shape_key(b, d, m)} {form} {tile[0]}x{tile[1]}"
                     out["tiles"][key] = cuda_ms(lambda: fv._variant_launch(names[form], form, *bench.sweep_args(t),
@@ -2187,6 +2293,100 @@ def paths_mode(agt, ck, device):
     phase_studentt_rate(agt, ck, device)
     phase_oracles(agt, ck, device)
     phase_hyper_path(agt, ck, device, "A")
+
+
+def multi_mode(agt, ck, device):
+    """``python3 chip_smoke.py multi`` (``ab ROOT multi`` for an earlier
+    tree): kernels 2-3 at the bench's paths' shapes and at the oracle
+    shapes (multi_oracle_inputs), rbf, by CUDA events (the median of three
+    runs of 200 calls) with the host us a call (the median of three runs
+    of 1000 calls), beside their products alone (multi_products); then
+    (the profiler after every timing) the device us of each, by kernel;
+    then the multiclass and heteroscedastic paths' steady rates (phases
+    7-8) and their profiles (profile_pair_path).  Last a JSON line of
+    them."""
+    tree = os.path.relpath(os.path.dirname(agt.__file__))
+    log(f"multi: agp_tpu_torch from {tree}")
+    out = {"tree": tree, "ms": {}, "host_us": {}, "products_ms": {}, "device_us": {}, "device_us_by_kernel": {},
+           "products_device_us": {}, "ips": {}, "profile": {}}
+    cases = {}
+    for name, (which, n_latent, call_fn, _) in MULTI_KERNELS.items():
+        for at, t in (("bench", multi_inputs(MB, MM, n_latent, device)), ("oracle", multi_oracle_inputs(which, device))):
+            key = f"{name} {at} B={t['X'].shape[0]} D={t['X'].shape[1]} M={t['Z'].shape[1]} L={t['Z'].shape[0]}"
+            cases[key] = (lambda t=t, fn=getattr(ck, name), c=call_fn: c(fn, t), multi_products(ck, t))
+    for key, (fn, products) in cases.items():
+        out["ms"][key] = sorted(cuda_ms(fn) for _ in range(3))[1]
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        out["host_us"][key] = sorted(runs)[1]
+        out["products_ms"][key] = cuda_ms(products)
+        log(f"multi {key}: kernel {out['ms'][key]:.4f} ms, host {out['host_us'][key]:.1f} us a call; the products "
+            f"alone (torch.bmm x3) {out['products_ms'][key]:.4f} ms")
+    for key, (fn, products) in cases.items():
+        out["device_us"][key], out["device_us_by_kernel"][key] = device_us(fn)
+        out["products_device_us"][key] = device_us(products)[0]
+        log(f"multi {key}, device us: kernel {out['device_us'][key]:.2f} (" + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["device_us_by_kernel"][key].items())
+            + f"); products {out['products_device_us'][key]:.2f}")
+    for which, profiled in (("multiclass", "multiclass_k10"), ("het", "het")):
+        out["ips"][which] = phase_multi_path(agt, ck, device, which)[2]
+        out["profile"][which] = profile_pair_path(agt, device, profiled)
+    print(json.dumps(out))
+
+
+def bits_mode(agt, ck, device, path):
+    """``python3 chip_smoke.py bits FILE`` (``ab ROOT bits FILE`` for an
+    earlier tree): a SHA-256 of each output of the kernels whose device
+    code the shared headers carry, on inputs made from seeds: kernel 1 at
+    the flagship and at the oracle shape on each likelihood branch (rbf)
+    and each Matern kind (Student-t); kernels 4-5 at each case of
+    pair_cases, 6-7 at each of single_cases; kernels 8-9, each variant, at
+    the sweep's main row and B=300, M=129.  Written to FILE (JSON) when it
+    does not exist; else every output must be bit-equal to FILE's (the
+    same digest), or the mode fails."""
+    import hashlib
+
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.benchmarks import fused_variants as fv
+
+    digests = {}
+
+    def keep(key, outs):
+        torch.cuda.synchronize()
+        digests[key] = [hashlib.sha256(o.contiguous().cpu().numpy().tobytes()).hexdigest() for o in outs]
+        return outs
+
+    keep("fused_cavi_stats flagship", call(ck.fused_cavi_stats, kernel_inputs(B, M, device)))
+    for lik, kind in [(lik, "rbf") for lik in ck.LIKS] + [("studentt", k) for k in ck.KINDS[1:]]:
+        t = branch_inputs(agt, OB, OM, device, lik, kind, at="oracle")
+        keep(f"fused_cavi_stats {lik}/{kind} oracle", call_branch(ck.fused_cavi_stats, t))
+    for label, t, _, _ in pair_cases(device):
+        kappa = keep(f"fused_kappa_moments_batched {label}", call_k4(ck.fused_kappa_moments_batched, t))[0]
+        keep(f"cavi_stats_batched {label}", ck.cavi_stats_batched(kappa, t["g"], t["theta"]))
+    for label, a, _, _ in single_cases(device):
+        kappa = keep(f"fused_kappa {label}", call_k6(ck.fused_kappa, a))[0]
+        keep(f"cavi_stats {label}", ck.cavi_stats(kappa, a["g"], a["theta"]))
+    for b, d, m in (VARIANT_MAIN, (300, 8, 129)):
+        t = bench.sweep_inputs(b, d, m, device)
+        for label, (fn, _, kw) in variant_kernels(fv).items():
+            keep(f"{label} {shape_key(b, d, m)}", sweep_call(fn, t, **kw))
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            json.dump(digests, f)
+        log(f"bits: {len(digests)} calls' digests written to {path}")
+        return
+    with open(path) as f:
+        before = json.load(f)
+    differ = [k for k in digests if digests[k] != before.get(k)]
+    if differ or set(before) != set(digests):
+        raise AssertionError(f"bits: outputs differ from {path} at {differ} (calls {len(digests)} / {len(before)})")
+    log(f"bits: all {len(digests)} calls' outputs bit-equal to {path}")
 
 
 def probe_mode(ck):
@@ -2617,6 +2817,12 @@ def main():
     if args == ["paths"]:
         paths_mode(agt, ck, device)
         return
+    if args == ["multi"]:
+        multi_mode(agt, ck, device)
+        return
+    if args[:1] == ["bits"] and len(args) == 2:
+        bits_mode(agt, ck, device, args[1])
+        return
     if args[:2] == ["profile", "kernels"]:
         profile_bench_kernels(device)
         return
@@ -2701,10 +2907,22 @@ def main():
         "route": "cuda",
         "source": "agp_tpu_torch/csrc/fused_cavi_stats_multi.cu",
         "replaces": f"agp_tpu/ops/pallas_kernels.py:{line}",
-        "max_abs_err": multi[name][0],
-        "ms": multi[name][1],
-        "plain_ms": multi[name][2],
-        "per_kind_ms": ms_table(multi[name][3]),
+        "max_abs_err": multi[name]["worst"],
+        "ms": multi[name]["ms"],
+        "plain_ms": multi[name]["plain_ms"],
+        "per_kind_ms": ms_table(multi[name]["per_kind"]),
+        "device_us": multi[name]["device_us"],
+        "device_us_by_kernel": multi[name]["device_us_by_kernel"],
+        "products_ms": multi[name]["products_ms"],
+        "products_device_us": multi[name]["products_device_us"],
+        "products": "kappa's, kappa Sigma's and S2's products alone (torch.bmm x3): a yardstick, not the whole "
+                    "function",
+        "oracle_vs_float64": multi[name]["oracle"],
+        "bound": "the function's products (kappa; the quadratic form's and S2's upper triangles) once at 495 TFLOP/s "
+                 "TF32, the gram and row sums at 67 FP32, bytes at 3.35 TB/s",
+        "bound_3xtf32": "kappa and kappa Sigma in full and S2's upper triangle in three TF32 passes, the rest at "
+                        "FP32, bytes",
+        "bound_fp32": "everything at 67 TFLOP/s FP32, bytes",
     } for name, line in (("fused_cavi_stats_multiclass", 953), ("fused_cavi_stats_het", 1133))] + [{
         "name": name,
         "route": "cuda",

@@ -193,12 +193,13 @@ def test_cpu_pair_counts_no_launch_and_keeps_dtype():
 # --------------------------------------------------------- the dispatch
 @pytest.mark.parametrize("n_latent,D_,M_,fits", [
     (1, 2, 128, True), (1, 2, 129, False), (1, 44, 128, True), (1, 45, 128, True), (1, 4096, 128, True),
-    (3, 45, 128, True), (3, 46, 128, False), (2, 2, 129, False), (1, 20, 0, False), (1, 0, 64, False),
+    (3, 45, 128, True), (3, 46, 128, True), (3, 4096, 128, True), (10, 4096, 128, True), (2, 2, 129, False),
+    (1, 20, 0, False), (1, 0, 64, False),
 ])
 def test_fused_fits_edges(n_latent, D_, M_, fits):
-    """The fused kernels take M <= 128; kernel 1 (one latent) at any D, its
-    gram staged in chunks of features; kernels 2-3 (several) within a
-    shared-memory footprint of 232,448 bytes: D <= 45 at M=128."""
+    """The fused kernels take M <= 128 at any D, one latent (kernel 1) or
+    several (kernels 2-3): their shared row tile stages the gram in chunks
+    of features."""
     assert ck.fused_fits(n_latent, D_, M_) is fits
 
 

@@ -169,13 +169,13 @@ def test_train_launches_once_per_step(cuda_device):
 
 def multi_inputs(b, m, n_latent, d, device, seed=0, kind="rbf"):
     """Float32 card tensors for the multi-latent kernels: per-latent ARD
-    lengthscales, Z from the data, K^-1 from the gram of ``kind``, random
-    SPD Sigma, one-hot labels (multiclass) and real targets
-    (heteroscedastic)."""
+    lengthscales (1.5-2.5 at d=10, scaled by sqrt(d / 10)), Z from the
+    data, K^-1 from the gram of ``kind``, random SPD Sigma, one-hot labels
+    (multiclass) and real targets (heteroscedastic)."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(b + m, d))
     A = rng.normal(size=(n_latent, m, m))
-    ls = rng.uniform(1.5, 2.5, size=(n_latent, d))
+    ls = rng.uniform(1.5, 2.5, size=(n_latent, d)) * (d / 10) ** 0.5
     arrays = dict(
         X=X[m:], Z=np.stack([X[:m]] * n_latent), ls=ls, var=rng.uniform(0.8, 1.2, size=n_latent),
         mu=rng.normal(size=(n_latent, m)), Sigma=A @ A.transpose(0, 2, 1) / m + np.eye(m),
@@ -203,6 +203,9 @@ def call_het(fn, t, lam=3.0):
 
 
 def assert_kernel_matches_plain(wrapper, plain, call, t, names):
+    """One launch, every output finite and within 1e-4 of the plain
+    version's largest entry; S2 exactly symmetric and a second call
+    bit-equal."""
     before = wrapper.launches
     out = call(wrapper, t)
     torch.cuda.synchronize()
@@ -212,25 +215,27 @@ def assert_kernel_matches_plain(wrapper, plain, call, t, names):
         assert torch.isfinite(o).all(), name
         err = float((o - r).abs().max()) / max(float(r.abs().max()), 1.0)
         assert err <= 1e-4, (name, err)
+    smoke.check_stats_repeat(wrapper.__name__, lambda: call(wrapper, t), (), out)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,m", [(2048, 64), (300, 64), (2048, 128)])
-def test_cuda_multiclass_kernel_matches_plain(cuda_device, b, m):
-    """fused_cavi_stats_multiclass at K=10, D=10 against its plain version on
-    the same card tensors, both float32: 1e-4 of each output's largest
-    entry (sums in another order, the series digamma against
-    torch.special.digamma)."""
-    t = multi_inputs(b, m, 10, 10, cuda_device)
+@pytest.mark.parametrize("b,m,d", [(2048, 64, 10), (300, 64, 10), (2048, 128, 10), (2048, 128, 64), (300, 128, 64)])
+def test_cuda_multiclass_kernel_matches_plain(cuda_device, b, m, d):
+    """fused_cavi_stats_multiclass at K=10 against its plain version on the
+    same card tensors, both float32: 1e-4 of each output's largest entry
+    (sums in another order, the series digamma against
+    torch.special.digamma); D=64 at M=128 is fused since kernels 2-3 stage
+    the gram in chunks of features."""
+    t = multi_inputs(b, m, 10, d, cuda_device)
     assert_kernel_matches_plain(ck.fused_cavi_stats_multiclass, ck.fused_cavi_stats_multiclass_reference, call_mc, t,
                                 ("s1", "S2", "c", "theta", "gamma", "alpha"))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,m", [(2048, 64), (300, 64), (2048, 128)])
-def test_cuda_het_kernel_matches_plain(cuda_device, b, m):
-    """fused_cavi_stats_het at D=10 against its plain version, as above."""
-    t = multi_inputs(b, m, 2, 10, cuda_device)
+@pytest.mark.parametrize("b,m,d", [(2048, 64, 10), (300, 64, 10), (2048, 128, 10), (2048, 128, 64), (300, 128, 64)])
+def test_cuda_het_kernel_matches_plain(cuda_device, b, m, d):
+    """fused_cavi_stats_het against its plain version, as above."""
+    t = multi_inputs(b, m, 2, d, cuda_device)
     assert_kernel_matches_plain(ck.fused_cavi_stats_het, ck.fused_cavi_stats_het_reference, call_het, t,
                                 ("s1", "S2", "c", "phi", "gamma", "theta", "sigg"))
 
@@ -249,6 +254,19 @@ def test_cuda_multi_kernels_matern_match_plain(cuda_device, which, kind):
     else:
         assert_kernel_matches_plain(ck.fused_cavi_stats_het, ck.fused_cavi_stats_het_reference, call_het, t,
                                     ("s1", "S2", "c", "phi", "gamma", "theta", "sigg"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ck.KINDS))
+@pytest.mark.parametrize("name", list(smoke.MULTI_KERNELS))
+def test_cuda_multi_tc_oracle_precision(cuda_device, name, kind):
+    """Kernels 2 (K=3, B=8192, D=2) and 3 (B=16,384, D=1) at the
+    reference's multi-latent oracles cut to M=128 (lengthscale 1, Z on the
+    batch's rows; chip_smoke.multi_oracle_inputs) against the plain version
+    in float64: every output within FLOAT32_FACTOR times the float32 plain
+    version's own error with no KERNEL_TOL floor; S2 exactly symmetric and a
+    second call bit-equal (chip_smoke.multi_oracle_check)."""
+    smoke.multi_oracle_check(ck, name, kind, cuda_device)
 
 
 @pytest.mark.cuda
@@ -694,7 +712,7 @@ def test_cuda_fused_variants_raise(cuda_device):
     before = (fv.direct_stats.launches, fv.two_factor_nt.launches)
     with pytest.raises(TypeError):
         smoke.sweep_call(fv.direct_stats, {**t, "X": t["X"].double()})
-    edge = fv.variant_max_m(fv._smem_limit(cuda_device.index or 0))
+    edge = fv.variant_max_m(ck._smem_limit(cuda_device.index or 0))
     assert edge == 2392
     big = bench.sweep_inputs(8, 2, edge + 1, cuda_device)
     for kern, kw in ((fv.two_factor_nt, {}), (fv.direct_stats, {"variant": "packed"})):

@@ -119,14 +119,13 @@ def tile_bytes(m):
 
 @pytest.mark.parametrize("m", [1, 8, 63, 64, 127, 128, 129, 512])
 def test_fused_fits_follows_the_tile(m):
-    """One latent: fused exactly where 1 <= M <= 128, at any D; the tile's
-    footprint (kernel 8's narrow tile's) reaches 62,976 bytes at M=128, a
-    quarter of a block's 232,448 (two blocks an SM).  Several latents keep
-    the FP32 kernels' D bound."""
+    """One latent or several: fused exactly where 1 <= M <= 128, at any D;
+    kernels 1-3 share the tile, whose footprint (kernel 8's narrow tile's)
+    reaches 62,976 bytes at M=128, a quarter of a block's 232,448 (two
+    blocks an SM)."""
     assert tile_bytes(m) == fv.variant_smem_bytes(m, fv._VARIANT_TILES[0])
     assert (tile_bytes(m) <= 62_976) is (m <= ck.MAX_M)
-    for d in (1, 2, 20, 44, 45, 46, 4096):
-        assert ck.fused_fits(1, d, m) is (m <= ck.MAX_M)
-    assert ck.fused_fits(1, 0, m) is False
-    if m == ck.MAX_M:
-        assert ck.fused_fits(3, 45, m) and not ck.fused_fits(3, 46, m)
+    for n_latent in (1, 2, 3, 10):
+        for d in (1, 2, 20, 44, 45, 46, 4096):
+            assert ck.fused_fits(n_latent, d, m) is (m <= ck.MAX_M)
+        assert ck.fused_fits(n_latent, 0, m) is False

@@ -378,28 +378,67 @@ def two_factor_tf32(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, w_passes=4
     return s1, S2, c, theta, mf, vf
 
 
-def fused_tf32(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lik_p0=0.0, lik_p1=0.0, kind="rbf",
-               lik="logistic", passes=3):
-    """Kernel 1's function (``fused_cavi_stats_reference``) on float32
-    inputs with its products as the kernel forms them on the tensor cores:
-    the gram of ``kind`` with x / ls and z / ls as products with 1 / ls (as
-    ``pair_core.cuh::gram_slab``), kappa = Knm K^-1 and kappa Sigma by
-    ``tf32_product`` in ``passes`` passes, S2 by ``stats_tf32``; the gram,
-    Ktilde's and vf's row sums, mf = kappa mu and the E-step of ``lik``
-    (``_estep_reference``) in float32, as the kernel's FP32 epilogues.
-    Returns (s1, S2, c, theta, mf, vf)."""
+def moments_tf32(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind="rbf", passes=3):
+    """kappa [B, M], mf, vf [B] of one latent on float32 inputs as the
+    moments pass of kernels 1-4 (``csrc/pair_core.cuh::moment_rows``)
+    forms them on the tensor cores: the gram of ``kind`` with x / ls and
+    z / ls as products with 1 / ls (ls a number or [D], as
+    ``gram_slab``), kappa = Knm K^-1 and kappa Sigma by ``tf32_product``
+    in ``passes`` passes; the gram, Ktilde's and vf's row sums and
+    mf = kappa mu in float32, as the kernel's FP32 epilogues."""
     from agp_tpu_torch.ops import cuda_kernels as ck
 
-    xb, yb, Z, L_invT, mu, Sigma = (t.to(torch.float32) for t in (xb, yb, Z, L_invT, mu, Sigma))
-    p0, p1 = (torch.as_tensor(p, dtype=torch.float32) for p in (lik_p0, lik_p1))
+    xb, Z, L_invT, mu, Sigma = (t.to(torch.float32) for t in (xb, Z, L_invT, mu, Sigma))
     inv_ls = 1.0 / torch.as_tensor(ls, dtype=torch.float32)
-    var_t = torch.full((1,), float(var))
+    var_t = torch.as_tensor(var, dtype=torch.float32).reshape(1)
     knm = ck._gram_from_r2(ck._sq_dist_chunked((xb * inv_ls)[None], (Z * inv_ls)[None]), var_t[:, None, None],
                            kind)[0]
     kappa = kappa_tf32(knm, ck._kinv(L_invT), passes)
     ktilde = torch.clamp(var_t + jitt - torch.sum(kappa * knm, dim=-1), min=1e-12)
     mf = kappa @ mu
     vf = torch.clamp(ktilde + torch.sum(tf32_product(kappa, Sigma, passes) * kappa, dim=-1), min=1e-12)
-    c, theta, gmu, gs = ck._estep_reference(lik, mf, vf, yb, p0, p1)
+    return kappa, mf, vf
+
+
+def fused_tf32(xb, yb, Z, L_invT, mu, Sigma, ls, var, jitt, rho, lik_p0=0.0, lik_p1=0.0, kind="rbf",
+               lik="logistic", passes=3):
+    """Kernel 1's function (``fused_cavi_stats_reference``) on float32
+    inputs with its products as the kernel forms them on the tensor cores:
+    the moments by ``moments_tf32``, S2 by ``stats_tf32``, the E-step of
+    ``lik`` (``_estep_reference``) in float32, as the kernel's FP32
+    epilogue.  Returns (s1, S2, c, theta, mf, vf)."""
+    from agp_tpu_torch.ops import cuda_kernels as ck
+
+    p0, p1 = (torch.as_tensor(p, dtype=torch.float32) for p in (lik_p0, lik_p1))
+    kappa, mf, vf = moments_tf32(xb, Z, L_invT, mu, Sigma, ls, var, jitt, kind, passes)
+    c, theta, gmu, gs = ck._estep_reference(lik, mf, vf, yb.to(torch.float32), p0, p1)
     s1, S2 = stats_tf32(kappa, rho * gmu, rho * gs, passes)
     return s1, S2, c, theta, mf, vf
+
+
+def multi_tf32(which, passes=3):
+    """Kernel 2's (``which="multiclass"``) or 3's (``"het"``) function,
+    with its plain version's signature, on float32 inputs with its products
+    as the kernel forms them on the tensor cores: each latent's moments by
+    ``moments_tf32`` (its lengthscale row and variance), the plain
+    versions' E-steps (``_multiclass_estep``, ``_het_estep``) in float32,
+    as the kernel's one thread a row, and each latent's S2 by
+    ``stats_tf32``."""
+    from agp_tpu_torch.ops import cuda_kernels as ck
+
+    def fn(xb, y, Z, L_invT, mu, Sigma, ls, var, jitt, rho, *estep, kind="rbf"):
+        L, _, D = Z.shape
+        ls = torch.broadcast_to(torch.as_tensor(ls, dtype=torch.float32).reshape(L, -1), (L, D))
+        var = torch.broadcast_to(torch.as_tensor(var, dtype=torch.float32).reshape(-1), (L,))
+        kappa, mf, vf = (torch.stack(o) for o in zip(*(
+            moments_tf32(xb, Z[l], L_invT[l], mu[l], Sigma[l], ls[l], var[l], jitt, kind, passes) for l in range(L))))
+        y, estep = y.to(torch.float32), [e.to(torch.float32) if isinstance(e, torch.Tensor) else e for e in estep]
+        if which == "multiclass":
+            *outs, gmu, gs = ck._multiclass_estep(mf, vf, y, *estep)
+        else:
+            *outs, gmu, gs = ck._het_estep(mf, vf, y, *estep)
+        s1, S2 = (torch.stack(o) for o in zip(*(stats_tf32(kappa[l], rho * gmu[l], rho * gs[l], passes)
+                                               for l in range(L))))
+        return (s1, S2, *outs)
+
+    return fn
