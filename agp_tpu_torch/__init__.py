@@ -1,25 +1,30 @@
 """agp_tpu_torch: the PyTorch and CUDA port of agp_tpu.
 
-Sparse variational GPs with augmented likelihoods, trained by closed-form
+Gaussian processes with augmented likelihoods, trained by closed-form
 natural-gradient CAVI.  This package mirrors ``agp_tpu``'s module paths and
 public names; it runs on the CPU (plain PyTorch) and on an NVIDIA Hopper
-card, where the step's statistics are hand-written CUDA kernels
+card, where a sparse model's step statistics are hand-written CUDA kernels
 (``ops/cuda_kernels.py``): one fused pass while the model's inducing set
 fits a block's shared memory (M <= 128), else a split pair of kernels
 around the likelihood's own E-step (M up to 2,392): the single-latent one
-or the batched one.  Ported so far: ``SVGP`` with the squared-exponential
-and Matern 1/2, 3/2, 5/2 kernels and the logistic, Gaussian (fixed noise),
-Student-t, Laplace, Matern-3/2 noise, Bayesian SVM, Poisson, negative
-binomial, logistic-softmax (multiclass) and heteroscedastic likelihoods,
-trained by stochastic CAVI, with the hyperparameter step interleaved
+or the batched one.  Ported so far: ``SVGP`` (stochastic or full-batch
+CAVI), the dense ``VGP`` (full-batch CAVI over its training inputs) and
+the exact ``GP`` (Gaussian likelihood, noise learnt by default), with the
+squared-exponential and Matern 1/2, 3/2, 5/2 kernels and the logistic,
+Gaussian (fixed or learnt noise), Student-t, Laplace, Matern-3/2 noise,
+Bayesian SVM, Poisson, negative binomial, logistic-softmax (multiclass)
+and heteroscedastic likelihoods, with the hyperparameter step interleaved
 (Adam(0.01) on the kernel and the mean by default, optionally on the
-inducing points) or with fixed hyperparameters.  Inputs without a device
-(numpy arrays, lists) go to the CUDA card unless
+inducing points) or with fixed hyperparameters; ``predict_f`` (diagonal or
+full covariance), ``predict_y``, ``proba_y`` (each optionally in chunks)
+and ``sample_f``.  The dense models' N x N algebra is plain PyTorch at
+full FP32 and runs no kernel of the port.  Inputs without a device (numpy
+arrays, lists) go to the CUDA card unless
 ``config.set_default_device("cpu")`` was called.
 """
 
 from . import config, kernels
-from .inference.config import AnalyticSVI, AnalyticVI
+from .inference.config import Analytic, AnalyticSVI, AnalyticVI
 from .kernels import Matern12Kernel, Matern32Kernel, Matern52Kernel, RBFKernel, SqExponentialKernel
 from .likelihoods.base import Likelihood
 from .likelihoods.classification import BayesianSVM, LogisticLikelihood
@@ -28,8 +33,9 @@ from .likelihoods.heteroscedastic import HeteroscedasticLikelihood
 from .likelihoods.multiclass import LogisticSoftMaxLikelihood
 from .likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
 from .means import ConstantMean, ZeroMean
-from .models.svgp import SVGP
-from .training.predictions import predict_f, predict_y, proba_y
+from .models.gp import GP
+from .models.svgp import SVGP, VGP
+from .training.predictions import predict_f, predict_y, proba_y, sample_f
 from .training.autotuning import hyper_step
 from .training.state import TrainState
 from .training.train import elbo, init_state, train
@@ -39,6 +45,8 @@ ELBO = elbo
 
 __all__ = [
     "SVGP",
+    "VGP",
+    "GP",
     "train",
     "elbo",
     "ELBO",
@@ -46,7 +54,9 @@ __all__ = [
     "predict_f",
     "predict_y",
     "proba_y",
+    "sample_f",
     "TrainState",
+    "Analytic",
     "AnalyticVI",
     "AnalyticSVI",
     "Likelihood",

@@ -10,6 +10,12 @@ Update equations:
   sparse: d_eta1 = kappa^T (rho gmu) + K^-1 mu0 - eta1
           d_eta2 = -(rho kappa^T Diag(gs) kappa + K^-1/2) - eta2
   stochastic: eta += RobbinsMonro-scaled d_eta; else eta += d_eta.
+  dense (VGP, Z = X): eta1 = gmu + K^-1 mu0, eta2 = -(Diag(gs) + K^-1/2),
+          the latent moments being mu and diag(Sigma) themselves.
+
+A dense model runs no CUDA kernel of the port, as the reference's reaches
+no Pallas kernel: its gram, factorizations and solves are plain PyTorch
+(cuSOLVER and cuBLAS on the card) at full FP32.
 
 Dispatch, for a sparse, not online model with a squared-exponential or
 Matern kernel (``kernels.FUSED_KINDS``); each function of
@@ -46,7 +52,7 @@ from typing import Dict
 import torch
 
 from ..config import jitter
-from ..kernels import batch_gram_zz, fused_kind, lengthscale_2d
+from ..kernels import batch_gram, batch_gram_zz, fused_kind, lengthscale_2d
 from ..likelihoods.classification import BayesianSVM, LogisticLikelihood
 from ..likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
@@ -63,17 +69,27 @@ from ..utils.opt import ascent_update
 
 # --------------------------------------------------------------- kernel mats
 @linalg._highest_precision
-def compute_kmat(model, X=None) -> Dict[str, torch.Tensor]:
-    """Cholesky factor, inverse and triangular inverse of the prior
-    covariance over the inducing inputs Z [L, M, D]."""
-    K = batch_gram_zz(model.kernel, model.Z)
-    L_K = linalg.safe_cholesky(K, jitter(K.dtype))
-    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand(K.shape)
-    return {
-        "L_K": L_K,
-        "K_inv": linalg.chol_inv(L_K),
-        "L_inv": torch.linalg.solve_triangular(L_K, eye, upper=False),
-    }
+def compute_kmat(model, X=None, inverse: bool = True) -> Dict[str, torch.Tensor]:
+    """Cholesky factor "L_K", inverse "K_inv" and, for a sparse model,
+    triangular inverse "L_inv" of the prior covariance over the inducing
+    inputs Z [L, M, D], or over the training inputs X [N, D] for a full
+    model.  A full model holds no L_inv, as the reference holds none: only
+    the sparse kernels read it, and at [L, N, N] it would cost an N^3 solve
+    and half as much memory again.  ``inverse=False`` leaves out K_inv
+    too (the dense hyperparameter step's ELBO reads L_K alone)."""
+    if model.is_sparse:
+        K = batch_gram_zz(model.kernel, model.Z)
+        L_K = linalg.safe_cholesky(K, jitter(K.dtype))
+    else:
+        K = batch_gram(model.kernel, X)
+        L_K = linalg.safe_cholesky(K, jitter(K.dtype), lazy_rungs=True)
+    out = {"L_K": L_K}
+    if inverse:
+        out["K_inv"] = linalg.chol_inv(L_K)
+    if model.is_sparse:
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand(K.shape)
+        out["L_inv"] = torch.linalg.solve_triangular(L_K, eye, upper=False)
+    return out
 
 
 def kmat_l_inv(kmat):
@@ -97,7 +113,10 @@ def latent_moments(model, state: TrainState, x, kmat):
     """mean_f/var_f [L, B] of the latent function at the batch, and kappa
     [L, B, M]: by ``cuda_kernels.fused_kappa`` and plain products for one
     latent, by ``cuda_kernels.fused_kappa_moments_batched`` for several.
-    Differentiable in the kernel's parameters, Z and the kmat."""
+    Differentiable in the kernel's parameters, Z and the kmat.  A full
+    model's are mu and diag(Sigma) over its training inputs, kappa None."""
+    if not model.is_sparse:
+        return state.mu, torch.diagonal(state.Sigma, dim1=-2, dim2=-1), None
     kind = _pair_kind(model)
     if kind is None:
         raise NotImplementedError(
@@ -143,7 +162,8 @@ def _fused_lik_spec(lik):
     fills (None: theta only)."""
     if isinstance(lik, LogisticLikelihood):
         return "logistic", 0.0, 0.0, "c"
-    if isinstance(lik, GaussianLikelihood):
+    if isinstance(lik, GaussianLikelihood) and lik.opt_noise is None:
+        # a learnt noise takes the split pair: its step sums over the batch
         return "gaussian", lik.sigma2, 0.0, None
     if isinstance(lik, StudentTLikelihood):
         return "studentt", lik.nu, lik.sigma**2, "c"
@@ -330,12 +350,12 @@ def variational_update(model, state: TrainState, x, y, w=None):
 
 
 def apply_natural_gradient(model, state: TrainState, kappa, gmu, gs, x) -> TrainState:
-    """Sparse natural-gradient + global update from the gradient
-    expectations gmu/gs [L, B] and kappa [L, B, M]; the statistics by
+    """Natural-gradient + global update from the gradient expectations
+    gmu/gs [L, B] and kappa [L, B, M]: sparse, the statistics by
     ``cuda_kernels.cavi_stats`` for one latent, ``cavi_stats_batched`` for
-    several."""
+    several; dense, the coordinate-ascent optimum itself."""
     if not model.is_sparse:
-        raise NotImplementedError("the dense (VGP) branch is not ported yet")
+        return _dense_update(model, state, gmu, gs, x)
     rho = state.rho
     g, theta = (rho * gmu).contiguous(), (rho * gs).contiguous()
     if model.n_latent == 1:
@@ -343,6 +363,17 @@ def apply_natural_gradient(model, state: TrainState, kappa, gmu, gs, x) -> Train
         return _nat_update_from_stats(model, state, s1[None], stat2[None], x)
     s1, stat2 = cuda_kernels.cavi_stats_batched(kappa, g, theta)
     return _nat_update_from_stats(model, state, s1, stat2, x)
+
+
+@linalg._highest_precision
+def _dense_update(model, state: TrainState, gmu, gs, x) -> TrainState:
+    """eta1 = gmu + K^-1 mu0 and eta2 = -(Diag(gs) + K^-1/2) over the
+    training inputs [L, N], then the moments."""
+    K_inv = state.kmat["K_inv"]
+    mu0 = prior_mean_stack(model, x)
+    eta1 = gmu + (K_inv @ mu0.unsqueeze(-1)).squeeze(-1)
+    eta2 = linalg.symmetrize(-(torch.diag_embed(gs) + 0.5 * K_inv))
+    return state.replace(eta1=eta1, eta2=eta2, **_moments_kw(model, eta1, eta2))
 
 
 @linalg._highest_precision
@@ -375,13 +406,16 @@ def _moments_kw(model, eta1, eta2):
     """(mu, Sigma) by the exact Cholesky path, the one the reference runs
     off-TPU.  ``linalg.nat_to_moments_warm`` is ported but not wired in:
     whether the H100 wants it is a measurement still to be made."""
-    mu, Sigma = linalg.nat_to_moments(eta1, eta2)
+    mu, Sigma = linalg.nat_to_moments(eta1, eta2, lazy_rungs=not model.is_sparse)
     return dict(mu=mu, Sigma=Sigma)
 
 
 def prior_mean_stack(model, x):
-    """[L, M] prior mean over the inducing inputs."""
-    return batch_call(model.mean, model.Z, model.n_latent)
+    """[L, M] prior mean over the inducing inputs (Z for a sparse model,
+    the batch x for a full one)."""
+    if model.is_sparse:
+        return batch_call(model.mean, model.Z, model.n_latent)
+    return batch_call(model.mean, x, model.n_latent)
 
 
 # ---------------------------------------------------------------------- ELBO
@@ -394,7 +428,7 @@ def elbo(model, state: TrainState, x, y, kmat=None) -> torch.Tensor:
     The augmented KL is left out of the gradient, as the reference does."""
     kmat = state.kmat if kmat is None else kmat
     mu_f, var_f, _ = latent_moments(model, state, x, kmat)
-    rho = state.rho
+    rho = state.rho if model.is_sparse else torch.ones((), dtype=mu_f.dtype, device=mu_f.device)
     tot = rho * model.likelihood.expec_loglik(y, mu_f, var_f, state.local_vars)
     mu0 = prior_mean_stack(model, x)
     kl = torch.stack([

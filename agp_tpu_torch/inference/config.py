@@ -1,5 +1,5 @@
-"""Inference-engine configurations: the counterpart of ``AnalyticVI`` and
-``AnalyticSVI`` in ``agp_tpu/inference/config.py``.  Everything here is static
+"""Inference-engine configurations: the counterpart of ``Analytic``,
+``AnalyticVI`` and ``AnalyticSVI`` in ``agp_tpu/inference/config.py``.  Everything here is static
 configuration; the dynamic parts (rho, the step counter, the optimiser
 state, the local variables) live in the TrainState."""
 from __future__ import annotations
@@ -20,6 +20,14 @@ class InferenceConfig:
     @property
     def name(self) -> str:
         return type(self).__name__
+
+
+@dataclasses.dataclass(frozen=True)
+class Analytic(InferenceConfig):
+    """Exact conjugate solve for ``GP``."""
+
+    stochastic: bool = False
+    batchsize: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,21 +20,29 @@ LIKELIHOOD_PARAMS = ("sigma2", "nu", "sigma", "beta", "rho", "r", "lam")
 
 def model_from_numpy(params: dict, template):
     """``template`` (a port model) with its parameters taken from ``params``:
-    "Z" [L, M, D] (or [M, D]), "lengthscale" and "variance" (latent-stacked,
-    as the reference replicates them), for a constant mean "mean_c", and
-    the likelihood's own: "sigma2" (Gaussian), "nu" and "sigma"
-    (Student-t), "beta" (Laplace), "rho" (Matern-3/2 noise), "r"
-    (negative binomial), "lam" (Poisson, heteroscedastic), "n_class" and
-    "class_mapping" (multiclass).  Tensors land on template.Z's device and
-    dtype."""
-    dev, dt = template.Z.device, template.Z.dtype
+    "Z" [L, M, D] (or [M, D]) for an SVGP, "train_x" and "train_y" for a
+    VGP or a GP, "lengthscale" and "variance" (latent-stacked, as the
+    reference replicates them), for a constant mean "mean_c", and the
+    likelihood's own: "sigma2" (Gaussian; its rule's state is the train
+    state's), "nu" and "sigma" (Student-t), "beta" (Laplace), "rho"
+    (Matern-3/2 noise), "r" (negative binomial), "lam" (Poisson,
+    heteroscedastic), "n_class" and "class_mapping" (multiclass).  Tensors
+    land on the template's device and dtype (its Z's, or its training
+    inputs')."""
+    like = template.Z if template.is_sparse else template.train_x
+    dev, dt = like.device, like.dtype
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
 
-    Z = t(params["Z"])
-    if Z.ndim == 2:
-        Z = Z.expand((template.n_latent,) + Z.shape).clone()
+    if template.is_sparse:
+        Z = t(params["Z"])
+        if Z.ndim == 2:
+            Z = Z.expand((template.n_latent,) + Z.shape).clone()
+        template = template.replace(Z=Z)
+    else:
+        y = torch.as_tensor(np.asarray(params["train_y"]), device=dev)
+        template = template.replace(train_x=t(params["train_x"]), train_y=y.to(dt) if y.is_floating_point() else y)
     kernel = template.kernel.replace(
         lengthscale=t(params["lengthscale"]), variance=t(params["variance"])
     )
@@ -47,14 +55,17 @@ def model_from_numpy(params: dict, template):
         lik = lik.replace(n_class=int(params["n_class"]))
     if params.get("class_mapping") is not None:
         lik = lik.replace(class_mapping=tuple(params["class_mapping"]))
-    return template.replace(Z=Z, kernel=kernel, mean=mean, likelihood=lik)
+    return template.replace(kernel=kernel, mean=mean, likelihood=lik)
 
 
 def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     """A TrainState from numpy arrays: "eta1", "eta2", "mu", "Sigma",
-    "local_vars" (a dict), "opt_state" (the Robbins-Monro step count, or
-    None), "rho", "step", "kmat" ({"L_K", "K_inv"} and optionally "L_inv")
-    and optionally "hyper_state": for each group ("kernel", "mean", "Z")
+    "local_vars" (a dict; the Gaussian's noise rule's state
+    "state_sigma2" as optax's Adam state {"count", "mu", "nu"}),
+    "opt_state" (the Robbins-Monro step count, or None), "rho", "step",
+    "kmat" ({"L_K", "K_inv"} and, for a sparse model, "L_inv"), for a GP
+    "alpha" and "chol_Sigma" (and none of eta, moments or kmat), and
+    optionally "hyper_state": for each group ("kernel", "mean", "Z")
     optax's Adam state as {"count", "mu", "nu"}, the moments a dict of the
     group's leaves by field name (an array for "Z"), as
     ``utils.opt.adam`` keeps it."""
@@ -68,22 +79,28 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     def moments(m):
         return {k: f(v) for k, v in m.items()} if isinstance(m, dict) else f(m)
 
+    def adam_state(s):
+        return {"count": i32(s["count"]), "mu": moments(s["mu"]), "nu": moments(s["nu"])}
+
+    def optional(name):
+        return None if arrays.get(name) is None else f(arrays[name])
+
     opt = arrays.get("opt_state")
     hyper = arrays.get("hyper_state")
     if hyper is not None:
-        hyper = {
-            group: {"count": i32(s["count"]), "mu": moments(s["mu"]), "nu": moments(s["nu"])}
-            for group, s in hyper.items()
-        }
+        hyper = {group: adam_state(s) for group, s in hyper.items()}
+    kmat = arrays.get("kmat")
     return TrainState(
-        eta1=f(arrays["eta1"]),
-        eta2=f(arrays["eta2"]),
-        mu=f(arrays["mu"]),
-        Sigma=f(arrays["Sigma"]),
-        local_vars={k: f(v) for k, v in arrays["local_vars"].items()},
+        eta1=optional("eta1"),
+        eta2=optional("eta2"),
+        mu=optional("mu"),
+        Sigma=optional("Sigma"),
+        local_vars={k: adam_state(v) if isinstance(v, dict) else f(v) for k, v in arrays["local_vars"].items()},
         opt_state=None if opt is None else i32(opt),
         hyper_state=hyper,
-        kmat={k: f(v) for k, v in arrays["kmat"].items()},
+        kmat=None if kmat is None else {k: f(v) for k, v in kmat.items()},
         rho=f(arrays["rho"]),
         step=i32(arrays["step"]),
+        alpha=optional("alpha"),
+        chol_Sigma=optional("chol_Sigma"),
     )

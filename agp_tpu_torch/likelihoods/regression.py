@@ -1,20 +1,22 @@
 """Regression likelihoods: Gaussian, Student-t, Laplace and Matern-3/2
 noise, the counterparts of ``agp_tpu/likelihoods/regression.py``.
 
-Each parameter is a 0-d tensor on the model's device.  Not ported yet:
-Gibbs sampling (``_sample_local``), the pointwise derivatives
-(``grad_log_prob``, ``hess_log_prob``) and Gaussian noise learning
-(``opt_noise``).
+Each parameter is a 0-d tensor on the model's device.  The Gaussian
+learns its noise when it has an ``opt_noise`` rule.  Not ported yet: Gibbs
+sampling (``_sample_local``) and the pointwise derivatives
+(``grad_log_prob``, ``hess_log_prob``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any, Optional
 
 import torch
 
 from ..ops.kl import gig_entropy, inverse_gamma_kl
 from ..ops.special import LOG2, digamma, gammaln
+from ..utils.opt import GradientTransformation, adam, ascent_update
 from .base import SingleLatentLikelihood, tensor_fields
 
 LOG2PI = 1.8378770664093453
@@ -27,28 +29,58 @@ def _rows(value, batchsize, dtype, device):
 
 @dataclasses.dataclass(frozen=True)
 class GaussianLikelihood(SingleLatentLikelihood):
-    """Conjugate Gaussian noise of variance ``sigma2``; theta = 1/sigma2."""
+    """Conjugate Gaussian noise of variance ``sigma2``; theta = 1/sigma2.
+
+    With an ``opt_noise`` rule (``create(opt_noise=True)``: ``adam(0.05)``)
+    the E-step also takes one ascent step on log sigma2 along
+    ((sum (y - mu)^2 + sum var) / sigma2 - n) / 2, the rows with w = 0 left
+    out of the sums; the rule's state is the local variable
+    "state_sigma2".  sigma2 stays a 0-d tensor on the device."""
 
     sigma2: torch.Tensor = 1e-3
+    opt_noise: Optional[Any] = None
+
+    # noise learning sums over the batch, so the row mask reaches the E-step
+    _weighted_params = True
 
     def __post_init__(self):
         tensor_fields(self, "sigma2")
 
     @classmethod
     def create(cls, sigma2: float = 1e-3, opt_noise=False):
-        if opt_noise is not False and opt_noise is not None:
-            raise NotImplementedError("Gaussian noise learning is not ported yet: pass opt_noise=False")
-        return cls(sigma2=sigma2)
+        if isinstance(opt_noise, bool):
+            opt_noise = adam(0.05) if opt_noise else None
+        if opt_noise is not None and not isinstance(opt_noise, GradientTransformation):
+            raise NotImplementedError(
+                f"opt_noise {opt_noise!r} is not ported: pass True (adam(0.05)), False, None or a "
+                "GradientTransformation of agp_tpu_torch.utils.opt"
+            )
+        return cls(sigma2=sigma2, opt_noise=opt_noise)
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI"})
+        return frozenset({"AnalyticVI", "Analytic"})
 
     def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
-        return {"theta": _rows(1.0 / self.sigma2, batchsize, dtype, device)}
+        local = {"theta": _rows(1.0 / self.sigma2, batchsize, dtype, device)}
+        if self.opt_noise is not None:
+            local["state_sigma2"] = self.opt_noise.init(torch.zeros((), dtype=dtype, device=device))
+        return local
 
-    def _local_updates(self, y, mu, var, local):
-        return self, {**local, "theta": torch.ones_like(local["theta"]) / self.sigma2}
+    def _local_updates(self, y, mu, var, local, w=None):
+        lik = self
+        if self.opt_noise is not None:
+            if w is None:
+                n = y.shape[0]
+                ssq, svar = torch.sum((y - mu) ** 2), torch.sum(var)
+            else:
+                n = torch.sum(w)
+                ssq, svar = torch.sum(w * (y - mu) ** 2), torch.sum(w * var)
+            grad = ((ssq + svar) / self.sigma2 - n) / 2.0
+            opt_state, delta = ascent_update(self.opt_noise, local["state_sigma2"], torch.log(self.sigma2), grad)
+            lik = self.replace(sigma2=torch.exp(torch.log(self.sigma2) + delta))
+            local = {**local, "state_sigma2": opt_state}
+        return lik, {**local, "theta": torch.ones_like(local["theta"]) / lik.sigma2}
 
     def _grad_e_mu(self, y, local):
         return y / self.sigma2

@@ -66,3 +66,19 @@ def match_dtype(y, X) -> torch.Tensor:
     if y.is_floating_point() and y.dtype != X.dtype:
         y = y.to(X.dtype)
     return y
+
+
+def model_repr(model) -> str:
+    """A model's compact summary: its name, likelihood, inference engine,
+    latent count and, for a sparse model, its inducing count."""
+    parts = []
+    lik = getattr(model, "likelihood", None)
+    if lik is not None:
+        parts.append(f"likelihood={type(lik).__name__}")
+    inf = getattr(model, "inference", None)
+    if inf is not None:
+        parts.append(f"inference={inf.name}")
+    parts.append(f"n_latent={model.n_latent}")
+    if getattr(model, "is_sparse", False):
+        parts.append(f"n_inducing={model.n_inducing}")
+    return f"{type(model).__name__}({', '.join(parts)})"

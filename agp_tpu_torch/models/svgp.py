@@ -1,5 +1,6 @@
-"""SVGP: sparse variational Gaussian process over an inducing set Z, the
-counterpart of ``SVGP`` in ``agp_tpu/models/svgp.py``.
+"""SVGP: sparse variational Gaussian process over an inducing set Z, and
+VGP, the full variational GP over its training inputs: the counterparts of
+``SVGP`` and ``VGP`` in ``agp_tpu/models/svgp.py``.
 
 The latent GPs live on a stacked axis ([L, M, D] inducing points).  The
 port so far takes the squared-exponential and Matern 1/2, 3/2, 5/2
@@ -9,7 +10,8 @@ SVM, Poisson, negative binomial), the logistic-softmax and heteroscedastic
 likelihoods, and the reference's hyperparameter learning: by default Adam(0.01)
 on the log kernel parameters and the prior mean's parameters, optionally a
 ``Zoptimiser`` on the inducing points (``training/autotuning.py``), or
-fixed hyperparameters (``optimiser=None``).
+fixed hyperparameters (``optimiser=None``).  A VGP takes the same
+kernels, likelihoods and means, with full-batch (not stochastic) CAVI.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from ..likelihoods.regression import (
 from ..means import ConstantMean, PriorMean, ZeroMean
 from ..utils.opt import GradientTransformation, adam
 from ..utils.tensors import Params
-from .base import as_2d, check_card_dtype, check_implemented, prepare_components
+from .base import as_2d, check_card_dtype, check_implemented, match_dtype, model_repr, prepare_components
 
 _PORTED_KERNELS = tuple(FUSED_KINDS)
 _PORTED_LIKELIHOODS = (
@@ -52,7 +54,36 @@ _PORTED_LIKELIHOODS = (
 _PORTED_MEANS = (ZeroMean, ConstantMean)
 
 
-@dataclasses.dataclass(frozen=True)
+def _check_ported(kernel, likelihood, mean, optimiser, Zoptimiser=None):
+    """Raises ``NotImplementedError`` for a component or an optimiser that
+    the port does not have."""
+    for opt, what in ((optimiser, "optimiser"), (Zoptimiser, "Zoptimiser")):
+        if opt is not None and not isinstance(opt, GradientTransformation):
+            raise NotImplementedError(
+                f"{what} {opt!r} is not ported: pass None, 'default' (optimiser only) or a "
+                "GradientTransformation of agp_tpu_torch.utils.opt (adam)"
+            )
+    for obj, ported, what in (
+        (kernel, _PORTED_KERNELS, "kernel"),
+        (likelihood, _PORTED_LIKELIHOODS, "likelihood"),
+        (mean if mean is not None else ZeroMean(), _PORTED_MEANS, "mean"),
+    ):
+        if not isinstance(obj, ported):
+            raise NotImplementedError(
+                f"{type(obj).__name__} is not ported yet; the {what}s of "
+                f"this port are {[c.__name__ for c in ported]}"
+            )
+
+
+def _place(kernel, likelihood, mean, n_latent, like):
+    """The kernel and the mean replicated over the latents, and all three
+    on ``like``'s device and dtype."""
+    kernel, mean = prepare_components(kernel, likelihood, mean, n_latent)
+    to = dict(device=like.device, dtype=like.dtype)
+    return kernel.to(**to), likelihood.to(**to), mean.to(**to)
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
 class SVGP(Params):
     kernel: Any
     likelihood: Likelihood
@@ -95,31 +126,13 @@ class SVGP(Params):
         other optimiser (an optax one, say) raises ``NotImplementedError``."""
         if optimiser == "default":
             optimiser = adam(0.01)
-        for opt, what in ((optimiser, "optimiser"), (Zoptimiser, "Zoptimiser")):
-            if opt is not None and not isinstance(opt, GradientTransformation):
-                raise NotImplementedError(
-                    f"{what} {opt!r} is not ported: pass None, 'default' (optimiser only) or a "
-                    "GradientTransformation of agp_tpu_torch.utils.opt (adam)"
-                )
-        for obj, ported, what in (
-            (kernel, _PORTED_KERNELS, "kernel"),
-            (likelihood, _PORTED_LIKELIHOODS, "likelihood"),
-            (mean if mean is not None else ZeroMean(), _PORTED_MEANS, "mean"),
-        ):
-            if not isinstance(obj, ported):
-                raise NotImplementedError(
-                    f"{type(obj).__name__} is not ported yet; the {what}s of "
-                    f"this port are {[c.__name__ for c in ported]}"
-                )
+        _check_ported(kernel, likelihood, mean, optimiser, Zoptimiser)
         check_implemented(likelihood, inference)
         n_latent = likelihood.n_latent
         mean = ZeroMean() if mean is None else mean
         Z = as_2d(Z)
         check_card_dtype(Z.device, Z.dtype)
-        kernel, mean = prepare_components(kernel, likelihood, mean, n_latent)
-        kernel = kernel.to(device=Z.device, dtype=Z.dtype)
-        mean = mean.to(device=Z.device, dtype=Z.dtype)
-        likelihood = likelihood.to(device=Z.device, dtype=Z.dtype)
+        kernel, likelihood, mean = _place(kernel, likelihood, mean, n_latent, Z)
         if Z.ndim == 2:
             Z = Z.expand((n_latent,) + Z.shape).clone()
         return cls(
@@ -137,3 +150,72 @@ class SVGP(Params):
     @property
     def n_inducing(self):
         return self.Z.shape[1]
+
+    __repr__ = model_repr
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
+class VGP(Params):
+    """Full variational GP: the sparse model's CAVI with Z = X, the dense
+    natural-gradient branch.  It carries its training data; ``train(vgp)``
+    takes no X and y."""
+
+    kernel: Any
+    likelihood: Likelihood
+    mean: PriorMean
+    train_x: torch.Tensor  # [N, D]
+    train_y: torch.Tensor
+    inference: InferenceConfig
+    n_latent: int
+    atfrequency: int = 1
+    optimiser: Optional[Any] = None
+
+    is_sparse = False
+    is_multioutput = False
+    is_online = False
+
+    @classmethod
+    def create(cls, X, y, kernel, likelihood, inference, mean=None, optimiser="default", atfrequency: int = 1):
+        """Builds the model on (X, y), the labels treated by the likelihood.
+        X without a device goes to ``config.default_device()``, y to X's
+        device; the kernel's, the likelihood's and the mean's parameters
+        are placed on X's device and dtype.  Stochastic inference raises
+        ``ValueError`` (a VGP uses all its data each step: use SVGP), X
+        that is not float32 on a CUDA device ``TypeError``; ``optimiser``
+        as ``SVGP.create`` takes it."""
+        if optimiser == "default":
+            optimiser = adam(0.01)
+        _check_ported(kernel, likelihood, mean, optimiser)
+        check_implemented(likelihood, inference)
+        if inference.stochastic:
+            raise ValueError("VGP does not support stochastic inference; use SVGP")
+        X = as_2d(X)
+        check_card_dtype(X.device, X.dtype)
+        y, likelihood = likelihood.treat_labels(y)
+        y = match_dtype(y.to(X.device), X)
+        n_latent = likelihood.n_latent
+        mean = ZeroMean() if mean is None else mean
+        kernel, likelihood, mean = _place(kernel, likelihood, mean, n_latent, X)
+        return cls(
+            kernel=kernel,
+            likelihood=likelihood,
+            mean=mean,
+            train_x=X,
+            train_y=y,
+            inference=inference,
+            n_latent=n_latent,
+            atfrequency=atfrequency,
+            optimiser=optimiser,
+        )
+
+    @property
+    def Z(self):
+        """The training inputs as the "inducing set" [L, N, D] of the shared
+        prediction path (a view)."""
+        return self.train_x.expand((self.n_latent,) + self.train_x.shape)
+
+    @property
+    def n_inducing(self):
+        return self.train_x.shape[0]
+
+    __repr__ = model_repr

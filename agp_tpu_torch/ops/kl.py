@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .linalg import chol_logdet, chol_solve, invquad, symmetrize
+from .linalg import chol_logdet, chol_solve, cholesky_or_nan, invquad, symmetrize
 from .special import LOG2, digamma, gammaln, log_besselk_half, logcosh, xlogx
 
 
@@ -13,10 +13,7 @@ def gaussian_kl(mu, mu0, Sigma, L_K):
     1/2 (logdet K - logdet Sigma + tr(K^-1 Sigma) + (mu-mu0)^T K^-1 (mu-mu0) - M)
     for one latent ([M], [M, M])."""
     M = mu.shape[-1]
-    # cholesky_ex: no error check, so no host read (NaN where the
-    # reference's factorization fails, as its factor is)
-    L_S, info = torch.linalg.cholesky_ex(symmetrize(Sigma))
-    L_S = torch.where(info[..., None, None] == 0, L_S, torch.full_like(L_S, float("nan")))
+    L_S = cholesky_or_nan(symmetrize(Sigma))  # no host read
     trace = torch.diagonal(chol_solve(L_K, Sigma), dim1=-2, dim2=-1).sum(-1)
     quad = invquad(L_K, mu - mu0)
     return 0.5 * (chol_logdet(L_K) - chol_logdet(L_S) + trace + quad - M)

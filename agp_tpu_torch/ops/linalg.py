@@ -8,8 +8,11 @@ three decimal digits, which ill-conditioned kernel matrices do not survive.
 The two jitter ladders, which the reference runs as ``lax.while_loop``s, are
 one batched ``torch.linalg.cholesky_ex`` over all rungs followed by a
 device-side selection of the first rung that factorized.  No value is read
-back to the host, so a training step holds no device sync.  Functions take
-optional leading batch dimensions ``[..., M, M]``.
+back to the host, so a training step holds no device sync.  With
+``lazy_rungs`` (the dense models' [L, N, N] matrices) rung 0 is factored
+alone and the batch of all rungs runs only when it failed: one host read
+a call, against the batch's R-fold factorizations and copies at N^3.
+Functions take optional leading batch dimensions ``[..., M, M]``.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def _eye_like(A: torch.Tensor) -> torch.Tensor:
     return torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
 
 
-def _ladder_cholesky(A: torch.Tensor, jitters: torch.Tensor) -> torch.Tensor:
+def _ladder_cholesky(A: torch.Tensor, jitters: torch.Tensor, lazy_rungs: bool = False) -> torch.Tensor:
     """Cholesky of ``A + j I`` for the first rung ``j`` of ``jitters``
     ([R, ...], one ladder per matrix of A) whose factorization succeeds.
 
@@ -54,7 +57,14 @@ def _ladder_cholesky(A: torch.Tensor, jitters: torch.Tensor) -> torch.Tensor:
     reference differentiates only its chosen rung: a failed rung's factor
     holds NaN, and its backward would put NaN into A's gradient even with a
     zero cotangent.  The jitter itself is a constant.  No host read either
-    way."""
+    way, unless ``lazy_rungs``: then rung 0 is factored alone (the chosen
+    rung, differentiably, when it succeeds for every matrix), one host
+    read decides, and the batch above runs only when it failed."""
+    if lazy_rungs:
+        j0 = jitters[0].detach()
+        L, info = torch.linalg.cholesky_ex(A + j0[..., None, None] * _eye_like(A))
+        if bool(((info == 0) & torch.isfinite(L).all(-1).all(-1)).all()):
+            return L
     R = jitters.shape[0]
     differentiable = torch.is_grad_enabled() and A.requires_grad
     eye = _eye_like(A)
@@ -74,7 +84,7 @@ def _ladder_cholesky(A: torch.Tensor, jitters: torch.Tensor) -> torch.Tensor:
 
 
 @_highest_precision
-def safe_cholesky(K: torch.Tensor, jitt: float | None = None) -> torch.Tensor:
+def safe_cholesky(K: torch.Tensor, jitt: float | None = None, lazy_rungs: bool = False) -> torch.Tensor:
     """Lower Cholesky factor of ``K + jitt*I`` with an adaptive jitter ladder:
     if the factorization fails, the jitter is multiplied by 10, up to 4
     times (5 rungs, the first being the dtype-scaled jitter)."""
@@ -84,11 +94,11 @@ def safe_cholesky(K: torch.Tensor, jitt: float | None = None) -> torch.Tensor:
     rungs = [j]
     for _ in range(4):
         rungs.append(rungs[-1] * 10.0)
-    return _ladder_cholesky(K, torch.stack(rungs))
+    return _ladder_cholesky(K, torch.stack(rungs), lazy_rungs)
 
 
 @_highest_precision
-def psd_safe_cholesky(A: torch.Tensor, base=None) -> torch.Tensor:
+def psd_safe_cholesky(A: torch.Tensor, base=None, lazy_rungs: bool = False) -> torch.Tensor:
     """Cholesky of a matrix that is PD by construction but can round slightly
     indefinite.  The ladder starts at ZERO (exact whenever the plain
     factorization succeeds) and escalates ``base * 10^k``, k = 0..4.  The
@@ -100,7 +110,15 @@ def psd_safe_cholesky(A: torch.Tensor, base=None) -> torch.Tensor:
     # rungs made on the device: a host-built table would cost a copy and a
     # sync on every call
     rungs = [base * 0.0, base] + [base * 10.0**k for k in range(1, 5)]
-    return _ladder_cholesky(A, torch.stack(rungs))
+    return _ladder_cholesky(A, torch.stack(rungs), lazy_rungs)
+
+
+def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of A, NaN where the factorization fails (as
+    the reference's ``jnp.linalg.cholesky`` returns it), with no host read;
+    differentiable."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 
 @_highest_precision
@@ -144,10 +162,10 @@ def diag_ABt(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 @_highest_precision
-def nat_to_moments(eta1: torch.Tensor, eta2: torch.Tensor):
+def nat_to_moments(eta1: torch.Tensor, eta2: torch.Tensor, lazy_rungs: bool = False):
     """(mu, Sigma) from the natural parameters: Sigma = -1/2 eta2^-1,
     mu = Sigma eta1, with the zero-first jitter ladder on -eta2."""
-    L = psd_safe_cholesky(-symmetrize(eta2))
+    L = psd_safe_cholesky(-symmetrize(eta2), lazy_rungs=lazy_rungs)
     Sigma = symmetrize(0.5 * chol_solve(L, _eye_like(eta2).expand(eta2.shape)))
     mu = (Sigma @ eta1.unsqueeze(-1)).squeeze(-1)
     return mu, Sigma

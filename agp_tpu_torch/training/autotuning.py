@@ -7,8 +7,12 @@ Cholesky ladder, the kappa kernel's ``autograd.Function``, the Gaussian
 KL), with respect to the log kernel parameters, the prior mean's
 parameters and, when the model has a ``Zoptimiser``, the inducing points.
 The optimiser's updates are added (descent on -ELBO), the kernel is mapped
-back from log space, and the cached kernel matrices are recomputed.  No
-value is read back to the host.
+back from log space, and the cached kernel matrices are recomputed.  A
+full model's (VGP's) kernel matrices are over its training inputs, the
+batch x of a full-batch step; its ELBO reads their Cholesky factor alone,
+so the gradient's pass forms no inverse.  No value is read back to the host
+(a full model's ladder reads one, ``ops/linalg.py``).  The exact GP's step
+is ``training/train.py::_gp_hyper_step``.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ def _optimises_z(model) -> bool:
 def hyper_gradients(model, state: TrainState, x, y):
     """(log kernel leaves, gradients of -ELBO with respect to them, the
     mean's gradients, Z's gradient or None), the ELBO taken with
-    ``kmat = compute_kmat`` of the candidate model, as the reference's
-    ``neg_elbo`` does."""
+    ``kmat = compute_kmat`` of the candidate model (over x for a full
+    model), as the reference's ``neg_elbo`` does."""
     log_k = {k: v.detach().requires_grad_(True) for k, v in to_unconstrained(model.kernel).leaves().items()}
     mean = {k: v.detach().requires_grad_(True) for k, v in model.mean.leaves().items()}
     Z = model.Z.detach().requires_grad_(True) if _optimises_z(model) else None
@@ -38,7 +42,8 @@ def hyper_gradients(model, state: TrainState, x, y):
         m2 = model.replace(kernel=kernel, mean=model.mean.replace(**mean))
         if Z is not None:
             m2 = m2.replace(Z=Z)
-        neg_elbo = -objective(m2, state, x, y, kmat=analytic_vi.compute_kmat(m2))
+        kmat = analytic_vi.compute_kmat(m2, x, inverse=m2.is_sparse)
+        neg_elbo = -objective(m2, state, x, y, kmat=kmat)
         wanted = list(log_k.values()) + list(mean.values()) + ([Z] if Z is not None else [])
         grads = torch.autograd.grad(neg_elbo, wanted)
     n_k = len(log_k)
@@ -64,7 +69,7 @@ def hyper_step(model, state: TrainState, x, y):
     if g_z is not None:
         z_update, hyper["Z"] = model.Zoptimiser.update(g_z, hyper["Z"])
         model = model.replace(Z=model.Z + z_update)
-    return model, state.replace(hyper_state=hyper, kmat=analytic_vi.compute_kmat(model))
+    return model, state.replace(hyper_state=hyper, kmat=analytic_vi.compute_kmat(model, x))
 
 
 def init_hyper_state(model):

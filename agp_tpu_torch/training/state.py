@@ -31,11 +31,16 @@ class TrainState(Params):
     # (training/autotuning.py), None for fixed hyperparameters
     hyper_state: Any = None
     # cached kernel matrices {"L_K", "K_inv", "L_inv"}, each [L, M, M]
+    # (a full model: {"L_K", "K_inv"} over its training inputs, [L, N, N])
     kmat: Any = None
     # minibatch scaling rho = N / batchsize
     rho: Any = None
     # iteration counter
     step: Any = None
+    # exact GP: alpha = (K + sigma^2 I)^-1 (y - mu0) [N] and the Cholesky
+    # factor of K + sigma^2 I [N, N]
+    alpha: Any = None
+    chol_Sigma: Any = None
 
 
 def init_var_posterior(n_latent: int, M: int, dtype=torch.float32, device=None):

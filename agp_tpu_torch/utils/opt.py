@@ -31,8 +31,9 @@ def tree_map(fn, tree, *rest):
 
 def ascent_update(opt: GradientTransformation, opt_state, params, grads):
     """Apply an ASCENT step (the ELBO is maximized): returns
-    (new_opt_state, updates_to_add)."""
-    neg = tuple(-g for g in grads)
+    (new_opt_state, updates_to_add).  ``grads`` is a tuple of tensors (the
+    natural-gradient rules), a tensor or a dict of them (``adam``)."""
+    neg = tuple(-g for g in grads) if isinstance(grads, tuple) else tree_map(torch.neg, grads)
     updates, new_state = opt.update(neg, opt_state)
     return new_state, updates
 

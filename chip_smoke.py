@@ -103,15 +103,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed beside it; then the bench's gather mode with its exact launches;
 18. the bench's entry point, ``python3 -m agp_tpu_torch.bench`` at a cut
    step count in a child process: its JSON line parses and its rate is
-   finite and positive.
+   finite and positive;
+19. the exact GP (Slice E): benchmarks/tpu_acceptance.py's regression toy
+   at N=8,192, GP.create's defaults (noise 0.1 learnt by Adam(0.05), the
+   kernel by Adam(0.01)), 60 iterations through agp_tpu_torch.train with
+   no kernel launch: the RMSE of predict_f on 2,048 held-out points,
+   sigma^2 moved toward 0.01, the log-hyperparameters moved, log p(y) up
+   from iteration 2; the full covariance and sample_f on 512 points (the
+   samples' mean and covariance within SAMPLE_SE standard errors of
+   predict_f's), predict_y in chunks bit-equal to the whole call;
+20. the dense VGP: (a) Matern-5/2 + Student-t(4) with the default Adam on
+   the toy at N=4,096 with outliers, (b) the reference's heteroscedastic
+   oracle (lambda=8, fixed hyperparameters) at N=2,048: floors, no kernel
+   launch;
+21. an SVGP whose Gaussian likelihood learns its noise at the flagship's
+   shape, 300 steps, one launch of kernel 6 and one of kernel 7 a step
+   (a learnt noise refuses the fused pass): its RMSE floor and sigma^2
+   closer to its fixed point (the mean of (y - mu)^2 + var) every 50
+   steps;
+22. parity of paths 19-20 at N=1,024 (10 iterations) and path 21 (20
+   steps): card (float32) against CPU (float32) within each path's own
+   float32 noise; then the dense algebra one op at a time (logged).
+   Phases 19-21 log their steady iterations/s and peak device memory.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
 the kernels' JSON line, then the device JSON line last.
 
 Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``,
-``profile multiclass``, ``profile multiclass_k10|het`` or ``profile hyper
-A|B`` (torch.profiler over 20 steps of an M=512 path or of path 7 or 8,
+``profile multiclass``, ``profile multiclass_k10|het|noise`` or ``profile
+hyper A|B`` (torch.profiler over 20 steps of an M=512 path, of path 7, 8
+or 21,
 or 20 iterations of path A or B with a hyperparameter step each),
 ``profile kernels`` (device time of the bench's
 candidates at each of its shapes: kernels 1 (M <= 128), 8, 9, the sweep's
@@ -134,7 +156,12 @@ host-bound paths that take kernel 1), ``multi`` (kernels 2-3 by CUDA
 events and device us at the paths' shapes and the oracle shapes beside
 their products alone, the multiclass and heteroscedastic paths' rates
 and profiles), ``bits FILE`` (digests of kernels 1 and 4-9's outputs on
-seeded inputs, written to FILE or held bit-equal to it).  ``ab ROOT
+seeded inputs, written to FILE or held bit-equal to it), ``dense``
+(phases 19-22 alone), ``dense-cpu`` (phases 19-21's paths with the plain
+code on the CPU in float32, no floors: what DENSE_FLOORS comes from),
+``ladder`` (the dense ladders' lazy rungs against the batch of all rungs),
+``profile dense gp|vgp`` (torch.profiler over 5 iterations of path 19 or
+20a).  ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
 ``ab ROOT kappa`` and ``kappa`` (or ``variants``, ``fused``, ``paths``,
@@ -2018,9 +2045,10 @@ def profile_hyper_path(agt, device, which):
 
 def profile_pair_path(agt, device, which):
     """torch.profiler over 20 steady-state steps (after 30) of
-    logistic_m512_b65536, the M=512 multiclass path or the bench's
-    multiclass (K=10) and heteroscedastic paths at M=64 (``python3
-    chip_smoke.py profile logistic|multiclass|multiclass_k10|het``): wall
+    logistic_m512_b65536, the M=512 multiclass path, the bench's
+    multiclass (K=10) and heteroscedastic paths at M=64 or path 21 (the
+    SVGP with a learnt noise) (``python3 chip_smoke.py profile
+    logistic|multiclass|multiclass_k10|het|noise``): wall
     and device-busy time per step, the device's idle share, kernel
     launches per step and the device time of the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -2033,6 +2061,9 @@ def profile_pair_path(agt, device, which):
     elif which == "multiclass":
         X, y = pair_mc_data(device)
         model = pair_multi_model(agt, X, "multiclass")
+    elif which == "noise":
+        X, _, y = noise_data(device)
+        model = noise_model(agt, X)
     else:  # the bench's multi-latent paths (phases 7-8)
         path = "multiclass" if which == "multiclass_k10" else "het"
         X, y = (mc_data if path == "multiclass" else het_data)(device)
@@ -2287,12 +2318,17 @@ def paths_mode(agt, ck, device):
     tree): the host-bound paths that take kernel 1, as phases 4, 5, 10 and
     15 run them, in one process: the flagship's steady rate, Student-t's
     (here not first in its process), the ten oracle paths at M=128 (150
-    steps of train each, set-up included) and path A's steady rate."""
+    steps of train each, set-up included) and path A's steady rate; then,
+    in a tree that has them, phases 19-21's paths."""
     log(f"paths: agp_tpu_torch from {os.path.relpath(os.path.dirname(agt.__file__))}")
     phase_main_path(agt, ck, device)
     phase_studentt_rate(agt, ck, device)
     phase_oracles(agt, ck, device)
     phase_hyper_path(agt, ck, device, "A")
+    if hasattr(agt, "GP"):  # the dense paths and path 21, from Slice E on
+        for which in DENSE_PATHS:
+            phase_dense(agt, ck, device, which)
+        phase_noise(agt, ck, device)
 
 
 def multi_mode(agt, ck, device):
@@ -2766,6 +2802,525 @@ def ms_table(pairs):
     return {k: {"ms": kern, "plain_ms": plain} for k, (kern, plain) in pairs.items()}
 
 
+# ------------------------------------------- Slice E: the exact GP and the dense VGP
+# phase 19, the exact GP: benchmarks/tpu_acceptance.py:57-71's toy at
+# N=8,192 (the reference's 400), examples/regression.py's 60 iterations,
+# 2,048 held-out points; full covariance and sample_f on 512 of them
+GN, GH, G_ITERS, SN, SAMPLES = 8192, 2048, 60, 512, 4000
+# phase 20: (a) examples/robust_regression.py's VGP (Matern-5/2,
+# Student-t(4), the default Adam(0.01)) on the toy at N=4,096 with
+# y[::29] += 8; (b) the reference's heteroscedastic VGP oracle
+# (tpu_acceptance.py:123-138, lambda=8, fixed hyperparameters) at N=2,048
+# (the reference's 512), D=1; 60 iterations each
+VN, HN, V_ITERS = 4096, 2048, 60
+# phase 21: the flagship's shape with a Gaussian likelihood that learns its
+# noise (Adam(0.05) on log sigma^2), fixed kernel, 300 steps
+NOISE_STEPS = 300
+# iterations of train timed after each dense path's run (steady state)
+DENSE_TIMED = 10
+# phase 22: the dense paths at N=1,024 for 10 iterations, path 21 for 20
+# steps at N=PN, card against CPU (both float32)
+DN, D_ITERS = 1024, 10
+# the paths' RMSE floors (against the noiseless f: held-out for the GP, on
+# the training inputs for the VGPs, against X w on 8,192 rows for path
+# 21), from the plain code's float32 RMSE on the CPU on the same data
+# (``python3 chip_smoke.py dense-cpu`` on the card's host): GP 0.0061,
+# Student-t VGP 0.0403, heteroscedastic VGP 0.3395, path 21 2.7986.  Each
+# floor is about three times that, and inside the reference's own (GP
+# 0.1, heteroscedastic 0.4, tpu_acceptance.py:57-71, 123-138); three
+# times would not beat predicting 0 for the last two (RMS of f 0.7, of
+# X w ~4.5), so the heteroscedastic floor is the reference's and path
+# 21's 1.2 times the CPU's.
+DENSE_FLOORS = {"gp": 0.02, "vgp_studentt": 0.12, "vgp_het": 0.4, "svgp_noise": 3.3}
+# sample_f against predict_f: each entry of the 4,000 samples' mean and
+# covariance within this many standard errors (float64 statistics)
+SAMPLE_SE = 6.0
+DENSE_PATHS = ("gp", "vgp_studentt", "vgp_het")
+
+
+def dense_data(which, n, device, seed=0):
+    """(X, f, y) float32 of a dense path: the toy X ~ U[-2, 2]^D,
+    f = sin(2 x_0) + 0.5 x_1 (D=2; D=1 for the heteroscedastic oracle,
+    whose noise has precision 8 sigmoid(-1.5 + 1.2 tanh(x_0))), y = f +
+    0.1 eps, with y[::29] += 8 for the Student-t path."""
+    rng = np.random.default_rng(seed)
+    d = 1 if which == "vgp_het" else 2
+    X = rng.uniform(-2, 2, size=(n, d))
+    f = np.sin(2 * X[:, 0]) + (0.5 * X[:, 1] if d > 1 else 0.0)
+    if which == "vgp_het":
+        g = -1.5 + 1.2 * np.tanh(X[:, 0])
+        y = f + np.sqrt(1.0 / (8.0 / (1.0 + np.exp(-g)))) * rng.normal(size=n)
+    else:
+        y = f + 0.1 * rng.normal(size=n)
+    if which == "vgp_studentt":
+        y[::29] += 8.0
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in (X, f, y))
+
+
+def dense_model(agt, which, X, y):
+    if which == "gp":
+        return agt.GP.create(X, y, agt.SqExponentialKernel())
+    if which == "vgp_studentt":
+        return agt.VGP.create(X, y, agt.Matern52Kernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI())
+    return agt.VGP.create(X, y, agt.SqExponentialKernel(), agt.HeteroscedasticLikelihood.create(lam=8.0),
+                          agt.AnalyticVI(), optimiser=None)
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dense_rmse(agt, which, model, state, device):
+    """RMSE of predict_f against the noiseless f: on GH held-out points
+    for the GP, on the training inputs for the VGPs (the first latent)."""
+    if which == "gp":
+        Xh, fh, _ = dense_data(which, GH, device, seed=1)
+        mu = agt.predict_f(model, state, Xh)
+    else:
+        Xh, fh = model.train_x, dense_data(which, model.train_x.shape[0], device)[1]
+        mu = agt.predict_f(model, state, Xh)
+        mu = mu[0] if mu.ndim == 2 else mu
+    return float(torch.sqrt(torch.mean((mu - fh) ** 2)))
+
+
+def dense_path(agt, ck, device, which, n=None, check=True, timed=True):
+    """A dense path through agp_tpu_torch.train (phase 19 or 20): its run
+    with no kernel launch, its floor, the hyperparameters moved and
+    finite, then its steady rate (DENSE_TIMED iterations of train) and the
+    peak device memory.  Returns its numbers."""
+    n = n or {"gp": GN, "vgp_studentt": VN, "vgp_het": HN}[which]
+    iters = G_ITERS if which == "gp" else V_ITERS
+    X, _, y = dense_data(which, n, device)
+    model = dense_model(agt, which, X, y)
+    log0 = log_hypers(model)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+        sync(device)
+        torch.cuda.reset_peak_memory_stats()
+    early = {}
+
+    def at_2(m, s, i):
+        if i == 2:
+            early["value"] = float(agt.elbo(m, s))
+
+    t0 = time.perf_counter()
+    model, state = agt.train(model, iterations=iters, callback=at_2 if which == "gp" else None)
+    sync(device)
+    train_s = time.perf_counter() - t0
+    if cuda:
+        expect_launches(ck, which, {})
+    out = {"rmse": dense_rmse(agt, which, model, state, device), "train_s": train_s}
+    logs = log_hypers(model)
+    out["moved"] = float((logs - log0).abs().max())
+    lik = model.likelihood
+    out["param"] = float(getattr(lik, {"gp": "sigma2", "vgp_het": "lam", "vgp_studentt": "nu"}[which]))
+    post = state.alpha if which == "gp" else state.mu
+    if check:
+        floor = DENSE_FLOORS[which]
+        if not (bool(torch.isfinite(post).all()) and bool(torch.isfinite(logs).all())
+                and np.isfinite(out["param"])):
+            raise AssertionError(f"{which}: non-finite posterior, hyperparameters or likelihood parameter")
+        if not out["rmse"] <= floor:
+            raise AssertionError(f"{which}: RMSE {out['rmse']:.4f} > {floor}")
+        if which != "vgp_het" and not out["moved"] > MIN_HYPER_MOVE:
+            raise AssertionError(f"{which}: the log-hyperparameters moved by {out['moved']:.3e} <= {MIN_HYPER_MOVE}")
+    if which == "gp":
+        out["log_py"], out["log_py_2"] = float(agt.elbo(model, state)), early["value"]
+        if check:
+            s2 = out["param"]
+            if not abs(np.log(s2 / 0.01)) < abs(np.log(0.1 / 0.01)):
+                raise AssertionError(f"gp: sigma^2 {s2:.5f} did not move from 0.1 toward 0.01")
+            if not out["log_py"] > out["log_py_2"]:
+                raise AssertionError(f"gp: log p(y) {out['log_py']:.3f} not above iteration 2's {out['log_py_2']:.3f}")
+            gp_predictions(agt, model, state, device, out)
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if timed:
+        t0 = time.perf_counter()
+        model, state = agt.train(model, iterations=DENSE_TIMED, state=state)
+        sync(device)
+        out["ips"] = DENSE_TIMED / (time.perf_counter() - t0)
+    return out
+
+
+def gp_predictions(agt, model, state, device, out):
+    """Full-covariance predict_f and sample_f on SN held-out points: the
+    mean and covariance of SAMPLES samples within SAMPLE_SE standard errors
+    of predict_f's (its covariance plus the jitter sample_f adds); then
+    predict_y in chunks of 1,000 rows bit-equal to the whole call."""
+    Xh, _, _ = dense_data("gp", GH, device, seed=1)
+    Xs = Xh[:SN]
+    mu, cov = agt.predict_f(model, state, Xs, cov=True, diag=False)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = agt.sample_f(model, state, Xs, SAMPLES, generator=gen).double()
+    mu, cov = mu.double(), cov.double() + agt.config.jitter(torch.float32) * torch.eye(SN, dtype=torch.float64,
+                                                                                      device=cov.device)
+    var = torch.diagonal(cov)
+    mean_z = float(((x.mean(0) - mu).abs() / torch.sqrt(var / SAMPLES)).max())
+    se = torch.sqrt((var[:, None] * var[None, :] + cov**2) / SAMPLES)
+    cov_z = float(((torch.cov(x.T) - cov).abs() / se).max())
+    if not (mean_z <= SAMPLE_SE and cov_z <= SAMPLE_SE):
+        raise AssertionError(f"gp: sample_f's mean / covariance {mean_z:.2f} / {cov_z:.2f} standard errors from "
+                             f"predict_f's (bound {SAMPLE_SE})")
+    whole = agt.predict_y(model, state, Xh)
+    chunked = agt.predict_y(model, state, Xh, chunk_size=1000)
+    if not torch.equal(whole, chunked):
+        raise AssertionError(f"gp: predict_y with chunk_size=1000 differs from the whole call by "
+                             f"{float((whole - chunked).abs().max()):.3e}")
+    out.update(sample_mean_se=mean_z, sample_cov_se=cov_z)
+
+
+def noise_data(device, n=N, seed=0):
+    """The flagship's X with y = X w + 0.1 eps, and X w."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, D)).astype(np.float32)
+    f = X @ rng.normal(size=D).astype(np.float32)
+    y = (f + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (X, f, y))
+
+
+def noise_model(agt, X, b=B):
+    return agt.SVGP.create(
+        agt.SqExponentialKernel(lengthscale=2.0, variance=1.0), agt.GaussianLikelihood.create(0.1, opt_noise=True),
+        agt.AnalyticSVI(b, minibatch_sampling="block"), X[:M], optimiser=None,
+    )
+
+
+def noise_path(agt, ck, device, check=True, timed=True):
+    """Phase 21: the SVGP with Gaussian noise learning at the flagship's
+    shape, NOISE_STEPS steps through agp_tpu_torch.train: one launch of
+    kernel 6 and one of kernel 7 a step and none of kernel 1 (a learnt
+    noise takes the split pair), sigma^2 and the RMSE of predict_f against
+    X w on 8,192 rows; then the steady rate.  Returns its numbers."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    X, f, y = noise_data(device)
+    model = noise_model(agt, X)
+    gen = torch.Generator(device=device).manual_seed(0)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+        torch.cuda.reset_peak_memory_stats()
+    sigma2 = []
+    model, state = agt.train(model, X, y, iterations=NOISE_STEPS, generator=gen,
+                             callback=lambda m, s, i: sigma2.append(m.likelihood.sigma2) if i % 50 == 0 else None)
+    sync(device)
+    out = {}
+    if cuda:
+        out["launches"] = expect_launches(ck, "svgp_noise", route_launches(NOISE_STEPS, "single"))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["sigma2"] = [float(s) for s in sigma2]
+    mu, var = agt.predict_f(model, state, X[:8192], cov=True)
+    out["rmse"] = float(torch.sqrt(torch.mean((mu - f[:8192]) ** 2)))
+    # the noise's fixed point: its gradient vanishes where sigma^2 is the
+    # mean of (y - mu)^2 + var.  The flagship's kernel fits X w only in
+    # part, so the point is the misfit (~8.8), not the data's 0.01; Adam's
+    # memory of the first steps' large gradients slows the approach
+    out["fixed_point"] = float(torch.mean((y[:8192] - mu) ** 2 + var))
+    gaps = [abs(s - out["fixed_point"]) for s in [0.1] + out["sigma2"]]
+    if check:
+        floor = DENSE_FLOORS["svgp_noise"]
+        if not (bool(torch.isfinite(state.mu).all()) and all(np.isfinite(out["sigma2"]))):
+            raise AssertionError("svgp_noise: non-finite posterior or sigma^2")
+        if not out["rmse"] <= floor:
+            raise AssertionError(f"svgp_noise: RMSE {out['rmse']:.4f} > {floor}")
+        if not all(b < a for a, b in zip(gaps, gaps[1:])):
+            raise AssertionError(f"svgp_noise: sigma^2 every 50 steps {out['sigma2']} (from 0.1) does not move "
+                                 f"steadily toward its fixed point {out['fixed_point']:.5f}")
+    if timed:
+        model, state = vi_steps(model, state, X, y, 50, generator=gen)  # warm-up
+        sync(device)
+        t0 = time.perf_counter()
+        model, state = vi_steps(model, state, X, y, NOISE_STEPS, generator=gen)
+        sync(device)
+        out["ips"] = NOISE_STEPS / (time.perf_counter() - t0)
+    return out
+
+
+def log_dense(which, r, device="the card"):
+    extra = ""
+    if which == "gp":
+        extra = (f", sigma^2 {r['param']:.5f} (from 0.1), log p(y) {r['log_py_2']:.2f} at iteration 2 -> "
+                 f"{r['log_py']:.2f}")
+        if "sample_mean_se" in r:
+            extra += (f"; sample_f ({SAMPLES} samples, {SN} points) mean / covariance within {r['sample_mean_se']:.2f}"
+                      f" / {r['sample_cov_se']:.2f} standard errors of predict_f's, predict_y chunked bit-equal")
+    elif which == "vgp_het":
+        extra = f", lambda {r['param']:.4f}"
+    rate = f", steady {r['ips']:.2f} iterations/s over {DENSE_TIMED} iterations" if "ips" in r else ""
+    memory = f"; peak device memory {r['peak_gib']:.3f} GiB; 0 kernel launches" if "peak_gib" in r else ""
+    log(f"{which} on {device}: RMSE {r['rmse']:.4f} (floor {DENSE_FLOORS[which]}), log-hyperparameters moved by "
+        f"{r['moved']:.4f}{extra}; train {r['train_s']:.2f} s{rate}{memory}")
+
+
+def phase_dense(agt, ck, device, which):
+    r = dense_path(agt, ck, device, which)
+    log_dense(which, r)
+    return r
+
+
+def phase_noise(agt, ck, device):
+    r = noise_path(agt, ck, device)
+    log(f"svgp_noise (N={N}, D={D}, M={M}, B={B}, block, Gaussian noise learnt by Adam(0.05)): RMSE against X w "
+        f"{r['rmse']:.4f} (floor {DENSE_FLOORS['svgp_noise']}), sigma^2 every 50 steps "
+        f"{', '.join(f'{s:.5f}' for s in r['sigma2'])} (from 0.1), its fixed point {r['fixed_point']:.5f}; "
+        f"{r['launches']} launches (kernels 6 and 7 once a "
+        f"step); steady {r['ips']:.1f} CAVI iterations/s over {NOISE_STEPS} steps; peak device memory "
+        f"{r['peak_gib']:.3f} GiB")
+    return r
+
+
+def dense_cpu_mode(agt, ck):
+    """``python3 chip_smoke.py dense-cpu``: the paths of phases 19-21 with
+    the plain code on the CPU in float32, on the same data, without their
+    floors: the errors DENSE_FLOORS is set from."""
+    r = noise_path(agt, ck, "cpu", check=False, timed=False)
+    log(f"svgp_noise on the CPU: RMSE {r['rmse']:.4f}, sigma^2 every 50 steps "
+        f"{', '.join(f'{s:.5f}' for s in r['sigma2'])}, its fixed point {r['fixed_point']:.5f}")
+    for which in ("vgp_het", "vgp_studentt", "gp"):
+        log_dense(which, dense_path(agt, ck, "cpu", which, check=False, timed=False), "the CPU")
+
+
+def dense_after(agt, which, X, y, perm=None):
+    """The posterior (alpha for the GP, mu [L, N] for a VGP) in the data's
+    own row order after D_ITERS iterations of train on (X, y) (its rows in
+    the order ``perm`` when given), the likelihood's learnt parameter and
+    the log-hyperparameters, as float64 on the CPU."""
+    if perm is not None:
+        X, y = X[perm], y[perm]
+    model, state = agt.train(dense_model(agt, which, X, y), iterations=D_ITERS)
+    post = (state.alpha[None] if which == "gp" else state.mu).double().cpu()
+    if perm is not None:
+        post = post[:, torch.argsort(perm)]
+    lik = model.likelihood
+    param = lik.sigma2 if which == "gp" else getattr(lik, "lam", None)
+    return post, None if param is None else param.double().cpu(), log_hypers(model)
+
+
+def triple_err(a, b):
+    """max |d post| / max |post|, |d param| / param and max |d log-hyperparameter|."""
+    err = max(float((a[0] - b[0]).abs().max() / b[0].abs().max()), float((a[2] - b[2]).abs().max()))
+    if b[1] is not None:
+        err = max(err, float((a[1] - b[1]).abs() / b[1]))
+    return err
+
+
+def noise_trajectories(agt, device):
+    """The GP's sigma^2 after each of D_ITERS iterations at N=DN on the card
+    (float32) and on the CPU (float32 and float64): its gradient
+    (|alpha|^2 - tr(Sigma^-1)) / 2 is the difference of two terms of size
+    N / sigma^2 that meet at the optimum.  Logged only."""
+    Xc, _, yc = dense_data("gp", DN, "cpu", seed=1)
+    runs = {}
+    for label, dev, dt in (("card", device, torch.float32), ("CPU float32", "cpu", torch.float32),
+                           ("CPU float64", "cpu", torch.float64)):
+        seen = []
+        agt.train(dense_model(agt, "gp", Xc.to(device=dev, dtype=dt), yc.to(device=dev, dtype=dt)),
+                  iterations=D_ITERS, callback=lambda m, s, i: seen.append(m.likelihood.sigma2))
+        runs[label] = np.array([float(v) for v in seen])
+    ref = runs["CPU float64"]
+    log(f"gp sigma^2 over {D_ITERS} iterations (N={DN}): card {' '.join(f'{v:.6f}' for v in runs['card'])}; "
+        f"largest relative gap to float64: card {np.max(np.abs(runs['card'] / ref - 1)):.3e}, CPU float32 "
+        f"{np.max(np.abs(runs['CPU float32'] / ref - 1)):.3e}")
+
+
+def noise_after(agt, X, y, draws, Z_perm=None):
+    """mu (in Z's own order), sigma^2 and no log-hyperparameters after 20
+    steps of path 21 on (X, y) with the given draws."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    model = noise_model(agt, X)
+    if Z_perm is not None:
+        model = model.replace(Z=model.Z[:, Z_perm].contiguous())
+    state = agt.init_state(model, X, y)
+    model, state = vi_steps(model, state, X, y, 20, draws=draws.to(X.device))
+    mu = state.mu.double().cpu()
+    if Z_perm is not None:
+        mu = mu[:, torch.argsort(Z_perm)]
+    return mu, model.likelihood.sigma2.double().cpu(), torch.zeros(1, dtype=torch.float64)
+
+
+def phase_dense_parity(agt, device):
+    """Card (float32) against CPU (float32, the plain code) for paths 19,
+    20a and 20b at N=DN after D_ITERS iterations and path 21 at N=PN after
+    20 steps from the same draws: the posterior (max |d| / max), the learnt
+    noise or lambda (relative) and the log-hyperparameters (absolute),
+    within ORACLE_DEVICE_FACTOR times each path's own float32 noise (the
+    CPU run again with the data's rows, for path 21 the inducing points,
+    in another order) and at least MULTI_PARITY_TOL.  Then the card's
+    float32 dense algebra against the CPU's one op at a time at N=DN
+    (logged, no bound)."""
+    for which in DENSE_PATHS:
+        Xc, _, yc = dense_data(which, DN, "cpu", seed=1)
+        perm = torch.randperm(DN, generator=torch.Generator().manual_seed(2))
+        cpu = dense_after(agt, which, Xc, yc)
+        card = dense_after(agt, which, Xc.to(device), yc.to(device))
+        noise = triple_err(dense_after(agt, which, Xc, yc, perm), cpu)
+        err, tol = triple_err(card, cpu), max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL)
+        if not err <= tol:
+            raise AssertionError(f"{which}: card vs CPU after {D_ITERS} iterations: {err:.3e} > {tol:.3e}")
+        log(f"{which} parity (N={DN}, {D_ITERS} iterations): card (float32) vs CPU (float32) {err:.3e} "
+            f"(bound {tol:.3e}); CPU with the rows reordered vs CPU {noise:.3e}")
+    noise_trajectories(agt, device)
+    Xc, _, yc = noise_data("cpu", n=PN, seed=1)
+    draws = torch.randint(0, PN // 64, (20, B // 64), generator=torch.Generator().manual_seed(1))
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(2))
+    cpu = noise_after(agt, Xc, yc, draws)
+    card = noise_after(agt, Xc.to(device), yc.to(device), draws)
+    noise = triple_err(noise_after(agt, Xc, yc, draws, perm), cpu)
+    err, tol = triple_err(card, cpu), max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL)
+    if not err <= tol:
+        raise AssertionError(f"svgp_noise: card vs CPU after 20 steps: {err:.3e} > {tol:.3e}")
+    log(f"svgp_noise parity (N={PN}, B={B}, 20 steps): card (float32) vs CPU (float32) {err:.3e} (bound {tol:.3e}), "
+        f"mu and sigma^2; CPU with Z reordered vs CPU {noise:.3e}")
+    dense_ops_parity(agt, device)
+
+
+def dense_ops_parity(agt, device):
+    """The dense step's algebra one op at a time at N=DN on the Matern-5/2
+    gram of path 20a's inputs: safe_cholesky, chol_solve, chol_inv and
+    nat_to_moments (eta2 = -(Diag(0.5) + K^-1/2)), each on the same float32
+    inputs on the card and on the CPU, as max |d| / max against the CPU's
+    float32 and float64 results.  Logged only."""
+    from agp_tpu_torch.ops import linalg
+
+    X, _, _ = dense_data("vgp_studentt", DN, "cpu", seed=1)
+    K = agt.Matern52Kernel().gram(X)
+    rng = np.random.default_rng(3)
+    b = torch.as_tensor(rng.normal(size=DN), dtype=torch.float32)
+    eta1 = torch.as_tensor(rng.normal(size=DN), dtype=torch.float32)
+
+    def ops(K, b, eta1):
+        L = linalg.safe_cholesky(K, agt.config.jitter(torch.float32))
+        K_inv = linalg.chol_inv(L)
+        eta2 = linalg.symmetrize(-(0.25 * torch.eye(DN, dtype=K.dtype, device=K.device) + 0.5 * K_inv))
+        return {"safe_cholesky": L, "chol_solve": linalg.chol_solve(L, b), "chol_inv": K_inv,
+                "nat_to_moments": linalg.nat_to_moments(eta1, eta2, lazy_rungs=True)[1]}
+
+    cpu = ops(K, b, eta1)
+    card = ops(K.to(device), b.to(device), eta1.to(device))
+    f64 = ops(K.double(), b.double(), eta1.double())
+    for name in cpu:
+        ref = cpu[name].double()
+        d_cpu = float((card[name].double().cpu() - ref).abs().max() / ref.abs().max())
+        r64 = f64[name]
+        e_card = float((card[name].double().cpu() - r64).abs().max() / r64.abs().max())
+        e_cpu = float((ref - r64).abs().max() / r64.abs().max())
+        log(f"dense op {name} (N={DN}): card vs CPU (float32) {d_cpu:.3e}; against float64 card {e_card:.3e}, "
+            f"CPU {e_cpu:.3e}")
+
+
+def profile_dense(agt, device, which):
+    """torch.profiler over 5 iterations (after 5) of the exact GP at N=GN
+    (an analytic refresh and a hyperparameter step each) or the Student-t
+    VGP at N=VN (a CAVI step and a hyperparameter step each)
+    (``python3 chip_smoke.py profile dense gp|vgp``): wall and device-busy
+    time an iteration, the idle share, the peak device memory and the
+    largest device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agp_tpu_torch.inference import analytic_vi
+    from agp_tpu_torch.models.gp import analytic_update
+    from agp_tpu_torch.training import autotuning
+    from agp_tpu_torch.training.train import _gp_hyper_step
+
+    name = "gp" if which == "gp" else "vgp_studentt"
+    X, _, y = dense_data(name, GN if which == "gp" else VN, device)
+    model = dense_model(agt, name, X, y)
+    model, state = agt.train(model, iterations=5)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+
+    def iterations(model, state):
+        for _ in range(n):
+            if which == "gp":
+                model, state = analytic_update(model, state)
+                model, state = _gp_hyper_step(model, state)
+            else:
+                model, state = analytic_vi.variational_update(model, state, X, model.train_y)
+                model, state = autotuning.hyper_step(model, state, X, model.train_y)
+        return model, state
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, state = iterations(model, state)
+        sync(device)
+        wall_us = (time.perf_counter() - t0) / n * 1e6
+    events = prof.key_averages()
+    rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in events
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profile dense {which} ({name}, N={X.shape[0]}): wall {wall_us:.1f} us/iteration, device busy {busy:.1f} "
+        f"us/iteration, idle share {1 - busy / wall_us:.4f}, {sum(r[1] for r in rows):.1f} device ops/iteration, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for us, count, key in rows[:12]:
+        log(f"  device {us:10.1f} us/iteration  x{count:.1f}  {key[:90]}")
+
+
+def ladder_mode(agt, device):
+    """``python3 chip_smoke.py ladder``: the dense ladders with their rungs
+    factored lazily (rung 0 alone, one host read) against all rungs as one
+    batch, at path 20a's N=VN (one latent) and path 20b's N=HN (two):
+    safe_cholesky of K and nat_to_moments, by CUDA events (P T T P, each
+    reps calls) and device us by the profiler; then path 20a's steady rate
+    with each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agp_tpu_torch.ops import linalg
+
+    for which, n in (("vgp_studentt", VN), ("vgp_het", HN)):
+        X, _, y = dense_data(which, n, device)
+        model = dense_model(agt, which, X, y)
+        state = agt.init_state(model)
+        K = agt.kernels.batch_gram(model.kernel, X)
+        eta2 = linalg.symmetrize(-(0.25 * torch.eye(n, device=device) + 0.5 * state.kmat["K_inv"]))
+        eta1 = torch.ones_like(state.mu)
+        calls = {
+            "safe_cholesky": lambda lazy: linalg.safe_cholesky(K, 1e-3, lazy_rungs=lazy),
+            "nat_to_moments": lambda lazy: linalg.nat_to_moments(eta1, eta2, lazy_rungs=lazy),
+        }
+        for name, fn in calls.items():
+            times = {}
+            for lazy in (False, True, True, False):
+                times.setdefault(lazy, []).append(cuda_ms(lambda: fn(lazy), reps=10))
+            dev = {}
+            for lazy in (False, True):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        fn(lazy)
+                    sync(device)
+                dev[lazy] = sum(e.self_device_time_total for e in prof.key_averages()
+                                if str(e.device_type).endswith("CUDA")) / 5
+            log(f"ladder {which} {name} ([{K.shape[0]}, {n}, {n}]): batched {times[False][0]:.3f}, "
+                f"{times[False][1]:.3f} ms / lazy {times[True][0]:.3f}, {times[True][1]:.3f} ms by events; "
+                f"device {dev[False]:.1f} / {dev[True]:.1f} us")
+    X, _, y = dense_data("vgp_studentt", VN, device)
+    real = linalg._ladder_cholesky
+    for lazy in (False, True, True, False):
+        linalg._ladder_cholesky = (lambda A, j, lazy_rungs=False: real(A, j, False)) if not lazy else real
+        try:
+            model, state = agt.train(dense_model(agt, "vgp_studentt", X, y), iterations=5)
+            sync(device)
+            t0 = time.perf_counter()
+            agt.train(model, iterations=DENSE_TIMED, state=state)
+            sync(device)
+            log(f"ladder: vgp_studentt steady {DENSE_TIMED / (time.perf_counter() - t0):.2f} iterations/s with the "
+                f"{'lazy' if lazy else 'batched'} ladders")
+        finally:
+            linalg._ladder_cholesky = real
+
+
+def dense_mode(agt, ck, device):
+    """``python3 chip_smoke.py dense``: phases 19-22 alone."""
+    for which in DENSE_PATHS:
+        timed_phase(which, phase_dense, agt, ck, device, which)
+    timed_phase("svgp_noise", phase_noise, agt, ck, device)
+    timed_phase("dense parity", phase_dense_parity, agt, device)
+
+
 PHASE_SECONDS = {}
 
 
@@ -2794,6 +3349,9 @@ def main():
         return
     if args == ["probe"]:
         probe_mode(ck)
+        return
+    if args == ["dense-cpu"]:  # the CPU alone: no kernel to build
+        dense_cpu_mode(agt, ck)
         return
     lib_path = timed_phase("build", phase_build, ck)
     if not ab:  # this tree's fused_fits against its own library
@@ -2825,6 +3383,15 @@ def main():
         return
     if args[:2] == ["profile", "kernels"]:
         profile_bench_kernels(device)
+        return
+    if args == ["dense"]:
+        dense_mode(agt, ck, device)
+        return
+    if args == ["ladder"]:
+        ladder_mode(agt, device)
+        return
+    if args[:2] == ["profile", "dense"]:
+        profile_dense(agt, device, args[2] if len(args) > 2 else "gp")
         return
     if args[:2] == ["profile", "hyper"]:
         profile_hyper_path(agt, device, args[2] if len(args) > 2 else "A")
@@ -2868,6 +3435,10 @@ def main():
     gather_ms, gather_library = timed_phase("kernel 10 vs plain", phase_gather_vs_plain, device)
     timed_phase("bench gather", phase_bench_gather, ck)
     timed_phase("bench entry point (child)", phase_bench_entry)
+    for which in DENSE_PATHS:
+        timed_phase(f"{which} path", phase_dense, agt, ck, device, which)
+    timed_phase("svgp_noise path", phase_noise, agt, ck, device)
+    timed_phase("dense parity", phase_dense_parity, agt, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {

@@ -786,3 +786,72 @@ def test_cuda_refuses_a_float64_model(cuda_device):
         agt.train(moved, X, y, iterations=2)
     model, state = agt.train(make(X[:16].float()), X.float(), y.float(), iterations=2)
     assert torch.isfinite(state.mu).all()
+
+
+# ------------------------------------------------ Slice E: the dense models
+def toy_on(device, n, d=2, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2, 2, size=(n, d))
+    y = np.sin(2 * X[:, 0]) + 0.1 * rng.normal(size=n)
+    return torch.as_tensor(X, dtype=dtype, device=device), torch.as_tensor(y, dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_models_refuse_float64(cuda_device):
+    """A GP or a VGP built from float64 data on the card is refused at
+    create, and one moved there later at init_state: TypeError naming
+    float32."""
+    X, y = toy_on(cuda_device, 64, dtype=torch.float64)
+    with pytest.raises(TypeError, match=r'float32.*set_default_device\("cpu"\)'):
+        agt.GP.create(X, y, agt.SqExponentialKernel())
+    with pytest.raises(TypeError, match="float32"):
+        agt.VGP.create(X, y, agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI())
+    gp = agt.GP.create(X.float(), y.float(), agt.SqExponentialKernel()).to(dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        agt.init_state(gp)
+    vgp = agt.VGP.create(X.float(), y.float(), agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0),
+                         agt.AnalyticVI()).to(dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        agt.init_state(vgp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gp", "vgp", "vgp_het"])
+def test_cuda_dense_step_launches_no_kernel(cuda_device, which):
+    """The exact GP and the dense VGP (with hyperparameter steps, or two
+    latents) train on the card with no launch of any kernel of the port,
+    as the reference's dense models reach no Pallas kernel; the posterior
+    stays on the card and finite."""
+    X, y = toy_on(cuda_device, 256, d=1 if which == "vgp_het" else 2)
+    if which == "gp":
+        model = agt.GP.create(X, y, agt.SqExponentialKernel())
+    elif which == "vgp":
+        model = agt.VGP.create(X, y, agt.Matern52Kernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI())
+    else:
+        model = agt.VGP.create(X, y, agt.SqExponentialKernel(), agt.HeteroscedasticLikelihood.create(8.0),
+                               agt.AnalyticVI(), optimiser=None)
+    smoke.reset_launches(ck)
+    model, state = agt.train(model, iterations=6)
+    torch.cuda.synchronize()
+    assert smoke.expect_launches(ck, which, {}) == 0
+    post = state.alpha if which == "gp" else state.mu
+    assert post.is_cuda and torch.isfinite(post).all()
+    assert agt.predict_f(model, state, X[:16], cov=True, diag=False)[1].is_cuda
+
+
+@pytest.mark.cuda
+def test_cuda_noise_learning_takes_the_split_pair(cuda_device):
+    """An SVGP whose Gaussian likelihood learns its noise launches kernel 6
+    and kernel 7 once a step and never kernel 1, as phase 21 of the smoke
+    run at its shape; sigma^2 stays a finite 0-d tensor on the card."""
+    rng = np.random.default_rng(4)
+    X = torch.as_tensor(rng.normal(size=(4096, 8)), dtype=torch.float32, device=cuda_device)
+    y = X @ torch.as_tensor(rng.normal(size=8), dtype=torch.float32, device=cuda_device)
+    model = agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), agt.GaussianLikelihood.create(0.1, opt_noise=True),
+                            agt.AnalyticSVI(512, minibatch_sampling="block"), X[:32], optimiser=None)
+    smoke.reset_launches(ck)
+    model, state = agt.train(model, X, y, iterations=20)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, "noise learning", smoke.route_launches(20, "single"))
+    s2 = model.likelihood.sigma2
+    assert s2.is_cuda and s2.ndim == 0 and torch.isfinite(s2) and float(s2) != 0.1

@@ -48,7 +48,7 @@ def test_matern_kernels_slice_matches_reference(kernel):
 
 def test_create_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="opt_noise"):
-        agt.GaussianLikelihood.create(0.1, opt_noise=True)
+        agt.GaussianLikelihood.create(0.1, opt_noise="an optax rule")
     with pytest.raises(ValueError, match="nu"):
         agt.StudentTLikelihood.create(0.5)
     Z = torch.zeros((4, 2), dtype=torch.float64)

@@ -62,10 +62,10 @@ def jax_svgp(X, y, M, B, sampling="block", lengthscale=2.0, likelihood=None, ker
     return model, jax_init_state(model, Xj, yj), Xj, yj
 
 
-def adam_state_arrays(hyper_state):
-    """The JAX package's hyperparameter state (optax's Adam state per group)
-    as ``interop.state_from_numpy`` takes it: {"count", "mu", "nu"} per
-    group, each moment a dict of leaves by field name (an array for Z)."""
+def optax_adam_arrays(s):
+    """optax's Adam state (ScaleByAdamState, EmptyState) as the port keeps
+    it: {"count", "mu", "nu"}, the moments as numpy (an array, or a dict of
+    a group's leaves by field name)."""
 
     def tree(t):
         if isinstance(t, jax.Array):
@@ -73,18 +73,29 @@ def adam_state_arrays(hyper_state):
         return {f.name: np.array(getattr(t, f.name)) for f in dataclasses.fields(t)
                 if isinstance(getattr(t, f.name), jax.Array)}
 
-    return {group: {"count": np.array(s[0].count), "mu": tree(s[0].mu), "nu": tree(s[0].nu)}
-            for group, s in hyper_state.items()}
+    return {"count": np.array(s[0].count), "mu": tree(s[0].mu), "nu": tree(s[0].nu)}
+
+
+def adam_state_arrays(hyper_state):
+    """The JAX package's hyperparameter state (optax's Adam state per group)
+    as ``interop.state_from_numpy`` takes it: {"count", "mu", "nu"} per
+    group, each moment a dict of leaves by field name (an array for Z)."""
+
+    return {group: optax_adam_arrays(s) for group, s in hyper_state.items()}
 
 
 def state_arrays(s):
-    """The JAX TrainState's leaves the port's state holds, as numpy."""
+    """The JAX TrainState's leaves the port's state holds, as numpy (the
+    Gaussian noise rule's local state as ``optax_adam_arrays``; a GP's
+    alpha and chol_Sigma, and no eta, moments or kmat)."""
     leaves = dict(
         eta1=s.eta1, eta2=s.eta2, mu=s.mu, Sigma=s.Sigma,
-        local_vars=dict(s.local_vars), opt_state=s.opt_state, rho=s.rho,
-        step=s.step, kmat=dict(s.kmat),
+        opt_state=s.opt_state, rho=s.rho, step=s.step, alpha=s.alpha, chol_Sigma=s.chol_Sigma,
+        kmat=None if s.kmat is None else dict(s.kmat),
     )
     out = jax.tree_util.tree_map(lambda a: np.array(a), leaves)
+    out["local_vars"] = {k: optax_adam_arrays(v) if k == "state_sigma2" else np.array(v)
+                         for k, v in s.local_vars.items()}
     if s.hyper_state is not None:
         out["hyper_state"] = adam_state_arrays(s.hyper_state)
     return out
@@ -94,6 +105,9 @@ def port_likelihood(lik_j):
     """The port's counterpart of a JAX likelihood, with its parameters as
     ``model_from_numpy`` takes them."""
     name = type(lik_j).__name__
+    if name == "GaussianLikelihood" and lik_j.opt_noise is not None:
+        # the reference's create(opt_noise=True) rule, adam(0.05)
+        return agt.GaussianLikelihood.create(opt_noise=True), {"sigma2": np.array(lik_j.sigma2)}
     if name == "LogisticSoftMaxLikelihood":
         return agt.LogisticSoftMaxLikelihood.create(lik_j.n_class), dict(
             n_class=lik_j.n_class, class_mapping=lik_j.class_mapping
@@ -268,12 +282,33 @@ def check_steps(runs, rtol=1e-8):
     for step, (mj, sj, mt, st) in enumerate(runs["per_step"]):
         for name in ("eta1", "eta2", "mu", "Sigma"):
             close(getattr(st, name), getattr(sj, name), rtol=rtol, msg=f"step {step}: {name}")
-        assert set(st.local_vars) == set(sj.local_vars)
-        for name in sj.local_vars:
-            close(st.local_vars[name], sj.local_vars[name], rtol=rtol, msg=f"step {step}: {name}")
+        locals_close(st.local_vars, sj.local_vars, rtol=rtol, msg=f"step {step}: ")
         lik_params_close(mt.likelihood, mj.likelihood, rtol=rtol)
         assert int(st.opt_state) == int(sj.opt_state) == step + 1
         assert int(st.step) == int(sj.step) == step + 1
+
+
+def adam_close(port, ref_optax, rtol, msg=""):
+    """The port's Adam state (a dict) against optax's, leaf by leaf."""
+    ref = optax_adam_arrays(ref_optax)
+    assert int(port["count"]) == int(ref["count"]), msg
+    for key in ("mu", "nu"):
+        if isinstance(ref[key], dict):
+            for leaf in ref[key]:
+                close(port[key][leaf], ref[key][leaf], rtol=rtol, msg=f"{msg}{key} {leaf}")
+        else:
+            close(port[key], ref[key], rtol=rtol, msg=f"{msg}{key}")
+
+
+def locals_close(port, ref, rtol, msg=""):
+    """Every local variable at rtol (atol 1e-12), the Gaussian noise rule's
+    state "state_sigma2" by ``adam_close``."""
+    assert set(port) == set(ref), (set(port), set(ref))
+    for name in ref:
+        if name == "state_sigma2":
+            adam_close(port[name], ref[name], rtol, msg=f"{msg}{name} ")
+        else:
+            close(port[name], ref[name], rtol=rtol, msg=f"{msg}{name}")
 
 
 def check_predictions_and_elbo(runs, D, rtol=1e-8):
