@@ -17,14 +17,20 @@ and heteroscedastic likelihoods, with the hyperparameter step interleaved
 (Adam(0.01) on the kernel and the mean by default, optionally on the
 inducing points) or with fixed hyperparameters; ``predict_f`` (diagonal or
 full covariance), ``predict_y``, ``proba_y`` (each optionally in chunks)
-and ``sample_f``.  The dense models' N x N algebra is plain PyTorch at
-full FP32 and runs no kernel of the port.  Inputs without a device (numpy
-arrays, lists) go to the CUDA card unless
-``config.set_default_device("cpu")`` was called.
+and ``sample_f``; the Monte-Carlo ``MCGP``, sampled by exact augmented
+Gibbs (Polya-Gamma and GIG draws, the global resample by Cholesky or
+conjugate gradients), NUTS or HMC, and the SMC and SVGD samplers
+(``smc_sample``, ``svgd_sample``).  The dense models' N x N algebra and
+the samplers are plain PyTorch at full FP32 and run no kernel of the
+port.  Inputs without a device (numpy arrays, lists) go to the CUDA card
+unless ``config.set_default_device("cpu")`` was called.
 """
 
 from . import config, kernels
-from .inference.config import Analytic, AnalyticSVI, AnalyticVI
+from .inference.config import Analytic, AnalyticSVI, AnalyticVI, GibbsSampling, HMCSampling
+from .inference.hmc import sample_hmc, sample_nuts
+from .inference.smc import smc_sample
+from .inference.svgd import svgd_sample
 from .kernels import Matern12Kernel, Matern32Kernel, Matern52Kernel, RBFKernel, SqExponentialKernel
 from .likelihoods.base import Likelihood
 from .likelihoods.classification import BayesianSVM, LogisticLikelihood
@@ -34,6 +40,7 @@ from .likelihoods.multiclass import LogisticSoftMaxLikelihood
 from .likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
 from .means import ConstantMean, ZeroMean
 from .models.gp import GP
+from .models.mcgp import MCGP, sample
 from .models.svgp import SVGP, VGP
 from .training.predictions import predict_f, predict_y, proba_y, sample_f
 from .training.autotuning import hyper_step
@@ -47,6 +54,12 @@ __all__ = [
     "SVGP",
     "VGP",
     "GP",
+    "MCGP",
+    "sample",
+    "sample_hmc",
+    "sample_nuts",
+    "smc_sample",
+    "svgd_sample",
     "train",
     "elbo",
     "ELBO",
@@ -59,6 +72,8 @@ __all__ = [
     "Analytic",
     "AnalyticVI",
     "AnalyticSVI",
+    "GibbsSampling",
+    "HMCSampling",
     "Likelihood",
     "LogisticLikelihood",
     "GaussianLikelihood",

@@ -19,7 +19,12 @@ JAX package's ``bench.py`` and of its two kernel sweeps
 * ``extra``: the rows of ``bench.py::bench_extra`` that the port runs, each
   in a child process of its own (the host's cost per launch grows over a
   process's life); one JSON line, also written to
-  ``_chip/bench_torch_extra.json``.
+  ``_chip/bench_torch_extra.json``.  Among them the Gibbs row,
+  ``gibbs_logistic_n2048_4chains_steps_per_s``: exact augmented Gibbs on
+  an MCGP with the logistic likelihood, N=2048 in 8-D, 4 chains, 50
+  burn-in sweeps and 400 samples, chain-sweeps/s with the CG global
+  resample (what the reference's row runs on its chip), and the same with
+  the Cholesky one beside it (``..._chol``).
 * ``variants``: kernel 1, kernel 8 ("nt", "packed") and kernel 9 beside the
   sweep's bar (``xla_stats_reference``), CUDA events, at the flagship's
   statistics shape and at the sweep's four rows; each one's s1/S2 error
@@ -36,6 +41,7 @@ their sizes as arguments, so that a test can drive them small on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,8 +51,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import AnalyticSVI, HeteroscedasticLikelihood, LogisticLikelihood, LogisticSoftMaxLikelihood, SVGP
-from . import SqExponentialKernel, init_state
+from . import AnalyticSVI, GibbsSampling, HeteroscedasticLikelihood, LogisticLikelihood, LogisticSoftMaxLikelihood
+from . import MCGP, SVGP, SqExponentialKernel, init_state, sample
 from .benchmarks.fused_variants import direct_stats, direct_stats_reference, two_factor_nt, xla_stats_reference
 from .benchmarks.gather_modes import gather_row_tiles, gather_tile_rows
 from .ops import cuda_kernels as ck
@@ -220,9 +226,37 @@ def primary(iters=ITERS, chunk=CHUNK):
     return {"metric": METRIC, "value": value, "unit": "iters/s/gpu", "vs_baseline": value / base}
 
 
+def gibbs_workload(device, solver="cg", n=2048, d=8, seed=6, n_burnin=50, dtype=torch.float32):
+    """bench_extra's Gibbs row (bench.py:215-239): X ~ N(0, 1) in 8-D,
+    y = sign(x_0 + 0.5 x_1), the squared-exponential kernel with
+    lengthscale 2, the logistic likelihood, GibbsSampling(n_burnin=50) with
+    ``solver``; float32 (or ``dtype``) on ``device``."""
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.normal(size=(n, d)), dtype=dtype, device=device)
+    y = torch.sign(X[:, 0] + 0.5 * X[:, 1])
+    return MCGP.create(X, y, SqExponentialKernel(lengthscale=2.0), LogisticLikelihood.create(),
+                       GibbsSampling(n_burnin=n_burnin, solver=solver))
+
+
+def gibbs_rate(model, samples=400, chains=4, warmup=10, seed=2):
+    """Chain-sweeps/s of ``sample``, as bench.py counts them:
+    (samples + n_burnin) * chains over the host clock of one call that
+    ends in a synchronize, after a warm-up call of ``warmup`` sweeps (no
+    burn-in).  Returns (rate, samples); the caller checks the samples."""
+    device = model.train_x.device
+    warm = model.replace(inference=dataclasses.replace(model.inference, n_burnin=0))
+    sample(warm, warmup, generator=torch.Generator(device=device).manual_seed(1), n_chains=chains)
+    _sync(device)
+    t0 = time.perf_counter()
+    s = sample(model, samples, generator=torch.Generator(device=device).manual_seed(seed), n_chains=chains)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    return (samples + model.inference.n_burnin) * chains / dt, s
+
+
 # ----------------------------------------------------------------- extra
 # bench_extra's rows that the port runs: (workload, iters, chunk); the
-# Gibbs and online rows wait for the slices that port those models
+# online rows wait for the slice that ports that model
 EXTRA_ROWS = {
     "flagship_slice_iters_per_s": (lambda dev: flagship_workload(dev, sampling="slice"), 8000, 2000),
     "multiclass_k10_m64_b2048": (multiclass_workload, 4000, 2000),
@@ -231,19 +265,32 @@ EXTRA_ROWS = {
 }
 
 
+# the Gibbs row with each global-resample solver: name -> solver
+GIBBS_ROWS = {
+    "gibbs_logistic_n2048_4chains_steps_per_s": "cg",
+    "gibbs_logistic_n2048_4chains_steps_per_s_chol": "chol",
+}
+
+
 def extra_row(name):
-    """One row of ``EXTRA_ROWS`` on the card, in this process: it/s."""
+    """One row of ``EXTRA_ROWS`` (it/s) or ``GIBBS_ROWS`` (chain-sweeps/s)
+    on the card, in this process."""
+    if name in GIBBS_ROWS:
+        rate, s = gibbs_rate(gibbs_workload(require_card(), GIBBS_ROWS[name]))
+        if not bool(torch.isfinite(s).all()):
+            raise RuntimeError(f"{name}: non-finite Gibbs samples ({GIBBS_ROWS[name]})")
+        return rate
     build, iters, chunk = EXTRA_ROWS[name]
     return timed_rate(*build(require_card()), iters, chunk)[0]
 
 
 def extra():
-    """Each row of ``EXTRA_ROWS`` in a child process of its own
+    """Each row of ``EXTRA_ROWS`` and ``GIBBS_ROWS`` in a child process of its own
     (``python3 -m agp_tpu_torch.bench row NAME``), and logistic_m512's
     points/s; written to ``_chip/bench_torch_extra.json``."""
     require_card()
     rows = {}
-    for name in EXTRA_ROWS:
+    for name in (*EXTRA_ROWS, *GIBBS_ROWS):
         proc = subprocess.run([sys.executable, "-m", "agp_tpu_torch.bench", "row", name], capture_output=True,
                               text=True, timeout=900, cwd=Path(__file__).resolve().parent.parent)
         if proc.returncode != 0:

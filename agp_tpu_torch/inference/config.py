@@ -1,5 +1,6 @@
 """Inference-engine configurations: the counterpart of ``Analytic``,
-``AnalyticVI`` and ``AnalyticSVI`` in ``agp_tpu/inference/config.py``.  Everything here is static
+``AnalyticVI``, ``AnalyticSVI``, ``GibbsSampling`` and ``HMCSampling`` in
+``agp_tpu/inference/config.py``.  Everything here is static
 configuration; the dynamic parts (rho, the step counter, the optimiser
 state, the local variables) live in the TrainState."""
 from __future__ import annotations
@@ -67,3 +68,53 @@ def AnalyticSVI(batchsize: int, optimiser=None, minibatch_sampling: str = "gathe
         optimiser=optimiser,
         minibatch_sampling=minibatch_sampling,
     )
+
+
+GIBBS_SOLVERS = ("auto", "chol", "cg")
+
+
+@dataclasses.dataclass(frozen=True)
+class GibbsSampling(InferenceConfig):
+    """Blocked Gibbs sampling over (omega, f).
+
+    solver: the global resample's algorithm.  "chol": the exact Cholesky
+    of 2 diag(theta) + K^-1 each sweep (the reference's algorithm); "cg":
+    the whitened perturb-and-solve, batched conjugate gradients (exact up
+    to CG's 1e-5 relative residual); "auto": "chol" (the port carries no
+    device gate)."""
+
+    stochastic: bool = False
+    batchsize: int = 0
+    n_burnin: int = 100
+    thinning: int = 1
+    solver: str = "auto"
+
+    def __post_init__(self):
+        if self.solver not in GIBBS_SOLVERS:
+            raise ValueError(f"solver must be one of {GIBBS_SOLVERS}, got {self.solver!r}")
+
+    @property
+    def name(self):
+        return "GibbsSampling"
+
+
+@dataclasses.dataclass(frozen=True)
+class HMCSampling(InferenceConfig):
+    """Hamiltonian sampling of f on the whitened latents.
+
+    algorithm="nuts" (default): bounded-depth iterative multinomial NUTS
+    with the generalized no-U-turn criterion; algorithm="hmc": fixed-length
+    leapfrog.  Both adapt the step size by dual averaging during burn-in."""
+
+    stochastic: bool = False
+    batchsize: int = 0
+    n_burnin: int = 100
+    thinning: int = 1
+    step_size: float = 0.1
+    n_leapfrog: int = 16  # hmc only
+    max_depth: int = 8  # nuts only
+    algorithm: str = "nuts"
+
+    @property
+    def name(self):
+        return "HMCSampling"

@@ -21,7 +21,7 @@ LIKELIHOOD_PARAMS = ("sigma2", "nu", "sigma", "beta", "rho", "r", "lam")
 def model_from_numpy(params: dict, template):
     """``template`` (a port model) with its parameters taken from ``params``:
     "Z" [L, M, D] (or [M, D]) for an SVGP, "train_x" and "train_y" for a
-    VGP or a GP, "lengthscale" and "variance" (latent-stacked, as the
+    VGP, a GP or an MCGP, "lengthscale" and "variance" (latent-stacked, as the
     reference replicates them), for a constant mean "mean_c", and the
     likelihood's own: "sigma2" (Gaussian; its rule's state is the train
     state's), "nu" and "sigma" (Student-t), "beta" (Laplace), "rho"

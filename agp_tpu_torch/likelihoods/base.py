@@ -67,6 +67,12 @@ class Likelihood(Params):
         """KL(q(omega) || p(omega)) summed over the batch."""
         raise NotImplementedError
 
+    def sample_local(self, generator, y, f, local: LocalVars) -> LocalVars:
+        """Gibbs draw of omega | f, drawn with ``generator``.  f: [..., L, B]
+        (leading axes: independent chains); the local variables it draws
+        come out [..., B] or [..., L, B]."""
+        raise NotImplementedError
+
     def compute_proba(self, mu, var):
         """Push the latent predictive N(mu, var) through the likelihood."""
         raise NotImplementedError
@@ -79,7 +85,8 @@ class Likelihood(Params):
 class SingleLatentLikelihood(Likelihood):
     """Adapter: subclasses implement the single-latent contract on [B]
     vectors (methods prefixed with ``_``); this class lifts them to the
-    stacked [1, B] layout the inference engine uses.  The row mask ``w``
+    stacked [1, B] layout the inference engines use (leading chain axes
+    kept: [..., B] -> [..., 1, B]).  The row mask ``w``
     goes down only to a likelihood whose E-step updates a parameter from
     cross-batch sums (the Poisson rate): it sets ``_weighted_params`` and
     takes ``w`` as a keyword.  For the others the mask does not matter
@@ -100,16 +107,22 @@ class SingleLatentLikelihood(Likelihood):
     def _expec_loglik(self, y, mu, var, local):
         raise NotImplementedError
 
+    def _sample_local(self, generator, y, f, local):
+        raise NotImplementedError
+
     def local_updates(self, y, mu, var, local, w=None):
         if w is not None and self._weighted_params:
             return self._local_updates(y, mu[0], var[0], local, w=w)
         return self._local_updates(y, mu[0], var[0], local)
 
     def grad_e_mu(self, y, local):
-        return self._grad_e_mu(y, local)[None, :]
+        return self._grad_e_mu(y, local).unsqueeze(-2)
 
     def grad_e_sigma(self, y, local):
-        return self._grad_e_sigma(y, local)[None, :]
+        return self._grad_e_sigma(y, local).unsqueeze(-2)
 
     def expec_loglik(self, y, mu, var, local):
         return self._expec_loglik(y, mu[0], var[0], local)
+
+    def sample_local(self, generator, y, f, local):
+        return self._sample_local(generator, y, f[..., 0, :], local)

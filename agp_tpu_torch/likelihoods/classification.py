@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributions.polyagamma import sample_pg1
 from ..ops.kl import polya_gamma_kl
 from ..ops.quadrature import expectation
 from ..ops.special import log_besselk_half, sqrt_expec_square
@@ -37,7 +38,8 @@ class LogisticLikelihood(SingleLatentLikelihood):
     p(y | f, omega) = exp(yf/2 - (yf)^2 omega / 2) / 2.
 
     Local updates: c = sqrt(E[f^2]), theta = E[omega] = tanh(c/2) / (2c).
-    Natural-gradient inputs: grad_e_mu = y/2, grad_e_sigma = theta/2."""
+    Natural-gradient inputs: grad_e_mu = y/2, grad_e_sigma = theta/2.
+    Gibbs: omega | f ~ PG(1, |f|), kept as theta."""
 
     @classmethod
     def create(cls):
@@ -45,7 +47,7 @@ class LogisticLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI"})
+        return frozenset({"AnalyticVI", "GibbsSampling", "HMCSampling"})
 
     def treat_labels(self, y):
         return _treat_binary(y), self
@@ -77,11 +79,25 @@ class LogisticLikelihood(SingleLatentLikelihood):
     def aug_kl(self, local, y):
         return polya_gamma_kl(torch.ones_like(local["c"]), local["c"], local["theta"])
 
+    def _sample_local(self, generator, y, f, local):
+        return {**local, "theta": sample_pg1(generator, torch.abs(f))}
+
     def compute_proba(self, mu, var):
         return expectation(torch.sigmoid, mu, var)
 
     def predict_y(self, mu):
         return torch.sign(mu)
+
+    def log_prob(self, y, f):
+        """log sigma(y f)."""
+        return -torch.logaddexp(torch.zeros_like(f), -y * f)
+
+    def grad_log_prob(self, y, f):
+        return y * torch.sigmoid(-y * f)
+
+    def hess_log_prob(self, y, f):
+        s = torch.sigmoid(y * f)
+        return -s * (1.0 - s)
 
 
 @dataclasses.dataclass(frozen=True)

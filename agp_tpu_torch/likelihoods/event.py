@@ -1,8 +1,9 @@
 """Count likelihoods: Poisson and negative binomial, the counterparts of
 ``agp_tpu/likelihoods/event.py`` (with its documented deviations from the
 original package: theta = E[omega], the squared term in the negative
-binomial's expected log-likelihood).  Not ported yet: Gibbs sampling
-(``_sample_local``)."""
+binomial's expected log-likelihood).  Gibbs: omega | f ~ PG(y + n, |f|)
+after n | f ~ Poisson(lam sigma(f)) (Poisson), omega | f ~ PG(y + r, |f|)
+(negative binomial)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributions.polyagamma import sample_pg
 from ..ops.kl import poisson_kl, polya_gamma_kl
 from ..ops.quadrature import expectation, mean_and_var
 from ..ops.special import LOG2, gammaln, safe_expcosh, sqrt_expec_square
@@ -51,7 +53,7 @@ class PoissonLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI"})
+        return frozenset({"AnalyticVI", "GibbsSampling", "HMCSampling"})
 
     def treat_labels(self, y):
         return _treat_counts(y, "Poisson"), self
@@ -91,6 +93,10 @@ class PoissonLikelihood(SingleLatentLikelihood):
     def aug_kl(self, local, y):
         return poisson_kl(local["gamma"], self.lam) + polya_gamma_kl(y + local["gamma"], local["c"], local["theta"])
 
+    def _sample_local(self, generator, y, f, local):
+        gamma = torch.poisson(self.lam * torch.sigmoid(f), generator=generator)
+        return {**local, "gamma": gamma, "theta": sample_pg(generator, y + gamma, torch.abs(f))}
+
     def compute_proba(self, mu, var):
         return mean_and_var(lambda f: self.lam * torch.sigmoid(f), mu, var)
 
@@ -121,7 +127,7 @@ class NegBinomialLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI"})
+        return frozenset({"AnalyticVI", "GibbsSampling", "HMCSampling"})
 
     def treat_labels(self, y):
         return _treat_counts(y, "NegBinomial"), self
@@ -151,6 +157,9 @@ class NegBinomialLikelihood(SingleLatentLikelihood):
 
     def aug_kl(self, local, y):
         return polya_gamma_kl(y + self.r, local["c"], local["theta"])
+
+    def _sample_local(self, generator, y, f, local):
+        return {**local, "theta": sample_pg(generator, y + self.r, torch.abs(f))}
 
     def compute_proba(self, mu, var):
         # E[y | f] = r p/(1 - p) with p = sigma(f), i.e. r e^f

@@ -4,7 +4,7 @@ counterpart of ``agp_tpu/likelihoods/heteroscedastic.py``.
 p(y | f, g) = N(y | f, (lambda sigma(g))^-1): the noise precision is a
 scaled-logistic transform of a second GP g, augmented by a latent Poisson
 count n and omega ~ PG(n + 1/2, g).  mu/var arrive stacked [2, B]
-(index 0 = f, index 1 = g).
+(index 0 = f, index 1 = g); Gibbs draws take f: [..., 2, B].
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..distributions.polyagamma import sample_pg
 from ..ops.kl import poisson_kl_expected, polya_gamma_kl
 from ..ops.special import safe_expcosh, sqrt_expec_square
 from .base import Likelihood
@@ -72,12 +73,12 @@ class HeteroscedasticLikelihood(Likelihood):
     def grad_e_mu(self, y, local):
         g_f = y * self.lam * local["sigg"] / 2.0
         g_g = (0.5 - local["gamma"]) / 2.0
-        return torch.stack([g_f, g_g])
+        return torch.stack(torch.broadcast_tensors(g_f, g_g), dim=-2)
 
     def grad_e_sigma(self, y, local):
         s_f = self.lam * local["sigg"] / 2.0
         s_g = local["theta"] / 2.0
-        return torch.stack([s_f, s_g])
+        return torch.stack(torch.broadcast_tensors(s_f, s_g), dim=-2)
 
     def expec_loglik(self, y, mu, var, local):
         n = y.shape[0]
@@ -94,6 +95,12 @@ class HeteroscedasticLikelihood(Likelihood):
 
     def aug_kl(self, local, y):
         return polya_gamma_kl(0.5 + local["gamma"], local["c"], local["theta"])
+
+    def sample_local(self, generator, y, f, local):
+        """n ~ Po(lambda sigma(g) (f - y)^2 / 2), omega ~ PG(n + 1/2, |g|)."""
+        ff, gg = f[..., 0, :], f[..., 1, :]
+        gamma = torch.poisson(self.lam * torch.sigmoid(gg) * (ff - y) ** 2 / 2.0, generator=generator)
+        return {**local, "gamma": gamma, "theta": sample_pg(generator, gamma + 0.5, torch.abs(gg))}
 
     def compute_proba(self, mu, var):
         """Predictive mean mu_f and variance var_f + E[noise]."""

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributions.polyagamma import sample_pg
 from ..ops.kl import gamma_entropy_improper, poisson_kl_expected, polya_gamma_kl
 from ..ops.special import digamma, safe_expcosh, sqrt_expec_square
 from .base import Likelihood
@@ -137,6 +138,15 @@ class LogisticSoftMaxLikelihood(MultiClassLikelihood):
             local["gamma"], (alpha / beta)[None, :], (digamma(alpha) - torch.log(beta))[None, :]
         )
         return pg + po + gamma_entropy_improper(alpha, beta)
+
+    def sample_local(self, generator, y, f, local):
+        """gamma_k ~ Po(alpha sigma(-f_k)), alpha ~ Ga(1 + sum_k gamma_k) / beta,
+        omega_k ~ PG(y_k + gamma_k, |f_k|); f: [..., K, B]."""
+        rate = local["alpha"].unsqueeze(-2) * torch.sigmoid(-f)
+        gamma = torch.poisson(rate, generator=generator)
+        alpha = torch._standard_gamma(1.0 + torch.sum(gamma, dim=-2), generator=generator) / local["beta"]
+        omega = sample_pg(generator, y.T + gamma, torch.abs(f))
+        return {**local, "gamma": gamma, "alpha": alpha, "theta": omega}
 
     def link(self, f):
         """[K, ...] latent values -> class probabilities (normalized logistic)."""

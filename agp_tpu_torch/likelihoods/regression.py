@@ -2,9 +2,10 @@
 noise, the counterparts of ``agp_tpu/likelihoods/regression.py``.
 
 Each parameter is a 0-d tensor on the model's device.  The Gaussian
-learns its noise when it has an ``opt_noise`` rule.  Not ported yet: Gibbs
-sampling (``_sample_local``) and the pointwise derivatives
-(``grad_log_prob``, ``hess_log_prob``).
+learns its noise when it has an ``opt_noise`` rule.  Each draws its
+augmentation for Gibbs sampling (``_sample_local``).  Not ported yet: the
+pointwise derivatives (``grad_log_prob``, ``hess_log_prob``) of numerical
+VI.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..distributions.gig import sample_gig
 from ..ops.kl import gig_entropy, inverse_gamma_kl
 from ..ops.special import LOG2, digamma, gammaln
 from ..utils.opt import GradientTransformation, adam, ascent_update
@@ -59,7 +61,7 @@ class GaussianLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI", "Analytic"})
+        return frozenset({"AnalyticVI", "Analytic", "GibbsSampling", "HMCSampling"})
 
     def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
         local = {"theta": _rows(1.0 / self.sigma2, batchsize, dtype, device)}
@@ -98,6 +100,9 @@ class GaussianLikelihood(SingleLatentLikelihood):
     def aug_kl(self, local, y):
         return torch.zeros((), dtype=self.sigma2.dtype, device=self.sigma2.device)
 
+    def _sample_local(self, generator, y, f, local):
+        return local  # no auxiliary variable
+
     def compute_proba(self, mu, var):
         return mu, var + self.sigma2
 
@@ -134,7 +139,7 @@ class StudentTLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI"})
+        return frozenset({"AnalyticVI", "GibbsSampling", "HMCSampling"})
 
     def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
         return {
@@ -162,6 +167,13 @@ class StudentTLikelihood(SingleLatentLikelihood):
     def aug_kl(self, local, y):
         alpha_p = self.nu / 2.0
         return inverse_gamma_kl(self.alpha, local["c"], alpha_p, alpha_p * self.sigma**2)
+
+    def _sample_local(self, generator, y, f, local):
+        # omega ~ InverseGamma(alpha, ((f - y)^2 + sigma^2 nu) / 2), theta = 1/omega
+        b = ((f - y) ** 2 + self.sigma**2 * self.nu) / 2.0
+        g = torch._standard_gamma(self.alpha.expand(f.shape).contiguous(), generator=generator)
+        omega = b / g
+        return {**local, "c": omega, "theta": 1.0 / omega}
 
     def compute_proba(self, mu, var):
         return mu, torch.clamp(var, min=0.0) + self.nu * self.sigma**2 / (self.nu - 2.0)
@@ -200,7 +212,7 @@ class LaplaceLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI"})
+        return frozenset({"AnalyticVI", "GibbsSampling", "HMCSampling"})
 
     def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
         return {
@@ -235,6 +247,11 @@ class LaplaceLikelihood(SingleLatentLikelihood):
         )
         return ent - expec_exp
 
+    def _sample_local(self, generator, y, f, local):
+        # omega ~ GIG(1/beta^2, (f - y)^2, 1/2), kept in b; theta = 1/omega
+        omega = sample_gig(generator, self.a, (f - y) ** 2, 0.5)
+        return {**local, "b": omega, "theta": 1.0 / omega}
+
     def compute_proba(self, mu, var):
         return mu, torch.clamp(var, min=0.0) + 2.0 * self.beta**2
 
@@ -267,7 +284,7 @@ class Matern32Likelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI"})
+        return frozenset({"AnalyticVI", "GibbsSampling"})
 
     def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
         return {
@@ -301,6 +318,12 @@ class Matern32Likelihood(SingleLatentLikelihood):
             0.75 * (torch.log(a) - 2.0 * torch.log(c)) - log_2k32 - c**2 * theta - 2.0 * torch.log(a / 2.0)
         )
         return torch.sum(per_point)
+
+    def _sample_local(self, generator, y, f, local):
+        # exact blocked Gibbs: v | f ~ GIG(3/rho^2, (y - f)^2, 3/2); theta = 1/(2v)
+        a = torch.full_like(f, 3.0) / self.rho**2
+        v = sample_gig(generator, a, (f - y) ** 2, 1.5)
+        return {**local, "c": torch.abs(f - y), "theta": 1.0 / (2.0 * v)}
 
     def compute_proba(self, mu, var):
         return mu, torch.clamp(var, min=0.0) + 4.0 * self.rho**2 / 3.0

@@ -60,3 +60,44 @@ class Params:
             return t.to(device=device)
 
         return self.map(move)
+
+
+def host_read(t: torch.Tensor):
+    """``t.item()``: the one way the samplers read the device back to
+    decide how to go on (a rejection loop's "all lanes done", the
+    Polya-Gamma draw's unit count, CG's "any system active", NUTS's "all
+    chains done").  Each read waits for the device; ``host_read.reads``
+    counts them, so that a caller can count the reads of a sweep or a
+    step."""
+    host_read.reads += 1
+    return t.item()
+
+
+host_read.reads = 0
+
+
+# the rejection loops read "every lane done" once every this many trips
+CHECK_EVERY = 4
+
+
+def run_trips(trip, max_trips: int) -> int:
+    """The port of a masked ``lax.while_loop`` whose exit test is "every
+    lane done": ``trip()`` runs one trip over the whole batch (a trip on a
+    finished lane must be a no-op) and returns the [batch] ``done`` mask.
+    The mask is read on the host once every ``CHECK_EVERY`` trips, never
+    past ``max_trips`` trips in all, so the loop may run up to
+    ``CHECK_EVERY - 1`` masked trips more than the reference's, which
+    changes no lane.  Returns the trips run; ``run_trips.trips`` adds them
+    up."""
+    trips = 0
+    while trips < max_trips:
+        for _ in range(min(CHECK_EVERY, max_trips - trips)):
+            done = trip()
+            trips += 1
+        if host_read(done.all()):
+            break
+    run_trips.trips += trips
+    return trips
+
+
+run_trips.trips = 0

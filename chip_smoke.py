@@ -124,7 +124,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 22. parity of paths 19-20 at N=1,024 (10 iterations) and path 21 (20
    steps): card (float32) against CPU (float32) within each path's own
    float32 noise; then the dense algebra one op at a time (logged).
-   Phases 19-21 log their steady iterations/s and peak device memory.
+   Phases 19-21 log their steady iterations/s and peak device memory;
+23. the samplers (Slice G): PG(1, c) at c = 0, 1, 2.5, PG(3.5, 0.5) and
+   GIG in each of its routes at 2^20 lanes on the card, each mean and
+   variance within 6 standard errors of its closed form, a two-sample KS
+   test against 2^17 CPU draws, ms a draw by CUDA events, and the masked
+   loop's trips and host reads a draw;
+24. the port bench's Gibbs row (an MCGP with the logistic likelihood,
+   N=2048 in 8-D, 4 chains, 50 burn-in sweeps, 400 samples) with the CG
+   and the Cholesky global resample: chain-sweeps/s, host reads and trips
+   a sweep, the draws' share of a sweep, peak device memory, no kernel
+   launch; every sample finite or the failure printed as a finding (no
+   fallback; the CG row must be finite), the posterior mean's sign
+   agreement with the labels and its correlation with the CAVI VGP's mean
+   above GIBBS_FLOORS (from ``gibbs-cpu``);
+25. examples/grand_tour.py's sampling flow on its N=40 logistic data
+   (Gibbs, SMC, HMC, NUTS, SVGD: every sample finite), NUTS and HMC on a
+   conjugate Gaussian posterior (corr > 0.999 with the exact mean), and
+   each sampler's ms a sample at N=512;
+26. the fed-noise global resample (both solvers), 16 leapfrog steps and
+   50 SVGD steps from fed particles, card (float32) against CPU (float32)
+   within SAMPLER_PARITY_FACTOR times the CPU float32's own error.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -161,7 +181,10 @@ seeded inputs, written to FILE or held bit-equal to it), ``dense``
 code on the CPU in float32, no floors: what DENSE_FLOORS comes from),
 ``ladder`` (the dense ladders' lazy rungs against the batch of all rungs),
 ``profile dense gp|vgp`` (torch.profiler over 5 iterations of path 19 or
-20a).  ``ab ROOT
+20a), ``samplers`` (phases 23-26 alone), ``gibbs-cpu`` (phase 24's row
+with each solver in float64 on the host's CPU, no card needed: what
+GIBBS_FLOORS comes from), ``profile gibbs`` (torch.profiler over 20
+sweeps of the Gibbs row with each solver).  ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
 ``ab ROOT kappa`` and ``kappa`` (or ``variants``, ``fused``, ``paths``,
@@ -3321,6 +3344,427 @@ def dense_mode(agt, ck, device):
     timed_phase("dense parity", phase_dense_parity, agt, device)
 
 
+# ------------------------------------------------- Slice G: the samplers
+# phase 23: each sampler at SAMPLER_LANES lanes on the card (float32), its
+# mean and variance within SAMPLER_SE standard errors of the closed forms
+# (the variance's from the draws' own fourth moment), and a two-sample KS
+# test (p > SAMPLER_KS_P) against SAMPLER_CPU_LANES draws on the CPU
+SAMPLER_LANES, SAMPLER_CPU_LANES = 2**20, 2**17
+SAMPLER_SE, SAMPLER_KS_P = 6.0, 1e-3
+# phase 24: the port bench's Gibbs row (bench.gibbs_workload: N=2048 in
+# 8-D, 4 chains, 50 burn-in sweeps, 400 samples), each solver
+GIBBS_SOLVERS = ("cg", "chol")
+GIBBS_SAMPLES, GIBBS_CHAINS = 400, 4
+# the CAVI comparison: the dense VGP on the same data, fixed
+# hyperparameters, this many full-batch iterations
+GIBBS_VGP_ITERS = 30
+# the Gibbs row's floors, from ``python3 chip_smoke.py gibbs-cpu`` (the same
+# shape in float64 on a CPU): the posterior mean's sign agreement with the
+# labels (0.99170 with CG, 0.99121 with the Cholesky) and its correlation
+# with the CAVI VGP's mean (0.99998 with both), each floor below the lower
+# of the two by more than a run's Monte Carlo spread
+GIBBS_FLOORS = {"sign": 0.98, "corr": 0.999}
+# phase 25: the grand tour's sampling flow (examples/grand_tour.py:38-50)
+# on its N=40 logistic data; the conjugate Gaussian check (N=30, noise
+# CONJ_NOISE) for NUTS and HMC; each sampler's ms a sample at N=SAMPLER_N
+CONJ_NOISE, CONJ_CORR = 0.01, 0.999
+SAMPLER_N = 512
+# phase 26: card (float32) against CPU (float32), each within this many
+# times the CPU float32's own error against float64
+SAMPLER_PARITY_FACTOR = 10.0
+
+
+def sampler_cases():
+    """{name: (draw(generator, n, device) -> float32 draws, mean, var)} of
+    PG(1, c), PG(b, c) and GIG in each of its routes, with the closed-form
+    moments (scipy's Bessel ratios for GIG)."""
+    import scipy.special as sp
+
+    from agp_tpu_torch.distributions import gig, polyagamma as pg
+
+    def full(n, v, device):
+        return torch.full((n,), v, dtype=torch.float32, device=device)
+
+    def gig_moments(a, b, p):
+        om, sc = np.sqrt(a * b), np.sqrt(b / a)
+        m1 = sc * sp.kv(p + 1, om) / sp.kv(p, om)
+        return m1, sc**2 * sp.kv(p + 2, om) / sp.kv(p, om) - m1**2
+
+    cases = {}
+    for c in (0.0, 1.0, 2.5):
+        cases[f"PG(1, {c})"] = (lambda g, n, dev, c=c: pg.sample_pg1(g, full(n, c, dev)),
+                                float(pg.pg_mean(1.0, c)), float(pg.pg_var(1.0, c)))
+    cases["PG(3.5, 0.5)"] = (lambda g, n, dev: pg.sample_pg(g, full(n, 3.5, dev), full(n, 0.5, dev)),
+                             float(pg.pg_mean(3.5, 0.5)), float(pg.pg_var(3.5, 0.5)))
+    for a, b, p in ((2.0, 3.0, 0.5), (3.0, 0.5, 1.5), (0.05, 0.05, 0.3)):
+        cases[f"GIG({a}, {b}, {p})"] = (lambda g, n, dev, a=a, b=b, p=p: gig.sample_gig(g, full(n, a, dev),
+                                                                                       full(n, b, dev), p),
+                                        *gig_moments(a, b, p))
+    return cases
+
+
+def phase_samplers(agt, ck, device):
+    """Phase 23: each sampler's moments at SAMPLER_LANES lanes on the card,
+    its KS test against CPU draws, ms a draw by CUDA events (one call over
+    all the lanes), and the masked loop's trips and host reads a draw."""
+    import scipy.stats as st
+
+    from agp_tpu_torch.utils.tensors import host_read, run_trips
+
+    out = {}
+    reset_launches(ck)
+    for i, (name, (draw, mean, var)) in enumerate(sampler_cases().items()):
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        s = draw(g, SAMPLER_LANES, device)
+        s64 = s.double()
+        m4 = float(((s64 - s64.mean()) ** 4).mean())
+        z_mean = (float(s64.mean()) - mean) / np.sqrt(var / SAMPLER_LANES)
+        z_var = (float(s64.var()) - var) / np.sqrt((m4 - float(s64.var()) ** 2) / SAMPLER_LANES)
+        cpu = draw(torch.Generator().manual_seed(200 + i), SAMPLER_CPU_LANES, "cpu")
+        ks_p = float(st.ks_2samp(s.cpu().numpy(), cpu.numpy()).pvalue)
+        finite = bool(torch.isfinite(s).all()) and bool((s > 0).all())
+        trips, reads = run_trips.trips, host_read.reads
+        ms = cuda_ms(lambda: draw(g, SAMPLER_LANES, device), reps=3)
+        # cuda_ms's warm-up call and its 3 timed calls
+        per_trips, per_reads = (run_trips.trips - trips) / 4, (host_read.reads - reads) / 4
+        out[name] = dict(z_mean=z_mean, z_var=z_var, ks_p=ks_p, ms=ms, trips=per_trips, reads=per_reads)
+        log(f"sampler {name} at {SAMPLER_LANES} lanes: mean {float(s64.mean()):.6g} (closed form {mean:.6g}, "
+            f"{z_mean:+.2f} SE), variance {float(s64.var()):.6g} ({var:.6g}, {z_var:+.2f} SE); KS against "
+            f"{SAMPLER_CPU_LANES} CPU draws p = {ks_p:.4f}; {ms:.3f} ms a draw, {per_trips:.2f} trips and "
+            f"{per_reads:.2f} host reads a draw")
+        if not (finite and abs(z_mean) < SAMPLER_SE and abs(z_var) < SAMPLER_SE and ks_p > SAMPLER_KS_P):
+            raise AssertionError(f"sampler {name}: finite/positive {finite}, z {z_mean:.2f} / {z_var:.2f}, "
+                                 f"KS p {ks_p:.2e}")
+    expect_launches(ck, "samplers", {})
+    return out
+
+
+def gibbs_vgp_mean(agt, model, iters=GIBBS_VGP_ITERS):
+    """The CAVI posterior mean of the dense VGP on the MCGP's data (the
+    same kernel and likelihood, fixed hyperparameters)."""
+    vgp = agt.VGP.create(model.train_x, model.train_y, agt.SqExponentialKernel(lengthscale=2.0),
+                         agt.LogisticLikelihood.create(), agt.AnalyticVI(), optimiser=None)
+    _, state = agt.train(vgp, iterations=iters)
+    return state.mu[0]
+
+
+def gibbs_path(agt, ck, device, solver, dtype=torch.float32, vgp_mu=None):
+    """The bench's Gibbs row with ``solver`` (phase 24, or ``gibbs-cpu``):
+    chain-sweeps/s, host reads and trips a sweep, the draws' share of a
+    sweep, peak device memory, whether every sample is finite, and the
+    posterior mean's sign agreement with the labels and correlation with
+    the CAVI VGP's mean (``vgp_mu``)."""
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.inference import gibbs
+    from agp_tpu_torch.means import batch_call
+    from agp_tpu_torch.models import mcgp
+    from agp_tpu_torch.utils.tensors import host_read, run_trips
+
+    model = bench.gibbs_workload(device, solver, dtype=dtype)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+        sync(device)
+        torch.cuda.reset_peak_memory_stats()
+    reads, trips, cg_its = host_read.reads, run_trips.trips, gibbs._global_resample_cg.iterations
+    rate, s = bench.gibbs_rate(model, GIBBS_SAMPLES, GIBBS_CHAINS)
+    sweeps = GIBBS_SAMPLES + model.inference.n_burnin + 10  # timed, and the warm-up call's
+    out = {"rate": rate, "reads": (host_read.reads - reads) / sweeps, "trips": (run_trips.trips - trips) / sweeps,
+           "cg_iterations": (gibbs._global_resample_cg.iterations - cg_its) / sweeps}
+    if cuda:
+        expect_launches(ck, f"gibbs {solver}", {})
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["finite"] = bool(torch.isfinite(s).all())
+    mean = s.mean((0, 1))[0]
+    out["sign"] = float((torch.sign(mean) == model.train_y).double().mean())
+    if vgp_mu is not None:
+        out["corr"] = float(np.corrcoef(mean.double().cpu().numpy(), vgp_mu.double().cpu().numpy())[0, 1])
+    # the draws' share of a sweep: SHARE_SWEEPS sweeps, then their draws alone
+    kmat = mcgp.gibbs_setup(model)
+    mu0 = batch_call(model.mean, model.train_x, 1)
+    lik, y = model.likelihood, model.train_y
+    local = lik.init_local_vars(y.shape[0], dtype, model.train_x.device)
+    f = s[:, -1]
+    g = torch.Generator(device=model.train_x.device).manual_seed(3)
+    timed = {}
+    for what in ("sweep", "draws"):
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(SHARE_SWEEPS):
+            if what == "sweep":
+                gibbs.gibbs_step(model, kmat, mu0, g, f, local)
+            else:
+                lik.sample_local(g, y, f, local)
+        sync(device)
+        timed[what] = (time.perf_counter() - t0) / SHARE_SWEEPS * 1e3
+    out["sweep_ms"], out["draws_ms"] = timed["sweep"], timed["draws"]
+    return out
+
+
+SHARE_SWEEPS = 20
+
+
+def log_gibbs(solver, r, where):
+    corr = f", correlation with the CAVI VGP's mean {r['corr']:.5f}" if "corr" in r else ""
+    memory = f"; peak device memory {r['peak_gib']:.3f} GiB; 0 kernel launches" if "peak_gib" in r else ""
+    log(f"gibbs {solver} on {where} (N=2048, D=8, {GIBBS_CHAINS} chains, 50 burn-in sweeps, {GIBBS_SAMPLES} samples): "
+        f"{r['rate']:.2f} chain-sweeps/s; every sample finite: {r['finite']}; sign agreement with the labels "
+        f"{r['sign']:.5f}{corr}; {r['reads']:.2f} host reads, {r['trips']:.2f} rejection trips and "
+        f"{r['cg_iterations']:.2f} CG iterations a sweep; {1e3 * GIBBS_CHAINS / r['rate']:.3f} ms a sweep in the timed "
+        f"call; again from the last samples, a sweep {r['sweep_ms']:.3f} ms, its draws alone {r['draws_ms']:.3f} ms "
+        f"(share {r['draws_ms'] / r['sweep_ms']:.3f}){memory}")
+
+
+def phase_gibbs(agt, ck, device):
+    """Phase 24: the Gibbs row with each solver.  A solver whose samples
+    are not all finite is printed as a finding (no fallback hides it); the
+    floors hold the finite ones."""
+    from agp_tpu_torch import bench
+
+    vgp_mu = gibbs_vgp_mean(agt, bench.gibbs_workload(device, "cg"))
+    out = {}
+    for solver in GIBBS_SOLVERS:
+        r = gibbs_path(agt, ck, device, solver, vgp_mu=vgp_mu)
+        log_gibbs(solver, r, "the card")
+        out[solver] = r
+        if not r["finite"]:
+            log(f"FINDING: gibbs {solver}: non-finite samples in float32 at N=2048 (no fallback is taken)")
+            continue
+        if not (r["sign"] >= GIBBS_FLOORS["sign"] and r["corr"] >= GIBBS_FLOORS["corr"]):
+            raise AssertionError(f"gibbs {solver}: sign agreement {r['sign']:.5f} (floor {GIBBS_FLOORS['sign']}), "
+                                 f"correlation {r['corr']:.5f} (floor {GIBBS_FLOORS['corr']})")
+    if not out["cg"]["finite"]:
+        raise AssertionError("gibbs cg: non-finite samples (the bench's row)")
+    return out
+
+
+def gibbs_cpu_mode(agt):
+    """``python3 chip_smoke.py gibbs-cpu``: the Gibbs row's shape with each
+    solver in float64 on the host's CPU, the source of GIBBS_FLOORS (no
+    floors held)."""
+    from agp_tpu_torch import bench
+
+    torch.set_default_dtype(torch.float64)
+    mu = gibbs_vgp_mean(agt, bench.gibbs_workload("cpu", "cg", dtype=torch.float64))
+    for solver in GIBBS_SOLVERS:
+        log_gibbs(solver, gibbs_path(agt, None, "cpu", solver, dtype=torch.float64, vgp_mu=mu), "the CPU, float64")
+
+
+def grand_tour_data(device, dtype=torch.float32):
+    """examples/grand_tour.py's data: X ~ U[-2, 2]^2 (120 points),
+    f = sin(2 x_0) + 0.5 x_1, 0/1 labels f > 0; its sampling flow takes the
+    first 40."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, size=(120, 2))
+    f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+    return torch.as_tensor(X, dtype=dtype, device=device), (f > 0).astype(int)
+
+
+def conjugate_data(device, n=30, seed=0):
+    """X ~ U[0, 1]^2, f a draw of the unit squared-exponential GP,
+    y = f + sqrt(CONJ_NOISE) eps, and the exact posterior mean with the
+    prior's float32 jitter (float64 on the host)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0, 1, size=(n, 2))
+    K = np.exp(-0.5 * ((X[:, None] - X[None]) ** 2).sum(-1))
+    f = np.linalg.cholesky(K + 1e-6 * np.eye(n)) @ rng.normal(size=n)
+    y = f + np.sqrt(CONJ_NOISE) * rng.normal(size=n)
+    Kj = K + 1e-3 * np.eye(n)
+    mean = Kj @ np.linalg.solve(Kj + CONJ_NOISE * np.eye(n), y)
+    return (torch.as_tensor(X, dtype=torch.float32, device=device), torch.as_tensor(y, dtype=torch.float32, device=device),
+            mean)
+
+
+def sampler_data(device, n=None):
+    """The Gibbs row's data rule at N=n (SAMPLER_N by default): X ~ N(0, 1)
+    in 8-D, y = sign(x_0 + 0.5 x_1)."""
+    n = SAMPLER_N if n is None else n
+    rng = np.random.default_rng(6)
+    X = torch.as_tensor(rng.normal(size=(n, 8)), dtype=torch.float32, device=device)
+    return X, torch.sign(X[:, 0] + 0.5 * X[:, 1])
+
+
+def phase_hmc(agt, ck, device):
+    """Phase 25: the grand tour's sampling flow on the card (Gibbs, SMC,
+    HMC, NUTS, and SVGD on the same model: every sample finite); NUTS and
+    HMC on the conjugate Gaussian posterior (corr > CONJ_CORR with the
+    exact mean); each sampler's ms a sample at N=SAMPLER_N."""
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    X, yb = grand_tour_data(device)
+    reset_launches(ck)
+    mg = agt.MCGP.create(X[:40], yb[:40], agt.SqExponentialKernel(), agt.LogisticLikelihood.create(),
+                         agt.GibbsSampling(n_burnin=50))
+    runs = {"gibbs": agt.sample(mg, 100, generator=gen(0))}
+    runs["smc"], log_z = agt.smc_sample(mg, n_particles=64, n_temps=8, generator=gen(1))
+    runs["hmc"] = agt.sample_hmc(mg, 80, generator=gen(2))
+    mn = agt.MCGP.create(X[:40], yb[:40], agt.SqExponentialKernel(), agt.LogisticLikelihood.create(),
+                         agt.HMCSampling(n_burnin=60))
+    runs["nuts"] = agt.sample(mn, 80, generator=gen(3))
+    runs["svgd"] = agt.svgd_sample(mg, n_particles=64, n_steps=100, generator=gen(4))
+    labels = torch.as_tensor(2.0 * yb[:40] - 1.0, dtype=torch.float32, device=device)
+    signs = {k: float((torch.sign(v.mean(0)[0]) == labels).double().mean()) for k, v in runs.items()}
+    finite = {k: bool(torch.isfinite(v).all()) for k, v in runs.items()}
+    log(f"grand tour sampling (N=40 logistic, card, {time.perf_counter() - t0:.2f} s): every sample finite {finite}, "
+        f"log Z {float(log_z):.4f}; sign agreement of each posterior mean with the labels {signs}")
+    t0 = time.perf_counter()
+    if not (all(finite.values()) and np.isfinite(float(log_z))):
+        raise AssertionError(f"grand tour sampling: finite {finite}, log Z {float(log_z)}")
+
+    Xc, yc, exact = conjugate_data(device)
+    corrs = {}
+    for algorithm, (burnin, n, chains) in (("nuts", (20, 4, 128)), ("hmc", (60, 20, 32))):
+        m = agt.MCGP.create(Xc, yc, agt.SqExponentialKernel(), agt.GaussianLikelihood.create(CONJ_NOISE),
+                            agt.HMCSampling(n_burnin=burnin, step_size=0.1, algorithm=algorithm))
+        s = agt.sample(m, n, generator=gen(5), n_chains=chains)
+        corrs[algorithm] = float(np.corrcoef(s.reshape(-1, 30).double().mean(0).cpu().numpy(), exact)[0, 1])
+    log(f"conjugate Gaussian (N=30, noise {CONJ_NOISE}, card, {time.perf_counter() - t0:.2f} s): posterior-mean "
+        f"correlation with the exact mean {corrs}")
+    if not min(corrs.values()) > CONJ_CORR:
+        raise AssertionError(f"conjugate Gaussian: correlations {corrs} not above {CONJ_CORR}")
+
+    from agp_tpu_torch.utils.tensors import host_read
+
+    Xs, ys = sampler_data(device)
+    timings, reads = {}, {}
+
+    def timed(label, fn, per):
+        sync(device)
+        t0, r0 = time.perf_counter(), host_read.reads
+        out = fn()
+        sync(device)
+        timings[label] = (time.perf_counter() - t0) * 1e3 / per
+        reads[label] = (host_read.reads - r0) / per
+        if not bool(torch.isfinite(out[0] if isinstance(out, tuple) else out).all()):
+            raise AssertionError(f"{label} at N={SAMPLER_N}: non-finite samples")
+
+    for solver in GIBBS_SOLVERS:
+        m = agt.MCGP.create(Xs, ys, agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(),
+                            agt.GibbsSampling(n_burnin=5, solver=solver))
+        agt.sample(m, 2, generator=gen(6), n_chains=4)  # warm-up
+        timed(f"gibbs {solver} (4 chains, a chain-sweep)", lambda: agt.sample(m, 20, generator=gen(7), n_chains=4),
+              25 * 4)
+    for algorithm, steps in (("hmc", 20), ("nuts", 10)):
+        m = agt.MCGP.create(Xs, ys, agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(),
+                            agt.HMCSampling(n_burnin=5, algorithm=algorithm))
+        timed(f"{algorithm} (4 chains, a chain-step)", lambda: agt.sample(m, steps, generator=gen(8), n_chains=4),
+              (steps + 5) * 4)
+    m = agt.MCGP.create(Xs, ys, agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create())
+    timed("smc (256 particles, 20 temperatures, a particle)", lambda: agt.smc_sample(m, generator=gen(9)), 256)
+    timed("svgd (128 particles, 100 steps, a particle)",
+          lambda: agt.svgd_sample(m, n_steps=100, generator=gen(10)), 128)
+    expect_launches(ck, "samplers' paths", {})
+    log(f"ms a sample at N={SAMPLER_N} (card), and host reads a sample: " +
+        "; ".join(f"{k} {v:.3f} ms, {reads[k]:.3f} reads" for k, v in timings.items()))
+    return {"signs": signs, "corrs": corrs, "ms": timings, "reads": reads}
+
+
+def parity_err(card, cpu32, cpu64):
+    """(|card - cpu32|, |cpu32 - cpu64|), each over cpu64's largest entry."""
+    scale = float(cpu64.abs().max())
+    return (float((card.double().cpu() - cpu32.double()).abs().max()) / scale,
+            float((cpu32.double() - cpu64).abs().max()) / scale)
+
+
+def phase_sampler_parity(agt, device):
+    """Phase 26: the fed-noise global resample (both solvers; N=SAMPLER_N,
+    2 chains, omega from a float64 PG draw), 16 leapfrog steps and 50 SVGD
+    steps from a fed v0, each on the card (float32) against the CPU
+    (float32), within SAMPLER_PARITY_FACTOR times the CPU float32's own
+    error against float64."""
+    from agp_tpu_torch.inference import gibbs, hmc, svgd
+    from agp_tpu_torch.means import batch_call
+    from agp_tpu_torch.models import mcgp
+
+    from agp_tpu_torch.distributions.polyagamma import sample_pg1
+
+    rng = np.random.default_rng(11)
+    Xs, ys = sampler_data("cpu")
+    arms = {"card": (torch.float32, device), "cpu32": (torch.float32, "cpu"), "cpu64": (torch.float64, "cpu")}
+    models = {k: agt.MCGP.create(Xs.to(dtype=dt, device=dev), ys.to(dtype=dt, device=dev),
+                                 agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create())
+              for k, (dt, dev) in arms.items()}
+    N = SAMPLER_N
+    omega = sample_pg1(torch.Generator().manual_seed(0), torch.full((2, N), 1.0, dtype=torch.float64))
+    fed = {k: torch.as_tensor(rng.normal(size=(2, 1, N))) for k in ("v0", "eps", "xi1", "xi2")}
+    fed["particles"] = torch.as_tensor(rng.normal(size=(32, 1, N)))
+    outs, errs = {}, {}
+    for k, (dt, dev) in arms.items():
+        m = models[k]
+        kmat = mcgp.gibbs_setup(m)
+        mu0 = batch_call(m.mean, m.train_x, 1)
+
+        def to(t):
+            return t.to(dtype=dt, device=dev)
+
+        gs = to(omega[:, None] / 2.0)
+        gmu = to(0.5 * ys.double().expand(2, 1, N))
+        outs[k] = {
+            "resample chol": gibbs._global_resample_chol(gmu, gs, kmat["K_inv"], mu0, to(fed["eps"])),
+            "resample cg": gibbs._global_resample_cg(gmu, gs, kmat["K_inv"], kmat["L_K"], mu0, to(fed["xi1"]),
+                                                     to(fed["xi2"])),
+        }
+        vg = hmc.value_and_grad(hmc.make_log_joint(m, kmat["L_K"], mu0))
+        v0 = to(fed["v0"]) * 0.5
+        _, g0 = vg(v0)
+        outs[k]["leapfrog"] = hmc.leapfrog(vg, v0, to(fed["eps"]), g0, 0.05, 16)[0]
+        outs[k]["svgd"] = svgd._svgd_run(m, to(fed["particles"]), 50, 0.05)
+    for name in outs["card"]:
+        errs[name] = parity_err(outs["card"][name], outs["cpu32"][name], outs["cpu64"][name])
+    log("sampler parity (card float32 against CPU float32, and the CPU float32's own error against float64): " +
+        "; ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v[0] <= max(SAMPLER_PARITY_FACTOR * v[1], 1e-6)}
+    if bad:
+        raise AssertionError(f"sampler parity beyond {SAMPLER_PARITY_FACTOR}x the CPU's own float32 error: {bad}")
+    return errs
+
+
+def profile_gibbs(agt, device):
+    """``python3 chip_smoke.py profile gibbs``: torch.profiler over
+    SHARE_SWEEPS sweeps of the Gibbs row (4 chains) with each solver:
+    wall and device-busy time a sweep, the idle share, the device ops a
+    sweep and the largest of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.inference import gibbs
+    from agp_tpu_torch.means import batch_call
+    from agp_tpu_torch.models import mcgp
+
+    for solver in GIBBS_SOLVERS:
+        model = bench.gibbs_workload(device, solver)
+        kmat = mcgp.gibbs_setup(model)
+        mu0 = batch_call(model.mean, model.train_x, 1)
+        local = model.likelihood.init_local_vars(model.train_x.shape[0], torch.float32, device)
+        g = torch.Generator(device=device).manual_seed(0)
+        f = torch.zeros((GIBBS_CHAINS, 1, model.train_x.shape[0]), device=device)
+        for _ in range(10):
+            f, local = gibbs.gibbs_step(model, kmat, mu0, g, f, local)
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(SHARE_SWEEPS):
+                f, local = gibbs.gibbs_step(model, kmat, mu0, g, f, local)
+            sync(device)
+            wall_us = (time.perf_counter() - t0) / SHARE_SWEEPS * 1e6
+        n = SHARE_SWEEPS
+        rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in prof.key_averages()
+                       if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
+        busy = sum(r[0] for r in rows)
+        log(f"profile gibbs {solver} (N=2048, {GIBBS_CHAINS} chains): wall {wall_us:.1f} us/sweep, device busy "
+            f"{busy:.1f} us/sweep, idle share {1 - busy / wall_us:.4f}, {sum(r[1] for r in rows):.1f} device ops/sweep")
+        for us, count, key in rows[:10]:
+            log(f"  device {us:10.1f} us/sweep  x{count:.1f}  {key[:90]}")
+
+
+def samplers_mode(agt, ck, device):
+    """``python3 chip_smoke.py samplers``: phases 23-26 alone."""
+    timed_phase("samplers", phase_samplers, agt, ck, device)
+    timed_phase("gibbs", phase_gibbs, agt, ck, device)
+    timed_phase("hmc nuts smc svgd", phase_hmc, agt, ck, device)
+    timed_phase("sampler parity", phase_sampler_parity, agt, device)
+
+
 PHASE_SECONDS = {}
 
 
@@ -3335,6 +3779,11 @@ def timed_phase(name, fn, *args, **kw):
 
 def main():
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["gibbs-cpu"]:  # the host's CPU alone, no card needed
+        import agp_tpu_torch as agt
+
+        gibbs_cpu_mode(agt)
+        return
     device = phase_device()
     args = sys.argv[1:]
     ab = args[:1] == ["ab"]
@@ -3390,6 +3839,12 @@ def main():
     if args == ["ladder"]:
         ladder_mode(agt, device)
         return
+    if args == ["samplers"]:
+        samplers_mode(agt, ck, device)
+        return
+    if args[:2] == ["profile", "gibbs"]:
+        profile_gibbs(agt, device)
+        return
     if args[:2] == ["profile", "dense"]:
         profile_dense(agt, device, args[2] if len(args) > 2 else "gp")
         return
@@ -3439,6 +3894,7 @@ def main():
         timed_phase(f"{which} path", phase_dense, agt, ck, device, which)
     timed_phase("svgp_noise path", phase_noise, agt, ck, device)
     timed_phase("dense parity", phase_dense_parity, agt, device)
+    samplers_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {

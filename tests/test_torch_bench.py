@@ -83,6 +83,19 @@ def test_kernel_1_leaves_the_candidates_past_m128():
             assert float((o.double() - r).abs().max() / r.abs().max()) < 1e-4, name
 
 
+@pytest.mark.parametrize("solver", ["cg", "chol"])
+def test_gibbs_row_at_a_cut_size(solver):
+    """The Gibbs row's workload (bench.py:219-231's data and model) and its
+    timed call on the CPU at N=128, 2 chains of 4 samples after 2 burn-in
+    sweeps: finite samples, a positive rate."""
+    model = bench.gibbs_workload("cpu", solver, n=128, n_burnin=2)
+    assert model.train_x.shape == (128, 8) and model.train_x.dtype == torch.float32
+    assert model.inference.solver == solver and float(model.kernel.lengthscale.reshape(-1)[0]) == 2.0
+    assert set(torch.unique(model.train_y).tolist()) == {-1.0, 1.0}
+    rate, s = bench.gibbs_rate(model, samples=4, chains=2, warmup=1)
+    assert s.shape == (2, 4, 1, 128) and bool(torch.isfinite(s).all()) and rate > 0 and np.isfinite(rate)
+
+
 def test_numpy_baseline_runs():
     assert bench.bench_numpy_baseline(iters=2) > 0
 
@@ -90,6 +103,7 @@ def test_numpy_baseline_runs():
 @pytest.mark.parametrize("call", [
     lambda: bench.primary(iters=2, chunk=1),
     lambda: bench.extra_row("multiclass_k10_m64_b2048"),
+    lambda: bench.extra_row("gibbs_logistic_n2048_4chains_steps_per_s"),
     lambda: bench.variants(reps=1),
     lambda: bench.gather(draws=1),
     lambda: bench.main([]),

@@ -855,3 +855,56 @@ def test_cuda_noise_learning_takes_the_split_pair(cuda_device):
     smoke.expect_launches(ck, "noise learning", smoke.route_launches(20, "single"))
     s2 = model.likelihood.sigma2
     assert s2.is_cuda and s2.ndim == 0 and torch.isfinite(s2) and float(s2) != 0.1
+
+
+# ------------------------------------------------- Slice G: the samplers
+@pytest.mark.cuda
+def test_cuda_samplers_hold_their_moments(cuda_device):
+    """PG(1, 1), PG(3.5, 0.5) and GIG(3, 0.5, 3/2) at 2^18 lanes on the card
+    (float32): finite, positive, mean within 6 standard errors."""
+    n = 2**18
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for name, (draw, mean, var) in smoke.sampler_cases().items():
+        if name not in ("PG(1, 1.0)", "PG(3.5, 0.5)", "GIG(3.0, 0.5, 1.5)"):
+            continue
+        s = draw(g, n, cuda_device)
+        assert s.is_cuda and s.dtype == torch.float32 and bool(torch.isfinite(s).all() and (s > 0).all()), name
+        assert abs(float(s.double().mean()) - mean) < 6 * np.sqrt(var / n), name
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_parity(cuda_device):
+    """The smoke run's phase 26: the fed-noise global resample (both
+    solvers), leapfrog and SVGD on the card against the CPU (float32),
+    each within 10x the CPU float32's own error against float64."""
+    smoke.phase_sampler_parity(agt, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inference", ["chol", "cg", "nuts", "hmc"])
+def test_cuda_mcgp_from_numpy_samples_on_the_card(cuda_device, inference):
+    """A numpy input to MCGP.create lands on the card; sample runs there
+    with no launch of a kernel of the port, its samples on the card and
+    finite; predict_f_samples stays there too."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, size=(64, 2)).astype(np.float32)
+    y = np.sign(np.sin(2 * X[:, 0]) + 0.5 * X[:, 1])
+    engine = (agt.GibbsSampling(n_burnin=5, solver=inference) if inference in ("chol", "cg")
+              else agt.HMCSampling(n_burnin=5, algorithm=inference))
+    model = agt.MCGP.create(X, y, agt.SqExponentialKernel(), agt.LogisticLikelihood.create(), engine)
+    assert model.train_x.is_cuda and model.train_y.is_cuda
+    smoke.reset_launches(ck)
+    s = agt.sample(model, 10, generator=torch.Generator(device=cuda_device).manual_seed(0), n_chains=2)
+    torch.cuda.synchronize()
+    assert smoke.expect_launches(ck, inference, {}) == 0
+    assert s.shape == (2, 10, 1, 64) and s.is_cuda and torch.isfinite(s).all()
+    from agp_tpu_torch.models.mcgp import predict_f_samples
+
+    assert predict_f_samples(model, s[0], X[:8]).is_cuda
+
+
+@pytest.mark.cuda
+def test_cuda_mcgp_refuses_float64(cuda_device):
+    X, y = toy_on(cuda_device, 32, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        agt.MCGP.create(X, y, agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.1))

@@ -6,15 +6,20 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import agp_tpu as agp
 import agp_tpu_torch as agt
+from agp_tpu.config import jitter as jax_jitter
+from agp_tpu.kernels import batch_gram as jax_batch_gram
+from agp_tpu.ops import linalg as jlinalg
 from agp_tpu.training.train import init_state as jax_init_state
 from agp_tpu.utils.opt import robbins_monro as jax_robbins_monro
 from agp_tpu_torch.interop import LIKELIHOOD_PARAMS, model_from_numpy, state_from_numpy
 from agp_tpu_torch.utils.opt import GradientTransformation
 from chip_smoke import single_latent_labels, single_latent_lik
+from tests.testingtools import generate_f
 
 
 def logistic_data(N, D, seed=0):
@@ -477,3 +482,59 @@ def multi_tf32(which, passes=3):
         return (s1, S2, *outs)
 
     return fn
+
+
+# ------------------------------------------------------------ MCGP
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the samplers' tests: their tensors are small
+    enough that one thread runs them as fast, and several threads a worker
+    oversubscribe the CPU when the suite runs in parallel workers (5-9x
+    slower there).  The previous count is restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def t64(a):
+    return torch.as_tensor(np.array(a), dtype=torch.float64)
+
+
+def cls_data(n=40, seed=0):
+    """X ~ U[-2, 2]^2, f = sin(2 x_0) + 0.5 x_1, y = sign(f)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2, 2, size=(n, 2))
+    f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+    return X, f, np.sign(f)
+
+
+def reg_data():
+    """tests/test_engines.py's reg_data: 30 points of a GP draw in 2-D,
+    y = f + 0.05 eps."""
+    X, f = generate_f(30, 2, agp.SqExponentialKernel())
+    y = f + 0.05 * jax.random.normal(jax.random.PRNGKey(9), f.shape, dtype=jnp.float64)
+    return np.asarray(X), np.asarray(f), np.asarray(y)
+
+
+def jax_mcgp(lik, X, y, solver="chol", ls=1.0):
+    return agp.MCGP.create(jnp.asarray(X), y, agp.SqExponentialKernel(lengthscale=jnp.asarray(ls),
+                                                                         variance=jnp.asarray(1.0)),
+                           lik, agp.GibbsSampling(solver=solver))
+
+
+def port_mcgp(mj, y_raw):
+    """The port's copy of a JAX MCGP (``model_from_numpy``)."""
+    lik, params = port_likelihood(mj.likelihood)
+    template = agt.MCGP.create(t64(mj.train_x), y_raw, agt.SqExponentialKernel(), lik,
+                               agt.GibbsSampling(solver=mj.inference.solver))
+    return model_from_numpy(dict(train_x=np.array(mj.train_x), train_y=np.array(mj.train_y),
+                                 lengthscale=np.array(mj.kernel.lengthscale),
+                                 variance=np.array(mj.kernel.variance), **params), template)
+
+
+def jax_kmat(mj):
+    """The reference's setup in ``_gibbs_chains``."""
+    K = jax_batch_gram(mj.kernel, mj.train_x)
+    L_K = jax.vmap(lambda k: jlinalg.safe_cholesky(k, jax_jitter(K.dtype)))(K)
+    return {"L_K": L_K, "K_inv": jax.vmap(jlinalg.chol_inv)(L_K)}
