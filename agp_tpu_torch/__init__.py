@@ -20,13 +20,16 @@ full covariance), ``predict_y``, ``proba_y`` (each optionally in chunks)
 and ``sample_f``; the Monte-Carlo ``MCGP``, sampled by exact augmented
 Gibbs (Polya-Gamma and GIG draws, the global resample by Cholesky or
 conjugate gradients), NUTS or HMC, and the SMC and SVGD samplers
-(``smc_sample``, ``svgd_sample``).  The dense models' N x N algebra and
-the samplers are plain PyTorch at full FP32 and run no kernel of the
+(``smc_sample``, ``svgd_sample``); the streaming ``OnlineSVGP``
+(``online_train`` a batch at a time, ``online_train_stream`` over a
+buffered stream, ``online_elbo``) with the inducing-point algorithms of
+``inducing``.  The dense models' N x N algebra, the samplers and the
+online model are plain PyTorch at full FP32 and run no kernel of the
 port.  Inputs without a device (numpy arrays, lists) go to the CUDA card
 unless ``config.set_default_device("cpu")`` was called.
 """
 
-from . import config, kernels
+from . import config, inducing, kernels
 from .inference.config import Analytic, AnalyticSVI, AnalyticVI, GibbsSampling, HMCSampling
 from .inference.hmc import sample_hmc, sample_nuts
 from .inference.smc import smc_sample
@@ -41,6 +44,7 @@ from .likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Mater
 from .means import ConstantMean, ZeroMean
 from .models.gp import GP
 from .models.mcgp import MCGP, sample
+from .models.online_svgp import OnlineSVGP, online_elbo, online_train, online_train_stream
 from .models.svgp import SVGP, VGP
 from .training.predictions import predict_f, predict_y, proba_y, sample_f
 from .training.autotuning import hyper_step
@@ -56,6 +60,10 @@ __all__ = [
     "GP",
     "MCGP",
     "sample",
+    "OnlineSVGP",
+    "online_train",
+    "online_train_stream",
+    "online_elbo",
     "sample_hmc",
     "sample_nuts",
     "smc_sample",
@@ -86,6 +94,7 @@ __all__ = [
     "LogisticSoftMaxLikelihood",
     "HeteroscedasticLikelihood",
     "config",
+    "inducing",
     "kernels",
     "SqExponentialKernel",
     "RBFKernel",

@@ -24,7 +24,13 @@ JAX package's ``bench.py`` and of its two kernel sweeps
   an MCGP with the logistic likelihood, N=2048 in 8-D, 4 chains, 50
   burn-in sweeps and 400 samples, chain-sweeps/s with the CG global
   resample (what the reference's row runs on its chip), and the same with
-  the Cholesky one beside it (``..._chol``).
+  the Cholesky one beside it (``..._chol``); and the two streaming rows,
+  ``online_stream_b256_cap128_pts_per_s`` and
+  ``online_stream_fused_b256_cap128_pts_per_s``: an OnlineSVGP (RBF,
+  Gaussian noise 0.05 fixed, OIPS, 128 slots, no hyperparameter learning)
+  streamed 8 batches of 256 points, 20 CAVI iterations each, per batch
+  (``online_train``) or 7 as one stream (``online_train_stream``), in
+  points/s.
 * ``variants``: kernel 1, kernel 8 ("nt", "packed") and kernel 9 beside the
   sweep's bar (``xla_stats_reference``), CUDA events, at the flagship's
   statistics shape and at the sweep's four rows; each one's s1/S2 error
@@ -51,8 +57,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import AnalyticSVI, GibbsSampling, HeteroscedasticLikelihood, LogisticLikelihood, LogisticSoftMaxLikelihood
-from . import MCGP, SVGP, SqExponentialKernel, init_state, sample
+from . import AnalyticSVI, AnalyticVI, GaussianLikelihood, GibbsSampling, HeteroscedasticLikelihood
+from . import LogisticLikelihood, LogisticSoftMaxLikelihood, MCGP, OnlineSVGP, SVGP, SqExponentialKernel, init_state
+from . import online_train, online_train_stream, sample
 from .benchmarks.fused_variants import direct_stats, direct_stats_reference, two_factor_nt, xla_stats_reference
 from .benchmarks.gather_modes import gather_row_tiles, gather_tile_rows
 from .ops import cuda_kernels as ck
@@ -254,9 +261,61 @@ def gibbs_rate(model, samples=400, chains=4, warmup=10, seed=2):
     return (samples + model.inference.n_burnin) * chains / dt, s
 
 
+def online_data(device, n=4096, seed=7, dtype=torch.float32):
+    """bench_extra's streaming data (bench.py:243-246): X uniform on
+    [-2, 2]^2, y = sin(2 x_0) + 0.5 x_1 + 0.05 eps; (X, f, y) on
+    ``device``."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, size=(n, 2))
+    f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+    y = f + 0.05 * rng.normal(size=n)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in (X, f, y))
+
+
+def online_workload(device, n=4096, b=256, capacity=128, iters=20, seed=7, dtype=torch.float32):
+    """bench_extra's streaming model (bench.py:257-260): OnlineSVGP + RBF +
+    GaussianLikelihood(0.05), noise fixed, AnalyticVI, OIPS, ``capacity``
+    slots, optimiser=None, trained on the first batch of ``b`` rows:
+    (model, state, X, y)."""
+    X, _, y = online_data(device, n, seed, dtype)
+    model = OnlineSVGP.create(SqExponentialKernel(), GaussianLikelihood.create(0.05, opt_noise=False), AnalyticVI(),
+                              n_dim=2, capacity=capacity, optimiser=None, dtype=dtype, device=device)
+    model, state = online_train(model, X[:b], y[:b], iterations=iters)
+    return model, state, X, y
+
+
+def online_rate(model, state, X, y, b=256, iters=20, batches=8, stream=False, warmup=2):
+    """Streamed points/s, as bench.py:248-285 times them: from the state
+    after the first batch, ``warmup`` untimed runs, then one timed run that
+    ends in a synchronize: per batch (``online_train`` on batches 0 ..
+    batches-1, batches * b points) or as a stream (``online_train_stream``
+    on batches 1 .. batches-1, (batches - 1) * b points).  Returns
+    (points/s, the timed run's model, state)."""
+    Xs = X[: batches * b].reshape(batches, b, X.shape[1])
+    ys = y[: batches * b].reshape(batches, b)
+
+    def run():
+        if stream:
+            return online_train_stream(model, Xs[1:], ys[1:], state=state, iterations=iters)
+        m, s = model, state
+        for i in range(batches):
+            m, s = online_train(m, Xs[i], ys[i], state=s, iterations=iters)
+        return m, s
+
+    for _ in range(warmup):
+        run()
+    _sync(X.device)
+    t0 = time.perf_counter()
+    m, s = run()
+    _sync(X.device)
+    dt = time.perf_counter() - t0
+    if not bool(torch.isfinite(s.mu).all()):
+        raise RuntimeError("non-finite streaming posterior")
+    return ((batches - 1) if stream else batches) * b / dt, m, s
+
+
 # ----------------------------------------------------------------- extra
-# bench_extra's rows that the port runs: (workload, iters, chunk); the
-# online rows wait for the slice that ports that model
+# bench_extra's rows that the port runs: (workload, iters, chunk)
 EXTRA_ROWS = {
     "flagship_slice_iters_per_s": (lambda dev: flagship_workload(dev, sampling="slice"), 8000, 2000),
     "multiclass_k10_m64_b2048": (multiclass_workload, 4000, 2000),
@@ -272,9 +331,18 @@ GIBBS_ROWS = {
 }
 
 
+# bench_extra's streaming rows (bench.py:241-285): name -> stream driver?
+ONLINE_ROWS = {
+    "online_stream_b256_cap128_pts_per_s": False,
+    "online_stream_fused_b256_cap128_pts_per_s": True,
+}
+
+
 def extra_row(name):
-    """One row of ``EXTRA_ROWS`` (it/s) or ``GIBBS_ROWS`` (chain-sweeps/s)
-    on the card, in this process."""
+    """One row of ``EXTRA_ROWS`` (it/s), ``GIBBS_ROWS`` (chain-sweeps/s)
+    or ``ONLINE_ROWS`` (points/s) on the card, in this process."""
+    if name in ONLINE_ROWS:
+        return online_rate(*online_workload(require_card()), stream=ONLINE_ROWS[name])[0]
     if name in GIBBS_ROWS:
         rate, s = gibbs_rate(gibbs_workload(require_card(), GIBBS_ROWS[name]))
         if not bool(torch.isfinite(s).all()):
@@ -285,12 +353,12 @@ def extra_row(name):
 
 
 def extra():
-    """Each row of ``EXTRA_ROWS`` and ``GIBBS_ROWS`` in a child process of its own
+    """Each row of ``EXTRA_ROWS``, ``GIBBS_ROWS`` and ``ONLINE_ROWS`` in a child process of its own
     (``python3 -m agp_tpu_torch.bench row NAME``), and logistic_m512's
     points/s; written to ``_chip/bench_torch_extra.json``."""
     require_card()
     rows = {}
-    for name in (*EXTRA_ROWS, *GIBBS_ROWS):
+    for name in (*EXTRA_ROWS, *GIBBS_ROWS, *ONLINE_ROWS):
         proc = subprocess.run([sys.executable, "-m", "agp_tpu_torch.bench", "row", name], capture_output=True,
                               text=True, timeout=900, cwd=Path(__file__).resolve().parent.parent)
         if proc.returncode != 0:

@@ -114,9 +114,15 @@ def latent_moments(model, state: TrainState, x, kmat):
     [L, B, M]: by ``cuda_kernels.fused_kappa`` and plain products for one
     latent, by ``cuda_kernels.fused_kappa_moments_batched`` for several.
     Differentiable in the kernel's parameters, Z and the kmat.  A full
-    model's are mu and diag(Sigma) over its training inputs, kappa None."""
+    model's are mu and diag(Sigma) over its training inputs, kappa None; an
+    online model's are plain products over its masked slots
+    (``models/online_svgp.py::latent_moments``)."""
     if not model.is_sparse:
         return state.mu, torch.diagonal(state.Sigma, dim1=-2, dim2=-1), None
+    if model.is_online:
+        from ..models import online_svgp
+
+        return online_svgp.latent_moments(model, state, x, kmat)
     kind = _pair_kind(model)
     if kind is None:
         raise NotImplementedError(
@@ -404,17 +410,20 @@ def _nat_update_from_stats(model, state: TrainState, s1, stat2, x) -> TrainState
 
 def _moments_kw(model, eta1, eta2):
     """(mu, Sigma) by the exact Cholesky path, the one the reference runs
-    off-TPU.  ``linalg.nat_to_moments_warm`` is ported but not wired in:
-    whether the H100 wants it is a measurement still to be made."""
+    off-TPU.  ``linalg.nat_to_moments_warm`` is ported but not wired in: it
+    reads its branch on the host every call, and a step holds no host
+    read (PERF.md has its times against this path)."""
     mu, Sigma = linalg.nat_to_moments(eta1, eta2, lazy_rungs=not model.is_sparse)
     return dict(mu=mu, Sigma=Sigma)
 
 
 def prior_mean_stack(model, x):
     """[L, M] prior mean over the inducing inputs (Z for a sparse model,
-    the batch x for a full one)."""
+    zero on an online model's inactive slots; the batch x for a full
+    one)."""
     if model.is_sparse:
-        return batch_call(model.mean, model.Z, model.n_latent)
+        mu0 = batch_call(model.mean, model.Z, model.n_latent)
+        return mu0 * model.z_mask if model.is_online else mu0
     return batch_call(model.mean, x, model.n_latent)
 
 
@@ -425,7 +434,9 @@ def elbo(model, state: TrainState, x, y, kmat=None) -> torch.Tensor:
     batch (x, y) whose local variables are in ``state``; ``kmat`` (default
     ``state.kmat``) gives the prior's matrices, so that the hyperparameter
     step differentiates through kernel matrices made from its parameters.
-    The augmented KL is left out of the gradient, as the reference does."""
+    The augmented KL is left out of the gradient, as the reference does.
+    An online model's ELBO also subtracts the streaming extra KL, made with
+    the same ``kmat``."""
     kmat = state.kmat if kmat is None else kmat
     mu_f, var_f, _ = latent_moments(model, state, x, kmat)
     rho = state.rho if model.is_sparse else torch.ones((), dtype=mu_f.dtype, device=mu_f.device)
@@ -436,4 +447,9 @@ def elbo(model, state: TrainState, x, y, kmat=None) -> torch.Tensor:
         for l in range(model.n_latent)
     ])
     tot = tot - torch.sum(kl)
-    return tot - (rho * model.likelihood.aug_kl(state.local_vars, y)).detach()
+    tot = tot - (rho * model.likelihood.aug_kl(state.local_vars, y)).detach()
+    if getattr(model, "is_online", False) and state.previous is not None:
+        from ..models import online_svgp
+
+        tot = tot - online_svgp.online_extra_kl(model, state, kmat)
+    return tot

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .inducing import algorithms
 from .means import ConstantMean
 from .training.state import TrainState
 
@@ -20,8 +21,10 @@ LIKELIHOOD_PARAMS = ("sigma2", "nu", "sigma", "beta", "rho", "r", "lam")
 
 def model_from_numpy(params: dict, template):
     """``template`` (a port model) with its parameters taken from ``params``:
-    "Z" [L, M, D] (or [M, D]) for an SVGP, "train_x" and "train_y" for a
-    VGP, a GP or an MCGP, "lengthscale" and "variance" (latent-stacked, as the
+    "Z" [L, M, D] (or [M, D]) for an SVGP (an online model's also
+    "z_mask", "Za", "za_mask", "z_counts" and optionally its static fields,
+    see ``_online_from_numpy``), "train_x" and "train_y" for a VGP, a GP or
+    an MCGP, "lengthscale" and "variance" (latent-stacked, as the
     reference replicates them), for a constant mean "mean_c", and the
     likelihood's own: "sigma2" (Gaussian; its rule's state is the train
     state's), "nu" and "sigma" (Student-t), "beta" (Laplace), "rho"
@@ -40,6 +43,8 @@ def model_from_numpy(params: dict, template):
         if Z.ndim == 2:
             Z = Z.expand((template.n_latent,) + Z.shape).clone()
         template = template.replace(Z=Z)
+        if getattr(template, "is_online", False):
+            template = _online_from_numpy(params, template, t)
     else:
         y = torch.as_tensor(np.asarray(params["train_y"]), device=dev)
         template = template.replace(train_x=t(params["train_x"]), train_y=y.to(dt) if y.is_floating_point() else y)
@@ -58,12 +63,31 @@ def model_from_numpy(params: dict, template):
     return template.replace(kernel=kernel, mean=mean, likelihood=lik)
 
 
+def _online_from_numpy(params: dict, template, t):
+    """An online template's slot buffers and, where given, its static
+    fields: "capacity", "rho_accept" and "Zalg" as (class name, {field:
+    value}) of ``inducing.algorithms``."""
+    dev = template.Z.device
+    template = template.replace(
+        z_mask=torch.as_tensor(np.asarray(params["z_mask"]), dtype=torch.bool, device=dev),
+        Za=t(params["Za"]),
+        za_mask=torch.as_tensor(np.asarray(params["za_mask"]), dtype=torch.bool, device=dev),
+        z_counts=t(params["z_counts"]),
+    )
+    static = {k: params[k] for k in ("capacity", "rho_accept") if k in params}
+    if params.get("Zalg") is not None:
+        name, fields = params["Zalg"]
+        static["Zalg"] = getattr(algorithms, name)(**fields)
+    return template.replace(**static)
+
+
 def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     """A TrainState from numpy arrays: "eta1", "eta2", "mu", "Sigma",
     "local_vars" (a dict; the Gaussian's noise rule's state
     "state_sigma2" as optax's Adam state {"count", "mu", "nu"}),
     "opt_state" (the Robbins-Monro step count, or None), "rho", "step",
-    "kmat" ({"L_K", "K_inv"} and, for a sparse model, "L_inv"), for a GP
+    "kmat" ({"L_K", "K_inv"} and, for a sparse model, "L_inv"), for an
+    online model "previous" ({"invDa", "prev_eta1", "prev_L_a"}), for a GP
     "alpha" and "chol_Sigma" (and none of eta, moments or kmat), and
     optionally "hyper_state": for each group ("kernel", "mean", "Z")
     optax's Adam state as {"count", "mu", "nu"}, the moments a dict of the
@@ -103,4 +127,5 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
         step=i32(arrays["step"]),
         alpha=optional("alpha"),
         chol_Sigma=optional("chol_Sigma"),
+        previous=None if arrays.get("previous") is None else {k: f(v) for k, v in arrays["previous"].items()},
     )

@@ -12,7 +12,8 @@ back to the host, so a training step holds no device sync.  With
 ``lazy_rungs`` (the dense models' [L, N, N] matrices) rung 0 is factored
 alone and the batch of all rungs runs only when it failed: one host read
 a call, against the batch's R-fold factorizations and copies at N^3.
-Functions take optional leading batch dimensions ``[..., M, M]``.
+The warm (Newton-Schulz) conversions read their branch predicate once
+on the host and run that branch alone.  Functions take optional leading batch dimensions ``[..., M, M]``.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import functools
 import torch
 
 from ..config import jitter
+from ..utils.tensors import host_read
 
 
 def _highest_precision(fn):
@@ -171,6 +173,38 @@ def nat_to_moments(eta1: torch.Tensor, eta2: torch.Tensor, lazy_rungs: bool = Fa
     return mu, Sigma
 
 
+# the zero-first ladder is the default of nat_to_moments, so the reference's
+# safe variant (agp_tpu/ops/linalg.py:307-316) is the same function
+nat_to_moments_safe = nat_to_moments
+
+
+def _warm_residual_ok(A: torch.Tensor, Sigma_prev: torch.Tensor, rho_max: float, batched: bool) -> bool:
+    """The warm conversions' one branch predicate, read once on the host:
+    the residual ||I - A Sigma_prev||_F (over the whole call, or its largest
+    over the leading latent axis when ``batched``) is finite and below
+    ``rho_max``.  A NaN residual takes the exact path."""
+    R0 = _eye_like(A) - A @ Sigma_prev
+    if batched:
+        rho0 = torch.sqrt(torch.sum(R0 * R0, dim=(-2, -1))).max()
+    else:
+        rho0 = torch.sqrt(torch.sum(R0 * R0))
+    return bool(host_read(~(rho0 >= rho_max) & torch.isfinite(rho0)))
+
+
+def _schulz_inverse(A: torch.Tensor, X: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` Newton-Schulz steps X <- X (2I - A X) toward A^-1 from X."""
+    two_eye = 2.0 * _eye_like(A)
+    for _ in range(iters):
+        X = X @ (two_eye - A @ X)
+    return symmetrize(X)
+
+
+def _cholesky_inverse(A: torch.Tensor) -> torch.Tensor:
+    """A^-1 by the zero-first ladder on A / 2, times 1/2."""
+    L = psd_safe_cholesky(0.5 * A)
+    return symmetrize(0.5 * chol_solve(L, _eye_like(A).expand(A.shape)))
+
+
 @_highest_precision
 def nat_to_moments_warm(
     eta1: torch.Tensor,
@@ -180,25 +214,41 @@ def nat_to_moments_warm(
     rho_max: float = 0.35,
 ):
     """Matmul-only variant of :func:`nat_to_moments`: Newton-Schulz
-    X <- X (2I - A X) on A = -2 eta2, warm-started at ``Sigma_prev``, with the
+    X <- X (2I - A X) on A = -2 eta2, warm-started at ``Sigma_prev``, or the
     exact Cholesky path when the warm start is far (residual
     ||I - A Sigma_prev||_F >= rho_max, or not finite).
 
-    The reference chooses the branch with ``lax.cond``; here both branches
-    run and ``torch.where`` selects on the device, so no value is read back
-    to the host."""
-    eye = _eye_like(eta2)
+    As the reference's ``lax.cond``, only the chosen branch runs: its
+    predicate is read once on the host (``utils.tensors.host_read``), so
+    this conversion is not for a step that must hold no host sync."""
     A = -2.0 * symmetrize(eta2)
-    R0 = eye - A @ Sigma_prev
-    rho0 = torch.sqrt(torch.sum(R0 * R0, dim=(-2, -1)))
+    if _warm_residual_ok(A, Sigma_prev, rho_max, batched=False):
+        Sigma = _schulz_inverse(A, Sigma_prev, schulz_iters)
+    else:
+        Sigma = _cholesky_inverse(A)
+    return (Sigma @ eta1.unsqueeze(-1)).squeeze(-1), Sigma
 
-    X = Sigma_prev
-    for _ in range(schulz_iters):
-        X = X @ (2.0 * eye - A @ X)
-    schulz = symmetrize(X)
-    L = psd_safe_cholesky(0.5 * A)
-    chol = symmetrize(0.5 * chol_solve(L, eye.expand(A.shape)))
 
-    use_schulz = (rho0 < rho_max) & torch.isfinite(rho0)
-    Sigma = torch.where(use_schulz[..., None, None], schulz, chol)
+@_highest_precision
+def nat_to_moments_warm_batched(
+    eta1: torch.Tensor,
+    eta2: torch.Tensor,
+    Sigma_prev: torch.Tensor,
+    schulz_iters: int = 4,
+    rho_max: float = 0.35,
+    safe: bool = True,
+):
+    """[L, ...] :func:`nat_to_moments_warm` with ONE predicate shared over
+    the latent axis (the worst latent's residual), as the reference's: one
+    latent far from its warm start sends every latent down the exact path.
+    ``safe`` takes the zero-first jitter ladder for the exact path, else a
+    plain Cholesky (NaN where it fails)."""
+    A = -2.0 * symmetrize(eta2)
+    if _warm_residual_ok(A, Sigma_prev, rho_max, batched=True):
+        Sigma = _schulz_inverse(A, Sigma_prev, schulz_iters)
+    elif safe:
+        Sigma = _cholesky_inverse(A)
+    else:
+        L = cholesky_or_nan(0.5 * A)
+        Sigma = symmetrize(0.5 * chol_solve(L, _eye_like(A).expand(A.shape)))
     return (Sigma @ eta1.unsqueeze(-1)).squeeze(-1), Sigma

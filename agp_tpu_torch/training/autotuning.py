@@ -29,11 +29,22 @@ def _optimises_z(model) -> bool:
     return model.is_sparse and getattr(model, "Zoptimiser", None) is not None
 
 
+def _kmat(model, x, inverse: bool = True):
+    """The kernel matrices the ELBO takes: an online model's masked ones
+    (with K^-1 always), else ``compute_kmat``."""
+    if getattr(model, "is_online", False):
+        from ..models.online_svgp import masked_kmat
+
+        return masked_kmat(model)
+    return analytic_vi.compute_kmat(model, x, inverse=inverse)
+
+
 def hyper_gradients(model, state: TrainState, x, y):
     """(log kernel leaves, gradients of -ELBO with respect to them, the
     mean's gradients, Z's gradient or None), the ELBO taken with
-    ``kmat = compute_kmat`` of the candidate model (over x for a full
-    model), as the reference's ``neg_elbo`` does."""
+    ``kmat = _kmat`` of the candidate model (over x for a full model, the
+    masked one for an online model, its extra KL included), as the
+    reference's ``neg_elbo`` does."""
     log_k = {k: v.detach().requires_grad_(True) for k, v in to_unconstrained(model.kernel).leaves().items()}
     mean = {k: v.detach().requires_grad_(True) for k, v in model.mean.leaves().items()}
     Z = model.Z.detach().requires_grad_(True) if _optimises_z(model) else None
@@ -42,7 +53,7 @@ def hyper_gradients(model, state: TrainState, x, y):
         m2 = model.replace(kernel=kernel, mean=model.mean.replace(**mean))
         if Z is not None:
             m2 = m2.replace(Z=Z)
-        kmat = analytic_vi.compute_kmat(m2, x, inverse=m2.is_sparse)
+        kmat = _kmat(m2, x, inverse=m2.is_sparse)
         neg_elbo = -objective(m2, state, x, y, kmat=kmat)
         wanted = list(log_k.values()) + list(mean.values()) + ([Z] if Z is not None else [])
         grads = torch.autograd.grad(neg_elbo, wanted)
@@ -69,7 +80,7 @@ def hyper_step(model, state: TrainState, x, y):
     if g_z is not None:
         z_update, hyper["Z"] = model.Zoptimiser.update(g_z, hyper["Z"])
         model = model.replace(Z=model.Z + z_update)
-    return model, state.replace(hyper_state=hyper, kmat=analytic_vi.compute_kmat(model, x))
+    return model, state.replace(hyper_state=hyper, kmat=_kmat(model, x))
 
 
 def init_hyper_state(model):

@@ -5,6 +5,8 @@ Per-latent quantities are stacked on a leading latent axis L:
   eta1 [L, M]      first natural parameter Sigma^-1 mu
   eta2 [L, M, M]   second natural parameter -1/2 Sigma^-1 (init -1/2 I)
   mu [L, M], Sigma [L, M, M]   moment parameters
+An online model's state also carries ``previous``, the posterior of the
+batch before (models/online_svgp.py).
 """
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ class TrainState(Params):
     # factor of K + sigma^2 I [N, N]
     alpha: Any = None
     chol_Sigma: Any = None
+    # online (streaming) model: the previous batch's posterior,
+    # {"invDa" [L, Mc, Mc], "prev_eta1" [L, Mc], "prev_L_a" [L]}
+    previous: Any = None
 
 
 def init_var_posterior(n_latent: int, M: int, dtype=torch.float32, device=None):

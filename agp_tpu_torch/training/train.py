@@ -228,9 +228,15 @@ def train(
     checked only without hyperparameter steps, callback or ``verbose >= 2``
     and costs one ELBO (a host read) a window.  Without any of these the
     steps run back to back with no host read.  Ctrl-C returns the model
-    and state trained so far."""
+    and state trained so far.  An online model raises ``TypeError``: it
+    trains with ``online_train``."""
     if isinstance(model, GP):
         return _train_gp(model, iterations, state, callback, verbose)
+    if getattr(model, "is_online", False):
+        raise TypeError(
+            "OnlineSVGP trains with agp_tpu_torch.online_train(model, X_batch, "
+            "y_batch, state=state) -- thread the state across batches"
+        )
     if X is None:
         X, y = getattr(model, "train_x", None), getattr(model, "train_y", None)
         if X is None:

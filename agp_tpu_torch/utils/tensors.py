@@ -66,7 +66,7 @@ def host_read(t: torch.Tensor):
     """``t.item()``: the one way the samplers read the device back to
     decide how to go on (a rejection loop's "all lanes done", the
     Polya-Gamma draw's unit count, CG's "any system active", NUTS's "all
-    chains done").  Each read waits for the device; ``host_read.reads``
+    chains done"; the warm eta -> moments conversions' branch).  Each read waits for the device; ``host_read.reads``
     counts them, so that a caller can count the reads of a sweep or a
     step."""
     host_read.reads += 1
@@ -74,6 +74,14 @@ def host_read(t: torch.Tensor):
 
 
 host_read.reads = 0
+
+
+def host_array(t: torch.Tensor):
+    """``t`` copied to the host as a numpy array: one read, counted in
+    ``host_read.reads`` as ``host_read`` counts its own (the online
+    inducing updates read a batch's correlations or buffers this way)."""
+    host_read.reads += 1
+    return t.detach().cpu().numpy()
 
 
 # the rejection loops read "every lane done" once every this many trips

@@ -144,7 +144,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    each sampler's ms a sample at N=512;
 26. the fed-noise global resample (both solvers), 16 leapfrog steps and
    50 SVGD steps from fed particles, card (float32) against CPU (float32)
-   within SAMPLER_PARITY_FACTOR times the CPU float32's own error.
+   within SAMPLER_PARITY_FACTOR times the CPU float32's own error;
+27. the online model (Slice I): bench.py:241-285's streaming row
+   (OnlineSVGP + RBF + Gaussian noise 0.05 fixed, OIPS, 128 slots, X
+   uniform on [-2, 2]^2, 8 batches of 256 points, 20 iterations each)
+   through online_train with no kernel launch: the first batch takes the
+   port's C++ OIPS (built, called once, equal to the numpy selection), the
+   RMSE floor (ONLINE_FLOORS, from ``online-cpu``), the CPU's active count,
+   card-vs-CPU parity of mu and Sigma within ONLINE_PARITY_FACTOR times the
+   CPU float32's own error; online_train_stream bit-equal to online_train
+   batch by batch; the bench's two rows (points/s), ms a batch by part
+   (save-old, the selection, the kernel matrices, the CAVI iterations),
+   host reads a batch, peak device memory;
+28. the other streaming paths at that shape: the default Adam(0.01)
+   (log-hyperparameters moved, parity), the logistic likelihood (accuracy
+   floor), UniGridOnline(8), Webscale(64), StreamKmeans(128, 0.25) with
+   their invariants and floors;
+29. a wide stream (512 slots, D=8, batches of 2,048): finite, parity,
+   points/s and ms a batch; then the warm eta -> moments conversions
+   (both branches) against the exact one at [1, 128, 128] and
+   [1, 512, 512].
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -184,7 +203,10 @@ code on the CPU in float32, no floors: what DENSE_FLOORS comes from),
 20a), ``samplers`` (phases 23-26 alone), ``gibbs-cpu`` (phase 24's row
 with each solver in float64 on the host's CPU, no card needed: what
 GIBBS_FLOORS comes from), ``profile gibbs`` (torch.profiler over 20
-sweeps of the Gibbs row with each solver).  ``ab ROOT
+sweeps of the Gibbs row with each solver), ``online`` (phases 27-29 alone),
+``online-cpu`` (every online path in float64 on the host's CPU, no card
+needed: what ONLINE_FLOORS comes from), ``profile online``
+(torch.profiler over batches 2-8 of phase 27's stream).  ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
 ``ab ROOT kappa`` and ``kappa`` (or ``variants``, ``fused``, ``paths``,
@@ -3765,6 +3787,348 @@ def samplers_mode(agt, ck, device):
     timed_phase("sampler parity", phase_sampler_parity, agt, device)
 
 
+# ----------------------------------------------- Slice I: the online model
+# phase 27: bench.py:241-285's streaming row (agp_tpu_torch.bench's
+# online_workload): OnlineSVGP + RBF + GaussianLikelihood(0.05) fixed, OIPS
+# (rho 0.8), 128 slots, no hyperparameter learning, X uniform on [-2, 2]^2,
+# 8 batches of 256 points, 20 CAVI iterations each
+ONLINE_B, ONLINE_BATCHES, ONLINE_ITERS = 256, 8, 20
+# phase 29: a wide stream, 512 slots in 8-D, batches of 2,048
+WIDE_CAP, WIDE_D, WIDE_B = 512, 8, 2048
+# floors from ``python3 chip_smoke.py online-cpu`` (the same paths in float64
+# on a CPU): RMSE of predict_f against f over the 2,048 streamed rows
+# oips 0.02960, adam 0.02143, unigrid 0.01033, webscale 0.01179,
+# streamkmeans 0.01249; the logistic path's accuracy 0.96240; each RMSE
+# floor ~1.5-2.5x the float64 run's (the verify skill's oracle: < 0.1), the
+# accuracy's 0.03 under it; the wide path holds finite values and parity
+ONLINE_FLOORS = {"oips": {"rmse": 0.045}, "adam": {"rmse": 0.035}, "logistic": {"acc": 0.93},
+                 "unigrid": {"rmse": 0.025}, "webscale": {"rmse": 0.025}, "streamkmeans": {"rmse": 0.025},
+                 "wide": {}}
+# card (float32) against CPU (float32), within this many times the CPU
+# float32's own error against float64 (phase 26's rule)
+ONLINE_PARITY_FACTOR = 10.0
+# the online paths: likelihood, selection algorithm (None: OIPS), optimiser
+ONLINE_PATHS = {
+    "oips": ("gaussian", None, None),
+    "adam": ("gaussian", None, "default"),
+    "logistic": ("logistic", None, None),
+    "unigrid": ("gaussian", ("UniGridOnline", 8), None),
+    "webscale": ("gaussian", ("Webscale", 64), None),
+    "streamkmeans": ("gaussian", ("StreamKmeans", 128, 0.25), None),
+    "wide": ("gaussian", None, None),
+}
+
+
+def online_data(name, device, dtype):
+    """(X, f, labels) of an online path: the bench's streaming data (D=2,
+    8 x 256 rows), or for "wide" X uniform on [-2, 2]^8 (8 x 2,048 rows)
+    with the same rule; the logistic path's labels the sign of f."""
+    from agp_tpu_torch import bench
+
+    if name == "wide":
+        rng = np.random.default_rng(8)
+        n = ONLINE_BATCHES * WIDE_B
+        X = rng.uniform(-2.0, 2.0, size=(n, WIDE_D))
+        f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+        y = f + 0.05 * rng.normal(size=n)
+        X, f, y = (torch.as_tensor(a, dtype=dtype, device=device) for a in (X, f, y))
+    else:
+        X, f, y = bench.online_data(device, dtype=dtype)
+    return X, f, (torch.sign(f) if name == "logistic" else y)
+
+
+def online_model(agt, name, device, dtype):
+    lik, alg, optimiser = ONLINE_PATHS[name]
+    likelihood = agt.GaussianLikelihood.create(0.05) if lik == "gaussian" else agt.LogisticLikelihood.create()
+    zalg = None if alg is None else getattr(agt.inducing, alg[0])(*alg[1:])
+    wide = name == "wide"
+    return agt.OnlineSVGP.create(agt.SqExponentialKernel(), likelihood, agt.AnalyticVI(), Zalg=zalg,
+                                 n_dim=WIDE_D if wide else 2, capacity=WIDE_CAP if wide else 128,
+                                 optimiser=optimiser, dtype=dtype, device=device)
+
+
+def online_run(agt, name, device, dtype=torch.float32):
+    """An online path streamed batch by batch through online_train from a
+    fresh model: {"model", "state", "rmse" (predict_f against f over the
+    streamed rows), "active", "max_count", "moved" (the log-hyperparameters'
+    largest move), "acc" (logistic), "elbo" (online_elbo on the last
+    batch), "seconds"}."""
+    X, f, y = online_data(name, device, dtype)
+    b = WIDE_B if name == "wide" else ONLINE_B
+    model = online_model(agt, name, device, dtype)
+    log0 = log_hypers(model)
+    state = None
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(ONLINE_BATCHES):
+        model, state = agt.online_train(model, X[i * b:(i + 1) * b], y[i * b:(i + 1) * b], state=state,
+                                        iterations=ONLINE_ITERS)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    n = ONLINE_BATCHES * b
+    mu = agt.predict_f(model, state, X[:n], chunk_size=4096)
+    out = {"model": model, "state": state, "seconds": seconds,
+           "rmse": float(torch.sqrt(torch.mean((mu.double() - f[:n].double()) ** 2))),
+           "active": int(model.z_mask[0].sum()), "max_count": float(model.z_counts[0].max()),
+           "moved": float((log_hypers(model) - log0).abs().max()),
+           "elbo": float(agt.online_elbo(model, state, X[n - b:n], y[n - b:n]))}
+    if name == "logistic":
+        out["acc"] = float((agt.predict_y(model, state, X[:n]) == y[:n]).double().mean())
+    return out
+
+
+def online_parity(agt, name, card):
+    """mu's and Sigma's card-vs-CPU errors after the whole stream:
+    {name: (|card - cpu32|, |cpu32 - cpu64|)} over cpu64's largest entry,
+    and the CPU float32 run's active count."""
+    cpu32 = online_run(agt, name, "cpu", torch.float32)
+    cpu64 = online_run(agt, name, "cpu", torch.float64)
+    errs = {k: parity_err(getattr(card["state"], k), getattr(cpu32["state"], k), getattr(cpu64["state"], k))
+            for k in ("mu", "Sigma")}
+    log(f"online {name} parity (card float32 against CPU float32, and the CPU float32's own error against "
+        f"float64): " + "; ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in errs.items()) +
+        f"; active slots card {card['active']}, CPU float32 {cpu32['active']}, float64 {cpu64['active']}")
+    bad = {k: v for k, v in errs.items() if not v[0] <= max(ONLINE_PARITY_FACTOR * v[1], 1e-6)}
+    if bad:
+        raise AssertionError(f"online {name}: parity beyond {ONLINE_PARITY_FACTOR}x the CPU's own float32 error: "
+                             f"{bad}")
+    if card["active"] != cpu32["active"]:
+        raise AssertionError(f"online {name}: {card['active']} active slots on the card, {cpu32['active']} on the CPU")
+    return errs
+
+
+def check_online(name, r):
+    """The floors of an online path (ONLINE_FLOORS) and its invariants."""
+    state, floors = r["state"], ONLINE_FLOORS[name]
+    finite = all(bool(torch.isfinite(t).all()) for t in (state.mu, state.Sigma)) and np.isfinite(r["elbo"])
+    if not finite:
+        raise AssertionError(f"online {name}: non-finite posterior or ELBO")
+    if "rmse" in floors and not r["rmse"] <= floors["rmse"]:
+        raise AssertionError(f"online {name}: RMSE {r['rmse']:.5f} > {floors['rmse']}")
+    if "acc" in floors and not r["acc"] >= floors["acc"]:
+        raise AssertionError(f"online {name}: accuracy {r['acc']:.5f} < {floors['acc']}")
+    if name == "adam" and not r["moved"] > MIN_HYPER_MOVE:
+        raise AssertionError(f"online adam: the log-hyperparameters moved by {r['moved']:.3e} <= {MIN_HYPER_MOVE}")
+    want = {"unigrid": r["active"] == 64, "webscale": r["active"] == 64 and r["max_count"] > 1,
+            "streamkmeans": 0 < r["active"] <= 128}.get(name, True)
+    if not want:
+        raise AssertionError(f"online {name}: {r['active']} active slots, largest count {r['max_count']}")
+
+
+def log_online(name, r, where="the card"):
+    extra = f", accuracy {r['acc']:.5f}" if "acc" in r else ""
+    log(f"online {name} on {where} ({ONLINE_BATCHES} batches, {ONLINE_ITERS} iterations each): RMSE "
+        f"{r['rmse']:.5f}{extra}, {r['active']} active slots (largest count {r['max_count']:.0f}), "
+        f"log-hyperparameters moved {r['moved']:.4f}, online_elbo {r['elbo']:.4f}, {r['seconds']:.3f} s")
+
+
+def online_batch_split(model, state, X, y, b):
+    """Batches 1 .. ONLINE_BATCHES-1 after ``state``, taken apart as
+    online_train runs them (optimiser None): ms a batch in save-old, the
+    inducing update (the selection), the rest of the prologue (the masked
+    kernel matrices, fresh local variables) and the CAVI iterations, each
+    ending in a synchronize; and the host reads a batch."""
+    from agp_tpu_torch.models import online_svgp as on
+    from agp_tpu_torch.utils.tensors import host_read
+
+    device = X.device
+    times = {"save-old": 0.0, "selection": 0.0, "kmat and locals": 0.0, "CAVI iterations": 0.0}
+    reads = host_read.reads
+    for i in range(1, ONLINE_BATCHES):
+        xb, yb = X[i * b:(i + 1) * b], y[i * b:(i + 1) * b]
+        sync(device)
+        t0 = time.perf_counter()
+        model, state = on.save_old_parameters(model, state)
+        sync(device)
+        t1 = time.perf_counter()
+        model = on.update_Z(model, xb)
+        sync(device)
+        t2 = time.perf_counter()
+        state = state.replace(kmat=on.masked_kmat(model),
+                              local_vars=model.likelihood.init_local_vars(b, xb.dtype, device))
+        sync(device)
+        t3 = time.perf_counter()
+        for _ in range(ONLINE_ITERS):
+            model, state = on.online_variational_update(model, state, xb, yb)
+        sync(device)
+        t4 = time.perf_counter()
+        for k, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            times[k] += dt * 1e3 / (ONLINE_BATCHES - 1)
+    return times, (host_read.reads - reads) / (ONLINE_BATCHES - 1)
+
+
+def phase_online(agt, ck, device):
+    """Phase 27: the bench's streaming row on the card.  The first batch
+    takes the port's C++ OIPS (its library built, its call counted), which
+    selects exactly what the numpy selection does; the stream per batch
+    with no kernel launch, its RMSE floor, the CPU's active count, card-vs-
+    CPU parity; the stream driver bit-equal to the per-batch one; the two
+    bench rows' points/s, ms a batch by part, host reads a batch, peak
+    memory."""
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.inducing import algorithms
+    from agp_tpu_torch.kernels import latent
+    from agp_tpu_torch.utils import native
+
+    if not native.available():
+        raise AssertionError(f"the port's host library did not build ({native.library_path()})")
+    calls = native.oips.calls
+    reset_launches(ck)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    r = online_run(agt, "oips", device)
+    expect_launches(ck, "online oips", {})
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if native.oips.calls != calls + 1:
+        raise AssertionError(f"online oips: the native OIPS ran {native.oips.calls - calls} times, not once")
+    X, _, y = online_data("oips", device, torch.float32)
+    k0 = latent(r["model"].kernel, 0)
+    available, native.available = native.available, lambda: False  # the numpy selection
+    try:
+        Z_numpy = algorithms.OIPS(0.8, 128)(X[:ONLINE_B].double().cpu(), kernel=k0.to(dtype=torch.float64))
+    finally:
+        native.available = available
+    Z_native = algorithms.OIPS(0.8, 128)(X[:ONLINE_B].cpu(), kernel=k0)
+    if not torch.equal(Z_native.double(), Z_numpy.to(Z_native.device)):
+        raise AssertionError("online oips: the native OIPS's first selection differs from the numpy one")
+    log(f"online oips: the first batch took the native OIPS ({native.library_path()}), {Z_native.shape[0]} points, "
+        f"equal to the numpy selection; {r['active']} active slots after {ONLINE_BATCHES} batches; peak device "
+        f"memory {peak:.1f} MiB; 0 kernel launches")
+    log_online("oips", r)
+    check_online("oips", r)
+    parity = online_parity(agt, "oips", r)
+    # the drivers from the state after the first batch: bit-equal, then the bench's rows
+    m1, s1, Xw, yw = bench.online_workload(device)
+    Xs = Xw[: ONLINE_BATCHES * ONLINE_B].reshape(ONLINE_BATCHES, ONLINE_B, 2)
+    ys = yw[: ONLINE_BATCHES * ONLINE_B].reshape(ONLINE_BATCHES, ONLINE_B)
+    ma, sa = m1, s1
+    for i in range(1, ONLINE_BATCHES):
+        ma, sa = agt.online_train(ma, Xs[i], ys[i], state=sa, iterations=ONLINE_ITERS)
+    mb, sb = agt.online_train_stream(m1, Xs[1:], ys[1:], state=s1, iterations=ONLINE_ITERS)
+    same = all(torch.equal(getattr(sa, k), getattr(sb, k)) for k in ("eta1", "eta2", "mu", "Sigma"))
+    if not (same and torch.equal(ma.z_mask, mb.z_mask) and torch.equal(ma.Z, mb.Z)):
+        raise AssertionError("online: online_train_stream differs from online_train batch by batch on the card")
+    reset_launches(ck)
+    rates = {stream: bench.online_rate(m1, s1, Xw, yw, stream=stream)[0] for stream in (False, True)}
+    split, reads = online_batch_split(m1, s1, Xw, yw, ONLINE_B)
+    expect_launches(ck, "online drivers", {})
+    total = sum(split.values())
+    log(f"online drivers: online_train_stream bit-equal to online_train batch by batch (batches 2-8); the bench's "
+        f"rows: online_stream_b256_cap128_pts_per_s {rates[False]:.1f}, online_stream_fused_b256_cap128_pts_per_s "
+        f"{rates[True]:.1f}; a batch {total:.3f} ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
+        f"; {reads:.2f} host reads a batch, 0 kernel launches")
+    return {"rates": rates, "split": split, "reads": reads, "parity": parity, "rmse": r["rmse"], "peak_mib": peak}
+
+
+def phase_online_paths(agt, ck, device):
+    """Phase 28: the other streaming paths at phase 27's shape, each with no
+    kernel launch, its floors and invariants: (a) the default Adam(0.01)
+    every iteration (log-hyperparameters moved, card-vs-CPU parity), (b)
+    the logistic likelihood on sign(f), (c) UniGridOnline(8), Webscale(64),
+    StreamKmeans(128, radius2 0.25)."""
+    out = {}
+    for name in ("adam", "logistic", "unigrid", "webscale", "streamkmeans"):
+        reset_launches(ck)
+        r = online_run(agt, name, device)
+        expect_launches(ck, f"online {name}", {})
+        log_online(name, r)
+        check_online(name, r)
+        out[name] = r
+    online_parity(agt, "adam", out["adam"])
+    return out
+
+
+def time_warm_moments(device, reps=50):
+    """nat_to_moments_warm_batched (both branches) against the exact
+    nat_to_moments_safe at [1, 128, 128] and [1, 512, 512], ms a call by
+    the host clock over ``reps`` calls ending in a synchronize (the warm
+    one reads its predicate on the host every call)."""
+    from agp_tpu_torch.ops import linalg
+
+    out = {}
+    for m in (128, 512):
+        g = torch.Generator(device=device).manual_seed(m)
+        G = torch.randn(1, m, m, generator=g, device=device)
+        A = G @ G.mT / m + torch.eye(m, device=device)
+        eta2, eta1 = -0.5 * A, torch.randn(1, m, generator=g, device=device)
+        Sigma = torch.linalg.inv(A)
+        starts = {"schulz": Sigma * (1 + 1e-4), "cholesky": 3.0 * Sigma}
+        calls = {"exact": lambda: linalg.nat_to_moments_safe(eta1, eta2)}
+        calls.update({f"warm {k}": (lambda s=s: linalg.nat_to_moments_warm_batched(eta1, eta2, s))
+                      for k, s in starts.items()})
+        for name, fn in calls.items():
+            fn()
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync(device)
+            out[f"{name} M={m}"] = (time.perf_counter() - t0) * 1e3 / reps
+    log("eta -> moments, ms a call (host clock, [1, M, M]): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def phase_online_wide(agt, ck, device):
+    """Phase 29: a wide stream (512 slots, D=8, batches of 2,048, Gaussian,
+    optimiser None; OIPS fills the buffer): finite, card-vs-CPU parity,
+    points/s and ms a batch logged; then the warm eta -> moments
+    conversions against the exact one."""
+    reset_launches(ck)
+    r = online_run(agt, "wide", device)
+    expect_launches(ck, "online wide", {})
+    log_online("wide", r)
+    check_online("wide", r)
+    log(f"online wide: {ONLINE_BATCHES * WIDE_B / r['seconds']:.1f} points/s, "
+        f"{r['seconds'] * 1e3 / ONLINE_BATCHES:.3f} ms a batch (the first batch's selection included)")
+    online_parity(agt, "wide", r)
+    return r, time_warm_moments(device)
+
+
+def online_mode(agt, ck, device):
+    """``python3 chip_smoke.py online``: phases 27-29 alone."""
+    timed_phase("online stream", phase_online, agt, ck, device)
+    timed_phase("online paths", phase_online_paths, agt, ck, device)
+    timed_phase("online wide", phase_online_wide, agt, ck, device)
+
+
+def online_cpu_mode(agt):
+    """``python3 chip_smoke.py online-cpu``: every online path in float64
+    on the host's CPU, the source of ONLINE_FLOORS (no floors held)."""
+    torch.set_num_threads(min(torch.get_num_threads(), 8))
+    for name in ONLINE_PATHS:
+        log_online(name, online_run(agt, name, "cpu", torch.float64), "the CPU, float64")
+
+
+def profile_online(agt, device):
+    """``python3 chip_smoke.py profile online``: torch.profiler over batches
+    2-8 of phase 27's stream (online_train): wall and device-busy time a
+    batch, the idle share, the device ops a batch and the largest of
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agp_tpu_torch import bench
+
+    m1, s1, X, y = bench.online_workload(device)
+    bench.online_rate(m1, s1, X, y, warmup=1)
+    n = ONLINE_BATCHES - 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m, s = m1, s1
+        for i in range(1, ONLINE_BATCHES):
+            m, s = agt.online_train(m, X[i * ONLINE_B:(i + 1) * ONLINE_B], y[i * ONLINE_B:(i + 1) * ONLINE_B],
+                                    state=s, iterations=ONLINE_ITERS)
+        sync(device)
+        wall_us = (time.perf_counter() - t0) / n * 1e6
+    rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profile online (B={ONLINE_B}, 128 slots, {ONLINE_ITERS} iterations a batch): wall {wall_us:.1f} us/batch, "
+        f"device busy {busy:.1f} us/batch, idle share {1 - busy / wall_us:.4f}, "
+        f"{sum(r[1] for r in rows):.1f} device ops/batch")
+    for us, count, key in rows[:10]:
+        log(f"  device {us:10.1f} us/batch  x{count:.1f}  {key[:90]}")
+
+
 PHASE_SECONDS = {}
 
 
@@ -3783,6 +4147,11 @@ def main():
         import agp_tpu_torch as agt
 
         gibbs_cpu_mode(agt)
+        return
+    if sys.argv[1:] == ["online-cpu"]:  # the host's CPU alone, no card needed
+        import agp_tpu_torch as agt
+
+        online_cpu_mode(agt)
         return
     device = phase_device()
     args = sys.argv[1:]
@@ -3845,6 +4214,12 @@ def main():
     if args[:2] == ["profile", "gibbs"]:
         profile_gibbs(agt, device)
         return
+    if args == ["online"]:
+        online_mode(agt, ck, device)
+        return
+    if args[:2] == ["profile", "online"]:
+        profile_online(agt, device)
+        return
     if args[:2] == ["profile", "dense"]:
         profile_dense(agt, device, args[2] if len(args) > 2 else "gp")
         return
@@ -3895,6 +4270,7 @@ def main():
     timed_phase("svgp_noise path", phase_noise, agt, ck, device)
     timed_phase("dense parity", phase_dense_parity, agt, device)
     samplers_mode(agt, ck, device)
+    online_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {

@@ -96,6 +96,23 @@ def test_gibbs_row_at_a_cut_size(solver):
     assert s.shape == (2, 4, 1, 128) and bool(torch.isfinite(s).all()) and rate > 0 and np.isfinite(rate)
 
 
+@pytest.mark.parametrize("stream", [False, True])
+def test_online_rows_at_a_cut_size(stream):
+    """The two streaming rows (bench.py:241-285's data, model and timing) on
+    the CPU at 512 rows, 4 batches of 32 points, 16 slots, 3 iterations:
+    OIPS grew the set, the posterior is finite, the rate positive; the
+    stream driver's timed run ends where the per-batch one does."""
+    model, state, X, y = bench.online_workload("cpu", n=512, b=32, capacity=16, iters=3)
+    assert X.shape == (512, 2) and X.dtype == torch.float32 and float(X.abs().max()) <= 2.0
+    assert model.optimiser is None and model.capacity == 16 and int(model.z_mask.sum()) > 0
+    assert float(model.likelihood.sigma2) == pytest.approx(0.05) and int(state.step) == 3
+    rate, m, s = bench.online_rate(model, state, X, y, b=32, iters=3, batches=4, stream=stream, warmup=1)
+    assert rate > 0 and np.isfinite(rate) and bool(torch.isfinite(s.mu).all())
+    assert int(s.step) == 3 + (3 if stream else 4) * 3
+    assert set(bench.ONLINE_ROWS) == {"online_stream_b256_cap128_pts_per_s",
+                                      "online_stream_fused_b256_cap128_pts_per_s"}
+
+
 def test_numpy_baseline_runs():
     assert bench.bench_numpy_baseline(iters=2) > 0
 
@@ -107,6 +124,7 @@ def test_numpy_baseline_runs():
     lambda: bench.variants(reps=1),
     lambda: bench.gather(draws=1),
     lambda: bench.main([]),
+    lambda: bench.extra_row("online_stream_b256_cap128_pts_per_s"),
 ])
 def test_every_mode_needs_a_card(monkeypatch, call):
     """No mode falls back to the CPU: each raises without a card."""

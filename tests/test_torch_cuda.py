@@ -908,3 +908,62 @@ def test_cuda_mcgp_refuses_float64(cuda_device):
     X, y = toy_on(cuda_device, 32, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         agt.MCGP.create(X, y, agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.1))
+
+
+# ---------------------------------------------- Slice I: the online model
+@pytest.mark.cuda
+@pytest.mark.parametrize("zalg", ["oips", "streamkmeans", "webscale", "unigrid"])
+def test_cuda_online_stream_on_the_card(cuda_device, zalg):
+    """Numpy batches stream into an OnlineSVGP made on the card (its
+    default device): every buffer stays there, no kernel of the port is
+    launched, one host read a batch for OIPS and StreamKmeans and none for
+    the others, and the posterior equals the same stream's on the CPU
+    (float32) within 1e-3 of its largest entry."""
+    from agp_tpu_torch.utils.tensors import host_read
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, size=(192, 2)).astype(np.float32)
+    y = (np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]).astype(np.float32)
+    alg = {"oips": None, "streamkmeans": agt.inducing.StreamKmeans(32, 0.25), "webscale": agt.inducing.Webscale(16),
+           "unigrid": agt.inducing.UniGridOnline(4)}[zalg]
+
+    def stream(device):
+        m = agt.OnlineSVGP.create(agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.05), agt.AnalyticVI(),
+                                  Zalg=alg, n_dim=2, capacity=32, optimiser=None, device=device)
+        s = None
+        for i in range(3):
+            m, s = agt.online_train(m, X[i * 64:(i + 1) * 64], y[i * 64:(i + 1) * 64], state=s, iterations=5)
+        return m, s
+
+    smoke.reset_launches(ck)
+    reads = host_read.reads
+    m, s = stream(cuda_device)
+    torch.cuda.synchronize()
+    assert smoke.expect_launches(ck, zalg, {}) == 0
+    assert host_read.reads - reads == (2 if zalg in ("oips", "streamkmeans") else 0)
+    assert m.Z.is_cuda and m.z_mask.is_cuda and s.mu.is_cuda and s.kmat["K_inv"].is_cuda
+    mc, sc = stream("cpu")
+    assert torch.equal(m.z_mask.cpu(), mc.z_mask)
+    for k in ("mu", "Sigma"):
+        a, b = getattr(s, k).cpu(), getattr(sc, k)
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), k
+    assert agt.predict_f(m, s, X[:16]).is_cuda
+
+
+@pytest.mark.cuda
+def test_cuda_online_default_adam(cuda_device):
+    """The default Adam(0.01) on the card: the kernel's log parameters move,
+    the posterior and online_elbo stay finite, no kernel launch."""
+    rng = np.random.default_rng(1)
+    X = rng.uniform(-2, 2, size=(128, 2)).astype(np.float32)
+    y = (np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]).astype(np.float32)
+    m = agt.OnlineSVGP.create(agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.05), agt.AnalyticVI(),
+                              n_dim=2, capacity=32)
+    smoke.reset_launches(ck)
+    s = None
+    for i in range(2):
+        m, s = agt.online_train(m, X[i * 64:(i + 1) * 64], y[i * 64:(i + 1) * 64], state=s, iterations=8)
+    assert smoke.expect_launches(ck, "online adam", {}) == 0
+    assert abs(float(torch.log(m.kernel.lengthscale[0]))) > 1e-3
+    assert torch.isfinite(s.mu).all() and torch.isfinite(s.Sigma).all()
+    assert np.isfinite(float(agt.online_elbo(m, s, X[64:], y[64:])))

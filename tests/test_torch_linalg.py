@@ -119,3 +119,82 @@ def test_nat_to_moments_warm_both_branches(branch):
     mu_j, S_j = jl.nat_to_moments_warm(jnp.asarray(eta1), jnp.asarray(eta2), jnp.asarray(prev))
     close(mu_t, mu_j)
     close(S_t, S_j)
+
+
+def warm_inputs(n_latent, scales, seed=20):
+    """[L, M] eta1, [L, M, M] eta2 and warm starts Sigma + scale sym(E) per
+    latent (scale 1e-3: residual far below 0.35; 0.5: far above)."""
+    rng = np.random.default_rng(seed)
+    eta1, eta2, prev = [], [], []
+    for l in range(n_latent):
+        e1, e2, Sigma = natural_params(seed + l)
+        E = rng.normal(size=(M, M))
+        eta1.append(e1)
+        eta2.append(e2)
+        prev.append(Sigma + scales[l] * (E + E.T) / 2)
+    return np.stack(eta1), np.stack(eta2), np.stack(prev)
+
+
+def count_branches(monkeypatch):
+    """Counts the calls of the warm conversions' two branches."""
+    calls = {"schulz": 0, "cholesky": 0}
+    schulz, chol = tl._schulz_inverse, tl._cholesky_inverse
+
+    def counted_schulz(*a):
+        calls["schulz"] += 1
+        return schulz(*a)
+
+    def counted_chol(*a):
+        calls["cholesky"] += 1
+        return chol(*a)
+
+    monkeypatch.setattr(tl, "_schulz_inverse", counted_schulz)
+    monkeypatch.setattr(tl, "_cholesky_inverse", counted_chol)
+    return calls
+
+
+@pytest.mark.parametrize("branch", ["schulz", "cholesky"])
+def test_nat_to_moments_warm_runs_one_branch(branch, monkeypatch):
+    """The unbatched warm conversion runs only the branch its predicate
+    chooses (no Cholesky on the Schulz branch, no Schulz product on the
+    Cholesky one), deciding by one counted host read."""
+    from agp_tpu_torch.utils.tensors import host_read
+
+    calls = count_branches(monkeypatch)
+    eta1, eta2, prev = warm_inputs(1, [1e-3 if branch == "schulz" else 0.5])
+    reads = host_read.reads
+    tl.nat_to_moments_warm(t(eta1[0]), t(eta2[0]), t(prev[0]))
+    assert host_read.reads - reads == 1
+    assert calls == {"schulz": int(branch == "schulz"), "cholesky": int(branch == "cholesky")}
+
+
+@pytest.mark.parametrize("scales,branch", [
+    ((1e-3, 1e-3, 1e-3), "schulz"),
+    ((1e-3, 0.5, 1e-3), "cholesky"),  # one latent far: every latent takes the exact path
+    ((0.5, 0.5, 0.5), "cholesky"),
+])
+@pytest.mark.parametrize("safe", [True, False])
+def test_nat_to_moments_warm_batched(scales, branch, safe, monkeypatch):
+    """The batched warm conversion equals the reference's
+    (``nat_to_moments_warm_batched``) on each branch, and its predicate,
+    shared over the latent axis, sends every latent down one branch: one
+    Schulz call or one ladder call (``safe``) for the whole stack."""
+    calls = count_branches(monkeypatch)
+    eta1, eta2, prev = warm_inputs(3, scales)
+    mu_t, S_t = tl.nat_to_moments_warm_batched(t(eta1), t(eta2), t(prev), safe=safe)
+    mu_j, S_j = jl.nat_to_moments_warm_batched(jnp.asarray(eta1), jnp.asarray(eta2), jnp.asarray(prev), safe=safe)
+    close(mu_t, mu_j)
+    close(S_t, S_j)
+    assert calls["schulz"] == int(branch == "schulz")
+    assert calls["cholesky"] == int(branch == "cholesky" and safe)
+
+
+def test_nat_to_moments_safe_matches_reference():
+    """nat_to_moments_safe (the port's nat_to_moments under the reference's
+    name) against the reference's on a stack of latents."""
+    eta1, eta2, _ = warm_inputs(2, (0.0, 0.0))
+    mu_t, S_t = tl.nat_to_moments_safe(t(eta1), t(eta2))
+    for l in range(2):
+        mu_j, S_j = jl.nat_to_moments_safe(jnp.asarray(eta1[l]), jnp.asarray(eta2[l]))
+        close(mu_t[l], mu_j)
+        close(S_t[l], S_j)
