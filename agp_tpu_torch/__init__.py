@@ -13,7 +13,12 @@ the exact ``GP`` (Gaussian likelihood, noise learnt by default), with the
 squared-exponential and Matern 1/2, 3/2, 5/2 kernels and the logistic,
 Gaussian (fixed or learnt noise), Student-t, Laplace, Matern-3/2 noise,
 Bayesian SVM, Poisson, negative binomial, logistic-softmax (multiclass)
-and heteroscedastic likelihoods, with the hyperparameter step interleaved
+and heteroscedastic likelihoods, the softmax and the generic augmented
+likelihoods of ``make_augmented_likelihood`` (Gibbs draws their auxiliary
+from its Laplace transform), trained by closed-form CAVI or by numerical
+VI (``QuadratureVI``, ``MCIntegrationVI`` and their stochastic forms:
+Gauss-Hermite or Monte Carlo expectations, the statistics on the same
+kernels as the split pair), with the hyperparameter step interleaved
 (Adam(0.01) on the kernel and the mean by default, optionally on the
 inducing points) or with fixed hyperparameters; ``predict_f`` (diagonal or
 full covariance), ``predict_y``, ``proba_y`` (each optionally in chunks)
@@ -30,7 +35,19 @@ unless ``config.set_default_device("cpu")`` was called.
 """
 
 from . import config, inducing, kernels
-from .inference.config import Analytic, AnalyticSVI, AnalyticVI, GibbsSampling, HMCSampling
+from .inference.config import (
+    Analytic,
+    AnalyticSVI,
+    AnalyticVI,
+    GibbsSampling,
+    HMCSampling,
+    MCIntegrationSVI,
+    MCIntegrationVI,
+    NumericalSVI,
+    NumericalVI,
+    QuadratureSVI,
+    QuadratureVI,
+)
 from .inference.hmc import sample_hmc, sample_nuts
 from .inference.smc import smc_sample
 from .inference.svgd import svgd_sample
@@ -39,7 +56,8 @@ from .likelihoods.base import Likelihood
 from .likelihoods.classification import BayesianSVM, LogisticLikelihood
 from .likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from .likelihoods.heteroscedastic import HeteroscedasticLikelihood
-from .likelihoods.multiclass import LogisticSoftMaxLikelihood
+from .likelihoods.generic import make_augmented_likelihood
+from .likelihoods.multiclass import LogisticSoftMaxLikelihood, SoftMaxLikelihood
 from .likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
 from .means import ConstantMean, ZeroMean
 from .models.gp import GP
@@ -50,7 +68,7 @@ from .training.predictions import predict_f, predict_y, proba_y, sample_f
 from .training.autotuning import hyper_step
 from .training.state import TrainState
 from .training.train import elbo, init_state, train
-from .utils.opt import adam, robbins_monro
+from .utils.opt import adam, robbins_monro, sgd
 
 ELBO = elbo
 
@@ -80,6 +98,12 @@ __all__ = [
     "Analytic",
     "AnalyticVI",
     "AnalyticSVI",
+    "NumericalVI",
+    "NumericalSVI",
+    "QuadratureVI",
+    "QuadratureSVI",
+    "MCIntegrationVI",
+    "MCIntegrationSVI",
     "GibbsSampling",
     "HMCSampling",
     "Likelihood",
@@ -92,6 +116,8 @@ __all__ = [
     "PoissonLikelihood",
     "NegBinomialLikelihood",
     "LogisticSoftMaxLikelihood",
+    "SoftMaxLikelihood",
+    "make_augmented_likelihood",
     "HeteroscedasticLikelihood",
     "config",
     "inducing",
@@ -105,5 +131,6 @@ __all__ = [
     "ConstantMean",
     "robbins_monro",
     "adam",
+    "sgd",
     "hyper_step",
 ]

@@ -1,6 +1,8 @@
 """Inference-engine configurations: the counterpart of ``Analytic``,
-``AnalyticVI``, ``AnalyticSVI``, ``GibbsSampling`` and ``HMCSampling`` in
-``agp_tpu/inference/config.py``.  Everything here is static
+``AnalyticVI``, ``AnalyticSVI``, the numerical engines (``QuadratureVI``,
+``QuadratureSVI``, ``MCIntegrationVI``, ``MCIntegrationSVI``,
+``NumericalVI``, ``NumericalSVI``), ``GibbsSampling`` and ``HMCSampling``
+in ``agp_tpu/inference/config.py``.  Everything here is static
 configuration; the dynamic parts (rho, the step counter, the optimiser
 state, the local variables) live in the TrainState."""
 from __future__ import annotations
@@ -8,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-from ..utils.opt import robbins_monro
+from ..utils.opt import robbins_monro, sgd
 
 SAMPLING_MODES = ("gather", "slice", "block")
 
@@ -68,6 +70,83 @@ def AnalyticSVI(batchsize: int, optimiser=None, minibatch_sampling: str = "gathe
         optimiser=optimiser,
         minibatch_sampling=minibatch_sampling,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadratureVI(InferenceConfig):
+    """Numerical VI with Gauss-Hermite expectations of the log-likelihood's
+    derivatives (``inference/numerical_vi.py``).  ``clipping`` > 0 clips
+    them to [-clipping, clipping] (0: off); ``natural`` preconditions the
+    gradients into the natural geometry; the optimiser (default
+    ``sgd(1e-5, 0.9)``) steps mu and Sigma."""
+
+    stochastic: bool = False
+    batchsize: int = 0
+    n_points: int = 100
+    clipping: float = 0.0
+    natural: bool = True
+    optimiser: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.optimiser is None:
+            object.__setattr__(self, "optimiser", sgd(1e-5, momentum=0.9))
+
+    @property
+    def name(self):
+        return "QuadratureVI"
+
+
+def QuadratureSVI(batchsize: int, n_points: int = 100, optimiser=None, **kw) -> QuadratureVI:
+    """Stochastic QuadratureVI on minibatches of ``batchsize`` rows."""
+    return QuadratureVI(stochastic=True, batchsize=batchsize, n_points=n_points, optimiser=optimiser, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MCIntegrationVI(InferenceConfig):
+    """Numerical VI with Monte Carlo expectations over ``n_mc`` draws a
+    step (``inference/numerical_vi.py``); the fields as ``QuadratureVI``'s,
+    the optimiser ``sgd(1e-3, 0.9)`` by default."""
+
+    stochastic: bool = False
+    batchsize: int = 0
+    n_mc: int = 1000
+    clipping: float = 0.0
+    natural: bool = True
+    optimiser: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.optimiser is None:
+            object.__setattr__(self, "optimiser", sgd(1e-3, momentum=0.9))
+
+    @property
+    def name(self):
+        return "MCIntegrationVI"
+
+
+def MCIntegrationSVI(batchsize: int, n_mc: int = 200, optimiser=None, **kw) -> MCIntegrationVI:
+    """Stochastic MCIntegrationVI on minibatches of ``batchsize`` rows."""
+    return MCIntegrationVI(stochastic=True, batchsize=batchsize, n_mc=n_mc, optimiser=optimiser, **kw)
+
+
+NUMERICAL = ("QuadratureVI", "MCIntegrationVI")
+
+
+def NumericalVI(integration_technique: str = "quad", **kw):
+    """QuadratureVI ("quad") or MCIntegrationVI ("mc")."""
+    if integration_technique == "quad":
+        return QuadratureVI(**kw)
+    if integration_technique == "mc":
+        return MCIntegrationVI(**kw)
+    raise ValueError("integration_technique must be 'quad' or 'mc'")
+
+
+def NumericalSVI(batchsize: int, integration_technique: str = "quad", **kw):
+    """QuadratureSVI ("quad") or MCIntegrationSVI ("mc")."""
+    if integration_technique == "quad":
+        return QuadratureSVI(batchsize, **kw)
+    if integration_technique == "mc":
+        return MCIntegrationSVI(batchsize, **kw)
+    raise ValueError("integration_technique must be 'quad' or 'mc'")
 
 
 GIBBS_SOLVERS = ("auto", "chol", "cg")

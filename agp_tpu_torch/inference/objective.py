@@ -1,18 +1,20 @@
 """The training objective's dispatch: the counterpart of
-``agp_tpu/inference/objective.py``.  The port runs the analytic ELBO of
-``inference/analytic_vi.py``; the numerical and multi-output objectives
-are not ported yet."""
+``agp_tpu/inference/objective.py``.  The numerical engines take the
+numerical ELBO of ``inference/numerical_vi.py``, every other engine the
+analytic ELBO of ``inference/analytic_vi.py``; the multi-output objective
+is not ported yet."""
 from __future__ import annotations
 
-from . import analytic_vi
+from . import analytic_vi, numerical_vi
+from .config import NUMERICAL
 
 
 def objective(model, state, x, y, kmat=None):
     """The ELBO of ``model`` on the batch (x, y) whose local variables are
     in ``state``, with the prior's matrices ``kmat`` (default
     ``state.kmat``)."""
-    if getattr(model, "is_multioutput", False) or model.inference.name != "AnalyticVI":
-        raise NotImplementedError(
-            f"the port's objective is the analytic ELBO; {model.inference.name} is not ported yet"
-        )
+    if getattr(model, "is_multioutput", False):
+        raise NotImplementedError("the port has no multi-output objective yet")
+    if model.inference.name in NUMERICAL:
+        return numerical_vi.elbo(model, state, x, y, kmat=kmat)
     return analytic_vi.elbo(model, state, x, y, kmat=kmat)

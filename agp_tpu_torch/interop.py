@@ -29,7 +29,9 @@ def model_from_numpy(params: dict, template):
     likelihood's own: "sigma2" (Gaussian; its rule's state is the train
     state's), "nu" and "sigma" (Student-t), "beta" (Laplace), "rho"
     (Matern-3/2 noise), "r" (negative binomial), "lam" (Poisson,
-    heteroscedastic), "n_class" and "class_mapping" (multiclass).  Tensors
+    heteroscedastic), "n_class" and "class_mapping" (logistic-softmax,
+    softmax).  A generic likelihood's callables do not cross: the
+    template's likelihood is built from the same septuple.  Tensors
     land on the template's device and dtype (its Z's, or its training
     inputs')."""
     like = template.Z if template.is_sparse else template.train_x
@@ -85,7 +87,9 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     """A TrainState from numpy arrays: "eta1", "eta2", "mu", "Sigma",
     "local_vars" (a dict; the Gaussian's noise rule's state
     "state_sigma2" as optax's Adam state {"count", "mu", "nu"}),
-    "opt_state" (the Robbins-Monro step count, or None), "rho", "step",
+    "opt_state" (the Robbins-Monro step count; a numerical engine's sgd
+    traces, optax's ``TraceState.trace``, as a tuple of arrays; or None),
+    "rho", "step",
     "kmat" ({"L_K", "K_inv"} and, for a sparse model, "L_inv"), for an
     online model "previous" ({"invDa", "prev_eta1", "prev_L_a"}), for a GP
     "alpha" and "chol_Sigma" (and none of eta, moments or kmat), and
@@ -110,6 +114,8 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
         return None if arrays.get(name) is None else f(arrays[name])
 
     opt = arrays.get("opt_state")
+    if opt is not None:
+        opt = tuple(f(a) for a in opt) if isinstance(opt, (tuple, list)) else i32(opt)
     hyper = arrays.get("hyper_state")
     if hyper is not None:
         hyper = {group: adam_state(s) for group, s in hyper.items()}
@@ -120,7 +126,7 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
         mu=optional("mu"),
         Sigma=optional("Sigma"),
         local_vars={k: adam_state(v) if isinstance(v, dict) else f(v) for k, v in arrays["local_vars"].items()},
-        opt_state=None if opt is None else i32(opt),
+        opt_state=opt,
         hyper_state=hyper,
         kmat=None if kmat is None else {k: f(v) for k, v in kmat.items()},
         rho=f(arrays["rho"]),

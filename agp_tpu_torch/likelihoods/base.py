@@ -80,6 +80,22 @@ class Likelihood(Params):
     def predict_y(self, mu):
         raise NotImplementedError
 
+    def log_prob(self, y, f):
+        """log p(y | f) elementwise; f [...] for a single-latent likelihood,
+        [L, ...] for a multi-latent one."""
+        raise NotImplementedError
+
+    def grad_log_prob(self, y, f):
+        """d log p / d f elementwise, by automatic differentiation of the
+        summed ``log_prob`` (the fallback where there is no closed form)."""
+        return torch.func.grad(lambda ff: torch.sum(self.log_prob(y, ff)))(f)
+
+    def hess_log_prob(self, y, f):
+        """d^2 log p / d f^2 elementwise (the diagonal), by automatic
+        differentiation: the gradient of the summed elementwise gradient,
+        which is the diagonal because ``log_prob`` is elementwise in f."""
+        return torch.func.grad(lambda ff: torch.sum(self.grad_log_prob(y, ff)))(f)
+
 
 @dataclasses.dataclass(frozen=True)
 class SingleLatentLikelihood(Likelihood):

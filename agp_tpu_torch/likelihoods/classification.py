@@ -47,7 +47,7 @@ class LogisticLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI", "GibbsSampling", "HMCSampling"})
+        return frozenset({"AnalyticVI", "QuadratureVI", "GibbsSampling", "HMCSampling"})
 
     def treat_labels(self, y):
         return _treat_binary(y), self

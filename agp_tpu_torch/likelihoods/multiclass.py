@@ -1,6 +1,7 @@
 """Multiclass classification with the logistic-softmax likelihood and its
-triple (Gamma, Poisson, Polya-Gamma) augmentation: the counterpart of
-``MultiClassLikelihood`` and ``LogisticSoftMaxLikelihood`` in
+triple (Gamma, Poisson, Polya-Gamma) augmentation, and with the plain
+softmax, which has none: the counterpart of ``MultiClassLikelihood``,
+``LogisticSoftMaxLikelihood`` and ``SoftMaxLikelihood`` in
 ``agp_tpu/likelihoods/multiclass.py``.
 
 K classes are K latent GPs.  Labels are one-hot encoded on the host, once,
@@ -28,6 +29,15 @@ class MultiClassLikelihood(Likelihood):
 
     n_class: int = 2
     class_mapping: Optional[Tuple] = None
+
+    @classmethod
+    def create(cls, num_class_or_labels):
+        """K classes from their count, or from the labels (their sorted
+        unique values become the class mapping)."""
+        if isinstance(num_class_or_labels, int):
+            return cls(n_class=num_class_or_labels)
+        labels = tuple(np.unique(np.asarray(num_class_or_labels)).tolist())
+        return cls(n_class=len(labels), class_mapping=labels)
 
     @property
     def n_latent(self):
@@ -80,13 +90,6 @@ class LogisticSoftMaxLikelihood(MultiClassLikelihood):
         alpha   = 1 + sum_k gamma_k
       theta_k = (y_k + gamma_k) tanh(c_k/2) / (2 c_k)
     """
-
-    @classmethod
-    def create(cls, num_class_or_labels):
-        if isinstance(num_class_or_labels, int):
-            return cls(n_class=num_class_or_labels)
-        labels = tuple(np.unique(np.asarray(num_class_or_labels)).tolist())
-        return cls(n_class=len(labels), class_mapping=labels)
 
     @classmethod
     def implemented(cls):
@@ -160,11 +163,52 @@ class LogisticSoftMaxLikelihood(MultiClassLikelihood):
         ``n_samples`` is 0 or no generator is given."""
         if n_samples == 0 or generator is None:
             return self.link(mu).T
-        eps = torch.randn((n_samples,) + tuple(mu.shape), generator=generator, dtype=mu.dtype, device=mu.device)
-        f = mu[None] + torch.sqrt(torch.clamp(var, min=0.0))[None] * eps
-        return torch.mean(self.link(f.transpose(0, 1)), dim=1).T
+        return _mc_proba(self.link, mu, var, n_samples, generator)
 
     def log_prob(self, y, f):
         """y one-hot [K] or [K, B]; f [K] or [K, B]."""
         logp = torch.nn.functional.logsigmoid(f) - torch.log(torch.sum(torch.sigmoid(f), dim=0, keepdim=True))
         return torch.sum(y * logp, dim=0)
+
+
+def _mc_proba(link, mu, var, n_samples, generator):
+    """[N, K] class probabilities: the Monte Carlo mean of ``link`` over
+    ``n_samples`` draws of N(mu, var) ([K, N]) made with ``generator``."""
+    eps = torch.randn((n_samples,) + tuple(mu.shape), generator=generator, dtype=mu.dtype, device=mu.device)
+    f = mu[None] + torch.sqrt(torch.clamp(var, min=0.0))[None] * eps
+    return torch.mean(link(f.transpose(0, 1)), dim=1).T
+
+
+@dataclasses.dataclass(frozen=True)
+class SoftMaxLikelihood(MultiClassLikelihood):
+    """p(y=k | f) = exp(f_k) / sum_j exp(f_j).  No augmentation exists:
+    Monte Carlo VI (``MCIntegrationVI``) or Hamiltonian sampling only."""
+
+    @classmethod
+    def implemented(cls):
+        return frozenset({"MCIntegrationVI", "HMCSampling"})
+
+    def link(self, f):
+        """[K, ...] latent values -> class probabilities."""
+        return torch.softmax(f, dim=0)
+
+    def compute_proba(self, mu, var, n_samples: int = 200, generator=None):
+        """[N, K] class probabilities: the Monte Carlo mean of ``link`` over
+        ``n_samples`` draws of the latent predictive N(mu, var), drawn with
+        ``generator`` (on mu's device); the plug-in ``link(mu)`` when
+        ``n_samples`` is 0 or no generator is given."""
+        if n_samples == 0 or generator is None:
+            return self.link(mu).T
+        return _mc_proba(self.link, mu, var, n_samples, generator)
+
+    def log_prob(self, y, f):
+        """y one-hot [K] or [K, B]; f [K] or [K, B]."""
+        return torch.sum(y * torch.log_softmax(f, dim=0), dim=0)
+
+    def mc_grad_hess(self, y, f):
+        """(d log p / d f, the diagonal of d^2 log p / d f^2) of ``log_prob``
+        in closed form, f [..., K, B] and y [K, B]: (y - p s, -p (1 - p) s)
+        with p = softmax(f) over K and s = sum_k y_k (1 for a one-hot y)."""
+        p = torch.softmax(f, dim=-2)
+        s = torch.sum(y, dim=-2, keepdim=True)
+        return y - p * s, -p * (1.0 - p) * s

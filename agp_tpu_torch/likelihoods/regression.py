@@ -139,7 +139,7 @@ class StudentTLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI", "GibbsSampling", "HMCSampling"})
+        return frozenset({"AnalyticVI", "QuadratureVI", "GibbsSampling", "HMCSampling"})
 
     def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
         return {
@@ -212,7 +212,7 @@ class LaplaceLikelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI", "GibbsSampling", "HMCSampling"})
+        return frozenset({"AnalyticVI", "QuadratureVI", "GibbsSampling", "HMCSampling"})
 
     def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
         return {
@@ -261,6 +261,12 @@ class LaplaceLikelihood(SingleLatentLikelihood):
     def log_prob(self, y, f):
         return -torch.abs(y - f) / self.beta - torch.log(2.0 * self.beta)
 
+    def grad_log_prob(self, y, f):
+        return torch.sign(y - f) / self.beta
+
+    def hess_log_prob(self, y, f):
+        return torch.zeros_like(f)
+
 
 @dataclasses.dataclass(frozen=True)
 class Matern32Likelihood(SingleLatentLikelihood):
@@ -284,7 +290,7 @@ class Matern32Likelihood(SingleLatentLikelihood):
 
     @classmethod
     def implemented(cls):
-        return frozenset({"AnalyticVI", "GibbsSampling"})
+        return frozenset({"AnalyticVI", "QuadratureVI", "GibbsSampling"})
 
     def init_local_vars(self, batchsize, dtype=torch.float32, device=None):
         return {
@@ -334,3 +340,9 @@ class Matern32Likelihood(SingleLatentLikelihood):
     def log_prob(self, y, f):
         u = math.sqrt(3.0) * torch.abs(y - f) / self.rho
         return torch.log(math.sqrt(3.0) / (4.0 * self.rho)) + torch.log1p(u) - u
+
+    def grad_log_prob(self, y, f):
+        return 3.0 * (y - f) / (self.rho * (torch.abs(f - y) * math.sqrt(3.0) + self.rho))
+
+    def hess_log_prob(self, y, f):
+        return -3.0 / (self.rho + math.sqrt(3.0) * torch.abs(f - y)) ** 2

@@ -7,11 +7,13 @@ port so far takes the squared-exponential and Matern 1/2, 3/2, 5/2
 kernels, the single-latent likelihoods of ``fused_cavi_stats`` (logistic,
 Gaussian with fixed noise, Student-t, Laplace, Matern-3/2 noise, Bayesian
 SVM, Poisson, negative binomial), the logistic-softmax and heteroscedastic
-likelihoods, and the reference's hyperparameter learning: by default Adam(0.01)
+likelihoods, the softmax and any likelihood that
+``make_augmented_likelihood`` builds, the analytic and the numerical
+engines, and the reference's hyperparameter learning: by default Adam(0.01)
 on the log kernel parameters and the prior mean's parameters, optionally a
 ``Zoptimiser`` on the inducing points (``training/autotuning.py``), or
 fixed hyperparameters (``optimiser=None``).  A VGP takes the same
-kernels, likelihoods and means, with full-batch (not stochastic) CAVI.
+kernels, likelihoods and means, with full-batch (not stochastic) steps.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from ..likelihoods.base import Likelihood
 from ..likelihoods.classification import BayesianSVM, LogisticLikelihood
 from ..likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
-from ..likelihoods.multiclass import LogisticSoftMaxLikelihood
+from ..likelihoods.generic import GenericAugmentedLikelihood
+from ..likelihoods.multiclass import LogisticSoftMaxLikelihood, SoftMaxLikelihood
 from ..likelihoods.regression import (
     GaussianLikelihood,
     LaplaceLikelihood,
@@ -50,6 +53,8 @@ _PORTED_LIKELIHOODS = (
     NegBinomialLikelihood,
     LogisticSoftMaxLikelihood,
     HeteroscedasticLikelihood,
+    SoftMaxLikelihood,
+    GenericAugmentedLikelihood,
 )
 _PORTED_MEANS = (ZeroMean, ConstantMean)
 

@@ -173,6 +173,15 @@ def nat_to_moments(eta1: torch.Tensor, eta2: torch.Tensor, lazy_rungs: bool = Fa
     return mu, Sigma
 
 
+@_highest_precision
+def moments_to_nat(mu: torch.Tensor, Sigma: torch.Tensor):
+    """The inverse of :func:`nat_to_moments`: eta1 = Sigma^-1 mu,
+    eta2 = -1/2 Sigma^-1, by the Cholesky factor of the symmetrized Sigma
+    (NaN where it fails, as the reference's)."""
+    Sigma_inv = chol_inv(cholesky_or_nan(symmetrize(Sigma)))
+    return (Sigma_inv @ mu.unsqueeze(-1)).squeeze(-1), -0.5 * Sigma_inv
+
+
 # the zero-first ladder is the default of nat_to_moments, so the reference's
 # safe variant (agp_tpu/ops/linalg.py:307-316) is the same function
 nat_to_moments_safe = nat_to_moments

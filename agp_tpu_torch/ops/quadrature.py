@@ -17,23 +17,26 @@ def gauss_hermite(n: int):
     return np.sqrt(2.0) * x, w / np.sqrt(np.pi)
 
 
-def expectation(fn, mu: torch.Tensor, var: torch.Tensor, n: int = 100) -> torch.Tensor:
-    """E_{f ~ N(mu, var)}[fn(f)] elementwise over mu/var of any shape."""
+def nodes(mu: torch.Tensor, var: torch.Tensor, n: int):
+    """The n nodes mu + sd x [..., n] of N(mu, var) elementwise and their
+    weights [n], in mu's dtype and on its device."""
     x, w = gauss_hermite(n)
     x = torch.as_tensor(x, dtype=mu.dtype, device=mu.device)
     w = torch.as_tensor(w, dtype=mu.dtype, device=mu.device)
     sd = torch.sqrt(torch.clamp(var, min=0.0))
-    nodes = mu[..., None] + sd[..., None] * x
-    return torch.sum(w * fn(nodes), dim=-1)
+    return mu[..., None] + sd[..., None] * x, w
+
+
+def expectation(fn, mu: torch.Tensor, var: torch.Tensor, n: int = 100) -> torch.Tensor:
+    """E_{f ~ N(mu, var)}[fn(f)] elementwise over mu/var of any shape."""
+    f, w = nodes(mu, var, n)
+    return torch.sum(w * fn(f), dim=-1)
 
 
 def mean_and_var(fn, mu: torch.Tensor, var: torch.Tensor, n: int = 100):
     """(E[fn(f)], V[fn(f)]) under f ~ N(mu, var), on shared nodes."""
-    x, w = gauss_hermite(n)
-    x = torch.as_tensor(x, dtype=mu.dtype, device=mu.device)
-    w = torch.as_tensor(w, dtype=mu.dtype, device=mu.device)
-    sd = torch.sqrt(torch.clamp(var, min=0.0))
-    vals = fn(mu[..., None] + sd[..., None] * x)
+    f, w = nodes(mu, var, n)
+    vals = fn(f)
     m = torch.sum(w * vals, dim=-1)
     m2 = torch.sum(w * vals**2, dim=-1)
     return m, m2 - m**2

@@ -29,6 +29,11 @@ def sqrt_expec_square(mu: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(mu**2 + var)
 
 
+def sqrt_expec_square_diff(mu: torch.Tensor, var: torch.Tensor, y) -> torch.Tensor:
+    """sqrt(E[(f - y)^2]) = sqrt((mu - y)^2 + var)."""
+    return torch.sqrt((mu - y) ** 2 + var)
+
+
 def xlogx(x: torch.Tensor) -> torch.Tensor:
     """x*log(x) with 0*log(0) = 0."""
     pos = x > 0
@@ -55,3 +60,8 @@ def log_besselk_half(n_half: int, x: torch.Tensor) -> torch.Tensor:
         p = p * inv2x
         poly = poly + coeffs[k] * p
     return base + torch.log(poly)
+
+
+def besselk_half(n_half: int, x: torch.Tensor) -> torch.Tensor:
+    """K_p(x) for the half-integer order p = n_half + 1/2."""
+    return torch.exp(log_besselk_half(n_half, x))

@@ -2,12 +2,15 @@
 ``agp_tpu/training/train.py``: its fast path, its hyperparameter branch,
 its callback, verbose and convergence options, and the exact GP's loop.
 
-A step is: draw a minibatch, run ``variational_update``, count the step.
-Minibatch indices come from an explicit ``torch.Generator`` on the data's
-device, drawn for a whole chunk of steps at once; the steps then run as a
-plain Python loop with no host sync.  ``vi_steps`` and ``train`` also take
-the indices from the caller (``draws``), so that a run can replay
-another's minibatches.  A model with an optimiser interleaves a
+A step is: draw a minibatch, run ``variational_update`` (the analytic
+one, or ``inference/numerical_vi.py``'s for a numerical engine), count the
+step.  Minibatch indices come from an explicit ``torch.Generator`` on the
+data's device, drawn for a whole chunk of steps at once; the steps then
+run as a plain Python loop with no host sync.  ``vi_steps`` and ``train``
+also take the indices from the caller (``draws``), so that a run can
+replay another's minibatches; a Monte Carlo engine draws its normals
+with the same generator, and ``vi_steps`` takes them from the caller
+(``mc_draws``) too.  A model with an optimiser interleaves a
 hyperparameter step (``training/autotuning.py``) on the same minibatch
 after every ``atfrequency``-th CAVI step, as the reference does.  A VGP
 trains on its own data; a GP takes one analytic refresh an iteration
@@ -19,7 +22,9 @@ import warnings
 
 import torch
 
-from ..inference import analytic_vi
+from ..inference import analytic_vi, numerical_vi
+from ..inference.config import NUMERICAL
+from ..inference.objective import objective
 from ..kernels import from_unconstrained, to_unconstrained
 from ..means import batch_call
 from ..models.base import as_2d, check_card_dtype, match_dtype, to_tensor
@@ -50,12 +55,18 @@ def init_state(model, X=None, y=None) -> TrainState:
     batch = inf.batchsize if inf.stochastic else N
     M = model.n_inducing if model.is_sparse else N
     post = init_var_posterior(model.n_latent, M, dtype, device)
-    opt_state = None
-    if inf.stochastic and inf.optimiser is not None:
-        opt_state = inf.optimiser.init((post["eta1"], post["eta2"]))
+    if inf.name in NUMERICAL:
+        # no local variables; the optimiser steps (mu, Sigma), stochastic or not
+        local_vars = {}
+        opt_state = inf.optimiser.init((post["mu"], post["Sigma"]))
+    else:
+        local_vars = model.likelihood.init_local_vars(batch, dtype, device)
+        opt_state = None
+        if inf.stochastic and inf.optimiser is not None:
+            opt_state = inf.optimiser.init((post["eta1"], post["eta2"]))
     return TrainState(
         **post,
-        local_vars=model.likelihood.init_local_vars(batch, dtype, device),
+        local_vars=local_vars,
         opt_state=opt_state,
         hyper_state=autotuning.init_hyper_state(model),
         kmat=analytic_vi.compute_kmat(model, X),
@@ -91,9 +102,15 @@ def _tile_views(X, y, tile):
     )
 
 
+def _sampling_mode(model) -> str:
+    """The engine's minibatch sampling; "gather" for an engine without the
+    field (the numerical ones), as the reference reads it."""
+    return getattr(model.inference, "minibatch_sampling", "gather")
+
+
 def _block_mode_tile(model, b, n_rows):
     """Tile height when block sampling applies, else None."""
-    mode = model.inference.minibatch_sampling
+    mode = _sampling_mode(model)
     if not mode.startswith("block"):
         return None
     tile = block_tile(mode, b)
@@ -107,7 +124,7 @@ def _sampling(model, n_rows):
     draws a start row, "block" b/tile tile indices, "gather" b row
     indices."""
     b = model.inference.batchsize
-    if model.inference.minibatch_sampling == "slice":
+    if _sampling_mode(model) == "slice":
         return "slice", ()
     tile = _block_mode_tile(model, b, n_rows)
     if tile is not None:
@@ -184,11 +201,24 @@ def _minibatches(model, X, y, n: int, draws=None, generator=None):
         yield _draw_from_idx(model, X, y, tiled, mode, draws[i])
 
 
-def vi_steps(model, state: TrainState, X, y, n: int, draws=None, generator=None):
-    """n CAVI iterations; returns (model, state).  ``draws`` and
-    ``generator`` give the minibatches as ``_minibatches`` takes them."""
-    for x_b, y_b in _minibatches(model, X, y, n, draws, generator):
-        model, state = analytic_vi.variational_update(model, state, x_b, y_b)
+def _vi_update(model, state: TrainState, x_b, y_b, generator, eps=None):
+    """One step on a drawn batch, dispatched on the engine: a Monte Carlo
+    one takes its normals ``eps``, or draws them with ``generator``."""
+    if model.inference.name in NUMERICAL:
+        return numerical_vi.variational_update(model, state, x_b, y_b, eps=eps, generator=generator)
+    return analytic_vi.variational_update(model, state, x_b, y_b)
+
+
+def vi_steps(model, state: TrainState, X, y, n: int, draws=None, generator=None, mc_draws=None):
+    """n iterations of the model's engine; returns (model, state).
+    ``draws`` and ``generator`` give the minibatches as ``_minibatches``
+    takes them; a Monte Carlo engine's normals are ``mc_draws`` ([n, n_mc,
+    L, B] on X's device) or are drawn with ``generator`` (seed 0 when
+    None)."""
+    gen = _default_generator(X.device) if generator is None else generator
+    for i, (x_b, y_b) in enumerate(_minibatches(model, X, y, n, draws, gen)):
+        eps = None if mc_draws is None else mc_draws[i]
+        model, state = _vi_update(model, state, x_b, y_b, gen, eps)
         state = state.replace(step=state.step + 1)
     return model, state
 
@@ -206,7 +236,7 @@ def train(
     conv_eps: float = 0.0,
     conv_check_every: int = 10,
 ):
-    """Train ``model`` for ``iterations`` CAVI steps on (X, y); returns
+    """Train ``model`` for ``iterations`` steps of its engine on (X, y); returns
     (model, state) with the kernel matrices refreshed for prediction.
 
     X [N, D] and y [N] live on the device the run uses: arrays without a
@@ -214,7 +244,8 @@ def train(
     ones in its dtype.  A VGP or a GP trains on its own data when X is
     None (given X and y replace a VGP's).  ``generator`` (on that device)
     draws the minibatches, seed 0 when None; ``draws`` ([iterations, ...],
-    as ``vi_steps`` takes them) gives them instead.
+    as ``vi_steps`` takes them) gives them instead.  A Monte Carlo engine
+    draws its normals with ``generator`` too.
 
     With ``model.optimiser`` set, iteration i (from 1) is followed by a
     hyperparameter step on its own minibatch when i is a multiple of
@@ -270,18 +301,18 @@ def train(
             n = min(chunk, iterations - done)
             rows = None if draws is None else draws[done:done + n]
             for i, (x_b, y_b) in enumerate(_minibatches(model, X, y, n, rows, generator), start=done + 1):
-                model, state = analytic_vi.variational_update(model, state, x_b, y_b)
+                model, state = _vi_update(model, state, x_b, y_b, generator)
                 state = state.replace(step=state.step + 1)
                 if callback is not None:
                     callback(model, state, i)
                 if do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations:
                     model, state = autotuning.hyper_step(model, state, x_b, y_b)
                 if verbose >= 2:
-                    e = analytic_vi.elbo(model, state, *_fresh_batch(model, X, y, generator))
+                    e = objective(model, state, *_fresh_batch(model, X, y, generator))
                     print(f"iter {i}: ELBO = {float(e):.6f}")
             done += n
             if check:
-                e = float(analytic_vi.elbo(model, state, *_fresh_batch(model, X, y, generator)))
+                e = float(objective(model, state, *_fresh_batch(model, X, y, generator)))
                 if prev is not None and abs(e - prev) / n < conv_eps:
                     break
                 prev = e
@@ -348,6 +379,6 @@ def elbo(model, state: TrainState, X=None, y=None):
     if isinstance(model, GP):
         return log_py(model, state)
     if X is None:
-        return analytic_vi.elbo(model, state, model.train_x, model.train_y)
+        return objective(model, state, model.train_x, model.train_y)
     X = as_2d(X, like=model.Z)
-    return analytic_vi.elbo(model, state, X, match_dtype(to_tensor(y, like=X), X))
+    return objective(model, state, X, match_dtype(to_tensor(y, like=X), X))

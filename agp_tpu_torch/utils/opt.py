@@ -6,8 +6,8 @@ optax is JAX-only, so the port carries a minimal rule protocol of its own:
 a rule is an (init, update) pair, ``init(params) -> state`` and
 ``update(updates, state) -> (scaled_updates, new_state)``, in optax's
 descent convention (the returned updates are added to the parameters).
-``robbins_monro`` takes a tuple of tensors, ``adam`` a tensor or a dict of
-them.
+``robbins_monro`` and ``sgd`` take a tuple of tensors, ``adam`` a tensor
+or a dict of them (``sgd`` takes those too).
 """
 from __future__ import annotations
 
@@ -22,10 +22,12 @@ class GradientTransformation(NamedTuple):
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` applied leaf by leaf to a tensor or a dict of tensors, and to
-    the trees of the same structure in ``rest``."""
+    """``fn`` applied leaf by leaf to a tensor, a tuple or a dict of
+    tensors, and to the trees of the same structure in ``rest``."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
@@ -51,6 +53,25 @@ def robbins_monro(kappa: float = 0.51, tau: float = 1.0) -> GradientTransformati
     def update_fn(updates, state):
         scale = (tau + state.to(torch.float32)) ** (-kappa)
         return tuple(-u * scale for u in updates), state + 1
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def sgd(lr: float, momentum: float = 0.0) -> GradientTransformation:
+    """Stochastic gradient descent with heavy-ball momentum, with optax's
+    semantics (``optax.sgd(lr, momentum)``, a ``trace`` chained with the
+    learning rate): t <- g + momentum t, and the update -lr t.  The state
+    is the traces, one per parameter (a tuple of tensors for a tuple of
+    parameters), zeros at first, on the parameters' device.  The
+    numerical engines' default is ``sgd(1e-5, 0.9)`` (quadrature) or
+    ``sgd(1e-3, 0.9)`` (Monte Carlo)."""
+
+    def init_fn(params):
+        return tree_map(torch.zeros_like, params)
+
+    def update_fn(updates, state):
+        trace = tree_map(lambda g, t: g + momentum * t, updates, state)
+        return tree_map(lambda t: -lr * t, trace), trace
 
     return GradientTransformation(init_fn, update_fn)
 

@@ -163,7 +163,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 29. a wide stream (512 slots, D=8, batches of 2,048): finite, parity,
    points/s and ms a batch; then the warm eta -> moments conversions
    (both branches) against the exact one at [1, 128, 128] and
-   [1, 512, 512].
+   [1, 512, 512];
+30. numerical VI by quadrature (Slice F): the flagship's SVGP (N=200,000,
+   D=20, M=64, B=4096, the iid gather) with QuadratureSVI(4096,
+   n_points=100) and sgd(1e-3, 0.9), 300 steps through agp_tpu_torch.train
+   with one launch of kernel 6 and one of kernel 7 a step, its accuracy
+   floor (NUMERICAL_FLOORS) and steady iterations/s; path 30h, the same
+   with the default Adam(0.01) for 100 iterations (kernel 6 once more a
+   hyperparameter step), log-hyperparameters moved;
+31. numerical VI by Monte Carlo: SoftMaxLikelihood(10) at the bench's
+   multiclass shape (N=50,000, D=10, M=64, B=2048, the iid gather) with
+   MCIntegrationSVI(2048, n_mc=200) and sgd(1e-3, 0.9), 300 steps with one
+   launch of kernel 4 and one of kernel 5 a step, its accuracy floor,
+   proba_y's rows summing to 1, steady iterations/s;
+32. the generic augmented likelihood: (a) the logistic septuple at the
+   flagship's shape through AnalyticSVI (kernels 6 and 7 a step, the
+   flagship's floor); (b) the Laplace septuple at the Laplace oracle's
+   configuration against the built-in (kernel 1), mu within 2e-2, the
+   oracle's RMSE floor; (c) its Laplace-transform draws (PG(1, c)/2) at
+   2^20 lanes: the mean within 6 standard errors of the grid's tilted
+   mean and within 1 % of tanh(c/2)/(4c), a KS test against CPU draws;
+   an MCGP with the logistic septuple by Gibbs on
+   examples/custom_likelihood.py's data against the built-in logistic's
+   Gibbs mean; no kernel launch;
+33. the dense numerical paths (tpu_acceptance.py's quadrature VGP at
+   N=400, accuracy > 0.9; the Student-t VGP with Adam(0.05)), no kernel
+   launch, the PSD step's rungs and host reads logged; 20 steps of paths
+   30, 31 and 32a card (float32) against CPU (float32) from the same
+   draws and normals, within their own float32 noise; 32a against the
+   built-in logistic on the card; the PSD step's ms a call.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -206,7 +234,13 @@ GIBBS_FLOORS comes from), ``profile gibbs`` (torch.profiler over 20
 sweeps of the Gibbs row with each solver), ``online`` (phases 27-29 alone),
 ``online-cpu`` (every online path in float64 on the host's CPU, no card
 needed: what ONLINE_FLOORS comes from), ``profile online``
-(torch.profiler over batches 2-8 of phase 27's stream).  ``ab ROOT
+(torch.profiler over batches 2-8 of phase 27's stream), ``numerical``
+(phases 30-33 alone), ``numerical-cpu`` (every path of phases 30-33 in
+float64 on the host's CPU, no card needed: what NUMERICAL_FLOORS comes
+from), ``profile numerical quad|mc`` (torch.profiler over 20 steps of
+path 30 or 31), ``softmax-forms`` (path 31's steady rate and one
+mc_grads call with SoftMax's closed-form gradient against the AD form).
+``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
 ``ab ROOT kappa`` and ``kappa`` (or ``variants``, ``fused``, ``paths``,
@@ -4129,6 +4163,628 @@ def profile_online(agt, device):
         log(f"  device {us:10.1f} us/batch  x{count:.1f}  {key[:90]}")
 
 
+# ------------------------------------------- Slice F: numerical VI (30-33)
+# path 30: the flagship's shape with QuadratureSVI(B, n_points=QUAD_POINTS)
+# and sgd(NUM_LR, 0.9), the rate of tpu_acceptance.py:206-216 (the
+# reference's default 1e-5 barely moves in 300 steps); path 30h the same
+# with the default Adam(0.01) for NUM_HYPER_ITERS iterations
+QUAD_POINTS, NUM_LR, NUM_HYPER_ITERS = 100, 1e-3, 100
+# path 31: SoftMaxLikelihood(MK) at the bench's multiclass shape with
+# MCIntegrationSVI(MB, n_mc=MC_DRAWS), sgd(NUM_LR, 0.9)
+MC_DRAWS = 200
+NUM_TIMED_STEPS = 300
+# path 32b: the Laplace septuple at the Laplace oracle's scale (its
+# built-in twin is LaplaceLikelihood(0.1)); its mu within
+# GENERIC_LAPLACE_TOL of the built-in's, as tests/test_engines.py holds it
+LAPLACE_B, GENERIC_LAPLACE_TOL = 0.1, 2e-2
+# path 32c: the Laplace-transform draws at LAP_LANES lanes on the card
+# (KS against LAP_CPU_LANES CPU draws), tilts c^2 for c in LAP_CS; the
+# MCGP on examples/custom_likelihood.py's data (N=400, 2-D)
+LAP_LANES, LAP_CPU_LANES, LAP_CS = 2**20, 2**16, (0.5, 2.0)
+LAP_MEAN_TOL = 0.01
+GG_N, GG_BURNIN, GG_SAMPLES = 400, 100, 200
+# path 33: tpu_acceptance.py's quadrature_vi_logistic_accuracy (VGP,
+# N=400, n_points=30, sgd(1e-3, 0.9), 300 iterations, accuracy > 0.9) and
+# tests/test_engines.py:633-648's Student-t VGP (N=30, n_points=20,
+# Adam(0.05) on the kernel from lengthscale 3, 40 iterations, mean
+# |mu - f| < 1)
+QV_N, QV_POINTS, QV_ITERS, QV_ACC = 400, 30, 300, 0.9
+TV_N, TV_POINTS, TV_ITERS, TV_MAE = 30, 20, 40, 1.0
+# the floors of paths 30, 30h, 31 and 32c, from ``python3 chip_smoke.py
+# numerical-cpu`` (the same paths in float64 on the card's host's CPU, CPU
+# draws): training accuracy 0.89599, 0.96814 and 0.92168, the septuple
+# MCGP's correlation with the built-in's Gibbs mean 0.99977.  Each
+# accuracy floor allows three times the CPU's error (1 - accuracy), as
+# ORACLE_FLOORS does; the correlation is held at 0.99, as the oracles'
+# are.  Path 32a is held to the flagship's floor, path 32b to the Laplace
+# oracle's (the CPU: RMSE 0.00507)
+NUMERICAL_FLOORS = {"quad": ("acc", 0.69), "quad_hyper": ("acc", 0.9), "mc": ("acc", 0.76),
+                    "gibbs": ("corr", 0.99)}
+
+
+def quad_model(agt, X, b=B, optimiser=None):
+    """Path 30: the flagship's SVGP with QuadratureSVI (the iid gather: the
+    numerical engines have no minibatch_sampling)."""
+    return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0, variance=1.0), agt.LogisticLikelihood.create(),
+                           agt.QuadratureSVI(b, n_points=QUAD_POINTS, optimiser=agt.sgd(NUM_LR, 0.9)), X[:M],
+                           optimiser=optimiser)
+
+
+def softmax_model(agt, X, b=MB):
+    """Path 31: SoftMaxLikelihood(MK) with MCIntegrationSVI at the bench's
+    multiclass shape."""
+    return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), agt.SoftMaxLikelihood.create(MK),
+                           agt.MCIntegrationSVI(b, n_mc=MC_DRAWS, optimiser=agt.sgd(NUM_LR, 0.9)), X[:MM],
+                           optimiser=None)
+
+
+def logistic_septuple(agt):
+    """sigma(y f) = 1/2 exp(y f / 2) sech(|f| / 2): C = 1/2, g = y/2,
+    alpha = beta = 0, gamma = 1, phi(r) = sech(sqrt(r) / 2); omega is
+    PG(1, 0) / 2."""
+    return agt.make_augmented_likelihood(
+        "SeptupleLogistic", "Classification", C=0.5, g=lambda y: y / 2.0, alpha=torch.zeros_like,
+        beta=torch.zeros_like, gamma=torch.ones_like, phi=lambda r: 1.0 / torch.cosh(torch.sqrt(r) / 2.0)).create()
+
+
+def laplace_septuple(agt, b=LAPLACE_B):
+    """Laplace(b): C = 1/(2b), g = 0, alpha = y^2, beta = 2y, gamma = 1,
+    phi(r) = exp(-sqrt(r) / b) (examples/custom_likelihood.py)."""
+    return agt.make_augmented_likelihood(
+        "SeptupleLaplace", "Regression", C=1.0 / (2.0 * b), g=torch.zeros_like, alpha=lambda y: y**2,
+        beta=lambda y: 2.0 * y, gamma=torch.ones_like,
+        phi=lambda r: torch.exp(-torch.sqrt(torch.clamp(r, min=1e-12)) / b)).create()
+
+
+def septuple_model(agt, X, b=B):
+    """Path 32a: the flagship's model with the logistic septuple."""
+    return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0, variance=1.0), logistic_septuple(agt),
+                           agt.AnalyticSVI(b, minibatch_sampling="block"), X[:M], optimiser=None)
+
+
+def finite_state(state):
+    return bool(torch.isfinite(state.mu).all()) and bool(torch.isfinite(state.Sigma).all())
+
+
+def steady_rate(agt, model, state, X, y, gen, steps=NUM_TIMED_STEPS):
+    """Steady iterations/s of ``steps`` steps after 30 (the card's clock,
+    ending in a synchronize)."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    y_t = model.likelihood.treat_labels(y)[0].to(X.dtype)
+    model, state = vi_steps(model, state, X, y_t, 30, generator=gen)
+    sync(X.device)
+    t0 = time.perf_counter()
+    vi_steps(model, state, X, y_t, steps, generator=gen)
+    sync(X.device)
+    return steps / (time.perf_counter() - t0)
+
+
+def numerical_run(agt, ck, device, which, dtype=torch.float32):
+    """Path 30 ("quad"), 30h ("quad_hyper"), 31 ("mc") or 32a ("septuple")
+    through agp_tpu_torch.train from a fresh model: {"model", "state",
+    "acc" (training accuracy), "seconds", "moved" (the log-hyperparameters'
+    largest move), "launches" (on the card: checked against the route, 0
+    elsewhere), "steps"} and for "mc" the largest |row sum - 1| of
+    proba_y."""
+    if which == "mc":
+        X, y = mc_data(device)
+    else:
+        X, y = flagship_data(device)
+    X = X.to(dtype)
+    y = y if which == "mc" else y.to(dtype)
+    steps, route, hyper = MAIN_STEPS, "single", 0
+    if which == "quad_hyper":
+        steps, hyper = NUM_HYPER_ITERS, NUM_HYPER_ITERS - 3
+    if which == "mc":
+        model, route = softmax_model(agt, X), "batched"
+    elif which == "septuple":
+        model = septuple_model(agt, X)
+    else:
+        model = quad_model(agt, X, optimiser="default" if which == "quad_hyper" else None)
+    log0 = log_hypers(model)
+    gen = torch.Generator(device=device).manual_seed(0)
+    reset_launches(ck)
+    sync(device)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=steps, generator=gen)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = 0
+    if torch.device(device).type == "cuda":
+        launches = expect_launches(ck, f"numerical {which}", route_launches(steps, route, hyper_steps=hyper))
+    out = {"model": model, "state": state, "seconds": seconds, "steps": steps, "launches": launches,
+           "moved": float((log_hypers(model) - log0).abs().max()), "gen": gen, "X": X, "y": y}
+    out["acc"] = float((agt.predict_y(model, state, X) == y).double().mean())
+    if which == "mc":
+        p = agt.proba_y(model, state, X[:8192])
+        out["proba_sum_err"] = float((p.double().sum(-1) - 1.0).abs().max())
+    return out
+
+
+def check_numerical(which, r):
+    """A numerical path's floor (NUMERICAL_FLOORS; path 32a the flagship's),
+    a finite posterior, moved hyperparameters on path 30h, proba_y's rows
+    summing to 1 on path 31."""
+    metric, floor = NUMERICAL_FLOORS.get(which, ("acc", MIN_FLAGSHIP_ACC))
+    if not finite_state(r["state"]):
+        raise AssertionError(f"numerical {which}: non-finite posterior")
+    if not r[metric] >= floor:
+        raise AssertionError(f"numerical {which}: {metric} {r[metric]:.5f} < {floor}")
+    if which == "quad_hyper" and not r["moved"] > MIN_HYPER_MOVE:
+        raise AssertionError(f"numerical quad_hyper: the log-hyperparameters moved by {r['moved']:.3e}")
+    if which == "mc" and not r["proba_sum_err"] <= 1e-5:
+        raise AssertionError(f"numerical mc: proba_y's rows sum to 1 within {r['proba_sum_err']:.3e}")
+
+
+def log_numerical(which, r, where="the card"):
+    timed = NUM_HYPER_ITERS if which == "quad_hyper" else NUM_TIMED_STEPS
+    rate = f", steady {r['ips']:.1f} iterations/s over {timed} iterations" if "ips" in r else ""
+    extra = f", proba_y rows sum to 1 within {r['proba_sum_err']:.2e}" if "proba_sum_err" in r else ""
+    log(f"numerical {which} on {where}: {r['steps']} iterations through agp_tpu_torch.train in {r['seconds']:.3f} s, "
+        f"{r['launches']} launches, training accuracy {r['acc']:.5f}, log-hyperparameters moved "
+        f"{r['moved']:.4f}{extra}{rate}")
+
+
+def phase_quadrature(agt, ck, device):
+    """Phase 30: path 30 (one launch of kernel 6 and one of kernel 7 a
+    step), its floor and steady rate; path 30h (kernel 6 once more a
+    hyperparameter step), its floor, moved log-hyperparameters and steady
+    rate (iterations with a hyperparameter step each)."""
+    out = {}
+    for which in ("quad", "quad_hyper"):
+        r = numerical_run(agt, ck, device, which)
+        check_numerical(which, r)
+        if which == "quad":
+            r["ips"] = steady_rate(agt, r["model"], r["state"], r["X"], r["y"], r["gen"])
+        else:  # iterations with a hyperparameter step each (but the run's first three and last)
+            t0 = time.perf_counter()
+            agt.train(r["model"], r["X"], r["y"], iterations=NUM_HYPER_ITERS, state=r["state"], generator=r["gen"])
+            sync(device)
+            r["ips"] = NUM_HYPER_ITERS / (time.perf_counter() - t0)
+        log_numerical(which, r)
+        out[which] = {k: r[k] for k in ("acc", "seconds", "launches", "moved") + (("ips",) if "ips" in r else ())}
+    return out
+
+
+def phase_monte_carlo(agt, ck, device):
+    """Phase 31: path 31 (one launch of kernel 4 and one of kernel 5 a
+    step), its floor, proba_y's rows summing to 1, its steady rate."""
+    r = numerical_run(agt, ck, device, "mc")
+    check_numerical("mc", r)
+    r["ips"] = steady_rate(agt, r["model"], r["state"], r["X"], r["y"], r["gen"])
+    log_numerical("mc", r)
+    return {k: r[k] for k in ("acc", "seconds", "launches", "ips", "proba_sum_err")}
+
+
+def laplace_septuple_run(agt, ck, device, dtype=torch.float32):
+    """Path 32b: the Laplace septuple and the built-in LaplaceLikelihood(0.1)
+    at the Laplace oracle's configuration, OSTEPS slice steps each on the
+    same draws: (septuple's RMSE, |d mu| / max |mu| against the built-in,
+    the septuple's launches, seconds)."""
+    X, y, truth = (t.to(dtype) for t in oracle_data("laplace", device))
+    runs = {}
+    for name, lik in (("septuple", laplace_septuple(agt)), ("builtin", agt.LaplaceLikelihood.create(LAPLACE_B))):
+        model = agt.SVGP.create(agt.SqExponentialKernel(), lik, agt.AnalyticSVI(OB, minibatch_sampling="slice"),
+                                X[:OM], optimiser=None)
+        reset_launches(ck)
+        sync(device)
+        t0 = time.perf_counter()
+        model, state = agt.train(model, X, y, iterations=OSTEPS, generator=torch.Generator(device=device).manual_seed(0))
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = 0
+        if torch.device(device).type == "cuda":
+            launches = expect_launches(ck, f"laplace {name}", route_launches(OSTEPS, "single" if name == "septuple"
+                                                                              else "fused"))
+        runs[name] = (model, state, launches, seconds)
+    (ms, ss, launches, seconds), (_, sb, _, _) = runs["septuple"], runs["builtin"]
+    if not finite_state(ss):
+        raise AssertionError("septuple laplace: non-finite posterior")
+    rmse = oracle_metric(agt, ms, ss, X, truth, "rmse")
+    dmu = float((ss.mu - sb.mu).abs().max() / sb.mu.abs().max())
+    return rmse, dmu, launches, seconds
+
+
+def lap_moments(device, c, lanes, seed):
+    """Draws of the logistic septuple's auxiliary tilted by s0 = c^2 (PG(1,
+    c)/2) at ``lanes`` float32 lanes, and the grid's own tilted mean."""
+    from agp_tpu_torch.distributions.lap_transf import LaplaceTransformDistribution, invert_laplace
+
+    dist = LaplaceTransformDistribution(lambda r: 1.0 / torch.cosh(torch.sqrt(r) / 2.0))
+    s0 = torch.full((lanes,), c * c, dtype=torch.float32, device=device)
+    draws = dist.sample(torch.Generator(device=device).manual_seed(seed), s0)
+    t = dist.grid(device=device)
+    w = invert_laplace(dist.phi, t) * torch.gradient(t)[0] * torch.exp(-c * c * t)
+    return draws, float(torch.sum(t * w) / torch.sum(w))
+
+
+def septuple_gibbs(agt, device, dtype=torch.float32):
+    """Path 32c's MCGP: the logistic septuple and the built-in logistic, each
+    sampled by Gibbs (GG_BURNIN burn-in sweeps, GG_SAMPLES samples) on
+    examples/custom_likelihood.py's data made with numpy (X ~ U[-2, 2]^2,
+    f = sin(2 x_0) + 0.5 x_1, y = sign f): the septuple's samples finite,
+    its posterior mean's sign agreement with y and correlation with the
+    built-in's, host reads a sweep, seconds."""
+    from agp_tpu_torch.utils.tensors import host_read
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, size=(GG_N, 2))
+    f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+    X, y = torch.as_tensor(X, dtype=dtype, device=device), torch.as_tensor(np.sign(f), dtype=dtype, device=device)
+    means, out = [], {}
+    for name, lik in (("septuple", logistic_septuple(agt)), ("builtin", agt.LogisticLikelihood.create())):
+        mc = agt.MCGP.create(X, y, agt.SqExponentialKernel(), lik, agt.GibbsSampling(n_burnin=GG_BURNIN))
+        reads = host_read.reads
+        sync(device)
+        t0 = time.perf_counter()
+        s = agt.sample(mc, GG_SAMPLES, generator=torch.Generator(device=device).manual_seed(1))
+        sync(device)
+        if name == "septuple":
+            out.update(seconds=time.perf_counter() - t0, finite=bool(torch.isfinite(s).all()),
+                       reads=(host_read.reads - reads) / (GG_BURNIN + GG_SAMPLES))
+        means.append(s.double().mean(0)[0].cpu())
+    out["sign"] = float((torch.sign(means[0]) == y.double().cpu()).double().mean())
+    out["corr"] = float(torch.corrcoef(torch.stack(means))[0, 1])
+    return out
+
+
+def phase_generic(agt, ck, device):
+    """Phase 32: (a) path 32a, the logistic septuple at the flagship's shape
+    (kernels 6 and 7 a step), the flagship's floor; (b) the Laplace
+    septuple at the Laplace oracle's configuration (kernels 6 and 7 a step)
+    against the built-in (kernel 1 a step): mu within GENERIC_LAPLACE_TOL,
+    the oracle's RMSE floor; (c) the Laplace-transform draws (PG(1, c)/2)
+    at LAP_LANES lanes: mean within SAMPLER_SE standard errors of the
+    grid's tilted mean and within LAP_MEAN_TOL of tanh(c/2)/(4c), a KS test
+    against CPU draws; the septuple's MCGP by Gibbs against the built-in's;
+    no kernel launch."""
+    import scipy.stats as st
+
+    r = numerical_run(agt, ck, device, "septuple")
+    check_numerical("septuple", r)
+    r["ips"] = steady_rate(agt, r["model"], r["state"], r["X"], r["y"], r["gen"])
+    log_numerical("septuple", r)
+    out = {"septuple": {k: r[k] for k in ("acc", "seconds", "launches", "ips")}}
+    rmse, dmu, launches, seconds = laplace_septuple_run(agt, ck, device)
+    floor = ORACLE_FLOORS["laplace/SqExponentialKernel"][1]
+    log(f"septuple laplace (N={ON}, M={OM}, B={OB}, {OSTEPS} slice steps): RMSE {rmse:.5f} (floor {floor}), mu "
+        f"against the built-in LaplaceLikelihood({LAPLACE_B}) {dmu:.3e} (bound {GENERIC_LAPLACE_TOL}), {launches} "
+        f"launches, {seconds:.3f} s")
+    if not (rmse <= floor and dmu <= GENERIC_LAPLACE_TOL):
+        raise AssertionError(f"septuple laplace: RMSE {rmse:.5f} (floor {floor}), mu off the built-in's by {dmu:.3e}")
+    out["laplace"] = {"rmse": rmse, "dmu": dmu, "launches": launches}
+    reset_launches(ck)
+    for i, c in enumerate(LAP_CS):
+        t0 = time.perf_counter()
+        draws, grid_mean = lap_moments(device, c, LAP_LANES, 10 + i)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        d = draws.double()
+        z = (float(d.mean()) - grid_mean) / (float(d.std()) / np.sqrt(LAP_LANES))
+        closed = np.tanh(c / 2) / (4 * c)
+        cpu, _ = lap_moments("cpu", c, LAP_CPU_LANES, 20 + i)
+        ks_p = float(st.ks_2samp(draws.cpu().numpy(), cpu.numpy()).pvalue)
+        log(f"laplace-transform draws PG(1, {c})/2 at {LAP_LANES} lanes: mean {float(d.mean()):.6g} (grid "
+            f"{grid_mean:.6g}, {z:+.2f} SE; tanh(c/2)/(4c) {closed:.6g}, grid off by {grid_mean / closed - 1:+.4%}); KS "
+            f"against {LAP_CPU_LANES} CPU draws p = {ks_p:.4f}; {seconds:.3f} s")
+        if not (bool(torch.isfinite(draws).all()) and abs(z) < SAMPLER_SE and abs(grid_mean / closed - 1) < LAP_MEAN_TOL
+                and ks_p > SAMPLER_KS_P):
+            raise AssertionError(f"laplace-transform draws at c={c}: z {z:.2f}, grid {grid_mean / closed - 1:+.4%}, "
+                                 f"KS p {ks_p:.2e}")
+        out[f"lap c={c}"] = {"z": z, "grid_off": grid_mean / closed - 1, "ks_p": ks_p, "seconds": seconds}
+    g = septuple_gibbs(agt, device)
+    expect_launches(ck, "septuple draws and Gibbs", {})
+    floor = NUMERICAL_FLOORS["gibbs"][1]
+    log(f"septuple MCGP (N={GG_N}, Gibbs, {GG_BURNIN} + {GG_SAMPLES} sweeps): posterior mean's sign agreement "
+        f"{g['sign']:.4f}, correlation with the built-in logistic's {g['corr']:.5f} (floor {floor}); "
+        f"{g['reads']:.2f} host reads a sweep; {g['seconds']:.3f} s; 0 kernel launches")
+    if not (g["finite"] and g["corr"] >= floor):
+        raise AssertionError(f"septuple MCGP: finite {g['finite']}, correlation {g['corr']:.5f} < {floor}")
+    out["gibbs"] = g
+    return out
+
+
+@contextlib.contextmanager
+def recorded_psd_rungs(numerical_vi, rungs):
+    """numerical_vi.psd_apply wrapped for the duration: each call appends
+    the rungs it took ([L]) to ``rungs``."""
+    psd_apply = numerical_vi.psd_apply
+
+    def recorded(S, dS, lazy=False):
+        out, k = psd_apply(S, dS, lazy)
+        rungs.append(k)
+        return out, k
+
+    numerical_vi.psd_apply = recorded
+    try:
+        yield
+    finally:
+        numerical_vi.psd_apply = psd_apply
+
+
+def quad_vgp_run(agt, device, which, dtype=torch.float32):
+    """Path 33's dense runs: "quad_vgp" (quadrature_vi_logistic_accuracy) or
+    "studentt_vgp" (the Student-t VGP with Adam(0.05)): {"metric" (the
+    accuracy, or mean |mu - f|), "moved", "rungs" (the PSD step's rung, as
+    counts by rung over the run's steps), "reads" (host reads an
+    iteration), "seconds"}."""
+    from agp_tpu_torch.inference import numerical_vi
+    from agp_tpu_torch.utils.tensors import host_read
+
+    n = QV_N if which == "quad_vgp" else TV_N
+    rng = np.random.default_rng(18 if which == "quad_vgp" else 9)
+    X = rng.uniform(-2, 2, size=(n, 2))
+    f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+    X, f = torch.as_tensor(X, dtype=dtype, device=device), torch.as_tensor(f, dtype=dtype, device=device)
+    if which == "quad_vgp":
+        y, iters = torch.sign(f), QV_ITERS
+        model = agt.VGP.create(X, y, agt.SqExponentialKernel(), agt.LogisticLikelihood.create(),
+                               agt.QuadratureVI(n_points=QV_POINTS, optimiser=agt.sgd(NUM_LR, 0.9)), optimiser=None)
+    else:
+        y, iters = f + 0.05 * torch.as_tensor(rng.normal(size=n), dtype=dtype, device=device), TV_ITERS
+        model = agt.VGP.create(X, y, agt.SqExponentialKernel(lengthscale=3.0), agt.StudentTLikelihood.create(4.0),
+                               agt.QuadratureVI(n_points=TV_POINTS), optimiser=agt.adam(0.05))
+    log0 = log_hypers(model)
+    rungs = []
+    reads = host_read.reads
+    sync(device)
+    t0 = time.perf_counter()
+    with recorded_psd_rungs(numerical_vi, rungs):
+        model, state = agt.train(model, iterations=iters)
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0, "reads": (host_read.reads - reads) / iters,
+           "moved": float((log_hypers(model) - log0).abs().max()), "finite": finite_state(state)}
+    out["rungs"] = dict(zip(*(a.tolist() for a in torch.unique(torch.stack(rungs).cpu(), return_counts=True))))
+    if which == "quad_vgp":
+        out["metric"] = float((agt.predict_y(model, state, X) == y).double().mean())
+    else:
+        out["metric"] = float((agt.predict_f(model, state, X) - f).abs().mean())
+    return out
+
+
+def numerical_parity_run(agt, which, X, y, draws, eps=None, perm=None):
+    """mu after 20 steps of path 30 ("quad"), 31 ("mc"), 32a ("septuple")
+    or the built-in flagship ("builtin") on (X, y) from the given minibatch
+    draws (and Monte Carlo normals), on X's device, as float64 on the CPU;
+    ``perm`` reorders the inducing points (mu is put back in order)."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    b = MB if which == "mc" else B
+    model = {"quad": quad_model, "mc": softmax_model, "septuple": septuple_model, "builtin": flagship_model}[which](
+        agt, X, b=b)
+    if perm is not None:
+        model = model.replace(Z=model.Z[:, perm].contiguous())
+    y_t, lik = model.likelihood.treat_labels(y)
+    model = model.replace(likelihood=lik)
+    y_t = y_t.to(device=X.device, dtype=X.dtype)
+    state = agt.init_state(model, X, y_t)
+    _, state = vi_steps(model, state, X, y_t, 20, draws=draws.to(X.device),
+                        mc_draws=None if eps is None else eps.to(X.device))
+    mu = state.mu.double().cpu()
+    return mu if perm is None else mu[:, torch.argsort(perm)]
+
+
+def phase_numerical_dense_and_parity(agt, ck, device):
+    """Phase 33: the dense paths (no kernel launch; the PSD step's rungs and
+    host reads logged) with their floors; then 20 steps of paths 30, 31
+    and 32a on the card (float32) against the CPU (float32) from the same
+    minibatch draws and normals, each within ORACLE_DEVICE_FACTOR times
+    its own float32 noise (the CPU run again with the inducing points in
+    another order) and the card with the plain versions in the kernels'
+    place within that noise, with no fixed floor under either; and path 32a
+    on the card against the built-in logistic (kernel 1) on the same
+    draws, within ORACLE_DEVICE_FACTOR times 32a's noise."""
+    out = {}
+    for which, floor in (("quad_vgp", QV_ACC), ("studentt_vgp", TV_MAE)):
+        reset_launches(ck)
+        r = quad_vgp_run(agt, device, which)
+        expect_launches(ck, which, {})
+        ok = r["finite"] and (r["metric"] > floor if which == "quad_vgp" else r["metric"] < floor)
+        if which == "studentt_vgp":
+            ok = ok and r["moved"] > MIN_HYPER_MOVE
+        log(f"numerical {which}: {'accuracy' if which == 'quad_vgp' else 'mean |mu - f|'} {r['metric']:.5f} "
+            f"({'>' if which == 'quad_vgp' else '<'} {floor}), log-hyperparameters moved {r['moved']:.4f}, PSD rungs "
+            f"taken {r['rungs']} (rung: steps), {r['reads']:.2f} host reads an iteration, {r['seconds']:.3f} s, "
+            f"0 kernel launches")
+        if not ok:
+            raise AssertionError(f"numerical {which}: {r}")
+        out[which] = r
+    gen = torch.Generator().manual_seed(1)
+    Xq, yq = flagship_data("cpu", n=PN, seed=1)
+    Xm, ym = mc_data("cpu", seed=1)
+    cases = {
+        "quad": (Xq, yq, torch.randint(0, PN, (20, B), generator=gen), None, M),
+        "mc": (Xm, ym, torch.randint(0, MN, (20, MB), generator=gen),
+               torch.randn((20, MC_DRAWS, MK, MB), generator=gen), MM),
+        "septuple": (Xq, yq, torch.randint(0, PN // 64, (20, B // 64), generator=gen), None, M),
+    }
+    for which, (Xc, yc, draws, eps, m) in cases.items():
+        t0 = time.perf_counter()
+        Xd, yd = Xc.to(device), yc.to(device)
+        cpu = numerical_parity_run(agt, which, Xc, yc, draws, eps)
+        card = numerical_parity_run(agt, which, Xd, yd, draws, eps)
+        with plain_kernels(ck, ("fused_cavi_stats",) + SPLIT_PAIRS):
+            card_plain = numerical_parity_run(agt, which, Xd, yd, draws, eps)
+        perm = torch.randperm(m, generator=torch.Generator().manual_seed(2))
+        noise = rel_err((numerical_parity_run(agt, which, Xc, yc, draws, eps, perm), None), (cpu, None))
+        e, e_plain = rel_err((card, None), (cpu, None)), rel_err((card, None), (card_plain, None))
+        tol, tol_plain = ORACLE_DEVICE_FACTOR * noise, noise
+        log(f"numerical {which} parity (20 steps): card (float32) vs CPU (float32) {e:.3e} (bound {tol:.3e}, "
+            f"{e / tol:.3f} of it), vs the card with the plain versions {e_plain:.3e} (bound {tol_plain:.3e}, "
+            f"{e_plain / tol_plain:.3f} of it); CPU with Z reordered vs CPU {noise:.3e}; "
+            f"{time.perf_counter() - t0:.2f} s")
+        if not (e <= tol and e_plain <= tol_plain):
+            raise AssertionError(f"numerical {which} parity: {e:.3e} (bound {tol:.3e}), {e_plain:.3e} "
+                                 f"(bound {tol_plain:.3e})")
+        out[f"parity {which}"] = {"card_cpu": e, "card_plain": e_plain, "noise": noise}
+        if which == "septuple":
+            builtin = numerical_parity_run(agt, "builtin", Xd, yd, draws)
+            e_b = rel_err((card, None), (builtin, None))
+            log(f"numerical septuple against the built-in logistic on the card (20 steps, kernels 6 + 7 against "
+                f"kernel 1): {e_b:.3e} (bound {tol:.3e}, {e_b / tol:.3f} of it)")
+            if not e_b <= tol:
+                raise AssertionError(f"septuple vs built-in on the card: {e_b:.3e} > {tol:.3e}")
+            out["septuple vs builtin"] = e_b
+    return out
+
+
+def time_psd(device, reps=50):
+    """ms a call of the PSD step (numerical_vi.psd_apply) by the host clock
+    over ``reps`` calls ending in a synchronize, rung 0 succeeding: the
+    batch of all 27 rungs at [1, 64, 64] (path 30) and [10, 64, 64] (path
+    31), beside one Cholesky of the same matrices; the lazy form at [1,
+    400, 400] (path 33) and [1, 2048, 2048], beside the batch."""
+    from agp_tpu_torch.inference import numerical_vi
+
+    out = {}
+    for L, n, lazy in ((1, M, False), (MK, MM, False), (1, QV_N, True), (1, 2048, True)):
+        g = torch.Generator(device=device).manual_seed(n)
+        A = torch.randn(L, n, n, generator=g, device=device)
+        S = A @ A.mT / n + torch.eye(n, device=device)
+        dS = 1e-3 * S
+        calls = {"psd_apply": lambda: numerical_vi.psd_apply(S, dS, lazy=lazy),
+                 "one cholesky": lambda: torch.linalg.cholesky_ex(S + dS)}
+        if lazy:
+            calls["all rungs"] = lambda: numerical_vi.psd_apply(S, dS)
+        for name, fn in calls.items():
+            fn()
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync(device)
+            out[f"{name} [{L}, {n}, {n}]"] = (time.perf_counter() - t0) * 1e3 / reps
+    log("PSD step, ms a call (host clock): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def numerical_mode(agt, ck, device):
+    """``python3 chip_smoke.py numerical``: phases 30-33 alone."""
+    out = {"quad": timed_phase("numerical quadrature", phase_quadrature, agt, ck, device)}
+    out["mc"] = timed_phase("numerical Monte Carlo", phase_monte_carlo, agt, ck, device)
+    out["generic"] = timed_phase("generic likelihood", phase_generic, agt, ck, device)
+    out["dense"] = timed_phase("numerical dense and parity", phase_numerical_dense_and_parity, agt, ck, device)
+    out["psd"] = time_psd(device)
+    return out
+
+
+@contextlib.contextmanager
+def softmax_ad_form(agt):
+    """SoftMaxLikelihood without its closed-form mc_grad_hess for the
+    duration: mc_grads takes the AD form (a gradient and one jvp per
+    latent)."""
+    cls = agt.SoftMaxLikelihood
+    closed = cls.__dict__["mc_grad_hess"]
+    del cls.mc_grad_hess
+    try:
+        yield
+    finally:
+        cls.mc_grad_hess = closed
+
+
+def softmax_forms_mode(agt, ck, device, reps=20):
+    """``python3 chip_smoke.py softmax-forms``: path 31 with SoftMax's
+    closed-form gradient and Hessian diagonal against the AD form, in the
+    order closed, AD, AD, closed: the steady iterations/s (steady_rate,
+    NUM_TIMED_STEPS steps from the same state and generator seed), the
+    launches of kernels 4 and 5 a step, and ms of one mc_grads call on
+    the path's [MC_DRAWS, MK, MB] draws by CUDA events over ``reps``
+    calls.  Both forms' outputs are held against each other."""
+    from agp_tpu_torch.inference import numerical_vi
+
+    X, y = mc_data(device)
+    model = softmax_model(agt, X)
+    y_t, lik = model.likelihood.treat_labels(y)
+    model = model.replace(likelihood=lik)
+    y_t = y_t.to(X.dtype)
+    state = agt.init_state(model, X, y_t)
+    g = torch.Generator(device=device).manual_seed(4)
+    yb = y_t[:MB]
+    mu = torch.randn((MK, MB), generator=g, device=device)
+    var = torch.rand((MK, MB), generator=g, device=device) + 0.1
+    eps = torch.randn((MC_DRAWS, MK, MB), generator=g, device=device)
+    out = {}
+    for form in ("closed", "ad", "ad", "closed"):
+        with softmax_ad_form(agt) if form == "ad" else contextlib.nullcontext():
+            reset_launches(ck)
+            ips = steady_rate(agt, model, state, X, y, torch.Generator(device=device).manual_seed(0))
+            launches = {k: wrapper(ck, k).launches / (30 + NUM_TIMED_STEPS) for k in LAUNCH_COUNTERS
+                        if wrapper(ck, k).launches}
+            numerical_vi.mc_grads(lik, yb, mu, var, eps, 0.0)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                grads = numerical_vi.mc_grads(lik, yb, mu, var, eps, 0.0)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / reps
+        out.setdefault(form, {"ips": [], "ms": [], "grads": grads})["ips"].append(ips)
+        out[form]["ms"].append(ms)
+        log(f"softmax {form} form on path 31: steady {ips:.1f} iterations/s over {NUM_TIMED_STEPS} iterations, "
+            f"launches a step {launches}, mc_grads {ms:.4f} ms a call (CUDA events, {reps} calls)")
+    err = max(rel_err((a, None), (b, None)) for a, b in zip(out["closed"]["grads"], out["ad"]["grads"]))
+    log(f"softmax forms: closed {json.dumps(out['closed']['ips'])} it/s, {json.dumps(out['closed']['ms'])} ms; "
+        f"AD {json.dumps(out['ad']['ips'])} it/s, {json.dumps(out['ad']['ms'])} ms; closed vs AD {err:.3e}")
+    if not err <= 1e-5:
+        raise AssertionError(f"softmax closed form vs AD form: {err:.3e}")
+
+
+def numerical_cpu_mode(agt):
+    """``python3 chip_smoke.py numerical-cpu``: every path of phases 30-33 in
+    float64 on the host's CPU, CPU draws, no floors held: the source of
+    NUMERICAL_FLOORS."""
+    from agp_tpu_torch.ops import cuda_kernels as ck
+
+    torch.set_num_threads(min(torch.get_num_threads(), 8))
+    for which in ("quad", "quad_hyper", "mc", "septuple"):
+        log_numerical(which, numerical_run(agt, ck, "cpu", which, torch.float64), "the CPU, float64")
+    rmse, dmu, _, seconds = laplace_septuple_run(agt, ck, "cpu", torch.float64)
+    log(f"septuple laplace on the CPU, float64: RMSE {rmse:.5f}, mu against the built-in {dmu:.3e}, {seconds:.2f} s")
+    g = septuple_gibbs(agt, "cpu", torch.float64)
+    log(f"septuple MCGP on the CPU, float64: sign agreement {g['sign']:.4f}, correlation with the built-in's "
+        f"{g['corr']:.5f}, {g['seconds']:.2f} s")
+    for which in ("quad_vgp", "studentt_vgp"):
+        r = quad_vgp_run(agt, "cpu", which, torch.float64)
+        log(f"numerical {which} on the CPU, float64: metric {r['metric']:.5f}, moved {r['moved']:.4f}, PSD rungs "
+            f"{r['rungs']}, {r['reads']:.2f} host reads an iteration, {r['seconds']:.2f} s")
+
+
+def profile_numerical(agt, device, which):
+    """``python3 chip_smoke.py profile numerical quad|mc``: torch.profiler
+    over 20 steady steps (after 30) of path 30 or 31: wall and device-busy
+    time a step, the idle share, launches and device ops a step, the
+    largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agp_tpu_torch.training.train import vi_steps
+
+    X, y = mc_data(device) if which == "mc" else flagship_data(device)
+    model = softmax_model(agt, X) if which == "mc" else quad_model(agt, X)
+    y_t, lik = model.likelihood.treat_labels(y)
+    model = model.replace(likelihood=lik)
+    y_t = y_t.to(X.dtype)
+    state = agt.init_state(model, X, y_t)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model, state = vi_steps(model, state, X, y_t, 30, generator=gen)
+    torch.cuda.synchronize()
+    n = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vi_steps(model, state, X, y_t, n, generator=gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / n * 1e6
+    events = prof.key_averages()
+    rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in events
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / n
+    log(f"profile numerical {which}: wall {wall_us:.1f} us/step, device busy {busy:.1f} us/step, idle share "
+        f"{1 - busy / wall_us:.4f}, {launches:.1f} kernel launches/step, {sum(r[1] for r in rows):.1f} device ops/step")
+    for us, count, key in rows[:15]:
+        log(f"  {us:10.1f} us/step  x{count:.1f}  {key[:100]}")
+
+
 PHASE_SECONDS = {}
 
 
@@ -4152,6 +4808,11 @@ def main():
         import agp_tpu_torch as agt
 
         online_cpu_mode(agt)
+        return
+    if sys.argv[1:] == ["numerical-cpu"]:  # the host's CPU alone, no card needed
+        import agp_tpu_torch as agt
+
+        numerical_cpu_mode(agt)
         return
     device = phase_device()
     args = sys.argv[1:]
@@ -4220,6 +4881,15 @@ def main():
     if args[:2] == ["profile", "online"]:
         profile_online(agt, device)
         return
+    if args == ["numerical"]:
+        numerical_mode(agt, ck, device)
+        return
+    if args == ["softmax-forms"]:
+        softmax_forms_mode(agt, ck, device)
+        return
+    if args[:2] == ["profile", "numerical"]:
+        profile_numerical(agt, device, args[2] if len(args) > 2 else "quad")
+        return
     if args[:2] == ["profile", "dense"]:
         profile_dense(agt, device, args[2] if len(args) > 2 else "gp")
         return
@@ -4271,6 +4941,7 @@ def main():
     timed_phase("dense parity", phase_dense_parity, agt, device)
     samplers_mode(agt, ck, device)
     online_mode(agt, ck, device)
+    numerical_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {

@@ -967,3 +967,71 @@ def test_cuda_online_default_adam(cuda_device):
     assert abs(float(torch.log(m.kernel.lengthscale[0]))) > 1e-3
     assert torch.isfinite(s.mu).all() and torch.isfinite(s.Sigma).all()
     assert np.isfinite(float(agt.online_elbo(m, s, X[64:], y[64:])))
+
+
+# ------------------------------------------------- Slice F: numerical VI
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["quad", "mc", "septuple"])
+def test_cuda_numerical_step_launches(cuda_device, which):
+    """One step of each of the smoke run's paths 30 (QuadratureSVI: kernels
+    6 and 7), 31 (SoftMax by MCIntegrationSVI: kernels 4 and 5) and 32a
+    (the logistic septuple by AnalyticSVI: kernels 6 and 7) at a cut shape
+    launches exactly its pair once and nothing else; the posterior stays
+    on the card and finite."""
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(rng.normal(size=(4096, 8)), dtype=torch.float32, device=cuda_device)
+    if which == "mc":
+        y = torch.argmax(X[:, :3] @ torch.eye(3, device=cuda_device), dim=1)
+        model = agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), agt.SoftMaxLikelihood.create(3),
+                                agt.MCIntegrationSVI(512, n_mc=32, optimiser=agt.sgd(1e-3, 0.9)), X[:32],
+                                optimiser=None)
+    else:
+        y = torch.sign(X[:, 0] + 0.5 * X[:, 1])
+        model = (smoke.quad_model if which == "quad" else smoke.septuple_model)(agt, X[:, :8], b=512)
+    smoke.reset_launches(ck)
+    model, state = agt.train(model, X, y, iterations=1)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, which, smoke.route_launches(1, "batched" if which == "mc" else "single"))
+    assert state.mu.is_cuda and torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all()
+
+
+@pytest.mark.cuda
+def test_cuda_laplace_transform_grid_matches_cpu(cuda_device):
+    """The Laplace-transform sampler's float64 grid and inverted density on
+    the card against the CPU's (rtol 1e-12 on the grid, the cell masses
+    within 1e-9 of their sum), and the card's draws fed the CPU's uniforms
+    fall in the same cells."""
+    from agp_tpu_torch.distributions.lap_transf import LaplaceTransformDistribution, invert_laplace
+
+    phi = lambda r: 1.0 / torch.cosh(torch.sqrt(r) / 2.0)  # noqa: E731
+    dist = LaplaceTransformDistribution(phi)
+    t_cpu, t_card = dist.grid(), dist.grid(device=cuda_device)
+    assert t_card.dtype == torch.float64
+    assert float(((t_card.cpu() - t_cpu).abs() / t_cpu).max()) <= 1e-12
+    m_cpu = invert_laplace(phi, t_cpu) * torch.gradient(t_cpu)[0]
+    m_card = (invert_laplace(phi, t_card) * torch.gradient(t_card)[0]).cpu()
+    assert float((m_card - m_cpu).abs().max()) <= 1e-9 * float(m_cpu.sum())
+    s0 = torch.linspace(0.0, 9.0, 1000, dtype=torch.float32)
+    u = torch.rand(1000, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    d_cpu, d_card = dist.sample(None, s0, u=u), dist.sample(None, s0.to(cuda_device), u=u.to(cuda_device))
+    assert d_card.dtype == torch.float32 and d_card.is_cuda
+    assert float(((d_card.cpu() - d_cpu).abs() / d_cpu).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_numerical_refuses_float64(cuda_device):
+    """A float64 SVGP or VGP with a numerical engine (or the SoftMax or a
+    septuple likelihood) is refused on the card at create: TypeError
+    naming float32; the float32 one trains."""
+    X = torch.as_tensor(np.random.default_rng(2).normal(size=(256, 2)), device=cuda_device)
+    y = torch.sign(X[:, 0])
+    with pytest.raises(TypeError, match="float32"):
+        agt.SVGP.create(agt.SqExponentialKernel(), agt.LogisticLikelihood.create(), agt.QuadratureSVI(64), X[:8])
+    with pytest.raises(TypeError, match="float32"):
+        agt.VGP.create(X, y, agt.SqExponentialKernel(), smoke.logistic_septuple(agt), agt.QuadratureVI())
+    with pytest.raises(TypeError, match="float32"):
+        agt.SVGP.create(agt.SqExponentialKernel(), agt.SoftMaxLikelihood.create(2), agt.MCIntegrationSVI(64), X[:8])
+    model = agt.SVGP.create(agt.SqExponentialKernel(), agt.LogisticLikelihood.create(), agt.QuadratureSVI(64),
+                            X[:8].float(), optimiser=None)
+    _, state = agt.train(model, X.float(), y.float(), iterations=2)
+    assert torch.isfinite(state.mu).all()

@@ -113,8 +113,8 @@ def port_likelihood(lik_j):
     if name == "GaussianLikelihood" and lik_j.opt_noise is not None:
         # the reference's create(opt_noise=True) rule, adam(0.05)
         return agt.GaussianLikelihood.create(opt_noise=True), {"sigma2": np.array(lik_j.sigma2)}
-    if name == "LogisticSoftMaxLikelihood":
-        return agt.LogisticSoftMaxLikelihood.create(lik_j.n_class), dict(
+    if name in ("LogisticSoftMaxLikelihood", "SoftMaxLikelihood"):
+        return getattr(agt, name).create(lik_j.n_class), dict(
             n_class=lik_j.n_class, class_mapping=lik_j.class_mapping
         )
     params = {k: np.array(getattr(lik_j, k)) for k in LIKELIHOOD_PARAMS if k in type(lik_j).__dataclass_fields__}
@@ -129,14 +129,17 @@ def port_lik_same_params(lik_j, dtype=torch.float64):
     return lik.replace(**{k: torch.as_tensor(v, dtype=dtype) for k, v in params.items()})
 
 
-def port_from_jax(mj, sj, Xj, yj, dtype=torch.float64, device="cpu", optimiser=None):
+def port_from_jax(mj, sj, Xj, yj, dtype=torch.float64, device="cpu", optimiser=None, likelihood=None):
     """The port's (model, state, X, y) carrying the JAX model's parameters
-    and state; ``optimiser`` replaces the port's Robbins-Monro rule."""
+    and state; ``optimiser`` replaces the port's Robbins-Monro rule;
+    ``likelihood`` (a generic likelihood built from the same septuple,
+    whose callables do not cross) replaces the port's copy of the JAX
+    model's."""
     B = mj.inference.batchsize
     inference = agt.AnalyticSVI(B, optimiser=optimiser, minibatch_sampling=mj.inference.minibatch_sampling)
     X = torch.as_tensor(np.array(Xj), dtype=dtype, device=device)
     M = mj.Z.shape[1]
-    lik, lik_params = port_likelihood(mj.likelihood)
+    lik, lik_params = port_likelihood(mj.likelihood) if likelihood is None else (likelihood, {})
     kernel = getattr(agt, type(mj.kernel).__name__)()
     mt = agt.SVGP.create(kernel, lik, inference, X[:M], optimiser=None)
     if type(mj.mean).__name__ == "ConstantMean":
@@ -262,16 +265,18 @@ def slice_runs(name, N, D, M, B, steps, kernel=None, seed=0):
                         steps)
 
 
-def replay_steps(mj, sj, Xj, yj, steps):
+def replay_steps(mj, sj, Xj, yj, steps, likelihood=None):
     """``steps`` CAVI steps of the JAX model (mj, sj) and of the port's copy
-    of it, on the JAX package's own draws, with its Robbins-Monro scales
-    replayed: the states after each step and the final models."""
+    of it (with ``likelihood``, as ``port_from_jax`` takes it), on the JAX
+    package's own draws, with its Robbins-Monro scales replayed: the
+    states after each step and the final models."""
     from agp_tpu.training.train import _precomputed_draws, _vi_steps
     from agp_tpu_torch.training.train import vi_steps
 
     B = mj.inference.batchsize
     _, idx = _precomputed_draws(mj, sj, Xj, steps)
-    mt, st, Xt, yt = port_from_jax(mj, sj, Xj, yj, optimiser=replay_rule(jax_rm_scales(steps)))
+    mt, st, Xt, yt = port_from_jax(mj, sj, Xj, yj, optimiser=replay_rule(jax_rm_scales(steps)),
+                                   likelihood=likelihood)
     draws = torch.as_tensor(np.array(idx), dtype=torch.int64)
     per_step = []
     for i in range(steps):
