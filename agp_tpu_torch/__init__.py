@@ -30,8 +30,14 @@ conjugate gradients), NUTS or HMC, and the SMC and SVGD samplers
 buffered stream, ``online_elbo``) with the inducing-point algorithms of
 ``inducing``.  The dense models' N x N algebra, the samplers and the
 online model are plain PyTorch at full FP32 and run no kernel of the
-port.  Inputs without a device (numpy arrays, lists) go to the CUDA card
-unless ``config.set_default_device("cpu")`` was called.
+port.  The Student-t process ``VStP`` (dense, its prior's scale updated
+each step), the multi-output ``MOSVGP`` and ``MOVGP`` (``mo_train``,
+``mo_elbo``, ``mo_predict_f``, ``mo_predict_y``, ``mo_proba_y``: Q shared
+latents mixed into the tasks' rows, each step on the split pairs'
+kernels) and the autoregressive rollouts ``predict_ar`` and ``sample_ar``
+complete the model families.  Inputs without a device (numpy arrays,
+lists) go to the CUDA card unless ``config.set_default_device("cpu")``
+was called.
 """
 
 from . import config, inducing, kernels
@@ -57,13 +63,25 @@ from .likelihoods.classification import BayesianSVM, LogisticLikelihood
 from .likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from .likelihoods.heteroscedastic import HeteroscedasticLikelihood
 from .likelihoods.generic import make_augmented_likelihood
-from .likelihoods.multiclass import LogisticSoftMaxLikelihood, SoftMaxLikelihood
+from .likelihoods.multiclass import LogisticSoftMaxLikelihood, MultiClassLikelihood, SoftMaxLikelihood
 from .likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
 from .means import ConstantMean, ZeroMean
 from .models.gp import GP
 from .models.mcgp import MCGP, sample
+from .models.multioutput import (
+    MOSVGP,
+    MOVGP,
+    mo_elbo,
+    mo_init_state,
+    mo_predict_f,
+    mo_predict_y,
+    mo_proba_y,
+    mo_train,
+)
 from .models.online_svgp import OnlineSVGP, online_elbo, online_train, online_train_stream
 from .models.svgp import SVGP, VGP
+from .models.vstp import VStP
+from .training.ar_predict import predict_ar, sample_ar
 from .training.predictions import predict_f, predict_y, proba_y, sample_f
 from .training.autotuning import hyper_step
 from .training.state import TrainState
@@ -76,6 +94,17 @@ __all__ = [
     "SVGP",
     "VGP",
     "GP",
+    "VStP",
+    "MOSVGP",
+    "MOVGP",
+    "mo_train",
+    "mo_init_state",
+    "mo_elbo",
+    "mo_predict_f",
+    "mo_predict_y",
+    "mo_proba_y",
+    "predict_ar",
+    "sample_ar",
     "MCGP",
     "sample",
     "OnlineSVGP",
@@ -115,6 +144,7 @@ __all__ = [
     "BayesianSVM",
     "PoissonLikelihood",
     "NegBinomialLikelihood",
+    "MultiClassLikelihood",
     "LogisticSoftMaxLikelihood",
     "SoftMaxLikelihood",
     "make_augmented_likelihood",

@@ -59,6 +59,7 @@ from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
 from ..likelihoods.multiclass import LogisticSoftMaxLikelihood
 from ..likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
 from ..means import batch_call
+from ..models.vstp import local_prior_updates
 from ..ops import cuda_kernels, linalg
 from ..ops.kl import gaussian_kl
 from ..ops.quadrature import expectation
@@ -266,8 +267,12 @@ def variational_update(model, state: TrainState, x, y, w=None):
     global update); returns (model, state).
 
     ``w`` ([B] of 0/1, optional) zero-weights rows out of every cross-batch
-    statistic; a weighted batch takes the unfused path."""
+    statistic; a weighted batch takes the unfused path.  A Student-t
+    process (``is_tprior``) first updates its prior's scale
+    (``models/vstp.py::local_prior_updates``)."""
     kmat = state.kmat
+    if getattr(model, "is_tprior", False):
+        state = local_prior_updates(model, state, x)
     fused = _fused_spec(model) if w is None else None
     if fused is not None:
         kind, lik_name, p0, p1, c_key = fused
@@ -375,7 +380,7 @@ def apply_natural_gradient(model, state: TrainState, kappa, gmu, gs, x) -> Train
 def _dense_update(model, state: TrainState, gmu, gs, x) -> TrainState:
     """eta1 = gmu + K^-1 mu0 and eta2 = -(Diag(gs) + K^-1/2) over the
     training inputs [L, N], then the moments."""
-    K_inv = state.kmat["K_inv"]
+    K_inv = prior_precision(model, state)
     mu0 = prior_mean_stack(model, x)
     eta1 = gmu + (K_inv @ mu0.unsqueeze(-1)).squeeze(-1)
     eta2 = linalg.symmetrize(-(torch.diag_embed(gs) + 0.5 * K_inv))
@@ -387,7 +392,7 @@ def _nat_update_from_stats(model, state: TrainState, s1, stat2, x) -> TrainState
     """Sparse natural-gradient global update given the two cross-data
     statistics s1 = kappa^T (rho gmu) [L, M] and
     stat2 = kappa^T diag(rho gs) kappa [L, M, M]."""
-    K_inv = state.kmat["K_inv"]
+    K_inv = prior_precision(model, state)
     mu0 = prior_mean_stack(model, x)
     Kinv_mu0 = (K_inv @ mu0.unsqueeze(-1)).squeeze(-1)
     nat1_target = s1 + Kinv_mu0
@@ -406,6 +411,15 @@ def _nat_update_from_stats(model, state: TrainState, s1, stat2, x) -> TrainState
         eta1 = nat1_target
         eta2 = linalg.symmetrize(nat2_target)
     return state.replace(eta1=eta1, eta2=eta2, **_moments_kw(model, eta1, eta2))
+
+
+def prior_precision(model, state: TrainState):
+    """K^-1 [L, M, M] of the step's update; chi K^-1 for a Student-t process
+    (its prior covariance is K / chi, ``models/vstp.py``)."""
+    K_inv = state.kmat["K_inv"]
+    if getattr(model, "is_tprior", False):
+        K_inv = state.prior_state["chi"][:, None, None] * K_inv
+    return K_inv
 
 
 def _moments_kw(model, eta1, eta2):
@@ -436,16 +450,17 @@ def elbo(model, state: TrainState, x, y, kmat=None) -> torch.Tensor:
     step differentiates through kernel matrices made from its parameters.
     The augmented KL is left out of the gradient, as the reference does.
     An online model's ELBO also subtracts the streaming extra KL, made with
-    the same ``kmat``."""
+    the same ``kmat``.  A Student-t process's KL takes its prior covariance
+    K / chi: the Cholesky factor L_K / sqrt(chi)."""
     kmat = state.kmat if kmat is None else kmat
     mu_f, var_f, _ = latent_moments(model, state, x, kmat)
     rho = state.rho if model.is_sparse else torch.ones((), dtype=mu_f.dtype, device=mu_f.device)
     tot = rho * model.likelihood.expec_loglik(y, mu_f, var_f, state.local_vars)
     mu0 = prior_mean_stack(model, x)
-    kl = torch.stack([
-        gaussian_kl(state.mu[l], mu0[l], state.Sigma[l], kmat["L_K"][l])
-        for l in range(model.n_latent)
-    ])
+    L_K = kmat["L_K"]
+    if getattr(model, "is_tprior", False) and state.prior_state is not None:
+        L_K = L_K / torch.sqrt(state.prior_state["chi"])[:, None, None]
+    kl = torch.stack([gaussian_kl(state.mu[l], mu0[l], state.Sigma[l], L_K[l]) for l in range(model.n_latent)])
     tot = tot - torch.sum(kl)
     tot = tot - (rho * model.likelihood.aug_kl(state.local_vars, y)).detach()
     if getattr(model, "is_online", False) and state.previous is not None:

@@ -1,8 +1,8 @@
 """The training objective's dispatch: the counterpart of
 ``agp_tpu/inference/objective.py``.  The numerical engines take the
 numerical ELBO of ``inference/numerical_vi.py``, every other engine the
-analytic ELBO of ``inference/analytic_vi.py``; the multi-output objective
-is not ported yet."""
+analytic ELBO of ``inference/analytic_vi.py``, a multi-output model its
+own (``models/multioutput.py::mo_elbo``)."""
 from __future__ import annotations
 
 from . import analytic_vi, numerical_vi
@@ -14,7 +14,9 @@ def objective(model, state, x, y, kmat=None):
     in ``state``, with the prior's matrices ``kmat`` (default
     ``state.kmat``)."""
     if getattr(model, "is_multioutput", False):
-        raise NotImplementedError("the port has no multi-output objective yet")
+        from ..models.multioutput import mo_elbo
+
+        return mo_elbo(model, state, x, y, kmat=kmat)
     if model.inference.name in NUMERICAL:
         return numerical_vi.elbo(model, state, x, y, kmat=kmat)
     return analytic_vi.elbo(model, state, x, y, kmat=kmat)

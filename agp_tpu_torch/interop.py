@@ -31,9 +31,12 @@ def model_from_numpy(params: dict, template):
     (Matern-3/2 noise), "r" (negative binomial), "lam" (Poisson,
     heteroscedastic), "n_class" and "class_mapping" (logistic-softmax,
     softmax).  A generic likelihood's callables do not cross: the
-    template's likelihood is built from the same septuple.  Tensors
-    land on the template's device and dtype (its Z's, or its training
-    inputs')."""
+    template's likelihood is built from the same septuple.  A multi-output
+    model (MOSVGP, MOVGP) takes "A" [R, Q] and "likelihoods", one such
+    parameter dict per task, in place of the likelihood's own; a VStP its
+    prior's degrees of freedom as "prior_nu" (its Student-t likelihood's
+    stay "nu").  Tensors land on the template's device and dtype (its Z's,
+    or its training inputs')."""
     like = template.Z if template.is_sparse else template.train_x
     dev, dt = like.device, like.dtype
 
@@ -56,13 +59,23 @@ def model_from_numpy(params: dict, template):
     mean = template.mean
     if "mean_c" in params:
         mean = ConstantMean(c=t(params["mean_c"]))
-    lik = template.likelihood
+    template = template.replace(kernel=kernel, mean=mean)
+    if getattr(template, "is_multioutput", False):
+        liks = tuple(_likelihood_from_numpy(p, lik, t) for p, lik in zip(params["likelihoods"], template.likelihoods))
+        return template.replace(likelihoods=liks, A=t(params["A"]))
+    if getattr(template, "is_tprior", False):
+        template = template.replace(nu=t(params["prior_nu"]))
+    return template.replace(likelihood=_likelihood_from_numpy(params, template.likelihood, t))
+
+
+def _likelihood_from_numpy(params: dict, lik, t):
+    """``lik`` with the parameters of ``params`` that it takes."""
     lik = lik.replace(**{k: t(params[k]) for k in LIKELIHOOD_PARAMS if k in params})
     if "n_class" in params:
         lik = lik.replace(n_class=int(params["n_class"]))
     if params.get("class_mapping") is not None:
         lik = lik.replace(class_mapping=tuple(params["class_mapping"]))
-    return template.replace(kernel=kernel, mean=mean, likelihood=lik)
+    return lik
 
 
 def _online_from_numpy(params: dict, template, t):
@@ -96,7 +109,10 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     optionally "hyper_state": for each group ("kernel", "mean", "Z")
     optax's Adam state as {"count", "mu", "nu"}, the moments a dict of the
     group's leaves by field name (an array for "Z"), as
-    ``utils.opt.adam`` keeps it."""
+    ``utils.opt.adam`` keeps it.  A multi-output model's "local_vars" is a
+    list of per-task dicts, and its "A_state" optax's Adam state of A as
+    {"count", "mu", "nu"}, sgd's trace as an array, or None; a VStP's
+    "prior_state" is {"l2", "chi"}."""
 
     def f(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -119,13 +135,23 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     hyper = arrays.get("hyper_state")
     if hyper is not None:
         hyper = {group: adam_state(s) for group, s in hyper.items()}
+
+    def local(lv):
+        return {k: adam_state(v) if isinstance(v, dict) else f(v) for k, v in lv.items()}
+
+    local_vars = arrays["local_vars"]
+    local_vars = [local(lv) for lv in local_vars] if isinstance(local_vars, (list, tuple)) else local(local_vars)
+    A_state = arrays.get("A_state")
+    if A_state is not None:
+        A_state = adam_state(A_state) if isinstance(A_state, dict) else f(A_state)
+    prior = arrays.get("prior_state")
     kmat = arrays.get("kmat")
     return TrainState(
         eta1=optional("eta1"),
         eta2=optional("eta2"),
         mu=optional("mu"),
         Sigma=optional("Sigma"),
-        local_vars={k: adam_state(v) if isinstance(v, dict) else f(v) for k, v in arrays["local_vars"].items()},
+        local_vars=local_vars,
         opt_state=opt,
         hyper_state=hyper,
         kmat=None if kmat is None else {k: f(v) for k, v in kmat.items()},
@@ -134,4 +160,6 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
         alpha=optional("alpha"),
         chol_Sigma=optional("chol_Sigma"),
         previous=None if arrays.get("previous") is None else {k: f(v) for k, v in arrays["previous"].items()},
+        A_state=A_state,
+        prior_state=None if prior is None else {k: f(v) for k, v in prior.items()},
     )

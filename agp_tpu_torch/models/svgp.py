@@ -59,10 +59,10 @@ _PORTED_LIKELIHOODS = (
 _PORTED_MEANS = (ZeroMean, ConstantMean)
 
 
-def _check_ported(kernel, likelihood, mean, optimiser, Zoptimiser=None):
+def _check_ported(kernel, likelihood, mean, optimiser, Zoptimiser=None, Aoptimiser=None):
     """Raises ``NotImplementedError`` for a component or an optimiser that
     the port does not have."""
-    for opt, what in ((optimiser, "optimiser"), (Zoptimiser, "Zoptimiser")):
+    for opt, what in ((optimiser, "optimiser"), (Zoptimiser, "Zoptimiser"), (Aoptimiser, "Aoptimiser")):
         if opt is not None and not isinstance(opt, GradientTransformation):
             raise NotImplementedError(
                 f"{what} {opt!r} is not ported: pass None, 'default' (optimiser only) or a "

@@ -78,7 +78,7 @@ def _chunk_map(call, X_test, chunk_size: int, axis: int):
     """``call`` over [chunk_size]-row slices of X_test (the last padded
     with copies of its last row, so every call has the same shape, and
     cut back), the outputs (a tensor or a tuple of them) concatenated along
-    ``axis``, the test-point axis."""
+    ``axis``, the test-point axis (a nested tuple leaf by leaf)."""
     n = X_test.shape[0]
     outs = []
     for s in range(0, n, chunk_size):
@@ -92,15 +92,21 @@ def _chunk_map(call, X_test, chunk_size: int, axis: int):
         outs.append(out)
     if len(outs) == 1:
         return outs[0]
+    return _concat(outs, axis)
+
+
+def _concat(outs, axis):
+    """The chunks' outputs (tensors, or tuples of them, nested: a
+    multi-output model's per-task results) concatenated leaf by leaf."""
     if isinstance(outs[0], tuple):
-        return tuple(None if parts[0] is None else torch.cat(parts, dim=axis) for parts in zip(*outs))
-    return torch.cat(outs, dim=axis)
+        return tuple(_concat(parts, axis) for parts in zip(*outs))
+    return None if outs[0] is None else torch.cat(outs, dim=axis)
 
 
 def _map(fn, out):
     if isinstance(out, tuple):
-        return tuple(None if a is None else fn(a) for a in out)
-    return fn(out)
+        return tuple(_map(fn, a) for a in out)
+    return None if out is None else fn(out)
 
 
 def predict_f(model, state, X_test, cov: bool = False, diag: bool = True, chunk_size=None):

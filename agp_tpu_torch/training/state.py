@@ -6,7 +6,10 @@ Per-latent quantities are stacked on a leading latent axis L:
   eta2 [L, M, M]   second natural parameter -1/2 Sigma^-1 (init -1/2 I)
   mu [L, M], Sigma [L, M, M]   moment parameters
 An online model's state also carries ``previous``, the posterior of the
-batch before (models/online_svgp.py).
+batch before (models/online_svgp.py); a multi-output model's the mixing
+matrix's optimiser state ``A_state`` (models/multioutput.py); a
+Student-t process's the inverse-Gamma scale of each latent
+``prior_state`` (models/vstp.py).
 """
 from __future__ import annotations
 
@@ -46,6 +49,12 @@ class TrainState(Params):
     # online (streaming) model: the previous batch's posterior,
     # {"invDa" [L, Mc, Mc], "prev_eta1" [L, Mc], "prev_L_a" [L]}
     previous: Any = None
+    # multi-output model (MOSVGP, MOVGP): the mixing matrix A's optimiser
+    # state, None when A is fixed
+    A_state: Any = None
+    # Student-t process (VStP): the inverse-Gamma scale of each latent,
+    # {"l2" [L] (its beta), "chi" [L] (E[1/s])}
+    prior_state: Any = None
 
 
 def init_var_posterior(n_latent: int, M: int, dtype=torch.float32, device=None):

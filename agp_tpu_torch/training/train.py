@@ -39,8 +39,9 @@ _CHUNK = 2000
 
 
 def init_state(model, X=None, y=None) -> TrainState:
-    """The initial TrainState, on X's device and in X's dtype (a VGP's and
-    a GP's own data when X is None).  Raises ``TypeError`` for a model or
+    """The initial TrainState, on X's device and in X's dtype (a VGP's, a
+    VStP's and a GP's own data when X is None; a Student-t process's prior
+    scale at one).  Raises ``TypeError`` for a model or
     X that is not float32 on a CUDA device
     (``models.base.check_card_dtype``), as ``SVGP.create`` does for a
     model built there: this catches one moved to the card later."""
@@ -64,6 +65,10 @@ def init_state(model, X=None, y=None) -> TrainState:
         opt_state = None
         if inf.stochastic and inf.optimiser is not None:
             opt_state = inf.optimiser.init((post["eta1"], post["eta2"]))
+    prior_state = None
+    if getattr(model, "is_tprior", False):
+        ones = torch.ones((model.n_latent,), dtype=dtype, device=device)
+        prior_state = {"l2": ones, "chi": ones.clone()}
     return TrainState(
         **post,
         local_vars=local_vars,
@@ -72,6 +77,7 @@ def init_state(model, X=None, y=None) -> TrainState:
         kmat=analytic_vi.compute_kmat(model, X),
         rho=torch.full((), N / batch if inf.stochastic else 1.0, dtype=dtype, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device),
+        prior_state=prior_state,
     )
 
 
@@ -260,9 +266,11 @@ def train(
     and costs one ELBO (a host read) a window.  Without any of these the
     steps run back to back with no host read.  Ctrl-C returns the model
     and state trained so far.  An online model raises ``TypeError``: it
-    trains with ``online_train``."""
+    trains with ``online_train``; so does a multi-output one: ``mo_train``."""
     if isinstance(model, GP):
         return _train_gp(model, iterations, state, callback, verbose)
+    if getattr(model, "is_multioutput", False):
+        raise TypeError("multi-output models train with agp_tpu_torch.mo_train(model, X, ys, ...)")
     if getattr(model, "is_online", False):
         raise TypeError(
             "OnlineSVGP trains with agp_tpu_torch.online_train(model, X_batch, "

@@ -14,14 +14,17 @@ import torch
 
 
 def map_leaves(fn, value):
-    """Apply ``fn`` to every tensor in ``value`` (a tensor, a ``Params`` or
-    a dict of them); anything else passes through."""
+    """Apply ``fn`` to every tensor in ``value`` (a tensor, a ``Params``, or
+    a dict, tuple or list of them: a multi-output model's likelihoods, its
+    state's per-task local variables); anything else passes through."""
     if isinstance(value, torch.Tensor):
         return fn(value)
     if isinstance(value, Params):
         return value.map(fn)
     if isinstance(value, dict):
         return {k: map_leaves(fn, v) for k, v in value.items()}
+    if type(value) in (tuple, list):  # not a NamedTuple (an optimiser's functions)
+        return type(value)(map_leaves(fn, v) for v in value)
     return value
 
 

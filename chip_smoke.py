@@ -43,7 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``python3 chip_smoke.py studentt-rate``);
 6. oracle and cross-device parity: the N=300 2-D oracle on the card
    (accuracy > 0.9), and 20 flagship steps on the card (float32) against
-   the same 20 steps on the CPU (float32 and float64) from the same draws;
+   the same 20 steps on the CPU (float32 and float64) from the same draws,
+   in float32 within ORACLE_DEVICE_FACTOR times the CPU's own float32
+   noise (the CPU run again with Z reordered), no fixed floor;
 7. multiclass path: the bench.py configuration (logistic-softmax, K=10,
    N=50,000, D=10, M=64, B=2048, slice sampling, float32), trained the same
    way; training accuracy and iterations/s;
@@ -52,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    noiseless sin(x_0), and iterations/s;
 9. multi-latent parity: 20 steps of each of paths 7 and 8, and of path 7
    with the Matern-3/2 kernel, on the card (float32) against the same 20
-   steps on the CPU (float32), same draws;
+   steps on the CPU (float32), same draws, within ORACLE_DEVICE_FACTOR
+   times each path's own float32 noise, no fixed floor;
 10. single-latent oracles: the fused-tier oracles of
    benchmarks/tpu_acceptance.py for the seven other likelihoods (N=30,000,
    D=2, M=128, B=8192, slice sampling, 150 steps) and the Student-t one
@@ -60,10 +63,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch per step and its floor;
 11. single-latent parity: 20 steps of each path of phase 10 on the card
    (float32) against the same steps on the CPU (float32), at the
-   flagship's conditioning (1e-4; see MATERN12_PARITY_TOL) and at the
-   oracle configuration, there against each path's own float32 noise and
-   against the card with the plain version in the kernel's place (see
-   ORACLE_DEVICE_FACTOR);
+   flagship's conditioning and at the oracle configuration, each against
+   its own float32 noise (MATERN12_PARITY_TOL for the Matern-1/2 kernel at
+   the flagship's conditioning), at the oracle configuration also against
+   the card with the plain version in the kernel's place (see
+   ORACLE_DEVICE_FACTOR), no fixed floor;
 12. the batched pair (kernels 4-5, several latents) and the single-latent
    split pair (kernels 6-7, one latent beyond the fused range) against
    their plain versions at the M=512 paths' shapes (at the ill-conditioned
@@ -191,7 +195,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch, the PSD step's rungs and host reads logged; 20 steps of paths
    30, 31 and 32a card (float32) against CPU (float32) from the same
    draws and normals, within their own float32 noise; 32a against the
-   built-in logistic on the card; the PSD step's ms a call.
+   built-in logistic on the card; the PSD step's ms a call;
+34. the Student-t process (Slice H): tpu_acceptance.py:141-153's VStP
+   (N=400, outliers, Student-t(4), nu 5, 60 iterations) with no kernel
+   launch: RMSE of predict_f under the floor (SLICE_H_FLOORS, from
+   ``slice-h-cpu``), chi finite and positive; then at N=4,096 its steady
+   iterations/s, idle share and peak memory;
+35. the multi-output MOSVGP at full width, tpu_acceptance.py:416-436's
+   model (M=512, B=16,384, Q=2, N=30,000, D=2, Gaussian(0.1) and logistic
+   tasks, 100 iterations through agp_tpu_torch.mo_train): exactly one
+   launch each of kernels 4 and 5 a step and nothing else, task 0's RMSE
+   under 0.35 and the floor, A's rows unit-norm, steady iterations/s,
+   idle share, launches a step, peak memory; 35h the same with Adam(0.01)
+   on the kernel every 3rd iteration (kernel 4 once more a hyperparameter
+   step), the log-hyperparameters moved;
+36. the smaller multi-output paths: mo_proba_y at tpu_acceptance.py:
+   591-610 (N=2,048, M=32, 80 iterations: separation > 0.2, p in [0, 1]),
+   a Q=1 MOSVGP (kernels 6 + 7 once a step) with its floor, the MOVGP of
+   tests/test_movgp.py's per-task check (RMSE < 0.3, the logistic task
+   held to the CPU's float64 run); then 20 steps of phase 35's model at
+   N=20,000, B=2,048 from fed indices, card (float32) against CPU
+   (float32) within ORACLE_DEVICE_FACTOR times its own float32 noise and
+   the card with the plain versions within the noise, no fixed floor;
+37. autoregressive prediction: tests/test_engines.py:311-326's model
+   (kernel 1 once a training step), predict_ar's MAE over 20 steps < 0.5,
+   sample_ar 4 x 10, then 1,024 trajectories x 100 steps timed (ms a step,
+   0 host reads); the rollouts launch no kernel.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -239,7 +268,10 @@ needed: what ONLINE_FLOORS comes from), ``profile online``
 float64 on the host's CPU, no card needed: what NUMERICAL_FLOORS comes
 from), ``profile numerical quad|mc`` (torch.profiler over 20 steps of
 path 30 or 31), ``softmax-forms`` (path 31's steady rate and one
-mc_grads call with SoftMax's closed-form gradient against the AD form).
+mc_grads call with SoftMax's closed-form gradient against the AD form),
+``slice-h`` (phases 34-37 alone), ``slice-h-cpu`` (phases 34-36's paths
+in float64 on the host's CPU, no card needed: what SLICE_H_FLOORS comes
+from), ``profile mo`` (torch.profiler over 20 steps of phase 35's model).
 ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
@@ -276,12 +308,12 @@ KERNEL_TOL = 1e-4
 # float64 plain version instead, within this many times the float32 plain
 # version's own error (on an H100 the ratio reads 0.83-1.05).
 FLOAT32_FACTOR = 2.0
-# cross-device parity of mu after 20 steps, as max |d mu| / max |mu|:
-# - card float32 against CPU float32 (the plain version, same jitter):
-#   float32 sums in another order, carried through 20 steps;
-# - card float32 against CPU float64: the dtype-keyed jitter differs
-#   (1e-3 against 1e-4), which moves mu by ~5e-4 on its own.
-PARITY_TOL = {torch.float32: 1e-4, torch.float64: 2e-3}
+# cross-device parity of the flagship's mu after 20 steps, as max |d mu| /
+# max |mu|, card float32 against CPU float64: the dtype-keyed jitter
+# differs (1e-3 against 1e-4), which moves mu by ~5e-4 on its own.  Card
+# against CPU in float32 is held to ORACLE_DEVICE_FACTOR times the CPU's own
+# float32 noise (``parity_check``).
+PARITY_TOL = {torch.float64: 2e-3}
 # flagship training accuracy floor: the labels are a linear rule in 20-D,
 # which 64 RBF inducing points fit only in part (0.8965 for the plain
 # version on a CPU); chance is 0.5
@@ -295,9 +327,9 @@ MULTI_TIMED_STEPS = 500
 # accuracy is 0.8702 (chance 0.1) and the heteroscedastic RMSE of predict_y
 # against sin(x_0) is 0.3810 (predicting 0 gives 0.6578)
 MIN_MC_ACC, MAX_HET_RMSE = 0.8, 0.45
-# card float32 against CPU float32 after 20 steps, as max |d mu| / max |mu|
-# (and |d lam| / lam): float32 sums in another order and the kernel's
-# series digamma against torch.special.digamma, carried through 20 steps
+# the fixed floor that card-vs-CPU float32 parity once had under its noise
+# bound (max |d mu| / max |mu|, and |d lam| / lam, after 20 steps); only
+# the paths of PARITY_FLOORED keep it
 MULTI_PARITY_TOL = 1e-4
 # the single-latent oracles of benchmarks/tpu_acceptance.py:278-367, at
 # M=128 (the reference's 512 is above the CUDA kernel's range)
@@ -351,7 +383,8 @@ PN = 20_000
 # reads 0.9986 where it is 1, at D=20), so float32 determines mu there only
 # to ~6e-4: the plain version on a CPU, run again with X's features in
 # another order, moves it by 6.1e-4 (1e-6 for the other kernels).  The
-# bound is five times that; the other paths are held at MULTI_PARITY_TOL.
+# bound is five times that; the other paths are held to their own noise
+# (``parity_check``).
 MATERN12_PARITY_TOL = 3e-3
 # 20 steps at the oracle configuration (M=128 in 2-D at lengthscale 1),
 # as max |d mu| / max |mu| (and |d lam| / lam), each path against its own
@@ -365,8 +398,19 @@ MATERN12_PARITY_TOL = 3e-3
 #   moves mu by up to 5.1 times the noise on these paths, with the plain
 #   version in the kernel's place as much as with the kernel (within 2 %
 #   on an H100), so that part of the gap is not the kernel's.
-# Both bounds are at least MULTI_PARITY_TOL.
+# Neither bound has a fixed floor (``parity_check``); the flagship's,
+# the multi-latent paths' and the flagship-conditioning half of phase 11
+# are held to the same bound, their noise measured the same way.
 ORACLE_DEVICE_FACTOR = 10.0
+# card-vs-CPU parity paths still held at the MULTI_PARITY_TOL floor under
+# their noise bound (``parity_check``): each is a fault with its numbers in
+# ROADMAP.md queue 3.  Every other path is held to its bound with no floor
+# (on an H100 they read 0.049-0.509 of 10 times their noise, and the card
+# against its plain versions 0.18-0.78 of 1 times it).  Path A's card
+# against the card with the plain versions reads 5.161e-07, 1.25 times its
+# noise of 4.129e-07 (kernel 1's 3xTF32 sums against FP32 ones over 20
+# iterations with 17 hyperparameter steps, at float32's own rounding).
+PARITY_FLOORED = frozenset({"path A kernels"})
 
 
 def log(msg):
@@ -733,20 +777,44 @@ def phase_oracle_and_parity(agt, device):
     Xc, yc = flagship_data("cpu", n=n, seed=1)
     draws = torch.randint(0, n // 64, (20, B // 64), generator=torch.Generator().manual_seed(1))
 
-    def mu_after_20(dev, dt):
+    def mu_after_20(dev, dt, perm=None):
         X, y = Xc.to(device=dev, dtype=dt), yc.to(device=dev, dtype=dt)
         model = flagship_model(agt, X)
+        if perm is not None:
+            model = model.replace(Z=model.Z[:, perm].contiguous())
         state = agt.init_state(model, X, y)
         _, state = vi_steps(model, state, X, y, 20, draws=draws.to(dev))
-        return state.mu.double().cpu()
+        mu = state.mu.double().cpu()
+        return mu if perm is None else mu[:, torch.argsort(perm)]
+
+    def err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
 
     mu_card = mu_after_20(device, torch.float32)
-    for dt, tol in PARITY_TOL.items():
-        mu_cpu = mu_after_20(torch.device("cpu"), dt)
-        err = float((mu_card - mu_cpu).abs().max() / mu_cpu.abs().max())
-        if not err <= tol:
-            raise AssertionError(f"card float32 vs CPU {dt} mu after 20 steps: {err:.3e} > {tol}")
-        log(f"parity: 20 steps card (float32) vs CPU ({dt}), max |d mu| / max |mu| = {err:.3e}")
+    mu_cpu = mu_after_20(torch.device("cpu"), torch.float32)
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(2))
+    noise = err(mu_after_20(torch.device("cpu"), torch.float32, perm), mu_cpu)
+    parity_check("flagship", err(mu_card, mu_cpu), noise)
+    mu64 = mu_after_20(torch.device("cpu"), torch.float64)
+    e64, tol64 = err(mu_card, mu64), PARITY_TOL[torch.float64]
+    if not e64 <= tol64:
+        raise AssertionError(f"card float32 vs CPU float64 mu after 20 steps: {e64:.3e} > {tol64}")
+    log(f"parity: 20 steps card (float32) vs CPU (float64), max |d mu| / max |mu| = {e64:.3e} (bound {tol64}: the "
+        f"dtype-keyed jitter)")
+
+
+def parity_check(label, err, noise, factor=ORACLE_DEVICE_FACTOR, what="card (float32) vs CPU (float32)"):
+    """Holds ``err`` to ``factor`` times the path's own float32 noise (the
+    CPU run again with its inputs reordered), with no fixed floor unless
+    ``label`` is in PARITY_FLOORED; logs the error as a share of that
+    bound.  Returns the share."""
+    tol = factor * noise
+    bound = max(tol, MULTI_PARITY_TOL) if label in PARITY_FLOORED else tol
+    log(f"{label} parity: {what} {err:.3e}, {err / tol:.3f} of {factor:g} x its noise {noise:.3e}"
+        + (f" (floored at {MULTI_PARITY_TOL})" if label in PARITY_FLOORED else ""))
+    if not err <= bound:
+        raise AssertionError(f"{label}: {what} {err:.3e} > {bound:.3e} ({factor:g} x its noise {noise:.3e})")
+    return err / tol
 
 
 def mc_data(device, seed=0):
@@ -848,19 +916,22 @@ def rel_err(a, b):
 
 def phase_multi_parity(agt, device):
     """20 steps of each multi-latent path, and of the multiclass one with
-    the Matern-3/2 kernel, on the card (float32) against the same steps on
-    the CPU (float32, the plain versions), same draws."""
+    the Matern-3/2 kernel, on the card (float32) against the same 20 steps on
+    the CPU (float32, the plain versions), same draws, within
+    ORACLE_DEVICE_FACTOR times the path's own float32 noise (the CPU run
+    again with the inducing points in another order)."""
     draws = torch.randint(0, MN - MB + 1, (20,), generator=torch.Generator().manual_seed(1))
+    perm = torch.randperm(MM, generator=torch.Generator().manual_seed(2))
     for which, data, kernel in (("multiclass", mc_data, "SqExponentialKernel"), ("het", het_data, "SqExponentialKernel"),
                                 ("multiclass", mc_data, "Matern32Kernel")):
         Xc, yc = data("cpu", seed=1)
         card, cpu = (after_20(agt, multi_model(agt, X, which, kernel), X, y, draws)
                      for X, y in ((Xc.to(device), yc.to(device)), (Xc, yc)))
-        err = rel_err(card, cpu)
-        if not err <= MULTI_PARITY_TOL:
-            raise AssertionError(f"{which} {kernel}: card float32 vs CPU float32 after 20 steps: {err:.3e} > {MULTI_PARITY_TOL}")
-        log(f"{which} {kernel} parity: 20 steps card (float32) vs CPU (float32), "
-            f"max |d mu| / max |mu| (and |d lam| / lam) = {err:.3e}")
+        m = multi_model(agt, Xc, which, kernel)
+        mu_p, lam_p = after_20(agt, m.replace(Z=m.Z[:, perm].contiguous()), Xc, yc, draws)
+        noise = rel_err((mu_p[:, torch.argsort(perm)], lam_p), cpu)
+        parity_check(f"{which} {kernel}", rel_err(card, cpu), noise,
+                     what="20 steps card (float32) vs CPU (float32), max |d mu| / max |mu| (and |d lam| / lam)")
 
 
 # --------------------------------------------- the single-latent branches
@@ -1213,9 +1284,9 @@ def phase_single_parity(agt, ck, device):
     steps from the same draws, for each single-latent path:
     - at the flagship's conditioning (N=20,000, D=20, M=64, lengthscale 2,
       B=4096, slice; labels around sin(x_0) + 0.5 x_1), within
-      MULTI_PARITY_TOL (MATERN12_PARITY_TOL for the Matern-1/2 kernel),
-      beside the CPU's own float32 noise there: the same CPU run with X's
-      features in another order;
+      ORACLE_DEVICE_FACTOR times the CPU's own float32 noise there (the
+      same CPU run with X's features in another order), or
+      MATERN12_PARITY_TOL for the Matern-1/2 kernel;
     - at the oracle configuration itself, against each path's own float32
       noise there (the same CPU run with the inducing points in another
       order): the card within ORACLE_DEVICE_FACTOR times it of the CPU,
@@ -1238,12 +1309,15 @@ def phase_single_parity(agt, ck, device):
         err = rel_err(after_20(agt, model(Xc.to(device)), Xc.to(device), yc.to(device), draws), cpu)
         Xp = Xc[:, fperm].contiguous()
         noise = rel_err(after_20(agt, model(Xp), Xp, yc, draws), cpu)
-        tol = MATERN12_PARITY_TOL if kernel == "Matern12Kernel" else MULTI_PARITY_TOL
-        if not err <= tol:
-            raise AssertionError(f"{lik}/{kernel}: card float32 vs CPU float32 after 20 steps: {err:.3e} > {tol}")
-        log(f"{lik}/{kernel} parity (N={PN}, D={D}, M={M}, B={B}): 20 steps card (float32) vs CPU (float32), "
-            f"max |d mu| / max |mu| (and |d lam| / lam) = {err:.3e} (bound {tol}); "
-            f"CPU with features reordered vs CPU {noise:.3e}")
+        what = f"(N={PN}, D={D}, M={M}, B={B}) 20 steps card (float32) vs CPU (float32)"
+        if kernel != "Matern12Kernel":
+            parity_check(f"{lik}/{kernel} flagship-conditioning", err, noise, what=what)
+            continue
+        if not err <= MATERN12_PARITY_TOL:
+            raise AssertionError(f"{lik}/{kernel}: card float32 vs CPU float32 after 20 steps: {err:.3e} > "
+                                 f"{MATERN12_PARITY_TOL}")
+        log(f"{lik}/{kernel} parity {what}, max |d mu| / max |mu| (and |d lam| / lam) = {err:.3e} (bound "
+            f"{MATERN12_PARITY_TOL}); CPU with features reordered vs CPU {noise:.3e}")
     draws = torch.randint(0, ON - OB + 1, (20,), generator=torch.Generator().manual_seed(1))
     perm = torch.randperm(OM, generator=torch.Generator().manual_seed(2))
     for lik, kernel in single_paths():
@@ -1256,16 +1330,10 @@ def phase_single_parity(agt, ck, device):
         m = oracle_model(agt, Xc, lik, kernel)
         mu_p, lam_p = after_20(agt, m.replace(Z=m.Z[:, perm].contiguous()), Xc, yc, draws)
         noise = rel_err((mu_p[:, torch.argsort(perm)], lam_p), cpu)
-        err, err_kernel = rel_err(card, cpu), rel_err(card, card_plain)
-        tol, tol_kernel = max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL), max(noise, MULTI_PARITY_TOL)
-        if not err <= tol:
-            raise AssertionError(f"oracle {lik}/{kernel}: card vs CPU after 20 steps: {err:.3e} > {tol:.3e}")
-        if not err_kernel <= tol_kernel:
-            raise AssertionError(f"oracle {lik}/{kernel}: card vs card with the plain version after 20 steps: "
-                                 f"{err_kernel:.3e} > {tol_kernel:.3e}")
-        log(f"oracle {lik}/{kernel} parity: 20 steps card (float32) vs CPU (float32) {err:.3e} (bound {tol:.3e}), "
-            f"vs the card with the plain version {err_kernel:.3e} (bound {tol_kernel:.3e}); "
-            f"CPU with Z reordered vs CPU {noise:.3e}")
+        label = f"oracle {lik}/{kernel}"
+        parity_check(label, rel_err(card, cpu), noise)
+        parity_check(label + " kernel", rel_err(card, card_plain), noise, factor=1.0,
+                     what="card vs the card with the plain version")
 
 
 # ------------------------------------------- the batched pair (M > 128)
@@ -1856,14 +1924,10 @@ def phase_pair_parity(agt, ck, device):
         m = build(Xc)
         mu_p, lam_p = after_20(agt, m.replace(Z=m.Z[:, perm].contiguous()), Xc, yc, draws)
         noise = rel_err((mu_p[:, torch.argsort(perm)], lam_p), cpu)
-        err, err_kernel = rel_err(card, cpu), rel_err(card, card_plain)
-        tol, tol_kernel = max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL), max(noise, MULTI_PARITY_TOL)
-        if not (err <= tol and err_kernel <= tol_kernel):
-            raise AssertionError(f"{name}: card vs CPU {err:.3e} (bound {tol:.3e}), card vs card with the plain "
-                                 f"versions {err_kernel:.3e} (bound {tol_kernel:.3e})")
-        log(f"{name} parity: 20 steps card (float32) vs CPU (float32) {err:.3e} (bound {tol:.3e}), vs the card "
-            f"with the plain versions {err_kernel:.3e} (bound {tol_kernel:.3e}); CPU with Z reordered vs CPU {noise:.3e}; "
-            f"{time.perf_counter() - t0:.2f} s")
+        parity_check(name, rel_err(card, cpu), noise)
+        parity_check(name + " kernels", rel_err(card, card_plain), noise, factor=1.0,
+                     what="card vs the card with the plain versions")
+        log(f"{name} parity: {time.perf_counter() - t0:.2f} s")
 
 
 # ------------------------------------- the single-latent split pair (6-7)
@@ -2063,14 +2127,11 @@ def phase_hyper_parity(agt, ck, device):
             card_plain = after(hyper_path(agt, Xd, which, b), Xd, yd, draws)
         mp = hyper_path(agt, Xc, which, b)
         noise = err(after(mp.replace(Z=mp.Z[:, perm].contiguous()), Xc, yc, draws), cpu, perm)
-        e, e_kernel = err(card, cpu), err(card, card_plain)
-        tol, tol_kernel = max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL), max(noise, MULTI_PARITY_TOL)
-        if not (e <= tol and e_kernel <= tol_kernel):
-            raise AssertionError(f"path {which}: card vs CPU {e:.3e} (bound {tol:.3e}), card vs card with the plain "
-                                 f"versions {e_kernel:.3e} (bound {tol_kernel:.3e})")
-        log(f"path {which} parity (B={b}, M={m}, 20 iterations, 17 hyperparameter steps): card (float32) vs CPU "
-            f"(float32) {e:.3e} (bound {tol:.3e}), vs the card with the plain versions {e_kernel:.3e} "
-            f"(bound {tol_kernel:.3e}); CPU with Z reordered vs CPU {noise:.3e}; {time.perf_counter() - t0:.2f} s")
+        what = f"(B={b}, M={m}, 20 iterations, 17 hyperparameter steps) card (float32) vs CPU (float32)"
+        parity_check(f"path {which}", err(card, cpu), noise, what=what)
+        parity_check(f"path {which} kernels", err(card, card_plain), noise, factor=1.0,
+                     what="card vs the card with the plain versions")
+        log(f"path {which} parity: {time.perf_counter() - t0:.2f} s")
 
 
 def profile_hyper_path(agt, device, which):
@@ -2122,6 +2183,35 @@ def profile_hyper_path(agt, device, which):
         log(f"  host {us:10.1f} us/iteration  x{count:.1f}  {key[:90]}")
 
 
+def profile_window(fn, n):
+    """torch.profiler over one call of ``fn``, which runs n steps: wall and
+    device-busy us a step, the idle share, kernel launches and device ops a
+    step, and the device kernels' (us a step, calls a step, name) rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / n * 1e6
+    events = prof.key_averages()
+    rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in events
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / n
+    return {"wall_us": wall_us, "busy_us": busy, "idle_share": 1 - busy / wall_us, "launches": launches,
+            "ops": sum(r[1] for r in rows), "rows": rows}
+
+
+def log_profile(label, p, top):
+    """Logs a profile_window result and its ``top`` device kernels."""
+    log(f"{label}: wall {p['wall_us']:.1f} us/step, device busy {p['busy_us']:.1f} us/step, idle share "
+        f"{p['idle_share']:.4f}, {p['launches']:.1f} kernel launches/step, {p['ops']:.1f} device ops/step")
+    for us, count, key in p["rows"][:top]:
+        log(f"  {us:10.1f} us/step  x{count:.1f}  {key[:100]}")
+
+
 def profile_pair_path(agt, device, which):
     """torch.profiler over 20 steady-state steps (after 30) of
     logistic_m512_b65536, the M=512 multiclass path, the bench's
@@ -2130,8 +2220,6 @@ def profile_pair_path(agt, device, which):
     logistic|multiclass|multiclass_k10|het|noise``): wall
     and device-busy time per step, the device's idle share, kernel
     launches per step and the device time of the largest kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     from agp_tpu_torch.training.train import vi_steps
 
     if which == "logistic":
@@ -2153,24 +2241,9 @@ def profile_pair_path(agt, device, which):
     state = agt.init_state(model, X, y_t)
     gen = torch.Generator(device=device).manual_seed(0)
     model, state = vi_steps(model, state, X, y_t, 30, generator=gen)
-    torch.cuda.synchronize()
-    n = 20
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model, state = vi_steps(model, state, X, y_t, n, generator=gen)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) / n * 1e6
-    events = prof.key_averages()
-    # device kernels only: the ATen ops that launch them carry the same time
-    rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in events
-                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / n
-    log(f"profile {which}: wall {wall_us:.1f} us/step, device busy {busy:.1f} us/step, idle share "
-        f"{1 - busy / wall_us:.4f}, {launches:.1f} kernel launches/step, {sum(r[1] for r in rows):.1f} device ops/step")
-    for us, count, key in rows[:20]:
-        log(f"  {us:10.1f} us/step  x{count:.1f}  {key[:100]}")
-    return {"wall_us": wall_us, "busy_us": busy, "idle_share": 1 - busy / wall_us, "launches": launches}
+    p = profile_window(lambda: vi_steps(model, state, X, y_t, 20, generator=gen), 20)
+    log_profile(f"profile {which}", p, 20)
+    return p
 
 
 def profile_bench_kernels(device, n=20):
@@ -3228,7 +3301,7 @@ def phase_dense_parity(agt, device):
     noise or lambda (relative) and the log-hyperparameters (absolute),
     within ORACLE_DEVICE_FACTOR times each path's own float32 noise (the
     CPU run again with the data's rows, for path 21 the inducing points,
-    in another order) and at least MULTI_PARITY_TOL.  Then the card's
+    in another order), with no fixed floor.  Then the card's
     float32 dense algebra against the CPU's one op at a time at N=DN
     (logged, no bound)."""
     for which in DENSE_PATHS:
@@ -3237,11 +3310,8 @@ def phase_dense_parity(agt, device):
         cpu = dense_after(agt, which, Xc, yc)
         card = dense_after(agt, which, Xc.to(device), yc.to(device))
         noise = triple_err(dense_after(agt, which, Xc, yc, perm), cpu)
-        err, tol = triple_err(card, cpu), max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL)
-        if not err <= tol:
-            raise AssertionError(f"{which}: card vs CPU after {D_ITERS} iterations: {err:.3e} > {tol:.3e}")
-        log(f"{which} parity (N={DN}, {D_ITERS} iterations): card (float32) vs CPU (float32) {err:.3e} "
-            f"(bound {tol:.3e}); CPU with the rows reordered vs CPU {noise:.3e}")
+        parity_check(which, triple_err(card, cpu), noise,
+                     what=f"(N={DN}, {D_ITERS} iterations) card (float32) vs CPU (float32)")
     noise_trajectories(agt, device)
     Xc, _, yc = noise_data("cpu", n=PN, seed=1)
     draws = torch.randint(0, PN // 64, (20, B // 64), generator=torch.Generator().manual_seed(1))
@@ -3249,11 +3319,8 @@ def phase_dense_parity(agt, device):
     cpu = noise_after(agt, Xc, yc, draws)
     card = noise_after(agt, Xc.to(device), yc.to(device), draws)
     noise = triple_err(noise_after(agt, Xc, yc, draws, perm), cpu)
-    err, tol = triple_err(card, cpu), max(ORACLE_DEVICE_FACTOR * noise, MULTI_PARITY_TOL)
-    if not err <= tol:
-        raise AssertionError(f"svgp_noise: card vs CPU after 20 steps: {err:.3e} > {tol:.3e}")
-    log(f"svgp_noise parity (N={PN}, B={B}, 20 steps): card (float32) vs CPU (float32) {err:.3e} (bound {tol:.3e}), "
-        f"mu and sigma^2; CPU with Z reordered vs CPU {noise:.3e}")
+    parity_check("svgp_noise", triple_err(card, cpu), noise,
+                 what=f"(N={PN}, B={B}, 20 steps; mu and sigma^2) card (float32) vs CPU (float32)")
     dense_ops_parity(agt, device)
 
 
@@ -4755,8 +4822,6 @@ def profile_numerical(agt, device, which):
     over 20 steady steps (after 30) of path 30 or 31: wall and device-busy
     time a step, the idle share, launches and device ops a step, the
     largest kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     from agp_tpu_torch.training.train import vi_steps
 
     X, y = mc_data(device) if which == "mc" else flagship_data(device)
@@ -4767,22 +4832,445 @@ def profile_numerical(agt, device, which):
     state = agt.init_state(model, X, y_t)
     gen = torch.Generator(device=device).manual_seed(0)
     model, state = vi_steps(model, state, X, y_t, 30, generator=gen)
-    torch.cuda.synchronize()
-    n = 20
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    log_profile(f"profile numerical {which}", profile_window(lambda: vi_steps(model, state, X, y_t, 20, generator=gen),
+                                                           20), 15)
+
+
+# --------------------------------- Slice H: VStP, multi-output models, AR
+# phase 34: tpu_acceptance.py:141-153's VStP (N=400, 2-D, y = f + 0.05 eps
+# with +8 on every 29th point, Student-t(4), nu 5, fixed hyperparameters, 60
+# iterations, RMSE of predict_f against f < 0.3), then the same model timed
+# at N=4,096 (phase 20a's size)
+VS_N, VS_ITERS, VS_TIMED_N, VS_WARM, VS_TIMED = 400, 60, 4096, 5, 10
+# phase 35: tpu_acceptance.py:416-436's MOSVGP (X uniform on [-2, 2]^2,
+# f = sin(2 x_0) + 0.5 x_1; tasks Gaussian(0.1) on f and logistic on
+# sign(f - 0.2); Z = X[:512], Q=2, AnalyticSVI(16384), fixed kernel, the
+# default Adam(0.01) on A, 100 iterations, RMSE of task 0 on X[:2048]
+# < 0.35); 35h the same with Adam(0.01) on the kernel every 3rd iteration
+MO_N, MO_M, MO_B, MO_Q, MO_ITERS, MO_RMSE, MO_EVAL = 30_000, 512, 16_384, 2, 100, 0.35, 2048
+MO_TIMED = 100
+# phase 36: (a) tpu_acceptance.py:591-610 (N=2,048, Z = X[:32], full batch,
+# 80 iterations; mo_proba_y on X[:1024]: the logistic task's mean p on
+# y = 1 minus on y = -1 above 0.2, p in [0, 1]); (b) tpu_acceptance.py:
+# 187-202's model (N=512, Z = X[:16], full batch, 60 iterations, RMSE of
+# task 0 on X[:256] < 0.35) with one latent, Q=1: kernels 6 + 7; (c)
+# tests/test_movgp.py's per-task check (a MOVGP on 60 points of a GP draw,
+# Gaussian(0.01) + logistic tasks, 60 iterations: RMSE < 0.3; its accuracy
+# > 0.85 holds there because its draw's labels are 93 % one class, the one
+# the model predicts everywhere: on a numpy draw both packages predict one
+# class too, so here the logistic task's labels and probabilities are held
+# to the CPU's float64 run on the same data, MV_AGREE of the labels)
+PA_N, PA_M, PA_ITERS, PA_SEP = 2048, 32, 80, 0.2
+Q1_N, Q1_M, Q1_ITERS = 512, 16, 60
+MV_N, MV_ITERS, MV_RMSE, MV_AGREE = 60, 60, 0.3, 0.95
+# phase 37: tests/test_engines.py:311-326 (sin over 200 points of 8 pi, lag
+# 5, SVGP + Gaussian(1e-3) on Z = Xl[:20], 15 full-batch iterations;
+# predict_ar's mean |error| over 20 steps < 0.5, sample_ar 4 x 10), then
+# sample_ar's 1,024 trajectories x 100 steps timed
+AR_LAG, AR_ITERS, AR_STEPS, AR_MAE, AR_TIMED = 5, 15, 20, 0.5, (1024, 100)
+# floors from ``python3 chip_smoke.py slice-h-cpu`` (the same paths in
+# float64 on the card's host's CPU, CPU draws): RMSE 0.06239 (VStP),
+# 0.00892 and 0.00966 (phase 35 and 35h), 0.15519 (Q=1).  Each is about
+# three times the CPU's error, inside the reference's bound (0.3, 0.35):
+# for Q=1 three times would pass it, so the reference's bound stays.
+SLICE_H_FLOORS = {"vstp": 0.19, "mo": 0.027, "mo_q1": MO_RMSE}
+MO_PARITY_B = PAIR_PARITY_B
+
+
+def vstp_data(n, device, dtype=torch.float32, seed=0):
+    """Phase 34's data made with numpy: (X, f, y)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2, 2, size=(n, 2))
+    f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+    y = f + 0.05 * rng.normal(size=n)
+    y[::29] += 8.0
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in (X, f, y))
+
+
+def vstp_run(agt, ck, device, n=VS_N, dtype=torch.float32, timed=False):
+    """Phase 34's VStP through agp_tpu_torch.train: {"rmse", "chi" (the
+    prior's scale, [L]), "seconds"}, with no kernel launch on the card;
+    ``timed``: then VS_WARM and VS_TIMED iterations more, "ips", "idle"
+    (profiled over 3 iterations) and "peak_gib"."""
+    X, f, y = vstp_data(n, device, dtype)
+    model = agt.VStP.create(X, y, agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI(),
+                            nu=5.0, optimiser=None)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, iterations=VS_ITERS)
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0, "chi": state.prior_state["chi"].double().cpu()}
+    if cuda:
+        expect_launches(ck, f"vstp N={n}", {})
+    out["rmse"] = float(torch.sqrt(torch.mean((agt.predict_f(model, state, X) - f) ** 2)))
+    if timed:
+        model, state = agt.train(model, iterations=VS_WARM, state=state)
+        sync(device)
         t0 = time.perf_counter()
-        vi_steps(model, state, X, y_t, n, generator=gen)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) / n * 1e6
-    events = prof.key_averages()
-    rows = sorted(((e.self_device_time_total / n, e.count / n, e.key) for e in events
-                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) / n
-    log(f"profile numerical {which}: wall {wall_us:.1f} us/step, device busy {busy:.1f} us/step, idle share "
-        f"{1 - busy / wall_us:.4f}, {launches:.1f} kernel launches/step, {sum(r[1] for r in rows):.1f} device ops/step")
-    for us, count, key in rows[:15]:
-        log(f"  {us:10.1f} us/step  x{count:.1f}  {key[:100]}")
+        model, state = agt.train(model, iterations=VS_TIMED, state=state)
+        sync(device)
+        out["ips"] = VS_TIMED / (time.perf_counter() - t0)
+        out["idle"] = profile_window(lambda: agt.train(model, iterations=3, state=state), 3)["idle_share"]
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def phase_vstp(agt, ck, device):
+    """Phase 34: the VStP check (its RMSE under the reference's 0.3 and the
+    floor, chi finite and positive on every latent, no kernel launch), then
+    the same model at N=VS_TIMED_N timed (it/s, idle share, peak memory)."""
+    r = vstp_run(agt, ck, device)
+    chi_ok = bool(torch.isfinite(r["chi"]).all()) and bool((r["chi"] > 0).all())
+    log(f"vstp (N={VS_N}, {VS_ITERS} iterations, 0 kernel launches): RMSE {r['rmse']:.5f} (floor "
+        f"{SLICE_H_FLOORS['vstp']}), chi {r['chi'].tolist()}, {r['seconds']:.3f} s")
+    if not (chi_ok and r["rmse"] < SLICE_H_FLOORS["vstp"]):
+        raise AssertionError(f"vstp: RMSE {r['rmse']:.5f}, chi {r['chi'].tolist()}")
+    t = vstp_run(agt, ck, device, n=VS_TIMED_N, timed=True)
+    log(f"vstp N={VS_TIMED_N}: {VS_ITERS} iterations in {t['seconds']:.3f} s, steady {t['ips']:.2f} iterations/s "
+        f"over {VS_TIMED}, idle share {t['idle']:.4f}, peak {t['peak_gib']:.3f} GiB, RMSE {t['rmse']:.5f}, "
+        f"0 kernel launches")
+    if not (bool(torch.isfinite(t["chi"]).all()) and t["rmse"] < SLICE_H_FLOORS["vstp"]):
+        raise AssertionError(f"vstp N={VS_TIMED_N}: RMSE {t['rmse']:.5f}, chi {t['chi'].tolist()}")
+    return {"rmse": r["rmse"], "ips": t["ips"], "idle": t["idle"], "peak_gib": t["peak_gib"]}
+
+
+def mo_data(n, device, dtype=torch.float32, seed=0):
+    """tpu_acceptance.py's _toy rule made with numpy, and its two tasks:
+    (X, f, (f, sign(f - 0.2)))."""
+    X = np.random.default_rng(seed).uniform(-2, 2, size=(n, 2))
+    f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+    X, f, y2 = (torch.as_tensor(a, dtype=dtype, device=device) for a in (X, f, np.sign(f - 0.2)))
+    return X, f, (f, y2)
+
+
+def mo_model(agt, X, m=MO_M, b=MO_B, q=MO_Q, optimiser=None, atfrequency=1):
+    """A MOSVGP on Z = X[:m] (full batch when b is None) over
+    Gaussian(0.1) + logistic tasks, its A drawn on the CPU with seed 0 so
+    that the card's and the CPU's runs start from the same A."""
+    liks = [agt.GaussianLikelihood.create(0.1), agt.LogisticLikelihood.create()]
+    inference = agt.AnalyticVI() if b is None else agt.AnalyticSVI(b)
+    return seeded_A(agt.MOSVGP.create(agt.SqExponentialKernel(), liks, inference, X[:m], n_latent=q,
+                                      optimiser=optimiser, atfrequency=atfrequency))
+
+
+def seeded_A(model):
+    """``model`` with an A drawn on the CPU with seed 0 (rows normalized),
+    the same on the card and on the CPU."""
+    A = torch.randn(tuple(model.A.shape), generator=torch.Generator().manual_seed(0), dtype=model.A.dtype)
+    return model.replace(A=(A / torch.linalg.norm(A, dim=1, keepdim=True)).to(model.A.device))
+
+
+def mo_treated(model, ys):
+    """(model, ys) with the labels treated and cast as mo_train treats them."""
+    from agp_tpu_torch.models.base import match_dtype
+
+    out, liks = [], []
+    for lik, y in zip(model.likelihoods, ys):
+        y2, lik2 = lik.treat_labels(y)
+        out.append(match_dtype(y2, model.Z))
+        liks.append(lik2)
+    return model.replace(likelihoods=tuple(liks)), tuple(out)
+
+
+def mo_steps(model, state, X, ys, n, gen=None, draws=None):
+    """n multi-output CAVI steps (treated labels) without mo_train's setup
+    and its final kmat."""
+    from agp_tpu_torch.models import multioutput
+
+    for x_b, ys_b in multioutput._mo_batches(model, X, ys, n, draws, gen):
+        model, state = multioutput.mo_variational_update(model, state, x_b, ys_b)
+        state = state.replace(step=state.step + 1)
+    return model, state
+
+
+def mo_run(agt, ck, device, hyper=False, dtype=torch.float32):
+    """Phase 35 (35h with ``hyper``) through agp_tpu_torch.mo_train: {"rmse"
+    (task 0 on X[:MO_EVAL]), "finite", "moved", "seconds", "launches"};
+    on the card the exact launches (kernels 4 and 5 once a step, kernel 4
+    once more a hyperparameter step), then "ips" over MO_TIMED steps,
+    "idle" and "launches_per_step" over 10 profiled steps, "peak_gib"."""
+    X, f, ys = mo_data(MO_N, device, dtype)
+    model = mo_model(agt, X, optimiser=agt.adam(0.01) if hyper else None, atfrequency=3 if hyper else 1)
+    log0 = log_hypers(model)
+    gen = torch.Generator(device=device).manual_seed(0)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    model, state = agt.mo_train(model, X, ys, iterations=MO_ITERS, generator=gen)
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0, "moved": float((log_hypers(model) - log0).abs().max())}
+    hyper_steps = len([i for i in range(3, MO_ITERS) if i % 3 == 0]) if hyper else 0
+    if cuda:
+        out["launches"] = expect_launches(ck, "mo" + ("h" if hyper else ""), route_launches(MO_ITERS, "batched")
+                                          | {"fused_kappa_moments_batched": MO_ITERS + hyper_steps})
+    mu, var = agt.mo_predict_f(model, state, X[:MO_EVAL])
+    out["finite"] = bool(torch.isfinite(mu).all() and torch.isfinite(var).all() and torch.isfinite(state.mu).all())
+    out["rmse"] = float(torch.sqrt(torch.mean((mu[0] - f[:MO_EVAL]) ** 2)))
+    out["A_rows"] = float((torch.linalg.norm(model.A, dim=1) - 1).abs().max())
+    if cuda and not hyper:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        model, ys_t = mo_treated(model, ys)
+        sync(device)
+        t0 = time.perf_counter()
+        model, state = mo_steps(model, state, X, ys_t, MO_TIMED, gen)
+        sync(device)
+        out["ips"] = MO_TIMED / (time.perf_counter() - t0)
+        prof = profile_window(lambda: mo_steps(model, state, X, ys_t, 10, gen), 10)
+        out["idle"], out["launches_per_step"], out["busy_us"] = prof["idle_share"], prof["launches"], prof["busy_us"]
+    return out
+
+
+def check_mo(which, r, floor):
+    if not (r["finite"] and r["rmse"] < MO_RMSE and r["rmse"] < floor and r["A_rows"] <= 1e-5):
+        raise AssertionError(f"{which}: RMSE {r['rmse']:.5f} (bound {MO_RMSE}, floor {floor}), finite {r['finite']}, "
+                             f"A's rows off unit norm by {r['A_rows']:.2e}")
+
+
+def phase_mo(agt, ck, device):
+    """Phase 35: the MOSVGP at full width (exactly MO_ITERS launches each of
+    kernels 4 and 5, none of 1-3, 6, 7), its RMSE under the reference's
+    bound and the floor, A's rows unit-norm, its steady rate, idle share,
+    launches a step and peak memory; 35h with Adam on the kernel (kernel 4
+    once more a hyperparameter step), the log-hyperparameters moved."""
+    r = mo_run(agt, ck, device)
+    check_mo("mo", r, SLICE_H_FLOORS["mo"])
+    log(f"mo (N={MO_N}, M={MO_M}, B={MO_B}, Q={MO_Q}, {MO_ITERS} iterations through agp_tpu_torch.mo_train): "
+        f"{r['seconds']:.3f} s, {r['launches']} launches, RMSE {r['rmse']:.5f} (bound {MO_RMSE}, floor "
+        f"{SLICE_H_FLOORS['mo']}); steady {r['ips']:.1f} iterations/s over {MO_TIMED}, idle share {r['idle']:.4f}, "
+        f"{r['launches_per_step']:.1f} launches and {r['busy_us']:.1f} us of device time a step (profiled), "
+        f"peak {r['peak_gib']:.3f} GiB")
+    h = mo_run(agt, ck, device, hyper=True)
+    check_mo("mo hyper", h, SLICE_H_FLOORS["mo"])
+    if not h["moved"] > MIN_HYPER_MOVE:
+        raise AssertionError(f"mo hyper: the log-hyperparameters moved by {h['moved']:.3e}")
+    log(f"mo 35h (Adam(0.01) on the kernel every 3rd iteration): {h['seconds']:.3f} s, {h['launches']} launches, "
+        f"RMSE {h['rmse']:.5f}, log-hyperparameters moved {h['moved']:.4f}")
+    return {k: r[k] for k in ("rmse", "seconds", "ips", "idle", "launches_per_step", "busy_us", "peak_gib")} | {
+        "hyper_rmse": h["rmse"], "hyper_seconds": h["seconds"], "hyper_moved": h["moved"]}
+
+
+def gp_draw(n, seed):
+    """tests/testingtools.generate_f's rule made with numpy: X uniform on
+    [0, 1]^2, f a draw of the unit squared-exponential GP (+1e-5 I); a
+    second task's g from the same X."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, 2))
+    K = np.exp(-0.5 * ((X[:, None] - X[None]) ** 2).sum(-1)) + 1e-5 * np.eye(n)
+    L = np.linalg.cholesky(K)
+    return X, L @ rng.normal(size=n), L @ rng.normal(size=n)
+
+
+def mo_small_runs(agt, ck, device, dtype=torch.float32):
+    """Phase 36's three paths, each with its exact launches on the card:
+    {"proba": (separation, p in [0, 1] and the regression task finite),
+    "q1": RMSE, "movgp": (RMSE, accuracy, proba_y's accuracy)}."""
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+
+    def train(label, model, X, ys, iters, route):
+        if cuda:
+            reset_launches(ck)
+        model, state = agt.mo_train(model, X, ys, iterations=iters)
+        if cuda:
+            expect_launches(ck, label, route_launches(iters, route))
+        return model, state
+
+    X, f, ys = mo_data(PA_N, device, dtype, seed=1)
+    model, state = train("mo proba", mo_model(agt, X, m=PA_M, b=None), X, ys, PA_ITERS, "batched")
+    (mean, var), p = agt.mo_proba_y(model, state, X[:1024])
+    y2 = ys[1][:1024]
+    out["proba"] = (float(p[y2 > 0].mean() - p[y2 < 0].mean()), bool(((p >= 0) & (p <= 1)).all()),
+                    bool(torch.isfinite(mean).all() and torch.isfinite(var).all()))
+    X, f, ys = mo_data(Q1_N, device, dtype, seed=2)
+    model, state = train("mo q1", mo_model(agt, X, m=Q1_M, b=None, q=1), X, ys, Q1_ITERS, "single")
+    out["q1"] = float(torch.sqrt(torch.mean((agt.mo_predict_f(model, state, X[:256])[0][0] - f[:256]) ** 2)))
+    out["movgp"] = movgp_run(agt, device, dtype, train)
+    return out
+
+
+def movgp_run(agt, device, dtype, train=None):
+    """Phase 36c's MOVGP: (RMSE of the Gaussian task, the logistic task's
+    accuracy, its predicted labels and probabilities on the CPU)."""
+    X, f1, f2 = gp_draw(MV_N, seed=3)
+    y_cls = np.sign(f1 + 0.3 * f2)
+    X, y_reg, y_cls = (torch.as_tensor(a, dtype=dtype, device=device) for a in (X, f1, y_cls))
+    liks = [agt.GaussianLikelihood.create(0.01), agt.LogisticLikelihood.create()]
+    model = seeded_A(agt.MOVGP.create(X, liks, agt.SqExponentialKernel(), agt.AnalyticVI(), n_latent=2,
+                                      optimiser=None))
+    if train is None:
+        model, state = agt.mo_train(model, X, (y_reg, y_cls), iterations=MV_ITERS)
+    else:
+        model, state = train("movgp", model, X, (y_reg, y_cls), MV_ITERS, "batched")
+    pred = agt.mo_predict_y(model, state, X)
+    (_, _), p_cls = agt.mo_proba_y(model, state, X)
+    return (float(torch.sqrt(torch.mean((pred[0] - y_reg) ** 2))), float((pred[1] == y_cls).double().mean()),
+            pred[1].double().cpu(), p_cls.double().cpu())
+
+
+def phase_mo_small(agt, ck, device):
+    """Phase 36: mo_proba_y's check, a Q=1 MOSVGP (kernels 6 + 7 once a step)
+    with its floor, and the MOVGP per-task check: its RMSE threshold, its
+    logistic task's labels and probabilities against the CPU's float64 run
+    on the same data."""
+    r = mo_small_runs(agt, ck, device)
+    sep, in_01, finite = r["proba"]
+    rmse_v, acc, labels, p = r["movgp"]
+    _, acc_cpu, labels_cpu, p_cpu = movgp_run(agt, "cpu", torch.float64)
+    agree, dp = float((labels == labels_cpu).double().mean()), float((p - p_cpu).abs().max())
+    log(f"mo_proba_y (N={PA_N}, M={PA_M}, Q=2, {PA_ITERS} iterations, kernels 4 + 5): separation {sep:.5f} "
+        f"(> {PA_SEP}), p in [0, 1] {in_01}, regression task finite {finite}; Q=1 (N={Q1_N}, M={Q1_M}, "
+        f"{Q1_ITERS} iterations, kernels 6 + 7): RMSE {r['q1']:.5f} (floor {SLICE_H_FLOORS['mo_q1']}); MOVGP "
+        f"(N={MV_N}): RMSE {rmse_v:.5f} (< {MV_RMSE}), the logistic task's accuracy {acc:.4f} (the CPU's float64 "
+        f"{acc_cpu:.4f}), its labels agree with the CPU's on {agree:.4f} (>= {MV_AGREE}), p within {dp:.2e}")
+    if not (sep > PA_SEP and in_01 and finite):
+        raise AssertionError(f"mo_proba_y: {r['proba']}")
+    if not r["q1"] < SLICE_H_FLOORS["mo_q1"]:
+        raise AssertionError(f"mo q1: RMSE {r['q1']:.5f}")
+    if not (rmse_v < MV_RMSE and agree >= MV_AGREE and dp <= 1e-2):
+        raise AssertionError(f"movgp: RMSE {rmse_v:.5f}, agreement {agree:.4f}, p within {dp:.2e}")
+    return {"proba": r["proba"], "q1": r["q1"], "movgp": (rmse_v, acc, agree, dp)}
+
+
+def ar_model(agt, device, dtype=torch.float32):
+    """Phase 37's series, lag windows and SVGP."""
+    series = torch.sin(torch.linspace(0, 8 * np.pi, 200, dtype=torch.float64)).to(device=device, dtype=dtype)
+    Xl = torch.stack([series[i:i + AR_LAG] for i in range(200 - AR_LAG)])
+    model = agt.SVGP.create(agt.SqExponentialKernel(), agt.GaussianLikelihood.create(1e-3), agt.AnalyticVI(),
+                            Z=Xl[:20], optimiser=None)
+    return series, Xl, series[AR_LAG:], model
+
+
+def phase_ar(agt, ck, device):
+    """Phase 37: the AR check (kernel 1 once a training step; the rollouts
+    launch nothing), predict_ar's MAE, sample_ar's 4 x 10 trajectories
+    finite, then sample_ar's AR_TIMED trajectories x steps timed (ms a
+    step, host reads)."""
+    from agp_tpu_torch.utils.tensors import host_read
+
+    series, Xl, yl, model = ar_model(agt, device)
+    reset_launches(ck)
+    model, state = agt.train(model, Xl, yl, iterations=AR_ITERS)
+    sync(device)
+    expect_launches(ck, "ar training", route_launches(AR_ITERS, "fused"))
+    reset_launches(ck)
+    preds = agt.predict_ar(model, state, series[-AR_LAG:], AR_STEPS)
+    dt = (torch.linspace(0, 8 * np.pi, 200, dtype=torch.float64)[1]).item()
+    future = torch.sin(8 * np.pi + dt * torch.arange(1, AR_STEPS + 1, dtype=torch.float64))
+    mae = float((preds.double().cpu() - future).abs().mean())
+    traj = agt.sample_ar(model, state, series[-AR_LAG:], n_steps=10, n_samples=4,
+                         generator=torch.Generator(device=device).manual_seed(0))
+    n_traj, n_steps = AR_TIMED
+    agt.sample_ar(model, state, series[-AR_LAG:], n_steps=3, n_samples=n_traj)
+    reads = host_read.reads
+    sync(device)
+    t0 = time.perf_counter()
+    big = agt.sample_ar(model, state, series[-AR_LAG:], n_steps=n_steps, n_samples=n_traj)
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    reads = host_read.reads - reads
+    expect_launches(ck, "ar rollouts", {})
+    log(f"ar: predict_ar MAE over {AR_STEPS} steps {mae:.5f} (< {AR_MAE}), sample_ar {tuple(traj.shape)} finite "
+        f"{bool(torch.isfinite(traj).all())}; sample_ar {n_traj} x {n_steps}: {ms:.4f} ms a step, {reads} host reads, "
+        f"finite {bool(torch.isfinite(big).all())}; the rollouts launched no kernel")
+    if not (mae < AR_MAE and traj.shape == (4, 10) and bool(torch.isfinite(traj).all())
+            and bool(torch.isfinite(big).all()) and reads == 0):
+        raise AssertionError(f"ar: MAE {mae:.5f}, trajectories {tuple(traj.shape)}, {reads} host reads")
+    return {"mae": mae, "ms_a_step": ms, "reads": reads}
+
+
+def mo_after_20(agt, X, ys, draws, perm=None):
+    """mu (in Z's own order) and A after 20 steps of phase 35's model at
+    B=MO_PARITY_B on (X, ys) from the given draws, as float64 on the CPU;
+    ``perm`` reorders the inducing points."""
+    model = mo_model(agt, X, b=MO_PARITY_B)
+    if perm is not None:
+        model = model.replace(Z=model.Z[:, perm].contiguous())
+    model, ys_t = mo_treated(model, ys)
+    state = agt.mo_init_state(model, X, ys_t)
+    model, state = mo_steps(model, state, X, ys_t, 20, draws=draws.to(X.device))
+    mu = state.mu.double().cpu()
+    return (mu if perm is None else mu[:, torch.argsort(perm)]), model.A.double().cpu()
+
+
+def mo_err(a, b):
+    """max |d mu| / max |mu| and max |d A| between two mo_after_20 results."""
+    return max(float((a[0] - b[0]).abs().max() / b[0].abs().max()), float((a[1] - b[1]).abs().max()))
+
+
+def phase_mo_parity(agt, ck, device):
+    """20 steps of phase 35's model on N=PN rows at B=MO_PARITY_B from fed
+    iid indices: card (float32) against CPU (float32) within
+    ORACLE_DEVICE_FACTOR times the CPU's own float32 noise (the CPU run
+    again with Z reordered), with no fixed floor; the card against the card
+    with the plain versions in kernels 4 and 5's place within that noise."""
+    t0 = time.perf_counter()
+    Xc, _, ysc = mo_data(PN, "cpu", seed=1)
+    draws = torch.randint(0, PN, (20, MO_PARITY_B), generator=torch.Generator().manual_seed(1))
+    Xd, ysd = Xc.to(device), tuple(y.to(device) for y in ysc)
+    cpu = mo_after_20(agt, Xc, ysc, draws)
+    card = mo_after_20(agt, Xd, ysd, draws)
+    with plain_kernels(ck, SPLIT_PAIRS):
+        card_plain = mo_after_20(agt, Xd, ysd, draws)
+    perm = torch.randperm(MO_M, generator=torch.Generator().manual_seed(2))
+    noise = mo_err(mo_after_20(agt, Xc, ysc, draws, perm), cpu)
+    e, e_plain = mo_err(card, cpu), mo_err(card, card_plain)
+    tol = ORACLE_DEVICE_FACTOR * noise
+    log(f"mo parity (N={PN}, B={MO_PARITY_B}, M={MO_M}, 20 steps; mu and A): card (float32) vs CPU (float32) {e:.3e} "
+        f"(bound {tol:.3e}, {e / tol:.3f} of it), vs the card with the plain versions {e_plain:.3e} (bound "
+        f"{noise:.3e}, {e_plain / noise:.3f} of it); CPU with Z reordered vs CPU {noise:.3e}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (e <= tol and e_plain <= noise):
+        raise AssertionError(f"mo parity: {e:.3e} (bound {tol:.3e}), {e_plain:.3e} (bound {noise:.3e})")
+    return {"card_cpu": e, "card_plain": e_plain, "noise": noise}
+
+
+def profile_mo(agt, device):
+    """``python3 chip_smoke.py profile mo``: torch.profiler over 20 steps of
+    phase 35's model after 30: wall and device-busy time a step, the idle
+    share, launches and device ops a step, the device time by kernel."""
+    X, _, ys = mo_data(MO_N, device)
+    model, ys_t = mo_treated(mo_model(agt, X), ys)
+    state = agt.mo_init_state(model, X, ys_t)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model, state = mo_steps(model, state, X, ys_t, 30, gen)
+    p = profile_window(lambda: mo_steps(model, state, X, ys_t, 20, gen), 20)
+    log_profile("profile mo", p, 25)
+    return p
+
+
+def slice_h_mode(agt, ck, device):
+    """``python3 chip_smoke.py slice-h``: phases 34-37 alone."""
+    out = {"vstp": timed_phase("vstp", phase_vstp, agt, ck, device)}
+    out["mo"] = timed_phase("mo", phase_mo, agt, ck, device)
+    out["mo_small"] = timed_phase("mo small paths", phase_mo_small, agt, ck, device)
+    out["mo_parity"] = timed_phase("mo parity", phase_mo_parity, agt, ck, device)
+    out["ar"] = timed_phase("ar", phase_ar, agt, ck, device)
+    return out
+
+
+def slice_h_cpu_mode(agt):
+    """``python3 chip_smoke.py slice-h-cpu``: the paths of phases 34-37 in
+    float64 on the host's CPU, CPU draws, no floors held: the source of
+    SLICE_H_FLOORS."""
+    from agp_tpu_torch.ops import cuda_kernels as ck
+
+    torch.set_num_threads(min(torch.get_num_threads(), 8))
+    r = vstp_run(agt, ck, "cpu", dtype=torch.float64)
+    log(f"vstp on the CPU, float64: RMSE {r['rmse']:.5f}, chi {r['chi'].tolist()}, {r['seconds']:.2f} s")
+    for hyper in (False, True):
+        r = mo_run(agt, ck, "cpu", hyper=hyper, dtype=torch.float64)
+        log(f"mo{'h' if hyper else ''} on the CPU, float64: RMSE {r['rmse']:.5f}, moved {r['moved']:.4f}, "
+            f"{r['seconds']:.2f} s")
+    r = mo_small_runs(agt, ck, "cpu", torch.float64)
+    log(f"mo small paths on the CPU, float64: mo_proba_y {r['proba']}, Q=1 RMSE {r['q1']:.5f}, MOVGP RMSE "
+        f"{r['movgp'][0]:.5f}, accuracy {r['movgp'][1]:.4f}")
 
 
 PHASE_SECONDS = {}
@@ -4813,6 +5301,11 @@ def main():
         import agp_tpu_torch as agt
 
         numerical_cpu_mode(agt)
+        return
+    if sys.argv[1:] == ["slice-h-cpu"]:  # the host's CPU alone, no card needed
+        import agp_tpu_torch as agt
+
+        slice_h_cpu_mode(agt)
         return
     device = phase_device()
     args = sys.argv[1:]
@@ -4893,6 +5386,12 @@ def main():
     if args[:2] == ["profile", "dense"]:
         profile_dense(agt, device, args[2] if len(args) > 2 else "gp")
         return
+    if args == ["slice-h"]:
+        slice_h_mode(agt, ck, device)
+        return
+    if args[:2] == ["profile", "mo"]:
+        profile_mo(agt, device)
+        return
     if args[:2] == ["profile", "hyper"]:
         profile_hyper_path(agt, device, args[2] if len(args) > 2 else "A")
         return
@@ -4942,6 +5441,7 @@ def main():
     samplers_mode(agt, ck, device)
     online_mode(agt, ck, device)
     numerical_mode(agt, ck, device)
+    slice_h_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {

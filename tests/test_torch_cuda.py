@@ -1035,3 +1035,88 @@ def test_cuda_numerical_refuses_float64(cuda_device):
                             X[:8].float(), optimiser=None)
     _, state = agt.train(model, X.float(), y.float(), iterations=2)
     assert torch.isfinite(state.mu).all()
+
+
+# ---------------------------------- Slice H: VStP, multi-output models, AR
+def mo_after(model, X, ys, draws, perm=None):
+    """mu (in Z's own order) and A after len(draws) multi-output steps of
+    ``model`` on (X, ys) from the fed minibatch indices, as float64 on the
+    CPU."""
+    if perm is not None:
+        model = model.replace(Z=model.Z[:, perm].contiguous())
+    model, ys = smoke.mo_treated(model, ys)
+    state = agt.mo_init_state(model, X, ys)
+    model, state = smoke.mo_steps(model, state, X, ys, draws.shape[0], draws=draws.to(X.device))
+    mu = state.mu.double().cpu()
+    return (mu if perm is None else mu[:, torch.argsort(perm)]), model.A.double().cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 1])
+def test_cuda_mo_step_launches_and_matches_cpu(cuda_device, q):
+    """5 multi-output steps (Gaussian + logistic tasks, M=128, B=512) from
+    fed indices launch kernels 4 + 5 (Q=2) or 6 + 7 (Q=1) once a step and
+    nothing else; mu and A within 10 times the CPU's own float32 noise of
+    the CPU's (the CPU run again with Z reordered)."""
+    X, _, ys = smoke.mo_data(2048, "cpu", seed=4)
+    draws = torch.randint(0, 2048, (5, 512), generator=torch.Generator().manual_seed(0))
+    build = lambda X: smoke.mo_model(agt, X, m=128, b=512, q=q)  # noqa: E731
+    smoke.reset_launches(ck)
+    card = mo_after(build(X.to(cuda_device)), X.to(cuda_device), tuple(y.to(cuda_device) for y in ys), draws)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, f"mo q={q}", smoke.route_launches(5, "batched" if q > 1 else "single"))
+    cpu = mo_after(build(X), X, ys, draws)
+    noise = smoke.mo_err(mo_after(build(X), X, ys, draws, torch.randperm(128, generator=torch.Generator().manual_seed(1))),
+                         cpu)
+    assert torch.isfinite(card[0]).all()
+    assert smoke.mo_err(card, cpu) <= 10 * noise, (smoke.mo_err(card, cpu), noise)
+
+
+@pytest.mark.cuda
+def test_cuda_slice_h_models_refuse_float64(cuda_device):
+    """A float64 VStP or MOSVGP on the card is refused at create: TypeError
+    naming float32."""
+    X, y = toy_on(cuda_device, 64, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        agt.VStP.create(X, y, agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI(), nu=5.0)
+    with pytest.raises(TypeError, match="float32"):
+        agt.MOSVGP.create(agt.SqExponentialKernel(), [agt.GaussianLikelihood.create(0.1)], agt.AnalyticVI(), X[:8], 2)
+
+
+@pytest.mark.cuda
+def test_cuda_movgp_over_the_kernel_range_refused(cuda_device):
+    """A MOVGP whose N (its M) passes kernel 4's range (Q=2) or kernel 6's
+    (Q=1) is refused at create with a ValueError naming the limit."""
+    for q, which in ((2, "moments"), (1, "single")):
+        limit = ck.kappa_max_m(which)
+        X, y = toy_on(cuda_device, limit + 1)
+        with pytest.raises(ValueError, match=f"M <= {limit}"):
+            agt.MOVGP.create(X, [agt.GaussianLikelihood.create(0.1)], agt.SqExponentialKernel(), agt.AnalyticVI(), q)
+    agt.MOVGP.create(X[:64], [agt.GaussianLikelihood.create(0.1)], agt.SqExponentialKernel(), agt.AnalyticVI(), 2)
+
+
+@pytest.mark.cuda
+def test_cuda_vstp_and_rollouts_launch_no_kernel(cuda_device):
+    """A VStP trains on the card with no launch of any kernel of the port,
+    chi finite and positive; predict_ar and sample_ar launch none either
+    and read nothing back to the host."""
+    from agp_tpu_torch.utils.tensors import host_read
+
+    X, y = toy_on(cuda_device, 256)
+    model = agt.VStP.create(X, y, agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI(),
+                            nu=5.0)
+    smoke.reset_launches(ck)
+    model, state = agt.train(model, iterations=6)
+    torch.cuda.synchronize()
+    assert smoke.expect_launches(ck, "vstp", {}) == 0
+    chi = state.prior_state["chi"]
+    assert chi.is_cuda and torch.isfinite(chi).all() and (chi > 0).all()
+    series, Xl, yl, ar = smoke.ar_model(agt, cuda_device)
+    ar, ars = agt.train(ar, Xl, yl, iterations=3)
+    smoke.reset_launches(ck)
+    reads = host_read.reads
+    preds = agt.predict_ar(ar, ars, series[-smoke.AR_LAG:], 5)
+    traj = agt.sample_ar(ar, ars, series[-smoke.AR_LAG:], 5, n_samples=8)
+    torch.cuda.synchronize()
+    assert smoke.expect_launches(ck, "rollouts", {}) == 0 and host_read.reads == reads
+    assert preds.is_cuda and traj.shape == (8, 5) and torch.isfinite(traj).all()

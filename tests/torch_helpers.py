@@ -92,7 +92,8 @@ def adam_state_arrays(hyper_state):
 def state_arrays(s):
     """The JAX TrainState's leaves the port's state holds, as numpy (the
     Gaussian noise rule's local state as ``optax_adam_arrays``; a GP's
-    alpha and chol_Sigma, and no eta, moments or kmat)."""
+    alpha and chol_Sigma, and no eta, moments or kmat; a VStP's
+    prior_state)."""
     leaves = dict(
         eta1=s.eta1, eta2=s.eta2, mu=s.mu, Sigma=s.Sigma,
         opt_state=s.opt_state, rho=s.rho, step=s.step, alpha=s.alpha, chol_Sigma=s.chol_Sigma,
@@ -103,6 +104,8 @@ def state_arrays(s):
                          for k, v in s.local_vars.items()}
     if s.hyper_state is not None:
         out["hyper_state"] = adam_state_arrays(s.hyper_state)
+    if s.prior_state is not None:
+        out["prior_state"] = {k: np.array(v) for k, v in s.prior_state.items()}
     return out
 
 
@@ -543,3 +546,124 @@ def jax_kmat(mj):
     K = jax_batch_gram(mj.kernel, mj.train_x)
     L_K = jax.vmap(lambda k: jlinalg.safe_cholesky(k, jax_jitter(K.dtype)))(K)
     return {"L_K": L_K, "K_inv": jax.vmap(jlinalg.chol_inv)(L_K)}
+
+
+# ------------------------------------------- Slice H: VStP, MOSVGP, MOVGP
+def toy(n, d=2, seed=0):
+    """benchmarks/tpu_acceptance.py's toy rule made with numpy: X uniform
+    on [-2, 2]^d, f = sin(2 x_0) + 0.5 x_1."""
+    X = np.random.default_rng(seed).uniform(-2, 2, size=(n, d))
+    return X, np.sin(2 * X[:, 0]) + 0.5 * (X[:, 1] if d > 1 else 0.0)
+
+
+def grand_tour_data():
+    """examples/grand_tour.py's data: X uniform on [-2, 2]^2 from
+    PRNGKey(0) (120 points), f = sin(2 x_0) + 0.5 x_1, yr = f + 0.05 eps."""
+    X = np.array(jax.random.uniform(jax.random.PRNGKey(0), (120, 2), dtype=jnp.float64) * 4 - 2)
+    f = np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]
+    return X, f, f + 0.05 * np.random.RandomState(0).randn(120)
+
+
+def jax_vstp(X, y, lik, nu=5.0, **create):
+    """A JAX VStP (float64, lengthscale 1, fixed hyperparameters unless
+    ``create`` names an optimiser) and its initial state."""
+    m = agp.VStP.create(jnp.asarray(X), y, agp.SqExponentialKernel(lengthscale=jnp.asarray(1.0),
+                                                                   variance=jnp.asarray(1.0)),
+                        lik, agp.AnalyticVI(), nu=nu, **{"optimiser": None, **create})
+    return m, jax_init_state(m)
+
+
+def port_vstp(mj, sj, y_raw, optimiser=None):
+    """The port's copy of a JAX VStP and its state (``interop``)."""
+    lik, params = port_likelihood(mj.likelihood)
+    template = agt.VStP.create(t64(mj.train_x), y_raw, agt.SqExponentialKernel(), lik, agt.AnalyticVI(),
+                               nu=float(mj.nu), optimiser=optimiser)
+    mt = model_from_numpy(dict(train_x=np.array(mj.train_x), train_y=np.array(mj.train_y),
+                               lengthscale=np.array(mj.kernel.lengthscale), variance=np.array(mj.kernel.variance),
+                               prior_nu=np.array(mj.nu), **params), template)
+    return mt, state_from_numpy(state_arrays(sj), "cpu", torch.float64)
+
+
+def jax_mo(X, likelihoods, M, Q, batch=None, movgp=False, **create):
+    """A JAX MOSVGP on Z = X[:M] (or a MOVGP on X), float64, full batch
+    unless ``batch`` is given, A fixed and the hyperparameters fixed unless
+    ``create`` names optimisers."""
+    Xj = jnp.asarray(X)
+    kw = {"optimiser": None, "Aoptimiser": None, **create}
+    inference = agp.AnalyticVI() if batch is None else agp.AnalyticSVI(batch)
+    if movgp:
+        return agp.MOVGP.create(Xj, list(likelihoods), agp.SqExponentialKernel(), inference, n_latent=Q, **kw)
+    return agp.MOSVGP.create(agp.SqExponentialKernel(), list(likelihoods), inference, Xj[:M], n_latent=Q, **kw)
+
+
+def jax_mo_treat(mj, ys):
+    """(model with the labels' likelihoods, treated labels as float64 JAX
+    arrays), as ``mo_train`` treats them."""
+    out, liks = [], []
+    for lik, y in zip(mj.likelihoods, ys):
+        y2, lik2 = lik.treat_labels(y)
+        out.append(jnp.asarray(y2, jnp.float64))
+        liks.append(lik2)
+    return mj.replace(likelihoods=tuple(liks)), tuple(out)
+
+
+def jax_mo_draws(mj, sj, N, steps):
+    """The reference's iid minibatch indices of steps 0..steps-1
+    (``_mo_draw_batch``: fold_in(state.key, step), randint)."""
+    return np.stack([np.array(jax.random.randint(jax.random.fold_in(sj.key, i), (mj.inference.batchsize,), 0, N))
+                     for i in range(steps)])
+
+
+def mo_state_arrays(s, A=None):
+    """A JAX multi-output TrainState as ``interop.state_from_numpy`` takes
+    it: per-task local variables, A's optimiser state (optax's Adam as
+    ``optax_adam_arrays``; sgd, which keeps none, as the port's zero
+    trace of A's shape), and no hyperparameter state unless it has one."""
+    out = jax.tree_util.tree_map(lambda a: np.array(a), dict(
+        eta1=s.eta1, eta2=s.eta2, mu=s.mu, Sigma=s.Sigma, opt_state=s.opt_state, rho=s.rho, step=s.step,
+        kmat=dict(s.kmat)))
+    out["local_vars"] = [{k: np.array(v) for k, v in lv.items()} for lv in s.local_vars]
+    if s.A_state is not None:
+        adam = getattr(s.A_state[0], "mu", None) is not None
+        out["A_state"] = optax_adam_arrays(s.A_state) if adam else np.zeros_like(np.array(A))
+    if s.hyper_state is not None:
+        out["hyper_state"] = adam_state_arrays(s.hyper_state)
+    return out
+
+
+def port_mo(mj, sj, optimiser=None, Aoptimiser=None, inference=None, generator=None):
+    """The port's copy of a JAX multi-output model and its state
+    (``interop``): the same kernel, mean, Z, A and per-task likelihood
+    parameters, float64 on the CPU; ``inference`` (default the JAX model's
+    engine) replaces the port's."""
+    liks, params = zip(*(port_likelihood(lik) for lik in mj.likelihoods))
+    if inference is None:
+        inf = mj.inference
+        inference = agt.AnalyticSVI(inf.batchsize) if inf.stochastic else agt.AnalyticVI()
+    kw = dict(n_latent=mj.n_latent, optimiser=optimiser, Aoptimiser=Aoptimiser, atfrequency=mj.atfrequency,
+              generator=generator)
+    if type(mj).__name__ == "MOVGP":
+        template = agt.MOVGP.create(t64(mj.Z[0]), liks, agt.SqExponentialKernel(), inference, **kw)
+    else:
+        template = agt.MOSVGP.create(agt.SqExponentialKernel(), liks, inference, t64(mj.Z[0]), **kw)
+    mt = model_from_numpy(dict(Z=np.array(mj.Z), A=np.array(mj.A), lengthscale=np.array(mj.kernel.lengthscale),
+                               variance=np.array(mj.kernel.variance), likelihoods=list(params)), template)
+    return mt, state_from_numpy(mo_state_arrays(sj, mj.A), "cpu", torch.float64)
+
+
+def mo_close(mt, st, mj, sj, rtol, msg="", normwise=False):
+    """eta, mu, Sigma, A, each task's local variables and likelihood
+    parameters, and A's optimiser state at rtol (atol 1e-12); with
+    ``normwise`` eta, mu and Sigma with atol rtol times the array's largest
+    entry (a MOVGP, whose Kmm over its training inputs has a condition
+    number ~1e5, rounds its small entries at ~1e-11 of the largest)."""
+    for name in ("eta1", "eta2", "mu", "Sigma"):
+        ref = np.array(getattr(sj, name))
+        atol = rtol * np.abs(ref).max() if normwise else 1e-12
+        close(getattr(st, name), ref, rtol=rtol, atol=atol, msg=f"{msg}{name}")
+    close(mt.A, mj.A, rtol=rtol, msg=f"{msg}A")
+    for t, (lt, lj, vt, vj) in enumerate(zip(mt.likelihoods, mj.likelihoods, st.local_vars, sj.local_vars)):
+        locals_close(vt, vj, rtol, msg=f"{msg}task {t} ")
+        lik_params_close(lt, lj, rtol=rtol)
+    if sj.A_state is not None and getattr(sj.A_state[0], "mu", None) is not None:
+        adam_close(st.A_state, sj.A_state, rtol, msg=f"{msg}A_state ")
