@@ -35,7 +35,10 @@ each step), the multi-output ``MOSVGP`` and ``MOVGP`` (``mo_train``,
 ``mo_elbo``, ``mo_predict_f``, ``mo_predict_y``, ``mo_proba_y``: Q shared
 latents mixed into the tasks' rows, each step on the split pairs'
 kernels) and the autoregressive rollouts ``predict_ar`` and ``sample_ar``
-complete the model families.  Inputs without a device (numpy arrays,
+complete the model families.  ``checkpoint`` saves and loads (model,
+state), the JAX package's checkpoints too; ``parallel`` trains a sparse
+model data-parallel over ``torch.distributed`` (full-batch and minibatched
+CAVI, one process per device).  Inputs without a device (numpy arrays,
 lists) go to the CUDA card unless ``config.set_default_device("cpu")``
 was called.
 """
@@ -81,6 +84,7 @@ from .models.multioutput import (
 from .models.online_svgp import OnlineSVGP, online_elbo, online_train, online_train_stream
 from .models.svgp import SVGP, VGP
 from .models.vstp import VStP
+from .training import checkpoint
 from .training.ar_predict import predict_ar, sample_ar
 from .training.predictions import predict_f, predict_y, proba_y, sample_f
 from .training.autotuning import hyper_step
@@ -163,4 +167,5 @@ __all__ = [
     "adam",
     "sgd",
     "hyper_step",
+    "checkpoint",
 ]

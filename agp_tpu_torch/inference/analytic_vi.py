@@ -65,6 +65,7 @@ from ..ops.kl import gaussian_kl
 from ..ops.quadrature import expectation
 from ..ops.special import safe_expcosh
 from ..training.state import TrainState
+from ..utils.batch_sums import batch_sum
 from ..utils.opt import ascent_update
 
 
@@ -262,20 +263,31 @@ def _fused_scaled_inputs(model, x):
 
 
 # ----------------------------------------------------------------- CAVI step
-def variational_update(model, state: TrainState, x, y, w=None):
+def variational_update(model, state: TrainState, x, y, w=None, fused=None):
     """One blockwise coordinate-ascent update (E-step + natural gradient +
     global update); returns (model, state).
 
     ``w`` ([B] of 0/1, optional) zero-weights rows out of every cross-batch
-    statistic; a weighted batch takes the unfused path.  A Student-t
-    process (``is_tprior``) first updates its prior's scale
-    (``models/vstp.py::local_prior_updates``)."""
+    statistic; a weighted batch takes the unfused path.  ``fused`` None
+    takes the dispatch above; False the split pair whatever the shape;
+    True kernel 1's fused pass, and ``ValueError`` when it cannot take the
+    model or the batch is weighted.  A Student-t process (``is_tprior``)
+    first updates its prior's scale
+    (``models/vstp.py::local_prior_updates``).  Every sum over the batch
+    goes through ``utils.batch_sums.batch_sum``, so that a sharded step
+    sums it over its processes."""
     kmat = state.kmat
     if getattr(model, "is_tprior", False):
         state = local_prior_updates(model, state, x)
-    fused = _fused_spec(model) if w is None else None
-    if fused is not None:
-        kind, lik_name, p0, p1, c_key = fused
+    unweighted = w is None and fused is not False
+    spec = _fused_spec(model) if unweighted else None
+    if fused and spec is None:
+        raise ValueError(
+            "no fused statistics kernel (kernel 1) takes this step: it needs one latent, a kernel of "
+            "FUSED_KINDS, a likelihood of its eight, M <= 128 and an unweighted batch; use fused=None or False"
+        )
+    if spec is not None:
+        kind, lik_name, p0, p1, c_key = spec
         xs, zs, ls = _fused_scaled_inputs(model, x)
         # the kernel takes dense row-major operands (a no-op when they are)
         s1, S2, c, theta, mf, vf = cuda_kernels.fused_cavi_stats(
@@ -306,14 +318,14 @@ def variational_update(model, state: TrainState, x, y, w=None):
             lik = model.likelihood
             mf, vf = mf.to(x.dtype), vf.to(x.dtype)
             local["gamma"] = lik.lam * safe_expcosh(-mf / 2.0, c / 2.0) / 2.0
-            new_lam = torch.sum(y) / torch.sum(expectation(torch.sigmoid, mf, vf))
-            model = model.replace(likelihood=lik.replace(lam=new_lam))
+            sum_y, sum_es = batch_sum(torch.sum(y), torch.sum(expectation(torch.sigmoid, mf, vf)))
+            model = model.replace(likelihood=lik.replace(lam=sum_y / sum_es))
         state = _nat_update_from_stats(
             model, state.replace(local_vars=local), s1.to(x.dtype)[None], S2.to(x.dtype)[None], x
         )
         return model, state
 
-    kind = _fused_mc_spec(model) if w is None else None
+    kind = _fused_mc_spec(model) if unweighted else None
     if kind is not None:
         s1, S2, c, theta, gamma, alpha = cuda_kernels.fused_cavi_stats_multiclass(
             *_fused_multi_args(model, state, x, y),
@@ -328,7 +340,7 @@ def variational_update(model, state: TrainState, x, y, w=None):
         )
         return model, state
 
-    kind = _fused_het_spec(model) if w is None else None
+    kind = _fused_het_spec(model) if unweighted else None
     if kind is not None:
         lik = model.likelihood
         s1, S2, c, phi, gamma, theta, sigg = cuda_kernels.fused_cavi_stats_het(
@@ -340,7 +352,8 @@ def variational_update(model, state: TrainState, x, y, w=None):
         # lambda's closed-form update, on the device.  The kernel's E-step
         # used the old lambda, as local_updates does; f's gradients take the
         # new one, a batch-wide sum, as a scalar factor the kernel left out.
-        new_lam = torch.maximum(x.shape[0] / (2.0 * torch.sum(phi * (1.0 - sigg))), lik.lam)
+        n, s = batch_sum(x.shape[0], torch.sum(phi * (1.0 - sigg)))
+        new_lam = torch.maximum(n / (2.0 * s), lik.lam)
         model = model.replace(likelihood=lik.replace(lam=new_lam))
         scale = torch.stack([new_lam.to(x.dtype), torch.ones((), dtype=x.dtype, device=x.device)])
         s1 = s1.to(x.dtype) * scale[:, None]
@@ -391,7 +404,9 @@ def _dense_update(model, state: TrainState, gmu, gs, x) -> TrainState:
 def _nat_update_from_stats(model, state: TrainState, s1, stat2, x) -> TrainState:
     """Sparse natural-gradient global update given the two cross-data
     statistics s1 = kappa^T (rho gmu) [L, M] and
-    stat2 = kappa^T diag(rho gs) kappa [L, M, M]."""
+    stat2 = kappa^T diag(rho gs) kappa [L, M, M], summed over the processes
+    of a sharded step in one all-reduce."""
+    s1, stat2 = batch_sum(s1, stat2)
     K_inv = prior_precision(model, state)
     mu0 = prior_mean_stack(model, x)
     Kinv_mu0 = (K_inv @ mu0.unsqueeze(-1)).squeeze(-1)

@@ -7,6 +7,8 @@ reference.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -163,3 +165,106 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
         A_state=A_state,
         prior_state=None if prior is None else {k: f(v) for k, v in prior.items()},
     )
+
+
+# ------------------------------------------- the reference's checkpoints
+def _adam_paths(prefix, s, keys):
+    """The reference's leaves of optax's Adam state (a chain: its
+    ScaleByAdamState at [0]) against the port's {"count", "mu", "nu"}."""
+    out = [("state", f"{prefix}[0].count", keys + ("count",), s["count"])]
+    for part in ("mu", "nu"):
+        m = s[part]
+        if isinstance(m, dict):
+            out += [("state", f"{prefix}[0].{part}.{k}", keys + (part, k), v) for k, v in m.items()]
+        else:
+            out.append(("state", f"{prefix}[0].{part}", keys + (part,), m))
+    return out
+
+
+def _is_adam(s) -> bool:
+    return isinstance(s, dict) and set(s) == {"count", "mu", "nu"}
+
+
+def reference_leaf_table(model, state):
+    """The JAX package's flatten order of (model, state) for a port model
+    and state of the same family, as [(which, path, keys, template)]:
+    ``which`` "model" or "state", ``path`` the reference's leaf path as
+    ``jax.tree_util.keystr`` writes it, ``keys`` where the leaf goes in the
+    dicts :func:`model_from_numpy` and :func:`state_from_numpy` take (None
+    for the reference's PRNG key, which the port has no place for), and
+    the template's tensor there.  The order: flax fields in declaration
+    order, dict keys sorted, None empty; optax's states are chains whose
+    first member holds the leaves.  Families: SVGP, VGP, VStP, OnlineSVGP,
+    MOSVGP, MOVGP and the GP, with closed-form engines (a numerical
+    engine's optimiser state raises ``NotImplementedError``)."""
+    table = []
+    for f in dataclasses.fields(model):
+        value = getattr(model, f.name)
+        if f.name in ("kernel", "likelihood"):
+            table += [("model", f".{f.name}.{k}", (k,), v) for k, v in value.leaves().items()]
+        elif f.name == "likelihoods":
+            table += [("model", f".likelihoods[{i}].{k}", ("likelihoods", i, k), v)
+                      for i, lik in enumerate(value) for k, v in lik.leaves().items()]
+        elif f.name == "mean":
+            table += [("model", f".mean.{k}", ("mean_" + k,), v) for k, v in value.leaves().items()]
+        elif isinstance(value, torch.Tensor):
+            key = "prior_nu" if f.name == "nu" else f.name
+            table.append(("model", f".{f.name}", (key,), value))
+    for name in ("eta1", "eta2", "mu", "Sigma"):
+        if getattr(state, name) is not None:
+            table.append(("state", f".{name}", (name,), getattr(state, name)))
+    lv = state.local_vars
+    for i, d in (enumerate(lv) if isinstance(lv, (list, tuple)) else [(None, lv)]):
+        for k in sorted(d):
+            prefix = f".local_vars['{k}']" if i is None else f".local_vars[{i}]['{k}']"
+            keys = ("local_vars", k) if i is None else ("local_vars", i, k)
+            table += _adam_paths(prefix, d[k], keys) if _is_adam(d[k]) else [("state", prefix, keys, d[k])]
+    if isinstance(state.opt_state, torch.Tensor):
+        table.append(("state", ".opt_state", ("opt_state",), state.opt_state))
+    elif state.opt_state is not None:
+        raise NotImplementedError("a numerical engine's optimiser state has no reference mapping yet")
+    for group in sorted(state.hyper_state or {}):
+        table += _adam_paths(f".hyper_state['{group}']", state.hyper_state[group], ("hyper_state", group))
+    for k in sorted(state.kmat or {}):
+        table.append(("state", f".kmat['{k}']", ("kmat", k), state.kmat[k]))
+    table += [("state", ".rho", ("rho",), state.rho), ("state", ".step", ("step",), state.step),
+              ("state", ".key", None, None)]
+    for name in ("alpha", "chol_Sigma"):
+        if getattr(state, name) is not None:
+            table.append(("state", f".{name}", (name,), getattr(state, name)))
+    if state.A_state is not None:
+        if not _is_adam(state.A_state):
+            raise NotImplementedError("only Adam's state of A has a reference mapping")
+        table += _adam_paths(".A_state", state.A_state, ("A_state",))
+    for group in ("previous", "prior_state"):
+        d = getattr(state, group)
+        table += [("state", f".{group}['{k}']", (group, k), d[k]) for k in sorted(d or {})]
+    return table
+
+
+def from_reference_leaves(model_leaves, state_leaves, model_template, state_template):
+    """(model, state) from the JAX package's flattened leaves (numpy
+    arrays in its flatten order, as its checkpoints hold them), placed as
+    ``model_template`` and ``state_template`` are (their device, their
+    floating dtype): the leaves go by :func:`reference_leaf_table` into the
+    dicts :func:`model_from_numpy` and :func:`state_from_numpy` take.  The
+    reference's PRNG key is dropped."""
+    table = reference_leaf_table(model_template, state_template)
+    params = {"likelihoods": [{} for _ in getattr(model_template, "likelihoods", ())]}
+    lv = state_template.local_vars
+    arrays = {"local_vars": [{} for _ in lv] if isinstance(lv, (list, tuple)) else {}}
+    for group, s in (state_template.hyper_state or {}).items():
+        arrays.setdefault("hyper_state", {})[group] = {k: ({} if isinstance(v, dict) else None) for k, v in s.items()}
+    leaves = {"model": iter(model_leaves), "state": iter(state_leaves)}
+    for which, _, keys, _ in table:
+        value = next(leaves[which])
+        if keys is None:
+            continue
+        d = params if which == "model" else arrays
+        for k in keys[:-1]:
+            d = d.setdefault(k, {}) if isinstance(d, dict) else d[k]
+        d[keys[-1]] = value
+    if not params["likelihoods"]:
+        del params["likelihoods"]
+    ref = state_template.rho
+    return model_from_numpy(params, model_template), state_from_numpy(arrays, ref.device, ref.dtype)

@@ -15,6 +15,7 @@ from ..distributions.polyagamma import sample_pg
 from ..ops.kl import poisson_kl, polya_gamma_kl
 from ..ops.quadrature import expectation, mean_and_var
 from ..ops.special import LOG2, gammaln, safe_expcosh, sqrt_expec_square
+from ..utils.batch_sums import batch_sum
 from .base import SingleLatentLikelihood, tensor_fields
 
 
@@ -73,10 +74,10 @@ class PoissonLikelihood(SingleLatentLikelihood):
         theta = (y + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
         es = expectation(torch.sigmoid, mu, var)
         if w is None:
-            new_lam = torch.sum(y) / torch.sum(es)
+            sum_y, sum_es = batch_sum(torch.sum(y), torch.sum(es))
         else:  # rows with w = 0 stay out of the sums
-            new_lam = torch.sum(w * y) / torch.sum(w * es)
-        return self.replace(lam=new_lam), {**local, "c": c, "gamma": gamma, "theta": theta}
+            sum_y, sum_es = batch_sum(torch.sum(w * y), torch.sum(w * es))
+        return self.replace(lam=sum_y / sum_es), {**local, "c": c, "gamma": gamma, "theta": theta}
 
     def _grad_e_mu(self, y, local):
         return (y - local["gamma"]) / 2.0

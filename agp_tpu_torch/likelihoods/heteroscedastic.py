@@ -16,6 +16,7 @@ import torch
 from ..distributions.polyagamma import sample_pg
 from ..ops.kl import poisson_kl_expected, polya_gamma_kl
 from ..ops.special import safe_expcosh, sqrt_expec_square
+from ..utils.batch_sums import batch_sum
 from .base import Likelihood
 
 LOG2PI = 1.8378770664093453
@@ -67,6 +68,7 @@ class HeteroscedasticLikelihood(Likelihood):
         else:
             n = torch.sum(w)
             s = torch.sum(w * phi * (1.0 - sigg))
+        n, s = batch_sum(n, s)
         lik = self.replace(lam=torch.maximum(n / (2.0 * s), self.lam))
         return lik, {"c": c, "phi": phi, "gamma": gamma, "theta": theta, "sigg": sigg}
 

@@ -18,6 +18,7 @@ import torch
 from ..distributions.gig import sample_gig
 from ..ops.kl import gig_entropy, inverse_gamma_kl
 from ..ops.special import LOG2, digamma, gammaln
+from ..utils.batch_sums import batch_sum
 from ..utils.opt import GradientTransformation, adam, ascent_update
 from .base import SingleLatentLikelihood, tensor_fields
 
@@ -78,6 +79,7 @@ class GaussianLikelihood(SingleLatentLikelihood):
             else:
                 n = torch.sum(w)
                 ssq, svar = torch.sum(w * (y - mu) ** 2), torch.sum(w * var)
+            n, ssq, svar = batch_sum(n, ssq, svar)
             grad = ((ssq + svar) / self.sigma2 - n) / 2.0
             opt_state, delta = ascent_update(self.opt_noise, local["state_sigma2"], torch.log(self.sigma2), grad)
             lik = self.replace(sigma2=torch.exp(torch.log(self.sigma2) + delta))

@@ -37,6 +37,7 @@ from ..training import autotuning
 from ..training.predictions import _chunk_map, _predict_f_var
 from ..training.state import TrainState, init_var_posterior
 from ..training.train import _CHUNK
+from ..utils.batch_sums import batch_sum
 from ..utils.opt import adam, ascent_update
 from ..utils.tensors import Params
 from .base import as_2d, check_card_dtype, check_implemented, match_dtype, model_repr, prepare_components
@@ -232,6 +233,7 @@ def mo_update_A(model, state: TrainState, ys, mu_q, var_q, local_list, grads=Non
     A = model.A
     x1 = gmu_r @ mu_q.T - 2.0 * torch.einsum("rb,qb,rqb->rq", gs_r, mu_q, _cross(A, mu_q))
     x2 = gs_r @ (mu_q**2 + var_q).T
+    x1, x2 = batch_sum(x1, x2)
     A_state, dA = ascent_update(model.Aoptimiser, state.A_state, A, x1 - 2.0 * A * x2)
     A = A + dA
     return model.replace(A=A / torch.linalg.norm(A, dim=1, keepdim=True)), state.replace(A_state=A_state)

@@ -156,9 +156,10 @@ def _precomputed_draws(model, X, n: int, generator: torch.Generator):
     return mode, idx
 
 
-def _draw_from_idx(model, X, y, tiled, mode, idx):
-    """Materialize one step's minibatch from its indices, on the device."""
-    b = model.inference.batchsize
+def _draw_from_idx(model, X, y, tiled, mode, idx, b=None):
+    """Materialize one step's minibatch of ``b`` rows (the engine's
+    batchsize when None) from its indices, on the device."""
+    b = model.inference.batchsize if b is None else b
     if mode == "slice":
         rows = idx + torch.arange(b, device=X.device)
         return X.index_select(0, rows), y.index_select(0, rows)

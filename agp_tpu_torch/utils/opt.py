@@ -7,10 +7,13 @@ a rule is an (init, update) pair, ``init(params) -> state`` and
 ``update(updates, state) -> (scaled_updates, new_state)``, in optax's
 descent convention (the returned updates are added to the parameters).
 ``robbins_monro`` and ``sgd`` take a tuple of tensors, ``adam`` a tensor
-or a dict of them (``sgd`` takes those too).
+or a dict of them (``sgd`` takes those too).  Each rule is a pair of
+module-level functions with its settings bound, so that a model holding
+one pickles (``training/checkpoint.py``).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -40,21 +43,31 @@ def ascent_update(opt: GradientTransformation, opt_state, params, grads):
     return new_state, updates
 
 
+def _rm_init(params):
+    return torch.zeros((), dtype=torch.int32, device=params[0].device)
+
+
+def _rm_update(kappa, tau, updates, state):
+    scale = (tau + state.to(torch.float32)) ** (-kappa)
+    return tuple(-u * scale for u in updates), state + 1
+
+
 def robbins_monro(kappa: float = 0.51, tau: float = 1.0) -> GradientTransformation:
     """Robbins-Monro schedule: Delta * (tau + n)^-kappa, n the step count.
 
     The scale is computed in float32 whatever the parameters' dtype, as the
     reference does; a float64 scale would move float64 trajectories apart
     from the reference's at about 1e-8."""
+    return GradientTransformation(_rm_init, partial(_rm_update, kappa, tau))
 
-    def init_fn(params):
-        return torch.zeros((), dtype=torch.int32, device=params[0].device)
 
-    def update_fn(updates, state):
-        scale = (tau + state.to(torch.float32)) ** (-kappa)
-        return tuple(-u * scale for u in updates), state + 1
+def _sgd_init(params):
+    return tree_map(torch.zeros_like, params)
 
-    return GradientTransformation(init_fn, update_fn)
+
+def _sgd_update(lr, momentum, updates, state):
+    trace = tree_map(lambda g, t: g + momentum * t, updates, state)
+    return tree_map(lambda t: -lr * t, trace), trace
 
 
 def sgd(lr: float, momentum: float = 0.0) -> GradientTransformation:
@@ -65,15 +78,31 @@ def sgd(lr: float, momentum: float = 0.0) -> GradientTransformation:
     parameters), zeros at first, on the parameters' device.  The
     numerical engines' default is ``sgd(1e-5, 0.9)`` (quadrature) or
     ``sgd(1e-3, 0.9)`` (Monte Carlo)."""
+    return GradientTransformation(_sgd_init, partial(_sgd_update, lr, momentum))
 
-    def init_fn(params):
-        return tree_map(torch.zeros_like, params)
 
-    def update_fn(updates, state):
-        trace = tree_map(lambda g, t: g + momentum * t, updates, state)
-        return tree_map(lambda t: -lr * t, trace), trace
+def _adam_init(params):
+    leaves = list(params.values()) if isinstance(params, dict) else [params]
+    device = leaves[0].device if leaves else None  # no leaf (ZeroMean): the count stays on the CPU
+    return {
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+        "mu": tree_map(torch.zeros_like, params),
+        "nu": tree_map(torch.zeros_like, params),
+    }
 
-    return GradientTransformation(init_fn, update_fn)
+
+def _adam_update(lr, b1, b2, eps, updates, state):
+    mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, updates, state["mu"])
+    nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, updates, state["nu"])
+    count = state["count"] + 1
+
+    def step(m, v):
+        n = count.to(m.dtype)
+        m_hat = m / (1 - torch.pow(b1, n))
+        v_hat = v / (1 - torch.pow(b2, n))
+        return -lr * (m_hat / (torch.sqrt(v_hat) + eps))
+
+    return tree_map(step, mu, nu), {"count": count, "mu": mu, "nu": nu}
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
@@ -85,28 +114,4 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Gr
     device; the corrections are computed there, in the moments' dtype (as
     optax under x64 computes them in float64), so a step reads nothing back
     to the host."""
-
-    def init_fn(params):
-        leaves = list(params.values()) if isinstance(params, dict) else [params]
-        device = leaves[0].device if leaves else None  # no leaf (ZeroMean): the count stays on the CPU
-        return {
-            "count": torch.zeros((), dtype=torch.int32, device=device),
-            "mu": tree_map(torch.zeros_like, params),
-            "nu": tree_map(torch.zeros_like, params),
-        }
-
-    def update_fn(updates, state):
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, updates, state["mu"])
-        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, updates, state["nu"])
-        count = state["count"] + 1
-
-        def step(m, v):
-            n = count.to(m.dtype)
-            m_hat = m / (1 - torch.pow(b1, n))
-            v_hat = v / (1 - torch.pow(b2, n))
-            return -lr * (m_hat / (torch.sqrt(v_hat) + eps))
-
-        return tree_map(step, mu, nu), {"count": count, "mu": mu, "nu": nu}
-
-    return GradientTransformation(init_fn, update_fn)
-
+    return GradientTransformation(_adam_init, partial(_adam_update, lr, b1, b2, eps))

@@ -220,7 +220,33 @@ Phases, in order; any failure raises and the script exits non-zero:
 37. autoregressive prediction: tests/test_engines.py:311-326's model
    (kernel 1 once a training step), predict_ar's MAE over 20 steps < 0.5,
    sample_ar 4 x 10, then 1,024 trajectories x 100 steps timed (ms a step,
-   0 host reads); the rollouts launch no kernel.
+   0 host reads); the rollouts launch no kernel;
+38. checkpoints (Slice J): the flagship saved after 150 of 300 fed steps,
+   loaded onto a fresh card template (and by allow_pickle) and trained
+   on, bit-equal to the 300 uninterrupted; a float64 CPU checkpoint of it
+   on a float32 card template trains to the flagship's floor; phase 27's
+   online model and phase 35's MOSVGP round-tripped, every leaf bit-equal,
+   resumed bit-equal (kernels 1, 4-5 with exact launches);
+39. the sharded SVI trainer (Slice K) on one process over NCCL: the
+   flagship and benchmarks/scaling.py's tpu1m (N=1,000,000, D=8, M=64,
+   batch 512, slice) through sharded_svi_train, bit-equal to vi_steps on
+   fed draws, one kernel-1 launch a step (a group of one runs no
+   all-reduce), their rates against train's in the same process and their
+   profiled steps, the NCCL all-reduce's host cost;
+   logistic_m512_b65536 with fused=None on kernels 6 + 7;
+40. two processes on the one card over gloo (``jk-rank`` children): the
+   flagship through sharded_svi_train at B/2 a rank (kernel 1),
+   sharded_train on 200,001 rows for logistic and Poisson (the pad row's
+   mask: kernels 6 + 7) and mo_sharded_train on phase 35's data (kernels
+   4 + 5); rank 0 against a world-1 run on the same global rows within
+   ORACLE_DEVICE_FACTOR times the path's float32 noise, its metrics
+   against SLICE_JK_FLOORS, the children's exact launches in the kernels
+   line;
+41. rank 0's checkpoint of the sharded state (the gathered local
+   variables) after 50 steps loaded on one process and trained to 100 on
+   the same global rows, within that noise of rank 0's run; then path A's
+   20 iterations with kernel 1 alone and kernel 6 alone in their plain
+   versions (ROADMAP queue 3 item 5), as shares of its noise.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -271,7 +297,11 @@ path 30 or 31), ``softmax-forms`` (path 31's steady rate and one
 mc_grads call with SoftMax's closed-form gradient against the AD form),
 ``slice-h`` (phases 34-37 alone), ``slice-h-cpu`` (phases 34-36's paths
 in float64 on the host's CPU, no card needed: what SLICE_H_FLOORS comes
-from), ``profile mo`` (torch.profiler over 20 steps of phase 35's model).
+from), ``profile mo`` (torch.profiler over 20 steps of phase 35's model),
+``slice-jk`` (phases 38-41 alone), ``slice-jk-cpu`` (phase 40's paths at
+world 1 in float64 on the host's CPU, no card needed: what SLICE_JK_FLOORS
+comes from), ``slice-jk-nccl`` (phases 40-41 over NCCL, one process on
+each card of a machine with several).
 ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
@@ -5273,6 +5303,615 @@ def slice_h_cpu_mode(agt):
         f"{r['movgp'][0]:.5f}, accuracy {r['movgp'][1]:.4f}")
 
 
+# ------------------------------------------- Slices J and K (phases 38-41)
+# phase 38: the flagship's checkpoint after JK_HALF of 2 x JK_HALF steps
+# (fed draws); a float64 CPU checkpoint onto a float32 card template; phase
+# 27's online model and phase 35's MOSVGP round-tripped (JK_MO_ITERS, then
+# JK_MO_RESUME more on both)
+JK_HALF, JK_MO_ITERS, JK_MO_RESUME = 150, 20, 5
+# phase 39: benchmarks/scaling.py's tpu1m configuration (:300-330, defaults
+# :356-362: N=1,000,000, D=8, M=64, batch_per_device 512, slice; its data
+# and Z made with numpy seed 0), the rates' steps, the bit-equality steps
+TPU1M_N, TPU1M_D, TPU1M_M, TPU1M_B = 1_000_000, 8, 64, 512
+JK_RATE_STEPS, JK_RATE_ROUNDS, JK_BIT_STEPS, JK_PAIR_STEPS = 250, 4, 300, 20
+# calls of the seam's timing (phase 39 over NCCL, phase 40 over gloo)
+JK_SEAM_CALLS = 1000
+# phase 40: two processes on the one card over gloo: the flagship through
+# sharded_svi_train at batch_per_device B/2 (JK_SVI_STEPS, the checkpoint of
+# phase 41 after JK_SVI_SAVE, the last JK_SVI_STEPS - JK_SVI_SAVE timed),
+# sharded_train on JK_FULL_N rows (a pad row at world 2) for logistic and
+# Poisson and mo_sharded_train on phase 35's data at full batch, each
+# JK_FULL_ITERS iterations
+JK_WORLD, JK_SVI_STEPS, JK_SVI_SAVE, JK_FULL_N, JK_FULL_ITERS = 2, 100, 50, 200_001, 20
+# then JK_PROFILE_STEPS steps more, rank 0's profiled
+JK_PROFILE_STEPS = 20
+# floors from ``python3 chip_smoke.py slice-jk-cpu`` (the same paths at
+# world 1 in float64 on the card's host's CPU): the flagship SVI's and the
+# logistic path's training accuracy (0.89617, 0.87256 there; floor the
+# flagship's MIN_FLAGSHIP_ACC), the Poisson path's correlation of
+# predict_y with the true rate (0.61093 there, above 0.55), the MOSVGP's
+# RMSE of task 0 after its 20 full-batch iterations (0.36041, below 0.45)
+SLICE_JK_FLOORS = {"svi": MIN_FLAGSHIP_ACC, "logistic": MIN_FLAGSHIP_ACC, "poisson": 0.55, "mo": 0.45}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def poisson_full_data(device, n=JK_FULL_N, seed=0, dtype=torch.float32):
+    """Phase 40's Poisson data: X the flagship's rule in D=20 (numpy seed),
+    f = 0.5 sin(x_0) + 0.5 x_1, y ~ Poisson(3 sigma(f)): (X, y, the rate)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, D))
+    rate = 3.0 / (1.0 + np.exp(-(0.5 * np.sin(X[:, 0]) + 0.5 * X[:, 1])))
+    y = rng.poisson(rate).astype(float)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in (X, y, rate))
+
+
+def tpu1m_data(device, dtype=torch.float32):
+    """benchmarks/scaling.py's _data and _build_model's Z, with numpy seed 0."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((TPU1M_N, TPU1M_D)).astype(np.float32)
+    w = rng.standard_normal(TPU1M_D).astype(np.float32)
+    y = np.where(X @ w > 0, 1.0, -1.0).astype(np.float32)
+    Z = np.random.default_rng(0).standard_normal((TPU1M_M, TPU1M_D)).astype(np.float32)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in (X, y, Z))
+
+
+def tpu1m_model(agt, Z, b=TPU1M_B):
+    return agt.SVGP.create(agt.SqExponentialKernel(), agt.LogisticLikelihood.create(),
+                           agt.AnalyticSVI(b, minibatch_sampling="slice"), Z, optimiser=None)
+
+
+def full_data(device, which, dtype=torch.float32):
+    """Phase 40's full-batch data: (X, y, truth) of the flagship's rule on
+    JK_FULL_N rows (truth None), or of ``poisson_full_data`` (the rate)."""
+    if which == "logistic":
+        X, y = flagship_data(device, n=JK_FULL_N, seed=2)
+        return X.to(dtype), y.to(dtype), None
+    return poisson_full_data(device, dtype=dtype)
+
+
+def full_metric(agt, which, model, state, X, y, truth):
+    """The logistic path's training accuracy; the Poisson one's correlation
+    of predict_y with the true rate."""
+    pred = agt.predict_y(model, state, X)
+    if which == "logistic":
+        return float((pred == y).double().mean())
+    return float(np.corrcoef(pred.double().cpu().numpy(), truth.double().cpu().numpy())[0, 1])
+
+
+def full_model(agt, X, which):
+    """Phase 40's full-batch models on Z = X[:M]: the flagship's kernel with
+    the logistic or the Poisson likelihood, AnalyticVI."""
+    lik = agt.LogisticLikelihood.create() if which == "logistic" else agt.PoissonLikelihood.create()
+    return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), lik, agt.AnalyticVI(), X[:M], optimiser=None)
+
+
+def states_equal(a, b, names=("eta1", "eta2", "mu", "Sigma")):
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in names)
+
+
+def leaves_equal(a, b):
+    """Two (model, state) pairs have the same named leaves, bit for bit."""
+    from agp_tpu_torch.training.checkpoint import named_leaves
+
+    for x, y, name in ((a[0], b[0], "model"), (a[1], b[1], "state")):
+        la, lb = named_leaves(x, name), named_leaves(y, name)
+        if [p for p, _ in la] != [p for p, _ in lb]:
+            return False
+        if not all(u.dtype == v.dtype and u.device == v.device and torch.equal(u, v) for (_, u), (_, v) in zip(la, lb)):
+            return False
+    return True
+
+
+def phase_checkpoints(agt, ck, device, root):
+    """Phase 38: checkpoints on the card.  (a) The flagship's state after
+    JK_HALF steps saved, loaded onto a fresh card template and trained
+    JK_HALF more: bit-equal to 2 x JK_HALF uninterrupted steps on the same
+    draws, kernel 1 once a step.  (b) A float64 CPU checkpoint of the same
+    model (JK_HALF steps on the CPU) loaded onto a float32 card template
+    trains JK_HALF more to the flagship's floor.  (c) Phase 27's online
+    model (OIPS) after its stream, and (d) phase 35's MOSVGP after
+    JK_MO_ITERS iterations: saved, loaded onto templates, every leaf
+    bit-equal, resumed bit-equal (one more batch; JK_MO_RESUME iterations on
+    fed draws, kernels 4 + 5 once each a step); (a) and (d) also by
+    allow_pickle."""
+    ckpt = agt.checkpoint
+    X, y = flagship_data(device)
+    draws = torch.randint(0, N // 64, (2 * JK_HALF, B // 64), generator=torch.Generator().manual_seed(4)).to(device)
+    out = {}
+    reset_launches(ck)
+    t0 = time.perf_counter()
+    m_all, s_all = agt.train(flagship_model(agt, X), X, y, iterations=2 * JK_HALF, draws=draws)
+    m1, s1 = agt.train(flagship_model(agt, X), X, y, iterations=JK_HALF, draws=draws[:JK_HALF])
+    ckpt.save(os.path.join(root, "flagship"), m1, s1)
+    template = flagship_model(agt, X)
+    m2, s2 = ckpt.load(os.path.join(root, "flagship"), template, agt.init_state(template, X, y))
+    loaded = leaves_equal((m2, s2), (m1, s1))
+    pickled = leaves_equal(ckpt.load(os.path.join(root, "flagship"), allow_pickle=True), (m1, s1))
+    m2, s2 = agt.train(m2, X, y, iterations=JK_HALF, state=s2, draws=draws[JK_HALF:])
+    sync(device)
+    out["flagship_s"] = time.perf_counter() - t0
+    expect_launches(ck, "checkpoint flagship", route_launches(4 * JK_HALF, "fused"))
+    if not (loaded and pickled and states_equal(s2, s_all) and torch.equal(s2.local_vars["theta"], s_all.local_vars["theta"])):
+        raise AssertionError(f"flagship checkpoint: loaded bit-equal {loaded}, by allow_pickle {pickled}, resumed "
+                             f"bit-equal {states_equal(s2, s_all)}")
+    log(f"checkpoint flagship: {JK_HALF} + {JK_HALF} steps through a checkpoint bit-equal to {2 * JK_HALF} "
+        f"uninterrupted (mu, Sigma, eta, theta); the load by templates and by allow_pickle bit-equal; "
+        f"{out['flagship_s']:.3f} s")
+
+    Xc, yc = X.cpu().double(), y.cpu().double()
+    m64, s64 = agt.train(flagship_model(agt, Xc), Xc, yc, iterations=JK_HALF, draws=draws[:JK_HALF].cpu())
+    ckpt.save(os.path.join(root, "flagship64"), m64, s64)
+    m3, s3 = ckpt.load(os.path.join(root, "flagship64"), template, agt.init_state(template, X, y))
+    dtypes = {t.dtype for t in (s3.mu, s3.Sigma, s3.eta1, m3.Z, m3.kernel.lengthscale)}
+    reset_launches(ck)
+    m3, s3 = agt.train(m3, X, y, iterations=JK_HALF, state=s3, draws=draws[JK_HALF:])
+    expect_launches(ck, "checkpoint float64", route_launches(JK_HALF, "fused"))
+    acc = float((agt.predict_y(m3, s3, X) == y).float().mean())
+    out["float64_acc"] = acc
+    log(f"checkpoint float64 (CPU) -> float32 (card): dtypes {sorted(str(d) for d in dtypes)}, {JK_HALF} more steps "
+        f"on the card, training accuracy {acc:.4f} (floor {MIN_FLAGSHIP_ACC})")
+    if not (dtypes == {torch.float32} and acc >= MIN_FLAGSHIP_ACC):
+        raise AssertionError(f"float64 checkpoint on a float32 template: dtypes {dtypes}, accuracy {acc:.4f}")
+
+    r = online_run(agt, "oips", device)
+    ckpt.save(os.path.join(root, "online"), r["model"], r["state"])
+    Xo, _, yo = online_data("oips", device, torch.float32)
+    mt, st = online_model(agt, "oips", device, torch.float32), None
+    for i in range(2):
+        mt, st = agt.online_train(mt, Xo[i * ONLINE_B:(i + 1) * ONLINE_B], yo[i * ONLINE_B:(i + 1) * ONLINE_B],
+                                  state=st, iterations=ONLINE_ITERS)
+    mo_, so_ = ckpt.load(os.path.join(root, "online"), mt, st)
+    online_loaded = leaves_equal((mo_, so_), (r["model"], r["state"]))
+    xb, yb = Xo[:ONLINE_B], yo[:ONLINE_B]
+    a = agt.online_train(r["model"], xb, yb, state=r["state"], iterations=ONLINE_ITERS)
+    b = agt.online_train(mo_, xb, yb, state=so_, iterations=ONLINE_ITERS)
+    online_resumed = leaves_equal(a, b)
+    log(f"checkpoint online (phase 27's OIPS stream, capacity 128): loaded bit-equal {online_loaded}, one more batch "
+        f"bit-equal {online_resumed}")
+
+    Xm, _, ys = mo_data(MO_N, device)
+    model = mo_model(agt, Xm)
+    reset_launches(ck)
+    mm, sm = agt.mo_train(model, Xm, ys, iterations=JK_MO_ITERS, generator=torch.Generator(device=device).manual_seed(0))
+    ckpt.save(os.path.join(root, "mo"), mm, sm)
+    tmpl = mo_model(agt, Xm)
+    tmpl_t, ys_t = mo_treated(tmpl, ys)
+    m5, s5 = ckpt.load(os.path.join(root, "mo"), tmpl_t, agt.mo_init_state(tmpl_t, Xm, ys_t))
+    mo_loaded = leaves_equal((m5, s5), (mm, sm)) and leaves_equal(ckpt.load(os.path.join(root, "mo"), allow_pickle=True),
+                                                                   (mm, sm))
+    mo_draws = torch.randint(0, MO_N, (JK_MO_RESUME, MO_B), generator=torch.Generator().manual_seed(5)).to(device)
+    ra = agt.mo_train(mm, Xm, ys, iterations=JK_MO_RESUME, state=sm, draws=mo_draws)
+    rb = agt.mo_train(m5, Xm, ys, iterations=JK_MO_RESUME, state=s5, draws=mo_draws)
+    mo_resumed = states_equal(ra[1], rb[1]) and torch.equal(ra[0].A, rb[0].A)
+    expect_launches(ck, "checkpoint mo", route_launches(JK_MO_ITERS + 2 * JK_MO_RESUME, "batched"))
+    log(f"checkpoint mo (phase 35's MOSVGP, M={MO_M}, B={MO_B}, Q={MO_Q}): loaded bit-equal (templates, allow_pickle) "
+        f"{mo_loaded}, {JK_MO_RESUME} more iterations bit-equal {mo_resumed}")
+    if not (online_loaded and online_resumed and mo_loaded and mo_resumed):
+        raise AssertionError("online or mo checkpoint not bit-equal")
+    return out
+
+
+def timed_run(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return time.perf_counter() - t0, out
+
+
+def seam_us(mesh, device, calls=None):
+    """Host us a call of the mesh's all-reduce of the flagship's M + M^2
+    floats, and of ``batch_sum(s1, S2)`` (cat, all-reduce, views; nothing
+    at world 1), each over ``calls`` calls ending in a synchronize."""
+    from agp_tpu_torch.utils.batch_sums import batch_sum, sharded
+
+    calls = JK_SEAM_CALLS if calls is None else calls
+    s1, S2 = torch.randn(1, M, device=device), torch.randn(1, M, M, device=device)
+    flat = torch.cat([s1.reshape(-1), S2.reshape(-1)])
+    out = {}
+    with sharded(mesh):
+        for name, fn in (("all_reduce", lambda: mesh.all_reduce(flat)), ("batch_sum", lambda: batch_sum(s1, S2))):
+            for _ in range(10):
+                fn()
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            sync(device)
+            out[name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def phase_sharded_world1(agt, ck, device):
+    """Phase 39: the sharded SVI trainer on one process over NCCL (world 1).
+    The flagship (kernel 1) and tpu1m (kernel 1, slice) on fed draws are
+    bit-equal to vi_steps on the same draws; their rates through
+    sharded_svi_train against train's, in the same process (JK_RATE_ROUNDS
+    rounds of the two, every other one in reverse order, the medians: the
+    host's rate moves by a quarter between runs); the profiled launches and
+    device time a step of each (a group of one runs no all-reduce, as the
+    reference's one-device mesh runs no psum); the seam's host cost;
+    logistic_m512_b65536 with fused=None takes kernels 6 + 7, JK_PAIR_STEPS
+    steps with exact launches."""
+    from agp_tpu_torch.parallel import mesh as pm
+    from agp_tpu_torch.training.train import vi_steps
+    from agp_tpu_torch.utils.batch_sums import batch_sum
+
+    mesh = pm.initialize_distributed(f"localhost:{free_port()}", 1, 0, device=device)
+    if mesh.size != 1 or (mesh.device.type == "cuda" and mesh.backend != "nccl"):
+        raise AssertionError(f"world-1 mesh: {mesh}")
+    out = {}
+    try:
+        for name in ("flagship", "tpu1m"):
+            if name == "flagship":
+                X, y = flagship_data(device)
+                make = lambda b=B: flagship_model(agt, X, b)
+                draws = torch.randint(0, N // 64, (JK_BIT_STEPS, B // 64), generator=torch.Generator().manual_seed(6))
+                fed = draws
+            else:
+                X, y, Z = tpu1m_data(device)
+                make = lambda b=TPU1M_B: tpu1m_model(agt, Z, b)
+                draws = torch.randint(0, TPU1M_N - TPU1M_B + 1, (JK_BIT_STEPS,), generator=torch.Generator().manual_seed(6))
+                fed = draws[:, None]
+            draws, fed = draws.to(device), fed.to(device)
+            model = make()
+            _, ref = vi_steps(model, agt.init_state(model, X, y), X, y, JK_BIT_STEPS, draws=draws)
+            reset_launches(ck)
+            calls0 = batch_sum.calls
+            _, st = pm.sharded_svi_train(make(), X, y, JK_BIT_STEPS, mesh=mesh, draws=fed)
+            sync(device)
+            reduces = (batch_sum.calls - calls0) / JK_BIT_STEPS
+            launches = expect_launches(ck, f"{name} sharded world 1", route_launches(JK_BIT_STEPS, "fused"))
+            equal = states_equal(st, ref) and torch.equal(st.local_vars["theta"], ref.local_vars["theta"])
+            gen = lambda: torch.Generator(device=device).manual_seed(1)
+            runs = {"train": lambda: agt.train(make(), X, y, iterations=JK_RATE_STEPS, generator=gen()),
+                    "sharded": lambda: pm.sharded_svi_train(make(), X, y, JK_RATE_STEPS, mesh=mesh, generator=gen())}
+            rates = {k: [] for k in runs}
+            for i in range(JK_RATE_ROUNDS):  # the order reversed every other round
+                for which in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+                    rates[which].append(JK_RATE_STEPS / timed_run(runs[which], device)[0])
+            median = {k: float(np.median(v)) for k, v in rates.items()}
+            m0 = make()
+            s0 = agt.init_state(m0, X, y)
+            steps, m1, s1, Xs, ys = pm.build_svi_trainer(make(), X, y, mesh)
+            p_train = profile_window(lambda: vi_steps(m0, s0, X, y, 20, generator=gen()), 20)
+            p_sharded = profile_window(lambda: steps(m1, s1, Xs, ys, 20, generator=gen()), 20)
+            r = {"bit_equal": equal, "launches": launches, "all_reduces_a_step": reduces,
+                 "ips": rates, "ratio": median["sharded"] / median["train"],
+                 "train_profile": {k: p_train[k] for k in ("wall_us", "busy_us", "idle_share", "launches")},
+                 "sharded_profile": {k: p_sharded[k] for k in ("wall_us", "busy_us", "idle_share", "launches")}}
+            out[name] = r
+            log(f"{name} sharded_svi_train (NCCL world 1, kernel 1, {JK_BIT_STEPS} fed steps): bit-equal to vi_steps "
+                f"{equal}, {launches} launches, {reduces:g} all-reduces a step; {JK_RATE_ROUNDS} rounds of "
+                f"{JK_RATE_STEPS} iterations (it/s): "
+                + "; ".join(f"{k} {', '.join(f'{v:.1f}' for v in vals)}" for k, vals in rates.items())
+                + f"; median sharded / train {r['ratio']:.4f}; profiled a step: "
+                f"train {p_train['wall_us']:.1f} us wall, {p_train['busy_us']:.1f} us device, "
+                f"{p_train['launches']:.1f} launches; sharded {p_sharded['wall_us']:.1f} us wall, "
+                f"{p_sharded['busy_us']:.1f} us device, {p_sharded['launches']:.1f} launches")
+            if not equal:
+                raise AssertionError(f"{name}: sharded world 1 is not bit-equal to vi_steps")
+        out["seam_us"] = seam_us(mesh, device)
+        log(f"the seam at world 1 (NCCL), host us a call over {JK_SEAM_CALLS}: all-reduce of M + M^2 floats "
+            f"{out['seam_us']['all_reduce']:.1f}, batch_sum(s1, S2) {out['seam_us']['batch_sum']:.1f}")
+        X, y = big_logistic_data(device)
+        reset_launches(ck)
+        _, st = pm.sharded_svi_train(big_logistic_model(agt, X), X, y, JK_PAIR_STEPS, mesh=mesh, fused=None,
+                                     generator=torch.Generator(device=device).manual_seed(1))
+        launches = expect_launches(ck, "logistic_m512 sharded world 1", route_launches(JK_PAIR_STEPS, "single"))
+        finite = bool(torch.isfinite(st.mu).all() and torch.isfinite(st.Sigma).all())
+        out["logistic_m512"] = {"launches": launches, "finite": finite}
+        log(f"logistic_m512_b65536 sharded_svi_train (NCCL world 1, fused=None): {launches} launches (kernels 6 + 7, "
+            f"{JK_PAIR_STEPS} steps), finite {finite}")
+        if not finite:
+            raise AssertionError("logistic_m512 sharded: non-finite posterior")
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def jk_rank(rank, world, init, root, device, backend):
+    """``python3 chip_smoke.py jk-rank RANK WORLD INIT ROOT DEVICE BACKEND``:
+    one process of phase 40 on DEVICE (cuda:0 for every rank over gloo;
+    cuda:RANK over NCCL, ``slice-jk-nccl``).  Prints its launch counts as
+    its last line; rank 0 writes its results to ROOT/rank0.pt and phase
+    41's checkpoint to ROOT/svi50."""
+    import agp_tpu_torch as agt
+    from agp_tpu_torch.ops import cuda_kernels as ck
+    from agp_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device)
+    if device.type == "cuda":
+        ck._library()  # built by the parent
+    mesh = pm.initialize_distributed(init, world, rank, backend=backend, device=device)
+    reset_launches(ck)
+    res, seconds = {}, {}
+    X, y = flagship_data(device)
+    draws = torch.load(os.path.join(root, "draws.pt"))[:, rank].to(device)
+    bpd = B // world
+    model, state = flagship_model(agt, X), None
+    t0 = time.perf_counter()
+    model, state = pm.sharded_svi_train(model, X, y, JK_SVI_SAVE, mesh=mesh, batch_per_device=bpd, state=state,
+                                        draws=draws[:JK_SVI_SAVE])
+    local = pm.gather_local_vars(mesh, state.local_vars)
+    if rank == 0:
+        agt.checkpoint.save(os.path.join(root, "svi50"), model, state.replace(local_vars=local))
+    sync(device)
+    t1 = time.perf_counter()
+    model, state = pm.sharded_svi_train(model, X, y, JK_SVI_STEPS - JK_SVI_SAVE, mesh=mesh, batch_per_device=bpd,
+                                        state=state, draws=draws[JK_SVI_SAVE:])
+    sync(device)
+    seconds["svi_timed"] = time.perf_counter() - t1
+    seconds["svi"] = time.perf_counter() - t0
+    # JK_PROFILE_STEPS more on both ranks, rank 0's under the profiler
+    steps, m_p, s_p, Xs, ys = pm.build_svi_trainer(model, X, y, mesh, bpd, state)
+    run = lambda: steps(m_p, s_p, Xs, ys, JK_PROFILE_STEPS, draws=draws[-JK_PROFILE_STEPS:])
+    if rank == 0:
+        p = profile_window(run, JK_PROFILE_STEPS)
+        seconds["profile"] = {k: p[k] for k in ("wall_us", "busy_us", "idle_share", "launches")}
+    else:
+        run()
+    res["svi"] = (state.mu, state.Sigma)
+    res["svi_acc"] = float((agt.predict_y(model, state, X) == y).float().mean())
+    for which in ("logistic", "poisson"):
+        Xf, yf, truth = full_data(device, which)
+        t0 = time.perf_counter()
+        m, s = pm.sharded_train(full_model(agt, Xf, which), Xf, yf, JK_FULL_ITERS, mesh=mesh)
+        sync(device)
+        seconds[which] = time.perf_counter() - t0
+        res[which] = (s.mu, s.Sigma, getattr(m.likelihood, "lam", None))
+        res[which + "_metric"] = full_metric(agt, which, m, s, Xf, yf, truth)
+    Xm, fm, ys = mo_data(MO_N, device)
+    t0 = time.perf_counter()
+    m, s = pm.mo_sharded_train(mo_model(agt, Xm, b=None), Xm, ys, JK_FULL_ITERS, mesh=mesh)
+    sync(device)
+    seconds["mo"] = time.perf_counter() - t0
+    res["mo"] = (s.mu, s.Sigma, m.A)
+    mu, _ = agt.mo_predict_f(m, s, Xm[:MO_EVAL])
+    res["mo_rmse"] = float(torch.sqrt(torch.mean((mu[0] - fm[:MO_EVAL]) ** 2)))
+    seconds["seam_us"] = seam_us(mesh, device, calls=JK_SEAM_CALLS // 5)
+    counts = {name: wrapper(ck, name).launches for name in LAUNCH_COUNTERS}
+    if rank == 0:
+        torch.save({"res": {k: tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in v) if isinstance(v, tuple)
+                            else v for k, v in res.items()}, "seconds": seconds}, os.path.join(root, "rank0.pt"))
+    torch.distributed.barrier()  # no rank tears down while another is still in a collective
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"rank": rank, "launches": counts, "seconds": seconds}), flush=True)
+
+
+def global_svi(agt, X, y, draws, world, start=0, state=None, model=None, perm=None, flip=False):
+    """The world-1 run on phase 40's global rows: step i's batch is each
+    rank's 64-row tiles of its own shard (rank r's rows start at r N /
+    world), in rank order (reversed with ``flip``), through the
+    single-device step (kernel 1 at the global B); from ``model`` and
+    ``state`` at step ``start``; ``perm`` reorders Z.  Returns (model,
+    state)."""
+    from agp_tpu_torch.inference.analytic_vi import variational_update
+
+    rows = X.shape[0] // world
+    within = torch.arange(64, device=X.device)
+    if model is None:
+        model = flagship_model(agt, X)
+        if perm is not None:
+            model = model.replace(Z=model.Z[:, perm].contiguous())
+        state = agt.init_state(model, X, y)
+    for i in range(start, draws.shape[0]):
+        idx = torch.cat([(r * rows + 64 * draws[i, r][:, None] + within).reshape(-1) for r in range(world)])
+        idx = idx.flip(0) if flip else idx
+        model, state = variational_update(model, state, X.index_select(0, idx), y.index_select(0, idx))
+        state = state.replace(step=state.step + 1)
+    return model, state
+
+
+def mu_err(a, b, perm=None):
+    a = a if perm is None else a[:, torch.argsort(perm)]
+    return float((a.double().cpu() - b.double().cpu()).abs().max() / b.double().cpu().abs().max())
+
+
+def phase_sharded_world(agt, ck, device, root, world=JK_WORLD, backend="gloo"):
+    """Phase 40: two processes on the one card over gloo (CUDA tensors;
+    NCCL refuses two ranks on one GPU), or ``world`` processes on as many
+    cards over NCCL (``slice-jk-nccl``): the flagship through
+    sharded_svi_train (kernel 1 on each rank's B/2 rows, fed per-rank tile
+    draws), sharded_train on JK_FULL_N rows for logistic and Poisson (the
+    pad row's mask: kernels 6 + 7) and mo_sharded_train on phase 35's data
+    (kernels 4 + 5).  Rank 0's mu (and lambda, A) against a world-1 run on
+    the same global rows, within ORACLE_DEVICE_FACTOR times the path's own
+    float32 noise (the larger of the world-1 run again with Z reordered and
+    with the batch's rows reordered: the sums over the batch are what the
+    ranks split), and its
+    metrics against SLICE_JK_FLOORS; the children's launches, exact, join
+    the kernels line; rank 0's step profiled over JK_PROFILE_STEPS more
+    steps.  Then phase 41: rank 0's checkpoint after
+    JK_SVI_SAVE steps (the gathered local variables) loaded on one process
+    and trained on the same global rows to JK_SVI_STEPS, against rank 0's
+    uninterrupted run within the same noise."""
+    from agp_tpu_torch.parallel import mesh as pm
+
+    draws = torch.randint(0, (N // world) // 64, (JK_SVI_STEPS, world, B // world // 64),
+                          generator=torch.Generator().manual_seed(7))
+    torch.save(draws, os.path.join(root, "draws.pt"))
+    init = f"file://{os.path.abspath(root)}/rendezvous"
+    where = "one card" if backend == "gloo" else f"{world} cards"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "jk-rank", str(r), str(world), init, root,
+                               str(device) if backend == "gloo" else f"cuda:{r}", backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    wall = time.perf_counter() - t0
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"jk-rank failed ({p.returncode}):\n{text[-4000:]}")
+    reports = [json.loads(text.strip().splitlines()[-1]) for text in logs]
+    want = {"fused_cavi_stats": JK_SVI_STEPS + JK_PROFILE_STEPS, "fused_kappa": 2 * JK_FULL_ITERS, "cavi_stats": 2 * JK_FULL_ITERS,
+            "fused_kappa_moments_batched": JK_FULL_ITERS, "cavi_stats_batched": JK_FULL_ITERS}
+    for rep in reports:
+        got = {k: v for k, v in rep["launches"].items() if v}
+        if got != want and device.type == "cuda":  # the CPU's plain versions launch nothing
+            raise AssertionError(f"jk-rank {rep['rank']}: launched {got}, expected {want}")
+        for k, v in got.items():
+            LAUNCHES[k] = LAUNCHES.get(k, 0) + v
+    r0 = torch.load(os.path.join(root, "rank0.pt"))
+    res, seconds = r0["res"], r0["seconds"]
+    X, y = flagship_data(device)
+    draws_d = draws.to(device)
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(2)).to(device)
+    _, w1 = global_svi(agt, X, y, draws_d, world)
+    _, w1p = global_svi(agt, X, y, draws_d, world, perm=perm)
+    _, w1f = global_svi(agt, X, y, draws_d, world, flip=True)
+    noise = max(mu_err(w1p.mu, w1.mu, perm.cpu()), mu_err(w1f.mu, w1.mu))
+    label = f"{backend} world {world}"
+    share = {"svi": parity_check(f"jk svi {label}", mu_err(res["svi"][0], w1.mu), noise,
+                                 what=f"rank 0 ({label}) vs world 1 on the same global rows")}
+    tmpl = flagship_model(agt, X)
+    m41, s41 = agt.checkpoint.load(os.path.join(root, "svi50"), tmpl, agt.init_state(tmpl, X, y))
+    _, s41 = global_svi(agt, X, y, draws_d, world, start=JK_SVI_SAVE, state=s41, model=m41)
+    share["resume"] = parity_check("jk svi resumed", mu_err(s41.mu, res["svi"][0]), noise,
+                                   what=f"one process from rank 0's checkpoint at step {JK_SVI_SAVE} vs rank 0 at "
+                                        f"{JK_SVI_STEPS}")
+    mesh1 = pm.make_mesh(device)
+    for which in ("logistic", "poisson"):
+        Xf, yf, _ = full_data(device, which)
+        m1, s1 = pm.sharded_train(full_model(agt, Xf, which), Xf, yf, JK_FULL_ITERS, mesh=mesh1)
+        mp = full_model(agt, Xf, which)
+        mp, sp = pm.sharded_train(mp.replace(Z=mp.Z[:, perm].contiguous()), Xf, yf, JK_FULL_ITERS, mesh=mesh1)
+        rp = torch.randperm(JK_FULL_N, generator=torch.Generator().manual_seed(3)).to(device)
+        mr, sr = pm.sharded_train(full_model(agt, Xf, which), Xf[rp], yf[rp], JK_FULL_ITERS, mesh=mesh1)
+        noise_f = max(mu_err(sp.mu, s1.mu, perm.cpu()), mu_err(sr.mu, s1.mu))
+        err = mu_err(res[which][0], s1.mu)
+        if which == "poisson":
+            lam1 = float(m1.likelihood.lam)
+            noise_f = max(noise_f, *(abs(float(m.likelihood.lam) - lam1) / lam1 for m in (mp, mr)))
+            err = max(err, abs(float(res[which][2]) - lam1) / lam1)
+        share[which] = parity_check(f"jk {which} {label}", err, noise_f,
+                                    what=f"rank 0 ({label}, masked) vs world 1 (max |d mu| / max |mu|"
+                                         + (", |d lam| / lam)" if which == "poisson" else ")"))
+    Xm, _, ys = mo_data(MO_N, device)
+    m1, s1 = pm.mo_sharded_train(mo_model(agt, Xm, b=None), Xm, ys, JK_FULL_ITERS, mesh=mesh1)
+    perm_m = torch.randperm(MO_M, generator=torch.Generator().manual_seed(2)).to(device)
+    mp = mo_model(agt, Xm, b=None)
+    mp, sp = pm.mo_sharded_train(mp.replace(Z=mp.Z[:, perm_m].contiguous()), Xm, ys, JK_FULL_ITERS, mesh=mesh1)
+    rp = torch.randperm(MO_N, generator=torch.Generator().manual_seed(3)).to(device)
+    mr, sr = pm.mo_sharded_train(mo_model(agt, Xm, b=None), Xm[rp], tuple(y[rp] for y in ys), JK_FULL_ITERS,
+                                 mesh=mesh1)
+    noise_m = max(mu_err(sp.mu, s1.mu, perm_m.cpu()), float((mp.A - m1.A).abs().max()),
+                  mu_err(sr.mu, s1.mu), float((mr.A - m1.A).abs().max()))
+    err_m = max(mu_err(res["mo"][0], s1.mu), float((res["mo"][2].to(device) - m1.A).abs().max()))
+    share["mo"] = parity_check(f"jk mo {label}", err_m, noise_m, what=f"rank 0 ({label}) vs world 1 (mu and A)")
+    metrics = {"svi": res["svi_acc"], "logistic": res["logistic_metric"], "poisson": res["poisson_metric"],
+               "mo": res["mo_rmse"]}
+    prof = seconds.pop("profile")
+    log(f"jk {label} (CUDA tensors, {where}): {wall:.2f} s for the {world} processes; rank 0 seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in seconds.items() if k != 'seam_us'})}; rank 0's profiled step "
+        f"{prof['wall_us']:.1f} us wall, {prof['busy_us']:.1f} us device, idle share {prof['idle_share']:.4f}, "
+        f"{prof['launches']:.1f} launches; the seam, host us a call: all-reduce "
+        f"{seconds['seam_us']['all_reduce']:.1f}, batch_sum {seconds['seam_us']['batch_sum']:.1f}; flagship SVI "
+        f"{(JK_SVI_STEPS - JK_SVI_SAVE) / seconds['svi_timed']:.1f} it/s over its last {JK_SVI_STEPS - JK_SVI_SAVE} "
+        f"steps (B/{world} = {B // world} rows a rank); metrics {json.dumps(metrics)} (floors {SLICE_JK_FLOORS}); "
+        f"parity shares {json.dumps({k: round(v, 4) for k, v in share.items()})}")
+    floors_ok = all(metrics[k] <= v if k == "mo" else metrics[k] >= v for k, v in SLICE_JK_FLOORS.items())
+    if not floors_ok:
+        raise AssertionError(f"jk {label} metrics {metrics} miss SLICE_JK_FLOORS {SLICE_JK_FLOORS}")
+    return {"wall_s": wall, "seconds": seconds, "profile": prof, "metrics": metrics, "share": share,
+            "svi_ips": (JK_SVI_STEPS - JK_SVI_SAVE) / seconds["svi_timed"]}
+
+
+def slice_jk_nccl_mode(agt, ck, device):
+    """``python3 chip_smoke.py slice-jk-nccl``: phases 40-41 over NCCL with
+    one process on each card of the machine (a 4-card call), against world
+    1 on cuda:0."""
+    import tempfile
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        raise SystemExit(f"slice-jk-nccl needs two cards or more; {world} here")
+    root = tempfile.mkdtemp(prefix="jk-nccl-", dir=os.environ.get("TMPDIR"))
+    return timed_phase(f"sharded world {world} (NCCL) and resume", phase_sharded_world, agt, ck, device, root,
+                       world=world, backend="nccl")
+
+
+def path_a_split(agt, ck, device):
+    """ROADMAP queue 3 item 5: path A's 20 iterations (phase 15) on the card
+    with kernel 1 alone in its plain version, then kernel 6 alone, each
+    against the card with both kernels, as shares of the path's own float32
+    noise (the CPU run again with Z reordered, as phase 15 measures it)."""
+    def after(model, X, y, draws):
+        model, state = agt.train(model, X, y, iterations=20, draws=draws.to(X.device))
+        return state.mu.double().cpu(), log_hypers(model)
+
+    def err(a, b, perm=None):
+        mu = a[0] if perm is None else a[0][:, torch.argsort(perm)]
+        return max(float((mu - b[0]).abs().max() / b[0].abs().max()), float((a[1] - b[1]).abs().max()))
+
+    Xc, yc = flagship_data("cpu", n=PN, seed=1)
+    draws = torch.randint(0, PN // 64, (20, B // 64), generator=torch.Generator().manual_seed(1))
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(2))
+    Xd, yd = Xc.to(device), yc.to(device)
+    cpu = after(hyper_path(agt, Xc, "A"), Xc, yc, draws)
+    mp = hyper_path(agt, Xc, "A")
+    noise = err(after(mp.replace(Z=mp.Z[:, perm].contiguous()), Xc, yc, draws), cpu, perm)
+    card = after(hyper_path(agt, Xd, "A"), Xd, yd, draws)
+    out = {"noise": noise}
+    for names in (("fused_cavi_stats",), ("fused_kappa",), ("fused_cavi_stats", "fused_kappa")):
+        with plain_kernels(ck, names):
+            e = err(card, after(hyper_path(agt, Xd, "A"), Xd, yd, draws))
+        out[" + ".join(names)] = e / noise
+    log(f"path A split (queue 3 item 5): card vs the card with plain versions, as shares of the noise {noise:.3e}: "
+        + "; ".join(f"{k} plain {v:.3f}" for k, v in out.items() if k != "noise"))
+    return out
+
+
+def slice_jk_mode(agt, ck, device):
+    """``python3 chip_smoke.py slice-jk``: phases 38-41 and path A's split."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="jk-", dir=os.environ.get("TMPDIR"))
+    out = {"checkpoints": timed_phase("checkpoints", phase_checkpoints, agt, ck, device, root)}
+    out["world1"] = timed_phase("sharded world 1", phase_sharded_world1, agt, ck, device)
+    out["world2"] = timed_phase("sharded world 2 and resume", phase_sharded_world, agt, ck, device, root)
+    out["path_a_split"] = timed_phase("path A split", path_a_split, agt, ck, device)
+    return out
+
+
+def slice_jk_cpu_mode(agt):
+    """``python3 chip_smoke.py slice-jk-cpu``: phase 40's paths at world 1 in
+    float64 on the host's CPU, on the same global rows, no floors held:
+    the source of SLICE_JK_FLOORS."""
+    from agp_tpu_torch.parallel import mesh as pm
+
+    torch.set_num_threads(min(torch.get_num_threads(), 8))
+    cpu, f64 = torch.device("cpu"), torch.float64
+    draws = torch.randint(0, (N // JK_WORLD) // 64, (JK_SVI_STEPS, JK_WORLD, B // JK_WORLD // 64),
+                          generator=torch.Generator().manual_seed(7))
+    X, y = (t.double() for t in flagship_data(cpu))
+    t0 = time.perf_counter()
+    m, s = global_svi(agt, X, y, draws, JK_WORLD)
+    log(f"jk svi on the CPU, float64: accuracy {float((agt.predict_y(m, s, X) == y).double().mean()):.5f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    mesh = pm.make_mesh(cpu)
+    for which in ("logistic", "poisson"):
+        t0 = time.perf_counter()
+        Xf, yf, truth = full_data(cpu, which, f64)
+        m, s = pm.sharded_train(full_model(agt, Xf, which), Xf, yf, JK_FULL_ITERS, mesh=mesh)
+        metric = full_metric(agt, which, m, s, Xf, yf, truth)
+        log(f"jk {which} on the CPU, float64: {'accuracy' if which == 'logistic' else 'corr with the rate'} "
+            f"{metric:.5f}, {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    Xm, fm, ys = mo_data(MO_N, cpu, f64)
+    m, s = pm.mo_sharded_train(mo_model(agt, Xm, b=None), Xm, ys, JK_FULL_ITERS, mesh=mesh)
+    mu, _ = agt.mo_predict_f(m, s, Xm[:MO_EVAL])
+    log(f"jk mo on the CPU, float64: RMSE {float(torch.sqrt(torch.mean((mu[0] - fm[:MO_EVAL]) ** 2))):.5f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 PHASE_SECONDS = {}
 
 
@@ -5307,6 +5946,14 @@ def main():
 
         slice_h_cpu_mode(agt)
         return
+    if sys.argv[1:] == ["slice-jk-cpu"]:  # the host's CPU alone, no card needed
+        import agp_tpu_torch as agt
+
+        slice_jk_cpu_mode(agt)
+        return
+    if sys.argv[1:2] == ["jk-rank"]:  # one process of phase 40, started by it
+        jk_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:8])
+        os._exit(0)  # its results are written; an orderly shutdown can abort in gloo's threads' teardown
     device = phase_device()
     args = sys.argv[1:]
     ab = args[:1] == ["ab"]
@@ -5389,6 +6036,12 @@ def main():
     if args == ["slice-h"]:
         slice_h_mode(agt, ck, device)
         return
+    if args == ["slice-jk"]:
+        slice_jk_mode(agt, ck, device)
+        return
+    if args == ["slice-jk-nccl"]:
+        slice_jk_nccl_mode(agt, ck, device)
+        return
     if args[:2] == ["profile", "mo"]:
         profile_mo(agt, device)
         return
@@ -5442,6 +6095,7 @@ def main():
     online_mode(agt, ck, device)
     numerical_mode(agt, ck, device)
     slice_h_mode(agt, ck, device)
+    slice_jk_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {

@@ -2,6 +2,8 @@
 wrappers' refusals, and the main paths' launch counts.  These tests need an NVIDIA GPU and skip
 elsewhere; the file imports no JAX so that it runs on a machine with a card
 (``python -m pytest tests/test_torch_cuda.py -m cuda``)."""
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -1120,3 +1122,114 @@ def test_cuda_vstp_and_rollouts_launch_no_kernel(cuda_device):
     torch.cuda.synchronize()
     assert smoke.expect_launches(ck, "rollouts", {}) == 0 and host_read.reads == reads
     assert preds.is_cuda and traj.shape == (8, 5) and torch.isfinite(traj).all()
+
+
+# ------------------------------------------- Slices J and K on the card
+@pytest.mark.cuda
+def test_cuda_checkpoint_onto_cuda_template(cuda_device, tmp_path):
+    """A float64 CPU checkpoint loads onto a float32 CUDA template: every
+    tensor on the card in float32, equal to the CPU's rounded, and the
+    model trains on from it with kernel 1."""
+    from agp_tpu_torch.training.checkpoint import named_leaves
+
+    Xc, yc = (t.double() for t in smoke.flagship_data("cpu", n=8192))
+    m, s = agt.train(smoke.flagship_model(agt, Xc, b=512), Xc, yc, iterations=5)
+    agt.checkpoint.save(str(tmp_path / "ck"), m, s)
+    X, y = Xc.float().to(cuda_device), yc.float().to(cuda_device)
+    template = smoke.flagship_model(agt, X, b=512)
+    m2, s2 = agt.checkpoint.load(str(tmp_path / "ck"), template, agt.init_state(template, X, y))
+    for (p, a), (_, b) in zip(named_leaves(s2, "state") + named_leaves(m2, "model"),
+                              named_leaves(s, "state") + named_leaves(m, "model")):
+        want = b.float() if b.is_floating_point() else b
+        assert a.is_cuda and a.dtype == want.dtype and torch.equal(a.cpu(), want), p
+    smoke.reset_launches(ck)
+    m2, s2 = agt.train(m2, X, y, iterations=3, state=s2)
+    torch.cuda.synchronize()
+    assert smoke.expect_launches(ck, "checkpoint resume", {"fused_cavi_stats": 3}) == 3
+    assert torch.isfinite(s2.mu).all()
+
+
+@pytest.mark.cuda
+def test_cuda_world1_nccl_step_is_vi_steps(cuda_device):
+    """sharded_svi_train over NCCL at world 1 on fed block draws is vi_steps
+    bit for bit (kernel 1 once a step; a group of one runs no all-reduce,
+    its broadcasts the only collectives)."""
+    from agp_tpu_torch.parallel import mesh as pm
+    from agp_tpu_torch.training.train import vi_steps
+    from agp_tpu_torch.utils.batch_sums import batch_sum
+
+    X, y = smoke.flagship_data(cuda_device, n=20_000)
+    draws = torch.randint(0, 20_000 // 64, (6, smoke.B // 64), generator=torch.Generator().manual_seed(0))
+    draws = draws.to(cuda_device)
+    model = smoke.flagship_model(agt, X)
+    _, ref = vi_steps(model, agt.init_state(model, X, y), X, y, 6, draws=draws)
+    mesh = pm.initialize_distributed(f"localhost:{smoke.free_port()}", 1, 0, device=cuda_device)
+    try:
+        assert mesh.backend == "nccl"
+        smoke.reset_launches(ck)
+        calls = batch_sum.calls
+        _, st = pm.sharded_svi_train(smoke.flagship_model(agt, X), X, y, 6, mesh=mesh, draws=draws)
+        torch.cuda.synchronize()
+        assert smoke.expect_launches(ck, "world 1", {"fused_cavi_stats": 6}) == 6 and batch_sum.calls == calls
+    finally:
+        torch.distributed.destroy_process_group()
+    assert torch.equal(st.mu, ref.mu) and torch.equal(st.Sigma, ref.Sigma)
+    assert torch.equal(st.local_vars["theta"], ref.local_vars["theta"])
+
+
+def _gloo_child(rank, init, draws_path, out):
+    """One of two processes on cuda:0 over gloo: 20 sharded SVI steps of the
+    flagship at B/2 a rank on fed tile draws; rank 0 saves mu."""
+    from agp_tpu_torch.parallel import mesh as pm
+
+    device = torch.device("cuda:0")
+    mesh = pm.initialize_distributed(init, 2, rank, backend="gloo", device=device)
+    X, y = smoke.flagship_data(device)
+    draws = torch.load(draws_path)[:, rank].to(device)
+    smoke.reset_launches(ck)
+    _, st = pm.sharded_svi_train(smoke.flagship_model(agt, X), X, y, 20, mesh=mesh, batch_per_device=smoke.B // 2,
+                                 draws=draws)
+    torch.cuda.synchronize()
+    assert ck.fused_cavi_stats.launches == 20
+    if rank == 0:
+        torch.save(st.mu.cpu(), out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_world2_within_noise_of_world1(cuda_device, tmp_path):
+    """Two processes on the one card over gloo (CUDA tensors), kernel 1 on
+    each rank's half of the batch: rank 0's mu within 10 times the path's
+    own float32 noise of world 1 on the same global rows (the noise: the
+    world-1 run with Z reordered, or with the batch's rows reversed)."""
+    import os
+    import subprocess
+
+    draws = torch.randint(0, (smoke.N // 2) // 64, (20, 2, smoke.B // 2 // 64), generator=torch.Generator().manual_seed(1))
+    torch.save(draws, tmp_path / "draws.pt")
+    init = f"file://{tmp_path}/rendezvous"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, __file__, "gloo-child", str(r), init, str(tmp_path / "draws.pt"),
+                               str(tmp_path / "mu.pt")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs[0][-3000:] + logs[1][-3000:]
+    mu2 = torch.load(tmp_path / "mu.pt")
+    X, y = smoke.flagship_data(cuda_device)
+    d = draws.to(cuda_device)
+    perm = torch.randperm(smoke.M, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    _, w1 = smoke.global_svi(agt, X, y, d, 2)
+    _, wp = smoke.global_svi(agt, X, y, d, 2, perm=perm)
+    _, wf = smoke.global_svi(agt, X, y, d, 2, flip=True)
+    noise = max(smoke.mu_err(wp.mu, w1.mu, perm.cpu()), smoke.mu_err(wf.mu, w1.mu))
+    assert smoke.mu_err(mu2, w1.mu) <= smoke.ORACLE_DEVICE_FACTOR * noise
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["gloo-child"]:
+    import os
+
+    _gloo_child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    sys.stdout.flush()
+    os._exit(0)  # an orderly interpreter shutdown can abort in gloo's threads' teardown
