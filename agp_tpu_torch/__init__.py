@@ -7,10 +7,13 @@ card, where a sparse model's step statistics are hand-written CUDA kernels
 (``ops/cuda_kernels.py``): one fused pass while the model's inducing set
 fits a block's shared memory (M <= 128), else a split pair of kernels
 around the likelihood's own E-step (M up to 2,392): the single-latent one
-or the batched one.  Ported so far: ``SVGP`` (stochastic or full-batch
-CAVI), the dense ``VGP`` (full-batch CAVI over its training inputs) and
-the exact ``GP`` (Gaussian likelihood, noise learnt by default), with the
-squared-exponential and Matern 1/2, 3/2, 5/2 kernels and the logistic,
+or the batched one.  It holds the whole public surface of ``agp_tpu``: ``SVGP`` (stochastic or
+full-batch CAVI), the dense ``VGP`` (full-batch CAVI over its training
+inputs) and the exact ``GP`` (Gaussian likelihood, noise learnt by
+default), with the sixteen kernels of ``kernels`` (their sums, products
+and the six input transforms too: a kernel outside the squared-exponential
+and Matern ones forms its kappa by plain products, its statistics on the
+same CUDA kernels), the four prior means and the logistic,
 Gaussian (fixed or learnt noise), Student-t, Laplace, Matern-3/2 noise,
 Bayesian SVM, Poisson, negative binomial, logistic-softmax (multiclass)
 and heteroscedastic likelihoods, the softmax and the generic augmented
@@ -20,7 +23,8 @@ VI (``QuadratureVI``, ``MCIntegrationVI`` and their stochastic forms:
 Gauss-Hermite or Monte Carlo expectations, the statistics on the same
 kernels as the split pair), with the hyperparameter step interleaved
 (Adam(0.01) on the kernel and the mean by default, optionally on the
-inducing points) or with fixed hyperparameters; ``predict_f`` (diagonal or
+inducing points) or with fixed hyperparameters, the natural-gradient
+step by Robbins-Monro or ``alrsvi``; ``predict_f`` (diagonal or
 full covariance), ``predict_y``, ``proba_y`` (each optionally in chunks)
 and ``sample_f``; the Monte-Carlo ``MCGP``, sampled by exact augmented
 Gibbs (Polya-Gamma and GIG draws, the global resample by Cholesky or
@@ -38,7 +42,8 @@ kernels) and the autoregressive rollouts ``predict_ar`` and ``sample_ar``
 complete the model families.  ``checkpoint`` saves and loads (model,
 state), the JAX package's checkpoints too; ``parallel`` trains a sparse
 model data-parallel over ``torch.distributed`` (full-batch and minibatched
-CAVI, one process per device).  Inputs without a device (numpy arrays,
+CAVI, one process per device); ``utils.metrics``, ``utils.plotting`` and
+``utils.profiling`` evaluate, plot and trace.  Inputs without a device (numpy arrays,
 lists) go to the CUDA card unless ``config.set_default_device("cpu")``
 was called.
 """
@@ -60,7 +65,33 @@ from .inference.config import (
 from .inference.hmc import sample_hmc, sample_nuts
 from .inference.smc import smc_sample
 from .inference.svgd import svgd_sample
-from .kernels import Matern12Kernel, Matern32Kernel, Matern52Kernel, RBFKernel, SqExponentialKernel
+from .kernels import (
+    ARDTransform,
+    ChainTransform,
+    ConstantKernel,
+    CosineKernel,
+    ExponentiatedKernel,
+    FBMKernel,
+    FunctionTransform,
+    GaborKernel,
+    LinearKernel,
+    LinearTransform,
+    Matern12Kernel,
+    Matern32Kernel,
+    Matern52Kernel,
+    NeuralNetworkKernel,
+    PeriodicKernel,
+    PiecewisePolynomialKernel,
+    PolynomialKernel,
+    RationalQuadraticKernel,
+    RBFKernel,
+    ScaleTransform,
+    SelectTransform,
+    SqExponentialKernel,
+    TransformedKernel,
+    WhiteKernel,
+    with_transform,
+)
 from .likelihoods.base import Likelihood
 from .likelihoods.classification import BayesianSVM, LogisticLikelihood
 from .likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
@@ -68,7 +99,7 @@ from .likelihoods.heteroscedastic import HeteroscedasticLikelihood
 from .likelihoods.generic import make_augmented_likelihood
 from .likelihoods.multiclass import LogisticSoftMaxLikelihood, MultiClassLikelihood, SoftMaxLikelihood
 from .likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
-from .means import ConstantMean, ZeroMean
+from .means import AffineMean, ConstantMean, EmpiricalMean, ZeroMean
 from .models.gp import GP
 from .models.mcgp import MCGP, sample
 from .models.multioutput import (
@@ -90,7 +121,7 @@ from .training.predictions import predict_f, predict_y, proba_y, sample_f
 from .training.autotuning import hyper_step
 from .training.state import TrainState
 from .training.train import elbo, init_state, train
-from .utils.opt import adam, robbins_monro, sgd
+from .utils.opt import adam, alrsvi, robbins_monro, sgd
 
 ELBO = elbo
 
@@ -161,9 +192,32 @@ __all__ = [
     "Matern12Kernel",
     "Matern32Kernel",
     "Matern52Kernel",
+    "RationalQuadraticKernel",
+    "CosineKernel",
+    "PeriodicKernel",
+    "LinearKernel",
+    "PolynomialKernel",
+    "ConstantKernel",
+    "WhiteKernel",
+    "ExponentiatedKernel",
+    "PiecewisePolynomialKernel",
+    "FBMKernel",
+    "GaborKernel",
+    "NeuralNetworkKernel",
+    "TransformedKernel",
+    "with_transform",
+    "ScaleTransform",
+    "ARDTransform",
+    "LinearTransform",
+    "SelectTransform",
+    "FunctionTransform",
+    "ChainTransform",
     "ZeroMean",
     "ConstantMean",
+    "EmpiricalMean",
+    "AffineMean",
     "robbins_monro",
+    "alrsvi",
     "adam",
     "sgd",
     "hyper_step",

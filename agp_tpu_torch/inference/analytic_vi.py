@@ -39,6 +39,12 @@ version on a CPU tensor:
   So do every row-weighted batch, ``elbo`` and the hyperparameter step,
   whose gradient runs through the kappa kernel's ``autograd.Function``.
 
+Any other kernel (a sum, a product, a kernel over transformed inputs, the
+rest of ``kernels.py``) takes the reference's plain branch: its own gram
+and kappa = Knm K^-1 by plain products (``_plain_moments``), gradients by
+autograd through them; the statistics stay on ``cavi_stats`` (one latent)
+or ``cavi_stats_batched`` (several).
+
 The reference's TPU shape gates (``_pallas_kind_batched``: M >= 512,
 B >= 16,384; ``_pallas_kind_kappa_only``: forced only) are not carried
 over.  The reference runs its single-latent fused kernel up to M=512 (its
@@ -52,7 +58,7 @@ from typing import Dict
 import torch
 
 from ..config import jitter
-from ..kernels import batch_gram, batch_gram_zz, fused_kind, lengthscale_2d
+from ..kernels import batch_diag, batch_gram, batch_gram_zz, fused_kind, latent, lengthscale_2d
 from ..likelihoods.classification import BayesianSVM, LogisticLikelihood
 from ..likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
@@ -114,7 +120,9 @@ def _pair_kind(model):
 def latent_moments(model, state: TrainState, x, kmat):
     """mean_f/var_f [L, B] of the latent function at the batch, and kappa
     [L, B, M]: by ``cuda_kernels.fused_kappa`` and plain products for one
-    latent, by ``cuda_kernels.fused_kappa_moments_batched`` for several.
+    latent, by ``cuda_kernels.fused_kappa_moments_batched`` for several;
+    for a kernel outside ``FUSED_KINDS`` by plain products
+    (``_plain_moments``).
     Differentiable in the kernel's parameters, Z and the kmat.  A full
     model's are mu and diag(Sigma) over its training inputs, kappa None; an
     online model's are plain products over its masked slots
@@ -127,9 +135,7 @@ def latent_moments(model, state: TrainState, x, kmat):
         return online_svgp.latent_moments(model, state, x, kmat)
     kind = _pair_kind(model)
     if kind is None:
-        raise NotImplementedError(
-            f"only the kernels of FUSED_KINDS are ported; got {type(model.kernel).__name__}"
-        )
+        return _plain_moments(model, state, x, kmat)
     if model.n_latent == 1:
         kappa, ktilde = cuda_kernels.fused_kappa(
             x.contiguous(),
@@ -153,6 +159,33 @@ def latent_moments(model, state: TrainState, x, kmat):
         jitter(x.dtype),
         kind,
     )
+    return mu_f, var_f, kappa
+
+
+@linalg._highest_precision
+def _plain_moments(model, state: TrainState, x, kmat):
+    """(mean_f, var_f, kappa) of a kernel outside ``FUSED_KINDS``, the
+    reference's plain branch: the kernel's own gram Knm [L, B, M], kappa =
+    Knm K^-1 by a matmul at full FP32 (outside any kernel in the reference
+    too), Ktilde = diag + jitter - rowsum(kappa o Knm) clamped at 1e-12,
+    mf = kappa mu and vf = Ktilde + rowsum((kappa Sigma) o kappa), vf not
+    clamped (the reference clamps it only after its fused kappa).  The
+    statistics that follow stay on kernels 7 and 5."""
+    K_inv = kmat["K_inv"]
+    if model.n_latent == 1:
+        kernel = latent(model.kernel, 0)
+        Knm = kernel.gram(x, model.Z[0])  # [B, M]
+        kappa = Knm @ K_inv[0]
+        ktilde = torch.clamp(kernel.diag(x) + jitter(Knm.dtype) - torch.sum(kappa * Knm, dim=1), min=1e-12)
+        mu_f = kappa @ state.mu[0]
+        var_f = ktilde + torch.sum((kappa @ state.Sigma[0]) * kappa, dim=1)
+        return mu_f[None], var_f[None], kappa[None]
+    Knm = batch_gram(model.kernel, x, model.Z)  # [L, B, M]
+    kappa = Knm @ K_inv
+    ktilde = batch_diag(model.kernel, x) + jitter(Knm.dtype) - linalg.diag_ABt(kappa, Knm)
+    ktilde = torch.clamp(ktilde, min=1e-12)
+    mu_f = (kappa @ state.mu.unsqueeze(-1)).squeeze(-1)
+    var_f = ktilde + linalg.diag_ABt(kappa @ state.Sigma, kappa)
     return mu_f, var_f, kappa
 
 

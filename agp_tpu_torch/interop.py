@@ -13,8 +13,9 @@ import numpy as np
 import torch
 
 from .inducing import algorithms
-from .means import ConstantMean
+from .means import AffineMean, ConstantMean, EmpiricalMean
 from .training.state import TrainState
+from .utils.tensors import keystr, path_leaves, with_path_leaves
 
 
 # the likelihoods' tensor parameters, by field name
@@ -26,8 +27,14 @@ def model_from_numpy(params: dict, template):
     "Z" [L, M, D] (or [M, D]) for an SVGP (an online model's also
     "z_mask", "Za", "za_mask", "z_counts" and optionally its static fields,
     see ``_online_from_numpy``), "train_x" and "train_y" for a VGP, a GP or
-    an MCGP, "lengthscale" and "variance" (latent-stacked, as the
-    reference replicates them), for a constant mean "mean_c", and the
+    an MCGP, the kernel's tensors (latent-stacked, as the reference
+    replicates them) as "kernel": {path: array} by
+    ``utils.tensors.path_leaves``'s paths ("left.inner.lengthscale",
+    "transform.A"; the template's kernel gives the structure and the
+    static fields, and a ``FunctionTransform``'s callable does not cross),
+    or for a flat kernel "lengthscale" and "variance", the prior mean's
+    "mean_c" (constant), "mean_v" (empirical) or "mean_w" and "mean_b"
+    (affine), and the
     likelihood's own: "sigma2" (Gaussian; its rule's state is the train
     state's), "nu" and "sigma" (Student-t), "beta" (Laplace), "rho"
     (Matern-3/2 noise), "r" (negative binomial), "lam" (Poisson,
@@ -55,12 +62,17 @@ def model_from_numpy(params: dict, template):
     else:
         y = torch.as_tensor(np.asarray(params["train_y"]), device=dev)
         template = template.replace(train_x=t(params["train_x"]), train_y=y.to(dt) if y.is_floating_point() else y)
-    kernel = template.kernel.replace(
-        lengthscale=t(params["lengthscale"]), variance=t(params["variance"])
-    )
+    if "kernel" in params:
+        kernel = with_path_leaves(template.kernel, {p: t(a) for p, a in params["kernel"].items()})
+    else:
+        kernel = template.kernel.replace(lengthscale=t(params["lengthscale"]), variance=t(params["variance"]))
     mean = template.mean
     if "mean_c" in params:
         mean = ConstantMean(c=t(params["mean_c"]))
+    elif "mean_v" in params:
+        mean = EmpiricalMean(v=t(params["mean_v"]))
+    elif "mean_w" in params:
+        mean = AffineMean(w=t(params["mean_w"]), b=t(params["mean_b"]))
     template = template.replace(kernel=kernel, mean=mean)
     if getattr(template, "is_multioutput", False):
         liks = tuple(_likelihood_from_numpy(p, lik, t) for p, lik in zip(params["likelihoods"], template.likelihoods))
@@ -102,8 +114,9 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
     """A TrainState from numpy arrays: "eta1", "eta2", "mu", "Sigma",
     "local_vars" (a dict; the Gaussian's noise rule's state
     "state_sigma2" as optax's Adam state {"count", "mu", "nu"}),
-    "opt_state" (the Robbins-Monro step count; a numerical engine's sgd
-    traces, optax's ``TraceState.trace``, as a tuple of arrays; or None),
+    "opt_state" (the Robbins-Monro step count; alrsvi's {"i", "g", "h",
+    "tau"}, "g" a tuple of arrays; a numerical engine's sgd traces,
+    optax's ``TraceState.trace``, as a tuple of arrays; or None),
     "rho", "step",
     "kmat" ({"L_K", "K_inv"} and, for a sparse model, "L_inv"), for an
     online model "previous" ({"invDa", "prev_eta1", "prev_L_a"}), for a GP
@@ -132,7 +145,9 @@ def state_from_numpy(arrays: dict, device, dtype) -> TrainState:
         return None if arrays.get(name) is None else f(arrays[name])
 
     opt = arrays.get("opt_state")
-    if opt is not None:
+    if isinstance(opt, dict):  # alrsvi's
+        opt = {"i": i32(opt["i"]), "g": tuple(f(a) for a in opt["g"]), "h": f(opt["h"]), "tau": f(opt["tau"])}
+    elif opt is not None:
         opt = tuple(f(a) for a in opt) if isinstance(opt, (tuple, list)) else i32(opt)
     hyper = arrays.get("hyper_state")
     if hyper is not None:
@@ -193,15 +208,21 @@ def reference_leaf_table(model, state):
     dicts :func:`model_from_numpy` and :func:`state_from_numpy` take (None
     for the reference's PRNG key, which the port has no place for), and
     the template's tensor there.  The order: flax fields in declaration
-    order, dict keys sorted, None empty; optax's states are chains whose
-    first member holds the leaves.  Families: SVGP, VGP, VStP, OnlineSVGP,
-    MOSVGP, MOVGP and the GP, with closed-form engines (a numerical
-    engine's optimiser state raises ``NotImplementedError``)."""
+    order (a kernel's nested: ``left`` before ``right``, ``inner`` before
+    ``transform``, a chain's transforms in order, static fields skipped),
+    dict keys sorted, None empty; optax's states are chains whose first
+    member holds the leaves (the hyperparameter state's kernel moments by
+    path, in the same order as the kernel's).  Families: SVGP, VGP, VStP,
+    OnlineSVGP, MOSVGP, MOVGP and the GP, with closed-form engines and the
+    Robbins-Monro or alrsvi rule (a numerical engine's optimiser state
+    raises ``NotImplementedError``)."""
     table = []
     for f in dataclasses.fields(model):
         value = getattr(model, f.name)
-        if f.name in ("kernel", "likelihood"):
-            table += [("model", f".{f.name}.{k}", (k,), v) for k, v in value.leaves().items()]
+        if f.name == "kernel":
+            table += [("model", f".kernel{keystr(p)}", ("kernel", p), v) for p, v in path_leaves(value).items()]
+        elif f.name == "likelihood":
+            table += [("model", f".likelihood.{k}", (k,), v) for k, v in value.leaves().items()]
         elif f.name == "likelihoods":
             table += [("model", f".likelihoods[{i}].{k}", ("likelihoods", i, k), v)
                       for i, lik in enumerate(value) for k, v in lik.leaves().items()]
@@ -219,9 +240,13 @@ def reference_leaf_table(model, state):
             prefix = f".local_vars['{k}']" if i is None else f".local_vars[{i}]['{k}']"
             keys = ("local_vars", k) if i is None else ("local_vars", i, k)
             table += _adam_paths(prefix, d[k], keys) if _is_adam(d[k]) else [("state", prefix, keys, d[k])]
-    if isinstance(state.opt_state, torch.Tensor):
-        table.append(("state", ".opt_state", ("opt_state",), state.opt_state))
-    elif state.opt_state is not None:
+    opt = state.opt_state
+    if isinstance(opt, torch.Tensor):
+        table.append(("state", ".opt_state", ("opt_state",), opt))
+    elif isinstance(opt, dict):  # alrsvi's, keys sorted
+        table += [("state", f".opt_state['g'][{i}]", ("opt_state", "g", i), g) for i, g in enumerate(opt["g"])]
+        table += [("state", f".opt_state['{k}']", ("opt_state", k), opt[k]) for k in ("h", "i", "tau")]
+    elif opt is not None:
         raise NotImplementedError("a numerical engine's optimiser state has no reference mapping yet")
     for group in sorted(state.hyper_state or {}):
         table += _adam_paths(f".hyper_state['{group}']", state.hyper_state[group], ("hyper_state", group))
@@ -255,6 +280,8 @@ def from_reference_leaves(model_leaves, state_leaves, model_template, state_temp
     arrays = {"local_vars": [{} for _ in lv] if isinstance(lv, (list, tuple)) else {}}
     for group, s in (state_template.hyper_state or {}).items():
         arrays.setdefault("hyper_state", {})[group] = {k: ({} if isinstance(v, dict) else None) for k, v in s.items()}
+    if isinstance(state_template.opt_state, dict):
+        arrays["opt_state"] = {"g": [None] * len(state_template.opt_state["g"])}
     leaves = {"model": iter(model_leaves), "state": iter(state_leaves)}
     for which, _, keys, _ in table:
         value = next(leaves[which])

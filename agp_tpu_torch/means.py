@@ -1,9 +1,9 @@
-"""Prior mean functions: the counterpart of ``ZeroMean``, ``ConstantMean``
-and ``batch_call`` in ``agp_tpu/means.py``.
+"""Prior mean functions: the counterpart of ``agp_tpu/means.py``.
 
 A mean's tensor fields (``leaves()``) are what the hyperparameter step
-updates, unconstrained: ``ConstantMean.c`` ([L] once replicated over the
-latents); ``ZeroMean`` has none."""
+updates, unconstrained: ``ConstantMean.c``, ``EmpiricalMean.v``,
+``AffineMean.w`` and ``b`` (each with a leading [L] axis once replicated
+over the latents); ``ZeroMean`` has none."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,11 +37,45 @@ class ConstantMean(PriorMean):
         return torch.broadcast_to(self.c, (X.shape[0],)).to(X.dtype)
 
 
+def _tensor(v):
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(v, dtype=torch.get_default_dtype())
+
+
+@dataclasses.dataclass(frozen=True)
+class EmpiricalMean(PriorMean):
+    """One free mean value per (inducing) point: v [n]."""
+
+    v: torch.Tensor = dataclasses.field(default_factory=lambda: torch.zeros(1))
+
+    def __post_init__(self):
+        object.__setattr__(self, "v", _tensor(self.v))
+
+    def __call__(self, X):
+        return torch.broadcast_to(self.v, (X.shape[0],)).to(X.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AffineMean(PriorMean):
+    """m(x) = x.w + b."""
+
+    w: torch.Tensor = dataclasses.field(default_factory=lambda: torch.zeros(1))
+    b: torch.Tensor = 0.0
+
+    def __post_init__(self):
+        object.__setattr__(self, "w", _tensor(self.w))
+        object.__setattr__(self, "b", _tensor(self.b))
+
+    def __call__(self, X):
+        return X @ self.w + self.b
+
+
 def as_mean(mean) -> PriorMean:
-    """Coerce a scalar or a PriorMean into a PriorMean."""
+    """Coerce a scalar (a ConstantMean), a vector (an EmpiricalMean) or a
+    PriorMean into a PriorMean."""
     if isinstance(mean, PriorMean):
         return mean
-    return ConstantMean(c=mean)
+    t = _tensor(mean)
+    return ConstantMean(c=t) if t.ndim == 0 else EmpiricalMean(v=t)
 
 
 def replicate(mean: PriorMean, n_latent: int) -> PriorMean:

@@ -23,7 +23,7 @@ from ..means import PriorMean, ZeroMean, batch_call
 from ..ops import linalg
 from ..training.state import TrainState
 from ..utils.opt import adam, ascent_update
-from ..utils.tensors import Params
+from ..utils.tensors import Params, path_leaves
 from .base import as_2d, check_card_dtype, match_dtype, model_repr
 from .svgp import _check_ported, _place
 
@@ -86,7 +86,7 @@ class GP(Params):
         hyper_state = None
         if self.optimiser is not None:
             hyper_state = {
-                "kernel": self.optimiser.init(to_unconstrained(self.kernel).leaves()),
+                "kernel": self.optimiser.init(path_leaves(to_unconstrained(self.kernel))),
                 "mean": self.optimiser.init(self.mean.leaves()),
             }
         return TrainState(

@@ -16,7 +16,8 @@ One step (``mo_variational_update``):
 
 The moments and the statistics are the sparse model's own: kernels 4 + 5
 for Q > 1 latents (``fused_kappa_moments_batched``, ``cavi_stats_batched``),
-kernels 6 + 7 for one (``fused_kappa``, ``cavi_stats``); a multi-output
+kernels 6 + 7 for one (``fused_kappa``, ``cavi_stats``), or for a kernel
+outside ``FUSED_KINDS`` the plain kappa and kernel 5 or 7; a multi-output
 model never takes a fused pass.  The mixing, the E-steps and the A step are
 plain PyTorch at full FP32.  A step reads nothing back to the host.
 """
@@ -30,6 +31,7 @@ import torch
 
 from ..inference import analytic_vi
 from ..inference.config import AnalyticVI, InferenceConfig
+from ..kernels import fused_kind
 from ..means import PriorMean, ZeroMean
 from ..ops import cuda_kernels, linalg
 from ..ops.kl import gaussian_kl
@@ -109,7 +111,7 @@ class MOSVGP(Params):
         Q = n_latent
         Z = as_2d(Z)
         check_card_dtype(Z.device, Z.dtype)
-        _check_kernel_range(Z.device, Q, Z.shape[-2])
+        _check_kernel_range(Z.device, Q, Z.shape[-2], kernel)
         to = dict(device=Z.device, dtype=Z.dtype)
         kernel, mean = prepare_components(kernel, likelihoods[0], ZeroMean() if mean is None else mean, Q)
         kernel, mean = kernel.to(**to), mean.to(**to)
@@ -158,11 +160,13 @@ class MOVGP(MOSVGP):
         return super().create(kernel, likelihoods, inference, as_2d(X), n_latent, **kw)
 
 
-def _check_kernel_range(device, Q: int, M: int):
+def _check_kernel_range(device, Q: int, M: int, kernel):
     """On a CUDA device, ``ValueError`` for an M beyond the moments kernel the
     step launches (``cuda_kernels.kappa_max_m``: kernel 4 for several
-    latents, kernel 6 for one); the plain versions never stand in for it."""
-    if torch.device(device).type != "cuda":
+    latents, kernel 6 for one); the plain versions never stand in for it.
+    A kernel outside ``FUSED_KINDS`` forms kappa by plain products, and
+    the statistics kernels 5 and 7 take any M: no limit then."""
+    if torch.device(device).type != "cuda" or fused_kind(kernel) is None:
         return
     which, name = ("moments", "fused_kappa_moments_batched") if Q > 1 else ("single", "fused_kappa")
     limit = cuda_kernels.kappa_max_m(which)

@@ -3,14 +3,15 @@ VGP, the full variational GP over its training inputs: the counterparts of
 ``SVGP`` and ``VGP`` in ``agp_tpu/models/svgp.py``.
 
 The latent GPs live on a stacked axis ([L, M, D] inducing points).  The
-port so far takes the squared-exponential and Matern 1/2, 3/2, 5/2
-kernels, the single-latent likelihoods of ``fused_cavi_stats`` (logistic,
+port takes every kernel of ``kernels.KERNELS`` (sums, products and
+kernels over transformed inputs too), the single-latent likelihoods of ``fused_cavi_stats`` (logistic,
 Gaussian with fixed noise, Student-t, Laplace, Matern-3/2 noise, Bayesian
 SVM, Poisson, negative binomial), the logistic-softmax and heteroscedastic
 likelihoods, the softmax and any likelihood that
 ``make_augmented_likelihood`` builds, the analytic and the numerical
-engines, and the reference's hyperparameter learning: by default Adam(0.01)
-on the log kernel parameters and the prior mean's parameters, optionally a
+engines, every prior mean of ``means.py``, and the reference's
+hyperparameter learning: by default Adam(0.01) on the unconstrained kernel
+parameters and the prior mean's parameters, optionally a
 ``Zoptimiser`` on the inducing points (``training/autotuning.py``), or
 fixed hyperparameters (``optimiser=None``).  A VGP takes the same
 kernels, likelihoods and means, with full-batch (not stochastic) steps.
@@ -23,7 +24,7 @@ from typing import Any, Optional
 import torch
 
 from ..inference.config import InferenceConfig
-from ..kernels import FUSED_KINDS
+from ..kernels import KERNELS
 from ..likelihoods.base import Likelihood
 from ..likelihoods.classification import BayesianSVM, LogisticLikelihood
 from ..likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
@@ -36,12 +37,12 @@ from ..likelihoods.regression import (
     Matern32Likelihood,
     StudentTLikelihood,
 )
-from ..means import ConstantMean, PriorMean, ZeroMean
+from ..means import AffineMean, ConstantMean, EmpiricalMean, PriorMean, ZeroMean, as_mean
 from ..utils.opt import GradientTransformation, adam
 from ..utils.tensors import Params
 from .base import as_2d, check_card_dtype, check_implemented, match_dtype, model_repr, prepare_components
 
-_PORTED_KERNELS = tuple(FUSED_KINDS)
+_PORTED_KERNELS = KERNELS
 _PORTED_LIKELIHOODS = (
     LogisticLikelihood,
     GaussianLikelihood,
@@ -56,7 +57,7 @@ _PORTED_LIKELIHOODS = (
     SoftMaxLikelihood,
     GenericAugmentedLikelihood,
 )
-_PORTED_MEANS = (ZeroMean, ConstantMean)
+_PORTED_MEANS = (ZeroMean, ConstantMean, EmpiricalMean, AffineMean)
 
 
 def _check_ported(kernel, likelihood, mean, optimiser, Zoptimiser=None, Aoptimiser=None):
@@ -71,7 +72,7 @@ def _check_ported(kernel, likelihood, mean, optimiser, Zoptimiser=None, Aoptimis
     for obj, ported, what in (
         (kernel, _PORTED_KERNELS, "kernel"),
         (likelihood, _PORTED_LIKELIHOODS, "likelihood"),
-        (mean if mean is not None else ZeroMean(), _PORTED_MEANS, "mean"),
+        (ZeroMean() if mean is None else as_mean(mean), _PORTED_MEANS, "mean"),
     ):
         if not isinstance(obj, ported):
             raise NotImplementedError(

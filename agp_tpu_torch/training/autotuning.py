@@ -4,10 +4,11 @@
 One step takes the gradient of -ELBO on the CAVI step's minibatch, by
 ``torch.autograd.grad`` through the whole ELBO (the kernel matrices, their
 Cholesky ladder, the kappa kernel's ``autograd.Function``, the Gaussian
-KL), with respect to the log kernel parameters, the prior mean's
-parameters and, when the model has a ``Zoptimiser``, the inducing points.
-The optimiser's updates are added (descent on -ELBO), the kernel is mapped
-back from log space, and the cached kernel matrices are recomputed.  A
+KL), with respect to the kernel's unconstrained parameters (log, logit or
+as they are: ``kernels.to_unconstrained``; a nested kernel's by path), the
+prior mean's parameters and, when the model has a ``Zoptimiser``, the
+inducing points.  The optimiser's updates are added (descent on -ELBO),
+the kernel is mapped back, and the cached kernel matrices are recomputed.  A
 full model's (VGP's) kernel matrices are over its training inputs, the
 batch x of a full-batch step; its ELBO reads their Cholesky factor alone,
 so the gradient's pass forms no inverse.  No value is read back to the host
@@ -23,6 +24,7 @@ from ..inference.objective import objective
 from ..kernels import from_unconstrained, to_unconstrained
 from ..training.state import TrainState
 from ..utils.opt import tree_map
+from ..utils.tensors import path_leaves, with_path_leaves
 
 
 def _optimises_z(model) -> bool:
@@ -40,16 +42,17 @@ def _kmat(model, x, inverse: bool = True):
 
 
 def hyper_gradients(model, state: TrainState, x, y):
-    """(log kernel leaves, gradients of -ELBO with respect to them, the
-    mean's gradients, Z's gradient or None), the ELBO taken with
+    """(unconstrained kernel leaves by path (``utils.tensors.path_leaves``),
+    gradients of -ELBO with respect to them, the mean's gradients, Z's
+    gradient or None), the ELBO taken with
     ``kmat = _kmat`` of the candidate model (over x for a full model, the
     masked one for an online model, its extra KL included), as the
     reference's ``neg_elbo`` does."""
-    log_k = {k: v.detach().requires_grad_(True) for k, v in to_unconstrained(model.kernel).leaves().items()}
+    log_k = {k: v.detach().requires_grad_(True) for k, v in path_leaves(to_unconstrained(model.kernel)).items()}
     mean = {k: v.detach().requires_grad_(True) for k, v in model.mean.leaves().items()}
     Z = model.Z.detach().requires_grad_(True) if _optimises_z(model) else None
     with torch.enable_grad():
-        kernel = from_unconstrained(model.kernel.replace(**log_k))
+        kernel = from_unconstrained(with_path_leaves(model.kernel, log_k))
         m2 = model.replace(kernel=kernel, mean=model.mean.replace(**mean))
         if Z is not None:
             m2 = m2.replace(Z=Z)
@@ -75,7 +78,7 @@ def hyper_step(model, state: TrainState, x, y):
     m_updates, hyper["mean"] = model.optimiser.update(g_m, hyper["mean"])
     new_mean = tree_map(lambda p, u: p + u, model.mean.leaves(), m_updates)
     model = model.replace(
-        kernel=from_unconstrained(model.kernel.replace(**new_log_k)), mean=model.mean.replace(**new_mean)
+        kernel=from_unconstrained(with_path_leaves(model.kernel, new_log_k)), mean=model.mean.replace(**new_mean)
     )
     if g_z is not None:
         z_update, hyper["Z"] = model.Zoptimiser.update(g_z, hyper["Z"])
@@ -90,7 +93,7 @@ def init_hyper_state(model):
     if model.optimiser is None:
         return None
     hyper = {
-        "kernel": model.optimiser.init(to_unconstrained(model.kernel).leaves()),
+        "kernel": model.optimiser.init(path_leaves(to_unconstrained(model.kernel))),
         "mean": model.optimiser.init(model.mean.leaves()),
     }
     if _optimises_z(model):

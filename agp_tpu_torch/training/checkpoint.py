@@ -30,7 +30,6 @@ with templates.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import os
@@ -40,7 +39,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from ..utils.tensors import Params
+from ..utils.tensors import map_named, named_leaves
 
 FORMAT = "agp_tpu_torch/1"
 
@@ -50,34 +49,6 @@ class _Leaf:
     """A tensor's place in a pickled skeleton: its leaf number."""
 
     index: int
-
-
-def _map_named(fn, value, path: str, leaf=torch.Tensor):
-    """``value`` with ``fn(path, x)`` in place of each ``leaf`` x (a tensor;
-    a skeleton's ``_Leaf``), walking ``Params`` fields in declaration
-    order, dicts in their order and tuples and lists by index (what
-    ``utils.tensors.map_leaves`` walks); the copies skip
-    ``__post_init__``, so a field may take any value."""
-    if isinstance(value, leaf):
-        return fn(path, value)
-    if isinstance(value, Params):
-        out = copy.copy(value)
-        for f in dataclasses.fields(value):
-            if f.init:
-                object.__setattr__(out, f.name, _map_named(fn, getattr(value, f.name), f"{path}.{f.name}", leaf))
-        return out
-    if isinstance(value, dict):
-        return {k: _map_named(fn, v, f"{path}.{k}", leaf) for k, v in value.items()}
-    if type(value) in (tuple, list):
-        return type(value)(_map_named(fn, v, f"{path}.{i}", leaf) for i, v in enumerate(value))
-    return value
-
-
-def named_leaves(tree, name: str) -> list:
-    """[(path, tensor)] of ``tree`` in walk order, paths rooted at ``name``."""
-    out = []
-    _map_named(lambda p, t: out.append((p, t)), tree, name)
-    return out
 
 
 def save(path: str, model: Any, state: Any) -> None:
@@ -96,7 +67,7 @@ def save(path: str, model: Any, state: Any) -> None:
         ]
         index = {p: i for i, (p, _) in enumerate(leaves)}
         try:
-            skeleton = pickle.dumps(_map_named(lambda p, t: _Leaf(index[p]), tree, name))
+            skeleton = pickle.dumps(map_named(lambda p, t: _Leaf(index[p]), tree, name))
         except (pickle.PicklingError, AttributeError, TypeError):
             skeleton = None  # a class built at run time: templates only
         with open(os.path.join(path, f"{name}.skeleton.pkl"), "wb") as f:
@@ -143,7 +114,7 @@ def load(path: str, model_template: Any = None, state_template: Any = None,
                 raise ValueError(f"{name}: no skeleton was pickled (a class built at run time): load with templates")
             tensors = [torch.as_tensor(a).to(entry["device"])
                        for a, entry in zip(_load_arrays(path, name), manifest[name])]
-            out.append(_map_named(lambda p, leaf: tensors[leaf.index], pickle.loads(raw), name, _Leaf))
+            out.append(map_named(lambda p, leaf: tensors[leaf.index], pickle.loads(raw), name, _Leaf))
         return out[0], out[1]
     if model_template is None or state_template is None:
         raise ValueError(
@@ -175,7 +146,7 @@ def load_arrays(path: str, model_template: Any, state_template: Any) -> Tuple[An
                 if list(t.shape) != saved[p][0]["shape"]:
                     raise ValueError(f"{p}: checkpoint shape {saved[p][0]['shape']} != template shape {list(t.shape)}")
             # each tensor on its template tensor's device, in its dtype
-            out.append(_map_named(lambda p, t: torch.as_tensor(saved[p][1]).to(device=t.device, dtype=t.dtype),
+            out.append(map_named(lambda p, t: torch.as_tensor(saved[p][1]).to(device=t.device, dtype=t.dtype),
                                   template, name))
         return out[0], out[1]
     return _load_reference(path, manifest, model_template, state_template)
@@ -208,4 +179,4 @@ def _like(tree, template, name):
     """``template`` with each tensor replaced by ``tree``'s at its path, on
     the template tensor's device and in its dtype."""
     got = dict(named_leaves(tree, name))
-    return _map_named(lambda p, t: got[p].to(device=t.device, dtype=t.dtype), template, name)
+    return map_named(lambda p, t: got[p].to(device=t.device, dtype=t.dtype), template, name)

@@ -31,6 +31,7 @@ from ..models.base import as_2d, check_card_dtype, match_dtype, to_tensor
 from ..models.gp import GP, analytic_update, log_py, noisy_chol
 from ..ops import linalg
 from ..utils.opt import tree_map
+from ..utils.tensors import path_leaves, with_path_leaves
 from . import autotuning
 from .state import TrainState, init_var_posterior
 
@@ -363,10 +364,10 @@ def _gp_hyper_step(model, state: TrainState):
     against -log p(y) + const = 1/2 ((y - mu0)^T Sigma^-1 (y - mu0) +
     logdet Sigma), by autograd through the N x N Cholesky (the noise held
     fixed); returns (model, state) with the optimiser states updated."""
-    log_k = {k: v.detach().requires_grad_(True) for k, v in to_unconstrained(model.kernel).leaves().items()}
+    log_k = {k: v.detach().requires_grad_(True) for k, v in path_leaves(to_unconstrained(model.kernel)).items()}
     mean = {k: v.detach().requires_grad_(True) for k, v in model.mean.leaves().items()}
     with torch.enable_grad():
-        L = noisy_chol(model, from_unconstrained(model.kernel.replace(**log_k)))
+        L = noisy_chol(model, from_unconstrained(with_path_leaves(model.kernel, log_k)))
         r = model.train_y - batch_call(model.mean.replace(**mean), model.train_x, 1)[0]
         neg_logpy = 0.5 * (linalg.invquad(L, r) + linalg.chol_logdet(L))
         grads = torch.autograd.grad(neg_logpy, list(log_k.values()) + list(mean.values()))
@@ -376,7 +377,7 @@ def _gp_hyper_step(model, state: TrainState):
     new_log_k = tree_map(lambda p, u: p.detach() + u, log_k, k_up)
     new_mean = tree_map(lambda p, u: p + u, model.mean.leaves(), m_up)
     model = model.replace(
-        kernel=from_unconstrained(model.kernel.replace(**new_log_k)), mean=model.mean.replace(**new_mean)
+        kernel=from_unconstrained(with_path_leaves(model.kernel, new_log_k)), mean=model.mean.replace(**new_mean)
     )
     return model, state.replace(hyper_state=hyper)
 

@@ -1,13 +1,14 @@
-"""Step-size rules and optimisers: the counterpart of ``ascent_update`` and
-``robbins_monro`` in ``agp_tpu/utils/opt.py`` and of ``optax.adam``, the
-reference's default hyperparameter optimiser.
+"""Step-size rules and optimisers: the counterpart of ``ascent_update``,
+``positive_ascent``, ``robbins_monro`` and ``alrsvi`` in
+``agp_tpu/utils/opt.py`` and of ``optax.adam`` and ``optax.sgd``, the
+reference's default hyperparameter and numerical-VI optimisers.
 
 optax is JAX-only, so the port carries a minimal rule protocol of its own:
 a rule is an (init, update) pair, ``init(params) -> state`` and
 ``update(updates, state) -> (scaled_updates, new_state)``, in optax's
 descent convention (the returned updates are added to the parameters).
-``robbins_monro`` and ``sgd`` take a tuple of tensors, ``adam`` a tensor
-or a dict of them (``sgd`` takes those too).  Each rule is a pair of
+``robbins_monro`` and ``alrsvi`` take a tuple of tensors, ``adam`` a
+tensor or a dict of them (``sgd`` takes those too).  Each rule is a pair of
 module-level functions with its settings bound, so that a model holding
 one pickles (``training/checkpoint.py``).
 """
@@ -43,6 +44,25 @@ def ascent_update(opt: GradientTransformation, opt_state, params, grads):
     return new_state, updates
 
 
+def _tree_leaves(tree) -> list:
+    """The tensors of a tensor, a tuple or a dict of them, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [tree]
+
+
+def positive_ascent(opt: GradientTransformation, opt_state, value, grad_wrt_value):
+    """An ascent step on a positive parameter, taken in log space: value <-
+    exp(log value + Delta), Delta the rule's update of the gradient with
+    respect to log value (value * gradient).  Returns (new_opt_state,
+    new_value)."""
+    g_log = tree_map(lambda v, g: v * g, value, grad_wrt_value)
+    new_state, updates = ascent_update(opt, opt_state, value, g_log)
+    return new_state, tree_map(lambda v, u: torch.exp(torch.log(v) + u), value, updates)
+
+
 def _rm_init(params):
     return torch.zeros((), dtype=torch.int32, device=params[0].device)
 
@@ -59,6 +79,45 @@ def robbins_monro(kappa: float = 0.51, tau: float = 1.0) -> GradientTransformati
     reference does; a float64 scale would move float64 trajectories apart
     from the reference's at about 1e-8."""
     return GradientTransformation(_rm_init, partial(_rm_update, kappa, tau))
+
+
+def _alrsvi_init(n_warmup, params):
+    p0 = _tree_leaves(params)[0]
+    return {
+        "i": torch.zeros((), dtype=torch.int32, device=p0.device),
+        "g": tree_map(torch.zeros_like, params),
+        "h": torch.zeros((), dtype=p0.dtype, device=p0.device),
+        "tau": torch.full((), float(n_warmup), dtype=p0.dtype, device=p0.device),
+    }
+
+
+def _sqnorm(tree):
+    return sum(torch.sum(x**2) for x in _tree_leaves(tree))
+
+
+def _alrsvi_update(n_warmup, rho0, updates, state):
+    i = state["i"] + 1
+    warm = i <= n_warmup
+    h0, tau0 = state["h"], state["tau"]
+    # the warm-up weight 1/i in float32, as the reference computes it
+    w = torch.where(warm, (1.0 / i.to(torch.float32)).to(h0.dtype), 1.0 / tau0)
+    g = tree_map(lambda m, u: (1.0 - w) * m + w * u, state["g"], updates)
+    h = (1.0 - w) * h0 + w * _sqnorm(updates)
+    rho = torch.where(warm, torch.full_like(h, rho0), _sqnorm(g) / torch.clamp(h, min=1e-30))
+    tau = torch.where(warm, tau0, tau0 * (1.0 - rho) + 1.0)
+    return tree_map(lambda u: -rho * u, updates), {"i": i, "g": g, "h": h, "tau": tau}
+
+
+def alrsvi(n_warmup: int = 10, rho0: float = 0.1) -> GradientTransformation:
+    """The adaptive learning rate for SVI (Ranganath et al.), as the
+    reference re-derives it: running means g of the gradient and h of its
+    squared norm, weighted 1/i over the n_warmup first steps (at rate rho0)
+    and 1/tau after; then the rate rho = |g|^2 / h and the window tau <-
+    tau (1 - rho) + 1.  The state is {"i": int32, "g": the running means
+    (a tuple like the parameters), "h", "tau"}, on the parameters' device
+    and in their dtype, the warm-up weight computed in float32 as the
+    reference computes it."""
+    return GradientTransformation(partial(_alrsvi_init, n_warmup), partial(_alrsvi_update, n_warmup, rho0))
 
 
 def _sgd_init(params):

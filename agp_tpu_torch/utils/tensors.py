@@ -8,7 +8,9 @@ recursing into nested ``Params``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import re
 
 import torch
 
@@ -63,6 +65,56 @@ class Params:
             return t.to(device=device)
 
         return self.map(move)
+
+
+def map_named(fn, value, path: str, leaf=torch.Tensor):
+    """``value`` with ``fn(path, x)`` in place of each ``leaf`` x (a tensor,
+    or another type such as a checkpoint skeleton's leaf marker), walking
+    ``Params`` fields in declaration order, dicts in their order and tuples
+    and lists by index (what ``map_leaves`` walks); a leaf's path is
+    ``path`` and its field names, keys and indices joined by dots.  The
+    copies skip ``__post_init__``, so a field may take any value."""
+    if isinstance(value, leaf):
+        return fn(path, value)
+    if isinstance(value, Params):
+        out = copy.copy(value)
+        for f in dataclasses.fields(value):
+            if f.init:
+                object.__setattr__(out, f.name, map_named(fn, getattr(value, f.name), f"{path}.{f.name}", leaf))
+        return out
+    if isinstance(value, dict):
+        return {k: map_named(fn, v, f"{path}.{k}", leaf) for k, v in value.items()}
+    if type(value) in (tuple, list):
+        return type(value)(map_named(fn, v, f"{path}.{i}", leaf) for i, v in enumerate(value))
+    return value
+
+
+def named_leaves(tree, name: str) -> list:
+    """[(path, tensor)] of ``tree`` in walk order, paths rooted at ``name``."""
+    out = []
+    map_named(lambda p, t: out.append((p, t)), tree, name)
+    return out
+
+
+def path_leaves(tree) -> dict:
+    """{path: tensor} of a nested ``Params`` tree in declaration order, the
+    paths relative to the tree ("lengthscale", "left.inner.lengthscale",
+    "transform.transforms.1.v"): the leaves an optimiser or autograd takes
+    from a kernel.  :func:`with_path_leaves` puts them back."""
+    return {p[1:]: t for p, t in named_leaves(tree, "")}
+
+
+def with_path_leaves(tree, leaves: dict):
+    """``tree`` with the tensor at each path of ``leaves`` (as
+    :func:`path_leaves` names them) replaced by its value there."""
+    return map_named(lambda p, t: leaves.get(p[1:], t), tree, "")
+
+
+def keystr(path: str) -> str:
+    """A :func:`path_leaves` path as ``jax.tree_util.keystr`` writes the
+    same leaf of the reference's pytree: ".left.inner.lengthscale",
+    ".transform.transforms[1].v"."""
+    return re.sub(r"\.(\d+)(?=\.|$)", r"[\1]", "." + path)
 
 
 def host_read(t: torch.Tensor):

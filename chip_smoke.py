@@ -246,7 +246,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    variables) after 50 steps loaded on one process and trained to 100 on
    the same global rows, within that noise of rank 0's run; then path A's
    20 iterations with kernel 1 alone and kernel 6 alone in their plain
-   versions (ROADMAP queue 3 item 5), as shares of its noise.
+   versions (ROADMAP queue 3 item 5), as shares of its noise;
+42. Slice L, path 42: the flagship's shape with with_transform(
+   SqExponentialKernel(), LinearTransform(A0 [4, 20])) + LinearKernel(0.1)
+   and the default Adam(0.01) every iteration, 100 iterations through
+   agp_tpu_torch.train: kernel 7 once a CAVI step and nothing else (the
+   plain kappa), the accuracy floor (SLICE_L_FLOORS, from
+   ``slice-l-cpu``), A moved, the positive leaves positive; its rate with
+   and without the hyperparameter step; profiled iterations of it beside
+   the flagship's and path A's (kernel 1) on the same host; 20 iterations
+   card vs CPU within ORACLE_DEVICE_FACTOR times its float32 noise;
+43. path 43: bench.py's multiclass configuration (K=10) with
+   RationalQuadraticKernel(alpha=2) at fixed hyperparameters, 300 steps:
+   kernel 5 once a step and nothing else, its floor, its rate, 20 steps
+   card vs CPU;
+44. the kernel library: every form of tests/test_components.py's
+   ALL_KERNELS and FBM at a saturated Hurst index, gram [4096, 512] and
+   diag at D=20 on the card against the CPU's float64 within
+   ORACLE_DEVICE_FACTOR times the CPU's own float32 error; path 44,
+   logistic_m512_b65536 with SqExp + Matern-5/2 (lengthscale 2 each), 20
+   steps: kernel 7 once a step, its floor, rate, peak memory, profiled
+   step, the step's parts (each gram, kappa's product, kernel 7) by CUDA
+   events;
+45. the rest of the surface: the flagship with alrsvi (kernel 1 once a
+   step, its floor, 20 steps card vs CPU), a VGP with an AffineMean on
+   phase 20a's data (its floor, no launch), utils.metrics on path 42's
+   model against the CPU's float64, utils.profiling.trace around 5
+   iterations of path 42 (its trace names kernel 7), plot_gp and
+   plot_multilatent on the card's models (Agg; where matplotlib is
+   installed), and agp_tpu_torch.examples.grand_tour on the card.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -301,7 +329,9 @@ from), ``profile mo`` (torch.profiler over 20 steps of phase 35's model),
 ``slice-jk`` (phases 38-41 alone), ``slice-jk-cpu`` (phase 40's paths at
 world 1 in float64 on the host's CPU, no card needed: what SLICE_JK_FLOORS
 comes from), ``slice-jk-nccl`` (phases 40-41 over NCCL, one process on
-each card of a machine with several).
+each card of a machine with several), ``slice-l`` (phases 42-45 alone),
+``slice-l-cpu`` (paths 42-44, alrsvi and the AffineMean VGP in float64 on
+the host's CPU, no card needed: what SLICE_L_FLOORS comes from).
 ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
@@ -5912,6 +5942,618 @@ def slice_jk_cpu_mode(agt):
         f"{time.perf_counter() - t0:.2f} s")
 
 
+# ------------------------------------------------- Slice L (phases 42-45)
+# path 42: the flagship's configuration (N, D, M, B, block sampling, float32)
+# with with_transform(SqExponentialKernel(), LinearTransform(A0)) +
+# LinearKernel(variance=0.1), A0 [SL_Q, D] standard normal from numpy seed 4
+# scaled by 1/sqrt(D) (unit-variance projected coordinates), and
+# SVGP.create's default Adam(0.01) every iteration (path A's rhythm):
+# tests/test_components.py:147-172's model at the flagship's shape
+SL_Q, SL_SEED, SL_ITERS, SL_TIMED, SL_FIXED_TIMED, SL_PROFILED = 4, 4, 100, 60, 300, 20
+# phase 44: every form of tests/test_components.py:13-45 and FBM at a
+# saturated Hurst index, gram [SL_GB, SL_GM] and diag, D=20; path 44:
+# logistic_m512_b65536 with SqExponentialKernel + Matern52Kernel (each at the
+# bench's lengthscale 2) at fixed hyperparameters, SL_BIG_STEPS steps
+SL_GB, SL_GM, SL_BIG_STEPS = 4096, 512, 20
+# phase 45: the flagship with AnalyticSVI(B, optimiser=alrsvi()) for
+# MAIN_STEPS steps; a VGP with an AffineMean on phase 20a's data (N=VN,
+# D=2, Student-t(4), Matern-5/2, default Adam) for V_ITERS iterations; the
+# metrics on SL_EVAL training rows of path 42; profiling.trace around
+# SL_TRACE iterations of path 42
+SL_EVAL, SL_TRACE = 8192, 5
+# floors from ``python3 chip_smoke.py slice-l-cpu`` (the same paths in
+# float64 on the card's host's CPU, CPU draws): accuracy 0.99579 (path
+# 42), 0.88626 (43), 0.97928 (44), 0.89625 (alrsvi), RMSE 0.03212 (the
+# AffineMean VGP).  Each is about three times the CPU's error, or the
+# earlier bound where that is tighter: bench.py's multiclass 0.8 for path
+# 43 (3x gives 0.66), the flagship's 0.8 for alrsvi (3x gives 0.69).
+SLICE_L_FLOORS = {"path42": 0.98, "path43": MIN_MC_ACC, "path44": 0.93, "alrsvi": MIN_FLAGSHIP_ACC,
+                  "affine": 0.096}
+
+
+def slice_l_kernel(agt):
+    """Path 42's kernel: a learnt linear projection of the inputs to SL_Q
+    dimensions under a squared exponential, plus a linear trend."""
+    A0 = np.random.default_rng(SL_SEED).normal(size=(SL_Q, D)) / np.sqrt(D)
+    proj = agt.with_transform(agt.SqExponentialKernel(), agt.LinearTransform(A=torch.as_tensor(A0)))
+    return proj + agt.LinearKernel(variance=0.1)
+
+
+def path42_model(agt, X, b=B, optimiser="default"):
+    return agt.SVGP.create(slice_l_kernel(agt), agt.LogisticLikelihood.create(),
+                           agt.AnalyticSVI(b, minibatch_sampling="block"), X[:M], optimiser=optimiser)
+
+
+def unconstrained_hypers(model):
+    """The kernel's unconstrained parameters (log, logit or as they are),
+    flattened in path order, float64 on the CPU."""
+    from agp_tpu_torch.kernels import to_unconstrained
+    from agp_tpu_torch.utils.tensors import path_leaves
+
+    return torch.cat([v.reshape(-1) for v in path_leaves(to_unconstrained(model.kernel)).values()]).double().cpu()
+
+
+def path42_run(agt, ck, device, dtype=torch.float32):
+    """Path 42 through agp_tpu_torch.train: {"acc", "A_moved", "positive",
+    "finite", "seconds"} and, on the card, its exact launches (kernel 7
+    once a CAVI step, nothing else: the plain kappa and the hyperparameter
+    step by autograd launch no kernel of the port), "ips" over SL_TIMED
+    iterations, "fixed_ips" over SL_FIXED_TIMED steps at fixed
+    hyperparameters, and the model and state."""
+    from agp_tpu_torch.training.train import vi_steps
+    from agp_tpu_torch.utils.tensors import path_leaves
+
+    X, y = (t.to(dtype) for t in flagship_data(device))
+    model = path42_model(agt, X)
+    A0 = model.kernel.left.transform.A.clone()
+    gen = torch.Generator(device=device).manual_seed(0)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+    sync(device)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=SL_ITERS, generator=gen)
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0}
+    if cuda:
+        out["launches"] = expect_launches(ck, "path 42", {"cavi_stats": SL_ITERS})
+    A = model.kernel.left.transform.A
+    leaves = path_leaves(model.kernel)
+    out["A_moved"] = float((A - A0).abs().max())
+    out["positive"] = all(bool((v > 0).all()) for k, v in leaves.items() if not k.endswith("transform.A"))
+    out["finite"] = all(bool(torch.isfinite(t).all()) for t in [state.mu, state.Sigma, *leaves.values()])
+    out["acc"] = float((agt.predict_y(model, state, X) == y).double().mean())
+    out["model"], out["state"], out["X"], out["y"] = model, state, X, y
+    if cuda:
+        t0 = time.perf_counter()
+        agt.train(model, X, y, iterations=SL_TIMED, state=state, generator=gen)
+        sync(device)
+        out["ips"] = SL_TIMED / (time.perf_counter() - t0)
+        fixed = model.replace(optimiser=None)
+        vi_steps(fixed, state, X, y, 20, generator=gen)
+        sync(device)
+        t0 = time.perf_counter()
+        vi_steps(fixed, state, X, y, SL_FIXED_TIMED, generator=gen)
+        sync(device)
+        out["fixed_ips"] = SL_FIXED_TIMED / (time.perf_counter() - t0)
+    return out
+
+
+def check_path42(r, floor):
+    if not (r["finite"] and r["positive"] and r["A_moved"] > MIN_HYPER_MOVE and r["acc"] >= floor):
+        raise AssertionError(f"path 42: accuracy {r['acc']:.5f} (floor {floor}), A moved {r['A_moved']:.3e}, "
+                             f"positive leaves {r['positive']}, finite {r['finite']}")
+
+
+def profile_iterations(agt, model, state, X, y, gen, n, hyper):
+    """n iterations of ``model`` on its minibatches: a CAVI step each and,
+    with ``hyper``, a hyperparameter step on the same batch."""
+    from agp_tpu_torch.inference import analytic_vi
+    from agp_tpu_torch.training import autotuning
+    from agp_tpu_torch.training.train import _minibatches
+
+    for x_b, y_b in _minibatches(model, X, y, n, generator=gen):
+        model, state = analytic_vi.variational_update(model, state, x_b, y_b)
+        if hyper:
+            model, state = autotuning.hyper_step(model, state, x_b, y_b)
+    return model, state
+
+
+def phase_path42(agt, ck, device):
+    """Phase 42: path 42 through agp_tpu_torch.train (exact launches: kernel
+    7 once a CAVI step, kernels 1 and 6 never), its accuracy floor, A moved,
+    finite, the positive leaves positive; its rate with the hyperparameter
+    step and at fixed hyperparameters; then SL_PROFILED profiled iterations
+    of it with and without the hyperparameter step, beside the flagship's
+    (kernel 1) and path A's (kernel 1, kernel 6 in the hyperparameter step)
+    on the same host: idle share, launches and device time an iteration,
+    the peak memory; then 20 iterations card vs CPU."""
+    r = path42_run(agt, ck, device)
+    check_path42(r, SLICE_L_FLOORS["path42"])
+    model, state, X, y = r["model"], r["state"], r["X"], r["y"]
+    k = model.kernel
+    log(f"path 42 (flagship shape, SqExp o LinearTransform [{SL_Q}, {D}] + Linear, Adam(0.01) every iteration): "
+        f"{SL_ITERS} iterations through agp_tpu_torch.train in {r['seconds']:.3f} s, {r['launches']} launches, "
+        f"accuracy {r['acc']:.5f} (floor {SLICE_L_FLOORS['path42']}), A moved {r['A_moved']:.4f}, lengthscale "
+        f"{float(k.left.inner.lengthscale[0]):.4f}, linear variance {float(k.right.variance[0]):.4f}; steady "
+        f"{r['ips']:.2f} iterations/s over {SL_TIMED} (hyperparameter step each), {r['fixed_ips']:.2f} it/s at fixed "
+        f"hyperparameters over {SL_FIXED_TIMED}")
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {k2: r[k2] for k2 in ("acc", "A_moved", "seconds", "ips", "fixed_ips", "launches")}
+    flag = flagship_model(agt, X)
+    flag_state = agt.init_state(flag, X, y)
+    fa = flagship_model(agt, X, optimiser="default")
+    cases = (("path 42 with the hyperparameter step", model, state, True),
+             ("path 42 at fixed hyperparameters", model.replace(optimiser=None), state, False),
+             ("flagship at fixed hyperparameters (kernel 1)", flag, flag_state, False),
+             ("path A with the hyperparameter step (kernels 1 and 6)", fa, agt.init_state(fa, X, y), True))
+    for label, m, s, hyper in cases:
+        m, s = profile_iterations(agt, m, s, X, y, gen, 10, hyper)
+        torch.cuda.reset_peak_memory_stats()
+        p = profile_window(lambda: profile_iterations(agt, m, s, X, y, gen, SL_PROFILED, hyper), SL_PROFILED)
+        p["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log_profile(f"profile {label}", p, 8)
+        log(f"  peak device memory {p['peak_gib']:.3f} GiB")
+        out[label] = {k2: p[k2] for k2 in ("wall_us", "busy_us", "idle_share", "launches", "ops", "peak_gib")}
+    out["parity"] = path42_parity(agt, device)
+    out["run"] = r
+    return out
+
+
+def path42_after(agt, X, y, draws, perm=None):
+    """mu and the unconstrained hyperparameters after 20 iterations of path
+    42 (B=B on X's rows, Adam every iteration from the 3rd), float64 on the
+    CPU; ``perm`` reorders the inducing points (undone on mu)."""
+    model = path42_model(agt, X)
+    if perm is not None:
+        model = model.replace(Z=model.Z[:, perm].contiguous())
+    model, state = agt.train(model, X, y, iterations=20, draws=draws.to(X.device))
+    mu = state.mu.double().cpu()
+    return (mu if perm is None else mu[:, torch.argsort(perm)]), unconstrained_hypers(model)
+
+
+def hyper_err(a, b):
+    return max(float((a[0] - b[0]).abs().max() / b[0].abs().max()), float((a[1] - b[1]).abs().max()))
+
+
+def path42_parity(agt, device):
+    """20 iterations of path 42 on PN rows, the card (float32) against the CPU
+    (float32) from the same draws, as max |d mu| / max |mu| and max |d
+    unconstrained hyperparameter|, within ORACLE_DEVICE_FACTOR times the
+    path's own float32 noise (the CPU run again with Z reordered)."""
+    Xc, yc = flagship_data("cpu", n=PN, seed=1)
+    draws = torch.randint(0, PN // 64, (20, B // 64), generator=torch.Generator().manual_seed(1))
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(2))
+    cpu = path42_after(agt, Xc, yc, draws)
+    card = path42_after(agt, Xc.to(device), yc.to(device), draws)
+    noise = hyper_err(path42_after(agt, Xc, yc, draws, perm), cpu)
+    return parity_check("path 42", hyper_err(card, cpu), noise,
+                        what="20 iterations (17 hyperparameter steps) card (float32) vs CPU (float32)")
+
+
+def path43_run(agt, ck, device, dtype=torch.float32):
+    """Path 43 (bench.py's multiclass configuration with
+    RationalQuadraticKernel(alpha=2) at fixed hyperparameters) through
+    agp_tpu_torch.train: {"acc", "finite", "seconds"}; on the card its
+    exact launches (kernel 5 once a step, nothing else) and "ips" over
+    MULTI_TIMED_STEPS steps."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    X, y = mc_data(device)
+    X = X.to(dtype)
+    model = multi_model(agt, X, "multiclass", "RationalQuadraticKernel")
+    gen = torch.Generator(device=device).manual_seed(0)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+    sync(device)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=MAIN_STEPS, generator=gen)
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0}
+    if cuda:
+        out["launches"] = expect_launches(ck, "path 43", {"cavi_stats_batched": MAIN_STEPS})
+    out["finite"] = bool(torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all())
+    out["acc"] = multi_quality(agt, model, state, X, y, "multiclass")
+    if cuda:
+        y_t = model.likelihood.treat_labels(y)[0].to(X.dtype)
+        model, state = vi_steps(model, state, X, y_t, 20, generator=gen)
+        sync(device)
+        t0 = time.perf_counter()
+        model, state = vi_steps(model, state, X, y_t, MULTI_TIMED_STEPS, generator=gen)
+        sync(device)
+        out["ips"] = MULTI_TIMED_STEPS / (time.perf_counter() - t0)
+    out["model"], out["state"], out["X"] = model, state, X
+    return out
+
+
+def phase_path43(agt, ck, device):
+    """Phase 43: path 43, its exact launches (kernel 5 once a step, kernels
+    2 and 4 never), its accuracy floor and rate; then 20 steps card vs CPU
+    within ORACLE_DEVICE_FACTOR times the path's own float32 noise."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    r = path43_run(agt, ck, device)
+    floor = SLICE_L_FLOORS["path43"]
+    if not (r["finite"] and r["acc"] >= floor):
+        raise AssertionError(f"path 43: accuracy {r['acc']:.5f} < {floor} or non-finite ({r['finite']})")
+    log(f"path 43 (K={MK}, N={MN}, D={MD}, M={MM}, B={MB}, slice, RationalQuadratic(alpha=2)): {MAIN_STEPS} steps "
+        f"through agp_tpu_torch.train in {r['seconds']:.3f} s, {r['launches']} launches, accuracy {r['acc']:.5f} "
+        f"(floor {floor}); steady {r['ips']:.2f} CAVI iterations/s over {MULTI_TIMED_STEPS}")
+    X, y_t = r["X"], r["model"].likelihood.treat_labels(mc_data(device)[1])[0].to(r["X"].dtype)
+    gen = torch.Generator(device=device).manual_seed(1)
+    p = profile_window(lambda: vi_steps(r["model"], r["state"], X, y_t, SL_PROFILED, generator=gen), SL_PROFILED)
+    log_profile("profile path 43", p, 8)
+    draws = torch.randint(0, MN - MB + 1, (20,), generator=torch.Generator().manual_seed(1))
+    perm = torch.randperm(MM, generator=torch.Generator().manual_seed(2))
+    Xc, yc = mc_data("cpu", seed=1)
+    card, cpu = (after_20(agt, multi_model(agt, X, "multiclass", "RationalQuadraticKernel"), X, y, draws)
+                 for X, y in ((Xc.to(device), yc.to(device)), (Xc, yc)))
+    m = multi_model(agt, Xc, "multiclass", "RationalQuadraticKernel")
+    mu_p, _ = after_20(agt, m.replace(Z=m.Z[:, perm].contiguous()), Xc, yc, draws)
+    noise = rel_err((mu_p[:, torch.argsort(perm)], None), cpu)
+    share = parity_check("path 43", rel_err(card, cpu), noise,
+                         what="20 steps card (float32) vs CPU (float32), max |d mu| / max |mu|")
+    out = {k: r[k] for k in ("acc", "seconds", "ips", "launches")}
+    out.update(parity=share, idle_share=p["idle_share"], launches_per_step=p["launches"], busy_us=p["busy_us"])
+    out["run"] = r
+    return out
+
+
+def library_forms(agt):
+    """[(label, kernel)]: the 24 forms of tests/test_components.py:13-45
+    (ALL_KERNELS) and FBM at a Hurst index saturated by a step of +50 in
+    its logit (the reference's test_fbm_hurst_unit_constrained)."""
+    from agp_tpu_torch.kernels import from_unconstrained, to_unconstrained
+
+    forms = [
+        agt.SqExponentialKernel(), agt.Matern12Kernel(), agt.Matern32Kernel(), agt.Matern52Kernel(),
+        agt.RationalQuadraticKernel(), agt.PeriodicKernel(), agt.LinearKernel(), agt.PolynomialKernel(),
+        agt.ConstantKernel(), agt.WhiteKernel(), agt.CosineKernel(), agt.ExponentiatedKernel(lengthscale=3.0),
+        *(agt.PiecewisePolynomialKernel(lengthscale=2.0, degree=q) for q in range(4)),
+        agt.FBMKernel(hurst=0.4), agt.GaborKernel(lengthscale=1.5, period=2.0), agt.NeuralNetworkKernel(),
+        agt.SqExponentialKernel() + agt.Matern32Kernel(), agt.SqExponentialKernel() * agt.LinearKernel(),
+        2.5 * agt.SqExponentialKernel(),
+        agt.with_transform(agt.SqExponentialKernel(), agt.ScaleTransform(s=0.7)),
+        agt.with_transform(agt.Matern32Kernel(), agt.ChainTransform(transforms=(
+            agt.SelectTransform(dims=(0, 2)), agt.ARDTransform(v=torch.tensor([0.5, 2.0]))))),
+    ]
+    labels = [type(k).__name__ for k in forms]
+    for q in range(4):
+        labels[12 + q] += f"(degree={q})"
+    labels[19:24] = ["Sum(SqExp, Matern32)", "Product(SqExp, Linear)", "2.5 x SqExp", "SqExp o Scale",
+                     "Matern32 o Chain(Select, ARD)"]
+    u = to_unconstrained(agt.FBMKernel(hurst=0.4))
+    return list(zip(labels, forms)) + [("FBMKernel(saturated hurst)", from_unconstrained(u.replace(hurst=u.hurst + 50.0)))]
+
+
+def phase_library(agt, ck, device):
+    """Phase 44 (a): each form's gram [SL_GB, SL_GM] and diag [SL_GB] at
+    D=20 on the card (float32) against the CPU's float64, within
+    ORACLE_DEVICE_FACTOR times the CPU's own float32 error (max |d| / max
+    |float64|, gram and diag together), no fixed floor; ms of each card
+    gram (CUDA events)."""
+    rng = np.random.default_rng(0)
+    Xh, Zh = rng.normal(size=(SL_GB, D)), rng.normal(size=(SL_GM, D))
+    out = {}
+    for label, kern in library_forms(agt):
+        def both(k, dev, dt):
+            X, Z = (torch.as_tensor(a, dtype=dt, device=dev) for a in (Xh, Zh))
+            k = k.to(device=dev, dtype=dt)
+            return k.gram(X, Z).double().cpu(), k.diag(X).double().cpu()
+
+        ref = both(kern, "cpu", torch.float64)
+
+        def err(a):
+            return max(float((a[i] - ref[i]).abs().max() / max(float(ref[i].abs().max()), 1e-300)) for i in (0, 1))
+
+        e_card, noise = err(both(kern, device, torch.float32)), err(both(kern, "cpu", torch.float32))
+        if noise == 0.0:  # exact in float32 on the CPU (a constant, zeros, a broadcast variance): so on the card
+            if e_card != 0.0:
+                raise AssertionError(f"library {label}: card {e_card:.3e} off float64 where the CPU's float32 is exact")
+            log(f"library {label} parity: card (float32) and CPU (float32) both equal to float64")
+            share = 0.0
+        else:
+            share = parity_check(f"library {label}", e_card, noise,
+                                 what="gram and diag, card (float32) vs CPU float64")
+        kc = kern.to(device=device, dtype=torch.float32)
+        Xd, Zd = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (Xh, Zh))
+        out[label] = {"err": e_card, "noise": noise, "share": share, "gram_ms": cuda_ms(lambda: kc.gram(Xd, Zd), 20)}
+    return out
+
+
+def big_sum_model(agt, X, b=LB):
+    kernel = agt.SqExponentialKernel(lengthscale=2.0) + agt.Matern52Kernel(lengthscale=2.0)
+    return agt.SVGP.create(kernel, agt.LogisticLikelihood.create(), agt.AnalyticSVI(b, minibatch_sampling="slice"),
+                           X[:PM], optimiser=None)
+
+
+def path44_run(agt, ck, device, dtype=torch.float32):
+    """Path 44 (logistic_m512_b65536 with SqExp + Matern-5/2) through
+    agp_tpu_torch.train, SL_BIG_STEPS steps: {"acc", "finite", "seconds"};
+    on the card its exact launches (kernel 7 once a step, nothing else),
+    the peak memory and the model and state."""
+    X, y = big_logistic_data(device)
+    X = X.to(dtype)
+    model = big_sum_model(agt, X)
+    gen = torch.Generator(device=device).manual_seed(0)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=SL_BIG_STEPS, generator=gen)
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0}
+    if cuda:
+        out["launches"] = expect_launches(ck, "path 44", {"cavi_stats": SL_BIG_STEPS})
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["finite"] = bool(torch.isfinite(state.mu).all() and torch.isfinite(state.Sigma).all())
+    out["acc"] = float((agt.predict_y(model, state, X) == y).double().mean())
+    out["model"], out["state"], out["X"], out["y"] = model, state, X, y
+    return out
+
+
+def phase_path44(agt, ck, device):
+    """Phase 44 (b): path 44, its exact launches, floor, peak memory, its
+    steady rate and profiled step (idle share, device time a step), and the
+    step's parts at its shape by CUDA events: each summand's gram [LB, PM],
+    kappa's product Knm K^-1 and kernel 7."""
+    from agp_tpu_torch.kernels import latent
+    from agp_tpu_torch.ops.linalg import _highest_precision
+    from agp_tpu_torch.training.train import vi_steps
+
+    r = path44_run(agt, ck, device)
+    floor = SLICE_L_FLOORS["path44"]
+    if not (r["finite"] and r["acc"] >= floor):
+        raise AssertionError(f"path 44: accuracy {r['acc']:.5f} < {floor} or non-finite ({r['finite']})")
+    model, state, X, y = r["model"], r["state"], r["X"], r["y"]
+    gen = torch.Generator(device=device).manual_seed(1)
+    sync(device)
+    t0 = time.perf_counter()
+    vi_steps(model, state, X, y, SL_BIG_STEPS, generator=gen)
+    sync(device)
+    ips = SL_BIG_STEPS / (time.perf_counter() - t0)
+    p = profile_window(lambda: vi_steps(model, state, X, y, 10, generator=gen), 10)
+    log_profile("profile path 44", p, 12)
+    x = X[:LB]
+    k0, z = latent(model.kernel, 0), model.Z[0]
+    K_inv = state.kmat["K_inv"][0]
+    Knm = k0.gram(x, z)
+    product = _highest_precision(lambda: Knm @ K_inv)
+    kappa = product()
+    g, th = torch.randn(LB, device=device), torch.rand(LB, device=device)
+    parts = {
+        "gram SqExp": cuda_ms(lambda: k0.left.gram(x, z), 20),
+        "gram Matern52": cuda_ms(lambda: k0.right.gram(x, z), 20),
+        "kappa product": cuda_ms(product, 20),
+        "kernel 7": cuda_ms(lambda: ck.cavi_stats(kappa, g, th), 20),
+    }
+    ck.cavi_stats.launches = 0  # the parts' launches are not the path's
+    log(f"path 44 (N={LN}, D={LD}, M={PM}, B={LB}, slice, SqExp + Matern52 at lengthscale 2): {SL_BIG_STEPS} steps "
+        f"through agp_tpu_torch.train in {r['seconds']:.3f} s, {r['launches']} launches, accuracy {r['acc']:.5f} "
+        f"(floor {floor}), peak {r['peak_gib']:.3f} GiB; steady {ips:.2f} CAVI iterations/s, device {p['busy_us']:.1f} "
+        f"us a step, idle share {p['idle_share']:.4f}; parts (ms, CUDA events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    return {"acc": r["acc"], "seconds": r["seconds"], "launches": r["launches"], "peak_gib": r["peak_gib"],
+            "ips": ips, "busy_us": p["busy_us"], "idle_share": p["idle_share"], "launches_per_step": p["launches"],
+            "parts_ms": parts}
+
+
+def alrsvi_model(agt, X, b=B):
+    return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0, variance=1.0), agt.LogisticLikelihood.create(),
+                           agt.AnalyticSVI(b, minibatch_sampling="block", optimiser=agt.alrsvi()), X[:M],
+                           optimiser=None)
+
+
+def alrsvi_run(agt, ck, device, dtype=torch.float32):
+    """The flagship with alrsvi in place of Robbins-Monro, MAIN_STEPS steps:
+    {"acc", "finite", "seconds"}, on the card the exact launches (kernel 1
+    once a step)."""
+    X, y = (t.to(dtype) for t in flagship_data(device))
+    model = alrsvi_model(agt, X)
+    gen = torch.Generator(device=device).manual_seed(0)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+    sync(device)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, X, y, iterations=MAIN_STEPS, generator=gen)
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0}
+    if cuda:
+        out["launches"] = expect_launches(ck, "alrsvi", route_launches(MAIN_STEPS, "fused"))
+    out["finite"] = bool(torch.isfinite(state.mu).all() and torch.isfinite(state.opt_state["tau"]))
+    out["acc"] = float((agt.predict_y(model, state, X) == y).double().mean())
+    out["tau"] = float(state.opt_state["tau"])
+    return out
+
+
+def affine_vgp_run(agt, ck, device, dtype=torch.float32):
+    """A VGP with an AffineMean (w = 0, b = 0, learnt by the default Adam
+    with the kernel) on phase 20a's data: {"rmse", "finite", "seconds",
+    "w"}; on the card no kernel launch."""
+    X, f, y = (t.to(dtype) for t in dense_data("vgp_studentt", VN, device))
+    model = agt.VGP.create(X, y, agt.Matern52Kernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI(),
+                           mean=agt.AffineMean(w=torch.zeros(2), b=0.0))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        reset_launches(ck)
+    sync(device)
+    t0 = time.perf_counter()
+    model, state = agt.train(model, iterations=V_ITERS)
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0}
+    if cuda:
+        expect_launches(ck, "affine VGP", {})
+    mu = agt.predict_f(model, state, X)
+    out["rmse"] = float(torch.sqrt(torch.mean((mu - f) ** 2)))
+    out["w"] = model.mean.w[0].double().cpu().tolist()
+    out["finite"] = bool(torch.isfinite(state.mu).all() and torch.isfinite(model.mean.w).all())
+    out["model"], out["state"] = model, state
+    return out
+
+
+def metrics_check(agt, r42, device):
+    """The four metrics of utils.metrics on path 42's model over its first
+    SL_EVAL training rows, the card (float32) against the same model on the CPU in
+    float64: RMSE of the latent mean and NLPD within ORACLE_DEVICE_FACTOR
+    times the CPU float32's own error; accuracy and coverage decision by
+    decision wherever the float64 margin exceeds that factor times the
+    float32 error of the latent moments."""
+    from agp_tpu_torch.utils import metrics
+
+    Xe, ye = r42["X"][:SL_EVAL].cpu(), r42["y"][:SL_EVAL].cpu()
+    model, state = r42["model"], r42["state"]
+    runs = {}
+    for name, dev, dt in (("card", device, torch.float32), ("cpu32", "cpu", torch.float32), ("cpu64", "cpu", torch.float64)):
+        m, s = model.to(device=dev, dtype=dt), state.to(device=dev, dtype=dt)
+        X, y = Xe.to(device=dev, dtype=dt), ye.to(device=dev, dtype=dt)
+        mu, var = agt.predict_f(m, s, X, cov=True)
+        runs[name] = {"mu": mu.double().cpu(), "var": var.double().cpu(),
+                      "acc": float(metrics.accuracy(y, agt.predict_y(m, s, X))),
+                      "rmse": float(metrics.rmse(y, mu)),
+                      "nlpd": float(metrics.negative_log_predictive_density(m, s, X, y)),
+                      "coverage": float(metrics.coverage(y, mu, var))}
+    c, n32, r64 = runs["card"], runs["cpu32"], runs["cpu64"]
+    for key in ("rmse", "nlpd"):
+        parity_check(f"metrics {key}", abs(c[key] - r64[key]) / abs(r64[key]), abs(n32[key] - r64[key]) / abs(r64[key]),
+                     what="card (float32) vs CPU float64")
+    tol = ORACLE_DEVICE_FACTOR * max(float((n32[k] - r64[k]).abs().max()) for k in ("mu", "var"))
+    y = ye.double()
+    sure = r64["mu"].abs() > tol
+    card_sign, sign64 = torch.sign(c["mu"]), torch.sign(r64["mu"])
+    if not bool((card_sign[sure] == sign64[sure]).all()):
+        raise AssertionError("metrics: the card's class decisions differ from float64's beyond float32's margin")
+    z = 1.959963984540054
+    sd64 = r64["var"].clamp(min=0).sqrt()
+    edge = torch.minimum((y - (r64["mu"] - z * sd64)).abs(), (y - (r64["mu"] + z * sd64)).abs())
+    inside = lambda r: (y >= r["mu"] - z * r["var"].clamp(min=0).sqrt()) & (y <= r["mu"] + z * r["var"].clamp(min=0).sqrt())
+    sure = edge > 10 * tol
+    if not bool((inside(c)[sure] == inside(r64)[sure]).all()):
+        raise AssertionError("metrics: the card's coverage decisions differ from float64's beyond float32's margin")
+    log(f"metrics on path 42's model ({SL_EVAL} training rows): " + ", ".join(
+        f"{k} card {c[k]:.6f} / CPU float64 {r64[k]:.6f}" for k in ("acc", "rmse", "nlpd", "coverage")))
+    return {k: (c[k], r64[k]) for k in ("acc", "rmse", "nlpd", "coverage")}
+
+
+def phase_surface(agt, ck, device, r42, r43):
+    """Phase 45: alrsvi on the flagship (kernel 1 once a step, its floor,
+    20 steps card vs CPU), the AffineMean VGP (its floor, no launch), the
+    metrics on path 42's model, profiling.trace around SL_TRACE iterations
+    of path 42 (the trace names kernel 7), plot_gp and plot_multilatent on
+    the card's models (Agg), and the grand tour on the card."""
+    import tempfile
+
+    from agp_tpu_torch.training.train import vi_steps
+    from agp_tpu_torch.utils import profiling
+
+    out = {}
+    r = alrsvi_run(agt, ck, device)
+    floor = SLICE_L_FLOORS["alrsvi"]
+    if not (r["finite"] and r["acc"] >= floor):
+        raise AssertionError(f"alrsvi: accuracy {r['acc']:.5f} < {floor} or non-finite ({r['finite']})")
+    log(f"alrsvi (the flagship, AnalyticSVI({B}, optimiser=alrsvi())): {MAIN_STEPS} steps in {r['seconds']:.3f} s, "
+        f"{r['launches']} launches, accuracy {r['acc']:.5f} (floor {floor}), tau {r['tau']:.4f}")
+    Xc, yc = flagship_data("cpu", n=PN, seed=1)
+    draws = torch.randint(0, PN // 64, (20, B // 64), generator=torch.Generator().manual_seed(1))
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(2))
+
+    def alr_after(X, y, p=None):
+        m = alrsvi_model(agt, X)
+        if p is not None:
+            m = m.replace(Z=m.Z[:, p].contiguous())
+        _, s = vi_steps(m, agt.init_state(m, X, y), X, y, 20, draws=draws.to(X.device))
+        mu = s.mu.double().cpu()
+        return mu if p is None else mu[:, torch.argsort(p)]
+
+    cpu = alr_after(Xc, yc)
+    noise = float((alr_after(Xc, yc, perm) - cpu).abs().max() / cpu.abs().max())
+    card = alr_after(Xc.to(device), yc.to(device))
+    r["parity"] = parity_check("alrsvi", float((card - cpu).abs().max() / cpu.abs().max()), noise,
+                               what="20 steps card (float32) vs CPU (float32)")
+    out["alrsvi"] = {k: r[k] for k in ("acc", "seconds", "launches", "tau", "parity")}
+
+    a = affine_vgp_run(agt, ck, device)
+    floor = SLICE_L_FLOORS["affine"]
+    if not (a["finite"] and a["rmse"] <= floor):
+        raise AssertionError(f"affine VGP: RMSE {a['rmse']:.5f} > {floor} or non-finite ({a['finite']})")
+    log(f"AffineMean VGP (N={VN}, D=2, Student-t(4), Matern-5/2, {V_ITERS} iterations): {a['seconds']:.3f} s, no "
+        f"launch, RMSE {a['rmse']:.5f} (floor {floor}), w {a['w']}")
+    out["affine"] = {k: a[k] for k in ("rmse", "seconds", "w")}
+
+    out["metrics"] = metrics_check(agt, r42, device)
+
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as d:
+        m, s = r42["model"], r42["state"]
+        with profiling.trace(d):
+            agt.train(m, r42["X"], r42["y"], iterations=SL_TRACE, state=s)
+        with open(os.path.join(d, "trace.json")) as f:
+            text = f.read()
+    if "stats_tc" not in text:
+        raise AssertionError("profiling.trace: the trace names no kernel 7 (stats_tc)")
+    log(f"profiling.trace around {SL_TRACE} iterations of path 42: {len(text)} bytes of Chrome trace, "
+        f"{text.count('stats_tc')} mentions of kernel 7's stats_tc")
+    out["trace_bytes"] = len(text)
+
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        log("plotting: not run, this machine has no matplotlib")
+        out["plots"] = None
+    else:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        from agp_tpu_torch.utils.plotting import plot_gp, plot_multilatent
+
+        Xp = a["model"].train_x[:512]
+        ax = plot_gp(a["model"], a["state"], Xp)
+        ax2 = plot_multilatent(r43["model"], r43["state"], r43["X"][:512])
+        if not (len(ax.lines) == 1 and len(ax.collections) >= 1 and len(ax2.lines) == MK):
+            raise AssertionError(f"plots: {len(ax.lines)} lines and {len(ax.collections)} ribbons, {len(ax2.lines)} "
+                                 "latent lines")
+        plt.close("all")
+        log(f"plotting: plot_gp (AffineMean VGP) and plot_multilatent (path 43, {MK} latents) on the card's models")
+        out["plots"] = True
+
+    from agp_tpu_torch.examples import grand_tour
+
+    t0 = time.perf_counter()
+    grand_tour.main([])
+    out["grand_tour_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def slice_l_mode(agt, ck, device):
+    """``python3 chip_smoke.py slice-l``: phases 42-45 alone."""
+    out = {"path42": timed_phase("path 42", phase_path42, agt, ck, device)}
+    out["path43"] = timed_phase("path 43", phase_path43, agt, ck, device)
+    out["library"] = timed_phase("library", phase_library, agt, ck, device)
+    out["path44"] = timed_phase("path 44", phase_path44, agt, ck, device)
+    r42, r43 = out["path42"].pop("run"), out["path43"].pop("run")
+    out["surface"] = timed_phase("the rest of the surface", phase_surface, agt, ck, device, r42, r43)
+    return out
+
+
+def slice_l_cpu_mode(agt):
+    """``python3 chip_smoke.py slice-l-cpu``: paths 42, 43 and 44, alrsvi and
+    the AffineMean VGP in float64 on the host's CPU, CPU draws, no floors
+    held: the source of SLICE_L_FLOORS."""
+    from agp_tpu_torch.ops import cuda_kernels as ck
+
+    torch.set_num_threads(min(torch.get_num_threads(), 8))
+    cpu, f64 = torch.device("cpu"), torch.float64
+    for name, run, key in (("path 42", path42_run, "acc"), ("path 43", path43_run, "acc"),
+                           ("path 44", path44_run, "acc"), ("alrsvi", alrsvi_run, "acc"),
+                           ("AffineMean VGP", affine_vgp_run, "rmse")):
+        r = run(agt, ck, cpu, f64)
+        log(f"{name} on the CPU, float64: {key} {r[key]:.5f}, finite {r['finite']}, {r['seconds']:.2f} s")
+
+
 PHASE_SECONDS = {}
 
 
@@ -5950,6 +6592,11 @@ def main():
         import agp_tpu_torch as agt
 
         slice_jk_cpu_mode(agt)
+        return
+    if sys.argv[1:] == ["slice-l-cpu"]:  # the host's CPU alone, no card needed
+        import agp_tpu_torch as agt
+
+        slice_l_cpu_mode(agt)
         return
     if sys.argv[1:2] == ["jk-rank"]:  # one process of phase 40, started by it
         jk_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:8])
@@ -6042,6 +6689,9 @@ def main():
     if args == ["slice-jk-nccl"]:
         slice_jk_nccl_mode(agt, ck, device)
         return
+    if args == ["slice-l"]:
+        slice_l_mode(agt, ck, device)
+        return
     if args[:2] == ["profile", "mo"]:
         profile_mo(agt, device)
         return
@@ -6096,6 +6746,7 @@ def main():
     numerical_mode(agt, ck, device)
     slice_h_mode(agt, ck, device)
     slice_jk_mode(agt, ck, device)
+    slice_l_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {

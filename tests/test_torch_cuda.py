@@ -1227,6 +1227,64 @@ def test_cuda_gloo_world2_within_noise_of_world1(cuda_device, tmp_path):
     assert smoke.mu_err(mu2, w1.mu) <= smoke.ORACLE_DEVICE_FACTOR * noise
 
 
+
+@pytest.mark.cuda
+def test_cuda_path42_step_matches_cpu(cuda_device):
+    """Path 42's model (a projection under a squared exponential plus a
+    linear kernel, Adam every iteration) for 20 iterations on PN rows: one
+    launch of kernel 7 a CAVI step and nothing else, and the card within
+    ORACLE_DEVICE_FACTOR times the path's own float32 noise of the CPU."""
+    Xc, yc = smoke.flagship_data("cpu", n=smoke.PN, seed=1)
+    draws = torch.randint(0, smoke.PN // 64, (20, smoke.B // 64), generator=torch.Generator().manual_seed(1))
+    perm = torch.randperm(smoke.M, generator=torch.Generator().manual_seed(2))
+    smoke.reset_launches(ck)
+    card = smoke.path42_after(agt, Xc.to(cuda_device), yc.to(cuda_device), draws)
+    counts = {name: smoke.wrapper(ck, name).launches for name in smoke.LAUNCH_COUNTERS}
+    assert counts == {name: 20 if name == "cavi_stats" else 0 for name in smoke.LAUNCH_COUNTERS}
+    cpu = smoke.path42_after(agt, Xc, yc, draws)
+    noise = smoke.hyper_err(smoke.path42_after(agt, Xc, yc, draws, perm), cpu)
+    assert smoke.hyper_err(card, cpu) <= smoke.ORACLE_DEVICE_FACTOR * noise
+
+
+@pytest.mark.cuda
+def test_cuda_path43_launches_kernel5_once_a_step(cuda_device):
+    """A multiclass model with the rational-quadratic kernel takes the plain
+    kappa and kernel 5: one launch a step, none of kernels 2 and 4."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    X, y = smoke.mc_data(cuda_device)
+    model = smoke.multi_model(agt, X[:4096], "multiclass", "RationalQuadraticKernel")
+    y_t, lik = model.likelihood.treat_labels(y[:4096])
+    model = model.replace(likelihood=lik)
+    y_t = y_t.to(X.dtype)
+    state = agt.init_state(model, X[:4096], y_t)
+    smoke.reset_launches(ck)
+    _, state = vi_steps(model, state, X[:4096], y_t, 5, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    torch.cuda.synchronize()
+    counts = {name: smoke.wrapper(ck, name).launches for name in smoke.LAUNCH_COUNTERS}
+    assert counts == {name: 5 if name == "cavi_stats_batched" else 0 for name in smoke.LAUNCH_COUNTERS}
+    assert torch.isfinite(state.mu).all()
+
+
+@pytest.mark.cuda
+def test_cuda_white_kernel_in_kmm(cuda_device):
+    """WhiteKernel adds its variance to Kmm on the card as on the CPU: the
+    gram of the inducing points with themselves is one tensor with itself."""
+    from agp_tpu_torch.config import jitter
+    from agp_tpu_torch.inference.analytic_vi import compute_kmat
+
+    Z = torch.randn(32, 3, generator=torch.Generator().manual_seed(0))
+    kern = agt.SqExponentialKernel() + agt.WhiteKernel(variance=0.5)
+    kmats = []
+    for dev in ("cpu", cuda_device):
+        m = agt.SVGP.create(kern, agt.LogisticLikelihood.create(), agt.AnalyticVI(), Z.to(dev), optimiser=None)
+        L_K = compute_kmat(m)["L_K"][0]
+        kmats.append((L_K @ L_K.T).cpu())
+    plain = agt.SqExponentialKernel().gram(Z, Z)
+    for K in kmats:
+        assert torch.allclose(torch.diagonal(K - plain), torch.full((32,), 0.5 + jitter(torch.float32)), atol=1e-5)
+    assert torch.allclose(kmats[1], kmats[0], atol=1e-5)
+
 if __name__ == "__main__" and sys.argv[1:2] == ["gloo-child"]:
     import os
 

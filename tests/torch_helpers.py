@@ -143,18 +143,49 @@ def port_from_jax(mj, sj, Xj, yj, dtype=torch.float64, device="cpu", optimiser=N
     X = torch.as_tensor(np.array(Xj), dtype=dtype, device=device)
     M = mj.Z.shape[1]
     lik, lik_params = port_likelihood(mj.likelihood) if likelihood is None else (likelihood, {})
-    kernel = getattr(agt, type(mj.kernel).__name__)()
+    kernel = port_kernel(jax.tree_util.tree_map(lambda a: a[0], mj.kernel))
     mt = agt.SVGP.create(kernel, lik, inference, X[:M], optimiser=None)
-    if type(mj.mean).__name__ == "ConstantMean":
-        lik_params["mean_c"] = np.array(mj.mean.c)
-    mt = model_from_numpy(
-        dict(Z=np.array(mj.Z), lengthscale=np.array(mj.kernel.lengthscale),
-             variance=np.array(mj.kernel.variance), **lik_params),
-        mt,
-    )
+    mt = model_from_numpy(dict(Z=np.array(mj.Z), kernel=jax_kernel_leaves(mj.kernel), **mean_params(mj.mean),
+                               **lik_params), mt)
     st = state_from_numpy(state_arrays(sj), device, dtype)
     y = torch.as_tensor(np.array(yj), dtype=dtype, device=device)
     return mt, st, X, y
+
+
+def port_kernel(kj, fn=None):
+    """The port's kernel (or transform) of the same structure, static
+    fields and values as the JAX kernel ``kj``; ``fn`` stands in for a
+    FunctionTransform's callable."""
+    from agp_tpu import kernels as jk
+
+    if isinstance(kj, (jk.Kernel, jk.Transform)):
+        cls = getattr(agt.kernels, type(kj).__name__)
+        return cls(**{f.name: port_kernel(getattr(kj, f.name), fn) for f in dataclasses.fields(kj)})
+    if isinstance(kj, tuple):
+        return tuple(port_kernel(v, fn) for v in kj)
+    if isinstance(kj, jax.Array):
+        return torch.as_tensor(np.array(kj))
+    return fn if callable(kj) else kj
+
+
+def port_path(path):
+    """A JAX leaf path (``jax.tree_util.keystr``: ".transform.transforms[1].v")
+    as ``utils.tensors.path_leaves`` names it ("transform.transforms.1.v")."""
+    import re
+
+    return re.sub(r"\[(\d+)\]", r".\1", jax.tree_util.keystr(path))[1:]
+
+
+def jax_kernel_leaves(kj):
+    """{port path: numpy array} of a JAX kernel, as
+    ``interop.model_from_numpy`` takes it under "kernel"."""
+    return {port_path(p): np.array(v) for p, v in jax.tree_util.tree_flatten_with_path(kj)[0]}
+
+
+def mean_params(mean_j):
+    """A JAX prior mean's leaves as ``model_from_numpy`` takes them
+    ("mean_c", "mean_v", "mean_w" and "mean_b"), none for a zero mean."""
+    return {f"mean_{f.name}": np.array(getattr(mean_j, f.name)) for f in dataclasses.fields(mean_j)}
 
 
 def jax_rm_scales(n):
@@ -584,16 +615,18 @@ def port_vstp(mj, sj, y_raw, optimiser=None):
     return mt, state_from_numpy(state_arrays(sj), "cpu", torch.float64)
 
 
-def jax_mo(X, likelihoods, M, Q, batch=None, movgp=False, **create):
+def jax_mo(X, likelihoods, M, Q, batch=None, movgp=False, kernel=None, **create):
     """A JAX MOSVGP on Z = X[:M] (or a MOVGP on X), float64, full batch
     unless ``batch`` is given, A fixed and the hyperparameters fixed unless
-    ``create`` names optimisers."""
+    ``create`` names optimisers; the squared-exponential kernel unless
+    ``kernel`` (a JAX kernel) is given."""
     Xj = jnp.asarray(X)
     kw = {"optimiser": None, "Aoptimiser": None, **create}
     inference = agp.AnalyticVI() if batch is None else agp.AnalyticSVI(batch)
+    kernel = agp.SqExponentialKernel() if kernel is None else kernel
     if movgp:
-        return agp.MOVGP.create(Xj, list(likelihoods), agp.SqExponentialKernel(), inference, n_latent=Q, **kw)
-    return agp.MOSVGP.create(agp.SqExponentialKernel(), list(likelihoods), inference, Xj[:M], n_latent=Q, **kw)
+        return agp.MOVGP.create(Xj, list(likelihoods), kernel, inference, n_latent=Q, **kw)
+    return agp.MOSVGP.create(kernel, list(likelihoods), inference, Xj[:M], n_latent=Q, **kw)
 
 
 def jax_mo_treat(mj, ys):
@@ -642,12 +675,13 @@ def port_mo(mj, sj, optimiser=None, Aoptimiser=None, inference=None, generator=N
         inference = agt.AnalyticSVI(inf.batchsize) if inf.stochastic else agt.AnalyticVI()
     kw = dict(n_latent=mj.n_latent, optimiser=optimiser, Aoptimiser=Aoptimiser, atfrequency=mj.atfrequency,
               generator=generator)
+    kernel = port_kernel(jax.tree_util.tree_map(lambda a: a[0], mj.kernel))
     if type(mj).__name__ == "MOVGP":
-        template = agt.MOVGP.create(t64(mj.Z[0]), liks, agt.SqExponentialKernel(), inference, **kw)
+        template = agt.MOVGP.create(t64(mj.Z[0]), liks, kernel, inference, **kw)
     else:
-        template = agt.MOSVGP.create(agt.SqExponentialKernel(), liks, inference, t64(mj.Z[0]), **kw)
-    mt = model_from_numpy(dict(Z=np.array(mj.Z), A=np.array(mj.A), lengthscale=np.array(mj.kernel.lengthscale),
-                               variance=np.array(mj.kernel.variance), likelihoods=list(params)), template)
+        template = agt.MOSVGP.create(kernel, liks, inference, t64(mj.Z[0]), **kw)
+    mt = model_from_numpy(dict(Z=np.array(mj.Z), A=np.array(mj.A), kernel=jax_kernel_leaves(mj.kernel),
+                               likelihoods=list(params)), template)
     return mt, state_from_numpy(mo_state_arrays(sj, mj.A), "cpu", torch.float64)
 
 
