@@ -52,6 +52,17 @@
 //   stages, M <= 2,392).  The row sums are summed by shuffles and one slot
 //   per warp column in a fixed order: two calls are bit-equal.
 // The ragged edges are masked from B and M; nothing is padded on the host.
+//
+// The float64 form (agp_fused_kappa_moments_batched_f64,
+// agp_cavi_stats_batched_f64: a float64 model of several latents on the
+// card) is the same pass on tiles of doubles (KTile<TB, double>,
+// pair_core.cuh's moment_rows): the gram, kappa, kappa Sigma and the row
+// sums in double, each product one FP64 mma.sync pass a 4-deep step, and
+// kernel 5's statistics in double (stats_tc.cuh).  What bounds it: kappa's
+// and the quadratic form's B M^2 + B M (M+1)/2 FMAs at the FP64
+// tensor-core peak (67 TFLOP/s), 0.77 ms at B=65,536, M=512, L=1; the
+// design forms kappa Sigma in full, 1.03 ms.  Its row tiles reach about
+// half the float form's M: 64 rows to M=320, 32 to 680, 16 to 1,184.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -65,39 +76,51 @@ namespace {
 // One block a tile of TB rows of latent blockIdx.y: the moments pass
 // (pair_core.cuh's moment_rows), kappa stored to [L, B, M], mf and vf to
 // [L, B].  Its shared memory is rows_smem<C>(M).
-template <class C>
+template <class C, class E = typename C::Elem>
 __global__ void __launch_bounds__(C::THREADS, 1)
-kappa_moments_batched(const float* __restrict__ x, const float* __restrict__ z, const float* __restrict__ kinv,
-                      const float* __restrict__ mu, const float* __restrict__ sigma,
-                      const float* __restrict__ params, float* __restrict__ kappa, float* __restrict__ mf_out,
-                      float* __restrict__ vf_out, int B, int D, int M, int L, int kind, bool vec) {
+kappa_moments_batched(const E* __restrict__ x, const E* __restrict__ z, const E* __restrict__ kinv,
+                      const E* __restrict__ mu, const E* __restrict__ sigma, const E* __restrict__ params,
+                      E* __restrict__ kappa, E* __restrict__ mf_out, E* __restrict__ vf_out, int B, int D, int M,
+                      int L, int kind, bool vec) {
   extern __shared__ float4 sm4[];
   const int l = blockIdx.y;
   const int row0 = blockIdx.x * C::TB;
   const size_t mm = (size_t)l * M * M;
-  moment_rows<C>(reinterpret_cast<float*>(sm4), kind, x, z + (size_t)l * M * D, params + P_VAR + L + (size_t)l * D,
+  moment_rows<C>(reinterpret_cast<E*>(sm4), kind, x, z + (size_t)l * M * D, params + P_VAR + L + (size_t)l * D,
                  params[P_VAR + l], params[P_JITT], kinv + mm, mu + (size_t)l * M, sigma + mm,
                  kappa + ((size_t)l * B + row0) * M, row0, min(C::TB, B - row0), D, M, vec, vec,
-                 [&](int t, float mf, float vf) {
+                 [&](int t, E mf, E vf) {
                    const size_t r = (size_t)l * B + row0 + t;
                    mf_out[r] = mf;
                    vf_out[r] = vf;
                  });
 }
 
-template <class C>
-int launch_kappa_moments(const float* x, const float* z, const float* kinv, const float* mu, const float* sigma,
-                         const float* params, float* kappa, float* mf, float* vf, int B, int D, int M, int L,
-                         int kind, cudaStream_t st) {
+// Its shared-memory attribute is set once a device (stats_tc.cuh's
+// prepare_smem), then one launch.
+template <class C, class E = typename C::Elem>
+int launch_kappa_moments(const E* x, const E* z, const E* kinv, const E* mu, const E* sigma, const E* params,
+                         E* kappa, E* mf, E* vf, int B, int D, int M, int L, int kind, cudaStream_t st) {
   const size_t smem = rows_smem<C>(M);
-  cudaError_t err = cudaFuncSetAttribute(kappa_moments_batched<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = prepare_smem<&kappa_moments_batched<C>>(smem);
   if (err != cudaSuccess) return (int)err;
-  const bool vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(kinv) % 16 == 0 &&
+  const bool vec = M % (16 / sizeof(E)) == 0 && reinterpret_cast<uintptr_t>(kinv) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(sigma) % 16 == 0 && reinterpret_cast<uintptr_t>(kappa) % 16 == 0;
   kappa_moments_batched<C><<<dim3((B + C::TB - 1) / C::TB, L), C::THREADS, smem, st>>>(
       x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, L, kind, vec);
   return (int)cudaGetLastError();
+}
+
+// kernel 4 of elements E at row tiles of tile_rows; cudaErrorInvalidValue
+// for an unknown kind or tile
+template <class E>
+int kappa_moments_of(const E* x, const E* z, const E* kinv, const E* mu, const E* sigma, const E* params, E* kappa,
+                     E* mf, E* vf, int B, int D, int M, int L, int kind, int tile_rows, void* stream) {
+  if (kind < KIND_RBF || kind > KIND_MATERN52) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_tile<E>(tile_rows, (int)cudaErrorInvalidValue, [&](auto t) {
+    return launch_kappa_moments<decltype(t)>(x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, L, kind, st);
+  });
 }
 
 }  // namespace
@@ -105,18 +128,24 @@ int launch_kappa_moments(const float* x, const float* z, const float* kinv, cons
 extern "C" {
 
 // The shared memory of kernel 4 at M with row tiles of tile_rows (64, 32
-// or 16; SIZE_MAX for another).  ops/cuda_kernels.py::kappa_smem_bytes is
-// its copy in Python: change them together.
+// or 16; SIZE_MAX for another), and of its float64 form.
+// ops/cuda_kernels.py::kappa_smem_bytes is their copy in Python: change
+// them together.
 size_t agp_kappa_moments_smem_bytes(int M, int tile_rows) {
   return with_tile(tile_rows, SIZE_MAX, [&](auto t) { return rows_smem<decltype(t)>(M); });
 }
+size_t agp_kappa_moments_smem_bytes_f64(int M, int tile_rows) {
+  return with_tile<double>(tile_rows, SIZE_MAX, [&](auto t) { return rows_smem<decltype(t)>(M); });
+}
 
-// edge of kernels 5 and 7's output tiles
-int agp_cavi_stats_tile(void) { return TILE; }
+// edge of kernels 5 and 7's output tiles, and of their float64 form's
+int agp_cavi_stats_tile(void) { return StatsShape<float>::TILE; }
+int agp_cavi_stats_tile_f64(void) { return StatsShape<double>::TILE; }
 
-// resident blocks of kernels 5 and 7 on one SM of the current device (0 on
-// error)
-int agp_cavi_stats_blocks_per_sm(void) { return stats_blocks_per_sm(); }
+// resident blocks of kernels 5 and 7 (and of their float64 form) on one SM
+// of the current device (0 on error)
+int agp_cavi_stats_blocks_per_sm(void) { return stats_blocks_per_sm<float>(); }
+int agp_cavi_stats_blocks_per_sm_f64(void) { return stats_blocks_per_sm<double>(); }
 
 // All pointers are device pointers to contiguous float32 arrays:
 // x [B, D], z [L, M, D], kinv [L, M, M], mu [L, M], sigma [L, M, M],
@@ -129,12 +158,16 @@ int agp_fused_kappa_moments_batched(const float* x, const float* z, const float*
                                     const float* mu, const float* sigma, const float* params,
                                     float* kappa, float* mf, float* vf, int B, int D, int M,
                                     int L, int kind, int tile_rows, void* stream) {
-  if (kind < KIND_RBF || kind > KIND_MATERN52) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_tile(tile_rows, (int)cudaErrorInvalidValue, [&](auto t) {
-    return launch_kappa_moments<decltype(t)>(x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, L,
-                                                   kind, st);
-  });
+  return kappa_moments_of(x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, L, kind, tile_rows, stream);
+}
+
+// The float64 form: the same arguments as float64 arrays
+// (agp_kappa_moments_smem_bytes_f64 must fit the card).
+int agp_fused_kappa_moments_batched_f64(const double* x, const double* z, const double* kinv, const double* mu,
+                                        const double* sigma, const double* params, double* kappa, double* mf,
+                                        double* vf, int B, int D, int M, int L, int kind, int tile_rows,
+                                        void* stream) {
+  return kappa_moments_of(x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, L, kind, tile_rows, stream);
 }
 
 // kappa [L, B, M], g and theta [L, B]; outputs s1 [L, M], s2 [L, M, M]
@@ -144,6 +177,15 @@ int agp_fused_kappa_moments_batched(const float* x, const float* z, const float*
 int agp_cavi_stats_batched(const float* kappa, const float* g, const float* theta, float* s1_part,
                            float* s2_part, float* s1, float* s2, int B, int M, int L, int nchunks,
                            int rows_per_chunk, void* stream) {
+  return launch_stats(kappa, g, theta, s1_part, s2_part, s1, s2, B, M, L, nchunks, rows_per_chunk,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The float64 form: the same arguments as float64 arrays, the chunks
+// planned with agp_cavi_stats_tile_f64 and agp_cavi_stats_blocks_per_sm_f64.
+int agp_cavi_stats_batched_f64(const double* kappa, const double* g, const double* theta, double* s1_part,
+                               double* s2_part, double* s1, double* s2, int B, int M, int L, int nchunks,
+                               int rows_per_chunk, void* stream) {
   return launch_stats(kappa, g, theta, s1_part, s2_part, s1, s2, B, M, L, nchunks, rows_per_chunk,
                       static_cast<cudaStream_t>(stream));
 }

@@ -235,7 +235,7 @@ size_t agp_multi_smem_bytes(int M) { return rows_smem<Tile>(M); }
 // s1 [K, M], s2 [K, M, M]; scratch kappa [K, B, M] (16-byte aligned for
 // 16-byte copies), mf, vf, wg, ws [K, B], s1_part [K, nchunks, M] and
 // s2_part [K, nchunks, M, M] with nchunks = ceil(B / rows_per_chunk),
-// rows_per_chunk a multiple of stats_tc.cuh's KB
+// rows_per_chunk a multiple of stats_tc.cuh's StatsShape<float>::KB
 // (ops/cuda_kernels.py::_stats_plan).  kind: a GramKind code,
 // 1 <= M <= MAX_M.  Four launches on `stream` (latent_rows,
 // estep_multiclass, stats_tc, sum_tiles); returns the CUDA error of the

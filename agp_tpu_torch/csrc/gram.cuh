@@ -8,7 +8,8 @@
 // does.  The kernels apply the formula once an entry, after its r2 sum
 // (pair_core.cuh::gram_slab), so they take the kind at run time
 // (gram_from_r2_of, a branch uniform across the block; kernels 8-9 take
-// the RBF gram only).
+// the RBF gram only).  Kernels 4 and 6's float64 form takes the same
+// formula in double, with the double math functions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,5 +47,25 @@ __device__ __forceinline__ float gram_from_r2_of(int kind, float r2, float var) 
       return gram_from_r2<KIND_MATERN52>(r2, var);
     default:
       return gram_from_r2<KIND_RBF>(r2, var);
+  }
+}
+
+// gram_from_r2_of in double (kernels 4 and 6's float64 form)
+__device__ __forceinline__ double gram_from_r2_of(int kind, double r2, double var) {
+  switch (kind) {
+    case KIND_MATERN12: {
+      const double r = sqrt(fmax(r2, 1e-36));
+      return var * exp(-r);
+    }
+    case KIND_MATERN32: {
+      const double r = sqrt(fmax(3.0 * r2, 1e-36));
+      return var * (1.0 + r) * exp(-r);
+    }
+    case KIND_MATERN52: {
+      const double r = sqrt(fmax(5.0 * r2, 1e-36));
+      return var * (1.0 + r + r * r / 3.0) * exp(-r);
+    }
+    default:
+      return var * exp(-0.5 * r2);
   }
 }

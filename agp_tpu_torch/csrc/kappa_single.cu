@@ -66,6 +66,17 @@
 // summed by shuffles and one slot per warp column in a fixed order: two
 // calls are bit-equal.  The ragged edges are masked from B and M; nothing
 // is padded on the host.
+//
+// The float64 form (agp_fused_kappa_f64, agp_cavi_stats_f64: a float64
+// model on the card) is the same kernel on tiles of doubles
+// (KTile<TB, double>, pair_core.cuh): the gram in double by direct
+// differences, kappa = G K^-1 in one FP64 mma.sync pass a 4-deep step
+// (DMMA: IEEE double with FMA, so no split), Ktilde's row sums in double.
+// What bounds it: kappa's B M^2 FMAs at the FP64 tensor-core peak
+// (67 TFLOP/s), 0.51 ms at B=65,536, M=512, against 268 MB of kappa
+// written (0.08 ms).  A slab of doubles takes twice the bytes, so each row
+// tile reaches about half the float form's M: 64 rows to M=336, 32 to
+// 696, 16 (8-row stages) to 1,192.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -78,58 +89,74 @@ namespace {
 // the slab [TB, S], the scratch, Ktilde's row sums [WARPS_N, TB]
 template <class C>
 __host__ __device__ constexpr size_t ks_smem(int M) {
-  return sizeof(float) * ((size_t)C::TB * slab_stride(M) + slab_scratch<C>(M) + (size_t)C::WARPS_N * C::TB);
+  return sizeof(typename C::Elem) *
+         ((size_t)C::TB * slab_stride(M) + slab_scratch<C>(M) + (size_t)C::WARPS_N * C::TB);
 }
 
 // One block an SM (at M=512 the slab and the ring take 185 KB), so the
 // registers are not capped at 128: the passes' partial sums of the warp's
-// tiles sit beside its accumulators without spills.
-template <class C>
+// tiles sit beside its accumulators without spills.  Elements E: float,
+// or double for the float64 form.
+template <class C, class E = typename C::Elem>
 __global__ void __launch_bounds__(C::THREADS, 1)
-kappa_single(const float* __restrict__ x, const float* __restrict__ z, const float* __restrict__ kinv,
-             const float* __restrict__ params, float* __restrict__ kappa, float* __restrict__ ktilde, int B,
-             int D, int M, int kind, bool vec) {
+kappa_single(const E* __restrict__ x, const E* __restrict__ z, const E* __restrict__ kinv,
+             const E* __restrict__ params, E* __restrict__ kappa, E* __restrict__ ktilde, int B, int D, int M,
+             int kind, bool vec) {
   constexpr int TB = C::TB;
   extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
+  E* sm = reinterpret_cast<E*>(sm4);
   const int S = slab_stride(M);
-  float* G = sm;                           // [TB, S]  gram (first |x - z|^2), zero past M
-  float* U = G + TB * S;                   // the ring; x / ls, then z / ls, while the gram forms
-  float* red = U + slab_scratch<C>(M);    // [WARPS_N, TB]  Ktilde's row sums
+  E* G = sm;                           // [TB, S]  gram (first |x - z|^2), zero past M
+  E* U = G + TB * S;                   // the ring; x / ls, then z / ls, while the gram forms
+  E* red = U + slab_scratch<C>(M);    // [WARPS_N, TB]  Ktilde's row sums
   const int row0 = blockIdx.x * TB;
   const int nrows = min(TB, B - row0);
-  const float jitt = params[P_JITT], var = params[P_VAR];
-  const float* ls = params + P_VAR + 1;
+  const E jitt = params[P_JITT], var = params[P_VAR];
+  const E* ls = params + P_VAR + 1;
 
   gram_into_slab<C>(kind, x, z, ls, var, G, S, U, row0, nrows, D, M);
 
   // kappa = G K^-1, column tile by column tile, stored from the fragments;
   // Ktilde's row sums in the same epilogue
-  float kq[C::MI][2] = {};
-  float* out = kappa + (size_t)row0 * M;
-  tc_product<C>(G, S, kinv, M, U, vec, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
-    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
-      if (col < M) kq[mi][h] = fmaf(v0, G[row * S + col], kq[mi][h]);
-      if (col + 1 < M) kq[mi][h] = fmaf(v1, G[row * S + col + 1], kq[mi][h]);
+  E kq[C::MI][2] = {};
+  E* out = kappa + (size_t)row0 * M;
+  tc_product<C>(G, S, kinv, M, U, vec, [&](int n0, E (&acc)[C::MI][C::NJ][4]) {
+    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, E v0, E v1) {
+      if (col < M) kq[mi][h] = fma_t(v0, G[row * S + col], kq[mi][h]);
+      if (col + 1 < M) kq[mi][h] = fma_t(v1, G[row * S + col + 1], kq[mi][h]);
       store_pair(out, M, nrows, row, col, v0, v1);
     });
   });
   row_partials<C>(kq, red);
   __syncthreads();
   for (int t = threadIdx.x; t < nrows; t += C::THREADS)
-    ktilde[row0 + t] = fmaxf(var + jitt - row_total<C>(red, t), 1e-12f);
+    ktilde[row0 + t] = fmax_t(var + jitt - row_total<C>(red, t), E(1e-12));
 }
 
-template <class C>
-int launch_kappa_single(const float* x, const float* z, const float* kinv, const float* params, float* kappa,
-                        float* ktilde, int B, int D, int M, int kind, cudaStream_t st) {
+// Its shared-memory attribute is set once a device (stats_tc.cuh's
+// prepare_smem), then one launch.
+template <class C, class E = typename C::Elem>
+int launch_kappa_single(const E* x, const E* z, const E* kinv, const E* params, E* kappa, E* ktilde, int B, int D,
+                        int M, int kind, cudaStream_t st) {
   const size_t smem = ks_smem<C>(M);
-  cudaError_t err = cudaFuncSetAttribute(kappa_single<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = prepare_smem<&kappa_single<C>>(smem);
   if (err != cudaSuccess) return (int)err;
-  const bool vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(kinv) % 16 == 0;
+  const bool vec = M % (16 / sizeof(E)) == 0 && reinterpret_cast<uintptr_t>(kinv) % 16 == 0;
   kappa_single<C><<<(B + C::TB - 1) / C::TB, C::THREADS, smem, st>>>(x, z, kinv, params, kappa, ktilde, B, D,
                                                                      M, kind, vec);
   return (int)cudaGetLastError();
+}
+
+// kernel 6 of elements E at row tiles of tile_rows; cudaErrorInvalidValue
+// for an unknown kind or tile
+template <class E>
+int fused_kappa_of(const E* x, const E* z, const E* kinv, const E* params, E* kappa, E* ktilde, int B, int D, int M,
+                   int kind, int tile_rows, void* stream) {
+  if (kind < KIND_RBF || kind > KIND_MATERN52) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_tile<E>(tile_rows, (int)cudaErrorInvalidValue, [&](auto t) {
+    return launch_kappa_single<decltype(t)>(x, z, kinv, params, kappa, ktilde, B, D, M, kind, st);
+  });
 }
 
 }  // namespace
@@ -137,10 +164,14 @@ int launch_kappa_single(const float* x, const float* z, const float* kinv, const
 extern "C" {
 
 // The shared memory of kernel 6 at M with row tiles of tile_rows (64, 32
-// or 16; SIZE_MAX for another).  ops/cuda_kernels.py::kappa_smem_bytes is
-// its copy in Python: change them together.
+// or 16; SIZE_MAX for another), and of its float64 form.
+// ops/cuda_kernels.py::kappa_smem_bytes is their copy in Python: change
+// them together.
 size_t agp_fused_kappa_smem_bytes(int M, int tile_rows) {
   return with_tile(tile_rows, SIZE_MAX, [&](auto t) { return ks_smem<decltype(t)>(M); });
+}
+size_t agp_fused_kappa_smem_bytes_f64(int M, int tile_rows) {
+  return with_tile<double>(tile_rows, SIZE_MAX, [&](auto t) { return ks_smem<decltype(t)>(M); });
 }
 
 // All pointers are device pointers to contiguous float32 arrays:
@@ -151,11 +182,14 @@ size_t agp_fused_kappa_smem_bytes(int M, int tile_rows) {
 // unknown kind or tile).
 int agp_fused_kappa(const float* x, const float* z, const float* kinv, const float* params, float* kappa,
                     float* ktilde, int B, int D, int M, int kind, int tile_rows, void* stream) {
-  if (kind < KIND_RBF || kind > KIND_MATERN52) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_tile(tile_rows, (int)cudaErrorInvalidValue, [&](auto t) {
-    return launch_kappa_single<decltype(t)>(x, z, kinv, params, kappa, ktilde, B, D, M, kind, st);
-  });
+  return fused_kappa_of(x, z, kinv, params, kappa, ktilde, B, D, M, kind, tile_rows, stream);
+}
+
+// The float64 form: the same arguments as float64 arrays
+// (agp_fused_kappa_smem_bytes_f64 must fit the card).
+int agp_fused_kappa_f64(const double* x, const double* z, const double* kinv, const double* params, double* kappa,
+                        double* ktilde, int B, int D, int M, int kind, int tile_rows, void* stream) {
+  return fused_kappa_of(x, z, kinv, params, kappa, ktilde, B, D, M, kind, tile_rows, stream);
 }
 
 // kappa [B, M], g and theta [B]; outputs s1 [M], s2 [M, M] (exactly
@@ -165,6 +199,15 @@ int agp_fused_kappa(const float* x, const float* z, const float* kinv, const flo
 int agp_cavi_stats(const float* kappa, const float* g, const float* theta, float* s1_part,
                    float* s2_part, float* s1, float* s2, int B, int M, int nchunks,
                    int rows_per_chunk, void* stream) {
+  return launch_stats(kappa, g, theta, s1_part, s2_part, s1, s2, B, M, 1, nchunks, rows_per_chunk,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The float64 form: the same arguments as float64 arrays, the chunks
+// planned with agp_cavi_stats_tile_f64 and agp_cavi_stats_blocks_per_sm_f64
+// (batched_pair.cu).
+int agp_cavi_stats_f64(const double* kappa, const double* g, const double* theta, double* s1_part, double* s2_part,
+                       double* s1, double* s2, int B, int M, int nchunks, int rows_per_chunk, void* stream) {
   return launch_stats(kappa, g, theta, s1_part, s2_part, s1, s2, B, M, 1, nchunks, rows_per_chunk,
                       static_cast<cudaStream_t>(stream));
 }

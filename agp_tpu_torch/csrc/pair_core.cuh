@@ -12,7 +12,13 @@
 //     Ktilde, mf and vf of one row tile and latent);
 //   * through stats_tc.cuh, the statistics s1 = kappa^T g and
 //     S2 = kappa^T diag(theta) kappa of kernels 5 and 7.
-// The split, the mma and the copies are tf32_mma.cuh's.  See
+// The split, the mma and the copies are tf32_mma.cuh's.
+// Kernels 4 and 6's float64 form runs the same parts on tiles of doubles
+// (TileShape's element type; KTile<TB, double>): the gram slab, the
+// copies and the moments pass are the float code's, in double (the
+// double math of gram.cuh), and the product is a micro-tile of its own,
+// one FP64 mma.sync pass into double accumulators (tc_product's double
+// overload, tf32_mma.cuh's mma_f64_grid).  See
 // kappa_single.cu for what bounds kernels 4 and 6 on an H100 and why they
 // may use the tensor cores; fused_variants.cu (kernels 8-9) and
 // fused_cavi_stats.cu (kernel 1) run the same parts.  Everything is in an
@@ -23,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "gram.cuh"
 #include "stats_tc.cuh"
@@ -38,19 +46,24 @@ constexpr int P_JITT = 0, P_VAR = 3;
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// The geometry of a block of TB rows: WARPS_M x WARPS_N warps over a
+// The geometry of a block of TB rows of elements T (float, or double for
+// kernels 4 and 6's float64 form): WARPS_M x WARPS_N warps over a
 // [TB, NT] output tile, each a WM x WN sub-tile of MI x NJ mma tiles
 // (16 x 8); a ring of KT_STAGES stages of KB rows of the streamed matrix,
-// row stride SP (SP = 8 mod 32 puts a warp's B-fragment reads on 32
-// distinct banks).
-template <int TB_, int WARPS_M_, int WARPS_N_, int MI_, int NJ_, int KB_>
+// row stride SP elements (floats: SP = 8 mod 32 puts a warp's B-fragment
+// reads on 32 distinct banks; doubles, read 16 lanes a shared-memory
+// wavefront: SP = 4 mod 16 puts each half-warp's on 16 distinct 8-byte
+// bank pairs).
+template <int TB_, int WARPS_M_, int WARPS_N_, int MI_, int NJ_, int KB_, class T = float>
 struct TileShape {
+  using Elem = T;
   static constexpr int TB = TB_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_, MI = MI_, NJ = NJ_, KB = KB_;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   static constexpr int WM = 16 * MI, WN = 8 * NJ, NT = WARPS_N * WN;
-  static constexpr int SP = NT + 8;
+  static constexpr int SP = NT + (sizeof(T) == 4 ? 8 : 4);
   static constexpr int STAGE = KB * SP;
   static constexpr int RING = KT_STAGES * STAGE;
+  static_assert(std::is_same<T, float>::value || std::is_same<T, double>::value, "float or double tiles");
   static_assert(WARPS_M * WM == TB && NT % 32 == 0 && KB % 8 == 0, "whole mma tiles, one warp a sub-tile");
 };
 
@@ -76,12 +89,46 @@ template <>
 struct KTileOf<16> {
   using type = TileShape<16, 1, 8, 1, 2, 8>;
 };
+// The float64 form's (ops/cuda_kernels.py::_KAPPA_TILES_F64 mirrors them):
+// the same row tiles at half the float rows' M, 8 warps side by side over
+// output tiles of 128 columns (64 x 16, 32 x 16, 16 x 16 a warp: 8, 4 or 2
+// tiles of 16 x 8, each two m8n8k4 mma), 16-row stages (8 for 16-row
+// blocks).
 template <int TB>
-using KTile = typename KTileOf<TB>::type;
+struct KTileF64Of;
+template <>
+struct KTileF64Of<64> {
+  using type = TileShape<64, 1, 8, 4, 2, 16, double>;
+};
+template <>
+struct KTileF64Of<32> {
+  using type = TileShape<32, 1, 8, 2, 2, 16, double>;
+};
+template <>
+struct KTileF64Of<16> {
+  using type = TileShape<16, 1, 8, 1, 2, 8, double>;
+};
+template <int TB, class T = float>
+using KTile = typename std::conditional<std::is_same<T, double>::value, KTileF64Of<TB>, KTileOf<TB>>::type::type;
+
+// v = p[0 : 8], p 16-byte aligned, by 16-byte loads
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const double* p, double (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double2 a = reinterpret_cast<const double2*>(p)[i];
+    v[2 * i] = a.x, v[2 * i + 1] = a.y;
+  }
+}
 
 // columns of a slab (M padded to whole 8-deep steps, zero past M) and its
 // row stride: stride = 4 mod 8 puts a warp's A-fragment reads on 32
-// distinct banks
+// distinct banks (floats), or each half-warp's on 16 distinct bank pairs
+// (doubles)
 __host__ __device__ constexpr int slab_cols(int M) { return round_up(M, 8); }
 __host__ __device__ constexpr int slab_stride(int M) { return slab_cols(M) + 4; }
 
@@ -101,33 +148,34 @@ __host__ __device__ constexpr size_t slab_scratch(int M) {
 // and zs [dch, M + 1] (shared memory the caller reuses afterwards); x / ls
 // and z / ls are both products with 1 / ls, so that a point of the batch
 // that is also an inducing point lands on it exactly.  A thread sums 8 rows
-// of one column at a time in registers, each feature's x values two
-// broadcast 16-byte loads and z one load: 16 FP32 operations for three
-// loads.  G is read back only between chunks (D > dch); the last chunk
-// applies the kind's formula.  Ends with a barrier.
-template <class C>
-__device__ __forceinline__ void gram_slab(int kind, const float* __restrict__ x, const float* __restrict__ zl,
-                                          const float* __restrict__ ls, float var, float* G, int S, float* xs,
-                                          float* zs, int dch, int row0, int nrows, int D, int M) {
+// of one column at a time in registers, each feature's x values broadcast
+// 16-byte loads (two floats: 16 FP32 operations for three loads) and z one
+// load.  G is read back only between chunks (D > dch); the last chunk
+// applies the kind's formula.  In the tile's element type.  Ends with a
+// barrier.
+template <class C, class E = typename C::Elem>
+__device__ __forceinline__ void gram_slab(int kind, const E* __restrict__ x, const E* __restrict__ zl,
+                                          const E* __restrict__ ls, E var, E* G, int S, E* xs, E* zs, int dch,
+                                          int row0, int nrows, int D, int M) {
   constexpr int TB = C::TB, T = C::THREADS, R = 8, U = 8;
   const int tid = threadIdx.x, mk = slab_cols(M), MZ = M + 1;
-  float* il = xs + dch * TB;  // 1 / ls of the chunk's features
+  E* il = xs + dch * TB;  // 1 / ls of the chunk's features
   for (int d0 = 0; d0 < D; d0 += dch) {
     const int dc = min(dch, D - d0);
     const bool first = d0 == 0, last = d0 + dch >= D;
     if (!first) __syncthreads();  // every thread is done with the previous chunk
-    if (tid < dc) il[tid] = 1.0f / ls[d0 + tid];
+    if (tid < dc) il[tid] = E(1) / ls[d0 + tid];
     __syncthreads();
     for (int i = tid; i < dc * TB; i += T) {
       const int dd = i / TB, t = i % TB;
-      xs[i] = t < nrows ? x[(size_t)(row0 + t) * D + d0 + dd] * il[dd] : 0.0f;
+      xs[i] = t < nrows ? x[(size_t)(row0 + t) * D + d0 + dd] * il[dd] : E(0);
     }
     for (int m = tid; m < M; m += T) {  // z's row m, U loads in flight
-      const float* zr = zl + (size_t)m * D + d0;
+      const E* zr = zl + (size_t)m * D + d0;
       for (int d = 0; d < dc; d += U) {
-        float v[U];
+        E v[U];
 #pragma unroll
-        for (int u = 0; u < U; ++u) v[u] = d + u < dc ? zr[d + u] : 0.0f;
+        for (int u = 0; u < U; ++u) v[u] = d + u < dc ? zr[d + u] : E(0);
 #pragma unroll
         for (int u = 0; u < U; ++u)
           if (d + u < dc) zs[(d + u) * MZ + m] = v[u] * il[d + u];
@@ -136,26 +184,25 @@ __device__ __forceinline__ void gram_slab(int kind, const float* __restrict__ x,
     __syncthreads();
     for (int item = tid; item < mk * (TB / R); item += T) {
       const int m = item % mk, t0 = (item / mk) * R;
-      float r[R];
+      E r[R];
 #pragma unroll
-      for (int j = 0; j < R; ++j) r[j] = first ? 0.0f : G[(t0 + j) * S + m];
+      for (int j = 0; j < R; ++j) r[j] = first ? E(0) : G[(t0 + j) * S + m];
       if (m < M) {
 #pragma unroll 4
         for (int dd = 0; dd < dc; ++dd) {
-          const float4 xa = *reinterpret_cast<const float4*>(xs + dd * TB + t0);
-          const float4 xb = *reinterpret_cast<const float4*>(xs + dd * TB + t0 + 4);
-          const float xv[R] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-          const float zv = zs[dd * MZ + m];
+          E xv[R];
+          load8(xs + dd * TB + t0, xv);
+          const E zv = zs[dd * MZ + m];
 #pragma unroll
           for (int j = 0; j < R; ++j) {
-            const float df = xv[j] - zv;
-            r[j] = fmaf(df, df, r[j]);
+            const E df = xv[j] - zv;
+            r[j] = fma_t(df, df, r[j]);
           }
         }
       }
 #pragma unroll
       for (int j = 0; j < R; ++j)
-        G[(t0 + j) * S + m] = !last ? r[j] : (t0 + j < nrows && m < M) ? gram_from_r2_of(kind, r[j], var) : 0.0f;
+        G[(t0 + j) * S + m] = !last ? r[j] : (t0 + j < nrows && m < M) ? gram_from_r2_of(kind, r[j], var) : E(0);
     }
   }
   __syncthreads();
@@ -163,31 +210,31 @@ __device__ __forceinline__ void gram_slab(int kind, const float* __restrict__ x,
 
 // The gram slab of the row tile, staged in the scratch U that follows it
 // (slab_scratch): gram_slab with as many features a pass as U holds.
-template <class C>
-__device__ __forceinline__ void gram_into_slab(int kind, const float* __restrict__ x, const float* __restrict__ zl,
-                                               const float* __restrict__ ls, float var, float* G, int S, float* U,
-                                               int row0, int nrows, int D, int M) {
+template <class C, class E = typename C::Elem>
+__device__ __forceinline__ void gram_into_slab(int kind, const E* __restrict__ x, const E* __restrict__ zl,
+                                               const E* __restrict__ ls, E var, E* G, int S, E* U, int row0,
+                                               int nrows, int D, int M) {
   const int dch = min(D, (int)(slab_scratch<C>(M) / (C::TB + M + 2)));
   gram_slab<C>(kind, x, zl, ls, var, G, S, U, U + (size_t)dch * (C::TB + 1), dch, row0, nrows, D, M);
 }
 
 // Copies rows [0, nrows) of src [*, M] (row t at src + t M) into the slab
 // A [TB, stride S], columns [0, M), zero in rows [nrows, TB): 16-byte
-// copies where vec, else 4-byte ones.  Columns [M, mk) keep what they
-// hold.  Ends with a barrier after the copies have landed.
-template <class C>
-__device__ __forceinline__ void load_rows(float* A, int S, const float* __restrict__ src, int M, int nrows,
-                                          bool vec) {
+// copies where vec, else one element a copy.  Columns [M, mk) keep what
+// they hold.  Ends with a barrier after the copies have landed.
+template <class C, class E = typename C::Elem>
+__device__ __forceinline__ void load_rows(E* A, int S, const E* __restrict__ src, int M, int nrows, bool vec) {
+  constexpr int W = 16 / sizeof(E), BYTES = sizeof(E);  // elements a 16-byte copy, bytes an element
   if (vec) {
-    const int q = M / 4;
+    const int q = M / W;
     for (int i = threadIdx.x; i < C::TB * q; i += C::THREADS) {
-      const int r = i / q, c = (i % q) * 4;
+      const int r = i / q, c = (i % q) * W;
       cp_async<16>(A + r * S + c, r < nrows ? src + (size_t)r * M + c : src, r < nrows ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < C::TB * M; i += C::THREADS) {
       const int r = i / M, c = i % M;
-      cp_async<4>(A + r * S + c, r < nrows ? src + (size_t)r * M + c : src, r < nrows ? 4 : 0);
+      cp_async<BYTES>(A + r * S + c, r < nrows ? src + (size_t)r * M + c : src, r < nrows ? BYTES : 0);
     }
   }
   cp_async_commit();
@@ -198,13 +245,15 @@ __device__ __forceinline__ void load_rows(float* A, int S, const float* __restri
 // Copies rows [k0, k0 + KB) and columns [n0, n0 + NT) of Bm [K, N]
 // (row-major, row stride ldb, as given: no symmetry is assumed) into the
 // stage Bs [KB, SP], zero past K and N: 16-byte copies where vec (N and
-// ldb multiples of 4, Bm 16-byte aligned), else 4-byte ones.
-template <class C>
-__device__ __forceinline__ void load_b_stage(float* Bs, const float* __restrict__ Bm, int K, int N, int ldb, int k0,
-                                             int n0, bool vec) {
+// ldb whole 16-byte groups of elements, Bm 16-byte aligned), else one
+// element a copy.
+template <class C, class E = typename C::Elem>
+__device__ __forceinline__ void load_b_stage(E* Bs, const E* __restrict__ Bm, int K, int N, int ldb, int k0, int n0,
+                                             bool vec) {
+  constexpr int W = 16 / sizeof(E), BYTES = sizeof(E);  // elements a 16-byte copy, bytes an element
   if (vec) {
-    for (int i = threadIdx.x; i < C::KB * (C::NT / 4); i += C::THREADS) {
-      const int r = i / (C::NT / 4), c = (i % (C::NT / 4)) * 4;
+    for (int i = threadIdx.x; i < C::KB * (C::NT / W); i += C::THREADS) {
+      const int r = i / (C::NT / W), c = (i % (C::NT / W)) * W;
       const bool ok = k0 + r < K && n0 + c < N;
       cp_async<16>(Bs + r * C::SP + c, ok ? Bm + (size_t)(k0 + r) * ldb + n0 + c : Bm, ok ? 16 : 0);
     }
@@ -212,7 +261,7 @@ __device__ __forceinline__ void load_b_stage(float* Bs, const float* __restrict_
     for (int i = threadIdx.x; i < C::KB * C::NT; i += C::THREADS) {
       const int r = i / C::NT, c = i % C::NT;
       const bool ok = k0 + r < K && n0 + c < N;
-      cp_async<4>(Bs + r * C::SP + c, ok ? Bm + (size_t)(k0 + r) * ldb + n0 + c : Bm, ok ? 4 : 0);
+      cp_async<BYTES>(Bs + r * C::SP + c, ok ? Bm + (size_t)(k0 + r) * ldb + n0 + c : Bm, ok ? BYTES : 0);
     }
   }
 }
@@ -309,17 +358,88 @@ __device__ __forceinline__ void tc_product(const float* A, int S, const float* _
   __syncthreads();
 }
 
-// tc_product with a square Bm [M, M] of row stride M
+// tc_product's float64 form: A [TB, mk] (shared memory, doubles) times Bm
+// [K, N] (device memory), streamed through the same ring of KT_STAGES
+// stages (16-byte cp.async: two doubles a copy), one barrier a stage.  Each
+// warp's WM x WN sub-tile runs one FP64 mma.sync pass a 4-deep step
+// (mma_f64_grid: each 16 x 8 tile two m8n8k4), unsplit, the accumulators
+// carrying the whole sum in IEEE double (the mma's FMA).  The fragments
+// and the epilogue are tc_product's (element e of acc[mi][nj] at row
+// m_w + mi*16 + gid + 8 (e / 2), column n0 + n_w + nj*8 + 2 tig + e % 2).
 template <class C, class Epi>
-__device__ __forceinline__ void tc_product(const float* A, int S, const float* __restrict__ Bm, int M, float* ring,
-                                           bool vec, Epi epi) {
+__device__ __forceinline__ void tc_product(const double* A, int S, const double* __restrict__ Bm, int K, int N,
+                                           int ldb, double* ring, bool vec, Epi epi) {
+  static_assert(std::is_same<typename C::Elem, double>::value, "a tile of doubles");
+  const int mk = slab_cols(K);
+  const int nk = (mk + C::KB - 1) / C::KB, nsteps = nk * ((N + C::NT - 1) / C::NT);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int m_w = (warp / C::WARPS_N) * C::WM, n_w = (warp % C::WARPS_N) * C::WN;
+  auto issue = [&](int s) {
+    if (s < nsteps)
+      load_b_stage<C>(ring + (s % KT_STAGES) * C::STAGE, Bm, K, N, ldb, (s % nk) * C::KB, (s / nk) * C::NT, vec);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < KT_STAGES - 1; ++s) issue(s);
+
+  double acc[C::MI][C::NJ][4];
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < C::NJ; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.0;
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<KT_STAGES - 2>();  // this step's stage has landed (for this thread's copies)
+    __syncthreads();                 // ... and everyone's; the stage read last step is free
+    issue(s + KT_STAGES - 1);
+    const int k0 = (s % nk) * C::KB, n0 = (s / nk) * C::NT;
+    if (n0 + n_w < N) {  // else the warp's columns lie past N
+      const double* Bs = ring + (s % KT_STAGES) * C::STAGE;
+#pragma unroll
+      for (int kk = 0; kk < C::KB; kk += 4) {
+        if (k0 + kk < mk) {
+          const double* b0 = Bs + (kk + tig) * C::SP + n_w + gid;  // row kk + tig
+          double b[C::NJ];
+#pragma unroll
+          for (int nj = 0; nj < C::NJ; ++nj) b[nj] = b0[nj * 8];
+          const double* a0 = A + (size_t)(m_w + gid) * S + k0 + kk + tig;  // rows gid, gid + 8; column tig
+          double a[C::MI][2];
+#pragma unroll
+          for (int mi = 0; mi < C::MI; ++mi) {
+            a[mi][0] = a0[(size_t)mi * 16 * S];
+            a[mi][1] = a0[(size_t)(mi * 16 + 8) * S];
+          }
+          mma_f64_grid(acc, a, b);
+        }
+      }
+    }
+    if (k0 + C::KB >= mk) {  // the column tile is complete
+      epi(n0, acc);
+#pragma unroll
+      for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < C::NJ; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.0;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// tc_product with a square Bm [M, M] of row stride M (either form)
+template <class C, class E, class Epi>
+__device__ __forceinline__ void tc_product(const E* A, int S, const E* __restrict__ Bm, int M, E* ring, bool vec,
+                                           Epi epi) {
   tc_product<C>(A, S, Bm, M, M, M, ring, vec, epi);
 }
 
 // Calls f(row, col, v) for each element of an epilogue's fragments, rows
 // and columns within the block's [TB, NT] tile at n0, in a fixed order.
-template <class C, class F>
-__device__ __forceinline__ void for_fragments(int n0, float (&acc)[C::MI][C::NJ][4], F f) {
+template <class C, class F, class E>
+__device__ __forceinline__ void for_fragments(int n0, E (&acc)[C::MI][C::NJ][4], F f) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   const int m_w = (warp / C::WARPS_N) * C::WM, n_w = (warp % C::WARPS_N) * C::WN;
 #pragma unroll
@@ -346,27 +466,41 @@ __device__ __forceinline__ void store_pair(float* __restrict__ out, int M, int n
   }
 }
 
+// store_pair of doubles: 16-byte stores where M is even (out 16-byte
+// aligned)
+__device__ __forceinline__ void store_pair(double* __restrict__ out, int M, int nrows, int row, int col, double v0,
+                                           double v1) {
+  if (row >= nrows || col >= M) return;
+  double* p = out + (size_t)row * M + col;
+  if ((M & 1) == 0) {
+    *reinterpret_cast<double2*>(p) = make_double2(v0, v1);
+  } else {
+    p[0] = v0;
+    if (col + 1 < M) p[1] = v1;
+  }
+}
+
 // Row sums of per-thread partials v[mi][h] (row m_w + mi*16 + gid + 8h):
 // the four lanes of a row by shuffles, then one slot per warp column,
 // out [WARPS_N, TB]; row_total adds the slots in order.  Deterministic.
-template <class C>
-__device__ __forceinline__ void row_partials(const float (&v)[C::MI][2], float* out) {
+template <class C, class E>
+__device__ __forceinline__ void row_partials(const E (&v)[C::MI][2], E* out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   const int m_w = (warp / C::WARPS_N) * C::WM;
 #pragma unroll
   for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float s = v[mi][h];
+      E s = v[mi][h];
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
       if (tig == 0) out[(warp % C::WARPS_N) * C::TB + m_w + mi * 16 + gid + 8 * h] = s;
     }
 }
 
-template <class C>
-__device__ __forceinline__ float row_total(const float* red, int t) {
-  float s = red[t];
+template <class C, class E>
+__device__ __forceinline__ E row_total(const E* red, int t) {
+  E s = red[t];
 #pragma unroll
   for (int w = 1; w < C::WARPS_N; ++w) s += red[w * C::TB + t];
   return s;
@@ -380,7 +514,8 @@ __device__ __forceinline__ float row_total(const float* red, int t) {
 // hold them against each other).
 template <class C>
 __host__ __device__ constexpr size_t rows_smem(int M) {
-  return sizeof(float) * ((size_t)C::TB * slab_stride(M) + slab_scratch<C>(M) + 3 * (size_t)C::WARPS_N * C::TB);
+  return sizeof(typename C::Elem) *
+         ((size_t)C::TB * slab_stride(M) + slab_scratch<C>(M) + 3 * (size_t)C::WARPS_N * C::TB);
 }
 
 // The moments pass of kernels 1-4 over one row tile of one latent, in the
@@ -396,31 +531,32 @@ __host__ __device__ constexpr size_t rows_smem(int M) {
 //   Ktilde = max(var + jitt - rowsum(kappa o Knm), 1e-12),
 //   vf     = max(Ktilde + rowsum((kappa Sigma) o kappa), 1e-12),
 // one thread a row.  vec: 16-byte copies of K^-1 and of kappa's rows;
-// vec_s: of Sigma.
-template <class C, class Fin>
-__device__ __forceinline__ void moment_rows(float* sm, int kind, const float* __restrict__ x,
-                                            const float* __restrict__ zl, const float* __restrict__ ls, float var,
-                                            float jitt, const float* __restrict__ kinv, const float* __restrict__ mu,
-                                            const float* __restrict__ sigma, float* __restrict__ out, int row0,
-                                            int nrows, int D, int M, bool vec, bool vec_s, Fin fin) {
+// vec_s: of Sigma.  In the tile's element type: the float64 form runs the
+// same pass on doubles, with tc_product's FP64 form.
+template <class C, class Fin, class E = typename C::Elem>
+__device__ __forceinline__ void moment_rows(E* sm, int kind, const E* __restrict__ x, const E* __restrict__ zl,
+                                            const E* __restrict__ ls, E var, E jitt, const E* __restrict__ kinv,
+                                            const E* __restrict__ mu, const E* __restrict__ sigma,
+                                            E* __restrict__ out, int row0, int nrows, int D, int M, bool vec,
+                                            bool vec_s, Fin fin) {
   constexpr int TB = C::TB;
   const int S = slab_stride(M);
-  float* G = sm;                           // [TB, S]  the gram, then kappa; zero past M
-  float* ring = G + TB * S;                // the ring; x / ls and z / ls while the gram forms
-  float* red = ring + slab_scratch<C>(M);  // [3, WARPS_N, TB]  row sums: Ktilde, mf, vf
+  E* G = sm;                           // [TB, S]  the gram, then kappa; zero past M
+  E* ring = G + TB * S;                // the ring; x / ls and z / ls while the gram forms
+  E* red = ring + slab_scratch<C>(M);  // [3, WARPS_N, TB]  row sums: Ktilde, mf, vf
 
   gram_into_slab<C>(kind, x, zl, ls, var, G, S, ring, row0, nrows, D, M);
 
-  float kq[C::MI][2] = {}, mq[C::MI][2] = {}, vq[C::MI][2] = {};
-  tc_product<C>(G, S, kinv, M, ring, vec, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
-    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
+  E kq[C::MI][2] = {}, mq[C::MI][2] = {}, vq[C::MI][2] = {};
+  tc_product<C>(G, S, kinv, M, ring, vec, [&](int n0, E (&acc)[C::MI][C::NJ][4]) {
+    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, E v0, E v1) {
       if (col < M) {
-        kq[mi][h] = fmaf(v0, G[row * S + col], kq[mi][h]);
-        mq[mi][h] = fmaf(v0, __ldg(mu + col), mq[mi][h]);
+        kq[mi][h] = fma_t(v0, G[row * S + col], kq[mi][h]);
+        mq[mi][h] = fma_t(v0, __ldg(mu + col), mq[mi][h]);
       }
       if (col + 1 < M) {
-        kq[mi][h] = fmaf(v1, G[row * S + col + 1], kq[mi][h]);
-        mq[mi][h] = fmaf(v1, __ldg(mu + col + 1), mq[mi][h]);
+        kq[mi][h] = fma_t(v1, G[row * S + col + 1], kq[mi][h]);
+        mq[mi][h] = fma_t(v1, __ldg(mu + col + 1), mq[mi][h]);
       }
       store_pair(out, M, nrows, row, col, v0, v1);
     });
@@ -429,10 +565,10 @@ __device__ __forceinline__ void moment_rows(float* sm, int kind, const float* __
   // barrier) come back into the slab in its place (its columns [M, mk)
   // stay zero), so that one slab serves both products.
   load_rows<C>(G, S, out, M, nrows, vec);
-  tc_product<C>(G, S, sigma, M, ring, vec_s, [&](int n0, float (&acc)[C::MI][C::NJ][4]) {
-    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, float v0, float v1) {
-      if (col < M) vq[mi][h] = fmaf(v0, G[row * S + col], vq[mi][h]);
-      if (col + 1 < M) vq[mi][h] = fmaf(v1, G[row * S + col + 1], vq[mi][h]);
+  tc_product<C>(G, S, sigma, M, ring, vec_s, [&](int n0, E (&acc)[C::MI][C::NJ][4]) {
+    for_fragments<C>(n0, acc, [&](int mi, int h, int row, int col, E v0, E v1) {
+      if (col < M) vq[mi][h] = fma_t(v0, G[row * S + col], vq[mi][h]);
+      if (col + 1 < M) vq[mi][h] = fma_t(v1, G[row * S + col + 1], vq[mi][h]);
     });
   });
   constexpr int R = C::WARPS_N * TB;
@@ -441,22 +577,22 @@ __device__ __forceinline__ void moment_rows(float* sm, int kind, const float* __
   row_partials<C>(vq, red + 2 * R);
   __syncthreads();
   for (int t = threadIdx.x; t < nrows; t += C::THREADS) {
-    const float kt = fmaxf(var + jitt - row_total<C>(red, t), 1e-12f);
-    fin(t, row_total<C>(red + R, t), fmaxf(kt + row_total<C>(red + 2 * R, t), 1e-12f));
+    const E kt = fmax_t(var + jitt - row_total<C>(red, t), E(1e-12));
+    fin(t, row_total<C>(red + R, t), fmax_t(kt + row_total<C>(red + 2 * R, t), E(1e-12)));
   }
 }
 
-// fn(KTile<tile_rows>()) for the runtime row tile `tile_rows` (64, 32 or 16);
-// `other` for another
-template <class R, class F>
+// fn(KTile<tile_rows, T>()) for the runtime row tile `tile_rows` (64, 32 or
+// 16) of elements T (float by default); `other` for another
+template <class T = float, class R, class F>
 R with_tile(int tile_rows, R other, F fn) {
   switch (tile_rows) {
     case 64:
-      return fn(KTile<64>());
+      return fn(KTile<64, T>());
     case 32:
-      return fn(KTile<32>());
+      return fn(KTile<32, T>());
     case 16:
-      return fn(KTile<16>());
+      return fn(KTile<16, T>());
     default:
       return other;
   }

@@ -146,7 +146,7 @@ void shape4(const char* name, Bufs& u, int B, int D, int M, int L) {
   const float ms = time_ms([&] {
     launch_kappa_moments<C>(u.x, u.z, u.kinv, u.mu, u.sigma, u.params, u.kappa, u.a, u.b, B, D, M, L, 0, 0);
   });
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kappa_moments_batched<C>, C::THREADS, km_smem<C>(M));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kappa_moments_batched<C>, C::THREADS, rows_smem<C>(M));
   printf("kernel 4 shape %-40s %9.1f us at B=%d M=%d L=%d (blocks an SM %d; %s)\n", name, 1000 * ms, B, M, L, occ,
          cudaGetErrorString(cudaGetLastError()));
 }

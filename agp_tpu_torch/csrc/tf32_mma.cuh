@@ -1,7 +1,8 @@
 // The tensor-core and copy primitives that kernels 4-9 share on Hopper
 // (sm_90a): the 3xTF32 split of an FP32 operand (and kernel 9's
-// three-way split of one operand), the m16n8k8 TF32 mma.sync, and 16- or
-// 4-byte cp.async into shared memory with zero fill.
+// three-way split of one operand), the m16n8k8 TF32 mma.sync, the FP64
+// mma.sync of kernels 4-7's float64 form, and 16-, 8- or 4-byte cp.async
+// into shared memory with zero fill.
 //
 // 3xTF32: x = hi + lo with hi = tf32(x) (to nearest) and lo = x - hi, which
 // the mma reads truncated to TF32, so that hi and lo keep 2 x 11
@@ -11,6 +12,10 @@
 // to the largest and truncates, so its callers start every 8-deep step
 // from a zero accumulator (mma_tf32_first) and add the step to their
 // running sums in FP32, round to nearest (stats_tc.cuh, pair_core.cuh).
+//
+// FP64: an FP64 mma (DMMA) is IEEE double with fused multiply-add, so a
+// double operand takes one pass, unsplit, and the accumulator carries the
+// whole sum (mma_f64_16x8).
 // Everything is in an anonymous namespace: each source that includes this
 // header compiles its own copy.
 #pragma once
@@ -19,16 +24,27 @@
 
 namespace {
 
+// the FMA and the max of an element type (float or double), with no
+// promotion of a float to double
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float fmax_t(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmax_t(double a, double b) { return fmax(a, b); }
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// cp.async of `bytes` (4 or 16) with the source's first `src_bytes` copied
-// and the rest of the destination zero-filled
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, int src_bytes) {
+// cp.async of `bytes` (4, 8 or 16) with the source's first `src_bytes`
+// copied and the rest of the destination zero-filled
+template <int BYTES, class T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, int src_bytes) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async copies 4, 8 or 16 bytes");
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                  "r"(src_bytes) : "memory");
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
@@ -157,6 +173,29 @@ __device__ __forceinline__ void mma_4xtf32_grid(float (&acc)[MI][NJ][4], const u
     for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][nj][e] += d[mi][nj][e];
+}
+
+// c += a b over a 16 x 8 x 4 FP64 tile as two m8n8k4 mma.sync (sm_80 and
+// later), in the fragment layout of the m16n8k8 TF32 tile: a[0] is A's
+// (gid, tig), a[1] its (gid + 8, tig); b is B's (tig, gid); c[0], c[1]
+// are C's row gid, columns 2 tig and 2 tig + 1, c[2], c[3] row gid + 8.
+__device__ __forceinline__ void mma_f64_16x8(double (&c)[4], const double (&a)[2], double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%4}, {%6}, {%0, %1};\n"
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%2, %3}, {%5}, {%6}, {%2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b));
+}
+
+// acc[mi][nj] += a[mi] b[nj] in FP64 over an MI x NJ grid of 16 x 8 x 4
+// tiles, one pass each, the grid's tiles in turn
+template <int MI, int NJ>
+__device__ __forceinline__ void mma_f64_grid(double (&acc)[MI][NJ][4], const double (&a)[MI][2],
+                                             const double (&b)[NJ]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) mma_f64_16x8(acc[mi][nj], a[mi], b[nj]);
 }
 
 }  // namespace

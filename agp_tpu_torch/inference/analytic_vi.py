@@ -23,7 +23,8 @@ Matern kernel (``kernels.FUSED_KINDS``); each function of
 version on a CPU tensor:
 
 * fused when it fits: when ``cuda_kernels.fused_fits`` holds for the
-  model's (latents, D, M) (M <= 128, any D), an unweighted batch takes
+  model's (latents, D, M) and dtype (float32, M <= 128, any D), an
+  unweighted batch takes
   one fused statistics pass: ``fused_cavi_stats`` for the eight
   single-latent likelihoods it covers, ``fused_cavi_stats_multiclass``
   for the logistic-softmax one, ``fused_cavi_stats_het`` for the
@@ -37,7 +38,12 @@ version on a CPU tensor:
     ``fused_kappa_moments_batched`` (kappa, mf, vf) and
     ``apply_natural_gradient`` ``cavi_stats_batched``.
   So do every row-weighted batch, ``elbo`` and the hyperparameter step,
-  whose gradient runs through the kappa kernel's ``autograd.Function``.
+  whose gradient runs through the kappa kernel's ``autograd.Function``,
+  and every float64 model on the card: the fused passes are float32-only,
+  and kernels 4-7 take float64 in a form of their own (the launch counts
+  show which ran: ``launches`` or ``launches_f64``).  On the CPU the
+  wrappers run their plain versions in any dtype, and a float64 model
+  takes the float32 route (``_route_dtype``).
 
 Any other kernel (a sum, a product, a kernel over transformed inputs, the
 rest of ``kernels.py``) takes the reference's plain branch: its own gram
@@ -222,14 +228,26 @@ def _fused_lik_spec(lik):
     return None
 
 
+def _route_dtype(model):
+    """The dtype the fused dispatch is decided for: the model's on a CUDA
+    device, where the fused kernels 1-3 take float32 alone (a float64
+    model there takes the split pairs, kernels 4-7's float64 form);
+    float32 on the CPU, where every wrapper runs its plain version in any
+    dtype, so that a float64 CPU run replays the card's float32 route (the
+    port's parity tests against the reference)."""
+    return model.Z.dtype if model.Z.device.type == "cuda" else torch.float32
+
+
 def _fused_spec(model):
     """(kind, lik, p0, p1, c_key) when the step takes the fused statistics
-    pass: single-latent sparse model, a shape within ``fused_fits``, a
-    kernel of ``FUSED_KINDS`` and a likelihood of ``_fused_lik_spec``.  No
-    other shape gate: the reference's were measured on a TPU."""
+    pass: single-latent sparse model, a shape and dtype within
+    ``fused_fits`` (``_route_dtype``: a float64 model on the card takes the
+    split pair), a kernel of ``FUSED_KINDS`` and a likelihood of
+    ``_fused_lik_spec``.  No other shape gate: the reference's were
+    measured on a TPU."""
     if model.n_latent != 1 or not model.is_sparse or model.is_online:
         return None
-    if not cuda_kernels.fused_fits(1, model.Z.shape[-1], model.n_inducing):
+    if not cuda_kernels.fused_fits(1, model.Z.shape[-1], model.n_inducing, _route_dtype(model)):
         return None
     kind = fused_kind(model.kernel)
     lik = _fused_lik_spec(model.likelihood)
@@ -241,15 +259,16 @@ def _fused_spec(model):
 def _fused_multi_kind(model, likelihood_type, n_latent_ok):
     """Kernel kind when the step takes a fused multi-latent pass: sparse,
     not online, not multi-output, a likelihood of ``likelihood_type``, a
-    shape within ``fused_fits``.  No other shape gate (the reference's were
-    measured on a TPU)."""
+    shape and dtype within ``fused_fits`` (``_route_dtype``: a float64
+    model on the card takes the batched pair).  No other shape gate (the
+    reference's were measured on a TPU)."""
     if (
         n_latent_ok(model.n_latent)
         and model.is_sparse
         and not model.is_online
         and not model.is_multioutput
         and isinstance(model.likelihood, likelihood_type)
-        and cuda_kernels.fused_fits(model.n_latent, model.Z.shape[-1], model.n_inducing)
+        and cuda_kernels.fused_fits(model.n_latent, model.Z.shape[-1], model.n_inducing, _route_dtype(model))
     ):
         return fused_kind(model.kernel)
     return None
@@ -317,7 +336,8 @@ def variational_update(model, state: TrainState, x, y, w=None, fused=None):
     if fused and spec is None:
         raise ValueError(
             "no fused statistics kernel (kernel 1) takes this step: it needs one latent, a kernel of "
-            "FUSED_KINDS, a likelihood of its eight, M <= 128 and an unweighted batch; use fused=None or False"
+            "FUSED_KINDS, a likelihood of its eight, M <= 128, float32 on the card and an unweighted batch; use "
+            "fused=None or False"
         )
     if spec is not None:
         kind, lik_name, p0, p1, c_key = spec

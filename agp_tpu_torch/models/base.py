@@ -17,15 +17,24 @@ def check_implemented(likelihood, inference) -> None:
         )
 
 
+# the dtypes a model runs in on the card: float32 everywhere; float64 on
+# kernels 4-7's float64 form (a sparse model; the fused kernels 1-3 are
+# float32-only, so it takes the split pairs) and in the models that run no
+# kernel of the port (the exact GP, the VGP, the VStP, the MCGP and the
+# samplers), as the reference runs every model under x64
+CARD_DTYPES = (torch.float32, torch.float64)
+
+
 def check_card_dtype(device, dtype, what: str = "model") -> None:
-    """Refuse, when it is built, a model or data that no CUDA kernel of the
-    port takes: the kernels are float32-only (as the reference's Pallas
-    kernels are), so anything else on a CUDA device would raise at its
-    first step.  Raises ``TypeError`` naming the two ways out."""
-    if torch.device(device).type == "cuda" and dtype != torch.float32:
+    """Refuse, when it is built, a model or data on a CUDA device in a
+    dtype for which the port has no path there (float16, bfloat16: no
+    kernel of the port and none of its dense algebra takes them), which
+    would raise at its first step.  float32 and float64 pass
+    (``CARD_DTYPES``).  Raises ``TypeError`` naming the ways out."""
+    if torch.device(device).type == "cuda" and dtype not in CARD_DTYPES:
         raise TypeError(
-            f"the {what} is {dtype} on {device}, and the port's CUDA kernels take float32 only: "
-            "use float32 on the card, or run on the CPU "
+            f"the {what} is {dtype} on {device}, and the port runs float32 or float64 on the card: "
+            "use float32 or float64 there, or run on the CPU "
             '(CPU tensors, or agp_tpu_torch.config.set_default_device("cpu") for arrays without a device)'
         )
 

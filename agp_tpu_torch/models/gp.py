@@ -52,8 +52,8 @@ class GP(Params):
         sigma^2); ``optimiser`` learns the kernel's log parameters and the
         mean's ("default": ``adam(0.01)``, None: fixed).  X without a
         device goes to ``config.default_device()``, y to X's device in X's
-        dtype; X that is not float32 on a CUDA device raises
-        ``TypeError``."""
+        dtype; X on a CUDA device that is neither float32 nor float64 raises
+        ``TypeError`` (the GP runs no kernel of the port)."""
         if optimiser == "default":
             optimiser = adam(0.01)
         likelihood = GaussianLikelihood.create(noise, opt_noise=opt_noise)

@@ -48,8 +48,9 @@ class MCGP(Params):
         ``GibbsSampling()`` by default.  X without a device goes to
         ``config.default_device()``, y to X's device; the kernel's, the
         likelihood's and the mean's parameters to X's device and dtype.  X
-        that is not float32 on a CUDA device raises ``TypeError``, as for
-        the other models."""
+        on a CUDA device that is neither float32 nor float64 raises
+        ``TypeError``, as for the other models (the samplers run no kernel
+        of the port)."""
         inference = GibbsSampling() if inference is None else inference
         _check_ported(kernel, likelihood, mean, None)
         check_implemented(likelihood, inference)

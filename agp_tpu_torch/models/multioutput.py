@@ -95,8 +95,8 @@ class MOSVGP(Params):
         Raises ``ValueError`` for an inference that is not AnalyticVI, as
         the reference does, and on a CUDA device for an M beyond the
         moments kernel's range (kernel 4 for Q > 1, kernel 6 for Q = 1):
-        a MOVGP's M is its N.  A model that is not float32 on a CUDA device
-        raises ``TypeError``."""
+        a MOVGP's M is its N (float64 halves that range).  A model on a CUDA
+        device that is neither float32 nor float64 raises ``TypeError``."""
         if not isinstance(inference, AnalyticVI):
             raise ValueError("multi-output models support AnalyticVI only")
         if optimiser == "default":
@@ -111,7 +111,7 @@ class MOSVGP(Params):
         Q = n_latent
         Z = as_2d(Z)
         check_card_dtype(Z.device, Z.dtype)
-        _check_kernel_range(Z.device, Q, Z.shape[-2], kernel)
+        _check_kernel_range(Z.device, Q, Z.shape[-2], kernel, Z.dtype)
         to = dict(device=Z.device, dtype=Z.dtype)
         kernel, mean = prepare_components(kernel, likelihoods[0], ZeroMean() if mean is None else mean, Q)
         kernel, mean = kernel.to(**to), mean.to(**to)
@@ -160,21 +160,22 @@ class MOVGP(MOSVGP):
         return super().create(kernel, likelihoods, inference, as_2d(X), n_latent, **kw)
 
 
-def _check_kernel_range(device, Q: int, M: int, kernel):
+def _check_kernel_range(device, Q: int, M: int, kernel, dtype=torch.float32):
     """On a CUDA device, ``ValueError`` for an M beyond the moments kernel the
-    step launches (``cuda_kernels.kappa_max_m``: kernel 4 for several
-    latents, kernel 6 for one); the plain versions never stand in for it.
+    step launches in ``dtype`` (``cuda_kernels.kappa_max_m``: kernel 4 for
+    several latents, kernel 6 for one; float64's ceiling is about half
+    float32's); the plain versions never stand in for it.
     A kernel outside ``FUSED_KINDS`` forms kappa by plain products, and
     the statistics kernels 5 and 7 take any M: no limit then."""
     if torch.device(device).type != "cuda" or fused_kind(kernel) is None:
         return
     which, name = ("moments", "fused_kappa_moments_batched") if Q > 1 else ("single", "fused_kappa")
-    limit = cuda_kernels.kappa_max_m(which)
+    limit = cuda_kernels.kappa_max_m(which, dtype=dtype)
     if M > limit:
         raise ValueError(
-            f"a multi-output model with {Q} latent(s) on the card takes M <= {limit} inducing points (the CUDA "
-            f"{name}'s shared memory on an H100); got M={M} (a MOVGP's M is its N). Use a MOSVGP with fewer "
-            "inducing points, or the CPU"
+            f"a multi-output model with {Q} latent(s) on the card takes M <= {limit} inducing points in "
+            f"{str(dtype).removeprefix('torch.')} (the CUDA {name}'s shared memory on an H100); got M={M} (a "
+            "MOVGP's M is its N). Use a MOSVGP with fewer inducing points, or the CPU"
         )
 
 
@@ -347,7 +348,7 @@ def mo_init_state(model, X, ys=None) -> TrainState:
     """The initial TrainState of a multi-output model on X's device and in
     its dtype: one dict of local variables per task, A's optimiser state,
     the kernel matrices over Z.  Raises ``TypeError`` for a model or X
-    that is not float32 on a CUDA device."""
+    in a dtype the card has no path for (``base.check_card_dtype``)."""
     check_card_dtype(model.Z.device, model.Z.dtype)
     check_card_dtype(X.device, X.dtype, "data")
     dtype, device = X.dtype, X.device

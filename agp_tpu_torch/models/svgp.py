@@ -121,8 +121,10 @@ class SVGP(Params):
         the likelihood's and the mean's parameters are placed on Z's device
         and dtype.  Z given without a device (numpy, a list) goes to
         ``config.default_device()``: the CUDA card unless the CPU was
-        chosen.  A Z that is not float32 on a CUDA device raises
-        ``TypeError``: the CUDA kernels take float32 only.
+        chosen.  A Z on a CUDA device that is neither float32 nor float64
+        raises ``TypeError``; a float64 model there takes kernels 4-7's
+        float64 form (the split pairs: the fused kernels 1-3 are
+        float32-only).
 
         ``optimiser`` learns the kernel's (log) and the mean's parameters
         every ``atfrequency`` CAVI steps: "default" is the reference's
@@ -187,7 +189,8 @@ class VGP(Params):
         device; the kernel's, the likelihood's and the mean's parameters
         are placed on X's device and dtype.  Stochastic inference raises
         ``ValueError`` (a VGP uses all its data each step: use SVGP), X
-        that is not float32 on a CUDA device ``TypeError``; ``optimiser``
+        on a CUDA device that is neither float32 nor float64 ``TypeError``
+        (a VGP runs no kernel of the port); ``optimiser``
         as ``SVGP.create`` takes it."""
         if optimiser == "default":
             optimiser = adam(0.01)

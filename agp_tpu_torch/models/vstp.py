@@ -77,8 +77,9 @@ class VStP(Params):
     ):
         """Builds the model on (X, y) as ``VGP.create`` does, with the
         prior's degrees of freedom ``nu`` (> 1, else ``ValueError``).  X
-        without a device goes to ``config.default_device()``; a model that
-        is not float32 on a CUDA device raises ``TypeError``.  Stochastic
+        without a device goes to ``config.default_device()``; a model on a
+        CUDA device that is neither float32 nor float64 raises
+        ``TypeError`` (a VStP runs no kernel of the port).  Stochastic
         inference raises ``ValueError``: the reference's VStP takes it at
         ``create`` and then fails at its first step, whose minibatch meets
         the N x N prior."""

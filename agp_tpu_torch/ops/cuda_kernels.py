@@ -31,9 +31,13 @@ pass (``direct_stats``, ``two_factor_nt``; ``csrc/fused_variants.cu``,
 which runs the split pairs' device code) and the tile gather
 (``gather_row_tiles``; ``csrc/gather_tiles.cu``).  On a CPU tensor a
 wrapper runs its ``*_reference``, the same function in plain PyTorch (any
-float dtype).  On a CUDA tensor it launches its kernel (float32) or
-raises; there is no fallback.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+float dtype).  On a CUDA tensor it launches its kernel or raises; there is
+no fallback.  The kernels take float32; the split pairs (kernels 4-7) also
+take float64, in a form of their own (FP64 tensor-core tiles, the same
+sources), and the fused passes (kernels 1-3, ``fused_fits``) and the
+bench's kernels raise ``TypeError`` on it.  Each wrapper counts its
+float32 kernel's launches in ``<wrapper>.launches``, and kernels 4-7
+their float64 form's in ``<wrapper>.launches_f64``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``: one
@@ -91,7 +95,12 @@ _FEATURE_CHUNK = 8
 # warp columns (WARPS_N) and the columns of its output tiles (NT); the ring
 # holds _KAPPA_STAGES stages of KB rows of NT + 8 floats
 _KAPPA_TILES = {64: (16, 8, 256), 32: (16, 8, 256), 16: (8, 8, 128)}
+# the same of their float64 form (KTile<TB, double>), whose ring's rows are
+# NT + 4 doubles
+_KAPPA_TILES_F64 = {64: (16, 8, 128), 32: (16, 8, 128), 16: (8, 8, 128)}
 _KAPPA_STAGES = 3
+# the dtypes kernels 4-7 take on the card (the others: float32 alone)
+PAIR_DTYPES = (torch.float32, torch.float64)
 # rows of a stage of kernels 5 and 7 (KB in csrc/stats_tc.cuh): a chunk of
 # rows is a whole number of stages and, where B allows, _STATS_MIN_ROWS rows
 # or more, so that few rows do not spread over more partials than their
@@ -189,6 +198,12 @@ def _library() -> ctypes.CDLL:
     lib.agp_fused_kappa.restype = i
     lib.agp_cavi_stats.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.agp_cavi_stats.restype = i
+    # the float64 forms of kernels 4-7: the same signatures
+    for name in ("agp_kappa_moments_smem_bytes", "agp_fused_kappa_moments_batched", "agp_cavi_stats_tile",
+                 "agp_cavi_stats_blocks_per_sm", "agp_cavi_stats_batched", "agp_fused_kappa_smem_bytes",
+                 "agp_fused_kappa", "agp_cavi_stats"):
+        fn, fn64 = getattr(lib, name), getattr(lib, name + "_f64")
+        fn64.argtypes, fn64.restype = fn.argtypes, fn.restype
     lib.agp_fused_variant_smem_bytes.argtypes = [i, i, i]
     lib.agp_fused_variant_smem_bytes.restype = ctypes.c_size_t
     lib.agp_fused_variant_stats.argtypes = [p] * 19 + [i] * 9 + [p]
@@ -199,16 +214,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def fused_fits(n_latent: int, D: int, M: int) -> bool:
+def fused_fits(n_latent: int, D: int, M: int, dtype: torch.dtype = torch.float32) -> bool:
     """Whether the fused statistics kernels take a model of ``n_latent``
-    latents, D features and M inducing points: 1 <= M <= MAX_M and the
-    rows pass's shared memory within ``SMEM_OPTIN``.  Kernels 1-3 share
-    one row tile and its footprint, which neither D nor the latents enter:
-    the slab, the ring or the gram's staging, three row sums (a Python
-    mirror of ``agp_fused_cavi_smem_bytes`` and ``agp_multi_smem_bytes``,
-    ``pair_core.cuh::rows_smem``, which name this function: change them
-    together).  The same answer on the CPU and on the card."""
-    if D < 1 or not 1 <= M <= MAX_M:
+    latents, D features and M inducing points in ``dtype``: float32,
+    1 <= M <= MAX_M and the rows pass's shared memory within
+    ``SMEM_OPTIN``.  Kernels 1-3 share one row tile and its footprint,
+    which neither D nor the latents enter: the slab, the ring or the gram's
+    staging, three row sums (a Python mirror of ``agp_fused_cavi_smem_bytes``
+    and ``agp_multi_smem_bytes``, ``pair_core.cuh::rows_smem``, which name
+    this function: change them together).  They are float32-only, so a
+    float64 model on the card takes the split pairs (kernels 4-7;
+    ``analytic_vi._route_dtype``).  The same answer on the CPU and on the
+    card."""
+    if dtype != torch.float32 or D < 1 or not 1 <= M <= MAX_M:
         return False
     tb = _FUSED_TILE_ROWS
     ring = _KAPPA_STAGES * _FUSED_STAGE_ROWS * (MAX_M + 8)
@@ -216,45 +234,52 @@ def fused_fits(n_latent: int, D: int, M: int) -> bool:
     return 4 * words <= SMEM_OPTIN
 
 
-def kappa_smem_bytes(which: str, M: int, tile_rows: int) -> int:
+def kappa_smem_bytes(which: str, M: int, tile_rows: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory of kernel 4 (``which="moments"``) or kernel 6
-    (``"single"``) at M with row tiles of ``tile_rows`` (64, 32 or 16):
-    the [TB, M] slab (the gram; in kernel 4 kappa's rows after it), the
-    ring or the gram's staging of 8 features or more, whichever is larger,
-    and the row sums (kernel 4: three).  A Python copy of
-    ``agp_kappa_moments_smem_bytes`` and ``agp_fused_kappa_smem_bytes``
-    (each names this function): change them together."""
+    (``"single"``) at M with row tiles of ``tile_rows`` (64, 32 or 16), in
+    ``dtype`` (float32, or float64 for their float64 form): the [TB, M]
+    slab (the gram; in kernel 4 kappa's rows after it), the ring or the
+    gram's staging of 8 features or more, whichever is larger, and the row
+    sums (kernel 4: three), each an element of ``dtype``.  A Python copy of
+    ``agp_kappa_moments_smem_bytes`` and ``agp_fused_kappa_smem_bytes`` and
+    their ``_f64`` twins (each names this function): change them together."""
     if which not in ("moments", "single"):
         raise ValueError(f"which is 'moments' (kernel 4) or 'single' (kernel 6), got {which!r}")
-    stage_rows, warps_n, cols = _KAPPA_TILES[tile_rows]
-    ring = _KAPPA_STAGES * stage_rows * (cols + 8)
+    if dtype not in PAIR_DTYPES:
+        raise TypeError(f"kernels 4-7 take float32 or float64, got {dtype}")
+    f64 = dtype == torch.float64
+    stage_rows, warps_n, cols = (_KAPPA_TILES_F64 if f64 else _KAPPA_TILES)[tile_rows]
+    ring = _KAPPA_STAGES * stage_rows * (cols + (4 if f64 else 8))
     staging = _FEATURE_CHUNK * (tile_rows + M + 2)
     sums = (3 if which == "moments" else 1) * warps_n * tile_rows
-    return 4 * (tile_rows * (-(-M // 8) * 8 + 4) + max(ring, staging) + sums)
+    return (8 if f64 else 4) * (tile_rows * (-(-M // 8) * 8 + 4) + max(ring, staging) + sums)
 
 
-def kappa_tile_rows(which: str, M: int, limit: int = SMEM_OPTIN) -> int | None:
-    """The row tile kernel 4 (``"moments"``) or 6 (``"single"``) takes at M:
-    the largest of 64, 32 and 16 whose ``kappa_smem_bytes`` fits ``limit``
-    bytes (by default what a block may opt into on an H100), or None beyond
-    the kernel's range.  The same answer on the CPU and on the card."""
-    return next((t for t in _KAPPA_TILES if kappa_smem_bytes(which, M, t) <= limit), None)
+def kappa_tile_rows(which: str, M: int, limit: int = SMEM_OPTIN, dtype: torch.dtype = torch.float32) -> int | None:
+    """The row tile kernel 4 (``"moments"``) or 6 (``"single"``) takes at M
+    in ``dtype``: the largest of 64, 32 and 16 whose ``kappa_smem_bytes``
+    fits ``limit`` bytes (by default what a block may opt into on an
+    H100), or None beyond the kernel's range.  The same answer on the CPU
+    and on the card."""
+    return next((t for t in _KAPPA_TILES if kappa_smem_bytes(which, M, t, dtype) <= limit), None)
 
 
-def kappa_max_m(which: str, limit: int = SMEM_OPTIN) -> int:
+def kappa_max_m(which: str, limit: int = SMEM_OPTIN, dtype: torch.dtype = torch.float32) -> int:
     """The largest M kernel 4 (``"moments"``) or 6 (``"single"``) takes
-    within ``limit`` bytes of shared memory a block."""
+    within ``limit`` bytes of shared memory a block, in ``dtype``: on an
+    H100 2,392 and 2,406 in float32, 1,184 and 1,192 in float64 (its slab of
+    doubles)."""
     lo, hi = 0, 1 << 16  # kappa_smem_bytes grows with M
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if kappa_tile_rows(which, mid, limit) else (lo, mid)
+        lo, hi = (mid, hi) if kappa_tile_rows(which, mid, limit, dtype) else (lo, mid)
     return lo
 
 
 @_highest_precision
 def _kinv(L_invT: torch.Tensor) -> torch.Tensor:
-    """K^-1 = L^-T L^-1 from the stored triangular inverse, at full FP32,
-    outside the kernel (as the reference's ``_kinv``)."""
+    """K^-1 = L^-T L^-1 from the stored triangular inverse, at full FP32
+    (or in float64), outside the kernel (as the reference's ``_kinv``)."""
     return (L_invT @ L_invT.mT).contiguous()
 
 
@@ -397,33 +422,37 @@ def fused_cavi_stats_reference(
     return s1[0], S2[0], c, theta, mf[0], vf[0]
 
 
-def _device_scalar(v, device) -> torch.Tensor:
-    """A 0-d float32 tensor on ``device``: a 1-element tensor there as it
-    is, a Python number as ``_device_number``'s (no host-to-device copy, no
-    sync).  Every caller only reads it."""
+def _device_scalar(v, device, dtype=torch.float32) -> torch.Tensor:
+    """A 0-d tensor of ``dtype`` on ``device``: a 1-element tensor there
+    as it is, a Python number as ``_device_number``'s (no host-to-device
+    copy, no sync).  Every caller only reads it."""
     if isinstance(v, torch.Tensor):
         if v.device != device or v.numel() != 1:
             raise ValueError(f"scalar argument must be a 1-element tensor on {device}")
-        return v.reshape(()).to(torch.float32)
-    return _device_number(float(v), device)
+        return v.reshape(()).to(dtype)
+    return _device_number(float(v), device, dtype)
 
 
 @functools.lru_cache(maxsize=64)
-def _device_number(v: float, device: torch.device) -> torch.Tensor:
-    """The 0-d float32 tensor v on ``device``, made there once per value and
-    device: a constant argument (the jitter, an unused likelihood
-    parameter) then costs a step no launch."""
-    return torch.full((), v, dtype=torch.float32, device=device)
+def _device_number(v: float, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """The 0-d tensor v of ``dtype`` on ``device``, made there once per
+    value, device and dtype: a constant argument (the jitter, an unused
+    likelihood parameter) then costs a step no launch."""
+    return torch.full((), v, dtype=dtype, device=device)
 
 
-def _check_tensors(xb, tensors: dict):
-    """Device, float32, shape and contiguity of a CUDA kernel's tensor
-    arguments; ``tensors`` maps a name to (tensor, expected shape)."""
+def _check_tensors(xb, tensors: dict, dtypes=(torch.float32,)):
+    """Device, dtype (one of ``dtypes``, and the first tensor's), shape and
+    contiguity of a CUDA kernel's tensor arguments; ``tensors`` maps a name
+    to (tensor, expected shape), xb first."""
     for name, (t, shape) in tensors.items():
         if t.device != xb.device:
             raise ValueError(f"{name} is on {t.device}, xb on {xb.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 on CUDA, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{name} must be {names} on CUDA, got {t.dtype}")
+        if t.dtype != xb.dtype:
+            raise TypeError(f"{name} is {t.dtype} where {next(iter(tensors))} is {xb.dtype}: the kernel takes one dtype")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
@@ -582,13 +611,13 @@ def _check_multi_args(name, xb, Z, mu, Sigma, per_row: dict, kind):
 
 
 def _multi_params(xb, L, jitt, rho, lam, ls, var):
-    """The kernels' float32 scalar buffer on the device: (jitter, rho, lam,
-    var [L], ls [L, D]), made there with no host read."""
+    """The kernels' scalar buffer on the device, in xb's dtype: (jitter,
+    rho, lam, var [L], ls [L, D]), made there with no host read."""
     dev, D = xb.device, xb.shape[1]
-    f32 = dict(dtype=torch.float32, device=dev)
-    ls2 = torch.broadcast_to(torch.as_tensor(ls, **f32).reshape(L, -1), (L, D))
-    var = torch.broadcast_to(torch.as_tensor(var, **f32).reshape(-1), (L,))
-    head = torch.stack([_device_scalar(v, dev) for v in (jitt, rho, lam)])
+    like = dict(dtype=xb.dtype, device=dev)
+    ls2 = torch.broadcast_to(torch.as_tensor(ls, **like).reshape(L, -1), (L, D))
+    var = torch.broadcast_to(torch.as_tensor(var, **like).reshape(-1), (L,))
+    head = torch.stack([_device_scalar(v, dev, xb.dtype) for v in (jitt, rho, lam)])
     return torch.cat([head, var, ls2.reshape(-1)])
 
 
@@ -712,6 +741,20 @@ def _cuda_error(name, lib, err):
     return RuntimeError(f"{name} launch failed: CUDA error {err} ({lib.agp_cuda_error_string(err).decode()})")
 
 
+def _pair_fn(lib, name, dtype):
+    """The C entry point ``name`` of kernels 4-7, or its float64 form's."""
+    return getattr(lib, name + "_f64" if dtype == torch.float64 else name)
+
+
+def _count(wrapper, dtype):
+    """One more launch of kernel 4-7's float32 kernel, or of its float64
+    form (``launches_f64``)."""
+    if dtype == torch.float64:
+        wrapper.launches_f64 += 1
+    else:
+        wrapper.launches += 1
+
+
 @functools.lru_cache(maxsize=None)
 def _smem_limit(device_index: int) -> int:
     """Shared memory a block may opt into on the card (bytes), read once a
@@ -720,15 +763,17 @@ def _smem_limit(device_index: int) -> int:
     return getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
 
 
-def _kappa_tile(which, name, M, dev):
-    """Kernel 4's or 6's row tile at M on the card (``kappa_tile_rows``
-    with its opt-in limit), or ValueError beyond its shared memory."""
+def _kappa_tile(which, name, M, dev, dtype):
+    """Kernel 4's or 6's row tile at M in ``dtype`` on the card
+    (``kappa_tile_rows`` with its opt-in limit), or ValueError beyond its
+    shared memory, which states the ceiling in that dtype."""
     limit = _smem_limit(dev.index)
-    tb = kappa_tile_rows(which, M, limit)
+    tb = kappa_tile_rows(which, M, limit, dtype)
     if tb is None:
+        what = str(dtype).removeprefix("torch.")
         raise ValueError(
-            f"the CUDA {name} at M={M} needs {kappa_smem_bytes(which, M, 16)} bytes of shared memory; this card "
-            f"allows {limit} per block (M <= {kappa_max_m(which, limit)})"
+            f"the CUDA {name} at M={M} in {what} needs {kappa_smem_bytes(which, M, 16, dtype)} bytes of shared "
+            f"memory; this card allows {limit} per block (M <= {kappa_max_m(which, limit, dtype)} in {what})"
         )
     return tb
 
@@ -740,27 +785,28 @@ def _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
     _check_kind(name, kind)
     B, D = X.shape
     L, M = Z.shape[0], Z.shape[1]
-    _check_tensors(X, {"X": (X, (B, D)), "Z": (Z, (L, M, D)), "mu": (mu, (L, M)), "Sigma": (Sigma, (L, M, M))})
+    _check_tensors(X, {"X": (X, (B, D)), "Z": (Z, (L, M, D)), "mu": (mu, (L, M)), "Sigma": (Sigma, (L, M, M))},
+                   PAIR_DTYPES)
     if B < 1 or D < 1 or L < 1 or M < 1:
         raise ValueError(f"the CUDA {name} takes B, D, L, M >= 1; got B={B}, D={D}, L={L}, M={M}")
     if L_invT.device != X.device or tuple(L_invT.shape) != (L, M, M):
         raise ValueError(f"L_invT must be [{L}, {M}, {M}] on {X.device}")
-    dev = X.device
+    dev, dtype = X.device, X.dtype
     lib = _library()
-    tb = _kappa_tile("moments", name, M, dev)
+    tb = _kappa_tile("moments", name, M, dev, dtype)
     params = _multi_params(X, L, jitt, 0.0, 0.0, ls2, var)
-    kinv = _kinv(L_invT.to(torch.float32))
-    f32 = dict(dtype=torch.float32, device=dev)
-    kappa = torch.empty((L, B, M), **f32)
-    mf, vf = torch.empty((L, B), **f32), torch.empty((L, B), **f32)
+    kinv = _kinv(L_invT.to(dtype))
+    like = dict(dtype=dtype, device=dev)
+    kappa = torch.empty((L, B, M), **like)
+    mf, vf = torch.empty((L, B), **like), torch.empty((L, B), **like)
     with torch.cuda.device(dev):
-        err = lib.agp_fused_kappa_moments_batched(
+        err = _pair_fn(lib, "agp_fused_kappa_moments_batched", dtype)(
             *(t.data_ptr() for t in (X, Z, kinv, mu, Sigma, params, kappa, mf, vf)),
             B, D, M, L, KINDS.index(kind), tb, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise _cuda_error(name, lib, err)
-    fused_kappa_moments_batched.launches += 1
+    _count(fused_kappa_moments_batched, dtype)
     return kappa, mf, vf
 
 
@@ -804,8 +850,11 @@ def fused_kappa_moments_batched(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rb
     CUDA tensor launches the kernel (float32, any L, B, D >= 1 and M up to
     ``kappa_max_m("moments")``, 2,392 on an H100; kappa and kappa Sigma in
     3xTF32 on the tensor cores, ``csrc/batched_pair.cu``) and adds one to
-    ``fused_kappa_moments_batched.launches``; its backward runs the plain
-    version's vjp."""
+    ``fused_kappa_moments_batched.launches``; float64 tensors launch its
+    float64 form (M up to ``kappa_max_m("moments", dtype=torch.float64)``,
+    1,184 on an H100; FP64 tensor-core tiles) and add one to
+    ``fused_kappa_moments_batched.launches_f64``.  Its backward runs the
+    plain version's vjp."""
     if X.device.type == "cpu":
         return fused_kappa_moments_batched_reference(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind)
     if X.device.type != "cuda":
@@ -820,6 +869,7 @@ def fused_kappa_moments_batched(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rb
 
 
 fused_kappa_moments_batched.launches = 0
+fused_kappa_moments_batched.launches_f64 = 0
 
 
 def _stats_plan(B: int, M: int, L: int, slots: int, tile: int) -> tuple[int, int]:
@@ -838,34 +888,36 @@ def _stats_plan(B: int, M: int, L: int, slots: int, tile: int) -> tuple[int, int
 
 
 @functools.lru_cache(maxsize=None)
-def _stats_slots(device_index: int) -> int:
-    """Blocks of kernels 5 and 7 that the card holds at once (occupancy
-    API x SMs)."""
+def _stats_slots(device_index: int, dtype=torch.float32) -> int:
+    """Blocks of kernels 5 and 7 (of their float64 form for ``dtype``
+    float64) that the card holds at once (occupancy API x SMs)."""
     with torch.cuda.device(device_index):
-        per_sm = _library().agp_cavi_stats_blocks_per_sm()
+        per_sm = _pair_fn(_library(), "agp_cavi_stats_blocks_per_sm", dtype)()
         if per_sm < 1:
             raise RuntimeError("the CUDA statistics kernel fits no SM of this card")
         return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _stats_launch(name, lib_fn, kappa, g, theta, L):
-    """Kernels 5 and 7's statistics of kappa [L, B, M] (``lib_fn`` the
-    batched C entry point, L latents) or of kappa [B, M] (kernel 7's, one
-    latent), g and theta of kappa's leading shape: checks, the chunk plan
-    (``_stats_plan``), the scratch, the launch.  Returns (s1, S2) of the
-    leading shape."""
+def _stats_launch(name, kappa, g, theta, L):
+    """Kernels 5 and 7's statistics of kappa [L, B, M] (the batched C entry
+    point, L latents) or of kappa [B, M] (kernel 7's, one latent), g and
+    theta of kappa's leading shape, float32 or float64 (the entry point's
+    float64 form): checks, the chunk plan (``_stats_plan``), the scratch,
+    the launch.  Returns (s1, S2) of the leading shape."""
     lead = tuple(kappa.shape[:-1])
     B, M = lead[-1], kappa.shape[-1]
-    _check_tensors(kappa, {"kappa": (kappa, lead + (M,)), "g": (g, lead), "theta": (theta, lead)})
+    _check_tensors(kappa, {"kappa": (kappa, lead + (M,)), "g": (g, lead), "theta": (theta, lead)}, PAIR_DTYPES)
     if B < 1 or M < 1 or L < 1:
         raise ValueError(f"the CUDA {name} takes L, B, M >= 1; got L={L}, B={B}, M={M}")
-    dev = kappa.device
+    dev, dtype = kappa.device, kappa.dtype
     lib = _library()
-    nchunks, rows = _stats_plan(B, M, L, _stats_slots(dev.index), lib.agp_cavi_stats_tile())
-    f32 = dict(dtype=torch.float32, device=dev)
-    s1_part, s2_part = torch.empty((L, nchunks, M), **f32), torch.empty((L, nchunks, M, M), **f32)
-    s1, S2 = torch.empty(lead[:-1] + (M,), **f32), torch.empty(lead[:-1] + (M, M), **f32)
+    tile = _pair_fn(lib, "agp_cavi_stats_tile", dtype)()
+    nchunks, rows = _stats_plan(B, M, L, _stats_slots(dev.index, dtype), tile)
+    like = dict(dtype=dtype, device=dev)
+    s1_part, s2_part = torch.empty((L, nchunks, M), **like), torch.empty((L, nchunks, M, M), **like)
+    s1, S2 = torch.empty(lead[:-1] + (M,), **like), torch.empty(lead[:-1] + (M, M), **like)
     ints = ((B, M, L) if len(lead) == 2 else (B, M)) + (nchunks, rows)
+    lib_fn = _pair_fn(lib, "agp_cavi_stats_batched" if len(lead) == 2 else "agp_cavi_stats", dtype)
     with torch.cuda.device(dev):
         err = lib_fn(*(t.data_ptr() for t in (kappa, g, theta, s1_part, s2_part, s1, S2)), *ints,
                      torch.cuda.current_stream(dev).cuda_stream)
@@ -882,19 +934,22 @@ def cavi_stats_batched(kappa, g, theta):
     A CPU tensor runs :func:`cavi_stats_batched_reference`.  A CUDA tensor
     launches the kernel (float32, any L, B, M >= 1; 3xTF32 tensor-core
     tiles over S2's upper triangle, ``csrc/stats_tc.cuh``) and adds one to
-    ``cavi_stats_batched.launches``.  S2 comes out exactly symmetric."""
+    ``cavi_stats_batched.launches``; float64 tensors launch its float64
+    form (FP64 tensor-core tiles) and add one to
+    ``cavi_stats_batched.launches_f64``.  S2 comes out exactly symmetric."""
     if kappa.device.type == "cpu":
         return cavi_stats_batched_reference(kappa, g, theta)
     if kappa.device.type != "cuda":
         raise ValueError(f"cavi_stats_batched runs on CPU or CUDA tensors, got {kappa.device}")
     if kappa.ndim != 3:
         raise ValueError(f"kappa must be [L, B, M], got shape {tuple(kappa.shape)}")
-    out = _stats_launch("cavi_stats_batched", _library().agp_cavi_stats_batched, kappa, g, theta, kappa.shape[0])
-    cavi_stats_batched.launches += 1
+    out = _stats_launch("cavi_stats_batched", kappa, g, theta, kappa.shape[0])
+    _count(cavi_stats_batched, kappa.dtype)
     return out
 
 
 cavi_stats_batched.launches = 0
+cavi_stats_batched.launches_f64 = 0
 
 
 # ------------------------------------------------ the single-latent split pair
@@ -922,23 +977,23 @@ def _fused_kappa_launch(X, Z, kinv, ls, var, jitt, kind):
     _check_kind(name, kind)
     B, D = X.shape
     M = Z.shape[0]
-    _check_tensors(X, {"X": (X, (B, D)), "Z": (Z, (M, D)), "K^-1": (kinv, (M, M))})
+    _check_tensors(X, {"X": (X, (B, D)), "Z": (Z, (M, D)), "K^-1": (kinv, (M, M))}, PAIR_DTYPES)
     if B < 1 or D < 1 or M < 1:
         raise ValueError(f"the CUDA {name} takes B, D, M >= 1; got B={B}, D={D}, M={M}")
-    dev = X.device
+    dev, dtype = X.device, X.dtype
     lib = _library()
-    tb = _kappa_tile("single", name, M, dev)
+    tb = _kappa_tile("single", name, M, dev, dtype)
     params = _multi_params(X, 1, jitt, 0.0, 0.0, ls, var)
-    f32 = dict(dtype=torch.float32, device=dev)
-    kappa, ktilde = torch.empty((B, M), **f32), torch.empty((B,), **f32)
+    like = dict(dtype=dtype, device=dev)
+    kappa, ktilde = torch.empty((B, M), **like), torch.empty((B,), **like)
     with torch.cuda.device(dev):
-        err = lib.agp_fused_kappa(
+        err = _pair_fn(lib, "agp_fused_kappa", dtype)(
             *(t.data_ptr() for t in (X, Z, kinv, params, kappa, ktilde)),
             B, D, M, KINDS.index(kind), tb, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise _cuda_error(name, lib, err)
-    fused_kappa.launches += 1
+    _count(fused_kappa, dtype)
     return kappa, ktilde
 
 
@@ -969,10 +1024,12 @@ def fused_kappa(X, Z, L_invT, lengthscale, variance, jitt, kind="rbf"):
     A CPU tensor runs :func:`fused_kappa_reference`.  A CUDA tensor launches
     the kernel (float32, any B, D >= 1, M up to ``kappa_max_m("single")``,
     2,406 on an H100; kappa in 3xTF32 on the tensor cores,
-    ``csrc/kappa_single.cu``) and adds one to
-    ``fused_kappa.launches``; ls, var and the jitter reach it in a device
-    buffer, so a changing lengthscale costs no host read.  Its backward runs
-    the plain version's vjp."""
+    ``csrc/kappa_single.cu``) and adds one to ``fused_kappa.launches``;
+    float64 tensors launch its float64 form (M up to ``kappa_max_m("single",
+    dtype=torch.float64)``, 1,192 on an H100; FP64 tensor-core tiles) and
+    add one to ``fused_kappa.launches_f64``.  ls, var and the jitter reach
+    it in a device buffer, so a changing lengthscale costs no host read.
+    Its backward runs the plain version's vjp."""
     if X.device.type == "cpu":
         return fused_kappa_reference(X, Z, L_invT, lengthscale, variance, jitt, kind)
     if X.device.type != "cuda":
@@ -988,6 +1045,7 @@ def fused_kappa(X, Z, L_invT, lengthscale, variance, jitt, kind="rbf"):
 
 
 fused_kappa.launches = 0
+fused_kappa.launches_f64 = 0
 
 
 @_highest_precision
@@ -1005,17 +1063,19 @@ def cavi_stats(kappa, g, theta):
     A CPU tensor runs :func:`cavi_stats_reference`.  A CUDA tensor launches
     the kernel (float32, any B, M >= 1: kernel 5's 3xTF32 tensor-core
     tiles with one latent, its partial sums added in a fixed order, no
-    atomics) and adds one to ``cavi_stats.launches``.  S2 comes out exactly
-    symmetric."""
+    atomics) and adds one to ``cavi_stats.launches``; float64 tensors
+    launch its float64 form (kernel 5's FP64 tiles) and add one to
+    ``cavi_stats.launches_f64``.  S2 comes out exactly symmetric."""
     if kappa.device.type == "cpu":
         return cavi_stats_reference(kappa, g, theta)
     if kappa.device.type != "cuda":
         raise ValueError(f"cavi_stats runs on CPU or CUDA tensors, got {kappa.device}")
     if kappa.ndim != 2:
         raise ValueError(f"kappa must be [B, M], got shape {tuple(kappa.shape)}")
-    out = _stats_launch("cavi_stats", _library().agp_cavi_stats, kappa, g, theta, 1)
-    cavi_stats.launches += 1
+    out = _stats_launch("cavi_stats", kappa, g, theta, 1)
+    _count(cavi_stats, kappa.dtype)
     return out
 
 
 cavi_stats.launches = 0
+cavi_stats.launches_f64 = 0

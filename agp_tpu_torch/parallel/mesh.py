@@ -358,7 +358,7 @@ def sharded_fused_svi_step(mesh: Mesh, model_template, batch_per_device: int, n_
     if analytic_vi._fused_spec(model_template) is None:
         raise ValueError(
             "no fused statistics kernel (kernel 1) for this model: it needs one latent, a kernel of "
-            "FUSED_KINDS, a likelihood of its eight and M <= 128; use sharded_svi_step"
+            "FUSED_KINDS, a likelihood of its eight, M <= 128 and float32 on the card; use sharded_svi_step"
         )
     return sharded_svi_step(mesh, batch_per_device, n_pad, sampling, fused=True)
 

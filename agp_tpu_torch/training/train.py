@@ -43,9 +43,9 @@ def init_state(model, X=None, y=None) -> TrainState:
     """The initial TrainState, on X's device and in X's dtype (a VGP's, a
     VStP's and a GP's own data when X is None; a Student-t process's prior
     scale at one).  Raises ``TypeError`` for a model or
-    X that is not float32 on a CUDA device
-    (``models.base.check_card_dtype``), as ``SVGP.create`` does for a
-    model built there: this catches one moved to the card later."""
+    X on a CUDA device in a dtype the card has no path for (float16,
+    bfloat16: ``models.base.check_card_dtype``), as ``SVGP.create`` does
+    for a model built there: this catches one moved to the card later."""
     if isinstance(model, GP):
         return model.init_state()
     X = model.train_x if X is None else X

@@ -68,16 +68,21 @@ def _rm_init(params):
 
 
 def _rm_update(kappa, tau, updates, state):
-    scale = (tau + state.to(torch.float32)) ** (-kappa)
+    # float32's (tau + n)^-kappa correctly rounded: the power in float64,
+    # then rounded, which on the CPU equals torch's float32 power bit for
+    # bit, where a float32 power on the card rounds an ulp off it at some n
+    scale = ((tau + state.to(torch.float64)) ** (-kappa)).to(torch.float32)
     return tuple(-u * scale for u in updates), state + 1
 
 
 def robbins_monro(kappa: float = 0.51, tau: float = 1.0) -> GradientTransformation:
     """Robbins-Monro schedule: Delta * (tau + n)^-kappa, n the step count.
 
-    The scale is computed in float32 whatever the parameters' dtype, as the
-    reference does; a float64 scale would move float64 trajectories apart
-    from the reference's at about 1e-8."""
+    The scale is a float32 value whatever the parameters' dtype, as the
+    reference's is; a float64 scale would move float64 trajectories apart
+    from the reference's at about 1e-8.  It is the correctly rounded one
+    on every device, so that a float64 run on the card follows the CPU's
+    (the card's own float32 power moved them ~1e-8 apart by step 6)."""
     return GradientTransformation(_rm_init, partial(_rm_update, kappa, tau))
 
 

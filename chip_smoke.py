@@ -274,7 +274,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    model against the CPU's float64, utils.profiling.trace around 5
    iterations of path 42 (its trace names kernel 7), plot_gp and
    plot_multilatent on the card's models (Agg; where matplotlib is
-   installed), and agp_tpu_torch.examples.grand_tour on the card.
+   installed), and agp_tpu_torch.examples.grand_tour on the card;
+46. float64 on the card: kernels 4-7's float64 forms (FP64 tensor-core
+   tiles) against their plain versions in float64 on the same card
+   tensors, each output within max(F64_FACTOR times the plain version's
+   own card-vs-CPU float64 difference, F64_FLOOR) of its largest entry, at
+   the flagship's shape, logistic_m512_b65536, the ill-conditioned oracle
+   shapes at M=128 and M=512, the multiclass (K=3, B=8192) and
+   heteroscedastic (B=16,384) M=512 shapes (kernels 6-7 where one latent),
+   ragged B=300 at an odd M=129 with 1 and 3 latents and each Matern kind,
+   M=1,000 and M=1,184 (16-row tiles), a second call bit-equal, S2 exactly
+   symmetric, every launch in ``launches_f64``; each of the first six
+   shapes timed by CUDA events and device us beside its plain version,
+   its library call in float64 and the float32 kernel on the same inputs;
+47. float64 paths against the port's float64 run on the host's CPU from
+   the same draws, with exact launches of kernels 6 + 7 or 4 + 5 in
+   float64 and none of kernels 1-3: the flagship shape (10 steps, within
+   1e-8), path A with the default Adam (10 iterations, 1e-7), the M=512
+   multiclass oracle (K=3, 10 steps, 1e-8), the exact GP and the dense
+   VGPs at N=1,024 (1e-8, no launch);
+48. the drift (ROADMAP queue 3 item 3): the ten oracle paths at M=128 and
+   the pair's ten M=512 paths, 20 steps on the card in float64 and in
+   float32 and on the CPU in float32, each one's distance to the CPU's
+   float64 run (logged);
+49. the float64 flagship's and logistic_m512_b65536's steady iterations/s
+   and profiled idle share.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -331,7 +355,8 @@ world 1 in float64 on the host's CPU, no card needed: what SLICE_JK_FLOORS
 comes from), ``slice-jk-nccl`` (phases 40-41 over NCCL, one process on
 each card of a machine with several), ``slice-l`` (phases 42-45 alone),
 ``slice-l-cpu`` (paths 42-44, alrsvi and the AffineMean VGP in float64 on
-the host's CPU, no card needed: what SLICE_L_FLOORS comes from).
+the host's CPU, no card needed: what SLICE_L_FLOORS comes from),
+``float64`` (phases 46-49 alone, after the SASS and shared-memory checks).
 ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
@@ -506,18 +531,30 @@ def phase_build(ck):
 
 
 # the kernels that run on the tensor cores, by the name of their CUDA
-# function: every instance must hold TF32 mma instructions
+# function: every float instance must hold TF32 mma instructions, every
+# double instance (kernels 4-7's float64 form) FP64 ones (DMMA)
 TC_KERNELS = {"cavi_rows": "kernel 1", "latent_rows": "kernels 2-3", "kappa_moments_batched": "kernel 4",
               "stats_tc": "kernels 1-3, 5, 7 and 8-9", "kappa_single": "kernel 6", "variant_rows": "kernels 8-9"}
+# those with a float64 form
+F64_TC_KERNELS = ("kappa_moments_batched", "stats_tc", "kappa_single")
+
+
+def is_f64_instance(fn):
+    """Whether a mangled kernel name is a double instance: a TileShape of
+    doubles (kernels 4 and 6) or stats_tc<double, ...> (5 and 7)."""
+    import re
+
+    return bool(re.search(r"TileShapeI(?:Li\d+E)+dE", fn) or "stats_tcIdL" in fn)
 
 
 def check_tc_sass(lib_path):
-    """Kernels 1-9 run on the tensor cores: every instance of cavi_rows
-    (kernel 1), latent_rows (2-3), kappa_moments_batched (4), kappa_single
-    (6), stats_tc (5 and 7, and the statistics of 1-3 and 8-9) and
-    variant_rows (8-9, every form) in the built library holds TF32 HMMA (or
-    HGMMA) instructions, as ``cuobjdump -sass`` shows them, and each of the
-    six has one."""
+    """Kernels 1-9 run on the tensor cores: every float instance of
+    cavi_rows (kernel 1), latent_rows (2-3), kappa_moments_batched (4),
+    kappa_single (6), stats_tc (5 and 7, and the statistics of 1-3 and
+    8-9) and variant_rows (8-9, every form) in the built library holds TF32
+    HMMA (or HGMMA) instructions, and every double instance (kernels 4-7's
+    float64 form) FP64 DMMA ones, as ``cuobjdump -sass`` shows them; each
+    of the six has a float instance and kernels 4-7 a double one."""
     import re
     import shutil
 
@@ -532,24 +569,29 @@ def check_tc_sass(lib_path):
             name = line.split("Function :", 1)[1].strip()
             if own.search(name):
                 counts[name] = 0
-        elif name in counts and ("HMMA" in line and "TF32" in line or "HGMMA" in line):
+        elif name in counts and (("DMMA" in line) if is_f64_instance(name) else
+                                 ("HMMA" in line and "TF32" in line or "HGMMA" in line)):
             counts[name] += 1
-    missing = [k for k in TC_KERNELS if not any(own.search(n)[1] == k for n in counts)]
+    missing = [k for k in TC_KERNELS if not any(own.search(n)[1] == k and not is_f64_instance(n) for n in counts)]
+    missing += [f"{k} (float64)" for k in F64_TC_KERNELS
+                if not any(own.search(n)[1] == k and is_f64_instance(n) for n in counts)]
     if missing or not all(counts.values()):
-        raise AssertionError(f"a tensor-core kernel holds no TF32 tensor-core instruction in its SASS: {counts}, "
-                             f"no instance of {missing}")
+        raise AssertionError(f"a tensor-core kernel holds no tensor-core instruction of its type in its SASS: "
+                             f"{counts}, no instance of {missing}")
     for fn, n in sorted(counts.items()):
-        stats = re.search(r"stats_tcILb(\d)", fn)
+        f64 = is_f64_instance(fn)
+        stats = re.search(r"stats_tcI[fd]Lb(\d)", fn)
         tile = re.search(r"(cavi_rows|latent_rows|kappa_single|kappa_moments_batched|variant_rows)"
                          r"INS_9TileShapeILi(\d+)ELi(\d+)ELi(\d+)E", fn)
         if stats:
-            label = f"stats_tc<{'16-byte' if stats[1] == '1' else '4-byte'} copies>"
+            label = f"stats_tc<{'16-byte' if stats[1] == '1' else 'one-element'} copies>"
         elif tile:
             label = f"{tile[1]}<{tile[2]}-row tiles, {tile[3]} x {tile[4]} warps>"
         else:
             label = fn[:90]
         kernel = TC_KERNELS[own.search(fn)[1]]
-        log(f"  SASS: {label} ({kernel}; {fn[:40]}...): {n} TF32 HMMA/HGMMA")
+        what = "FP64 DMMA" if f64 else "TF32 HMMA/HGMMA"
+        log(f"  SASS: {label}{' float64' if f64 else ''} ({kernel}; {fn[:40]}...): {n} {what}")
 
 
 def kernel_inputs(b, m, device, seed=0):
@@ -950,17 +992,17 @@ def phase_multi_path(agt, ck, device, which):
     return launches, quality, ips
 
 
-def after_20(agt, model, X, y, draws):
-    """mu (and lambda, where the likelihood has one) after 20 steps of
-    ``model`` on (X, y) with the given draws, on X's device, as float64 on
-    the CPU."""
+def after_20(agt, model, X, y, draws, steps=20):
+    """mu (and lambda, where the likelihood has one) after 20 steps (or
+    ``steps``) of ``model`` on (X, y) with the given draws, on X's device,
+    as float64 on the CPU."""
     from agp_tpu_torch.training.train import vi_steps
 
     y_t, lik = model.likelihood.treat_labels(y)
     model = model.replace(likelihood=lik)
     y_t = y_t.to(device=X.device, dtype=X.dtype)
     state = agt.init_state(model, X, y_t)
-    model, state = vi_steps(model, state, X, y_t, 20, draws=draws.to(X.device))
+    model, state = vi_steps(model, state, X, y_t, steps, draws=draws.to(X.device))
     lam = getattr(model.likelihood, "lam", None)
     return state.mu.double().cpu(), None if lam is None else lam.double().cpu()
 
@@ -1305,15 +1347,21 @@ def phase_oracles(agt, ck, device, m=OM, floors=None, paths=None):
     return total, results
 
 
-def route_launches(steps, route, fused="fused_cavi_stats", hyper_steps=0):
+def route_launches(steps, route, fused="fused_cavi_stats", hyper_steps=0, f64=False):
     """Each kernel's launches in ``steps`` CAVI steps on ``route`` ("fused":
     kernel ``fused`` once a step; "single": kernels 6 and 7; "batched":
     kernels 4 and 5) and ``hyper_steps`` hyperparameter steps of one latent
-    (kernel 6's forward once each; the backward launches nothing)."""
+    (kernel 6's forward once each; the backward launches nothing); with
+    ``f64``, of kernels 4-7's float64 forms (a float64 model: the fused
+    kernels take float32 only)."""
     want = {"fused": {fused: steps}, "single": {"fused_kappa": steps, "cavi_stats": steps},
             "batched": {"fused_kappa_moments_batched": steps, "cavi_stats_batched": steps}}[route]
     if hyper_steps:
         want["fused_kappa"] = want.get("fused_kappa", 0) + hyper_steps
+    if f64:
+        if route == "fused":
+            raise ValueError("the fused kernels take float32 only")
+        want = {f"{name}_f64": n for name, n in want.items()}
     return want
 
 
@@ -1326,7 +1374,7 @@ def expect_launches(ck, label, want):
     """Fails unless the run just made launched each kernel as many times as
     ``want`` names (route_launches) and nothing else; adds them to
     LAUNCHES and returns their sum."""
-    counts = {name: wrapper(ck, name).launches for name in LAUNCH_COUNTERS}
+    counts = {name: launches_of(ck, name) for name in LAUNCH_COUNTERS}
     expected = {name: want.get(name, 0) for name in LAUNCH_COUNTERS}
     if counts != expected:
         raise AssertionError(f"{label}: launched {counts}, expected {expected}")
@@ -1460,9 +1508,11 @@ def plain_kernels(ck, names=("fused_cavi_stats",)):
 
 # the kernels of the split pairs: batched (4-5) and single-latent (6-7)
 SPLIT_PAIRS = ("fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats")
+# the kernels' launch counts: NAME is the float32 kernel's, NAME_f64 the
+# float64 form's of kernels 4-7 (``launch_count``)
 LAUNCH_COUNTERS = ("fused_cavi_stats", "fused_cavi_stats_multiclass", "fused_cavi_stats_het",
                    "fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats",
-                   "direct_stats", "two_factor_nt", "gather_row_tiles")
+                   "direct_stats", "two_factor_nt", "gather_row_tiles") + tuple(f"{n}_f64" for n in SPLIT_PAIRS)
 
 
 def wrapper(ck, name):
@@ -1476,9 +1526,21 @@ def wrapper(ck, name):
     raise KeyError(name)
 
 
+def launch_count(ck, name):
+    """(wrapper, attribute) of counter ``name`` of LAUNCH_COUNTERS: kernels
+    4-7's float64 forms count in their wrapper's ``launches_f64``."""
+    if name.endswith("_f64"):
+        return wrapper(ck, name.removesuffix("_f64")), "launches_f64"
+    return wrapper(ck, name), "launches"
+
+
+def launches_of(ck, name):
+    return getattr(*launch_count(ck, name))
+
+
 def reset_launches(ck):
     for name in LAUNCH_COUNTERS:
-        wrapper(ck, name).launches = 0
+        setattr(*launch_count(ck, name), 0)
 
 
 # -------------------------------------------- the batched pair's phases
@@ -1502,17 +1564,23 @@ def check_kappa_tiles(ck):
     own shared-memory functions of kernels 4 and 6 at every row tile, and
     so the wrapper's tile choice (kappa_tile_rows), on a grid of M."""
     lib, n = ck._library(), 0
-    grid = (1, 8, 64, 128, 129, 512, 680, 681, 696, 697, 700, 1392, 1393, 1408, 1409, 1680, 2158, 2392, 2393, 2406, 2407)
-    for which, fn in (("moments", lib.agp_kappa_moments_smem_bytes), ("single", lib.agp_fused_kappa_smem_bytes)):
-        for m in grid:
-            for tb in (64, 32, 16):
-                if fn(m, tb) != ck.kappa_smem_bytes(which, m, tb):
-                    raise AssertionError(f"kappa_smem_bytes({which!r}, {m}, {tb}) disagrees with {fn(m, tb)} bytes")
-                n += 1
-    tiles = {which: {m: ck.kappa_tile_rows(which, m) for m in (64, 512, 1680, 2158)} for which in ("moments", "single")}
-    log(f"kappa_smem_bytes agrees with the library's shared-memory functions at {n} (kernel, M, tile); row tiles "
-        f"(kernel 4, moments / kernel 6, single): {tiles}; largest M {ck.kappa_max_m('moments')} / "
-        f"{ck.kappa_max_m('single')}")
+    grid = (1, 8, 64, 128, 129, 320, 321, 336, 337, 512, 680, 681, 696, 697, 700, 1184, 1185, 1192, 1193, 1392, 1393,
+            1408, 1409, 1680, 2158, 2392, 2393, 2406, 2407)
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+        for which, fn in (("moments", getattr(lib, "agp_kappa_moments_smem_bytes" + suffix)),
+                          ("single", getattr(lib, "agp_fused_kappa_smem_bytes" + suffix))):
+            for m in grid:
+                for tb in (64, 32, 16):
+                    if fn(m, tb) != ck.kappa_smem_bytes(which, m, tb, dtype):
+                        raise AssertionError(f"kappa_smem_bytes({which!r}, {m}, {tb}, {dtype}) disagrees with "
+                                             f"{fn(m, tb)} bytes")
+                    n += 1
+        tiles = {which: {m: ck.kappa_tile_rows(which, m, dtype=dtype) for m in (64, 512, 1184, 1680, 2158)}
+                 for which in ("moments", "single")}
+        log(f"kappa_smem_bytes ({dtype}) agrees with the library's shared-memory functions; row tiles (kernel 4, "
+            f"moments / kernel 6, single): {tiles}; largest M {ck.kappa_max_m('moments', dtype=dtype)} / "
+            f"{ck.kappa_max_m('single', dtype=dtype)}")
+    log(f"kappa_smem_bytes: {n} (dtype, kernel, M, tile) checked")
 
 
 def check_variant_tiles(ck):
@@ -4836,8 +4904,8 @@ def softmax_forms_mode(agt, ck, device, reps=20):
         with softmax_ad_form(agt) if form == "ad" else contextlib.nullcontext():
             reset_launches(ck)
             ips = steady_rate(agt, model, state, X, y, torch.Generator(device=device).manual_seed(0))
-            launches = {k: wrapper(ck, k).launches / (30 + NUM_TIMED_STEPS) for k in LAUNCH_COUNTERS
-                        if wrapper(ck, k).launches}
+            launches = {k: launches_of(ck, k) / (30 + NUM_TIMED_STEPS) for k in LAUNCH_COUNTERS
+                        if launches_of(ck, k)}
             numerical_vi.mc_grads(lik, yb, mu, var, eps, 0.0)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -5708,7 +5776,7 @@ def jk_rank(rank, world, init, root, device, backend):
     mu, _ = agt.mo_predict_f(m, s, Xm[:MO_EVAL])
     res["mo_rmse"] = float(torch.sqrt(torch.mean((mu[0] - fm[:MO_EVAL]) ** 2)))
     seconds["seam_us"] = seam_us(mesh, device, calls=JK_SEAM_CALLS // 5)
-    counts = {name: wrapper(ck, name).launches for name in LAUNCH_COUNTERS}
+    counts = {name: launches_of(ck, name) for name in LAUNCH_COUNTERS}
     if rank == 0:
         torch.save({"res": {k: tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in v) if isinstance(v, tuple)
                             else v for k, v in res.items()}, "seconds": seconds}, os.path.join(root, "rank0.pt"))
@@ -6554,6 +6622,388 @@ def slice_l_cpu_mode(agt):
         log(f"{name} on the CPU, float64: {key} {r[key]:.5f}, finite {r['finite']}, {r['seconds']:.2f} s")
 
 
+# ------------------------------------------------- float64 on the card
+# kernels 4-7 in float64 against their plain version on the same card
+# inputs: each output within max(F64_FACTOR times the plain version's own
+# card-against-CPU float64 difference, F64_FLOOR) of its largest entry
+F64_FACTOR, F64_FLOOR = 10.0, 1e-12
+# the float64 paths on the card against the port's float64 CPU run from the
+# same draws (max |d mu| / max |mu|, and for the dense paths the learnt
+# parameter and the log-hyperparameters): CAVI steps, the default Adam
+F64_PATH_TOL, F64_HYPER_TOL = 1e-8, 1e-7
+F64_STEPS = 10
+# steps of the float64 rates (after F64_WARM)
+F64_TIMED_STEPS, F64_WARM = 200, 20
+# the H100's published FP64 peaks (SXM, NVIDIA's data sheet, dense): on the
+# tensor cores (DMMA) and outside them
+PEAK_FP64_TC_FLOPS, PEAK_FP64_FLOPS = 67e12, 34e12
+
+
+def f64_bound(tc_fmas, simt_fmas, nbytes):
+    """(ms, "operations" or "bytes"): the larger of tc_fmas at the FP64
+    tensor-core peak, simt_fmas at the FP64 one (another pipe) and nbytes
+    over the memory rate."""
+    ops_ms = max(2.0 * tc_fmas / PEAK_FP64_TC_FLOPS, 2.0 * simt_fmas / PEAK_FP64_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def f64_kappa_bound(b, d, m, n_latent, moments):
+    """Kernel 4's (moments) or 6's float64 form: kappa_bounds' function
+    bound with its products once at the FP64 tensor-core peak, the gram and
+    row sums at the FP64 one, and 8-byte elements."""
+    tc = n_latent * b * (m * m + (sym_fmas(m) if moments else 0))
+    simt = n_latent * b * (m * d + (3 if moments else 1) * m)
+    if moments:
+        nbytes = 8 * (b * d + n_latent * (m * d + 2 * m * m + d + 1 + m + b * m + 2 * b))
+    else:
+        nbytes = 8 * (b * d + m * d + m * m + d + 1 + b * m + b)
+    return f64_bound(tc, simt, nbytes)
+
+
+def f64_stats_bound(b, m, n_latent):
+    """Kernels 5 and 7's float64 form: S2's upper triangle once at the FP64
+    tensor-core peak, s1 at the FP64 one, 8-byte elements."""
+    return f64_bound(n_latent * b * sym_fmas(m), n_latent * b * m, 8 * n_latent * (b * m + 2 * b + m + m * m))
+
+
+def check_f64(label, names, got, card, cpu):
+    """Each float64 output of a kernel on the card against its plain version
+    on the same card tensors (``card``), within max(F64_FACTOR times the
+    plain version's own difference from its CPU run (``cpu``), F64_FLOOR),
+    all over the plain version's largest entry.  Returns {name: (abs
+    error, relative error, the plain version's card-vs-CPU difference)}."""
+    row = {}
+    for name, o, r, c in zip(names, got, card, cpu):
+        if o.dtype != torch.float64 or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"{label}: output {name} is {o.dtype} or not finite")
+        scale = max(float(r.abs().max()), 1e-300)
+        abs_err = float((o - r).abs().max())
+        noise = float((r.cpu() - c).abs().max()) / scale
+        tol = max(F64_FACTOR * noise, F64_FLOOR)
+        if abs_err / scale > tol:
+            raise AssertionError(f"{label}: {name} error {abs_err / scale:.3e} > {tol:.3e} ({F64_FACTOR:g} x the plain "
+                                 f"version's card-vs-CPU {noise:.3e}, floor {F64_FLOOR:g})")
+        row[name] = (abs_err, abs_err / scale, noise)
+    return row
+
+
+def f64_cases(device):
+    """(label, float32 inputs, one latent, timed) of each shape kernels 4-7
+    are held at in float64 (kernels 6-7 where one latent): the flagship
+    (B=4096, D=20, M=64), logistic_m512_b65536, the ill-conditioned oracle
+    shapes at M=128 and M=512 (B=8192, D=2, lengthscale 1), the multiclass
+    (K=3, B=8192) and heteroscedastic (B=16,384) M=512 shapes, all timed;
+    then ragged B=300 at an odd M=129 (one-element copies, scalar stores)
+    with 1 and 3 latents and each Matern kind, and the 16-row tiles at
+    M=1,000 and at kernel 4's float64 ceiling M=1,184; the float64 inputs
+    are these, cast."""
+    Xl, _ = big_logistic_data("cpu", n=LB)
+    Xf, _ = flagship_data("cpu", n=B)
+    Xo = oracle_data("studentt", "cpu")[0]
+    return [("flagship_m64_b4096", pair_inputs(Xf, B, M, 1, device), True, True),
+            ("logistic_m512_b65536", pair_inputs(Xl, LB, PM, 1, device), True, True),
+            ("oracle_m128_b8192", pair_inputs(Xo, OB, OM, 1, device, ls=1.0), True, True),
+            ("oracle_m512_b8192", pair_inputs(Xo, OB, PM, 1, device, ls=1.0), True, True),
+            ("multiclass_m512_b8192", pair_inputs(pair_mc_data("cpu")[0], PAIR_MC_B, PM, 3, device, ls=1.0), False,
+             True),
+            ("het_m512_b16384", pair_inputs(pair_het_data("cpu")[0], PAIR_HET_B, PM, 2, device, ls=1.0), False, True),
+            ("ragged_m129_L1", pair_inputs(Xl, 300, 129, 1, device, seed=1), True, False),
+            ("ragged_m129_L3", pair_inputs(Xl, 300, 129, 3, device, seed=3), False, False)] + [
+            (f"{k}_ragged_m129", pair_inputs(Xl, 300, 129, 1, device, kind=k), True, False) for k in MATERN_KINDS] + [
+            ("m1000_b700", pair_inputs(Xl, 700, 1000, 1, device), True, False),
+            ("m1184_b300", pair_inputs(Xl, 300, 1184, 1, device), True, False)]
+
+
+def f64_kernel_timing(ck, name, t32, t64, reps):
+    """A float64 kernel at one shape: kappa_timing's or stats_timing's
+    numbers on its float64 inputs (its ms by CUDA events beside its plain
+    version, its device us, the library call in float64: torch.matmul /
+    torch.bmm, cuBLAS on DMMA), and the float32 kernel's ms on the same
+    inputs in float32, in the same call."""
+    if name in ("fused_kappa", "fused_kappa_moments_batched"):
+        caller = call_k6 if name == "fused_kappa" else call_k4
+        r = kappa_timing(ck, name, t64, reps)
+        r["library_ms"], r["library_device_us"] = r.pop("products_ms"), r.pop("products_device_us")
+        r["float32_ms"] = cuda_ms(lambda: caller(getattr(ck, name), t32), reps)
+        return r
+    kappa64, g64, th64 = t64["kappa"], t64["g"], t64["theta"]
+    if name == "cavi_stats":
+        library = lambda: ((kappa64 * th64[:, None]).T @ kappa64, kappa64.T @ g64)  # noqa: E731
+    else:
+        library = lambda: (torch.bmm((kappa64 * th64[..., None]).mT, kappa64), torch.bmm(kappa64.mT, g64[..., None]))  # noqa: E731
+    r = stats_timing(ck, name, kappa64, g64, th64, reps, library)
+    fn = getattr(ck, name)
+    r["float32_ms"] = cuda_ms(lambda: fn(t32["kappa"], t32["g"], t32["theta"]), reps)
+    return r
+
+
+def phase_f64_kernels(ck, device):
+    """Phase 46: kernels 4-7's float64 forms against their plain versions
+    in float64 on the card at each case of f64_cases (``check_f64``), a
+    second call of each bit-equal and S2 exactly symmetric, each launch
+    counted in its wrapper's ``launches_f64`` and none in ``launches``;
+    then each timed case (``f64_kernel_timing``: CUDA events and device us,
+    beside the plain version, the library call in float64 and the float32
+    kernel).  Returns {kernel: {"worst": largest abs error, "rel": largest
+    relative error, "shapes": {label: timing}, "errors": {label: row}}}."""
+    names = {"fused_kappa_moments_batched": ("kappa", "mf", "vf"), "cavi_stats_batched": ("s1", "S2"),
+             "fused_kappa": ("kappa", "Ktilde"), "cavi_stats": ("s1", "S2")}
+    out = {k: {"worst": 0.0, "rel": 0.0, "shapes": {}, "errors": {}} for k in names}
+
+    def record(name, label, row):
+        out[name]["errors"][label] = {k: v[1] for k, v in row.items()}
+        out[name]["worst"] = max(out[name]["worst"], *(v[0] for v in row.values()))
+        out[name]["rel"] = max(out[name]["rel"], *(v[1] for v in row.values()))
+
+    for label, t32, single, timed in f64_cases(device):
+        t64 = to_float64(t32)
+        cpu64 = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in t64.items()}
+        reset_launches(ck)
+        calls = [("fused_kappa_moments_batched", call_k4, t64, cpu64)]
+        if single:
+            calls.append(("fused_kappa", call_k6, single_args(t64), single_args(cpu64)))
+        for name, caller, a, a_cpu in calls:
+            got = caller(getattr(ck, name), a)
+            torch.cuda.synchronize()
+            row_k = check_f64(f"{name} float64 {label}", names[name], got,
+                              caller(getattr(ck, name + "_reference"), a), caller(getattr(ck, name + "_reference"), a_cpu))
+            check_repeat(f"{name} float64 {label}", lambda: caller(getattr(ck, name), a), got)
+            record(name, label, row_k)
+            stats = "cavi_stats_batched" if name == "fused_kappa_moments_batched" else "cavi_stats"
+            kappa = got[0].contiguous()
+            g, th = (a["g"], a["theta"])
+            s_args = (kappa, g, th)
+            s_got = getattr(ck, stats)(*s_args)
+            torch.cuda.synchronize()
+            check_stats_repeat(f"{stats} float64 {label}", getattr(ck, stats), s_args, s_got)
+            plain = getattr(ck, stats + "_reference")
+            row = check_f64(f"{stats} float64 {label}", names[stats], s_got, plain(*s_args),
+                            plain(*(v.cpu() for v in s_args)))
+            record(stats, label, row)
+            log(f"float64 {name} + {stats} vs plain {label} (L={t64['Z'].shape[0] if name != 'fused_kappa' else 1}): "
+                + " ".join(f"{k}={v[1]:.2e} (plain card-vs-CPU {v[2]:.2e})" for k, v in {**row_k, **row}.items()))
+        want = {"fused_kappa_moments_batched_f64": 2, "cavi_stats_batched_f64": 2}
+        if single:
+            want.update({"fused_kappa_f64": 2, "cavi_stats_f64": 2})
+        counts = {n: launches_of(ck, n) for n in LAUNCH_COUNTERS}
+        if counts != {n: want.get(n, 0) for n in LAUNCH_COUNTERS}:
+            raise AssertionError(f"float64 {label}: launched {counts}, expected {want} (float64 forms only)")
+        reps = 5 if t32["X"].shape[0] > 20000 else 20
+        for name, caller, a, _ in calls if timed else ():
+            stats = "cavi_stats_batched" if name == "fused_kappa_moments_batched" else "cavi_stats"
+            kappa32 = caller(getattr(ck, name + "_reference"), t32 if name != "fused_kappa" else single_args(t32))[0]
+            kappa32 = kappa32.contiguous()
+            s32 = {"kappa": kappa32, "g": a["g"].float(), "theta": a["theta"].float()}
+            s64 = {"kappa": kappa32.double(), "g": a["g"], "theta": a["theta"]}
+            a32 = t32 if name != "fused_kappa" else single_args(t32)
+            r = f64_kernel_timing(ck, name, a32, a, reps)
+            rs = f64_kernel_timing(ck, stats, s32, s64, reps)
+            (n_lat, b_, m_), d_ = kappa32.reshape(-1, *kappa32.shape[-2:]).shape, a["X"].shape[1]
+            r["bound_ms"] = f64_kappa_bound(b_, d_, m_, n_lat, name != "fused_kappa")[0]
+            rs["bound_ms"] = f64_stats_bound(b_, m_, n_lat)[0]
+            out[name]["shapes"][label], out[stats]["shapes"][label] = r, rs
+            for k, rr in ((name, r), (stats, rs)):
+                log(f"  float64 {k} {label}: {rr['ms']:.4f} ms (float32 {rr['float32_ms']:.4f}), device "
+                    f"{rr['device_us']:.1f} us; plain {rr['plain_ms']:.4f}; library (float64) {rr['library_ms']:.4f} ms, "
+                    f"device {rr['library_device_us']:.1f} us; bound {rr['bound_ms']:.4f} ms")
+        del t64, cpu64
+    reset_launches(ck)
+    return out
+
+
+def f64_hyper_after(agt, model, X, y, draws, steps):
+    """mu and the log-hyperparameters after ``steps`` iterations of train
+    (a CAVI step each, a hyperparameter step after iterations 3..n-1) from
+    the given draws, as float64 on the CPU."""
+    model, state = agt.train(model, X, y, iterations=steps, draws=draws.to(X.device))
+    return state.mu.double().cpu(), log_hypers(model)
+
+
+def phase_f64_paths(agt, ck, device):
+    """Phase 47: float64 models on the card against the port's float64 run
+    on the host's CPU from the same draws, each with its exact launches
+    (kernels 6 + 7 or 4 + 5 in their float64 forms, no fused kernel):
+    the flagship shape (N=200,000, D=20, M=64, B=4096, block) at F64_STEPS
+    CAVI steps within F64_PATH_TOL; path A (the flagship with the default
+    Adam(0.01)) at F64_STEPS iterations within F64_HYPER_TOL (mu and the
+    log-hyperparameters); the M=512 multiclass oracle (K=3, B=8192) at
+    F64_STEPS steps through kernels 4 + 5 within F64_PATH_TOL; the exact GP
+    and the dense VGPs of phase 22 at N=1,024 (D_ITERS iterations, no
+    launch) within F64_PATH_TOL.  Returns {path: error}."""
+    errs = {}
+    gen = torch.Generator().manual_seed(1)
+    Xc, yc = (a.double() for a in flagship_data("cpu"))
+    draws = torch.randint(0, N // 64, (F64_STEPS, B // 64), generator=gen)
+    cpu = after_20(agt, flagship_model(agt, Xc), Xc, yc, draws, steps=F64_STEPS)
+    Xd, yd = Xc.to(device), yc.to(device)
+    reset_launches(ck)
+    card = after_20(agt, flagship_model(agt, Xd), Xd, yd, draws, steps=F64_STEPS)
+    torch.cuda.synchronize()
+    expect_launches(ck, "float64 flagship", route_launches(F64_STEPS, "single", f64=True))
+    errs["flagship"] = rel_err(card, cpu)
+    reset_launches(ck)
+    card_a = f64_hyper_after(agt, hyper_path(agt, Xd, "A"), Xd, yd, draws, F64_STEPS)
+    torch.cuda.synchronize()
+    expect_launches(ck, "float64 path A", route_launches(F64_STEPS, "single", hyper_steps=F64_STEPS - 3, f64=True))
+    cpu_a = f64_hyper_after(agt, hyper_path(agt, Xc, "A"), Xc, yc, draws, F64_STEPS)
+    errs["path A"] = max(float((card_a[0] - cpu_a[0]).abs().max() / cpu_a[0].abs().max()),
+                         float((card_a[1] - cpu_a[1]).abs().max()))
+    Xm, ym = pair_mc_data("cpu")
+    Xm = Xm.double()
+    draws = torch.randint(0, ON - PAIR_MC_B + 1, (F64_STEPS,), generator=gen)
+    cpu = after_20(agt, pair_multi_model(agt, Xm, "multiclass"), Xm, ym, draws, steps=F64_STEPS)
+    reset_launches(ck)
+    card = after_20(agt, pair_multi_model(agt, Xm.to(device), "multiclass"), Xm.to(device), ym.to(device), draws,
+                    steps=F64_STEPS)
+    torch.cuda.synchronize()
+    expect_launches(ck, "float64 multiclass M=512", route_launches(F64_STEPS, "batched", f64=True))
+    errs["multiclass M=512"] = rel_err(card, cpu)
+    for which in DENSE_PATHS:
+        Xc, _, yc = (a.double() for a in dense_data(which, DN, "cpu", seed=1))
+        reset_launches(ck)
+        card = dense_after(agt, which, Xc.to(device), yc.to(device))
+        torch.cuda.synchronize()
+        expect_launches(ck, f"float64 {which}", {})
+        errs[which] = triple_err(card, dense_after(agt, which, Xc, yc))
+    for path, err in errs.items():
+        tol = F64_HYPER_TOL if path == "path A" else F64_PATH_TOL
+        log(f"float64 {path}: card vs CPU (both float64, the same draws) {err:.3e} (bound {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"float64 {path}: card vs CPU {err:.3e} > {tol:g}")
+    return errs
+
+
+def phase_f64_drift(agt, ck, device):
+    """Phase 48 (ROADMAP queue 3 item 3): the ten oracle paths at M=128
+    (B=8192, phase 11's configuration) and the pair's ten M=512 paths at
+    B=PAIR_PARITY_B (phase 14's), 20 steps from the same draws, on the card
+    in float64 (kernels 6 + 7 or 4 + 5, exact launches) and in float32, and
+    on the CPU in float32 and float64: each one's distance to the CPU's
+    float64 run, max |d mu| / max |mu| (and |d lam| / lam), logged (the
+    float32 runs' includes the dtype-keyed jitter, 1e-3 against 1e-4).
+    Returns {path: (card float64, card float32, CPU float32)}."""
+    out = {}
+    draws = torch.randint(0, ON - OB + 1, (20,), generator=torch.Generator().manual_seed(1))
+    paths = [(f"oracle {lik}/{kernel} M={OM}", *oracle_data(lik, "cpu", seed=1)[:2],
+              lambda X, lik=lik, kernel=kernel: oracle_model(agt, X, lik, kernel), draws, "single")
+             for lik, kernel in single_paths()]
+    for name, Xc, yc, build, b in pair_parity_paths(agt, device):
+        pdraws = torch.randint(0, Xc.shape[0] - b + 1, (20,), generator=torch.Generator().manual_seed(1))
+        paths.append((name, Xc, yc, build, pdraws, "batched" if name.startswith(("multiclass", "het")) else "single"))
+    for name, Xc, yc, build, d, route in paths:
+        t0 = time.perf_counter()
+        X64, y64 = Xc.double(), yc.double()
+        cpu64 = after_20(agt, build(X64), X64, y64, d)
+        reset_launches(ck)
+        card64 = after_20(agt, build(X64.to(device)), X64.to(device), y64.to(device), d)
+        torch.cuda.synchronize()
+        expect_launches(ck, f"float64 {name}", route_launches(20, route, f64=True))
+        card32 = after_20(agt, build(Xc.to(device)), Xc.to(device), yc.to(device), d)
+        cpu32 = after_20(agt, build(Xc), Xc, yc, d)
+        reset_launches(ck)
+        out[name] = (rel_err(card64, cpu64), rel_err(card32, cpu64), rel_err(cpu32, cpu64))
+        log(f"drift {name} (20 steps) against the CPU's float64: card float64 {out[name][0]:.3e}, card float32 "
+            f"{out[name][1]:.3e}, CPU float32 {out[name][2]:.3e} ({time.perf_counter() - t0:.2f} s)")
+        if not out[name][0] < 1.0:
+            raise AssertionError(f"float64 {name}: the card's run is not near the CPU's ({out[name][0]:.3e})")
+    return out
+
+
+def phase_f64_rates(agt, ck, device):
+    """Phase 49: the float64 flagship (N=200,000, D=20, M=64, B=4096,
+    block) and logistic_m512_b65536 (N=500,000, D=20, M=512, B=65,536,
+    slice) on the card, F64_WARM steps through agp_tpu_torch.train with
+    their exact launches (kernels 6 + 7 a step), finite, then the steady
+    CAVI iterations/s over F64_TIMED_STEPS steps (host clock) and a
+    profiled window of 20 steps (wall, device busy, idle share).  Returns
+    {path: (it/s, profile_window's dict)}."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    out = {}
+    for name, data, build in (("flagship", flagship_data, flagship_model), ("logistic_m512_b65536", big_logistic_data,
+                                                                           big_logistic_model)):
+        X, y = (a.double() for a in data(device))
+        model = build(agt, X)
+        gen = torch.Generator(device=device).manual_seed(0)
+        reset_launches(ck)
+        model, state = agt.train(model, X, y, iterations=F64_WARM, generator=gen)
+        torch.cuda.synchronize()
+        expect_launches(ck, f"float64 {name} rate", route_launches(F64_WARM, "single", f64=True))
+        if not (bool(torch.isfinite(state.mu).all()) and bool(torch.isfinite(state.Sigma).all())):
+            raise AssertionError(f"float64 {name}: non-finite posterior")
+        steps = F64_TIMED_STEPS if name == "flagship" else F64_TIMED_STEPS // 4
+        t0 = time.perf_counter()
+        model, state = vi_steps(model, state, X, y, steps, generator=gen)
+        torch.cuda.synchronize()
+        ips = steps / (time.perf_counter() - t0)
+        p = profile_window(lambda: vi_steps(model, state, X, y, 20, generator=gen), 20)
+        reset_launches(ck)
+        log(f"float64 {name}: steady {ips:.2f} CAVI iterations/s over {steps} steps")
+        log_profile(f"float64 {name} profile", p, 6)
+        out[name] = (ips, p)
+        del X, y, model, state
+    return out
+
+
+def float64_mode(agt, ck, device):
+    """Phases 46-49 (``python3 chip_smoke.py float64``): kernels 4-7 in
+    float64 against their plain versions and timed, the float64 paths
+    against the CPU's float64 run, the drift of float32 and float64 from
+    it, the float64 rates.  Returns phase 46's and 49's results."""
+    kernels = timed_phase("float64 kernels 4-7", phase_f64_kernels, ck, device)
+    timed_phase("float64 paths", phase_f64_paths, agt, ck, device)
+    timed_phase("float64 drift", phase_f64_drift, agt, ck, device)
+    rates = timed_phase("float64 rates", phase_f64_rates, agt, ck, device)
+    return kernels, rates
+
+
+def f64_rows(kernels):
+    """The kernels line's rows of kernels 4-7's float64 forms, at
+    logistic_m512_b65536 (the float32 rows' main shape), each with its
+    ms, plain and library (float64 torch.matmul / torch.bmm) ms, its
+    float32 kernel's ms on the same inputs, per-shape numbers and bound."""
+    shape = "logistic_m512_b65536"
+    bounds = {"fused_kappa_moments_batched": f64_kappa_bound(LB, LD, PM, 1, True),
+              "cavi_stats_batched": f64_stats_bound(LB, PM, 1),
+              "fused_kappa": f64_kappa_bound(LB, LD, PM, 1, False), "cavi_stats": f64_stats_bound(LB, PM, 1)}
+    rows = []
+    for name, line, source in (("fused_kappa_moments_batched", 361, "batched_pair.cu"),
+                               ("cavi_stats_batched", 486, "batched_pair.cu"),
+                               ("fused_kappa", 213, "kappa_single.cu"), ("cavi_stats", 545, "kappa_single.cu")):
+        k, r = kernels[name], kernels[name]["shapes"][shape]
+        rows.append({
+            "name": f"{name}_f64",
+            "route": "cuda",
+            "source": f"agp_tpu_torch/csrc/{source}",
+            "replaces": f"agp_tpu/ops/pallas_kernels.py:{line}",
+            "dtype": "float64",
+            "max_abs_err": k["worst"],
+            "max_rel_err": k["rel"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            # kernels 4 and 6: no one PyTorch call computes the function; their
+            # products alone in float64 are a yardstick beside it
+            "library_ms": None if name.startswith("fused_kappa") else r["library_ms"],
+            **({"products_ms": r["library_ms"], "products": "the products alone in float64 (torch.matmul; kernel 4: "
+                "torch.bmm x2), cuBLAS: a yardstick, not the whole function"} if name.startswith("fused_kappa")
+               else {"library": "torch.matmul / torch.bmm x2 in float64 (cuBLAS)"}),
+            "float32_ms": r["float32_ms"],
+            "device_us": r["device_us"],
+            "per_shape_ms": ms_table({s: (v["ms"], v["plain_ms"]) for s, v in k["shapes"].items()}),
+            "per_shape_float32_ms": {s: v["float32_ms"] for s, v in k["shapes"].items()},
+            "per_shape_library_ms": {s: v["library_ms"] for s, v in k["shapes"].items()},
+            "per_shape_device_us": {s: v["device_us"] for s, v in k["shapes"].items()},
+            "per_shape_bound_ms": {s: v["bound_ms"] for s, v in k["shapes"].items()},
+            "vs_plain_float64": k["errors"],
+            "bound": "the function's products once at 67 TFLOP/s FP64 tensor cores, the gram and row sums at 34 FP64, "
+                     "8-byte elements at 3.35 TB/s",
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+        })
+    return rows
+
+
 PHASE_SECONDS = {}
 
 
@@ -6692,6 +7142,11 @@ def main():
     if args == ["slice-l"]:
         slice_l_mode(agt, ck, device)
         return
+    if args == ["float64"]:
+        timed_phase("tensor-core SASS", check_tc_sass, lib_path)
+        timed_phase("kappa tiles", check_kappa_tiles, ck)
+        float64_mode(agt, ck, device)
+        return
     if args[:2] == ["profile", "mo"]:
         profile_mo(agt, device)
         return
@@ -6747,6 +7202,7 @@ def main():
     slice_h_mode(agt, ck, device)
     slice_jk_mode(agt, ck, device)
     slice_l_mode(agt, ck, device)
+    f64_kernels, _ = float64_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {
@@ -6855,7 +7311,9 @@ def main():
         "per_tile_ms": ms_table({f"tile{tr}": v for tr, v in gather_ms.items()}),
         "library_ms": gather_library[32],
         "per_tile_library_ms": {f"tile{tr}": v for tr, v in gather_library.items()},
-    }]}
+    }] + f64_rows(f64_kernels)}
+    for row in kernels["kernels"][-4:]:  # the float64 forms' bounds (f64_rows)
+        bounds[row["name"]] = (row.pop("bound_ms"), row.pop("bound_by"))
     for name in [n for n, v in bounds.items() if len(v) == 3]:
         # (function's, 3xTF32 design's, FP32) bounds
         bounds[name], design, fp32 = bounds[name]

@@ -367,15 +367,29 @@ def test_cuda_pair_autograd_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_pair_wrappers_raise(cuda_device):
-    """On a CUDA tensor the pair launches or raises: an unknown kind,
-    float64, a wrong shape, or M beyond kernel 4's shared memory (past
-    kappa_max_m("moments"), 2,392 on an H100)."""
+    """On a CUDA tensor the pair launches or raises: an unknown kind, mixed
+    dtypes, a wrong shape, or M beyond kernel 4's shared memory (past
+    kappa_max_m("moments"), 2,392 on an H100); float64 launches the
+    float64 form, which matches the float64 plain version (chip_smoke's
+    check_f64) and counts in launches_f64 alone."""
     t = pair_case(64, 16, 2, 4, cuda_device)
+    t64 = smoke.to_float64(t)
     before = (ck.fused_kappa_moments_batched.launches, ck.cavi_stats_batched.launches)
+    before64 = (ck.fused_kappa_moments_batched.launches_f64, ck.cavi_stats_batched.launches_f64)
     with pytest.raises(ValueError, match="kinds"):
         smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "kind": "periodic"})
     with pytest.raises(TypeError):
         smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "X": t["X"].double()})
+    got = smoke.call_k4(ck.fused_kappa_moments_batched, t64)
+    cpu64 = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in t64.items()}
+    smoke.check_f64("kernel 4 float64", ("kappa", "mf", "vf"), got,
+                    smoke.call_k4(ck.fused_kappa_moments_batched_reference, t64),
+                    smoke.call_k4(ck.fused_kappa_moments_batched_reference, cpu64))
+    s_args = (got[0].contiguous(), t64["g"], t64["theta"])
+    smoke.check_f64("kernel 5 float64", ("s1", "S2"), ck.cavi_stats_batched(*s_args),
+                    ck.cavi_stats_batched_reference(*s_args), ck.cavi_stats_batched_reference(*(a.cpu() for a in s_args)))
+    assert (ck.fused_kappa_moments_batched.launches_f64, ck.cavi_stats_batched.launches_f64) == tuple(
+        n + 1 for n in before64)
     with pytest.raises(ValueError):
         smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "mu": t["mu"][:1]})
     big = pair_case(8, ck.kappa_max_m("moments") + 1, 1, 2, cuda_device)
@@ -603,14 +617,26 @@ def test_cuda_kappa_autograd_matches_plain(cuda_device):
 @pytest.mark.cuda
 def test_cuda_single_pair_wrappers_raise(cuda_device):
     """On a CUDA tensor the single-latent pair launches or raises: an
-    unknown kind, float64, a wrong shape, or M beyond kernel 6's shared
-    memory (past kappa_max_m("single"), 2,406 on an H100)."""
+    unknown kind, mixed dtypes, a wrong shape, or M beyond kernel 6's
+    shared memory (past kappa_max_m("single"), 2,406 on an H100); float64
+    launches the float64 form, which matches the float64 plain version
+    (chip_smoke's check_f64) and counts in launches_f64 alone."""
     t = smoke.single_args(pair_case(64, 16, 1, 4, cuda_device))
+    t64 = smoke.to_float64(t)
     before = (ck.fused_kappa.launches, ck.cavi_stats.launches)
+    before64 = (ck.fused_kappa.launches_f64, ck.cavi_stats.launches_f64)
     with pytest.raises(ValueError, match="kinds"):
         smoke.call_k6(ck.fused_kappa, {**t, "kind": "periodic"})
     with pytest.raises(TypeError):
         smoke.call_k6(ck.fused_kappa, {**t, "X": t["X"].double()})
+    got = smoke.call_k6(ck.fused_kappa, t64)
+    cpu64 = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in t64.items()}
+    smoke.check_f64("kernel 6 float64", ("kappa", "Ktilde"), got, smoke.call_k6(ck.fused_kappa_reference, t64),
+                    smoke.call_k6(ck.fused_kappa_reference, cpu64))
+    s_args = (got[0].contiguous(), t64["g"], t64["theta"])
+    smoke.check_f64("kernel 7 float64", ("s1", "S2"), ck.cavi_stats(*s_args), ck.cavi_stats_reference(*s_args),
+                    ck.cavi_stats_reference(*(a.cpu() for a in s_args)))
+    assert (ck.fused_kappa.launches_f64, ck.cavi_stats.launches_f64) == tuple(n + 1 for n in before64)
     with pytest.raises(ValueError):
         smoke.call_k6(ck.fused_kappa, {**t, "Z": t["Z"][:, :2].contiguous()})
     big = smoke.single_args(pair_case(8, ck.kappa_max_m("single") + 1, 1, 2, cuda_device))
@@ -772,20 +798,28 @@ def test_cuda_gather_raises(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_refuses_a_float64_model(cuda_device):
-    """A float64 model on the card is refused when it is built, and one
-    moved there later when its state is made: TypeError naming float32 and
-    set_default_device("cpu"), before any kernel runs."""
+    """A float64 model on the card is built and trains on kernels 6 + 7's
+    float64 form (one launch of each a step, no fused kernel though M=16
+    is within kernel 1's range); a float16 model is refused when it is
+    built, and one moved there later when its state is made: TypeError
+    naming float32, float64 and set_default_device("cpu"), before any
+    kernel runs."""
     X = torch.as_tensor(np.random.default_rng(9).normal(size=(512, 3)), device=cuda_device)
     y = torch.sign(X[:, 0])
     make = lambda Z: agt.SVGP.create(agt.SqExponentialKernel(), agt.LogisticLikelihood.create(),  # noqa: E731
                                      agt.AnalyticSVI(128), Z, optimiser=None)
-    with pytest.raises(TypeError, match=r'float32.*set_default_device\("cpu"\)'):
-        make(X[:16])
-    moved = make(X[:16].float()).to(dtype=torch.float64)
-    with pytest.raises(TypeError, match="float32"):
-        agt.init_state(moved, X, y)
-    with pytest.raises(TypeError, match="float32"):
-        agt.train(moved, X, y, iterations=2)
+    smoke.reset_launches(ck)
+    model, state = agt.train(make(X[:16]), X, y, iterations=2)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, "float64 SVGP", smoke.route_launches(2, "single", f64=True))
+    assert state.mu.dtype == torch.float64 and torch.isfinite(state.mu).all()
+    with pytest.raises(TypeError, match=r'float32 or float64.*set_default_device\("cpu"\)'):
+        make(X[:16].half())
+    moved = make(X[:16].float()).to(dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.init_state(moved, X.half(), y.half())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.train(moved, X.half(), y.half(), iterations=2)
     model, state = agt.train(make(X[:16].float()), X.float(), y.float(), iterations=2)
     assert torch.isfinite(state.mu).all()
 
@@ -800,20 +834,30 @@ def toy_on(device, n, d=2, dtype=torch.float32, seed=0):
 
 @pytest.mark.cuda
 def test_cuda_dense_models_refuse_float64(cuda_device):
-    """A GP or a VGP built from float64 data on the card is refused at
-    create, and one moved there later at init_state: TypeError naming
-    float32."""
+    """A GP or a VGP built from float64 data on the card trains there in
+    float64 with no launch of a kernel of the port; one built from float16
+    data is refused at create, and one moved there later at init_state:
+    TypeError naming float32 and float64."""
     X, y = toy_on(cuda_device, 64, dtype=torch.float64)
-    with pytest.raises(TypeError, match=r'float32.*set_default_device\("cpu"\)'):
-        agt.GP.create(X, y, agt.SqExponentialKernel())
-    with pytest.raises(TypeError, match="float32"):
-        agt.VGP.create(X, y, agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI())
-    gp = agt.GP.create(X.float(), y.float(), agt.SqExponentialKernel()).to(dtype=torch.float64)
-    with pytest.raises(TypeError, match="float32"):
+    smoke.reset_launches(ck)
+    _, s_gp = agt.train(agt.GP.create(X, y, agt.SqExponentialKernel()), iterations=2)
+    _, s_vgp = agt.train(agt.VGP.create(X, y, agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0),
+                                        agt.AnalyticVI()), iterations=2)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, "float64 dense models", {})
+    for t in (s_gp.alpha, s_vgp.mu):
+        assert t.dtype == torch.float64 and torch.isfinite(t).all()
+    with pytest.raises(TypeError, match=r'float32 or float64.*set_default_device\("cpu"\)'):
+        agt.GP.create(X.half(), y.half(), agt.SqExponentialKernel())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.VGP.create(X.half(), y.half(), agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0),
+                       agt.AnalyticVI())
+    gp = agt.GP.create(X.float(), y.float(), agt.SqExponentialKernel()).to(dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or float64"):
         agt.init_state(gp)
     vgp = agt.VGP.create(X.float(), y.float(), agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0),
-                         agt.AnalyticVI()).to(dtype=torch.float64)
-    with pytest.raises(TypeError, match="float32"):
+                         agt.AnalyticVI()).to(dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or float64"):
         agt.init_state(vgp)
 
 
@@ -907,9 +951,15 @@ def test_cuda_mcgp_from_numpy_samples_on_the_card(cuda_device, inference):
 
 @pytest.mark.cuda
 def test_cuda_mcgp_refuses_float64(cuda_device):
+    """A float64 MCGP on the card samples there in float64 (no kernel of the
+    port); a float16 one is refused at create."""
     X, y = toy_on(cuda_device, 32, dtype=torch.float64)
-    with pytest.raises(TypeError, match="float32"):
-        agt.MCGP.create(X, y, agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.1))
+    mc = agt.MCGP.create(X, y, agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.1),
+                         agt.GibbsSampling(n_burnin=5))
+    s = agt.sample(mc, 10, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    assert s.dtype == torch.float64 and torch.isfinite(s).all()
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.MCGP.create(X.half(), y.half(), agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.1))
 
 
 # ---------------------------------------------- Slice I: the online model
@@ -1022,17 +1072,37 @@ def test_cuda_laplace_transform_grid_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_numerical_refuses_float64(cuda_device):
-    """A float64 SVGP or VGP with a numerical engine (or the SoftMax or a
-    septuple likelihood) is refused on the card at create: TypeError
-    naming float32; the float32 one trains."""
+    """A float64 SVGP with a numerical engine trains on the card on kernels
+    4-7's float64 form (quadrature, one latent: kernels 6 + 7 a step; the
+    SoftMax by Monte Carlo, two latents: 4 + 5), a float64 VGP with a
+    septuple likelihood with no kernel launch; their float16 models are
+    refused at create: TypeError naming float32 and float64; the float32
+    one trains."""
     X = torch.as_tensor(np.random.default_rng(2).normal(size=(256, 2)), device=cuda_device)
     y = torch.sign(X[:, 0])
-    with pytest.raises(TypeError, match="float32"):
-        agt.SVGP.create(agt.SqExponentialKernel(), agt.LogisticLikelihood.create(), agt.QuadratureSVI(64), X[:8])
-    with pytest.raises(TypeError, match="float32"):
-        agt.VGP.create(X, y, agt.SqExponentialKernel(), smoke.logistic_septuple(agt), agt.QuadratureVI())
-    with pytest.raises(TypeError, match="float32"):
-        agt.SVGP.create(agt.SqExponentialKernel(), agt.SoftMaxLikelihood.create(2), agt.MCIntegrationSVI(64), X[:8])
+    for lik, engine, route, yy in ((agt.LogisticLikelihood.create(), agt.QuadratureSVI(64), "single", y),
+                                   (agt.SoftMaxLikelihood.create(2), agt.MCIntegrationSVI(64), "batched",
+                                    (y > 0).long())):
+        smoke.reset_launches(ck)
+        _, state = agt.train(agt.SVGP.create(agt.SqExponentialKernel(), lik, engine, X[:8], optimiser=None), X, yy,
+                             iterations=2)
+        torch.cuda.synchronize()
+        smoke.expect_launches(ck, f"float64 {engine.name}", smoke.route_launches(2, route, f64=True))
+        assert state.mu.dtype == torch.float64 and torch.isfinite(state.mu).all()
+    smoke.reset_launches(ck)
+    _, state = agt.train(agt.VGP.create(X, y, agt.SqExponentialKernel(), smoke.logistic_septuple(agt),
+                                        agt.QuadratureVI()), iterations=2)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, "float64 septuple VGP", {})
+    assert torch.isfinite(state.mu).all()
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.SVGP.create(agt.SqExponentialKernel(), agt.LogisticLikelihood.create(), agt.QuadratureSVI(64),
+                        X[:8].half())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.VGP.create(X.half(), y.half(), agt.SqExponentialKernel(), smoke.logistic_septuple(agt), agt.QuadratureVI())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.SVGP.create(agt.SqExponentialKernel(), agt.SoftMaxLikelihood.create(2), agt.MCIntegrationSVI(64),
+                        X[:8].half())
     model = agt.SVGP.create(agt.SqExponentialKernel(), agt.LogisticLikelihood.create(), agt.QuadratureSVI(64),
                             X[:8].float(), optimiser=None)
     _, state = agt.train(model, X.float(), y.float(), iterations=2)
@@ -1076,13 +1146,29 @@ def test_cuda_mo_step_launches_and_matches_cpu(cuda_device, q):
 
 @pytest.mark.cuda
 def test_cuda_slice_h_models_refuse_float64(cuda_device):
-    """A float64 VStP or MOSVGP on the card is refused at create: TypeError
-    naming float32."""
+    """A float64 VStP trains on the card with no kernel launch, a float64
+    MOSVGP (Q=2) on kernels 4 + 5's float64 form, once each a step; their
+    float16 models are refused at create: TypeError naming float32 and
+    float64."""
     X, y = toy_on(cuda_device, 64, dtype=torch.float64)
-    with pytest.raises(TypeError, match="float32"):
-        agt.VStP.create(X, y, agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0), agt.AnalyticVI(), nu=5.0)
-    with pytest.raises(TypeError, match="float32"):
-        agt.MOSVGP.create(agt.SqExponentialKernel(), [agt.GaussianLikelihood.create(0.1)], agt.AnalyticVI(), X[:8], 2)
+    smoke.reset_launches(ck)
+    _, state = agt.train(agt.VStP.create(X, y, agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0),
+                                         agt.AnalyticVI(), nu=5.0), iterations=2)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, "float64 VStP", {})
+    assert state.mu.dtype == torch.float64 and torch.isfinite(state.mu).all()
+    mo = agt.MOSVGP.create(agt.SqExponentialKernel(), [agt.GaussianLikelihood.create(0.1)], agt.AnalyticVI(), X[:8], 2,
+                           optimiser=None)
+    _, state = agt.mo_train(mo, X, [y], iterations=2)
+    torch.cuda.synchronize()
+    smoke.expect_launches(ck, "float64 MOSVGP", smoke.route_launches(2, "batched", f64=True))
+    assert state.mu.dtype == torch.float64 and torch.isfinite(state.mu).all()
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.VStP.create(X.half(), y.half(), agt.SqExponentialKernel(), agt.StudentTLikelihood.create(4.0),
+                        agt.AnalyticVI(), nu=5.0)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        agt.MOSVGP.create(agt.SqExponentialKernel(), [agt.GaussianLikelihood.create(0.1)], agt.AnalyticVI(),
+                          X[:8].half(), 2)
 
 
 @pytest.mark.cuda
@@ -1239,7 +1325,7 @@ def test_cuda_path42_step_matches_cpu(cuda_device):
     perm = torch.randperm(smoke.M, generator=torch.Generator().manual_seed(2))
     smoke.reset_launches(ck)
     card = smoke.path42_after(agt, Xc.to(cuda_device), yc.to(cuda_device), draws)
-    counts = {name: smoke.wrapper(ck, name).launches for name in smoke.LAUNCH_COUNTERS}
+    counts = {name: smoke.launches_of(ck, name) for name in smoke.LAUNCH_COUNTERS}
     assert counts == {name: 20 if name == "cavi_stats" else 0 for name in smoke.LAUNCH_COUNTERS}
     cpu = smoke.path42_after(agt, Xc, yc, draws)
     noise = smoke.hyper_err(smoke.path42_after(agt, Xc, yc, draws, perm), cpu)
@@ -1261,7 +1347,7 @@ def test_cuda_path43_launches_kernel5_once_a_step(cuda_device):
     smoke.reset_launches(ck)
     _, state = vi_steps(model, state, X[:4096], y_t, 5, generator=torch.Generator(device=cuda_device).manual_seed(0))
     torch.cuda.synchronize()
-    counts = {name: smoke.wrapper(ck, name).launches for name in smoke.LAUNCH_COUNTERS}
+    counts = {name: smoke.launches_of(ck, name) for name in smoke.LAUNCH_COUNTERS}
     assert counts == {name: 5 if name == "cavi_stats_batched" else 0 for name in smoke.LAUNCH_COUNTERS}
     assert torch.isfinite(state.mu).all()
 

@@ -75,13 +75,18 @@ def test_set_default_device_takes_cuda_or_cpu():
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
 def test_card_refuses_what_its_kernels_do_not_take(dtype):
     """The rule that SVGP.create and init_state apply, checked without a
-    card: a model or data that is not float32 on a CUDA device raises
-    TypeError, whose message names float32 and set_default_device("cpu");
-    float32 on the card and any dtype on the CPU pass."""
-    with pytest.raises(TypeError, match=r'float32 only.*set_default_device\("cpu"\)'):
+    card: float32 and float64 on a CUDA device pass (float64 takes kernels
+    4-7's float64 form, or no kernel); a model or data in float16 there
+    raises TypeError, whose message names float32, float64 and
+    set_default_device("cpu"); any dtype on the CPU passes."""
+    if dtype == torch.float64:
         check_card_dtype(torch.device("cuda"), dtype)
-    with pytest.raises(TypeError, match="data"):
         check_card_dtype("cuda:0", dtype, "data")
+    else:
+        with pytest.raises(TypeError, match=r'float32 or float64 on the card.*set_default_device\("cpu"\)'):
+            check_card_dtype(torch.device("cuda"), dtype)
+        with pytest.raises(TypeError, match="data"):
+            check_card_dtype("cuda:0", dtype, "data")
     check_card_dtype(torch.device("cuda:0"), torch.float32)
     check_card_dtype(torch.device("cpu"), dtype)
 
