@@ -49,25 +49,30 @@
 //   port holds all three to float32's own error against float64
 //   (chip_smoke.py phase 12), so kappa Sigma takes three passes too.
 // * Row tiles of 64 (M <= 680), 32 (M <= 1,392) or 16 rows (8-row
-//   stages, M <= 2,392).  The row sums are summed by shuffles and one slot
+//   stages, M <= 2,392); past that the column-blocked form (below).  The row sums are summed by shuffles and one slot
 //   per warp column in a fixed order: two calls are bit-equal.
 // The ragged edges are masked from B and M; nothing is padded on the host.
 //
-// The float64 form (agp_fused_kappa_moments_batched_f64,
-// agp_cavi_stats_batched_f64: a float64 model of several latents on the
-// card) is the same pass on tiles of doubles (KTile<TB, double>,
-// pair_core.cuh's moment_rows): the gram, kappa, kappa Sigma and the row
-// sums in double, each product one FP64 mma.sync pass a 4-deep step, and
-// kernel 5's statistics in double (stats_tc.cuh).  What bounds it: kappa's
-// and the quadratic form's B M^2 + B M (M+1)/2 FMAs at the FP64
-// tensor-core peak (67 TFLOP/s), 0.77 ms at B=65,536, M=512, L=1; the
-// design forms kappa Sigma in full, 1.03 ms.  Its row tiles reach about
-// half the float form's M: 64 rows to M=320, 32 to 680, 16 to 1,184.
+// The float64 form (a float64 model of several latents on the card): at
+// M <= 128 the same pass on tiles of doubles
+// (agp_fused_kappa_moments_batched_f64; KTile<TB, double>, pair_core.cuh's
+// moment_rows): the gram, kappa, kappa Sigma and the row sums in double,
+// each product one FP64 mma.sync pass a 4-deep step.  Past M=128, and in
+// float32 past the slab's range (M > 2,392), the column-blocked form of
+// kappa_cols.cuh (agp_kappa_moments_cols, agp_kappa_moments_cols_f64): the
+// gram once, kappa with mf's and Ktilde's row partials, then kappa Sigma on
+// kappa read back with vf's, then their fixed-order sums: no M ceiling.
+// What bounds the float64 function: kappa's and the quadratic form's
+// B M^2 + B M (M+1)/2 FMAs at the FP64 tensor-core peak (67 TFLOP/s),
+// 0.77 ms at B=65,536, M=512, L=1; the design forms kappa Sigma in full,
+// 1.03 ms.  agp_cavi_stats_batched_f64 is kernel 5's float64 form, in
+// double (stats_tc.cuh).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "kappa_cols.cuh"
 #include "pair_core.cuh"
 
 namespace {
@@ -127,8 +132,8 @@ int kappa_moments_of(const E* x, const E* z, const E* kinv, const E* mu, const E
 
 extern "C" {
 
-// The shared memory of kernel 4 at M with row tiles of tile_rows (64, 32
-// or 16; SIZE_MAX for another), and of its float64 form.
+// The shared memory of kernel 4's slab form at M with row tiles of
+// tile_rows (64, 32 or 16; SIZE_MAX for another), and of its float64 form.
 // ops/cuda_kernels.py::kappa_smem_bytes is their copy in Python: change
 // them together.
 size_t agp_kappa_moments_smem_bytes(int M, int tile_rows) {
@@ -168,6 +173,23 @@ int agp_fused_kappa_moments_batched_f64(const double* x, const double* z, const 
                                         double* vf, int B, int D, int M, int L, int kind, int tile_rows,
                                         void* stream) {
   return kappa_moments_of(x, z, kinv, mu, sigma, params, kappa, mf, vf, B, D, M, L, kind, tile_rows, stream);
+}
+
+// Kernel 4 in the column-blocked form (kappa_cols.cuh):
+// agp_fused_kappa_moments_batched's arguments and scratch
+// [agp_kappa_cols_scratch(1, B, M, L)] (16-byte aligned), any M >= 1.  Four
+// launches; returns the first CUDA error.
+int agp_kappa_moments_cols(const float* x, const float* z, const float* kinv, const float* mu, const float* sigma,
+                           const float* params, float* kappa, float* mf, float* vf, float* scratch, int B, int D,
+                           int M, int L, int kind, void* stream) {
+  return launch_kappa_cols<float, true>(x, z, kinv, mu, sigma, params, kappa, nullptr, mf, vf, scratch, B, D, M, L,
+                                        kind, static_cast<cudaStream_t>(stream));
+}
+int agp_kappa_moments_cols_f64(const double* x, const double* z, const double* kinv, const double* mu,
+                               const double* sigma, const double* params, double* kappa, double* mf, double* vf,
+                               double* scratch, int B, int D, int M, int L, int kind, void* stream) {
+  return launch_kappa_cols<double, true>(x, z, kinv, mu, sigma, params, kappa, nullptr, mf, vf, scratch, B, D, M, L,
+                                         kind, static_cast<cudaStream_t>(stream));
 }
 
 // kappa [L, B, M], g and theta [L, B]; outputs s1 [L, M], s2 [L, M, M]

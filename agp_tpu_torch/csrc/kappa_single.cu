@@ -67,21 +67,25 @@
 // calls are bit-equal.  The ragged edges are masked from B and M; nothing
 // is padded on the host.
 //
-// The float64 form (agp_fused_kappa_f64, agp_cavi_stats_f64: a float64
-// model on the card) is the same kernel on tiles of doubles
-// (KTile<TB, double>, pair_core.cuh): the gram in double by direct
-// differences, kappa = G K^-1 in one FP64 mma.sync pass a 4-deep step
-// (DMMA: IEEE double with FMA, so no split), Ktilde's row sums in double.
-// What bounds it: kappa's B M^2 FMAs at the FP64 tensor-core peak
-// (67 TFLOP/s), 0.51 ms at B=65,536, M=512, against 268 MB of kappa
-// written (0.08 ms).  A slab of doubles takes twice the bytes, so each row
-// tile reaches about half the float form's M: 64 rows to M=336, 32 to
-// 696, 16 (8-row stages) to 1,192.
+// The float64 form (a float64 model on the card): at M <= 128 the same
+// kernel on tiles of doubles (agp_fused_kappa_f64; KTile<TB, double>,
+// pair_core.cuh): the gram in double by direct differences, kappa = G K^-1
+// in one FP64 mma.sync pass a 4-deep step (DMMA: IEEE double with FMA, so
+// no split), Ktilde's row sums in double; at M=64 and 128 its device time
+// beat the column-blocked form's.  Past M=128, and in float32 past the
+// slab's range (M > 2,406), the column-blocked form of kappa_cols.cuh
+// (agp_fused_kappa_cols, agp_fused_kappa_cols_f64): [128, 128] output tiles
+// with both operands streamed, so no M ceiling, and each block's reads of
+// K^-1 serve 128 rows where the slab of doubles left 32 at M=512.  What
+// bounds the float64 function: kappa's B M^2 FMAs at the FP64 tensor-core
+// peak (67 TFLOP/s), 0.51 ms at B=65,536, M=512, against 268 MB of kappa
+// written (0.08 ms).  agp_cavi_stats_f64 is kernel 7's float64 form.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "kappa_cols.cuh"
 #include "pair_core.cuh"
 
 namespace {
@@ -163,8 +167,8 @@ int fused_kappa_of(const E* x, const E* z, const E* kinv, const E* params, E* ka
 
 extern "C" {
 
-// The shared memory of kernel 6 at M with row tiles of tile_rows (64, 32
-// or 16; SIZE_MAX for another), and of its float64 form.
+// The shared memory of kernel 6's slab form at M with row tiles of
+// tile_rows (64, 32 or 16; SIZE_MAX for another), and of its float64 form.
 // ops/cuda_kernels.py::kappa_smem_bytes is their copy in Python: change
 // them together.
 size_t agp_fused_kappa_smem_bytes(int M, int tile_rows) {
@@ -190,6 +194,35 @@ int agp_fused_kappa(const float* x, const float* z, const float* kinv, const flo
 int agp_fused_kappa_f64(const double* x, const double* z, const double* kinv, const double* params, double* kappa,
                         double* ktilde, int B, int D, int M, int kind, int tile_rows, void* stream) {
   return fused_kappa_of(x, z, kinv, params, kappa, ktilde, B, D, M, kind, tile_rows, stream);
+}
+
+// The column-blocked form (kappa_cols.cuh) of kernels 4 and 6: its shared
+// memory a block (one tile whatever M), and the elements of the scratch a
+// call takes (moments: kernel 4, else kernel 6), in float and in double.
+// ops/cuda_kernels.py::kappa_cols_smem_bytes and kappa_cols_scratch are
+// their copies in Python: change them together.
+size_t agp_kappa_cols_smem_bytes(void) { return ColTile<float>::SMEM; }
+size_t agp_kappa_cols_smem_bytes_f64(void) { return ColTile<double>::SMEM; }
+size_t agp_kappa_cols_scratch(int moments, int B, int M, int L) {
+  return cols_scratch<ColTile<float>>(moments != 0, B, M, L);
+}
+size_t agp_kappa_cols_scratch_f64(int moments, int B, int M, int L) {
+  return cols_scratch<ColTile<double>>(moments != 0, B, M, L);
+}
+
+// Kernel 6 in the column-blocked form: agp_fused_kappa's arguments and
+// scratch [agp_kappa_cols_scratch(0, B, M, 1)] (16-byte aligned), any M >= 1.
+// Three launches; returns the first CUDA error.
+int agp_fused_kappa_cols(const float* x, const float* z, const float* kinv, const float* params, float* kappa,
+                         float* ktilde, float* scratch, int B, int D, int M, int kind, void* stream) {
+  return launch_kappa_cols<float, false>(x, z, kinv, nullptr, nullptr, params, kappa, ktilde, nullptr, nullptr,
+                                         scratch, B, D, M, 1, kind, static_cast<cudaStream_t>(stream));
+}
+int agp_fused_kappa_cols_f64(const double* x, const double* z, const double* kinv, const double* params,
+                             double* kappa, double* ktilde, double* scratch, int B, int D, int M, int kind,
+                             void* stream) {
+  return launch_kappa_cols<double, false>(x, z, kinv, nullptr, nullptr, params, kappa, ktilde, nullptr, nullptr,
+                                          scratch, B, D, M, 1, kind, static_cast<cudaStream_t>(stream));
 }
 
 // kappa [B, M], g and theta [B]; outputs s1 [M], s2 [M, M] (exactly

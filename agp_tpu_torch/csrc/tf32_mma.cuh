@@ -187,6 +187,19 @@ __device__ __forceinline__ void mma_f64_16x8(double (&c)[4], const double (&a)[2
       : "d"(a[0]), "d"(a[1]), "d"(b));
 }
 
+// c += a b over a 16 x 8 x 8 FP64 tile, one mma.sync.m16n8k8 (sm_90), in
+// the fragment layout of the m16n8k8 TF32 tile: a[0] A's (gid, tig), a[1]
+// (gid + 8, tig), a[2] (gid, tig + 4), a[3] (gid + 8, tig + 4); b[0] B's
+// (tig, gid), b[1] (tig + 4, gid); c as mma_f64_16x8's
+// (probes/dmma_shapes.cu checks the layout on the card).
+__device__ __forceinline__ void mma_f64_16x8x8(double (&c)[4], const double (&a)[4], const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
 // acc[mi][nj] += a[mi] b[nj] in FP64 over an MI x NJ grid of 16 x 8 x 4
 // tiles, one pass each, the grid's tiles in turn
 template <int MI, int NJ>

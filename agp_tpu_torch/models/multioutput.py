@@ -31,9 +31,8 @@ import torch
 
 from ..inference import analytic_vi
 from ..inference.config import AnalyticVI, InferenceConfig
-from ..kernels import fused_kind
 from ..means import PriorMean, ZeroMean
-from ..ops import cuda_kernels, linalg
+from ..ops import linalg
 from ..ops.kl import gaussian_kl
 from ..training import autotuning
 from ..training.predictions import _chunk_map, _predict_f_var
@@ -93,10 +92,9 @@ class MOSVGP(Params):
         steps A after every CAVI step.
 
         Raises ``ValueError`` for an inference that is not AnalyticVI, as
-        the reference does, and on a CUDA device for an M beyond the
-        moments kernel's range (kernel 4 for Q > 1, kernel 6 for Q = 1):
-        a MOVGP's M is its N (float64 halves that range).  A model on a CUDA
-        device that is neither float32 nor float64 raises ``TypeError``."""
+        the reference does.  A model on a CUDA device that is neither
+        float32 nor float64 raises ``TypeError``; any M runs there (kernels
+        4 and 6 take any M: a MOVGP's M is its N)."""
         if not isinstance(inference, AnalyticVI):
             raise ValueError("multi-output models support AnalyticVI only")
         if optimiser == "default":
@@ -111,7 +109,6 @@ class MOSVGP(Params):
         Q = n_latent
         Z = as_2d(Z)
         check_card_dtype(Z.device, Z.dtype)
-        _check_kernel_range(Z.device, Q, Z.shape[-2], kernel, Z.dtype)
         to = dict(device=Z.device, dtype=Z.dtype)
         kernel, mean = prepare_components(kernel, likelihoods[0], ZeroMean() if mean is None else mean, Q)
         kernel, mean = kernel.to(**to), mean.to(**to)
@@ -158,25 +155,6 @@ class MOVGP(MOSVGP):
     @classmethod
     def create(cls, X, likelihoods, kernel, inference, n_latent, **kw):
         return super().create(kernel, likelihoods, inference, as_2d(X), n_latent, **kw)
-
-
-def _check_kernel_range(device, Q: int, M: int, kernel, dtype=torch.float32):
-    """On a CUDA device, ``ValueError`` for an M beyond the moments kernel the
-    step launches in ``dtype`` (``cuda_kernels.kappa_max_m``: kernel 4 for
-    several latents, kernel 6 for one; float64's ceiling is about half
-    float32's); the plain versions never stand in for it.
-    A kernel outside ``FUSED_KINDS`` forms kappa by plain products, and
-    the statistics kernels 5 and 7 take any M: no limit then."""
-    if torch.device(device).type != "cuda" or fused_kind(kernel) is None:
-        return
-    which, name = ("moments", "fused_kappa_moments_batched") if Q > 1 else ("single", "fused_kappa")
-    limit = cuda_kernels.kappa_max_m(which, dtype=dtype)
-    if M > limit:
-        raise ValueError(
-            f"a multi-output model with {Q} latent(s) on the card takes M <= {limit} inducing points in "
-            f"{str(dtype).removeprefix('torch.')} (the CUDA {name}'s shared memory on an H100); got M={M} (a "
-            "MOVGP's M is its N). Use a MOSVGP with fewer inducing points, or the CPU"
-        )
 
 
 # ------------------------------------------------------------------- the step

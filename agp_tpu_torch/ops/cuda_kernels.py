@@ -15,13 +15,18 @@ statistics:
     (kernel 1's moments pass over a (row tile, latent) grid, then the
     coupled E-step and kernel 5's statistics tiles), any D;
 * the split pairs, which leave the E-step to the caller:
-  - the batched pair, for several latents and M up to 2,392:
+  - the batched pair, for several latents and any M:
     ``fused_kappa_moments_batched`` (kappa, mf, vf; differentiable) and
     ``cavi_stats_batched`` (s1, S2 from kappa); ``csrc/batched_pair.cu``;
   - the single-latent split pair: ``fused_kappa`` (kappa, Ktilde;
     differentiable; the caller forms mf and vf) and ``cavi_stats``;
     ``csrc/kappa_single.cu``.
-  Both share their device code (``csrc/pair_core.cuh``).
+  Both share their device code (``csrc/pair_core.cuh``).  Kernels 4 and 6
+  take one of two forms by a fixed rule (``kappa_route``): in float32,
+  where one block's shared memory holds a [TB, M] row slab (M up to 2,392
+  and 2,406 on an H100), and in float64 at M <= 128, the slab form; past
+  it, the column-blocked form (``csrc/kappa_cols.cuh``: [128, 128] output
+  tiles, both operands streamed, no M ceiling).
 
 All take the four stationary gram kinds of ``KINDS``, whose formula the
 CUDA kernels share (``csrc/gram.cuh``).  The same library holds the
@@ -74,7 +79,7 @@ _SOURCES = tuple(
 )
 # headers the sources include: part of the build's hash
 _HEADERS = tuple(_PKG / "csrc" / name
-                 for name in ("gram.cuh", "pair_core.cuh", "stats_tc.cuh", "tf32_mma.cuh"))
+                 for name in ("gram.cuh", "kappa_cols.cuh", "pair_core.cuh", "stats_tc.cuh", "tf32_mma.cuh"))
 _BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -99,6 +104,16 @@ _KAPPA_TILES = {64: (16, 8, 256), 32: (16, 8, 256), 16: (8, 8, 128)}
 # NT + 4 doubles
 _KAPPA_TILES_F64 = {64: (16, 8, 128), 32: (16, 8, 128), 16: (8, 8, 128)}
 _KAPPA_STAGES = 3
+# the column-blocked form of kernels 4 and 6 (ColTile<E> in
+# csrc/kappa_cols.cuh), by dtype: the block tile's rows (TB) and columns
+# (TN), its k-chunk (KC), the stages of its ring and the pads of the ring's
+# A rows (KC + pad) and B rows (TN + pad)
+_COL_TILES = {torch.float32: (128, 128, 32, 4, 8, 4), torch.float64: (128, 128, 32, 3, 8, 2)}
+# float64 calls at M up to this take the row-slab form: at M=64 and 128 its
+# device time beat the column-blocked form's on an H100 (PERF.md)
+_F64_SLAB_MAX_M = 128
+# the largest B the column-blocked form takes: its grid's row tiles (y)
+_COL_MAX_ROW_TILES = 65535
 # the dtypes kernels 4-7 take on the card (the others: float32 alone)
 PAIR_DTYPES = (torch.float32, torch.float64)
 # rows of a stage of kernels 5 and 7 (KB in csrc/stats_tc.cuh): a chunk of
@@ -198,10 +213,19 @@ def _library() -> ctypes.CDLL:
     lib.agp_fused_kappa.restype = i
     lib.agp_cavi_stats.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.agp_cavi_stats.restype = i
+    lib.agp_kappa_cols_smem_bytes.argtypes = []
+    lib.agp_kappa_cols_smem_bytes.restype = ctypes.c_size_t
+    lib.agp_kappa_cols_scratch.argtypes = [i] * 4
+    lib.agp_kappa_cols_scratch.restype = ctypes.c_size_t
+    lib.agp_fused_kappa_cols.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.agp_fused_kappa_cols.restype = i
+    lib.agp_kappa_moments_cols.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.agp_kappa_moments_cols.restype = i
     # the float64 forms of kernels 4-7: the same signatures
     for name in ("agp_kappa_moments_smem_bytes", "agp_fused_kappa_moments_batched", "agp_cavi_stats_tile",
                  "agp_cavi_stats_blocks_per_sm", "agp_cavi_stats_batched", "agp_fused_kappa_smem_bytes",
-                 "agp_fused_kappa", "agp_cavi_stats"):
+                 "agp_fused_kappa", "agp_cavi_stats", "agp_kappa_cols_smem_bytes", "agp_kappa_cols_scratch",
+                 "agp_fused_kappa_cols", "agp_kappa_moments_cols"):
         fn, fn64 = getattr(lib, name), getattr(lib, name + "_f64")
         fn64.argtypes, fn64.restype = fn.argtypes, fn.restype
     lib.agp_fused_variant_smem_bytes.argtypes = [i, i, i]
@@ -274,6 +298,44 @@ def kappa_max_m(which: str, limit: int = SMEM_OPTIN, dtype: torch.dtype = torch.
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if kappa_tile_rows(which, mid, limit, dtype) else (lo, mid)
     return lo
+
+
+def kappa_cols_smem_bytes(dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory a block of the column-blocked form of kernels 4 and 6
+    takes in ``dtype`` (float32 or float64), whatever M: the ring of its
+    stages, each an A chunk [TB, KC + pad] and a B chunk [KC, TN + pad].
+    A Python copy of ``agp_kappa_cols_smem_bytes`` and its ``_f64`` twin
+    (``ColShape::SMEM`` in csrc/kappa_cols.cuh): change them together."""
+    if dtype not in PAIR_DTYPES:
+        raise TypeError(f"kernels 4-7 take float32 or float64, got {dtype}")
+    tb, tn, kc, stages, pad_a, pad_b = _COL_TILES[dtype]
+    return (8 if dtype == torch.float64 else 4) * stages * (tb * (kc + pad_a) + kc * (tn + pad_b))
+
+
+def kappa_cols_scratch(which: str, B: int, M: int, L: int = 1, dtype: torch.dtype = torch.float32) -> int:
+    """Elements of the scratch a call of the column-blocked kernel 4
+    (``"moments"``) or 6 (``"single"``) takes: the gram Knm [L, B, M], then
+    the row partials [L, column tiles, B] of Ktilde and, for kernel 4, of mf
+    and vf.  A Python copy of ``agp_kappa_cols_scratch`` and its ``_f64``
+    twin (``cols_scratch`` in csrc/kappa_cols.cuh): change them together."""
+    if which not in ("moments", "single"):
+        raise ValueError(f"which is 'moments' (kernel 4) or 'single' (kernel 6), got {which!r}")
+    tn = _COL_TILES[dtype][1]
+    return L * B * M + (3 if which == "moments" else 1) * L * -(-M // tn) * B
+
+
+def kappa_route(which: str, M: int, dtype: torch.dtype = torch.float32, limit: int = SMEM_OPTIN) -> tuple:
+    """The form kernel 4 (``"moments"``) or 6 (``"single"``) takes at M in
+    ``dtype``: ("slab", rows) where the row slab fits ``limit`` bytes in
+    float32 (``kappa_tile_rows``: M up to 2,392 and 2,406 on an H100) or
+    M <= ``_F64_SLAB_MAX_M`` in float64, else ("cols", None), the
+    column-blocked form of csrc/kappa_cols.cuh, which takes any M.  A fixed
+    rule by M and dtype, the same on the CPU and on the card."""
+    if dtype not in PAIR_DTYPES:
+        raise TypeError(f"kernels 4-7 take float32 or float64, got {dtype}")
+    slab = dtype == torch.float32 or M <= _F64_SLAB_MAX_M
+    tb = kappa_tile_rows(which, M, limit, dtype) if slab else None
+    return ("slab", tb) if tb else ("cols", None)
 
 
 @_highest_precision
@@ -763,19 +825,12 @@ def _smem_limit(device_index: int) -> int:
     return getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
 
 
-def _kappa_tile(which, name, M, dev, dtype):
-    """Kernel 4's or 6's row tile at M in ``dtype`` on the card
-    (``kappa_tile_rows`` with its opt-in limit), or ValueError beyond its
-    shared memory, which states the ceiling in that dtype."""
-    limit = _smem_limit(dev.index)
-    tb = kappa_tile_rows(which, M, limit, dtype)
-    if tb is None:
-        what = str(dtype).removeprefix("torch.")
-        raise ValueError(
-            f"the CUDA {name} at M={M} in {what} needs {kappa_smem_bytes(which, M, 16, dtype)} bytes of shared "
-            f"memory; this card allows {limit} per block (M <= {kappa_max_m(which, limit, dtype)} in {what})"
-        )
-    return tb
+def _cols_scratch(which, name, B, M, L, dev, dtype):
+    """The column-blocked form's scratch (``kappa_cols_scratch``), or
+    ValueError for a B past its grid."""
+    if B > _COL_MAX_ROW_TILES * _COL_TILES[dtype][0]:
+        raise ValueError(f"the CUDA {name} takes B <= {_COL_MAX_ROW_TILES * _COL_TILES[dtype][0]}, got {B}")
+    return torch.empty((kappa_cols_scratch(which, B, M, L, dtype),), dtype=dtype, device=dev)
 
 
 def _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
@@ -793,17 +848,22 @@ def _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
         raise ValueError(f"L_invT must be [{L}, {M}, {M}] on {X.device}")
     dev, dtype = X.device, X.dtype
     lib = _library()
-    tb = _kappa_tile("moments", name, M, dev, dtype)
+    form, tb = kappa_route("moments", M, dtype, _smem_limit(dev.index))
     params = _multi_params(X, L, jitt, 0.0, 0.0, ls2, var)
     kinv = _kinv(L_invT.to(dtype))
     like = dict(dtype=dtype, device=dev)
     kappa = torch.empty((L, B, M), **like)
     mf, vf = torch.empty((L, B), **like), torch.empty((L, B), **like)
     with torch.cuda.device(dev):
-        err = _pair_fn(lib, "agp_fused_kappa_moments_batched", dtype)(
-            *(t.data_ptr() for t in (X, Z, kinv, mu, Sigma, params, kappa, mf, vf)),
-            B, D, M, L, KINDS.index(kind), tb, torch.cuda.current_stream(dev).cuda_stream,
-        )
+        args = [t.data_ptr() for t in (X, Z, kinv, mu, Sigma, params, kappa, mf, vf)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if form == "slab":
+            err = _pair_fn(lib, "agp_fused_kappa_moments_batched", dtype)(
+                *args, B, D, M, L, KINDS.index(kind), tb, stream)
+        else:
+            scratch = _cols_scratch("moments", name, B, M, L, dev, dtype)
+            err = _pair_fn(lib, "agp_kappa_moments_cols", dtype)(
+                *args, scratch.data_ptr(), B, D, M, L, KINDS.index(kind), stream)
     if err != 0:
         raise _cuda_error(name, lib, err)
     _count(fused_kappa_moments_batched, dtype)
@@ -847,14 +907,16 @@ def fused_kappa_moments_batched(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind="rb
     every tensor argument.
 
     A CPU tensor runs :func:`fused_kappa_moments_batched_reference`.  A
-    CUDA tensor launches the kernel (float32, any L, B, D >= 1 and M up to
-    ``kappa_max_m("moments")``, 2,392 on an H100; kappa and kappa Sigma in
-    3xTF32 on the tensor cores, ``csrc/batched_pair.cu``) and adds one to
+    CUDA tensor launches the kernel (float32, any L, B, D, M >= 1; kappa
+    and kappa Sigma in 3xTF32 on the tensor cores: the row-slab form of
+    ``csrc/batched_pair.cu`` where ``kappa_route`` gives it, M up to
+    2,392 on an H100, else the column-blocked form of
+    ``csrc/kappa_cols.cuh``, four launches) and adds one to
     ``fused_kappa_moments_batched.launches``; float64 tensors launch its
-    float64 form (M up to ``kappa_max_m("moments", dtype=torch.float64)``,
-    1,184 on an H100; FP64 tensor-core tiles) and add one to
-    ``fused_kappa_moments_batched.launches_f64``.  Its backward runs the
-    plain version's vjp."""
+    float64 form (FP64 tensor-core tiles; the same two forms, the slab at
+    M <= 128) and add one to ``fused_kappa_moments_batched.launches_f64``:
+    one a call.
+    Its backward runs the plain version's vjp."""
     if X.device.type == "cpu":
         return fused_kappa_moments_batched_reference(X, Z, L_invT, ls, var, mu, Sigma, jitt, kind)
     if X.device.type != "cuda":
@@ -982,15 +1044,19 @@ def _fused_kappa_launch(X, Z, kinv, ls, var, jitt, kind):
         raise ValueError(f"the CUDA {name} takes B, D, M >= 1; got B={B}, D={D}, M={M}")
     dev, dtype = X.device, X.dtype
     lib = _library()
-    tb = _kappa_tile("single", name, M, dev, dtype)
+    form, tb = kappa_route("single", M, dtype, _smem_limit(dev.index))
     params = _multi_params(X, 1, jitt, 0.0, 0.0, ls, var)
     like = dict(dtype=dtype, device=dev)
     kappa, ktilde = torch.empty((B, M), **like), torch.empty((B,), **like)
     with torch.cuda.device(dev):
-        err = _pair_fn(lib, "agp_fused_kappa", dtype)(
-            *(t.data_ptr() for t in (X, Z, kinv, params, kappa, ktilde)),
-            B, D, M, KINDS.index(kind), tb, torch.cuda.current_stream(dev).cuda_stream,
-        )
+        args = [t.data_ptr() for t in (X, Z, kinv, params, kappa, ktilde)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if form == "slab":
+            err = _pair_fn(lib, "agp_fused_kappa", dtype)(*args, B, D, M, KINDS.index(kind), tb, stream)
+        else:
+            scratch = _cols_scratch("single", name, B, M, 1, dev, dtype)
+            err = _pair_fn(lib, "agp_fused_kappa_cols", dtype)(
+                *args, scratch.data_ptr(), B, D, M, KINDS.index(kind), stream)
     if err != 0:
         raise _cuda_error(name, lib, err)
     _count(fused_kappa, dtype)
@@ -1022,14 +1088,15 @@ def fused_kappa(X, Z, L_invT, lengthscale, variance, jitt, kind="rbf"):
     ``KINDS``.  Differentiable in every tensor argument.
 
     A CPU tensor runs :func:`fused_kappa_reference`.  A CUDA tensor launches
-    the kernel (float32, any B, D >= 1, M up to ``kappa_max_m("single")``,
-    2,406 on an H100; kappa in 3xTF32 on the tensor cores,
-    ``csrc/kappa_single.cu``) and adds one to ``fused_kappa.launches``;
-    float64 tensors launch its float64 form (M up to ``kappa_max_m("single",
-    dtype=torch.float64)``, 1,192 on an H100; FP64 tensor-core tiles) and
-    add one to ``fused_kappa.launches_f64``.  ls, var and the jitter reach
-    it in a device buffer, so a changing lengthscale costs no host read.
-    Its backward runs the plain version's vjp."""
+    the kernel (float32, any B, D, M >= 1; kappa in 3xTF32 on the tensor
+    cores: the row-slab form of ``csrc/kappa_single.cu`` where
+    ``kappa_route`` gives it, M up to 2,406 on an H100, else the
+    column-blocked form of ``csrc/kappa_cols.cuh``, three launches) and
+    adds one to ``fused_kappa.launches``; float64 tensors launch its
+    float64 form (FP64 tensor-core tiles; the same two forms, the slab at
+    M <= 128) and add one to ``fused_kappa.launches_f64``: one a call.  ls, var and the
+    jitter reach it in a device buffer, so a changing lengthscale costs no
+    host read.  Its backward runs the plain version's vjp."""
     if X.device.type == "cpu":
         return fused_kappa_reference(X, Z, L_invT, lengthscale, variance, jitt, kind)
     if X.device.type != "cuda":

@@ -294,17 +294,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    multiclass oracle (K=3, 10 steps, 1e-8), the exact GP and the dense
    VGPs at N=1,024 (1e-8, no launch);
 48. the drift (ROADMAP queue 3 item 3): the ten oracle paths at M=128 and
-   the pair's ten M=512 paths, 20 steps on the card in float64 and in
-   float32 and on the CPU in float32, each one's distance to the CPU's
-   float64 run (logged);
+   the pair's ten M=512 paths, F64_DRIFT_STEPS steps on the card in
+   float64 and in float32 and on the CPU in float32, each one's distance
+   to the CPU's float64 run (logged);
 49. the float64 flagship's and logistic_m512_b65536's steady iterations/s
-   and profiled idle share.
+   and profiled idle share;
+50. kernels 4 and 6 in their column-blocked form (csrc/kappa_cols.cuh)
+   past the row slab's old ceilings: float64 at M=1,185-2,048 and float32
+   at M=2,393-4,096 against their plain versions (float64 within
+   F64_FACTOR times the plain's own card-vs-CPU difference, float32
+   within FLOAT32_FACTOR times the float32 plain's error against float64,
+   no floor), a second call bit-equal, one launch counted a call; at
+   B=16,384 timed beside the plain version, the products alone and the
+   bound (``cols`` runs phases 50-52 alone);
+51. the float32 column-blocked form at ill-conditioned shapes past M=2,406
+   (D=2 and D=1) against float64, within FLOAT32_FACTOR, no floor;
+52. the paths past the old ceilings: an SVGP at M=4,096 (float32) and
+   M=2,048 (float64), a MOVGP on 3,000 (float32) and 1,500 (float64)
+   points, each against the host CPU's float64 run from the same draws
+   (floor, parity) with exact launches, then trained on the card.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
 the kernels' JSON line, then the device JSON line last.
 
-Other modes: ``studentt-rate`` (phase 5's child), ``profile logistic``,
+Other modes: ``cols`` (phases 50-52), ``probe [cols]`` (the measurement
+programs of csrc/probes/), ``studentt-rate`` (phase 5's child), ``profile logistic``,
 ``profile multiclass``, ``profile multiclass_k10|het|noise`` or ``profile
 hyper A|B`` (torch.profiler over 20 steps of an M=512 path, of path 7, 8
 or 21,
@@ -534,9 +549,10 @@ def phase_build(ck):
 # function: every float instance must hold TF32 mma instructions, every
 # double instance (kernels 4-7's float64 form) FP64 ones (DMMA)
 TC_KERNELS = {"cavi_rows": "kernel 1", "latent_rows": "kernels 2-3", "kappa_moments_batched": "kernel 4",
-              "stats_tc": "kernels 1-3, 5, 7 and 8-9", "kappa_single": "kernel 6", "variant_rows": "kernels 8-9"}
+              "stats_tc": "kernels 1-3, 5, 7 and 8-9", "kappa_single": "kernel 6", "variant_rows": "kernels 8-9",
+              "kappa_cols": "kernels 4 and 6 column-blocked"}
 # those with a float64 form
-F64_TC_KERNELS = ("kappa_moments_batched", "stats_tc", "kappa_single")
+F64_TC_KERNELS = ("kappa_moments_batched", "stats_tc", "kappa_single", "kappa_cols")
 
 
 def is_f64_instance(fn):
@@ -544,7 +560,7 @@ def is_f64_instance(fn):
     doubles (kernels 4 and 6) or stats_tc<double, ...> (5 and 7)."""
     import re
 
-    return bool(re.search(r"TileShapeI(?:Li\d+E)+dE", fn) or "stats_tcIdL" in fn)
+    return bool(re.search(r"TileShapeI(?:Li\d+E)+dE", fn) or "stats_tcIdL" in fn or "ColShapeId" in fn)
 
 
 def check_tc_sass(lib_path):
@@ -583,8 +599,13 @@ def check_tc_sass(lib_path):
         stats = re.search(r"stats_tcI[fd]Lb(\d)", fn)
         tile = re.search(r"(cavi_rows|latent_rows|kappa_single|kappa_moments_batched|variant_rows)"
                          r"INS_9TileShapeILi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        cols = re.search(r"kappa_colsINS_8ColShapeI[fd]Li(\d+)ELi(\d+)E.*?ELb(\d)ELb(\d)E", fn)
         if stats:
             label = f"stats_tc<{'16-byte' if stats[1] == '1' else 'one-element'} copies>"
+        elif cols:
+            label = (f"kappa_cols<{cols[1]} x {cols[2]} tiles, "
+                     + {("1", "0"): "kappa", ("1", "1"): "kappa with mf", ("0", "0"): "kappa Sigma"}[cols[3], cols[4]]
+                     + ">")
         elif tile:
             label = f"{tile[1]}<{tile[2]}-row tiles, {tile[3]} x {tile[4]} warps>"
         else:
@@ -1581,6 +1602,18 @@ def check_kappa_tiles(ck):
             f"moments / kernel 6, single): {tiles}; largest M {ck.kappa_max_m('moments', dtype=dtype)} / "
             f"{ck.kappa_max_m('single', dtype=dtype)}")
     log(f"kappa_smem_bytes: {n} (dtype, kernel, M, tile) checked")
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+        smem = getattr(lib, "agp_kappa_cols_smem_bytes" + suffix)()
+        if smem != ck.kappa_cols_smem_bytes(dtype):
+            raise AssertionError(f"kappa_cols_smem_bytes({dtype}) = {ck.kappa_cols_smem_bytes(dtype)}, the library's "
+                                 f"{smem}")
+        scratch = getattr(lib, "agp_kappa_cols_scratch" + suffix)
+        for which in ("moments", "single"):
+            for b, m, n_latent in ((1, 1, 1), (300, 129, 3), (65_536, 512, 1), (16_384, 4096, 1), (3000, 3000, 2)):
+                if scratch(int(which == "moments"), b, m, n_latent) != ck.kappa_cols_scratch(which, b, m, n_latent, dtype):
+                    raise AssertionError(f"kappa_cols_scratch({which!r}, {b}, {m}, {n_latent}, {dtype}) disagrees "
+                                         f"with the library's {scratch(int(which == 'moments'), b, m, n_latent)}")
+        log(f"kappa_cols_smem_bytes ({dtype}): {smem} bytes a block, the library's; kappa_cols_scratch agrees")
 
 
 def check_variant_tiles(ck):
@@ -2705,18 +2738,38 @@ def bits_mode(agt, ck, device, path):
     log(f"bits: all {len(digests)} calls' outputs bit-equal to {path}")
 
 
-def probe_mode(ck):
-    """``python3 chip_smoke.py probe``: builds the measurement program
-    agp_tpu_torch/csrc/probes/kappa_tc.cu with nvcc for sm_90a into the
-    build directory and runs it on the card: kernel 6's gram and product
-    apart at logistic_m512_b65536's shape, kernels 4 and 6 at other tile
-    shapes, and the mma.sync rate with and without 3xTF32's splits."""
-    src = ck._PKG / "csrc" / "probes" / "kappa_tc.cu"
+def probe_mode(ck, which="all"):
+    """``python3 chip_smoke.py probe [cols]``: builds the measurement
+    programs of agp_tpu_torch/csrc/probes/ with nvcc for sm_90a into the
+    build directory and runs them on the card: dmma_shapes.cu once for each
+    FP64 mma.sync shape (m16n8k4, k8, k16: whether ptxas takes it, its
+    fragment layout, its rate) and kappa_cols.cu (the column-blocked form's
+    gram and tiles); with ``all`` also kappa_tc.cu (kernel 6's gram and
+    product apart at logistic_m512_b65536's shape, kernels 4 and 6 at
+    other tile shapes, the mma.sync rate with and without 3xTF32's
+    splits).  A program that does not build or run is logged, and the mode
+    fails after the others ran."""
     out_dir = ck._BUILD_ROOT / "probes"
     out_dir.mkdir(parents=True, exist_ok=True)
-    exe = out_dir / "kappa_tc"
-    subprocess.run([ck._nvcc(), *ck._ARCH, "-std=c++17", "-O3", "-o", str(exe), str(src)], check=True)
-    log(subprocess.run([str(exe)], capture_output=True, text=True, check=True, timeout=600).stdout)
+    probes = [(f"dmma_shapes_k{k}", "dmma_shapes.cu", [f"-DDMMA_K={k}"]) for k in (4, 8, 16)]
+    probes.append(("kappa_cols", "kappa_cols.cu", []))
+    if which == "all":
+        probes.append(("kappa_tc", "kappa_tc.cu", []))
+    failed = []
+    for name, src, flags in probes:
+        exe = out_dir / name
+        build = subprocess.run([ck._nvcc(), *ck._ARCH, "-std=c++17", "-O3", *flags, "-o", str(exe),
+                                str(ck._PKG / "csrc" / "probes" / src)], capture_output=True, text=True)
+        if build.returncode != 0:
+            failed.append(name)
+            log(f"probe {name}: nvcc failed ({build.returncode}):\n{build.stdout}{build.stderr}")
+            continue
+        run = subprocess.run([str(exe)], capture_output=True, text=True, timeout=600)
+        log(f"probe {name} (exit {run.returncode}):\n{run.stdout}{run.stderr}")
+        if run.returncode != 0:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"probes failed: {failed}")
 
 
 MOVED_CALLS = 200
@@ -6632,6 +6685,9 @@ F64_FACTOR, F64_FLOOR = 10.0, 1e-12
 # parameter and the log-hyperparameters): CAVI steps, the default Adam
 F64_PATH_TOL, F64_HYPER_TOL = 1e-8, 1e-7
 F64_STEPS = 10
+# steps of phase 48's drift runs (10: the run's time holds phases 50-52
+# too)
+F64_DRIFT_STEPS = 10
 # steps of the float64 rates (after F64_WARM)
 F64_TIMED_STEPS, F64_WARM = 200, 20
 # the H100's published FP64 peaks (SXM, NVIDIA's data sheet, dense): on the
@@ -6726,6 +6782,9 @@ def f64_kernel_timing(ck, name, t32, t64, reps):
         r = kappa_timing(ck, name, t64, reps)
         r["library_ms"], r["library_device_us"] = r.pop("products_ms"), r.pop("products_device_us")
         r["float32_ms"] = cuda_ms(lambda: caller(getattr(ck, name), t32), reps)
+        with slab_route(ck):
+            r["slab_ms"] = cuda_ms(lambda: caller(getattr(ck, name), t64), reps)
+            r["slab_device_us"] = device_us(lambda: caller(getattr(ck, name), t64))[0]
         return r
     kappa64, g64, th64 = t64["kappa"], t64["g"], t64["theta"]
     if name == "cavi_stats":
@@ -6806,7 +6865,9 @@ def phase_f64_kernels(ck, device):
             for k, rr in ((name, r), (stats, rs)):
                 log(f"  float64 {k} {label}: {rr['ms']:.4f} ms (float32 {rr['float32_ms']:.4f}), device "
                     f"{rr['device_us']:.1f} us; plain {rr['plain_ms']:.4f}; library (float64) {rr['library_ms']:.4f} ms, "
-                    f"device {rr['library_device_us']:.1f} us; bound {rr['bound_ms']:.4f} ms")
+                    f"device {rr['library_device_us']:.1f} us; bound {rr['bound_ms']:.4f} ms"
+                    + (f"; row-slab form {rr['slab_ms']:.4f} ms, device {rr['slab_device_us']:.1f} us"
+                       if "slab_ms" in rr else ""))
         del t64, cpu64
     reset_launches(ck)
     return out
@@ -6877,33 +6938,34 @@ def phase_f64_paths(agt, ck, device):
 def phase_f64_drift(agt, ck, device):
     """Phase 48 (ROADMAP queue 3 item 3): the ten oracle paths at M=128
     (B=8192, phase 11's configuration) and the pair's ten M=512 paths at
-    B=PAIR_PARITY_B (phase 14's), 20 steps from the same draws, on the card
+    B=PAIR_PARITY_B (phase 14's), F64_DRIFT_STEPS steps from the same
+    draws, on the card
     in float64 (kernels 6 + 7 or 4 + 5, exact launches) and in float32, and
     on the CPU in float32 and float64: each one's distance to the CPU's
     float64 run, max |d mu| / max |mu| (and |d lam| / lam), logged (the
     float32 runs' includes the dtype-keyed jitter, 1e-3 against 1e-4).
     Returns {path: (card float64, card float32, CPU float32)}."""
     out = {}
-    draws = torch.randint(0, ON - OB + 1, (20,), generator=torch.Generator().manual_seed(1))
+    draws = torch.randint(0, ON - OB + 1, (F64_DRIFT_STEPS,), generator=torch.Generator().manual_seed(1))
     paths = [(f"oracle {lik}/{kernel} M={OM}", *oracle_data(lik, "cpu", seed=1)[:2],
               lambda X, lik=lik, kernel=kernel: oracle_model(agt, X, lik, kernel), draws, "single")
              for lik, kernel in single_paths()]
     for name, Xc, yc, build, b in pair_parity_paths(agt, device):
-        pdraws = torch.randint(0, Xc.shape[0] - b + 1, (20,), generator=torch.Generator().manual_seed(1))
+        pdraws = torch.randint(0, Xc.shape[0] - b + 1, (F64_DRIFT_STEPS,), generator=torch.Generator().manual_seed(1))
         paths.append((name, Xc, yc, build, pdraws, "batched" if name.startswith(("multiclass", "het")) else "single"))
     for name, Xc, yc, build, d, route in paths:
         t0 = time.perf_counter()
         X64, y64 = Xc.double(), yc.double()
-        cpu64 = after_20(agt, build(X64), X64, y64, d)
+        cpu64 = after_20(agt, build(X64), X64, y64, d, F64_DRIFT_STEPS)
         reset_launches(ck)
-        card64 = after_20(agt, build(X64.to(device)), X64.to(device), y64.to(device), d)
+        card64 = after_20(agt, build(X64.to(device)), X64.to(device), y64.to(device), d, F64_DRIFT_STEPS)
         torch.cuda.synchronize()
-        expect_launches(ck, f"float64 {name}", route_launches(20, route, f64=True))
-        card32 = after_20(agt, build(Xc.to(device)), Xc.to(device), yc.to(device), d)
-        cpu32 = after_20(agt, build(Xc), Xc, yc, d)
+        expect_launches(ck, f"float64 {name}", route_launches(F64_DRIFT_STEPS, route, f64=True))
+        card32 = after_20(agt, build(Xc.to(device)), Xc.to(device), yc.to(device), d, F64_DRIFT_STEPS)
+        cpu32 = after_20(agt, build(Xc), Xc, yc, d, F64_DRIFT_STEPS)
         reset_launches(ck)
         out[name] = (rel_err(card64, cpu64), rel_err(card32, cpu64), rel_err(cpu32, cpu64))
-        log(f"drift {name} (20 steps) against the CPU's float64: card float64 {out[name][0]:.3e}, card float32 "
+        log(f"drift {name} ({F64_DRIFT_STEPS} steps) against the CPU's float64: card float64 {out[name][0]:.3e}, card float32 "
             f"{out[name][1]:.3e}, CPU float32 {out[name][2]:.3e} ({time.perf_counter() - t0:.2f} s)")
         if not out[name][0] < 1.0:
             raise AssertionError(f"float64 {name}: the card's run is not near the CPU's ({out[name][0]:.3e})")
@@ -6958,6 +7020,349 @@ def float64_mode(agt, ck, device):
     return kernels, rates
 
 
+# --------------------------- kernels 4 and 6 column-blocked (phases 50-52)
+# the SVGP paths past the row slab's old ceilings: logistic_m512_b65536's
+# model (bench.py:196-213) widened to M=4,096 in float32 and M=2,048 in
+# float64, at B=16,384
+CB, C32_M, C64_M = 16_384, 4096, 2048
+# the MOVGP paths: tpu_acceptance.py:187-202's model (Gaussian(0.1) +
+# logistic tasks, Q=2) as a MOVGP (Z = X: M = N) on N points, float32 and
+# float64, full batch, and the reference's RMSE threshold (:202); its
+# squared-exponential kernel at lengthscale CV_LS, not the reference's 1:
+# with 3,000 points on [-2, 2]^2 a unit lengthscale puts cond(Kmm + 1e-3 I)
+# near 6e5, where float32 CAVI diverges on the CPU as on the card
+# (PERF.md)
+CV32_N, CV64_N, CV_ITERS, CV_RMSE, CV_LS = 3000, 1500, 60, 0.35, 0.25
+# CAVI steps of each path's float64 run on the host's CPU (its floor, and
+# its parity), which the card repeats from the same draws (the SVGP paths
+# one: at M=4,096, B=16,384 a float64 step takes the host's CPU ~15 s); the
+# SVGP paths' accuracy on the first COLS_EVAL rows; a path's error (1 -
+# accuracy, or RMSE) within COLS_FLOOR_FACTOR times its CPU float64 run's
+# (the floors' rule, PERF.md section 2)
+COLS_STEPS, COLS_SVGP_STEPS, COLS_EVAL, COLS_FLOOR_FACTOR = 2, 1, 4096, 3.0
+# the SVGP paths' further steps on the card alone, and the accuracy floor
+# they reach (logistic_m512_b65536's)
+COLS_TRAIN_STEPS = 20
+
+
+@contextlib.contextmanager
+def slab_route(ck):
+    """The wrappers take the row-slab form in float64 where its slab fits
+    (kappa_tile_rows in float64), as they did before the column-blocked
+    form: a yardstick for the column-blocked kernels, timed beside them."""
+    route = ck.kappa_route
+
+    def slab_first(which, m, dtype=torch.float32, limit=ck.SMEM_OPTIN):
+        tb = ck.kappa_tile_rows(which, m, limit, dtype)
+        return ("slab", tb) if tb else route(which, m, dtype, limit)
+
+    ck.kappa_route = slab_first
+    try:
+        yield
+    finally:
+        ck.kappa_route = route
+
+
+def cols_cases(device):
+    """(label, float32 inputs, kernels, dtype, timed) of phase 50: kernels 4
+    and 6 in the column-blocked form past the row slab's old ceilings, on
+    logistic_m512_b65536's data (D=20, lengthscale 2): float64 at kernel
+    4's M=1,185 (two latents) and kernel 6's M=1,193 at ragged B=300, at
+    M=2,048, B=700, and at the float64 SVGP path's M=2,048, B=16,384
+    (timed only: the CPU's float64 check runs at B=700); float32 at kernel
+    4's M=2,393 (two latents) and kernel 6's M=2,407 at B=300, and at the
+    float32 SVGP path's M=4,096, B=16,384 (timed)."""
+    Xl, _ = big_logistic_data("cpu", n=CB)
+    f64, f32 = torch.float64, torch.float32
+    return [("m1185_b300_L2", pair_inputs(Xl, 300, 1185, 2, device, seed=5), "moments", f64, False),
+            ("m1193_b300", pair_inputs(Xl, 300, 1193, 1, device, seed=6), "both", f64, False),
+            ("m2048_b700", pair_inputs(Xl, 700, C64_M, 1, device, seed=9), "both", f64, False),
+            ("m2048_b16384", pair_inputs(Xl, CB, C64_M, 1, device), "both", f64, True),
+            ("m2393_b300_L2", pair_inputs(Xl, 300, 2393, 2, device, seed=7), "moments", f32, False),
+            ("m2407_b300", pair_inputs(Xl, 300, 2407, 1, device, seed=8), "both", f32, False),
+            ("m4096_b16384", pair_inputs(Xl, CB, C32_M, 1, device), "both", f32, True)]
+
+
+def cols_calls(t, kernels):
+    """(wrapper name, caller, arguments, output names) of kernels 4 and 6 on
+    pair_inputs' tensors (kernel 6 on the first latent), as ``kernels``
+    names them ("moments", "single" or "both")."""
+    calls = []
+    if kernels in ("moments", "both"):
+        calls.append(("fused_kappa_moments_batched", call_k4, t, ("kappa", "mf", "vf")))
+    if kernels in ("single", "both"):
+        calls.append(("fused_kappa", call_k6, single_args(t), ("kappa", "Ktilde")))
+    return calls
+
+
+def phase_cols_kernels(ck, device):
+    """Phase 50: kernels 4 and 6 in the column-blocked form at every case of
+    cols_cases, each launch counted once in its wrapper's launches (or
+    launches_f64): float64 against the float64 plain version within
+    check_f64's bound (10 x its own card-vs-CPU difference), float32
+    against the float64 plain version within FLOAT32_FACTOR times the
+    float32 plain version's own error with no floor; a second call
+    bit-equal; the timed cases' ms and device us beside the plain version,
+    the products alone (torch.matmul / torch.bmm x2: the library call) and
+    the bound, and in float64 the float32 kernel on the same inputs.
+    Returns {label: {wrapper: timing or None}} and the largest errors."""
+    out, worst = {}, {}
+    for label, t32, kernels, dtype, timed in cols_cases(device):
+        t = to_float64(t32) if dtype == torch.float64 else t32
+        out[label] = {}
+        for name, caller, a, names in cols_calls(t, kernels):
+            fn, plain = getattr(ck, name), getattr(ck, name + "_reference")
+            reset_launches(ck)
+            got = caller(fn, a)
+            torch.cuda.synchronize()
+            counter = name + ("_f64" if dtype == torch.float64 else "")
+            counts = {n: launches_of(ck, n) for n in LAUNCH_COUNTERS if launches_of(ck, n)}
+            if counts != {counter: 1}:
+                raise AssertionError(f"{name} {label}: launched {counts}, expected {{{counter!r}: 1}}")
+            if dtype == torch.float64 and timed:  # held to the CPU's float64 run at B=700
+                row = {k: (float((o - r).abs().max()), float((o - r).abs().max()) / max(float(r.abs().max()), 1e-300),
+                           float("nan")) for k, o, r in zip(names, got, caller(plain, a))}
+                err = {k: v[1] for k, v in row.items()}
+                log(f"column-blocked {name} float64 {label} against the plain version on the card: "
+                    + " ".join(f"{k}={v:.2e}" for k, v in err.items()))
+            elif dtype == torch.float64:
+                a_cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in a.items()}
+                row = check_f64(f"{name} {label}", names, got, caller(plain, a), caller(plain, a_cpu))
+                err = {k: v[1] for k, v in row.items()}
+                log(f"column-blocked {name} float64 {label}: " + " ".join(
+                    f"{k}={v[1]:.2e} (plain card-vs-CPU {v[2]:.2e})" for k, v in row.items()))
+            else:
+                row = check_outputs(f"column-blocked {name} float32 {label}", names, got, caller(plain, a),
+                                    caller(plain, to_float64(a)), floor=0.0)
+                err = row
+            check_repeat(f"{name} {label}", lambda: caller(fn, a), got)
+            worst[name] = max(worst.get(name, 0.0), *(row[k][0] if isinstance(row[k], tuple) else row[k]
+                                                       for k in row))
+            del got
+            r = None
+            if timed:
+                r = kappa_timing(ck, name, a, 5)
+                n_lat, b_, m_ = a["Z"].shape[0] if a["Z"].ndim == 3 else 1, a["X"].shape[0], a["Z"].shape[-2]
+                moments = name != "fused_kappa"
+                if dtype == torch.float64:
+                    r["bound_ms"], r["bound_by"] = f64_kappa_bound(b_, a["X"].shape[1], m_, n_lat, moments)
+                    r["float32_ms"] = cuda_ms(lambda: caller(fn, t32 if moments else single_args(t32)), 5)
+                else:
+                    bounds = kappa_bounds(b_, a["X"].shape[1], m_, n_lat, moments)
+                    (r["bound_ms"], r["bound_by"]), r["bound_3xtf32_ms"] = bounds[0], bounds[1][0]
+                log(kappa_line(f"column-blocked {label} {str(dtype)[6:]}", "kernel 6" if not moments else "kernel 4",
+                               r) + f"; bound {r['bound_ms']:.4f} ms"
+                    + (f"; float32 kernel {r['float32_ms']:.4f} ms" if "float32_ms" in r else ""))
+            out[label][name] = {"timing": r, "errors": err, "dtype": str(dtype).removeprefix("torch.")}
+        del t
+    reset_launches(ck)
+    return out, worst
+
+
+def phase_cols_float32_precision(ck, device):
+    """Phase 51: the float32 column-blocked route past M=2,406 at
+    ill-conditioned shapes, against the float64 plain version within
+    FLOAT32_FACTOR times the float32 plain version's own error, no floor:
+    kernels 4 and 6 at M=2,500 on the oracle paths' data (B=8192, D=2,
+    lengthscale 1, Z on the batch's rows) and kernel 4 with two latents at
+    M=2,410 on the heteroscedastic oracle's (B=8192, D=1).  Returns
+    {label: {wrapper: errors}}."""
+    out = {}
+    Xo = oracle_data("studentt", "cpu")[0]
+    Xh = pair_het_data("cpu")[0]
+    for label, t, kernels in (("oracle_m2500_d2", pair_inputs(Xo, OB, 2500, 1, device, ls=1.0), "both"),
+                              ("het_m2410_d1_L2", pair_inputs(Xh, OB, 2410, 2, device, ls=1.0), "moments")):
+        out[label] = {}
+        for name, caller, a, names in cols_calls(t, kernels):
+            fn = getattr(ck, name)
+            if ck.kappa_route("moments" if name != "fused_kappa" else "single", a["Z"].shape[-2])[0] != "cols":
+                raise AssertionError(f"{name} {label}: not on the column-blocked route")
+            got = caller(fn, a)
+            torch.cuda.synchronize()
+            plain = getattr(ck, name + "_reference")
+            out[label][name] = check_outputs(f"column-blocked {name} float32 {label}", names, got, caller(plain, a),
+                                             caller(plain, to_float64(a)), floor=0.0)
+            check_repeat(f"{name} {label}", lambda: caller(fn, a), got)
+    return out
+
+
+def cols_svgp(agt, X, m):
+    return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(),
+                           agt.AnalyticSVI(CB, minibatch_sampling="slice"), X[:m], optimiser=None)
+
+
+def cols_svgp_steps(agt, X, y, m, draws, perm=None, model=None, state=None):
+    """(model, state, treated labels) of an SVGP path after len(draws) CAVI
+    steps from the given slice starts: a new model on the labels y, or
+    (model, state) on the treated labels y; ``perm`` reorders a new
+    model's inducing points."""
+    from agp_tpu_torch.training.train import vi_steps
+
+    y_t = y
+    if model is None:
+        model = cols_svgp(agt, X, m)
+        if perm is not None:
+            model = model.replace(Z=model.Z[:, perm.to(X.device)].contiguous())
+        y_t, lik = model.likelihood.treat_labels(y)
+        model = model.replace(likelihood=lik)
+        y_t = y_t.to(device=X.device, dtype=X.dtype)
+        state = agt.init_state(model, X, y_t)
+    model, state = vi_steps(model, state, X, y_t, len(draws), draws=draws.to(X.device))
+    return model, state, y_t
+
+
+def cols_svgp_error(agt, model, state, X, y):
+    return 1.0 - float((agt.predict_y(model, state, X[:COLS_EVAL]) == y[:COLS_EVAL]).double().mean())
+
+
+def cols_movgp(agt, X):
+    liks = [agt.GaussianLikelihood.create(0.1), agt.LogisticLikelihood.create()]
+    return seeded_A(agt.MOVGP.create(X, liks, agt.SqExponentialKernel(lengthscale=CV_LS), agt.AnalyticVI(),
+                                     n_latent=2, optimiser=None))
+
+
+def cols_movgp_steps(agt, X, ys, n, model=None, state=None):
+    """(model, state, treated labels) of a MOVGP path after n CAVI steps
+    (full batch): a new model on the labels ys, or (model, state) on the
+    treated labels ys."""
+    ys_t = ys
+    if model is None:
+        model, ys_t = mo_treated(cols_movgp(agt, X), ys)
+        state = agt.mo_init_state(model, X, ys_t)
+    model, state = mo_steps(model, state, X, ys_t, n)
+    return model, state, ys_t
+
+
+def cols_movgp_error(agt, model, state, X, f):
+    return float(torch.sqrt(torch.mean((agt.mo_predict_f(model, state, X[:256])[0][0] - f[:256]) ** 2)))
+
+
+def cols_path(agt, ck, device, which, dtype):
+    """One path of phase 52 ("svgp" or "movgp" in ``dtype``): on the host's
+    CPU in float64 (the floor's run) and on the card in ``dtype`` from the
+    same draws, COLS_SVGP_STEPS or COLS_STEPS CAVI steps, the card's with
+    its exact launches (kernels 6 + 7 or 4 + 5, column-blocked 6 or 4);
+    the card's error (1 - accuracy on the first COLS_EVAL rows, or task 0's
+    RMSE on 256 points) within COLS_FLOOR_FACTOR times the CPU run's;
+    card-vs-CPU parity of mu (max |d mu| / max |mu|): in float64 within
+    F64_PATH_TOL of the CPU's float64 run, in float32 (``parity_check``)
+    within ORACLE_DEVICE_FACTOR times the path's own float32 noise (the
+    card's run again with its inducing points, or a MOVGP's rows,
+    reordered) of the CPU's float32 run; then the card's run on to
+    COLS_TRAIN_STEPS steps (logistic_m512_b65536's accuracy floor) or
+    CV_ITERS (the reference's RMSE threshold).  Returns its numbers."""
+    t0 = time.perf_counter()
+    r = {}
+    if which == "svgp":
+        m = C32_M if dtype == torch.float32 else C64_M
+        Xc, yc = big_logistic_data("cpu")
+        steps = COLS_SVGP_STEPS
+        draws = torch.randint(0, LN - CB + 1, (steps,), generator=torch.Generator().manual_seed(1))
+        run = lambda X, y, perm=None: cols_svgp_steps(agt, X, y, m, draws, perm)  # noqa: E731
+        error = lambda out, X, y: cols_svgp_error(agt, out[0], out[1], X, y)  # noqa: E731
+        route, counter = "single", "fused_kappa"
+        perm = torch.randperm(m, generator=torch.Generator().manual_seed(2))
+        unperm = lambda mu: mu[:, torch.argsort(perm)]  # noqa: E731
+        run_perm = lambda X, y: run(X, y, perm)  # noqa: E731
+    else:
+        n = CV32_N if dtype == torch.float32 else CV64_N
+        m = n
+        Xc, fc, ysc = mo_data(n, "cpu", torch.float64, seed=4)
+        yc = ysc
+        steps = COLS_STEPS
+        run = lambda X, y: cols_movgp_steps(agt, X, y, steps)  # noqa: E731
+        error = lambda out, X, y: cols_movgp_error(agt, out[0], out[1], X, fc.to(X.device, X.dtype))  # noqa: E731
+        route, counter = "batched", "fused_kappa_moments_batched"
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(2))
+        unperm = lambda mu: mu[:, torch.argsort(perm)]  # noqa: E731
+        run_perm = lambda X, y: run(X[perm.to(X.device)], tuple(v[perm.to(X.device)] for v in y))  # noqa: E731
+    to = lambda v, dev, dt: (tuple(a.to(dev, dt) for a in v) if isinstance(v, tuple) else  # noqa: E731
+                             v.to(dev, dt))
+    X64, y64 = Xc.double(), to(yc, "cpu", torch.float64)
+    t1 = time.perf_counter()
+    cpu64 = run(X64, y64)
+    r["cpu64_s"] = time.perf_counter() - t1
+    r["cpu64_error"] = error(cpu64, X64, y64[0] if which == "movgp" else y64)
+    Xd, yd = Xc.to(device, dtype), to(yc, device, dtype)
+    reset_launches(ck)
+    card = run(Xd, yd)
+    torch.cuda.synchronize()
+    f64 = dtype == torch.float64
+    r["launches"] = expect_launches(ck, f"column-blocked {which} {str(dtype)[6:]} M={m}",
+                                    route_launches(steps, route, f64=f64))
+    if ck.kappa_route("single" if which == "svgp" else "moments", m, dtype)[0] != "cols":
+        raise AssertionError(f"{which} M={m}: not on the column-blocked route")
+    r["error"] = error(card, Xd, yd[0] if which == "movgp" else yd)
+    r["floor"] = COLS_FLOOR_FACTOR * r["cpu64_error"]
+    mu_card = card[1].mu.double().cpu()
+    if f64:
+        r["parity"] = float((mu_card - cpu64[1].mu).abs().max() / cpu64[1].mu.abs().max())
+        r["parity_bound"] = F64_PATH_TOL
+    else:
+        cpu32 = run(Xc.float(), to(yc, "cpu", torch.float32))[1].mu.double()
+        noise_mu = unperm(run_perm(Xd, yd)[1].mu.double().cpu())
+        noise = float((noise_mu - mu_card).abs().max() / mu_card.abs().max())
+        r["parity"] = float((mu_card - cpu32).abs().max() / cpu32.abs().max())
+        r["parity_share"] = parity_check(f"column-blocked {which} M={m}", r["parity"], noise)
+        r["parity_bound"], r["noise"] = ORACLE_DEVICE_FACTOR * noise, noise
+    label = f"column-blocked {which} {str(dtype)[6:]} M={m}"
+    if not r["error"] <= r["floor"]:
+        raise AssertionError(f"{label}: error {r['error']:.4f} > floor {r['floor']:.4f} ({COLS_FLOOR_FACTOR:g} x the "
+                             f"CPU float64 run's {r['cpu64_error']:.4f})")
+    if f64 and not r["parity"] <= F64_PATH_TOL:
+        raise AssertionError(f"{label}: card vs CPU (float64) {r['parity']:.3e} > {F64_PATH_TOL:g}")
+    # on to a trained model, on the card alone
+    more = (COLS_TRAIN_STEPS if which == "svgp" else CV_ITERS) - steps
+    reset_launches(ck)
+    t1 = time.perf_counter()
+    if which == "svgp":
+        more_draws = torch.randint(0, LN - CB + 1, (more,), generator=torch.Generator().manual_seed(3))
+        model, state, _ = cols_svgp_steps(agt, Xd, card[2], m, more_draws, model=card[0], state=card[1])
+    else:
+        model, state, _ = cols_movgp_steps(agt, Xd, card[2], more, model=card[0], state=card[1])
+    torch.cuda.synchronize()
+    r["train_s"] = time.perf_counter() - t1
+    r["launches"] += expect_launches(ck, f"{label} training", route_launches(more, route, f64=f64))
+    if which == "svgp":
+        r["accuracy"] = 1.0 - cols_svgp_error(agt, model, state, Xd, yd)
+        ok = r["accuracy"] >= MIN_BIG_ACC
+    else:
+        r["rmse"] = cols_movgp_error(agt, model, state, Xd, fc.to(device, dtype))
+        ok = r["rmse"] < CV_RMSE
+    if not (ok and bool(torch.isfinite(state.mu).all())):
+        raise AssertionError(f"{label}: after {more + steps} steps {r.get('accuracy', r.get('rmse'))} misses "
+                             f"{MIN_BIG_ACC if which == 'svgp' else CV_RMSE}")
+    r["seconds"] = time.perf_counter() - t0
+    log(f"{label} ({steps} steps from the same draws): error {r['error']:.4f} (floor {r['floor']:.4f} = "
+        f"{COLS_FLOOR_FACTOR:g} x the CPU float64 run's {r['cpu64_error']:.4f}, {r['cpu64_s']:.2f} s on the CPU); "
+        f"card vs CPU {r['parity']:.3e} (bound {r['parity_bound']:.3e}); {r['launches']} launches ({counter} "
+        f"column-blocked); after {more + steps} steps "
+        + (f"accuracy {r['accuracy']:.4f}" if which == "svgp" else f"RMSE {r['rmse']:.4f}")
+        + f" ({r['train_s']:.2f} s); {r['seconds']:.2f} s")
+    return r
+
+
+def phase_cols_paths(agt, ck, device):
+    """Phase 52: the four paths past the old ceilings (``cols_path``): the
+    SVGP at M=4,096 in float32 and M=2,048 in float64, the MOVGP on 3,000
+    points in float32 and 1,500 in float64."""
+    out = {}
+    for which, dtype in (("svgp", torch.float32), ("svgp", torch.float64), ("movgp", torch.float32),
+                         ("movgp", torch.float64)):
+        out[f"{which} {str(dtype)[6:]}"] = cols_path(agt, ck, device, which, dtype)
+    return out
+
+
+def cols_mode(agt, ck, device):
+    """Phases 50-52 (``python3 chip_smoke.py cols``): kernels 4 and 6
+    column-blocked past the old ceilings, the float32 route's precision at
+    ill-conditioned shapes, the four paths."""
+    kernels = timed_phase("column-blocked kernels 4 and 6", phase_cols_kernels, ck, device)
+    timed_phase("column-blocked float32 precision", phase_cols_float32_precision, ck, device)
+    paths = timed_phase("column-blocked paths", phase_cols_paths, agt, ck, device)
+    return kernels, paths
+
+
 def f64_rows(kernels):
     """The kernels line's rows of kernels 4-7's float64 forms, at
     logistic_m512_b65536 (the float32 rows' main shape), each with its
@@ -6995,6 +7400,9 @@ def f64_rows(kernels):
             "per_shape_library_ms": {s: v["library_ms"] for s, v in k["shapes"].items()},
             "per_shape_device_us": {s: v["device_us"] for s, v in k["shapes"].items()},
             "per_shape_bound_ms": {s: v["bound_ms"] for s, v in k["shapes"].items()},
+            **({"per_shape_slab_ms": {s: v["slab_ms"] for s, v in k["shapes"].items() if "slab_ms" in v},
+                "slab": "the row-slab form in float64 on the same inputs, timed beside it"}
+               if name.startswith("fused_kappa") else {}),
             "vs_plain_float64": k["errors"],
             "bound": "the function's products once at 67 TFLOP/s FP64 tensor cores, the gram and row sums at 34 FP64, "
                      "8-byte elements at 3.35 TB/s",
@@ -7002,6 +7410,21 @@ def f64_rows(kernels):
             "bound_by": bounds[name][1],
         })
     return rows
+
+
+def cols_shapes(rows, cols_kernels):
+    """Adds to the kernels line's rows of kernels 4 and 6 (float32) and of
+    their float64 forms phase 50's shapes past the row slab's old ceilings
+    ("column_blocked": {shape: ms, device us, plain ms, the products
+    alone, bound, largest errors}), each where its dtype ran."""
+    for label, by_kernel in cols_kernels.items():
+        for name, r in by_kernel.items():
+            row = next(k for k in rows if k["name"] == name + ("_f64" if r["dtype"] == "float64" else ""))
+            t = r["timing"] or {}
+            row.setdefault("column_blocked", {})[label] = {
+                "ms": t.get("ms"), "device_us": t.get("device_us"), "plain_ms": t.get("plain_ms"),
+                "products_ms": t.get("products_ms"), "bound_ms": t.get("bound_ms"),
+                "float32_ms": t.get("float32_ms"), "errors": r["errors"]}
 
 
 PHASE_SECONDS = {}
@@ -7063,8 +7486,8 @@ def main():
     if args == ["moved-paths"]:
         time_moved_paths(agt, device)
         return
-    if args == ["probe"]:
-        probe_mode(ck)
+    if args[:1] == ["probe"]:
+        probe_mode(ck, args[1] if len(args) > 1 else "all")
         return
     if args == ["dense-cpu"]:  # the CPU alone: no kernel to build
         dense_cpu_mode(agt, ck)
@@ -7147,6 +7570,11 @@ def main():
         timed_phase("kappa tiles", check_kappa_tiles, ck)
         float64_mode(agt, ck, device)
         return
+    if args == ["cols"]:
+        timed_phase("tensor-core SASS", check_tc_sass, lib_path)
+        timed_phase("kappa tiles", check_kappa_tiles, ck)
+        cols_mode(agt, ck, device)
+        return
     if args[:2] == ["profile", "mo"]:
         profile_mo(agt, device)
         return
@@ -7203,6 +7631,7 @@ def main():
     slice_jk_mode(agt, ck, device)
     slice_l_mode(agt, ck, device)
     f64_kernels, _ = float64_mode(agt, ck, device)
+    (cols_kernels, _), _ = cols_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {
@@ -7314,6 +7743,7 @@ def main():
     }] + f64_rows(f64_kernels)}
     for row in kernels["kernels"][-4:]:  # the float64 forms' bounds (f64_rows)
         bounds[row["name"]] = (row.pop("bound_ms"), row.pop("bound_by"))
+    cols_shapes(kernels["kernels"], cols_kernels)
     for name in [n for n, v in bounds.items() if len(v) == 3]:
         # (function's, 3xTF32 design's, FP32) bounds
         bounds[name], design, fp32 = bounds[name]

@@ -368,10 +368,11 @@ def test_cuda_pair_autograd_matches_plain(cuda_device):
 @pytest.mark.cuda
 def test_cuda_pair_wrappers_raise(cuda_device):
     """On a CUDA tensor the pair launches or raises: an unknown kind, mixed
-    dtypes, a wrong shape, or M beyond kernel 4's shared memory (past
-    kappa_max_m("moments"), 2,392 on an H100); float64 launches the
-    float64 form, which matches the float64 plain version (chip_smoke's
-    check_f64) and counts in launches_f64 alone."""
+    dtypes or a wrong shape raise; float64 launches the float64 form,
+    which matches the float64 plain version (chip_smoke's check_f64) and
+    counts in launches_f64 alone; past the row slab's old ceiling
+    (kappa_max_m("moments") + 1, 2,393 on an H100) kernel 4 launches its
+    column-blocked form in float32 and in float64 and matches (cols_match)."""
     t = pair_case(64, 16, 2, 4, cuda_device)
     t64 = smoke.to_float64(t)
     before = (ck.fused_kappa_moments_batched.launches, ck.cavi_stats_batched.launches)
@@ -393,8 +394,9 @@ def test_cuda_pair_wrappers_raise(cuda_device):
     with pytest.raises(ValueError):
         smoke.call_k4(ck.fused_kappa_moments_batched, {**t, "mu": t["mu"][:1]})
     big = pair_case(8, ck.kappa_max_m("moments") + 1, 1, 2, cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        smoke.call_k4(ck.fused_kappa_moments_batched, big)
+    cols_match(big, "moments")
+    cols_match(smoke.to_float64(big), "moments")
+    before = (ck.fused_kappa_moments_batched.launches, ck.cavi_stats_batched.launches)
     kappa = torch.zeros((2, 64, 16), device=cuda_device)
     with pytest.raises(TypeError):
         ck.cavi_stats_batched(kappa, t["g"].double(), t["theta"])
@@ -609,6 +611,49 @@ def test_cuda_kappa_tc_keep_the_range(cuda_device, b, m, d, n_latent, kernels):
         smoke.check_repeat(label, lambda: call(fn, args), got)
 
 
+def cols_match(t, kernels):
+    """Kernel 4 and/or 6 (``kernels``: "moments", "single" or "both") on
+    pair_inputs' tensors t on the column-blocked route, one launch a call
+    in the dtype's counter: float64 within chip_smoke.check_f64's bound (10
+    x the float64 plain version's own card-vs-CPU difference), float32
+    against the float64 plain version within FLOAT32_FACTOR times the
+    float32 plain version's own error with no floor; a second call
+    bit-equal."""
+    f64 = t["X"].dtype == torch.float64
+    for name, caller, a, names in smoke.cols_calls(t, kernels):
+        fn, plain = getattr(ck, name), getattr(ck, name + "_reference")
+        assert ck.kappa_route("single" if name == "fused_kappa" else "moments", a["Z"].shape[-2],
+                              a["X"].dtype)[0] == "cols"
+        counter = "launches_f64" if f64 else "launches"
+        before = getattr(fn, counter)
+        got = caller(fn, a)
+        torch.cuda.synchronize()
+        assert getattr(fn, counter) == before + 1, name
+        label = f"{name} B={a['X'].shape[0]} M={a['Z'].shape[-2]} {a['X'].dtype}"
+        if f64:
+            a_cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in a.items()}
+            smoke.check_f64(label, names, got, caller(plain, a), caller(plain, a_cpu))
+        else:
+            smoke.check_outputs(label, names, got, caller(plain, a), caller(plain, smoke.to_float64(a)), floor=0.0)
+        smoke.check_repeat(label, lambda: caller(fn, a), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n_latent,d,kernels,dtype", [
+    (300, 129, 1, 20, "both", torch.float64), (300, 129, 3, 20, "moments", torch.float64),
+    (300, 1185, 2, 20, "moments", torch.float64), (300, 1193, 1, 20, "both", torch.float64),
+    (700, 2048, 1, 20, "both", torch.float64), (300, 2393, 2, 20, "moments", torch.float32),
+    (300, 2407, 1, 20, "both", torch.float32), (1000, 4096, 1, 20, "both", torch.float32),
+])
+def test_cuda_kappa_cols_match_plain(cuda_device, b, m, n_latent, d, kernels, dtype):
+    """Kernels 4 and 6 on the column-blocked route (every float64 call;
+    float32 past the row slab's range) at ragged B=300 with an odd M=129,
+    at M=1,185-2,048 in float64 and M=2,393-4,096 in float32, against
+    their plain versions (cols_match)."""
+    t = pair_case(b, m, n_latent, d, cuda_device)
+    cols_match(smoke.to_float64(t) if dtype == torch.float64 else t, kernels)
+
+
 @pytest.mark.cuda
 def test_cuda_kappa_autograd_matches_plain(cuda_device):
     smoke.phase_kappa_autograd(ck, cuda_device)
@@ -617,10 +662,12 @@ def test_cuda_kappa_autograd_matches_plain(cuda_device):
 @pytest.mark.cuda
 def test_cuda_single_pair_wrappers_raise(cuda_device):
     """On a CUDA tensor the single-latent pair launches or raises: an
-    unknown kind, mixed dtypes, a wrong shape, or M beyond kernel 6's
-    shared memory (past kappa_max_m("single"), 2,406 on an H100); float64
-    launches the float64 form, which matches the float64 plain version
-    (chip_smoke's check_f64) and counts in launches_f64 alone."""
+    unknown kind, mixed dtypes or a wrong shape raise; float64 launches the
+    float64 form, which matches the float64 plain version (chip_smoke's
+    check_f64) and counts in launches_f64 alone; past the row slab's old
+    ceiling (kappa_max_m("single") + 1, 2,407 on an H100) kernel 6
+    launches its column-blocked form in float32 and in float64 and matches
+    (cols_match)."""
     t = smoke.single_args(pair_case(64, 16, 1, 4, cuda_device))
     t64 = smoke.to_float64(t)
     before = (ck.fused_kappa.launches, ck.cavi_stats.launches)
@@ -639,9 +686,10 @@ def test_cuda_single_pair_wrappers_raise(cuda_device):
     assert (ck.fused_kappa.launches_f64, ck.cavi_stats.launches_f64) == tuple(n + 1 for n in before64)
     with pytest.raises(ValueError):
         smoke.call_k6(ck.fused_kappa, {**t, "Z": t["Z"][:, :2].contiguous()})
-    big = smoke.single_args(pair_case(8, ck.kappa_max_m("single") + 1, 1, 2, cuda_device))
-    with pytest.raises(ValueError, match="shared memory"):
-        smoke.call_k6(ck.fused_kappa, big)
+    big = pair_case(8, ck.kappa_max_m("single") + 1, 1, 2, cuda_device)
+    cols_match(big, "single")
+    cols_match(smoke.to_float64(big), "single")
+    before = (ck.fused_kappa.launches, ck.cavi_stats.launches)
     kappa = torch.zeros((64, 16), device=cuda_device)
     with pytest.raises(TypeError):
         ck.cavi_stats(kappa, t["g"].double(), t["theta"])
@@ -1173,14 +1221,23 @@ def test_cuda_slice_h_models_refuse_float64(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_movgp_over_the_kernel_range_refused(cuda_device):
-    """A MOVGP whose N (its M) passes kernel 4's range (Q=2) or kernel 6's
-    (Q=1) is refused at create with a ValueError naming the limit."""
-    for q, which in ((2, "moments"), (1, "single")):
-        limit = ck.kappa_max_m(which)
-        X, y = toy_on(cuda_device, limit + 1)
-        with pytest.raises(ValueError, match=f"M <= {limit}"):
-            agt.MOVGP.create(X, [agt.GaussianLikelihood.create(0.1)], agt.SqExponentialKernel(), agt.AnalyticVI(), q)
-    agt.MOVGP.create(X[:64], [agt.GaussianLikelihood.create(0.1)], agt.SqExponentialKernel(), agt.AnalyticVI(), 2)
+    """A MOVGP whose N (its M) passes the row slab's old ceiling of kernel
+    4 (Q=2) or 6 (Q=1), in float32 and in float64, is no longer refused: it
+    is built and takes CAVI steps with its exact launches, its kernel on the
+    column-blocked route, mu finite."""
+    for q, which, route in ((2, "moments", "batched"), (1, "single", "single")):
+        for dtype in (torch.float32, torch.float64):
+            n = ck.kappa_max_m(which, dtype=dtype) + 1
+            X, y = toy_on(cuda_device, n, dtype=dtype)
+            model = agt.MOVGP.create(X, [agt.GaussianLikelihood.create(0.1)], agt.SqExponentialKernel(),
+                                     agt.AnalyticVI(), q, optimiser=None)
+            assert ck.kappa_route(which, n, dtype)[0] == "cols"
+            smoke.reset_launches(ck)
+            model, state = agt.mo_train(model, X, [y], iterations=2)
+            torch.cuda.synchronize()
+            want = smoke.route_launches(2, route, f64=dtype == torch.float64)
+            assert {k: smoke.launches_of(ck, k) for k in want} == want, (q, dtype)
+            assert bool(torch.isfinite(state.mu).all())
 
 
 @pytest.mark.cuda

@@ -245,18 +245,3 @@ def test_card_dtype_rule_for_each_model_family(monkeypatch, family):
     if family == "SVGP":
         with pytest.raises(TypeError, match="data"):
             agt.init_state(model, X64.half(), y64.half())
-
-
-@pytest.mark.parametrize("dtype,q,ok,refused", [
-    (torch.float32, 2, 2392, 2393), (torch.float64, 2, 1184, 1185),
-    (torch.float32, 1, 2406, 2407), (torch.float64, 1, 1192, 1193),
-])
-def test_multioutput_range_by_dtype(dtype, q, ok, refused):
-    """A multi-output model on the card is refused at create beyond the M
-    of the moments kernel its step launches, in its dtype (kernel 4 for
-    Q > 1, kernel 6 for Q = 1); the message names the dtype."""
-    kernel = agt.SqExponentialKernel()
-    multioutput._check_kernel_range("cuda", q, ok, kernel, dtype)
-    multioutput._check_kernel_range("cpu", q, refused, kernel, dtype)
-    with pytest.raises(ValueError, match=f"M <= {ok} inducing points in {str(dtype)[6:]}"):
-        multioutput._check_kernel_range("cuda", q, refused, kernel, dtype)

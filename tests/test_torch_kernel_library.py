@@ -201,20 +201,3 @@ def test_path_leaves_round_trip_and_reference_paths():
     for p, v in path_leaves(doubled).items():
         close(v, 2 * leaves[p], rtol=0)
     assert doubled.left.transform.transforms[0].A.shape == (2, 3)
-
-
-def test_movgp_range_check_only_for_fused_kernels():
-    """The card's refusal of a MOVGP past kernel 4's or 6's range holds for a
-    kernel of FUSED_KINDS only: with any other kernel kappa is plain and
-    kernels 5 and 7 take any M."""
-    from agp_tpu_torch.models.multioutput import _check_kernel_range
-    from agp_tpu_torch.ops import cuda_kernels as ck
-
-    cuda = torch.device("cuda")
-    for q, which in ((2, "moments"), (1, "single")):
-        big = ck.kappa_max_m(which) + 1
-        with pytest.raises(ValueError, match="M <="):
-            _check_kernel_range(cuda, q, big, tk.replicate(agt.SqExponentialKernel(), q))
-        _check_kernel_range(cuda, q, big, tk.replicate(agt.SqExponentialKernel() + agt.LinearKernel(), q))
-        _check_kernel_range(cuda, q, big, tk.replicate(agt.RationalQuadraticKernel(), q))
-        _check_kernel_range(torch.device("cpu"), q, big, tk.replicate(agt.SqExponentialKernel(), q))
