@@ -66,7 +66,8 @@
 // B M^2 + B M (M+1)/2 FMAs at the FP64 tensor-core peak (67 TFLOP/s),
 // 0.77 ms at B=65,536, M=512, L=1; the design forms kappa Sigma in full,
 // 1.03 ms.  agp_cavi_stats_batched_f64 is kernel 5's float64 form, in
-// double (stats_tc.cuh).
+// double (stats_tc.cuh: FP64 m16n8k8 tiles, or the m8n8k4 geometry on
+// request).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -143,14 +144,18 @@ size_t agp_kappa_moments_smem_bytes_f64(int M, int tile_rows) {
   return with_tile<double>(tile_rows, SIZE_MAX, [&](auto t) { return rows_smem<decltype(t)>(M); });
 }
 
-// edge of kernels 5 and 7's output tiles, and of their float64 form's
-int agp_cavi_stats_tile(void) { return StatsShape<float>::TILE; }
-int agp_cavi_stats_tile_f64(void) { return StatsShape<double>::TILE; }
+// edge of kernels 5 and 7's output tiles, and of their float64 form's (both
+// of its geometries)
+int agp_cavi_stats_tile(void) { return StatsF32::TILE; }
+int agp_cavi_stats_tile_f64(void) { return StatsF64K8::TILE; }
 
-// resident blocks of kernels 5 and 7 (and of their float64 form) on one SM
-// of the current device (0 on error)
-int agp_cavi_stats_blocks_per_sm(void) { return stats_blocks_per_sm<float>(); }
-int agp_cavi_stats_blocks_per_sm_f64(void) { return stats_blocks_per_sm<double>(); }
+// resident blocks of kernels 5 and 7 on one SM of the current device, and of
+// their float64 form in the geometry of mma depth mma_k (8 or 4; 0 on error
+// or for any other depth)
+int agp_cavi_stats_blocks_per_sm(void) { return stats_blocks_per_sm<StatsF32>(); }
+int agp_cavi_stats_blocks_per_sm_f64(int mma_k) {
+  return with_stats_f64(mma_k, 0, [](auto sh) { return stats_blocks_per_sm<decltype(sh)>(); });
+}
 
 // All pointers are device pointers to contiguous float32 arrays:
 // x [B, D], z [L, M, D], kinv [L, M, M], mu [L, M], sigma [L, M, M],
@@ -203,13 +208,15 @@ int agp_cavi_stats_batched(const float* kappa, const float* g, const float* thet
                       static_cast<cudaStream_t>(stream));
 }
 
-// The float64 form: the same arguments as float64 arrays, the chunks
-// planned with agp_cavi_stats_tile_f64 and agp_cavi_stats_blocks_per_sm_f64.
+// The float64 form: the same arguments as float64 arrays, and the mma depth
+// mma_k of its geometry (8: m16n8k8, 4: m8n8k4 pairs; stats_tc.cuh), the
+// chunks planned with agp_cavi_stats_tile_f64 and
+// agp_cavi_stats_blocks_per_sm_f64(mma_k).
 int agp_cavi_stats_batched_f64(const double* kappa, const double* g, const double* theta, double* s1_part,
                                double* s2_part, double* s1, double* s2, int B, int M, int L, int nchunks,
-                               int rows_per_chunk, void* stream) {
+                               int rows_per_chunk, int mma_k, void* stream) {
   return launch_stats(kappa, g, theta, s1_part, s2_part, s1, s2, B, M, L, nchunks, rows_per_chunk,
-                      static_cast<cudaStream_t>(stream));
+                      static_cast<cudaStream_t>(stream), mma_k);
 }
 
 }  // extern "C"

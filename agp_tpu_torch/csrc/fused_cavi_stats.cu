@@ -201,7 +201,7 @@ const char* agp_cuda_error_string(int err) {
 // likelihood's parameters; outputs c, theta, mf, vf [B], s1 [M], s2 [M, M];
 // scratch kappa [B, M] (16-byte aligned for 16-byte copies), wg, ws [B],
 // s1_part [nchunks, M], s2_part [nchunks, M, M] with nchunks =
-// ceil(B / rows_per_chunk), rows_per_chunk a multiple of stats_tc.cuh's StatsShape<float>::KB
+// ceil(B / rows_per_chunk), rows_per_chunk a multiple of stats_tc.cuh's StatsF32::KB
 // (ops/cuda_kernels.py::_stats_plan).  kind: a GramKind code, lik: a Lik
 // code, 1 <= M <= MAX_M.  Three launches on `stream` (cavi_rows,
 // stats_tc, sum_tiles); returns the CUDA error of the launches

@@ -24,7 +24,10 @@
 // in the product's blocks instead would repeat that arithmetic for each of
 // the M / TN column tiles, 4 x 0.29 ms there (probes/kappa_cols.cu;
 // PERF.md).  The grid runs a row panel's column tiles next to each other
-// (column tile fastest), so that the panel's later reads come from L2.
+// (column tile fastest), so that the panel's later reads come from L2: one
+// linear block index on grid x, row tile times column tiles plus column
+// tile, which caps neither B nor M (grid y, which holds the latents,
+// would cap a dimension at 65,535 tiles).
 //
 // The product.  Doubles: one FP64 mma.sync.m16n8k8 a warp tile's 16 x 8 x
 // 8 step (DMMA: IEEE double with FMA, nothing to split; m16n8k4, k8 and
@@ -298,12 +301,13 @@ __device__ __forceinline__ void load_a_tile(E* T, const E* __restrict__ a, int l
   __syncthreads();
 }
 
-// One [TB, TN] tile (column tile blockIdx.x, row tile blockIdx.y) of
-// latent blockIdx.z of the product A Bm, A [L, B, M] and Bm [L, M, M]
+// One [TB, TN] tile (column tile blockIdx.x % nc, row tile blockIdx.x /
+// nc, nc = col_tiles(M)) of latent blockIdx.y of the product A Bm, A
+// [L, B, M] and Bm [L, M, M]
 // (cols_product), and in its epilogue the row partials over the tile's
 // columns of q0 = sum (A Bm) o A (kernel 6's and 4's Ktilde: A = Knm; kernel
 // 4's vf: A = kappa, Bm = Sigma) and, with MF, q1 = sum (A Bm) mu (mf) into
-// part0, part1 [L, gridDim.x, B]; with STORE the tile is stored to out
+// part0, part1 [L, nc, B]; with STORE the tile is stored to out
 // [L, B, M] from the fragments.  A's tile comes back into the ring in one
 // batch of copies (load_a_tile: one trip to L2, not one a fragment), the
 // row sums after it.
@@ -313,8 +317,8 @@ kappa_cols(const E* __restrict__ a, const E* __restrict__ bm, const E* __restric
            E* __restrict__ part0, E* __restrict__ part1, int B, int M, bool vec) {
   extern __shared__ float4 sm4[];
   E* ring = reinterpret_cast<E*>(sm4);
-  const int j = blockIdx.x, l = blockIdx.z;
-  const int n0 = j * C::TN, row0 = blockIdx.y * C::TB, nrows = min(C::TB, B - row0);
+  const int nc = (M + C::TN - 1) / C::TN, j = blockIdx.x % nc, l = blockIdx.y;
+  const int n0 = j * C::TN, row0 = (blockIdx.x / nc) * C::TB, nrows = min(C::TB, B - row0);
   const E* al = a + ((size_t)l * B + row0) * M;
   E* ol = STORE ? out + ((size_t)l * B + row0) * M : nullptr;
   const E* mul = MF ? mu + (size_t)l * M : nullptr;
@@ -340,7 +344,7 @@ kappa_cols(const E* __restrict__ a, const E* __restrict__ bm, const E* __restric
                   });
   __syncthreads();
   for (int t = threadIdx.x; t < nrows; t += C::THREADS) {
-    const size_t r = ((size_t)l * gridDim.x + j) * B + row0 + t;
+    const size_t r = ((size_t)l * nc + j) * B + row0 + t;
     part0[r] = row_total<C>(red, t);
     if constexpr (MF) part1[r] = row_total<C>(red + R, t);
   }
@@ -471,7 +475,7 @@ int launch_kappa_cols(const E* x, const E* z, const E* kinv, const E* mu, const 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const dim3 grid(nc, (B + C::TB - 1) / C::TB, L);
+  const dim3 grid((unsigned)nc * (unsigned)((B + C::TB - 1) / C::TB), L);  // column tile fastest
   const bool vec = M % (16 / sizeof(E)) == 0 && aligned(knm) && aligned(kinv) && aligned(kappa);
   err = prepare_smem<&kappa_cols<C, true, MOMENTS>>(C::SMEM);
   if (err != cudaSuccess) return (int)err;

@@ -79,7 +79,8 @@
 // K^-1 serve 128 rows where the slab of doubles left 32 at M=512.  What
 // bounds the float64 function: kappa's B M^2 FMAs at the FP64 tensor-core
 // peak (67 TFLOP/s), 0.51 ms at B=65,536, M=512, against 268 MB of kappa
-// written (0.08 ms).  agp_cavi_stats_f64 is kernel 7's float64 form.
+// written (0.08 ms).  agp_cavi_stats_f64 is kernel 7's float64 form
+// (stats_tc.cuh: FP64 m16n8k8 tiles, or the m8n8k4 geometry on request).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -236,13 +237,15 @@ int agp_cavi_stats(const float* kappa, const float* g, const float* theta, float
                       static_cast<cudaStream_t>(stream));
 }
 
-// The float64 form: the same arguments as float64 arrays, the chunks
-// planned with agp_cavi_stats_tile_f64 and agp_cavi_stats_blocks_per_sm_f64
-// (batched_pair.cu).
+// The float64 form: the same arguments as float64 arrays, and the mma depth
+// mma_k of its geometry (8 or 4, as agp_cavi_stats_batched_f64's), the
+// chunks planned with agp_cavi_stats_tile_f64 and
+// agp_cavi_stats_blocks_per_sm_f64(mma_k) (batched_pair.cu).
 int agp_cavi_stats_f64(const double* kappa, const double* g, const double* theta, double* s1_part, double* s2_part,
-                       double* s1, double* s2, int B, int M, int nchunks, int rows_per_chunk, void* stream) {
+                       double* s1, double* s2, int B, int M, int nchunks, int rows_per_chunk, int mma_k,
+                       void* stream) {
   return launch_stats(kappa, g, theta, s1_part, s2_part, s1, s2, B, M, 1, nchunks, rows_per_chunk,
-                      static_cast<cudaStream_t>(stream));
+                      static_cast<cudaStream_t>(stream), mma_k);
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
 // A measurement program (not part of the library): whether this toolkit's
 // ptxas takes the FP64 mma.sync shape m16n8k{DMMA_K} (4, 8 or 16; the
-// larger two exist from sm_90), whether its fragments follow the layout
+// larger two exist from sm_90), or with -DDMMA_PAIR (and DMMA_K=4) a 16 x 8
+// x 4 tile as two m8n8k4 (sm_80's shape, tf32_mma.cuh::mma_f64_16x8,
+// which stats_tc.cuh's StatsF64K4 geometry runs), whether its fragments
+// follow the layout
 // that csrc/kappa_cols.cuh assumes for m16n8k8 (A's a[i] at row gid + 8
 // (i % 2), column tig + 4 (i / 2); B's b[i] at row tig + 4 i, column gid;
 // C's c[i] at row gid + 8 (i / 2), column 2 tig + i % 2), and the rate one
 // warp tile of MMAs reaches on the card.  Built once for each shape with
-// -DDMMA_K=4, 8 or 16 by `python3 chip_smoke.py probe` (a shape ptxas
-// refuses fails that build alone).
+// -DDMMA_K=4, 8 or 16, and with -DDMMA_K=4 -DDMMA_PAIR, by `python3
+// chip_smoke.py probe` (a shape ptxas refuses fails that build alone).
 #include <cmath>
 #include <cstdio>
 
@@ -17,8 +20,18 @@
 constexpr int K = DMMA_K;
 constexpr int NA = K / 2, NB = K / 4;  // doubles of A and of B a thread
 
+#if defined(DMMA_PAIR) && DMMA_K != 4
+#error "DMMA_PAIR takes DMMA_K=4"
+#endif
+
 __device__ __forceinline__ void mma(double (&c)[4], const double (&a)[NA], const double (&b)[NB]) {
-#if DMMA_K == 4
+#if defined(DMMA_PAIR)
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%4}, {%6}, {%0, %1};\n"
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%2, %3}, {%5}, {%6}, {%2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+#elif DMMA_K == 4
   asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
                : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
                : "d"(a[0]), "d"(a[1]), "d"(b[0]));
@@ -103,9 +116,15 @@ int main() {
   float ms = 0;
   cudaEventElapsedTime(&ms, t0, t1);
   const double flops = 2.0 * 16 * 8 * K * 16.0 * REPS * (blocks * 8.0);
-  printf("dmma m16n8k%d: %s; layout max |D - A B| = %.3e (%s); rate %.1f TFLOP/s (%d blocks of 8 warps, "
+#if defined(DMMA_PAIR)
+  const char* shape = "m8n8k4 x 2 (a 16 x 8 x 4 tile)";
+#else
+  char shape[16];
+  snprintf(shape, sizeof shape, "m16n8k%d", K);
+#endif
+  printf("dmma %s: %s; layout max |D - A B| = %.3e (%s); rate %.1f TFLOP/s (%d blocks of 8 warps, "
          "64 x 32 warp tiles, %.3f ms)\n",
-         K, err == cudaSuccess ? "ran" : cudaGetErrorString(err), worst, worst < 1e-12 ? "layout as assumed" : "LAYOUT DIFFERS",
+         shape, err == cudaSuccess ? "ran" : cudaGetErrorString(err), worst, worst < 1e-12 ? "layout as assumed" : "LAYOUT DIFFERS",
          flops / (ms * 1e-3) / 1e12, blocks, ms);
   return worst < 1e-12 && err == cudaSuccess ? 0 : 1;
 }

@@ -112,7 +112,7 @@ float loop_ms(const E* a, const E* bm, E* sink, int B, int M) {
 template <class C, class E = typename C::Elem>
 float product_ms(const E* knm, const E* kinv, E* kappa, E* part, int B, int M) {
   if (prepare_smem<&kappa_cols<C, true, false>>(C::SMEM) != cudaSuccess) return -1.0f;
-  const dim3 grid((M + C::TN - 1) / C::TN, (B + C::TB - 1) / C::TB, 1);
+  const dim3 grid(((M + C::TN - 1) / C::TN) * ((B + C::TB - 1) / C::TB), 1);  // as launch_kappa_cols's
   const float ms = time_ms([&] {
     kappa_cols<C, true, false, E><<<grid, C::THREADS, C::SMEM, 0>>>(knm, kinv, nullptr, kappa, part, nullptr, B, M, true);
   });

@@ -49,15 +49,31 @@
 //   chunks (ops/cuda_kernels.py::_stats_plan) so that the grid is one wave
 //   of resident blocks.
 // The float64 form (kernels 5 and 7 on float64 tensors) is the same pair
-// of kernels on doubles (StatsShape<double>): one FP64 mma.sync pass a
-// 4-deep step, theta applied in double before it and the accumulators
-// carrying the whole chunk (an FP64 mma is IEEE double with FMA: nothing to
-// split, no truncation to guard against), s1 and the chunk sums in double.
-// At double width a stage of 32 rows would take 68 KB, so its stages hold
-// 16 rows (102 KB for three); the 128 x 128 tile takes 16 warps of 32 x 32
-// (32 doubles of accumulators a thread) and one block an SM.  What bounds
-// it: S2's B M (M+1)/2 FMAs at the FP64 tensor-core peak (67 TFLOP/s),
-// 0.26 ms at B=65,536, M=512, against 268 MB of kappa (0.08 ms).
+// of kernels on doubles: theta applied in double, the accumulators carrying
+// the whole chunk (an FP64 mma is IEEE double with FMA: nothing to split, no
+// truncation to guard against), s1 and the chunk sums in double.  What
+// bounds it: S2's B M (M+1)/2 FMAs at the FP64 tensor-core peak (67
+// TFLOP/s), 0.26 ms at B=65,536, M=512, against 268 MB of kappa (0.08 ms).
+// Two geometries, named by the caller by the mma's depth (ops/
+// cuda_kernels.py::STATS_F64_MMA_K):
+// * 8 (StatsF64K8, every M): one FP64 mma.sync.m16n8k8 a 16 x 8 x 8 step
+//   (1,024 FMAs an instruction), 32-row stages (three take 204 KB), the
+//   128 x 128 tile in 8 warps of 64 x 32, one block an SM.  Both operands
+//   are kappa rows contiguous along M, contracted over the rows, so each
+//   fragment pair comes in one 16-byte shared load: the mma's rows gid and
+//   gid + 8 of A's 16-row tile are the tile's columns 2 gid and 2 gid + 1,
+//   and B's column gid of the tiles 2p and 2p + 1 are the columns 16 p +
+//   2 gid and 16 p + 2 gid + 1 (stats_frag_m / stats_frag_n undo it at the
+//   store); k = tig and tig + 4 are the stage's rows k0 + tig and k0 + tig
+//   + 4.  The row stride TILE + 4 doubles (4 mod 16) puts each
+//   quarter-warp's 16-byte loads on distinct banks.  A warp loads 192
+//   bytes a thread for 16 mma (2.7 FMAs a shared byte against the m8n8k4
+//   form's 1), and multiplies each A element by theta once.
+// * 4 (StatsF64K4): the float form's geometry on doubles, two
+//   mma.sync.m8n8k4 a 16 x 8 x 4 step (tf32_mma.cuh::mma_f64_16x8),
+//   16-row stages (102 KB for three), 16 warps of 32 x 32, one block an
+//   SM: 1.4x the m16n8k8 form's time at M=512 on an H100 (PERF.md), kept
+//   as its yardstick.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,13 +86,15 @@
 
 namespace {
 
-// The block's geometry by element type: a ring of STAGES stages of KB
-// rows; an output tile of TILE x TILE; WARPS_M x WARPS_N warps, each a
-// WM x WN sub-tile (MI x NJ mma tiles of 16 x 8); MIN_BLOCKS blocks an SM.
-template <class T, int KB_, int TILE_, int WARPS_M_, int WARPS_N_, int MIN_BLOCKS_, int PAD>
+// The block's geometry: elements T; a ring of STAGES stages of KB rows; an
+// output tile of TILE x TILE; WARPS_M x WARPS_N warps, each a WM x WN
+// sub-tile (MI x NJ mma tiles of 16 x 8) stepped MMA_K rows at a time (the
+// float form's 8: 3xTF32 m16n8k8; double 4: m8n8k4 pairs, or 8: m16n8k8
+// with paired loads); MIN_BLOCKS blocks an SM.
+template <class T, int KB_, int TILE_, int WARPS_M_, int WARPS_N_, int MIN_BLOCKS_, int PAD, int MMA_K_>
 struct StatsGeometry {
   using Elem = T;
-  static constexpr int KB = KB_, STAGES = 3, TILE = TILE_;
+  static constexpr int KB = KB_, STAGES = 3, TILE = TILE_, MMA_K = MMA_K_;
   static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_, MIN_BLOCKS = MIN_BLOCKS_;
   static constexpr int WM = TILE / WARPS_M, WN = TILE / WARPS_N;
   static constexpr int MI = WM / 16, NJ = WN / 8;
@@ -84,27 +102,26 @@ struct StatsGeometry {
   static constexpr int SP = TILE + PAD;                 // row stride of a stage (elements)
   static constexpr int STAGE = 2 * KB * SP + 2 * KB;  // A, B, theta, g (elements)
   static constexpr size_t SMEM = sizeof(T) * STAGES * STAGE;
+  // the paired fragment layout of the double m16n8k8 form (mma_stage_k8)
+  static constexpr bool PAIRED = std::is_same<T, double>::value && MMA_K == 8;
   static_assert(THREADS % TILE == 0, "s1 takes THREADS / TILE rows a pass");
+  static_assert(KB % MMA_K == 0 && THREADS >= 2 * KB, "whole mma steps a stage; theta and g one copy a thread");
+  static_assert(!PAIRED || (NJ % 2 == 0 && PAD % 16 == 4), "B's tiles in pairs; 16-byte loads on distinct banks");
 };
-template <class T>
-struct StatsShapeOf;
 // float: 32-row stages; an output tile of 128 (against 64 it ran 9-19 %
 // faster at M=512 and 3 % slower at M=64 on an H100, PERF.md, section 6);
 // 2 x 4 warps of 64 x 32, two blocks an SM; the row stride TILE + 8 floats
 // puts a warp's fragment reads on 32 distinct banks
-template <>
-struct StatsShapeOf<float> {
-  using type = StatsGeometry<float, 32, 128, 2, 4, 2, 8>;
-};
-// double: 16-row stages, 4 x 4 warps of 32 x 32, one block an SM; the row
-// stride TILE + 4 doubles (4 mod 16) puts each half-warp's fragment reads
-// on 16 distinct 8-byte bank pairs
-template <>
-struct StatsShapeOf<double> {
-  using type = StatsGeometry<double, 16, 128, 4, 4, 1, 4>;
-};
-template <class T>
-using StatsShape = typename StatsShapeOf<T>::type;
+using StatsF32 = StatsGeometry<float, 32, 128, 2, 4, 2, 8, 8>;
+// double, m16n8k8: 32-row stages, 2 x 4 warps of 64 x 32, one block an SM;
+// the row stride TILE + 4 doubles puts each quarter-warp's 16-byte
+// fragment loads on distinct banks
+using StatsF64K8 = StatsGeometry<double, 32, 128, 2, 4, 1, 4, 8>;
+// double, m8n8k4 pairs: 16-row stages, 4 x 4 warps of 32 x 32, one block an
+// SM; the row stride TILE + 4 doubles (4 mod 16) puts each half-warp's
+// fragment reads on 16 distinct 8-byte bank pairs
+using StatsF64K4 = StatsGeometry<double, 16, 128, 4, 4, 1, 4, 4>;
+static_assert(StatsF64K8::TILE == StatsF64K4::TILE, "one chunk plan for both float64 forms");
 
 // the t-th tile (ti <= tj) of the upper triangle of an nt x nt grid, row by row
 __device__ __forceinline__ void upper_tile(int t, int nt, int& ti, int& tj) {
@@ -201,16 +218,61 @@ __device__ __forceinline__ void mma_stage(const double* As, const double* Bs, co
   }
 }
 
+// The same in FP64 on m16n8k8 (the StatsF64K8 form): each 8 rows one mma
+// a tile, every fragment pair in one 16-byte load (the paired layout:
+// stats_frag_m, stats_frag_n), theta applied once to each A element
+template <class Sh>
+__device__ __forceinline__ void mma_stage_k8(const double* As, const double* Bs, const double* ths, int m_w,
+                                             int n_w, double (&acc)[Sh::MI][Sh::NJ][4]) {
+  constexpr int KB = Sh::KB, SP = Sh::SP, MI = Sh::MI, NJ = Sh::NJ;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < KB; k0 += 8) {
+    const double* a0 = As + (k0 + tig) * SP + m_w + 2 * gid;  // rows k0 + tig and k0 + tig + 4
+    const double* b0 = Bs + (k0 + tig) * SP + n_w + 2 * gid;
+    const double t0 = ths[k0 + tig], t1 = ths[k0 + tig + 4];
+    double b[NJ][2];
+#pragma unroll
+    for (int p = 0; p < NJ / 2; ++p) {
+      const double2 u = *reinterpret_cast<const double2*>(b0 + 16 * p);
+      const double2 v = *reinterpret_cast<const double2*>(b0 + 4 * SP + 16 * p);
+      b[2 * p][0] = u.x;
+      b[2 * p + 1][0] = u.y;
+      b[2 * p][1] = v.x;
+      b[2 * p + 1][1] = v.y;
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const double2 u = *reinterpret_cast<const double2*>(a0 + 16 * mi);
+      const double2 v = *reinterpret_cast<const double2*>(a0 + 4 * SP + 16 * mi);
+      const double a[4] = {u.x * t0, u.y * t0, v.x * t1, v.y * t1};
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj) mma_f64_16x8x8(acc[mi][nj], a, b[nj]);
+    }
+  }
+}
+
+// The row (in the warp's sub-tile) of accumulator element e of mma tile mi,
+// and its column of tile nj: the mma's own layout, or the paired one
+template <class Sh>
+__device__ __forceinline__ int stats_frag_m(int mi, int gid, int e) {
+  return Sh::PAIRED ? mi * 16 + 2 * gid + (e >> 1) : mi * 16 + gid + (e >> 1) * 8;
+}
+template <class Sh>
+__device__ __forceinline__ int stats_frag_n(int nj, int tig, int e) {
+  return Sh::PAIRED ? (nj >> 1) * 16 + 4 * tig + 2 * (e & 1) + (nj & 1) : nj * 8 + 2 * tig + (e & 1);
+}
+
 // grid (upper tiles, chunks, L): the partial S2 tile (and, on a diagonal
 // tile, the partial s1 of its columns) of one chunk of rows, into
 // s2_part [L, nchunks, M, M] and s1_part [L, nchunks, M].  Entries of a
 // diagonal tile below its diagonal may be left unwritten; sum_tiles never
-// reads them.  Elements T: float, or double for the float64 form.
-template <class T, bool VEC>
-__global__ void __launch_bounds__(StatsShape<T>::THREADS, StatsShape<T>::MIN_BLOCKS)
+// reads them.  Geometry Sh (StatsF32, or StatsF64K8 / StatsF64K4 for the
+// float64 form), elements T.
+template <class Sh, bool VEC, class T = typename Sh::Elem>
+__global__ void __launch_bounds__(Sh::THREADS, Sh::MIN_BLOCKS)
 stats_tc(const T* __restrict__ kappa, const T* __restrict__ g, const T* __restrict__ theta,
          T* __restrict__ s1_part, T* __restrict__ s2_part, int B, int M, int rows_per_chunk) {
-  using Sh = StatsShape<T>;
   constexpr int KB = Sh::KB, STAGES = Sh::STAGES, TILE = Sh::TILE, THREADS = Sh::THREADS, SP = Sh::SP;
   constexpr int STAGE = Sh::STAGE, WARPS_N = Sh::WARPS_N, WM = Sh::WM, WN = Sh::WN, MI = Sh::MI, NJ = Sh::NJ;
   extern __shared__ float4 sm4[];
@@ -266,7 +328,12 @@ stats_tc(const T* __restrict__ kappa, const T* __restrict__ g, const T* __restri
     const T* As = stage_ptr(step % STAGES);
     const T* Bs = diag ? As : As + KB * SP;
     const T* ths = As + 2 * KB * SP;
-    if (active) mma_stage<Sh>(As, Bs, ths, m_w, n_w, acc);
+    if (active) {
+      if constexpr (Sh::PAIRED)
+        mma_stage_k8<Sh>(As, Bs, ths, m_w, n_w, acc);
+      else
+        mma_stage<Sh>(As, Bs, ths, m_w, n_w, acc);
+    }
     if (diag) {
       const T* gs = ths + KB;
 #pragma unroll
@@ -284,7 +351,7 @@ stats_tc(const T* __restrict__ kappa, const T* __restrict__ g, const T* __restri
       for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int m = m0 + m_w + mi * 16 + gid + (e >> 1) * 8, n = n0 + n_w + nj * 8 + 2 * tig + (e & 1);
+          const int m = m0 + m_w + stats_frag_m<Sh>(mi, gid, e), n = n0 + n_w + stats_frag_n<Sh>(nj, tig, e);
           if (m < M && n < M) out[(size_t)m * M + n] = acc[mi][nj][e];
         }
   }
@@ -371,33 +438,42 @@ cudaError_t prepare_smem(size_t smem) {
   return err;
 }
 
-// the dynamic shared memory a stage ring takes (float: two blocks an SM)
-template <class T>
+// the dynamic shared memory a stage ring of geometry Sh takes (float: two
+// blocks an SM)
+template <class Sh>
 cudaError_t prepare_stats(bool vec) {
-  constexpr size_t smem = StatsShape<T>::SMEM;
-  return vec ? prepare_smem<&stats_tc<T, true>>(smem) : prepare_smem<&stats_tc<T, false>>(smem);
+  return vec ? prepare_smem<&stats_tc<Sh, true>>(Sh::SMEM) : prepare_smem<&stats_tc<Sh, false>>(Sh::SMEM);
 }
 
-// resident blocks of stats_tc on one SM of the current device (0 on error)
-template <class T>
+// resident blocks of stats_tc of geometry Sh on one SM of the current
+// device (0 on error)
+template <class Sh>
 int stats_blocks_per_sm() {
   int n = 0;
-  if (prepare_stats<T>(true) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, &stats_tc<T, true>, StatsShape<T>::THREADS,
-                                                    StatsShape<T>::SMEM) != cudaSuccess)
+  if (prepare_stats<Sh>(true) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, &stats_tc<Sh, true>, Sh::THREADS, Sh::SMEM) != cudaSuccess)
     return 0;
   return n;
 }
 
-// Both launches of the statistics of L latents; returns the CUDA error.
-template <class T>
-int launch_stats(const T* kappa, const T* g, const T* theta, T* s1_part, T* s2_part, T* s1, T* s2, int B, int M,
-                 int L, int nchunks, int rows_per_chunk, cudaStream_t st) {
-  using Sh = StatsShape<T>;
+// the float64 geometry of the mma depth mma_k (8: StatsF64K8, 4:
+// StatsF64K4), f(Sh{}) with it; `bad` for any other depth
+template <class F, class R>
+R with_stats_f64(int mma_k, R bad, F f) {
+  if (mma_k == 8) return f(StatsF64K8{});
+  if (mma_k == 4) return f(StatsF64K4{});
+  return bad;
+}
+
+// Both launches of the statistics of L latents in geometry Sh; returns the
+// CUDA error.
+template <class Sh, class T = typename Sh::Elem>
+int launch_stats_shape(const T* kappa, const T* g, const T* theta, T* s1_part, T* s2_part, T* s1, T* s2, int B,
+                       int M, int L, int nchunks, int rows_per_chunk, cudaStream_t st) {
   using StatsFn = void (*)(const T*, const T*, const T*, T*, T*, int, int, int);
   const bool vec = M % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(kappa) % 16 == 0;
-  const StatsFn fn = vec ? &stats_tc<T, true> : &stats_tc<T, false>;
-  cudaError_t err = prepare_stats<T>(vec);
+  const StatsFn fn = vec ? &stats_tc<Sh, true> : &stats_tc<Sh, false>;
+  cudaError_t err = prepare_stats<Sh>(vec);
   if (err != cudaSuccess) return (int)err;
   const int nt = (M + Sh::TILE - 1) / Sh::TILE;
   fn<<<dim3(nt * (nt + 1) / 2, nchunks, L), Sh::THREADS, Sh::SMEM, st>>>(kappa, g, theta, s1_part, s2_part, B, M,
@@ -407,6 +483,24 @@ int launch_stats(const T* kappa, const T* g, const T* theta, T* s1_part, T* s2_p
   const int nb = (M + RB - 1) / RB;
   sum_tiles<T><<<dim3(nb * (nb + 1) / 2 * (RB / RS) + 1, L), 256, 0, st>>>(s1_part, s2_part, s1, s2, M, nchunks);
   return (int)cudaGetLastError();
+}
+
+// The float form's launches (kernels 1, 5, 7, 8 and 9)
+inline int launch_stats(const float* kappa, const float* g, const float* theta, float* s1_part, float* s2_part,
+                        float* s1, float* s2, int B, int M, int L, int nchunks, int rows_per_chunk, cudaStream_t st) {
+  return launch_stats_shape<StatsF32>(kappa, g, theta, s1_part, s2_part, s1, s2, B, M, L, nchunks, rows_per_chunk,
+                                      st);
+}
+
+// The float64 form's, in the geometry of mma depth mma_k (8 or 4; any
+// other: cudaErrorInvalidValue)
+inline int launch_stats(const double* kappa, const double* g, const double* theta, double* s1_part,
+                        double* s2_part, double* s1, double* s2, int B, int M, int L, int nchunks,
+                        int rows_per_chunk, cudaStream_t st, int mma_k) {
+  return with_stats_f64(mma_k, (int)cudaErrorInvalidValue, [&](auto sh) {
+    return launch_stats_shape<decltype(sh)>(kappa, g, theta, s1_part, s2_part, s1, s2, B, M, L, nchunks,
+                                            rows_per_chunk, st);
+  });
 }
 
 }  // namespace

@@ -112,8 +112,6 @@ _COL_TILES = {torch.float32: (128, 128, 32, 4, 8, 4), torch.float64: (128, 128, 
 # float64 calls at M up to this take the row-slab form: at M=64 and 128 its
 # device time beat the column-blocked form's on an H100 (PERF.md)
 _F64_SLAB_MAX_M = 128
-# the largest B the column-blocked form takes: its grid's row tiles (y)
-_COL_MAX_ROW_TILES = 65535
 # the dtypes kernels 4-7 take on the card (the others: float32 alone)
 PAIR_DTYPES = (torch.float32, torch.float64)
 # rows of a stage of kernels 5 and 7 (KB in csrc/stats_tc.cuh): a chunk of
@@ -121,6 +119,11 @@ PAIR_DTYPES = (torch.float32, torch.float64)
 # or more, so that few rows do not spread over more partials than their
 # reduction repays
 _STATS_STAGE_ROWS, _STATS_MIN_ROWS = 32, 128
+# the mma depth of the geometry kernels 5 and 7's float64 form takes (their
+# entry points' mma_k): 8, FP64 m16n8k8 tiles (StatsF64K8 in
+# csrc/stats_tc.cuh), at every M; 4 names the m8n8k4 geometry (StatsF64K4),
+# which only a yardstick beside it takes
+STATS_F64_MMA_K = 8
 # gram kinds and single-latent likelihoods, in the order of their codes in
 # csrc/gram.cuh (GramKind) and csrc/fused_cavi_stats.cu (Lik)
 KINDS = ("rbf", "matern12", "matern32", "matern52")
@@ -228,6 +231,11 @@ def _library() -> ctypes.CDLL:
                  "agp_fused_kappa_cols", "agp_kappa_moments_cols"):
         fn, fn64 = getattr(lib, name), getattr(lib, name + "_f64")
         fn64.argtypes, fn64.restype = fn.argtypes, fn.restype
+    # ... but kernels 5 and 7's float64 form takes the mma depth of its geometry
+    lib.agp_cavi_stats_blocks_per_sm_f64.argtypes = [i]
+    for name in ("agp_cavi_stats_f64", "agp_cavi_stats_batched_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = fn.argtypes[:-1] + [i, p]
     lib.agp_fused_variant_smem_bytes.argtypes = [i, i, i]
     lib.agp_fused_variant_smem_bytes.restype = ctypes.c_size_t
     lib.agp_fused_variant_stats.argtypes = [p] * 19 + [i] * 9 + [p]
@@ -825,11 +833,8 @@ def _smem_limit(device_index: int) -> int:
     return getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
 
 
-def _cols_scratch(which, name, B, M, L, dev, dtype):
-    """The column-blocked form's scratch (``kappa_cols_scratch``), or
-    ValueError for a B past its grid."""
-    if B > _COL_MAX_ROW_TILES * _COL_TILES[dtype][0]:
-        raise ValueError(f"the CUDA {name} takes B <= {_COL_MAX_ROW_TILES * _COL_TILES[dtype][0]}, got {B}")
+def _cols_scratch(which, B, M, L, dev, dtype):
+    """The column-blocked form's scratch (``kappa_cols_scratch``) at any B."""
     return torch.empty((kappa_cols_scratch(which, B, M, L, dtype),), dtype=dtype, device=dev)
 
 
@@ -861,7 +866,7 @@ def _kappa_moments_launch(X, Z, L_invT, ls2, var, mu, Sigma, jitt, kind):
             err = _pair_fn(lib, "agp_fused_kappa_moments_batched", dtype)(
                 *args, B, D, M, L, KINDS.index(kind), tb, stream)
         else:
-            scratch = _cols_scratch("moments", name, B, M, L, dev, dtype)
+            scratch = _cols_scratch("moments", B, M, L, dev, dtype)
             err = _pair_fn(lib, "agp_kappa_moments_cols", dtype)(
                 *args, scratch.data_ptr(), B, D, M, L, KINDS.index(kind), stream)
     if err != 0:
@@ -950,11 +955,16 @@ def _stats_plan(B: int, M: int, L: int, slots: int, tile: int) -> tuple[int, int
 
 
 @functools.lru_cache(maxsize=None)
-def _stats_slots(device_index: int, dtype=torch.float32) -> int:
+def _stats_slots(device_index: int, dtype=torch.float32, mma_k: int = 8) -> int:
     """Blocks of kernels 5 and 7 (of their float64 form for ``dtype``
-    float64) that the card holds at once (occupancy API x SMs)."""
+    float64, in the geometry of mma depth ``mma_k``) that the card holds at
+    once (occupancy API x SMs)."""
+    lib = _library()
     with torch.cuda.device(device_index):
-        per_sm = _pair_fn(_library(), "agp_cavi_stats_blocks_per_sm", dtype)()
+        if dtype == torch.float64:
+            per_sm = lib.agp_cavi_stats_blocks_per_sm_f64(mma_k)
+        else:
+            per_sm = lib.agp_cavi_stats_blocks_per_sm()
         if per_sm < 1:
             raise RuntimeError("the CUDA statistics kernel fits no SM of this card")
         return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -974,11 +984,12 @@ def _stats_launch(name, kappa, g, theta, L):
     dev, dtype = kappa.device, kappa.dtype
     lib = _library()
     tile = _pair_fn(lib, "agp_cavi_stats_tile", dtype)()
-    nchunks, rows = _stats_plan(B, M, L, _stats_slots(dev.index, dtype), tile)
+    mma_k = STATS_F64_MMA_K
+    nchunks, rows = _stats_plan(B, M, L, _stats_slots(dev.index, dtype, mma_k), tile)
     like = dict(dtype=dtype, device=dev)
     s1_part, s2_part = torch.empty((L, nchunks, M), **like), torch.empty((L, nchunks, M, M), **like)
     s1, S2 = torch.empty(lead[:-1] + (M,), **like), torch.empty(lead[:-1] + (M, M), **like)
-    ints = ((B, M, L) if len(lead) == 2 else (B, M)) + (nchunks, rows)
+    ints = ((B, M, L) if len(lead) == 2 else (B, M)) + (nchunks, rows) + ((mma_k,) if dtype == torch.float64 else ())
     lib_fn = _pair_fn(lib, "agp_cavi_stats_batched" if len(lead) == 2 else "agp_cavi_stats", dtype)
     with torch.cuda.device(dev):
         err = lib_fn(*(t.data_ptr() for t in (kappa, g, theta, s1_part, s2_part, s1, S2)), *ints,
@@ -1054,7 +1065,7 @@ def _fused_kappa_launch(X, Z, kinv, ls, var, jitt, kind):
         if form == "slab":
             err = _pair_fn(lib, "agp_fused_kappa", dtype)(*args, B, D, M, KINDS.index(kind), tb, stream)
         else:
-            scratch = _cols_scratch("single", name, B, M, 1, dev, dtype)
+            scratch = _cols_scratch("single", B, M, 1, dev, dtype)
             err = _pair_fn(lib, "agp_fused_kappa_cols", dtype)(
                 *args, scratch.data_ptr(), B, D, M, KINDS.index(kind), stream)
     if err != 0:

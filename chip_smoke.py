@@ -286,7 +286,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    M=1,000 and M=1,184 (16-row tiles), a second call bit-equal, S2 exactly
    symmetric, every launch in ``launches_f64``; each of the first six
    shapes timed by CUDA events and device us beside its plain version,
-   its library call in float64 and the float32 kernel on the same inputs;
+   its library call in float64 and the float32 kernel on the same inputs
+   (kernels 5 and 7 also beside their m8n8k4 geometry, ``k4_stats``);
 47. float64 paths against the port's float64 run on the host's CPU from
    the same draws, with exact launches of kernels 6 + 7 or 4 + 5 in
    float64 and none of kernels 1-3: the flagship shape (10 steps, within
@@ -306,7 +307,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    within FLOAT32_FACTOR times the float32 plain's error against float64,
    no floor), a second call bit-equal, one launch counted a call; at
    B=16,384 timed beside the plain version, the products alone and the
-   bound (``cols`` runs phases 50-52 alone);
+   bound; then float64 kernels 6 + 7 and 4 + 5 at B=8,388,481, past the
+   old grid, with M=129 and 260 (``large_b_check``) (``cols`` runs phases
+   50-52 alone);
 51. the float32 column-blocked form at ill-conditioned shapes past M=2,406
    (D=2 and D=1) against float64, within FLOAT32_FACTOR, no floor;
 52. the paths past the old ceilings: an SVGP at M=4,096 (float32) and
@@ -557,10 +560,11 @@ F64_TC_KERNELS = ("kappa_moments_batched", "stats_tc", "kappa_single", "kappa_co
 
 def is_f64_instance(fn):
     """Whether a mangled kernel name is a double instance: a TileShape of
-    doubles (kernels 4 and 6) or stats_tc<double, ...> (5 and 7)."""
+    doubles (kernels 4 and 6) or stats_tc on a StatsGeometry of doubles (5
+    and 7)."""
     import re
 
-    return bool(re.search(r"TileShapeI(?:Li\d+E)+dE", fn) or "stats_tcIdL" in fn or "ColShapeId" in fn)
+    return bool(re.search(r"TileShapeI(?:Li\d+E)+dE", fn) or "StatsGeometryId" in fn or "ColShapeId" in fn)
 
 
 def check_tc_sass(lib_path):
@@ -596,12 +600,13 @@ def check_tc_sass(lib_path):
                              f"{counts}, no instance of {missing}")
     for fn, n in sorted(counts.items()):
         f64 = is_f64_instance(fn)
-        stats = re.search(r"stats_tcI[fd]Lb(\d)", fn)
+        stats = re.search(r"stats_tcINS_13StatsGeometryI[fd]Li(\d+)E(?:Li\d+E){5}Li(\d+)EEELb(\d)", fn)
         tile = re.search(r"(cavi_rows|latent_rows|kappa_single|kappa_moments_batched|variant_rows)"
                          r"INS_9TileShapeILi(\d+)ELi(\d+)ELi(\d+)E", fn)
         cols = re.search(r"kappa_colsINS_8ColShapeI[fd]Li(\d+)ELi(\d+)E.*?ELb(\d)ELb(\d)E", fn)
         if stats:
-            label = f"stats_tc<{'16-byte' if stats[1] == '1' else 'one-element'} copies>"
+            mma = ("3xTF32 m16n8k8" if not f64 else "m16n8k8" if stats[2] == "8" else "m8n8k4 pairs")
+            label = f"stats_tc<{stats[1]}-row stages, {mma}, {'16-byte' if stats[3] == '1' else 'one-element'} copies>"
         elif cols:
             label = (f"kappa_cols<{cols[1]} x {cols[2]} tiles, "
                      + {("1", "0"): "kappa", ("1", "1"): "kappa with mf", ("0", "0"): "kappa Sigma"}[cols[3], cols[4]]
@@ -2742,8 +2747,8 @@ def probe_mode(ck, which="all"):
     """``python3 chip_smoke.py probe [cols]``: builds the measurement
     programs of agp_tpu_torch/csrc/probes/ with nvcc for sm_90a into the
     build directory and runs them on the card: dmma_shapes.cu once for each
-    FP64 mma.sync shape (m16n8k4, k8, k16: whether ptxas takes it, its
-    fragment layout, its rate) and kappa_cols.cu (the column-blocked form's
+    FP64 mma.sync shape (m16n8k4, k8, k16, and m8n8k4 in pairs: whether
+    ptxas takes it, its fragment layout, its rate) and kappa_cols.cu (the column-blocked form's
     gram and tiles); with ``all`` also kappa_tc.cu (kernel 6's gram and
     product apart at logistic_m512_b65536's shape, kernels 4 and 6 at
     other tile shapes, the mma.sync rate with and without 3xTF32's
@@ -2752,6 +2757,7 @@ def probe_mode(ck, which="all"):
     out_dir = ck._BUILD_ROOT / "probes"
     out_dir.mkdir(parents=True, exist_ok=True)
     probes = [(f"dmma_shapes_k{k}", "dmma_shapes.cu", [f"-DDMMA_K={k}"]) for k in (4, 8, 16)]
+    probes.append(("dmma_shapes_m8n8k4", "dmma_shapes.cu", ["-DDMMA_K=4", "-DDMMA_PAIR"]))
     probes.append(("kappa_cols", "kappa_cols.cu", []))
     if which == "all":
         probes.append(("kappa_tc", "kappa_tc.cu", []))
@@ -6775,8 +6781,10 @@ def f64_kernel_timing(ck, name, t32, t64, reps):
     """A float64 kernel at one shape: kappa_timing's or stats_timing's
     numbers on its float64 inputs (its ms by CUDA events beside its plain
     version, its device us, the library call in float64: torch.matmul /
-    torch.bmm, cuBLAS on DMMA), and the float32 kernel's ms on the same
-    inputs in float32, in the same call."""
+    torch.bmm, cuBLAS on DMMA), the float32 kernel's ms on the same inputs
+    in float32, and kernels 4 and 6's row-slab form (``slab_route``) or 5
+    and 7's m8n8k4 geometry (``k4_stats``) on the same float64 inputs, in
+    the same call."""
     if name in ("fused_kappa", "fused_kappa_moments_batched"):
         caller = call_k6 if name == "fused_kappa" else call_k4
         r = kappa_timing(ck, name, t64, reps)
@@ -6794,6 +6802,14 @@ def f64_kernel_timing(ck, name, t32, t64, reps):
     r = stats_timing(ck, name, kappa64, g64, th64, reps, library)
     fn = getattr(ck, name)
     r["float32_ms"] = cuda_ms(lambda: fn(t32["kappa"], t32["g"], t32["theta"]), reps)
+
+    def k4_call():
+        with k4_stats(ck):
+            return fn(kappa64, g64, th64)
+
+    # the two geometries interleaved (k4, k8, k8, k4), as timed_pair times a kernel beside its plain version
+    r["ms_beside_k4"], r["k4_ms"] = timed_pair(lambda: fn(kappa64, g64, th64), k4_call, reps)
+    r["k4_device_us"] = device_us(k4_call)[0]
     return r
 
 
@@ -6867,7 +6883,9 @@ def phase_f64_kernels(ck, device):
                     f"{rr['device_us']:.1f} us; plain {rr['plain_ms']:.4f}; library (float64) {rr['library_ms']:.4f} ms, "
                     f"device {rr['library_device_us']:.1f} us; bound {rr['bound_ms']:.4f} ms"
                     + (f"; row-slab form {rr['slab_ms']:.4f} ms, device {rr['slab_device_us']:.1f} us"
-                       if "slab_ms" in rr else ""))
+                       if "slab_ms" in rr else "")
+                    + (f"; m8n8k4 geometry {rr['k4_ms']:.4f} ms (this one beside it {rr['ms_beside_k4']:.4f}), "
+                       f"device {rr['k4_device_us']:.1f} us" if "k4_ms" in rr else ""))
         del t64, cpu64
     reset_launches(ck)
     return out
@@ -7030,8 +7048,12 @@ CB, C32_M, C64_M = 16_384, 4096, 2048
 # float64, full batch, and the reference's RMSE threshold (:202); its
 # squared-exponential kernel at lengthscale CV_LS, not the reference's 1:
 # with 3,000 points on [-2, 2]^2 a unit lengthscale puts cond(Kmm + 1e-3 I)
-# near 6e5, where float32 CAVI diverges on the CPU as on the card
-# (PERF.md)
+# near 8e5, where the card's float32 run diverges (task 0's RMSE 17.0
+# after 60 steps; 13.06 with the plain versions in the kernels' place, so
+# not by the kernels) while float32 on the host's CPU converges, in the
+# JAX package (0.0148; 0.1032 through its Pallas pair) as in the port
+# (0.0641), and float64 on the card tracks the CPU's to 6e-10
+# (tests/movgp_lengthscale.py; PERF.md section 6, ROADMAP.md queue 3 item 9)
 CV32_N, CV64_N, CV_ITERS, CV_RMSE, CV_LS = 3000, 1500, 60, 0.35, 0.25
 # CAVI steps of each path's float64 run on the host's CPU (its floor, and
 # its parity), which the card repeats from the same draws (the SVGP paths
@@ -7061,6 +7083,19 @@ def slab_route(ck):
         yield
     finally:
         ck.kappa_route = route
+
+
+@contextlib.contextmanager
+def k4_stats(ck):
+    """Kernels 5 and 7 take their float64 form's m8n8k4 geometry
+    (``StatsF64K4``, the first float64 form) at every M, as they did
+    before the m16n8k8 one: a yardstick for it, timed beside it."""
+    depth = ck.STATS_F64_MMA_K
+    ck.STATS_F64_MMA_K = 4
+    try:
+        yield
+    finally:
+        ck.STATS_F64_MMA_K = depth
 
 
 def cols_cases(device):
@@ -7095,6 +7130,91 @@ def cols_calls(t, kernels):
     return calls
 
 
+# the large-B case of phase 50: float64 kernels 6 + 7 and 4 + 5 (L=1) past
+# the column-blocked form's old grid ceiling (65,535 row tiles of 128, B <=
+# 8,388,480), at M=129 and at M=260, where B M passes 2^31; D=2 keeps X
+# small (kappa and the gram take B M doubles each: 8.7 GB at M=129, 17.4
+# GB at M=260); the rows held against the plain version (large_b_rows);
+# s1 and S2 against the plain sums over chunks of BIG_CHUNK rows, within
+# BIG_STATS_TOL of their largest entry (another order of the same float64
+# sums)
+BIG_B, BIG_MS, BIG_ROWS, BIG_CHUNK, BIG_STATS_TOL = 8_388_481, (129, 260), 300, 1 << 20, 1e-9
+
+
+def large_b_rows(b, m):
+    """The rows of a large-B call held against the plain version: the first
+    BIG_ROWS, the BIG_ROWS around the row where the flat index of kappa
+    [b, m] passes 2^31 (clamped into the batch), and the last BIG_ROWS
+    (the last 128-row tile past the old grid among them)."""
+    h = BIG_ROWS // 2
+    mid = min(max((1 << 31) // m, h), b - h)
+    return torch.unique(torch.cat([torch.arange(BIG_ROWS), torch.arange(mid - h, mid + h),
+                                   torch.arange(b - BIG_ROWS, b)]))
+
+
+def chunked_stats(kappa, g, theta, rows=BIG_CHUNK):
+    """(s1, S2) of kappa [..., B, M] by the plain version's products summed
+    over chunks of ``rows`` rows (a large B's products in pieces)."""
+    s1 = s2 = 0
+    for i in range(0, kappa.shape[-2], rows):
+        k, gc, tc = kappa[..., i:i + rows, :], g[..., i:i + rows], theta[..., i:i + rows]
+        s1 = s1 + (k.mT @ gc[..., None])[..., 0]
+        s2 = s2 + (k * tc[..., None]).mT @ k
+    return s1, s2
+
+
+def large_b_check(ck, device, m, b=BIG_B):
+    """Float64 kernels 6 + 7 and 4 + 5 (L=1) at B=b and M=m on the
+    column-blocked route, each wrapper one launch in launches_f64: kappa,
+    Ktilde, mf and vf on large_b_rows against the plain version run on
+    those rows alone (check_f64); s1 and S2 finite, S2 exactly symmetric,
+    and within BIG_STATS_TOL of chunked_stats.  Returns {wrapper: {output:
+    (abs error, relative error)}}."""
+    X = torch.as_tensor(np.random.default_rng(21).uniform(-2.0, 2.0, size=(b, 2)))
+    t = to_float64(pair_inputs(X, b, m, 1, device, ls=1.0, seed=m))
+    del X
+    rows = large_b_rows(b, m).to(device)
+    out = {}
+    for name, caller, a, names in cols_calls(t, "both"):
+        stats = "cavi_stats" if name == "fused_kappa" else "cavi_stats_batched"
+        label = f"{name} + {stats} float64 B={b} M={m}"
+        if ck.kappa_route("single" if name == "fused_kappa" else "moments", m, torch.float64)[0] != "cols":
+            raise AssertionError(f"{label}: not on the column-blocked route")
+        reset_launches(ck)
+        got = caller(getattr(ck, name), a)
+        s_args = (got[0], a["g"], a["theta"])
+        s_got = getattr(ck, stats)(*s_args)
+        torch.cuda.synchronize()
+        counts = {n: launches_of(ck, n) for n in LAUNCH_COUNTERS if launches_of(ck, n)}
+        if counts != {name + "_f64": 1, stats + "_f64": 1}:
+            raise AssertionError(f"{label}: launched {counts}")
+        sub = {**a, "X": a["X"][rows]}
+        cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in sub.items()}
+        plain = getattr(ck, name + "_reference")
+        picked = tuple(o.index_select(-2 if k == "kappa" else -1, rows) for k, o in zip(names, got))
+        row = check_f64(label, names, picked, caller(plain, sub), caller(plain, cpu))
+        out[name] = {k: v[:2] for k, v in row.items()}
+        del got
+        for k, o in zip(("s1", "S2"), s_got):
+            if not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"{label}: {k} is not finite")
+        if not torch.equal(s_got[1], s_got[1].mT):
+            raise AssertionError(f"{label}: S2 is not exactly symmetric")
+        out[stats] = {}
+        for k, o, r in zip(("s1", "S2"), s_got, chunked_stats(*s_args)):
+            err = float((o - r).abs().max())
+            rel = err / max(float(r.abs().max()), 1e-300)
+            if not rel <= BIG_STATS_TOL:
+                raise AssertionError(f"{label}: {k} {rel:.3e} from the plain sums over chunks > {BIG_STATS_TOL:g}")
+            out[stats][k] = (err, rel)
+        del s_args, s_got
+        log(f"{label} (rows {rows.numel()} of {b}): " + " ".join(
+            f"{k}={v[1]:.2e}" for k, v in {**out[name], **out[stats]}.items()))
+    del t
+    reset_launches(ck)
+    return out
+
+
 def phase_cols_kernels(ck, device):
     """Phase 50: kernels 4 and 6 in the column-blocked form at every case of
     cols_cases, each launch counted once in its wrapper's launches (or
@@ -7104,8 +7224,9 @@ def phase_cols_kernels(ck, device):
     float32 plain version's own error with no floor; a second call
     bit-equal; the timed cases' ms and device us beside the plain version,
     the products alone (torch.matmul / torch.bmm x2: the library call) and
-    the bound, and in float64 the float32 kernel on the same inputs.
-    Returns {label: {wrapper: timing or None}} and the largest errors."""
+    the bound, and in float64 the float32 kernel on the same inputs; then
+    the large-B case (large_b_check at BIG_B, each of BIG_MS).  Returns
+    {label: {wrapper: timing or None}} and the largest errors."""
     out, worst = {}, {}
     for label, t32, kernels, dtype, timed in cols_cases(device):
         t = to_float64(t32) if dtype == torch.float64 else t32
@@ -7155,6 +7276,15 @@ def phase_cols_kernels(ck, device):
                     + (f"; float32 kernel {r['float32_ms']:.4f} ms" if "float32_ms" in r else ""))
             out[label][name] = {"timing": r, "errors": err, "dtype": str(dtype).removeprefix("torch.")}
         del t
+    for m in BIG_MS:
+        t0 = time.perf_counter()
+        big = large_b_check(ck, device, m)
+        for name, row in big.items():
+            worst[name] = max(worst.get(name, 0.0), *(v[0] for v in row.values()))
+        out[f"b{BIG_B}_m{m}"] = {name: {"timing": None, "errors": {k: v[1] for k, v in row.items()},
+                                        "dtype": "float64"} for name, row in big.items()}
+        torch.cuda.empty_cache()
+        log(f"large-B case M={m}: {time.perf_counter() - t0:.2f} s")
     reset_launches(ck)
     return out, worst
 
@@ -7402,7 +7532,10 @@ def f64_rows(kernels):
             "per_shape_bound_ms": {s: v["bound_ms"] for s, v in k["shapes"].items()},
             **({"per_shape_slab_ms": {s: v["slab_ms"] for s, v in k["shapes"].items() if "slab_ms" in v},
                 "slab": "the row-slab form in float64 on the same inputs, timed beside it"}
-               if name.startswith("fused_kappa") else {}),
+               if name.startswith("fused_kappa") else
+               {"per_shape_k4_ms": {s: v["k4_ms"] for s, v in k["shapes"].items() if "k4_ms" in v},
+                "per_shape_k4_device_us": {s: v["k4_device_us"] for s, v in k["shapes"].items() if "k4_ms" in v},
+                "k4": "the m8n8k4 geometry (StatsF64K4) in float64 on the same inputs, timed beside it"}),
             "vs_plain_float64": k["errors"],
             "bound": "the function's products once at 67 TFLOP/s FP64 tensor cores, the gram and row sums at 34 FP64, "
                      "8-byte elements at 3.35 TB/s",

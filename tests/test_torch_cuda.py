@@ -556,6 +556,53 @@ def test_cuda_stats_tc_oracle_precision(cuda_device, kind):
                             floor=0.0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n_latent,unaligned", [
+    (300, 1, 1, False), (300, 8, 1, False), (300, 8, 1, True), (300, 129, 1, False), (300, 129, 3, False),
+    (700, 1000, 1, False), (700, 1000, 3, False),
+])
+def test_cuda_stats_f64_match_plain(cuda_device, b, m, n_latent, unaligned):
+    """Kernels 5 and 7 in float64 (both geometries: the m16n8k8 one the
+    wrappers take, and the m8n8k4 one under chip_smoke.k4_stats) at ragged
+    B with M = 1, 8 and 129 (odd M, or kappa one double off a 16-byte
+    boundary, takes the one-element copies), L = 1 and 3, and M = 1,000,
+    against their float64 plain versions by chip_smoke.check_f64's rule:
+    one launch a call in launches_f64 alone, S2 exactly symmetric and a
+    second call bit-equal to the first."""
+    kappa, g, theta = (a.double() for a in stats_case(b, m, n_latent, cuda_device, seed=m * 31 + n_latent))
+    if unaligned:
+        shifted = torch.empty(kappa.numel() + 1, dtype=torch.float64, device=cuda_device)[1:].view(kappa.shape)
+        shifted.copy_(kappa)
+        kappa = shifted
+        assert kappa.data_ptr() % 16 != 0
+    calls = [(ck.cavi_stats_batched, ck.cavi_stats_batched_reference, (kappa, g, theta))]
+    if n_latent == 1:
+        calls.append((ck.cavi_stats, ck.cavi_stats_reference, (kappa[0], g[0], theta[0])))
+    for fn, plain, args in calls:
+        ref, ref_cpu = plain(*args), plain(*(a.cpu() for a in args))
+        for form in ("m16n8k8", "m8n8k4"):
+            label = f"{fn.__name__} float64 {form} B={b} M={m} L={n_latent}"
+            before = (fn.launches, fn.launches_f64)
+            with smoke.k4_stats(ck) if form == "m8n8k4" else smoke.contextlib.nullcontext():
+                got = fn(*args)
+                torch.cuda.synchronize()
+                assert (fn.launches, fn.launches_f64) == (before[0], before[1] + 1), label
+                smoke.check_f64(label, ("s1", "S2"), got, ref, ref_cpu)
+                smoke.check_stats_repeat(label, fn, args, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", smoke.BIG_MS)
+def test_cuda_kappa_cols_past_the_old_grid(cuda_device, m):
+    """Float64 kernels 6 + 7 and 4 + 5 at B = 8,388,481, one row past the
+    column-blocked form's old grid (65,535 row tiles of 128), at M = 129
+    and at M = 260, where B M passes 2^31 (chip_smoke.large_b_check: rows
+    at the start, around the 2^31 index and at the end against the plain
+    version on those rows alone; the statistics finite, S2 exactly
+    symmetric and within 1e-9 of the plain sums over chunks)."""
+    smoke.large_b_check(ck, cuda_device, m)
+
+
 # ------------------------------------- kernels 4 and 6 on the tensor cores
 def kappa_calls(t):
     """(label, wrapper, plain version, call, output names) of kernels 4 and

@@ -76,20 +76,50 @@ def test_kappa_max_m_by_dtype(which, f32, f64):
         ck.kappa_smem_bytes(which, 64, 64, torch.float16)
 
 
+def header_stats_shapes():
+    """{name: (elem, KB, TILE, WARPS_M, WARPS_N, MIN_BLOCKS, PAD, MMA_K)} of
+    the stats geometries csrc/stats_tc.cuh declares (StatsF32, StatsF64K8,
+    StatsF64K4)."""
+    src = (CSRC / "stats_tc.cuh").read_text()
+    found = re.findall(r"using (Stats\w+) = StatsGeometry<(float|double), (\d+), (\d+), (\d+), (\d+), (\d+), "
+                       r"(\d+), (\d+)>;", src)
+    return {name: (elem, *map(int, rest)) for name, elem, *rest in found}
+
+
 def test_stats_tiles_fit_one_block_an_sm():
     """Kernels 5 and 7's stage rings as stats_tc.cuh declares them: float
-    two blocks an SM, double (16-row stages) one, each within the H100's
-    opt-in shared memory; their rows of a stage divide the chunk rows that
-    _stats_plan makes (a multiple of 32)."""
-    src = (CSRC / "stats_tc.cuh").read_text()
-    shapes = dict(re.findall(r"StatsGeometry<(float|double), (\d+, \d+, \d+, \d+, \d+, \d+)>;", src))
-    assert set(shapes) == {"float", "double"}
-    for elem, size in (("float", 4), ("double", 8)):
-        kb, tile, warps_m, warps_n, min_blocks, pad = map(int, shapes[elem].split(", "))
-        smem = size * 3 * (2 * kb * (tile + pad) + 2 * kb)
+    two blocks an SM, double one (the m16n8k8 geometry: 32-row stages of
+    8 warps of 64 x 32, 204 KB for three; the m8n8k4 one: 16-row stages
+    of 16 warps of 32 x 32), each within the H100's opt-in shared memory;
+    their rows of a stage divide the chunk rows that _stats_plan makes (a
+    multiple of 32); the double m16n8k8 stride is 4 mod 16 doubles (its
+    quarter-warps' 16-byte loads on distinct banks)."""
+    shapes = header_stats_shapes()
+    assert set(shapes) == {"StatsF32", "StatsF64K8", "StatsF64K4"}
+    for elem, kb, tile, warps_m, warps_n, min_blocks, pad, mma_k in shapes.values():
+        smem = {"float": 4, "double": 8}[elem] * 3 * (2 * kb * (tile + pad) + 2 * kb)
         assert min_blocks * smem <= H100_OPTIN and ck._STATS_STAGE_ROWS % kb == 0
-        assert (32 * warps_m * warps_n) % tile == 0
-    assert shapes["double"].startswith("16, 128, 4, 4, 1, 4")
+        assert (32 * warps_m * warps_n) % tile == 0 and kb % mma_k == 0
+    assert shapes["StatsF64K8"] == ("double", 32, 128, 2, 4, 1, 4, 8)
+    assert shapes["StatsF64K4"] == ("double", 16, 128, 4, 4, 1, 4, 4)
+    assert 8 * 3 * (2 * 32 * 132 + 64) == 204_288
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 64, 128, 129, 512, 4096])
+def test_stats_plan_rows_whole_stages_of_each_geometry(dtype, m):
+    """The chunk rows _stats_plan makes are a whole number of stages of
+    every geometry of the dtype (stats_tc.cuh), and STATS_F64_MMA_K, the
+    depth the wrappers pass the float64 form at every M (no small-M rule:
+    the m16n8k8 geometry ran no slower at M = 64 and 128 on an H100),
+    names the m16n8k8 geometry the header declares."""
+    shapes = header_stats_shapes()
+    elem = "double" if dtype == torch.float64 else "float"
+    kbs = {v[1] for v in shapes.values() if v[0] == elem}
+    assert ck.STATS_F64_MMA_K == shapes["StatsF64K8"][7] == 8
+    for b in (1, 300, 8192, 65_536):
+        nchunks, rows = ck._stats_plan(b, m, 1, 132, 128)
+        assert all(rows % kb == 0 for kb in kbs) and (nchunks - 1) * rows < b <= nchunks * rows
 
 
 @pytest.mark.parametrize("n_latent", [1, 3])

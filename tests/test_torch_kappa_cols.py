@@ -240,6 +240,21 @@ def test_cols_smem_and_scratch_mirror_the_header(dtype):
             assert ck.kappa_cols_scratch(which, b, m, n_latent, dtype) == want
 
 
+@pytest.mark.parametrize("which", ["moments", "single"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cols_scratch_takes_a_b_past_the_old_grid(which, dtype):
+    """The column-blocked form takes any B: its blocks run on one linear
+    index of grid x (kappa_cols.cuh), so B = 8,388,481, one row past the
+    old grid's 65,535 row tiles of 128, is sized (kappa_cols_scratch) and
+    allocated (_cols_scratch) like any other; the scratch's size passes
+    2^31 elements where B M does."""
+    b = 8_388_481
+    assert ck.kappa_cols_scratch(which, b, 1, 1, dtype) == b * (1 + (3 if which == "moments" else 1))
+    assert ck.kappa_cols_scratch(which, b, 260, 1, dtype) > 2**31
+    scratch = ck._cols_scratch(which, b, 1, 1, torch.device("cpu"), dtype)
+    assert scratch.dtype == dtype and scratch.numel() == ck.kappa_cols_scratch(which, b, 1, 1, dtype)
+
+
 @pytest.mark.parametrize("q,n,dtype", [(2, 2393, torch.float32), (2, 1185, torch.float64),
                                        (1, 2407, torch.float32), (1, 1193, torch.float64)])
 def test_movgp_on_the_card_takes_any_n(monkeypatch, q, n, dtype):
