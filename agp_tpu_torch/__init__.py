@@ -42,7 +42,10 @@ kernels) and the autoregressive rollouts ``predict_ar`` and ``sample_ar``
 complete the model families.  ``checkpoint`` saves and loads (model,
 state), the JAX package's checkpoints too; ``parallel`` trains a sparse
 model data-parallel over ``torch.distributed`` (full-batch and minibatched
-CAVI, one process per device); ``utils.metrics``, ``utils.plotting`` and
+CAVI, one process per device), a logistic-softmax one on a (data, latent)
+mesh too (each process its block of the classes), and ``smc_sample``,
+``sample``, ``online_train`` and ``online_train_stream`` take its mesh
+(particles, chains, a batch's rows); ``utils.metrics``, ``utils.plotting`` and
 ``utils.profiling`` evaluate, plot and trace.  Inputs without a device (numpy arrays,
 lists) go to the CUDA card unless ``config.set_default_device("cpu")``
 was called.

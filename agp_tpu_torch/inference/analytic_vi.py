@@ -51,6 +51,14 @@ and kappa = Knm K^-1 by plain products (``_plain_moments``), gradients by
 autograd through them; the statistics stay on ``cavi_stats`` (one latent)
 or ``cavi_stats_batched`` (several).
 
+On a (data, latent) mesh (``parallel/mesh.py``) each process holds a
+block of the K logistic-softmax latents, and its step is the split pair on
+them whatever their count, one included: ``fused_kappa_moments_batched``,
+the coupled E-step (alpha through ``batch_sums.latent_sum``), then
+``cavi_stats_batched``; the fused pass (kernel 2) sums gamma over all K
+classes inside the kernel and cannot serve there.  Any other model is
+refused there (``check_latent_axis``).
+
 The reference's TPU shape gates (``_pallas_kind_batched``: M >= 512,
 B >= 16,384; ``_pallas_kind_kappa_only``: forced only) are not carried
 over.  The reference runs its single-latent fused kernel up to M=512 (its
@@ -68,7 +76,7 @@ from ..kernels import batch_diag, batch_gram, batch_gram_zz, fused_kind, latent,
 from ..likelihoods.classification import BayesianSVM, LogisticLikelihood
 from ..likelihoods.event import NegBinomialLikelihood, PoissonLikelihood
 from ..likelihoods.heteroscedastic import HeteroscedasticLikelihood
-from ..likelihoods.multiclass import LogisticSoftMaxLikelihood
+from ..likelihoods.multiclass import LogisticSoftMaxLikelihood, SoftMaxLikelihood
 from ..likelihoods.regression import GaussianLikelihood, LaplaceLikelihood, Matern32Likelihood, StudentTLikelihood
 from ..means import batch_call
 from ..models.vstp import local_prior_updates
@@ -77,7 +85,8 @@ from ..ops.kl import gaussian_kl
 from ..ops.quadrature import expectation
 from ..ops.special import safe_expcosh
 from ..training.state import TrainState
-from ..utils.batch_sums import batch_sum
+from ..utils import batch_sums
+from ..utils.batch_sums import batch_sum, latent_sum
 from ..utils.opt import ascent_update
 
 
@@ -115,6 +124,48 @@ def kmat_l_inv(kmat):
     return torch.linalg.solve_triangular(L_K, eye, upper=False)
 
 
+def _one_latent(model) -> bool:
+    """Whether the step takes the single-latent forms (kernels 6 + 7): one
+    latent, and not one process's block of a latent axis, whose step is
+    the batched pair (kernels 4 + 5) at any count."""
+    return model.n_latent == 1 and batch_sums.latent_axis() is None
+
+
+def check_latent_axis(model, n: int):
+    """``TypeError`` unless a latent axis of ``n`` processes can split the
+    model's latents: a sparse, not online, single-output model with the
+    logistic-softmax likelihood, whose E-step couples the classes through
+    alpha = 1 + sum_k gamma_k alone (``batch_sums.latent_sum``), trained by
+    AnalyticVI or AnalyticSVI with a scalar-state natural-gradient rule;
+    ``ValueError`` when the latents are fewer than the processes."""
+    lik = getattr(model, "likelihood", None)
+    name = type(lik).__name__
+    if getattr(model, "is_multioutput", False):
+        why = "the mixing matrix A's step couples every latent with every task"
+    elif getattr(model, "is_online", False):
+        why = "the online model's inducing-set selection and streaming correction are made for all latents at once"
+    elif not getattr(model, "is_sparse", False):
+        why = "a dense model's posterior is [N]-sized per latent and is not trained on a mesh"
+    elif isinstance(lik, SoftMaxLikelihood):
+        why = "the softmax's normaliser couples the classes and has no augmentation whose sum could cross the axis"
+    elif isinstance(lik, HeteroscedasticLikelihood):
+        why = "its lambda E-step couples f and g row by row, with no latent_sum seam"
+    elif not isinstance(lik, LogisticSoftMaxLikelihood):
+        why = f"{name} has {lik.n_latent} latent(s) and no coupled E-step across a latent axis"
+    elif model.inference.name not in ("AnalyticVI", "AnalyticSVI"):
+        why = f"{model.inference.name}'s expectations of the link couple the classes with no latent_sum seam"
+    else:
+        opt = getattr(model.inference, "optimiser", None)
+        probe = None if opt is None else opt.init((torch.zeros(1), torch.zeros(1)))
+        if probe is not None and not (isinstance(probe, torch.Tensor) and probe.ndim == 0):
+            why = "its natural-gradient rule keeps a state summed over every latent (alrsvi's |g|^2)"
+        elif lik.n_latent < n:
+            raise ValueError(f"{lik.n_latent} latents cannot be split over a latent axis of {n} processes")
+        else:
+            return
+    raise TypeError(f"a latent axis of {n} processes cannot take this model: {why}")
+
+
 def _pair_kind(model):
     """Gram kind when the step's moments and statistics take the batched
     pair: a sparse, not online model with a kernel of ``FUSED_KINDS``."""
@@ -142,7 +193,7 @@ def latent_moments(model, state: TrainState, x, kmat):
     kind = _pair_kind(model)
     if kind is None:
         return _plain_moments(model, state, x, kmat)
-    if model.n_latent == 1:
+    if _one_latent(model):
         kappa, ktilde = cuda_kernels.fused_kappa(
             x.contiguous(),
             model.Z[0].contiguous(),
@@ -320,7 +371,8 @@ def variational_update(model, state: TrainState, x, y, w=None, fused=None):
     global update); returns (model, state).
 
     ``w`` ([B] of 0/1, optional) zero-weights rows out of every cross-batch
-    statistic; a weighted batch takes the unfused path.  ``fused`` None
+    statistic; a weighted batch takes the unfused path, as does a step on
+    a latent axis (the split pair on the process's latents).  ``fused`` None
     takes the dispatch above; False the split pair whatever the shape;
     True kernel 1's fused pass, and ``ValueError`` when it cannot take the
     model or the batch is weighted.  A Student-t process (``is_tprior``)
@@ -329,15 +381,18 @@ def variational_update(model, state: TrainState, x, y, w=None, fused=None):
     goes through ``utils.batch_sums.batch_sum``, so that a sharded step
     sums it over its processes."""
     kmat = state.kmat
+    on_latent_axis = batch_sums.latent_axis() is not None
+    if on_latent_axis and not isinstance(model.likelihood, LogisticSoftMaxLikelihood):
+        check_latent_axis(model, batch_sums.latent_axis().size)  # raises: no coupling to split
     if getattr(model, "is_tprior", False):
         state = local_prior_updates(model, state, x)
-    unweighted = w is None and fused is not False
+    unweighted = w is None and fused is not False and not on_latent_axis
     spec = _fused_spec(model) if unweighted else None
     if fused and spec is None:
         raise ValueError(
             "no fused statistics kernel (kernel 1) takes this step: it needs one latent, a kernel of "
-            "FUSED_KINDS, a likelihood of its eight, M <= 128, float32 on the card and an unweighted batch; use "
-            "fused=None or False"
+            "FUSED_KINDS, a likelihood of its eight, M <= 128, float32 on the card, an unweighted batch and no "
+            "latent axis; use fused=None or False"
         )
     if spec is not None:
         kind, lik_name, p0, p1, c_key = spec
@@ -430,12 +485,13 @@ def apply_natural_gradient(model, state: TrainState, kappa, gmu, gs, x) -> Train
     """Natural-gradient + global update from the gradient expectations
     gmu/gs [L, B] and kappa [L, B, M]: sparse, the statistics by
     ``cuda_kernels.cavi_stats`` for one latent, ``cavi_stats_batched`` for
-    several; dense, the coordinate-ascent optimum itself."""
+    several (and for a latent axis's block of any count); dense, the
+    coordinate-ascent optimum itself."""
     if not model.is_sparse:
         return _dense_update(model, state, gmu, gs, x)
     rho = state.rho
     g, theta = (rho * gmu).contiguous(), (rho * gs).contiguous()
-    if model.n_latent == 1:
+    if _one_latent(model):
         s1, stat2 = cuda_kernels.cavi_stats(kappa[0].contiguous(), g[0], theta[0])
         return _nat_update_from_stats(model, state, s1[None], stat2[None], x)
     s1, stat2 = cuda_kernels.cavi_stats_batched(kappa, g, theta)
@@ -457,8 +513,9 @@ def _dense_update(model, state: TrainState, gmu, gs, x) -> TrainState:
 def _nat_update_from_stats(model, state: TrainState, s1, stat2, x) -> TrainState:
     """Sparse natural-gradient global update given the two cross-data
     statistics s1 = kappa^T (rho gmu) [L, M] and
-    stat2 = kappa^T diag(rho gs) kappa [L, M, M], summed over the processes
-    of a sharded step in one all-reduce."""
+    stat2 = kappa^T diag(rho gs) kappa [L, M, M], summed over the data axis
+    of a sharded step in one all-reduce (on a latent axis each process's
+    s1 and S2 are its own classes')."""
     s1, stat2 = batch_sum(s1, stat2)
     K_inv = prior_precision(model, state)
     mu0 = prior_mean_stack(model, x)
@@ -518,19 +575,25 @@ def elbo(model, state: TrainState, x, y, kmat=None) -> torch.Tensor:
     step differentiates through kernel matrices made from its parameters.
     The augmented KL is left out of the gradient, as the reference does.
     An online model's ELBO also subtracts the streaming extra KL, made with
-    the same ``kmat``.  A Student-t process's KL takes its prior covariance
-    K / chi: the Cholesky factor L_K / sqrt(chi)."""
+    the same ``kmat``.  Inside a sharded step (``batch_sums.sharded``) it is
+    the ELBO of the whole batch: the likelihood's terms summed over the data
+    axis, on a latent axis the classes' terms and the Gaussian KL over it
+    too (an unweighted batch: pad rows count).  A Student-t process's KL
+    takes its prior covariance K / chi: the Cholesky factor
+    L_K / sqrt(chi)."""
     kmat = state.kmat if kmat is None else kmat
     mu_f, var_f, _ = latent_moments(model, state, x, kmat)
     rho = state.rho if model.is_sparse else torch.ones((), dtype=mu_f.dtype, device=mu_f.device)
     tot = rho * model.likelihood.expec_loglik(y, mu_f, var_f, state.local_vars)
+    aug = rho * model.likelihood.aug_kl(state.local_vars, y)
+    tot, aug = batch_sum(tot, aug)  # in a sharded step, the whole batch's
     mu0 = prior_mean_stack(model, x)
     L_K = kmat["L_K"]
     if getattr(model, "is_tprior", False) and state.prior_state is not None:
         L_K = L_K / torch.sqrt(state.prior_state["chi"])[:, None, None]
     kl = torch.stack([gaussian_kl(state.mu[l], mu0[l], state.Sigma[l], L_K[l]) for l in range(model.n_latent)])
-    tot = tot - torch.sum(kl)
-    tot = tot - (rho * model.likelihood.aug_kl(state.local_vars, y)).detach()
+    tot = tot - latent_sum(torch.sum(kl))
+    tot = tot - aug.detach()
     if getattr(model, "is_online", False) and state.previous is not None:
         from ..models import online_svgp
 

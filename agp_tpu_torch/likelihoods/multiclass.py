@@ -6,6 +6,13 @@ softmax, which has none: the counterpart of ``MultiClassLikelihood``,
 
 K classes are K latent GPs.  Labels are one-hot encoded on the host, once,
 by ``treat_labels``; the per-class local variables are laid out [K, B].
+
+On a (data, latent) mesh (``parallel/mesh.py``) a process holds a block of
+the latents: the logistic-softmax E-step reads its own columns of the
+one-hot labels, sums gamma over the classes through
+``batch_sums.latent_sum``, and its ELBO terms count the class-free ones
+(-n log 2, the Poisson prior's sum of alpha / beta, the Gamma entropy of
+(alpha, beta)) on the axis's first process alone.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 from ..distributions.polyagamma import sample_pg
 from ..ops.kl import gamma_entropy_improper, poisson_kl_expected, polya_gamma_kl
 from ..ops.special import digamma, safe_expcosh, sqrt_expec_square
+from ..utils.batch_sums import latent_lead, latent_sum, own_latents
 from .base import Likelihood
 
 LOG2 = 0.6931471805599453
@@ -106,41 +114,49 @@ class LogisticSoftMaxLikelihood(MultiClassLikelihood):
             "gamma": torch.full((K, batchsize), 0.5, **kw),
         }
 
+    @staticmethod
+    def _own_yT(y, like):
+        """[L, B]: the one-hot labels' columns of the latents ``like``
+        ([L, ...]) holds, transposed (all K outside a latent axis)."""
+        return (y if y.shape[-1] == like.shape[0] else own_latents(y, -1)).T
+
     def local_updates(self, y, mu, var, local, w=None):
         # w unused: every E-step quantity is per row (the gamma/alpha fixed
         # point couples classes, not rows)
-        yT = y.T  # [K, B]
+        yT = self._own_yT(y, mu)  # [K, B]
         c = sqrt_expec_square(mu, var)
         alpha, beta = local["alpha"], local["beta"]
         expcosh = safe_expcosh(-mu / 2.0, c / 2.0)
         for _ in range(2):
             gamma = torch.exp(digamma(alpha))[None, :] * expcosh / (2.0 * beta[None, :])
-            alpha = 1.0 + torch.sum(gamma, dim=0)
+            alpha = 1.0 + latent_sum(torch.sum(gamma, dim=0))
         theta = (yT + gamma) * torch.tanh(c / 2.0) / (2.0 * c)
         return self, {**local, "c": c, "alpha": alpha, "gamma": gamma, "theta": theta}
 
     def grad_e_mu(self, y, local):
-        return (y.T - local["gamma"]) / 2.0
+        return (self._own_yT(y, local["gamma"]) - local["gamma"]) / 2.0
 
     def grad_e_sigma(self, y, local):
         return local["theta"] / 2.0
 
     def expec_loglik(self, y, mu, var, local):
         n = y.shape[0]
-        yT = y.T
+        yT = self._own_yT(y, mu)
         theta, gamma = local["theta"], local["gamma"]
-        tot = -n * LOG2
+        tot = -n * LOG2 if latent_lead() else 0.0
         tot = tot - torch.sum(gamma + yT) * LOG2
-        return tot + 0.5 * torch.sum(mu * (yT - gamma) - theta * mu**2 - theta * var)
+        return latent_sum(tot + 0.5 * torch.sum(mu * (yT - gamma) - theta * mu**2 - theta * var))
 
     def aug_kl(self, local, y):
-        yT = y.T
+        yT = self._own_yT(y, local["gamma"])
         alpha, beta = local["alpha"], local["beta"]
+        lead = latent_lead()
+        lam0 = (alpha / beta)[None, :]
         pg = polya_gamma_kl(yT + local["gamma"], local["c"], local["theta"])
         po = poisson_kl_expected(
-            local["gamma"], (alpha / beta)[None, :], (digamma(alpha) - torch.log(beta))[None, :]
+            local["gamma"], lam0 if lead else torch.zeros_like(lam0), (digamma(alpha) - torch.log(beta))[None, :]
         )
-        return pg + po + gamma_entropy_improper(alpha, beta)
+        return latent_sum(pg + po + gamma_entropy_improper(alpha, beta) if lead else pg + po)
 
     def sample_local(self, generator, y, f, local):
         """gamma_k ~ Po(alpha sigma(-f_k)), alpha ~ Ga(1 + sum_k gamma_k) / beta,

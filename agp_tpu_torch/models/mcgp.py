@@ -4,7 +4,8 @@ values at the training inputs: the counterpart of
 
 ``sample`` runs every chain of blocked Gibbs sampling at once (the chains
 a leading tensor axis), or dispatches to NUTS or HMC for an
-``HMCSampling`` model.  ``predict_f_samples`` pushes samples through the
+``HMCSampling`` model; on a mesh, each process runs its share of the
+chains.  ``predict_f_samples`` pushes samples through the
 predictive mean map k* K^-1 f, and ``proba_y_mc`` averages the link over
 them.  All dense N x N algebra runs at full FP32 (cuSOLVER and cuBLAS on
 the card) and no kernel of the port.
@@ -86,12 +87,29 @@ def prior_chol(model) -> torch.Tensor:
     return linalg.safe_cholesky(K, jitter(K.dtype), lazy_rungs=True)
 
 
-def sample(model: MCGP, n_samples: int, generator=None, n_chains: int = 1):
+def sample(model: MCGP, n_samples: int, generator=None, n_chains: int = 1, mesh=None):
     """Posterior samples of f: Gibbs for a ``GibbsSampling`` model, NUTS or
     HMC for an ``HMCSampling`` one (its ``algorithm``).  Returns
     [n_chains, n_samples, L, N], the chain axis squeezed when n_chains is
     1.  ``generator`` (on the model's device; seed 0 when None) makes
-    every draw."""
+    every draw.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``) the chains are split over its
+    data axis (the reference's chain-parallel Gibbs): each process runs
+    its n_chains / n chains from its own ``generator`` (default seeded by
+    its data index), with no collective in a sweep, and the kept samples
+    are all-gathered in the axis's order at the end: process i's block is
+    the one-process ``sample`` with its generator and n_chains / n chains.
+    Every process must call it alike."""
+    if mesh is not None and mesh.data.size > 1:
+        axis = mesh.data
+        if n_chains % axis.size:
+            raise ValueError(f"{n_chains} chains do not split over a data axis of {axis.size} processes")
+        if generator is None:
+            generator = torch.Generator(device=model.train_x.device).manual_seed(axis.rank)
+        own = n_chains // axis.size
+        kept = sample(model, n_samples, generator, own)
+        return torch.cat(axis.all_gather((kept[None] if own == 1 else kept).contiguous()))
     generator = _default_generator(model, generator)
     inf = model.inference
     if inf.name == "HMCSampling":

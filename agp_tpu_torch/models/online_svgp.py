@@ -29,9 +29,19 @@ drivers are Python loops: a batch is its set-up (the first) or its
 prologue (save-old, the inducing update, the masked kernel matrices, fresh
 local variables), then its CAVI iterations, with the hyperparameter step
 interleaved as ``train`` interleaves it.
+
+On a mesh (``mesh=``, the reference's batch rows sharded over "data") each
+process takes its rows of every batch as ``parallel.mesh.shard_batch``
+cuts them, the pad row's mask threaded through; the inducing-set
+selection runs on the whole batch on process 0 alone, which broadcasts Z,
+its mask and its counts (OIPS decides on the host, so the processes' sets
+could otherwise part); kappa^T g_mu, kappa^T diag(g_Sigma) kappa and the
+likelihood's batch sums go through ``utils.batch_sums.batch_sum``; the
+streaming correction stays replicated.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
@@ -57,6 +67,7 @@ from ..means import PriorMean, ZeroMean, batch_call
 from ..ops import linalg
 from ..training import autotuning
 from ..training.state import TrainState, init_var_posterior
+from ..utils import batch_sums
 from ..utils.opt import adam
 from ..utils.tensors import Params
 from .base import as_2d, check_implemented, match_dtype, model_repr, to_tensor
@@ -241,17 +252,21 @@ def update_Z(model: OnlineSVGP, x):
 
 
 @linalg._highest_precision
-def online_variational_update(model: OnlineSVGP, state, x, y):
+def online_variational_update(model: OnlineSVGP, state, x, y, w=None):
     """One streaming CAVI iteration: the likelihood's E-step at the batch,
     then eta from the statistics, the prior and the previous posterior's
     correction, the inactive slots reset to eta1 = 0, eta2 = -I/2 (the
-    ladder would otherwise factor a singular matrix), and the moments."""
+    ladder would otherwise factor a singular matrix), and the moments.
+    ``w`` ([B] of 0/1, optional) zero-weights pad rows out of the
+    statistics, which a sharded step sums over its processes."""
     kmat = state.kmat
     mu_f, var_f, kappa = latent_moments(model, state, x, kmat)
-    lik, local = model.likelihood.local_updates(y, mu_f, var_f, state.local_vars)
+    lik, local = model.likelihood.local_updates(y, mu_f, var_f, state.local_vars, w=w)
     model = model.replace(likelihood=lik)
     gmu = lik.grad_e_mu(y, local)  # [L, B]
     gs = lik.grad_e_sigma(y, local)
+    if w is not None:
+        gmu, gs = gmu * w, gs * w
     K_inv = kmat["K_inv"]
     kappa_a, _ = masked_kappa_a(model, kmat)
     prev = state.previous
@@ -259,8 +274,8 @@ def online_variational_update(model: OnlineSVGP, state, x, y):
     def matvec(A, v):
         return (A @ v.unsqueeze(-1)).squeeze(-1)
 
-    eta1 = matvec(K_inv, masked_mu0(model)) + matvec(kappa.mT, gmu) + matvec(kappa_a.mT, prev["prev_eta1"])
-    stat2 = kappa.mT @ (gs.unsqueeze(-1) * kappa)
+    s1, stat2 = batch_sums.batch_sum(matvec(kappa.mT, gmu), kappa.mT @ (gs.unsqueeze(-1) * kappa))
+    eta1 = matvec(K_inv, masked_mu0(model)) + s1 + matvec(kappa_a.mT, prev["prev_eta1"])
     corr2 = kappa_a.mT @ prev["invDa"] @ kappa_a / 2.0
     eta2 = linalg.symmetrize(-(stat2 + corr2 + 0.5 * K_inv))
     inact = ~model.z_mask
@@ -289,22 +304,39 @@ def online_extra_kl(model: OnlineSVGP, state, kmat=None):
 
 
 # -------------------------------------------------------------- driver
-def _first_batch(model: OnlineSVGP, X):
-    """The inducing set selected from the first batch on the host (with
-    latent 0's kernel), copied into every latent's first slots, and the
-    initial state."""
-    alg = model.Zalg if model.Zalg is not None else OIPS(rho=model.rho_accept, capacity=model.capacity)
-    Z0 = inducingpoints(alg, X, kernel=latent(model.kernel, 0))
-    k0 = min(Z0.shape[0], model.capacity)
+def _decided(mesh, model: OnlineSVGP):
+    """The inducing set (Z, its mask and its counts) as process 0 of
+    ``mesh`` holds it, on every process; the model itself without a mesh
+    of several processes."""
+    if mesh is None or mesh.size == 1:
+        return model
+    mask = mesh.broadcast(model.z_mask.to(torch.uint8)).to(torch.bool)
+    return model.replace(Z=mesh.broadcast(model.Z), z_mask=mask, z_counts=mesh.broadcast(model.z_counts))
+
+
+def _selects(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _first_batch(model: OnlineSVGP, X, rows=None, mesh=None):
+    """The inducing set selected from the first batch X on the host (with
+    latent 0's kernel; on process 0 of ``mesh``, then broadcast), copied
+    into every latent's first slots, and the initial state with the local
+    variables of ``rows`` rows (X's by default)."""
+    if _selects(mesh):
+        alg = model.Zalg if model.Zalg is not None else OIPS(rho=model.rho_accept, capacity=model.capacity)
+        Z0 = inducingpoints(alg, X, kernel=latent(model.kernel, 0))
+        k0 = min(Z0.shape[0], model.capacity)
+        Z, z_mask, counts = model.Z.clone(), model.z_mask.clone(), model.z_counts.clone()
+        Z[:, :k0] = Z0[:k0].to(Z.dtype)
+        z_mask[:, :k0] = True
+        counts[:, :k0] = 1.0
+        model = model.replace(Z=Z, z_mask=z_mask, z_counts=counts)
+    model = _decided(mesh, model)
     L, Mc, dtype, device = model.n_latent, model.capacity, X.dtype, X.device
-    Z, z_mask, counts = model.Z.clone(), model.z_mask.clone(), model.z_counts.clone()
-    Z[:, :k0] = Z0[:k0].to(Z.dtype)
-    z_mask[:, :k0] = True
-    counts[:, :k0] = 1.0
-    model = model.replace(Z=Z, z_mask=z_mask, z_counts=counts)
     state = TrainState(
         **init_var_posterior(L, Mc, dtype, device),
-        local_vars=model.likelihood.init_local_vars(X.shape[0], dtype, device),
+        local_vars=model.likelihood.init_local_vars(X.shape[0] if rows is None else rows, dtype, device),
         hyper_state=autotuning.init_hyper_state(model),
         kmat=masked_kmat(model),
         rho=torch.ones((), dtype=dtype, device=device),
@@ -318,28 +350,42 @@ def _first_batch(model: OnlineSVGP, X):
     return model, state
 
 
-def _online_prologue(model: OnlineSVGP, state, X):
-    """Between batches: save-old, the inducing update, the masked kernel
-    matrices, fresh local variables."""
+def _online_prologue(model: OnlineSVGP, state, X, rows=None, mesh=None):
+    """Between batches: save-old, the inducing update (on process 0 of
+    ``mesh``, then broadcast), the masked kernel matrices, fresh local
+    variables of ``rows`` rows (X's by default)."""
     model, state = save_old_parameters(model, state)
-    model = update_Z(model, X)
+    if _selects(mesh):
+        model = update_Z(model, X)
+    model = _decided(mesh, model)
+    rows = X.shape[0] if rows is None else rows
     return model, state.replace(
-        kmat=masked_kmat(model), local_vars=model.likelihood.init_local_vars(X.shape[0], X.dtype, X.device)
+        kmat=masked_kmat(model), local_vars=model.likelihood.init_local_vars(rows, X.dtype, X.device)
     )
 
 
-def _train_batch(model: OnlineSVGP, state, X, y, iterations: int):
+def _train_batch(model: OnlineSVGP, state, X, y, iterations: int, mesh=None):
     """One streaming batch (labels treated): its set-up or prologue, then
     ``iterations`` CAVI iterations; with an optimiser, a hyperparameter step
     after iteration i when i is a multiple of ``atfrequency``, i >= 3 and i
-    is not the last, and the kernel matrices refreshed at the end."""
+    is not the last, and the kernel matrices refreshed at the end.  On a
+    mesh of several processes each iterates on its rows of the batch
+    (``parallel.mesh.shard_batch``), the selection made on the whole."""
+    xs, ys, w = X, y, None
+    split = mesh is not None and mesh.size > 1
+    if split:
+        from ..parallel.mesh import _n_pad, shard_batch
+
+        xs, ys, mask = shard_batch(mesh, X, y, with_mask=True)
+        w = mask if _n_pad(mesh, X.shape[0]) else None
     if state is None:
-        model, state = _first_batch(model, X)
+        model, state = _first_batch(model, X, xs.shape[0], mesh)
     else:
-        model, state = _online_prologue(model, state, X)
+        model, state = _online_prologue(model, state, X, xs.shape[0], mesh)
     do_hyper = model.optimiser is not None
     for i in range(1, iterations + 1):
-        model, state = online_variational_update(model, state, X, y)
+        with batch_sums.sharded(mesh) if split else contextlib.nullcontext():
+            model, state = online_variational_update(model, state, xs, ys, w)
         state = state.replace(step=state.step + 1)
         if do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations:
             model, state = autotuning.hyper_step(model, state, X, y)
@@ -348,15 +394,33 @@ def _train_batch(model: OnlineSVGP, state, X, y, iterations: int):
     return model, state
 
 
-def online_train(model: OnlineSVGP, X, y, state: TrainState | None = None, iterations: int = 20):
+def _check_mesh(model: OnlineSVGP, mesh):
+    """``mesh`` as the streaming drivers take it: None, or a mesh whose
+    data axis splits the batches (``TypeError`` on a latent axis; a
+    hyperparameter step on a mesh is refused with ``ValueError``)."""
+    if mesh is None:
+        return None
+    if mesh.latent.size > 1:
+        analytic_vi.check_latent_axis(model, mesh.latent.size)
+    if model.optimiser is not None and mesh.size > 1:
+        raise ValueError("a sharded stream requires optimiser=None: the hyperparameter step's gradient is not "
+                         "summed over the processes")
+    return mesh
+
+
+def online_train(model: OnlineSVGP, X, y, state: TrainState | None = None, iterations: int = 20, mesh=None):
     """Train on one streaming batch; thread (model, state) across batches
     (the reference's onlinetraining.jl:36-145).  The first batch
     (``state`` None) selects the inducing set.  X and y without a device go
-    to the model's device, X in its dtype."""
+    to the model's device, X in its dtype.  With ``mesh`` (a
+    ``parallel.mesh.Mesh``; every process passes the whole batch) each
+    process iterates on its rows, as the module's docstring says; the
+    state's local variables are its rows'."""
+    mesh = _check_mesh(model, mesh)
     X = as_2d(X, like=model.Z)
     y, lik = model.likelihood.treat_labels(y)
     y = match_dtype(y.to(X.device), X)
-    return _train_batch(model.replace(likelihood=lik), state, X, y, iterations)
+    return _train_batch(model.replace(likelihood=lik), state, X, y, iterations, mesh)
 
 
 def _flat(y):
@@ -364,12 +428,14 @@ def _flat(y):
 
 
 def online_train_stream(model: OnlineSVGP, X_stream, y_stream, state: TrainState | None = None,
-                        iterations: int = 20):
+                        iterations: int = 20, mesh=None):
     """Train on a pre-buffered stream of equal batches, X_stream
     [n_batches, B, D] and y_stream [n_batches, B]: the same batches as
     ``online_train`` called once a batch, in one loop, the labels treated
-    once for the stream.  Requires optimiser=None (a stream with
-    hyperparameter learning goes batch by batch, as the reference's)."""
+    once for the stream; ``mesh`` as ``online_train`` takes it.  Requires
+    optimiser=None (a stream with hyperparameter learning goes batch by
+    batch, as the reference's)."""
+    mesh = _check_mesh(model, mesh)
     if model.optimiser is not None:
         raise ValueError(
             "online_train_stream requires optimiser=None; interleaved "
@@ -385,7 +451,7 @@ def online_train_stream(model: OnlineSVGP, X_stream, y_stream, state: TrainState
     # restore the (n_batches, B) layout in front of them
     y_stream = match_dtype(y_flat.reshape(lead + tuple(y_flat.shape[1:])).to(X_stream.device), X_stream)
     for Xb, yb in zip(X_stream, y_stream):
-        model, state = _train_batch(model, state, Xb, yb, iterations)
+        model, state = _train_batch(model, state, Xb, yb, iterations, mesh)
     return model, state
 
 

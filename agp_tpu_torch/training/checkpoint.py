@@ -27,6 +27,12 @@ cannot be read without JAX, so there it raises ``ValueError``.  As in the
 reference, a model whose likelihood class ``make_augmented_likelihood``
 built at run time does not pickle by name: rebuild it in code and load
 with templates.
+
+A sharded run's checkpoint holds the global state: ``parallel.
+gather_latents`` and ``gather_local_vars`` collect it (on a data mesh, the
+local variables of every row or of the global minibatch).  Loaded on any
+world, ``parallel.sharded_train`` and ``build_svi_trainer`` cut it back to
+each process's rows and latents (``parallel.shard_local_vars``).
 """
 from __future__ import annotations
 

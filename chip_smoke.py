@@ -315,7 +315,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 52. the paths past the old ceilings: an SVGP at M=4,096 (float32) and
    M=2,048 (float64), a MOVGP on 3,000 (float32) and 1,500 (float64)
    points, each against the host CPU's float64 run from the same draws
-   (floor, parity) with exact launches, then trained on the card.
+   (floor, parity) with exact launches, then trained on the card;
+53. the (data, latent) mesh (``tail-rank`` children on the one card over
+   gloo, 2 as 1 x 2, then 4 as 2 x 2): bench.py's K=10 multiclass through
+   sharded_svi_train, TAIL_MC_STEPS steps (5 latents a rank), and the M=512
+   multiclass oracle (K=3: latents 2 + 1) on 1 x 2; rank 0's gathered mu
+   and Sigma against the world-1 card run on the same global rows (kernel
+   2 at M=64, 4 + 5 at M=512) within ORACLE_DEVICE_FACTOR times its float32
+   noise, the accuracy floors (SLICE_TAIL_FLOORS), every rank's exact
+   launches (kernels 4 and 5 once a step, kernel 2 never) in the kernels
+   line, it/s against world 1's, rank 0's profiled K=10 step on 2 x 2;
+54. particle-parallel SMC (phase 25's N=512 rule, 64 particles, 8
+   temperatures) and chain-parallel Gibbs (phase 24's row, 2 chains a
+   rank) over 2 processes: the particles and log Z against world 1 within
+   its float32 noise, each rank's chains bit-equal to its one-process twin,
+   the pooled mean within TAIL_SE standard errors of phase 24's, the sign
+   floor, chain-sweeps/s;
+55. phase 27's streaming row and phase 29's wide stream over 2 processes
+   (the batch's rows split, the selection on process 0): the same inducing
+   set as world 1, mu and Sigma within its float32 noise, points/s, rank
+   0's profiled batch; the flagship's checkpoint gathered on rank 0 after
+   JK_SVI_SAVE of JK_SVI_STEPS steps (kernel 1), resumed on 2 processes and
+   on one, each within phase 40's noise of the uninterrupted run.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -374,6 +395,10 @@ comes from), ``slice-jk-nccl`` (phases 40-41 over NCCL, one process on
 each card of a machine with several), ``slice-l`` (phases 42-45 alone),
 ``slice-l-cpu`` (paths 42-44, alrsvi and the AffineMean VGP in float64 on
 the host's CPU, no card needed: what SLICE_L_FLOORS comes from),
+``slice-tail`` (phases 53-55 alone), ``slice-tail-nccl`` (phases 53-55
+over NCCL, one process on each card of a machine with 2 or 4),
+``slice-tail-cpu`` (phase 53's paths at world 1 in float64 on the host's
+CPU, no card needed: what SLICE_TAIL_FLOORS comes from),
 ``float64`` (phases 46-49 alone, after the SASS and shared-memory checks).
 ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
@@ -3785,6 +3810,7 @@ def gibbs_path(agt, ck, device, solver, dtype=torch.float32, vgp_mu=None):
         expect_launches(ck, f"gibbs {solver}", {})
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["finite"] = bool(torch.isfinite(s).all())
+    out["chain_means"] = s.mean(1)[:, 0]
     mean = s.mean((0, 1))[0]
     out["sign"] = float((torch.sign(mean) == model.train_y).double().mean())
     if vgp_mu is not None:
@@ -3845,6 +3871,7 @@ def phase_gibbs(agt, ck, device):
                                  f"correlation {r['corr']:.5f} (floor {GIBBS_FLOORS['corr']})")
     if not out["cg"]["finite"]:
         raise AssertionError("gibbs cg: non-finite samples (the bench's row)")
+    GIBBS_ROW["cg"] = out["cg"].pop("chain_means")
     return out
 
 
@@ -7493,6 +7520,543 @@ def cols_mode(agt, ck, device):
     return kernels, paths
 
 
+# ------------------------- the (data, latent) mesh, samplers, stream (53-55)
+# phase 53: bench.py:165-179's multiclass (K=MK, N=MN, D=MD, M=MM, B=MB,
+# slice) through sharded_svi_train on a 1 x 2 and a 2 x 2 mesh (5 latents a
+# rank) for TAIL_MC_STEPS steps; tpu_acceptance.py:370-412's M=512
+# multiclass oracle (K=3, B=PAIR_MC_B, PAIR_MC_STEPS steps) on a 1 x 2 mesh
+# (latents 2 + 1).  Each data index draws its own slice starts.
+TAIL_MC_STEPS, TAIL_MC_EVAL = 100, 4096
+# the first steps of a process (each kernel's first load, the allocator)
+# are left out of its rate; the world-1 run's rate comes after 5 steps
+TAIL_WARM_STEPS = 10
+# phase 54: SMC on phase 25's N=SAMPLER_N data rule (TAIL_SMC_P particles,
+# TAIL_SMC_TEMPS temperatures, the default 5 MALA steps) and the Gibbs row
+# (phase 24's model and solver "cg", GIBBS_CHAINS chains, its 50 burn-in
+# sweeps; TAIL_GIBBS_SAMPLES samples, a quarter of phase 24's: a cut of steps) over
+# TAIL_WORLD processes; Gibbs chain means within TAIL_SE standard errors
+TAIL_SMC_P, TAIL_SMC_TEMPS, TAIL_GIBBS_SAMPLES, TAIL_SE = 64, 8, 100, 6.0
+# phases 53-55's one-card worlds (gloo); phase 55's flagship checkpoint
+# after JK_SVI_SAVE of JK_SVI_STEPS steps, as phase 40's
+TAIL_WORLD = 2
+# floors from ``python3 chip_smoke.py slice-tail-cpu`` (phase 53's paths at
+# world 1 in float64 on the card's host's CPU, on each mesh's global
+# draws): the K=10 multiclass's training accuracy on X[:TAIL_MC_EVAL] after
+# TAIL_MC_STEPS steps reads 0.87354 (the 1 x 2 mesh's draws) and 0.87012
+# (2 x 2's); three times its error gives 0.61, so the tighter earlier
+# bound, bench.py's multiclass MIN_MC_ACC, holds it.  The M=512 oracle
+# reads 0.99634 there and keeps MIN_PAIR_MC_ACC; the Gibbs row keeps
+# GIBBS_FLOORS["sign"], the streaming row ONLINE_FLOORS["oips"], the
+# flagship MIN_FLAGSHIP_ACC.
+SLICE_TAIL_FLOORS = {"mc_k10": MIN_MC_ACC}
+# the Gibbs row's chain means of phase 24 (solver "cg"), when it ran
+GIBBS_ROW = {}
+
+
+def tail_mc_case(which):
+    """(data, model builder, steps, global B, accuracy rows) of a phase-53
+    case: "k10" (bench.py's multiclass) or "m512" (the M=512 oracle)."""
+    if which == "k10":
+        return mc_data, lambda agt, X: multi_model(agt, X, "multiclass"), TAIL_MC_STEPS, MB
+    return pair_mc_data, lambda agt, X: pair_multi_model(agt, X, "multiclass"), PAIR_MC_STEPS, PAIR_MC_B
+
+
+def tail_mc_draws(which, n_data):
+    """[steps, n_data] slice starts: each data index's rows of its shard."""
+    _, _, steps, b = tail_mc_case(which)
+    rows = (MN if which == "k10" else ON) // n_data
+    return torch.randint(0, rows - b // n_data + 1, (steps, n_data), generator=torch.Generator().manual_seed(9))
+
+
+def tail_world1(agt, X, y, model, draws, perm=None):
+    """The world-1 run on a (data, latent) run's global rows: step i's batch
+    is each data index's B / n_data rows from its slice start (in its shard
+    of N / n_data rows), in data order, through the single-device step
+    (kernel 2 at M=64, kernels 4 + 5 at M=512); ``perm`` reorders Z.
+    Returns (model, state)."""
+    from agp_tpu_torch.inference.analytic_vi import variational_update
+
+    y_t, lik = model.likelihood.treat_labels(y)
+    model = model.replace(likelihood=lik)
+    if perm is not None:
+        model = model.replace(Z=model.Z[:, perm].contiguous())
+    y_t = y_t.to(device=X.device, dtype=X.dtype)
+    state = agt.init_state(model, X, y_t)
+    n_data = draws.shape[1]
+    rows, bpd = X.shape[0] // n_data, model.inference.batchsize // n_data
+    within = torch.arange(bpd, device=X.device)
+    starts = draws.to(X.device)
+    for i in range(draws.shape[0]):
+        idx = torch.cat([d * rows + starts[i, d] + within for d in range(n_data)])
+        model, state = variational_update(model, state, X.index_select(0, idx), y_t.index_select(0, idx))
+        state = state.replace(step=state.step + 1)
+    return model, state
+
+
+def tail_mesh_child(agt, ck, pm, mesh, root, device):
+    """Phase 53 in a child: each case through sharded_svi_train on its
+    data index's slice starts; (results of rank 0, launches by case,
+    seconds by case)."""
+    res, launches, seconds = {}, {}, {}
+    cases = ("k10", "m512") if mesh.data.size == 1 else ("k10",)
+    for which in cases:
+        data, make, steps, b = tail_mc_case(which)
+        X, y = data(device)
+        starts = torch.load(os.path.join(root, f"{which}_{mesh.data.size}.pt"))[:, mesh.data.rank, None]
+        bpd, warm = b // mesh.data.size, TAIL_WARM_STEPS
+        reset_launches(ck)
+        # the first steps load each kernel of the step and fill the allocator: untimed
+        m, s = pm.sharded_svi_train(make(agt, X), X, y, warm, mesh=mesh, batch_per_device=bpd, draws=starts[:warm])
+        sync(device)
+        torch.distributed.barrier()  # the processes start their clocks together
+        t0 = time.perf_counter()
+        m, s = pm.sharded_svi_train(m, X, y, steps - warm, mesh=mesh, batch_per_device=bpd, state=s,
+                                    draws=starts[warm:])
+        sync(device)
+        seconds[which] = time.perf_counter() - t0
+        launches[which] = {name: launches_of(ck, name) for name in LAUNCH_COUNTERS if launches_of(ck, name)}
+        if which == "k10" and mesh.data.size > 1 and device.type == "cuda":  # rank 0's profiled, on 2 x 2
+            steps_fn, m_p, s_p, Xs, ys = pm.build_svi_trainer(m, X, y, mesh, bpd, s)
+            run = lambda: steps_fn(m_p, s_p, Xs, ys, JK_PROFILE_STEPS, draws=starts[-JK_PROFILE_STEPS:].to(device))
+            if mesh.rank == 0:
+                p = profile_window(run, JK_PROFILE_STEPS)
+                seconds["profile"] = {k: p[k] for k in ("wall_us", "busy_us", "idle_share", "launches")}
+            else:
+                run()
+        mg, sg = pm.gather_latents(mesh, m, s)
+        acc = float((agt.predict_y(mg, sg, X[:TAIL_MC_EVAL]) == y[:TAIL_MC_EVAL]).float().mean())
+        res[which] = (sg.mu.cpu(), sg.Sigma.cpu(), acc, (m.n_latent, mg.n_latent))
+    return res, launches, seconds
+
+
+def tail_sampler_child(agt, pm, mesh, device):
+    """Phase 54 in a child: SMC with its particles over the processes, the
+    Gibbs row with its chains over them (each process's chains against its
+    one-process twin, bit for bit)."""
+    from agp_tpu_torch import bench
+    from agp_tpu_torch.inference.smc import gather_particles
+
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    Xs, ys = sampler_data(device)
+    m = agt.MCGP.create(Xs, ys, agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create())
+    seconds = {}
+    sync(device)
+    torch.distributed.barrier()  # the processes start their clocks together
+    t0 = time.perf_counter()
+    fs, log_z = agt.smc_sample(m, n_particles=TAIL_SMC_P, n_temps=TAIL_SMC_TEMPS, generator=gen(11), mesh=mesh)
+    sync(device)
+    seconds["smc"] = time.perf_counter() - t0
+    block = tuple(fs.shape)
+    f_all = gather_particles(mesh, fs)
+    model = bench.gibbs_workload(device, "cg")
+    own = GIBBS_CHAINS // mesh.size
+    kept = agt.sample(model, TAIL_GIBBS_SAMPLES, generator=gen(20 + mesh.rank), n_chains=GIBBS_CHAINS, mesh=mesh)
+    sync(device)
+    torch.distributed.barrier()  # the twin, warm, gives the rate: a sweep has no collective
+    t0 = time.perf_counter()
+    twin = agt.sample(model, TAIL_GIBBS_SAMPLES, generator=gen(20 + mesh.rank), n_chains=own)
+    sync(device)
+    seconds["gibbs"] = time.perf_counter() - t0
+    mine = kept[mesh.rank * own:(mesh.rank + 1) * own]
+    equal = bool(torch.equal(mine, twin if own > 1 else twin[None]))
+    flags = [None] * mesh.size
+    torch.distributed.all_gather_object(flags, {"twin": equal, "block": block})
+    return {"smc": (f_all.cpu(), float(log_z)), "gibbs": kept.mean(1)[:, 0].cpu(), "flags": flags}, seconds
+
+
+def tail_stream(agt, name, X, y, device, mesh=None):
+    """An online path (phase 27's "oips" or phase 29's "wide") streamed
+    batch by batch through online_train, on ``mesh`` or on one process;
+    (model, state, seconds of batches 2 to ONLINE_BATCHES: the first
+    loads each kernel of the step)."""
+    b = WIDE_B if name == "wide" else ONLINE_B
+    model, state = online_model(agt, name, device, X.dtype), None
+    for i in range(ONLINE_BATCHES):
+        if i == 1:
+            sync(device)
+            if mesh is not None:
+                torch.distributed.barrier()  # the processes start their clocks together
+            t0 = time.perf_counter()
+        model, state = agt.online_train(model, X[i * b:(i + 1) * b], y[i * b:(i + 1) * b], state=state,
+                                        iterations=ONLINE_ITERS, mesh=mesh)
+    sync(device)
+    return model, state, time.perf_counter() - t0
+
+
+def tail_stream_child(agt, ck, pm, mesh, root, device):
+    """Phase 55 in a child: the two streams over the processes, then the
+    flagship through sharded_svi_train with rank 0's gathered checkpoint
+    at JK_SVI_SAVE steps, resumed from it on this world."""
+    res, seconds = {}, {}
+    for name in ("oips", "wide"):
+        X, f, y = online_data(name, device, torch.float32)
+        model, state, seconds[name] = tail_stream(agt, name, X, y, device, mesh)
+        n = ONLINE_BATCHES * (WIDE_B if name == "wide" else ONLINE_B)
+        mu = agt.predict_f(model, state, X[:n], chunk_size=4096)
+        rmse = float(torch.sqrt(torch.mean((mu.double() - f[:n].double()) ** 2)))
+        res[name] = (state.mu.cpu(), state.Sigma.cpu(), model.Z.cpu(), model.z_mask.cpu(), rmse)
+        if name == "oips" and device.type == "cuda":  # one batch more, rank 0's profiled
+            xb, yb = X[n:n + ONLINE_B], y[n:n + ONLINE_B]
+            run = lambda: agt.online_train(model, xb, yb, state=state, iterations=ONLINE_ITERS, mesh=mesh)
+            if mesh.rank == 0:
+                p = profile_window(run, ONLINE_ITERS)
+                seconds["profile"] = {k: p[k] for k in ("wall_us", "busy_us", "idle_share", "launches")}
+            else:
+                run()
+    X, y = flagship_data(device)
+    draws = torch.load(os.path.join(root, "draws.pt"))[:, mesh.rank].to(device)
+    bpd = B // mesh.size
+    reset_launches(ck)
+    model, state = pm.sharded_svi_train(flagship_model(agt, X), X, y, JK_SVI_SAVE, mesh=mesh, batch_per_device=bpd,
+                                        draws=draws[:JK_SVI_SAVE])
+    local = pm.gather_local_vars(mesh, state.local_vars)
+    if mesh.rank == 0:
+        agt.checkpoint.save(os.path.join(root, "tail50"), model, state.replace(local_vars=local))
+    model, state = pm.sharded_svi_train(model, X, y, JK_SVI_STEPS - JK_SVI_SAVE, mesh=mesh, batch_per_device=bpd,
+                                        state=state, draws=draws[JK_SVI_SAVE:])
+    torch.distributed.barrier()  # the checkpoint is written
+    tmpl = flagship_model(agt, X)
+    m50, s50 = agt.checkpoint.load(os.path.join(root, "tail50"), tmpl, agt.init_state(tmpl, X, y))
+    m50, s50 = pm.sharded_svi_train(m50, X, y, JK_SVI_STEPS - JK_SVI_SAVE, mesh=mesh, batch_per_device=bpd,
+                                    state=s50, draws=draws[JK_SVI_SAVE:])
+    launches = {name: launches_of(ck, name) for name in LAUNCH_COUNTERS if launches_of(ck, name)}
+    res["svi"] = (state.mu.cpu(), float((agt.predict_y(model, state, X) == y).float().mean()))
+    res["resumed"] = s50.mu.cpu()
+    return res, {"flagship": launches}, seconds
+
+
+def tail_rank(phase, rank, world, init, root, device, backend):
+    """``python3 chip_smoke.py tail-rank PHASE RANK WORLD INIT ROOT DEVICE
+    BACKEND``: one process of phase 53, 54 or 55 on DEVICE (cuda:0 for
+    every rank over gloo; cuda:RANK over NCCL, ``slice-tail-nccl``), on a
+    (data, latent) mesh with a latent axis of 2 for phase 53, a data mesh
+    otherwise.  Prints its launches by case and its seconds as its last
+    line; rank 0 writes its results to ROOT/tailPHASE_WORLD.pt."""
+    import agp_tpu_torch as agt
+    from agp_tpu_torch.ops import cuda_kernels as ck
+    from agp_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device)
+    if device.type == "cuda":
+        ck._library()  # built by the parent
+    mesh = pm.initialize_distributed(init, world, rank, backend=backend, device=device,
+                                     latent=2 if phase == "53" else 1)
+    for axis in (mesh, mesh.data, mesh.latent):  # NCCL makes a group's communicator at its first collective
+        axis.all_reduce(torch.zeros(1, device=device))
+    t1 = time.perf_counter()
+    if phase == "53":
+        res, launches, seconds = tail_mesh_child(agt, ck, pm, mesh, root, device)
+    elif phase == "54":
+        reset_launches(ck)
+        res, seconds = tail_sampler_child(agt, pm, mesh, device)
+        launches = {"samplers": {name: launches_of(ck, name) for name in LAUNCH_COUNTERS if launches_of(ck, name)}}
+    else:
+        res, launches, seconds = tail_stream_child(agt, ck, pm, mesh, root, device)
+    seconds.update(setup=t1 - t0, cases=time.perf_counter() - t1)
+    if rank == 0:
+        torch.save(res, os.path.join(root, f"tail{phase}_{world}.pt"))
+    torch.distributed.barrier()  # no rank tears down while another is still in a collective
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"rank": rank, "launches": launches, "seconds": seconds}), flush=True)
+
+
+def tail_spawn(phase, world, root, device, backend):
+    """Starts the ``tail-rank`` processes of one world; returns them."""
+    init = f"file://{os.path.abspath(root)}/rendezvous{phase}_{world}"
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "tail-rank", phase, str(r), str(world), init,
+                              root, str(device) if backend == "gloo" else f"cuda:{r}", backend],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def tail_reports(phase, procs, root, world):
+    """Waits for a world's processes; (rank 0's results, every rank's
+    report).  A process that fails fails the phase.  Logs the world's wall
+    time and rank 0's parts of it."""
+    t0 = time.perf_counter()
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"tail-rank {phase} failed ({p.returncode}):\n{text[-4000:]}")
+    reports = [json.loads(t.strip().splitlines()[-1]) for t in logs]
+    log(f"phase {phase}'s {world} processes: {time.perf_counter() - t0:.2f} s from the spawn; rank 0 "
+        f"{reports[0]['seconds']['setup']:.2f} s to its mesh (CUDA, the library, the groups), "
+        f"{reports[0]['seconds']['cases']:.2f} s in its cases")
+    return torch.load(os.path.join(root, f"tail{phase}_{world}.pt")), reports
+
+
+def tail_launches(label, reports, want, device):
+    """Every rank launched each case's kernels exactly as ``want`` names
+    them ({case: {kernel: n}}) and nothing else; adds them to LAUNCHES."""
+    for rep in reports:
+        for case, counts in want.items():
+            got = rep["launches"].get(case, {})
+            if got != counts and device.type == "cuda":  # the CPU's plain versions launch nothing
+                raise AssertionError(f"{label} rank {rep['rank']} {case}: launched {got}, expected {counts}")
+            for k, v in got.items():
+                LAUNCHES[k] = LAUNCHES.get(k, 0) + v
+
+
+def phase_latent_mesh(agt, ck, device, root, worlds=(2, 4), backend="gloo"):
+    """Phase 53: the (data, latent) mesh at full width, one world at a time
+    (``worlds``: 2 processes as 1 x 2 and 4 as 2 x 2, all on the one card
+    over gloo; NCCL refuses two ranks on one GPU).  bench.py's K=10
+    multiclass (5 latents a rank) on each, and the M=512 oracle (K=3:
+    latents 2 + 1) on 1 x 2.  Each run: rank 0's gathered mu and Sigma
+    against the world-1 card run on the same global rows (kernel 2 at
+    M=64, kernels 4 + 5 at M=512) within ORACLE_DEVICE_FACTOR times that
+    path's float32 noise (the world-1 run again with Z reordered); its
+    accuracy against its floor; every rank's exact launches (kernels 4 and
+    5 once a step, kernel 2 never); its it/s against the world-1 rate."""
+    out = {}
+    perm = torch.randperm(MM, generator=torch.Generator().manual_seed(2))
+    for world in worlds:
+        n_data = world // 2
+        for which in ("k10", "m512"):
+            torch.save(tail_mc_draws(which, n_data), os.path.join(root, f"{which}_{n_data}.pt"))
+        t0 = time.perf_counter()
+        res, reports = tail_reports("53", tail_spawn("53", world, root, device, backend), root, world)
+        wall = time.perf_counter() - t0
+        cases = ("k10", "m512") if n_data == 1 else ("k10",)
+        tail_launches(f"mesh {n_data} x 2", reports, {
+            c: {"fused_kappa_moments_batched": tail_mc_case(c)[2], "cavi_stats_batched": tail_mc_case(c)[2]}
+            for c in cases}, device)
+        for which in cases:
+            data, make, steps, _ = tail_mc_case(which)
+            X, y = data(device)
+            draws = torch.load(os.path.join(root, f"{which}_{n_data}.pt"))
+            tail_world1(agt, X, y, make(agt, X), draws[:5])  # warm-up
+            reset_launches(ck)
+            sync(device)
+            t0 = time.perf_counter()
+            _, w1 = tail_world1(agt, X, y, make(agt, X), draws)
+            sync(device)
+            w1_ips = steps / (time.perf_counter() - t0)
+            if device.type == "cuda":  # the CPU's plain versions launch nothing
+                expect_launches(ck, f"{which} world 1", route_launches(
+                    steps, "fused" if which == "k10" else "batched", fused="fused_cavi_stats_multiclass"))
+            p = perm if which == "k10" else torch.randperm(PM, generator=torch.Generator().manual_seed(2))
+            _, wp = tail_world1(agt, X, y, make(agt, X), draws, perm=p.to(device))
+            back = torch.argsort(p).to(device)
+            noise = max(mu_err(wp.mu, w1.mu, p), mu_err(wp.Sigma[:, back][:, :, back], w1.Sigma))
+            mu, Sigma, acc, latents = res[which]
+            label = f"{which} mesh {n_data} x 2"
+            share = parity_check(label, max(mu_err(mu, w1.mu), mu_err(Sigma, w1.Sigma)), noise,
+                                 what="rank 0's gathered mu and Sigma vs world 1 on the same global rows")
+            floor = SLICE_TAIL_FLOORS["mc_k10"] if which == "k10" else MIN_PAIR_MC_ACC
+            ips = [(steps - TAIL_WARM_STEPS) / rep["seconds"][which] for rep in reports]
+            log(f"{label} ({world} processes on {'one card' if backend == 'gloo' else f'{world} cards'} over "
+                f"{backend}, {steps} steps, rank 0's latents {latents[0]} of {latents[1]}): accuracy {acc:.4f} "
+                f"(floor {floor}), parity share {share:.4f}, it/s by rank {', '.join(f'{v:.1f}' for v in ips)} "
+                f"against world 1's {w1_ips:.1f} (kernel {'2' if which == 'k10' else '4 + 5'}); {wall:.2f} s for the "
+                f"world")
+            if not acc >= floor:
+                raise AssertionError(f"{label}: accuracy {acc:.4f} < {floor}")
+            out[label] = {"acc": acc, "share": share, "ips": ips, "world1_ips": w1_ips}
+            prof = reports[0]["seconds"].get("profile")
+            if which == "k10" and prof is not None:
+                out[label]["profile"] = prof
+                log(f"{label} rank 0's profiled step ({JK_PROFILE_STEPS} more): {prof['wall_us']:.1f} us wall, "
+                    f"{prof['busy_us']:.1f} us device, idle share {prof['idle_share']:.4f}, "
+                    f"{prof['launches']:.1f} launches")
+    return out
+
+
+def gibbs_row_means(agt, device):
+    """Phase 24's chain means ([C, N], solver "cg"), or the same call
+    made here when phase 24 did not run in this process."""
+    if "cg" not in GIBBS_ROW:
+        from agp_tpu_torch import bench
+
+        _, s = bench.gibbs_rate(bench.gibbs_workload(device, "cg"), GIBBS_SAMPLES, GIBBS_CHAINS)
+        GIBBS_ROW["cg"] = s.mean(1)[:, 0]
+    return GIBBS_ROW["cg"].double().cpu()
+
+
+def phase_tail_samplers(agt, ck, device, root, world=TAIL_WORLD, backend="gloo"):
+    """Phase 54: particle-parallel SMC and chain-parallel Gibbs over
+    ``world`` processes.  SMC (the same draws on every process): rank 0's
+    gathered particles and log Z against the world-1 card run within
+    ORACLE_DEVICE_FACTOR times its float32 noise (the world-1 run again
+    with X's features in another order, which the kernel's sums round
+    differently), run after the processes end (their rates measured
+    alone).  Gibbs: each process's chains bit-equal to its
+    one-process twin; the pooled mean over the points within TAIL_SE
+    standard errors (of its chains' spread) of phase 24's, and its sign
+    agreement with the labels above GIBBS_FLOORS; chain-sweeps/s of each
+    twin (warm; a sweep has no collective) beside phase 24's."""
+    from agp_tpu_torch import bench
+
+    res, reports = tail_reports("54", tail_spawn("54", world, root, device, backend), root, world)
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    Xs, ys = sampler_data(device)
+    feats = torch.randperm(Xs.shape[1], generator=torch.Generator().manual_seed(2)).to(device)
+    runs = {}
+    for label, X in (("world 1", Xs), ("features reordered", Xs[:, feats].contiguous())):
+        m = agt.MCGP.create(X, ys, agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create())
+        runs[label] = agt.smc_sample(m, n_particles=TAIL_SMC_P, n_temps=TAIL_SMC_TEMPS, generator=gen(11))
+    ref_means = gibbs_row_means(agt, device)
+    tail_launches("samplers", reports, {"samplers": {}}, device)
+    (f_all, log_z), w1, wf = res["smc"], runs["world 1"], runs["features reordered"]
+
+    def smc_err(a, b):
+        return max(float((a[0].double().cpu() - b[0].double().cpu()).abs().max() / b[0].double().abs().max()),
+                   abs(float(a[1]) - float(b[1])) / abs(float(b[1])))
+
+    share = parity_check(f"smc over {world}", smc_err((f_all, log_z), w1), smc_err(wf, w1),
+                         what="the gathered particles and log Z vs world 1 (the same draws)")
+    flags = res["flags"]
+    means = res["gibbs"].double()  # [C, N]
+    c1, c2 = ref_means.shape[0], means.shape[0]
+    scalar = means.mean(1), ref_means.mean(1)  # each chain's mean over the points
+    se = float(torch.sqrt(scalar[0].var() / c2 + scalar[1].var() / c1))
+    gap = float(scalar[0].mean() - scalar[1].mean())
+    pooled = means.mean(0)
+    y = bench.gibbs_workload("cpu", "cg").train_y.double()
+    sign = float((torch.sign(pooled) == y).double().mean())
+    rates = [GIBBS_CHAINS // world * (TAIL_GIBBS_SAMPLES + 50) / rep["seconds"]["gibbs"] for rep in reports]  # twins
+    log(f"smc over {world} processes (N={SAMPLER_N}, {TAIL_SMC_P} particles, {TAIL_SMC_TEMPS} temperatures): block "
+        f"{flags[0]['block']}, log Z {log_z:.4f} (world 1 {float(w1[1]):.4f}), parity share {share:.4f}, "
+        f"{reports[0]['seconds']['smc']:.3f} s; gibbs over {world} processes ({GIBBS_CHAINS // world} chains each, "
+        f"{TAIL_GIBBS_SAMPLES} samples): twins bit-equal {[f['twin'] for f in flags]}, mean over the points "
+        f"{float(scalar[0].mean()):.5f} vs phase 24's {float(scalar[1].mean()):.5f} ({gap / se:.3f} standard "
+        f"errors), largest point gap {float((pooled - ref_means.mean(0)).abs().max()):.4f}, sign agreement {sign:.5f}, "
+        f"chain-sweeps/s by rank {', '.join(f'{r:.2f}' for r in rates)}")
+    if not all(f["twin"] for f in flags):
+        raise AssertionError(f"gibbs over {world}: a process's chains differ from its one-process twin")
+    if not (abs(gap) <= TAIL_SE * se and sign >= GIBBS_FLOORS["sign"]):
+        raise AssertionError(f"gibbs over {world}: {gap / se:.3f} standard errors from phase 24, sign {sign:.5f}")
+    return {"smc_share": share, "gibbs_se": gap / se, "sign": sign, "chain_sweeps": rates}
+
+
+def phase_tail_stream(agt, ck, device, root, world=TAIL_WORLD, backend="gloo"):
+    """Phase 55: phase 27's streaming row and phase 29's wide stream over
+    ``world`` processes (each batch's rows split, the selection made on
+    process 0): Z and its mask equal to the world-1 card run's, mu and
+    Sigma within ORACLE_DEVICE_FACTOR times the path's float32 noise (the
+    world-1 card run's distance to the same run with X's features in
+    another order, or for the 2-D row, where a reordering rounds nothing,
+    in float32 on the host's CPU; float64 takes another jitter; either
+    must select the same set), the streaming row's RMSE floor, points/s; then the flagship's checkpoint gathered on
+    rank 0 after JK_SVI_SAVE of JK_SVI_STEPS steps (kernel 1), resumed on
+    this world and on one process, each within phase 40's noise of the
+    uninterrupted run."""
+    draws = torch.randint(0, (N // world) // 64, (JK_SVI_STEPS, world, B // world // 64),
+                          generator=torch.Generator().manual_seed(7))
+    torch.save(draws, os.path.join(root, "draws.pt"))
+    from agp_tpu_torch.utils import native
+
+    native.available()  # builds the first batch's C++ OIPS here, before the processes time their streams
+    res, reports = tail_reports("55", tail_spawn("55", world, root, device, backend), root, world)
+    w1 = {}
+    for name in ("oips", "wide"):
+        X, f, y = online_data(name, device, torch.float32)
+        m, s, secs = tail_stream(agt, name, X, y, device)
+        if name == "wide":  # D=8: the sums over the features round otherwise in another order
+            feats = torch.randperm(WIDE_D, generator=torch.Generator().manual_seed(2)).to(device)
+            mn, sn, _ = tail_stream(agt, name, X[:, feats].contiguous(), y, device)
+        else:  # D=2: a reordering rounds nothing; the host's CPU in float32 does
+            mn, sn, _ = tail_stream(agt, name, X.cpu(), y.cpu(), torch.device("cpu"))
+        if not torch.equal(mn.z_mask.cpu(), m.z_mask.cpu()):
+            raise AssertionError(f"stream {name}: the noise run selects another inducing set")
+        w1[name] = (m, s, secs, sn)
+    X, y = flagship_data(device)
+    draws_d = draws.to(device)
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(2)).to(device)
+    _, u1 = global_svi(agt, X, y, draws_d, world)
+    _, u1p = global_svi(agt, X, y, draws_d, world, perm=perm)
+    _, u1f = global_svi(agt, X, y, draws_d, world, flip=True)
+    noise = max(mu_err(u1p.mu, u1.mu, perm.cpu()), mu_err(u1f.mu, u1.mu))
+    tail_launches("stream and resume", reports, {"flagship": {"fused_cavi_stats": 2 * JK_SVI_STEPS - JK_SVI_SAVE}},
+                  device)
+    out = {}
+    for name in ("oips", "wide"):
+        m, s, secs, sc = w1[name]
+        mu, Sigma, Z, mask, rmse = res[name]
+        if not (torch.equal(Z, m.Z.cpu()) and torch.equal(mask, m.z_mask.cpu())):
+            raise AssertionError(f"stream {name} over {world}: the inducing set differs from world 1's")
+        noise_s = max(mu_err(s.mu, sc.mu), mu_err(s.Sigma, sc.Sigma))
+        share = parity_check(f"stream {name} over {world}", max(mu_err(mu, s.mu), mu_err(Sigma, s.Sigma)), noise_s,
+                             what="rank 0's mu and Sigma vs world 1")
+        b = WIDE_B if name == "wide" else ONLINE_B
+        points = [(ONLINE_BATCHES - 1) * b / rep["seconds"][name] for rep in reports]
+        log(f"stream {name} over {world} processes ({ONLINE_BATCHES} batches of {b}, {int(mask[0].sum())} active "
+            f"slots, the set equal to world 1's): RMSE {rmse:.5f}, parity share {share:.4f}, points/s by rank "
+            f"{', '.join(f'{p:.1f}' for p in points)} against world 1's {(ONLINE_BATCHES - 1) * b / secs:.1f} (batches "
+            f"2-{ONLINE_BATCHES})")
+        floor = ONLINE_FLOORS[name].get("rmse")
+        if floor is not None and not rmse <= floor:
+            raise AssertionError(f"stream {name} over {world}: RMSE {rmse:.5f} > {floor}")
+        out[name] = {"share": share, "rmse": rmse, "points": points}
+        prof = reports[0]["seconds"].get("profile")
+        if name == "oips" and prof is not None:
+            out[name]["profile"] = prof
+            log(f"stream oips over {world}, rank 0's profiled batch after the stream, an iteration: "
+                f"{prof['wall_us']:.1f} us wall, {prof['busy_us']:.1f} us device, idle share "
+                f"{prof['idle_share']:.4f}, {prof['launches']:.1f} launches")
+    m41, s41 = agt.checkpoint.load(os.path.join(root, "tail50"), flagship_model(agt, X),
+                                   agt.init_state(flagship_model(agt, X), X, y))
+    _, s41 = global_svi(agt, X, y, draws_d, world, start=JK_SVI_SAVE, state=s41, model=m41)
+    uninterrupted, acc = res["svi"]
+    out["resume"] = {
+        f"world {world}": parity_check(f"resumed on {world}", mu_err(res["resumed"], uninterrupted), noise,
+                                       what=f"rank 0's checkpoint at step {JK_SVI_SAVE} resumed over {world} "
+                                            f"processes vs the uninterrupted run at {JK_SVI_STEPS}"),
+        "world 1": parity_check("resumed on 1", mu_err(s41.mu, uninterrupted), noise,
+                                what=f"the same checkpoint resumed on one process vs the uninterrupted run")}
+    log(f"flagship over {world} processes: accuracy {acc:.5f} (floor {MIN_FLAGSHIP_ACC}), resumed parity shares "
+        f"{json.dumps({k: round(v, 4) for k, v in out['resume'].items()})}")
+    if not acc >= MIN_FLAGSHIP_ACC:
+        raise AssertionError(f"flagship over {world}: accuracy {acc:.5f} < {MIN_FLAGSHIP_ACC}")
+    return out
+
+
+def slice_tail_mode(agt, ck, device):
+    """``python3 chip_smoke.py slice-tail``: phases 53-55 alone."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="tail-", dir=os.environ.get("TMPDIR"))
+    return {"mesh": timed_phase("(data, latent) mesh", phase_latent_mesh, agt, ck, device, root),
+            "samplers": timed_phase("sharded samplers", phase_tail_samplers, agt, ck, device, root),
+            "stream": timed_phase("sharded stream and resume", phase_tail_stream, agt, ck, device, root)}
+
+
+def slice_tail_nccl_mode(agt, ck, device):
+    """``python3 chip_smoke.py slice-tail-nccl``: phases 53-55 over NCCL
+    with one process on each card of the machine (2 cards: 1 x 2; 4: 2 x 2),
+    against world 1 on cuda:0."""
+    import tempfile
+
+    world = torch.cuda.device_count()
+    if world < 2 or world % 2:
+        raise SystemExit(f"slice-tail-nccl needs an even count of two cards or more; {world} here")
+    root = tempfile.mkdtemp(prefix="tail-nccl-", dir=os.environ.get("TMPDIR"))
+    return {"mesh": timed_phase(f"(data, latent) mesh (NCCL, {world})", phase_latent_mesh, agt, ck, device, root,
+                                worlds=(world,), backend="nccl"),
+            "samplers": timed_phase(f"sharded samplers (NCCL, {world})", phase_tail_samplers, agt, ck, device, root,
+                                    world=world, backend="nccl"),
+            "stream": timed_phase(f"sharded stream and resume (NCCL, {world})", phase_tail_stream, agt, ck, device,
+                                  root, world=world, backend="nccl")}
+
+
+def slice_tail_cpu_mode(agt):
+    """``python3 chip_smoke.py slice-tail-cpu``: phase 53's paths at world 1
+    in float64 on the host's CPU, on each mesh's global draws, no floors
+    held: the source of SLICE_TAIL_FLOORS."""
+    torch.set_num_threads(min(torch.get_num_threads(), 8))
+    cpu = torch.device("cpu")
+    for which in ("k10", "m512"):
+        data, make, steps, _ = tail_mc_case(which)
+        X, y = (t.double() if t.is_floating_point() else t for t in data(cpu))
+        for n_data in ((1, 2) if which == "k10" else (1,)):
+            t0 = time.perf_counter()
+            m, s = tail_world1(agt, X, y, make(agt, X), tail_mc_draws(which, n_data))
+            acc = float((agt.predict_y(m, s, X[:TAIL_MC_EVAL]) == y[:TAIL_MC_EVAL]).double().mean())
+            log(f"tail {which} on the CPU, float64, the {n_data} x 2 mesh's global draws ({steps} steps): accuracy "
+                f"{acc:.5f}, {time.perf_counter() - t0:.2f} s")
+
+
 def f64_rows(kernels):
     """The kernels line's rows of kernels 4-7's float64 forms, at
     logistic_m512_b65536 (the float32 rows' main shape), each with its
@@ -7604,9 +8168,17 @@ def main():
 
         slice_l_cpu_mode(agt)
         return
+    if sys.argv[1:] == ["slice-tail-cpu"]:  # the host's CPU alone, no card needed
+        import agp_tpu_torch as agt
+
+        slice_tail_cpu_mode(agt)
+        return
     if sys.argv[1:2] == ["jk-rank"]:  # one process of phase 40, started by it
         jk_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:8])
         os._exit(0)  # its results are written; an orderly shutdown can abort in gloo's threads' teardown
+    if sys.argv[1:2] == ["tail-rank"]:  # one process of phases 53-55, started by them
+        tail_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:9])
+        os._exit(0)
     device = phase_device()
     args = sys.argv[1:]
     ab = args[:1] == ["ab"]
@@ -7698,6 +8270,12 @@ def main():
     if args == ["slice-l"]:
         slice_l_mode(agt, ck, device)
         return
+    if args == ["slice-tail"]:
+        slice_tail_mode(agt, ck, device)
+        return
+    if args == ["slice-tail-nccl"]:
+        slice_tail_nccl_mode(agt, ck, device)
+        return
     if args == ["float64"]:
         timed_phase("tensor-core SASS", check_tc_sass, lib_path)
         timed_phase("kappa tiles", check_kappa_tiles, ck)
@@ -7765,6 +8343,7 @@ def main():
     slice_l_mode(agt, ck, device)
     f64_kernels, _ = float64_mode(agt, ck, device)
     (cols_kernels, _), _ = cols_mode(agt, ck, device)
+    slice_tail_mode(agt, ck, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {
