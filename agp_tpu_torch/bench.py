@@ -38,7 +38,9 @@ JAX package's ``bench.py`` and of its two kernel sweeps
   sweep's M=256 and M=512 rows its column says out of range.
 * ``gather``: the raw "block" draw at the flagship shape, ``index_select``
   on the tile view against kernel 10, for tiles of 32 and 64 rows, in us a
-  draw.
+  draw: each draw launched from the host, and ``GATHER_CAPTURED`` draws
+  replayed as one captured CUDA graph (the host's cost of a launch left
+  out).
 
 Every mode needs a CUDA card and raises without one: its rates are the
 card's.  Data are made with numpy from fixed seeds.  The functions take
@@ -61,6 +63,7 @@ from . import AnalyticSVI, AnalyticVI, GaussianLikelihood, GibbsSampling, Hetero
 from . import LogisticLikelihood, LogisticSoftMaxLikelihood, MCGP, OnlineSVGP, SVGP, SqExponentialKernel, init_state
 from . import online_train, online_train_stream, sample
 from .benchmarks.fused_variants import direct_stats, direct_stats_reference, two_factor_nt, xla_stats_reference
+from .benchmarks import gather_modes
 from .benchmarks.gather_modes import gather_row_tiles, gather_tile_rows
 from .ops import cuda_kernels as ck
 from .training.train import vi_steps
@@ -78,6 +81,8 @@ VARIANT_SHAPES = ((B, D, M), (8192, 8, 512), (65_536, 8, 256), (65_536, 8, 512),
 SWEEP_LS, SWEEP_VAR, SWEEP_RHO, SWEEP_JITT = 1.3, 1.1, 4.0, 1e-4
 # the gather's tile heights: gather_tile_rows(20) and the "block" default
 GATHER_TILES = (gather_tile_rows(D), 64)
+# draws in one captured CUDA graph of the gather's captured timing
+GATHER_CAPTURED = 500
 
 
 def require_card() -> torch.device:
@@ -457,12 +462,36 @@ def variants(reps=100):
 
 
 # ---------------------------------------------------------------- gather
-def gather(draws=2000, n=N, d=D, b=B, tiles=GATHER_TILES, seed=0):
+def captured_replay(fn, draws, device, counters=()):
+    """A function that replays one CUDA graph of ``fn(i)`` for i < draws,
+    captured after one eager ``fn(0)`` on the capture's stream; each replay
+    credits the launches the capture recorded to ``counters``
+    (``cuda_kernels.CapturedLaunches``)."""
+    stream, current = torch.cuda.Stream(device), torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        fn(0)
+    current.wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with ck.CapturedLaunches(counters) as launches, torch.cuda.graph(graph, stream=stream):
+        for i in range(draws):
+            fn(i)
+
+    def replay():
+        graph.replay()
+        launches.replayed()
+
+    return replay
+
+
+def gather(draws=2000, n=N, d=D, b=B, tiles=GATHER_TILES, seed=0, captured=GATHER_CAPTURED):
     """The raw "block" draw of b rows from [n, d] float32 data, us a draw,
     for each tile height: ``index_select`` on the [n // tr, tr, d] view (the
     training driver's draw) against kernel 10, over ``draws`` precomputed
     int64 draws, by CUDA events in the order index_select, kernel, kernel,
-    index_select; the two outputs equal on the first draw."""
+    index_select; then the same with the first ``captured`` draws of each
+    in one captured CUDA graph, a replay a timing ("captured_*"); the two
+    outputs equal on the first draw."""
     device = require_card()
     rng = np.random.default_rng(seed)
     X = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=device)
@@ -486,6 +515,14 @@ def gather(draws=2000, n=N, d=D, b=B, tiles=GATHER_TILES, seed=0):
         times["kernel"] += [event_ms(kernel, 1), event_ms(kernel, 1)]
         times["index_select"].append(event_ms(take, 1))
         rows[f"tile{tr}"] = {f"{k}_us_per_draw": sum(v) / len(v) / draws * 1e3 for k, v in times.items()}
+        take_graph = captured_replay(lambda i: view.index_select(0, tidx[i]), captured, device)
+        kernel_graph = captured_replay(lambda i: gather_row_tiles(X, tidx[i], tile_rows=tr), captured, device,
+                                       [(gather_modes, "gather_row_tiles", "launches")])
+        times = {"index_select": [event_ms(take_graph, 1)], "kernel": []}
+        times["kernel"] += [event_ms(kernel_graph, 1), event_ms(kernel_graph, 1)]
+        times["index_select"].append(event_ms(take_graph, 1))
+        for k, v in times.items():
+            rows[f"tile{tr}"][f"captured_{k}_us_per_draw"] = [t / captured * 1e3 for t in v]
     return rows
 
 

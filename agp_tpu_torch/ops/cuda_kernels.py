@@ -62,6 +62,7 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -503,12 +504,25 @@ def _device_scalar(v, device, dtype=torch.float32) -> torch.Tensor:
     return _device_number(float(v), device, dtype)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _device_number(v: float, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     """The 0-d tensor v of ``dtype`` on ``device``, made there once per
     value, device and dtype: a constant argument (the jitter, an unused
-    likelihood parameter) then costs a step no launch."""
+    likelihood parameter) then costs a step no launch.  Never evicted: a
+    captured CUDA graph reads it by its address.  Raises while a CUDA
+    graph is being captured: a constant made there would hold its value
+    only once the graph had run (``training/graphs.py`` makes every
+    constant in the eager step before a capture)."""
+    check_not_capturing(f"the constant {v}")
     return torch.full((), v, dtype=dtype, device=device)
+
+
+def check_not_capturing(what: str) -> None:
+    """``RuntimeError`` while the current CUDA stream is being captured into
+    a graph: ``what`` is a cached device tensor that would be made inside
+    the capture."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} was first made during a CUDA-graph capture; make it in the eager step before")
 
 
 def _check_tensors(xb, tensors: dict, dtypes=(torch.float32,)):
@@ -1157,3 +1171,56 @@ def cavi_stats(kappa, g, theta):
 
 cavi_stats.launches = 0
 cavi_stats.launches_f64 = 0
+
+
+# ------------------------------------------- launches inside CUDA graphs
+# the launch counters of the kernels a CAVI step runs (kernels 1-7): the
+# wrapper's name in this module and its attribute
+STEP_COUNTERS = tuple(
+    (name, "launches") for name in (
+        "fused_cavi_stats", "fused_cavi_stats_multiclass", "fused_cavi_stats_het", "fused_kappa_moments_batched",
+        "cavi_stats_batched", "fused_kappa", "cavi_stats")
+) + tuple((name, "launches_f64") for name in ("fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa",
+                                              "cavi_stats"))
+
+
+class CapturedLaunches:
+    """The launches one CUDA-graph capture records, credited at each replay.
+
+    A wrapper counts its launch in Python, where it is called.  Under a
+    capture it is called once and launches nothing; each replay launches
+    every captured kernel again and calls no Python.  Entered around a
+    capture, this takes back the counts the capture added (``per_replay``,
+    {(name, attribute): launches}); ``replayed(times)`` adds them
+    ``times`` times, so that each counter counts the launches that ran.
+    ``counters`` lists (owner, wrapper name, attribute), the owner a module
+    (this one's ``STEP_COUNTERS`` by default).  A wrapper without the
+    attribute (a plain version put in a kernel's place) counts nothing."""
+
+    def __init__(self, counters=None):
+        here = sys.modules[__name__]
+        self.counters = [(here, n, a) for n, a in STEP_COUNTERS] if counters is None else list(counters)
+        self.per_replay = {}
+
+    def _read(self):
+        return [getattr(getattr(owner, name), attr, None) for owner, name, attr in self.counters]
+
+    def _add(self, deltas):
+        for (owner, name, attr), n in zip(self.counters, deltas):
+            wrapper = getattr(owner, name)
+            if n and hasattr(wrapper, attr):
+                setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+    def __enter__(self):
+        self._before = self._read()
+        return self
+
+    def __exit__(self, *exc):
+        after = self._read()
+        deltas = [0 if a is None or b is None else a - b for a, b in zip(after, self._before)]
+        self._add([-d for d in deltas])  # the capture launched nothing
+        self.per_replay = {(c[1], c[2]): d for c, d in zip(self.counters, deltas) if d}
+        return False
+
+    def replayed(self, times: int = 1) -> None:
+        self._add([self.per_replay.get((name, attr), 0) * times for _, name, attr in self.counters])

@@ -1,0 +1,373 @@
+"""Chunks of CAVI steps as replays of captured CUDA graphs: the counterpart
+of the ``lax.scan`` in ``agp_tpu/training/train.py::_vi_steps``.
+
+The reference runs a chunk of n steps as one device program, with the
+chunk's minibatch indices drawn before the scan.  Here ``run`` takes a
+chunk whose indices are drawn (``training/train.py`` draws them in one
+call) and, on a CUDA tensor, replays a captured graph of
+``STEPS_PER_GRAPH`` (k) steps, then a one-step graph for the remainder.
+The host makes one graph launch for k steps in place of every op of
+every step (91-164 launches a step on the paths ``PERF.md`` §5 lists).
+
+* The static carry.  A graph reads and writes the addresses it was
+  captured with, so every tensor a step reads lives in a buffer of the
+  capture:
+  - carried: the leaves a step rewrites, the TrainState's (eta1, eta2, mu,
+    Sigma, the local variables, opt_state, step, a Student-t prior's
+    scale) and the likelihood's (Poisson's lambda, a learnt Gaussian
+    noise and its rule's state, the heteroscedastic lambda), each in the
+    layout (strides) a step gives its result.  The captured body ends by
+    copying its results into them, so each replay goes on from the last;
+    a call returns copies of them;
+  - held: the rest of the model (kernel, mean, Z), the kmat, rho, each in
+    the caller's layout (part of the key), copied in at each call;
+  - X and y, read in place: the key holds their addresses and the capture
+    a reference to them, so that no copy of the data is made;
+  - the minibatch indices of a replay's steps ([k, ...]), copied from the
+    chunk's before each replay; a Monte Carlo engine's normals, given by
+    the caller, likewise, or else drawn inside the graph from the caller's
+    generator, registered with the graph, so that a replay draws what the
+    eager loop draws from it.
+* The first step.  A product's kernel, and so its rounding, follows its
+  operands' layout, so a replay reads the carry in the layout the eager
+  loop's next step would read.  Where the caller's carried leaves have
+  another layout than the buffers (a fresh state; a new capture), the
+  call's first step runs eagerly on the caller's own tensors, as the eager
+  loop's does, on the chunks' side stream; its results, in the step's
+  layout, are copied into the carry (into new buffers, in their layouts,
+  for a new capture).  Before a new capture this step is the warm-up: it
+  loads the kernels' library, sets their shared-memory attributes, fills
+  the wrappers' caches (the constants, the statistics plan, the quadrature
+  nodes) and cuBLAS's and cuSOLVER's handles, so that a capture records
+  kernels only.
+* Reuse.  A capture serves every later chunk of the structure it was made
+  for: every non-tensor field of the model and the state, every tensor's
+  shape, dtype and device, the held leaves' layouts, X's and y's
+  addresses, the sampling, the normals' source, ``STEPS_PER_GRAPH`` and
+  the run-time settings the kernels read (``STATS_F64_MMA_K``, the
+  preferred linear-algebra library).  The ``_CACHE_SIZE`` latest are
+  kept.  Code that puts another function in a module's attribute the step
+  reaches (a plain version in a kernel's place) calls ``clear()`` when it
+  does and when it puts the function back.
+* Launch counts.  ``cuda_kernels.CapturedLaunches`` takes back the counts
+  a capture adds and credits them at each replay.
+* No fallback.  A capture or a replay that fails raises; nothing re-runs
+  on the eager loop.
+
+On a CPU tensor the same body runs at each replay (``_EagerGraph``),
+through the same carry, so that the CPU tests hold it to the reference.
+``takes`` is the rule, by the model's kind, for what runs here; the rest
+runs on ``train``'s eager loop.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from collections import OrderedDict
+
+import torch
+
+from ..inference import analytic_vi, numerical_vi
+from ..ops import cuda_kernels, linalg
+from ..utils import batch_sums
+from ..utils.tensors import Params, map_named, named_leaves
+
+# steps a captured graph holds (k).  At the flagship on an H100 (PERF.md
+# §6, chip_smoke.py phase 56) k = 10 replays as fast as k = 50 (4,362 and
+# 4,333 it/s; k = 1 4,143) for a fifth of the capture time (27 against
+# 128 ms)
+STEPS_PER_GRAPH = 10
+# captures kept, the latest used last
+_CACHE_SIZE = 4
+_CACHE: OrderedDict = OrderedDict()
+# the TrainState's fields a step reads and never writes
+_HELD_STATE = ("kmat", "rho", "hyper_state")
+
+
+def takes(model) -> bool:
+    """Whether ``vi_steps`` and ``train``'s fast path run the model's chunks
+    here: a sparse model that is neither online nor multi-output, outside a
+    sharded step.  The rest stay on the eager loop: the dense VGP, VStP
+    and GP (their lazy rungs read the host), the online and multi-output
+    models (their own training loops) and a sharded step (its collectives)."""
+    return (
+        getattr(model, "is_sparse", False)
+        and not getattr(model, "is_online", False)
+        and not getattr(model, "is_multioutput", False)
+        and batch_sums.active() is None
+    )
+
+
+def _carried(path: str) -> bool:
+    """Whether a step rewrites the leaf at ``path`` ("model...." or
+    "state...."): the likelihood's and every state field but the held
+    ones."""
+    root, field = path.split(".")[:2]
+    return field == "likelihood" if root == "model" else field not in _HELD_STATE
+
+
+def _structure(value):
+    """A hashable image of ``value``: each tensor by its shape, dtype and
+    device, ``Params`` by their fields, dicts, tuples and lists by their
+    items, any other value (a number, a string, a function, a frozen
+    config) as itself."""
+    if isinstance(value, torch.Tensor):
+        return ("tensor", tuple(value.shape), value.dtype, value.device)
+    if isinstance(value, Params):
+        fields = dataclasses.fields(value)
+        return (type(value),) + tuple((f.name, _structure(getattr(value, f.name))) for f in fields if f.init)
+    if isinstance(value, dict):
+        return (dict,) + tuple((k, _structure(v)) for k, v in value.items())
+    if type(value) in (tuple, list):
+        return (type(value),) + tuple(_structure(v) for v in value)
+    return value
+
+
+def _layout(t: torch.Tensor) -> tuple:
+    """The strides of ``t``'s copy by ``empty_like`` (a buffer of the
+    carry): its own where it is dense; made with no memory."""
+    return torch.empty_like(t, device="meta").stride()
+
+
+def _leaves(model, state) -> list:
+    return named_leaves(model, "model") + named_leaves(state, "state")
+
+
+def _row(t, i):
+    return None if t is None else t[i]
+
+
+def _step(model, state, X, y, mode, idx, eps, rng, draw, update):
+    """One step: the minibatch ``draw(model, X, y, mode, idx)``, ``update``
+    on it, ``step + 1``."""
+    x_b, y_b = draw(model, X, y, mode, idx)
+    model, state = update(model, state, x_b, y_b, rng, eps)
+    return model, state.replace(step=state.step + 1)
+
+
+class _EagerGraph:
+    """The CPU's stand-in for a CUDA graph: the captured body runs at each
+    replay."""
+
+    def __init__(self, device, generator=None, stream=None):
+        self.fn = None
+
+    def capture(self, fn, carried):
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+
+class _CudaGraph:
+    """A CUDA graph of the body, captured on the chunks' stream (where the
+    warm-up step ran), with the generator whose draws it makes
+    registered."""
+
+    def __init__(self, device, generator=None, stream=None):
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = stream
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+
+    def capture(self, fn, carried):
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            fn()
+
+    def replay(self):
+        self.graph.replay()
+
+
+def _graph_class(device):
+    return _CudaGraph if device.type == "cuda" else _EagerGraph
+
+
+@functools.lru_cache(maxsize=None)
+def _stream(device: torch.device):
+    """The side stream on which the chunks on ``device`` take their eager
+    first steps and are captured."""
+    return torch.cuda.Stream(device)
+
+
+def _on_stream(device, fn):
+    """``fn()`` on the chunks' stream, ordered after and before the
+    current stream's work; its value."""
+    if device.type != "cuda":
+        return fn()
+    stream, current = _stream(device), torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        out = fn()
+    current.wait_stream(stream)
+    return out
+
+
+class _Chunks:
+    """One capture: the static carry (``buf``, by leaf path, and the
+    indices and normals of a replay), the model and state built on it, the
+    data it reads in place, the graphs by their steps and the launches
+    each records.  Built from a (model, state) that a step returned, so
+    that each carried buffer takes the step's layout."""
+
+    def __init__(self, model, state, X, y, mode, idx, mc_draws, rng, draw, update):
+        self.device, self.mode, self.rng, self.draw, self.update = X.device, mode, rng, draw, update
+        leaves = _leaves(model, state)
+        self.buf = {p: torch.empty_like(t) for p, t in leaves}
+        self.carried = [p for p, _ in leaves if _carried(p)]
+        self._ids = {id(b) for b in self.buf.values()}
+        self.model = map_named(lambda p, t: self.buf[p], model, "model")
+        self.state = map_named(lambda p, t: self.buf[p], state, "state")
+        self.X, self.y = X, y
+        k = STEPS_PER_GRAPH
+        like = dict(device=self.device)
+        # zeros: valid indices before the first replay fills them
+        self.idx = None if idx is None else torch.zeros((k,) + tuple(idx.shape[1:]), dtype=idx.dtype, **like)
+        self.eps = None if mc_draws is None else torch.zeros((k,) + tuple(mc_draws.shape[1:]), dtype=mc_draws.dtype,
+                                                             **like)
+        self.graphs, self.launches, self.capture_seconds = {}, {}, {}
+
+    def fits(self, model, state) -> bool:
+        """Whether the carried leaves of (model, state) have their buffers'
+        shapes, dtypes and layouts."""
+        carried = {p: t for p, t in _leaves(model, state) if _carried(p)}
+        return carried.keys() == set(self.carried) and all(
+            (t.shape, t.dtype, _layout(t)) == (b.shape, b.dtype, b.stride())
+            for p, t in carried.items() for b in (self.buf[p],))
+
+    def load(self, model, state):
+        """Copies the call's model and state into the carry."""
+        leaves = _leaves(model, state)
+        torch._foreach_copy_([self.buf[p] for p, _ in leaves], [t for _, t in leaves])
+
+    def unload(self, model, state):
+        """The call's (model, state) with copies of the carried leaves."""
+        carried = set(self.carried)
+
+        def out(p, t):
+            return self.buf[p].clone() if p in carried else t
+
+        return map_named(out, model, "model"), map_named(out, state, "state")
+
+    def _body(self, steps):
+        """``steps`` steps from the carry, their results copied back into it."""
+        model, state = self.model, self.state
+        for j in range(steps):
+            model, state = _step(model, state, self.X, self.y, self.mode, _row(self.idx, j), _row(self.eps, j),
+                                 self.rng, self.draw, self.update)
+        out = dict(_leaves(model, state))
+        changed = [p for p in out if _carried(p) and p not in self.buf] + [
+            p for p in self.carried
+            if p not in out or out[p].shape != self.buf[p].shape or out[p].dtype != self.buf[p].dtype
+        ]
+        if changed:
+            raise TypeError(f"a step changed its carry's structure ({', '.join(changed)}): a captured chunk needs "
+                            "the leaves, shapes and dtypes it starts with")
+        dst, src = [], []
+        for p in self.carried:
+            t, b = out[p], self.buf[p]
+            if t is not b:
+                dst.append(b)
+                src.append(t.clone() if id(t) in self._ids else t)  # another leaf's buffer, about to change
+        torch._foreach_copy_(dst, src)
+
+    def _fill(self, steps, idx, eps, at):
+        if self.idx is not None:
+            self.idx[:steps].copy_(idx[at:at + steps])
+        if self.eps is not None:
+            self.eps[:steps].copy_(eps[at:at + steps])
+
+    def _graph(self, steps):
+        """The graph of ``steps`` steps, captured at its first use."""
+        graph = self.graphs.get(steps)
+        if graph is not None:
+            return graph
+        stream = _stream(self.device) if self.device.type == "cuda" else None
+        graph = _graph_class(self.device)(self.device, self.rng, stream)
+        t0 = time.perf_counter()
+        with cuda_kernels.CapturedLaunches() as launches:
+            try:
+                graph.capture(functools.partial(self._body, steps), [self.buf[p] for p in self.carried])
+            except Exception as err:
+                raise RuntimeError(f"capturing {steps} CAVI step(s) of a {type(self.model).__name__} failed; a "
+                                   "model of a captured kind does not run on the eager loop") from err
+        self.capture_seconds[steps] = time.perf_counter() - t0
+        self.graphs[steps], self.launches[steps] = graph, launches
+        return graph
+
+    def replay(self, steps, idx, eps, at):
+        """Steps ``at`` .. ``at + steps - 1`` of the chunk: one replay."""
+        graph = self._graph(steps)
+        self._fill(steps, idx, eps, at)
+        graph.replay()
+        self.launches[steps].replayed()
+
+
+def _key(model, state, X, y, mode, idx, mc_draws, rng, draw, update):
+    return (
+        _structure(model), _structure(state), tuple(_layout(t) for p, t in _leaves(model, state) if not _carried(p)),
+        _structure(X), _structure(y), X.data_ptr(), X.stride(), y.data_ptr(), y.stride(), mode,
+        None if idx is None else (tuple(idx.shape[1:]), idx.dtype),
+        None if mc_draws is None else (tuple(mc_draws.shape[1:]), mc_draws.dtype),
+        rng, draw, update, STEPS_PER_GRAPH,
+        cuda_kernels.STATS_F64_MMA_K, torch.backends.cuda.preferred_linalg_library(),
+    )
+
+
+def _drop(chunks):
+    """Forgets a capture; on the card after the replays in flight."""
+    if chunks.device.type == "cuda":
+        torch.cuda.synchronize(chunks.device)
+
+
+def clear() -> None:
+    """Forgets every capture (their graphs, memory pools and references to
+    the data go with the last reference)."""
+    while _CACHE:
+        _drop(_CACHE.popitem()[1])
+
+
+def latest():
+    """The capture the latest chunk ran on, or None: its ``graphs``,
+    ``launches`` (``CapturedLaunches`` by steps) and ``capture_seconds``."""
+    return next(reversed(_CACHE.values()), None)
+
+
+def run(model, state, X, y, n, mode, idx, generator=None, mc_draws=None, rng=False, *, draw, update):
+    """n steps of ``update(model, state, x_b, y_b, generator, eps)`` on the
+    minibatches ``draw(model, X, y, mode, idx[i])`` (``idx`` [n, ...], or
+    None for a full batch), each followed by ``step + 1``; returns (model,
+    state).  ``mc_draws`` [n, ...] gives a Monte Carlo engine's normals;
+    ``rng`` says that the step draws them from ``generator`` instead.  The
+    first step runs eagerly where the carry's layouts or the capture are
+    new; the rest are replays of k steps, then of one (module
+    docstring)."""
+    if n < 1:
+        return model, state
+    gen = generator if rng else None
+    key = _key(model, state, X, y, mode, idx, mc_draws, gen, draw, update)
+    chunks = _CACHE.pop(key, None)
+    at = 0
+    if chunks is not None and chunks.fits(model, state):
+        chunks.load(model, state)
+    else:
+        old = chunks
+
+        def first():
+            m, s = _step(model, state, X, y, mode, _row(idx, 0), _row(mc_draws, 0), gen, draw, update)
+            c = old if old is not None and old.fits(m, s) else _Chunks(m, s, X, y, mode, idx, mc_draws, gen, draw,
+                                                                        update)
+            c.load(m, s)
+            return c
+
+        chunks, at = _on_stream(X.device, first), 1
+        if old is not None and old is not chunks:
+            _drop(old)
+    while len(_CACHE) >= _CACHE_SIZE:
+        _drop(_CACHE.popitem(last=False)[1])
+    _CACHE[key] = chunks
+    while at < n:
+        steps = STEPS_PER_GRAPH if n - at >= STEPS_PER_GRAPH else 1
+        chunks.replay(steps, idx, mc_draws, at)
+        at += steps
+    return chunks.unload(model, state)

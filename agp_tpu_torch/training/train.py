@@ -5,12 +5,18 @@ its callback, verbose and convergence options, and the exact GP's loop.
 A step is: draw a minibatch, run ``variational_update`` (the analytic
 one, or ``inference/numerical_vi.py``'s for a numerical engine), count the
 step.  Minibatch indices come from an explicit ``torch.Generator`` on the
-data's device, drawn for a whole chunk of steps at once; the steps then
-run as a plain Python loop with no host sync.  ``vi_steps`` and ``train``
-also take the indices from the caller (``draws``), so that a run can
-replay another's minibatches; a Monte Carlo engine draws its normals
-with the same generator, and ``vi_steps`` takes them from the caller
-(``mc_draws``) too.  A model with an optimiser interleaves a
+data's device, drawn for a whole chunk of steps at once.  For a model of
+the kinds ``graphs.takes`` names (sparse, not online, not multi-output,
+outside a sharded step), ``vi_steps`` and ``train``'s fast path run the
+chunk through ``training/graphs.py``, the counterpart of the reference's
+``lax.scan``: on the card as replays of a CUDA graph of
+``graphs.STEPS_PER_GRAPH`` steps, on the CPU as the same body run
+eagerly.  Every other kind, and ``train`` with a callback, ``verbose >= 2``
+or hyperparameter steps, runs its steps as a plain Python loop with no
+host sync.  ``vi_steps`` and ``train`` also take the indices from the
+caller (``draws``), so that a run can replay another's minibatches; a
+Monte Carlo engine draws its normals with the same generator, and
+``vi_steps`` takes them from the caller (``mc_draws``) too.  A model with an optimiser interleaves a
 hyperparameter step (``training/autotuning.py``) on the same minibatch
 after every ``atfrequency``-th CAVI step, as the reference does.  A VGP
 trains on its own data; a GP takes one analytic refresh an iteration
@@ -32,7 +38,7 @@ from ..models.gp import GP, analytic_update, log_py, noisy_chol
 from ..ops import linalg
 from ..utils.opt import tree_map
 from ..utils.tensors import path_leaves, with_path_leaves
-from . import autotuning
+from . import autotuning, graphs
 from .state import TrainState, init_var_posterior
 
 # steps whose minibatch indices are drawn in one call
@@ -185,28 +191,47 @@ def _default_generator(device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(0)
 
 
-def _minibatches(model, X, y, n: int, draws=None, generator=None):
-    """The minibatches (x_b, y_b) of n steps, in order: from ``draws``, one
-    row per step on X's device ([n, B/tile] tile indices for "block"
-    sampling, [n, B] row indices for "gather", [n] start rows for
-    "slice"), or drawn with ``generator`` (a generator on X's device; seed
-    0 when None) in one call; (X, y) itself for a non-stochastic model."""
+def _chunk_draws(model, X, n: int, draws=None, generator=None):
+    """(mode, indices [n, ...]) of n steps: ``draws``, one row per step on
+    X's device ([n, B/tile] tile indices for "block" sampling, [n, B] row
+    indices for "gather", [n] start rows for "slice"), checked, or drawn
+    with ``generator`` (a generator on X's device; seed 0 when None) in one
+    call; (None, None) for a non-stochastic model."""
     if not model.inference.stochastic:
-        for _ in range(n):
-            yield X, y
-        return
+        return None, None
     mode, shape = _sampling(model, X.shape[0])
-    tiled = _tile_views(X, y, model.inference.batchsize // shape[0]) if mode == "block" else None
     if draws is None:
         gen = _default_generator(X.device) if generator is None else generator
-        mode, draws = _precomputed_draws(model, X, n, gen)
-    elif tuple(draws.shape) != (n,) + shape or draws.device != X.device:
+        return _precomputed_draws(model, X, n, gen)
+    if tuple(draws.shape) != (n,) + shape or draws.device != X.device:
         raise ValueError(
             f"draws for {mode!r} sampling must have shape {(n,) + shape} "
             f"on {X.device}; got {tuple(draws.shape)} on {draws.device}"
         )
+    return mode, draws
+
+
+def _minibatches(model, X, y, n: int, draws=None, generator=None):
+    """The minibatches (x_b, y_b) of n steps, in order, from the indices of
+    ``_chunk_draws``; (X, y) itself for a non-stochastic model."""
+    mode, draws = _chunk_draws(model, X, n, draws, generator)
+    if mode is None:
+        for _ in range(n):
+            yield X, y
+        return
+    tiled = _tile_views(X, y, model.inference.batchsize // draws.shape[1]) if mode == "block" else None
     for i in range(n):
         yield _draw_from_idx(model, X, y, tiled, mode, draws[i])
+
+
+def _step_batch(model, X, y, mode, idx):
+    """One step's minibatch from its indices (``_chunk_draws``' row), or
+    (X, y) for a non-stochastic model (``mode`` None): the draw of a
+    chunk's body in ``graphs.run``."""
+    if mode is None:
+        return X, y
+    tiled = _tile_views(X, y, model.inference.batchsize // idx.shape[0]) if mode == "block" else None
+    return _draw_from_idx(model, X, y, tiled, mode, idx)
 
 
 def _vi_update(model, state: TrainState, x_b, y_b, generator, eps=None):
@@ -217,13 +242,28 @@ def _vi_update(model, state: TrainState, x_b, y_b, generator, eps=None):
     return analytic_vi.variational_update(model, state, x_b, y_b)
 
 
+def _captured_steps(model, state, X, y, n, draws, generator, mc_draws=None):
+    """n steps of a model that ``graphs.takes`` through ``graphs.run``: the
+    chunk's indices drawn here in one call, a Monte Carlo engine's normals
+    drawn inside the captured step from ``generator`` unless ``mc_draws``
+    gives them."""
+    mode, idx = _chunk_draws(model, X, n, draws, generator)
+    rng = mc_draws is None and model.inference.name == "MCIntegrationVI"
+    return graphs.run(model, state, X, y, n, mode, idx, generator, mc_draws, rng,
+                      draw=_step_batch, update=_vi_update)
+
+
 def vi_steps(model, state: TrainState, X, y, n: int, draws=None, generator=None, mc_draws=None):
     """n iterations of the model's engine; returns (model, state).
-    ``draws`` and ``generator`` give the minibatches as ``_minibatches``
+    ``draws`` and ``generator`` give the minibatches as ``_chunk_draws``
     takes them; a Monte Carlo engine's normals are ``mc_draws`` ([n, n_mc,
     L, B] on X's device) or are drawn with ``generator`` (seed 0 when
-    None)."""
+    None).  A model that ``graphs.takes`` runs the n steps through
+    ``graphs.run`` (CUDA-graph replays on the card), any other a Python
+    loop."""
     gen = _default_generator(X.device) if generator is None else generator
+    if graphs.takes(model):
+        return _captured_steps(model, state, X, y, n, draws, gen, mc_draws)
     for i, (x_b, y_b) in enumerate(_minibatches(model, X, y, n, draws, gen)):
         eps = None if mc_draws is None else mc_draws[i]
         model, state = _vi_update(model, state, x_b, y_b, gen, eps)
@@ -265,8 +305,11 @@ def train(
     moves by less than ``conv_eps`` an iteration over a window of
     ``conv_check_every`` steps, on a fresh minibatch when stochastic; it is
     checked only without hyperparameter steps, callback or ``verbose >= 2``
-    and costs one ELBO (a host read) a window.  Without any of these the
-    steps run back to back with no host read.  Ctrl-C returns the model
+    and costs one ELBO (a host read) a window.  Without any of these (the
+    fast path, for more than one iteration) the steps run back to back
+    with no host read, in chunks of ``_CHUNK`` (or of ``conv_check_every``)
+    through ``graphs.run`` for a model that ``graphs.takes``: replays of
+    captured CUDA graphs on the card.  Ctrl-C returns the model
     and state trained so far.  An online model raises ``TypeError``: it
     trains with ``online_train``; so does a multi-output one: ``mo_train``."""
     if isinstance(model, GP):
@@ -301,7 +344,9 @@ def train(
         state = init_state(model, X, y)
     generator = _default_generator(X.device) if generator is None else generator
     do_hyper = model.optimiser is not None
-    check = conv_eps > 0 and callback is None and verbose < 2 and not do_hyper and iterations > 1
+    fast = callback is None and verbose < 2 and not do_hyper and iterations > 1
+    check = conv_eps > 0 and fast
+    captured = fast and graphs.takes(model)
     chunk = conv_check_every if check else _CHUNK
     prev = None
     # Ctrl-C keeps the partially trained (model, state)
@@ -310,16 +355,19 @@ def train(
         while done < iterations:
             n = min(chunk, iterations - done)
             rows = None if draws is None else draws[done:done + n]
-            for i, (x_b, y_b) in enumerate(_minibatches(model, X, y, n, rows, generator), start=done + 1):
-                model, state = _vi_update(model, state, x_b, y_b, generator)
-                state = state.replace(step=state.step + 1)
-                if callback is not None:
-                    callback(model, state, i)
-                if do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations:
-                    model, state = autotuning.hyper_step(model, state, x_b, y_b)
-                if verbose >= 2:
-                    e = objective(model, state, *_fresh_batch(model, X, y, generator))
-                    print(f"iter {i}: ELBO = {float(e):.6f}")
+            if captured:
+                model, state = _captured_steps(model, state, X, y, n, rows, generator)
+            else:
+                for i, (x_b, y_b) in enumerate(_minibatches(model, X, y, n, rows, generator), start=done + 1):
+                    model, state = _vi_update(model, state, x_b, y_b, generator)
+                    state = state.replace(step=state.step + 1)
+                    if callback is not None:
+                        callback(model, state, i)
+                    if do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations:
+                        model, state = autotuning.hyper_step(model, state, x_b, y_b)
+                    if verbose >= 2:
+                        e = objective(model, state, *_fresh_batch(model, X, y, generator))
+                        print(f"iter {i}: ELBO = {float(e):.6f}")
             done += n
             if check:
                 e = float(objective(model, state, *_fresh_batch(model, X, y, generator)))

@@ -36,7 +36,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. flagship path: SVGP + RBF + logistic, N=200,000, D=20, M=64, B=4096,
    block sampling, float32, trained through agp_tpu_torch.train with one
    kernel launch per step; training accuracy and steady-state CAVI
-   iterations/s;
+   iterations/s, a profiled replay's kernels against the launches it is
+   credited, and its eager and captured rates early in the process (the
+   end of the run takes them again late);
 5. Student-t rate: the same shape with y = the flagship's latent
    + 0.1 t_4 and the Student-t likelihood, its launches and steady-state
    iterations/s, the first path of a child process
@@ -336,7 +338,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    set as world 1, mu and Sigma within its float32 noise, points/s, rank
    0's profiled batch; the flagship's checkpoint gathered on rank 0 after
    JK_SVI_SAVE of JK_SVI_STEPS steps (kernel 1), resumed on 2 processes and
-   on one, each within phase 40's noise of the uninterrupted run.
+   on one, each within phase 40's noise of the uninterrupted run;
+56. captured chunks (``agp_tpu_torch/training/graphs.py``): each route of
+   ``graph_routes`` (kernel 1's flagship, gather and full-batch forms, its
+   other seven likelihoods and the Matern kinds; kernels 2-3; the split
+   pairs at M=512, in float64, with a learnt noise, with a kernel outside
+   FUSED_KINDS and past M=2,392; paths 30 and 31) from a fresh state for
+   k + 2 steps (the warm-up step, a replay of k, a replay of one) on the
+   eager loop and as a captured chunk from generators of one seed: every
+   carried leaf bit-equal, from a second fresh state on the cached
+   capture too, each run's launches exact, a replay of k credited k
+   steps' launches and a profiled replay's kernels on the device as many,
+   the capture and the replays under
+   ``torch.cuda.set_sync_debug_mode("error")``; the eager and captured
+   it/s, idle shares, kernels a replay and host us a replay of the
+   flagship, the Student-t oracle, the bench's multiclass and
+   heteroscedastic paths,
+   logistic_m512_b65536, float64 logistic_m512 and paths 30 and 31; the
+   flagship's capture at k = 1, 10 and 50 (capture time, memory, it/s);
+   each route's peak memory, eager and captured (``graphs`` runs it
+   alone).  The whole run takes it right after phase 4, and at its end
+   the flagship's eager and captured rates again, against phase 4's.
+
+Since phase 56's slice, ``vi_steps`` and ``train``'s fast path run every
+sparse model as captured chunks, so every phase that trains one replays
+CUDA graphs; each wrapper's launch count is credited by replays.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -399,7 +425,8 @@ the host's CPU, no card needed: what SLICE_L_FLOORS comes from),
 over NCCL, one process on each card of a machine with 2 or 4),
 ``slice-tail-cpu`` (phase 53's paths at world 1 in float64 on the host's
 CPU, no card needed: what SLICE_TAIL_FLOORS comes from),
-``float64`` (phases 46-49 alone, after the SASS and shared-memory checks).
+``float64`` (phases 46-49 alone, after the SASS and shared-memory checks),
+``graphs`` (phase 56 alone).
 ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
@@ -413,6 +440,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -878,6 +906,7 @@ def flagship_model(agt, X, b=B, optimiser=None):
 
 
 def phase_main_path(agt, ck, device):
+    from agp_tpu_torch.training import graphs
     from agp_tpu_torch.training.train import vi_steps
 
     X, y = flagship_data(device)
@@ -889,6 +918,9 @@ def phase_main_path(agt, ck, device):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = expect_launches(ck, "flagship", route_launches(MAIN_STEPS, "fused"))
+    chunks = graphs.latest()  # train's capture, on the data as train took it
+    check_replay_launches(ck, "main path", lambda: vi_steps(model, state, chunks.X, chunks.y,
+                                                                graphs.STEPS_PER_GRAPH, generator=gen))
     if not (bool(torch.isfinite(state.mu).all()) and bool(torch.isfinite(state.Sigma).all())):
         raise AssertionError("non-finite posterior after the main path")
     acc = float((agt.predict_y(model, state, X) == y).float().mean())
@@ -903,7 +935,10 @@ def phase_main_path(agt, ck, device):
     model, state = vi_steps(model, state, X, y, TIMED_STEPS, generator=gen)
     torch.cuda.synchronize()
     ips = TIMED_STEPS / (time.perf_counter() - t0)
-    log(f"steady state: {ips:.1f} CAVI iterations/s over {TIMED_STEPS} steps")
+    log(f"steady state: {ips:.1f} CAVI iterations/s over {TIMED_STEPS} steps (captured chunks)")
+    EARLY_FLAGSHIP.update(flagship_rates(model, state, X, y))
+    log(f"flagship early in the process: eager {EARLY_FLAGSHIP['eager_ips']:.1f} it/s, captured "
+        f"{EARLY_FLAGSHIP['captured_ips']:.1f} it/s")
     return launches
 
 
@@ -1544,15 +1579,26 @@ def pair_multi_model(agt, X, which, b=None):
                            X[:PM], optimiser=None)
 
 
+def clear_captures():
+    """Forgets the captured chunks of steps (``graphs.clear``): a swap of a
+    function the step reaches calls it when it swaps and when it puts the
+    function back, so that no capture replays the other one."""
+    from agp_tpu_torch.training import graphs
+
+    graphs.clear()
+
+
 @contextlib.contextmanager
 def plain_kernels(ck, names=("fused_cavi_stats",)):
     """The step takes the plain versions in the named kernels' place."""
     wrappers = {name: getattr(ck, name) for name in names}
+    clear_captures()
     for name in names:
         setattr(ck, name, getattr(ck, name + "_reference"))
     try:
         yield
     finally:
+        clear_captures()
         for name, fn in wrappers.items():
             setattr(ck, name, fn)
 
@@ -3082,14 +3128,16 @@ def phase_gather_vs_plain(device):
 def phase_bench_gather(ck):
     """The bench's gather mode (agp_tpu_torch.bench.gather), the main path
     of kernel 10: counts reset before it and read after it, one launch for
-    its check and 2 (1 + draws) for its times at each tile height."""
+    its check and 2 (1 + draws) for its times at each tile height, then
+    one for its captured graph's warm-up and 2 (1 + 1) replays of
+    GATHER_CAPTURED draws for its captured times."""
     from agp_tpu_torch import bench
 
     reset_launches(ck)
     rows = bench.gather(draws=GATHER_DRAWS)
     torch.cuda.synchronize()
-    launches = expect_launches(ck, "bench gather",
-                               {"gather_row_tiles": len(bench.GATHER_TILES) * (1 + 4 * GATHER_DRAWS)})
+    per_tile = 1 + 4 * GATHER_DRAWS + 1 + 4 * bench.GATHER_CAPTURED
+    launches = expect_launches(ck, "bench gather", {"gather_row_tiles": len(bench.GATHER_TILES) * per_tile})
     log(f"bench gather: {json.dumps(rows)}; {launches} launches")
     return rows
 
@@ -3658,6 +3706,7 @@ def ladder_mode(agt, device):
     X, _, y = dense_data("vgp_studentt", VN, device)
     real = linalg._ladder_cholesky
     for lazy in (False, True, True, False):
+        clear_captures()
         linalg._ladder_cholesky = (lambda A, j, lazy_rungs=False: real(A, j, False)) if not lazy else real
         try:
             model, state = agt.train(dense_model(agt, "vgp_studentt", X, y), iterations=5)
@@ -3668,6 +3717,7 @@ def ladder_mode(agt, device):
             log(f"ladder: vgp_studentt steady {DENSE_TIMED / (time.perf_counter() - t0):.2f} iterations/s with the "
                 f"{'lazy' if lazy else 'batched'} ladders")
         finally:
+            clear_captures()
             linalg._ladder_cholesky = real
 
 
@@ -4777,10 +4827,12 @@ def recorded_psd_rungs(numerical_vi, rungs):
         rungs.append(k)
         return out, k
 
+    clear_captures()
     numerical_vi.psd_apply = recorded
     try:
         yield
     finally:
+        clear_captures()
         numerical_vi.psd_apply = psd_apply
 
 
@@ -7105,10 +7157,12 @@ def slab_route(ck):
         tb = ck.kappa_tile_rows(which, m, limit, dtype)
         return ("slab", tb) if tb else route(which, m, dtype, limit)
 
+    clear_captures()
     ck.kappa_route = slab_first
     try:
         yield
     finally:
+        clear_captures()
         ck.kappa_route = route
 
 
@@ -8124,6 +8178,405 @@ def cols_shapes(rows, cols_kernels):
                 "float32_ms": t.get("float32_ms"), "errors": r["errors"]}
 
 
+# ---------------------------------------- captured chunks of steps (phase 56)
+# the rate routes of phase 56: (eager steps, captured steps) timed on the
+# host's clock after a warm-up, each ending in a synchronize
+GRAPH_RATE_STEPS = {
+    "flagship": (300, 2000), "studentt/SqExponentialKernel": (200, 1000), "multiclass": (200, 1000),
+    "het": (200, 1000), "logistic_m512_b65536": (60, 300),
+    "float64 logistic_m512": (50, 200), "path 30 quadrature": (200, 1000), "path 31 Monte Carlo": (100, 500),
+}
+# k of the flagship's captures measured beside graphs.STEPS_PER_GRAPH, and
+# the steps each is timed over
+GRAPH_KS, GRAPH_K_STEPS = (1, 10, 50), 2000
+# the flagship's rates early in the process (phase 4), beside phase 56's
+# late ones (ROADMAP.md queue 3 item 4)
+EARLY_FLAGSHIP = {}
+
+
+@contextlib.contextmanager
+def eager_loop():
+    """``vi_steps`` and ``train`` run every model on the eager loop
+    (``graphs.takes`` false): the yardstick of a captured chunk."""
+    from agp_tpu_torch.training import graphs
+
+    takes = graphs.takes
+    graphs.takes = lambda model: False
+    try:
+        yield
+    finally:
+        graphs.takes = takes
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Any operation that synchronizes with the host raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def treated(model, X, y):
+    """(model, labels as a step takes them)."""
+    y_t, lik = model.likelihood.treat_labels(y)
+    return model.replace(likelihood=lik), y_t.to(device=X.device, dtype=X.dtype)
+
+
+def plain_kappa_model(agt, X):
+    """The flagship's model with a kernel outside FUSED_KINDS (RBF plus a
+    linear kernel): kappa by plain products, then kernel 7."""
+    kernel = agt.SqExponentialKernel(lengthscale=2.0, variance=1.0) + agt.LinearKernel(variance=0.01)
+    return agt.SVGP.create(kernel, agt.LogisticLikelihood.create(), agt.AnalyticSVI(B, minibatch_sampling="block"),
+                           X[:M], optimiser=None)
+
+
+def graph_routes(agt, device):
+    """Phase 56's routes, by label: (data (X, y), model, launches of n steps
+    by ``route_launches``).  Each route of the captured chunk: kernel 1
+    (the flagship, its gather and full-batch forms, the seven other
+    likelihoods and the Matern kinds at the oracle shape), kernels 2-3 (the
+    bench's multiclass and heteroscedastic), the split pairs
+    (logistic_m512_b65536, multiclass M=512, float64 logistic_m512, a
+    learnt Gaussian noise, a kernel outside FUSED_KINDS, kappa past
+    M=2,392), numerical VI (paths 30 and 31)."""
+    single = lambda n: route_launches(n, "single")  # noqa: E731
+    routes = {
+        "flagship": (lambda: flagship_data(device), lambda X: flagship_model(agt, X),
+                     lambda n: route_launches(n, "fused")),
+        "flagship gather": (lambda: flagship_data(device), lambda X: agt.SVGP.create(
+            agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(), agt.AnalyticSVI(B), X[:M],
+            optimiser=None), lambda n: route_launches(n, "fused")),
+        "flagship full batch": (lambda: tuple(a[:OB] for a in flagship_data(device)), lambda X: agt.SVGP.create(
+            agt.SqExponentialKernel(lengthscale=2.0), agt.LogisticLikelihood.create(), agt.AnalyticVI(), X[:M],
+            optimiser=None), lambda n: route_launches(n, "fused")),
+    }
+    for lik, kernel in single_paths():
+        routes[f"{lik}/{kernel}"] = (lambda lik=lik: oracle_data(lik, device)[:2],
+                                     lambda X, lik=lik, kernel=kernel: oracle_model(agt, X, lik, kernel),
+                                     lambda n: route_launches(n, "fused"))
+    for which in ("multiclass", "het"):
+        fused = "fused_cavi_stats_multiclass" if which == "multiclass" else "fused_cavi_stats_het"
+        routes[which] = (lambda which=which: (mc_data if which == "multiclass" else het_data)(device),
+                         lambda X, which=which: multi_model(agt, X, which),
+                         lambda n, fused=fused: route_launches(n, "fused", fused=fused))
+    routes.update({
+        "logistic_m512_b65536": (lambda: big_logistic_data(device), lambda X: big_logistic_model(agt, X), single),
+        "multiclass M=512": (lambda: pair_mc_data(device), lambda X: pair_multi_model(agt, X, "multiclass"),
+                             lambda n: route_launches(n, "batched")),
+        "float64 logistic_m512": (lambda: tuple(a.double() for a in big_logistic_data(device)),
+                                  lambda X: big_logistic_model(agt, X), lambda n: route_launches(n, "single",
+                                                                                                 f64=True)),
+        "learnt noise": (lambda: noise_data(device)[::2], lambda X: noise_model(agt, X), single),
+        "plain kappa": (lambda: flagship_data(device), lambda X: plain_kappa_model(agt, X),
+                        lambda n: {"cavi_stats": n}),
+        "kappa past M=2,392": (lambda: big_logistic_data(device), lambda X: cols_svgp(agt, X, C32_M), single),
+        "path 30 quadrature": (lambda: flagship_data(device), lambda X: quad_model(agt, X), single),
+        "path 31 Monte Carlo": (lambda: mc_data(device), lambda X: softmax_model(agt, X),
+                                lambda n: route_launches(n, "batched")),
+    })
+    return routes
+
+
+def carried_leaves(model, state):
+    """{path: tensor} of what a step rewrites (graphs' carry)."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.utils.tensors import named_leaves
+
+    return {p: t for p, t in named_leaves(model, "model") + named_leaves(state, "state") if graphs._carried(p)}
+
+
+def bit_equal(a, b):
+    """Whether two tensors hold the same bits (a NaN equal to itself)."""
+    if a.is_floating_point() and a.dtype == b.dtype and a.shape == b.shape:
+        ints = {torch.float64: torch.int64, torch.float32: torch.int32}[a.dtype]
+        return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+    return torch.equal(a, b)
+
+
+def launch_counts(ck):
+    return {name: n for name in LAUNCH_COUNTERS if (n := launches_of(ck, name))}
+
+
+# the device functions that each wrapper call of kernels 1-7 launches once,
+# by a word of the profiler's kernel name, and the counters (LAUNCH_COUNTERS)
+# whose calls launch them: kernel 1's rows pass; kernels 2 and 3's E-steps;
+# kernels 4 and 6's row-slab kernel or the column-blocked form's finishing
+# pass; the statistics' tile sum, which kernels 1-3, 5 and 7 each launch
+DEVICE_KERNELS = (
+    ("cavi_rows", ("fused_cavi_stats",)),
+    ("estep_multiclass", ("fused_cavi_stats_multiclass",)),
+    ("estep_het", ("fused_cavi_stats_het",)),
+    ("kappa_moments_batched|kappa_single|kappa_cols_finish",
+     ("fused_kappa_moments_batched", "fused_kappa", "fused_kappa_moments_batched_f64", "fused_kappa_f64")),
+    ("sum_tiles", ("fused_cavi_stats", "fused_cavi_stats_multiclass", "fused_cavi_stats_het", "cavi_stats_batched",
+                   "cavi_stats", "cavi_stats_batched_f64", "cavi_stats_f64")),
+)
+
+
+# the device kernels' rows (us, count, name) of each label's profiled
+# replay, written to _chip/replay_profiles.json when one falls short
+REPLAY_ROWS = {}
+
+
+def check_replay_launches(ck, label, fn):
+    """Profiles ``fn()``, which must replay the latest capture's graph of k
+    steps once and launch nothing else of kernels 1-7: the counters must
+    rise by exactly the launches that capture credits a replay, and the
+    device must run each of DEVICE_KERNELS as many times as those credits
+    say, so that the counts credited by replays are measured.  Returns the
+    device's counts."""
+    from agp_tpu_torch.training import graphs
+
+    k, chunks = graphs.STEPS_PER_GRAPH, graphs.latest()
+    credited = {name + ("_f64" if attr == "launches_f64" else ""): n
+                for (name, attr), n in chunks.launches[k].per_replay.items()}
+    replays, replay = [], chunks.replay
+    chunks.replay = lambda steps, *args: (replays.append(steps), replay(steps, *args))[1]
+    before = launch_counts(ck)
+    try:
+        p = profile_window(fn, 1)
+    finally:
+        del chunks.replay
+    after = launch_counts(ck)
+    rose = {name: n - before.get(name, 0) for name, n in after.items() if n != before.get(name, 0)}
+    if graphs.latest() is not chunks or replays != [k] or rose != credited:
+        raise AssertionError(f"{label}: the profiled call was not one replay of {k} steps: replays {replays}, "
+                             f"counters rose by {rose}, a replay credits {credited}")
+    REPLAY_ROWS[label] = p["rows"]
+    device = {pattern: round(sum(count for _, count, key in p["rows"] if re.search(rf"\b({pattern})\b", key)))
+              for pattern, _ in DEVICE_KERNELS}
+    want = {pattern: sum(credited.get(name, 0) for name in names) for pattern, names in DEVICE_KERNELS}
+    if device != want:
+        os.makedirs("_chip", exist_ok=True)
+        with open("_chip/replay_profiles.json", "w") as f:
+            json.dump(REPLAY_ROWS, f)
+        raise AssertionError(f"{label}: a replay of {k} steps ran {device} on the device; its credits say {want} "
+                             "(each label's profiled kernels: _chip/replay_profiles.json)")
+    log(f"{label}: a profiled replay of {k} steps ran {({q: n for q, n in device.items() if n})} on the device, as "
+        f"credited")
+    return device
+
+
+def graph_route_check(agt, ck, device, label, steps=None):
+    """One route of phase 56: ``steps`` (the warm-up step, one replay of k,
+    one of a single step) CAVI steps from a fresh state by ``vi_steps`` on
+    the eager loop and as a captured chunk (the capture and every replay
+    under ``sync_errors``), from generators of one seed, then again as a
+    captured chunk from a second fresh state on the cached capture; every
+    carried leaf bit-equal, each run's launches exact, each replay of k
+    credited k steps' launches, and a profiled replay's kernels on the
+    device as many as credited (``check_replay_launches``); each run's
+    peak device memory (max_memory_allocated, the captured run's with its
+    capture).  Returns (model, state, X, y) after a captured run and the
+    peaks in MB."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.training.train import vi_steps
+
+    k = graphs.STEPS_PER_GRAPH
+    steps = k + 2 if steps is None else steps
+    data, build, want = graph_routes(agt, device)[label]
+    X, y = data()
+    model, y = treated(build(X), X, y)
+    state = agt.init_state(model, X, y)
+    reset_launches(ck)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    memory = {"before_mb": torch.cuda.memory_allocated() / 2**20}
+    with eager_loop():
+        me, se = vi_steps(model, state, X, y, steps, generator=torch.Generator(device=device).manual_seed(3))
+    torch.cuda.synchronize()
+    memory["eager_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    expected = {name: n for name, n in want(steps).items() if n}
+    if launch_counts(ck) != expected:
+        raise AssertionError(f"{label} eager: launched {launch_counts(ck)}, expected {expected}")
+    eager = carried_leaves(me, se)
+    graphs.clear()
+    gen = torch.Generator(device=device)
+    runs = {}
+    for start in ("state", "fresh state"):
+        reset_launches(ck)
+        if start == "state":
+            torch.cuda.reset_peak_memory_stats()
+        else:  # the same values in a fresh state's layouts, on the cached capture
+            chunks, state = graphs.latest(), agt.init_state(model, X, y)
+        with sync_errors():
+            mc, sc = vi_steps(model, state, X, y, steps, generator=gen.manual_seed(3))
+            torch.cuda.synchronize()
+        if start == "state":
+            memory["captured_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        elif graphs.latest() is not chunks or sorted(chunks.graphs) != [1, k]:
+            raise AssertionError(f"{label}: a fresh state did not run on the cached capture")
+        runs[start] = launch_counts(ck)
+        expect_launches(ck, f"{label} captured from a {start}", want(steps))
+        captured = carried_leaves(mc, sc)
+        differ = {p: float((captured[p].double() - t.double()).abs().max()) for p, t in eager.items()
+                  if not bit_equal(captured[p], t)}
+        if differ:
+            raise AssertionError(f"{label}: the captured chunk from a {start} differs from the eager loop after "
+                                 f"{steps} steps: {differ}")
+        if not finite_state(sc):
+            raise AssertionError(f"{label}: non-finite posterior")
+    per_replay = graphs.latest().launches[k].per_replay
+    if {name + ("_f64" if attr == "launches_f64" else ""): n for (name, attr), n in per_replay.items()} != {
+            name: n for name, n in want(k).items() if n}:
+        raise AssertionError(f"{label}: a replay of {k} steps credits {per_replay}, expected {want(k)}")
+    check_replay_launches(ck, f"graphs {label}", lambda: vi_steps(mc, sc, X, y, k, generator=gen))
+    log(f"graphs {label}: {steps} steps captured bit-equal to the eager loop ({len(eager)} carried leaves), from "
+        f"the state and from a fresh state on the cached capture, launches {runs['state']} ({per_replay} a replay "
+        f"of {k}), sync debug 'error' clean, capture {graphs.latest().capture_seconds[k] * 1e3:.1f} ms, peak memory "
+        f"eager {memory['eager_mb']:.1f} / captured {memory['captured_mb']:.1f} MB (before "
+        f"{memory['before_mb']:.1f})")
+    return mc, sc, X, y, memory
+
+
+def timed_steps(fn, steps):
+    """(it/s, host seconds to enqueue them) of ``fn()``, which runs ``steps``
+    steps, on the host's clock ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0), enqueued
+
+
+def route_rates(label, model, state, X, y, eager_steps, steps):
+    """A route's eager and captured it/s (after a warm-up each), the host
+    us a replay takes to enqueue, and a profiled window of each: idle share,
+    kernels a step, graph launches.  Returns the numbers."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.training.train import vi_steps
+
+    k = graphs.STEPS_PER_GRAPH
+    gen = torch.Generator(device=X.device).manual_seed(4)
+    with eager_loop():
+        vi_steps(model, state, X, y, 5, generator=gen)
+        eager, _ = timed_steps(lambda: vi_steps(model, state, X, y, eager_steps, generator=gen), eager_steps)
+        p_eager = profile_window(lambda: vi_steps(model, state, X, y, 20, generator=gen), 20)
+    vi_steps(model, state, X, y, k + 1, generator=gen)  # the capture of this generator (Monte Carlo's key)
+    captured, enqueued = timed_steps(lambda: vi_steps(model, state, X, y, steps, generator=gen), steps)
+    p_graph = profile_window(lambda: vi_steps(model, state, X, y, 2 * k, generator=gen), 2 * k)
+    out = {"eager_ips": eager, "captured_ips": captured, "speedup": captured / eager,
+           "host_us_per_replay": enqueued / (steps // k) * 1e6, "eager_idle": p_eager["idle_share"],
+           "captured_idle": p_graph["idle_share"], "eager_launches_per_step": p_eager["launches"],
+           "kernels_per_step": p_graph["ops"], "kernels_per_replay": p_graph["ops"] * k,
+           "eager_wall_us": p_eager["wall_us"], "captured_wall_us": p_graph["wall_us"],
+           "captured_busy_us": p_graph["busy_us"],
+           # the profiler's own cost a graph launch lengthens a profiled
+           # window's wall: its device busy time against the unprofiled step
+           "captured_idle_unprofiled": 1.0 - p_graph["busy_us"] * captured / 1e6}
+    log(f"graphs {label} rates: eager {eager:.1f} it/s (idle {out['eager_idle']:.4f}, "
+        f"{out['eager_launches_per_step']:.1f} launches a step), captured {captured:.1f} it/s (idle "
+        f"{out['captured_idle']:.4f} profiled, {out['captured_idle_unprofiled']:.4f} by the unprofiled step's "
+        f"{1e6 / captured:.1f} us against {out['captured_busy_us']:.1f} busy, {out['kernels_per_replay']:.0f} "
+        f"kernels a replay of {k}, host {out['host_us_per_replay']:.1f} us a replay), x{out['speedup']:.2f}")
+    return out
+
+
+def flagship_rates(model, state, X, y):
+    """The flagship's eager and captured it/s over GRAPH_RATE_STEPS'
+    windows, after a warm-up of each (phase 4 early in the process, phase
+    56 late)."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.training.train import vi_steps
+
+    eager_steps, steps = GRAPH_RATE_STEPS["flagship"]
+    gen = torch.Generator(device=X.device).manual_seed(5)
+    with eager_loop():
+        vi_steps(model, state, X, y, 5, generator=gen)
+        eager, _ = timed_steps(lambda: vi_steps(model, state, X, y, eager_steps, generator=gen), eager_steps)
+    vi_steps(model, state, X, y, graphs.STEPS_PER_GRAPH + 1, generator=gen)
+    captured, _ = timed_steps(lambda: vi_steps(model, state, X, y, steps, generator=gen), steps)
+    return {"eager_ips": eager, "captured_ips": captured}
+
+
+def graph_k_sweep(model, state, X, y):
+    """The flagship's capture at each k of GRAPH_KS: its capture seconds,
+    the device memory it reserves (the static carry and the graph's
+    pool: memory_reserved after the first chunk against before,
+    the caches emptied), the peak allocated, and its rate over
+    GRAPH_K_STEPS steps."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.training.train import vi_steps
+
+    out, k0 = {}, graphs.STEPS_PER_GRAPH
+    try:
+        for k in GRAPH_KS:
+            graphs.STEPS_PER_GRAPH = k
+            graphs.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_reserved()
+            gen = torch.Generator(device=X.device).manual_seed(6)
+            vi_steps(model, state, X, y, k + 1, generator=gen)
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved() - before
+            ips, _ = timed_steps(lambda: vi_steps(model, state, X, y, GRAPH_K_STEPS, generator=gen), GRAPH_K_STEPS)
+            out[k] = {"capture_s": graphs.latest().capture_seconds[k], "reserved_mb": reserved / 2**20,
+                      "peak_mb": torch.cuda.max_memory_allocated() / 2**20, "ips": ips}
+            log(f"graphs flagship k={k}: capture {out[k]['capture_s'] * 1e3:.1f} ms, reserved {out[k]['reserved_mb']:.1f} "
+                f"MB, peak allocated {out[k]['peak_mb']:.1f} MB, {ips:.1f} it/s over {GRAPH_K_STEPS} steps")
+    finally:
+        graphs.STEPS_PER_GRAPH = k0
+        graphs.clear()
+    return out
+
+
+def phase_graphs(agt, ck, device):
+    """Phase 56: each route of ``graph_routes`` by ``graph_route_check``
+    (captured chunk bit-equal to the eager loop, exact launches, sync
+    debug clean); the rate routes' eager and captured it/s, idle shares,
+    kernels a replay and host us a replay (``route_rates``); the
+    flagship's capture at k = 1, 10, 50 (``graph_k_sweep``); the peak
+    memory of each route, eager and captured.  Returns the numbers.  The
+    whole smoke runs it right after phase 4: late in that process (after
+    phase 55) the profiler returned a replay of the flagship one step
+    short, three profiles out of three in three runs, while the same
+    runs were bit-equal to the eager loop (PERF.md section 6, the captured
+    chunks' entry)."""
+    from agp_tpu_torch.training import graphs
+
+    out = {"routes": {}, "rates": {}, "memory": {}}
+    for label in graph_routes(agt, device):
+        t0 = time.perf_counter()
+        model, state, X, y, out["memory"][label] = graph_route_check(agt, ck, device, label)
+        out["routes"][label] = time.perf_counter() - t0
+        if label in GRAPH_RATE_STEPS:
+            out["rates"][label] = route_rates(label, model, state, X, y, *GRAPH_RATE_STEPS[label])
+            if label == "flagship":
+                out["k_sweep"] = graph_k_sweep(model, state, X, y)
+        del model, state, X, y
+        graphs.clear()
+        reset_launches(ck)
+    log(f"graphs: {json.dumps(out)}")
+    return out
+
+
+def phase_graphs_late(agt, device):
+    """The flagship's eager and captured rates at the end of the whole
+    smoke (``flagship_rates``, from a state 50 steps in), against phase
+    4's early in the process (ROADMAP.md queue 3 item 4).  Returns both."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.training.train import vi_steps
+
+    X, y = flagship_data(device)
+    model = flagship_model(agt, X)
+    model, y = treated(model, X, y)
+    model, state = vi_steps(model, agt.init_state(model, X, y), X, y, 50,
+                            generator=torch.Generator(device=device).manual_seed(0))
+    late = flagship_rates(model, state, X, y)
+    graphs.clear()
+    early = EARLY_FLAGSHIP
+    log(f"graphs flagship early (phase 4) / late (the end) in one process: eager {early['eager_ips']:.1f} / "
+        f"{late['eager_ips']:.1f} it/s, captured {early['captured_ips']:.1f} / {late['captured_ips']:.1f} it/s")
+    return {"early": dict(early), "late": late}
+
+
 PHASE_SECONDS = {}
 
 
@@ -8276,6 +8729,9 @@ def main():
     if args == ["slice-tail-nccl"]:
         slice_tail_nccl_mode(agt, ck, device)
         return
+    if args == ["graphs"]:
+        timed_phase("captured chunks", phase_graphs, agt, ck, device)
+        return
     if args == ["float64"]:
         timed_phase("tensor-core SASS", check_tc_sass, lib_path)
         timed_phase("kappa tiles", check_kappa_tiles, ck)
@@ -8303,6 +8759,7 @@ def main():
                                                            agt, ck, device)
     multi = timed_phase("kernels 2-3 vs plain", phase_multi_kernels_vs_plain, ck, device)
     timed_phase("flagship path", phase_main_path, agt, ck, device)
+    timed_phase("captured chunks", phase_graphs, agt, ck, device)
     LAUNCHES["fused_cavi_stats"] += timed_phase("Student-t rate (child)", studentt_rate_first_in_process)
     timed_phase("oracle and flagship parity", phase_oracle_and_parity, agt, device)
     for which in ("multiclass", "het"):
@@ -8344,6 +8801,7 @@ def main():
     f64_kernels, _ = float64_mode(agt, ck, device)
     (cols_kernels, _), _ = cols_mode(agt, ck, device)
     slice_tail_mode(agt, ck, device)
+    timed_phase("captured chunks, late", phase_graphs_late, agt, device)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total {time.perf_counter() - t_start:.2f} s")
 
     bounds = {

@@ -1475,6 +1475,53 @@ def test_cuda_white_kernel_in_kmm(cuda_device):
         assert torch.allclose(torch.diagonal(K - plain), torch.full((32,), 0.5 + jitter(torch.float32)), atol=1e-5)
     assert torch.allclose(kmats[1], kmats[0], atol=1e-5)
 
+# ------------------------------------------- captured chunks of steps
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(smoke.graph_routes(agt, torch.device("cpu"))))
+def test_cuda_captured_chunk_matches_eager(cuda_device, label):
+    """Phase 56's check of one route (``chip_smoke.graph_route_check``):
+    k + 2 steps as a captured chunk (the warm-up step, a replay of k, one
+    of a single step) bit-equal to the eager loop from generators of one
+    seed, and again from a second fresh state on the cached capture, each
+    run's launches exact, a replay of k credited k steps' launches and a
+    profiled replay's kernels on the device as many, the capture and the
+    replays under sync debug "error"."""
+    smoke.graph_route_check(agt, ck, cuda_device, label)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_chunks_reused_with_remainders(cuda_device):
+    """Two calls of 2 k + 3 steps at a small flagship shape: the second
+    takes the first's capture (no warm-up step, no new capture), the
+    states bit-equal to the eager loop's two calls, kernel 1's launches
+    exactly 2 (2 k + 3)."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.training.train import vi_steps
+
+    k = graphs.STEPS_PER_GRAPH
+    X, y = smoke.flagship_data(cuda_device, n=20_000)
+    model = smoke.flagship_model(agt, X, b=1024)
+    state = agt.init_state(model, X, y)
+    runs = {}
+    for name in ("eager", "captured"):
+        graphs.clear()
+        smoke.reset_launches(ck)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        m, s = model, state
+        with smoke.eager_loop() if name == "eager" else smoke.sync_errors():
+            for call in range(2):
+                m, s = vi_steps(m, s, X, y, 2 * k + 3, generator=gen)
+                if name == "captured" and call == 0:
+                    first = graphs.latest()
+        torch.cuda.synchronize()
+        assert ck.fused_cavi_stats.launches == 2 * (2 * k + 3)
+        runs[name] = s
+    assert graphs.latest() is first and sorted(first.graphs) == [1, k]
+    for f in ("eta1", "eta2", "mu", "Sigma", "step", "opt_state"):
+        assert torch.equal(getattr(runs["captured"], f), getattr(runs["eager"], f)), f
+    graphs.clear()
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["gloo-child"]:
     import os
 
