@@ -24,6 +24,8 @@ from an explicit generator.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ops import cuda_kernels, linalg, quadrature
@@ -168,8 +170,20 @@ def variational_update(model, state: TrainState, x, y, eps=None, generator=None)
 # --------------------------------------------------------------------- ELBO
 def default_elbo_draws(inf, mu_f):
     """The ELBO's fixed Monte Carlo draws: a generator of seed 7 on mu_f's
-    device (the reference's PRNGKey(7))."""
-    return draw_normals(inf, mu_f, torch.Generator(device=mu_f.device).manual_seed(7))
+    device (the reference's PRNGKey(7)), drawn once for each shape, dtype
+    and device (``_elbo_draws``); the caller only reads them."""
+    return _elbo_draws(inf.n_mc, tuple(mu_f.shape), mu_f.dtype, mu_f.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _elbo_draws(n_mc, shape, dtype, device):
+    """The normals [n_mc, *shape] of a generator of seed 7.  Never evicted:
+    a captured hyperparameter step (``training/graphs.py``) reads them by
+    their address, and no capture takes a generator it does not hold, so
+    they are drawn in the eager iteration before it."""
+    cuda_kernels.check_not_capturing("the ELBO's Monte Carlo draws")
+    return torch.randn((n_mc,) + shape, generator=torch.Generator(device=device).manual_seed(7), dtype=dtype,
+                       device=device)
 
 
 def expec_loglik(model, state, x, y, kmat=None, eps=None):

@@ -22,7 +22,7 @@ from ..likelihoods.regression import GaussianLikelihood
 from ..means import PriorMean, ZeroMean, batch_call
 from ..ops import linalg
 from ..training.state import TrainState
-from ..utils.opt import adam, ascent_update
+from ..utils.opt import adam, ascent_update, init_on
 from ..utils.tensors import Params, path_leaves
 from .base import as_2d, check_card_dtype, match_dtype, model_repr
 from .svgp import _check_ported, _place
@@ -86,8 +86,8 @@ class GP(Params):
         hyper_state = None
         if self.optimiser is not None:
             hyper_state = {
-                "kernel": self.optimiser.init(path_leaves(to_unconstrained(self.kernel))),
-                "mean": self.optimiser.init(self.mean.leaves()),
+                "kernel": init_on(self.optimiser, path_leaves(to_unconstrained(self.kernel)), device),
+                "mean": init_on(self.optimiser, self.mean.leaves(), device),
             }
         return TrainState(
             alpha=torch.zeros((N,), dtype=dtype, device=device),

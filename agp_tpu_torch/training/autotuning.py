@@ -23,7 +23,7 @@ from ..inference import analytic_vi
 from ..inference.objective import objective
 from ..kernels import from_unconstrained, to_unconstrained
 from ..training.state import TrainState
-from ..utils.opt import tree_map
+from ..utils.opt import init_on, tree_map
 from ..utils.tensors import path_leaves, with_path_leaves
 
 
@@ -88,14 +88,15 @@ def hyper_step(model, state: TrainState, x, y):
 
 def init_hyper_state(model):
     """The optimiser states of the hyperparameter groups ("kernel" on the
-    log parameters, "mean", and "Z" under a ``Zoptimiser``), or None for
-    fixed hyperparameters."""
+    log parameters, "mean", and "Z" under a ``Zoptimiser``), on Z's device
+    (``utils.opt.init_on``), or None for fixed hyperparameters."""
     if model.optimiser is None:
         return None
+    device = model.Z.device
     hyper = {
-        "kernel": model.optimiser.init(path_leaves(to_unconstrained(model.kernel))),
-        "mean": model.optimiser.init(model.mean.leaves()),
+        "kernel": init_on(model.optimiser, path_leaves(to_unconstrained(model.kernel)), device),
+        "mean": init_on(model.optimiser, model.mean.leaves(), device),
     }
     if _optimises_z(model):
-        hyper["Z"] = model.Zoptimiser.init(model.Z)
+        hyper["Z"] = init_on(model.Zoptimiser, model.Z, device)
     return hyper

@@ -1,26 +1,51 @@
-"""Chunks of CAVI steps as replays of captured CUDA graphs: the counterpart
-of the ``lax.scan`` in ``agp_tpu/training/train.py::_vi_steps``.
+"""Runs of training iterations as replays of captured CUDA graphs: the
+counterpart of the ``lax.scan`` in ``agp_tpu/training/train.py::_vi_steps``
+and of ``train``'s calls of its ``_vi_step`` and ``_hyper_step``
+programs.
 
-The reference runs a chunk of n steps as one device program, with the
-chunk's minibatch indices drawn before the scan.  Here ``run`` takes a
-chunk whose indices are drawn (``training/train.py`` draws them in one
-call) and, on a CUDA tensor, replays a captured graph of
-``STEPS_PER_GRAPH`` (k) steps, then a one-step graph for the remainder.
-The host makes one graph launch for k steps in place of every op of
-every step (91-164 launches a step on the paths ``PERF.md`` §5 lists).
+The reference runs a chunk of n CAVI steps as one device program, with the
+chunk's minibatch indices drawn before the scan, and, with hyperparameters
+to learn, each iteration as one program and each hyperparameter step as
+another.  Here ``run`` takes a chunk whose indices are drawn
+(``training/train.py`` draws them in one call) and, on a CUDA tensor,
+replays a captured graph of ``STEPS_PER_GRAPH`` (k) steps, then a one-step
+graph for the remainder.  ``run_hyper`` takes the chunk's iterations with
+their marks, each a CAVI step followed, where it is marked, by a
+hyperparameter step on the same minibatch (the host lays the reference's
+schedule over the run), and replays graphs of marked iterations.  The host
+makes one graph launch for the iterations of a graph in place of every op
+of every step (91-164 launches a CAVI step on the paths ``PERF.md`` §5
+lists, 540-876 an iteration with a hyperparameter step).
 
+* Patterns.  A graph's body is a fixed sequence of iterations, each marked
+  with or without a hyperparameter step; a graph is keyed by this pattern,
+  written as the number of its iterations where none is marked, else as
+  the tuple of their marks.  A capture holds at most three graphs: its
+  large pattern (``large_pattern``), and the one-iteration patterns with
+  and without a mark.  The large one is k unmarked steps without
+  hyperparameter steps or at an ``atfrequency`` a above k; at a <= k, it is
+  k // a periods of a - 1 unmarked iterations and one marked (at a = 1, k
+  marked iterations).  At each iteration the host replays the large
+  pattern where the marks ahead equal it, else the one-iteration graph of
+  the iteration's mark; so at a = 1 a run takes the unmarked graph for
+  iterations 1-2 and its last, the marked one next to the last and near
+  the end of a chunk, and the large one for the rest.
 * The static carry.  A graph reads and writes the addresses it was
   captured with, so every tensor a step reads lives in a buffer of the
   capture:
   - carried: the leaves a step rewrites, the TrainState's (eta1, eta2, mu,
     Sigma, the local variables, opt_state, step, a Student-t prior's
     scale) and the likelihood's (Poisson's lambda, a learnt Gaussian
-    noise and its rule's state, the heteroscedastic lambda), each in the
-    layout (strides) a step gives its result.  The captured body ends by
-    copying its results into them, so each replay goes on from the last;
-    a call returns copies of them;
-  - held: the rest of the model (kernel, mean, Z), the kmat, rho, each in
-    the caller's layout (part of the key), copied in at each call;
+    noise and its rule's state, the heteroscedastic lambda), and, where a
+    hyperparameter step runs, the kernel's and the mean's leaves, Z under
+    a ``Zoptimiser``, the kmat and the optimisers' states
+    (``hyper_state``), each in the layout (strides) a step gives its
+    result.  The captured body ends by copying its results into them, so
+    each replay goes on from the last; a call returns copies of them;
+  - held: the rest of the model (the kernel, the mean and Z where no
+    hyperparameter step runs), the kmat and ``hyper_state`` likewise,
+    rho, each in the caller's layout (part of the key), copied in at each
+    call;
   - X and y, read in place: the key holds their addresses and the capture
     a reference to them, so that no copy of the data is made;
   - the minibatch indices of a replay's steps ([k, ...]), copied from the
@@ -32,20 +57,30 @@ every step (91-164 launches a step on the paths ``PERF.md`` §5 lists).
   operands' layout, so a replay reads the carry in the layout the eager
   loop's next step would read.  Where the caller's carried leaves have
   another layout than the buffers (a fresh state; a new capture), the
-  call's first step runs eagerly on the caller's own tensors, as the eager
-  loop's does, on the chunks' side stream; its results, in the step's
-  layout, are copied into the carry (into new buffers, in their layouts,
-  for a new capture).  Before a new capture this step is the warm-up: it
-  loads the kernels' library, sets their shared-memory attributes, fills
-  the wrappers' caches (the constants, the statistics plan, the quadrature
-  nodes) and cuBLAS's and cuSOLVER's handles, so that a capture records
-  kernels only.
+  call's first iteration runs eagerly on the caller's own tensors, as the
+  eager loop's does, on the chunks' side stream; its results, in the
+  step's layout, are copied into the carry (into new buffers, in their
+  layouts, for a new capture).  Before a new capture this step is the
+  warm-up: it loads the kernels' library, sets their shared-memory
+  attributes, fills the wrappers' caches (the constants, the statistics
+  plan, the quadrature nodes) and cuBLAS's and cuSOLVER's handles, so that
+  a capture records kernels only.
+* The hyperparameter warm-up.  A graph that holds a hyperparameter step
+  is captured only after an iteration with one ran eagerly on the carry
+  (on the side stream): the first marked iteration of a capture runs so
+  (at ``atfrequency`` 1, iteration 3).  It fills what the ELBO's forward
+  and backward and the optimiser reach (the kernels' saved-tensor paths,
+  the plain vjps' and the ladder's differentiable rung's constants, the
+  handles), so that its capture too records kernels only.  The forward,
+  ``torch.autograd.grad`` and the optimiser are captured on the side
+  stream, where the backward runs too.
 * Reuse.  A capture serves every later chunk of the structure it was made
   for: every non-tensor field of the model and the state, every tensor's
   shape, dtype and device, the held leaves' layouts, X's and y's
-  addresses, the sampling, the normals' source, ``STEPS_PER_GRAPH`` and
-  the run-time settings the kernels read (``STATS_F64_MMA_K``, the
-  preferred linear-algebra library).  The ``_CACHE_SIZE`` latest are
+  addresses, the sampling, the normals' source, ``STEPS_PER_GRAPH``, the
+  hyperparameter step and the large pattern (the model's
+  ``atfrequency``, its optimisers) and the run-time settings the kernels
+  read (``STATS_F64_MMA_K``, the preferred linear-algebra library).  The ``_CACHE_SIZE`` latest are
   kept.  Code that puts another function in a module's attribute the step
   reaches (a plain version in a kernel's place) calls ``clear()`` when it
   does and when it puts the function back.
@@ -55,7 +90,9 @@ every step (91-164 launches a step on the paths ``PERF.md`` §5 lists).
   on the eager loop.
 
 On a CPU tensor the same body runs at each replay (``_EagerGraph``),
-through the same carry, so that the CPU tests hold it to the reference.
+through the same carry, from copies of it (so that a (model, state) a step
+returned keeps its values once a later replay rewrites the carry, as the
+eager loop's do), so that the CPU tests hold it to the reference.
 ``takes`` is the rule, by the model's kind, for what runs here; the rest
 runs on ``train``'s eager loop.
 """
@@ -81,7 +118,7 @@ STEPS_PER_GRAPH = 10
 # captures kept, the latest used last
 _CACHE_SIZE = 4
 _CACHE: OrderedDict = OrderedDict()
-# the TrainState's fields a step reads and never writes
+# the TrainState's fields a CAVI step reads and never writes
 _HELD_STATE = ("kmat", "rho", "hyper_state")
 
 
@@ -99,12 +136,48 @@ def takes(model) -> bool:
     )
 
 
-def _carried(path: str) -> bool:
-    """Whether a step rewrites the leaf at ``path`` ("model...." or
+def _hyper_fields(model) -> tuple:
+    """The fields of the model and the state that a hyperparameter step
+    rewrites besides a CAVI step's: the kernel, the mean, Z under a
+    ``Zoptimiser``, the kmat and the optimisers' states."""
+    z = ("Z",) if getattr(model, "Zoptimiser", None) is not None else ()
+    return ("kernel", "mean") + z + ("kmat", "hyper_state")
+
+
+def _carried(path: str, hyper: tuple = ()) -> bool:
+    """Whether an iteration rewrites the leaf at ``path`` ("model...." or
     "state...."): the likelihood's and every state field but the held
-    ones."""
+    ones, and the fields of ``hyper`` (``_hyper_fields``, where an
+    iteration takes a hyperparameter step)."""
     root, field = path.split(".")[:2]
+    if field in hyper:
+        return True
     return field == "likelihood" if root == "model" else field not in _HELD_STATE
+
+
+def marks(pattern) -> tuple:
+    """The marks of a graph's iterations (True: with a hyperparameter
+    step) from its pattern: a number of unmarked iterations, or the tuple
+    of their marks."""
+    return (False,) * pattern if isinstance(pattern, int) else tuple(pattern)
+
+
+def pattern_of(flags) -> int | tuple:
+    """The pattern of iterations with these marks: their number where none
+    is marked, else the tuple of the marks."""
+    flags = tuple(bool(f) for f in flags)
+    return flags if any(flags) else len(flags)
+
+
+def large_pattern(atfrequency: int | None) -> int | tuple:
+    """The largest graph's pattern (module docstring): k unmarked steps
+    without hyperparameter steps (``atfrequency`` None) or at an
+    ``atfrequency`` a above k, else k // a periods of a - 1 unmarked
+    iterations and a marked one."""
+    k = STEPS_PER_GRAPH
+    if atfrequency is None or atfrequency > k:
+        return k
+    return ((False,) * (atfrequency - 1) + (True,)) * (k // atfrequency)
 
 
 def _structure(value):
@@ -138,12 +211,16 @@ def _row(t, i):
     return None if t is None else t[i]
 
 
-def _step(model, state, X, y, mode, idx, eps, rng, draw, update):
-    """One step: the minibatch ``draw(model, X, y, mode, idx)``, ``update``
-    on it, ``step + 1``."""
+def _iteration(model, state, X, y, mode, idx, eps, rng, draw, update, hyper=None):
+    """One iteration: the minibatch ``draw(model, X, y, mode, idx)``,
+    ``update`` on it, ``step + 1``, then ``hyper(model, state, x_b, y_b)``
+    on the same minibatch where ``hyper`` is given."""
     x_b, y_b = draw(model, X, y, mode, idx)
     model, state = update(model, state, x_b, y_b, rng, eps)
-    return model, state.replace(step=state.step + 1)
+    state = state.replace(step=state.step + 1)
+    if hyper is not None:
+        model, state = hyper(model, state, x_b, y_b)
+    return model, state
 
 
 class _EagerGraph:
@@ -206,15 +283,20 @@ def _on_stream(device, fn):
 class _Chunks:
     """One capture: the static carry (``buf``, by leaf path, and the
     indices and normals of a replay), the model and state built on it, the
-    data it reads in place, the graphs by their steps and the launches
-    each records.  Built from a (model, state) that a step returned, so
-    that each carried buffer takes the step's layout."""
+    data it reads in place, the graphs by their patterns and the launches
+    each records.  Built from a (model, state) that an iteration returned,
+    so that each carried buffer takes the step's layout.  ``hyper`` is the
+    hyperparameter step (None: CAVI steps alone), ``large`` the largest
+    graph's pattern, ``warm`` whether an iteration with a hyperparameter
+    step ran eagerly on the carry."""
 
-    def __init__(self, model, state, X, y, mode, idx, mc_draws, rng, draw, update):
+    def __init__(self, model, state, X, y, mode, idx, mc_draws, rng, draw, update, hyper, large):
         self.device, self.mode, self.rng, self.draw, self.update = X.device, mode, rng, draw, update
+        self.hyper, self.large, self.warm = hyper, large, False
+        self.fields = () if hyper is None else _hyper_fields(model)
         leaves = _leaves(model, state)
         self.buf = {p: torch.empty_like(t) for p, t in leaves}
-        self.carried = [p for p, _ in leaves if _carried(p)]
+        self.carried = [p for p, _ in leaves if _carried(p, self.fields)]
         self._ids = {id(b) for b in self.buf.values()}
         self.model = map_named(lambda p, t: self.buf[p], model, "model")
         self.state = map_named(lambda p, t: self.buf[p], state, "state")
@@ -230,7 +312,7 @@ class _Chunks:
     def fits(self, model, state) -> bool:
         """Whether the carried leaves of (model, state) have their buffers'
         shapes, dtypes and layouts."""
-        carried = {p: t for p, t in _leaves(model, state) if _carried(p)}
+        carried = {p: t for p, t in _leaves(model, state) if _carried(p, self.fields)}
         return carried.keys() == set(self.carried) and all(
             (t.shape, t.dtype, _layout(t)) == (b.shape, b.dtype, b.stride())
             for p, t in carried.items() for b in (self.buf[p],))
@@ -249,14 +331,18 @@ class _Chunks:
 
         return map_named(out, model, "model"), map_named(out, state, "state")
 
-    def _body(self, steps):
-        """``steps`` steps from the carry, their results copied back into it."""
+    def _body(self, pattern):
+        """The iterations of ``pattern`` from the carry, their results
+        copied back into it."""
         model, state = self.model, self.state
-        for j in range(steps):
-            model, state = _step(model, state, self.X, self.y, self.mode, _row(self.idx, j), _row(self.eps, j),
-                                 self.rng, self.draw, self.update)
+        if self.device.type != "cuda":  # run eagerly: a step's results outlive the next replay
+            model, state = map_named(lambda p, t: t.clone(), model, "model"), map_named(lambda p, t: t.clone(),
+                                                                                       state, "state")
+        for j, hyper in enumerate(marks(pattern)):
+            model, state = _iteration(model, state, self.X, self.y, self.mode, _row(self.idx, j), _row(self.eps, j),
+                                      self.rng, self.draw, self.update, self.hyper if hyper else None)
         out = dict(_leaves(model, state))
-        changed = [p for p in out if _carried(p) and p not in self.buf] + [
+        changed = [p for p in out if _carried(p, self.fields) and p not in self.buf] + [
             p for p in self.carried
             if p not in out or out[p].shape != self.buf[p].shape or out[p].dtype != self.buf[p].dtype
         ]
@@ -277,9 +363,9 @@ class _Chunks:
         if self.eps is not None:
             self.eps[:steps].copy_(eps[at:at + steps])
 
-    def _graph(self, steps):
-        """The graph of ``steps`` steps, captured at its first use."""
-        graph = self.graphs.get(steps)
+    def _graph(self, pattern):
+        """The graph of ``pattern``, captured at its first use."""
+        graph = self.graphs.get(pattern)
         if graph is not None:
             return graph
         stream = _stream(self.device) if self.device.type == "cuda" else None
@@ -287,29 +373,54 @@ class _Chunks:
         t0 = time.perf_counter()
         with cuda_kernels.CapturedLaunches() as launches:
             try:
-                graph.capture(functools.partial(self._body, steps), [self.buf[p] for p in self.carried])
+                graph.capture(functools.partial(self._body, pattern), [self.buf[p] for p in self.carried])
             except Exception as err:
-                raise RuntimeError(f"capturing {steps} CAVI step(s) of a {type(self.model).__name__} failed; a "
-                                   "model of a captured kind does not run on the eager loop") from err
-        self.capture_seconds[steps] = time.perf_counter() - t0
-        self.graphs[steps], self.launches[steps] = graph, launches
+                what = (f"{pattern} CAVI step(s)" if isinstance(pattern, int) else
+                        f"{len(pattern)} iteration(s) with {sum(pattern)} hyperparameter step(s)")
+                raise RuntimeError(f"capturing {what} of a {type(self.model).__name__} failed; a model of a "
+                                   "captured kind does not run on the eager loop") from err
+        self.capture_seconds[pattern] = time.perf_counter() - t0
+        self.graphs[pattern], self.launches[pattern] = graph, launches
         return graph
 
-    def replay(self, steps, idx, eps, at):
-        """Steps ``at`` .. ``at + steps - 1`` of the chunk: one replay."""
-        graph = self._graph(steps)
-        self._fill(steps, idx, eps, at)
+    def next(self, flags, at):
+        """The pattern to replay at iteration ``at`` of a chunk whose
+        iterations are marked ``flags``: the large one where the marks
+        ahead equal it (and where it holds a hyperparameter step, once one
+        ran eagerly here), else the one-iteration pattern of ``flags[at]``;
+        None for a marked iteration before that: it runs eagerly."""
+        large = marks(self.large)
+        if tuple(flags[at:at + len(large)]) == large and (self.warm or not any(large)):
+            return self.large
+        if flags[at] and not self.warm:
+            return None
+        return pattern_of(flags[at:at + 1])
+
+    def eager(self, flags, idx, eps, at):
+        """Iteration ``at`` run eagerly on the carry, on the chunks'
+        stream: the hyperparameter warm-up."""
+        self._fill(1, idx, eps, at)
+        _on_stream(self.device, lambda: self._body(pattern_of(flags[at:at + 1])))
+        self.warm |= bool(flags[at])
+
+    def replay(self, pattern, idx, eps, at):
+        """Iterations ``at`` .. ``at + len(marks(pattern)) - 1`` of the
+        chunk: one replay of ``pattern``'s graph."""
+        graph = self._graph(pattern)
+        self._fill(len(marks(pattern)), idx, eps, at)
         graph.replay()
-        self.launches[steps].replayed()
+        self.launches[pattern].replayed()
 
 
-def _key(model, state, X, y, mode, idx, mc_draws, rng, draw, update):
+def _key(model, state, X, y, mode, idx, mc_draws, rng, draw, update, hyper, large):
+    fields = () if hyper is None else _hyper_fields(model)
     return (
-        _structure(model), _structure(state), tuple(_layout(t) for p, t in _leaves(model, state) if not _carried(p)),
+        _structure(model), _structure(state),
+        tuple(_layout(t) for p, t in _leaves(model, state) if not _carried(p, fields)),
         _structure(X), _structure(y), X.data_ptr(), X.stride(), y.data_ptr(), y.stride(), mode,
         None if idx is None else (tuple(idx.shape[1:]), idx.dtype),
         None if mc_draws is None else (tuple(mc_draws.shape[1:]), mc_draws.dtype),
-        rng, draw, update, STEPS_PER_GRAPH,
+        rng, draw, update, hyper, large, STEPS_PER_GRAPH,
         cuda_kernels.STATS_F64_MMA_K, torch.backends.cuda.preferred_linalg_library(),
     )
 
@@ -329,8 +440,49 @@ def clear() -> None:
 
 def latest():
     """The capture the latest chunk ran on, or None: its ``graphs``,
-    ``launches`` (``CapturedLaunches`` by steps) and ``capture_seconds``."""
+    ``launches`` (``CapturedLaunches``) and ``capture_seconds``, each by
+    pattern."""
     return next(reversed(_CACHE.values()), None)
+
+
+def _run(model, state, X, y, flags, mode, idx, generator, mc_draws, rng, draw, update, hyper, large):
+    """The iterations marked ``flags`` (module docstring)."""
+    n = len(flags)
+    if n < 1:
+        return model, state
+    gen = generator if rng else None
+    key = _key(model, state, X, y, mode, idx, mc_draws, gen, draw, update, hyper, large)
+    chunks = _CACHE.pop(key, None)
+    at = 0
+    if chunks is not None and chunks.fits(model, state):
+        chunks.load(model, state)
+    else:
+        old = chunks
+
+        def first():
+            m, s = _iteration(model, state, X, y, mode, _row(idx, 0), _row(mc_draws, 0), gen, draw, update,
+                              hyper if flags[0] else None)
+            c = old if old is not None and old.fits(m, s) else _Chunks(m, s, X, y, mode, idx, mc_draws, gen, draw,
+                                                                        update, hyper, large)
+            c.load(m, s)
+            c.warm |= bool(flags[0])
+            return c
+
+        chunks, at = _on_stream(X.device, first), 1
+        if old is not None and old is not chunks:
+            _drop(old)
+    while len(_CACHE) >= _CACHE_SIZE:
+        _drop(_CACHE.popitem(last=False)[1])
+    _CACHE[key] = chunks
+    while at < n:
+        pattern = chunks.next(flags, at)
+        if pattern is None:
+            chunks.eager(flags, idx, mc_draws, at)
+            at += 1
+            continue
+        chunks.replay(pattern, idx, mc_draws, at)
+        at += len(marks(pattern))
+    return chunks.unload(model, state)
 
 
 def run(model, state, X, y, n, mode, idx, generator=None, mc_draws=None, rng=False, *, draw, update):
@@ -342,32 +494,17 @@ def run(model, state, X, y, n, mode, idx, generator=None, mc_draws=None, rng=Fal
     first step runs eagerly where the carry's layouts or the capture are
     new; the rest are replays of k steps, then of one (module
     docstring)."""
-    if n < 1:
-        return model, state
-    gen = generator if rng else None
-    key = _key(model, state, X, y, mode, idx, mc_draws, gen, draw, update)
-    chunks = _CACHE.pop(key, None)
-    at = 0
-    if chunks is not None and chunks.fits(model, state):
-        chunks.load(model, state)
-    else:
-        old = chunks
+    return _run(model, state, X, y, (False,) * n, mode, idx, generator, mc_draws, rng, draw, update, None,
+                large_pattern(None))
 
-        def first():
-            m, s = _step(model, state, X, y, mode, _row(idx, 0), _row(mc_draws, 0), gen, draw, update)
-            c = old if old is not None and old.fits(m, s) else _Chunks(m, s, X, y, mode, idx, mc_draws, gen, draw,
-                                                                        update)
-            c.load(m, s)
-            return c
 
-        chunks, at = _on_stream(X.device, first), 1
-        if old is not None and old is not chunks:
-            _drop(old)
-    while len(_CACHE) >= _CACHE_SIZE:
-        _drop(_CACHE.popitem(last=False)[1])
-    _CACHE[key] = chunks
-    while at < n:
-        steps = STEPS_PER_GRAPH if n - at >= STEPS_PER_GRAPH else 1
-        chunks.replay(steps, idx, mc_draws, at)
-        at += steps
-    return chunks.unload(model, state)
+def run_hyper(model, state, X, y, flags, mode, idx, generator=None, rng=False, *, draw, update, hyper):
+    """The iterations of a chunk of ``train``'s with hyperparameters to
+    learn: iteration i a step as ``run`` takes it, then, where ``flags[i]``
+    is true, ``hyper(model, state, x_b, y_b)`` on its minibatch; returns
+    (model, state).  The first iteration runs eagerly where the carry's
+    layouts or the capture are new, the first marked one where no graph
+    with a hyperparameter step was captured yet; the rest are replays of
+    the patterns of the model's ``atfrequency`` (module docstring)."""
+    return _run(model, state, X, y, tuple(bool(f) for f in flags), mode, idx, generator, None, rng, draw, update,
+                hyper, large_pattern(model.atfrequency))

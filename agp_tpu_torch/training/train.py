@@ -11,12 +11,14 @@ outside a sharded step), ``vi_steps`` and ``train``'s fast path run the
 chunk through ``training/graphs.py``, the counterpart of the reference's
 ``lax.scan``: on the card as replays of a CUDA graph of
 ``graphs.STEPS_PER_GRAPH`` steps, on the CPU as the same body run
-eagerly.  Every other kind, and ``train`` with a callback, ``verbose >= 2``
-or hyperparameter steps, runs its steps as a plain Python loop with no
-host sync.  ``vi_steps`` and ``train`` also take the indices from the
-caller (``draws``), so that a run can replay another's minibatches; a
-Monte Carlo engine draws its normals with the same generator, and
-``vi_steps`` takes them from the caller (``mc_draws``) too.  A model with an optimiser interleaves a
+eagerly; so does ``train`` with hyperparameters to learn, its iterations
+marked with the reference's schedule (``graphs.run_hyper``).  Every other
+kind, and ``train`` with a callback or ``verbose >= 2``, runs its steps as
+a plain Python loop with no host sync.  ``vi_steps`` and ``train`` also
+take the indices from the caller (``draws``), so that a run can replay
+another's minibatches; a Monte Carlo engine draws its normals with the
+same generator, and ``vi_steps`` takes them from the caller
+(``mc_draws``) too.  A model with an optimiser interleaves a
 hyperparameter step (``training/autotuning.py``) on the same minibatch
 after every ``atfrequency``-th CAVI step, as the reference does.  A VGP
 trains on its own data; a GP takes one analytic refresh an iteration
@@ -253,6 +255,31 @@ def _captured_steps(model, state, X, y, n, draws, generator, mc_draws=None):
                       draw=_step_batch, update=_vi_update)
 
 
+def _hyper_update(model, state: TrainState, x_b, y_b):
+    """The hyperparameter step that follows a marked iteration's CAVI step
+    on its minibatch: ``autotuning.hyper_step``."""
+    return autotuning.hyper_step(model, state, x_b, y_b)
+
+
+def _hyper_marks(model, first: int, n: int, iterations: int) -> list:
+    """Whether iterations first .. first + n - 1 of a run of ``iterations``
+    take a hyperparameter step: i a multiple of ``model.atfrequency``, i >=
+    3 and not the last, the reference's schedule."""
+    return [i % model.atfrequency == 0 and i >= 3 and i != iterations for i in range(first, first + n)]
+
+
+def _captured_iterations(model, state, X, y, marks, draws, generator):
+    """The iterations of a model that ``graphs.takes`` with
+    hyperparameters to learn, through ``graphs.run_hyper``: iteration i a
+    CAVI step, then a hyperparameter step on its minibatch where
+    ``marks[i]``; the chunk's indices drawn here in one call, a Monte Carlo
+    engine's normals inside the captured step from ``generator``."""
+    mode, idx = _chunk_draws(model, X, len(marks), draws, generator)
+    rng = model.inference.name == "MCIntegrationVI"
+    return graphs.run_hyper(model, state, X, y, marks, mode, idx, generator, rng, draw=_step_batch,
+                            update=_vi_update, hyper=_hyper_update)
+
+
 def vi_steps(model, state: TrainState, X, y, n: int, draws=None, generator=None, mc_draws=None):
     """n iterations of the model's engine; returns (model, state).
     ``draws`` and ``generator`` give the minibatches as ``_chunk_draws``
@@ -305,11 +332,13 @@ def train(
     moves by less than ``conv_eps`` an iteration over a window of
     ``conv_check_every`` steps, on a fresh minibatch when stochastic; it is
     checked only without hyperparameter steps, callback or ``verbose >= 2``
-    and costs one ELBO (a host read) a window.  Without any of these (the
-    fast path, for more than one iteration) the steps run back to back
-    with no host read, in chunks of ``_CHUNK`` (or of ``conv_check_every``)
-    through ``graphs.run`` for a model that ``graphs.takes``: replays of
-    captured CUDA graphs on the card.  Ctrl-C returns the model
+    and costs one ELBO (a host read) a window.  Without a callback or
+    ``verbose >= 2`` (the fast path, for more than one iteration) the
+    iterations run back to back with no host read, in chunks of ``_CHUNK``
+    (or of ``conv_check_every``), for a model that ``graphs.takes``
+    through ``graphs.run`` (CAVI steps alone) or ``graphs.run_hyper``
+    (with hyperparameter steps): replays of captured CUDA graphs on the
+    card.  Ctrl-C returns the model
     and state trained so far.  An online model raises ``TypeError``: it
     trains with ``online_train``; so does a multi-output one: ``mo_train``."""
     if isinstance(model, GP):
@@ -344,8 +373,8 @@ def train(
         state = init_state(model, X, y)
     generator = _default_generator(X.device) if generator is None else generator
     do_hyper = model.optimiser is not None
-    fast = callback is None and verbose < 2 and not do_hyper and iterations > 1
-    check = conv_eps > 0 and fast
+    fast = callback is None and verbose < 2 and iterations > 1
+    check = conv_eps > 0 and fast and not do_hyper
     captured = fast and graphs.takes(model)
     chunk = conv_check_every if check else _CHUNK
     prev = None
@@ -355,7 +384,10 @@ def train(
         while done < iterations:
             n = min(chunk, iterations - done)
             rows = None if draws is None else draws[done:done + n]
-            if captured:
+            if captured and do_hyper:
+                marks = _hyper_marks(model, done + 1, n, iterations)
+                model, state = _captured_iterations(model, state, X, y, marks, rows, generator)
+            elif captured:
                 model, state = _captured_steps(model, state, X, y, n, rows, generator)
             else:
                 for i, (x_b, y_b) in enumerate(_minibatches(model, X, y, n, rows, generator), start=done + 1):
@@ -363,7 +395,7 @@ def train(
                     state = state.replace(step=state.step + 1)
                     if callback is not None:
                         callback(model, state, i)
-                    if do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations:
+                    if do_hyper and _hyper_marks(model, i, 1, iterations)[0]:
                         model, state = autotuning.hyper_step(model, state, x_b, y_b)
                     if verbose >= 2:
                         e = objective(model, state, *_fresh_batch(model, X, y, generator))

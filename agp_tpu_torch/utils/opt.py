@@ -35,6 +35,14 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def init_on(opt: GradientTransformation, params, device):
+    """``opt.init(params)`` with every tensor of the state on ``device``: a
+    group with no leaf (a ``ZeroMean``'s) gives its rule nothing to take
+    the device from, and its count must live where the model's steps run
+    (a captured graph replays no CPU op)."""
+    return tree_map(lambda t: t.to(device), opt.init(params))
+
+
 def ascent_update(opt: GradientTransformation, opt_state, params, grads):
     """Apply an ASCENT step (the ELBO is maximized): returns
     (new_opt_state, updates_to_add).  ``grads`` is a tuple of tensors (the
@@ -147,7 +155,7 @@ def sgd(lr: float, momentum: float = 0.0) -> GradientTransformation:
 
 def _adam_init(params):
     leaves = list(params.values()) if isinstance(params, dict) else [params]
-    device = leaves[0].device if leaves else None  # no leaf (ZeroMean): the count stays on the CPU
+    device = leaves[0].device if leaves else None  # no leaf (ZeroMean): on the CPU until ``init_on`` moves it
     return {
         "count": torch.zeros((), dtype=torch.int32, device=device),
         "mu": tree_map(torch.zeros_like, params),

@@ -91,8 +91,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    a step and of kernel 6 a hyperparameter step), and path B,
    logistic_m512_b65536 (kernel 6 twice and kernel 7 once an iteration),
    each with its floor, moved and finite log-hyperparameters and its
-   steady rate; then 20 iterations of each on the card against the CPU,
-   against each path's own float32 noise;
+   steady rate (captured iterations since phase 57's slice; path A's eager
+   and captured rates early in the process, against the end's); then 20
+   iterations of each on the card against the CPU, against each path's own
+   float32 noise;
 16. kernels 8-9 (the bench's fused variants): each variant against its
    plain version at the flagship's B=4096, D=20, M=64, a ragged B=300 with
    M=128, the sweep's four rows (B=262,144, M=128; B=8192, M=512;
@@ -358,11 +360,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    flagship's capture at k = 1, 10 and 50 (capture time, memory, it/s);
    each route's peak memory, eager and captured (``graphs`` runs it
    alone).  The whole run takes it right after phase 4, and at its end
-   the flagship's eager and captured rates again, against phase 4's.
+   the flagship's eager and captured rates again, against phase 4's;
+57. captured hyperparameter iterations (``graphs.run_hyper``): each route
+   of ``hyper_graph_routes`` (path A; path B; the flagship with a learnt
+   ConstantMean and Z; the bench's multiclass and heteroscedastic models
+   with Adam; path 42; path 30h; float64 logistic_m512 with Adam; path A
+   at atfrequency 3) from a fresh state for k + 4 iterations through
+   ``agt.train`` (iteration 1 eager, 2 on the unmarked graph, 3 the eager
+   hyperparameter warm-up, a replay of k marked iterations, the unmarked
+   last) on the eager loop and on captured graphs from generators of one
+   seed: every leaf of the model and the state bit-equal, each run's
+   launches exact, a replay of the large pattern credited its launches and
+   a profiled replay's kernels on the device as many, the captures and the
+   replays under ``torch.cuda.set_sync_debug_mode("error")``, each run's
+   peak memory and the large pattern's capture ms; the eager and captured
+   it/s, idle shares and launches of paths A, B and 42; path A's capture
+   at k = 1 and 10 (``graphs-hyper`` runs it alone).  The whole run takes
+   it right after phase 56, and at its end path A's eager and captured
+   rates again, against phase 15's.
 
 Since phase 56's slice, ``vi_steps`` and ``train``'s fast path run every
-sparse model as captured chunks, so every phase that trains one replays
-CUDA graphs; each wrapper's launch count is credited by replays.
+sparse model as captured chunks, and since phase 57's ``train`` with
+hyperparameters to learn too, so every phase that trains one replays CUDA
+graphs; each wrapper's launch count is credited by replays.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase's wall time is logged, then all of them and the total.  Prints
@@ -426,7 +446,7 @@ over NCCL, one process on each card of a machine with 2 or 4),
 ``slice-tail-cpu`` (phase 53's paths at world 1 in float64 on the host's
 CPU, no card needed: what SLICE_TAIL_FLOORS comes from),
 ``float64`` (phases 46-49 alone, after the SASS and shared-memory checks),
-``graphs`` (phase 56 alone).
+``graphs`` (phase 56 alone), ``graphs-hyper`` (phase 57 alone).
 ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
@@ -2322,6 +2342,10 @@ def phase_hyper_path(agt, ck, device, which):
     model, state = agt.train(model, X, y, iterations=timed, state=state, generator=gen)
     torch.cuda.synchronize()
     ips = timed / (time.perf_counter() - t0)
+    if which == "A":
+        EARLY_PATH_A.update(path_a_rates(agt, model, state, X, y))
+        log(f"path A early in the process: eager {EARLY_PATH_A['eager_ips']:.1f} it/s, captured "
+            f"{EARLY_PATH_A['captured_ips']:.1f} it/s")
     k = model.kernel
     log(f"{name}: {steps} iterations through agp_tpu_torch.train in {train_s:.3f} s, {launches} launches, "
         f"training accuracy {acc:.4f}, log-hyperparameters moved by {moved:.4f} (lengthscale "
@@ -8322,16 +8346,18 @@ DEVICE_KERNELS = (
 REPLAY_ROWS = {}
 
 
-def check_replay_launches(ck, label, fn):
-    """Profiles ``fn()``, which must replay the latest capture's graph of k
-    steps once and launch nothing else of kernels 1-7: the counters must
-    rise by exactly the launches that capture credits a replay, and the
-    device must run each of DEVICE_KERNELS as many times as those credits
-    say, so that the counts credited by replays are measured.  Returns the
-    device's counts."""
+def check_replay_launches(ck, label, fn, pattern=None):
+    """Profiles ``fn()``, which must replay the latest capture's graph of
+    ``pattern`` (k steps when None; a graph of marked iterations, phase 57)
+    once and launch nothing else of kernels 1-7: the counters must rise by
+    exactly the launches that capture credits a replay, and the device must
+    run each of DEVICE_KERNELS as many times as those credits say, so that
+    the counts credited by replays are measured.  Returns the device's
+    counts."""
     from agp_tpu_torch.training import graphs
 
-    k, chunks = graphs.STEPS_PER_GRAPH, graphs.latest()
+    chunks = graphs.latest()
+    k = graphs.STEPS_PER_GRAPH if pattern is None else pattern
     credited = {name + ("_f64" if attr == "launches_f64" else ""): n
                 for (name, attr), n in chunks.launches[k].per_replay.items()}
     replays, replay = [], chunks.replay
@@ -8343,8 +8369,9 @@ def check_replay_launches(ck, label, fn):
         del chunks.replay
     after = launch_counts(ck)
     rose = {name: n - before.get(name, 0) for name, n in after.items() if n != before.get(name, 0)}
+    what = f"{k} steps" if isinstance(k, int) else f"{len(k)} iterations with {sum(k)} hyperparameter steps"
     if graphs.latest() is not chunks or replays != [k] or rose != credited:
-        raise AssertionError(f"{label}: the profiled call was not one replay of {k} steps: replays {replays}, "
+        raise AssertionError(f"{label}: the profiled call was not one replay of {what}: replays {replays}, "
                              f"counters rose by {rose}, a replay credits {credited}")
     REPLAY_ROWS[label] = p["rows"]
     device = {pattern: round(sum(count for _, count, key in p["rows"] if re.search(rf"\b({pattern})\b", key)))
@@ -8354,9 +8381,9 @@ def check_replay_launches(ck, label, fn):
         os.makedirs("_chip", exist_ok=True)
         with open("_chip/replay_profiles.json", "w") as f:
             json.dump(REPLAY_ROWS, f)
-        raise AssertionError(f"{label}: a replay of {k} steps ran {device} on the device; its credits say {want} "
+        raise AssertionError(f"{label}: a replay of {what} ran {device} on the device; its credits say {want} "
                              "(each label's profiled kernels: _chip/replay_profiles.json)")
-    log(f"{label}: a profiled replay of {k} steps ran {({q: n for q, n in device.items() if n})} on the device, as "
+    log(f"{label}: a profiled replay of {what} ran {({q: n for q, n in device.items() if n})} on the device, as "
         f"credited")
     return device
 
@@ -8574,7 +8601,305 @@ def phase_graphs_late(agt, device):
     early = EARLY_FLAGSHIP
     log(f"graphs flagship early (phase 4) / late (the end) in one process: eager {early['eager_ips']:.1f} / "
         f"{late['eager_ips']:.1f} it/s, captured {early['captured_ips']:.1f} / {late['captured_ips']:.1f} it/s")
-    return {"early": dict(early), "late": late}
+    out = {"early": dict(early), "late": late}
+    if EARLY_PATH_A:  # the whole smoke: phase 15 ran
+        model, state = agt.train(hyper_path(agt, X, "A"), X, y, iterations=50,
+                                 generator=torch.Generator(device=device).manual_seed(0))
+        late_a = path_a_rates(agt, model, state, X, y)
+        graphs.clear()
+        log(f"graphs path A early (phase 15) / late (the end) in one process: eager "
+            f"{EARLY_PATH_A['eager_ips']:.1f} / {late_a['eager_ips']:.1f} it/s, captured "
+            f"{EARLY_PATH_A['captured_ips']:.1f} / {late_a['captured_ips']:.1f} it/s")
+        out["path A"] = {"early": dict(EARLY_PATH_A), "late": late_a}
+    return out
+
+
+# ------------------------ captured hyperparameter iterations (phase 57)
+# the rate routes of phase 57: (eager iterations, captured iterations), each
+# window one run of the reference's schedule (its iterations 1-2 and its
+# last without a hyperparameter step), timed on the host's clock after a
+# warm-up, ending in a synchronize
+HYPER_RATE_ITERATIONS = {"path A": (300, 2000), "path B": (60, 300), "path 42": (200, 1000)}
+# path A's eager and captured rates early in the process (phase 15), beside
+# the end's (ROADMAP.md queue 3 item 4)
+EARLY_PATH_A = {}
+
+
+def z_and_mean_model(agt, X):
+    """The flagship with a ConstantMean and the default Adam on the kernel
+    and the mean, and Adam(0.01) on Z: a hyperparameter step rewrites the
+    mean and Z, and the kmat from the new Z."""
+    return agt.SVGP.create(agt.SqExponentialKernel(lengthscale=2.0, variance=1.0), agt.LogisticLikelihood.create(),
+                           agt.AnalyticSVI(B, minibatch_sampling="block"), X[:M], mean=agt.ConstantMean(0.0),
+                           optimiser="default", Zoptimiser=agt.adam(0.01))
+
+
+def hyper_graph_routes(agt, device):
+    """Phase 57's routes, by label: (data (X, y), model with its optimisers,
+    launches of n iterations with h hyperparameter steps).  Path A (kernel
+    1 a CAVI step, kernel 6's forward a hyperparameter step), path B
+    (kernels 6 + 7, then 6), the flagship with a learnt mean and Z, the
+    bench's multiclass (K=10) and heteroscedastic models with Adam
+    (kernels 2 or 3, then 4), path 42 (kernel 7, the plain kappa in both
+    steps), path 30h (quadrature: kernels 6 + 7, then 6), float64
+    logistic_m512 with Adam (kernels 6 + 7 in float64, then 6), path A at
+    atfrequency 3."""
+    def fused(name="fused_cavi_stats", hyper="fused_kappa"):
+        return lambda n, h: {name: n, hyper: h}
+
+    single = lambda n, h: route_launches(n, "single", hyper_steps=h)  # noqa: E731
+    flagship = lambda: flagship_data(device)  # noqa: E731
+    return {
+        "path A": (flagship, lambda X: hyper_path(agt, X, "A"), fused()),
+        "path B": (lambda: big_logistic_data(device), lambda X: hyper_path(agt, X, "B"), single),
+        "Z and mean": (flagship, lambda X: z_and_mean_model(agt, X), fused()),
+        "multiclass": (lambda: mc_data(device), lambda X: multi_model(agt, X, "multiclass").replace(
+            optimiser=agt.adam(0.01)), fused("fused_cavi_stats_multiclass", "fused_kappa_moments_batched")),
+        "het": (lambda: het_data(device), lambda X: multi_model(agt, X, "het").replace(optimiser=agt.adam(0.01)),
+                fused("fused_cavi_stats_het", "fused_kappa_moments_batched")),
+        "path 42": (flagship, lambda X: path42_model(agt, X), lambda n, h: {"cavi_stats": n}),
+        "path 30h": (flagship, lambda X: quad_model(agt, X, optimiser="default"), single),
+        "float64 logistic_m512": (lambda: tuple(a.double() for a in big_logistic_data(device)),
+                                  lambda X: hyper_path(agt, X, "B"),
+                                  lambda n, h: route_launches(n, "single", hyper_steps=h, f64=True)),
+        "path A atfrequency 3": (flagship, lambda X: hyper_path(agt, X, "A").replace(atfrequency=3), fused()),
+    }
+
+
+def hyper_marks(model, n):
+    """The reference's schedule over a run of n iterations: whether each
+    takes a hyperparameter step."""
+    from agp_tpu_torch.training import train as ttrain
+
+    return ttrain._hyper_marks(model, 1, n, n)
+
+
+def all_leaves(model, state):
+    from agp_tpu_torch.utils.tensors import named_leaves
+
+    return dict(named_leaves(model, "model") + named_leaves(state, "state"))
+
+
+def hyper_route_check(agt, ck, device, label, n=None):
+    """One route of phase 57: n iterations (k + 4 when None: iteration 1
+    eager, 2 on the unmarked graph, 3 the eager hyperparameter warm-up,
+    then at atfrequency 1 one replay of k marked iterations and the last
+    on the unmarked graph) through ``agt.train`` from a fresh state on the
+    eager loop and on captured graphs (the captures and every replay
+    under ``sync_errors``), from generators of one seed: every leaf of the
+    model and the state bit-equal, each run's launches exact, a replay of
+    the large pattern credited its launches and a profiled replay's
+    kernels on the device as many (``check_replay_launches``); each run's
+    peak device memory.  ``sync_errors`` covers ``graphs.run_hyper``:
+    ``train`` treats the labels on the host before it.  Returns (model, state, X, y) as the captured run
+    left them, the peaks in MB and the large pattern's capture ms."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.training import train as ttrain
+
+    k = graphs.STEPS_PER_GRAPH
+    n = k + 4 if n is None else n
+    data, build, want = hyper_graph_routes(agt, device)[label]
+    X, y = data()
+    model = build(X)
+    state = agt.init_state(model, X)
+    marks = hyper_marks(model, n)
+    h = sum(marks)
+    expected = {name: v for name, v in want(n, h).items() if v}
+    reset_launches(ck)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    memory = {"before_mb": torch.cuda.memory_allocated() / 2**20}
+    with eager_loop():
+        me, se = agt.train(model, X, y, iterations=n, state=state,
+                           generator=torch.Generator(device=device).manual_seed(3))
+    torch.cuda.synchronize()
+    memory["eager_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    if launch_counts(ck) != expected:
+        raise AssertionError(f"{label} eager: launched {launch_counts(ck)}, expected {expected}")
+    eager = all_leaves(me, se)
+    graphs.clear()
+    reset_launches(ck)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device)
+    run_hyper = graphs.run_hyper
+
+    def guarded(*args, **kw):  # train's label treatment reads the host, before the iterations
+        with sync_errors():
+            return run_hyper(*args, **kw)
+
+    graphs.run_hyper = guarded
+    try:
+        mc, sc = agt.train(model, X, y, iterations=n, state=state, generator=gen.manual_seed(3))
+    finally:
+        graphs.run_hyper = run_hyper
+    torch.cuda.synchronize()
+    memory["captured_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    launches = expect_launches(ck, f"{label} captured", want(n, h))
+    captured = all_leaves(mc, sc)
+    differ = {p: float((captured[p].double() - t.double()).abs().max()) for p, t in eager.items()
+              if not bit_equal(captured[p], t)}
+    if differ or captured.keys() != eager.keys():
+        raise AssertionError(f"{label}: the captured iterations differ from the eager loop after {n} iterations "
+                             f"({h} hyperparameter steps): {differ}")
+    if not finite_state(sc):
+        raise AssertionError(f"{label}: non-finite posterior")
+    chunks = graphs.latest()
+    large = graphs.large_pattern(model.atfrequency)
+    lm = graphs.marks(large)
+    per_replay = {name + ("_f64" if attr == "launches_f64" else ""): v
+                  for (name, attr), v in chunks.launches[large].per_replay.items()}
+    if per_replay != {name: v for name, v in want(len(lm), sum(lm)).items() if v}:
+        raise AssertionError(f"{label}: a replay of {large} credits {per_replay}, expected {want(len(lm), sum(lm))}")
+    check_replay_launches(ck, f"graphs-hyper {label}", lambda: ttrain._captured_iterations(
+        mc, sc, chunks.X, chunks.y, list(lm), None, gen), large)
+    capture_ms = chunks.capture_seconds[large] * 1e3
+    patterns = sorted(str(p) if isinstance(p, int) else f"{len(p)} iterations, {sum(p)} marked"
+                      for p in chunks.graphs)
+    log(f"graphs-hyper {label}: {n} iterations ({h} hyperparameter steps) captured bit-equal to the eager loop "
+        f"({len(eager)} leaves), launches {launches} ({per_replay} a replay of the large pattern), graphs "
+        f"{patterns}, sync debug 'error' clean, capture of the large pattern {capture_ms:.1f} ms, peak memory eager "
+        f"{memory['eager_mb']:.1f} / captured {memory['captured_mb']:.1f} MB (before {memory['before_mb']:.1f})")
+    return mc, sc, X, y, memory, capture_ms
+
+
+def captured_iterations(model, state, n, gen):
+    """n iterations (the reference's schedule over a run of n) of the
+    treated ``model`` from ``state`` on the latest capture's data (X and y
+    as ``train`` treated them): ``train``'s captured branch without its
+    label treatment, which makes new labels at each call and so a capture
+    of their own."""
+    from agp_tpu_torch.training import graphs
+    from agp_tpu_torch.training import train as ttrain
+
+    chunks = graphs.latest()
+    return ttrain._captured_iterations(model, state, chunks.X, chunks.y, hyper_marks(model, n), None, gen)
+
+
+def hyper_rates(agt, label, model, state, X, y, eager_n, n):
+    """A hyperparameter route's eager and captured iterations/s (each
+    window a run from ``state`` after a warm-up: ``train`` on the eager
+    loop, ``captured_iterations`` on the route check's capture), host us
+    an iteration takes to enqueue, and a profiled window of each (2 k + 4
+    iterations): idle share, launches an iteration, device kernels an
+    iteration.  Returns the numbers."""
+    from agp_tpu_torch.training import graphs
+
+    k = graphs.STEPS_PER_GRAPH
+    gen = torch.Generator(device=X.device).manual_seed(4)
+
+    def run(iterations):
+        return agt.train(model, X, y, iterations=iterations, state=state, generator=gen)
+
+    def run_captured(iterations):
+        return captured_iterations(model, state, iterations, gen)
+
+    w = 2 * k + 4
+    with eager_loop():
+        run(5)
+        eager, _ = timed_steps(lambda: run(eager_n), eager_n)
+        p_eager = profile_window(lambda: run(w), w)
+    run_captured(k + 4)
+    captured, enqueued = timed_steps(lambda: run_captured(n), n)
+    p_graph = profile_window(lambda: run_captured(w), w)
+    out = {"eager_ips": eager, "captured_ips": captured, "speedup": captured / eager,
+           "host_us_per_iteration": enqueued / n * 1e6, "eager_idle": p_eager["idle_share"],
+           "captured_idle": p_graph["idle_share"], "eager_launches_per_iteration": p_eager["launches"],
+           "captured_launches_per_iteration": p_graph["launches"], "kernels_per_iteration": p_graph["ops"],
+           "eager_wall_us": p_eager["wall_us"], "eager_busy_us": p_eager["busy_us"],
+           "captured_wall_us": p_graph["wall_us"], "captured_busy_us": p_graph["busy_us"],
+           "captured_idle_unprofiled": 1.0 - p_graph["busy_us"] * captured / 1e6}
+    log(f"graphs-hyper {label} rates: eager {eager:.1f} it/s (idle {out['eager_idle']:.4f}, "
+        f"{out['eager_launches_per_iteration']:.1f} launches an iteration), captured {captured:.1f} it/s (idle "
+        f"{out['captured_idle']:.4f} profiled, {out['captured_idle_unprofiled']:.4f} by the unprofiled "
+        f"iteration's {1e6 / captured:.1f} us against {out['captured_busy_us']:.1f} busy, "
+        f"{out['kernels_per_iteration']:.1f} kernels an iteration, host {out['host_us_per_iteration']:.1f} us an "
+        f"iteration), x{out['speedup']:.2f}")
+    return out
+
+
+def path_a_rates(agt, model, state, X, y):
+    """Path A's eager and captured iterations/s over HYPER_RATE_ITERATIONS'
+    windows, each a run from ``state`` after a warm-up (``train`` on the
+    eager loop, ``captured_iterations``), phase 15 early in the process and
+    the end late."""
+    from agp_tpu_torch.training import graphs
+
+    eager_n, n = HYPER_RATE_ITERATIONS["path A"]
+    gen = torch.Generator(device=X.device).manual_seed(5)
+
+    def run(iterations):
+        return agt.train(model, X, y, iterations=iterations, state=state, generator=gen)
+
+    with eager_loop():
+        run(5)
+        eager, _ = timed_steps(lambda: run(eager_n), eager_n)
+    run(graphs.STEPS_PER_GRAPH + 4)  # a capture of the labels as train treats them
+    captured_iterations(model, state, graphs.STEPS_PER_GRAPH + 4, gen)
+    captured, _ = timed_steps(lambda: captured_iterations(model, state, n, gen), n)
+    return {"eager_ips": eager, "captured_ips": captured}
+
+
+def phase_graphs_hyper(agt, ck, device):
+    """Phase 57: each route of ``hyper_graph_routes`` by
+    ``hyper_route_check`` (captured iterations bit-equal to the eager loop,
+    exact launches matched by a profiled replay, sync debug clean, peak
+    memory, capture ms); the rate routes' eager and captured it/s, idle
+    shares and launches (``hyper_rates``); the large pattern's capture at
+    k = 1 and k = STEPS_PER_GRAPH for path A (capture ms, memory reserved,
+    it/s).  Returns the numbers.  The whole smoke runs it right after phase
+    56, early in the process (ROADMAP.md queue 3 item 10)."""
+    from agp_tpu_torch.training import graphs
+
+    out = {"routes": {}, "rates": {}, "memory": {}, "capture_ms": {}}
+    for label in hyper_graph_routes(agt, device):
+        t0 = time.perf_counter()
+        model, state, X, y, out["memory"][label], out["capture_ms"][label] = hyper_route_check(agt, ck, device,
+                                                                                               label)
+        out["routes"][label] = time.perf_counter() - t0
+        if label in HYPER_RATE_ITERATIONS:
+            out["rates"][label] = hyper_rates(agt, label, model, state, X, y, *HYPER_RATE_ITERATIONS[label])
+            if label == "path A":
+                out["k_sweep"] = hyper_k_sweep(agt, model, state, X, y)
+        del model, state, X, y
+        graphs.clear()
+        reset_launches(ck)
+    log(f"graphs-hyper: {json.dumps(out)}")
+    return out
+
+
+def hyper_k_sweep(agt, model, state, X, y, ks=(1, 10)):
+    """Path A's captures at each k of ``ks``: the large pattern's capture
+    ms, the device memory the run's captures reserve (memory_reserved
+    after the first train call against before, the caches emptied), the
+    peak allocated, and the rate over HYPER_RATE_ITERATIONS' captured
+    window."""
+    from agp_tpu_torch.training import graphs
+
+    out, k0 = {}, graphs.STEPS_PER_GRAPH
+    n = HYPER_RATE_ITERATIONS["path A"][1]
+    try:
+        for k in ks:
+            graphs.STEPS_PER_GRAPH = k
+            graphs.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_reserved()
+            gen = torch.Generator(device=X.device).manual_seed(6)
+            agt.train(model, X, y, iterations=k + 4, state=state, generator=gen)
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved() - before
+            ips, _ = timed_steps(lambda: captured_iterations(model, state, n, gen), n)
+            out[k] = {"capture_ms": graphs.latest().capture_seconds[graphs.large_pattern(1)] * 1e3,
+                      "reserved_mb": reserved / 2**20, "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
+                      "ips": ips}
+            log(f"graphs-hyper path A k={k}: capture of the large pattern {out[k]['capture_ms']:.1f} ms, reserved "
+                f"{out[k]['reserved_mb']:.1f} MB, peak allocated {out[k]['peak_mb']:.1f} MB, {ips:.1f} it/s over {n} "
+                "iterations")
+    finally:
+        graphs.STEPS_PER_GRAPH = k0
+        graphs.clear()
+    return out
 
 
 PHASE_SECONDS = {}
@@ -8732,6 +9057,9 @@ def main():
     if args == ["graphs"]:
         timed_phase("captured chunks", phase_graphs, agt, ck, device)
         return
+    if args == ["graphs-hyper"]:
+        timed_phase("captured hyperparameter iterations", phase_graphs_hyper, agt, ck, device)
+        return
     if args == ["float64"]:
         timed_phase("tensor-core SASS", check_tc_sass, lib_path)
         timed_phase("kappa tiles", check_kappa_tiles, ck)
@@ -8760,6 +9088,7 @@ def main():
     multi = timed_phase("kernels 2-3 vs plain", phase_multi_kernels_vs_plain, ck, device)
     timed_phase("flagship path", phase_main_path, agt, ck, device)
     timed_phase("captured chunks", phase_graphs, agt, ck, device)
+    timed_phase("captured hyperparameter iterations", phase_graphs_hyper, agt, ck, device)
     LAUNCHES["fused_cavi_stats"] += timed_phase("Student-t rate (child)", studentt_rate_first_in_process)
     timed_phase("oracle and flagship parity", phase_oracle_and_parity, agt, device)
     for which in ("multiclass", "het"):

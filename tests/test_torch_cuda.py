@@ -1490,6 +1490,18 @@ def test_cuda_captured_chunk_matches_eager(cuda_device, label):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("label", list(smoke.hyper_graph_routes(agt, torch.device("cpu"))))
+def test_cuda_captured_hyper_matches_eager(cuda_device, label):
+    """Phase 57's check of one route (``chip_smoke.hyper_route_check``):
+    k + 4 iterations of ``train`` with hyperparameter steps on captured
+    graphs bit-equal to the eager loop from generators of one seed, each
+    run's launches exact, a replay of the large pattern credited its
+    launches and a profiled replay's kernels on the device as many,
+    ``graphs.run_hyper`` under sync debug "error"."""
+    smoke.hyper_route_check(agt, ck, cuda_device, label)
+
+
+@pytest.mark.cuda
 def test_cuda_captured_chunks_reused_with_remainders(cuda_device):
     """Two calls of 2 k + 3 steps at a small flagship shape: the second
     takes the first's capture (no warm-up step, no new capture), the
