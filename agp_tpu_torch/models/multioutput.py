@@ -20,6 +20,13 @@ kernels 6 + 7 for one (``fused_kappa``, ``cavi_stats``), or for a kernel
 outside ``FUSED_KINDS`` the plain kappa and kernel 5 or 7; a multi-output
 model never takes a fused pass.  The mixing, the E-steps and the A step are
 plain PyTorch at full FP32.  A step reads nothing back to the host.
+
+``mo_train``'s fast path (no callback, ``verbose < 2``) runs its CAVI
+steps, and with hyperparameters to learn its iterations, through
+``training/graphs.py``, the counterpart of the reference's ``_mo_steps``
+scan and its ``_mo_step`` / ``_mo_hyper_step`` programs: on the card as
+replays of captured CUDA graphs, kernels 4 + 5 (or 6 + 7) inside, the A
+step and each task's likelihood carried from one replay to the next.
 """
 from __future__ import annotations
 
@@ -34,10 +41,10 @@ from ..inference.config import AnalyticVI, InferenceConfig
 from ..means import PriorMean, ZeroMean
 from ..ops import linalg
 from ..ops.kl import gaussian_kl
-from ..training import autotuning
+from ..training import autotuning, graphs
 from ..training.predictions import _chunk_map, _predict_f_var
 from ..training.state import TrainState, init_var_posterior
-from ..training.train import _CHUNK
+from ..training.train import _CHUNK, _hyper_marks, _hyper_update
 from ..utils.batch_sums import batch_sum
 from ..utils.opt import adam, ascent_update
 from ..utils.tensors import Params
@@ -349,24 +356,70 @@ def mo_init_state(model, X, ys=None) -> TrainState:
     )
 
 
-def _mo_batches(model, X, ys, n: int, draws=None, generator=None):
-    """The minibatches (x_b, ys_b) of n steps, in order: iid rows drawn with
-    replacement, whatever the engine's ``minibatch_sampling``, as the
-    reference's ``_mo_draw_batch`` draws them: ``draws`` ([n, B] row
-    indices on X's device) or drawn with ``generator`` in one call; (X, ys)
-    itself for a full-batch model."""
+def _mo_draws(model, X, n: int, draws=None, generator=None):
+    """The row indices [n, B] of n stochastic steps: iid with replacement,
+    whatever the engine's ``minibatch_sampling``, as the reference's
+    ``_mo_draw_batch`` draws them: ``draws`` ([n, B] on X's device),
+    checked, or drawn with ``generator`` in one call; None for a
+    full-batch model."""
     if not model.inference.stochastic:
-        for _ in range(n):
-            yield X, ys
-        return
+        return None
     b = model.inference.batchsize
     if draws is None:
-        draws = torch.randint(0, X.shape[0], (n, b), generator=generator, device=X.device)
-    elif tuple(draws.shape) != (n, b) or draws.device != X.device:
+        return torch.randint(0, X.shape[0], (n, b), generator=generator, device=X.device)
+    if tuple(draws.shape) != (n, b) or draws.device != X.device:
         raise ValueError(f"draws must have shape {(n, b)} on {X.device}; got {tuple(draws.shape)} on {draws.device}")
+    return draws
+
+
+def _mo_batch(model, X, ys, mode, idx):
+    """One step's minibatch (x_b, ys_b) from its row indices, or (X, ys)
+    itself for a full-batch model (``mode`` None): the draw of a captured
+    step."""
+    if mode is None:
+        return X, ys
+    return X.index_select(0, idx), tuple(y.index_select(0, idx) for y in ys)
+
+
+def _mo_batches(model, X, ys, n: int, draws=None, generator=None):
+    """The minibatches (x_b, ys_b) of n steps, in order, from the indices of
+    ``_mo_draws``; (X, ys) itself for a full-batch model."""
+    idx = _mo_draws(model, X, n, draws, generator)
+    mode = None if idx is None else "gather"
     for i in range(n):
-        idx = draws[i]
-        yield X.index_select(0, idx), tuple(y.index_select(0, idx) for y in ys)
+        yield _mo_batch(model, X, ys, mode, None if idx is None else idx[i])
+
+
+def _mo_update(model, state, x_b, ys_b, generator=None, eps=None):
+    """A captured step's update: ``mo_variational_update``."""
+    return mo_variational_update(model, state, x_b, ys_b)
+
+
+def mo_steps(model, state, X, ys, n: int, draws=None, generator=None, marks=None):
+    """n iterations of a multi-output model on treated labels ``ys`` (as
+    ``mo_train`` treats them), without ``mo_train``'s set-up and its final
+    kmat; returns (model, state).  ``draws`` and ``generator`` give the
+    minibatches as ``_mo_draws`` takes them.  ``marks`` (n booleans, for a
+    model with hyperparameters to learn) says which iterations take a
+    hyperparameter step after their CAVI step, on their minibatch.
+    Outside a sharded step (``graphs.drives``) the iterations run through
+    ``graphs.run``, or with ``marks`` through ``graphs.run_hyper``: replays
+    of captured CUDA graphs on the card; a sharded step runs them as a
+    Python loop."""
+    idx = _mo_draws(model, X, n, draws, generator)
+    mode = None if idx is None else "gather"
+    if graphs.drives(model):
+        if marks is not None:
+            return graphs.run_hyper(model, state, X, ys, marks, mode, idx, draw=_mo_batch, update=_mo_update,
+                                    hyper=_hyper_update)
+        return graphs.run(model, state, X, ys, n, mode, idx, draw=_mo_batch, update=_mo_update)
+    for i in range(n):
+        x_b, ys_b = _mo_batch(model, X, ys, mode, None if idx is None else idx[i])
+        model, state = mo_variational_update(model, state, x_b, ys_b)
+        state = state.replace(step=state.step + 1)
+        if marks is not None and marks[i]:
+            model, state = autotuning.hyper_step(model, state, x_b, ys_b)
+    return model, state
 
 
 def mo_train(
@@ -399,8 +452,13 @@ def mo_train(
     moves by less than ``conv_eps`` an iteration over ``conv_check_every``
     steps (checked only without hyperparameter steps, callback or
     ``verbose >= 2``), both on a fresh batch drawn with ``generator`` when
-    stochastic.  Without any of these the steps run back to back with no
-    host read.  Ctrl-C returns the model and state trained so far."""
+    stochastic.  Without a callback or ``verbose >= 2`` (the fast path,
+    for more than one iteration) the iterations run back to back with no
+    host read, in chunks of ``_CHUNK`` (or of ``conv_check_every``),
+    through ``mo_steps``: on the card as replays of captured CUDA graphs
+    (``graphs.run``, or ``graphs.run_hyper`` with hyperparameter steps),
+    the same minibatches as the loop draws.  Ctrl-C returns the model and
+    state trained so far."""
     X = as_2d(Xs, like=model.Z)
     new_ys, liks = [], []
     for lik, y_t in zip(model.likelihoods, ys):
@@ -421,7 +479,8 @@ def mo_train(
         state = mo_init_state(model, X, ys)
     generator = torch.Generator(device=X.device).manual_seed(0) if generator is None else generator
     do_hyper = model.optimiser is not None
-    check = conv_eps > 0 and callback is None and verbose < 2 and not do_hyper and iterations > 1
+    fast = callback is None and verbose < 2 and iterations > 1
+    check = conv_eps > 0 and fast and not do_hyper
     chunk = conv_check_every if check else _CHUNK
     prev = None
     try:
@@ -429,21 +488,26 @@ def mo_train(
         while done < iterations:
             n = min(chunk, iterations - done)
             rows = None if draws is None else draws[done:done + n]
+            marks = _hyper_marks(model, done + 1, n, iterations) if do_hyper else None
+            if fast:
+                model, state = mo_steps(model, state, X, ys, n, rows, generator, marks)
+                done += n
+                if check:
+                    e = float(mo_elbo(model, state, *_fresh(model, X, ys, generator)))
+                    if prev is not None and abs(e - prev) / n < conv_eps:
+                        break
+                    prev = e
+                continue
             for i, (x_b, ys_b) in enumerate(_mo_batches(model, X, ys, n, rows, generator), start=done + 1):
                 model, state = mo_variational_update(model, state, x_b, ys_b)
                 state = state.replace(step=state.step + 1)
                 if callback is not None:
                     callback(model, state, i)
-                if do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations:
+                if do_hyper and marks[i - done - 1]:
                     model, state = autotuning.hyper_step(model, state, x_b, ys_b)
                 if verbose >= 2:
                     print(f"iter {i}: ELBO = {float(mo_elbo(model, state, *_fresh(model, X, ys, generator))):.6f}")
             done += n
-            if check:
-                e = float(mo_elbo(model, state, *_fresh(model, X, ys, generator)))
-                if prev is not None and abs(e - prev) / n < conv_eps:
-                    break
-                prev = e
     except KeyboardInterrupt:
         warnings.warn("training interrupted by user; returning current state")
     return model, state.replace(kmat=analytic_vi.compute_kmat(model, X))

@@ -24,11 +24,19 @@ reaches no Pallas kernel: the products are plain PyTorch at full FP32
 (TF32 off), which the reference asks for too: invDa = Sigma^-1 - K^-1
 cancels, and at lower precision the stream loses positive-definiteness
 within a few batches.  The moments always take the zero-first ladder
-(``linalg.nat_to_moments_safe``), the reference's path off the TPU.  The
-drivers are Python loops: a batch is its set-up (the first) or its
-prologue (save-old, the inducing update, the masked kernel matrices, fresh
-local variables), then its CAVI iterations, with the hyperparameter step
-interleaved as ``train`` interleaves it.
+(``linalg.nat_to_moments_safe``), the reference's path off the TPU.  A
+batch is its set-up (the first) or its prologue (save-old, the inducing
+update, the masked kernel matrices, fresh local variables), which the host
+runs eagerly (its selection decides on the host), then its CAVI
+iterations, with the hyperparameter step interleaved as ``train``
+interleaves it.  The iterations run through ``training/graphs.py::
+run_batch``, the counterpart of the reference's ``_online_steps``,
+``_online_batch`` and ``_online_stream_scan`` programs (and, with an
+optimiser, of its ``_online_step_jit`` / ``_online_hyper_jit`` calls): on
+the card as replays of captured CUDA graphs of k iterations, the batch's
+data copied into the capture, so that one capture serves every batch of a
+stream of equal batches; a graph records the full-FP32 kernels the
+algebra picks with TF32 off, and a replay changes no setting.
 
 On a mesh (``mesh=``, the reference's batch rows sharded over "data") each
 process takes its rows of every batch as ``parallel.mesh.shard_batch``
@@ -65,7 +73,7 @@ from ..kernels import batch_diag, batch_gram, batch_gram_zz, latent
 from ..likelihoods.base import Likelihood
 from ..means import PriorMean, ZeroMean, batch_call
 from ..ops import linalg
-from ..training import autotuning
+from ..training import autotuning, graphs
 from ..training.state import TrainState, init_var_posterior
 from ..utils import batch_sums
 from ..utils.opt import adam
@@ -364,12 +372,19 @@ def _online_prologue(model: OnlineSVGP, state, X, rows=None, mesh=None):
     )
 
 
+def _update(model: OnlineSVGP, state, x, y, generator=None, eps=None):
+    """A captured iteration's update: ``online_variational_update``."""
+    return online_variational_update(model, state, x, y)
+
+
 def _train_batch(model: OnlineSVGP, state, X, y, iterations: int, mesh=None):
     """One streaming batch (labels treated): its set-up or prologue, then
     ``iterations`` CAVI iterations; with an optimiser, a hyperparameter step
     after iteration i when i is a multiple of ``atfrequency``, i >= 3 and i
-    is not the last, and the kernel matrices refreshed at the end.  On a
-    mesh of several processes each iterates on its rows of the batch
+    is not the last, and the kernel matrices refreshed at the end.  The
+    iterations run through ``graphs.run_batch`` (captured CUDA graphs on
+    the card); on a mesh of several processes, or inside a sharded step,
+    each process iterates eagerly on its rows of the batch
     (``parallel.mesh.shard_batch``), the selection made on the whole."""
     xs, ys, w = X, y, None
     split = mesh is not None and mesh.size > 1
@@ -383,12 +398,17 @@ def _train_batch(model: OnlineSVGP, state, X, y, iterations: int, mesh=None):
     else:
         model, state = _online_prologue(model, state, X, xs.shape[0], mesh)
     do_hyper = model.optimiser is not None
-    for i in range(1, iterations + 1):
-        with batch_sums.sharded(mesh) if split else contextlib.nullcontext():
-            model, state = online_variational_update(model, state, xs, ys, w)
-        state = state.replace(step=state.step + 1)
-        if do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations:
-            model, state = autotuning.hyper_step(model, state, X, y)
+    marks = [do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations for i in range(1, iterations + 1)]
+    if not split and graphs.drives(model):
+        model, state = graphs.run_batch(model, state, X, y, marks, update=_update,
+                                        hyper=autotuning.hyper_step if do_hyper else None)
+    else:
+        for i in range(iterations):
+            with batch_sums.sharded(mesh) if split else contextlib.nullcontext():
+                model, state = online_variational_update(model, state, xs, ys, w)
+            state = state.replace(step=state.step + 1)
+            if marks[i]:
+                model, state = autotuning.hyper_step(model, state, X, y)
     if do_hyper:
         state = state.replace(kmat=masked_kmat(model))
     return model, state
@@ -412,10 +432,12 @@ def online_train(model: OnlineSVGP, X, y, state: TrainState | None = None, itera
     """Train on one streaming batch; thread (model, state) across batches
     (the reference's onlinetraining.jl:36-145).  The first batch
     (``state`` None) selects the inducing set.  X and y without a device go
-    to the model's device, X in its dtype.  With ``mesh`` (a
-    ``parallel.mesh.Mesh``; every process passes the whole batch) each
-    process iterates on its rows, as the module's docstring says; the
-    state's local variables are its rows'."""
+    to the model's device, X in its dtype.  The batch's iterations are
+    replays of captured CUDA graphs on the card (``graphs.run_batch``): a
+    later call with a batch of the same shape replays the same capture.
+    With ``mesh`` (a ``parallel.mesh.Mesh``; every process passes the
+    whole batch) each process iterates eagerly on its rows, as the
+    module's docstring says; the state's local variables are its rows'."""
     mesh = _check_mesh(model, mesh)
     X = as_2d(X, like=model.Z)
     y, lik = model.likelihood.treat_labels(y)
@@ -432,9 +454,11 @@ def online_train_stream(model: OnlineSVGP, X_stream, y_stream, state: TrainState
     """Train on a pre-buffered stream of equal batches, X_stream
     [n_batches, B, D] and y_stream [n_batches, B]: the same batches as
     ``online_train`` called once a batch, in one loop, the labels treated
-    once for the stream; ``mesh`` as ``online_train`` takes it.  Requires
-    optimiser=None (a stream with hyperparameter learning goes batch by
-    batch, as the reference's)."""
+    once for the stream; each batch's iterations replay the one capture of
+    the stream (``graphs.run_batch``), its set-up or prologue eager;
+    ``mesh`` as ``online_train`` takes it.  Requires optimiser=None (a
+    stream with hyperparameter learning goes batch by batch, as the
+    reference's)."""
     mesh = _check_mesh(model, mesh)
     if model.optimiser is not None:
         raise ValueError(

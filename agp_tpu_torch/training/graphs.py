@@ -1,20 +1,26 @@
 """Runs of training iterations as replays of captured CUDA graphs: the
 counterpart of the ``lax.scan`` in ``agp_tpu/training/train.py::_vi_steps``
 and of ``train``'s calls of its ``_vi_step`` and ``_hyper_step``
-programs.
+programs, of ``mo_train``'s ``_mo_steps``, ``_mo_step`` and
+``_mo_hyper_step`` (``agp_tpu/models/multioutput.py``), and of the online
+drivers' ``_online_steps``, ``_online_batch`` and ``_online_stream_scan``
+(``agp_tpu/models/online_svgp.py``).
 
 The reference runs a chunk of n CAVI steps as one device program, with the
 chunk's minibatch indices drawn before the scan, and, with hyperparameters
 to learn, each iteration as one program and each hyperparameter step as
 another.  Here ``run`` takes a chunk whose indices are drawn
-(``training/train.py`` draws them in one call) and, on a CUDA tensor,
-replays a captured graph of ``STEPS_PER_GRAPH`` (k) steps, then a one-step
-graph for the remainder.  ``run_hyper`` takes the chunk's iterations with
-their marks, each a CAVI step followed, where it is marked, by a
-hyperparameter step on the same minibatch (the host lays the reference's
-schedule over the run), and replays graphs of marked iterations.  The host
-makes one graph launch for the iterations of a graph in place of every op
-of every step (91-164 launches a CAVI step on the paths ``PERF.md`` §5
+(``training/train.py`` and ``models/multioutput.py`` draw them in one call)
+and, on a CUDA tensor, replays a captured graph of ``STEPS_PER_GRAPH`` (k)
+steps, then a one-step graph for the remainder.  ``run_hyper`` takes the
+chunk's iterations with their marks, each a CAVI step followed, where it is
+marked, by a hyperparameter step on the same minibatch (the host lays the
+reference's schedule over the run), and replays graphs of marked
+iterations.  ``run_batch`` takes the iterations of one streaming batch
+(``models/online_svgp.py``): the whole batch each iteration, its data
+copied into the capture, the iterations replayed in windows of k.  The
+host makes one graph launch for the iterations of a graph in place of every
+op of every step (91-164 launches a CAVI step on the paths ``PERF.md`` §5
 lists, 540-876 an iteration with a hyperparameter step).
 
 * Patterns.  A graph's body is a fixed sequence of iterations, each marked
@@ -29,25 +35,43 @@ lists, 540-876 an iteration with a hyperparameter step).
   pattern where the marks ahead equal it, else the one-iteration graph of
   the iteration's mark; so at a = 1 a run takes the unmarked graph for
   iterations 1-2 and its last, the marked one next to the last and near
-  the end of a chunk, and the large one for the rest.
+  the end of a chunk, and the large one for the rest.  ``run_batch`` has
+  no large pattern: once a graph with a hyperparameter step may be
+  captured (below), or where no iteration ahead is marked, it replays the
+  pattern of the next k iterations' marks (fewer at the end), so that a
+  streaming batch of n iterations whose carry fits takes ceil(n / k)
+  replays, each batch of a stream the same patterns.
 * The static carry.  A graph reads and writes the addresses it was
   captured with, so every tensor a step reads lives in a buffer of the
   capture:
   - carried: the leaves a step rewrites, the TrainState's (eta1, eta2, mu,
     Sigma, the local variables, opt_state, step, a Student-t prior's
-    scale) and the likelihood's (Poisson's lambda, a learnt Gaussian
-    noise and its rule's state, the heteroscedastic lambda), and, where a
-    hyperparameter step runs, the kernel's and the mean's leaves, Z under
-    a ``Zoptimiser``, the kmat and the optimisers' states
-    (``hyper_state``), each in the layout (strides) a step gives its
-    result.  The captured body ends by copying its results into them, so
-    each replay goes on from the last; a call returns copies of them;
+    scale, a multi-output model's ``A_state``, an online model's
+    ``previous``, which its step reads and returns as it is) and the
+    model's fields of ``_step_fields``: the likelihood's (Poisson's lambda,
+    a learnt Gaussian noise and its rule's state, the heteroscedastic
+    lambda), or a multi-output model's ``likelihoods``, one a task, each
+    with such leaves, and its mixing matrix ``A``, which the A step
+    (``models/multioutput.py::mo_update_A``) steps and projects in every
+    CAVI step under an ``Aoptimiser`` (held, both would be read stale at
+    every replay); and, where a hyperparameter step runs, the kernel's and
+    the mean's leaves, Z under a ``Zoptimiser``, the kmat and the
+    optimisers' states (``hyper_state``), each in the layout (strides) a
+    step gives its result.  The captured body ends by copying its results
+    into them, so each replay goes on from the last; a call returns copies
+    of them;
   - held: the rest of the model (the kernel, the mean and Z where no
-    hyperparameter step runs), the kmat and ``hyper_state`` likewise,
-    rho, each in the caller's layout (part of the key), copied in at each
-    call;
-  - X and y, read in place: the key holds their addresses and the capture
-    a reference to them, so that no copy of the data is made;
+    hyperparameter step runs; an online model's slots, their mask and
+    counts, which its prologue moves between batches), the kmat and
+    ``hyper_state`` likewise, rho, each in the caller's layout (part of
+    the key), copied in at each call;
+  - X and y (a tensor, or a multi-output model's tuple of one a task),
+    read in place by ``run`` and ``run_hyper``: the key holds each
+    tensor's address and strides and the capture a reference to them, so
+    that no copy of the data is made; copied in by ``run_batch``, whose
+    batches are new tensors at each call: the capture holds buffers of
+    their shapes, dtypes and layouts (the key), copied into at each call,
+    so that a stream of equal batches takes one capture;
   - the minibatch indices of a replay's steps ([k, ...]), copied from the
     chunk's before each replay; a Monte Carlo engine's normals, given by
     the caller, likewise, or else drawn inside the graph from the caller's
@@ -84,8 +108,14 @@ lists, 540-876 an iteration with a hyperparameter step).
   kept.  Code that puts another function in a module's attribute the step
   reaches (a plain version in a kernel's place) calls ``clear()`` when it
   does and when it puts the function back.
+* Precision.  A capture records the kernels each op picks under the
+  settings its code enters (``ops/linalg.py::_highest_precision`` turns
+  TF32 off around the online model's algebra and the multi-output
+  mixing); a replay launches those kernels and changes no setting.
 * Launch counts.  ``cuda_kernels.CapturedLaunches`` takes back the counts
-  a capture adds and credits them at each replay.
+  a capture adds and credits them at each replay; ``tally`` counts the
+  iterations run eagerly, the replays, the graphs captured and the static
+  carries made, since the process started.
 * No fallback.  A capture or a replay that fails raises; nothing re-runs
   on the eager loop.
 
@@ -93,8 +123,10 @@ On a CPU tensor the same body runs at each replay (``_EagerGraph``),
 through the same carry, from copies of it (so that a (model, state) a step
 returned keeps its values once a later replay rewrites the carry, as the
 eager loop's do), so that the CPU tests hold it to the reference.
-``takes`` is the rule, by the model's kind, for what runs here; the rest
-runs on ``train``'s eager loop.
+``takes`` is the rule, by the model's kind, for what ``train`` and
+``vi_steps`` run here; the multi-output and online models run here by
+their own drivers (``mo_train``, ``online_train``,
+``online_train_stream``); the rest runs on the eager loops.
 """
 from __future__ import annotations
 
@@ -120,20 +152,36 @@ _CACHE_SIZE = 4
 _CACHE: OrderedDict = OrderedDict()
 # the TrainState's fields a CAVI step reads and never writes
 _HELD_STATE = ("kmat", "rho", "hyper_state")
+# since the process started: iterations run eagerly (a call's first, the
+# hyperparameter warm-up), graph replays, graphs captured, static carries
+# made; a caller reads differences
+tally = {"eager": 0, "replays": 0, "graphs": 0, "carries": 0}
 
 
 def takes(model) -> bool:
     """Whether ``vi_steps`` and ``train``'s fast path run the model's chunks
     here: a sparse model that is neither online nor multi-output, outside a
-    sharded step.  The rest stay on the eager loop: the dense VGP, VStP
-    and GP (their lazy rungs read the host), the online and multi-output
-    models (their own training loops) and a sharded step (its collectives)."""
+    sharded step.  The multi-output and online models run here by their own
+    drivers (``mo_train`` through ``run`` and ``run_hyper``, the streaming
+    drivers through ``run_batch``); the dense VGP, VStP and GP (their lazy
+    rungs read the host) stay on ``train``'s eager loop, and a sharded
+    step (``batch_sums.active()``, or ``mesh=`` of more than one process:
+    its collectives) on its driver's."""
     return (
         getattr(model, "is_sparse", False)
         and not getattr(model, "is_online", False)
         and not getattr(model, "is_multioutput", False)
         and batch_sums.active() is None
     )
+
+
+def drives(model) -> bool:
+    """Whether the multi-output and online models' own drivers
+    (``mo_train`` and ``mo_steps``, ``online_train`` and
+    ``online_train_stream``) run the model's iterations here: outside a
+    sharded step (``batch_sums.active()``; an online batch split over a
+    mesh of more than one process is refused by its driver before)."""
+    return batch_sums.active() is None
 
 
 def _hyper_fields(model) -> tuple:
@@ -144,15 +192,26 @@ def _hyper_fields(model) -> tuple:
     return ("kernel", "mean") + z + ("kmat", "hyper_state")
 
 
-def _carried(path: str, hyper: tuple = ()) -> bool:
+def _step_fields(model) -> tuple:
+    """The model's fields a CAVI step rewrites (module docstring, "The
+    static carry"): a multi-output model's likelihoods and its mixing
+    matrix A, any other model's likelihood."""
+    return ("likelihoods", "A") if getattr(model, "is_multioutput", False) else ("likelihood",)
+
+
+def _fields(model, hyper) -> tuple:
+    """The model's carried fields and the held state fields an iteration
+    rewrites: ``_step_fields``, and ``_hyper_fields`` where a
+    hyperparameter step is given."""
+    return _step_fields(model) + (() if hyper is None else _hyper_fields(model))
+
+
+def _carried(path: str, fields: tuple = ("likelihood",)) -> bool:
     """Whether an iteration rewrites the leaf at ``path`` ("model...." or
-    "state...."): the likelihood's and every state field but the held
-    ones, and the fields of ``hyper`` (``_hyper_fields``, where an
-    iteration takes a hyperparameter step)."""
+    "state...."): the model's and the state's fields in ``fields``
+    (``_fields``) and every state field but the held ones."""
     root, field = path.split(".")[:2]
-    if field in hyper:
-        return True
-    return field == "likelihood" if root == "model" else field not in _HELD_STATE
+    return field in fields or (root == "state" and field not in _HELD_STATE)
 
 
 def marks(pattern) -> tuple:
@@ -205,6 +264,30 @@ def _layout(t: torch.Tensor) -> tuple:
 
 def _leaves(model, state) -> list:
     return named_leaves(model, "model") + named_leaves(state, "state")
+
+
+def _tensors(value) -> tuple:
+    """The data's tensors: y itself, or a multi-output model's tuple of
+    labels."""
+    return tuple(value) if type(value) in (tuple, list) else (value,)
+
+
+def _data_key(value, copied: bool) -> tuple:
+    """The key of the data X or y: each tensor's address and strides where
+    the capture reads it in place, its buffer's layout where it is copied
+    in (shapes and dtypes are in ``_structure``)."""
+    return tuple(_layout(t) if copied else (t.data_ptr(), t.stride()) for t in _tensors(value))
+
+
+def _buffers(value):
+    """Buffers of the data's layouts, in its form (a tensor or a tuple)."""
+    out = tuple(torch.empty_like(t) for t in _tensors(value))
+    return out if type(value) in (tuple, list) else out[0]
+
+
+def _whole_batch(model, X, y, mode, idx):
+    """A streaming iteration's draw: the whole batch."""
+    return X, y
 
 
 def _row(t, i):
@@ -283,24 +366,26 @@ def _on_stream(device, fn):
 class _Chunks:
     """One capture: the static carry (``buf``, by leaf path, and the
     indices and normals of a replay), the model and state built on it, the
-    data it reads in place, the graphs by their patterns and the launches
-    each records.  Built from a (model, state) that an iteration returned,
-    so that each carried buffer takes the step's layout.  ``hyper`` is the
-    hyperparameter step (None: CAVI steps alone), ``large`` the largest
-    graph's pattern, ``warm`` whether an iteration with a hyperparameter
-    step ran eagerly on the carry."""
+    data it reads in place (or, with ``copied``, its buffers of the data),
+    the graphs by their patterns and the launches each records.  Built from
+    a (model, state) that an iteration returned, so that each carried
+    buffer takes the step's layout.  ``hyper`` is the hyperparameter step
+    (None: CAVI steps alone), ``large`` the largest graph's pattern (None:
+    windows of k, ``run_batch``'s), ``warm`` whether an iteration with a
+    hyperparameter step ran eagerly on the carry."""
 
-    def __init__(self, model, state, X, y, mode, idx, mc_draws, rng, draw, update, hyper, large):
+    def __init__(self, model, state, X, y, mode, idx, mc_draws, rng, draw, update, hyper, large, copied=False):
         self.device, self.mode, self.rng, self.draw, self.update = X.device, mode, rng, draw, update
-        self.hyper, self.large, self.warm = hyper, large, False
-        self.fields = () if hyper is None else _hyper_fields(model)
+        self.hyper, self.large, self.warm, self.copied = hyper, large, False, copied
+        self.fields = _fields(model, hyper)
+        tally["carries"] += 1
         leaves = _leaves(model, state)
         self.buf = {p: torch.empty_like(t) for p, t in leaves}
         self.carried = [p for p, _ in leaves if _carried(p, self.fields)]
         self._ids = {id(b) for b in self.buf.values()}
         self.model = map_named(lambda p, t: self.buf[p], model, "model")
         self.state = map_named(lambda p, t: self.buf[p], state, "state")
-        self.X, self.y = X, y
+        self.X, self.y = (_buffers(X), _buffers(y)) if copied else (X, y)
         k = STEPS_PER_GRAPH
         like = dict(device=self.device)
         # zeros: valid indices before the first replay fills them
@@ -317,10 +402,15 @@ class _Chunks:
             (t.shape, t.dtype, _layout(t)) == (b.shape, b.dtype, b.stride())
             for p, t in carried.items() for b in (self.buf[p],))
 
-    def load(self, model, state):
-        """Copies the call's model and state into the carry."""
+    def load(self, model, state, X, y):
+        """Copies the call's model and state into the carry, and its data
+        into the data's buffers where they are ``copied``."""
         leaves = _leaves(model, state)
-        torch._foreach_copy_([self.buf[p] for p, _ in leaves], [t for _, t in leaves])
+        dst, src = [self.buf[p] for p, _ in leaves], [t for _, t in leaves]
+        if self.copied:
+            dst += list(_tensors(self.X) + _tensors(self.y))
+            src += list(_tensors(X) + _tensors(y))
+        torch._foreach_copy_(dst, src)
 
     def unload(self, model, state):
         """The call's (model, state) with copies of the carried leaves."""
@@ -381,17 +471,19 @@ class _Chunks:
                                    "captured kind does not run on the eager loop") from err
         self.capture_seconds[pattern] = time.perf_counter() - t0
         self.graphs[pattern], self.launches[pattern] = graph, launches
+        tally["graphs"] += 1
         return graph
 
     def next(self, flags, at):
         """The pattern to replay at iteration ``at`` of a chunk whose
         iterations are marked ``flags``: the large one where the marks
-        ahead equal it (and where it holds a hyperparameter step, once one
-        ran eagerly here), else the one-iteration pattern of ``flags[at]``;
-        None for a marked iteration before that: it runs eagerly."""
-        large = marks(self.large)
-        if tuple(flags[at:at + len(large)]) == large and (self.warm or not any(large)):
-            return self.large
+        ahead equal it (without a large one, the marks of the next k
+        iterations), where it holds a hyperparameter step once one ran
+        eagerly here; else the one-iteration pattern of ``flags[at]``; None
+        for a marked iteration before that: it runs eagerly."""
+        ahead = marks(self.large) if self.large is not None else tuple(flags[at:at + STEPS_PER_GRAPH])
+        if tuple(flags[at:at + len(ahead)]) == ahead and (self.warm or not any(ahead)):
+            return pattern_of(ahead)
         if flags[at] and not self.warm:
             return None
         return pattern_of(flags[at:at + 1])
@@ -402,6 +494,7 @@ class _Chunks:
         self._fill(1, idx, eps, at)
         _on_stream(self.device, lambda: self._body(pattern_of(flags[at:at + 1])))
         self.warm |= bool(flags[at])
+        tally["eager"] += 1
 
     def replay(self, pattern, idx, eps, at):
         """Iterations ``at`` .. ``at + len(marks(pattern)) - 1`` of the
@@ -410,14 +503,15 @@ class _Chunks:
         self._fill(len(marks(pattern)), idx, eps, at)
         graph.replay()
         self.launches[pattern].replayed()
+        tally["replays"] += 1
 
 
-def _key(model, state, X, y, mode, idx, mc_draws, rng, draw, update, hyper, large):
-    fields = () if hyper is None else _hyper_fields(model)
+def _key(model, state, X, y, mode, idx, mc_draws, rng, draw, update, hyper, large, copied):
+    fields = _fields(model, hyper)
     return (
         _structure(model), _structure(state),
         tuple(_layout(t) for p, t in _leaves(model, state) if not _carried(p, fields)),
-        _structure(X), _structure(y), X.data_ptr(), X.stride(), y.data_ptr(), y.stride(), mode,
+        _structure(X), _structure(y), _data_key(X, copied), _data_key(y, copied), copied, mode,
         None if idx is None else (tuple(idx.shape[1:]), idx.dtype),
         None if mc_draws is None else (tuple(mc_draws.shape[1:]), mc_draws.dtype),
         rng, draw, update, hyper, large, STEPS_PER_GRAPH,
@@ -445,17 +539,17 @@ def latest():
     return next(reversed(_CACHE.values()), None)
 
 
-def _run(model, state, X, y, flags, mode, idx, generator, mc_draws, rng, draw, update, hyper, large):
+def _run(model, state, X, y, flags, mode, idx, generator, mc_draws, rng, draw, update, hyper, large, copied=False):
     """The iterations marked ``flags`` (module docstring)."""
     n = len(flags)
     if n < 1:
         return model, state
     gen = generator if rng else None
-    key = _key(model, state, X, y, mode, idx, mc_draws, gen, draw, update, hyper, large)
+    key = _key(model, state, X, y, mode, idx, mc_draws, gen, draw, update, hyper, large, copied)
     chunks = _CACHE.pop(key, None)
     at = 0
     if chunks is not None and chunks.fits(model, state):
-        chunks.load(model, state)
+        chunks.load(model, state, X, y)
     else:
         old = chunks
 
@@ -463,12 +557,13 @@ def _run(model, state, X, y, flags, mode, idx, generator, mc_draws, rng, draw, u
             m, s = _iteration(model, state, X, y, mode, _row(idx, 0), _row(mc_draws, 0), gen, draw, update,
                               hyper if flags[0] else None)
             c = old if old is not None and old.fits(m, s) else _Chunks(m, s, X, y, mode, idx, mc_draws, gen, draw,
-                                                                        update, hyper, large)
-            c.load(m, s)
+                                                                        update, hyper, large, copied)
+            c.load(m, s, X, y)
             c.warm |= bool(flags[0])
             return c
 
         chunks, at = _on_stream(X.device, first), 1
+        tally["eager"] += 1
         if old is not None and old is not chunks:
             _drop(old)
     while len(_CACHE) >= _CACHE_SIZE:
@@ -508,3 +603,17 @@ def run_hyper(model, state, X, y, flags, mode, idx, generator=None, rng=False, *
     the patterns of the model's ``atfrequency`` (module docstring)."""
     return _run(model, state, X, y, tuple(bool(f) for f in flags), mode, idx, generator, None, rng, draw, update,
                 hyper, large_pattern(model.atfrequency))
+
+
+def run_batch(model, state, X, y, flags, *, update, hyper=None):
+    """The iterations of one streaming batch (X, y), each on the whole
+    batch: iteration i ``update(model, state, X, y, None, None)`` and
+    ``step + 1``, then, where ``flags[i]`` is true, ``hyper(model, state,
+    X, y)``; returns (model, state).  X and y are copied into the capture's
+    buffers at each call, so that every batch of their shapes, dtypes and
+    layouts replays one capture.  The first iteration runs eagerly where
+    the carry's layouts or the capture are new, the first marked one where
+    no graph with a hyperparameter step was captured yet; the rest are
+    replays of the next k iterations' marks (module docstring)."""
+    return _run(model, state, X, y, tuple(bool(f) for f in flags), None, None, None, None, False, _whole_batch,
+                update, hyper, None, copied=True)

@@ -4399,14 +4399,19 @@ def phase_online(agt, ck, device):
         raise AssertionError("online: online_train_stream differs from online_train batch by batch on the card")
     reset_launches(ck)
     rates = {stream: bench.online_rate(m1, s1, Xw, yw, stream=stream)[0] for stream in (False, True)}
+    with eager_loop():
+        eager = bench.online_rate(m1, s1, Xw, yw, warmup=1)[0]
+    EARLY_ONLINE.update(eager_pts=eager, captured_pts=rates[False])
     split, reads = online_batch_split(m1, s1, Xw, yw, ONLINE_B)
     expect_launches(ck, "online drivers", {})
     total = sum(split.values())
     log(f"online drivers: online_train_stream bit-equal to online_train batch by batch (batches 2-8); the bench's "
-        f"rows: online_stream_b256_cap128_pts_per_s {rates[False]:.1f}, online_stream_fused_b256_cap128_pts_per_s "
-        f"{rates[True]:.1f}; a batch {total:.3f} ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
+        f"rows (captured iterations): online_stream_b256_cap128_pts_per_s {rates[False]:.1f} (the eager loop "
+        f"{eager:.1f}), online_stream_fused_b256_cap128_pts_per_s {rates[True]:.1f}; a batch on the eager loop "
+        f"{total:.3f} ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
         f"; {reads:.2f} host reads a batch, 0 kernel launches")
-    return {"rates": rates, "split": split, "reads": reads, "parity": parity, "rmse": r["rmse"], "peak_mib": peak}
+    return {"rates": rates, "eager_rate": eager, "split": split, "reads": reads, "parity": parity, "rmse": r["rmse"],
+            "peak_mib": peak}
 
 
 def phase_online_paths(agt, ck, device):
@@ -5266,23 +5271,41 @@ def mo_treated(model, ys):
     return model.replace(likelihoods=tuple(liks)), tuple(out)
 
 
-def mo_steps(model, state, X, ys, n, gen=None, draws=None):
-    """n multi-output CAVI steps (treated labels) without mo_train's setup
-    and its final kmat."""
+def mo_steps(model, state, X, ys, n, gen=None, draws=None, marks=None):
+    """n multi-output iterations (treated labels) without mo_train's setup
+    and its final kmat: ``multioutput.mo_steps``, replays of captured
+    graphs on the card (on the eager loop under ``eager_loop``)."""
     from agp_tpu_torch.models import multioutput
 
-    for x_b, ys_b in multioutput._mo_batches(model, X, ys, n, draws, gen):
-        model, state = multioutput.mo_variational_update(model, state, x_b, ys_b)
-        state = state.replace(step=state.step + 1)
-    return model, state
+    return multioutput.mo_steps(model, state, X, ys, n, draws, gen, marks)
+
+
+def mo_rates(model, state, X, ys, eager_n, n, gen, hyper=False):
+    """(eager it/s, captured it/s) of ``mo_steps`` from ``state`` on the
+    treated labels ``ys``, over runs of ``eager_n`` and ``n`` iterations
+    (with ``hyper`` the reference's schedule over each run), each after a
+    warm-up (the captured one makes or reuses the capture of these
+    labels), on the host's clock ending in a synchronize."""
+    from agp_tpu_torch.training import graphs
+
+    def run(iterations):
+        return mo_steps(model, state, X, ys, iterations, gen, marks=hyper_marks(model, iterations) if hyper else None)
+
+    with eager_loop():
+        run(5)
+        eager, _ = timed_steps(lambda: run(eager_n), eager_n)
+    run(graphs.STEPS_PER_GRAPH + 4)
+    captured, _ = timed_steps(lambda: run(n), n)
+    return {"eager_ips": eager, "captured_ips": captured}
 
 
 def mo_run(agt, ck, device, hyper=False, dtype=torch.float32):
     """Phase 35 (35h with ``hyper``) through agp_tpu_torch.mo_train: {"rmse"
     (task 0 on X[:MO_EVAL]), "finite", "moved", "seconds", "launches"};
     on the card the exact launches (kernels 4 and 5 once a step, kernel 4
-    once more a hyperparameter step), then "ips" over MO_TIMED steps,
-    "idle" and "launches_per_step" over 10 profiled steps, "peak_gib"."""
+    once more a hyperparameter step), then the captured "ips" and the eager
+    loop's "eager_ips" over MO_TIMED steps (``mo_rates``), "idle" and
+    "launches_per_step" over 10 profiled captured steps, "peak_gib"."""
     X, f, ys = mo_data(MO_N, device, dtype)
     model = mo_model(agt, X, optimiser=agt.adam(0.01) if hyper else None, atfrequency=3 if hyper else 1)
     log0 = log_hypers(model)
@@ -5307,11 +5330,8 @@ def mo_run(agt, ck, device, hyper=False, dtype=torch.float32):
     if cuda and not hyper:
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         model, ys_t = mo_treated(model, ys)
-        sync(device)
-        t0 = time.perf_counter()
-        model, state = mo_steps(model, state, X, ys_t, MO_TIMED, gen)
-        sync(device)
-        out["ips"] = MO_TIMED / (time.perf_counter() - t0)
+        rates = mo_rates(model, state, X, ys_t, MO_TIMED, MO_TIMED, gen)
+        out["ips"], out["eager_ips"] = rates["captured_ips"], rates["eager_ips"]
         prof = profile_window(lambda: mo_steps(model, state, X, ys_t, 10, gen), 10)
         out["idle"], out["launches_per_step"], out["busy_us"] = prof["idle_share"], prof["launches"], prof["busy_us"]
     return out
@@ -5331,18 +5351,20 @@ def phase_mo(agt, ck, device):
     once more a hyperparameter step), the log-hyperparameters moved."""
     r = mo_run(agt, ck, device)
     check_mo("mo", r, SLICE_H_FLOORS["mo"])
+    EARLY_MO.update(eager_ips=r["eager_ips"], captured_ips=r["ips"])
     log(f"mo (N={MO_N}, M={MO_M}, B={MO_B}, Q={MO_Q}, {MO_ITERS} iterations through agp_tpu_torch.mo_train): "
         f"{r['seconds']:.3f} s, {r['launches']} launches, RMSE {r['rmse']:.5f} (bound {MO_RMSE}, floor "
-        f"{SLICE_H_FLOORS['mo']}); steady {r['ips']:.1f} iterations/s over {MO_TIMED}, idle share {r['idle']:.4f}, "
-        f"{r['launches_per_step']:.1f} launches and {r['busy_us']:.1f} us of device time a step (profiled), "
-        f"peak {r['peak_gib']:.3f} GiB")
+        f"{SLICE_H_FLOORS['mo']}); steady {r['ips']:.1f} iterations/s captured over {MO_TIMED} (eager loop "
+        f"{r['eager_ips']:.1f}), idle share {r['idle']:.4f}, {r['launches_per_step']:.1f} launches and "
+        f"{r['busy_us']:.1f} us of device time a step (profiled, captured), peak {r['peak_gib']:.3f} GiB")
     h = mo_run(agt, ck, device, hyper=True)
     check_mo("mo hyper", h, SLICE_H_FLOORS["mo"])
     if not h["moved"] > MIN_HYPER_MOVE:
         raise AssertionError(f"mo hyper: the log-hyperparameters moved by {h['moved']:.3e}")
     log(f"mo 35h (Adam(0.01) on the kernel every 3rd iteration): {h['seconds']:.3f} s, {h['launches']} launches, "
         f"RMSE {h['rmse']:.5f}, log-hyperparameters moved {h['moved']:.4f}")
-    return {k: r[k] for k in ("rmse", "seconds", "ips", "idle", "launches_per_step", "busy_us", "peak_gib")} | {
+    return {k: r[k] for k in ("rmse", "seconds", "ips", "eager_ips", "idle", "launches_per_step", "busy_us",
+                              "peak_gib")} | {
         "hyper_rmse": h["rmse"], "hyper_seconds": h["seconds"], "hyper_moved": h["moved"]}
 
 
@@ -8221,15 +8243,17 @@ EARLY_FLAGSHIP = {}
 @contextlib.contextmanager
 def eager_loop():
     """``vi_steps`` and ``train`` run every model on the eager loop
-    (``graphs.takes`` false): the yardstick of a captured chunk."""
+    (``graphs.takes`` false), and so do the multi-output and streaming
+    drivers (``graphs.drives`` false): the yardstick of a captured
+    chunk."""
     from agp_tpu_torch.training import graphs
 
-    takes = graphs.takes
-    graphs.takes = lambda model: False
+    takes, drives = graphs.takes, graphs.drives
+    graphs.takes = graphs.drives = lambda model: False
     try:
         yield
     finally:
-        graphs.takes = takes
+        graphs.takes, graphs.drives = takes, drives
 
 
 @contextlib.contextmanager
@@ -8319,6 +8343,41 @@ def bit_equal(a, b):
         ints = {torch.float64: torch.int64, torch.float32: torch.int32}[a.dtype]
         return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
     return torch.equal(a, b)
+
+
+@contextlib.contextmanager
+def guarded_entries(names, record=None):
+    """``graphs``' entries ``names`` run under ``sync_errors`` (the drivers
+    treat labels and select inducing points on the host before them); with
+    ``record``, each call's ``graphs.tally`` differences are appended to
+    it."""
+    from agp_tpu_torch.training import graphs
+
+    saved = {name: getattr(graphs, name) for name in names}
+
+    def guard(fn):
+        def call(*args, **kw):
+            before = dict(graphs.tally)
+            with sync_errors():
+                out = fn(*args, **kw)
+            if record is not None:
+                record.append({key: graphs.tally[key] - before[key] for key in before})
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(graphs, name, guard(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(graphs, name, fn)
+
+
+def leaves_differ(captured, eager):
+    """{path: largest |difference|} of the leaves that are not bit-equal."""
+    return {p: float((captured[p].double() - t.double()).abs().max()) for p, t in eager.items()
+            if p not in captured or not bit_equal(captured[p], t)}
 
 
 def launch_counts(ck):
@@ -8554,11 +8613,13 @@ def graph_k_sweep(model, state, X, y):
     return out
 
 
-def phase_graphs(agt, ck, device):
+def phase_graphs(agt, ck, device, sweep=True):
     """Phase 56: each route of ``graph_routes`` by ``graph_route_check``
     (captured chunk bit-equal to the eager loop, exact launches, sync
     debug clean); the rate routes' eager and captured it/s, idle shares,
-    kernels a replay and host us a replay (``route_rates``); the
+    kernels a replay and host us a replay (``route_rates``); with
+    ``sweep`` (``python3 chip_smoke.py graphs``; the whole smoke leaves it
+    out for time: the sweep chose k = 10, PERF.md section 6) the
     flagship's capture at k = 1, 10, 50 (``graph_k_sweep``); the peak
     memory of each route, eager and captured.  Returns the numbers.  The
     whole smoke runs it right after phase 4: late in that process (after
@@ -8575,7 +8636,7 @@ def phase_graphs(agt, ck, device):
         out["routes"][label] = time.perf_counter() - t0
         if label in GRAPH_RATE_STEPS:
             out["rates"][label] = route_rates(label, model, state, X, y, *GRAPH_RATE_STEPS[label])
-            if label == "flagship":
+            if label == "flagship" and sweep:
                 out["k_sweep"] = graph_k_sweep(model, state, X, y)
         del model, state, X, y
         graphs.clear()
@@ -8587,7 +8648,10 @@ def phase_graphs(agt, ck, device):
 def phase_graphs_late(agt, device):
     """The flagship's eager and captured rates at the end of the whole
     smoke (``flagship_rates``, from a state 50 steps in), against phase
-    4's early in the process (ROADMAP.md queue 3 item 4).  Returns both."""
+    4's early in the process (ROADMAP.md queue 3 item 4); likewise path A
+    (phase 15), phase 35's MOSVGP (``mo_rates``, from a state 20 steps
+    in) and phase 27's streaming row (``bench.online_rate``), eager and
+    captured.  Returns them."""
     from agp_tpu_torch.training import graphs
     from agp_tpu_torch.training.train import vi_steps
 
@@ -8611,6 +8675,29 @@ def phase_graphs_late(agt, device):
             f"{EARLY_PATH_A['eager_ips']:.1f} / {late_a['eager_ips']:.1f} it/s, captured "
             f"{EARLY_PATH_A['captured_ips']:.1f} / {late_a['captured_ips']:.1f} it/s")
         out["path A"] = {"early": dict(EARLY_PATH_A), "late": late_a}
+    if EARLY_MO:  # the whole smoke: phase 35 ran
+        X, f, ys = mo_data(MO_N, device)
+        model, ys_t = mo_treated(mo_model(agt, X), ys)
+        gen = torch.Generator(device=device).manual_seed(0)
+        model, state = mo_steps(model, agt.mo_init_state(model, X, ys_t), X, ys_t, 20, gen)
+        late_mo = mo_rates(model, state, X, ys_t, MO_TIMED, MO_TIMED, gen)
+        graphs.clear()
+        log(f"graphs mo (phase 35) early / late in one process: eager {EARLY_MO['eager_ips']:.1f} / "
+            f"{late_mo['eager_ips']:.1f} it/s, captured {EARLY_MO['captured_ips']:.1f} / {late_mo['captured_ips']:.1f} "
+            "it/s")
+        out["mo"] = {"early": dict(EARLY_MO), "late": late_mo}
+    if EARLY_ONLINE:  # the whole smoke: phase 27 ran
+        from agp_tpu_torch import bench
+
+        m1, s1, Xw, yw = bench.online_workload(device)
+        with eager_loop():
+            eager = bench.online_rate(m1, s1, Xw, yw, warmup=1)[0]
+        late_online = {"eager_pts": eager, "captured_pts": bench.online_rate(m1, s1, Xw, yw)[0]}
+        graphs.clear()
+        log(f"graphs online (phase 27's bench row) early / late in one process: eager {EARLY_ONLINE['eager_pts']:.1f} "
+            f"/ {late_online['eager_pts']:.1f} points/s, captured {EARLY_ONLINE['captured_pts']:.1f} / "
+            f"{late_online['captured_pts']:.1f} points/s")
+        out["online"] = {"early": dict(EARLY_ONLINE), "late": late_online}
     return out
 
 
@@ -8721,23 +8808,13 @@ def hyper_route_check(agt, ck, device, label, n=None):
     reset_launches(ck)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=device)
-    run_hyper = graphs.run_hyper
-
-    def guarded(*args, **kw):  # train's label treatment reads the host, before the iterations
-        with sync_errors():
-            return run_hyper(*args, **kw)
-
-    graphs.run_hyper = guarded
-    try:
+    with guarded_entries(("run_hyper",)):  # train's label treatment reads the host, before the iterations
         mc, sc = agt.train(model, X, y, iterations=n, state=state, generator=gen.manual_seed(3))
-    finally:
-        graphs.run_hyper = run_hyper
     torch.cuda.synchronize()
     memory["captured_mb"] = torch.cuda.max_memory_allocated() / 2**20
     launches = expect_launches(ck, f"{label} captured", want(n, h))
     captured = all_leaves(mc, sc)
-    differ = {p: float((captured[p].double() - t.double()).abs().max()) for p, t in eager.items()
-              if not bit_equal(captured[p], t)}
+    differ = leaves_differ(captured, eager)
     if differ or captured.keys() != eager.keys():
         raise AssertionError(f"{label}: the captured iterations differ from the eager loop after {n} iterations "
                              f"({h} hyperparameter steps): {differ}")
@@ -8839,14 +8916,16 @@ def path_a_rates(agt, model, state, X, y):
     return {"eager_ips": eager, "captured_ips": captured}
 
 
-def phase_graphs_hyper(agt, ck, device):
+def phase_graphs_hyper(agt, ck, device, sweep=True):
     """Phase 57: each route of ``hyper_graph_routes`` by
     ``hyper_route_check`` (captured iterations bit-equal to the eager loop,
     exact launches matched by a profiled replay, sync debug clean, peak
     memory, capture ms); the rate routes' eager and captured it/s, idle
-    shares and launches (``hyper_rates``); the large pattern's capture at
-    k = 1 and k = STEPS_PER_GRAPH for path A (capture ms, memory reserved,
-    it/s).  Returns the numbers.  The whole smoke runs it right after phase
+    shares and launches (``hyper_rates``); with ``sweep`` (``python3
+    chip_smoke.py graphs-hyper``; left out of the whole smoke for time, as
+    phase 56's) the large pattern's capture at k = 1 and
+    k = STEPS_PER_GRAPH for path A (capture ms, memory reserved, it/s).
+    Returns the numbers.  The whole smoke runs it right after phase
     56, early in the process (ROADMAP.md queue 3 item 10)."""
     from agp_tpu_torch.training import graphs
 
@@ -8858,7 +8937,7 @@ def phase_graphs_hyper(agt, ck, device):
         out["routes"][label] = time.perf_counter() - t0
         if label in HYPER_RATE_ITERATIONS:
             out["rates"][label] = hyper_rates(agt, label, model, state, X, y, *HYPER_RATE_ITERATIONS[label])
-            if label == "path A":
+            if label == "path A" and sweep:
                 out["k_sweep"] = hyper_k_sweep(agt, model, state, X, y)
         del model, state, X, y
         graphs.clear()
@@ -8899,6 +8978,323 @@ def hyper_k_sweep(agt, model, state, X, y, ks=(1, 10)):
     finally:
         graphs.STEPS_PER_GRAPH = k0
         graphs.clear()
+    return out
+
+
+# ------------------ captured multi-output and streaming drivers (58-59)
+# the captured rates of phase 35 (it/s, mo_steps) and phase 27's bench row
+# (points/s, online_train a batch) early in the process, beside
+# phase_graphs_late's at its end (ROADMAP.md queue 3 item 4)
+EARLY_MO, EARLY_ONLINE = {}, {}
+# phase 58's rate routes: (eager iterations, captured iterations), each
+# window one run of the reference's schedule, timed on the host's clock
+# after a warm-up, ending in a synchronize
+MO_RATE_ITERATIONS = {"35": (MO_TIMED, MO_TIMED), "35h": (MO_TIMED, MO_TIMED)}
+
+
+def mo_xy(n, device, dtype=torch.float32, seed=0):
+    """(X, ys) of ``mo_data``."""
+    X, _, ys = mo_data(n, device, dtype, seed)
+    return X, ys
+
+
+def mo_graph_routes(agt, device):
+    """Phase 58's routes, by label: (data (X, ys), model, launches of n
+    iterations with h hyperparameter steps).  Phase 35's MOSVGP (Q=2,
+    Adam on A: kernels 4 + 5 a step), 35h (Adam(0.01) on the kernel every
+    3rd iteration: kernel 4 once more a hyperparameter step), phase 36's
+    Q=1 model (kernels 6 + 7) and its full-batch ``mo_proba_y`` model
+    (4 + 5), phase 52's MOVGP on 3,000 points in float32 (the
+    column-blocked kernel 4 + kernel 5) and on 1,500 in float64 (4 f64 +
+    5 f64)."""
+    def batched(f64=False):
+        return lambda n, h: {name: v + (h if name.startswith("fused_kappa") else 0)
+                             for name, v in route_launches(n, "batched", f64=f64).items()}
+
+    return {
+        "35": (lambda: mo_xy(MO_N, device), lambda X: mo_model(agt, X), batched()),
+        "35h": (lambda: mo_xy(MO_N, device), lambda X: mo_model(agt, X, optimiser=agt.adam(0.01), atfrequency=3),
+                batched()),
+        "36 q1": (lambda: mo_xy(Q1_N, device, seed=2), lambda X: mo_model(agt, X, m=Q1_M, b=None, q=1),
+                  lambda n, h: route_launches(n, "single", hyper_steps=h)),
+        "36 proba": (lambda: mo_xy(PA_N, device, seed=1), lambda X: mo_model(agt, X, m=PA_M, b=None), batched()),
+        "52 movgp float32": (lambda: mo_xy(CV32_N, device, seed=4), lambda X: cols_movgp(agt, X), batched()),
+        "52 movgp float64": (lambda: mo_xy(CV64_N, device, torch.float64, seed=4), lambda X: cols_movgp(agt, X),
+                             batched(f64=True)),
+    }
+
+
+def mo_route_check(agt, ck, device, label, n=None):
+    """One route of phase 58: n iterations (k + 4 when None) through
+    ``agt.mo_train`` from a fresh state, eagerly (a no-op callback) and on
+    captured graphs (``graphs.run`` and ``graphs.run_hyper`` under
+    ``sync_errors``), from generators of one seed: every leaf of the model
+    and the state bit-equal, each run's launches exact, a replay of the
+    large pattern credited its launches and a profiled replay's kernels on
+    the device as many (``check_replay_launches``); each run's peak device
+    memory and the large pattern's capture ms.  Returns (model, state, X,
+    ys) as the captured run left them (ys as ``mo_train`` treated them, the
+    capture's), the peaks in MB and the capture ms."""
+    from agp_tpu_torch.training import graphs
+
+    k = graphs.STEPS_PER_GRAPH
+    n = k + 4 if n is None else n
+    data, build, want = mo_graph_routes(agt, device)[label]
+    X, ys = data()
+    model = build(X)
+    hyper = model.optimiser is not None
+    h = sum(hyper_marks(model, n)) if hyper else 0
+    expected = {name: v for name, v in want(n, h).items() if v}
+    reset_launches(ck)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    memory = {"before_mb": torch.cuda.memory_allocated() / 2**20}
+    me, se = agt.mo_train(model, X, ys, iterations=n, generator=torch.Generator(device=device).manual_seed(3),
+                          callback=lambda m, s, i: None)
+    torch.cuda.synchronize()
+    memory["eager_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    if launch_counts(ck) != expected:
+        raise AssertionError(f"mo {label} eager: launched {launch_counts(ck)}, expected {expected}")
+    eager = all_leaves(me, se)
+    graphs.clear()
+    reset_launches(ck)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device)
+    with guarded_entries(("run", "run_hyper")):
+        mc, sc = agt.mo_train(model, X, ys, iterations=n, generator=gen.manual_seed(3))
+    torch.cuda.synchronize()
+    memory["captured_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    launches = expect_launches(ck, f"mo {label} captured", want(n, h))
+    captured = all_leaves(mc, sc)
+    differ = leaves_differ(captured, eager)
+    if differ or captured.keys() != eager.keys():
+        raise AssertionError(f"mo {label}: the captured iterations differ from the eager loop after {n} iterations "
+                             f"({h} hyperparameter steps): {differ}")
+    if not finite_state(sc):
+        raise AssertionError(f"mo {label}: non-finite posterior")
+    chunks = graphs.latest()
+    large = graphs.large_pattern(model.atfrequency if hyper else None)
+    lm = graphs.marks(large)
+    per_replay = {name + ("_f64" if attr == "launches_f64" else ""): v
+                  for (name, attr), v in chunks.launches[large].per_replay.items()}
+    if per_replay != {name: v for name, v in want(len(lm), sum(lm)).items() if v}:
+        raise AssertionError(f"mo {label}: a replay of {large} credits {per_replay}, expected "
+                             f"{want(len(lm), sum(lm))}")
+    check_replay_launches(ck, f"graphs-mo {label}", lambda: mo_steps(
+        mc, sc, chunks.X, chunks.y, len(lm), gen, marks=list(lm) if hyper else None), large)
+    capture_ms = chunks.capture_seconds[large] * 1e3
+    log(f"graphs-mo {label}: {n} iterations ({h} hyperparameter steps) through mo_train captured bit-equal to the "
+        f"eager loop ({len(eager)} leaves), launches {launches} ({per_replay} a replay of the large pattern), "
+        f"graphs {sorted(map(str, chunks.graphs))}, sync debug 'error' clean, capture of the large pattern "
+        f"{capture_ms:.1f} ms, peak memory eager {memory['eager_mb']:.1f} / captured {memory['captured_mb']:.1f} MB "
+        f"(before {memory['before_mb']:.1f})")
+    return mc, sc, X, chunks.y, memory, capture_ms
+
+
+def mo_graph_rates(label, model, state, X, ys, eager_n, n):
+    """A multi-output route's eager and captured it/s (``mo_rates`` on the
+    route check's capture), and a profiled captured window (2 k + 4
+    iterations): idle share, launches an iteration, device kernels an
+    iteration.  The eager loop's window is not profiled: its thousands of
+    launches cost the profiler seconds (PERF.md section 5 has its idle
+    share and launches).  Returns the numbers."""
+    from agp_tpu_torch.training import graphs
+
+    k = graphs.STEPS_PER_GRAPH
+    hyper = model.optimiser is not None
+    gen = torch.Generator(device=X.device).manual_seed(4)
+    out = mo_rates(model, state, X, ys, eager_n, n, gen, hyper)
+    w = 2 * k + 4
+
+    def run():
+        return mo_steps(model, state, X, ys, w, gen, marks=hyper_marks(model, w) if hyper else None)
+
+    p_graph = profile_window(run, w)
+    out.update(speedup=out["captured_ips"] / out["eager_ips"], captured_idle=p_graph["idle_share"],
+               captured_launches_per_iteration=p_graph["launches"], kernels_per_iteration=p_graph["ops"],
+               captured_wall_us=p_graph["wall_us"], captured_busy_us=p_graph["busy_us"],
+               captured_idle_unprofiled=1.0 - p_graph["busy_us"] * out["captured_ips"] / 1e6)
+    log(f"graphs-mo {label} rates: eager {out['eager_ips']:.1f} it/s, captured {out['captured_ips']:.1f} it/s (idle "
+        f"{out['captured_idle']:.4f} profiled, {out['captured_idle_unprofiled']:.4f} by the unprofiled "
+        f"iteration's {1e6 / out['captured_ips']:.1f} us against {out['captured_busy_us']:.1f} busy, "
+        f"{out['captured_launches_per_iteration']:.2f} launches and {out['kernels_per_iteration']:.1f} kernels an "
+        f"iteration), x{out['speedup']:.2f}")
+    return out
+
+
+def phase_graphs_mo(agt, ck, device):
+    """Phase 58: each route of ``mo_graph_routes`` by ``mo_route_check``
+    (mo_train's captured iterations bit-equal to its eager loop, exact
+    launches matched by a profiled replay, sync debug clean, peak memory,
+    capture ms); phase 35's and 35h's eager and captured it/s, idle
+    shares and launches (``mo_graph_rates``).  Returns the numbers."""
+    from agp_tpu_torch.training import graphs
+
+    out = {"routes": {}, "rates": {}, "memory": {}, "capture_ms": {}}
+    for label in mo_graph_routes(agt, device):
+        t0 = time.perf_counter()
+        model, state, X, ys, out["memory"][label], out["capture_ms"][label] = mo_route_check(agt, ck, device, label)
+        out["routes"][label] = time.perf_counter() - t0
+        if label in MO_RATE_ITERATIONS:
+            out["rates"][label] = mo_graph_rates(label, model, state, X, ys, *MO_RATE_ITERATIONS[label])
+        del model, state, X, ys
+        graphs.clear()
+        reset_launches(ck)
+    log(f"graphs-mo: {json.dumps(out)}")
+    return out
+
+
+# phase 59's routes: the online path (ONLINE_PATHS) of each, and whether it
+# streams through online_train_stream; the routes whose eager batch is
+# profiled too (an eager batch's 3,700-14,700 launches cost the profiler
+# seconds; PERF.md section 5 has those of 28 adam and 29 wide)
+ONLINE_GRAPH_ROUTES = {"27": ("oips", False), "27 stream": ("oips", True), "28 adam": ("adam", False),
+                       "28 unigrid": ("unigrid", False), "28 webscale": ("webscale", False),
+                       "28 streamkmeans": ("streamkmeans", False), "29 wide": ("wide", False)}
+ONLINE_EAGER_PROFILED = ("27",)
+# batches of each route but the streaming row's (27: ONLINE_BATCHES), cut
+# for the whole smoke's time
+ONLINE_ROUTE_BATCHES = 4
+
+
+def online_route_check(agt, ck, device, label):
+    """One route of phase 59: the path's ONLINE_BATCHES batches (the
+    streaming row's; ONLINE_ROUTE_BATCHES on the other routes) of
+    ONLINE_ITERS iterations from a fresh model, batch by batch on the
+    eager loop and through the captured drivers (``online_train`` a batch,
+    or ``online_train_stream`` over the stream; ``graphs.run_batch`` under
+    ``sync_errors``): every leaf bit-equal, no kernel of the port launched;
+    one static carry for the whole stream, and after the first batch no
+    eager iteration and at most ceil(ONLINE_ITERS / k) graph launches a
+    batch; the graphs captured (one a mark pattern in use).  Then the
+    points/s of the later batches that captured no graph, on each loop
+    (host clock, each batch ending in a synchronize; a stream's captured
+    rate over batches 2 .. the last by one more
+    ``online_train_stream`` over them from the state after the first
+    batch, which replays the capture), and one profiled second batch of
+    each loop (wall, device busy, idle share, launches; the eager one on
+    ONLINE_EAGER_PROFILED's routes), its prologue (save-old, the
+    selection, the masked kmat, fresh local variables) profiled apart.
+    Returns the captured (model, state), the data and the numbers."""
+    from agp_tpu_torch.models import online_svgp as on
+    from agp_tpu_torch.training import graphs
+
+    k = graphs.STEPS_PER_GRAPH
+    name, stream = ONLINE_GRAPH_ROUTES[label]
+    X, _, y = online_data(name, device, torch.float32)
+    b = WIDE_B if name == "wide" else ONLINE_B
+    batches = ONLINE_BATCHES if label.startswith("27") else ONLINE_ROUTE_BATCHES
+    n = batches * b
+    Xs, ys = X[:n].reshape(batches, b, X.shape[1]), y[:n].reshape(batches, b)
+    first = []
+
+    def per_batch(seconds):
+        m, s = online_model(agt, name, device, torch.float32), None
+        for i in range(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, s = agt.online_train(m, Xs[i], ys[i], state=s, iterations=ONLINE_ITERS)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                first.append((m, s))
+        return m, s
+
+    reset_launches(ck)
+    eager_s, captured_s = [], []
+    with eager_loop():
+        me, se = per_batch(eager_s)
+    eager = all_leaves(me, se)
+    graphs.clear()
+    counts = []
+    with guarded_entries(("run_batch",), counts):
+        if stream:
+            mc, sc = agt.online_train_stream(online_model(agt, name, device, torch.float32), Xs, ys,
+                                             iterations=ONLINE_ITERS)
+        else:
+            mc, sc = per_batch(captured_s)
+    torch.cuda.synchronize()
+    expect_launches(ck, f"online {label}", {})
+    captured = all_leaves(mc, sc)
+    differ = leaves_differ(captured, eager)
+    if differ or captured.keys() != eager.keys():
+        raise AssertionError(f"online {label}: the captured batches differ from the eager loop: {differ}")
+    most = -(-ONLINE_ITERS // k)
+    later = counts[1:]
+    if (len(counts) != batches or sum(c["carries"] for c in counts) != 1
+            or any(c["eager"] or c["replays"] > most for c in later)):
+        raise AssertionError(f"online {label}: graphs' counts a batch {counts}: one static carry for the stream, and "
+                             f"after the first batch no eager iteration and at most {most} replays, expected")
+    chunks = graphs.latest()
+    patterns = sorted(str(p) if isinstance(p, int) else f"{len(p)} iterations, {sum(p)} marked"
+                      for p in chunks.graphs)
+    # the captured loop's state after the first batch (the eager loop's for a stream, bit-equal): its
+    # model's optimiser is the capture's, which a key compares by identity
+    m1, s1 = first[-1]
+    if stream:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agt.online_train_stream(m1, Xs[1:], ys[1:], state=s1, iterations=ONLINE_ITERS)
+        torch.cuda.synchronize()
+        captured_s = [0.0, time.perf_counter() - t0]
+    # the later batches that captured no graph (with Adam the second batch
+    # captures the steady windows): the rates' batches, on both loops
+    steady = list(range(1, batches)) if stream else [i for i in range(1, batches) if not counts[i]["graphs"]]
+    points = len(steady) * b
+
+    def second():
+        return agt.online_train(m1, Xs[1], ys[1], state=s1, iterations=ONLINE_ITERS)
+
+    p_eager = {"idle_share": None, "wall_us": None, "busy_us": None, "launches": None}
+    if label in ONLINE_EAGER_PROFILED:
+        with eager_loop():
+            p_eager = profile_window(second, 1)
+    p_graph = profile_window(second, 1)
+    p_prologue = profile_window(lambda: on._online_prologue(m1, s1, Xs[1]), 1)
+    out = {"first": counts[0], "later_replays": max(c["replays"] for c in later),
+           "later_eager": sum(c["eager"] for c in later), "graphs": len(chunks.graphs), "patterns": patterns,
+           "capture_ms": {str(p): v * 1e3 for p, v in chunks.capture_seconds.items()},
+           "eager_pts": points / sum(eager_s[i] for i in steady),
+           "captured_pts": points / (captured_s[1] if stream else sum(captured_s[i] for i in steady)),
+           "eager_idle": p_eager["idle_share"], "captured_idle": p_graph["idle_share"],
+           "eager_wall_us": p_eager["wall_us"], "eager_busy_us": p_eager["busy_us"],
+           "captured_wall_us": p_graph["wall_us"], "captured_busy_us": p_graph["busy_us"],
+           "eager_launches": p_eager["launches"], "captured_launches": p_graph["launches"],
+           "prologue_wall_us": p_prologue["wall_us"], "prologue_busy_us": p_prologue["busy_us"],
+           "prologue_launches": p_prologue["launches"]}
+    out["speedup"] = out["captured_pts"] / out["eager_pts"]
+    log(f"graphs-online {label}: {batches} batches x {ONLINE_ITERS} iterations "
+        f"({'online_train_stream' if stream else 'online_train a batch'}) captured bit-equal to the eager loop "
+        f"({len(eager)} leaves), no kernel of the port; the first batch {counts[0]}, each later one "
+        f"{out['later_eager']} eager iterations and at most {out['later_replays']} graph launches "
+        f"(ceil({ONLINE_ITERS}/{k}) = {most}); one static carry, {len(chunks.graphs)} graphs {patterns}, sync "
+        f"debug 'error' clean; batches {[i + 1 for i in steady]}: eager {out['eager_pts']:.1f} points/s, captured "
+        f"{out['captured_pts']:.1f} (x{out['speedup']:.2f}); a profiled second batch eager "
+        + (f"wall {out['eager_wall_us']:.1f} us, busy {out['eager_busy_us']:.1f}, idle {out['eager_idle']:.4f}, "
+           f"{out['eager_launches']:.0f} launches" if label in ONLINE_EAGER_PROFILED else "not profiled")
+        + f"; captured wall {out['captured_wall_us']:.1f} us, busy "
+        f"{out['captured_busy_us']:.1f}, idle {out['captured_idle']:.4f}, {out['captured_launches']:.0f} launches; "
+        f"its prologue alone wall {out['prologue_wall_us']:.1f} us, busy {out['prologue_busy_us']:.1f}, "
+        f"{out['prologue_launches']:.0f} launches")
+    return mc, sc, X, y, out
+
+
+def phase_graphs_online(agt, ck, device):
+    """Phase 59: each route of ONLINE_GRAPH_ROUTES by
+    ``online_route_check`` (the captured drivers bit-equal to the eager
+    per-batch loop, one static carry, the eager iterations and graph
+    launches a later batch held to the target; points/s eager and
+    captured, one profiled batch of each and its prologue).  Returns the
+    numbers."""
+    from agp_tpu_torch.training import graphs
+
+    out = {}
+    for label in ONLINE_GRAPH_ROUTES:
+        t0 = time.perf_counter()
+        out[label] = online_route_check(agt, ck, device, label)[-1]
+        out[label]["seconds"] = time.perf_counter() - t0
+        graphs.clear()
+    log(f"graphs-online: {json.dumps(out)}")
     return out
 
 
@@ -9060,6 +9456,12 @@ def main():
     if args == ["graphs-hyper"]:
         timed_phase("captured hyperparameter iterations", phase_graphs_hyper, agt, ck, device)
         return
+    if args == ["graphs-mo"]:
+        timed_phase("captured multi-output iterations", phase_graphs_mo, agt, ck, device)
+        return
+    if args == ["graphs-online"]:
+        timed_phase("captured streaming iterations", phase_graphs_online, agt, ck, device)
+        return
     if args == ["float64"]:
         timed_phase("tensor-core SASS", check_tc_sass, lib_path)
         timed_phase("kappa tiles", check_kappa_tiles, ck)
@@ -9087,8 +9489,10 @@ def main():
                                                            agt, ck, device)
     multi = timed_phase("kernels 2-3 vs plain", phase_multi_kernels_vs_plain, ck, device)
     timed_phase("flagship path", phase_main_path, agt, ck, device)
-    timed_phase("captured chunks", phase_graphs, agt, ck, device)
-    timed_phase("captured hyperparameter iterations", phase_graphs_hyper, agt, ck, device)
+    timed_phase("captured chunks", phase_graphs, agt, ck, device, sweep=False)
+    timed_phase("captured hyperparameter iterations", phase_graphs_hyper, agt, ck, device, sweep=False)
+    timed_phase("captured multi-output iterations", phase_graphs_mo, agt, ck, device)
+    timed_phase("captured streaming iterations", phase_graphs_online, agt, ck, device)
     LAUNCHES["fused_cavi_stats"] += timed_phase("Student-t rate (child)", studentt_rate_first_in_process)
     timed_phase("oracle and flagship parity", phase_oracle_and_parity, agt, device)
     for which in ("multiclass", "het"):

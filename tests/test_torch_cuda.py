@@ -1502,6 +1502,27 @@ def test_cuda_captured_hyper_matches_eager(cuda_device, label):
 
 
 @pytest.mark.cuda
+def test_cuda_captured_mo_matches_eager(cuda_device):
+    """Phase 58's check of one route (``chip_smoke.mo_route_check``): k + 4
+    iterations of phase 36's Q=1 multi-output model through ``mo_train``
+    on captured graphs (kernels 6 + 7 inside) bit-equal to its eager loop,
+    each run's launches exact, a replay credited its launches and a
+    profiled replay's kernels on the device as many, ``graphs.run`` under
+    sync debug "error"."""
+    smoke.mo_route_check(agt, ck, cuda_device, "36 q1")
+
+
+@pytest.mark.cuda
+def test_cuda_captured_online_matches_eager(cuda_device):
+    """Phase 59's check of one route (``chip_smoke.online_route_check``):
+    phase 27's stream batch by batch through ``online_train`` on captured
+    graphs bit-equal to the eager loop, one static carry for the stream,
+    no eager iteration and at most ceil(iterations / k) graph launches a
+    later batch, ``graphs.run_batch`` under sync debug "error"."""
+    smoke.online_route_check(agt, ck, cuda_device, "27")
+
+
+@pytest.mark.cuda
 def test_cuda_captured_chunks_reused_with_remainders(cuda_device):
     """Two calls of 2 k + 3 steps at a small flagship shape: the second
     takes the first's capture (no warm-up step, no new capture), the
