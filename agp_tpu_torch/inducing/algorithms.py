@@ -10,19 +10,23 @@
   on its device and in its dtype; a numpy input one placed as
   ``models.base.to_tensor`` places it.
 * The online updates, run every streaming batch on one latent's slot
-  buffer Z [Mc, D] with its active mask [Mc], work on tensors.
-  ``unigrid_update`` and ``webscale_update`` are vectorized on the device.
-  The reference runs ``oips_update`` and ``streamkmeans_update`` as a scan
-  with one decision per point; here each reads the device back once a
-  batch (``utils.tensors.host_array``) and decides on the host:
+  buffer Z [Mc, D] with its active mask [Mc] (``oips_update_latents`` and
+  ``streamkmeans_update_latents`` on every latent's [L, Mc, D] at once),
+  work on tensors and read nothing back to the host, so that a captured
+  CUDA graph holds them (``training/graphs.py``).  ``unigrid_update`` and
+  ``webscale_update`` are vectorized.  The reference runs
+  ``oips_update`` and ``streamkmeans_update`` as a scan with one decision
+  per point; here each is a walk over the batch's points, a CUDA kernel on
+  the card (``ops/cuda_kernels.py::oips_accept``, ``streamkmeans_pass``;
+  ``csrc/online_select.cu``) and its plain version
+  (``oips_accept_reference``, ``streamkmeans_pass_reference``) on the CPU:
   - OIPS never moves a slot, so each point's correlations with the slots
     active before the batch and with the batch's own points are known
-    before the first decision: ``gram(X, Z)`` and ``gram(X, X)`` are made on
-    the device, and the accepted rows go into their slots in one indexed
-    copy;
-  - an absorbing StreamKmeans centre moves, so Z, the mask, the counts and
-    the batch are read, the batch is run through in the model's dtype and
-    the buffers are copied back.
+    before the first decision: ``gram(X, Z)`` and ``gram(X, X)`` are made,
+    the walk writes the row each slot takes, and the rows go into their
+    slots with static shapes (a ``where``);
+  - an absorbing StreamKmeans centre moves, so the walk updates Z, the
+    mask and the counts in place (on copies of the caller's).
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ import torch
 
 from ..kernels import SqExponentialKernel
 from ..models.base import to_tensor
+from ..ops import cuda_kernels
 from ..utils import native
-from ..utils.tensors import host_array
 
 def _host(X) -> np.ndarray:
     """X as a host array, in its own dtype."""
@@ -150,42 +154,70 @@ def inducingpoints(alg, X, key=None, kernel=None):
     return alg(X, key=key)
 
 
+def oips_accept_reference(g_z, g_x, kx, kd, mask, rho: float):
+    """Plain PyTorch version of ``ops/cuda_kernels.py::oips_accept``, on
+    the host in the inputs' dtype: row_of_slot [L, Mc] (int64, on g_z's
+    device), the batch row each slot takes, -1 where none.  Each point's
+    correlation g / sqrt(max(kx kd, 1e-30)) is rounded at each operation as
+    the kernel rounds it; a NaN one rejects the point (the reference's max
+    propagates it)."""
+    device = g_z.device
+    g_z, g_x, kx, kd, mask = (t.detach().cpu() for t in (g_z, g_x, kx, kd, mask))
+    L, B, Mc = g_z.shape
+    dt = g_z.dtype
+    tiny, rho_t = torch.tensor(1e-30, dtype=dt), torch.tensor(rho, dtype=dt)
+    out = torch.full((L, Mc), -1, dtype=torch.int64)
+    for l in range(L):
+        corr_z = g_z[l] / torch.sqrt(torch.clamp(kx[l][:, None] * kd[l][None, :], min=tiny))
+        max_z = torch.where(mask[l][None, :], corr_z, float("-inf")).amax(1)
+        free = torch.nonzero(~mask[l]).flatten().tolist()  # inactive slots, first first
+        n_active = int(mask[l].sum())
+        rows, slots = [], []
+        for i in range(B):
+            if n_active >= Mc:
+                break
+            best = max_z[i]
+            if not bool(best < rho_t):  # never accepted: correlations only grow
+                continue
+            if rows:
+                corr = g_x[l, i, rows] / torch.sqrt(torch.clamp(kx[l, i] * kd[l, slots], min=tiny))
+                best = torch.maximum(best, corr.amax())
+            if bool(best < rho_t):
+                rows.append(i)
+                slots.append(free.pop(0))
+                n_active += 1
+        out[l, slots] = torch.tensor(rows, dtype=torch.int64)
+    return out.to(device)
+
+
+def _take_rows(Z, mask, X_batch, row_of_slot):
+    """Z and the mask with each slot's accepted row written in (row_of_slot
+    >= 0), with static shapes."""
+    taken = row_of_slot >= 0
+    return torch.where(taken[..., None], X_batch[torch.clamp(row_of_slot, min=0)], Z), mask | taken
+
+
+def oips_update_latents(kernels, Z, mask, X_batch, rho: float):
+    """Streaming OIPS over one batch on every latent's slot buffer Z
+    [L, Mc, D] with its active mask [L, Mc] (``kernels`` the latents', one
+    each): each point is accepted, in order, into the first inactive slot
+    when its largest correlation k(x, z) / sqrt(k(x, x) k(z, z)) with the
+    active slots and the points accepted before it is below ``rho`` and a
+    slot is free.  The correlations' grams are made for all latents, then
+    one walk (``cuda_kernels.oips_accept``) decides."""
+    g_z = torch.stack([k.gram(X_batch, Z[l]) for l, k in enumerate(kernels)])
+    g_x = torch.stack([k.gram(X_batch, X_batch) for k in kernels])
+    kx = torch.stack([k.diag(X_batch) for k in kernels])
+    kd = torch.stack([k.diag(Z[l]) for l, k in enumerate(kernels)])  # the slots' prior variances as the batch starts
+    rows = cuda_kernels.oips_accept(g_z, g_x, kx, kd, mask.contiguous(), rho)
+    return _take_rows(Z, mask, X_batch, rows)
+
+
 def oips_update(kernel, Z, mask, X_batch, rho: float):
-    """Streaming OIPS over one batch, on one latent's slot buffer Z
-    [Mc, D] with its active mask [Mc] (``kernel`` that latent's): each point
-    is accepted, in order, into the first inactive slot when its largest
-    correlation k(x, z) / sqrt(k(x, x) k(z, z)) with the active slots and
-    the points accepted before it is below ``rho`` and a slot is free.
-    The correlations are made on the device, then read once."""
-    cap, B = Z.shape[0], X_batch.shape[0]
-    kdiag = kernel.diag(Z)  # [Mc], the slots' prior variances as the batch starts
-    parts = (kernel.gram(X_batch, Z), kernel.gram(X_batch, X_batch), kernel.diag(X_batch), kdiag,
-             mask.to(Z.dtype))
-    flat = host_array(torch.cat([p.reshape(-1) for p in parts]))
-    sizes = [p.numel() for p in parts]
-    g_z, g_x, kx, kd, m = np.split(flat, np.cumsum(sizes)[:-1])
-    g_z, g_x, active = g_z.reshape(B, cap), g_x.reshape(B, B), m > 0
-    dt = flat.dtype
-    tiny, rho_t = dt.type(1e-30), dt.type(rho)
-    corr_z = g_z / np.sqrt(np.maximum(kx[:, None] * kd[None, :], tiny))
-    max_z = np.where(active[None, :], corr_z, dt.type(-np.inf)).max(axis=1)
-    free = list(np.flatnonzero(~active))  # inactive slots, first first
-    n_active = int(active.sum())
-    rows, slots = [], []
-    for i in range(B):
-        best = max_z[i]
-        if rows:
-            corr = g_x[i, rows] / np.sqrt(np.maximum(kx[i] * kd[slots], tiny))
-            best = max(best, corr.max())
-        if best < rho_t and n_active < cap:
-            rows.append(i)
-            slots.append(free.pop(0))
-            n_active += 1
-    if not rows:
-        return Z, mask
-    slot_t = torch.as_tensor(slots, device=Z.device)
-    Z = Z.index_copy(0, slot_t, X_batch[torch.as_tensor(rows, device=Z.device)])
-    return Z, mask.index_fill(0, slot_t, True)
+    """``oips_update_latents`` on one latent's buffer Z [Mc, D] and mask
+    [Mc]."""
+    Z, mask = oips_update_latents([kernel], Z[None], mask[None], X_batch, rho)
+    return Z[0], mask[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,9 +237,8 @@ def unigrid_update(Z, mask, X_batch, points_per_dim: int):
     """Widen the per-dimension bounds to cover the batch and regenerate the
     grid in the first points_per_dim**D slots (all active)."""
     D, P = X_batch.shape[1], points_per_dim
-    inf = torch.tensor(float("inf"), dtype=Z.dtype, device=Z.device)
-    lo = torch.minimum(torch.where(mask[:, None], Z, inf).amin(0), X_batch.amin(0))
-    hi = torch.maximum(torch.where(mask[:, None], Z, -inf).amax(0), X_batch.amax(0))
+    lo = torch.minimum(Z.masked_fill(~mask[:, None], float("inf")).amin(0), X_batch.amin(0))
+    hi = torch.maximum(Z.masked_fill(~mask[:, None], float("-inf")).amax(0), X_batch.amax(0))
     # jnp.linspace(0, 1, P): i / (P - 1), exactly
     t = torch.arange(P, dtype=Z.dtype, device=Z.device) / max(P - 1, 1)
     axes = lo[None, :] + t[:, None] * (hi - lo)[None, :]  # [P, D]
@@ -234,6 +265,10 @@ class Webscale:
         return _result(Xh[idx], X)
 
 
+# jnp.float32(1e30): the distance a point takes when no centre is active
+_BIG = float(np.float32(1e30))
+
+
 def webscale_update(Z, mask, counts, X_batch, k=None):
     """Minibatch k-means over the active centres, the batch's updates
     folded into one count-weighted mean; then free slots (up to ``k``
@@ -241,9 +276,8 @@ def webscale_update(Z, mask, counts, X_batch, k=None):
     the active centres, farthest first."""
     Mc, B = Z.shape[0], X_batch.shape[0]
     k = Mc if k is None else k
-    inf = torch.tensor(float("inf"), dtype=Z.dtype, device=Z.device)
     d2 = torch.sum((X_batch[:, None, :] - Z[None, :, :]) ** 2, dim=-1)  # [B, Mc]
-    d2 = torch.where(mask[None, :], d2, inf)
+    d2 = d2.masked_fill(~mask[None, :], float("inf"))
     assign = torch.argmin(d2, dim=1)  # the first of equal minima, as jnp.argmin
     onehot = (assign[:, None] == torch.arange(Mc, device=Z.device)[None, :]).to(Z.dtype)
     nb = onehot.sum(0)  # [Mc]
@@ -253,8 +287,7 @@ def webscale_update(Z, mask, counts, X_batch, k=None):
     move = (mask & (nb > 0))[:, None]
     Z = torch.where(move, Z + eta[:, None] * (bmean - Z), Z)
     dmin = d2.amin(1)  # [B]
-    big = torch.tensor(1e30, dtype=torch.float32).to(Z.dtype)
-    dmin = torch.where(torch.isfinite(dmin), dmin, big.to(Z.device))
+    dmin = torch.where(torch.isfinite(dmin), dmin, _BIG)
     order = torch.argsort(-dmin, stable=True)  # farthest first, ties in batch order
     inact_rank = torch.cumsum((~mask).to(torch.int64), 0) - 1
     free = k - mask.sum()
@@ -291,31 +324,58 @@ class StreamKmeans:
         return _result(np.stack(Z), X)
 
 
+def streamkmeans_pass_reference(Z, mask, counts, X_batch, radius2: float, cap: int):
+    """Plain PyTorch version of ``ops/cuda_kernels.py::streamkmeans_pass``
+    on the host, in place on Z [L, Mc, D], the mask [L, Mc] and the counts
+    [L, Mc] (copied there and back when they lie on a device), in the
+    inputs' dtype: each squared distance summed over D in order, each
+    operation rounded as the kernel rounds it.  Returns (Z, mask,
+    counts)."""
+    host = [t.detach().cpu() for t in (Z, mask, counts, X_batch)]
+    Zh, mh, ch, Xh = host
+    D = Zh.shape[-1]
+    r2 = torch.tensor(radius2, dtype=Zh.dtype)
+    for l in range(Zh.shape[0]):
+        z, m, c = Zh[l], mh[l], ch[l]
+        for x in Xh:
+            diff = z - x
+            d2 = diff[:, 0] * diff[:, 0]
+            for d in range(1, D):
+                d2 = d2 + diff[:, d] * diff[:, d]
+            d2 = d2.masked_fill(~m, float("inf"))
+            j = int(torch.argmin(d2))  # the first of equal minima
+            if bool(d2[j] > r2) and int(m.sum()) < cap:
+                slot = int(torch.argmin(m.to(torch.uint8)))  # the first inactive slot
+                z[slot], m[slot], c[slot] = x, True, 1.0
+            else:
+                cj = c[j] + 1.0
+                z[j] = z[j] + (x - z[j]) / cj
+                c[j] = cj
+    if Z.device.type != "cpu":
+        for t, h in zip((Z, mask, counts), host):
+            t.copy_(h)
+        return Z, mask, counts
+    return Zh, mh, ch
+
+
+def streamkmeans_update_latents(Z, mask, counts, X_batch, radius2: float, cap=None):
+    """Streaming k-means over one batch on every latent's centres Z
+    [L, Mc, D] with their mask and counts [L, Mc], point by point
+    (``cuda_kernels.streamkmeans_pass`` on copies of them): ``cap`` bounds
+    the active centres (at most the buffer's size, its default).  Returns
+    (Z, mask, counts)."""
+    cap = Z.shape[1] if cap is None else min(cap, Z.shape[1])
+    return cuda_kernels.streamkmeans_pass(Z.clone(memory_format=torch.contiguous_format),
+                                          mask.clone(memory_format=torch.contiguous_format),
+                                          counts.clone(memory_format=torch.contiguous_format),
+                                          X_batch.contiguous(), radius2, cap)
+
+
 def streamkmeans_update(Z, mask, counts, X_batch, radius2: float, cap=None):
-    """Streaming k-means over one batch, point by point in the model's
-    dtype on the host: ``cap`` bounds the active centres (default the
-    buffer's size).  One read of Z, the mask, the counts and the batch,
-    one copy back."""
-    Mc, D = Z.shape
-    cap = Mc if cap is None else cap
-    parts = (Z, mask.to(Z.dtype), counts, X_batch)
-    flat = host_array(torch.cat([p.reshape(-1) for p in parts]))
-    Zh, m, ch, Xh = np.split(flat, np.cumsum([p.numel() for p in parts])[:-1])
-    Zh, Xh, active, ch = Zh.reshape(Mc, D).copy(), Xh.reshape(-1, D), m > 0, ch.copy()
-    r2, one = Zh.dtype.type(radius2), Zh.dtype.type(1.0)
-    for x in Xh:
-        d2 = np.where(active, ((Zh - x[None, :]) ** 2).sum(-1), Zh.dtype.type(np.inf))
-        j = int(d2.argmin())
-        if d2[j] > r2 and int(active.sum()) < cap:
-            slot = int(active.argmin())  # the first inactive slot
-            Zh[slot], active[slot], ch[slot] = x, True, one
-        else:
-            cj = ch[j] + one
-            Zh[j] = Zh[j] + (x - Zh[j]) / cj
-            ch[j] = cj
-    to = dict(device=Z.device)
-    return (torch.as_tensor(Zh, dtype=Z.dtype, **to), torch.as_tensor(active, **to),
-            torch.as_tensor(ch, dtype=counts.dtype, **to))
+    """``streamkmeans_update_latents`` on one latent's centres Z [Mc, D],
+    mask and counts [Mc]."""
+    Z, mask, counts = streamkmeans_update_latents(Z[None], mask[None], counts[None], X_batch, radius2, cap)
+    return Z[0], mask[0], counts[0]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,33 +19,35 @@ onlinetraining.jl:164-180):
      prev_L_a - 1/2 tr(invDa (Ktilde_a + kappa_a Sigma kappa_a^T))
      + prev_eta1 . (kappa_a mu) - 1/2 (kappa_a mu)^T invDa (kappa_a mu)
 
-No CUDA kernel of the port runs here, as the reference's online path
-reaches no Pallas kernel: the products are plain PyTorch at full FP32
-(TF32 off), which the reference asks for too: invDa = Sigma^-1 - K^-1
-cancels, and at lower precision the stream loses positive-definiteness
-within a few batches.  The moments always take the zero-first ladder
+The products are plain PyTorch at full FP32 (TF32 off), which the
+reference asks for too: invDa = Sigma^-1 - K^-1 cancels, and at lower
+precision the stream loses positive-definiteness within a few batches.
+The moments always take the zero-first ladder
 (``linalg.nat_to_moments_safe``), the reference's path off the TPU.  A
-batch is its set-up (the first) or its prologue (save-old, the inducing
-update, the masked kernel matrices, fresh local variables), which the host
-runs eagerly (its selection decides on the host), then its CAVI
-iterations, with the hyperparameter step interleaved as ``train``
-interleaves it.  The iterations run through ``training/graphs.py::
-run_batch``, the counterpart of the reference's ``_online_steps``,
-``_online_batch`` and ``_online_stream_scan`` programs (and, with an
-optimiser, of its ``_online_step_jit`` / ``_online_hyper_jit`` calls): on
-the card as replays of captured CUDA graphs of k iterations, the batch's
-data copied into the capture, so that one capture serves every batch of a
-stream of equal batches; a graph records the full-FP32 kernels the
-algebra picks with TF32 off, and a replay changes no setting.
+batch is its set-up (the first: the selection on the host, as the
+reference's) or its prologue (save-old, the inducing update, the masked
+kernel matrices, fresh local variables: the reference's
+``_online_prologue``), then its CAVI iterations, with the hyperparameter
+step interleaved as ``train`` interleaves it.  The inducing update reads
+nothing back: OIPS's and StreamKmeans' accept walks are the port's CUDA
+kernels (``ops/cuda_kernels.py::oips_accept``, ``streamkmeans_pass``), the
+counterparts of the reference's ``lax.scan``s.  A batch runs through
+``training/graphs.py::run_batch``, the counterpart of the reference's
+``_online_steps``, ``_online_batch`` and ``_online_stream_scan`` programs
+(and, with an optimiser, of its ``_online_step_jit`` / ``_online_hyper_jit``
+calls): on the card as replays of captured CUDA graphs, a later batch's
+prologue one graph, its iterations windows of k, the batch's data copied
+into the capture, so that one capture serves every batch of a stream of
+equal batches; a graph records the full-FP32 kernels the algebra picks
+with TF32 off, and a replay changes no setting.
 
 On a mesh (``mesh=``, the reference's batch rows sharded over "data") each
 process takes its rows of every batch as ``parallel.mesh.shard_batch``
-cuts them, the pad row's mask threaded through; the inducing-set
-selection runs on the whole batch on process 0 alone, which broadcasts Z,
-its mask and its counts (OIPS decides on the host, so the processes' sets
-could otherwise part); kappa^T g_mu, kappa^T diag(g_Sigma) kappa and the
-likelihood's batch sums go through ``utils.batch_sums.batch_sum``; the
-streaming correction stays replicated.
+cuts them, the pad row's mask threaded through; the inducing-set selection
+runs on the whole batch on process 0 alone, which broadcasts Z, its mask
+and its counts, so that the processes' sets cannot part; kappa^T g_mu,
+kappa^T diag(g_Sigma) kappa and the likelihood's batch sums go through
+``utils.batch_sums.batch_sum``; the streaming correction stays replicated.
 """
 from __future__ import annotations
 
@@ -62,8 +64,8 @@ from ..inducing.algorithms import (
     UniGridOnline,
     Webscale,
     inducingpoints,
-    oips_update,
-    streamkmeans_update,
+    oips_update_latents,
+    streamkmeans_update_latents,
     unigrid_update,
     webscale_update,
 )
@@ -242,21 +244,24 @@ def save_old_parameters(model: OnlineSVGP, state):
 
 
 def update_Z(model: OnlineSVGP, x):
-    """The batch's inducing-set update by the model's algorithm, latent by
-    latent: OIPS and StreamKmeans grow the masked buffer, UniGridOnline and
-    Webscale move a fixed active set."""
+    """The batch's inducing-set update by the model's algorithm:
+    OIPS and StreamKmeans grow the masked buffer (one walk over the batch
+    for every latent: ``cuda_kernels.oips_accept`` or
+    ``streamkmeans_pass``), UniGridOnline and Webscale move a fixed active
+    set, latent by latent.  Nothing is read back to the host."""
     alg, L = model.Zalg, model.n_latent
     Z, m, c = model.Z, model.z_mask, model.z_counts
     if isinstance(alg, UniGridOnline):
         outs = [unigrid_update(Z[l], m[l], x, alg.points_per_dim) for l in range(L)]
+        Z, m = (torch.stack(parts) for parts in zip(*outs))
     elif isinstance(alg, Webscale):
         outs = [webscale_update(Z[l], m[l], c[l], x, alg.k) for l in range(L)]
+        Z, m, c = (torch.stack(parts) for parts in zip(*outs))
     elif isinstance(alg, StreamKmeans):
-        outs = [streamkmeans_update(Z[l], m[l], c[l], x, alg.radius2, alg.capacity) for l in range(L)]
+        Z, m, c = streamkmeans_update_latents(Z, m, c, x, alg.radius2, alg.capacity)
     else:
-        outs = [oips_update(latent(model.kernel, l), Z[l], m[l], x, model.rho_accept) for l in range(L)]
-    fields = ("Z", "z_mask", "z_counts")  # each update returns (Z, mask) or (Z, mask, counts)
-    return model.replace(**{f: torch.stack(parts) for f, parts in zip(fields, zip(*outs))})
+        Z, m = oips_update_latents([latent(model.kernel, l) for l in range(L)], Z, m, x, model.rho_accept)
+    return model.replace(Z=Z, z_mask=m, z_counts=c)
 
 
 @linalg._highest_precision
@@ -377,15 +382,31 @@ def _update(model: OnlineSVGP, state, x, y, generator=None, eps=None):
     return online_variational_update(model, state, x, y)
 
 
+def _refresh_kmat(model: OnlineSVGP, state):
+    """The end of a batch with hyperparameters to learn: the kernel
+    matrices of the model as its last step left it."""
+    return model, state.replace(kmat=masked_kmat(model))
+
+
+def _captures(model: OnlineSVGP, mesh, iterations: int) -> bool:
+    """Whether a batch runs through ``graphs.run_batch``: outside a
+    sharded step and a mesh of several processes, with iterations to
+    run."""
+    return iterations > 0 and not (mesh is not None and mesh.size > 1) and graphs.drives(model)
+
+
 def _train_batch(model: OnlineSVGP, state, X, y, iterations: int, mesh=None):
     """One streaming batch (labels treated): its set-up or prologue, then
     ``iterations`` CAVI iterations; with an optimiser, a hyperparameter step
     after iteration i when i is a multiple of ``atfrequency``, i >= 3 and i
-    is not the last, and the kernel matrices refreshed at the end.  The
-    iterations run through ``graphs.run_batch`` (captured CUDA graphs on
-    the card); on a mesh of several processes, or inside a sharded step,
-    each process iterates eagerly on its rows of the batch
-    (``parallel.mesh.shard_batch``), the selection made on the whole."""
+    is not the last, and the kernel matrices refreshed at the end.  A
+    later batch runs through ``graphs.run_batch`` (captured CUDA graphs on
+    the card): its prologue, its iterations and the refresh, with no host
+    read; the first batch's set-up selects on the host, then its
+    iterations run there too.  On a mesh of several processes, or inside a
+    sharded step, each process runs the prologue and iterates eagerly on
+    its rows of the batch (``parallel.mesh.shard_batch``), the selection
+    made on the whole."""
     xs, ys, w = X, y, None
     split = mesh is not None and mesh.size > 1
     if split:
@@ -393,24 +414,27 @@ def _train_batch(model: OnlineSVGP, state, X, y, iterations: int, mesh=None):
 
         xs, ys, mask = shard_batch(mesh, X, y, with_mask=True)
         w = mask if _n_pad(mesh, X.shape[0]) else None
+    captured, prologue = _captures(model, mesh, iterations), None
     if state is None:
         model, state = _first_batch(model, X, xs.shape[0], mesh)
+    elif captured:
+        prologue = _online_prologue
     else:
         model, state = _online_prologue(model, state, X, xs.shape[0], mesh)
     do_hyper = model.optimiser is not None
     marks = [do_hyper and i % model.atfrequency == 0 and i >= 3 and i != iterations for i in range(1, iterations + 1)]
-    if not split and graphs.drives(model):
-        model, state = graphs.run_batch(model, state, X, y, marks, update=_update,
-                                        hyper=autotuning.hyper_step if do_hyper else None)
-    else:
-        for i in range(iterations):
-            with batch_sums.sharded(mesh) if split else contextlib.nullcontext():
-                model, state = online_variational_update(model, state, xs, ys, w)
-            state = state.replace(step=state.step + 1)
-            if marks[i]:
-                model, state = autotuning.hyper_step(model, state, X, y)
+    if captured:
+        return graphs.run_batch(model, state, X, y, marks, update=_update,
+                                hyper=autotuning.hyper_step if do_hyper else None, prologue=prologue,
+                                tail=_refresh_kmat if do_hyper else None)
+    for i in range(iterations):
+        with batch_sums.sharded(mesh) if split else contextlib.nullcontext():
+            model, state = online_variational_update(model, state, xs, ys, w)
+        state = state.replace(step=state.step + 1)
+        if marks[i]:
+            model, state = autotuning.hyper_step(model, state, X, y)
     if do_hyper:
-        state = state.replace(kmat=masked_kmat(model))
+        model, state = _refresh_kmat(model, state)
     return model, state
 
 
@@ -453,12 +477,15 @@ def online_train_stream(model: OnlineSVGP, X_stream, y_stream, state: TrainState
                         iterations: int = 20, mesh=None):
     """Train on a pre-buffered stream of equal batches, X_stream
     [n_batches, B, D] and y_stream [n_batches, B]: the same batches as
-    ``online_train`` called once a batch, in one loop, the labels treated
-    once for the stream; each batch's iterations replay the one capture of
-    the stream (``graphs.run_batch``), its set-up or prologue eager;
-    ``mesh`` as ``online_train`` takes it.  Requires optimiser=None (a
-    stream with hyperparameter learning goes batch by batch, as the
-    reference's)."""
+    ``online_train`` called once a batch, the labels treated once for the
+    stream (the reference's ``_online_stream_scan``).  The first batch's
+    set-up (state None) runs on the host; every later batch replays the
+    one capture of the stream (``graphs.run_stream``): its data copied into
+    the capture, its prologue's graph, its windows of iterations, with no
+    host read and no copy of the carry between batches.  ``mesh`` as
+    ``online_train`` takes it (a mesh of several processes: batch by batch,
+    eagerly).  Requires optimiser=None (a stream with hyperparameter
+    learning goes batch by batch, as the reference's)."""
     mesh = _check_mesh(model, mesh)
     if model.optimiser is not None:
         raise ValueError(
@@ -474,6 +501,12 @@ def online_train_stream(model: OnlineSVGP, X_stream, y_stream, state: TrainState
     # treat_labels may add label dimensions (multiclass: [N] -> [N, K]);
     # restore the (n_batches, B) layout in front of them
     y_stream = match_dtype(y_flat.reshape(lead + tuple(y_flat.shape[1:])).to(X_stream.device), X_stream)
+    if state is None and lead[0]:  # the first batch's set-up, then its iterations
+        model, state = _train_batch(model, state, X_stream[0], y_stream[0], iterations, mesh)
+        X_stream, y_stream = X_stream[1:], y_stream[1:]
+    if len(X_stream) and _captures(model, mesh, iterations):
+        return graphs.run_stream(model, state, X_stream, y_stream, [False] * iterations, update=_update,
+                                 prologue=_online_prologue)
     for Xb, yb in zip(X_stream, y_stream):
         model, state = _train_batch(model, state, Xb, yb, iterations, mesh)
     return model, state

@@ -34,7 +34,11 @@ kernels of the port's benchmark path, whose wrappers live in
 ``agp_tpu_torch/benchmarks/``: the design-sweep variants of the fused
 pass (``direct_stats``, ``two_factor_nt``; ``csrc/fused_variants.cu``,
 which runs the split pairs' device code) and the tile gather
-(``gather_row_tiles``; ``csrc/gather_tiles.cu``).  On a CPU tensor a
+(``gather_row_tiles``; ``csrc/gather_tiles.cu``); and the online
+prologue's accept walks, which replace no Pallas kernel but the
+reference's ``lax.scan``s over a batch's points (``oips_accept``,
+``streamkmeans_pass``; ``csrc/online_select.cu``, float32 and float64,
+both counted in ``launches``).  On a CPU tensor a
 wrapper runs its ``*_reference``, the same function in plain PyTorch (any
 float dtype).  On a CUDA tensor it launches its kernel or raises; there is
 no fallback.  The kernels take float32; the split pairs (kernels 4-7) also
@@ -48,8 +52,8 @@ The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``: one
 ``nvcc -c`` per source of ``_SOURCES`` (``fused_cavi_stats.cu``,
 ``fused_cavi_stats_multi.cu``, ``batched_pair.cu``, ``kappa_single.cu``,
-``fused_variants.cu``, ``gather_tiles.cu``), all started together.  The
-build happens at the first CUDA call, into
+``fused_variants.cu``, ``gather_tiles.cu``, ``online_select.cu``), all
+started together.  The build happens at the first CUDA call, into
 ``agp_tpu_torch/_build/<hash of the sources>/``; importing this module
 never calls ``nvcc``.
 """
@@ -76,7 +80,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("fused_cavi_stats.cu", "fused_cavi_stats_multi.cu", "batched_pair.cu", "kappa_single.cu",
-                 "fused_variants.cu", "gather_tiles.cu")
+                 "fused_variants.cu", "gather_tiles.cu", "online_select.cu")
 )
 # headers the sources include: part of the build's hash
 _HEADERS = tuple(_PKG / "csrc" / name
@@ -244,6 +248,11 @@ def _library() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.agp_gather_row_tiles.argtypes = [p, p, i, p, ll, ll, p]
     lib.agp_gather_row_tiles.restype = i
+    d = ctypes.c_double
+    lib.agp_oips_accept.argtypes = [p] * 7 + [i] * 3 + [d, i, p]
+    lib.agp_oips_accept.restype = i
+    lib.agp_streamkmeans_pass.argtypes = [p] * 4 + [i] * 5 + [d, i, p]
+    lib.agp_streamkmeans_pass.restype = i
     return lib
 
 
@@ -1173,13 +1182,113 @@ cavi_stats.launches = 0
 cavi_stats.launches_f64 = 0
 
 
+# ------------------------------------------- the online prologue's walks
+def _check_walk_mask(name, mask, like, shape):
+    if mask.device != like.device or mask.dtype != torch.bool or tuple(mask.shape) != shape \
+            or not mask.is_contiguous():
+        raise ValueError(f"{name}: the mask must be a contiguous bool tensor of shape {shape} on {like.device}, "
+                         f"got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
+
+
+def oips_accept(g_z, g_x, kx, kd, mask, rho):
+    """OIPS's accept walk over a batch for L latents: row_of_slot [L, Mc]
+    (int64), the batch row each slot takes, -1 where none.  g_z [L, B, Mc]
+    = k(X, Z), g_x [L, B, B] = k(X, X), kx [L, B] = k(x, x), kd [L, Mc] =
+    k(z, z) as the batch starts, mask [L, Mc] (bool) the active slots.
+    Point i, in order, goes into the first inactive slot when its largest
+    correlation g / sqrt(max(kx kd, 1e-30)) with the active slots and the
+    rows accepted before it (each with kd of its slot) is below ``rho`` and
+    a slot is free (the reference's ``lax.scan``,
+    agp_tpu/inducing/algorithms.py:134-151).
+
+    A CPU tensor runs ``inducing.algorithms.oips_accept_reference``.  A CUDA
+    tensor launches ``csrc/online_select.cu`` (float32 or float64, one
+    block a latent; the decisions are the plain version's bit for bit) and
+    adds one to ``oips_accept.launches``."""
+    if g_z.device.type == "cpu":
+        from ..inducing.algorithms import oips_accept_reference
+
+        return oips_accept_reference(g_z, g_x, kx, kd, mask, rho)
+    if g_z.device.type != "cuda":
+        raise ValueError(f"oips_accept runs on CPU or CUDA tensors, got {g_z.device}")
+    if g_z.ndim != 3:
+        raise ValueError(f"g_z must be [L, B, Mc], got shape {tuple(g_z.shape)}")
+    L, B, Mc = g_z.shape
+    _check_tensors(g_z, {"g_z": (g_z, (L, B, Mc)), "g_x": (g_x, (L, B, B)), "kx": (kx, (L, B)),
+                         "kd": (kd, (L, Mc))}, PAIR_DTYPES)
+    _check_walk_mask("oips_accept", mask, g_z, (L, Mc))
+    if min(L, B, Mc) < 1:
+        raise ValueError(f"the CUDA oips_accept takes L, B, Mc >= 1; got L={L}, B={B}, Mc={Mc}")
+    dev = g_z.device
+    row_of_slot = torch.empty((L, Mc), dtype=torch.int64, device=dev)
+    max_z = torch.empty((L, B), dtype=g_z.dtype, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.agp_oips_accept(*(t.data_ptr() for t in (g_z, g_x, kx, kd, mask, row_of_slot, max_z)), L, B, Mc,
+                                  float(rho), int(g_z.dtype == torch.float64),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise _cuda_error("oips_accept", lib, err)
+    oips_accept.launches += 1
+    return row_of_slot
+
+
+oips_accept.launches = 0
+
+
+def streamkmeans_pass(Z, mask, counts, X, radius2, cap):
+    """StreamKmeans' pass over a batch X [B, D] for L latents' centres
+    Z [L, Mc, D], their mask [L, Mc] (bool) and counts [L, Mc], in place:
+    each point, in order, opens the first inactive slot (count 1) when its
+    squared distance to the nearest active centre (the first of equal
+    minima) exceeds ``radius2`` and fewer than ``cap`` are active, else that
+    centre absorbs it, c_j <- c_j + 1, Z_j <- Z_j + (x - Z_j) / c_j (the
+    reference's ``lax.scan``, agp_tpu/inducing/algorithms.py:277-297).
+    Returns (Z, mask, counts).
+
+    A CPU tensor runs ``inducing.algorithms.streamkmeans_pass_reference``.
+    A CUDA tensor launches ``csrc/online_select.cu`` (float32 or float64,
+    one block a latent; the plain version's decisions, Z, mask and counts
+    bit for bit) and adds one to ``streamkmeans_pass.launches``.  Both
+    take ``cap`` <= Mc (``streamkmeans_update_latents`` clamps it)."""
+    if Z.ndim == 3 and cap > Z.shape[1]:
+        raise ValueError(f"streamkmeans_pass: cap {cap} exceeds the buffer's {Z.shape[1]} slots")
+    if Z.device.type == "cpu":
+        from ..inducing.algorithms import streamkmeans_pass_reference
+
+        return streamkmeans_pass_reference(Z, mask, counts, X, radius2, cap)
+    if Z.device.type != "cuda":
+        raise ValueError(f"streamkmeans_pass runs on CPU or CUDA tensors, got {Z.device}")
+    if Z.ndim != 3 or X.ndim != 2:
+        raise ValueError(f"Z must be [L, Mc, D] and X [B, D], got {tuple(Z.shape)} and {tuple(X.shape)}")
+    L, Mc, D = Z.shape
+    B = X.shape[0]
+    _check_tensors(Z, {"Z": (Z, (L, Mc, D)), "counts": (counts, (L, Mc)), "X": (X, (B, D))}, PAIR_DTYPES)
+    _check_walk_mask("streamkmeans_pass", mask, Z, (L, Mc))
+    if min(L, B, Mc, D) < 1:
+        raise ValueError(f"the CUDA streamkmeans_pass takes L, B, Mc, D >= 1; got L={L}, B={B}, Mc={Mc}, D={D}")
+    lib = _library()
+    with torch.cuda.device(Z.device):
+        err = lib.agp_streamkmeans_pass(*(t.data_ptr() for t in (Z, mask, counts, X)), L, B, Mc, D, int(cap),
+                                        float(radius2), int(Z.dtype == torch.float64),
+                                        torch.cuda.current_stream(Z.device).cuda_stream)
+    if err != 0:
+        raise _cuda_error("streamkmeans_pass", lib, err)
+    streamkmeans_pass.launches += 1
+    return Z, mask, counts
+
+
+streamkmeans_pass.launches = 0
+
+
 # ------------------------------------------- launches inside CUDA graphs
-# the launch counters of the kernels a CAVI step runs (kernels 1-7): the
-# wrapper's name in this module and its attribute
+# the launch counters of the kernels a captured iteration or an online
+# prologue runs (kernels 1-7, the accept walks): the wrapper's name in this
+# module and its attribute
 STEP_COUNTERS = tuple(
     (name, "launches") for name in (
         "fused_cavi_stats", "fused_cavi_stats_multiclass", "fused_cavi_stats_het", "fused_kappa_moments_batched",
-        "cavi_stats_batched", "fused_kappa", "cavi_stats")
+        "cavi_stats_batched", "fused_kappa", "cavi_stats", "oips_accept", "streamkmeans_pass")
 ) + tuple((name, "launches_f64") for name in ("fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa",
                                               "cavi_stats"))
 

@@ -16,12 +16,17 @@ steps, then a one-step graph for the remainder.  ``run_hyper`` takes the
 chunk's iterations with their marks, each a CAVI step followed, where it is
 marked, by a hyperparameter step on the same minibatch (the host lays the
 reference's schedule over the run), and replays graphs of marked
-iterations.  ``run_batch`` takes the iterations of one streaming batch
+iterations.  ``run_batch`` takes one streaming batch
 (``models/online_svgp.py``): the whole batch each iteration, its data
-copied into the capture, the iterations replayed in windows of k.  The
-host makes one graph launch for the iterations of a graph in place of every
-op of every step (91-164 launches a CAVI step on the paths ``PERF.md`` §5
-lists, 540-876 an iteration with a hyperparameter step).
+copied into the capture, a later batch's prologue replayed as a graph of
+its own (``("prologue", fn)``), the iterations in windows of k, with Adam
+the batch's end inside the last window's graph (``("tail", fn,
+pattern)``); ``run_stream`` takes the batches of a pre-buffered stream on
+one carry, each copied into the capture in turn, with no host read and
+no copy of the carry between batches.  The host makes one graph launch
+for the iterations of a graph in place of every op of every step (91-164
+launches a CAVI step on the paths ``PERF.md`` §5 lists, 540-876 an
+iteration with a hyperparameter step).
 
 * Patterns.  A graph's body is a fixed sequence of iterations, each marked
   with or without a hyperparameter step; a graph is keyed by this pattern,
@@ -54,17 +59,19 @@ lists, 540-876 an iteration with a hyperparameter step).
     with such leaves, and its mixing matrix ``A``, which the A step
     (``models/multioutput.py::mo_update_A``) steps and projects in every
     CAVI step under an ``Aoptimiser`` (held, both would be read stale at
-    every replay); and, where a hyperparameter step runs, the kernel's and
+    every replay), or an online model's slots, their mask and counts, the
+    previous batch's slots and mask and the kmat, which its prologue
+    rewrites (``_PROLOGUE_FIELDS``); and, where a hyperparameter step
+    runs, the kernel's and
     the mean's leaves, Z under a ``Zoptimiser``, the kmat and the
     optimisers' states (``hyper_state``), each in the layout (strides) a
     step gives its result.  The captured body ends by copying its results
     into them, so each replay goes on from the last; a call returns copies
     of them;
   - held: the rest of the model (the kernel, the mean and Z where no
-    hyperparameter step runs; an online model's slots, their mask and
-    counts, which its prologue moves between batches), the kmat and
-    ``hyper_state`` likewise, rho, each in the caller's layout (part of
-    the key), copied in at each call;
+    hyperparameter step runs), the kmat and ``hyper_state`` likewise, rho,
+    each in the caller's layout (part of the key), copied in at each
+    call;
   - X and y (a tensor, or a multi-output model's tuple of one a task),
     read in place by ``run`` and ``run_hyper``: the key holds each
     tensor's address and strides and the capture a reference to them, so
@@ -81,14 +88,21 @@ lists, 540-876 an iteration with a hyperparameter step).
   operands' layout, so a replay reads the carry in the layout the eager
   loop's next step would read.  Where the caller's carried leaves have
   another layout than the buffers (a fresh state; a new capture), the
-  call's first iteration runs eagerly on the caller's own tensors, as the
-  eager loop's does, on the chunks' side stream; its results, in the
+  call's first iteration (a streaming batch's prologue before it) runs
+  eagerly on the caller's own tensors, as the eager loop's does, on the
+  chunks' side stream; its results, in the
   step's layout, are copied into the carry (into new buffers, in their
   layouts, for a new capture).  Before a new capture this step is the
   warm-up: it loads the kernels' library, sets their shared-memory
   attributes, fills the wrappers' caches (the constants, the statistics
   plan, the quadrature nodes) and cuBLAS's and cuSOLVER's handles, so that
   a capture records kernels only.
+* The prologue's warm-up.  A streaming batch's prologue is captured at
+  its first later batch, where no eager step ran it: before that capture
+  its body runs once eagerly on copies of the carry (on the side stream),
+  its results dropped, so that the kernels it reaches (an accept walk's)
+  are loaded and their caches filled before they are recorded.  Its
+  launches count as any eager launch does.
 * The hyperparameter warm-up.  A graph that holds a hyperparameter step
   is captured only after an iteration with one ran eagerly on the carry
   (on the side stream): the first marked iteration of a capture runs so
@@ -154,8 +168,8 @@ _CACHE: OrderedDict = OrderedDict()
 _HELD_STATE = ("kmat", "rho", "hyper_state")
 # since the process started: iterations run eagerly (a call's first, the
 # hyperparameter warm-up), graph replays, graphs captured, static carries
-# made; a caller reads differences
-tally = {"eager": 0, "replays": 0, "graphs": 0, "carries": 0}
+# made, prologues warmed on copies of the carry; a caller reads differences
+tally = {"eager": 0, "replays": 0, "graphs": 0, "carries": 0, "warm": 0}
 
 
 def takes(model) -> bool:
@@ -192,11 +206,22 @@ def _hyper_fields(model) -> tuple:
     return ("kernel", "mean") + z + ("kmat", "hyper_state")
 
 
+# an online model's fields that its prologue rewrites between batches
+# (save-old's Za and za_mask, the inducing update's Z, z_mask and z_counts,
+# the masked kmat): carried, so that the prologue runs inside the capture
+_PROLOGUE_FIELDS = ("Z", "z_mask", "z_counts", "Za", "za_mask", "kmat")
+
+
 def _step_fields(model) -> tuple:
     """The model's fields a CAVI step rewrites (module docstring, "The
     static carry"): a multi-output model's likelihoods and its mixing
-    matrix A, any other model's likelihood."""
-    return ("likelihoods", "A") if getattr(model, "is_multioutput", False) else ("likelihood",)
+    matrix A, any other model's likelihood; an online model's prologue
+    fields (``_PROLOGUE_FIELDS``) beside its likelihood."""
+    if getattr(model, "is_multioutput", False):
+        return ("likelihoods", "A")
+    if getattr(model, "is_online", False):
+        return ("likelihood",) + _PROLOGUE_FIELDS
+    return ("likelihood",)
 
 
 def _fields(model, hyper) -> tuple:
@@ -219,6 +244,29 @@ def marks(pattern) -> tuple:
     step) from its pattern: a number of unmarked iterations, or the tuple
     of their marks."""
     return (False,) * pattern if isinstance(pattern, int) else tuple(pattern)
+
+
+def _role(key) -> str | None:
+    """"prologue" or "tail" for a graph's key of that kind (``("prologue",
+    fn)``, ``("tail", fn, pattern)``), None for a pattern."""
+    return key[0] if isinstance(key, tuple) and key and isinstance(key[0], str) else None
+
+
+def iterations_of(key) -> int | tuple:
+    """The pattern of the iterations a graph's key runs: the key itself
+    for a window of iterations, the window of a ("tail", fn, pattern) key,
+    0 (none) for a ("prologue", fn) key."""
+    role = _role(key)
+    return key if role is None else key[2] if role == "tail" else 0
+
+
+def describe(key) -> str:
+    """A graph's key in words: its iterations and what runs around them."""
+    pattern, role = iterations_of(key), _role(key)
+    m = marks(pattern)
+    what = f"{pattern} CAVI step(s)" if isinstance(pattern, int) else \
+        f"{len(m)} iteration(s) with {sum(m)} hyperparameter step(s)"
+    return {None: what, "prologue": "a streaming batch's prologue", "tail": f"{what} and a batch's end"}[role]
 
 
 def pattern_of(flags) -> int | tuple:
@@ -412,6 +460,11 @@ class _Chunks:
             src += list(_tensors(X) + _tensors(y))
         torch._foreach_copy_(dst, src)
 
+    def load_data(self, X, y):
+        """Copies a batch into the data's buffers (``copied``): the next
+        batch of a stream, on the carry as the last one left it."""
+        torch._foreach_copy_(list(_tensors(self.X) + _tensors(self.y)), list(_tensors(X) + _tensors(y)))
+
     def unload(self, model, state):
         """The call's (model, state) with copies of the carried leaves."""
         carried = set(self.carried)
@@ -421,16 +474,24 @@ class _Chunks:
 
         return map_named(out, model, "model"), map_named(out, state, "state")
 
-    def _body(self, pattern):
-        """The iterations of ``pattern`` from the carry, their results
-        copied back into it."""
+    def _body(self, key, keep=True):
+        """What ``key`` runs, from the carry, its results copied back into
+        it (without ``keep``, run on copies of the carry and dropped): a
+        batch's prologue (``("prologue", fn)``: ``fn(model, state, X)``), or
+        the iterations of a pattern, then, for ``("tail", fn, pattern)``,
+        ``fn(model, state)``."""
         model, state = self.model, self.state
-        if self.device.type != "cuda":  # run eagerly: a step's results outlive the next replay
+        if self.device.type != "cuda" or not keep:  # a step's results outlive the next replay
             model, state = map_named(lambda p, t: t.clone(), model, "model"), map_named(lambda p, t: t.clone(),
                                                                                        state, "state")
-        for j, hyper in enumerate(marks(pattern)):
+        role = _role(key)
+        if role == "prologue":
+            model, state = key[1](model, state, self.X)
+        for j, hyper in enumerate(marks(iterations_of(key))):
             model, state = _iteration(model, state, self.X, self.y, self.mode, _row(self.idx, j), _row(self.eps, j),
                                       self.rng, self.draw, self.update, self.hyper if hyper else None)
+        if role == "tail":
+            model, state = key[1](model, state)
         out = dict(_leaves(model, state))
         changed = [p for p in out if _carried(p, self.fields) and p not in self.buf] + [
             p for p in self.carried
@@ -439,6 +500,8 @@ class _Chunks:
         if changed:
             raise TypeError(f"a step changed its carry's structure ({', '.join(changed)}): a captured chunk needs "
                             "the leaves, shapes and dtypes it starts with")
+        if not keep:
+            return
         dst, src = [], []
         for p in self.carried:
             t, b = out[p], self.buf[p]
@@ -453,24 +516,26 @@ class _Chunks:
         if self.eps is not None:
             self.eps[:steps].copy_(eps[at:at + steps])
 
-    def _graph(self, pattern):
-        """The graph of ``pattern``, captured at its first use."""
-        graph = self.graphs.get(pattern)
+    def _graph(self, key):
+        """The graph of ``key`` (a pattern, or a prologue's or a tail's key:
+        ``_body``), captured at its first use."""
+        graph = self.graphs.get(key)
         if graph is not None:
             return graph
+        if _role(key) == "prologue":  # the prologue's warm-up (module docstring)
+            _on_stream(self.device, lambda: self._body(key, keep=False))
+            tally["warm"] += 1
         stream = _stream(self.device) if self.device.type == "cuda" else None
         graph = _graph_class(self.device)(self.device, self.rng, stream)
         t0 = time.perf_counter()
         with cuda_kernels.CapturedLaunches() as launches:
             try:
-                graph.capture(functools.partial(self._body, pattern), [self.buf[p] for p in self.carried])
+                graph.capture(functools.partial(self._body, key), [self.buf[p] for p in self.carried])
             except Exception as err:
-                what = (f"{pattern} CAVI step(s)" if isinstance(pattern, int) else
-                        f"{len(pattern)} iteration(s) with {sum(pattern)} hyperparameter step(s)")
-                raise RuntimeError(f"capturing {what} of a {type(self.model).__name__} failed; a model of a "
-                                   "captured kind does not run on the eager loop") from err
-        self.capture_seconds[pattern] = time.perf_counter() - t0
-        self.graphs[pattern], self.launches[pattern] = graph, launches
+                raise RuntimeError(f"capturing {describe(key)} of a {type(self.model).__name__} failed; a model of "
+                                   "a captured kind does not run on the eager loop") from err
+        self.capture_seconds[key] = time.perf_counter() - t0
+        self.graphs[key], self.launches[key] = graph, launches
         tally["graphs"] += 1
         return graph
 
@@ -496,14 +561,37 @@ class _Chunks:
         self.warm |= bool(flags[at])
         tally["eager"] += 1
 
-    def replay(self, pattern, idx, eps, at):
-        """Iterations ``at`` .. ``at + len(marks(pattern)) - 1`` of the
-        chunk: one replay of ``pattern``'s graph."""
-        graph = self._graph(pattern)
-        self._fill(len(marks(pattern)), idx, eps, at)
+    def replay(self, key, idx=None, eps=None, at=0):
+        """One replay of ``key``'s graph: iterations ``at`` .. ``at +
+        len(marks(iterations_of(key))) - 1`` of the chunk (with a tail's
+        key, then the batch's end), or a batch's prologue."""
+        graph = self._graph(key)
+        self._fill(len(marks(iterations_of(key))), idx, eps, at)
         graph.replay()
-        self.launches[pattern].replayed()
+        self.launches[key].replayed()
         tally["replays"] += 1
+
+    def iterate(self, flags, idx, eps, at, tail=None):
+        """Iterations ``at`` .. of a chunk marked ``flags`` (``next``'s
+        patterns), then ``tail(model, state)`` on the carry: inside the
+        last window's graph, or eagerly where the last iteration ran
+        eagerly."""
+        n = len(flags)
+        while at < n:
+            pattern = self.next(flags, at)
+            if pattern is None:
+                self.eager(flags, idx, eps, at)
+                at += 1
+                continue
+            steps = len(marks(pattern))
+            if at + steps == n and tail is not None:
+                self.replay(("tail", tail, pattern), idx, eps, at)
+                tail = None
+            else:
+                self.replay(pattern, idx, eps, at)
+            at += steps
+        if tail is not None:
+            _on_stream(self.device, lambda: self._body(("tail", tail, 0)))
 
 
 def _key(model, state, X, y, mode, idx, mc_draws, rng, draw, update, hyper, large, copied):
@@ -539,8 +627,12 @@ def latest():
     return next(reversed(_CACHE.values()), None)
 
 
-def _run(model, state, X, y, flags, mode, idx, generator, mc_draws, rng, draw, update, hyper, large, copied=False):
-    """The iterations marked ``flags`` (module docstring)."""
+def _run(model, state, X, y, flags, mode, idx, generator, mc_draws, rng, draw, update, hyper, large, copied=False,
+         prologue=None, tail=None, more=()):
+    """The iterations marked ``flags`` (module docstring); with
+    ``prologue``, ``prologue(model, state, X)`` before them, and with
+    ``tail``, ``tail(model, state)`` after them; then, for each (X, y) of
+    ``more`` (``copied`` data), the same on that batch."""
     n = len(flags)
     if n < 1:
         return model, state
@@ -550,11 +642,14 @@ def _run(model, state, X, y, flags, mode, idx, generator, mc_draws, rng, draw, u
     at = 0
     if chunks is not None and chunks.fits(model, state):
         chunks.load(model, state, X, y)
+        if prologue is not None:
+            chunks.replay(("prologue", prologue))
     else:
         old = chunks
 
         def first():
-            m, s = _iteration(model, state, X, y, mode, _row(idx, 0), _row(mc_draws, 0), gen, draw, update,
+            m, s = (model, state) if prologue is None else prologue(model, state, X)
+            m, s = _iteration(m, s, X, y, mode, _row(idx, 0), _row(mc_draws, 0), gen, draw, update,
                               hyper if flags[0] else None)
             c = old if old is not None and old.fits(m, s) else _Chunks(m, s, X, y, mode, idx, mc_draws, gen, draw,
                                                                         update, hyper, large, copied)
@@ -569,14 +664,11 @@ def _run(model, state, X, y, flags, mode, idx, generator, mc_draws, rng, draw, u
     while len(_CACHE) >= _CACHE_SIZE:
         _drop(_CACHE.popitem(last=False)[1])
     _CACHE[key] = chunks
-    while at < n:
-        pattern = chunks.next(flags, at)
-        if pattern is None:
-            chunks.eager(flags, idx, mc_draws, at)
-            at += 1
-            continue
-        chunks.replay(pattern, idx, mc_draws, at)
-        at += len(marks(pattern))
+    chunks.iterate(flags, idx, mc_draws, at, tail)
+    for Xb, yb in more:
+        chunks.load_data(Xb, yb)
+        chunks.replay(("prologue", prologue))
+        chunks.iterate(flags, idx, mc_draws, 0, tail)
     return chunks.unload(model, state)
 
 
@@ -605,15 +697,31 @@ def run_hyper(model, state, X, y, flags, mode, idx, generator=None, rng=False, *
                 hyper, large_pattern(model.atfrequency))
 
 
-def run_batch(model, state, X, y, flags, *, update, hyper=None):
-    """The iterations of one streaming batch (X, y), each on the whole
-    batch: iteration i ``update(model, state, X, y, None, None)`` and
-    ``step + 1``, then, where ``flags[i]`` is true, ``hyper(model, state,
-    X, y)``; returns (model, state).  X and y are copied into the capture's
-    buffers at each call, so that every batch of their shapes, dtypes and
-    layouts replays one capture.  The first iteration runs eagerly where
-    the carry's layouts or the capture are new, the first marked one where
-    no graph with a hyperparameter step was captured yet; the rest are
-    replays of the next k iterations' marks (module docstring)."""
+def run_batch(model, state, X, y, flags, *, update, hyper=None, prologue=None, tail=None):
+    """One streaming batch (X, y): ``prologue(model, state, X)`` where
+    given, then the iterations, each on the whole batch: iteration i
+    ``update(model, state, X, y, None, None)`` and ``step + 1``, then,
+    where ``flags[i]`` is true, ``hyper(model, state, X, y)``; then
+    ``tail(model, state)`` where given; returns (model, state).  X and y
+    are copied into the capture's buffers at each call, so that every batch
+    of their shapes, dtypes and layouts replays one capture.  The prologue
+    is a graph of its own, the tail part of the last window's graph.  The
+    first iteration runs eagerly where the carry's layouts or the capture
+    are new (the prologue with it), the first marked one where no graph
+    with a hyperparameter step was captured yet; the rest are replays of
+    the next k iterations' marks (module docstring)."""
     return _run(model, state, X, y, tuple(bool(f) for f in flags), None, None, None, None, False, _whole_batch,
-                update, hyper, None, copied=True)
+                update, hyper, None, copied=True, prologue=prologue, tail=tail)
+
+
+def run_stream(model, state, X_stream, y_stream, flags, *, update, prologue):
+    """``run_batch`` (no hyperparameter step, no tail) over the batches
+    X_stream [n, B, ...], y_stream [n, B, ...] in order, on one carry: the
+    first as ``run_batch`` runs it, each later one copied into the data's
+    buffers, then its prologue's graph and its windows replayed, with no
+    copy of the carry between batches and no host read; returns (model,
+    state) after the last."""
+    flags = tuple(bool(f) for f in flags)
+    more = zip(X_stream[1:], y_stream[1:])
+    return _run(model, state, X_stream[0], y_stream[0], flags, None, None, None, None, False, _whole_batch, update,
+                None, None, copied=True, prologue=prologue, more=more)

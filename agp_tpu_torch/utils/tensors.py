@@ -131,14 +131,6 @@ def host_read(t: torch.Tensor):
 host_read.reads = 0
 
 
-def host_array(t: torch.Tensor):
-    """``t`` copied to the host as a numpy array: one read, counted in
-    ``host_read.reads`` as ``host_read`` counts its own (the online
-    inducing updates read a batch's correlations or buffers this way)."""
-    host_read.reads += 1
-    return t.detach().cpu().numpy()
-
-
 # the rejection loops read "every lane done" once every this many trips
 CHECK_EVERY = 4
 

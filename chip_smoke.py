@@ -156,29 +156,42 @@ Phases, in order; any failure raises and the script exits non-zero:
 27. the online model (Slice I): bench.py:241-285's streaming row
    (OnlineSVGP + RBF + Gaussian noise 0.05 fixed, OIPS, 128 slots, X
    uniform on [-2, 2]^2, 8 batches of 256 points, 20 iterations each)
-   through online_train with no kernel launch: the first batch takes the
+   through online_train, each later batch's prologue and iterations
+   captured graphs with the OIPS walk (oips_accept) launched once in it
+   and no other kernel: the first batch takes the
    port's C++ OIPS (built, called once, equal to the numpy selection), the
    RMSE floor (ONLINE_FLOORS, from ``online-cpu``), the CPU's active count,
    card-vs-CPU parity of mu and Sigma within ONLINE_PARITY_FACTOR times the
    CPU float32's own error; online_train_stream bit-equal to online_train
    batch by batch; the bench's two rows (points/s), ms a batch by part
    (save-old, the selection, the kernel matrices, the CAVI iterations),
-   host reads a batch, peak device memory;
+   host reads a batch (none), peak device memory;
 28. the other streaming paths at that shape: the default Adam(0.01)
    (log-hyperparameters moved, parity), the logistic likelihood (accuracy
    floor), UniGridOnline(8), Webscale(64), StreamKmeans(128, 0.25) with
-   their invariants and floors;
+   their invariants and floors, the walk (oips_accept, streamkmeans_pass)
+   once a later batch on the OIPS and StreamKmeans paths;
 29. a wide stream (512 slots, D=8, batches of 2,048): finite, parity,
-   points/s and ms a batch; then the warm eta -> moments conversions
-   (both branches) against the exact one at [1, 128, 128] and
-   [1, 512, 512];
+   points/s and ms a batch; the accept walks (csrc/online_select.cu)
+   against their plain versions in float32 and float64 at the streaming
+   row's and the wide stream's shapes and at the edge cases (a full
+   buffer, no active slot, a point at exactly rho or r^2, a point an
+   earlier one of its batch stops), bit for bit, timed beside the plain
+   versions and their bound (``walks_vs_plain``); then the warm eta ->
+   moments conversions (both branches) against the exact one at
+   [1, 128, 128] and [1, 512, 512];
 30. numerical VI by quadrature (Slice F): the flagship's SVGP (N=200,000,
    D=20, M=64, B=4096, the iid gather) with QuadratureSVI(4096,
    n_points=100) and sgd(1e-3, 0.9), 300 steps through agp_tpu_torch.train
    with one launch of kernel 6 and one of kernel 7 a step, its accuracy
    floor (NUMERICAL_FLOORS) and steady iterations/s; path 30h, the same
    with the default Adam(0.01) for 100 iterations (kernel 6 once more a
-   hyperparameter step), log-hyperparameters moved;
+   hyperparameter step), log-hyperparameters moved; path 30 again one
+   step at a time on train's draws, on the eager loop and on the captured
+   one, to the first step after which eta or Sigma's sgd trace holds a
+   non-finite value (ROADMAP queue 3 item 11: the reference's float32 step
+   does the same from that state, tests/test_torch_numerical.py), the
+   state before it written to _chip/path30_first_nonfinite.npz;
 31. numerical VI by Monte Carlo: SoftMaxLikelihood(10) at the bench's
    multiclass shape (N=50,000, D=10, M=64, B=2048, the iid gather) with
    MCIntegrationSVI(2048, n_mc=200) and sgd(1e-3, 0.9), 300 steps with one
@@ -377,7 +390,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    it/s, idle shares and launches of paths A, B and 42; path A's capture
    at k = 1 and 10 (``graphs-hyper`` runs it alone).  The whole run takes
    it right after phase 56, and at its end path A's eager and captured
-   rates again, against phase 15's.
+   rates again, against phase 15's;
+58. captured multi-output iterations (``mo_train`` through
+   ``graphs.run`` and ``run_hyper``): each route of ``mo_graph_routes``
+   bit-equal to the eager loop, launches exact, a profiled replay's
+   kernels as credited; the eager and captured rates (``graphs-mo``);
+59. captured streaming batches: each route of ONLINE_GRAPH_ROUTES by
+   ``online_route_check``: batch by batch through ``online_train`` and as
+   one ``online_train_stream``, bit-equal to the eager per-batch loop, the
+   accept walk once a later batch, one static carry, a later batch no
+   eager iteration, at most ceil(20 / k) + 1 graph launches (its
+   prologue's graph and the windows) and whole under sync debug "error";
+   points/s on each loop, a profiled second batch, its prologue's graph
+   alone and the eager prologue (``graphs-online``).
 
 Since phase 56's slice, ``vi_steps`` and ``train``'s fast path run every
 sparse model as captured chunks, and since phase 57's ``train`` with
@@ -446,7 +471,10 @@ over NCCL, one process on each card of a machine with 2 or 4),
 ``slice-tail-cpu`` (phase 53's paths at world 1 in float64 on the host's
 CPU, no card needed: what SLICE_TAIL_FLOORS comes from),
 ``float64`` (phases 46-49 alone, after the SASS and shared-memory checks),
-``graphs`` (phase 56 alone), ``graphs-hyper`` (phase 57 alone).
+``graphs`` (phase 56 alone), ``graphs-hyper`` (phase 57 alone),
+``graphs-mo`` (phase 58 alone), ``graphs-online`` (phase 59 alone),
+``online-walks`` (phase 29's check of the accept walks, then phase 30's
+search for path 30's first non-finite step with its dump).
 ``ab ROOT
 MODE...`` runs any mode with agp_tpu_torch imported from ROOT (an
 earlier commit unpacked under _chip/), to compare two trees in one call:
@@ -1629,7 +1657,8 @@ SPLIT_PAIRS = ("fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa
 # float64 form's of kernels 4-7 (``launch_count``)
 LAUNCH_COUNTERS = ("fused_cavi_stats", "fused_cavi_stats_multiclass", "fused_cavi_stats_het",
                    "fused_kappa_moments_batched", "cavi_stats_batched", "fused_kappa", "cavi_stats",
-                   "direct_stats", "two_factor_nt", "gather_row_tiles") + tuple(f"{n}_f64" for n in SPLIT_PAIRS)
+                   "direct_stats", "two_factor_nt", "gather_row_tiles", "oips_accept",
+                   "streamkmeans_pass") + tuple(f"{n}_f64" for n in SPLIT_PAIRS)
 
 
 def wrapper(ck, name):
@@ -1655,9 +1684,16 @@ def launches_of(ck, name):
     return getattr(*launch_count(ck, name))
 
 
+# graphs.tally["warm"] at the last reset_launches (expected_walks)
+WARM_AT_RESET = [0]
+
+
 def reset_launches(ck):
+    from agp_tpu_torch.training import graphs
+
     for name in LAUNCH_COUNTERS:
         setattr(*launch_count(ck, name), 0)
+    WARM_AT_RESET[0] = graphs.tally["warm"]
 
 
 # -------------------------------------------- the batched pair's phases
@@ -4304,6 +4340,25 @@ def check_online(name, r):
         raise AssertionError(f"online {name}: {r['active']} active slots, largest count {r['max_count']}")
 
 
+def walk_launches(name, later):
+    """The accept walk's launches of ``later`` later batches of online path
+    ``name``: one a batch (every latent in it), of oips_accept on the OIPS
+    paths and streamkmeans_pass on StreamKmeans', none on UniGridOnline's
+    and Webscale's (their updates are plain tensor code)."""
+    alg = ONLINE_PATHS[name][1]
+    kernel = {None: "oips_accept", "StreamKmeans": "streamkmeans_pass"}.get(None if alg is None else alg[0])
+    return {kernel: later} if kernel is not None and later else {}
+
+
+def expected_walks(name, later):
+    """``walk_launches`` of ``later`` later batches, and of each prologue
+    warmed since ``reset_launches`` (graphs' prologue warm-up: one walk
+    on copies of the carry before the prologue's capture)."""
+    from agp_tpu_torch.training import graphs
+
+    return walk_launches(name, later + graphs.tally["warm"] - WARM_AT_RESET[0])
+
+
 def log_online(name, r, where="the card"):
     extra = f", accuracy {r['acc']:.5f}" if "acc" in r else ""
     log(f"online {name} on {where} ({ONLINE_BATCHES} batches, {ONLINE_ITERS} iterations each): RMSE "
@@ -4350,8 +4405,8 @@ def phase_online(agt, ck, device):
     """Phase 27: the bench's streaming row on the card.  The first batch
     takes the port's C++ OIPS (its library built, its call counted), which
     selects exactly what the numpy selection does; the stream per batch
-    with no kernel launch, its RMSE floor, the CPU's active count, card-vs-
-    CPU parity; the stream driver bit-equal to the per-batch one; the two
+    with the OIPS walk once a later batch and no other kernel, its RMSE
+    floor, the CPU's active count, card-vs-CPU parity; the stream driver bit-equal to the per-batch one; the two
     bench rows' points/s, ms a batch by part, host reads a batch, peak
     memory."""
     from agp_tpu_torch import bench
@@ -4366,7 +4421,7 @@ def phase_online(agt, ck, device):
     sync(device)
     torch.cuda.reset_peak_memory_stats()
     r = online_run(agt, "oips", device)
-    expect_launches(ck, "online oips", {})
+    expect_launches(ck, "online oips", expected_walks("oips", ONLINE_BATCHES - 1))
     peak = torch.cuda.max_memory_allocated() / 2**20
     if native.oips.calls != calls + 1:
         raise AssertionError(f"online oips: the native OIPS ran {native.oips.calls - calls} times, not once")
@@ -4382,7 +4437,7 @@ def phase_online(agt, ck, device):
         raise AssertionError("online oips: the native OIPS's first selection differs from the numpy one")
     log(f"online oips: the first batch took the native OIPS ({native.library_path()}), {Z_native.shape[0]} points, "
         f"equal to the numpy selection; {r['active']} active slots after {ONLINE_BATCHES} batches; peak device "
-        f"memory {peak:.1f} MiB; 0 kernel launches")
+        f"memory {peak:.1f} MiB; oips_accept once a later batch")
     log_online("oips", r)
     check_online("oips", r)
     parity = online_parity(agt, "oips", r)
@@ -4403,20 +4458,24 @@ def phase_online(agt, ck, device):
         eager = bench.online_rate(m1, s1, Xw, yw, warmup=1)[0]
     EARLY_ONLINE.update(eager_pts=eager, captured_pts=rates[False])
     split, reads = online_batch_split(m1, s1, Xw, yw, ONLINE_B)
-    expect_launches(ck, "online drivers", {})
+    # the walk once a batch after the first: the per-batch rows' 3 runs of batches 0-7 (2 warm-up, 1 timed),
+    # the stream rows' 3 of batches 1-7, the eager loop's 2 of batches 0-7, the split's batches 1-7
+    walks = 3 * ONLINE_BATCHES + 3 * (ONLINE_BATCHES - 1) + 2 * ONLINE_BATCHES + (ONLINE_BATCHES - 1)
+    expect_launches(ck, "online drivers", expected_walks("oips", walks))
     total = sum(split.values())
     log(f"online drivers: online_train_stream bit-equal to online_train batch by batch (batches 2-8); the bench's "
         f"rows (captured iterations): online_stream_b256_cap128_pts_per_s {rates[False]:.1f} (the eager loop "
         f"{eager:.1f}), online_stream_fused_b256_cap128_pts_per_s {rates[True]:.1f}; a batch on the eager loop "
         f"{total:.3f} ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
-        f"; {reads:.2f} host reads a batch, 0 kernel launches")
+        f"; {reads:.2f} host reads a batch, oips_accept once a batch")
     return {"rates": rates, "eager_rate": eager, "split": split, "reads": reads, "parity": parity, "rmse": r["rmse"],
             "peak_mib": peak}
 
 
 def phase_online_paths(agt, ck, device):
-    """Phase 28: the other streaming paths at phase 27's shape, each with no
-    kernel launch, its floors and invariants: (a) the default Adam(0.01)
+    """Phase 28: the other streaming paths at phase 27's shape, each with
+    its accept walk once a later batch (``walk_launches``) and no other
+    kernel, its floors and invariants: (a) the default Adam(0.01)
     every iteration (log-hyperparameters moved, card-vs-CPU parity), (b)
     the logistic likelihood on sign(f), (c) UniGridOnline(8), Webscale(64),
     StreamKmeans(128, radius2 0.25)."""
@@ -4424,7 +4483,7 @@ def phase_online_paths(agt, ck, device):
     for name in ("adam", "logistic", "unigrid", "webscale", "streamkmeans"):
         reset_launches(ck)
         r = online_run(agt, name, device)
-        expect_launches(ck, f"online {name}", {})
+        expect_launches(ck, f"online {name}", expected_walks(name, ONLINE_BATCHES - 1))
         log_online(name, r)
         check_online(name, r)
         out[name] = r
@@ -4465,17 +4524,260 @@ def time_warm_moments(device, reps=50):
 def phase_online_wide(agt, ck, device):
     """Phase 29: a wide stream (512 slots, D=8, batches of 2,048, Gaussian,
     optimiser None; OIPS fills the buffer): finite, card-vs-CPU parity,
-    points/s and ms a batch logged; then the warm eta -> moments
+    points/s and ms a batch logged; the accept walks against their plain
+    versions (``walks_vs_plain``); then the warm eta -> moments
     conversions against the exact one."""
     reset_launches(ck)
     r = online_run(agt, "wide", device)
-    expect_launches(ck, "online wide", {})
+    expect_launches(ck, "online wide", expected_walks("wide", ONLINE_BATCHES - 1))
     log_online("wide", r)
     check_online("wide", r)
     log(f"online wide: {ONLINE_BATCHES * WIDE_B / r['seconds']:.1f} points/s, "
         f"{r['seconds'] * 1e3 / ONLINE_BATCHES:.3f} ms a batch (the first batch's selection included)")
     online_parity(agt, "wide", r)
+    WALKS.update(walks_vs_plain(agt, ck, device))
     return r, time_warm_moments(device)
+
+
+# the accept walks' numbers for the kernels line (walks_vs_plain)
+WALKS = {}
+
+
+def walk_edge_cases(device, dtype):
+    """OIPS's and StreamKmeans' edge cases (tests/test_torch_inducing.py's
+    oips_edge and streamkmeans_edge), on dyadic points, so that every
+    distance is exact: {label: (kind, args)}; an OIPS case's correlations
+    by an RBF of lengthscale 1 and variance 1.3."""
+    from agp_tpu_torch.inducing import algorithms
+
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
+    b = lambda a: torch.as_tensor(np.asarray(a, dtype=bool), device=device)  # noqa: E731
+    kern = algorithms.SqExponentialKernel(lengthscale=1.0, variance=1.3).to(dtype=dtype, device=device)
+    Z = np.zeros((8, 2))
+    Z[:3] = [[4.0, 4.0], [-4.0, 4.0], [4.0, -4.0]]
+    three = np.arange(8) < 3
+    Xb = np.array([[0.0, 0.0], [0.25, 0.0], [-4.0, -4.0], [4.0, 4.0], [0.5, 0.5]])
+    full = np.random.default_rng(1).uniform(-2, 2, size=(8, 2))
+    cases = {}
+    for label, (Zc, mask, rho) in {"full": (full, np.ones(8, bool), 0.9), "none active": (Z, np.zeros(8, bool), 0.5),
+                                    "exactly rho": (Z, three, 1.0), "row rejects": (Z, three, 0.9)}.items():
+        cases[f"oips {label}"] = ("oips", oips_walk_args([kern], t(Zc)[None], b(mask)[None], t(Xb), rho))
+    Zk = np.zeros((6, 2))
+    Zk[:2] = [[0.0, 0.0], [8.0, 8.0]]
+    two = np.arange(6) < 2
+    for label, (mask, X, cap) in {"full": (two, [[4.0, 4.0], [-4.0, 0.0], [0.5, 0.0]], 2),
+                                  "none active": (np.zeros(6, bool), [[1.0, 1.0], [1.5, 1.0], [-3.0, 2.0]], 6),
+                                  "exactly r2": (two, [[1.0, 0.0], [8.0, 7.0], [0.0, 0.5]], 6),
+                                  "row rejects": (two, [[4.0, -4.0], [4.5, -4.0], [0.25, 0.0]], 6)}.items():
+        cases[f"streamkmeans {label}"] = ("streamkmeans", (t(Zk)[None], b(mask)[None], t(2.0 * mask)[None], t(X),
+                                                            1.0, cap))
+    return cases
+
+
+def oips_walk_args(kernels, Z, mask, X, rho):
+    """oips_accept's arguments as ``oips_update_latents`` forms them from
+    the latents' kernels, slots Z [L, Mc, D], mask [L, Mc] and a batch X."""
+    g_z = torch.stack([k.gram(X, Z[l]) for l, k in enumerate(kernels)])
+    g_x = torch.stack([k.gram(X, X) for k in kernels])
+    kx = torch.stack([k.diag(X) for k in kernels])
+    kd = torch.stack([k.diag(Z[l]) for l, k in enumerate(kernels)])
+    return g_z, g_x, kx, kd, mask.contiguous(), rho
+
+
+def walk_main_cases(agt, device, dtype):
+    """The walks at the main paths' shapes, from each path's state after
+    its first batch, on its second batch: OIPS at the streaming row's
+    (B=256, 128 slots, D=2) and the wide stream's (B=2,048, 512 slots, D=8:
+    a full buffer after the first batch; and with every other slot
+    emptied, so that the walk runs at that shape); StreamKmeans at phase
+    28's (B=256, 128 centres, r2 0.25) and at the wide shape (128 of 512
+    centres active, r2 1)."""
+    from agp_tpu_torch.kernels import latent
+
+    cases = {}
+    for name, label in (("oips", "row"), ("wide", "wide"), ("streamkmeans", "row")):
+        X, _, y = online_data(name, device, dtype)
+        b = WIDE_B if name == "wide" else ONLINE_B
+        m, _ = agt.online_train(online_model(agt, name, device, dtype), X[:b], y[:b], iterations=1)
+        Xb = X[b:2 * b]
+        if name == "streamkmeans":
+            alg = m.Zalg
+            cases["streamkmeans row"] = ("streamkmeans", (m.Z, m.z_mask, m.z_counts, Xb, alg.radius2, alg.capacity))
+            continue
+        kernels = [latent(m.kernel, 0)]
+        cases[f"oips {label}"] = ("oips", oips_walk_args(kernels, m.Z, m.z_mask, Xb, m.rho_accept))
+        if name == "wide":
+            half = m.z_mask & (torch.arange(WIDE_CAP, device=device) % 2 == 0)
+            cases["oips wide, half the slots"] = ("oips", oips_walk_args(kernels, m.Z, half, Xb, m.rho_accept))
+            rng = np.random.default_rng(3)
+            Zk = torch.as_tensor(rng.uniform(-2, 2, size=(1, WIDE_CAP, WIDE_D)), dtype=dtype, device=device)
+            mask = torch.arange(WIDE_CAP, device=device)[None] < 128
+            cases["streamkmeans wide"] = ("streamkmeans", (Zk, mask, mask.to(dtype), Xb, 1.0, WIDE_CAP))
+    return cases
+
+
+def walk_call(ck, kind, args, plain=False):
+    """One walk on copies of the case's buffers: (row_of_slot,) for OIPS,
+    (Z, mask, counts) for StreamKmeans; the plain version with ``plain``."""
+    from agp_tpu_torch.inducing import algorithms
+
+    if kind == "oips":
+        fn = algorithms.oips_accept_reference if plain else ck.oips_accept
+        return (fn(*args),)
+    Z, mask, counts, X, r2, cap = args
+    fn = algorithms.streamkmeans_pass_reference if plain else ck.streamkmeans_pass
+    return fn(Z.clone(), mask.clone(), counts.clone(), X, r2, cap)
+
+
+def walk_bound(kind, args, out):
+    """(ms, "bytes" or "operations") of one walk on this run's data: the
+    bytes it must move over the memory rate, against the operations it
+    must do over the dtype's peak (FP32 67, FP64 34 TFLOP/s, no tensor
+    cores).  OIPS: a latent with a full buffer reads its mask and writes
+    row_of_slot, nothing more; another one also reads kx, kd of its active
+    and taken slots, g_z's columns of its active slots, and g_x's entries
+    of each walked point (max_z < rho, before the buffer fills) against the
+    rows accepted before it, four operations (a product, a max, a square
+    root, a division) a correlation so read.  StreamKmeans: X, the mask,
+    the active centres read, each centre it moves or opens written with
+    its count (an absorbing one's count read), each opened mask byte
+    written; three operations (a difference, a product, a sum) a feature
+    of each point against each centre active as the batch starts (at
+    least: centres opened in the batch are compared too)."""
+    if kind == "oips":
+        g_z, g_x, kx, kd, mask, rho = args
+        L, B, Mc = g_z.shape
+        e = g_z.element_size()
+        corr = g_z / torch.sqrt(torch.clamp(kx[..., None] * kd[:, None, :], min=1e-30))
+        max_z = torch.where(mask[:, None, :], corr, float("-inf")).amax(-1)  # [L, B]
+        nbytes, ops = L * Mc * (mask.element_size() + out[0].element_size()), 0
+        for l in range(L):
+            active = int(mask[l].sum())
+            if active >= Mc:
+                continue
+            taken = out[0][l][out[0][l] >= 0]
+            before = (torch.arange(B, device=taken.device)[:, None] > taken[None, :]).sum(1)
+            pairs = int(before[(max_z[l] < rho) & (before < Mc - active)].sum())
+            nbytes += (B + active + taken.numel() + B * active + pairs) * e
+            ops += 4 * (B * active + pairs)
+        peak = PEAK_FP64_FLOPS if g_z.dtype == torch.float64 else PEAK_FP32_FLOPS
+    else:
+        Z, mask, counts, X, r2, cap = args
+        e = Z.element_size()
+        moved = (out[2] != counts) | (out[1] != mask)  # every absorption adds 1 to a count
+        opened = out[1] & ~mask
+        nbytes = (X.numel() + int(mask.sum()) * Z.shape[-1] + int(moved.sum()) * (Z.shape[-1] + 1)
+                  + int((moved & mask).sum())) * e + mask.numel() + int(opened.sum())
+        ops = 3 * X.shape[0] * int(mask.sum()) * Z.shape[-1]
+        peak = PEAK_FP64_FLOPS if Z.dtype == torch.float64 else PEAK_FP32_FLOPS
+    ops_ms, bytes_ms = ops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def walks_vs_plain(agt, ck, device):
+    """Phase 29's check of the accept walks (csrc/online_select.cu): each
+    kernel against its plain version on the same card tensors, in float32
+    and float64, at the main paths' shapes (``walk_main_cases``) and the
+    edge cases (``walk_edge_cases``): the same row_of_slot, or Z, mask and
+    counts, bit for bit, and each edge case's own outcome; a second call
+    bit-equal; then, at the main shapes in float32, the walk kernel's
+    device time a launch (``walk_device_ms``), the wrapper's ms a call by
+    CUDA events
+    (StreamKmeans' with its three copies of the buffers, as
+    ``streamkmeans_update_latents`` calls it; at these sizes the host's
+    time to issue the call), the plain version's by the host clock, and the
+    bound (``walk_bound``), which the device time is held against.
+    Returns each kernel's kernels-line numbers."""
+    out = {"oips_accept": {"per_shape_ms": {}}, "streamkmeans_pass": {"per_shape_ms": {}}}
+    checked = []
+    for dtype in (torch.float32, torch.float64):
+        cases = {**walk_main_cases(agt, device, dtype), **walk_edge_cases(device, dtype)}
+        for label, (kind, args) in cases.items():
+            got, again = walk_call(ck, kind, args), walk_call(ck, kind, args)
+            torch.cuda.synchronize()
+            want = walk_call(ck, kind, args, plain=True)
+            same = all(bit_equal(a, b) for a, b in zip(got, want)) and all(bit_equal(a, b) for a, b in zip(got, again))
+            if not same:
+                raise AssertionError(f"walk {label} ({dtype}): the kernel differs from its plain version: "
+                                     f"{[(a.cpu().tolist() if a.numel() < 64 else '...') for a in got]} against "
+                                     f"{[(b.cpu().tolist() if b.numel() < 64 else '...') for b in want]}")
+            check_walk_edge(label, kind, args, got)
+            checked.append(f"{label} {str(dtype).removeprefix('torch.')}")
+            name = "oips_accept" if kind == "oips" else "streamkmeans_pass"
+            if dtype == torch.float32 and label in ("oips row", "oips wide", "oips wide, half the slots",
+                                                    "streamkmeans row", "streamkmeans wide"):
+                wrapper_ms = cuda_ms(lambda: walk_call(ck, kind, args), reps=50)
+                ms = walk_device_ms(ck, kind, args)
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    walk_call(ck, kind, args, plain=True)
+                plain_ms = (time.perf_counter() - t0) * 1e3 / 2
+                bnd = walk_bound(kind, args, got)
+                out[name]["per_shape_ms"][label] = (ms, wrapper_ms, plain_ms, bnd[0], bnd[1])
+                if label in ("oips row", "streamkmeans row"):
+                    out[name].update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound=bnd, shape=label)
+    log(f"accept walks vs plain: bit-equal in {len(checked)} cases ({', '.join(checked)}); kernel device / wrapper / "
+        "plain / bound ms: " + "; ".join(f"{name} {label} {k:.5f} / {w:.4f} / {p:.3f} / {bd:.7f} ({by}), the "
+                                         f"kernel {k / bd:.0f}x its bound"
+                                         for name, row in out.items()
+                                         for label, (k, w, p, bd, by) in row["per_shape_ms"].items()))
+    return out
+
+
+def walk_device_ms(ck, kind, args, n=20, reps=5):
+    """The walk kernel's device time a launch, ms: ``n`` calls captured in
+    one CUDA graph, its replays timed by CUDA events, so that the host's
+    time to issue a call is not in it (a graph node's own launch, ~1 us,
+    is).  StreamKmeans' calls copy the buffers first, as
+    ``streamkmeans_update_latents`` does; a graph of the copies alone is
+    timed beside it and taken off.  Not the profiler: in this process it
+    at times drops a replay's kernel events (an earlier phase's "device 0.0
+    us" rows), which would read low.  Each replay's launches are credited
+    (``CapturedLaunches``)."""
+    from agp_tpu_torch.ops import cuda_kernels
+
+    def graph_ms(fn):
+        graph = torch.cuda.CUDAGraph()
+        with cuda_kernels.CapturedLaunches() as launches, torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        launches.replayed(1)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        launches.replayed(reps)
+        return start.elapsed_time(end) / (reps * n)
+
+    if kind == "oips":
+        return graph_ms(lambda: walk_call(ck, kind, args))
+    copies = lambda: [t.clone() for t in args[:3]]  # noqa: E731
+    return graph_ms(lambda: walk_call(ck, kind, args)) - graph_ms(copies)
+
+
+def check_walk_edge(label, kind, args, got):
+    """An edge case's own outcome (tests/test_torch_inducing.py's)."""
+    if " " not in label or label.split(" ", 1)[1] not in ("full", "none active", "exactly rho", "exactly r2",
+                                                         "row rejects"):
+        return
+    case = label.split(" ", 1)[1]
+    if kind == "oips":
+        taken = int((got[0] >= 0).sum())
+        want = {"full": 0, "none active": 3, "exactly rho": 4, "row rejects": None}[case]
+        rows = got[0][0].tolist()
+        ok = taken == want if want is not None else (0 in rows and 1 not in rows)
+    else:
+        mask, counts = got[1][0], got[2][0]
+        ok = {"full": int(mask.sum()) == 2 and float(counts.sum()) == 7.0,
+              "none active": int(mask.sum()) == 2 and counts[:2].tolist() == [2.0, 1.0],
+              "exactly r2": int(mask.sum()) == 2 and counts[:2].tolist() == [4.0, 3.0],
+              "row rejects": int(mask.sum()) == 3 and float(counts[2]) == 2.0}[case]
+    if not ok:
+        raise AssertionError(f"walk {label}: not the case's outcome: {[t.cpu().tolist() for t in got]}")
 
 
 def online_mode(agt, ck, device):
@@ -4686,6 +4988,61 @@ def log_numerical(which, r, where="the card"):
         f"{r['moved']:.4f}{extra}{rate}")
 
 
+# the state before path 30's first step whose eta or Sigma's sgd trace
+# holds a non-finite value, with that step's minibatch indices (ROADMAP
+# queue 3 item 11; tests/test_torch_numerical.py rebuilds it on the CPU)
+ITEM11_DUMP = os.path.join("_chip", "path30_first_nonfinite.npz")
+
+
+def finite_step(state):
+    """Whether eta and the optimiser's traces hold finite values only."""
+    from agp_tpu_torch.utils.tensors import named_leaves
+
+    leaves = [state.eta1, state.eta2] + [t for _, t in named_leaves(state.opt_state, "opt")]
+    return all(bool(torch.isfinite(t).all()) for t in leaves)
+
+
+def path30_first_nonfinite(agt, device, dump=None):
+    """Path 30 (float32, train's draws from a generator of seed 0), one
+    step at a time on the eager loop and on the captured one (``vi_steps``
+    of one step on its row of the draws: after the first, a replay of the
+    one-step graph): by loop, the first step (from 1) after which eta or
+    Sigma's sgd trace holds a non-finite value, None within MAIN_STEPS.
+    With ``dump``, the eager loop's state before that step (mu, Sigma, the
+    sgd traces, Z, the kernel's parameters, rho), the step's indices and
+    the card's result of the step are written there (npz)."""
+    from agp_tpu_torch.training import train as ttrain
+    from agp_tpu_torch.utils.tensors import named_leaves
+
+    X, y = flagship_data(device)
+    out = {}
+    for loop in ("eager", "captured"):
+        clear_captures()
+        model, y_t = treated(quad_model(agt, X), X, y)
+        state = agt.init_state(model, X, y_t)
+        _, idx = ttrain._chunk_draws(model, X, MAIN_STEPS, None, torch.Generator(device=device).manual_seed(0))
+        out[loop] = None
+        with eager_loop() if loop == "eager" else contextlib.nullcontext():
+            for i in range(MAIN_STEPS):
+                before = state
+                model, state = ttrain.vi_steps(model, state, X, y_t, 1, draws=idx[i:i + 1])
+                if not finite_step(state):
+                    out[loop] = i + 1
+                    break
+        if loop == "eager" and dump is not None and out[loop] is not None:
+            host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+            opt = {f"opt_{p.split('.', 1)[1]}": host(t) for p, t in named_leaves(before.opt_state, "opt")}
+            after = {f"after_{k}": host(getattr(state, k)) for k in ("mu", "Sigma", "eta1")}
+            os.makedirs(os.path.dirname(dump), exist_ok=True)
+            np.savez_compressed(dump, step=out[loop], mu=host(before.mu), Sigma=host(before.Sigma), **opt,
+                                Z=host(model.Z), lengthscale=host(model.kernel.lengthscale),
+                                variance=host(model.kernel.variance), rho=host(before.rho),
+                                idx=idx[i].cpu().numpy().astype(np.int32), after_eta2_finite=bool(
+                                    torch.isfinite(state.eta2).all()), **after)
+    clear_captures()
+    return out
+
+
 def phase_quadrature(agt, ck, device):
     """Phase 30: path 30 (one launch of kernel 6 and one of kernel 7 a
     step), its floor and steady rate; path 30h (kernel 6 once more a
@@ -4697,6 +5054,11 @@ def phase_quadrature(agt, ck, device):
         check_numerical(which, r)
         if which == "quad":
             r["ips"] = steady_rate(agt, r["model"], r["state"], r["X"], r["y"], r["gen"])
+            first = path30_first_nonfinite(agt, device, ITEM11_DUMP)
+            out["first_nonfinite_step"] = first
+            log(f"numerical quad: the first step after which eta or Sigma's sgd trace holds a non-finite value, "
+                f"one step at a time on train's draws: eager loop {first['eager']}, captured {first['captured']} "
+                f"(of {MAIN_STEPS}); the run's final state: eta finite {finite_step(r['state'])}")
         else:  # iterations with a hyperparameter step each (but the run's first three and last)
             t0 = time.perf_counter()
             agt.train(r["model"], r["X"], r["y"], iterations=NUM_HYPER_ITERS, state=r["state"], generator=r["gen"])
@@ -8403,6 +8765,8 @@ DEVICE_KERNELS = (
 # the device kernels' rows (us, count, name) of each label's profiled
 # replay, written to _chip/replay_profiles.json when one falls short
 REPLAY_ROWS = {}
+# profiler sessions check_replay_launches may take for one replay
+PROFILE_SESSIONS = 3
 
 
 def check_replay_launches(ck, label, fn, pattern=None):
@@ -8411,31 +8775,40 @@ def check_replay_launches(ck, label, fn, pattern=None):
     once and launch nothing else of kernels 1-7: the counters must rise by
     exactly the launches that capture credits a replay, and the device must
     run each of DEVICE_KERNELS as many times as those credits say, so that
-    the counts credited by replays are measured.  Returns the device's
-    counts."""
+    the counts credited by replays are measured.  The profiler at times
+    drops a replay's kernel events, so a session that shows fewer of them
+    is taken again (``fn()`` once more), at most PROFILE_SESSIONS in all:
+    one session must show exactly the credits, and one that shows more
+    fails at once.  Returns the device's counts."""
     from agp_tpu_torch.training import graphs
 
     chunks = graphs.latest()
     k = graphs.STEPS_PER_GRAPH if pattern is None else pattern
     credited = {name + ("_f64" if attr == "launches_f64" else ""): n
                 for (name, attr), n in chunks.launches[k].per_replay.items()}
-    replays, replay = [], chunks.replay
+    want = {pattern: sum(credited.get(name, 0) for name in names) for pattern, names in DEVICE_KERNELS}
+    what = f"{k} steps" if isinstance(k, int) else f"{len(k)} iterations with {sum(k)} hyperparameter steps"
+    replays, replay, short = [], chunks.replay, []
     chunks.replay = lambda steps, *args: (replays.append(steps), replay(steps, *args))[1]
-    before = launch_counts(ck)
     try:
-        p = profile_window(fn, 1)
+        for _ in range(PROFILE_SESSIONS):
+            replays.clear()
+            before = launch_counts(ck)
+            p = profile_window(fn, 1)
+            after = launch_counts(ck)
+            rose = {name: n - before.get(name, 0) for name, n in after.items() if n != before.get(name, 0)}
+            if graphs.latest() is not chunks or replays != [k] or rose != credited:
+                raise AssertionError(f"{label}: the profiled call was not one replay of {what}: replays {replays}, "
+                                     f"counters rose by {rose}, a replay credits {credited}")
+            REPLAY_ROWS[label] = p["rows"]
+            device = {pattern: round(sum(count for _, count, key in p["rows"]
+                                         if re.search(rf"\b({pattern})\b", key)))
+                      for pattern, _ in DEVICE_KERNELS}
+            if device == want or any(device[q] > want[q] for q in want):
+                break
+            short.append(device)
     finally:
         del chunks.replay
-    after = launch_counts(ck)
-    rose = {name: n - before.get(name, 0) for name, n in after.items() if n != before.get(name, 0)}
-    what = f"{k} steps" if isinstance(k, int) else f"{len(k)} iterations with {sum(k)} hyperparameter steps"
-    if graphs.latest() is not chunks or replays != [k] or rose != credited:
-        raise AssertionError(f"{label}: the profiled call was not one replay of {what}: replays {replays}, "
-                             f"counters rose by {rose}, a replay credits {credited}")
-    REPLAY_ROWS[label] = p["rows"]
-    device = {pattern: round(sum(count for _, count, key in p["rows"] if re.search(rf"\b({pattern})\b", key)))
-              for pattern, _ in DEVICE_KERNELS}
-    want = {pattern: sum(credited.get(name, 0) for name in names) for pattern, names in DEVICE_KERNELS}
     if device != want:
         os.makedirs("_chip", exist_ok=True)
         with open("_chip/replay_profiles.json", "w") as f:
@@ -8443,7 +8816,7 @@ def check_replay_launches(ck, label, fn, pattern=None):
         raise AssertionError(f"{label}: a replay of {what} ran {device} on the device; its credits say {want} "
                              "(each label's profiled kernels: _chip/replay_profiles.json)")
     log(f"{label}: a profiled replay of {what} ran {({q: n for q, n in device.items() if n})} on the device, as "
-        f"credited")
+        f"credited" + (f" (after {len(short)} session(s) short of events: {short})" if short else ""))
     return device
 
 
@@ -9162,20 +9535,25 @@ def online_route_check(agt, ck, device, label):
     streaming row's; ONLINE_ROUTE_BATCHES on the other routes) of
     ONLINE_ITERS iterations from a fresh model, batch by batch on the
     eager loop and through the captured drivers (``online_train`` a batch,
-    or ``online_train_stream`` over the stream; ``graphs.run_batch`` under
-    ``sync_errors``): every leaf bit-equal, no kernel of the port launched;
-    one static carry for the whole stream, and after the first batch no
-    eager iteration and at most ceil(ONLINE_ITERS / k) graph launches a
-    batch; the graphs captured (one a mark pattern in use).  Then the
-    points/s of the later batches that captured no graph, on each loop
-    (host clock, each batch ending in a synchronize; a stream's captured
-    rate over batches 2 .. the last by one more
-    ``online_train_stream`` over them from the state after the first
-    batch, which replays the capture), and one profiled second batch of
-    each loop (wall, device busy, idle share, launches; the eager one on
-    ONLINE_EAGER_PROFILED's routes), its prologue (save-old, the
-    selection, the masked kmat, fresh local variables) profiled apart.
-    Returns the captured (model, state), the data and the numbers."""
+    each later one whole under ``sync_errors``, or ``online_train_stream``
+    over the stream; ``graphs.run_batch`` and ``graphs.run_stream`` under
+    ``sync_errors``): every leaf bit-equal, the accept walk launched once a
+    later batch on each loop (``walk_launches``) and no other kernel of
+    the port; one static carry for the whole stream, and after the first
+    batch no eager iteration and at most ceil(ONLINE_ITERS / k) + 1 graph
+    launches a batch (the prologue's graph, the windows); the graphs
+    captured (one a mark pattern in use, the prologue's, with Adam the
+    batch's end inside the last window).  Then the points/s of the later
+    batches that captured no graph, on each loop (host clock, each batch
+    ending in a synchronize; a stream's captured rate over batches 2 ..
+    the last by one more ``online_train_stream`` over them from the state
+    after the first batch, whole under ``sync_errors``, which replays the
+    capture), and one profiled second batch of each loop (wall, device
+    busy, idle share, launches; the eager one on ONLINE_EAGER_PROFILED's
+    routes), its prologue profiled apart: the captured prologue's graph
+    replayed alone, and the eager prologue (save-old, the selection, the
+    masked kmat, fresh local variables).  Returns the captured (model,
+    state), the data and the numbers."""
     from agp_tpu_torch.models import online_svgp as on
     from agp_tpu_torch.training import graphs
 
@@ -9188,12 +9566,13 @@ def online_route_check(agt, ck, device, label):
     Xs, ys = X[:n].reshape(batches, b, X.shape[1]), y[:n].reshape(batches, b)
     first = []
 
-    def per_batch(seconds):
+    def per_batch(seconds, guard=False):
         m, s = online_model(agt, name, device, torch.float32), None
         for i in range(batches):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            m, s = agt.online_train(m, Xs[i], ys[i], state=s, iterations=ONLINE_ITERS)
+            with sync_errors() if guard and i else contextlib.nullcontext():
+                m, s = agt.online_train(m, Xs[i], ys[i], state=s, iterations=ONLINE_ITERS)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             if i == 0:
@@ -9207,38 +9586,39 @@ def online_route_check(agt, ck, device, label):
     eager = all_leaves(me, se)
     graphs.clear()
     counts = []
-    with guarded_entries(("run_batch",), counts):
+    with guarded_entries(("run_batch", "run_stream"), counts):
         if stream:
             mc, sc = agt.online_train_stream(online_model(agt, name, device, torch.float32), Xs, ys,
                                              iterations=ONLINE_ITERS)
         else:
-            mc, sc = per_batch(captured_s)
+            mc, sc = per_batch(captured_s, guard=True)
     torch.cuda.synchronize()
-    expect_launches(ck, f"online {label}", {})
+    expect_launches(ck, f"online {label}", expected_walks(name, 2 * (batches - 1)))
     captured = all_leaves(mc, sc)
     differ = leaves_differ(captured, eager)
     if differ or captured.keys() != eager.keys():
         raise AssertionError(f"online {label}: the captured batches differ from the eager loop: {differ}")
-    most = -(-ONLINE_ITERS // k)
-    later = counts[1:]
-    if (len(counts) != batches or sum(c["carries"] for c in counts) != 1
-            or any(c["eager"] or c["replays"] > most for c in later)):
-        raise AssertionError(f"online {label}: graphs' counts a batch {counts}: one static carry for the stream, and "
-                             f"after the first batch no eager iteration and at most {most} replays, expected")
+    most = -(-ONLINE_ITERS // k) + 1
+    later = counts[1:]  # a stream's later batches: one run_stream call
+    per_call = (batches - 1) if stream else 1
+    if (len(counts) != (2 if stream else batches) or sum(c["carries"] for c in counts) != 1
+            or any(c["eager"] or c["replays"] > most * per_call for c in later)):
+        raise AssertionError(f"online {label}: graphs' counts a call {counts}: one static carry for the stream, and "
+                             f"after the first batch no eager iteration and at most {most} replays a batch, expected")
     chunks = graphs.latest()
-    patterns = sorted(str(p) if isinstance(p, int) else f"{len(p)} iterations, {sum(p)} marked"
-                      for p in chunks.graphs)
+    patterns = sorted(graphs.describe(p) for p in chunks.graphs)
     # the captured loop's state after the first batch (the eager loop's for a stream, bit-equal): its
     # model's optimiser is the capture's, which a key compares by identity
     m1, s1 = first[-1]
     if stream:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        agt.online_train_stream(m1, Xs[1:], ys[1:], state=s1, iterations=ONLINE_ITERS)
+        with sync_errors():
+            agt.online_train_stream(m1, Xs[1:], ys[1:], state=s1, iterations=ONLINE_ITERS)
         torch.cuda.synchronize()
         captured_s = [0.0, time.perf_counter() - t0]
-    # the later batches that captured no graph (with Adam the second batch
-    # captures the steady windows): the rates' batches, on both loops
+    # the later batches that captured no graph (the second captures the prologue's, with Adam the steady
+    # windows too): the rates' batches, on both loops
     steady = list(range(1, batches)) if stream else [i for i in range(1, batches) if not counts[i]["graphs"]]
     points = len(steady) * b
 
@@ -9250,10 +9630,12 @@ def online_route_check(agt, ck, device, label):
         with eager_loop():
             p_eager = profile_window(second, 1)
     p_graph = profile_window(second, 1)
-    p_prologue = profile_window(lambda: on._online_prologue(m1, s1, Xs[1]), 1)
-    out = {"first": counts[0], "later_replays": max(c["replays"] for c in later),
+    chunks.load(m1, s1, Xs[1], ys[1])
+    p_prologue = profile_window(lambda: chunks.replay(("prologue", on._online_prologue)), 1)
+    p_eager_prologue = profile_window(lambda: on._online_prologue(m1, s1, Xs[1]), 1)
+    out = {"first": counts[0], "later_replays": max(c["replays"] for c in later) / per_call,
            "later_eager": sum(c["eager"] for c in later), "graphs": len(chunks.graphs), "patterns": patterns,
-           "capture_ms": {str(p): v * 1e3 for p, v in chunks.capture_seconds.items()},
+           "capture_ms": {graphs.describe(p): v * 1e3 for p, v in chunks.capture_seconds.items()},
            "eager_pts": points / sum(eager_s[i] for i in steady),
            "captured_pts": points / (captured_s[1] if stream else sum(captured_s[i] for i in steady)),
            "eager_idle": p_eager["idle_share"], "captured_idle": p_graph["idle_share"],
@@ -9261,21 +9643,25 @@ def online_route_check(agt, ck, device, label):
            "captured_wall_us": p_graph["wall_us"], "captured_busy_us": p_graph["busy_us"],
            "eager_launches": p_eager["launches"], "captured_launches": p_graph["launches"],
            "prologue_wall_us": p_prologue["wall_us"], "prologue_busy_us": p_prologue["busy_us"],
-           "prologue_launches": p_prologue["launches"]}
+           "prologue_launches": p_prologue["launches"], "eager_prologue_wall_us": p_eager_prologue["wall_us"],
+           "eager_prologue_busy_us": p_eager_prologue["busy_us"],
+           "eager_prologue_launches": p_eager_prologue["launches"]}
     out["speedup"] = out["captured_pts"] / out["eager_pts"]
     log(f"graphs-online {label}: {batches} batches x {ONLINE_ITERS} iterations "
         f"({'online_train_stream' if stream else 'online_train a batch'}) captured bit-equal to the eager loop "
-        f"({len(eager)} leaves), no kernel of the port; the first batch {counts[0]}, each later one "
-        f"{out['later_eager']} eager iterations and at most {out['later_replays']} graph launches "
-        f"(ceil({ONLINE_ITERS}/{k}) = {most}); one static carry, {len(chunks.graphs)} graphs {patterns}, sync "
-        f"debug 'error' clean; batches {[i + 1 for i in steady]}: eager {out['eager_pts']:.1f} points/s, captured "
+        f"({len(eager)} leaves), the walk {walk_launches(name, 1) or 'none'} a later batch on each loop; the first "
+        f"batch {counts[0]}, each later one {out['later_eager']} eager iterations and at most "
+        f"{out['later_replays']:.0f} graph launches (ceil({ONLINE_ITERS}/{k}) + 1 = {most}); one static carry, "
+        f"{len(chunks.graphs)} graphs {patterns}, later batches under sync debug 'error'; batches "
+        f"{[i + 1 for i in steady]}: eager {out['eager_pts']:.1f} points/s, captured "
         f"{out['captured_pts']:.1f} (x{out['speedup']:.2f}); a profiled second batch eager "
         + (f"wall {out['eager_wall_us']:.1f} us, busy {out['eager_busy_us']:.1f}, idle {out['eager_idle']:.4f}, "
            f"{out['eager_launches']:.0f} launches" if label in ONLINE_EAGER_PROFILED else "not profiled")
         + f"; captured wall {out['captured_wall_us']:.1f} us, busy "
         f"{out['captured_busy_us']:.1f}, idle {out['captured_idle']:.4f}, {out['captured_launches']:.0f} launches; "
-        f"its prologue alone wall {out['prologue_wall_us']:.1f} us, busy {out['prologue_busy_us']:.1f}, "
-        f"{out['prologue_launches']:.0f} launches")
+        f"its prologue's graph alone wall {out['prologue_wall_us']:.1f} us, busy {out['prologue_busy_us']:.1f}, "
+        f"{out['prologue_launches']:.0f} launches; the eager prologue wall {out['eager_prologue_wall_us']:.1f} us, "
+        f"busy {out['eager_prologue_busy_us']:.1f}, {out['eager_prologue_launches']:.0f} launches")
     return mc, sc, X, y, out
 
 
@@ -9459,6 +9845,10 @@ def main():
     if args == ["graphs-mo"]:
         timed_phase("captured multi-output iterations", phase_graphs_mo, agt, ck, device)
         return
+    if args == ["online-walks"]:
+        timed_phase("accept walks", walks_vs_plain, agt, ck, device)
+        log(f"path 30's first non-finite step by loop: {path30_first_nonfinite(agt, device, ITEM11_DUMP)}")
+        return
     if args == ["graphs-online"]:
         timed_phase("captured streaming iterations", phase_graphs_online, agt, ck, device)
         return
@@ -9547,6 +9937,7 @@ def main():
     bounds["direct_stats"] = variant_bound(*VARIANT_MAIN, False)
     bounds["two_factor_nt"] = variant_bound(*VARIANT_MAIN, True)
     bounds["gather_row_tiles"] = gather_bound(B // 32, 32, D)
+    bounds["oips_accept"], bounds["streamkmeans_pass"] = WALKS["oips_accept"]["bound"], WALKS["streamkmeans_pass"]["bound"]
     main_variant = shape_key(*VARIANT_MAIN)
     main_shape = "logistic_m512_b65536"
     kernels = {"kernels": [{
@@ -9643,7 +10034,22 @@ def main():
         "per_tile_ms": ms_table({f"tile{tr}": v for tr, v in gather_ms.items()}),
         "library_ms": gather_library[32],
         "per_tile_library_ms": {f"tile{tr}": v for tr, v in gather_library.items()},
-    }] + f64_rows(f64_kernels)}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "agp_tpu_torch/csrc/online_select.cu",
+        "replaces": f"agp_tpu/inducing/algorithms.py:{line} (the lax.scan of {scan}; no Pallas kernel)",
+        "max_abs_err": 0.0,
+        "ms": WALKS[name]["ms"],
+        "ms_is": "the walk kernel's device time a launch (20 launches in one CUDA graph, CUDA events)",
+        "wrapper_ms": WALKS[name]["wrapper_ms"],
+        "plain_ms": WALKS[name]["plain_ms"],
+        "main_shape": WALKS[name]["shape"],
+        "per_shape_ms": {k: {"ms": v[0], "wrapper_ms": v[1], "plain_ms": v[2], "bound_ms": v[3], "bound_by": v[4]}
+                         for k, v in WALKS[name]["per_shape_ms"].items()},
+        "library": "none: no one PyTorch call computes a sequential accept walk",
+    } for name, line, scan in (("oips_accept", 151, "oips_update"),
+                               ("streamkmeans_pass", 297, "streamkmeans_update"))] + f64_rows(f64_kernels)}
     for row in kernels["kernels"][-4:]:  # the float64 forms' bounds (f64_rows)
         bounds[row["name"]] = (row.pop("bound_ms"), row.pop("bound_by"))
     cols_shapes(kernels["kernels"], cols_kernels)

@@ -1062,10 +1062,12 @@ def test_cuda_mcgp_refuses_float64(cuda_device):
 @pytest.mark.parametrize("zalg", ["oips", "streamkmeans", "webscale", "unigrid"])
 def test_cuda_online_stream_on_the_card(cuda_device, zalg):
     """Numpy batches stream into an OnlineSVGP made on the card (its
-    default device): every buffer stays there, no kernel of the port is
-    launched, one host read a batch for OIPS and StreamKmeans and none for
-    the others, and the posterior equals the same stream's on the CPU
-    (float32) within 1e-3 of its largest entry."""
+    default device): every buffer stays there, the accept walk launched
+    once a later batch for OIPS (oips_accept) and StreamKmeans
+    (streamkmeans_pass), and once more for each prologue warmed before its
+    capture, and no kernel for the others, no host read, and the
+    posterior equals the same stream's on the CPU (float32) within 1e-3 of
+    its largest entry."""
     from agp_tpu_torch.utils.tensors import host_read
 
     rng = np.random.default_rng(0)
@@ -1082,12 +1084,16 @@ def test_cuda_online_stream_on_the_card(cuda_device, zalg):
             m, s = agt.online_train(m, X[i * 64:(i + 1) * 64], y[i * 64:(i + 1) * 64], state=s, iterations=5)
         return m, s
 
+    from agp_tpu_torch.training import graphs
+
     smoke.reset_launches(ck)
-    reads = host_read.reads
+    reads, warm = host_read.reads, graphs.tally["warm"]
     m, s = stream(cuda_device)
     torch.cuda.synchronize()
-    assert smoke.expect_launches(ck, zalg, {}) == 0
-    assert host_read.reads - reads == (2 if zalg in ("oips", "streamkmeans") else 0)
+    walks = 2 + graphs.tally["warm"] - warm
+    walk = {"oips": "oips_accept", "streamkmeans": "streamkmeans_pass"}.get(zalg)
+    assert smoke.expect_launches(ck, zalg, {walk: walks} if walk else {}) == (walks if walk else 0)
+    assert host_read.reads == reads
     assert m.Z.is_cuda and m.z_mask.is_cuda and s.mu.is_cuda and s.kmat["K_inv"].is_cuda
     mc, sc = stream("cpu")
     assert torch.equal(m.z_mask.cpu(), mc.z_mask)
@@ -1100,17 +1106,22 @@ def test_cuda_online_stream_on_the_card(cuda_device, zalg):
 @pytest.mark.cuda
 def test_cuda_online_default_adam(cuda_device):
     """The default Adam(0.01) on the card: the kernel's log parameters move,
-    the posterior and online_elbo stay finite, no kernel launch."""
+    the posterior and online_elbo stay finite, the OIPS walk launched once
+    for the later batch (and once for each prologue warmed before its
+    capture) and no other kernel."""
+    from agp_tpu_torch.training import graphs
+
     rng = np.random.default_rng(1)
     X = rng.uniform(-2, 2, size=(128, 2)).astype(np.float32)
     y = (np.sin(2 * X[:, 0]) + 0.5 * X[:, 1]).astype(np.float32)
     m = agt.OnlineSVGP.create(agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.05), agt.AnalyticVI(),
                               n_dim=2, capacity=32)
     smoke.reset_launches(ck)
-    s = None
+    s, warm = None, graphs.tally["warm"]
     for i in range(2):
         m, s = agt.online_train(m, X[i * 64:(i + 1) * 64], y[i * 64:(i + 1) * 64], state=s, iterations=8)
-    assert smoke.expect_launches(ck, "online adam", {}) == 0
+    walks = 1 + graphs.tally["warm"] - warm
+    assert smoke.expect_launches(ck, "online adam", {"oips_accept": walks}) == walks
     assert abs(float(torch.log(m.kernel.lengthscale[0]))) > 1e-3
     assert torch.isfinite(s.mu).all() and torch.isfinite(s.Sigma).all()
     assert np.isfinite(float(agt.online_elbo(m, s, X[64:], y[64:])))
@@ -1513,13 +1524,102 @@ def test_cuda_captured_mo_matches_eager(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_captured_online_matches_eager(cuda_device):
-    """Phase 59's check of one route (``chip_smoke.online_route_check``):
-    phase 27's stream batch by batch through ``online_train`` on captured
-    graphs bit-equal to the eager loop, one static carry for the stream,
-    no eager iteration and at most ceil(iterations / k) graph launches a
-    later batch, ``graphs.run_batch`` under sync debug "error"."""
-    smoke.online_route_check(agt, ck, cuda_device, "27")
+@pytest.mark.parametrize("label", ["27", "27 stream", "28 streamkmeans"])
+def test_cuda_captured_online_matches_eager(cuda_device, label):
+    """Phase 59's check of a route (``chip_smoke.online_route_check``):
+    phase 27's stream batch by batch through ``online_train`` and as one
+    ``online_train_stream``, and phase 28's StreamKmeans stream, on
+    captured graphs (each later batch's prologue one of them) bit-equal to
+    the eager loop, the accept walk once a later batch on each loop, one
+    static carry for the stream, no eager iteration and at most
+    ceil(iterations / k) + 1 graph launches a later batch, each later batch
+    whole under sync debug "error"."""
+    smoke.online_route_check(agt, ck, cuda_device, label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_captured_online_walks_match_plain(cuda_device, dtype):
+    """``oips_accept`` and ``streamkmeans_pass`` (csrc/online_select.cu)
+    against their plain versions on the same card tensors at the streaming
+    row's and the wide stream's shapes (``chip_smoke.walk_main_cases``) and
+    at the edge cases (a full buffer, no active slot, a point at exactly
+    rho or r^2, a point an earlier one of its batch stops:
+    ``chip_smoke.walk_edge_cases``): the same row_of_slot, or Z, mask and
+    counts, bit for bit, a second call too, each edge case's outcome, one
+    launch counted a call."""
+    cases = {**smoke.walk_main_cases(agt, cuda_device, dtype), **smoke.walk_edge_cases(cuda_device, dtype)}
+    for label, (kind, args) in cases.items():
+        name = "oips_accept" if kind == "oips" else "streamkmeans_pass"
+        before = getattr(ck, name).launches
+        got, again = smoke.walk_call(ck, kind, args), smoke.walk_call(ck, kind, args)
+        torch.cuda.synchronize()
+        assert getattr(ck, name).launches == before + 2, label
+        want = smoke.walk_call(ck, kind, args, plain=True)
+        for a, b, c in zip(got, want, again):
+            assert a.is_cuda and smoke.bit_equal(a, b) and smoke.bit_equal(a, c), label
+        smoke.check_walk_edge(label, kind, args, got)
+
+
+@pytest.mark.cuda
+def test_cuda_walk_wrappers_refuse(cuda_device):
+    """The walks' wrappers raise on what their kernels do not take: a
+    float16 gram, a mask of another dtype or shape, a non-contiguous
+    buffer."""
+    g = torch.rand(1, 4, 3, device=cuda_device)
+    gx, kx, kd = torch.rand(1, 4, 4, device=cuda_device), torch.ones(1, 4, device=cuda_device), torch.ones(1, 3,
+                                                                                                          device=cuda_device)
+    mask = torch.zeros(1, 3, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        ck.oips_accept(g.half(), gx.half(), kx.half(), kd.half(), mask, 0.8)
+    with pytest.raises(ValueError, match="mask"):
+        ck.oips_accept(g, gx, kx, kd, mask.float(), 0.8)
+    Z, X = torch.rand(1, 3, 2, device=cuda_device), torch.rand(4, 2, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.streamkmeans_pass(Z.transpose(1, 2).contiguous().transpose(1, 2), mask, torch.ones(1, 3, device=cuda_device),
+                             X, 1.0, 3)
+
+
+FRESH_PROLOGUE = """
+import sys, torch
+import agp_tpu_torch as agt
+from agp_tpu_torch.ops import cuda_kernels as ck
+from agp_tpu_torch.training import graphs
+from agp_tpu_torch import bench
+X, _, y = bench.online_data("cuda", n=4 * 256)
+zalg = None if sys.argv[1] == "oips" else agt.inducing.StreamKmeans(128, 0.25)
+m = agt.OnlineSVGP.create(agt.SqExponentialKernel(), agt.GaussianLikelihood.create(0.05), agt.AnalyticVI(),
+                          Zalg=zalg, n_dim=2, capacity=128, optimiser=None)
+s, counts = None, []
+for i in range(3):
+    before = dict(graphs.tally)
+    m, s = agt.online_train(m, X[i * 256:(i + 1) * 256], y[i * 256:(i + 1) * 256], state=s, iterations=20)
+    counts.append({k: graphs.tally[k] - before[k] for k in before})
+torch.cuda.synchronize()
+walk = ck.oips_accept if sys.argv[1] == "oips" else ck.streamkmeans_pass
+assert [c["warm"] for c in counts] == [0, 1, 0], counts
+assert walk.launches == 3, walk.launches  # batches 2 and 3, and the prologue's warm-up
+assert all(c["eager"] == 0 and c["replays"] == 3 for c in counts[1:]), counts
+assert bool(torch.isfinite(s.mu).all())
+print("FRESH_OK", counts)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["oips", "streamkmeans"])
+def test_cuda_captured_online_prologue_in_a_fresh_process(cuda_device, alg, tmp_path):
+    """In a fresh process, whose first accept walk is in the second
+    batch's prologue (warmed on copies of the carry before its capture,
+    ``graphs``' prologue warm-up): three batches of the streaming row, each
+    later one its prologue's graph and two windows, no eager iteration,
+    the walk launched once a later batch and once in the warm-up."""
+    import subprocess
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", FRESH_PROLOGUE, alg], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0 and "FRESH_OK" in proc.stdout, proc.stdout[-2000:] + proc.stderr[-4000:]
 
 
 @pytest.mark.cuda

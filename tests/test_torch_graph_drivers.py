@@ -28,6 +28,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 import agp_tpu as agp
 import agp_tpu_torch as agt
@@ -48,8 +49,10 @@ from torch_helpers import (
 # hyperparameter warm-up, 4-7 two replays of (marked, marked), 8 on the
 # marked graph and the unmarked last
 STEPS, ITERATIONS, CUT_K = 6, 9, 2
-# the streaming parity runs: batches of ON_B rows, ON_ITERS iterations each
+# the streaming parity runs: batches of ON_B rows, ON_ITERS iterations each,
+# with each inducing algorithm of test_torch_online's ALGS
 ON_B, ON_BATCHES, ON_ITERS = 10, 3, 6
+ONLINE_ALGS = ("oips", "unigrid", "webscale", "streamkmeans")
 F64 = dict(dtype=torch.float64, device="cpu")
 # tiny tensors: one intra-op thread runs them as fast, and keeps the suite's
 # parallel workers from oversubscribing the CPU
@@ -140,7 +143,7 @@ def online_reference():
     the same batches; and the default Adam's per-batch run."""
     X, _, y = reg_data()
     out = {}
-    for alg in ("oips", "unigrid"):
+    for alg in ONLINE_ALGS:
         mj, _ = models(alg)
         sj, per_batch = None, []
         for i in range(ON_BATCHES):
@@ -159,28 +162,34 @@ def online_reference():
     return X, y, out
 
 
-@pytest.mark.parametrize("alg", ["oips", "unigrid"])
+@pytest.mark.parametrize("alg", ONLINE_ALGS)
 def test_captured_online_matches_reference(alg, online_reference, monkeypatch):
     """``online_train`` batch by batch and ``online_train_stream`` over the
-    same 3 batches (each batch's iterations through ``graphs.run_batch``:
-    the warm-up step and replays of k on the first, replays of k alone on
-    the later ones) against the JAX package's drivers: eta1, eta2, mu and
+    same 3 batches (the first batch's iterations through
+    ``graphs.run_batch``: the warm-up step and replays of k; each later
+    batch's prologue, with its inducing update by each algorithm, and its
+    iterations replays of the capture's graphs, through ``run_batch`` or
+    ``run_stream``) against the JAX package's drivers: eta1, eta2, mu and
     Sigma at rtol 1e-8 (atol 1e-12) after every batch and after the
-    stream, the active slots identical."""
+    stream, the active slots identical (their points too, or within rtol
+    1e-12 for the k-means families' moved centres), one static carry."""
     monkeypatch.setattr(graphs, "STEPS_PER_GRAPH", CUT_K)
     X, y, ref = online_reference
     per_batch, (mjs, sjs) = ref[alg]
+    exact = alg in ("oips", "unigrid")  # a k-means family's moved centres: rtol 1e-12 (check_states)
     mt, st = models(alg)[1], None
     for i, (mj, sj) in enumerate(per_batch):
         before = dict(graphs.tally)
         mt, st = agt.online_train(mt, *map(torch.as_tensor, batch(X, y, i)), state=st, iterations=ON_ITERS)
-        check_states(mt, st, mj, sj, rtol=1e-8, msg=f"{alg} batch {i}")
+        check_states(mt, st, mj, sj, rtol=1e-8, exact_Z=exact, msg=f"{alg} batch {i}")
         if i:
             assert graphs.tally["eager"] == before["eager"] and graphs.tally["carries"] == before["carries"]
     n = ON_BATCHES * ON_B
+    before = dict(graphs.tally)
     ms, ss = agt.online_train_stream(models(alg)[1], X[:n].reshape(ON_BATCHES, ON_B, 2),
                                      y[:n].reshape(ON_BATCHES, ON_B), iterations=ON_ITERS)
-    check_states(ms, ss, mjs, sjs, rtol=1e-8, msg=f"{alg} stream")
+    check_states(ms, ss, mjs, sjs, rtol=1e-8, exact_Z=exact, msg=f"{alg} stream")
+    assert graphs.tally["carries"] == before["carries"] and graphs.tally["eager"] - before["eager"] <= 1
 
 
 def test_captured_online_adam_matches_reference(online_reference, monkeypatch):
@@ -299,6 +308,10 @@ def test_mo_launch_credits_at_real_k(hyper, stub):
         assert StubGraph.replays[0] == 6 and set(chunks.graphs) == {1, k}
 
 
+ONLINE_ZALGS = {"oips": None, "streamkmeans": lambda: agt.inducing.StreamKmeans(16, 0.25),
+                "webscale": lambda: agt.inducing.Webscale(8), "unigrid": lambda: agt.inducing.UniGridOnline(3)}
+
+
 def online_port(opt=None, lik="gaussian", alg=None):
     likelihood = agt.GaussianLikelihood.create(0.05) if lik == "gaussian" else agt.LogisticLikelihood.create()
     return agt.OnlineSVGP.create(agt.SqExponentialKernel(), likelihood, agt.AnalyticVI(), Zalg=alg, n_dim=2,
@@ -312,19 +325,28 @@ def stream_data(b=24, batches=4, lik="gaussian"):
     return X.reshape(batches, b, 2), (y if lik == "gaussian" else torch.sign(y)).reshape(batches, b)
 
 
-@pytest.mark.parametrize("opt,lik", [(None, "gaussian"), (None, "logistic"), ("default", "gaussian")])
-def test_online_bit_equal_and_one_capture_at_real_k(opt, lik, monkeypatch):
+@pytest.mark.parametrize("opt,lik,zalg", [(None, "gaussian", "oips"), (None, "logistic", "oips"),
+                                          ("default", "gaussian", "oips"), (None, "gaussian", "streamkmeans"),
+                                          (None, "gaussian", "webscale"), (None, "gaussian", "unigrid")])
+def test_online_bit_equal_and_one_capture_at_real_k(opt, lik, zalg, monkeypatch):
     """4 batches of 20 iterations at the real k, batch by batch and (no
     optimiser) as a stream: bit-equal in every leaf to the eager loop;
     one static carry for the whole run; after the first batch, no eager
-    iteration and ceil(20 / k) replays a batch, no new graph after the
-    second; the per-batch calls after a stream replay the stream's
-    capture."""
+    iteration and ceil(20 / k) + 1 replays a batch (the prologue's graph,
+    then the windows; with Adam the batch's end inside the last window),
+    no new graph after the second, the prologue warmed once on copies of
+    the carry before its capture (in the second batch); the stream
+    replays the per-batch calls' capture."""
     k, iters = graphs.STEPS_PER_GRAPH, 20
     Xs, ys = stream_data(lik=lik)
 
+    make = ONLINE_ZALGS[zalg]
+
+    def port():
+        return online_port(opt, lik, None if make is None else make())
+
     def per_batch(record=None):
-        m, s = online_port(opt, lik), None
+        m, s = port(), None
         for i in range(Xs.shape[0]):
             before = dict(graphs.tally)
             m, s = agt.online_train(m, Xs[i], ys[i], state=s, iterations=iters)
@@ -338,14 +360,16 @@ def test_online_bit_equal_and_one_capture_at_real_k(opt, lik, monkeypatch):
     all_equal(got, want, f"{opt} {lik} per batch")
     assert counts[0]["carries"] == 1 and sum(c["carries"] for c in counts) == 1
     for c in counts[1:]:
-        assert c["eager"] == 0 and c["replays"] == -(-iters // k), counts
+        assert c["eager"] == 0 and c["replays"] == -(-iters // k) + 1, counts
     assert all(c["graphs"] == 0 for c in counts[2:]), counts
+    assert [c["warm"] for c in counts] == [0, 1] + [0] * (len(counts) - 2), counts
     if opt is None:
         before = dict(graphs.tally)
-        stream = agt.online_train_stream(online_port(opt, lik), Xs, ys, iterations=iters)
+        stream = agt.online_train_stream(port(), Xs, ys, iterations=iters)
         all_equal(stream, want, f"{lik} stream")
         assert graphs.tally["carries"] == before["carries"] and graphs.tally["graphs"] == before["graphs"]
         assert graphs.tally["eager"] - before["eager"] == 1  # the first batch's first iteration
+        assert graphs.tally["warm"] == before["warm"]
 
 
 @pytest.mark.parametrize("held", [(), ("A",), ("likelihoods",)])
@@ -413,17 +437,32 @@ def test_failed_driver_capture_raises(monkeypatch):
 
 
 DRIVER_ROUTES = ["mo q2", "mo q1", "mo movgp", "mo hyper", "mo learnt_noise", "online gaussian", "online logistic",
-                 "online adam", "online unigrid"]
+                 "online adam", "online unigrid", "online webscale", "online streamkmeans", "online stream"]
+
+
+def kernel_stand_in(fn):
+    """A walk's wrapper run outside the dispatch mode: on the CPU it is
+    its plain version, a Python loop over the points; on the card one
+    kernel launch, which reads nothing back."""
+    def call(*args, **kw):
+        with _disable_current_modes():
+            return fn(*args, **kw)
+    return call
 
 
 @pytest.mark.parametrize("route", DRIVER_ROUTES)
 def test_driver_iterations_read_no_host(route, monkeypatch):
     """Every captured route of the drivers runs its iterations (the
-    warm-ups, replays of every pattern) under ``NoHostRead``; what it
-    leaves is finite."""
+    warm-ups, replays of every pattern) and, from the second streaming
+    batch on, the batch's prologue (save-old, the inducing update of each
+    algorithm, the masked kmat, fresh local variables) and, with Adam, its
+    end under ``NoHostRead``, the accept walks standing in for their
+    kernels; what it leaves is finite."""
     monkeypatch.setattr(graphs, "STEPS_PER_GRAPH", CUT_K)
+    for name in ("oips_accept", "streamkmeans_pass"):
+        monkeypatch.setattr(ck, name, kernel_stand_in(getattr(ck, name)))
     calls = []
-    for name in ("run", "run_hyper", "run_batch"):
+    for name in ("run", "run_hyper", "run_batch", "run_stream"):
         fn = getattr(graphs, name)
 
         def guarded(*args, _fn=fn, **kw):
@@ -441,10 +480,14 @@ def test_driver_iterations_read_no_host(route, monkeypatch):
     else:
         opt = "default" if which == "adam" else None
         lik = "logistic" if which == "logistic" else "gaussian"
-        alg = agt.inducing.UniGridOnline(3) if which == "unigrid" else None
-        Xs, ys = stream_data(lik=lik, batches=2)
+        alg = {"unigrid": agt.inducing.UniGridOnline(3), "webscale": agt.inducing.Webscale(8),
+               "streamkmeans": agt.inducing.StreamKmeans(12, 0.25)}.get(which)
+        Xs, ys = stream_data(lik=lik, batches=3)
         m, s = online_port(opt, lik, alg), None
-        for i in range(2):
-            m, s = agt.online_train(m, Xs[i], ys[i], state=s, iterations=ITERATIONS)
+        if which == "stream":
+            m, s = agt.online_train_stream(m, Xs, ys, iterations=ITERATIONS)
+        else:
+            for i in range(3):
+                m, s = agt.online_train(m, Xs[i], ys[i], state=s, iterations=ITERATIONS)
     assert calls and int(s.step) >= ITERATIONS
     assert all(bool(torch.isfinite(t).all()) for _, t in graphs._leaves(m, s) if t.is_floating_point())

@@ -5,11 +5,18 @@ OIPS and k-means equal its numpy versions, and each online update
 (oips_update, unigrid_update, webscale_update, streamkmeans_update) gives
 the same slots, mask and counts as the reference's on the same inputs,
 with the tie rules (the first inactive slot, a stable farthest-first
-order) and one host read a batch for the two that decide on the host.
+order) and no host read: OIPS's and StreamKmeans' walks (their plain
+versions here, ``oips_accept_reference`` and
+``streamkmeans_pass_reference``; the CUDA kernels are held to them on the
+card, ``tests/test_torch_cuda.py``) in float64 and float32, on random
+batches and on the edge cases (a full buffer, no active slot, a point at
+exactly rho or r^2, a point that the slots alone would let through and
+an earlier point of its batch stops).
 
 Tolerances: a selection of input rows is compared exactly; a computed
 point (k-means centres, grid nodes, moved centres) at rtol 1e-12, the same
-float64 arithmetic in another summation order."""
+float64 arithmetic in another summation order; in float32 at rtol 1e-6
+(the same operations, XLA's and PyTorch's grams apart)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -137,23 +144,89 @@ def slots(cap, d, active, seed=0):
     return Z, mask, mask.astype(np.float64)
 
 
+DTYPES = {"float64": (torch.float64, np.float64), "float32": (torch.float32, np.float32)}
+
+
+def oips_both(kj, kt, Z, mask, Xb, rho, dtype):
+    """The reference's oips_update (jitted) and the port's, in ``dtype``:
+    (Zj, mj, Zt, mt) as numpy arrays; the port's read nothing back."""
+    td, nd = DTYPES[dtype]
+    Zj, mj = jax.jit(lambda Z, m, x: ja.oips_update(kj, Z, m, x, rho))(jnp.asarray(Z, nd), jnp.asarray(mask),
+                                                                      jnp.asarray(Xb, nd))
+    reads = host_read.reads
+    Zt, mt = ta.oips_update(kt, torch.as_tensor(Z, dtype=td), torch.as_tensor(mask), torch.as_tensor(Xb, dtype=td),
+                            rho)
+    assert host_read.reads == reads and Zt.dtype == td
+    return np.asarray(Zj), np.asarray(mj), Zt.numpy(), mt.numpy()
+
+
+def kernels_in(name, ls, dtype):
+    kj, kt = kernel_pair(name, ls)
+    td, nd = DTYPES[dtype]
+    return (kj.replace(lengthscale=kj.lengthscale.astype(nd), variance=kj.variance.astype(nd)),
+            kt.to(dtype=td))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("active", [[True] * 5, [True, False, True, False, True], [], [True] * 16])
 @pytest.mark.parametrize("kernel", [("SqExponentialKernel", 0.6), ("Matern12Kernel", 0.9)])
-def test_oips_update_matches_reference(active, kernel):
+def test_oips_update_matches_reference(active, kernel, dtype):
     """The same accepted points in the same slots, the first inactive ones
-    in order (holes in the mask filled first), as the reference's scan;
-    one host read a batch; a full buffer accepts nothing."""
-    kj, kt = kernel_pair(*kernel)
+    in order (holes in the mask filled first), as the reference's scan, in
+    float64 and float32; no host read; a full buffer accepts nothing."""
+    kj, kt = kernels_in(*kernel, dtype)
     Z, mask, _ = slots(16, 2, active)
     Xb = np.random.RandomState(4).uniform(-2, 2, size=(24, 2))
-    Zj, mj = jax.jit(lambda Z, m, x: ja.oips_update(kj, Z, m, x, 0.5))(jnp.asarray(Z), jnp.asarray(mask),
-                                                                      jnp.asarray(Xb))
-    reads = host_read.reads
-    Zt, mt = ta.oips_update(kt, t64(Z), torch.as_tensor(mask), t64(Xb), 0.5)
-    assert host_read.reads - reads == 1
-    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
-    np.testing.assert_array_equal(Zt.numpy(), np.asarray(Zj))
+    Zj, mj, Zt, mt = oips_both(kj, kt, Z, mask, Xb, 0.5, dtype)
+    np.testing.assert_array_equal(mt, mj)
+    np.testing.assert_array_equal(Zt, Zj)
     assert int(mt.sum()) > len(active) or len(active) == 16
+
+
+def oips_edge(case):
+    """(Z, mask, X batch, rho) of an OIPS edge case, on dyadic points so
+    that every distance is exact in both packages: "full" (no free slot),
+    "none_active" (the first point is always accepted), "exactly_rho" (a
+    point equal to an active slot, correlation exactly 1, at rho = 1: not
+    accepted; the others are), "row_rejects" (two batch points close to
+    each other and far from every slot: the first is accepted, and its row
+    stops the second, which the slots alone would accept)."""
+    Z = np.zeros((8, 2))
+    Z[:3] = [[4.0, 4.0], [-4.0, 4.0], [4.0, -4.0]]
+    mask = np.zeros(8, bool)
+    mask[:3] = True
+    Xb = np.array([[0.0, 0.0], [0.25, 0.0], [-4.0, -4.0], [4.0, 4.0], [0.5, 0.5]])
+    if case == "full":
+        return np.random.RandomState(1).uniform(-2, 2, size=(8, 2)), np.ones(8, bool), Xb, 0.9
+    if case == "none_active":
+        return Z, np.zeros(8, bool), Xb, 0.5
+    if case == "exactly_rho":
+        return Z, mask, Xb, 1.0
+    return Z, mask, Xb, 0.9
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["full", "none_active", "exactly_rho", "row_rejects"])
+def test_oips_walk_edge_cases(case, dtype):
+    """The plain walk against the reference's scan on each edge case of
+    ``oips_edge``, in float64 and float32: the same slots taken, the same
+    rows in them, and the case's own outcome."""
+    kj, kt = kernels_in("SqExponentialKernel", 1.0, dtype)
+    Z, mask, Xb, rho = oips_edge(case)
+    Zj, mj, Zt, mt = oips_both(kj, kt, Z, mask, Xb, rho, dtype)
+    np.testing.assert_array_equal(mt, mj)
+    np.testing.assert_array_equal(Zt, Zj)
+    taken = [tuple(z) for z in Zt[mt & ~mask]]
+    if case == "full":
+        assert mt.all() and (Zt == Z.astype(Zt.dtype)).all()
+    elif case == "none_active":
+        assert taken[0] == (0.0, 0.0) and len(taken) == 3  # (0.25, 0) and (0.5, 0.5) stopped by (0, 0)
+    elif case == "exactly_rho":
+        assert (4.0, 4.0) not in taken and len(taken) == 4
+    else:
+        g = kt.gram(torch.as_tensor(Xb[1:2], dtype=DTYPES[dtype][0]), torch.as_tensor(Z[:3], dtype=DTYPES[dtype][0]))
+        assert float(g.max()) / 1.3 < rho  # the slots alone let (0.25, 0) through
+        assert (0.0, 0.0) in taken and (0.25, 0.0) not in taken
 
 
 def test_unigrid_update_matches_reference():
@@ -205,20 +278,93 @@ def test_webscale_update_moves_centres_to_cluster_means():
     assert float(counts.min()) > 100
 
 
+def streamkmeans_both(Z, mask, counts, Xb, r2, cap, dtype):
+    """The reference's streamkmeans_update (jitted) and the port's, in
+    ``dtype``: (Zj, mj, cj, Zt, mt, ct) as numpy arrays; the port's read
+    nothing back."""
+    td, nd = DTYPES[dtype]
+    f = jax.jit(lambda Z, m, c, x: ja.streamkmeans_update(Z, m, c, x, r2, cap))
+    Zj, mj, cj = f(jnp.asarray(Z, nd), jnp.asarray(mask), jnp.asarray(counts, nd), jnp.asarray(Xb, nd))
+    reads = host_read.reads
+    Zt, mt, ct = ta.streamkmeans_update(torch.as_tensor(Z, dtype=td), torch.as_tensor(mask),
+                                        torch.as_tensor(counts, dtype=td), torch.as_tensor(Xb, dtype=td), r2, cap)
+    assert host_read.reads == reads and Zt.dtype == ct.dtype == td
+    return np.asarray(Zj), np.asarray(mj), np.asarray(cj), Zt.numpy(), mt.numpy(), ct.numpy()
+
+
+def check_streamkmeans(got, dtype):
+    Zj, mj, cj, Zt, mt, ct = got
+    np.testing.assert_array_equal(mt, mj)
+    np.testing.assert_allclose(Zt, Zj, rtol=1e-12 if dtype == "float64" else 1e-6, atol=1e-15)
+    np.testing.assert_array_equal(ct, cj)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("active,cap", [([True], None), ([True, False, True], None), ([True] * 6, 7), ([], None)])
-def test_streamkmeans_update_matches_reference(active, cap):
-    """Opened and absorbing centres (rtol 1e-12), mask and counts equal to
-    the reference's scan; one host read a batch."""
+def test_streamkmeans_update_matches_reference(active, cap, dtype):
+    """Opened and absorbing centres (rtol 1e-12; float32 1e-6), mask and
+    counts equal to the reference's scan, in float64 and float32; no host
+    read."""
     Z, mask, counts = slots(12, 2, active, seed=3)
     Xb = np.random.RandomState(6).uniform(-2, 2, size=(25, 2))
-    f = jax.jit(lambda Z, m, c, x: ja.streamkmeans_update(Z, m, c, x, 0.6, cap))
-    Zj, mj, cj = f(jnp.asarray(Z), jnp.asarray(mask), jnp.asarray(counts), jnp.asarray(Xb))
-    reads = host_read.reads
-    Zt, mt, ct = ta.streamkmeans_update(t64(Z), torch.as_tensor(mask), t64(counts), t64(Xb), 0.6, cap)
-    assert host_read.reads - reads == 1
-    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
-    np.testing.assert_allclose(Zt.numpy(), np.asarray(Zj), rtol=1e-12, atol=1e-15)
-    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    check_streamkmeans(streamkmeans_both(Z, mask, counts, Xb, 0.6, cap, dtype), dtype)
+
+
+def streamkmeans_edge(case):
+    """(Z, mask, counts, X batch, r2, cap) of a StreamKmeans edge case, on
+    dyadic points (every distance exact in both packages): "full" (cap
+    reached: every point absorbed), "none_active" (the first point opens a
+    centre), "exactly_r2" (a point at squared distance exactly r2 from its
+    nearest centre: absorbed, not opened), "row_rejects" (a point far from
+    every centre opens one, and a later point near it, which the centres
+    before the batch would open another for, is absorbed by it)."""
+    Z = np.zeros((6, 2))
+    Z[:2] = [[0.0, 0.0], [8.0, 8.0]]
+    mask = np.zeros(6, bool)
+    mask[:2] = True
+    counts = mask.astype(np.float64) * 2.0
+    if case == "full":
+        return Z, mask, counts, np.array([[4.0, 4.0], [-4.0, 0.0], [0.5, 0.0]]), 1.0, 2
+    if case == "none_active":
+        return Z, np.zeros(6, bool), np.zeros(6), np.array([[1.0, 1.0], [1.5, 1.0], [-3.0, 2.0]]), 1.0, None
+    if case == "exactly_r2":
+        return Z, mask, counts, np.array([[1.0, 0.0], [8.0, 7.0], [0.0, 0.5]]), 1.0, None
+    return Z, mask, counts, np.array([[4.0, -4.0], [4.5, -4.0], [0.25, 0.0]]), 1.0, None
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["full", "none_active", "exactly_r2", "row_rejects"])
+def test_streamkmeans_walk_edge_cases(case, dtype):
+    """The plain walk against the reference's scan on each edge case of
+    ``streamkmeans_edge``, in float64 and float32: Z, the mask and the
+    counts, and the case's own outcome."""
+    Z, mask, counts, Xb, r2, cap = streamkmeans_edge(case)
+    got = streamkmeans_both(Z, mask, counts, Xb, r2, cap, dtype)
+    check_streamkmeans(got, dtype)
+    mt, ct = got[4], got[5]
+    if case == "full":
+        assert int(mt.sum()) == 2 and ct.sum() == counts.sum() + 3
+    elif case == "none_active":
+        assert mt[:2].all() and int(mt.sum()) == 2 and list(ct[:2]) == [2.0, 1.0]
+    elif case == "exactly_r2":
+        assert int(mt.sum()) == 2 and list(ct[:2]) == [4.0, 3.0]
+    else:
+        assert int(mt.sum()) == 3 and ct[2] == 2.0
+
+
+def test_streamkmeans_pass_refuses_cap_over_the_buffer():
+    """The walk's wrapper takes cap <= Mc, the rule
+    ``streamkmeans_update_latents`` clamps to: past it, the plain version
+    would open over an active centre where the kernel absorbs."""
+    from agp_tpu_torch.ops import cuda_kernels
+
+    Z = torch.zeros(1, 2, 2, dtype=torch.float64)
+    mask = torch.ones(1, 2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="cap 3 exceeds"):
+        cuda_kernels.streamkmeans_pass(Z, mask, torch.ones(1, 2, dtype=torch.float64), t64([[9.0, 9.0]]), 1.0, 3)
+    Z2, m2, c2 = ta.streamkmeans_update_latents(Z, mask, torch.ones(1, 2, dtype=torch.float64), t64([[9.0, 9.0]]),
+                                                1.0, cap=3)
+    assert bool(m2.all()) and c2[0].tolist() == [2.0, 1.0]
 
 
 def test_streamkmeans_update_opens_and_absorbs():

@@ -12,6 +12,7 @@ its hyperparameter gradient against ``jax.grad`` of the reference's
 ``moments_to_nat``, ``sqrt_expec_square_diff`` and ``besselk_half``; and
 every numerical configuration through the port's ``train``."""
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ import torch
 
 import agp_tpu as agp
 import agp_tpu_torch as agt
+import chip_smoke
 from agp_tpu.inference import numerical_vi as jnv
 from agp_tpu.inference.objective import objective as jax_objective
 from agp_tpu.kernels import to_unconstrained as jax_to_unconstrained
@@ -441,3 +443,75 @@ def test_softmax_likelihood_matches_jax():
     mc = agt.MCGP.create(t64(X), labels, agt.SqExponentialKernel(), lt, agt.HMCSampling(n_burnin=5, max_depth=3))
     s = agt.sample(mc, 5, generator=torch.Generator().manual_seed(0))
     assert s.shape == (5, K, 12) and torch.isfinite(s).all()
+
+
+# ------------------------------------------- ROADMAP queue 3 item 11
+# path 30's state on the card (float32) just before its first step after
+# which eta or Sigma's sgd trace held a non-finite value, with that step's
+# minibatch indices (chip_smoke.py phase 30, ``path30_first_nonfinite``)
+PATH30_STATE = Path(__file__).resolve().parent / "data" / "path30_first_nonfinite.npz"
+
+
+def path30_step(d):
+    """One float32 step of each package on the CPU from the dumped state,
+    on the dumped minibatch of path 30's data (``chip_smoke.flagship_data``,
+    N=200,000, D=20; the reference's ``variational_update`` takes the
+    minibatch directly, as its ``_vi_steps`` would after drawing it): the
+    JAX (model, state) after it and the port's."""
+    X, y = chip_smoke.flagship_data("cpu")
+    idx = torch.as_tensor(d["idx"].astype(np.int64))
+    xb, yb = X[idx], y[idx]
+    ls, var = (float(d[k].reshape(-1)[0]) for k in ("lengthscale", "variance"))
+    Z, trace = d["Z"][0], (d["opt_0"], d["opt_1"])
+    kj = agp.SqExponentialKernel(lengthscale=jnp.asarray(ls, jnp.float32), variance=jnp.asarray(var, jnp.float32))
+    mj = agp.SVGP.create(kj, agp.LogisticLikelihood.create(),
+                         agp.QuadratureSVI(4096, n_points=100, optimiser=optax_sgd(1e-3)), jnp.asarray(Z),
+                         optimiser=None)
+    sj = jax_init_state(mj, jnp.asarray(xb.numpy()), jnp.asarray(yb.numpy()))
+    opt = (sj.opt_state[0]._replace(trace=tuple(jnp.asarray(t) for t in trace)),) + tuple(sj.opt_state[1:])
+    sj = sj.replace(mu=jnp.asarray(d["mu"]), Sigma=jnp.asarray(d["Sigma"]), rho=jnp.asarray(d["rho"]), opt_state=opt)
+    out_j = jax.jit(jnv.variational_update)(mj, sj, jnp.asarray(xb.numpy()), jnp.asarray(yb.numpy()))
+    kt = agt.SqExponentialKernel(lengthscale=torch.tensor(ls), variance=torch.tensor(var))
+    mt = agt.SVGP.create(kt, agt.LogisticLikelihood.create(),
+                         agt.QuadratureSVI(4096, n_points=100, optimiser=agt.sgd(1e-3, 0.9)), torch.as_tensor(Z),
+                         optimiser=None)
+    st = agt.init_state(mt, xb, yb).replace(mu=torch.as_tensor(d["mu"]), Sigma=torch.as_tensor(d["Sigma"]),
+                                            rho=torch.as_tensor(d["rho"]),
+                                            opt_state=tuple(torch.as_tensor(t) for t in trace))
+    return out_j, tnv.variational_update(mt, st, xb, yb), st
+
+
+def finite(*arrays):
+    return all(bool(np.isfinite(np.asarray(a)).all()) for a in arrays)
+
+
+def test_path30_nonfinite_step_is_the_references():
+    """ROADMAP queue 3 item 11, kept on purpose: path 30's float32 step on
+    the card from the state dumped just before it (``PATH30_STATE``, step
+    65 on the eager and the captured loop alike) left eta non-finite.
+    From that state one float32 step of each package on the CPU, on that
+    step's minibatch, stays finite, and the two agree with each other and
+    with the card's step within float32's noise (mu within 1e-5 of its
+    largest entry, Sigma within 1e-5).  Sigma is singular to float32
+    before the step and after it on the card (its smallest eigenvalue
+    within 1e-7 of its largest, either sign), so whether a float32
+    Cholesky factor of it exists is rounding: the reference's own
+    ``moments_to_nat`` on the card's step, (mu, Sigma) as the card left
+    them, gives a NaN eta too, as the card's does (both factor the
+    symmetrized Sigma and put NaN where the factor fails).  The card's NaN
+    is the reference's behaviour met on the card's rounding."""
+    d = np.load(PATH30_STATE)
+    (_, sj), (_, st), _ = path30_step(d)
+    assert finite(sj.eta1, sj.eta2, *sj.opt_state[0].trace)
+    assert finite(st.eta1.numpy(), st.eta2.numpy(), *[t.numpy() for t in st.opt_state])
+    scale = float(np.abs(d["after_mu"]).max())
+    for a, b in ((np.asarray(sj.mu), st.mu.numpy()), (np.asarray(sj.mu), d["after_mu"]), (st.mu.numpy(), d["after_mu"])):
+        assert float(np.abs(a - b).max()) <= 1e-5 * scale
+    for a, b in ((np.asarray(sj.Sigma), st.Sigma.numpy()), (np.asarray(sj.Sigma), d["after_Sigma"])):
+        assert float(np.abs(a - b).max()) <= 1e-5
+    for S in (d["Sigma"][0], d["after_Sigma"][0]):
+        ev = np.linalg.eigvalsh(S.astype(np.float64))
+        assert abs(ev.min()) <= 1e-7 * ev.max()
+    assert not finite(d["after_eta1"]) and not bool(d["after_eta2_finite"])
+    eta1, eta2 = jax.vmap(jlinalg.moments_to_nat)(jnp.asarray(d["after_mu"]), jnp.asarray(d["after_Sigma"]))
+    assert not finite(eta1) and not finite(eta2)
